@@ -1,0 +1,592 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`paddle_tpu_torch`) end to end on one GPU.
+
+    python3 chip_smoke.py            # every phase, exit 0 only if all pass
+    python3 chip_smoke.py --kernels  # phases 1-3 only (build + kernel checks)
+
+Phases:
+ 1. card      name and power limit from nvidia-smi, torch/CUDA versions
+ 2. build     nvcc builds every kernel from paddle_tpu_torch/csrc, timed
+ 3. kernels   each kernel's wrapper against its plain PyTorch version on
+              the card at the main path's shapes (max abs error, kernel
+              ms, plain ms, the least time the card could take, and one
+              PyTorch library call where one computes the same function)
+ 4. model     GPT-2 small (GPTConfig() defaults, fp32, seed 0): a [2,1024]
+              full forward through the flash kernel against the plain path
+ 5. serving   GenerationEngine (8 slots, page 16, buckets 16/64/256/1024)
+              serving 16 greedy streamed requests, some joining while
+              others decode; every output token-identical to the port's
+              own generate(); kernel launch counts read off this run
+Then one JSON line describing the kernels, and as the last line
+{"ok": true, "device": {...}}. Any failed phase exits 1 with no result;
+no CUDA device, or no paddle_tpu_torch next to this file, exits 2.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+import traceback
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+
+K1_SHAPE = dict(B=8, H=12, D=64, P=16, PP=64)
+K2_SHAPE = dict(B=2, H=12, S=1024, D=64)
+
+
+def _smi() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable ({e})"
+
+
+def _time_ms(torch, fn, iters, flush=None):
+    """Mean device ms of `fn` over `iters` launches, CUDA events around
+    each; `flush` (untimed) runs before each launch to evict the L2."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        total += s.elapsed_time(e)
+    return total / iters
+
+
+class Smoke:
+    def __init__(self, args):
+        import torch
+        self.torch = torch
+        self.args = args
+        self.failures = []
+        self.kernel_rows = {}
+        self.details = {}
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.l2 = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+
+    def flush(self):
+        self.l2.zero_()
+
+    def phase(self, name, fn):
+        print(f"== phase {name}", flush=True)
+        t0 = time.perf_counter()
+        try:
+            fn()
+            print(f"== phase {name} ok ({time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+            return True
+        except Exception:  # noqa: BLE001 — recorded, the run exits 1
+            traceback.print_exc()
+            self.failures.append(name)
+            print(f"== phase {name} FAILED", flush=True)
+            return False
+
+    # -- 1. card --------------------------------------------------------------
+
+    def card(self):
+        torch = self.torch
+        self.smi = _smi()
+        print(f"card: {self.smi}")
+        print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+              f"python {sys.version.split()[0]} devices "
+              f"{torch.cuda.device_count()}")
+
+    # -- 2. build -------------------------------------------------------------
+
+    def build(self):
+        from paddle_tpu_torch.ops import _build
+        secs = _build.build()
+        print(f"build: {len(_build.SOURCES)} sources in {secs:.1f} s "
+              f"({_build.build_dir()})")
+        for src in _build.SOURCES:
+            for line in _build.ptxas_log(src).splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {src}: {line.strip()}")
+        self.details["build_s"] = secs
+
+    # -- 3. kernels against their plain versions --------------------------------
+
+    def k1_inputs(self, dtype, seed=0):
+        torch = self.torch
+        B, H, D, P, PP = (K1_SHAPE[k] for k in ("B", "H", "D", "P", "PP"))
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        N = B * PP + 1
+        lens = torch.randint(1, PP * P + 1, (B,), generator=g, device="cuda")
+        kp = torch.randn(H, N, P, D, generator=g, device="cuda").to(dtype)
+        vp = torch.randn(H, N, P, D, generator=g, device="cuda").to(dtype)
+        kp[:, 0] = 1e4   # scratch-page junk: must never reach the result
+        vp[:, 0] = 1e4
+        perm = torch.randperm(N - 1, generator=g, device="cuda") + 1
+        pt = torch.zeros(B, PP, dtype=torch.int32, device="cuda")
+        for b in range(B):
+            n = -(-int(lens[b]) // P)
+            pt[b, :n] = perm[b * PP:b * PP + n].int()
+        q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
+        pos = (lens - 1).int()
+        return q, kp, vp, pt, pos, lens
+
+    def check_k1(self):
+        torch = self.torch
+        from paddle_tpu_torch.ops import paged_ops as po
+        H, D = K1_SHAPE["H"], K1_SHAPE["D"]
+        scale = 1.0 / D ** 0.5
+        rows = []
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
+            q, kp, vp, pt, pos, lens = self.k1_inputs(dtype)
+            out = po.paged_attention(q, kp, vp, pt, pos, scale)
+            # the plain version in float32 on the same inputs, then
+            # rounded to the kernel's output type
+            ref = po.paged_attention_plain(q.float(), kp.float(),
+                                           vp.float(), pt, pos,
+                                           scale).to(dtype)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            ms = _time_ms(torch, lambda: po.paged_attention(
+                q, kp, vp, pt, pos, scale), 50, self.flush)
+            plain_ms = _time_ms(torch, lambda: po.paged_attention_plain(
+                q, kp, vp, pt, pos, scale), 10, self.flush)
+            item = q.element_size()
+            toks = int(lens.sum())
+            nbytes = (2 * toks * H * D * item + 2 * q.numel() * item
+                      + pt.numel() * 4 + pos.numel() * 4)
+            flops = 4 * toks * H * D
+            name = str(dtype).replace("torch.", "")
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[name] * 1e3
+            row = dict(dtype=name, max_abs_err=err, tol=tol, ms=ms,
+                       plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else
+                       "operations", library_ms=None, tokens=toks)
+            rows.append(row)
+            print(f"K1 paged_attention {name} B=8 H=12 D=64 P=16 PP=64 "
+                  f"len sum {toks}: max_abs_err {err:.3e} (tol {tol}) "
+                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            assert err <= tol, f"K1 {name} disagrees with its plain version"
+        self.details["k1"] = rows
+        self.kernel_rows["paged_attention"] = rows[0]
+
+    def k2_inputs(self, dtype, causal, padded, seed=1):
+        torch = self.torch
+        B, H, S, D = (K2_SHAPE[k] for k in ("B", "H", "S", "D"))
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        q, k, v = (torch.randn(B, H, S, D, generator=g, device="cuda")
+                   .to(dtype) for _ in range(3))
+        bias = None
+        if padded:
+            bias = torch.zeros(B, S, device="cuda")
+            bias[0, 700:] = -1e30
+            # non-causal: a fully masked batch row (uniform output rows);
+            # causal: key 0 stays visible to every query
+            bias[1, 300 if causal else 0:] = -1e30
+        return q, k, v, bias
+
+    def check_k2(self):
+        torch = self.torch
+        import torch.nn.functional as TF
+        from paddle_tpu_torch.ops import flash_ops as fo
+        B, H, S, D = (K2_SHAPE[k] for k in ("B", "H", "S", "D"))
+        scale = 1.0 / D ** 0.5
+        rows = []
+        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 1e-2)):
+            for causal in (True, False):
+                for padded in (False, True):
+                    q, k, v, bias = self.k2_inputs(dtype, causal, padded)
+                    out, lse = fo.flash_attention_fwd(q, k, v, bias, causal,
+                                                      scale)
+                    ref = fo._sdpa_reference(q, k, v, bias, causal, scale)
+                    ref_lse = fo._lse_reference(q, k, bias, causal, scale)
+                    torch.cuda.synchronize()
+                    err = (out.float() - ref.float()).abs().max().item()
+                    lse_err = (lse - ref_lse).abs().max().item()
+                    ms = _time_ms(torch, lambda: fo.flash_attention_fwd(
+                        q, k, v, bias, causal, scale), 20)
+                    plain_ms = _time_ms(torch, lambda: (
+                        fo._sdpa_reference(q, k, v, bias, causal, scale),
+                        fo._lse_reference(q, k, bias, causal, scale)), 5)
+                    mask = None
+                    if padded or causal:
+                        mask = torch.zeros(B, 1, S, S, device="cuda")
+                        if padded:
+                            mask = mask + bias[:, None, None, :]
+                        if causal:
+                            mask = mask.masked_fill(torch.ones(
+                                S, S, dtype=torch.bool,
+                                device="cuda").triu(1), -1e30)
+                        mask = mask.to(dtype)
+                    lib_ms = _time_ms(torch, lambda: TF.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask), 20)
+                    item = q.element_size()
+                    nbytes = (4 * B * H * S * D * item + B * H * S * 4
+                              + (bias.numel() * 4 if padded else 0))
+                    pairs = S * (S + 1) // 2 if causal else S * S
+                    flops = 4 * B * H * pairs * D
+                    name = str(dtype).replace("torch.", "")
+                    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                    t_ops = flops / PEAK_FLOPS[name] * 1e3
+                    row = dict(dtype=name, causal=causal, padded=padded,
+                               max_abs_err=err, lse_err=lse_err, tol=tol,
+                               ms=ms, plain_ms=plain_ms,
+                               bound_ms=max(t_bytes, t_ops),
+                               bound_by="bytes" if t_bytes >= t_ops
+                               else "operations", library_ms=lib_ms)
+                    rows.append(row)
+                    print(f"K2 flash_fwd {name} causal={causal} "
+                          f"padded={padded} B=2 H=12 S=1024 D=64: max_abs_err "
+                          f"{err:.3e} lse_err {lse_err:.3e} (tol {tol}) "
+                          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                          f"library {lib_ms:.4f} ms bound "
+                          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+                    assert torch.isfinite(out.float()).all(), "K2 non-finite"
+                    assert err <= tol and lse_err <= tol, \
+                        f"K2 {name} causal={causal} padded={padded} " \
+                        f"disagrees with its plain version"
+        self.details["k2"] = rows
+        self.kernel_rows["flash_fwd"] = rows[0]   # fp32 causal, no bias
+
+    def kernels(self):
+        self.check_k1()
+        self.check_k2()
+
+    # -- 4. model --------------------------------------------------------------
+
+    def model(self):
+        torch = self.torch
+        from paddle_tpu_torch.framework.flags import set_flags
+        from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+        from paddle_tpu_torch.ops import flash_ops
+        cfg = GPTConfig()
+        self.gpt = GPTForCausalLM(cfg, device="cuda", seed=0).eval()
+        nparams = sum(p.numel() for p in self.gpt.parameters())
+        print(f"GPT: vocab {cfg.vocab_size} hidden {cfg.hidden_size} layers "
+              f"{cfg.num_layers} heads {cfg.num_heads} ffn "
+              f"{cfg.intermediate_size} positions "
+              f"{cfg.max_position_embeddings}: {nparams} parameters fp32")
+        g = torch.Generator(device="cuda").manual_seed(0)
+        ids = torch.randint(0, cfg.vocab_size, (2, 1024), generator=g,
+                            device="cuda")
+        with torch.inference_mode():
+            flash_ops.flash_attention_fwd.launches = 0
+            t0 = time.perf_counter()
+            lf = self.gpt(ids)
+            torch.cuda.synchronize()
+            t_flash = time.perf_counter() - t0
+            launches = flash_ops.flash_attention_fwd.launches
+            set_flags({"FLAGS_use_flash_attention": False})
+            try:
+                t0 = time.perf_counter()
+                lp = self.gpt(ids)
+                torch.cuda.synchronize()
+                t_plain = time.perf_counter() - t0
+            finally:
+                set_flags({"FLAGS_use_flash_attention": True})
+        err = (lf - lp).abs().max().item()
+        tol = 1e-3
+        print(f"model [2,1024] forward: logits max_abs_err flash vs plain "
+              f"{err:.3e} (tol {tol}), logit std {lp.std().item():.3f}, "
+              f"flash launches {launches}, wall {t_flash * 1e3:.1f} ms "
+              f"flash / {t_plain * 1e3:.1f} ms plain (first calls)")
+        assert tuple(lf.shape) == (2, 1024, cfg.vocab_size)
+        assert torch.isfinite(lf).all(), "non-finite logits"
+        assert launches == cfg.num_layers, \
+            f"flash kernel launched {launches} times, expected " \
+            f"{cfg.num_layers}"
+        assert err <= tol, "flash forward disagrees with the plain path"
+        self.details["model"] = dict(err=err, launches=launches)
+
+    # -- 5. serving ------------------------------------------------------------
+
+    def serving(self):
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.ops import flash_ops, paged_ops
+        from paddle_tpu_torch.serving import GenerationEngine
+        if not hasattr(self, "gpt"):
+            from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+            self.gpt = GPTForCausalLM(GPTConfig(), device="cuda",
+                                      seed=0).eval()
+        cfg = self.gpt.gpt.config
+        rng = np.random.RandomState(0)
+        n_req = 16
+        lens = [16, 900, 40, 700, 130, 300, 17, 520, 64, 800, 250, 33,
+                610, 90, 400, 880]
+        prompts = [rng.randint(0, cfg.vocab_size, size=(n,)) for n in lens]
+        new = [int(x) for x in rng.randint(32, 65, size=n_req)]
+        page, slots = 16, 8
+        num_pages = 1 + sum(-(-(s + m) // page)
+                            for s, m in zip(lens, new))
+        t0 = time.perf_counter()
+        eng = GenerationEngine(
+            self.gpt, device="cuda", name="chip_smoke", max_slots=slots,
+            page_size=page, num_pages=num_pages,
+            prefill_buckets=(16, 64, 256, 1024), max_new_tokens=64,
+            request_timeout_ms=0)
+        print(f"engine: {slots} slots, page {page}, {num_pages} pages "
+              f"({eng.stats()['pages']['hbm_bytes'] / 1e9:.2f} GB pools), "
+              f"built + warmed in {time.perf_counter() - t0:.1f} s")
+        # the main path starts here: every launch count from 0
+        paged_ops.paged_attention.launches = 0
+        flash_ops.flash_attention_fwd.launches = 0
+        arrivals = [[] for _ in range(n_req)]
+        submit_t = [0.0] * n_req
+        results = [None] * n_req
+        consumers = []
+
+        def consume(i, stream):
+            for _ in stream:
+                arrivals[i].append(time.perf_counter())
+            results[i] = stream.result()
+
+        def submit(i):
+            submit_t[i] = time.perf_counter()
+            st = eng.submit_stream(prompts[i], max_new_tokens=new[i])
+            th = threading.Thread(target=consume, args=(i, st), daemon=True)
+            th.start()
+            consumers.append(th)
+
+        t_start = time.perf_counter()
+        for i in range(slots):
+            submit(i)
+        joined_at = None
+        for i in range(slots, n_req):
+            # later requests join while the first batch decodes
+            while eng.stats()["steps"] < 4 * (i - slots + 1):
+                time.sleep(0.001)
+            if joined_at is None:
+                joined_at = eng.stats()["steps"]
+            submit(i)
+        for th in consumers:
+            th.join(600)
+        t_end = time.perf_counter()
+        stats = eng.stats()
+        eng.shutdown(drain=True, timeout_s=60)
+        k1 = paged_ops.paged_attention.launches
+        k2 = flash_ops.flash_attention_fwd.launches
+        gen_tokens = sum(len(a) for a in arrivals)
+        ttfts = [(a[0] - s) * 1e3 for a, s in zip(arrivals, submit_t)]
+        ttft = sorted(ttfts)
+        first, joined = sorted(ttfts[:slots]), sorted(ttfts[slots:])
+        tpot = sorted((a[-1] - a[0]) * 1e3 / (len(a) - 1)
+                      for a in arrivals if len(a) > 1)
+        wall = t_end - t_start
+        print(f"serving on {self.smi}: {n_req} requests, {gen_tokens} "
+              f"generated tokens in {wall:.3f} s = "
+              f"{gen_tokens / wall:.1f} tokens/s; TTFT p50 "
+              f"{ttft[len(ttft) // 2]:.2f} ms max {ttft[-1]:.2f} ms; TPOT "
+              f"p50 {tpot[len(tpot) // 2]:.3f} ms max {tpot[-1]:.3f} ms; "
+              f"{stats['steps']} decode steps, {stats['prefills']} "
+              f"prefills, first join at step {joined_at}; compiles "
+              f"{stats['compiles']}")
+        print(f"TTFT p50 of the first {slots} requests "
+              f"{first[len(first) // 2]:.2f} ms (their prefills run back to "
+              f"back), of the {len(joined)} that queued for a slot "
+              f"{joined[len(joined) // 2]:.2f} ms")
+        print(f"launches on the serving path: paged_attention {k1}, "
+              f"flash_fwd {k2}")
+        self.details["serving"] = dict(
+            tokens=gen_tokens, wall_s=wall, tokens_per_s=gen_tokens / wall,
+            ttft_ms=ttft, ttft_first_wave_ms=first, ttft_queued_ms=joined,
+            tpot_ms=tpot, steps=stats["steps"],
+            compiles=stats["compiles"])
+        self.kernel_rows.setdefault("paged_attention", {})["launches"] = k1
+        self.kernel_rows.setdefault("flash_fwd", {})["launches"] = k2
+        # checks: outputs, identity to generate(), launch counts, pages
+        mismatches = 0
+        for i, (p, out) in enumerate(zip(prompts, results)):
+            assert out is not None, f"request {i} produced no result"
+            assert out.shape == (lens[i] + new[i],), out.shape
+            ref = self.gpt.generate(p[None], max_new_tokens=new[i])[0]
+            ref = ref.cpu().numpy()
+            if not np.array_equal(out, ref):
+                mismatches += 1
+                step = int(np.nonzero(out != ref)[0][0]) - lens[i]
+                with torch.inference_mode():
+                    ctx = torch.as_tensor(ref[:lens[i] + step][None],
+                                          device="cuda")
+                    top2 = torch.topk(self.gpt(ctx)[0, -1], 2).values
+                print(f"request {i} (prompt {lens[i]}): first differing "
+                      f"step {step}, engine token {out[lens[i] + step]} vs "
+                      f"generate {ref[lens[i] + step]}, top-2 logit margin "
+                      f"{(top2[0] - top2[1]).item():.3e}")
+        assert mismatches == 0, f"{mismatches} requests differ from generate()"
+        assert k1 == stats["steps"] * cfg.num_layers, \
+            f"paged_attention launches {k1} != steps {stats['steps']} x " \
+            f"{cfg.num_layers} layers"
+        assert k2 > 0, "flash kernel never launched on the serving path"
+        assert eng.stats()["pages"]["pages_in_use"] == 0, "pages leaked"
+        assert joined_at is not None and joined_at > 0
+
+    # -- optional: where the serving time goes ---------------------------------
+
+    def profile(self):
+        """Prefill wall time per bucket, then torch.profiler over 20
+        decode steps of 8 live sequences: wall per step, device busy
+        share, device time by kernel."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        import numpy as np
+        from paddle_tpu_torch.models.gpt import gpt_prefill
+        from paddle_tpu_torch.serving import GenerationEngine
+        cfg = self.gpt.gpt.config
+        W = self.gpt.decode_weights()
+        H = cfg.num_heads
+        scale = 1.0 / (cfg.hidden_size // H) ** 0.5
+        with torch.inference_mode():
+            for b in (16, 64, 256, 1024):
+                ids = torch.zeros(1, b, dtype=torch.long, device="cuda")
+                gpt_prefill(W, ids, num_heads=H, scale=scale)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    gpt_prefill(W, ids, num_heads=H, scale=scale)
+                torch.cuda.synchronize()
+                print(f"prefill[b={b}] wall "
+                      f"{(time.perf_counter() - t0) / 5 * 1e3:.2f} ms")
+        # the decode step of 8 live slots at ~230 cached tokens each,
+        # called on this thread (the profiler sees this thread's launches)
+        eng = GenerationEngine(self.gpt, device="cuda", name="profile",
+                               max_slots=8, page_size=16, num_pages=8 * 20 + 1,
+                               prefill_buckets=(256,), max_new_tokens=64,
+                               request_timeout_ms=0)
+        eng.shutdown()
+        M, PP = 8, eng._cfg.pages_per_seq
+        pt = np.zeros((M, PP), np.int32)
+        for i in range(M):
+            pt[i] = eng._cache.alloc(1000 + i, 300)
+        args = (pt, np.arange(M, dtype=np.int64), np.full((M,), 230, np.int32),
+                np.ones((M,), bool), np.ones((M,), np.float32),
+                np.zeros((M,), bool))
+        steps = 20
+        with torch.inference_mode():
+            for _ in range(3):
+                eng._decode_call(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    eng._decode_call(*args)
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng._decode_call(*args)
+            torch.cuda.synchronize()
+            bare_ms = (time.perf_counter() - t0) * 1e3
+        def dev_us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+        ev = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+        dev = sum(dev_us(e) for e in ev)
+        print(f"decode step, 8 live slots at 230 cached tokens: wall "
+              f"{bare_ms / steps:.3f} ms/step unprofiled, "
+              f"{wall_ms / steps:.3f} ms/step profiled; device busy "
+              f"{dev / 1e3 / steps:.3f} ms/step = "
+              f"{dev / 1e3 / (bare_ms / steps) / steps * 100:.1f}% of the "
+              f"unprofiled wall; {sum(e.count for e in ev) / steps:.0f} "
+              f"kernels/step")
+        top = sorted(ev, key=dev_us, reverse=True)[:12]
+        for e in top:
+            print(f"  {dev_us(e) / 1e3 / steps:8.4f} ms/step "
+                  f"{e.count / steps:6.1f} calls/step  {e.key[:90]}")
+        self.details["profile"] = dict(
+            steps=steps, wall_ms_per_step=bare_ms / steps,
+            device_ms_per_step=dev / 1e3 / steps,
+            top=[(e.key, dev_us(e) / 1e3 / steps, e.count / steps)
+                 for e in top])
+
+    def kernels_line(self):
+        srcs = {"paged_attention": (
+                    "paddle_tpu_torch/csrc/paged_attention.cu",
+                    "jax/experimental/pallas/ops/tpu/paged_attention/"
+                    "paged_attention_kernel.py:376 (dispatched at "
+                    "paddle_tpu/ops/paged_ops.py:239)"),
+                "flash_fwd": ("paddle_tpu_torch/csrc/flash_fwd.cu",
+                              "paddle_tpu/ops/pallas_ops.py:143")}
+        out = []
+        for name, (src, rep) in srcs.items():
+            r = self.kernel_rows.get(name, {})
+            out.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": r.get("launches"),
+                        "max_abs_err": r.get("max_abs_err"),
+                        "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+                        "bound_ms": r.get("bound_ms"),
+                        "bound_by": r.get("bound_by"),
+                        "library_ms": r.get("library_ms")})
+        return {"kernels": out}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels", action="store_true",
+                    help="build and check the kernels only (phases 1-3)")
+    ap.add_argument("--profile", action="store_true",
+                    help="after serving, profile prefill and decode steps")
+    ap.add_argument("--details", default="",
+                    help="also write every measurement as JSON to this path")
+    args = ap.parse_args(argv)
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    if not (REPO / "paddle_tpu_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: paddle_tpu_torch not found beside {__file__}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    sm = Smoke(args)
+    sm.phase("card", sm.card)
+    built = sm.phase("build", sm.build)
+    if built:
+        sm.phase("kernels", sm.kernels)
+        if not args.kernels:
+            sm.phase("model", sm.model)
+            sm.phase("serving", sm.serving)
+            if args.profile:
+                sm.phase("profile", sm.profile)
+    if args.details:
+        os.makedirs(os.path.dirname(os.path.abspath(args.details)),
+                    exist_ok=True)
+        with open(args.details, "w") as f:
+            json.dump({"card": sm.smi, "details": sm.details}, f, indent=1)
+    if sm.failures or args.kernels:
+        print(f"chip_smoke: failed phases {sm.failures}" if sm.failures
+              else "chip_smoke: kernel phases only, no result")
+        return 1 if sm.failures else 0
+    print(json.dumps(sm.kernels_line()))
+    print(sm.smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,17 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu.
+
+This package imports `torch` and never `jax`, and nothing of
+`paddle_tpu`. Its entry points run on the CUDA card unless the caller
+passes `device="cpu"`; asking for the card where there is none raises.
+Each TPU kernel on the ported path is a hand-written CUDA kernel under
+`csrc/`, built by `nvcc` at its first launch (`ops/_build.py`), with a
+plain PyTorch version beside it that CPU tensors take.
+
+Ported so far: GPT generative serving — `models.GPTForCausalLM`,
+`serving.GenerationEngine` over `serving.PagedKVCache`, the paged decode
+attention kernel and the flash-attention forward kernel.
+"""
+from . import framework, models, nn, ops, serving  # noqa: F401
+from .framework import get_flags, set_flags  # noqa: F401
+
+__version__ = "0.1.0"

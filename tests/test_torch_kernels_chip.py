@@ -1,0 +1,60 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked `chip`: they skip where there is no CUDA device (the CPU suite)
+and run on the GPU with
+
+    python -m pytest --noconftest -m chip tests/test_torch_kernels_chip.py
+
+(`--noconftest`: the repository's conftest configures JAX, which the
+GPU machine does not have). Small shapes; chip_smoke.py checks the main
+path's shapes."""
+import pytest
+import torch
+
+from paddle_tpu_torch.ops import flash_ops, paged_ops
+
+pytestmark = pytest.mark.chip
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_paged_attention_kernel_matches_plain(cuda, D):
+    g = torch.Generator(device=cuda).manual_seed(D)
+    B, H, N, P, PP = 5, 3, 40, 8, 6
+    kp = torch.randn(H, N, P, D, generator=g, device=cuda)
+    vp = torch.randn(H, N, P, D, generator=g, device=cuda)
+    pt = torch.randint(1, N, (B, PP), generator=g, device=cuda).int()
+    pos = torch.tensor([0, 7, 8, 30, PP * P - 1], dtype=torch.int32,
+                       device=cuda)
+    q = torch.randn(B, H, D, generator=g, device=cuda)
+    n0 = paged_ops.paged_attention.launches
+    out = paged_ops.paged_attention(q, kp, vp, pt, pos, 0.125)
+    ref = paged_ops.paged_attention_plain(q, kp, vp, pt, pos, 0.125)
+    assert paged_ops.paged_attention.launches == n0 + 1
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_kernel_matches_plain(cuda, causal, D):
+    g = torch.Generator(device=cuda).manual_seed(D + causal)
+    q, k, v = (torch.randn(2, 3, 192, D, generator=g, device=cuda)
+               for _ in range(3))
+    bias = torch.zeros(2, 192, device=cuda)
+    bias[1, 150:] = -1e30
+    n0 = flash_ops.flash_attention_fwd.launches
+    out, lse = flash_ops.flash_attention_fwd(q, k, v, bias, causal, 0.2)
+    assert flash_ops.flash_attention_fwd.launches == n0 + 1
+    torch.testing.assert_close(
+        out, flash_ops._sdpa_reference(q, k, v, bias, causal, 0.2),
+        atol=1e-4, rtol=0)
+    torch.testing.assert_close(
+        lse, flash_ops._lse_reference(q, k, bias, causal, 0.2),
+        atol=1e-4, rtol=0)

@@ -1,0 +1,123 @@
+"""paddle_tpu_torch.ops.paged_ops held to paddle_tpu.ops.paged_ops.
+
+Same numpy inputs (seeded) through both packages on the CPU, where the
+JAX package takes its dense reference path and the port its plain
+version (the CUDA kernel runs only on the card). float32 throughout;
+attention outputs agree to atol 1e-5 (the two frameworks sum in other
+orders), the index arithmetic and scatters exactly."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import paged_ops as jpo
+from paddle_tpu_torch.ops import paged_ops as tpo
+
+
+def _pools(seed, H=3, N=20, P=4, D=16):
+    rng = np.random.RandomState(seed)
+    kp = rng.standard_normal((H, N, P, D)).astype(np.float32)
+    vp = rng.standard_normal((H, N, P, D)).astype(np.float32)
+    return kp, vp
+
+
+def _tables(seed, B=4, PP=5, N=20, P=4):
+    """Random page tables over pages 1..N-1 plus one parked slot (pos 0
+    on an all-scratch row), trash-padded past each sequence's pages."""
+    rng = np.random.RandomState(seed)
+    pt = np.zeros((B, PP), np.int32)
+    pos = np.zeros((B,), np.int32)
+    for b in range(B - 1):
+        length = int(rng.randint(1, PP * P + 1))
+        n = -(-length // P)
+        pt[b, :n] = rng.choice(np.arange(1, N), size=n, replace=False)
+        pos[b] = length - 1
+    return pt, pos       # the last row stays parked on the scratch page
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_paged_attention_plain_matches_jax_reference(seed):
+    kp, vp = _pools(seed)
+    # junk on the scratch page must contribute exactly nothing
+    kp[:, 0] = 50.0
+    vp[:, 0] = -50.0
+    pt, pos = _tables(seed + 100)
+    q = np.random.RandomState(seed + 200).standard_normal(
+        (pt.shape[0], kp.shape[0], kp.shape[-1])).astype(np.float32)
+    scale = 1.0 / np.sqrt(kp.shape[-1])
+    ref = np.asarray(jpo.paged_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(pt),
+        jnp.asarray(pos), scale))
+    launches = tpo.paged_attention.launches
+    out = tpo.paged_attention(torch.from_numpy(q), torch.from_numpy(kp),
+                              torch.from_numpy(vp), torch.from_numpy(pt),
+                              torch.from_numpy(pos), scale).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+    assert np.isfinite(out).all()
+    assert tpo.paged_attention.launches == launches   # CPU: plain path
+
+
+def test_cached_attention_scalar_and_vector_pos():
+    rng = np.random.RandomState(7)
+    q = rng.standard_normal((2, 3, 8)).astype(np.float32)
+    kb = rng.standard_normal((2, 3, 10, 8)).astype(np.float32)
+    vb = rng.standard_normal((2, 3, 10, 8)).astype(np.float32)
+    for pos in (4, np.array([2, 9], np.int32)):
+        ref = np.asarray(jpo.cached_attention(
+            jnp.asarray(q), jnp.asarray(kb), jnp.asarray(vb),
+            jnp.asarray(pos), 0.3))
+        tpos = torch.from_numpy(pos) if isinstance(pos, np.ndarray) else pos
+        out = tpo.cached_attention(torch.from_numpy(q), torch.from_numpy(kb),
+                                   torch.from_numpy(vb), tpos, 0.3).numpy()
+        np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+
+
+def test_paged_gather_matches():
+    kp, _ = _pools(5)
+    pt, _ = _tables(6)
+    ref = np.asarray(jpo.paged_gather(jnp.asarray(kp), jnp.asarray(pt)))
+    out = tpo.paged_gather(torch.from_numpy(kp), torch.from_numpy(pt))
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("shape", ["1d", "row", "block"])
+def test_page_rows_for_positions_equal(shape):
+    rng = np.random.RandomState(11)
+    P = 4
+    if shape == "1d":
+        table = rng.randint(1, 30, size=(6,)).astype(np.int32)
+        positions = np.arange(24, dtype=np.int32)
+    elif shape == "row":
+        table = rng.randint(1, 30, size=(3, 6)).astype(np.int32)
+        positions = np.array([0, 13, 23], np.int32)
+    else:
+        table = rng.randint(1, 30, size=(3, 6)).astype(np.int32)
+        positions = rng.randint(0, 24, size=(3, 5)).astype(np.int32)
+    jp, jo = jpo.page_rows_for_positions(jnp.asarray(table),
+                                         jnp.asarray(positions), P)
+    tp_, to = tpo.page_rows_for_positions(torch.from_numpy(table),
+                                          torch.from_numpy(positions), P)
+    np.testing.assert_array_equal(tp_.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+
+
+@pytest.mark.parametrize("layer", [1, None])
+def test_paged_write_equal(layer):
+    rng = np.random.RandomState(3)
+    L, H, N, P, D = 2, 3, 9, 4, 5
+    pages = rng.standard_normal((L, H, N, P, D)).astype(np.float32)
+    if layer is None:
+        ids = np.array([3, 3, 5, 7], np.int32)
+        offs = np.array([0, 1, 2, 3], np.int32)
+        vals = rng.standard_normal((L, H, 4, D)).astype(np.float32)
+    else:
+        ids = np.array([2, 6, 8], np.int32)
+        offs = np.array([1, 0, 3], np.int32)
+        vals = rng.standard_normal((3, H, D)).astype(np.float32)
+    ref = np.asarray(jpo.paged_write(jnp.asarray(pages), layer,
+                                     jnp.asarray(ids), jnp.asarray(offs),
+                                     jnp.asarray(vals)))
+    out = tpo.paged_write(torch.from_numpy(pages.copy()), layer,
+                          torch.from_numpy(ids), torch.from_numpy(offs),
+                          torch.from_numpy(vals))
+    np.testing.assert_array_equal(out.numpy(), ref)
