@@ -3,20 +3,33 @@
 
     python3 chip_smoke.py            # every phase, exit 0 only if all pass
     python3 chip_smoke.py --kernels  # phases 1-3 only (build + kernel checks)
+    python3 chip_smoke.py --profile  # also profile serving and a train step
 
 Phases:
  1. card      name and power limit from nvidia-smi, torch/CUDA versions
  2. build     nvcc builds every kernel from paddle_tpu_torch/csrc, timed
  3. kernels   each kernel's wrapper against its plain PyTorch version on
-              the card at the main path's shapes (max abs error, kernel
+              the card at the main paths' shapes (max abs error, kernel
               ms, plain ms, the least time the card could take, and one
-              PyTorch library call where one computes the same function)
+              PyTorch library call where one computes the same function):
+              K1 paged decode, K2 flash forward (serving shape, and the
+              training shape with dropout), K3 flash dQ and K4 flash
+              dK/dV (training shape, dropout 0 and 0.1, fp32 and bf16);
+              FlashAttention's gradients against autograd through the
+              plain forward; gradients reaching q/k/v through K2 (C4)
  4. model     GPT-2 small (GPTConfig() defaults, fp32, seed 0): a [2,1024]
               full forward through the flash kernel against the plain path
  5. serving   GenerationEngine (8 slots, page 16, buckets 16/64/256/1024)
               serving 16 greedy streamed requests, some joining while
               others decode; every output token-identical to the port's
               own generate(); kernel launch counts read off this run
+ 6. train     GPT-2 small (dropout 0.1, fp32) trained through
+              hapi.Model.fit: AdamW under LinearWarmup, global-norm clip,
+              cross-entropy, batch 8 x 1024, 20 steps over a seeded
+              learnable token set; the loss falls and stays finite, every
+              flash kernel launched 12 times a step; then one train_batch
+              through the kernels against one through the plain path
+              (dropout 0, [2, 1024]): loss and every gradient agree
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits 1 with no result;
 no CUDA device, or no paddle_tpu_torch next to this file, exits 2.
@@ -41,6 +54,9 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 K1_SHAPE = dict(B=8, H=12, D=64, P=16, PP=64)
 K2_SHAPE = dict(B=2, H=12, S=1024, D=64)
+TRAIN_SHAPE = dict(B=8, H=12, S=1024, D=64)   # the train phase's attention
+TRAIN_STEPS = 20
+DROPOUT = 0.1
 
 
 def _smi() -> str:
@@ -79,6 +95,7 @@ class Smoke:
         self.args = args
         self.failures = []
         self.kernel_rows = {}
+        self.path_launches = {}   # main path -> kernel -> launches
         self.details = {}
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -86,6 +103,20 @@ class Smoke:
 
     def flush(self):
         self.l2.zero_()
+
+    def _wrappers(self):
+        from paddle_tpu_torch.ops import flash_ops as fo, paged_ops as po
+        return {"paged_attention": po.paged_attention,
+                "flash_fwd": fo.flash_attention_fwd,
+                "flash_bwd_dq": fo.flash_attention_dq,
+                "flash_bwd_dkv": fo.flash_attention_dkv}
+
+    def zero_launches(self):
+        for w in self._wrappers().values():
+            w.launches = 0
+
+    def read_launches(self):
+        return {n: w.launches for n, w in self._wrappers().items()}
 
     def phase(self, name, fn):
         print(f"== phase {name}", flush=True)
@@ -214,16 +245,15 @@ class Smoke:
                     q, k, v, bias = self.k2_inputs(dtype, causal, padded)
                     out, lse = fo.flash_attention_fwd(q, k, v, bias, causal,
                                                       scale)
-                    ref = fo._sdpa_reference(q, k, v, bias, causal, scale)
-                    ref_lse = fo._lse_reference(q, k, bias, causal, scale)
+                    ref, ref_lse = fo._flash_fwd_reference(q, k, v, bias,
+                                                           causal, scale)
                     torch.cuda.synchronize()
                     err = (out.float() - ref.float()).abs().max().item()
                     lse_err = (lse - ref_lse).abs().max().item()
                     ms = _time_ms(torch, lambda: fo.flash_attention_fwd(
                         q, k, v, bias, causal, scale), 20)
-                    plain_ms = _time_ms(torch, lambda: (
-                        fo._sdpa_reference(q, k, v, bias, causal, scale),
-                        fo._lse_reference(q, k, bias, causal, scale)), 5)
+                    plain_ms = _time_ms(torch, lambda: fo._flash_fwd_reference(
+                        q, k, v, bias, causal, scale), 5)
                     mask = None
                     if padded or causal:
                         mask = torch.zeros(B, 1, S, S, device="cuda")
@@ -262,11 +292,206 @@ class Smoke:
                         f"K2 {name} causal={causal} padded={padded} " \
                         f"disagrees with its plain version"
         self.details["k2"] = rows
-        self.kernel_rows["flash_fwd"] = rows[0]   # fp32 causal, no bias
+
+    def train_inputs(self, dtype, causal, padded, seed=2):
+        """q, k, v, dO at the train phase's attention shape, and a key
+        bias whose masked tails leave every row some visible key."""
+        torch = self.torch
+        B, H, S, D = (TRAIN_SHAPE[k] for k in ("B", "H", "S", "D"))
+        g = torch.Generator(device="cuda").manual_seed(seed + 2 * causal)
+        q, k, v, do = (torch.randn(B, H, S, D, generator=g, device="cuda")
+                       .to(dtype) for _ in range(4))
+        bias = None
+        if padded:
+            bias = torch.zeros(B, S, device="cuda")
+            bias[0, 700:] = -1e30
+            bias[1, 300:] = -1e30
+        return q, k, v, do, bias
+
+    def _row(self, name, dtype, err, ref_max, tol, ms, plain_ms, flops,
+             nbytes, lib_ms, **extra):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        row = dict(dtype=dtype, max_abs_err=err, ref_max=ref_max, tol=tol,
+                   ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   library_ms=lib_ms, **extra)
+        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        print(f"{name} {dtype} " + " ".join(f"{k}={v}" for k, v in
+                                             extra.items())
+              + f": max_abs_err {err:.3e} (max |ref| {ref_max:.3e}, tol "
+              f"{tol} x max(1, max |ref|)) kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms library {lib} bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        assert err <= tol * max(1.0, ref_max), \
+            f"{name} {dtype} {extra} disagrees with its plain version"
+        return row
+
+    def check_train_kernels(self):
+        """K2 with dropout, K3 and K4 at the train phase's attention shape
+        against their plain versions on the same inputs and seed: fp32
+        and bf16, causal or not, p 0 and 0.1, and a padded bias. The
+        backward pair is fed the plain forward's O, LSE and delta, so
+        only the kernels' arithmetic differs. Tolerances, relative to
+        max(1, max |ref|): fp32 1e-4 (summation order), bf16 1e-2 (one
+        bf16 rounding of the output)."""
+        torch = self.torch
+        import torch.nn.functional as TF
+        from paddle_tpu_torch.ops import flash_ops as fo
+        B, H, S, D = (TRAIN_SHAPE[k] for k in ("B", "H", "S", "D"))
+        scale = 1.0 / D ** 0.5
+        seed = 1234
+        rows = {"fwd": [], "dq": [], "dkv": []}
+        cases = [(dt, c, p, False) for dt in ("float32", "bfloat16")
+                 for c in (True, False) for p in (0.0, DROPOUT)]
+        cases += [("float32", c, DROPOUT, True) for c in (True, False)]
+        lib = {}
+        for name, causal, p, padded in cases:
+            dtype = getattr(torch, name)
+            tol = 1e-4 if name == "float32" else 1e-2
+            q, k, v, do, bias = self.train_inputs(dtype, causal, padded)
+            tag = dict(causal=causal, p=p, padded=padded)
+            pairs = S * (S + 1) // 2 if causal else S * S
+            # bytes each kernel must move: its [B,H,S,D] operands read or
+            # written once, the [B*H,S] f32 statistics, the [B,S] bias
+            bh_sd = B * H * S * D * q.element_size()
+            row_b = B * H * S * 4
+            bias_b = B * S * 4 if padded else 0
+            if (name, causal) not in lib and not padded:
+                # the library yardsticks, p = 0: SDPA forward, and its
+                # backward under autograd timed as one call
+                ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+                fwd_ms = _time_ms(torch, lambda: TF.scaled_dot_product_attention(
+                    ql, kl, vl, is_causal=causal), 10)
+                ol = TF.scaled_dot_product_attention(ql, kl, vl,
+                                                     is_causal=causal)
+                bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
+                    ol, (ql, kl, vl), do, retain_graph=True), 10)
+                lib[(name, causal)] = (fwd_ms, bwd_ms)
+                del ql, kl, vl, ol
+            lib_fwd, lib_bwd = lib.get((name, causal), (None, None))
+            # K2
+            out, lse = fo.flash_attention_fwd(q, k, v, bias, causal, scale,
+                                              p, seed)
+            ref, ref_lse = fo._flash_fwd_reference(q, k, v, bias, causal,
+                                                   scale, p, seed)
+            torch.cuda.synchronize()
+            err = max((out.float() - ref.float()).abs().max().item(),
+                      (lse - ref_lse).abs().max().item())
+            assert torch.isfinite(out.float()).all(), "K2 non-finite"
+            rows["fwd"].append(self._row(
+                "K2 flash_fwd", name, err, ref.float().abs().max().item(),
+                tol, _time_ms(torch, lambda: fo.flash_attention_fwd(
+                    q, k, v, bias, causal, scale, p, seed), 10),
+                _time_ms(torch, lambda: fo._flash_fwd_reference(
+                    q, k, v, bias, causal, scale, p, seed), 3),
+                4 * B * H * pairs * D, 4 * bh_sd + row_b + bias_b,
+                lib_fwd if not padded else None, **tag))
+            del out, lse
+            delta = fo._delta(ref, do)
+            # K3
+            dq = fo.flash_attention_dq(q, k, v, bias, do, ref_lse, delta,
+                                       causal, scale, p, seed)
+            dq_ref = fo._dq_reference(q, k, v, bias, do, ref_lse, delta,
+                                      causal, scale, p, seed)
+            torch.cuda.synchronize()
+            assert torch.isfinite(dq.float()).all(), "K3 non-finite"
+            rows["dq"].append(self._row(
+                "K3 flash_dq", name, (dq.float() - dq_ref.float()).abs()
+                .max().item(), dq_ref.float().abs().max().item(), tol,
+                _time_ms(torch, lambda: fo.flash_attention_dq(
+                    q, k, v, bias, do, ref_lse, delta, causal, scale, p,
+                    seed), 10),
+                _time_ms(torch, lambda: fo._dq_reference(
+                    q, k, v, bias, do, ref_lse, delta, causal, scale, p,
+                    seed), 3),
+                3 * 2 * B * H * pairs * D, 5 * bh_sd + 2 * row_b + bias_b,
+                lib_bwd if not padded else None, **tag))
+            del dq, dq_ref
+            # K4
+            dk, dv = fo.flash_attention_dkv(q, k, v, bias, do, ref_lse,
+                                            delta, causal, scale, p, seed)
+            dk_ref, dv_ref = fo._dkv_reference(q, k, v, bias, do, ref_lse,
+                                               delta, causal, scale, p, seed)
+            torch.cuda.synchronize()
+            assert torch.isfinite(dk.float()).all() and \
+                torch.isfinite(dv.float()).all(), "K4 non-finite"
+            rows["dkv"].append(self._row(
+                "K4 flash_dkv", name, max(
+                    (dk.float() - dk_ref.float()).abs().max().item(),
+                    (dv.float() - dv_ref.float()).abs().max().item()),
+                max(dk_ref.float().abs().max().item(),
+                    dv_ref.float().abs().max().item()), tol,
+                _time_ms(torch, lambda: fo.flash_attention_dkv(
+                    q, k, v, bias, do, ref_lse, delta, causal, scale, p,
+                    seed), 10),
+                _time_ms(torch, lambda: fo._dkv_reference(
+                    q, k, v, bias, do, ref_lse, delta, causal, scale, p,
+                    seed), 3),
+                4 * 2 * B * H * pairs * D, 6 * bh_sd + 2 * row_b + bias_b,
+                lib_bwd if not padded else None, **tag))
+            del dk, dv, dk_ref, dv_ref, ref, ref_lse, delta
+            torch.cuda.empty_cache()
+        self.details["train_kernels"] = rows
+
+        def pick(rs):   # the train phase's case: fp32, causal, p 0.1
+            return next(r for r in rs if r["dtype"] == "float32"
+                        and r["causal"] and r["p"] == DROPOUT
+                        and not r["padded"])
+        self.kernel_rows["flash_fwd"] = pick(rows["fwd"])
+        self.kernel_rows["flash_bwd_dq"] = pick(rows["dq"])
+        self.kernel_rows["flash_bwd_dkv"] = pick(rows["dkv"])
+
+    def check_autograd(self):
+        """FlashAttention's gradients on the card (K2 forward, K3 + K4
+        backward) against autograd through the plain forward with the
+        same keep mask; then the C4 check: through
+        F.scaled_dot_product_attention with p = 0, gradients reach q, k
+        and v through K2 and match autograd through `_sdpa_ref`. fp32,
+        [2, 12, 1024, 64], causal; atol 1e-4 x max(1, max |grad|)."""
+        torch = self.torch
+        from paddle_tpu_torch.nn.functional import attention as attn
+        from paddle_tpu_torch.ops import flash_ops as fo
+        B, H, S, D = 2, 12, 1024, 64
+        g = torch.Generator(device="cuda").manual_seed(7)
+        q, k, v, do = (torch.randn(B, H, S, D, generator=g, device="cuda")
+                       for _ in range(4))
+        scale = 1.0 / D ** 0.5
+
+        def grads(fn):
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(fn(*ins), ins, do)
+
+        def compare(what, got, want):
+            for n, a, b in zip("qkv", got, want):
+                err = (a - b).abs().max().item()
+                mx = b.abs().max().item()
+                print(f"{what}: d{n} max_abs_err {err:.3e} (max |grad| "
+                      f"{mx:.3e}, tol 1e-4 x max(1, max |grad|))")
+                assert err <= 1e-4 * max(1.0, mx), f"{what} d{n} disagrees"
+
+        n3, n4 = fo.flash_attention_dq.launches, fo.flash_attention_dkv.launches
+        compare("FlashAttention p=0.1 vs autograd of the plain forward",
+                grads(lambda a, b, c: fo.FlashAttention.apply(
+                    a, b, c, None, 99, True, scale, DROPOUT)),
+                grads(lambda a, b, c: fo._flash_fwd_reference(
+                    a, b, c, None, True, scale, DROPOUT, 99)[0]))
+        assert fo.flash_attention_dq.launches == n3 + 1
+        assert fo.flash_attention_dkv.launches == n4 + 1
+        n2 = fo.flash_attention_fwd.launches
+        compare("C4: F.sdpa p=0 through K2 vs autograd of _sdpa_ref",
+                grads(lambda a, b, c: attn.scaled_dot_product_attention(
+                    a, b, c, is_causal=True, training=True)),
+                grads(lambda a, b, c: attn._sdpa_ref(
+                    a, b, c, None, scale, True)))
+        assert fo.flash_attention_fwd.launches == n2 + 1, \
+            "F.scaled_dot_product_attention did not launch K2"
 
     def kernels(self):
         self.check_k1()
         self.check_k2()
+        self.check_train_kernels()
+        self.check_autograd()
 
     # -- 4. model --------------------------------------------------------------
 
@@ -345,8 +570,7 @@ class Smoke:
               f"({eng.stats()['pages']['hbm_bytes'] / 1e9:.2f} GB pools), "
               f"built + warmed in {time.perf_counter() - t0:.1f} s")
         # the main path starts here: every launch count from 0
-        paged_ops.paged_attention.launches = 0
-        flash_ops.flash_attention_fwd.launches = 0
+        self.zero_launches()
         arrivals = [[] for _ in range(n_req)]
         submit_t = [0.0] * n_req
         results = [None] * n_req
@@ -408,8 +632,7 @@ class Smoke:
             ttft_ms=ttft, ttft_first_wave_ms=first, ttft_queued_ms=joined,
             tpot_ms=tpot, steps=stats["steps"],
             compiles=stats["compiles"])
-        self.kernel_rows.setdefault("paged_attention", {})["launches"] = k1
-        self.kernel_rows.setdefault("flash_fwd", {})["launches"] = k2
+        self.path_launches["serving"] = self.read_launches()
         # checks: outputs, identity to generate(), launch counts, pages
         mismatches = 0
         for i, (p, out) in enumerate(zip(prompts, results)):
@@ -493,29 +716,192 @@ class Smoke:
                 eng._decode_call(*args)
             torch.cuda.synchronize()
             bare_ms = (time.perf_counter() - t0) * 1e3
-        def dev_us(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0))
-        ev = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None)
-              == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-        dev = sum(dev_us(e) for e in ev)
+        dev, top = _device_table(torch, prof, steps, bare_ms)
         print(f"decode step, 8 live slots at 230 cached tokens: wall "
               f"{bare_ms / steps:.3f} ms/step unprofiled, "
               f"{wall_ms / steps:.3f} ms/step profiled; device busy "
-              f"{dev / 1e3 / steps:.3f} ms/step = "
-              f"{dev / 1e3 / (bare_ms / steps) / steps * 100:.1f}% of the "
-              f"unprofiled wall; {sum(e.count for e in ev) / steps:.0f} "
-              f"kernels/step")
-        top = sorted(ev, key=dev_us, reverse=True)[:12]
-        for e in top:
-            print(f"  {dev_us(e) / 1e3 / steps:8.4f} ms/step "
-                  f"{e.count / steps:6.1f} calls/step  {e.key[:90]}")
+              f"{dev:.3f} ms/step = {dev / (bare_ms / steps) * 100:.1f}% "
+              f"of the unprofiled wall")
         self.details["profile"] = dict(
             steps=steps, wall_ms_per_step=bare_ms / steps,
-            device_ms_per_step=dev / 1e3 / steps,
-            top=[(e.key, dev_us(e) / 1e3 / steps, e.count / steps)
-                 for e in top])
+            device_ms_per_step=dev, top=top[:12])
+
+    # -- 6. train ----------------------------------------------------------------
+
+    def train(self):
+        """GPT-2 small trained through hapi.Model.fit, then the step-parity
+        check (see the module docstring)."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import hapi, io, nn, optimizer
+        from paddle_tpu_torch.framework import monitor
+        from paddle_tpu_torch.framework import random as frandom
+        from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+        B, S = TRAIN_SHAPE["B"], TRAIN_SHAPE["S"]
+        steps = TRAIN_STEPS
+        self.gpt = None   # the serving model's memory back to the pool
+        torch.cuda.empty_cache()
+        cfg = GPTConfig()
+        assert cfg.dropout == DROPOUT
+        frandom.seed(0)
+        net = GPTForCausalLM(cfg, device="cuda", seed=0)
+        # a learnable token set: 64 motifs of 3-8 ids out of 4096, each
+        # sequence one motif repeated, so the loss must fall
+        rng = np.random.RandomState(0)
+        motifs = [rng.randint(0, 4096, size=rng.randint(3, 9))
+                  for _ in range(64)]
+        ids = np.stack([np.resize(motifs[rng.randint(64)], S + 1)
+                        for _ in range(B * steps)]).astype(np.int64)
+        data = io.TensorDataset([ids[:, :-1], ids[:, 1:]])
+        sched = optimizer.lr.LinearWarmup(6e-4, 5, 6e-5, 6e-4)
+        opt = optimizer.AdamW(learning_rate=sched, weight_decay=0.01,
+                              grad_clip=nn.ClipGradByGlobalNorm(1.0))
+        model = hapi.Model(net).prepare(opt, nn.CrossEntropyLoss())
+
+        class Steps(hapi.callbacks.Callback):
+            """Loss handles and a CUDA event at every step's end: the
+            device timeline of the steps, with no host wait in the loop."""
+            def __init__(self):
+                super().__init__()
+                self.losses, self.events = [], []
+
+            def on_train_batch_end(self, step, logs=None):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.events.append(ev)
+                self.losses.append(logs["loss"])
+
+        rec = Steps()
+        log_freq = 10
+        syncs0 = monitor.stat_get("STAT_train_host_syncs")
+        torch.cuda.synchronize()
+        # the main path starts here: every launch count from 0
+        self.zero_launches()
+        t0 = time.perf_counter()
+        model.fit(data, batch_size=B, epochs=1, shuffle=True,
+                  log_freq=log_freq, verbose=0, num_iters=steps,
+                  callbacks=[rec])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = self.read_launches()
+        self.path_launches["train"] = launches
+        syncs = monitor.stat_get("STAT_train_host_syncs") - syncs0
+        losses = [float(x) for x in rec.losses]
+        step_ms = [a.elapsed_time(b) for a, b in zip(rec.events,
+                                                     rec.events[1:])]
+        steady = sorted(step_ms[1:])   # the steps after the first two
+        p50 = steady[len(steady) // 2]
+        print(f"train on {self.smi}: GPT-2 small fp32 dropout {DROPOUT}, "
+              f"batch {B} x {S}, {steps} steps in {wall:.2f} s wall "
+              f"(first step included)")
+        print("per-step loss: " + " ".join(f"{x:.4f}" for x in losses))
+        print(f"loss first {losses[0]:.4f} last {losses[-1]:.4f}; step wall "
+              f"p50 {p50:.2f} ms (device timeline, steps 3-{steps}), "
+              f"{B * S / p50 * 1e3:.0f} tokens/s; host syncs {syncs}; "
+              f"launches fwd {launches['flash_fwd']} dq "
+              f"{launches['flash_bwd_dq']} dkv {launches['flash_bwd_dkv']}")
+        self.details["train"] = dict(
+            losses=losses, step_ms=step_ms, step_ms_p50=p50,
+            tokens_per_s=B * S / p50 * 1e3, wall_s=wall, host_syncs=syncs,
+            launches=launches)
+        assert all(np.isfinite(losses)), "non-finite training loss"
+        assert np.mean(losses[-3:]) < losses[0] - 1.0, "the loss did not fall"
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert launches[name] == cfg.num_layers * steps, \
+                f"{name} launched {launches[name]} times, expected " \
+                f"{cfg.num_layers} x {steps}"
+        assert launches["paged_attention"] == 0
+        assert syncs <= -(-steps // log_freq) + 1, f"{syncs} host syncs"
+        if self.args.profile:
+            self.profile_train_step(model, ids[:B])
+        del model, net, opt
+        torch.cuda.empty_cache()
+        self.step_parity()
+
+    def step_parity(self):
+        """One train_batch (update=False: gradients kept) through the
+        flash kernels against one through FLAGS_use_flash_attention=False
+        from the same weights, dropout 0, [2, 1024], fp32. Tolerances:
+        loss rtol 1e-5; each parameter's gradient max abs difference
+        <= 1e-3 x its largest |gradient| + 1e-6 x the largest |gradient|
+        of the model (summation order only; the floor is for the key
+        biases, whose exact gradient is 0 — a key bias shifts every score
+        of a row alike — so what both paths give there is rounding)."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import hapi, nn, optimizer
+        from paddle_tpu_torch.framework.flags import set_flags
+        from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+        net = GPTForCausalLM(GPTConfig(dropout=0.0), device="cuda", seed=0)
+        opt = optimizer.AdamW(1e-4)
+        model = hapi.Model(net).prepare(opt, nn.CrossEntropyLoss())
+        ids = torch.from_numpy(np.random.RandomState(1).randint(
+            0, net.gpt.config.vocab_size, size=(2, 1025)))
+
+        def one():
+            self.zero_launches()
+            (lv,), _ = model.train_batch([ids[:, :-1]], [ids[:, 1:]],
+                                         update=False)
+            grads = {n: p.grad.clone() for n, p in net.named_parameters()}
+            opt.clear_grad()
+            return float(lv), grads, self.read_launches()
+
+        lf, gf, nf = one()
+        set_flags({"FLAGS_use_flash_attention": False})
+        try:
+            lp, gp, np_ = one()
+        finally:
+            set_flags({"FLAGS_use_flash_attention": True})
+        floor = 1e-6 * max(g.abs().max().item() for g in gp.values())
+        worst = max(((gf[n] - gp[n]).abs().max().item()
+                     / (1e-3 * gp[n].abs().max().item() + floor), n)
+                    for n in gp)
+        print(f"step parity [2,1024] dropout 0: loss flash {lf:.6f} plain "
+              f"{lp:.6f}; worst gradient max_abs_err / its tolerance "
+              f"{worst[0]:.3e} ({worst[1]}); launches flash "
+              f"{nf['flash_fwd']}/{nf['flash_bwd_dq']}/"
+              f"{nf['flash_bwd_dkv']}, plain {np_['flash_fwd']}/"
+              f"{np_['flash_bwd_dq']}/{np_['flash_bwd_dkv']}")
+        self.details["step_parity"] = dict(loss_flash=lf, loss_plain=lp,
+                                           worst_grad_over_tol=worst[0],
+                                           worst_param=worst[1])
+        assert abs(lf - lp) <= 1e-5 * abs(lp), "step-parity loss differs"
+        assert worst[0] <= 1.0, f"step-parity gradient {worst[1]} differs"
+        L = net.gpt.config.num_layers
+        assert (nf["flash_fwd"], nf["flash_bwd_dq"], nf["flash_bwd_dkv"]) \
+            == (L, L, L), nf
+        assert (np_["flash_fwd"], np_["flash_bwd_dq"],
+                np_["flash_bwd_dkv"]) == (0, 0, 0), np_
+
+    def profile_train_step(self, model, ids):
+        """torch.profiler over 3 train steps: wall per step, device busy
+        share, device time by kernel, and the flash kernels' share."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        x, y = [ids[:, :-1]], [ids[:, 1:]]
+        model.train_batch(x, y)
+        torch.cuda.synchronize()
+        steps = 3
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            model.train_batch(x, y)
+        torch.cuda.synchronize()
+        bare_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                model.train_batch(x, y)
+            torch.cuda.synchronize()
+        dev, top = _device_table(torch, prof, steps, bare_ms)
+        flash = sum(ms for key, ms, _ in top if "flash_" in key)
+        print(f"train step, batch {ids.shape[0]} x {ids.shape[1] - 1}: wall "
+              f"{bare_ms / steps:.2f} ms/step unprofiled; device busy "
+              f"{dev:.2f} ms/step = {dev / (bare_ms / steps) * 100:.1f}% of "
+              f"it; flash kernels {flash:.2f} ms/step = "
+              f"{flash / dev * 100:.1f}% of the device time")
+        self.details["profile_train"] = dict(
+            steps=steps, wall_ms_per_step=bare_ms / steps,
+            device_ms_per_step=dev, flash_ms_per_step=flash, top=top[:12])
 
     def kernels_line(self):
         srcs = {"paged_attention": (
@@ -524,12 +910,18 @@ class Smoke:
                     "paged_attention_kernel.py:376 (dispatched at "
                     "paddle_tpu/ops/paged_ops.py:239)"),
                 "flash_fwd": ("paddle_tpu_torch/csrc/flash_fwd.cu",
-                              "paddle_tpu/ops/pallas_ops.py:143")}
+                              "paddle_tpu/ops/pallas_ops.py:143"),
+                "flash_bwd_dq": ("paddle_tpu_torch/csrc/flash_bwd_dq.cu",
+                                 "paddle_tpu/ops/pallas_ops.py:207"),
+                "flash_bwd_dkv": ("paddle_tpu_torch/csrc/flash_bwd_dkv.cu",
+                                  "paddle_tpu/ops/pallas_ops.py:251")}
         out = []
         for name, (src, rep) in srcs.items():
             r = self.kernel_rows.get(name, {})
             out.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": r.get("launches"),
+                        "replaces": rep,
+                        "launches": sum(p.get(name, 0) for p in
+                                        self.path_launches.values()),
                         "max_abs_err": r.get("max_abs_err"),
                         "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                         "bound_ms": r.get("bound_ms"),
@@ -538,12 +930,33 @@ class Smoke:
         return {"kernels": out}
 
 
+def _device_table(torch, prof, steps, wall_ms):
+    """Device ms per step over a profiled window of `steps`, and the top
+    kernels as (name, ms per step, calls per step), printed."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    ev = [e for e in prof.key_averages()
+          if getattr(e, "device_type", None)
+          == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    dev = sum(dev_us(e) for e in ev) / 1e3 / steps
+    print(f"  device {dev:.3f} ms/step over {wall_ms / steps:.3f} ms/step "
+          f"wall; {sum(e.count for e in ev) / steps:.0f} kernels/step")
+    top = sorted(ev, key=dev_us, reverse=True)[:12]
+    for e in top:
+        print(f"  {dev_us(e) / 1e3 / steps:8.4f} ms/step "
+              f"{e.count / steps:6.1f} calls/step  {e.key[:90]}")
+    return dev, [(e.key, dev_us(e) / 1e3 / steps, e.count / steps)
+                 for e in sorted(ev, key=dev_us, reverse=True)]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
                     help="build and check the kernels only (phases 1-3)")
     ap.add_argument("--profile", action="store_true",
-                    help="after serving, profile prefill and decode steps")
+                    help="after serving, profile prefill and decode steps; "
+                    "after training, one train step")
     ap.add_argument("--details", default="",
                     help="also write every measurement as JSON to this path")
     args = ap.parse_args(argv)
@@ -571,6 +984,7 @@ def main(argv=None):
             sm.phase("serving", sm.serving)
             if args.profile:
                 sm.phase("profile", sm.profile)
+            sm.phase("train", sm.train)
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)),
                     exist_ok=True)

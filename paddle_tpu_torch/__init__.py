@@ -7,11 +7,18 @@ Each TPU kernel on the ported path is a hand-written CUDA kernel under
 `csrc/`, built by `nvcc` at its first launch (`ops/_build.py`), with a
 plain PyTorch version beside it that CPU tensors take.
 
-Ported so far: GPT generative serving — `models.GPTForCausalLM`,
-`serving.GenerationEngine` over `serving.PagedKVCache`, the paged decode
-attention kernel and the flash-attention forward kernel.
+Ported so far:
+- GPT generative serving: `models.GPTForCausalLM`,
+  `serving.GenerationEngine` over `serving.PagedKVCache`, the paged
+  decode attention kernel and the flash-attention forward kernel;
+- training: `hapi.Model` (prepare / fit / evaluate / save / load) over
+  `io.DataLoader`, `optimizer.{SGD,Momentum,Adam,AdamW}` with
+  `optimizer.lr` schedulers and `nn.ClipGradByGlobalNorm`,
+  `nn.CrossEntropyLoss`, and flash attention with dropout, forward and
+  backward (`ops.flash_ops.FlashAttention`, three CUDA kernels).
 """
-from . import framework, models, nn, ops, serving  # noqa: F401
+from . import framework, hapi, io, models, nn, ops, optimizer  # noqa: F401
+from . import serving  # noqa: F401
 from .framework import get_flags, set_flags  # noqa: F401
 
 __version__ = "0.1.0"

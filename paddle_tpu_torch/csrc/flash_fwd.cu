@@ -1,18 +1,21 @@
 // Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces: paddle_tpu/ops/pallas_ops.py:143 `_fwd_kernel` (launched by
-// `_flash_call`, pallas_ops.py:327), forward only and without dropout.
+// `_flash_call`, pallas_ops.py:327), dropout on the probabilities included.
 //
 // Computes, per (b, h), with an optional additive key bias [B,Sk] and an
 // optional causal mask (top-left aligned, query i sees keys j <= i):
 //
 //     S = Q K^T * scale + bias;  S[i,j] = -1e30 where causal and j > i
-//     O = softmax(S) V                       (O in q's type)
-//     LSE[i] = m_i + log(l_i)                (float32, [B*H, Sq])
+//     P = exp(S - m);  l = rowsum(P)          (l summed BEFORE dropout)
+//     O = (keep ? P / (1-p) : 0) V / l        (O in q's type)
+//     LSE[i] = m_i + log(l_i)                 (float32, [B*H, Sq])
 //
-// the plain version `_sdpa_reference` (paddle_tpu_torch/ops/flash_ops.py).
-// LSE is the row statistic of the TPU kernel (m + log l); the backward
-// kernels of the training slice will read it.
+// the plain version `_flash_fwd_reference` (paddle_tpu_torch/ops/
+// flash_ops.py), as the TPU kernel does (pallas_ops.py:168-178). The keep
+// mask is the coordinate hash of flash_common.cuh; `thresh == 0` (p = 0,
+// the serving path) skips it, and then the arithmetic is unchanged. LSE is
+// the row statistic the backward kernels (K3, K4) read.
 //
 // Bound: operations. S and O are two products of 2*Sq*Sk*D flops each (half
 // of that when causal); the inputs are read once, (Sq + 2*Sk)*D elements per
@@ -28,29 +31,15 @@
 // softmax over it by 4 threads per row (f32 max/sum, -1e30 masking, the
 // running max starting at -1e30 like the TPU kernel, so a row whose every
 // score is -1e30 gives the uniform row of the plain version and never NaN),
-// then O += P V into a 4 x D/16 register tile per thread. Shared rows are
-// padded by one float to keep the column reads free of bank conflicts.
+// dropout applied to P after its row sum, then O += P V into a 4 x D/16
+// register tile per thread. Shared rows are padded by one float to keep the
+// column reads free of bank conflicts.
 // Known gap: tensor cores (mma.sync / wgmma) and TMA are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using namespace flash;
 
 template <int D>
 constexpr int smem_floats() {
@@ -62,7 +51,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
                  T* __restrict__ out, float* __restrict__ lse, int H, int Sq,
-                 int Sk, int causal, float scale) {
+                 int Sk, int causal, float scale, uint32_t thresh,
+                 float keep_scale, uint32_t seed) {
   constexpr int DS = D + 1;    // padded shared row stride of Q/K/V
   constexpr int SS = kBK + 1;  // padded shared row stride of S/P
   constexpr int DJ = D / 16;   // output columns per thread
@@ -80,17 +70,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / H;
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
-  const T* qb = q + ((size_t)bh * Sq + (size_t)qi * kBQ) * D;
   const T* kb = k + (size_t)bh * Sk * D;
   const T* vb = v + (size_t)bh * Sk * D;
   const float* brow = bias != nullptr ? bias + (size_t)b * Sk : nullptr;
 
-  for (int idx = tid; idx < kBQ * D; idx += kThreads)
-    Qs[(idx / D) * DS + idx % D] = to_f(qb[idx]);
+  load_tile<T, D>(Qs, q + ((size_t)bh * Sq + (size_t)qi * kBQ) * D, kBQ, tid);
   if (tid < kBQ) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
   }
+  // the softmax below gives each thread one row: its dropout hash prefix
+  const int srow_i = tid / 4, part = tid % 4;
+  const uint32_t row_hash =
+      thresh ? drop_row(seed, bh, qi * kBQ + srow_i) : 0u;
   float o[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -105,11 +97,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   for (int t = 0; t < last; ++t) {
     __syncthreads();  // the previous tile's K/V/P reads are done
-    const size_t koff = (size_t)t * kBK * D;
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      Ks[(idx / D) * DS + idx % D] = to_f(kb[koff + idx]);
-      Vs[(idx / D) * DS + idx % D] = to_f(vb[koff + idx]);
-    }
+    load_tile<T, D>(Ks, kb + (size_t)t * kBK * D, kBK, tid);
+    load_tile<T, D>(Vs, vb + (size_t)t * kBK * D, kBK, tid);
     __syncthreads();
 
     // scores: rows ty + 16 i, keys tx + 16 j
@@ -148,9 +137,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // online softmax over the tile: 4 neighbouring threads per row
     {
-      const int r = tid / 4, part = tid % 4;
-      float* srow = Ss + r * SS + part * (kBK / 4);
-      const float m_old = m_s[r];
+      float* srow = Ss + srow_i * SS + part * (kBK / 4);
+      const float m_old = m_s[srow_i];
       float mx = kNegInf;
 #pragma unroll
       for (int c = 0; c < kBK / 4; ++c) mx = fmaxf(mx, srow[c]);
@@ -161,16 +149,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kBK / 4; ++c) {
         const float p = expf(srow[c] - m_new);
-        srow[c] = p;
         sum += p;
+        const int kpos = t * kBK + part * (kBK / 4) + c;
+        srow[c] = (thresh == 0u || drop_keep(row_hash, kpos, thresh))
+                      ? p * keep_scale : 0.f;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       if (part == 0) {
         const float alpha = expf(m_old - m_new);
-        a_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_new;
+        a_s[srow_i] = alpha;
+        l_s[srow_i] = alpha * l_s[srow_i] + sum;
+        m_s[srow_i] = m_new;
       }
     }
     __syncthreads();
@@ -213,8 +203,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* bias, void* out, float* lse, int B, int H,
-                     int Sq, int Sk, int causal, float scale,
-                     cudaStream_t stream) {
+                     int Sq, int Sk, int causal, float scale, uint32_t thresh,
+                     float keep_scale, uint32_t seed, cudaStream_t stream) {
   const int bytes = smem_floats<D>() * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -223,7 +213,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   dim3 grid(Sq / kBQ, B * H), block(kThreads);
   flash_fwd_kernel<T, D><<<grid, block, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out,
-      lse, H, Sq, Sk, causal, scale);
+      lse, H, Sq, Sk, causal, scale, thresh, keep_scale, seed);
   return cudaGetLastError();
 }
 
@@ -231,17 +221,18 @@ template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, void* out, float* lse, int B, int H,
                    int Sq, int Sk, int D, int causal, float scale,
+                   uint32_t thresh, float keep_scale, uint32_t seed,
                    cudaStream_t stream) {
   switch (D) {
     case 32:
       return launch_d<T, 32>(q, k, v, bias, out, lse, B, H, Sq, Sk, causal,
-                             scale, stream);
+                             scale, thresh, keep_scale, seed, stream);
     case 64:
       return launch_d<T, 64>(q, k, v, bias, out, lse, B, H, Sq, Sk, causal,
-                             scale, stream);
+                             scale, thresh, keep_scale, seed, stream);
     case 128:
       return launch_d<T, 128>(q, k, v, bias, out, lse, B, H, Sq, Sk, causal,
-                              scale, stream);
+                              scale, thresh, keep_scale, seed, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -251,20 +242,22 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // q [B,H,Sq,D], k/v [B,H,Sk,D] contiguous in one type (dtype 0 = float32,
 // 1 = bfloat16); bias [B,Sk] float32 or null; out like q; lse [B*H,Sq] f32.
-// Sq and Sk must be multiples of 64; D one of 32, 64, 128.
+// Sq and Sk must be multiples of 64; D one of 32, 64, 128. Dropout: keep
+// where hash >= thresh (thresh 0 = no dropout), kept P scaled by keep_scale.
 extern "C" int flash_attention_forward(void* q, void* k, void* v, void* bias,
                                        void* out, void* lse, int B, int H,
                                        int Sq, int Sk, int D, int dtype,
                                        int causal, float scale,
-                                       void* stream) {
+                                       unsigned int thresh, float keep_scale,
+                                       unsigned int seed, void* stream) {
   if (Sq % kBQ != 0 || Sk % kBK != 0) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = dtype == 0
       ? launch<float>(q, k, v, bias, out, (float*)lse, B, H, Sq, Sk, D,
-                      causal, scale, s)
+                      causal, scale, thresh, keep_scale, seed, s)
       : launch<__nv_bfloat16>(q, k, v, bias, out, (float*)lse, B, H, Sq, Sk,
-                              D, causal, scale, s);
+                              D, causal, scale, thresh, keep_scale, seed, s);
   return (int)e;
 }
 

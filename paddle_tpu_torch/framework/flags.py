@@ -1,4 +1,4 @@
-"""Global flags registry: the flags the serving slice reads.
+"""Global flags registry: the flags the serving and training slices read.
 
 Same names and defaults as `paddle_tpu.framework.flags`. A default that
 was measured there was measured on a TPU, and each help string says so;
@@ -30,9 +30,12 @@ def register_flag(name: str, default: Any, doc: str = "") -> None:
 
 
 register_flag("FLAGS_use_flash_attention", True,
-              "dispatch F.scaled_dot_product_attention to the hand-written "
-              "flash forward kernel (csrc/flash_fwd.cu) for CUDA tensors "
-              "that pass flash_supported. Not a measured default")
+              "dispatch F.scaled_dot_product_attention to flash attention "
+              "(ops.flash_ops.flash_attention) for shapes that pass "
+              "flash_supported, with or without dropout and grad: CUDA "
+              "tensors launch the hand-written kernels csrc/flash_fwd.cu "
+              "(forward) and csrc/flash_bwd_{dq,dkv}.cu (backward), CPU "
+              "tensors run their plain versions. Not a measured default")
 register_flag("FLAGS_flash_attention_min_seq", 512,
               "shortest query length dispatched to the flash kernel. The "
               "512 default is the crossover the JAX package measured on a "

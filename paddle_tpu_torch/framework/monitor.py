@@ -1,9 +1,17 @@
 """Process-wide STAT counters, gauges and latency histograms.
 
-The subset of `paddle_tpu.framework.monitor` the serving slice writes:
-`STAT_kv_pages_inuse`, the `STAT_gen_*` family, and
-`STAT_paged_attn_kernel` / `STAT_paged_attn_reference`, which here count
-CALLS (PyTorch runs eagerly; there are no traces to count)."""
+The subset of `paddle_tpu.framework.monitor` the ported slices write:
+
+- serving: `STAT_kv_pages_inuse`, the `STAT_gen_*` family, and
+  `STAT_paged_attn_kernel` / `STAT_paged_attn_reference`, which here
+  count CALLS (PyTorch runs eagerly; there are no traces to count);
+- flash attention: `STAT_flash_attention_fwd` counts launches of the
+  forward kernel, `STAT_flash_attention_bwd` launches of the two backward
+  kernels (dQ and dK/dV, so two per backward pass); the plain CPU path
+  counts nothing;
+- training (`hapi.Model`): `STAT_train_steps`, `STAT_train_step_ns` (host
+  wall time of `train_batch`, which returns before the device finishes)
+  and `STAT_train_host_syncs` (losses fit forced to a host float)."""
 from __future__ import annotations
 
 import bisect

@@ -1,1 +1,2 @@
 from .attention import scaled_dot_product_attention  # noqa: F401
+from .loss import cross_entropy  # noqa: F401

@@ -3,18 +3,23 @@
 Port of `paddle_tpu.nn.functional.attention.scaled_dot_product_attention`
 without `segment_ids` (sequence packing comes with a later slice).
 
-Dispatch: a CUDA query that passes `flash_supported` — with
-FLAGS_use_flash_attention on and no effective dropout — runs the flash
-forward kernel (`ops/flash_ops.py`, K2). Everything else runs `_sdpa_ref`,
-the JAX package's fallback math exactly: bottom-right causal alignment
-when S < K (the KV-cache decode shape), -1e30 masking, and dropout on
-the probabilities (upscale-in-train), not on the output.
+Dispatch: a query that passes `flash_supported` with
+FLAGS_use_flash_attention on goes through `ops.flash_ops.flash_attention`
+— with or without dropout, with or without grad. That is a
+`torch.autograd.Function` whose forward is kernel K2 and whose backward is
+K3 + K4 on a CUDA tensor, and their plain versions on a CPU tensor (as
+the JAX package runs its Pallas kernels in interpret mode off the TPU).
+Everything else runs `_sdpa_ref`, the JAX package's fallback math
+exactly: bottom-right causal alignment when S < K (the KV-cache decode
+shape), -1e30 masking, and dropout on the probabilities (upscale-in-
+train), not on the output.
 """
 from __future__ import annotations
 
 import torch
 
 from ...framework.flags import flag
+from ...ops.flash_ops import flash_attention, flash_supported
 
 __all__ = ["scaled_dot_product_attention"]
 
@@ -45,16 +50,6 @@ def _sdpa_ref(q, k, v, mask, scale, is_causal, dropout_p=0.0,
     return torch.einsum("bhqk,bhkd->bhqd", p, v)
 
 
-def _mask_to_bias(mask, B, Sk):
-    """A [B,1,1,Sk] key-padding mask as the kernel's float32 [B, Sk]
-    additive bias (boolean True = keep)."""
-    m = mask.reshape(B, Sk)
-    if m.dtype == torch.bool:
-        return torch.where(m, torch.zeros((), device=m.device),
-                           torch.full((), _NEG, device=m.device))
-    return m.float().contiguous()
-
-
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, generator=None, scale=None):
@@ -62,23 +57,17 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
     attn_mask: None, a boolean mask (True = attend) or an additive float
     mask broadcastable to [B, H, Sq, Sk]; only the [B,1,1,Sk] key-padding
-    shape can take the flash kernel. `generator` drives dropout; `scale`
-    defaults to 1/sqrt(head_dim)."""
+    shape can take the flash kernels. `generator` drives dropout (on the
+    flash path it draws the keep mask's seed); `scale` defaults to
+    1/sqrt(head_dim)."""
     if scale is None:
         scale = 1.0 / (query.shape[-1] ** 0.5)
     eff_dropout = dropout_p if training else 0.0
-    if query.is_cuda and eff_dropout == 0.0 \
-            and flag("FLAGS_use_flash_attention"):
-        from ...ops.flash_ops import flash_attention_fwd, flash_supported
-        if flash_supported(tuple(query.shape), tuple(key.shape),
-                           tuple(value.shape), attn_mask,
-                           is_causal=is_causal):
-            B, Sk = key.shape[0], key.shape[2]
-            bias = (_mask_to_bias(attn_mask, B, Sk)
-                    if attn_mask is not None else None)
-            out, _ = flash_attention_fwd(
-                query.contiguous(), key.contiguous(), value.contiguous(),
-                bias, causal=is_causal, scale=scale)
-            return out
+    if flag("FLAGS_use_flash_attention") and flash_supported(
+            tuple(query.shape), tuple(key.shape), tuple(value.shape),
+            attn_mask, is_causal=is_causal):
+        return flash_attention(query, key, value, causal=is_causal,
+                               scale=scale, attn_mask=attn_mask,
+                               dropout_p=eff_dropout, generator=generator)
     return _sdpa_ref(query, key, value, attn_mask, scale, is_causal,
                      eff_dropout, generator)

@@ -2,7 +2,7 @@
 
 The JAX side runs `pallas_ops` in interpret mode on the CPU, as
 tests/test_flash_attention.py does; the port's CPU path is its plain
-version (`_sdpa_reference` + the row log-sum-exp). Both O and LSE are
+version (`_flash_fwd_reference`: softmax and row log-sum-exp). O and LSE are
 compared, float32, atol 2e-5: the Pallas kernel sums online over tiles,
 the plain version in one softmax."""
 import jax.numpy as jnp

@@ -2,11 +2,14 @@
 
 - An AST scan: no module under paddle_tpu_torch/ and no line of
   chip_smoke.py imports jax or paddle_tpu.
+- Importing every module of the package builds no kernel.
 - With no CUDA device, an entry point left on its default device raises.
 - A kernel wrapper handed CPU tensors takes its plain version: its launch
   counter stays 0 and nothing is built.
 """
 import ast
+import importlib
+import pkgutil
 from pathlib import Path
 
 import numpy as np
@@ -53,6 +56,19 @@ def test_no_jax_or_paddle_tpu_imports(path):
         assert top not in FORBIDDEN, f"{path} imports {mod}"
 
 
+def test_importing_every_module_builds_nothing():
+    names = [m.name for m in pkgutil.walk_packages(
+        paddle_tpu_torch.__path__, "paddle_tpu_torch.")]
+    for sub in ("hapi.model", "hapi.callbacks", "io.dataloader",
+                "io.sampler", "io.dataset", "optimizer.lr",
+                "optimizer.optimizers", "nn.clip", "nn.functional.loss",
+                "nn.layer.loss", "framework.random"):
+        assert f"paddle_tpu_torch.{sub}" in names
+    for name in names:
+        importlib.import_module(name)
+    assert _build._libs == {}
+
+
 def test_package_location_is_beside_the_reference():
     assert Path(paddle_tpu_torch.__file__).parent == ROOT / "paddle_tpu_torch"
 
@@ -84,11 +100,22 @@ def test_cpu_tensors_take_the_plain_path_and_build_nothing():
         out.numpy(), paged_ops.paged_attention_plain(q, kp, kp, pt, pos,
                                                      0.2).numpy())
     x = torch.from_numpy(rng.standard_normal((1, 2, 128, 32))
-                         .astype(np.float32))
-    o, lse = flash_ops.flash_attention_fwd(x, x, x, None, True)
+                         .astype(np.float32)).requires_grad_()
+    o, lse = flash_ops.flash_attention_fwd(x, x, x, None, True, None, 0.1, 3)
     assert o.shape == x.shape and lse.shape == (2, 128)
+    delta = flash_ops._delta(o, o)
+    dq = flash_ops.flash_attention_dq(x, x, x, None, o, lse, delta, True,
+                                      0.2, 0.1, 3)
+    dk, dv = flash_ops.flash_attention_dkv(x, x, x, None, o, lse, delta,
+                                           True, 0.2, 0.1, 3)
+    assert dq.shape == dk.shape == dv.shape == x.shape
+    out = flash_ops.flash_attention(x, x, x, causal=True, dropout_p=0.1)
+    out.sum().backward()
+    assert x.grad is not None
     assert paged_ops.paged_attention.launches == paged0 == 0
     assert flash_ops.flash_attention_fwd.launches == flash0 == 0
+    assert flash_ops.flash_attention_dq.launches == 0
+    assert flash_ops.flash_attention_dkv.launches == 0
     assert _build._libs == {}
 
 

@@ -7,7 +7,7 @@ and run on the GPU with
 
 (`--noconftest`: the repository's conftest configures JAX, which the
 GPU machine does not have). Small shapes; chip_smoke.py checks the main
-path's shapes."""
+paths' shapes."""
 import pytest
 import torch
 
@@ -52,9 +52,57 @@ def test_flash_kernel_matches_plain(cuda, causal, D):
     n0 = flash_ops.flash_attention_fwd.launches
     out, lse = flash_ops.flash_attention_fwd(q, k, v, bias, causal, 0.2)
     assert flash_ops.flash_attention_fwd.launches == n0 + 1
-    torch.testing.assert_close(
-        out, flash_ops._sdpa_reference(q, k, v, bias, causal, 0.2),
-        atol=1e-4, rtol=0)
-    torch.testing.assert_close(
-        lse, flash_ops._lse_reference(q, k, bias, causal, 0.2),
-        atol=1e-4, rtol=0)
+    ref, ref_lse = flash_ops._flash_fwd_reference(q, k, v, bias, causal, 0.2)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.2])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_backward_kernels_match_plain(cuda, p, causal, D):
+    """K2 with dropout, K3 and K4 against their plain versions on the same
+    inputs and seed, fp32, atol 1e-4."""
+    g = torch.Generator(device=cuda).manual_seed(D + causal)
+    q, k, v, do = (torch.randn(2, 3, 192, D, generator=g, device=cuda)
+                   for _ in range(4))
+    bias = torch.zeros(2, 192, device=cuda)
+    bias[1, 150:] = -1e30
+    out, lse = flash_ops.flash_attention_fwd(q, k, v, bias, causal, 0.2, p,
+                                             11)
+    ref, ref_lse = flash_ops._flash_fwd_reference(q, k, v, bias, causal,
+                                                  0.2, p, 11)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    delta = flash_ops._delta(ref, do)
+    args = (q, k, v, bias, do, ref_lse, delta, causal, 0.2, p, 11)
+    n3 = flash_ops.flash_attention_dq.launches
+    n4 = flash_ops.flash_attention_dkv.launches
+    torch.testing.assert_close(flash_ops.flash_attention_dq(*args),
+                               flash_ops._dq_reference(*args),
+                               atol=1e-4, rtol=0)
+    for got, want in zip(flash_ops.flash_attention_dkv(*args),
+                         flash_ops._dkv_reference(*args)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert flash_ops.flash_attention_dq.launches == n3 + 1
+    assert flash_ops.flash_attention_dkv.launches == n4 + 1
+
+
+def test_c4_gradients_flow_through_the_flash_kernel(cuda):
+    """ROADMAP C4: through F.scaled_dot_product_attention on the CUDA
+    flash path with p = 0, q/k/v get gradients, and they match autograd
+    through `_sdpa_ref` (atol 1e-4)."""
+    from paddle_tpu_torch.nn.functional import attention
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, do = (torch.randn(2, 4, 512, 64, generator=g, device=cuda)
+                   for _ in range(4))
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0 = flash_ops.flash_attention_fwd.launches
+    out = attention.scaled_dot_product_attention(*ins, is_causal=True,
+                                                 training=True)
+    assert flash_ops.flash_attention_fwd.launches == n0 + 1
+    out.backward(do)
+    dense = [t.clone().requires_grad_() for t in (q, k, v)]
+    attention._sdpa_ref(*dense, None, 0.125, True).backward(do)
+    for a, b in zip(ins, dense):
+        assert a.grad is not None
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=0)
