@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # every phase, exit 0 only if all pass
     python3 chip_smoke.py --kernels  # phases 1-3 only (build + kernel checks)
-    python3 chip_smoke.py --profile  # also profile serving and a train step
+    python3 chip_smoke.py --profile  # also profile serving and train steps
 
 Phases:
  1. card      name and power limit from nvidia-smi, torch/CUDA versions
@@ -30,6 +30,22 @@ Phases:
               flash kernel launched 12 times a step; then one train_batch
               through the kernels against one through the plain path
               (dropout 0, [2, 1024]): loss and every gradient agree
+ 7. packing   the packed LM of bench.py --mode packing at its full size
+              (T 1024, hidden 256, 4 heads, vocab 8192, 2048 sequences of
+              clipped-lognormal lengths, 64 a pack) trained through
+              hapi.Model.fit with io.PackingCollator: one epoch packed
+              (first-fit), one padded (one sequence a row, 16 rows);
+              effective tokens/s, fill, step wall, K5-K7 launches a step;
+              the loss falls; then packed-vs-padded loss parity on 8
+              sequences and one train_batch through K5-K7 against one
+              through the dense segment-masked path
+Phase 3 also holds the splash kernels to their plain versions: K5 splash
+forward, K6 splash dQ and K7 splash dK/dV at GPT-2 small's attention
+width (B 8, H 12, S 1024, D 64) and at the packing phase's shape, with
+segment ids from io.PackingCollator over the bench's lengths (causal, p
+0 and 0.1, fp32 and bf16, and a non-causal case whose absent segment
+gives exact zero rows); SplashAttention's gradients against autograd
+through the plain forward.
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits 1 with no result;
 no CUDA device, or no paddle_tpu_torch next to this file, exits 2.
@@ -57,6 +73,33 @@ K2_SHAPE = dict(B=2, H=12, S=1024, D=64)
 TRAIN_SHAPE = dict(B=8, H=12, S=1024, D=64)   # the train phase's attention
 TRAIN_STEPS = 20
 DROPOUT = 0.1
+# bench.py --mode packing, full size (bench.py:2348-2349, 2428, 2468)
+PACK = dict(T=1024, DIM=256, HEADS=4, VOCAB=8192, NSEQ=2048, BS=64,
+            HEADROOM=1.15, PAD_ROWS=16)
+SPLASH_SHAPE = dict(B=8, H=12, S=1024, D=64)   # GPT-2 small's attention
+
+
+def _bench_lengths(np):
+    """The bench's sequence lengths: clipped lognormal, mean ~235 of
+    1024 (bench.py:2351-2353)."""
+    T = PACK["T"]
+    rng = np.random.RandomState(7)
+    return np.clip(np.round(np.exp(rng.normal(
+        np.log(T / 6.0), 0.9, PACK["NSEQ"]))).astype(int), 4, T)
+
+
+def _motif_seqs(np, lengths):
+    """(tokens, labels) per length: one of 64 seeded motifs (3-8 ids) run
+    along the sequence, each label the next token, so the loss can
+    fall."""
+    rng = np.random.RandomState(0)
+    motifs = [rng.randint(0, PACK["VOCAB"], size=rng.randint(3, 9))
+              for _ in range(64)]
+    out = []
+    for n in lengths:
+        s = np.resize(motifs[rng.randint(64)], n + 1).astype(np.int64)
+        out.append((s[:-1], s[1:]))
+    return out
 
 
 def _smi() -> str:
@@ -106,10 +149,14 @@ class Smoke:
 
     def _wrappers(self):
         from paddle_tpu_torch.ops import flash_ops as fo, paged_ops as po
+        from paddle_tpu_torch.ops import splash_ops as so
         return {"paged_attention": po.paged_attention,
                 "flash_fwd": fo.flash_attention_fwd,
                 "flash_bwd_dq": fo.flash_attention_dq,
-                "flash_bwd_dkv": fo.flash_attention_dkv}
+                "flash_bwd_dkv": fo.flash_attention_dkv,
+                "splash_fwd": so.splash_attention_fwd,
+                "splash_bwd_dq": so.splash_attention_dq,
+                "splash_bwd_dkv": so.splash_attention_dkv}
 
     def zero_launches(self):
         for w in self._wrappers().values():
@@ -487,11 +534,176 @@ class Smoke:
         assert fo.flash_attention_fwd.launches == n2 + 1, \
             "F.scaled_dot_product_attention did not launch K2"
 
+    def splash_ids(self, rows, n=None):
+        """Segment ids [rows, 1024] int32 on the card: io.PackingCollator
+        (first-fit) over the bench's first `n` sequences, or, by default,
+        as many as fill `rows` rows to about 93 %."""
+        import numpy as np
+        import warnings
+        from paddle_tpu_torch import io
+        T = PACK["T"]
+        lengths = _bench_lengths(np)
+        if n is None:
+            n = int(np.searchsorted(np.cumsum(lengths), 0.93 * rows * T))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # a sequence may not fit
+            pack = io.PackingCollator(T, rows)(
+                [np.zeros(L, np.int64) for L in lengths[:n]])
+        return self.torch.from_numpy(pack[1]).cuda()
+
+    def check_splash_kernels(self):
+        """K5, K6 and K7 against their plain versions on the same inputs,
+        ids and seed, as check_train_kernels holds K2-K4 (same
+        tolerances): at GPT-2 small's attention width, causal, fp32 and
+        bf16, p 0 and 0.1, plus a non-causal fp32 case whose kv lacks one
+        query segment (those rows must be exactly 0); and at the packing
+        phase's shape, fp32 causal p 0, which is the kernels line's row.
+        The bound counts the allowed (query, key) pairs of these ids; the
+        library call is SDPA with the boolean segment-within-causal mask
+        (no row of these packs is fully masked, so it computes the same
+        function), its backward under autograd timed as one call."""
+        torch = self.torch
+        import numpy as np
+        import torch.nn.functional as TF
+        from paddle_tpu_torch import io
+        from paddle_tpu_torch.ops import flash_ops as fo, splash_ops as so
+        B, H, S, D = (SPLASH_SHAPE[k] for k in ("B", "H", "S", "D"))
+        scale = 1.0 / D ** 0.5
+        seed = 4321
+        ids = self.splash_ids(B)
+        absent = ids.clone()
+        absent[0][absent[0] == 2] = 1          # kv holds no segment 2
+        prow = io.suggest_rows(_bench_lengths(np), PACK["BS"], PACK["T"],
+                               headroom=PACK["HEADROOM"])
+        ph = PACK["HEADS"]
+        cases = [("gpt2", dt, True, p, ids, ids)
+                 for dt in ("float32", "bfloat16") for p in (0.0, DROPOUT)]
+        cases += [("gpt2", "float32", False, 0.0, ids, absent),
+                  ("packed_lm", "float32", True, 0.0,
+                   self.splash_ids(prow, PACK["BS"]), None)]
+        rows = {"fwd": [], "dq": [], "dkv": []}
+        for shape, name, causal, p, qs, ks in cases:
+            ks = qs if ks is None else ks
+            Bc, Hc = (B, H) if shape == "gpt2" else (qs.shape[0], ph)
+            dtype = getattr(torch, name)
+            tol = 1e-4 if name == "float32" else 1e-2
+            g = torch.Generator(device="cuda").manual_seed(11 + causal)
+            q, k, v, do = (torch.randn(Bc, Hc, S, D, generator=g,
+                                       device="cuda").to(dtype)
+                           for _ in range(4))
+            kv_lo, kv_hi, q_lo, q_hi = so._block_bounds(qs, ks, 64, 64,
+                                                        causal)
+            allowed = so._allowed(qs, ks, causal)
+            pairs = int(allowed.sum()) * Hc        # allowed pairs, all heads
+            nt = S // 64
+            sweep = Bc * (nt * (nt + 1) // 2 if causal else nt * nt)
+            tiles = int((kv_hi - kv_lo).sum()) / sweep
+            tiles_t = int((q_hi - q_lo).sum()) / sweep
+            full = Bc * Hc * (S * (S + 1) // 2 if causal else S * S)
+            tag = dict(shape=f"{Bc}x{Hc}x{S}x{D}", causal=causal, p=p,
+                       absent=ks is not qs, tiles_visited=tiles,
+                       pair_share=pairs / full)
+            bh_sd = Bc * Hc * S * D * q.element_size()
+            row_b = Bc * Hc * S * 4
+            ids_b = 2 * Bc * S * 4 + 2 * Bc * nt * 4
+            lib_fwd = lib_bwd = None
+            if p == 0.0:
+                mask = allowed.expand(Bc, 1, S, S)
+                ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+                lib_fwd = _time_ms(torch, lambda: TF.scaled_dot_product_attention(
+                    ql, kl, vl, attn_mask=mask), 10)
+                ol = TF.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+                lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(
+                    ol, (ql, kl, vl), do, retain_graph=True), 10)
+                del ql, kl, vl, ol, mask
+            fargs = (q, k, v, qs, ks, causal, scale, p, seed)
+            out, lse = so.splash_attention_fwd(*fargs, bounds=(kv_lo, kv_hi))
+            ref, ref_lse = so._splash_fwd_reference(*fargs)
+            torch.cuda.synchronize()
+            err = max((out.float() - ref.float()).abs().max().item(),
+                      (lse - ref_lse).abs().max().item())
+            assert torch.isfinite(out.float()).all(), "K5 non-finite"
+            if tag["absent"]:
+                gone = (qs[0] == 2)
+                assert bool(gone.any()) and \
+                    (out[0][:, gone] == 0).all(), "K5 absent rows not 0"
+            rows["fwd"].append(self._row(
+                "K5 splash_fwd", name, err, ref.float().abs().max().item(),
+                tol, _time_ms(torch, lambda: so.splash_attention_fwd(
+                    *fargs, bounds=(kv_lo, kv_hi)), 10),
+                _time_ms(torch, lambda: so._splash_fwd_reference(*fargs), 3),
+                4 * pairs * D, 4 * bh_sd + row_b + ids_b, lib_fwd, **tag))
+            del out, lse
+            delta = fo._delta(ref, do)
+            bargs = (q, k, v, qs, ks, do, ref_lse, delta, causal, scale, p,
+                     seed)
+            dq = so.splash_attention_dq(*bargs, bounds=(kv_lo, kv_hi))
+            dq_ref = so._splash_dq_reference(*bargs)
+            torch.cuda.synchronize()
+            assert torch.isfinite(dq.float()).all(), "K6 non-finite"
+            if tag["absent"]:
+                assert (dq[0][:, qs[0] == 2] == 0).all(), \
+                    "K6 absent rows not 0"
+            rows["dq"].append(self._row(
+                "K6 splash_dq", name, (dq.float() - dq_ref.float()).abs()
+                .max().item(), dq_ref.float().abs().max().item(), tol,
+                _time_ms(torch, lambda: so.splash_attention_dq(
+                    *bargs, bounds=(kv_lo, kv_hi)), 10),
+                _time_ms(torch, lambda: so._splash_dq_reference(*bargs), 3),
+                6 * pairs * D, 5 * bh_sd + 2 * row_b + ids_b, lib_bwd, **tag))
+            del dq, dq_ref
+            dk, dv = so.splash_attention_dkv(*bargs, bounds=(q_lo, q_hi))
+            dk_ref, dv_ref = so._splash_dkv_reference(*bargs)
+            torch.cuda.synchronize()
+            assert torch.isfinite(dk.float()).all() and \
+                torch.isfinite(dv.float()).all(), "K7 non-finite"
+            rows["dkv"].append(self._row(
+                "K7 splash_dkv", name, max(
+                    (dk.float() - dk_ref.float()).abs().max().item(),
+                    (dv.float() - dv_ref.float()).abs().max().item()),
+                max(dk_ref.float().abs().max().item(),
+                    dv_ref.float().abs().max().item()), tol,
+                _time_ms(torch, lambda: so.splash_attention_dkv(
+                    *bargs, bounds=(q_lo, q_hi)), 10),
+                _time_ms(torch, lambda: so._splash_dkv_reference(*bargs), 3),
+                8 * pairs * D, 6 * bh_sd + 2 * row_b + ids_b, lib_bwd,
+                tiles_visited_t=tiles_t, **tag))
+            del dk, dv, dk_ref, dv_ref, ref, ref_lse, delta, allowed
+            torch.cuda.empty_cache()
+        self.details["splash_kernels"] = rows
+        for key, name in (("fwd", "splash_fwd"), ("dq", "splash_bwd_dq"),
+                          ("dkv", "splash_bwd_dkv")):
+            self.kernel_rows[name] = rows[key][-1]   # the packing phase's
+
+        # SplashAttention (K5, then K6 + K7) against autograd through the
+        # plain forward with the same keep mask: fp32, [2, 12, 1024, 64],
+        # causal, p 0.1, atol 1e-4 x max(1, max |grad|)
+        g = torch.Generator(device="cuda").manual_seed(8)
+        q, k, v, do = (torch.randn(2, H, S, D, generator=g, device="cuda")
+                       for _ in range(4))
+        qs = ids[:2].contiguous()
+
+        def grads(fn):
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(fn(*ins), ins, do)
+        got = grads(lambda a, b, c: so.SplashAttention.apply(
+            a, b, c, qs, qs, 99, True, scale, DROPOUT))
+        want = grads(lambda a, b, c: so._splash_fwd_reference(
+            a, b, c, qs, qs, True, scale, DROPOUT, 99)[0])
+        for n, a, b in zip("qkv", got, want):
+            err = (a - b).abs().max().item()
+            mx = b.abs().max().item()
+            print(f"SplashAttention p=0.1 vs autograd of the plain forward: "
+                  f"d{n} max_abs_err {err:.3e} (max |grad| {mx:.3e}, tol "
+                  f"1e-4 x max(1, max |grad|))")
+            assert err <= 1e-4 * max(1.0, mx), f"SplashAttention d{n}"
+
     def kernels(self):
         self.check_k1()
         self.check_k2()
         self.check_train_kernels()
         self.check_autograd()
+        self.check_splash_kernels()
 
     # -- 4. model --------------------------------------------------------------
 
@@ -903,6 +1115,256 @@ class Smoke:
             steps=steps, wall_ms_per_step=bare_ms / steps,
             device_ms_per_step=dev, flash_ms_per_step=flash, top=top[:12])
 
+    # -- 7. packing ---------------------------------------------------------------
+
+    def packing(self):
+        """The bench's packed LM trained through hapi.Model.fit, packed and
+        padded; then the loss parity and the splash-vs-dense step parity
+        (see the module docstring)."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import hapi, io, nn, optimizer
+        from paddle_tpu_torch.framework import monitor
+        from paddle_tpu_torch.nn import functional as F
+        from paddle_tpu_torch.static import InputSpec
+        T, DIM, HEADS, VOCAB, BS = (PACK[k] for k in
+                                    ("T", "DIM", "HEADS", "VOCAB", "BS"))
+        torch.cuda.empty_cache()
+        lengths = _bench_lengths(np)
+        seqs = _motif_seqs(np, lengths)
+        rows = io.suggest_rows(lengths, BS, T, headroom=PACK["HEADROOM"])
+
+        class SeqData(io.Dataset):
+            def __init__(self, items):
+                self.items = items
+
+            def __len__(self):
+                return len(self.items)
+
+            def __getitem__(self, i):
+                return self.items[i]
+
+        class PackedLM(torch.nn.Module):
+            """bench.py:2365-2387: embedding + position embedding, one
+            causal-within-segment attention block, LM head."""
+
+            def __init__(self):
+                super().__init__()
+                self.emb = torch.nn.Embedding(VOCAB, DIM)
+                self.pos = torch.nn.Embedding(T, DIM)
+                self.qkv = torch.nn.Linear(DIM, 3 * DIM)
+                self.proj = torch.nn.Linear(DIM, DIM)
+                self.head = torch.nn.Linear(DIM, VOCAB)
+
+            def forward(self, toks, seg, pos):
+                x = self.emb(toks) + self.pos(pos)
+                B, S = toks.shape
+                qkv = self.qkv(x).reshape(B, S, 3, HEADS, DIM // HEADS) \
+                    .permute(2, 0, 3, 1, 4)
+                o = F.scaled_dot_product_attention(
+                    qkv[0], qkv[1], qkv[2], is_causal=True, segment_ids=seg)
+                return self.head(x + self.proj(
+                    o.transpose(1, 2).reshape(B, S, DIM)))
+
+        def make_model(seed):
+            torch.manual_seed(seed)
+            net = PackedLM().cuda()
+            spec = [InputSpec([None, T], "int64", "toks"),
+                    InputSpec([None, T], "int32", "seg"),
+                    InputSpec([None, T], "int32", "pos")]
+            return net, hapi.Model(
+                net, inputs=spec,
+                labels=[InputSpec([None, T], "int64", "labels")]).prepare(
+                    optimizer.Adam(1e-3), nn.CrossEntropyLoss())
+
+        class Steps(hapi.callbacks.Callback):
+            """Loss handles, the real tokens of each step's pack (the
+            collator's last pack is the one just trained: the loader
+            collates in this process) and a CUDA event at each step's
+            end."""
+            def __init__(self, coll):
+                super().__init__()
+                self.coll = coll
+                self.losses, self.tokens, self.events = [], [], []
+
+            def on_train_batch_end(self, step, logs=None):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.events.append(ev)
+                self.losses.append(logs["loss"])
+                self.tokens.append(self.coll.last_fill_ratio
+                                   * self.coll.rows * T)
+
+        def arm(name, policy, pack_rows, batch):
+            coll = io.PackingCollator(T, pack_rows, policy=policy)
+            loader = io.DataLoader(SeqData(seqs), batch_size=batch,
+                                   shuffle=False, collate_fn=coll)
+            net, model = make_model(0)
+            rec = Steps(coll)
+            c0 = {c: monitor.stat_get(c) for c in (
+                "STAT_packing_tokens", "STAT_packing_slots",
+                "STAT_packing_dropped_seqs", "STAT_tail_pad_batches")}
+            torch.cuda.synchronize()
+            # the main path starts here: every launch count from 0
+            self.zero_launches()
+            t0 = time.perf_counter()
+            model.fit(loader, epochs=1, shuffle=False, log_freq=10,
+                      verbose=0, callbacks=[rec])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = self.read_launches()
+            self.path_launches[name] = launches
+            d = {c: monitor.stat_get(c) - v for c, v in c0.items()}
+            losses = [float(x) for x in rec.losses]
+            steps = len(losses)
+            step_ms = [a.elapsed_time(b) for a, b in zip(rec.events,
+                                                         rec.events[1:])]
+            p50 = sorted(step_ms)[len(step_ms) // 2]
+            tokens = d["STAT_packing_tokens"]
+            steady = sum(rec.tokens[1:]) / sum(step_ms) * 1e3
+            r = dict(rows=pack_rows, steps=steps, wall_s=wall,
+                     real_tokens=tokens, fill=tokens / d["STAT_packing_slots"],
+                     dropped=d["STAT_packing_dropped_seqs"],
+                     effective_tokens_per_s=tokens / wall,
+                     steady_effective_tokens_per_s=steady,
+                     step_ms_p50=p50, losses=losses, launches=launches)
+            print(f"packing {name} on {self.smi}: [{pack_rows}, {T}] x "
+                  f"{steps} steps, {tokens} real tokens, fill "
+                  f"{r['fill']:.4f}, dropped {r['dropped']}; epoch wall "
+                  f"{wall:.3f} s = {tokens / wall:.0f} effective tokens/s "
+                  f"(steps 2-{steps} on the device timeline: {steady:.0f}); "
+                  f"step wall p50 {p50:.3f} ms; launches per step K5 "
+                  f"{launches['splash_fwd'] / steps:g} K6 "
+                  f"{launches['splash_bwd_dq'] / steps:g} K7 "
+                  f"{launches['splash_bwd_dkv'] / steps:g}")
+            print(f"  loss first {losses[0]:.4f} last {losses[-1]:.4f}: "
+                  + " ".join(f"{x:.3f}" for x in losses[::max(1,
+                                                             steps // 16)]))
+            assert all(np.isfinite(losses)), f"{name}: non-finite loss"
+            assert np.mean(losses[-3:]) < losses[0] - 1.0, \
+                f"{name}: the loss did not fall"
+            for k in ("splash_fwd", "splash_bwd_dq", "splash_bwd_dkv"):
+                assert launches[k] == steps, \
+                    f"{name}: {k} launched {launches[k]} times in {steps} steps"
+            assert launches["flash_fwd"] == launches["paged_attention"] == 0
+            assert d["STAT_tail_pad_batches"] == 0, "a batch was row-padded"
+            del model, net
+            torch.cuda.empty_cache()
+            return r
+
+        packed = arm("packing", "first_fit", rows, BS)
+        padded = arm("padded", "pad", PACK["PAD_ROWS"], PACK["PAD_ROWS"])
+        gain = packed["effective_tokens_per_s"] / \
+            padded["effective_tokens_per_s"]
+        print(f"packed / padded effective tokens/s: {gain:.3f} (epoch wall), "
+              f"{packed['steady_effective_tokens_per_s'] / padded['steady_effective_tokens_per_s']:.3f} "
+              f"(device timeline); fill {packed['fill']:.4f} vs "
+              f"{padded['fill']:.4f}")
+
+        # parity (bench.py:2444-2466): the same 8 sequences packed and
+        # padded, fresh identical models, token-normalised losses
+        sample = seqs[:8]
+        pk = io.PackingCollator(T, io.suggest_rows(
+            [len(x[0]) for x in sample], 8, T, headroom=1.5))(sample)
+        pd = io.PackingCollator(T, 8, policy="pad")(sample)
+        assert pk[4].sum() == pd[4].sum(), "the parity pack dropped a sequence"
+
+        def loss_of(batch):
+            _, model = make_model(1)
+            return float(model.eval_batch(list(batch[:3]), [batch[3]],
+                                          loss_mask=batch[4])[0])
+        la, lb = loss_of(pk), loss_of(pd)
+        print(f"packed vs padded loss, 8 sequences: {la:.6f} vs {lb:.6f}, "
+              f"|diff| {abs(la - lb):.3e} (tol 1e-3)")
+        assert abs(la - lb) < 1e-3, "packed and padded losses differ"
+        self.details["packing"] = dict(packed=packed, padded=padded,
+                                       gain=gain, parity=(la, lb))
+        self.splash_step_parity(make_model, seqs[:BS], rows)
+        if self.args.profile:
+            self.profile_packed_step(make_model, seqs[:BS], rows)
+
+    def profile_packed_step(self, make_model, sample, rows):
+        """torch.profiler over 5 packed train steps (collate included, as
+        fit runs it): wall per step, device busy share, device time by
+        kernel, and the splash kernels' share."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from paddle_tpu_torch import io
+        coll = io.PackingCollator(PACK["T"], rows)
+        _, model = make_model(3)
+
+        def step():
+            b = coll(sample)
+            model.train_batch(list(b[:3]), [b[3]], loss_mask=b[4])
+        step()
+        torch.cuda.synchronize()
+        steps = 5
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        bare_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+        dev, top = _device_table(torch, prof, steps, bare_ms)
+        splash = sum(ms for key, ms, _ in top if "splash_" in key)
+        print(f"packed train step [{rows}, {PACK['T']}]: wall "
+              f"{bare_ms / steps:.2f} ms/step unprofiled; device busy "
+              f"{dev:.2f} ms/step = {dev / (bare_ms / steps) * 100:.1f}% of "
+              f"it; splash kernels {splash:.3f} ms/step = "
+              f"{splash / dev * 100:.1f}% of the device time")
+        self.details["profile_packed"] = dict(
+            steps=steps, wall_ms_per_step=bare_ms / steps,
+            device_ms_per_step=dev, splash_ms_per_step=splash, top=top[:12])
+
+    def splash_step_parity(self, make_model, sample, rows):
+        """One train_batch (update=False) on a pack through K5-K7 against
+        one with FLAGS_use_splash_attention off (the dense segment-masked
+        attention), same weights, with step_parity's rule: loss rtol 1e-5
+        and each gradient within 1e-3 x its max + 1e-6 x the model's
+        max."""
+        from paddle_tpu_torch import io
+        from paddle_tpu_torch.framework.flags import set_flags
+        pack = io.PackingCollator(PACK["T"], rows)(sample)
+        net, model = make_model(2)
+
+        def one():
+            self.zero_launches()
+            (lv,), _ = model.train_batch(list(pack[:3]), [pack[3]],
+                                         update=False, loss_mask=pack[4])
+            grads = {n: p.grad.clone() for n, p in net.named_parameters()}
+            model._optimizer.clear_grad()
+            return float(lv), grads, self.read_launches()
+
+        ls, gs, ns = one()
+        set_flags({"FLAGS_use_splash_attention": False})
+        try:
+            ld, gd, nd = one()
+        finally:
+            set_flags({"FLAGS_use_splash_attention": True})
+        floor = 1e-6 * max(g.abs().max().item() for g in gd.values())
+        worst = max(((gs[n] - gd[n]).abs().max().item()
+                     / (1e-3 * gd[n].abs().max().item() + floor), n)
+                    for n in gd)
+        print(f"splash step parity [{rows}, {PACK['T']}]: loss splash "
+              f"{ls:.6f} dense {ld:.6f}; worst gradient max_abs_err / its "
+              f"tolerance {worst[0]:.3e} ({worst[1]}); launches splash "
+              f"{ns['splash_fwd']}/{ns['splash_bwd_dq']}/"
+              f"{ns['splash_bwd_dkv']}, dense {nd['splash_fwd']}/"
+              f"{nd['splash_bwd_dq']}/{nd['splash_bwd_dkv']}")
+        self.details["splash_step_parity"] = dict(
+            loss_splash=ls, loss_dense=ld, worst_grad_over_tol=worst[0],
+            worst_param=worst[1])
+        assert abs(ls - ld) <= 1e-5 * abs(ld), "step-parity loss differs"
+        assert worst[0] <= 1.0, f"step-parity gradient {worst[1]} differs"
+        assert (ns["splash_fwd"], ns["splash_bwd_dq"],
+                ns["splash_bwd_dkv"]) == (1, 1, 1), ns
+        assert (nd["splash_fwd"], nd["splash_bwd_dq"],
+                nd["splash_bwd_dkv"]) == (0, 0, 0), nd
+
     def kernels_line(self):
         srcs = {"paged_attention": (
                     "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -914,7 +1376,13 @@ class Smoke:
                 "flash_bwd_dq": ("paddle_tpu_torch/csrc/flash_bwd_dq.cu",
                                  "paddle_tpu/ops/pallas_ops.py:207"),
                 "flash_bwd_dkv": ("paddle_tpu_torch/csrc/flash_bwd_dkv.cu",
-                                  "paddle_tpu/ops/pallas_ops.py:251")}
+                                  "paddle_tpu/ops/pallas_ops.py:251"),
+                "splash_fwd": ("paddle_tpu_torch/csrc/splash_fwd.cu",
+                               "paddle_tpu/ops/splash_ops.py:139"),
+                "splash_bwd_dq": ("paddle_tpu_torch/csrc/splash_bwd_dq.cu",
+                                  "paddle_tpu/ops/splash_ops.py:201"),
+                "splash_bwd_dkv": ("paddle_tpu_torch/csrc/splash_bwd_dkv.cu",
+                                   "paddle_tpu/ops/splash_ops.py:242")}
         out = []
         for name, (src, rep) in srcs.items():
             r = self.kernel_rows.get(name, {})
@@ -956,7 +1424,8 @@ def main(argv=None):
                     help="build and check the kernels only (phases 1-3)")
     ap.add_argument("--profile", action="store_true",
                     help="after serving, profile prefill and decode steps; "
-                    "after training, one train step")
+                    "after training, one train step; after packing, one "
+                    "packed train step")
     ap.add_argument("--details", default="",
                     help="also write every measurement as JSON to this path")
     args = ap.parse_args(argv)
@@ -985,6 +1454,7 @@ def main(argv=None):
             if args.profile:
                 sm.phase("profile", sm.profile)
             sm.phase("train", sm.train)
+            sm.phase("packing", sm.packing)
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)),
                     exist_ok=True)

@@ -15,10 +15,15 @@ Ported so far:
   `io.DataLoader`, `optimizer.{SGD,Momentum,Adam,AdamW}` with
   `optimizer.lr` schedulers and `nn.ClipGradByGlobalNorm`,
   `nn.CrossEntropyLoss`, and flash attention with dropout, forward and
-  backward (`ops.flash_ops.FlashAttention`, three CUDA kernels).
+  backward (`ops.flash_ops.FlashAttention`, three CUDA kernels);
+- packed variable-length training: `io.PackingCollator`, the token-masked
+  loss of `hapi.Model` (fit / evaluate / predict), `static.InputSpec`,
+  and segment-aware splash attention through
+  `F.scaled_dot_product_attention(segment_ids=...)`
+  (`ops.splash_ops.SplashAttention`, three CUDA kernels).
 """
 from . import framework, hapi, io, models, nn, ops, optimizer  # noqa: F401
-from . import serving  # noqa: F401
+from . import serving, static  # noqa: F401
 from .framework import get_flags, set_flags  # noqa: F401
 
 __version__ = "0.1.0"

@@ -40,6 +40,18 @@ register_flag("FLAGS_flash_attention_min_seq", 512,
               "shortest query length dispatched to the flash kernel. The "
               "512 default is the crossover the JAX package measured on a "
               "TPU (v5e); it has not been measured on a GPU")
+register_flag("FLAGS_use_splash_attention", True,
+              "dispatch F.scaled_dot_product_attention(segment_ids=...) to "
+              "splash attention (ops.splash_ops.splash_attention) for "
+              "shapes that pass splash_supported: CUDA tensors launch the "
+              "hand-written kernels csrc/splash_fwd.cu (forward) and "
+              "csrc/splash_bwd_{dq,dkv}.cu (backward), CPU tensors run "
+              "their plain versions; off takes the dense segment-masked "
+              "attention. Not a measured default")
+register_flag("FLAGS_splash_attention_min_seq", 512,
+              "shortest packed row dispatched to the splash kernels. The "
+              "512 default is the JAX package's TPU value; the crossover "
+              "has not been measured on a GPU")
 register_flag("FLAGS_use_paged_attention", True,
               "decode attention over the paged KV cache: CUDA tensors "
               "launch the paged decode kernel (csrc/paged_attention.cu), "

@@ -9,6 +9,18 @@ The subset of `paddle_tpu.framework.monitor` the ported slices write:
   forward kernel, `STAT_flash_attention_bwd` launches of the two backward
   kernels (dQ and dK/dV, so two per backward pass); the plain CPU path
   counts nothing;
+- splash attention: `STAT_splash_attention_fwd` / `_bwd` count kernel
+  launches as the flash counters do, `STAT_splash_dispatches` the
+  `F.scaled_dot_product_attention(segment_ids=...)` calls routed to
+  splash attention (CPU tensors included);
+- packing (`io.PackingCollator`): `STAT_packing_packs`,
+  `STAT_packing_sequences`, `STAT_packing_tokens` (real),
+  `STAT_packing_slots` (rows * max_tokens), `STAT_packing_fill_ratio_pct`
+  (cumulative per-pack percentage: divide by `STAT_packing_packs` for
+  the mean fill), `STAT_packing_dropped_seqs`,
+  `STAT_packing_truncated_seqs`; and `STAT_tail_pad_batches`, which the
+  JAX package bumps for each row-padded tail batch. The port pads no
+  rows, so it stays 0 (tests read it as the JAX tests do);
 - training (`hapi.Model`): `STAT_train_steps`, `STAT_train_step_ns` (host
   wall time of `train_batch`, which returns before the device finishes)
   and `STAT_train_host_syncs` (losses fit forced to a host float)."""

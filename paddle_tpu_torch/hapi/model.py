@@ -22,15 +22,31 @@ Training hot-loop contract, as in the JAX package:
   `STAT_train_host_syncs`; `STAT_train_steps` counts steps and
   `STAT_train_step_ns` their host wall time.
 
+Sequence packing, as in the JAX package: with `io.PackingCollator` as
+the loader's `collate_fn` (anything with `emits_token_mask`), every
+batch is a fixed-shape pack whose last leaf is a [rows, max_tokens]
+token validity mask. `fit` and `evaluate` pop it and fold it into the
+loss as a TOKEN mask: the loss must give per-token values (a loss with
+a `reduction` attribute is called with "none"), pad tokens get zero
+weight, and the mean divides by the number of real tokens. The network
+masks attention per segment (`F.scaled_dot_product_attention(
+segment_ids=...)`, splash attention). A 1-D mask passed to
+`train_batch`/`eval_batch` is a ROW mask: padded rows get zero weight
+and the mean divides by the real rows. The model must be built with
+`inputs=` specs, so `_split_batch` knows how many leading pack leaves
+feed the network.
+
 Not ported yet (ROADMAP): metrics, AMP (`amp_configs`), tail bucketing
-and token masks (`loss_mask`), the fleet path, `DeviceFeeder`,
-`predict`, and `save(training=False)` (export).
+(row-padding the last partial batch: it saves the JAX package an XLA
+compile, and eager PyTorch has none to save), the fleet path,
+`DeviceFeeder`, and `save(training=False)` (export).
 """
 from __future__ import annotations
 
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..framework import monitor
@@ -60,6 +76,21 @@ def _host_float(v):
     """The one place fit waits for the card: a device loss to a float."""
     monitor.stat_add("STAT_train_host_syncs")
     return float(v)
+
+
+def _host_floats(values):
+    """Host floats of `values` (numbers, or one-element tensors) with one
+    wait for the card: the device tensors ride one stacked copy."""
+    def on_dev(v):
+        return torch.is_tensor(v) and v.device.type != "cpu"
+    dev = [v.float().reshape(()) for v in values if on_dev(v)]
+    got = iter(torch.stack(dev).tolist() if dev else ())
+    return [next(got) if on_dev(v) else float(v) for v in values]
+
+
+class _TailMaskError(TypeError):
+    """The prepared loss gives no per-token (token mask) or per-row (row
+    mask) values, so the mask cannot be folded into it."""
 
 
 class Model:
@@ -114,6 +145,82 @@ class Model:
             return outs[0]  # the network returns its loss
         return self._loss(*outs, *labels)
 
+    def _masked_loss(self, outputs, labels, mask):
+        """The prepared loss folded with a validity mask
+        (`paddle_tpu/hapi/model.py:244-316`).
+
+        A 2-D mask [rows, T] is a TOKEN mask (the packing collator's last
+        leaf): the loss must give per-token values [rows, T(, ...)], pad
+        tokens get zero weight and the mean divides by the real-token
+        count. A 1-D mask [rows] is a ROW mask: padded rows get zero
+        weight and the mean divides by the real-row count. A loss with a
+        `reduction` attribute is called with reduction "none"; one that
+        gives no such values raises _TailMaskError (a TypeError)."""
+        red = getattr(self._loss, "reduction", None)
+        if red in ("mean", "sum"):
+            self._loss.reduction = "none"
+            try:
+                lv = self._loss_value(outputs, labels)
+            finally:
+                self._loss.reduction = red
+        else:
+            lv = self._loss_value(outputs, labels)
+        lv = lv.float()
+        rows = int(mask.shape[0])
+        if self._is_token_mask(mask):
+            T = int(mask.shape[1])
+            if lv.dim() < 2 or tuple(lv.shape[:2]) != (rows, T):
+                raise _TailMaskError(
+                    f"loss produced shape {tuple(lv.shape)} — not per-token "
+                    f"over the ({rows}, {T}) pack, so the token mask cannot "
+                    "be folded in; packed training needs a per-token-"
+                    "maskable loss (e.g. CrossEntropyLoss over [rows, T, C] "
+                    "logits)")
+            per = lv.reshape(rows, T, -1)
+        else:
+            if lv.dim() < 1 or lv.shape[0] != rows:
+                raise _TailMaskError(
+                    f"loss produced shape {tuple(lv.shape)} — not per-row "
+                    f"over the {rows}-row batch, so the row mask cannot be "
+                    "folded in; use a loss with a mean/sum `reduction`")
+            per = lv.reshape(rows, 1, -1)
+        per = per.sum(2) if red == "sum" else per.mean(2)
+        # where, not multiply: a non-finite value at a pad position must
+        # not poison the sum through NaN * 0
+        per = torch.where(mask.reshape(per.shape) > 0, per, 0.0)
+        if red == "sum":
+            return per.sum()
+        return per.sum() / torch.clamp(mask.float().sum(), min=1.0)
+
+    @staticmethod
+    def _is_token_mask(loss_mask):
+        return loss_mask is not None and getattr(loss_mask, "ndim", 1) > 1
+
+    @staticmethod
+    def _token_masked(loader):
+        """True when the loader's collator emits a token mask as every
+        batch's last leaf (`io.PackingCollator`, `emits_token_mask`)."""
+        cf = getattr(loader, "collate_fn", None)
+        return bool(getattr(cf, "emits_token_mask", False))
+
+    @staticmethod
+    def _pop_token_mask(lbs):
+        """Split the collator's token mask off the label leaves."""
+        if not lbs:
+            raise ValueError(
+                "packing collator batches must carry at least the token "
+                "mask after the input leaves — construct the Model with "
+                "inputs= specs matching the pack layout")
+        return lbs[:-1], lbs[-1]
+
+    def _step_loss(self, outputs, labels, loss_mask):
+        """The float32 scalar loss of one batch: the mean of what the
+        prepared loss returns, or its masked fold."""
+        if loss_mask is None:
+            return self._loss_value(outputs, labels).float().mean()
+        return self._masked_loss(outputs, labels,
+                                 self._place([loss_mask])[0])
+
     def _split_batch(self, batch):
         data = _flatten_batch(batch)
         n_in = len(self._inputs) if self._inputs else 1
@@ -131,16 +238,14 @@ class Model:
     def train_batch(self, inputs, labels=None, update=True, loss_mask=None):
         """One training step. `update=False` leaves the gradients in the
         parameters' `.grad` (they accumulate over calls) and skips the
-        optimizer. Returns ([loss], []) with the loss a device tensor."""
-        if loss_mask is not None:
-            raise NotImplementedError("Model.train_batch: loss masks (tail "
-                                      "bucketing, packing) are not ported "
-                                      "yet")
+        optimizer. `loss_mask`: a token [rows, T] or row [rows] mask
+        folded into the loss (`_masked_loss`). Returns ([loss], []) with
+        the loss a device tensor."""
         t0 = time.perf_counter_ns()
         ins = self._place(_flatten_batch(inputs))
         lbs = self._place(_flatten_batch(labels or []))
         self.network.train()
-        lv = self._loss_value(self.network(*ins), lbs).float().mean()
+        lv = self._step_loss(self.network(*ins), lbs, loss_mask)
         lv.backward()
         if update:
             self._optimizer.step()
@@ -150,16 +255,28 @@ class Model:
         return [lv.detach()], []
 
     @torch.no_grad()
-    def eval_batch(self, inputs, labels=None):
+    def eval_batch(self, inputs, labels=None, loss_mask=None):
         """Forward in eval mode; returns (loss, []) with the loss a device
-        tensor (0 when no loss is prepared or no labels are given)."""
+        tensor (0 when no loss is prepared or no labels are given),
+        `loss_mask` folded in as in `train_batch`."""
         ins = self._place(_flatten_batch(inputs))
         lbs = self._place(_flatten_batch(labels or []))
         self.network.eval()
         out = self.network(*ins)
         if self._loss is None or not lbs:
             return torch.zeros((), device=self.device), []
-        return self._loss_value(out, lbs).float().mean(), []
+        return self._step_loss(out, lbs, loss_mask), []
+
+    @torch.no_grad()
+    def predict_batch(self, inputs):
+        """Forward in eval mode; the outputs on the host as numpy arrays
+        (a list when the network returns several)."""
+        ins = self._place(_flatten_batch(inputs))
+        self.network.eval()
+        out = self.network(*ins)
+        if isinstance(out, (list, tuple)):
+            return [o.detach().cpu().numpy() for o in out]
+        return out.detach().cpu().numpy()
 
     # -- loops --------------------------------------------------------------
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
@@ -180,6 +297,7 @@ class Model:
         self.stop_training = False
         step_count = 0
         logs = {}  # stays bound for on_end even with epochs=0
+        token_masked = self._token_masked(loader)
         for epoch in range(epochs):
             sampler = getattr(loader, "batch_sampler", None)
             if hasattr(sampler, "set_epoch"):
@@ -189,7 +307,10 @@ class Model:
             for step, batch in enumerate(loader):
                 cbks.on_batch_begin("train", step, logs)
                 ins, lbs = self._split_batch(batch)
-                (lv,), _ = self.train_batch(ins, lbs)
+                mask = None
+                if token_masked:
+                    lbs, mask = self._pop_token_mask(lbs)
+                (lv,), _ = self.train_batch(ins, lbs, loss_mask=mask)
                 # deferred host sync: the loss stays on the device except
                 # on the log cadence
                 if log_freq and step % log_freq == 0:
@@ -214,18 +335,46 @@ class Model:
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
                  num_workers=0, callbacks=None):
         """Mean loss over `eval_data`, with one wait for the card at the
-        end of the pass."""
+        end of the pass. Under a packing collator each pack's loss is
+        already real-token-normalised, and the pass weights packs by
+        their real-token counts, so the result is the true per-token
+        mean (a near-empty last pack does not count like a full one)."""
         loader = self._as_loader(eval_data, batch_size, False, num_workers,
                                  False)
-        losses = []
+        token_masked = self._token_masked(loader)
+        losses, weights = [], []
         for batch in loader:
             ins, lbs = self._split_batch(batch)
-            losses.append(self.eval_batch(ins, lbs)[0])
+            mask = None
+            if token_masked:
+                lbs, mask = self._pop_token_mask(lbs)
+                weights.append(torch.as_tensor(mask).float().sum())
+            losses.append(self.eval_batch(ins, lbs, loss_mask=mask)[0])
         if not losses:
             return {"loss": 0.0}
-        vals = torch.stack(losses).tolist()
+        vals = _host_floats(losses + weights)
         monitor.stat_add("STAT_train_host_syncs")
+        vals, weights = vals[:len(losses)], vals[len(losses):]
+        if token_masked and sum(weights) > 0:
+            return {"loss": float(np.average(vals, weights=weights))}
         return {"loss": sum(vals) / len(vals)}
+
+    def predict(self, test_data, batch_size=1, num_workers=0,
+                stack_outputs=False, verbose=1, callbacks=None):
+        """`predict_batch` over `test_data`: a list with one output per
+        batch, or, with `stack_outputs`, the outputs concatenated over
+        batches. Packs go through as they are: the port never row-pads a
+        batch (the JAX package must not pad packs either)."""
+        loader = self._as_loader(test_data, batch_size, False, num_workers,
+                                 False)
+        outputs = [self.predict_batch(self._split_batch(batch)[0])
+                   for batch in loader]
+        if stack_outputs and outputs:
+            if isinstance(outputs[0], list):
+                return [np.concatenate([o[i] for o in outputs])
+                        for i in range(len(outputs[0]))]
+            return np.concatenate(outputs)
+        return outputs
 
     # -- persistence --------------------------------------------------------
     def save(self, path, training=True):

@@ -1,0 +1,177 @@
+"""Sequence packing collator (port of `paddle_tpu.io.packing`).
+
+Variable-length training that pads every sequence to the row length
+spends most of its work on pad tokens. This collator packs several
+sequences into one fixed `(rows, max_tokens)` pack (greedy first-fit,
+Krell et al., "Efficient Sequence Packing") and emits what the
+segment-aware attention (`F.scaled_dot_product_attention(segment_ids=
+...)`, splash attention) and the token-masked loss (`hapi.Model`) need:
+
+  pack layout:  (field_0, segment_ids, position_ids, *fields_1.., mask)
+    field_i      [rows, max_tokens]  each per-token field of the sample,
+                                     in sample order (field_0 = model
+                                     input tokens, the rest = labels)
+    segment_ids  [rows, max_tokens]  int32, 0,1,2,... per row in packing
+                                     order; a row's padded tail gets ONE
+                                     trailing pad segment id (one past its
+                                     last real segment), so ids stay
+                                     non-decreasing, as the splash tile
+                                     bounds need, and pad tokens attend
+                                     only to each other
+    position_ids [rows, max_tokens]  int32, restarting at 0 per segment
+    mask         [rows, max_tokens]  float32 token validity; Model.fit
+                                     pops it as the token-level loss mask
+
+Every pack, a partial last one included, has the same shape. Samples are
+a single 1-D per-token array or a tuple/list of equal-length 1-D arrays.
+A sequence longer than `max_tokens` is truncated (counted); a sequence
+no row can host is DROPPED (counted, warned once): size `rows` for the
+length distribution (`suggest_rows`) so drops stay rare.
+
+`policy="pad"` is the one-sequence-per-row baseline (pad to max, the
+same tensor layout): the control arm of packed-vs-padded comparisons.
+
+Counters (framework/monitor.py): STAT_packing_packs,
+STAT_packing_sequences, STAT_packing_tokens (real), STAT_packing_slots
+(rows*max_tokens), STAT_packing_fill_ratio_pct (cumulative per-pack
+percentage), STAT_packing_dropped_seqs, STAT_packing_truncated_seqs.
+The collate runs under a `packing::collate[n=...]` profiler scope. The
+port's DataLoader collates in the training process, so the counters land
+in its registry directly (the JAX package relays them from its worker
+processes).
+"""
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from ..framework import monitor
+
+__all__ = ["PackingCollator", "suggest_rows"]
+
+
+def _note_pack(tokens, slots):
+    """Pack-level counters."""
+    monitor.stat_add("STAT_packing_packs")
+    monitor.stat_add("STAT_packing_tokens", tokens)
+    monitor.stat_add("STAT_packing_slots", slots)
+    monitor.stat_add("STAT_packing_fill_ratio_pct",
+                     int(round(100.0 * tokens / max(slots, 1))))
+
+
+def suggest_rows(lengths, batch_size, max_tokens, headroom=1.1):
+    """Row count for a `(rows, max_tokens)` pack that fits `batch_size`
+    sequences of the given observed/expected lengths with `headroom`
+    slack over the perfect-fill row count."""
+    mean_len = float(np.mean(np.minimum(np.asarray(lengths), max_tokens)))
+    return max(1, int(np.ceil(batch_size * mean_len * headroom
+                              / max_tokens)))
+
+
+def _fields_of(sample):
+    if isinstance(sample, (tuple, list)):
+        fields = [np.asarray(f) for f in sample]
+    else:
+        fields = [np.asarray(sample)]
+    L = fields[0].shape[0]
+    for f in fields:
+        if f.ndim != 1 or f.shape[0] != L:
+            raise ValueError(
+                "PackingCollator samples must be 1-D per-token arrays of "
+                f"equal length; got shapes "
+                f"{[tuple(f.shape) for f in fields]}")
+    return fields, L
+
+
+class PackingCollator:
+    """DataLoader collate_fn packing variable-length samples into fixed
+    `(rows, max_tokens)` packs with segment ids, position ids and a token
+    mask. See the module docstring for the layout and contract."""
+
+    # Model.fit/evaluate key off this: the last batch leaf is a
+    # token-level loss mask
+    emits_token_mask = True
+
+    def __init__(self, max_tokens, rows, pad_value=0, policy="first_fit"):
+        if policy not in ("first_fit", "pad"):
+            raise ValueError(f"unknown packing policy {policy!r}")
+        if max_tokens <= 0 or rows <= 0:
+            raise ValueError("max_tokens and rows must be positive")
+        self.max_tokens = int(max_tokens)
+        self.rows = int(rows)
+        self.pad_value = pad_value
+        self.policy = policy
+        self.last_fill_ratio = 0.0
+        self._warned_drop = False
+
+    def __call__(self, batch):
+        with torch.profiler.record_function(
+                f"packing::collate[n={len(batch)}]"):
+            return self._pack(batch)
+
+    def _place(self, used, L, i):
+        if self.policy == "pad":
+            if i >= self.rows:
+                return None  # more sequences than rows: overflow
+            return i if used[i] == 0 and L <= self.max_tokens else None
+        for r in range(self.rows):           # greedy first-fit
+            if used[r] + L <= self.max_tokens:
+                return r
+        return None
+
+    def _pack(self, batch):
+        rows, T = self.rows, self.max_tokens
+        samples = [_fields_of(s) for s in batch]
+        if not samples:
+            raise ValueError("PackingCollator: empty batch")
+        nfields = len(samples[0][0])
+        out = None
+        seg = np.zeros((rows, T), np.int32)
+        pos = np.zeros((rows, T), np.int32)
+        mask = np.zeros((rows, T), np.float32)
+        used = [0] * rows
+        nseg = [0] * rows
+        placed = tokens = 0
+        for i, (fields, L) in enumerate(samples):
+            if len(fields) != nfields:
+                raise ValueError("inconsistent sample arity in batch")
+            if L > T:
+                fields = [f[:T] for f in fields]
+                L = T
+                monitor.stat_add("STAT_packing_truncated_seqs")
+            r = self._place(used, L, i)
+            if r is None:
+                monitor.stat_add("STAT_packing_dropped_seqs")
+                if not self._warned_drop:
+                    self._warned_drop = True
+                    warnings.warn(
+                        f"PackingCollator: a {L}-token sequence fit no "
+                        f"row of the ({rows}, {T}) pack and was dropped "
+                        "— raise `rows` (io.packing.suggest_rows) or "
+                        "max_tokens if drops matter", stacklevel=2)
+                continue
+            if out is None:
+                out = [np.full((rows, T), self.pad_value, dtype=f.dtype)
+                       for f in fields]
+            o = used[r]
+            for dst, f in zip(out, fields):
+                dst[r, o:o + L] = f
+            seg[r, o:o + L] = nseg[r]
+            pos[r, o:o + L] = np.arange(L, dtype=np.int32)
+            mask[r, o:o + L] = 1.0
+            used[r] = o + L
+            nseg[r] += 1
+            placed += 1
+            tokens += L
+        if out is None:
+            raise ValueError("PackingCollator: empty batch (or every "
+                             "sequence overflowed the pack)")
+        for r in range(rows):
+            # ONE trailing pad segment per row keeps ids non-decreasing
+            seg[r, used[r]:] = nseg[r]
+        self.last_fill_ratio = tokens / float(rows * T)
+        _note_pack(tokens, rows * T)
+        monitor.stat_add("STAT_packing_sequences", placed)
+        return tuple([out[0], seg, pos] + out[1:] + [mask])

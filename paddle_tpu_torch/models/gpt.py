@@ -351,12 +351,13 @@ def sample_logits(logits, do_sample, temperature, top_k, generator):
     return torch.multinomial(p, 1, generator=generator)[:, 0]
 
 
-def load_reference_state(model: GPTForCausalLM, arrays) -> None:
-    """Copy a `paddle_tpu` GPT state dict, given as {name: np.ndarray},
-    into `model` by parameter name. `paddle_tpu` stores Linear weights
-    [in, out] and PyTorch [out, in], so every Linear weight is
-    transposed. Raises InvalidArgumentError on a missing, extra or
-    mis-shaped key."""
+def load_reference_state(model: nn.Module, arrays) -> None:
+    """Copy a `paddle_tpu` state dict, given as {name: np.ndarray}, into
+    `model` (any `nn.Module` whose names match the `paddle_tpu` layer's,
+    such as GPTForCausalLM) by parameter name. `paddle_tpu` stores Linear
+    weights [in, out] and PyTorch [out, in], so every `nn.Linear` weight
+    is transposed; embeddings and everything else copy as they are.
+    Raises InvalidArgumentError on a missing, extra or mis-shaped key."""
     linear = {f"{n}.weight" for n, m in model.named_modules()
               if isinstance(m, nn.Linear)}
     own = model.state_dict()

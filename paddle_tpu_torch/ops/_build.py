@@ -32,7 +32,8 @@ __all__ = ["SOURCES", "build", "load", "check", "build_dir", "ptxas_log"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("paged_attention.cu", "flash_fwd.cu", "flash_bwd_dq.cu",
-           "flash_bwd_dkv.cu")
+           "flash_bwd_dkv.cu", "splash_fwd.cu", "splash_bwd_dq.cu",
+           "splash_bwd_dkv.cu")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 

@@ -239,10 +239,13 @@ _ENTRIES = {
 }
 
 
-def _launch(src, tensors, q, k, causal, scale, dropout_p, seed):
-    """Call the C entry of `src` on `tensors` (pointers, None for no bias)
-    on q's current stream; raise on a refused launch."""
-    entry, err_name, n_ptr = _ENTRIES[src]
+def _launch(src, tensors, q, k, causal, scale, dropout_p, seed,
+            entries=_ENTRIES):
+    """Call the C entry of `src` (looked up in `entries`, which the splash
+    kernels share this calling convention through) on `tensors`
+    (pointers, None for no bias) on q's current stream; raise on a
+    refused launch."""
+    entry, err_name, n_ptr = entries[src]
     lib = _build.load(src)
     fn = getattr(lib, entry)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
@@ -423,14 +426,19 @@ def flash_attention(query, key, value, causal=False, scale=None,
         scale = 1.0 / (query.shape[-1] ** 0.5)
     bias = None if attn_mask is None else _mask_to_bias(
         attn_mask, key.shape[0], key.shape[2])
-    seed = 0
-    if dropout_p > 0.0:
-        if generator is not None:
-            seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
-                                     generator=generator,
-                                     device=generator.device).item())
-        else:
-            seed = frandom.next_seed(query.device)
+    seed = _dropout_seed(query.device, dropout_p, generator)
     return FlashAttention.apply(query.contiguous(), key.contiguous(),
                                 value.contiguous(), bias, seed, bool(causal),
                                 float(scale), float(dropout_p))
+
+
+def _dropout_seed(device, dropout_p, generator):
+    """The int32 seed of a keep mask: 0 without dropout, else drawn from
+    `generator` when given, or from `device`'s stream in
+    `framework.random`."""
+    if dropout_p <= 0.0:
+        return 0
+    if generator is not None:
+        return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                 device=generator.device).item())
+    return frandom.next_seed(device)

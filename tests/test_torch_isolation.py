@@ -20,7 +20,7 @@ import paddle_tpu_torch
 from paddle_tpu_torch.framework.errors import UnavailableError
 from paddle_tpu_torch.framework.place import resolve_device
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
-from paddle_tpu_torch.ops import _build, flash_ops, paged_ops
+from paddle_tpu_torch.ops import _build, flash_ops, paged_ops, splash_ops
 from paddle_tpu_torch.serving import GenerationEngine
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -62,7 +62,8 @@ def test_importing_every_module_builds_nothing():
     for sub in ("hapi.model", "hapi.callbacks", "io.dataloader",
                 "io.sampler", "io.dataset", "optimizer.lr",
                 "optimizer.optimizers", "nn.clip", "nn.functional.loss",
-                "nn.layer.loss", "framework.random"):
+                "nn.layer.loss", "framework.random", "ops.splash_ops",
+                "io.packing", "static.input_spec"):
         assert f"paddle_tpu_torch.{sub}" in names
     for name in names:
         importlib.import_module(name)
@@ -112,10 +113,18 @@ def test_cpu_tensors_take_the_plain_path_and_build_nothing():
     out = flash_ops.flash_attention(x, x, x, causal=True, dropout_p=0.1)
     out.sum().backward()
     assert x.grad is not None
+    seg = torch.zeros(1, 128, dtype=torch.int32)
+    seg[:, 70:] = 1
+    out = splash_ops.splash_attention(x, x, x, seg, seg, causal=True,
+                                      dropout_p=0.1)
+    out.sum().backward()
     assert paged_ops.paged_attention.launches == paged0 == 0
     assert flash_ops.flash_attention_fwd.launches == flash0 == 0
     assert flash_ops.flash_attention_dq.launches == 0
     assert flash_ops.flash_attention_dkv.launches == 0
+    assert splash_ops.splash_attention_fwd.launches == 0
+    assert splash_ops.splash_attention_dq.launches == 0
+    assert splash_ops.splash_attention_dkv.launches == 0
     assert _build._libs == {}
 
 

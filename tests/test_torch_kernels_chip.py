@@ -106,3 +106,79 @@ def test_c4_gradients_flow_through_the_flash_kernel(cuda):
     for a, b in zip(ins, dense):
         assert a.grad is not None
         torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=0)
+
+
+def _packed_ids(B, S, g, device):
+    """Non-decreasing segment ids [B, S]: random boundaries, off the tile
+    grid, one row a single segment."""
+    seg = torch.zeros(B, S, dtype=torch.int32)
+    for b in range(1, B):
+        cuts = torch.randint(1, S, (3 * b,), generator=g)
+        for c in cuts.tolist():
+            seg[b, c:] += 1
+    return seg.to(device)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.2])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_splash_kernels_match_plain(cuda, p, causal, D):
+    """K5, K6 and K7 against their plain versions on the same inputs,
+    segment ids and seed, fp32, atol 1e-4; one launch each."""
+    from paddle_tpu_torch.ops import splash_ops
+    g = torch.Generator().manual_seed(D + causal)
+    q, k, v, do = (torch.randn(3, 2, 256, D, generator=g).to(cuda)
+                   for _ in range(4))
+    seg = _packed_ids(3, 256, g, cuda)
+    n = [w.launches for w in (splash_ops.splash_attention_fwd,
+                              splash_ops.splash_attention_dq,
+                              splash_ops.splash_attention_dkv)]
+    out, lse = splash_ops.splash_attention_fwd(q, k, v, seg, seg, causal,
+                                               0.2, p, 11)
+    ref, ref_lse = splash_ops._splash_fwd_reference(q, k, v, seg, seg,
+                                                    causal, 0.2, p, 11)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    delta = flash_ops._delta(ref, do)
+    args = (q, k, v, seg, seg, do, ref_lse, delta, causal, 0.2, p, 11)
+    torch.testing.assert_close(splash_ops.splash_attention_dq(*args),
+                               splash_ops._splash_dq_reference(*args),
+                               atol=1e-4, rtol=0)
+    for got, want in zip(splash_ops.splash_attention_dkv(*args),
+                         splash_ops._splash_dkv_reference(*args)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert [w.launches for w in (splash_ops.splash_attention_fwd,
+                                 splash_ops.splash_attention_dq,
+                                 splash_ops.splash_attention_dkv)] == \
+        [x + 1 for x in n]
+
+
+def test_splash_absent_segment_rows_are_zero(cuda):
+    """A query segment absent from kv: its output rows and dQ rows are
+    exactly 0 on the card, and SplashAttention's gradients match autograd
+    through the plain forward (atol 1e-4)."""
+    from paddle_tpu_torch.ops import splash_ops
+    g = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn(2, 2, 256, 64, generator=g).to(cuda)
+                   for _ in range(4))
+    q_seg = torch.zeros(2, 256, dtype=torch.int32)
+    q_seg[:, 90:] = 1
+    q_seg[:, 170:] = 2
+    kv_seg = q_seg.clone()
+    kv_seg[0][kv_seg[0] == 1] = 0
+    q_seg, kv_seg = q_seg.to(cuda), kv_seg.to(cuda)
+    out, lse = splash_ops.splash_attention_fwd(q, k, v, q_seg, kv_seg, False,
+                                               0.125)
+    assert (out[0, :, 90:170] == 0).all()
+    delta = flash_ops._delta(out, do)
+    dq = splash_ops.splash_attention_dq(q, k, v, q_seg, kv_seg, do, lse,
+                                        delta, False, 0.125)
+    assert (dq[0, :, 90:170] == 0).all()
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(splash_ops.splash_attention(
+        *ins, q_seg, kv_seg, causal=False, scale=0.125), ins, do)
+    dense = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(splash_ops._splash_fwd_reference(
+        *dense, q_seg, kv_seg, False, 0.125)[0], dense, do)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
