@@ -14,7 +14,9 @@ Phases:
               PyTorch library call where one computes the same function):
               K1 paged decode, K2 flash forward (serving shape, and the
               training shape with dropout), K3 flash dQ and K4 flash
-              dK/dV (training shape, dropout 0 and 0.1, fp32 and bf16);
+              dK/dV (training shape, dropout 0 and 0.1, fp32 and bf16;
+              head dims 128 and 32 at the train width; Sq 1024 != Sk
+              1536), with the achieved TFLOP/s;
               FlashAttention's gradients against autograd through the
               plain forward; gradients reaching q/k/v through K2 (C4)
  4. model     GPT-2 small (GPTConfig() defaults, fp32, seed 0): a [2,1024]
@@ -64,9 +66,13 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
+# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit).
+# The fp32 bound is the fp32-accurate tensor-core rate, 3xTF32 (three TF32
+# products a product): 495 / 3 TFLOP/s, the least time the card could take
+# for fp32 products; the CUDA cores' 67 TFLOP/s is printed beside it.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+CUDA_CORE_FP32 = 67e12
 
 K1_SHAPE = dict(B=8, H=12, D=64, P=16, PP=64)
 K2_SHAPE = dict(B=2, H=12, S=1024, D=64)
@@ -110,6 +116,18 @@ def _smi() -> str:
             timeout=30).stdout.strip()
     except (OSError, subprocess.SubprocessError) as e:
         return f"nvidia-smi unavailable ({e})"
+
+
+def _rates(flops, ms, dtype):
+    """Achieved TFLOP/s of `flops` in `ms`, and for fp32 the time the
+    same work takes at the CUDA cores' peak (67 TFLOP/s): (dict, text)."""
+    r = dict(tflops=flops / ms / 1e9)
+    text = f"achieved {r['tflops']:.1f} TFLOP/s"
+    if dtype == "float32":
+        r["cuda_core_bound_ms"] = flops / CUDA_CORE_FP32 * 1e3
+        text += (f", fp32 CUDA-core bound {r['cuda_core_bound_ms']:.4f} ms "
+                 f"(67 TFLOP/s)")
+    return r, text
 
 
 def _time_ms(torch, fn, iters, flush=None):
@@ -251,15 +269,16 @@ class Smoke:
             name = str(dtype).replace("torch.", "")
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FLOPS[name] * 1e3
+            rates, rtext = _rates(flops, ms, name)
             row = dict(dtype=name, max_abs_err=err, tol=tol, ms=ms,
                        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else
-                       "operations", library_ms=None, tokens=toks)
+                       "operations", library_ms=None, tokens=toks, **rates)
             rows.append(row)
             print(f"K1 paged_attention {name} B=8 H=12 D=64 P=16 PP=64 "
                   f"len sum {toks}: max_abs_err {err:.3e} (tol {tol}) "
                   f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {rtext}")
             assert err <= tol, f"K1 {name} disagrees with its plain version"
         self.details["k1"] = rows
         self.kernel_rows["paged_attention"] = rows[0]
@@ -321,36 +340,44 @@ class Smoke:
                     name = str(dtype).replace("torch.", "")
                     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                     t_ops = flops / PEAK_FLOPS[name] * 1e3
+                    rates, rtext = _rates(flops, ms, name)
                     row = dict(dtype=name, causal=causal, padded=padded,
                                max_abs_err=err, lse_err=lse_err, tol=tol,
                                ms=ms, plain_ms=plain_ms,
                                bound_ms=max(t_bytes, t_ops),
                                bound_by="bytes" if t_bytes >= t_ops
-                               else "operations", library_ms=lib_ms)
+                               else "operations", library_ms=lib_ms, **rates)
                     rows.append(row)
                     print(f"K2 flash_fwd {name} causal={causal} "
                           f"padded={padded} B=2 H=12 S=1024 D=64: max_abs_err "
                           f"{err:.3e} lse_err {lse_err:.3e} (tol {tol}) "
                           f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
                           f"library {lib_ms:.4f} ms bound "
-                          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+                          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                          f"{rtext}")
                     assert torch.isfinite(out.float()).all(), "K2 non-finite"
                     assert err <= tol and lse_err <= tol, \
                         f"K2 {name} causal={causal} padded={padded} " \
                         f"disagrees with its plain version"
         self.details["k2"] = rows
 
-    def train_inputs(self, dtype, causal, padded, seed=2):
-        """q, k, v, dO at the train phase's attention shape, and a key
-        bias whose masked tails leave every row some visible key."""
+    def train_inputs(self, dtype, causal, padded, seed=2, H=None, D=None,
+                     Sq=None, Sk=None):
+        """q, dO [B, H, Sq, D] and k, v [B, H, Sk, D] (by default the
+        train phase's attention shape), and a key bias whose masked tails
+        leave every row some visible key."""
         torch = self.torch
-        B, H, S, D = (TRAIN_SHAPE[k] for k in ("B", "H", "S", "D"))
+        B = TRAIN_SHAPE["B"]
+        H = H or TRAIN_SHAPE["H"]
+        D = D or TRAIN_SHAPE["D"]
+        Sq = Sq or TRAIN_SHAPE["S"]
+        Sk = Sk or Sq
         g = torch.Generator(device="cuda").manual_seed(seed + 2 * causal)
         q, k, v, do = (torch.randn(B, H, S, D, generator=g, device="cuda")
-                       .to(dtype) for _ in range(4))
+                       .to(dtype) for S in (Sq, Sk, Sk, Sq))
         bias = None
         if padded:
-            bias = torch.zeros(B, S, device="cuda")
+            bias = torch.zeros(B, Sk, device="cuda")
             bias[0, 700:] = -1e30
             bias[1, 300:] = -1e30
         return q, k, v, do, bias
@@ -359,52 +386,74 @@ class Smoke:
              nbytes, lib_ms, **extra):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        rates, rtext = _rates(flops, ms, dtype)
         row = dict(dtype=dtype, max_abs_err=err, ref_max=ref_max, tol=tol,
                    ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   library_ms=lib_ms, **extra)
+                   library_ms=lib_ms, **rates, **extra)
         lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
         print(f"{name} {dtype} " + " ".join(f"{k}={v}" for k, v in
                                              extra.items())
               + f": max_abs_err {err:.3e} (max |ref| {ref_max:.3e}, tol "
               f"{tol} x max(1, max |ref|)) kernel {ms:.4f} ms plain "
               f"{plain_ms:.4f} ms library {lib} bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+              f"{row['bound_ms'] / ms:.3f} of it); {rtext}")
         assert err <= tol * max(1.0, ref_max), \
             f"{name} {dtype} {extra} disagrees with its plain version"
         return row
 
     def check_train_kernels(self):
-        """K2 with dropout, K3 and K4 at the train phase's attention shape
-        against their plain versions on the same inputs and seed: fp32
-        and bf16, causal or not, p 0 and 0.1, and a padded bias. The
-        backward pair is fed the plain forward's O, LSE and delta, so
-        only the kernels' arithmetic differs. Tolerances, relative to
-        max(1, max |ref|): fp32 1e-4 (summation order), bf16 1e-2 (one
-        bf16 rounding of the output)."""
+        """K2 with dropout, K3 and K4 against their plain versions on the
+        same inputs and seed. At the train phase's attention shape: fp32
+        and bf16, causal or not, p 0 and 0.1, and a padded bias. At the
+        train width with other head dims (D 128 with H 6, D 32 with H 24),
+        causal, p 0.1, fp32 and bf16; and non-causal with Sq 1024 != Sk
+        1536, p 0.1, fp32 and bf16. The backward pair is fed the plain
+        forward's O, LSE and delta, so only the kernels' arithmetic
+        differs. Tolerances, relative to max(1, max |ref|): fp32 1e-4
+        (summation order), bf16 1e-2 (one bf16 rounding of dS / Pd and of
+        the output)."""
         torch = self.torch
         import torch.nn.functional as TF
         from paddle_tpu_torch.ops import flash_ops as fo
-        B, H, S, D = (TRAIN_SHAPE[k] for k in ("B", "H", "S", "D"))
-        scale = 1.0 / D ** 0.5
+        B, H0, S0, D0 = (TRAIN_SHAPE[k] for k in ("B", "H", "S", "D"))
         seed = 1234
         rows = {"fwd": [], "dq": [], "dkv": []}
-        cases = [(dt, c, p, False) for dt in ("float32", "bfloat16")
+        train = dict(H=H0, D=D0, Sq=S0, Sk=S0)
+        cases = [dict(train, dtype=dt, causal=c, p=p, padded=False)
+                 for dt in ("float32", "bfloat16")
                  for c in (True, False) for p in (0.0, DROPOUT)]
-        cases += [("float32", c, DROPOUT, True) for c in (True, False)]
+        cases += [dict(train, dtype="float32", causal=c, p=DROPOUT,
+                       padded=True) for c in (True, False)]
+        for dt in ("float32", "bfloat16"):
+            cases += [dict(H=6, D=128, Sq=S0, Sk=S0, dtype=dt, causal=True,
+                           p=DROPOUT, padded=False),
+                      dict(H=24, D=32, Sq=S0, Sk=S0, dtype=dt, causal=True,
+                           p=DROPOUT, padded=False),
+                      dict(H=H0, D=D0, Sq=S0, Sk=1536, dtype=dt,
+                           causal=False, p=DROPOUT, padded=False)]
         lib = {}
-        for name, causal, p, padded in cases:
+        for case in cases:
+            name, causal, p, padded = (case[k] for k in
+                                       ("dtype", "causal", "p", "padded"))
+            H, D, Sq, Sk = (case[k] for k in ("H", "D", "Sq", "Sk"))
             dtype = getattr(torch, name)
+            scale = 1.0 / D ** 0.5
             tol = 1e-4 if name == "float32" else 1e-2
-            q, k, v, do, bias = self.train_inputs(dtype, causal, padded)
-            tag = dict(causal=causal, p=p, padded=padded)
-            pairs = S * (S + 1) // 2 if causal else S * S
+            q, k, v, do, bias = self.train_inputs(dtype, causal, padded,
+                                                  H=H, D=D, Sq=Sq, Sk=Sk)
+            tag = dict(shape=f"{B}x{H}x{Sq}x{Sk}x{D}", causal=causal, p=p,
+                       padded=padded)
+            pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
             # bytes each kernel must move: its [B,H,S,D] operands read or
-            # written once, the [B*H,S] f32 statistics, the [B,S] bias
-            bh_sd = B * H * S * D * q.element_size()
-            row_b = B * H * S * 4
-            bias_b = B * S * 4 if padded else 0
-            if (name, causal) not in lib and not padded:
+            # written once, the [B*H,Sq] f32 statistics, the [B,Sk] bias
+            q_b = B * H * Sq * D * q.element_size()
+            k_b = B * H * Sk * D * q.element_size()
+            row_b = B * H * Sq * 4
+            bias_b = B * Sk * 4 if padded else 0
+            key = (name, causal, tag["shape"])
+            if key not in lib and not padded:
                 # the library yardsticks, p = 0: SDPA forward, and its
                 # backward under autograd timed as one call
                 ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
@@ -414,9 +463,10 @@ class Smoke:
                                                      is_causal=causal)
                 bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
                     ol, (ql, kl, vl), do, retain_graph=True), 10)
-                lib[(name, causal)] = (fwd_ms, bwd_ms)
+                lib[key] = (fwd_ms, bwd_ms)
                 del ql, kl, vl, ol
-            lib_fwd, lib_bwd = lib.get((name, causal), (None, None))
+            lib_fwd, lib_bwd = lib.get(key, (None, None)) if not padded \
+                else (None, None)
             # K2
             out, lse = fo.flash_attention_fwd(q, k, v, bias, causal, scale,
                                               p, seed)
@@ -432,8 +482,8 @@ class Smoke:
                     q, k, v, bias, causal, scale, p, seed), 10),
                 _time_ms(torch, lambda: fo._flash_fwd_reference(
                     q, k, v, bias, causal, scale, p, seed), 3),
-                4 * B * H * pairs * D, 4 * bh_sd + row_b + bias_b,
-                lib_fwd if not padded else None, **tag))
+                4 * B * H * pairs * D, 2 * q_b + 2 * k_b + row_b + bias_b,
+                lib_fwd, **tag))
             del out, lse
             delta = fo._delta(ref, do)
             # K3
@@ -452,8 +502,8 @@ class Smoke:
                 _time_ms(torch, lambda: fo._dq_reference(
                     q, k, v, bias, do, ref_lse, delta, causal, scale, p,
                     seed), 3),
-                3 * 2 * B * H * pairs * D, 5 * bh_sd + 2 * row_b + bias_b,
-                lib_bwd if not padded else None, **tag))
+                3 * 2 * B * H * pairs * D,
+                3 * q_b + 2 * k_b + 2 * row_b + bias_b, lib_bwd, **tag))
             del dq, dq_ref
             # K4
             dk, dv = fo.flash_attention_dkv(q, k, v, bias, do, ref_lse,
@@ -475,8 +525,13 @@ class Smoke:
                 _time_ms(torch, lambda: fo._dkv_reference(
                     q, k, v, bias, do, ref_lse, delta, causal, scale, p,
                     seed), 3),
-                4 * 2 * B * H * pairs * D, 6 * bh_sd + 2 * row_b + bias_b,
-                lib_bwd if not padded else None, **tag))
+                4 * 2 * B * H * pairs * D,
+                2 * q_b + 4 * k_b + 2 * row_b + bias_b, lib_bwd, **tag))
+            pair_ms = rows["dq"][-1]["ms"] + rows["dkv"][-1]["ms"]
+            if lib_bwd is not None:
+                print(f"K3 + K4 {name} {tag}: {pair_ms:.4f} ms = "
+                      f"{pair_ms / lib_bwd:.3f} x the library's whole "
+                      f"backward ({lib_bwd:.4f} ms)")
             del dk, dv, dk_ref, dv_ref, ref, ref_lse, delta
             torch.cuda.empty_cache()
         self.details["train_kernels"] = rows
@@ -484,7 +539,8 @@ class Smoke:
         def pick(rs):   # the train phase's case: fp32, causal, p 0.1
             return next(r for r in rs if r["dtype"] == "float32"
                         and r["causal"] and r["p"] == DROPOUT
-                        and not r["padded"])
+                        and not r["padded"]
+                        and r["shape"] == f"{B}x{H0}x{S0}x{S0}x{D0}")
         self.kernel_rows["flash_fwd"] = pick(rows["fwd"])
         self.kernel_rows["flash_bwd_dq"] = pick(rows["dq"])
         self.kernel_rows["flash_bwd_dkv"] = pick(rows["dkv"])

@@ -16,25 +16,49 @@
 // forward's mask whatever the tiles.
 //
 // Bound: operations. Three products of 2*Sq*Sk*D flops (S, dP, dS K), half
-// of that when causal, against inputs read once; run on the float32 CUDA
-// cores (67 TFLOP/s peak) in both input types, like K2.
+// of that when causal, against inputs read once. They run on the tensor
+// cores (flash_mma.cuh): bf16 operands on mma.sync m16n8k16 (989 TFLOP/s
+// peak), fp32 as 3xTF32 on mma.sync m16n8k8 (495 / 3 = 165 TFLOP/s of
+// fp32-accurate products). dS is rounded to bf16 before dS K in bf16, as the
+// TPU kernel casts it to K's type (pallas_ops.py:238).
 //
-// Design: one block of 256 threads per (64-query tile, b*h), no atomics: the
-// block owns its dQ rows and loops over 64-key tiles, stopping at the
-// diagonal tile when causal (the TPU kernel's range, pallas_ops.py:243-245,
-// for any tile sizes). Q, dO, LSE and delta stay in shared memory; per key
-// tile, S and dP come out of one pass over D (4x4 register tiles each), dS
-// goes to shared memory, and dQ += dS K accumulates in a 4 x D/16 register
-// tile per thread. Tensor cores and TMA are later work.
+// Design: one block of 4 warps per (64-query tile, b*h), no atomics: the
+// block owns its dQ rows, each warp 16 of them, and loops over key tiles
+// (64 keys; 32 at D 128, to keep the registers free of spills), stopping at
+// the diagonal tile when causal (the TPU kernel's range,
+// pallas_ops.py:243-245). Q and dO stay in shared memory in their input
+// type; K, V and the bias tile are double-buffered with 16-byte cp.async,
+// so the next tile's copy overlaps this tile's products. Tiles are XOR-
+// swizzled so ldmatrix (bf16) and the 32-bit fragment loads (tf32) are free
+// of bank conflicts. S and dP come out of mma in accumulator fragments
+// (queries as rows), dS is formed there, and that fragment is the A operand
+// of dQ += dS K with K's fragments read transposed (ldmatrix.trans in bf16):
+// dS never goes through shared memory. Warps whose rows lie wholly below
+// the diagonal skip the mask test; the query tiles run heaviest first
+// (the last query tile has the most keys), so long blocks do not form the
+// tail.
+//
+// Why mma.sync and not wgmma: the main path's type is fp32, and tf32 wgmma
+// takes both operands K-major from shared memory only (its transpose bit is
+// for 16-bit types). K in dS K arrives MN-major, so fp32 wgmma would need a
+// transposing copy of every K tile; one mma.sync fragment path serves both
+// types.
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
-using namespace flash;
+constexpr int kBQ = 64;       // query rows a block
+constexpr int kWarps = 4;     // 16 query rows a warp
+constexpr int kThreads = 32 * kWarps;
 
 template <int D>
-constexpr int smem_floats() {
-  return 4 * kBQ * (D + 1) + kBQ * (kBK + 1) + 2 * kBQ;
+constexpr int kKeyTile = D == 128 ? 32 : 64;   // keys a tile
+
+template <typename T, int D>
+constexpr int smem_bytes() {
+  return (2 * kBQ * D + 4 * kKeyTile<D> * D) * (int)sizeof(T)
+         + 2 * kKeyTile<D> * (int)sizeof(float);
 }
 
 template <typename T, int D>
@@ -45,124 +69,113 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int H, int Sq, int Sk, int causal, float scale,
                     uint32_t thresh, float keep_scale, uint32_t seed) {
-  constexpr int DS = D + 1;
-  constexpr int SS = kBK + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kBQ * DS;
-  float* Ks = dOs + kBQ * DS;
-  float* Vs = Ks + kBK * DS;
-  float* Ss = Vs + kBK * DS;
-  float* lse_s = Ss + kBQ * SS;
-  float* dl_s = lse_s + kBQ;
+  constexpr int BK = kKeyTile<D>;
+  constexpr int NT = BK / 8;   // score n-tiles a warp
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* dOs = Qs + kBQ * D;
+  T* Ks = dOs + kBQ * D;            // [2][BK * D]
+  T* Vs = Ks + 2 * BK * D;          // [2][BK * D]
+  float* bs = reinterpret_cast<float*>(Vs + 2 * BK * D);   // [2][BK]
 
-  const int qi = blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
+  const int qi = gridDim.y - 1 - blockIdx.y;   // heaviest tile first
   const int b = bh / H;
   const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const size_t qoff = ((size_t)bh * Sq + (size_t)qi * kBQ) * D;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = qi * kBQ;
+  const size_t qoff = ((size_t)bh * Sq + q0) * D;
   const T* kb = k + (size_t)bh * Sk * D;
   const T* vb = v + (size_t)bh * Sk * D;
   const float* brow = bias != nullptr ? bias + (size_t)b * Sk : nullptr;
 
-  load_tile<T, D>(Qs, q + qoff, kBQ, tid);
-  load_tile<T, D>(dOs, dout + qoff, kBQ, tid);
-  if (tid < kBQ) {
-    lse_s[tid] = lse[(size_t)bh * Sq + (size_t)qi * kBQ + tid];
-    dl_s[tid] = delta[(size_t)bh * Sq + (size_t)qi * kBQ + tid];
-  }
-  uint32_t row_hash[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    row_hash[i] = thresh ? drop_row(seed, bh, qi * kBQ + ty + 16 * i) : 0u;
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  const int nkb = Sk / kBK;
+  const int nkb = Sk / BK;
   int last = nkb;
   if (causal) {
-    const int diag = ((qi + 1) * kBQ + kBK - 1) / kBK;
+    const int diag = (q0 + kBQ + BK - 1) / BK;
     last = diag < nkb ? diag : nkb;
   }
-  for (int t = 0; t < last; ++t) {
-    __syncthreads();  // the previous tile's K and dS reads are done
-    load_tile<T, D>(Ks, kb + (size_t)t * kBK * D, kBK, tid);
-    load_tile<T, D>(Vs, vb + (size_t)t * kBK * D, kBK, tid);
-    __syncthreads();
+  auto fetch = [&](int t) {
+    const int buf = t & 1;
+    fmma::load_tile_async<T, D, BK, kThreads>(
+        Ks + buf * BK * D, kb + (size_t)t * BK * D, tid);
+    fmma::load_tile_async<T, D, BK, kThreads>(
+        Vs + buf * BK * D, vb + (size_t)t * BK * D, tid);
+    if (brow != nullptr)
+      fmma::load_vec_async<kThreads>(bs + buf * BK, brow + t * BK, BK, tid);
+  };
+  fmma::load_tile_async<T, D, kBQ, kThreads>(Qs, q + qoff, tid);
+  fmma::load_tile_async<T, D, kBQ, kThreads>(dOs, dout + qoff, tid);
+  if (last > 0) fetch(0);
+  fmma::cp_async_commit();
 
-    // S = Q K^T and dP = dO V^T: rows ty + 16 i, keys tx + 16 j
-    float s[4][4], dp[4][4];
+  // this thread's two query rows (g and g + 8 of its warp's 16)
+  const int r0 = 16 * warp + g;
+  int qpos[2];
+  float lse_r[2], dl_r[2];
+  uint32_t rh[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty + 16 * i) * DS + d];
-        ov[i] = dOs[(ty + 16 * i) * DS + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * DS + d];
-        vv[j] = Vs[(tx + 16 * j) * DS + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] += qv[i] * kv[j];
-          dp[i][j] += ov[i] * vv[j];
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int qpos = qi * kBQ + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int kpos = t * kBK + c;
-        float x = s[i][j] * scale;
-        if (brow != nullptr) x += brow[kpos];
-        if (causal && kpos > qpos) x = kNegInf;
-        const float p = expf(x - lse_s[r]);
-        float g = dp[i][j];
-        if (thresh) g = drop_keep(row_hash[i], kpos, thresh) ? g * keep_scale
-                                                             : 0.f;
-        Ss[r * SS + c] = p * (g - dl_s[r]);
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K: rows ty + 16 i, columns tx + 16 j
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float sv[4], kv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = Ss[(ty + 16 * i) * SS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = Ks[c * DS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] += sv[i] * kv[j];
-    }
+  for (int h = 0; h < 2; ++h) {
+    qpos[h] = q0 + r0 + 8 * h;
+    lse_r[h] = lse[(size_t)bh * Sq + qpos[h]];
+    dl_r[h] = delta[(size_t)bh * Sq + qpos[h]];
+    rh[h] = thresh ? flash::drop_row(seed, bh, qpos[h]) : 0u;
   }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  T* ob = dq + qoff;
+  for (int t = 0; t < last; ++t) {
+    if (t + 1 < last) {
+      fetch(t + 1);   // its buffer's reads ended at the last iteration's sync
+      fmma::cp_async_commit();
+      fmma::cp_async_wait<1>();
+    } else {
+      fmma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int buf = t & 1;
+    const T* Kt = Ks + buf * BK * D;
+    const T* Vt = Vs + buf * BK * D;
+    const float* bt = bs + buf * BK;
+    const int k0 = t * BK;
+
+    float s[NT][4], dp[NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      store(ob + (size_t)(ty + 16 * i) * D + tx + 16 * j, acc[i][j] * scale);
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    fmma::mma_abt<T, D, NT>(s, Qs, 16 * warp, Kt, 0, lane);
+    fmma::mma_abt<T, D, NT>(dp, dOs, 16 * warp, Vt, 0, lane);
+
+    // dS in place of S: rows qpos[e / 2], keys k0 + 8 j + 2 t4 + e % 2
+    const bool mask = causal && k0 + BK - 1 > q0 + 16 * warp;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int c = 8 * j + 2 * t4 + (e & 1);
+        float x = s[j][e] * scale;
+        if (brow != nullptr) x += bt[c];
+        if (mask && k0 + c > qpos[h]) x = flash::kNegInf;
+        const float p = expf(x - lse_r[h]);
+        float gd = dp[j][e];
+        if (thresh)
+          gd = flash::drop_keep(rh[h], k0 + c, thresh) ? gd * keep_scale
+                                                        : 0.f;
+        s[j][e] = p * (gd - dl_r[h]);
+      }
+    fmma::mma_pb<T, D, NT>(acc, s, Kt, 0, lane);
+    __syncthreads();   // this tile's K/V/bias reads are done
+  }
+  fmma::cp_async_wait<0>();   // nothing left in flight (no key tile at all)
+
+  fmma::store_rows<T, D>(dq + qoff + (size_t)16 * warp * D, acc, scale,
+                         lane);
 }
 
 template <typename T, int D>
@@ -171,12 +184,12 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* delta, void* dq, int B, int H, int Sq,
                      int Sk, int causal, float scale, uint32_t thresh,
                      float keep_scale, uint32_t seed, cudaStream_t stream) {
-  const int bytes = smem_floats<D>() * (int)sizeof(float);
+  const int bytes = smem_bytes<T, D>();
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (e != cudaSuccess) return e;
-  dim3 grid(Sq / kBQ, B * H), block(kThreads);
+  dim3 grid(B * H, Sq / kBQ), block(kThreads);
   flash_bwd_dq_kernel<T, D><<<grid, block, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
       (const T*)dout, (const float*)lse, (const float*)delta, (T*)dq, H, Sq,
@@ -220,7 +233,7 @@ extern "C" int flash_attention_bwd_dq(void* q, void* k, void* v, void* bias,
                                       float scale, unsigned int thresh,
                                       float keep_scale, unsigned int seed,
                                       void* stream) {
-  if (Sq % kBQ != 0 || Sk % kBK != 0) return (int)cudaErrorInvalidValue;
+  if (Sq % 64 != 0 || Sk % 64 != 0) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = dtype == 0

@@ -221,7 +221,7 @@ class GPTModel(nn.Module):
         super().__init__()
         cfg = cfg or GPTConfig(**kwargs)
         self.config = cfg
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
         self.wpe = nn.Embedding(cfg.max_position_embeddings,
                                 cfg.hidden_size, **kw)

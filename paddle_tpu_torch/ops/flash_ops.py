@@ -25,7 +25,8 @@ Counterpart of `paddle_tpu/ops/pallas_ops.py` (`flash_attention`,
 - `flash_supported`: the static shape gate of the JAX package, plus the
   head dims the kernels are built for.
 - `_pick_blocks`: the JAX package's tile choice, kept for parity; the
-  CUDA kernels use their own fixed 64x64 tiles (see the sources).
+  CUDA kernels use their own tiles of 64 rows (32 or 64 streamed keys or
+  queries in K3/K4, by head dim; see the sources).
 """
 from __future__ import annotations
 

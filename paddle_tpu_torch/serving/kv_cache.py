@@ -29,6 +29,7 @@ import torch
 
 from ..framework import monitor
 from ..framework.errors import InvalidArgumentError, ResourceExhaustedError
+from ..framework.place import resolve_device
 
 __all__ = ["PagedKVCache", "TRASH_PAGE"]
 
@@ -42,7 +43,7 @@ class PagedKVCache:
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  page_size: int, num_pages: int, pages_per_seq: int,
-                 dtype="float32", device="cpu"):
+                 dtype="float32", device=None):
         if page_size < 1 or num_pages < 2 or pages_per_seq < 1:
             raise InvalidArgumentError(
                 f"PagedKVCache needs page_size>=1, num_pages>=2 (page 0 "
@@ -62,6 +63,7 @@ class PagedKVCache:
         shape = (self.num_layers, self.num_heads, self.num_pages,
                  self.page_size, self.head_dim)
         tdt = _TORCH_DTYPES[self.dtype]
+        device = resolve_device(device)
         self.k_pages = torch.zeros(shape, dtype=tdt, device=device)
         self.v_pages = torch.zeros(shape, dtype=tdt, device=device)
         # LIFO free list: the page freed last is reallocated first

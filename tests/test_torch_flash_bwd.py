@@ -244,3 +244,51 @@ def test_sdpa_differentiable_on_every_branch(monkeypatch, S, use_flash,
         for a, b in zip(grads, want):
             np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
                                        rtol=0)
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32 in numpy: float32 rounded to 10 mantissa bits,
+    ties away from zero (half a tf32 ulp added to the magnitude bits, the
+    13 dropped bits cleared)."""
+    bits = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return (((bits + 0x1000) & 0xFFFFE000).astype(np.uint32)
+            .view(np.float32))
+
+
+def test_3xtf32_split_holds_fp32_accuracy():
+    """Why K3/K4 take three TF32 products in float32: with hi = tf32(x),
+    lo = tf32(x - hi), a_lo b_hi + a_hi b_lo + a_hi b_hi (exact tf32
+    products, float32 sums, as the tensor cores compute them) is within
+    1e-5 x max |ref| of the float64 product, for the plain backward's dS K
+    and dS^T Q at [1, 2, 256, 64]; one TF32 product errs at least 10x
+    more."""
+    one = np.float32(1.0)
+    half_ulp = np.float32(2.0 ** -11)      # half a tf32 ulp at 1.0
+    assert _tf32(one + half_ulp) == one + 2 * half_ulp      # ties away
+    assert _tf32(-(one + half_ulp)) == -(one + 2 * half_ulp)
+    assert _tf32(one + half_ulp / 2) == one
+    q, k, v, do = (torch.from_numpy(a) for a in _arrays(256, 9, B=1, D=64))
+    scale = 0.125
+    out, lse = tfo._flash_fwd_reference(q, k, v, None, True, scale)
+    delta = tfo._delta(out, do)
+    ds, _ = tfo._bwd_terms(q, k, v, None, do, lse, delta, True, scale, 0.0,
+                           0)
+    ds = ds.numpy()
+
+    def split(x):
+        hi = _tf32(x)
+        return hi, _tf32(x - hi)
+
+    for a, b in ((ds, k.numpy()),                              # dS K
+                 (np.swapaxes(ds, -1, -2), q.numpy())):        # dS^T Q
+        ref = a.astype(np.float64) @ b.astype(np.float64)
+        (ah, al), (bh, bl) = split(a), split(b)
+        three = (al @ bh + ah @ bl) + ah @ bh
+        single = ah @ bh
+        assert three.dtype == np.float32 and np.all(bh.view(np.uint32)
+                                                    & 0x1FFF == 0)
+        err3 = np.abs(three - ref).max()
+        err1 = np.abs(single - ref).max()
+        top = np.abs(ref).max()
+        assert err3 <= 1e-5 * top, (err3, top)
+        assert err1 >= 10 * err3, (err1, err3)

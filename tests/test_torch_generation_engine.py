@@ -77,7 +77,7 @@ def test_greedy_identical_to_jax_engine_and_compiles_ledger(pair):
 
 def test_paged_allocator_basics():
     c = PagedKVCache(num_layers=2, num_heads=2, head_dim=4, page_size=4,
-                     num_pages=8, pages_per_seq=3)
+                     num_pages=8, pages_per_seq=3, device="cpu")
     assert c.usable_pages == 7           # page 0 reserved scratch
     assert c.pages_needed(1) == 1 and c.pages_needed(4) == 1
     assert c.pages_needed(5) == 2

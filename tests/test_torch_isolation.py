@@ -20,8 +20,10 @@ import paddle_tpu_torch
 from paddle_tpu_torch.framework.errors import UnavailableError
 from paddle_tpu_torch.framework.place import resolve_device
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.models.gpt import GPTModel
 from paddle_tpu_torch.ops import _build, flash_ops, paged_ops, splash_ops
 from paddle_tpu_torch.serving import GenerationEngine
+from paddle_tpu_torch.serving.kv_cache import PagedKVCache
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
@@ -81,6 +83,11 @@ def test_default_device_raises_without_cuda():
         resolve_device(None)
     with pytest.raises(UnavailableError):
         GPTForCausalLM(GPTConfig.tiny())
+    with pytest.raises(UnavailableError):
+        GPTModel(GPTConfig.tiny())
+    with pytest.raises(UnavailableError):
+        PagedKVCache(num_layers=1, num_heads=1, head_dim=4, page_size=4,
+                     num_pages=2, pages_per_seq=1)
     model = GPTForCausalLM(GPTConfig.tiny(), device="cpu")
     with pytest.raises(UnavailableError):
         GenerationEngine(model, max_slots=1, page_size=4, num_pages=8,
