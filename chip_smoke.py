@@ -11,9 +11,14 @@ Phases:
  3. kernels   each kernel's wrapper against its plain PyTorch version on
               the card at the main paths' shapes (max abs error, kernel
               ms, plain ms, the least time the card could take, and one
-              PyTorch library call where one computes the same function):
-              K1 paged decode, K2 flash forward (serving shape, and the
-              training shape with dropout), K3 flash dQ and K4 flash
+              PyTorch library call where one computes the same function;
+              CUDA-event time per call, and for K1, K2 and K2's library
+              call the device time per call beside it, see _time_ms):
+              K1 paged decode (phase 3's 8 slots of random lengths, the
+              decode profile's 8 x 230 tokens, 2 x 1024 tokens; fp32 and
+              bf16; the split count per row), K2 flash forward (serving
+              shape, fp32 and bf16, and the training shape with
+              dropout), K3 flash dQ and K4 flash
               dK/dV (training shape, dropout 0 and 0.1, fp32 and bf16;
               head dims 128 and 32 at the train width; Sq 1024 != Sk
               1536), with the achieved TFLOP/s;
@@ -48,6 +53,8 @@ segment ids from io.PackingCollator over the bench's lengths (causal, p
 0 and 0.1, fp32 and bf16, and a non-causal case whose absent segment
 gives exact zero rows); SplashAttention's gradients against autograd
 through the plain forward.
+--profile's profiler sessions come after serving, so that run's train
+and packing walls carry them.
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits 1 with no result;
 no CUDA device, or no paddle_tpu_torch next to this file, exits 2.
@@ -130,22 +137,39 @@ def _rates(flops, ms, dtype):
     return r, text
 
 
-def _time_ms(torch, fn, iters, flush=None):
-    """Mean device ms of `fn` over `iters` launches, CUDA events around
-    each; `flush` (untimed) runs before each launch to evict the L2."""
+# cycles the card spins (torch.cuda._sleep; ~1 ms at the H100's 1.98
+# GHz) before a device-timed call, while the host enqueues the call
+_AHEAD_CYCLES = 2_000_000
+
+
+def _time_ms(torch, fn, iters, flush=None, device=False):
+    """Mean ms of `fn` over `iters` calls, CUDA events around each call;
+    `flush` (untimed) runs before each call to evict the L2. Event time
+    counts the wrapper's host time whenever the card waits for it. With
+    `device`, the card first spins for _AHEAD_CYCLES while the host
+    enqueues the events and the call, so the events time only the call's
+    kernels on the card: device time per call. A call whose start event
+    the card had passed before the host finished enqueuing it may still
+    hold host time; such calls are counted and printed."""
     fn()
     torch.cuda.synchronize()
-    total = 0.0
+    total, late = 0.0, 0
     for _ in range(iters):
         if flush is not None:
             flush()
+        if device:
+            torch.cuda._sleep(_AHEAD_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
         e.record()
+        late += device and s.query()
         e.synchronize()
         total += s.elapsed_time(e)
+    if late:
+        print(f"  {late} of {iters} device-timed calls were still being "
+              f"enqueued when the card reached them")
     return total / iters
 
 
@@ -164,6 +188,11 @@ class Smoke:
 
     def flush(self):
         self.l2.zero_()
+
+    def time_ms(self, fn, iters, flush=None):
+        """(device ms, CUDA-event ms) per call of `fn` (`_time_ms`)."""
+        return (_time_ms(self.torch, fn, iters, flush, device=True),
+                _time_ms(self.torch, fn, iters, flush))
 
     def _wrappers(self):
         from paddle_tpu_torch.ops import flash_ops as fo, paged_ops as po
@@ -222,12 +251,19 @@ class Smoke:
 
     # -- 3. kernels against their plain versions --------------------------------
 
-    def k1_inputs(self, dtype, seed=0):
+    def k1_inputs(self, dtype, B, lens=None, seed=0):
+        """q, pools, page table and pos for B slots of K1_SHAPE's heads,
+        pages and table width: random lengths 1..PP*P (seeded) unless
+        `lens` gives them. Page 0 is the scratch page, full of junk."""
         torch = self.torch
-        B, H, D, P, PP = (K1_SHAPE[k] for k in ("B", "H", "D", "P", "PP"))
+        H, D, P, PP = (K1_SHAPE[k] for k in ("H", "D", "P", "PP"))
         g = torch.Generator(device="cuda").manual_seed(seed)
         N = B * PP + 1
-        lens = torch.randint(1, PP * P + 1, (B,), generator=g, device="cuda")
+        if lens is None:
+            lens = torch.randint(1, PP * P + 1, (B,), generator=g,
+                                 device="cuda")
+        else:
+            lens = torch.tensor(lens, device="cuda")
         kp = torch.randn(H, N, P, D, generator=g, device="cuda").to(dtype)
         vp = torch.randn(H, N, P, D, generator=g, device="cuda").to(dtype)
         kp[:, 0] = 1e4   # scratch-page junk: must never reach the result
@@ -242,44 +278,69 @@ class Smoke:
         return q, kp, vp, pt, pos, lens
 
     def check_k1(self):
+        """K1 against its plain version at three shapes, fp32 and bf16:
+        phase 3's (8 slots of random lengths up to 1024), the decode
+        profile's (8 slots of 230 tokens) and a long context (2 slots of
+        1024). ms: device time per call (`time_ms`; both kernels of the
+        split), the event time beside it; the L2 is flushed before each
+        call, as a decode step finds it cold; no library call computes
+        K1's function."""
         torch = self.torch
         from paddle_tpu_torch.ops import paged_ops as po
-        H, D = K1_SHAPE["H"], K1_SHAPE["D"]
+        H, D, P, PP = (K1_SHAPE[k] for k in ("H", "D", "P", "PP"))
         scale = 1.0 / D ** 0.5
+        pps = po._pages_per_split(P)
+        nsplit = -(-PP // pps)
+        shapes = [("phase3", K1_SHAPE["B"], None),
+                  ("decode_profile", 8, [230] * 8),
+                  ("long", 2, [PP * P] * 2)]
         rows = []
-        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
-            q, kp, vp, pt, pos, lens = self.k1_inputs(dtype)
-            out = po.paged_attention(q, kp, vp, pt, pos, scale)
-            # the plain version in float32 on the same inputs, then
-            # rounded to the kernel's output type
-            ref = po.paged_attention_plain(q.float(), kp.float(),
-                                           vp.float(), pt, pos,
-                                           scale).to(dtype)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            ms = _time_ms(torch, lambda: po.paged_attention(
-                q, kp, vp, pt, pos, scale), 50, self.flush)
-            plain_ms = _time_ms(torch, lambda: po.paged_attention_plain(
-                q, kp, vp, pt, pos, scale), 10, self.flush)
-            item = q.element_size()
-            toks = int(lens.sum())
-            nbytes = (2 * toks * H * D * item + 2 * q.numel() * item
-                      + pt.numel() * 4 + pos.numel() * 4)
-            flops = 4 * toks * H * D
-            name = str(dtype).replace("torch.", "")
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[name] * 1e3
-            rates, rtext = _rates(flops, ms, name)
-            row = dict(dtype=name, max_abs_err=err, tol=tol, ms=ms,
-                       plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else
-                       "operations", library_ms=None, tokens=toks, **rates)
-            rows.append(row)
-            print(f"K1 paged_attention {name} B=8 H=12 D=64 P=16 PP=64 "
-                  f"len sum {toks}: max_abs_err {err:.3e} (tol {tol}) "
-                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {rtext}")
-            assert err <= tol, f"K1 {name} disagrees with its plain version"
+        for shape, B, lens_in in shapes:
+            for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
+                q, kp, vp, pt, pos, lens = self.k1_inputs(dtype, B, lens_in)
+                out = po.paged_attention(q, kp, vp, pt, pos, scale)
+                # the plain version in float32 on the same inputs, then
+                # rounded to the kernel's output type
+                ref = po.paged_attention_plain(q.float(), kp.float(),
+                                               vp.float(), pt, pos,
+                                               scale).to(dtype)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+
+                def call():
+                    po.paged_attention(q, kp, vp, pt, pos, scale)
+                ms, event_ms = self.time_ms(call, 50, self.flush)
+                plain_ms = _time_ms(torch, lambda: po.paged_attention_plain(
+                    q, kp, vp, pt, pos, scale), 10, self.flush)
+                item = q.element_size()
+                toks = int(lens.sum())
+                live = sum(-(-int(n) // (pps * P)) for n in lens.tolist())
+                nbytes = (2 * toks * H * D * item + 2 * q.numel() * item
+                          + pt.numel() * 4 + pos.numel() * 4)
+                flops = 4 * toks * H * D
+                name = str(dtype).replace("torch.", "")
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_FLOPS[name] * 1e3
+                rates, rtext = _rates(flops, ms, name)
+                row = dict(shape=shape, dtype=name, max_abs_err=err, tol=tol,
+                           ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+                           bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops else
+                           "operations", library_ms=None, tokens=toks,
+                           splits=nsplit, live_splits=live / B,
+                           gbytes_per_s=nbytes / ms / 1e6, **rates)
+                rows.append(row)
+                print(f"K1 paged_attention {name} {shape} B={B} H={H} D={D} "
+                      f"P={P} PP={PP} len sum {toks}: max_abs_err {err:.3e} "
+                      f"(tol {tol}); splits per (b, h) {nsplit} of "
+                      f"{pps * P} tokens, {live / B:.2f} live on average; "
+                      f"device {ms:.4f} ms/call (event "
+                      f"{event_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                      f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                      f"{row['bound_ms'] / ms:.3f} of it), "
+                      f"{row['gbytes_per_s']:.0f} GB/s; {rtext}")
+                assert err <= tol, \
+                    f"K1 {name} {shape} disagrees with its plain version"
         self.details["k1"] = rows
         self.kernel_rows["paged_attention"] = rows[0]
 
@@ -299,6 +360,9 @@ class Smoke:
         return q, k, v, bias
 
     def check_k2(self):
+        """K2 at the serving shape, p 0, fp32 and bf16, causal or not,
+        with and without a key-padding bias. ms and library ms: device
+        time per call (`time_ms`), the event time beside each."""
         torch = self.torch
         import torch.nn.functional as TF
         from paddle_tpu_torch.ops import flash_ops as fo
@@ -316,8 +380,10 @@ class Smoke:
                     torch.cuda.synchronize()
                     err = (out.float() - ref.float()).abs().max().item()
                     lse_err = (lse - ref_lse).abs().max().item()
-                    ms = _time_ms(torch, lambda: fo.flash_attention_fwd(
-                        q, k, v, bias, causal, scale), 20)
+
+                    def call():
+                        fo.flash_attention_fwd(q, k, v, bias, causal, scale)
+                    ms, event_ms = self.time_ms(call, 20)
                     plain_ms = _time_ms(torch, lambda: fo._flash_fwd_reference(
                         q, k, v, bias, causal, scale), 5)
                     mask = None
@@ -330,8 +396,11 @@ class Smoke:
                                 S, S, dtype=torch.bool,
                                 device="cuda").triu(1), -1e30)
                         mask = mask.to(dtype)
-                    lib_ms = _time_ms(torch, lambda: TF.scaled_dot_product_attention(
-                        q, k, v, attn_mask=mask), 20)
+
+                    def lib():
+                        TF.scaled_dot_product_attention(q, k, v,
+                                                        attn_mask=mask)
+                    lib_ms, lib_event_ms = self.time_ms(lib, 20)
                     item = q.element_size()
                     nbytes = (4 * B * H * S * D * item + B * H * S * 4
                               + (bias.numel() * 4 if padded else 0))
@@ -343,18 +412,21 @@ class Smoke:
                     rates, rtext = _rates(flops, ms, name)
                     row = dict(dtype=name, causal=causal, padded=padded,
                                max_abs_err=err, lse_err=lse_err, tol=tol,
-                               ms=ms, plain_ms=plain_ms,
+                               ms=ms, event_ms=event_ms, plain_ms=plain_ms,
                                bound_ms=max(t_bytes, t_ops),
                                bound_by="bytes" if t_bytes >= t_ops
-                               else "operations", library_ms=lib_ms, **rates)
+                               else "operations", library_ms=lib_ms,
+                               library_event_ms=lib_event_ms, **rates)
                     rows.append(row)
                     print(f"K2 flash_fwd {name} causal={causal} "
                           f"padded={padded} B=2 H=12 S=1024 D=64: max_abs_err "
                           f"{err:.3e} lse_err {lse_err:.3e} (tol {tol}) "
-                          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                          f"library {lib_ms:.4f} ms bound "
-                          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
-                          f"{rtext}")
+                          f"device {ms:.4f} ms (event {event_ms:.4f}) plain "
+                          f"{plain_ms:.4f} ms library device {lib_ms:.4f} ms "
+                          f"(event {lib_event_ms:.4f}), "
+                          f"{ms / lib_ms:.3f} x the library; bound "
+                          f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                          f"{row['bound_ms'] / ms:.3f} of it); {rtext}")
                     assert torch.isfinite(out.float()).all(), "K2 non-finite"
                     assert err <= tol and lse_err <= tol, \
                         f"K2 {name} causal={causal} padded={padded} " \
@@ -454,20 +526,24 @@ class Smoke:
             bias_b = B * Sk * 4 if padded else 0
             key = (name, causal, tag["shape"])
             if key not in lib and not padded:
-                # the library yardsticks, p = 0: SDPA forward, and its
-                # backward under autograd timed as one call
+                # the library yardsticks, p = 0: SDPA forward (device time,
+                # its event time beside it), and its backward under
+                # autograd timed as one call (event time)
                 ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-                fwd_ms = _time_ms(torch, lambda: TF.scaled_dot_product_attention(
-                    ql, kl, vl, is_causal=causal), 10)
+
+                def lib_call():
+                    TF.scaled_dot_product_attention(ql, kl, vl,
+                                                    is_causal=causal)
+                fwd_ms, fwd_event_ms = self.time_ms(lib_call, 10)
                 ol = TF.scaled_dot_product_attention(ql, kl, vl,
                                                      is_causal=causal)
                 bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
                     ol, (ql, kl, vl), do, retain_graph=True), 10)
-                lib[key] = (fwd_ms, bwd_ms)
+                lib[key] = (fwd_ms, bwd_ms, fwd_event_ms)
                 del ql, kl, vl, ol
-            lib_fwd, lib_bwd = lib.get(key, (None, None)) if not padded \
-                else (None, None)
-            # K2
+            lib_fwd, lib_bwd, lib_fwd_event = lib.get(
+                key, (None, None, None)) if not padded else (None, None, None)
+            # K2 (ms: device time, the event time beside it)
             out, lse = fo.flash_attention_fwd(q, k, v, bias, causal, scale,
                                               p, seed)
             ref, ref_lse = fo._flash_fwd_reference(q, k, v, bias, causal,
@@ -476,14 +552,23 @@ class Smoke:
             err = max((out.float() - ref.float()).abs().max().item(),
                       (lse - ref_lse).abs().max().item())
             assert torch.isfinite(out.float()).all(), "K2 non-finite"
+
+            def k2_call():
+                fo.flash_attention_fwd(q, k, v, bias, causal, scale, p, seed)
+            k2_ms, k2_event_ms = self.time_ms(k2_call, 10)
             rows["fwd"].append(self._row(
                 "K2 flash_fwd", name, err, ref.float().abs().max().item(),
-                tol, _time_ms(torch, lambda: fo.flash_attention_fwd(
-                    q, k, v, bias, causal, scale, p, seed), 10),
+                tol, k2_ms,
                 _time_ms(torch, lambda: fo._flash_fwd_reference(
                     q, k, v, bias, causal, scale, p, seed), 3),
                 4 * B * H * pairs * D, 2 * q_b + 2 * k_b + row_b + bias_b,
-                lib_fwd, **tag))
+                lib_fwd, event_ms=round(k2_event_ms, 4),
+                library_event_ms=None if lib_fwd_event is None
+                else round(lib_fwd_event, 4), **tag))
+            if lib_fwd is not None:
+                print(f"K2 {name} {tag}: device {k2_ms:.4f} ms = "
+                      f"{k2_ms / lib_fwd:.3f} x the library's forward "
+                      f"(device {lib_fwd:.4f} ms)")
             del out, lse
             delta = fo._delta(ref, do)
             # K3

@@ -1,5 +1,5 @@
-// Tensor-core pieces of the flash-attention backward kernels
-// (flash_bwd_dq.cu K3, flash_bwd_dkv.cu K4): swizzled shared tiles fed by
+// Tensor-core pieces of the flash-attention kernels (flash_fwd.cu K2,
+// flash_bwd_dq.cu K3, flash_bwd_dkv.cu K4): swizzled shared tiles fed by
 // cp.async, and warp-level mma.sync products in both input types.
 //
 // - bfloat16: mma.sync m16n8k16 with bf16 operands and fp32 sums. A
@@ -180,64 +180,92 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The A operand of one k16 step of A B^T for one warp (rows ra .. ra+15):
+// bf16 one m16k16 ldmatrix fragment; fp32 two m16k8 fragments, each split
+// into tf32 hi and lo. K2 keeps Q's fragments in registers across its key
+// tiles (but fp32 at D 128); mma_abt loads them step by step.
+template <typename T>
+struct AFrag {
+  uint32_t a[4];
+};
+template <>
+struct AFrag<float> {
+  uint32_t hi[2][4], lo[2][4];
+};
+
+// The k (d) index is permuted within each 16 columns in fp32: thread t
+// holds d = kk + 4t .. kk + 4t + 3, one 16-byte load, as slots (t, t+4) of
+// the step kk (d + 0, d + 1) and of the step kk + 8 (d + 2, d + 3); A and B
+// use the same permutation, and the sum does not depend on it.
+template <typename T, int D>
+__device__ __forceinline__ void load_a(AFrag<T>& f, const T* As, int ra,
+                                       int kk, int lane) {
+  using TL = Tile<T, D>;
+  if constexpr (std::is_same<T, float>::value) {
+    const int g = lane >> 2, c = kk / 4 + (lane & 3);
+    const float4 x0 = *reinterpret_cast<const float4*>(
+        As + TL::slot(ra + g, c) * 4);
+    const float4 x1 = *reinterpret_cast<const float4*>(
+        As + TL::slot(ra + g + 8, c) * 4);
+    split_tf32(x0.x, f.hi[0][0], f.lo[0][0]);
+    split_tf32(x1.x, f.hi[0][1], f.lo[0][1]);
+    split_tf32(x0.y, f.hi[0][2], f.lo[0][2]);
+    split_tf32(x1.y, f.hi[0][3], f.lo[0][3]);
+    split_tf32(x0.z, f.hi[1][0], f.lo[1][0]);
+    split_tf32(x1.z, f.hi[1][1], f.lo[1][1]);
+    split_tf32(x0.w, f.hi[1][2], f.lo[1][2]);
+    split_tf32(x1.w, f.hi[1][3], f.lo[1][3]);
+  } else {
+    ldsm_x4(f.a, As + TL::at(ra + (lane & 7) + ((lane >> 3) & 1) * 8,
+                             kk + (lane >> 4) * 8));
+  }
+}
+
+// acc[NT][4] += A_kk * B[rb : rb+8*NT, kk : kk+16]^T, one warp, for the k16
+// step kk with A's fragment f; B a swizzled [rows, D] tile.
+template <typename T, int D, int NT>
+__device__ __forceinline__ void mma_abt_step(float (&acc)[NT][4],
+                                             const AFrag<T>& f, const T* Bs,
+                                             int rb, int kk, int lane) {
+  using TL = Tile<T, D>;
+  if constexpr (std::is_same<T, float>::value) {
+    const int g = lane >> 2, c = kk / 4 + (lane & 3);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float4 y = *reinterpret_cast<const float4*>(
+          Bs + TL::slot(rb + 8 * j + g, c) * 4);
+      uint32_t bh[2][2], bl[2][2];
+      split_tf32(y.x, bh[0][0], bl[0][0]);
+      split_tf32(y.y, bh[0][1], bl[0][1]);
+      split_tf32(y.z, bh[1][0], bl[1][0]);
+      split_tf32(y.w, bh[1][1], bl[1][1]);
+      mma_3xtf32(acc[j], f.hi[0], f.lo[0], bh[0], bl[0]);
+      mma_3xtf32(acc[j], f.hi[1], f.lo[1], bh[1], bl[1]);
+    }
+  } else {
+    static_assert(NT % 2 == 0, "bf16 B fragments come two n-tiles at a time");
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t b[4];
+      ldsm_x4(b, Bs + TL::at(rb + 8 * j + (lane & 7) + (lane >> 4) * 8,
+                             kk + ((lane >> 3) & 1) * 8));
+      mma_bf16(acc[j], f.a, b[0], b[1]);
+      mma_bf16(acc[j + 1], f.a, b[2], b[3]);
+    }
+  }
+}
+
 // acc[NT][4] += A[ra : ra+16, 0:D] * B[rb : rb+8*NT, 0:D]^T, one warp.
 // A and B are swizzled [rows, D] tiles (Q K^T, dO V^T, K Q^T, V dO^T).
 template <typename T, int D, int NT>
 __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const T* As,
                                         int ra, const T* Bs, int rb,
                                         int lane) {
-  using TL = Tile<T, D>;
-  const int g = lane >> 2, t = lane & 3;
-  if constexpr (std::is_same<T, float>::value) {
-    // The k (d) index is permuted within each 16 columns: thread t holds
-    // d = kk + 4t .. kk + 4t + 3, one 16-byte load, as slots (t, t+4) of
-    // the step kk (d + 0, d + 1) and of the step kk + 8 (d + 2, d + 3); A
-    // and B use the same permutation, and the sum does not depend on it.
 #pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      const int c = kk / 4 + t;
-      const float4 x0 = *reinterpret_cast<const float4*>(
-          As + TL::slot(ra + g, c) * 4);
-      const float4 x1 = *reinterpret_cast<const float4*>(
-          As + TL::slot(ra + g + 8, c) * 4);
-      uint32_t ah[2][4], al[2][4];
-      split_tf32(x0.x, ah[0][0], al[0][0]);
-      split_tf32(x1.x, ah[0][1], al[0][1]);
-      split_tf32(x0.y, ah[0][2], al[0][2]);
-      split_tf32(x1.y, ah[0][3], al[0][3]);
-      split_tf32(x0.z, ah[1][0], al[1][0]);
-      split_tf32(x1.z, ah[1][1], al[1][1]);
-      split_tf32(x0.w, ah[1][2], al[1][2]);
-      split_tf32(x1.w, ah[1][3], al[1][3]);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float4 y = *reinterpret_cast<const float4*>(
-            Bs + TL::slot(rb + 8 * j + g, c) * 4);
-        uint32_t bh[2][2], bl[2][2];
-        split_tf32(y.x, bh[0][0], bl[0][0]);
-        split_tf32(y.y, bh[0][1], bl[0][1]);
-        split_tf32(y.z, bh[1][0], bl[1][0]);
-        split_tf32(y.w, bh[1][1], bl[1][1]);
-        mma_3xtf32(acc[j], ah[0], al[0], bh[0], bl[0]);
-        mma_3xtf32(acc[j], ah[1], al[1], bh[1], bl[1]);
-      }
-    }
-  } else {
-    static_assert(NT % 2 == 0, "bf16 B fragments come two n-tiles at a time");
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, As + TL::at(ra + (lane & 7) + ((lane >> 3) & 1) * 8,
-                             kk + (lane >> 4) * 8));
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b[4];
-        ldsm_x4(b, Bs + TL::at(rb + 8 * j + (lane & 7) + (lane >> 4) * 8,
-                               kk + ((lane >> 3) & 1) * 8));
-        mma_bf16(acc[j], a, b[0], b[1]);
-        mma_bf16(acc[j + 1], a, b[2], b[3]);
-      }
-    }
+  for (int kk = 0; kk < D; kk += 16) {
+    AFrag<T> f;
+    load_a<T, D>(f, As, ra, kk, lane);
+    mma_abt_step<T, D, NT>(acc, f, Bs, rb, kk, lane);
   }
 }
 

@@ -1,4 +1,5 @@
-// Paged decode attention for Hopper (sm_90a), plain C interface for ctypes.
+// Paged decode attention for Hopper (sm_90a), plain C interface for ctypes:
+// split-K (flash-decoding), two kernels behind one C entry.
 //
 // Replaces: the library Pallas kernel that paddle_tpu/ops/paged_ops.py:239-251
 // dispatches on a TPU (jax/experimental/pallas/ops/tpu/paged_attention/
@@ -7,182 +8,303 @@
 // Computes, for every (sequence b, head h), one query position of attention
 // over the K/V pages named by row b of the page table:
 //
-//     out[b,h] = softmax_t(q[b,h] . k_t * scale) . v_t      for t <= pos[b]
+//     out[b,h] = softmax_t(q[b,h] . k_t * scale) . v_t      for t < len
+//     len = min(pos[b] + 1, PP * P)
 //
-// which is exactly the plain version `paged_gather` + `cached_attention`
+// which is the plain version `paged_gather` + `cached_attention`
 // (paddle_tpu_torch/ops/paged_ops.py): the plain version masks t > pos[b] to
 // -1e30 so those terms are exactly 0; this kernel never reads them at all, so
 // junk on the scratch page or past the sequence's end cannot reach the sum.
 //
 // Layouts: q [B,H,D]; k_pages/v_pages [H,N,P,D] (one layer of the pools);
-// page_table [B,PP] int32; pos [B] int32 (pos >= 0); out [B,H,D] in q's type.
+// page_table [B,PP] int32; pos [B] int32 (pos >= 0); out [B,H,D] in q's type;
+// workspace [B,H,nsplit,D+2] float32, nsplit = ceil(PP / pages_per_split).
 // float32 or bfloat16 pools; all statistics and sums in float32.
 //
-// Bound: bytes. The work reads K and V once: 2*B*H*len*D*sizeof(T) bytes, at
-// about 2 flops a byte, far below the card's ~20 flops/byte fp32 ridge. The
-// kernel reads each K/V row once, a warp-wide coalesced row load (D*4 bytes
-// for fp32). Design: one block per (b, h); 8 warps stride over the sequence's
-// tokens, 4 tokens per warp per iteration so 4 row loads are in flight, each
-// warp keeps its own online-softmax state (max, sum, D-wide accumulator, f32)
-// and the warps are merged through shared memory at the end.
-// Known gap: at 8 slots x 12 heads the grid is 96 blocks, fewer than the 132
-// SMs, so a long context leaves SMs idle; splitting the sequence across blocks
-// (flash-decoding) is the next step.
+// Bound: bytes. The work reads K and V once, 2*B*H*len*D*sizeof(T) bytes, at
+// about 2 flops a byte, far below the card's ridge. What keeps a decode from
+// the bandwidth is parallelism and bytes in flight: one block per (b, h) (the
+// first design) gave 96 blocks for 132 SMs, and the longest sequence's block
+// walked its 1024 tokens alone with 8 bytes a lane in flight.
+//
+// Design:
+// - paged_split_kernel: the sequence axis is cut into splits of
+//   `pages_per_split` whole pages (the wrapper picks 16 tokens a split), one
+//   warp a split, 4 warps a block, grid (splits / 4, B*H). A warp reads its
+//   pages with 16-byte loads: the C = D*sizeof(T)/16 lanes of a row read one
+//   row's chunks, so each load instruction covers 32/C rows, 512 contiguous
+//   bytes of a page; 4 such loads of K and 4 of V a lane make a step, and the
+//   next step's loads are issued before this step is computed (register
+//   prefetch). The q.k dot products reduce over the C lanes of a row with
+//   __shfl_xor_sync; the online softmax (max, sum, D-wide accumulator, f32)
+//   runs warp-wide. A split at or past len is skipped (no partial); rows past
+//   len are never loaded. Each live split writes its partial (acc[D], m, l)
+//   to the workspace, acc relative to its own max m.
+// - paged_combine_kernel: one warp per (b, h) merges the live splits,
+//   ceil(len / split tokens) of them: M = max m_s, out = sum_s acc_s
+//   exp(m_s - M) / sum_s l_s exp(m_s - M), written in q's type.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kUnroll = 4;
+constexpr int kWarps = 4;   // splits a block
+constexpr int kLoads = 4;   // 16-byte K loads (and V loads) a lane a step
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// 16 bytes of T, widened to float
+template <typename T>
+struct Chunk;
+
+template <>
+struct Chunk<float> {
+  using Raw = float4;
+  static constexpr int kN = 4;
+  __device__ __forceinline__ static void widen(const float4& r, float* f) {
+    f[0] = r.x;
+    f[1] = r.y;
+    f[2] = r.z;
+    f[3] = r.w;
+  }
+};
+
+template <>
+struct Chunk<__nv_bfloat16> {
+  using Raw = uint4;
+  static constexpr int kN = 8;
+  __device__ __forceinline__ static void widen(const uint4& r, float* f) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(h[i]);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+};
+
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ int seq_len(const int32_t* pos, int b, int cap) {
+  const int len = pos[b] + 1;
+  return len < cap ? len : cap;
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                    const T* __restrict__ v_pages,
-                    const int32_t* __restrict__ page_table,
-                    const int32_t* __restrict__ pos, T* __restrict__ out,
-                    int H, int N, int P, int PP, float scale) {
-  constexpr int DPL = D / 32;  // head-dim elements per lane
-  __shared__ float m_w[kWarps];
-  __shared__ float l_w[kWarps];
-  __shared__ float acc_w[kWarps][D];
+paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                   const T* __restrict__ v_pages,
+                   const int32_t* __restrict__ page_table,
+                   const int32_t* __restrict__ pos, float* __restrict__ ws,
+                   int H, int N, int P, int PP, int pps, int nsplit,
+                   float scale) {
+  using CT = Chunk<T>;
+  using Raw = typename CT::Raw;
+  constexpr int E = CT::kN;      // elements a chunk
+  constexpr int C = D / E;       // lanes a row
+  constexpr int R = 32 / C;      // rows a load instruction
+  constexpr int RS = R * kLoads; // rows a step
+  static_assert(C >= 1 && C <= 32 && 32 % C == 0, "D / chunk must divide 32");
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  int len = pos[b] + 1;
-  if (len > PP * P) len = PP * P;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int split = blockIdx.x * kWarps + warp;
+  const int len = seq_len(pos, b, PP * P);
+  const int t_begin = split * pps * P;
+  if (split >= nsplit || t_begin >= len) return;   // warp-uniform
+  const int t_end = min(t_begin + pps * P, len);
+  const int c = lane % C, r = lane / C;
 
-  float qr[DPL];
-  const T* qp = q + ((size_t)b * H + h) * D + lane * DPL;
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) qr[i] = to_f(qp[i]);
-
+  float qf[E];
+  CT::widen(*reinterpret_cast<const Raw*>(q + (size_t)bh * D + c * E), qf);
   const int32_t* row = page_table + (size_t)b * PP;
-  const size_t head_base = (size_t)h * N * P * D;
-  float m = kNegInf, l = 0.f;
-  float acc[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
+  const size_t head = (size_t)h * N * P * D;
+  const T* kh = k_pages + head;
+  const T* vh = v_pages + head;
 
-  for (int t0 = warp * kUnroll; t0 < len; t0 += kWarps * kUnroll) {
-    size_t base[kUnroll];
-    float s[kUnroll];
+  // the loads of the step at token t0: rows t0 + u * R + r, chunk c
+  auto fetch = [&](int t0, Raw (&kr)[kLoads], Raw (&vr)[kLoads]) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 + u;
-      s[u] = kNegInf;
-      base[u] = 0;
-      if (t < len) {
-        const int page = row[t / P];
-        base[u] = head_base + ((size_t)page * P + (t % P)) * D + lane * DPL;
-        float d = 0.f;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) d += qr[i] * to_f(k_pages[base[u] + i]);
-        s[u] = d;
+    for (int u = 0; u < kLoads; ++u) {
+      const int t = t0 + u * R + r;
+      if (t < t_end) {
+        const size_t off = ((size_t)row[t / P] * P + t % P) * D + c * E;
+        kr[u] = __ldg(reinterpret_cast<const Raw*>(kh + off));
+        vr[u] = __ldg(reinterpret_cast<const Raw*>(vh + off));
+      } else {
+        kr[u] = vr[u] = Raw{};
       }
     }
-    float m_new = m;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (t0 + u < len) {
-        s[u] = warp_sum(s[u]) * scale;
-        m_new = fmaxf(m_new, s[u]);
-      }
-    }
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (t0 + u < len) {
-        const float p = expf(s[u] - m_new);
-        l += p;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i)
-          acc[i] += p * to_f(v_pages[base[u] + i]);
-      }
-    }
-    m = m_new;
-  }
+  };
 
-  if (lane == 0) {
-    m_w[warp] = m;
-    l_w[warp] = l;
-  }
+  float m = kNegInf, l = 0.f, acc[E];
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) acc_w[warp][lane * DPL + i] = acc[i];
-  __syncthreads();
-  if (threadIdx.x < D) {
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  Raw kc[kLoads], vc[kLoads], kn[kLoads], vn[kLoads];
+  fetch(t_begin, kc, vc);
+  for (int t0 = t_begin; t0 < t_end; t0 += RS) {
+    const bool more = t0 + RS < t_end;
+    if (more) fetch(t0 + RS, kn, vn);   // in flight while this step computes
+    float s[kLoads];
     float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_w[w]);
-    float lsum = 0.f, o = 0.f;
+    for (int u = 0; u < kLoads; ++u) {
+      float kf[E];
+      CT::widen(kc[u], kf);
+      float d = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(m_w[w] - mx);  // 0 for a warp that saw no token
-      lsum += l_w[w] * c;
-      o += acc_w[w][threadIdx.x] * c;
+      for (int e = 0; e < E; ++e) d += qf[e] * kf[e];
+#pragma unroll
+      for (int o = 1; o < C; o <<= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+      s[u] = t0 + u * R + r < t_end ? d * scale : kNegInf;
+      mx = fmaxf(mx, s[u]);
     }
-    store(out + ((size_t)b * H + h) * D + threadIdx.x, o / lsum);
+#pragma unroll
+    for (int o = C; o < 32; o <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = expf(m - m_new);
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] *= alpha;
+    float ps = 0.f;
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const float p = t0 + u * R + r < t_end ? expf(s[u] - m_new) : 0.f;
+      ps += p;
+      float vf[E];
+      CT::widen(vc[u], vf);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] += p * vf[e];
+    }
+    // each row's p sits in its C lanes: sum over the row groups only
+#pragma unroll
+    for (int o = C; o < 32; o <<= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
+    l = l * alpha + ps;
+    m = m_new;
+    if (more) {
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        kc[u] = kn[u];
+        vc[u] = vn[u];
+      }
+    }
   }
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+#pragma unroll
+    for (int o = C; o < 32; o <<= 1)
+      acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+  float* part = ws + ((size_t)bh * nsplit + split) * (D + 2);
+  if (r == 0) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) part[c * E + e] = acc[e];
+  }
+  if (lane == 0) {
+    part[D] = m;
+    part[D + 1] = l;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(128)
+paged_combine_kernel(const float* __restrict__ ws,
+                     const int32_t* __restrict__ pos, T* __restrict__ out,
+                     int BH, int H, int P, int PP, int pps, int nsplit) {
+  constexpr int DL = D / 32;   // columns a lane
+  const int bh = blockIdx.x * 4 + (threadIdx.x >> 5);
+  if (bh >= BH) return;
+  const int lane = threadIdx.x & 31;
+  const int span = pps * P;
+  const int n = (seq_len(pos, bh / H, PP * P) + span - 1) / span;
+  const float* part = ws + (size_t)bh * nsplit * (D + 2);
+  // M and L with the lanes striding over the splits, then the columns
+  // with every lane walking all splits, 4 splits' loads in flight
+  float M = kNegInf;
+  for (int s = lane; s < n; s += 32) M = fmaxf(M, part[s * (D + 2) + D]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
+  float L = 0.f, acc[DL];
+  for (int s = lane; s < n; s += 32)
+    L += part[s * (D + 2) + D + 1] * expf(part[s * (D + 2) + D] - M);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) L += __shfl_xor_sync(0xffffffffu, L, o);
+#pragma unroll
+  for (int i = 0; i < DL; ++i) acc[i] = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < n; ++s) {
+    const float* ps = part + s * (D + 2);
+    const float w = expf(ps[D] - M);
+#pragma unroll
+    for (int i = 0; i < DL; ++i) acc[i] += ps[lane + 32 * i] * w;
+  }
+#pragma unroll
+  for (int i = 0; i < DL; ++i)
+    store(out + (size_t)bh * D + lane + 32 * i, acc[i] / L);
+}
+
+template <typename T, int D>
+cudaError_t launch_d(const void* q, const void* kp, const void* vp,
+                     const void* pt, const void* pos, void* out, float* ws,
+                     int B, int H, int N, int P, int PP, int pps, float scale,
+                     cudaStream_t stream) {
+  const int nsplit = (PP + pps - 1) / pps;
+  dim3 grid((nsplit + kWarps - 1) / kWarps, B * H);
+  paged_split_kernel<T, D><<<grid, kWarps * 32, 0, stream>>>(
+      (const T*)q, (const T*)kp, (const T*)vp, (const int32_t*)pt,
+      (const int32_t*)pos, ws, H, N, P, PP, pps, nsplit, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  paged_combine_kernel<T, D><<<(B * H + 3) / 4, 128, 0, stream>>>(
+      ws, (const int32_t*)pos, (T*)out, B * H, H, P, PP, pps, nsplit);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const void* pt, const void* pos, void* out, int B, int H,
-                   int N, int P, int PP, int D, float scale,
-                   cudaStream_t stream) {
-  dim3 grid(B * H), block(kWarps * 32);
-#define PTT_LAUNCH(DIM)                                                    \
-  paged_decode_kernel<T, DIM><<<grid, block, 0, stream>>>(                 \
-      (const T*)q, (const T*)kp, (const T*)vp, (const int32_t*)pt,         \
-      (const int32_t*)pos, (T*)out, H, N, P, PP, scale)
+                   const void* pt, const void* pos, void* out, float* ws,
+                   int B, int H, int N, int P, int PP, int pps, int D,
+                   float scale, cudaStream_t stream) {
   switch (D) {
-    case 32: PTT_LAUNCH(32); break;
-    case 64: PTT_LAUNCH(64); break;
-    case 128: PTT_LAUNCH(128); break;
-    default: return cudaErrorInvalidValue;
+    case 32:
+      return launch_d<T, 32>(q, kp, vp, pt, pos, out, ws, B, H, N, P, PP,
+                             pps, scale, stream);
+    case 64:
+      return launch_d<T, 64>(q, kp, vp, pt, pos, out, ws, B, H, N, P, PP,
+                             pps, scale, stream);
+    case 128:
+      return launch_d<T, 128>(q, kp, vp, pt, pos, out, ws, B, H, N, P, PP,
+                              pps, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
-#undef PTT_LAUNCH
-  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it).
+// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it). workspace:
+// float32 [B, H, ceil(PP / pages_per_split), D + 2], written and read here.
 extern "C" int paged_attention_decode(void* q, void* k_pages, void* v_pages,
                                       void* page_table, void* pos, void* out,
-                                      int B, int H, int N, int P, int PP,
+                                      void* workspace, int B, int H, int N,
+                                      int P, int PP, int pages_per_split,
                                       int D, int dtype, float scale,
                                       void* stream) {
   if (B <= 0 || H <= 0) return 0;
+  if (P <= 0 || PP <= 0 || pages_per_split <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  float* ws = (float*)workspace;
   cudaError_t e = dtype == 0
-      ? launch<float>(q, k_pages, v_pages, page_table, pos, out, B, H, N, P,
-                      PP, D, scale, s)
-      : launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, pos, out, B,
-                              H, N, P, PP, D, scale, s);
+      ? launch<float>(q, k_pages, v_pages, page_table, pos, out, ws, B, H, N,
+                      P, PP, pages_per_split, D, scale, s)
+      : launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, pos, out, ws,
+                              B, H, N, P, PP, pages_per_split, D, scale, s);
   return (int)e;
 }
 

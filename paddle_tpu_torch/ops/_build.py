@@ -14,6 +14,8 @@ plain C interface and loaded with `ctypes`:
 - Every C entry point takes its pointers and its stream as `void*`
   (`ctypes.c_void_p`) and returns `cudaGetLastError()`; `check()` raises
   on a non-zero code, so a refused launch is never silent.
+- `function()` hands out a C entry with its ctypes signature set once,
+  when it is first bound, so a launch does not set it again.
 """
 from __future__ import annotations
 
@@ -25,9 +27,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Any, Dict, Iterable, Sequence, Tuple
 
-__all__ = ["SOURCES", "build", "load", "check", "build_dir", "ptxas_log"]
+__all__ = ["SOURCES", "build", "load", "function", "check", "build_dir",
+           "ptxas_log"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -39,6 +42,7 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_funcs: Dict[Tuple[str, str], Any] = {}
 
 
 def build_dir() -> Path:
@@ -113,6 +117,19 @@ def load(src: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[src] = ctypes.CDLL(str(_lib_path(src)))
     return lib
+
+
+def function(src: str, name: str, argtypes: Sequence[Any],
+             restype: Any = ctypes.c_int) -> Any:
+    """The C function `name` of `src`'s library, its ctypes signature
+    set when it is first bound here and kept with it."""
+    fn = _funcs.get((src, name))
+    if fn is None:
+        fn = getattr(load(src), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _funcs[(src, name)] = fn
+    return fn
 
 
 def check(err: int, what: str) -> None:

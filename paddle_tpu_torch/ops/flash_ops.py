@@ -26,7 +26,10 @@ Counterpart of `paddle_tpu/ops/pallas_ops.py` (`flash_attention`,
   head dims the kernels are built for.
 - `_pick_blocks`: the JAX package's tile choice, kept for parity; the
   CUDA kernels use their own tiles of 64 rows (32 or 64 streamed keys or
-  queries in K3/K4, by head dim; see the sources).
+  queries in K2–K4, by head dim; see the sources). K2–K4 run on the
+  tensor cores (fp32 as 3xTF32), so their fp32 results differ from the
+  plain versions in the last bits; in bf16 K2 rounds P to bf16 before
+  P V, as the TPU kernel does.
 """
 from __future__ import annotations
 
@@ -247,12 +250,10 @@ def _launch(src, tensors, q, k, causal, scale, dropout_p, seed,
     (pointers, None for no bias) on q's current stream; raise on a
     refused launch."""
     entry, err_name, n_ptr = entries[src]
-    lib = _build.load(src)
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint32,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function(
+        src, entry, [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_uint32, ctypes.c_float,
+            ctypes.c_uint32, ctypes.c_void_p])
     B, H, Sq, D = q.shape
     thresh = _drop_thresh(dropout_p) if dropout_p > 0.0 else 0
     keep_scale = 1.0 / (1.0 - dropout_p) if dropout_p > 0.0 else 1.0
@@ -262,9 +263,7 @@ def _launch(src, tensors, q, k, causal, scale, dropout_p, seed,
                  B, H, Sq, k.shape[2], D, _DTYPES[q.dtype], int(bool(causal)),
                  float(scale), thresh, keep_scale, int(seed) & _M32, stream)
     if err:
-        es = getattr(lib, err_name)
-        es.restype = ctypes.c_char_p
-        es.argtypes = [ctypes.c_int]
+        es = _build.function(src, err_name, [ctypes.c_int], ctypes.c_char_p)
         raise RuntimeError(f"{entry} launch failed: {es(err).decode()}")
 
 

@@ -9,7 +9,11 @@ maps logical positions to physical pages (`serving/kv_cache.py`).
 - **CUDA tensors** launch the hand-written kernel
   `csrc/paged_attention.cu` (K1), which reads pages in place up to each
   sequence's length. It replaces the Pallas kernel the JAX package
-  dispatches on a TPU.
+  dispatches on a TPU. K1 is split-K (flash-decoding): one launch of the
+  C entry runs two kernels, the first cutting each sequence into splits
+  of whole pages (`_pages_per_split`) that write partials (acc, max,
+  sum) into a float32 workspace the wrapper allocates, the second
+  merging them; one call is one `.launches`.
 - **CPU tensors** run the plain version: gather the page table into a
   dense `[B, H, T, D]` buffer and run `cached_attention`, the masked
   softmax `GPTForCausalLM.generate`'s dense cache uses (positions beyond
@@ -112,6 +116,16 @@ def paged_attention_plain(q, k_pages, v_pages, page_table, pos, scale):
     return cached_attention(q, kb, vb, pos, scale)
 
 
+_SPLIT_TOKENS = 16     # tokens K1 gives one split (one warp), at least
+_K1_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_void_p]
+
+
+def _pages_per_split(page_size):
+    """Whole pages a split of K1 takes: the fewest that hold 16 tokens."""
+    return max(1, -(-_SPLIT_TOKENS // page_size))
+
+
 def _launch_paged_kernel(q, k_pages, v_pages, page_table, pos, scale):
     """K1 on the card. Checks what the kernel takes and raises on
     anything else; never falls back to the plain version."""
@@ -140,23 +154,25 @@ def _launch_paged_kernel(q, k_pages, v_pages, page_table, pos, scale):
             or tuple(pos.shape) != (B,):
         raise InvalidArgumentError(
             "paged_attention: page_table [B, PP] and pos [B] must be int32")
-    lib = _build.load("paged_attention.cu")
-    fn = lib.paged_attention_decode
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.paged_attention_error_string.restype = ctypes.c_char_p
-    lib.paged_attention_error_string.argtypes = [ctypes.c_int]
+    fn = _build.function("paged_attention.cu", "paged_attention_decode",
+                         _K1_ARGTYPES)
+    pps = _pages_per_split(P)
     out = torch.empty_like(q)
+    # the splits' partials (acc[D], max, sum), written and merged by K1
+    ws = torch.empty(B, H, -(-PP // pps), D + 2, dtype=torch.float32,
+                     device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                 B, H, N, P, PP, D, _DTYPES[q.dtype], float(scale), stream)
+                 ws.data_ptr(), B, H, N, P, PP, pps, D, _DTYPES[q.dtype],
+                 float(scale), stream)
     if err:
+        es = _build.function("paged_attention.cu",
+                             "paged_attention_error_string", [ctypes.c_int],
+                             ctypes.c_char_p)
         raise RuntimeError(
-            "paged_attention kernel launch failed: "
-            + lib.paged_attention_error_string(err).decode())
+            f"paged_attention kernel launch failed: {es(err).decode()}")
     paged_attention.launches += 1
     return out
 

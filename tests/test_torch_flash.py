@@ -141,3 +141,82 @@ def test_sdpa_dropout_on_probabilities_is_seeded():
                                          training=False)
     b = TFn.scaled_dot_product_attention(q, k, v)
     np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def _tiled_forward(q, k, v, bias, causal, scale, p, seed, bk):
+    """Kernel K2's loop written out in torch, one 64-query tile at a time:
+    key tiles of `bk`, the loop stopping at the diagonal tile when causal,
+    the running max starting at -1e30, l summed before dropout, kept P
+    scaled by 1/(1-p), and, for bf16 inputs, P rounded to bf16 before
+    P V. Returns (out in q's type, lse [B*H, Sq])."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    keep = tfo._keep_mask(seed, B, H, Sq, Sk, p, q.device) if p else None
+    out = torch.empty(B, H, Sq, D)
+    lse = torch.empty(B, H, Sq)
+    for q0 in range(0, Sq, 64):
+        rows = slice(q0, q0 + 64)
+        last = min(-(-(q0 + 64) // bk), Sk // bk) if causal else Sk // bk
+        m = torch.full((B, H, 64, 1), -1e30)
+        l = torch.zeros(B, H, 64, 1)
+        acc = torch.zeros(B, H, 64, D)
+        for t in range(last):
+            keys = slice(t * bk, (t + 1) * bk)
+            s = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2) * scale
+            if bias is not None:
+                s = s + bias[:, None, None, keys]
+            if causal:
+                i = torch.arange(q0, q0 + 64)[:, None]
+                j = torch.arange(t * bk, (t + 1) * bk)[None, :]
+                s = torch.where(j > i, torch.tensor(-1e30), s)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            pr = torch.exp(s - m_new)
+            l = alpha * l + pr.sum(-1, keepdim=True)
+            if keep is not None:
+                pr = torch.where(keep[:, :, rows, keys], pr / (1.0 - p),
+                                 torch.zeros(()))
+            if q.dtype == torch.bfloat16:
+                pr = pr.bfloat16().float()
+            acc = alpha * acc + pr @ vf[:, :, keys]
+            m = m_new
+        out[:, :, rows] = acc / l
+        lse[:, :, rows] = (m + torch.log(l))[..., 0]
+    return out.to(q.dtype), lse.reshape(B * H, Sq)
+
+
+@pytest.mark.parametrize("bk", [32, 64])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("p", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_online_softmax_matches_plain(bk, causal, p, dtype):
+    """K2's tiled online softmax (see `_tiled_forward`) against
+    `_flash_fwd_reference` on the same inputs and keep mask. The second
+    sequence's bias masks a tail of its keys; non-causal, it masks every
+    key of the first sequence, whose rows must come out uniform (the mean
+    of V), as the plain version's. Tolerance: fp32 1e-5 (summation
+    order); bf16 1e-2 x max(1, max |ref|) (P rounded to bf16 before P V,
+    the output to bf16); LSE 1e-5 in both."""
+    B, H, S, D = 2, 2, 192, 32
+    rng = np.random.RandomState(bk + causal + int(10 * p))
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, H, S, D))
+                                .astype(np.float32)).to(dtype)
+               for _ in range(3))
+    bias = torch.zeros(B, S)
+    bias[1, 150:] = -1e30
+    if not causal:
+        bias[0] = -1e30
+    scale = 0.2
+    got, got_lse = _tiled_forward(q, k, v, bias, causal, scale, p, 5, bk)
+    want, want_lse = tfo._flash_fwd_reference(q, k, v, bias, causal, scale,
+                                              p, 5)
+    tol = 1e-5 if dtype == torch.float32 else \
+        1e-2 * max(1.0, want.float().abs().max().item())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(got_lse, want_lse, atol=1e-5, rtol=0)
+    if not causal:
+        mean = v[0].float().mean(-2, keepdim=True)
+        if p == 0.0:
+            torch.testing.assert_close(got[0].float(), mean.expand_as(
+                got[0]).to(dtype).float(), atol=tol, rtol=0)

@@ -24,37 +24,47 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("case", ["edges", "long"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [32, 64, 128])
-def test_paged_attention_kernel_matches_plain(cuda, D):
+def test_paged_attention_kernel_matches_plain(cuda, D, dtype, case):
+    """K1 (split-K: partials per span of pages, then the merge) against
+    the plain version on the same inputs. "edges": lengths at every edge
+    of K1's splits (1, a page, a split, a split + 1, two splits, the full
+    table) and a scratch page full of junk the kernel must never read;
+    "long": one sequence of 2040 tokens over 255 pages. fp32 atol 2e-5
+    (summation order); bf16 against the plain version in fp32 on the same
+    values, rounded to bf16, atol 1e-2 (one rounding of the output)."""
     g = torch.Generator(device=cuda).manual_seed(D)
-    B, H, N, P, PP = 5, 3, 40, 8, 6
-    kp = torch.randn(H, N, P, D, generator=g, device=cuda)
-    vp = torch.randn(H, N, P, D, generator=g, device=cuda)
-    pt = torch.randint(1, N, (B, PP), generator=g, device=cuda).int()
-    pos = torch.tensor([0, 7, 8, 30, PP * P - 1], dtype=torch.int32,
-                       device=cuda)
-    q = torch.randn(B, H, D, generator=g, device=cuda)
+    H, P = 3, 8
+    span = paged_ops._pages_per_split(P) * P
+    if case == "edges":
+        lens = [1, P, span, span + 1, 2 * span, 6 * P]
+        N, PP = 50, 6
+    else:
+        lens = [2040]
+        N, PP = 260, 256
+    B = len(lens)
+    kp = torch.randn(H, N, P, D, generator=g, device=cuda).to(dtype)
+    vp = torch.randn(H, N, P, D, generator=g, device=cuda).to(dtype)
+    kp[:, 0] = 1e4   # the scratch page
+    vp[:, 0] = -1e4
+    pt = torch.zeros(B, PP, dtype=torch.int32, device=cuda)
+    for b, n in enumerate(lens):
+        used = -(-n // P)
+        pt[b, :used] = (torch.randperm(N - 1, generator=g, device=cuda)[
+            :used] + 1).int()
+    pos = torch.tensor(lens, dtype=torch.int32, device=cuda) - 1
+    q = torch.randn(B, H, D, generator=g, device=cuda).to(dtype)
     n0 = paged_ops.paged_attention.launches
     out = paged_ops.paged_attention(q, kp, vp, pt, pos, 0.125)
-    ref = paged_ops.paged_attention_plain(q, kp, vp, pt, pos, 0.125)
+    ref = paged_ops.paged_attention_plain(q.float(), kp.float(), vp.float(),
+                                          pt, pos, 0.125).to(dtype)
     assert paged_ops.paged_attention.launches == n0 + 1
-    torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
-
-
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("D", [32, 64, 128])
-def test_flash_kernel_matches_plain(cuda, causal, D):
-    g = torch.Generator(device=cuda).manual_seed(D + causal)
-    q, k, v = (torch.randn(2, 3, 192, D, generator=g, device=cuda)
-               for _ in range(3))
-    bias = torch.zeros(2, 192, device=cuda)
-    bias[1, 150:] = -1e30
-    n0 = flash_ops.flash_attention_fwd.launches
-    out, lse = flash_ops.flash_attention_fwd(q, k, v, bias, causal, 0.2)
-    assert flash_ops.flash_attention_fwd.launches == n0 + 1
-    ref, ref_lse = flash_ops._flash_fwd_reference(q, k, v, bias, causal, 0.2)
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
-    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=2e-5 if dtype == torch.float32 else 1e-2,
+                               rtol=0)
 
 
 def _assert_within(got, want, tol):
@@ -62,6 +72,35 @@ def _assert_within(got, want, tol):
     err = (got.float() - want.float()).abs().max().item()
     top = max(1.0, want.float().abs().max().item())
     assert err <= tol * top, f"max abs err {err:.3e} > {tol} x {top:.3e}"
+
+
+@pytest.mark.parametrize("p", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_kernel_matches_plain(cuda, causal, D, dtype, p):
+    """K2 against `_flash_fwd_reference` on the same inputs and seed, so
+    the keep mask is replayed bit for bit: fp32 atol 1e-4 (the products
+    are 3xTF32, fp32-accurate, summed in another order); bf16 1e-2 x
+    max(1, max |ref|) (K2 rounds P to bf16 before P V, and the output to
+    bf16). The bias masks a tail of the second sequence."""
+    g = torch.Generator(device=cuda).manual_seed(D + causal)
+    q, k, v = (torch.randn(2, 3, 192, D, generator=g, device=cuda)
+               .to(dtype) for _ in range(3))
+    bias = torch.zeros(2, 192, device=cuda)
+    bias[1, 150:] = -1e30
+    n0 = flash_ops.flash_attention_fwd.launches
+    out, lse = flash_ops.flash_attention_fwd(q, k, v, bias, causal, 0.2, p,
+                                             17)
+    assert flash_ops.flash_attention_fwd.launches == n0 + 1
+    ref, ref_lse = flash_ops._flash_fwd_reference(q, k, v, bias, causal, 0.2,
+                                                  p, 17)
+    assert out.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    else:
+        _assert_within(out, ref, 1e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -121,3 +121,63 @@ def test_paged_write_equal(layer):
                           torch.from_numpy(ids), torch.from_numpy(offs),
                           torch.from_numpy(vals))
     np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def _split_merge(q, kp, vp, pt, pos, scale, pps):
+    """Kernel K1's split-K written out in torch: per (b, h), partials
+    (max m_s, sum l_s, acc_s) over spans of `pps` whole pages up to the
+    sequence's length (no token past it is read), merged by the
+    exp(m_s - M) rule."""
+    H, _, P, _ = kp.shape
+    B, PP = pt.shape
+    span = pps * P
+    out = torch.empty_like(q)
+    for b in range(B):
+        n = min(int(pos[b]) + 1, PP * P)
+        for h in range(H):
+            parts = []
+            for t0 in range(0, n, span):
+                toks = torch.arange(t0, min(t0 + span, n))
+                pages = pt[b, toks // P].long()
+                k, v = kp[h, pages, toks % P], vp[h, pages, toks % P]
+                s = (k @ q[b, h]) * scale
+                p = torch.exp(s - s.max())
+                parts.append((s.max(), p.sum(), p @ v))
+            assert len(parts) == -(-n // span) <= -(-PP // pps)
+            M = max(m for m, _, _ in parts)
+            w = [torch.exp(m - M) for m, _, _ in parts]
+            out[b, h] = (sum(a * x for (_, _, a), x in zip(parts, w))
+                         / sum(l * x for (_, l, _), x in zip(parts, w)))
+    return out
+
+
+@pytest.mark.parametrize("P,PP", [(4, 8), (16, 3)])
+def test_split_merge_matches_plain(P, PP):
+    """K1's split-merge arithmetic on the CPU, with the wrapper's split
+    rule (`_pages_per_split`), against `paged_attention_plain` to 1e-6
+    (float32, summation order only): lengths 1, a page, a split, a split
+    + 1 and the full table, and a scratch page full of 1e4 that every
+    table row points at past its pages, which must not leak in."""
+    H, D = 3, 32
+    pps = tpo._pages_per_split(P)
+    span = pps * P
+    lens = [1, P, span, span + 1, PP * P]
+    B = len(lens)
+    N = B * PP + 1
+    rng = np.random.RandomState(P)
+    kp = torch.from_numpy(rng.standard_normal((H, N, P, D)).astype(np.float32))
+    vp = torch.from_numpy(rng.standard_normal((H, N, P, D)).astype(np.float32))
+    kp[:, 0] = 1e4
+    vp[:, 0] = 1e4
+    pt = torch.zeros(B, PP, dtype=torch.int32)
+    perm = torch.from_numpy(rng.permutation(N - 1) + 1)
+    for b, n in enumerate(lens):
+        used = -(-n // P)
+        pt[b, :used] = perm[b * PP:b * PP + used].int()
+    pos = torch.tensor(lens, dtype=torch.int32) - 1
+    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(np.float32))
+    scale = 1.0 / np.sqrt(D)
+    got = _split_merge(q, kp, vp, pt, pos, scale, pps)
+    want = tpo.paged_attention_plain(q, kp, vp, pt, pos, scale)
+    assert torch.isfinite(got).all() and got.abs().max() < 10
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
