@@ -7,7 +7,8 @@
 
 Phases:
  1. card      name and power limit from nvidia-smi, torch/CUDA versions
- 2. build     nvcc builds every kernel from paddle_tpu_torch/csrc, timed
+ 2. build     nvcc builds every kernel from paddle_tpu_torch/csrc, timed;
+              ptxas' registers and spills of every instantiation
  3. kernels   each kernel's wrapper against its plain PyTorch version on
               the card at the main paths' shapes (max abs error, kernel
               ms, plain ms, the least time the card could take, and one
@@ -15,8 +16,9 @@ Phases:
               CUDA-event time per call, and for K1, K2 and K2's library
               call the device time per call beside it, see _time_ms):
               K1 paged decode (phase 3's 8 slots of random lengths, the
-              decode profile's 8 x 230 tokens, 2 x 1024 tokens; fp32 and
-              bf16; the split count per row), K2 flash forward (serving
+              decode profile's 8 x 230 tokens, 2 x 1024 tokens, and phase
+              3's slots at head dims 80, 96 and 256; fp32 and bf16; the
+              split count per row), K2 flash forward (serving
               shape, fp32 and bf16, and the training shape with
               dropout), K3 flash dQ and K4 flash
               dK/dV (training shape, dropout 0 and 0.1, fp32 and bf16;
@@ -29,7 +31,9 @@ Phases:
  5. serving   GenerationEngine (8 slots, page 16, buckets 16/64/256/1024)
               serving 16 greedy streamed requests, some joining while
               others decode; every output token-identical to the port's
-              own generate(); kernel launch counts read off this run
+              own generate(); kernel launch counts read off this run;
+              then a GPT with head dim 96 (hidden 768, 8 heads, 2 layers)
+              serving 4 requests through K1, token-identical to generate()
  6. train     GPT-2 small (dropout 0.1, fp32) trained through
               hapi.Model.fit: AdamW under LinearWarmup, global-norm clip,
               cross-entropy, batch 8 x 1024, 20 steps over a seeded
@@ -51,8 +55,10 @@ forward, K6 splash dQ and K7 splash dK/dV at GPT-2 small's attention
 width (B 8, H 12, S 1024, D 64) and at the packing phase's shape, with
 segment ids from io.PackingCollator over the bench's lengths (causal, p
 0 and 0.1, fp32 and bf16, and a non-causal case whose absent segment
-gives exact zero rows); SplashAttention's gradients against autograd
-through the plain forward.
+gives exact zero rows), with the share of the 16x8 sub-tiles of K6's and
+K7's tiles that can hold an allowed pair and, where the library call
+runs, K6 + K7 against the library's whole backward; SplashAttention's
+gradients against autograd through the plain forward.
 --profile's profiler sessions come after serving, so that run's train
 and packing walls carry them.
 Then one JSON line describing the kernels, and as the last line
@@ -243,20 +249,30 @@ class Smoke:
         secs = _build.build()
         print(f"build: {len(_build.SOURCES)} sources in {secs:.1f} s "
               f"({_build.build_dir()})")
+        ptxas = {}
         for src in _build.SOURCES:
-            for line in _build.ptxas_log(src).splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {src}: {line.strip()}")
+            kernels = _ptxas_kernels(_build.ptxas_log(src))
+            ptxas[src] = kernels
+            for name, regs, spill in kernels:
+                print(f"  ptxas {src}: {name}: {regs} registers, spill "
+                      f"stores/loads {spill[0]}/{spill[1]} bytes")
+        spilled = [f"{src}: {n}" for src, ks in ptxas.items()
+                   for n, _, sp in ks if sp != (0, 0)]
+        print(f"ptxas: {sum(map(len, ptxas.values()))} kernels, spills in "
+              f"{spilled if spilled else 'none'}")
         self.details["build_s"] = secs
+        self.details["ptxas"] = ptxas
 
     # -- 3. kernels against their plain versions --------------------------------
 
-    def k1_inputs(self, dtype, B, lens=None, seed=0):
+    def k1_inputs(self, dtype, B, lens=None, seed=0, D=None):
         """q, pools, page table and pos for B slots of K1_SHAPE's heads,
-        pages and table width: random lengths 1..PP*P (seeded) unless
-        `lens` gives them. Page 0 is the scratch page, full of junk."""
+        pages and table width (head dim D, K1_SHAPE's by default): random
+        lengths 1..PP*P (seeded) unless `lens` gives them. Page 0 is the
+        scratch page, full of junk."""
         torch = self.torch
-        H, D, P, PP = (K1_SHAPE[k] for k in ("H", "D", "P", "PP"))
+        H, P, PP = (K1_SHAPE[k] for k in ("H", "P", "PP"))
+        D = D or K1_SHAPE["D"]
         g = torch.Generator(device="cuda").manual_seed(seed)
         N = B * PP + 1
         if lens is None:
@@ -281,23 +297,28 @@ class Smoke:
         """K1 against its plain version at three shapes, fp32 and bf16:
         phase 3's (8 slots of random lengths up to 1024), the decode
         profile's (8 slots of 230 tokens) and a long context (2 slots of
-        1024). ms: device time per call (`time_ms`; both kernels of the
-        split), the event time beside it; the L2 is flushed before each
-        call, as a decode step finds it cold; no library call computes
-        K1's function."""
+        1024); and phase 3's slots at head dims 80, 96 and 256 (ROADMAP
+        C7: rows of 20/10, 24/12 and 64/32 16-byte chunks in fp32/bf16).
+        ms: device time per call (`time_ms`; both kernels of the split),
+        the event time beside it; the L2 is flushed before each call, as a
+        decode step finds it cold; no library call computes K1's
+        function."""
         torch = self.torch
         from paddle_tpu_torch.ops import paged_ops as po
-        H, D, P, PP = (K1_SHAPE[k] for k in ("H", "D", "P", "PP"))
-        scale = 1.0 / D ** 0.5
+        H, P, PP = (K1_SHAPE[k] for k in ("H", "P", "PP"))
         pps = po._pages_per_split(P)
         nsplit = -(-PP // pps)
-        shapes = [("phase3", K1_SHAPE["B"], None),
-                  ("decode_profile", 8, [230] * 8),
-                  ("long", 2, [PP * P] * 2)]
+        shapes = [("phase3", K1_SHAPE["B"], None, K1_SHAPE["D"]),
+                  ("decode_profile", 8, [230] * 8, K1_SHAPE["D"]),
+                  ("long", 2, [PP * P] * 2, K1_SHAPE["D"])]
+        shapes += [(f"phase3_d{D}", K1_SHAPE["B"], None, D)
+                   for D in (80, 96, 256)]
         rows = []
-        for shape, B, lens_in in shapes:
+        for shape, B, lens_in, D in shapes:
+            scale = 1.0 / D ** 0.5
             for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
-                q, kp, vp, pt, pos, lens = self.k1_inputs(dtype, B, lens_in)
+                q, kp, vp, pt, pos, lens = self.k1_inputs(dtype, B, lens_in,
+                                                          D=D)
                 out = po.paged_attention(q, kp, vp, pt, pos, scale)
                 # the plain version in float32 on the same inputs, then
                 # rounded to the kernel's output type
@@ -322,8 +343,8 @@ class Smoke:
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = flops / PEAK_FLOPS[name] * 1e3
                 rates, rtext = _rates(flops, ms, name)
-                row = dict(shape=shape, dtype=name, max_abs_err=err, tol=tol,
-                           ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+                row = dict(shape=shape, D=D, dtype=name, max_abs_err=err,
+                           tol=tol, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
                            bound_ms=max(t_bytes, t_ops),
                            bound_by="bytes" if t_bytes >= t_ops else
                            "operations", library_ms=None, tokens=toks,
@@ -744,6 +765,14 @@ class Smoke:
             tag = dict(shape=f"{Bc}x{Hc}x{S}x{D}", causal=causal, p=p,
                        absent=ks is not qs, tiles_visited=tiles,
                        pair_share=pairs / full)
+            # the 16x8 sub-tiles of K6's and K7's visited tiles that can
+            # hold an allowed pair (`_subtile_mask`): what a sub-tile skip
+            # could keep of their product work
+            sub = {}
+            for kname, tr in (("dq", False), ("dkv", True)):
+                vis, live = so._subtile_mask(qs, ks, causal, tr)
+                sub[kname] = dict(
+                    subtiles_live=int(live.sum()) / int(vis.sum()))
             bh_sd = Bc * Hc * S * D * q.element_size()
             row_b = Bc * Hc * S * 4
             ids_b = 2 * Bc * S * 4 + 2 * Bc * nt * 4
@@ -791,7 +820,8 @@ class Smoke:
                 _time_ms(torch, lambda: so.splash_attention_dq(
                     *bargs, bounds=(kv_lo, kv_hi)), 10),
                 _time_ms(torch, lambda: so._splash_dq_reference(*bargs), 3),
-                6 * pairs * D, 5 * bh_sd + 2 * row_b + ids_b, lib_bwd, **tag))
+                6 * pairs * D, 5 * bh_sd + 2 * row_b + ids_b, lib_bwd,
+                **sub["dq"], **tag))
             del dq, dq_ref
             dk, dv = so.splash_attention_dkv(*bargs, bounds=(q_lo, q_hi))
             dk_ref, dv_ref = so._splash_dkv_reference(*bargs)
@@ -808,7 +838,14 @@ class Smoke:
                     *bargs, bounds=(q_lo, q_hi)), 10),
                 _time_ms(torch, lambda: so._splash_dkv_reference(*bargs), 3),
                 8 * pairs * D, 6 * bh_sd + 2 * row_b + ids_b, lib_bwd,
-                tiles_visited_t=tiles_t, **tag))
+                tiles_visited_t=tiles_t, **sub["dkv"], **tag))
+            if lib_bwd is not None:
+                pair_ms = rows["dq"][-1]["ms"] + rows["dkv"][-1]["ms"]
+                print(f"K6 + K7 {name} {tag['shape']} causal={causal}: "
+                      f"{pair_ms:.4f} ms = {pair_ms / lib_bwd:.3f} x the "
+                      f"library's whole backward ({lib_bwd:.4f} ms); K5 "
+                      f"{rows['fwd'][-1]['ms'] / lib_fwd:.3f} x its forward "
+                      f"({lib_fwd:.4f} ms)")
             del dk, dv, dk_ref, dv_ref, ref, ref_lse, delta, allowed
             torch.cuda.empty_cache()
         self.details["splash_kernels"] = rows
@@ -1011,6 +1048,55 @@ class Smoke:
         assert k2 > 0, "flash kernel never launched on the serving path"
         assert eng.stats()["pages"]["pages_in_use"] == 0, "pages leaked"
         assert joined_at is not None and joined_at > 0
+        self.serving_d96()
+
+    def serving_d96(self):
+        """ROADMAP C7 on the card: a GPT with head dim 96 (hidden 768, 8
+        heads, 2 layers; GPT-2 small's vocab, FFN and positions; fp32,
+        seed 0) served by GenerationEngine: 4 greedy requests, 8 new
+        tokens each, token-identical to the port's generate(), its decode
+        attention through K1 (launches counted on this path, one a layer
+        a step). Prefill takes the plain attention: the flash kernels are
+        built for head dims 32/64/128 (ROADMAP B item 5)."""
+        import numpy as np
+        from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+        from paddle_tpu_torch.serving import GenerationEngine
+        cfg = GPTConfig(hidden_size=768, num_heads=8, num_layers=2)
+        gpt = GPTForCausalLM(cfg, device="cuda", seed=0).eval()
+        rng = np.random.RandomState(1)
+        lens, new = [24, 130, 300, 61], 8
+        prompts = [rng.randint(0, cfg.vocab_size, size=(n,)) for n in lens]
+        eng = GenerationEngine(
+            gpt, device="cuda", name="chip_smoke_d96", max_slots=4,
+            page_size=16, num_pages=1 + sum(-(-(n + new) // 16)
+                                            for n in lens),
+            prefill_buckets=(64, 256, 512), max_new_tokens=new,
+            request_timeout_ms=0)
+        # this path starts here: every launch count from 0
+        self.zero_launches()
+        t0 = time.perf_counter()
+        futs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        outs = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        stats = eng.stats()
+        eng.shutdown(drain=True, timeout_s=60)
+        launches = self.read_launches()
+        self.path_launches["serving_d96"] = launches
+        k1 = launches["paged_attention"]
+        same = [np.array_equal(o, gpt.generate(p[None], max_new_tokens=new)
+                               [0].cpu().numpy())
+                for o, p in zip(outs, prompts)]
+        print(f"serving head dim 96 (hidden 768, 8 heads, 2 layers): "
+              f"{len(prompts)} requests, {len(prompts) * new} tokens in "
+              f"{wall:.3f} s, {stats['steps']} decode steps; identical to "
+              f"generate(): {sum(same)} of {len(same)}; K1 launches {k1}")
+        self.details["serving_d96"] = dict(steps=stats["steps"], k1=k1,
+                                           identical=sum(same), wall_s=wall)
+        assert all(same), "the D 96 engine differs from generate()"
+        assert k1 > 0 and k1 == stats["steps"] * cfg.num_layers, \
+            f"K1 launched {k1} times in {stats['steps']} steps"
+        del eng, gpt
+        self.torch.cuda.empty_cache()
 
     # -- optional: where the serving time goes ---------------------------------
 
@@ -1537,6 +1623,49 @@ class Smoke:
                         "bound_by": r.get("bound_by"),
                         "library_ms": r.get("library_ms")})
         return {"kernels": out}
+
+
+def _ptxas_kernels(log):
+    """(name, registers, (spill store bytes, spill load bytes)) of every
+    kernel in an `nvcc -Xptxas -v` log, the name demangled as far as
+    `kernel<type, D>`."""
+    import re
+    out, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = _kernel_name(m.group(1)), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
+
+
+def _kernel_name(mangled):
+    """`paged_split_kernel<float, 80>` from its Itanium-mangled name (a
+    kernel in an anonymous namespace, templated on a type and an int:
+    `_ZN<n><namespace><m><name>I<type>Li<D>E...`)."""
+    import re
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled
+    base = rest[m.end():m.end() + int(m.group(1))]
+    t = re.match(r"I(f|13__nv_bfloat16)Li(\d+)E",
+                 rest[m.end() + int(m.group(1)):])
+    if not t:
+        return base
+    ty = "float" if t.group(1) == "f" else "bfloat16"
+    return f"{base}<{ty}, {t.group(2)}>"
 
 
 def _device_table(torch, prof, steps, wall_ms):

@@ -1,7 +1,8 @@
 // Pieces shared by the flash-attention kernels (flash_fwd.cu K2,
 // flash_bwd_dq.cu K3, flash_bwd_dkv.cu K4) and the splash kernels (K5-K7):
-// the dropout keep mask, and the splash kernels' tiles (kBQ, kBK, kThreads,
-// load_tile; K2-K4 keep their own tiles in flash_mma.cuh's layout).
+// the dropout keep mask, and the splash forward's tiles (kBQ, kBK,
+// kThreads, load_tile; K2-K4, K6 and K7 keep their own tiles in
+// flash_mma.cuh's layout).
 //
 // The dropout keep mask is keyed on ABSOLUTE coordinates, not on tiles:
 //
@@ -27,7 +28,7 @@ namespace flash {
 constexpr int kBQ = 64;        // query tile
 constexpr int kBK = 64;        // key tile
 constexpr int kThreads = 256;  // 16 x 16 threads, a 4 x 4 register tile each
-                               // (K5-K7)
+                               // (K5)
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }

@@ -1,6 +1,8 @@
 // Tensor-core pieces of the flash-attention kernels (flash_fwd.cu K2,
-// flash_bwd_dq.cu K3, flash_bwd_dkv.cu K4): swizzled shared tiles fed by
-// cp.async, and warp-level mma.sync products in both input types.
+// flash_bwd_dq.cu K3, flash_bwd_dkv.cu K4) and of the splash backward
+// kernels (splash_bwd_dq.cu K6, splash_bwd_dkv.cu K7): swizzled shared
+// tiles fed by cp.async, and warp-level mma.sync products in both input
+// types.
 //
 // - bfloat16: mma.sync m16n8k16 with bf16 operands and fp32 sums. A
 //   operands from shared memory come through ldmatrix, B operands through
@@ -107,10 +109,12 @@ __device__ __forceinline__ void load_tile_async(T* dst, const T* src,
   }
 }
 
-// Start the copy of n floats (n a multiple of 4, both ends 16-byte aligned).
-template <int NTHREADS>
-__device__ __forceinline__ void load_vec_async(float* dst, const float* src,
-                                               int n, int tid) {
+// Start the copy of n 4-byte values (floats or int32 ids; n a multiple of
+// 4, both ends 16-byte aligned).
+template <int NTHREADS, typename U>
+__device__ __forceinline__ void load_vec_async(U* dst, const U* src, int n,
+                                               int tid) {
+  static_assert(sizeof(U) == 4, "4-byte values");
   for (int i = tid; i < n / 4; i += NTHREADS) cp_async16(dst + 4 * i, src + 4 * i);
 }
 

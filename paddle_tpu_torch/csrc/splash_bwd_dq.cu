@@ -17,25 +17,57 @@
 // would not vanish there. The keep mask is the forward's (flash_common.cuh).
 //
 // Bound: operations. Three products of 2*D flops for each allowed pair (S,
-// dP, dS K), against inputs read once; run on the float32 CUDA cores (67
-// TFLOP/s peak) in both input types, like K5.
+// dP, dS K), against inputs read once. They run on the tensor cores
+// (flash_mma.cuh): bf16 operands on mma.sync m16n8k16 (989 TFLOP/s peak),
+// fp32 as 3xTF32 on mma.sync m16n8k8 (495 / 3 = 165 TFLOP/s of
+// fp32-accurate products). dS is rounded to bf16 before dS K in bf16, as
+// the TPU kernel casts it (splash_ops.py:233).
 //
-// Design: K3's (flash_bwd_dq.cu): one block of 256 threads per (64-query
-// tile, b*h), no atomics, the block owning its dQ rows; Q, dO, LSE, delta
-// and the query ids in shared memory; per key tile S and dP out of one pass
-// over D, dS to shared memory, dQ += dS K in a 4 x D/16 register tile. The
-// key loop runs over the wrapper's [kv_lo, kv_hi) for this (b, query tile),
-// the forward's span. Tensor cores and TMA are later work.
+// Design: K3's (flash_bwd_dq.cu). One block of 4 warps per (64-query tile,
+// b*h), no atomics: the block owns its dQ rows, each warp 16 of them. Q and
+// dO stay in shared memory in their input type; K, V and the key segment
+// ids are double-buffered with 16-byte cp.async in tiles of 64 keys (32 at
+// D 128, to keep the registers free of spills). The key loop runs over the
+// wrapper's [kv_lo, kv_hi) for this (b, query tile), the forward's span, in
+// 64-key units. S and dP come out of mma in accumulator fragments (queries
+// as rows), dS is formed there, and that fragment is the A operand of
+// dQ += dS K with K's fragments read transposed (ldmatrix.trans in bf16):
+// dS never goes through shared memory. The query ids are per row and stay
+// in registers; the key ids are per column and come from the shared tile.
+//
+// Sub-tiles, measured and not skipped: the ids are non-decreasing, so a
+// warp's 16 rows and an n8 group of keys can hold an allowed pair only if
+// their id ranges overlap and, under causal, the group's first key is at or
+// before the warp's last query (`_subtile_mask` in ops/splash_ops.py counts
+// them: 0.82 of the 16x8 sub-tiles of the visited tiles on the packing
+// bench's pack). Skipping the others inside the unrolled products measured
+// slower on the card than computing them, with a branch around each group
+// or one test a warp and tile (`kernel_ab.py`, PERF.md §6) and with
+// predicated mma's: control flow splits the straight-line code in which
+// the compiler interleaves the groups' mma's and hides their latency, at
+// 2-3 blocks of 4 warps an SM. So every group of a visited tile is
+// computed, and the per-element test zeroes P.
+//
+// Why mma.sync and not wgmma: K3's reason (flash_bwd_dq.cu). The main
+// path's type is fp32, and tf32 wgmma takes both operands K-major from
+// shared memory only; K in dS K arrives MN-major.
+#include "flash_mma.cuh"
 #include "splash_common.cuh"
 
 namespace {
 
-using namespace flash;
+constexpr int kBQ = 64;       // query rows a block
+constexpr int kUnit = 64;     // the wrapper's span unit, in keys
+constexpr int kWarps = 4;     // 16 query rows a warp
+constexpr int kThreads = 32 * kWarps;
 
 template <int D>
-constexpr int smem_floats() {
-  // Q, dO, K, V tiles; dS tile; LSE, delta; query and key segment ids
-  return 4 * kBQ * (D + 1) + kBQ * (kBK + 1) + 2 * kBQ + kBQ + kBK;
+constexpr int kKeyTile = D == 128 ? 32 : 64;   // keys a tile
+
+template <typename T, int D>
+constexpr int smem_bytes() {
+  return (2 * kBQ * D + 4 * kKeyTile<D> * D) * (int)sizeof(T)
+         + 2 * kKeyTile<D> * (int)sizeof(int);
 }
 
 template <typename T, int D>
@@ -50,124 +82,110 @@ splash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ delta, T* __restrict__ dq,
                      int H, int S, int causal, float scale, uint32_t thresh,
                      float keep_scale, uint32_t seed) {
-  constexpr int DS = D + 1;
-  constexpr int SS = kBK + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kBQ * DS;
-  float* Ks = dOs + kBQ * DS;
-  float* Vs = Ks + kBK * DS;
-  float* Ss = Vs + kBK * DS;
-  float* lse_s = Ss + kBQ * SS;
-  float* dl_s = lse_s + kBQ;
-  int* qs_s = reinterpret_cast<int*>(dl_s + kBQ);
-  int* ks_s = qs_s + kBQ;
+  constexpr int BK = kKeyTile<D>;
+  constexpr int NT = BK / 8;   // score n-tiles (key groups) a warp
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* dOs = Qs + kBQ * D;
+  T* Ks = dOs + kBQ * D;            // [2][BK * D]
+  T* Vs = Ks + 2 * BK * D;          // [2][BK * D]
+  int* ks_s = reinterpret_cast<int*>(Vs + 2 * BK * D);   // [2][BK]
 
-  const int qi = blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
+  const int qi = gridDim.y - 1 - blockIdx.y;   // most keys first (causal)
   const int b = bh / H;
   const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int nt = S / kBK;
-  const size_t qoff = ((size_t)bh * S + (size_t)qi * kBQ) * D;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = qi * kBQ;
+  const size_t qoff = ((size_t)bh * S + q0) * D;
   const T* kb = k + (size_t)bh * S * D;
   const T* vb = v + (size_t)bh * S * D;
   const int* ksrow = kseg + (size_t)b * S;
 
-  load_tile<T, D>(Qs, q + qoff, kBQ, tid);
-  load_tile<T, D>(dOs, dout + qoff, kBQ, tid);
-  if (tid < kBQ) {
-    lse_s[tid] = lse[(size_t)bh * S + (size_t)qi * kBQ + tid];
-    dl_s[tid] = delta[(size_t)bh * S + (size_t)qi * kBQ + tid];
-    qs_s[tid] = qseg[(size_t)b * S + (size_t)qi * kBQ + tid];
-  }
-  uint32_t row_hash[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    row_hash[i] = thresh ? drop_row(seed, bh, qi * kBQ + ty + 16 * i) : 0u;
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
   int first, last;
-  tile_span(kv_lo, kv_hi, b * (S / kBQ) + qi, nt, &first, &last);
-  for (int t = first; t < last; ++t) {
-    __syncthreads();  // the previous tile's K, dS and id reads are done
-    load_tile<T, D>(Ks, kb + (size_t)t * kBK * D, kBK, tid);
-    load_tile<T, D>(Vs, vb + (size_t)t * kBK * D, kBK, tid);
-    if (tid < kBK) ks_s[tid] = ksrow[t * kBK + tid];
-    __syncthreads();
+  flash::tile_span(kv_lo, kv_hi, b * (S / kBQ) + qi, S / kUnit, &first,
+                   &last);
+  first = first * (kUnit / BK);
+  last = last * (kUnit / BK);
+  auto fetch = [&](int t) {
+    const int buf = t & 1;
+    fmma::load_tile_async<T, D, BK, kThreads>(
+        Ks + buf * BK * D, kb + (size_t)t * BK * D, tid);
+    fmma::load_tile_async<T, D, BK, kThreads>(
+        Vs + buf * BK * D, vb + (size_t)t * BK * D, tid);
+    fmma::load_vec_async<kThreads>(ks_s + buf * BK, ksrow + t * BK, BK, tid);
+  };
+  fmma::load_tile_async<T, D, kBQ, kThreads>(Qs, q + qoff, tid);
+  fmma::load_tile_async<T, D, kBQ, kThreads>(dOs, dout + qoff, tid);
+  if (first < last) fetch(first);
+  fmma::cp_async_commit();
 
-    // S = Q K^T and dP = dO V^T: rows ty + 16 i, keys tx + 16 j
-    float s[4][4], dp[4][4];
+  // this thread's two query rows (g and g + 8 of its warp's 16)
+  const int* qsrow = qseg + (size_t)b * S;
+  int qpos[2], qsg[2];
+  float lse_r[2], dl_r[2];
+  uint32_t rh[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty + 16 * i) * DS + d];
-        ov[i] = dOs[(ty + 16 * i) * DS + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * DS + d];
-        vv[j] = Vs[(tx + 16 * j) * DS + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] += qv[i] * kv[j];
-          dp[i][j] += ov[i] * vv[j];
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int qpos = qi * kBQ + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int kpos = t * kBK + c;
-        const float p = seg_allowed(qs_s[r], ks_s[c], qpos, kpos, causal)
-                            ? expf(s[i][j] * scale - lse_s[r])
-                            : 0.f;
-        float g = dp[i][j];
-        if (thresh) g = drop_keep(row_hash[i], kpos, thresh) ? g * keep_scale
-                                                             : 0.f;
-        Ss[r * SS + c] = p * (g - dl_s[r]);
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K: rows ty + 16 i, columns tx + 16 j
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float sv[4], kv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = Ss[(ty + 16 * i) * SS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = Ks[c * DS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] += sv[i] * kv[j];
-    }
+  for (int h = 0; h < 2; ++h) {
+    qpos[h] = q0 + 16 * warp + g + 8 * h;
+    qsg[h] = qsrow[qpos[h]];
+    lse_r[h] = lse[(size_t)bh * S + qpos[h]];
+    dl_r[h] = delta[(size_t)bh * S + qpos[h]];
+    rh[h] = thresh ? flash::drop_row(seed, bh, qpos[h]) : 0u;
   }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  T* ob = dq + qoff;
+  for (int t = first; t < last; ++t) {
+    if (t + 1 < last) {
+      fetch(t + 1);   // its buffer's reads ended at the last iteration's sync
+      fmma::cp_async_commit();
+      fmma::cp_async_wait<1>();
+    } else {
+      fmma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int buf = t & 1;
+    const T* Kt = Ks + buf * BK * D;
+    const T* Vt = Vs + buf * BK * D;
+    const int* kst = ks_s + buf * BK;
+    const int k0 = t * BK;
+
+    float s[NT][4], dp[NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      store(ob + (size_t)(ty + 16 * i) * D + tx + 16 * j, acc[i][j] * scale);
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    fmma::mma_abt<T, D, NT>(s, Qs, 16 * warp, Kt, 0, lane);
+    fmma::mma_abt<T, D, NT>(dp, dOs, 16 * warp, Vt, 0, lane);
+
+    // dS in place of S: rows qpos[e / 2], keys k0 + 8 j + 2 t4 + e % 2
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int c = 8 * j + 2 * t4 + (e & 1);
+        const float p = flash::seg_allowed(qsg[h], kst[c], qpos[h], k0 + c,
+                                           causal)
+                            ? expf(s[j][e] * scale - lse_r[h]) : 0.f;
+        float gd = dp[j][e];
+        if (thresh)
+          gd = flash::drop_keep(rh[h], k0 + c, thresh) ? gd * keep_scale
+                                                        : 0.f;
+        s[j][e] = p * (gd - dl_r[h]);
+      }
+    fmma::mma_pb<T, D, NT>(acc, s, Kt, 0, lane);
+    __syncthreads();   // this tile's K/V/id reads are done
+  }
+  fmma::cp_async_wait<0>();   // nothing left in flight (no key tile at all)
+
+  fmma::store_rows<T, D>(dq + qoff + (size_t)16 * warp * D, acc, scale,
+                         lane);
 }
 
 template <typename T, int D>
@@ -177,12 +195,12 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* delta, void* dq, int B, int H, int S,
                      int causal, float scale, uint32_t thresh,
                      float keep_scale, uint32_t seed, cudaStream_t stream) {
-  const int bytes = smem_floats<D>() * (int)sizeof(float);
+  const int bytes = smem_bytes<T, D>();
   cudaError_t e = cudaFuncSetAttribute(
       splash_bwd_dq_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  dim3 grid(S / kBQ, B * H), block(kThreads);
+  dim3 grid(B * H, S / kBQ), block(kThreads);
   splash_bwd_dq_kernel<T, D><<<grid, block, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, qseg, kseg, lo, hi,
       (const T*)dout, (const float*)lse, (const float*)delta, (T*)dq, H, S,
@@ -219,8 +237,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // q/k/v/dout [B,H,S,D] contiguous in one type (dtype 0 = float32, 1 =
 // bfloat16); qseg/kseg [B,S] int32; kv_lo/kv_hi [B,S/64] int32 (the
-// forward's key-tile spans); lse and delta [B*H,S] float32; dq like q.
-// Self-attention only (Sq == Sk), a multiple of 64; D 32, 64 or 128.
+// forward's key spans, in 64-key units); lse and delta [B*H,S] float32; dq
+// like q. Self-attention only (Sq == Sk), a multiple of 64; D 32, 64 or
+// 128; every pointer 16-byte aligned.
 extern "C" int splash_attention_bwd_dq(void* q, void* k, void* v, void* qseg,
                                        void* kseg, void* kv_lo, void* kv_hi,
                                        void* dout, void* lse, void* delta,

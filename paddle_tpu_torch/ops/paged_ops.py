@@ -13,7 +13,9 @@ maps logical positions to physical pages (`serving/kv_cache.py`).
   C entry runs two kernels, the first cutting each sequence into splits
   of whole pages (`_pages_per_split`) that write partials (acc, max,
   sum) into a float32 workspace the wrapper allocates, the second
-  merging them; one call is one `.launches`.
+  merging them; one call is one `.launches`. K1 serves every head dim
+  D with D % 8 == 0 and D <= 256; any other D raises
+  `InvalidArgumentError` (`_check_kernel_args`), never the plain version.
 - **CPU tensors** run the plain version: gather the page table into a
   dense `[B, H, T, D]` buffer and run `cached_attention`, the masked
   softmax `GPTForCausalLM.generate`'s dense cache uses (positions beyond
@@ -37,7 +39,7 @@ __all__ = ["cached_attention", "paged_attention", "paged_attention_plain",
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_MAX_HEAD_DIM = 256    # K1 is built for every multiple of 8 up to this
 
 
 def cached_attention(q, kb, vb, pos, scale):
@@ -126,9 +128,12 @@ def _pages_per_split(page_size):
     return max(1, -(-_SPLIT_TOKENS // page_size))
 
 
-def _launch_paged_kernel(q, k_pages, v_pages, page_table, pos, scale):
-    """K1 on the card. Checks what the kernel takes and raises on
-    anything else; never falls back to the plain version."""
+def _check_kernel_args(q, k_pages, v_pages, page_table, pos):
+    """What K1 takes, checked without building or launching anything:
+    float32 or bfloat16 q [B, H, D] and pools [H, N, P, D] of one type,
+    a head dim D with D % 8 == 0 and D <= 256, int32 page_table [B, PP]
+    and pos [B], everything contiguous on q's device. Raises
+    InvalidArgumentError on anything else."""
     H, N, P, D = k_pages.shape
     B, PP = page_table.shape
     if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
@@ -136,12 +141,16 @@ def _launch_paged_kernel(q, k_pages, v_pages, page_table, pos, scale):
         raise InvalidArgumentError(
             f"paged_attention kernel takes float32 or bfloat16 q and pools "
             f"of one type, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
-    if D not in _HEAD_DIMS or tuple(q.shape) != (B, H, D) \
+    if not (0 < D <= _MAX_HEAD_DIM and D % 8 == 0):
+        raise InvalidArgumentError(
+            f"paged_attention kernel: head_dim {D} is not served; K1 takes "
+            f"head dims D with D % 8 == 0 and D <= {_MAX_HEAD_DIM}")
+    if tuple(q.shape) != (B, H, D) \
             or tuple(v_pages.shape) != tuple(k_pages.shape):
         raise InvalidArgumentError(
             f"paged_attention kernel: q {tuple(q.shape)}, pools "
-            f"{tuple(k_pages.shape)}, table {tuple(page_table.shape)} "
-            f"(head_dim must be one of {_HEAD_DIMS})")
+            f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, table "
+            f"{tuple(page_table.shape)}")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("page_table", page_table), ("pos", pos)):
         if t.device != q.device:
@@ -154,6 +163,14 @@ def _launch_paged_kernel(q, k_pages, v_pages, page_table, pos, scale):
             or tuple(pos.shape) != (B,):
         raise InvalidArgumentError(
             "paged_attention: page_table [B, PP] and pos [B] must be int32")
+
+
+def _launch_paged_kernel(q, k_pages, v_pages, page_table, pos, scale):
+    """K1 on the card. Checks what the kernel takes and raises on
+    anything else; never falls back to the plain version."""
+    _check_kernel_args(q, k_pages, v_pages, page_table, pos)
+    H, N, P, D = k_pages.shape
+    B, PP = page_table.shape
     fn = _build.function("paged_attention.cu", "paged_attention_decode",
                          _K1_ARGTYPES)
     pps = _pages_per_split(P)

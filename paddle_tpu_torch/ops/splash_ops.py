@@ -46,7 +46,8 @@ from .flash_ops import (_BLOCK_MIN, _HEAD_DIMS, _KERNEL_TILE, _NEG_INF,
 __all__ = ["splash_attention", "SplashAttention", "splash_attention_fwd",
            "splash_attention_dq", "splash_attention_dkv", "splash_supported",
            "sdpa_segment_reference", "_splash_fwd_reference",
-           "_splash_dq_reference", "_splash_dkv_reference", "_block_bounds"]
+           "_splash_dq_reference", "_splash_dkv_reference", "_block_bounds",
+           "_subtile_mask"]
 
 
 def _allowed(q_seg, kv_seg, causal):
@@ -107,6 +108,51 @@ def _block_bounds(q_seg, kv_seg, block_q, block_k, causal):
     q_hi = torch.maximum(q_hi, q_lo)
     return tuple(t.to(torch.int32).contiguous()
                  for t in (kv_lo, kv_hi, q_lo, q_hi))
+
+
+_SUB_ROWS, _SUB_COLS = 16, 8   # a warp's rows, an mma n-tile's columns
+
+
+def _subtile_mask(q_seg, kv_seg, causal, transposed=False):
+    """The 16x8 sub-tiles of the scores, in the splash backward kernels'
+    layout, that can hold an allowed pair: the share of the product work
+    a sub-tile skip could keep. The kernels compute every sub-tile of a
+    visited tile: skipping the others inside their unrolled products
+    measured slower on the card (PERF.md §6). chip_smoke.py reports
+    the share; the tests hold the rule.
+
+    Returns bool tensors (visited, live), each [B, S/16, S/8]. For K6
+    (`transposed` False) rows are blocks of 16 queries (a warp's) and
+    columns groups of 8 keys (an mma n-tile); for K7 (`transposed` True)
+    rows are blocks of 16 keys and columns groups of 8 queries.
+    `visited`: the kernel's tile spans (`_block_bounds` at 64) reach the
+    sub-tile. `live`: visited, and the id ranges of its rows and
+    columns overlap (the ids are non-decreasing) and, under causal, its
+    first key is at or before its last query; any other sub-tile holds
+    P = 0 only."""
+    B, S = q_seg.shape
+    dev = q_seg.device
+    rows, cols = (kv_seg, q_seg) if transposed else (q_seg, kv_seg)
+    r = rows.reshape(B, S // _SUB_ROWS, _SUB_ROWS)
+    c = cols.reshape(B, S // _SUB_COLS, _SUB_COLS)
+    live = (r[..., 0, None] <= c[:, None, :, -1]) \
+        & (r[..., -1, None] >= c[:, None, :, 0])
+    if causal:
+        r0 = torch.arange(0, S, _SUB_ROWS, device=dev)[:, None]
+        c0 = torch.arange(0, S, _SUB_COLS, device=dev)[None, :]
+        if transposed:   # rows are keys, columns queries
+            live = live & (r0 <= c0 + _SUB_COLS - 1)
+        else:
+            live = live & (c0 <= r0 + _SUB_ROWS - 1)
+    bounds = _block_bounds(q_seg, kv_seg, _KERNEL_TILE, _KERNEL_TILE, causal)
+    lo, hi = bounds[2:] if transposed else bounds[:2]
+    row_tile = torch.arange(S // _SUB_ROWS, device=dev) \
+        // (_KERNEL_TILE // _SUB_ROWS)
+    col_tile = (torch.arange(S // _SUB_COLS, device=dev)
+                // (_KERNEL_TILE // _SUB_COLS))[None, None, :]
+    visited = (lo[:, row_tile, None] <= col_tile) \
+        & (col_tile < hi[:, row_tile, None])
+    return visited, visited & live
 
 
 # -- plain versions --------------------------------------------------------------
@@ -233,8 +279,8 @@ _ENTRIES = {
 
 def _check_ids(q, q_seg, kv_seg, bounds):
     """What the kernels take beyond flash_ops._check: strict self-attention,
-    int32 [B, S] segment ids and int32 [B, S / 64] tile bounds, contiguous
-    on q's device."""
+    int32 [B, S] segment ids (16-byte aligned) and int32 [B, S / 64] tile
+    bounds, contiguous on q's device."""
     B, H, S, D = q.shape
     want = {"q_seg": (q_seg, (B, S)), "kv_seg": (kv_seg, (B, S)),
             "lo": (bounds[0], (B, S // _KERNEL_TILE)),
@@ -246,6 +292,10 @@ def _check_ids(q, q_seg, kv_seg, bounds):
                 f"splash kernels: {name} must be contiguous int32 {shape} "
                 f"on {q.device}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}")
+    for name, t in (("q_seg", q_seg), ("kv_seg", kv_seg)):
+        if t.data_ptr() % 16:   # K6 and K7 copy ids in 16-byte pieces
+            raise InvalidArgumentError(
+                f"splash kernels: {name} must start on a 16-byte boundary")
 
 
 def _kernel_args(q, k, v, q_seg, kv_seg, causal, bounds, which, **rest):

@@ -286,3 +286,30 @@ def test_backpressure_shutdown_and_health(pair):
     for f in futs:
         with pytest.raises(UnavailableError):
             f.result(timeout=5)
+
+
+def test_head_dim_96_gpt_identical_to_jax_engine():
+    """ROADMAP C7: a GPT with head dim 96 (hidden 768, 8 heads, 2 layers),
+    which the JAX package serves, is served by the port's engine
+    token-identical to the JAX engine and to the port's generate(), on
+    weights carried across by `load_reference_state` (on the card its
+    decode attention is K1, built for D 96)."""
+    paddle.seed(5)
+    kw = dict(hidden_size=768, num_heads=8, intermediate_size=3072,
+              dropout=0.0)
+    ref = JGPT(JConfig.tiny(**kw))
+    ref.eval()
+    port = GPTForCausalLM(GPTConfig.tiny(**kw), device="cpu").eval()
+    load_reference_state(port, {k: np.asarray(v.numpy())
+                                for k, v in ref.state_dict().items()})
+    assert port.gpt.config.hidden_size // port.gpt.config.num_heads == 96
+    ids = _prompts(n=3, seed=4)
+    with jserving.GenerationEngine(ref, **_KW) as jeng:
+        want = [f.result(timeout=120)
+                for f in [jeng.submit(p, max_new_tokens=5) for p in ids]]
+    with _engine(port) as eng:
+        got = [f.result(timeout=120)
+               for f in [eng.submit(p, max_new_tokens=5) for p in ids]]
+    for g, w, p in zip(got, want, ids):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, _generate(port, p, 5))

@@ -1,7 +1,7 @@
 """The port stands alone: no jax, no paddle_tpu, no silent CPU fallback.
 
 - An AST scan: no module under paddle_tpu_torch/ and no line of
-  chip_smoke.py imports jax or paddle_tpu.
+  chip_smoke.py or kernel_ab.py imports jax or paddle_tpu.
 - Importing every module of the package builds no kernel.
 - With no CUDA device, an entry point left on its default device raises.
 - A kernel wrapper handed CPU tensors takes its plain version: its launch
@@ -47,7 +47,7 @@ def _imports(path):
 def _port_files():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
     assert len(files) >= 15
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -26,7 +26,7 @@ def cuda():
 
 @pytest.mark.parametrize("case", ["edges", "long"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 80, 96, 256])
 def test_paged_attention_kernel_matches_plain(cuda, D, dtype, case):
     """K1 (split-K: partials per span of pages, then the merge) against
     the plain version on the same inputs. "edges": lengths at every edge
@@ -34,7 +34,9 @@ def test_paged_attention_kernel_matches_plain(cuda, D, dtype, case):
     table) and a scratch page full of junk the kernel must never read;
     "long": one sequence of 2040 tokens over 255 pages. fp32 atol 2e-5
     (summation order); bf16 against the plain version in fp32 on the same
-    values, rounded to bf16, atol 1e-2 (one rounding of the output)."""
+    values, rounded to bf16, atol 1e-2 (one rounding of the output). D 80
+    and 96 give a row a number of 16-byte chunks that is not a power of
+    two (lanes past it idle); fp32 D 256 gives a lane two chunks."""
     g = torch.Generator(device=cuda).manual_seed(D)
     H, P = 3, 8
     span = paged_ops._pages_per_split(P) * P
@@ -65,6 +67,21 @@ def test_paged_attention_kernel_matches_plain(cuda, D, dtype, case):
     torch.testing.assert_close(out.float(), ref.float(),
                                atol=2e-5 if dtype == torch.float32 else 1e-2,
                                rtol=0)
+
+
+@pytest.mark.parametrize("D", [100, 264])
+def test_paged_attention_kernel_raises_on_unserved_head_dim(cuda, D):
+    """ROADMAP C7's limit: on a CUDA tensor a head dim outside D % 8 == 0,
+    D <= 256 raises; it is never served by the plain version."""
+    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+    q = torch.zeros(1, 2, D, device=cuda)
+    kp = torch.zeros(2, 3, 4, D, device=cuda)
+    pt = torch.ones(1, 2, dtype=torch.int32, device=cuda)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    n0 = paged_ops.paged_attention.launches
+    with pytest.raises(InvalidArgumentError, match=str(D)):
+        paged_ops.paged_attention(q, kp, kp, pt, pos, 0.125)
+    assert paged_ops.paged_attention.launches == n0
 
 
 def _assert_within(got, want, tol):
@@ -170,28 +187,43 @@ def test_c4_gradients_flow_through_the_flash_kernel(cuda):
         torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=0)
 
 
-def _packed_ids(B, S, g, device):
-    """Non-decreasing segment ids [B, S]: random boundaries, off the tile
-    grid, one row a single segment."""
+def _packed_ids(B, S, g, device, layout="packed"):
+    """Non-decreasing segment ids [B, S]. "packed": random boundaries, off
+    the tile grid, one row a single segment. "boundaries": segments of
+    1-15 tokens, so a boundary falls inside most 16x8 sub-tiles. "one":
+    one segment across every row, so K6 and K7 skip no sub-tile but those
+    above the diagonal."""
     seg = torch.zeros(B, S, dtype=torch.int32)
-    for b in range(1, B):
-        cuts = torch.randint(1, S, (3 * b,), generator=g)
-        for c in cuts.tolist():
-            seg[b, c:] += 1
+    if layout == "packed":
+        for b in range(1, B):
+            cuts = torch.randint(1, S, (3 * b,), generator=g)
+            for c in cuts.tolist():
+                seg[b, c:] += 1
+    elif layout == "boundaries":
+        for b in range(B):
+            lens = torch.randint(1, 16, (S,), generator=g)
+            seg[b] = torch.repeat_interleave(
+                torch.arange(S, dtype=torch.int32), lens)[:S]
     return seg.to(device)
 
 
+@pytest.mark.parametrize("layout", ["packed", "boundaries", "one"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [0.0, 0.2])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("D", [32, 64, 128])
-def test_splash_kernels_match_plain(cuda, p, causal, D):
+def test_splash_kernels_match_plain(cuda, p, causal, D, dtype, layout):
     """K5, K6 and K7 against their plain versions on the same inputs,
-    segment ids and seed, fp32, atol 1e-4; one launch each."""
+    segment ids and seed, one launch each. fp32 atol 1e-4 (K6 and K7
+    multiply as 3xTF32, fp32-accurate, in another order); bf16 1e-2 x
+    max(1, max |ref|) (one bf16 rounding of dS and Pd, as the TPU kernel
+    casts them, and of the output). The backward pair is fed the plain
+    forward's O and LSE."""
     from paddle_tpu_torch.ops import splash_ops
     g = torch.Generator().manual_seed(D + causal)
-    q, k, v, do = (torch.randn(3, 2, 256, D, generator=g).to(cuda)
+    q, k, v, do = (torch.randn(3, 2, 256, D, generator=g).to(cuda, dtype)
                    for _ in range(4))
-    seg = _packed_ids(3, 256, g, cuda)
+    seg = _packed_ids(3, 256, g, cuda, layout)
     n = [w.launches for w in (splash_ops.splash_attention_fwd,
                               splash_ops.splash_attention_dq,
                               splash_ops.splash_attention_dkv)]
@@ -199,16 +231,22 @@ def test_splash_kernels_match_plain(cuda, p, causal, D):
                                                0.2, p, 11)
     ref, ref_lse = splash_ops._splash_fwd_reference(q, k, v, seg, seg,
                                                     causal, 0.2, p, 11)
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    def close(a, b):
+        assert a.dtype == dtype and a.shape == b.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+        else:
+            _assert_within(a, b, 1e-2)
+    close(out, ref)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
     delta = flash_ops._delta(ref, do)
     args = (q, k, v, seg, seg, do, ref_lse, delta, causal, 0.2, p, 11)
-    torch.testing.assert_close(splash_ops.splash_attention_dq(*args),
-                               splash_ops._splash_dq_reference(*args),
-                               atol=1e-4, rtol=0)
-    for got, want in zip(splash_ops.splash_attention_dkv(*args),
-                         splash_ops._splash_dkv_reference(*args)):
-        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    got = [splash_ops.splash_attention_dq(*args),
+           *splash_ops.splash_attention_dkv(*args)]
+    want = [splash_ops._splash_dq_reference(*args),
+            *splash_ops._splash_dkv_reference(*args)]
+    for a, b in zip(got, want):
+        close(a, b)
     assert [w.launches for w in (splash_ops.splash_attention_fwd,
                                  splash_ops.splash_attention_dq,
                                  splash_ops.splash_attention_dkv)] == \

@@ -181,3 +181,24 @@ def test_split_merge_matches_plain(P, PP):
     want = tpo.paged_attention_plain(q, kp, vp, pt, pos, scale)
     assert torch.isfinite(got).all() and got.abs().max() < 10
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [80, 96, 256, 100, 264])
+def test_kernel_argument_check_head_dims(D, dtype):
+    """ROADMAP C7: K1's argument check (which builds and launches nothing)
+    takes every head dim with D % 8 == 0 and D <= 256, in both types, and
+    raises InvalidArgumentError naming D and the accepted set for any
+    other, such as D 100 or 264."""
+    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+    B, H, N, P, PP = 2, 3, 5, 4, 2
+    q = torch.zeros(B, H, D, dtype=dtype)
+    kp = torch.zeros(H, N, P, D, dtype=dtype)
+    pt = torch.ones(B, PP, dtype=torch.int32)
+    pos = torch.zeros(B, dtype=torch.int32)
+    if D % 8 == 0 and D <= 256:
+        tpo._check_kernel_args(q, kp, kp, pt, pos)
+    else:
+        with pytest.raises(InvalidArgumentError,
+                           match=f"head_dim {D} .*D % 8 == 0 and D <= 256"):
+            tpo._check_kernel_args(q, kp, kp, pt, pos)

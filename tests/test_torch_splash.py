@@ -335,3 +335,187 @@ def test_non_monotonic_segment_ids_rejected(as_tensor):
     q = torch.zeros(1, 1, 128, 32)
     with pytest.raises(ValueError, match="NON-DECREASING"):
         tso.splash_attention(q, q, q, seg_bad, seg_bad)
+
+
+# -- the 16x8 sub-tile rule in the layout of K6 and K7 -------------------------
+
+def _pairs(mask, transposed):
+    """A [B, S/16, S/8] sub-tile mask as a [B, 1, Sq, Sk] pair mask."""
+    m = mask.repeat_interleave(16, 1).repeat_interleave(8, 2)
+    return (m.transpose(1, 2) if transposed else m)[:, None]
+
+
+def _random_layouts(seed, B=4, S=512):
+    """Non-decreasing ids: segments of 1-15 tokens (a boundary in most
+    16x8 sub-tiles), of 1-200 tokens, one segment, and a row whose kv
+    ids skip some of the query ids."""
+    rng = np.random.RandomState(seed)
+    rows = []
+    for hi in (16, 201):
+        lens = rng.randint(1, hi, size=S)
+        rows.append(np.repeat(np.arange(S), lens)[:S])
+    rows.append(np.zeros(S, np.int64))
+    rows.append(np.sort(rng.randint(0, 9, size=S)))
+    return torch.from_numpy(np.stack(rows[:B]).astype(np.int32))
+
+
+def _bench_first_pack():
+    """The ids of the packing bench's first pack: the first 64 of its
+    clipped-lognormal lengths (bench.py:2351-2353, seed 7, T 1024) packed
+    first-fit into `suggest_rows` rows (headroom 1.15)."""
+    from paddle_tpu_torch import io
+    T = 1024
+    rng = np.random.RandomState(7)
+    lengths = np.clip(np.round(np.exp(rng.normal(
+        np.log(T / 6.0), 0.9, 2048))).astype(int), 4, T)
+    rows = io.suggest_rows(lengths, 64, T, headroom=1.15)
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # a sequence may not fit
+        pack = io.PackingCollator(T, rows)(
+            [np.zeros(L, np.int64) for L in lengths[:64]])
+    return torch.from_numpy(pack[1])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("ids", ["random", "bench_pack"])
+def test_subtiles_cover_every_allowed_pair(ids, causal):
+    """Every allowed (q, k) pair lies in a live 16x8 sub-tile of K6's
+    layout and of K7's (`_subtile_mask`), and the rule finds work to skip:
+    on the bench's first pack fewer sub-tiles are live than the kernels'
+    tiles hold."""
+    seg = _random_layouts(3) if ids == "random" else _bench_first_pack()
+    allowed = tso._allowed(seg, seg, causal)
+    for transposed in (False, True):
+        visited, live = tso._subtile_mask(seg, seg, causal, transposed)
+        assert not (allowed & ~_pairs(live, transposed)).any()
+        assert (live <= visited).all()
+        if ids == "bench_pack":
+            share = int(live.sum()) / int(visited.sum())
+            assert 0.0 < share < 1.0, share
+
+
+def _tiled_grads(q, k, v, seg, do, lse, delta, causal, scale, p, seed,
+                 tile):
+    """dQ, dK and dV in K6's and K7's loops, written out in torch, with the
+    16x8 sub-tile skip: the kernels' tile loops over `_block_bounds`'
+    spans (64-row units, walked in tiles of `tile` keys or queries), P
+    computed (with the per-element segment test) only on the sub-tiles
+    `_subtile_mask` marks live and 0 elsewhere, dS and Pd rounded to q's
+    type before the second products as the kernels round them in bf16."""
+    B, H, S, D = q.shape
+    f32 = [t.float() for t in (q, k, v, do)]
+    qf, kf, vf, dof = f32
+    allowed = tso._allowed(seg, seg, causal)
+    keep = (tfo._keep_mask(seed, B, H, S, S, p, "cpu") if p > 0
+            else torch.ones(B, H, S, S, dtype=torch.bool))
+    lse = lse.reshape(B, H, S, 1)
+    delta = delta.reshape(B, H, S, 1)
+    kv_lo, kv_hi, q_lo, q_hi = tso._block_bounds(seg, seg, 64, 64, causal)
+
+    def terms(transposed, rows, cols):
+        _, live = tso._subtile_mask(seg, seg, causal, transposed)
+        ok = _pairs(live, transposed) & allowed
+        s = qf[:, :, rows] @ kf[:, :, cols].transpose(-1, -2) * scale
+        pr = torch.where(ok[:, :, rows, cols], torch.exp(s - lse[:, :, rows]),
+                         0.0)
+        dp = dof[:, :, rows] @ vf[:, :, cols].transpose(-1, -2)
+        kp = keep[:, :, rows, cols]
+        dp = torch.where(kp, dp / (1.0 - p), 0.0)
+        pd = torch.where(kp, pr / (1.0 - p), 0.0)
+        ds = pr * (dp - delta[:, :, rows])
+        return ds.to(q.dtype).float(), pd.to(q.dtype).float()
+
+    dq = torch.zeros(B, H, S, D)
+    dk = torch.zeros(B, H, S, D)
+    dv = torch.zeros(B, H, S, D)
+    per = 64 // tile
+    for b in range(B):
+        for i in range(S // 64):                 # K6: a query tile
+            rows = slice(64 * i, 64 * i + 64)
+            for t in range(int(kv_lo[b, i]) * per, int(kv_hi[b, i]) * per):
+                cols = slice(tile * t, tile * t + tile)
+                ds, _ = terms(False, rows, cols)
+                dq[b, :, rows] += ds[b] @ kf[b, :, cols]
+        for j in range(S // 64):                 # K7: a key tile
+            cols = slice(64 * j, 64 * j + 64)
+            for t in range(int(q_lo[b, j]) * per, int(q_hi[b, j]) * per):
+                rows = slice(tile * t, tile * t + tile)
+                ds, pd = terms(True, rows, cols)
+                dk[b, :, cols] += ds[b].transpose(-1, -2) @ qf[b, :, rows]
+                dv[b, :, cols] += pd[b].transpose(-1, -2) @ dof[b, :, rows]
+    return [(g * m).to(q.dtype) for g, m in ((dq, scale), (dk, scale),
+                                             (dv, 1.0))]
+
+
+_JAX_VJP = {}
+
+
+def _jax_vjp(q, k, v, do, seg, causal, scale):
+    """The JAX package's splash_attention_raw VJP (Pallas kernels in
+    interpret mode), once per causal setting."""
+    if causal not in _JAX_VJP:
+        def jf(q_, k_, v_):
+            return jso.splash_attention_raw(
+                q_, k_, v_, jnp.asarray(seg), jnp.asarray(seg),
+                jnp.zeros((), jnp.int32), causal, scale, 0.0)
+        _, vjp = jax.vjp(jf, *(jnp.asarray(a) for a in (q, k, v)))
+        _JAX_VJP[causal] = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    return _JAX_VJP[causal]
+
+
+@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("p", [0.0, 0.2])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_subtile_grads_match_reference(dtype, causal, p, tile):
+    """Skipping the sub-tiles that are not live keeps the function: dQ/dK/dV
+    that compute only the live ones (`_tiled_grads`) equal the plain
+    `_splash_dq_reference` / `_splash_dkv_reference` on the same inputs,
+    ids and keep mask (fp32 atol 1e-5, summation order; bf16 1e-2 x
+    max(1, max |ref|), one rounding of dS and Pd), and, in fp32 at p 0,
+    the JAX package's splash_attention VJP (GRAD_TOL, as above). Ids:
+    SEG_LAYOUTS' rows plus a boundary-heavy row."""
+    B, H, S, D = 3, 2, 256, 32
+    q, k, v, do = _arrays((B, H, S, D), 40 + causal, 4)
+    seg_np = np.stack([_segments(S, b) for b in SEG_LAYOUTS[0]]
+                      + [np.repeat(np.arange(S), np.random.RandomState(
+                          9).randint(1, 16, size=S))[:S]]).astype(np.int32)
+    seg = torch.from_numpy(seg_np)
+    tq, tk, tv, tdo = (t.to(dtype) for t in _t(q, k, v, do))
+    scale, seed = 1.0 / D ** 0.5, 23
+    out, lse = tso._splash_fwd_reference(tq, tk, tv, seg, seg, causal, scale,
+                                         p, seed)
+    delta = tfo._delta(out, tdo)
+    args = (tq, tk, tv, seg, seg, tdo, lse, delta, causal, scale, p, seed)
+    want = [tso._splash_dq_reference(*args),
+            *tso._splash_dkv_reference(*args)]
+    got = _tiled_grads(tq, tk, tv, seg, tdo, lse, delta, causal, scale, p,
+                       seed, tile)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dtype
+        top = max(1.0, b.float().abs().max().item())
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * top, f"d{name}: {err:.3e} > {tol} x {top:.3e}"
+    if dtype == torch.float32 and p == 0.0:
+        for name, a, b in zip("qkv", got, _jax_vjp(q, k, v, do, seg_np,
+                                                     causal, scale)):
+            np.testing.assert_allclose(a.numpy(), b, rtol=GRAD_TOL,
+                                       atol=GRAD_TOL, err_msg=f"d{name}")
+
+
+def test_kernel_ids_must_be_16_byte_aligned():
+    """K6 and K7 copy segment ids in 16-byte pieces: the launch check
+    refuses ids that do not start on a 16-byte boundary (a view into a
+    larger buffer), and takes ids that do."""
+    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+    B, H, S = 2, 1, 128
+    q = torch.zeros(B, H, S, 32)
+    bounds = (torch.zeros(B, S // 64, dtype=torch.int32),) * 2
+    seg = torch.zeros(B, S, dtype=torch.int32)
+    tso._check_ids(q, seg, seg, bounds)
+    shifted = torch.zeros(B * S + 1, dtype=torch.int32)[1:].view(B, S)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(InvalidArgumentError, match="16-byte"):
+        tso._check_ids(q, shifted, seg, bounds)
