@@ -13,8 +13,9 @@ Phases:
               the card at the main paths' shapes (max abs error, kernel
               ms, plain ms, the least time the card could take, and one
               PyTorch library call where one computes the same function;
-              CUDA-event time per call, and for K1, K2 and K2's library
-              call the device time per call beside it, see _time_ms):
+              CUDA-event time per call, and for K1, K2, K2's library
+              call and K5 the device time per call beside it, see
+              _time_ms):
               K1 paged decode (phase 3's 8 slots of random lengths, the
               decode profile's 8 x 230 tokens, 2 x 1024 tokens, and phase
               3's slots at head dims 80, 96 and 256; fp32 and bf16; the
@@ -55,10 +56,12 @@ forward, K6 splash dQ and K7 splash dK/dV at GPT-2 small's attention
 width (B 8, H 12, S 1024, D 64) and at the packing phase's shape, with
 segment ids from io.PackingCollator over the bench's lengths (causal, p
 0 and 0.1, fp32 and bf16, and a non-causal case whose absent segment
-gives exact zero rows), with the share of the 16x8 sub-tiles of K6's and
-K7's tiles that can hold an allowed pair and, where the library call
-runs, K6 + K7 against the library's whole backward; SplashAttention's
-gradients against autograd through the plain forward.
+gives exact zero rows; the packing phase's shape in fp32 and bf16), with
+the share of K5's (warp band, key tile) pairs that take its mask-free
+path, the share of the 16x8 sub-tiles of K6's and K7's tiles that can
+hold an allowed pair and, where the library call runs, K5 against the
+library's forward and K6 + K7 against its whole backward;
+SplashAttention's gradients against autograd through the plain forward.
 --profile's profiler sessions come after serving, so that run's train
 and packing walls carry them.
 Then one JSON line describing the kernels, and as the last line
@@ -719,7 +722,8 @@ class Smoke:
         tolerances): at GPT-2 small's attention width, causal, fp32 and
         bf16, p 0 and 0.1, plus a non-causal fp32 case whose kv lacks one
         query segment (those rows must be exactly 0); and at the packing
-        phase's shape, fp32 causal p 0, which is the kernels line's row.
+        phase's shape, causal p 0, bf16 and fp32 (the kernels line's
+        row).
         The bound counts the allowed (query, key) pairs of these ids; the
         library call is SDPA with the boolean segment-within-causal mask
         (no row of these packs is fully masked, so it computes the same
@@ -740,9 +744,10 @@ class Smoke:
         ph = PACK["HEADS"]
         cases = [("gpt2", dt, True, p, ids, ids)
                  for dt in ("float32", "bfloat16") for p in (0.0, DROPOUT)]
-        cases += [("gpt2", "float32", False, 0.0, ids, absent),
-                  ("packed_lm", "float32", True, 0.0,
-                   self.splash_ids(prow, PACK["BS"]), None)]
+        packs = self.splash_ids(prow, PACK["BS"])
+        cases += [("gpt2", "float32", False, 0.0, ids, absent)]
+        cases += [("packed_lm", dt, True, 0.0, packs, None)
+                  for dt in ("bfloat16", "float32")]
         rows = {"fwd": [], "dq": [], "dkv": []}
         for shape, name, causal, p, qs, ks in cases:
             ks = qs if ks is None else ks
@@ -765,6 +770,11 @@ class Smoke:
             tag = dict(shape=f"{Bc}x{Hc}x{S}x{D}", causal=causal, p=p,
                        absent=ks is not qs, tiles_visited=tiles,
                        pair_share=pairs / full)
+            # K5's (warp band, key tile) pairs that take the mask-free path
+            # (`_uniform_tiles`), of those its spans visit
+            vis, uni = so._uniform_tiles(qs, ks, causal,
+                                         32 if D == 128 else 64)
+            k5_uniform = int(uni.sum()) / int(vis.sum())
             # the 16x8 sub-tiles of K6's and K7's visited tiles that can
             # hold an allowed pair (`_subtile_mask`): what a sub-tile skip
             # could keep of their product work
@@ -776,12 +786,13 @@ class Smoke:
             bh_sd = Bc * Hc * S * D * q.element_size()
             row_b = Bc * Hc * S * 4
             ids_b = 2 * Bc * S * 4 + 2 * Bc * nt * 4
-            lib_fwd = lib_bwd = None
+            lib_fwd = lib_bwd = lib_fwd_dev = None
             if p == 0.0:
                 mask = allowed.expand(Bc, 1, S, S)
                 ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-                lib_fwd = _time_ms(torch, lambda: TF.scaled_dot_product_attention(
-                    ql, kl, vl, attn_mask=mask), 10)
+                lib_fwd_dev, lib_fwd = self.time_ms(
+                    lambda: TF.scaled_dot_product_attention(
+                        ql, kl, vl, attn_mask=mask), 10)
                 ol = TF.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
                 lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(
                     ol, (ql, kl, vl), do, retain_graph=True), 10)
@@ -797,12 +808,17 @@ class Smoke:
                 gone = (qs[0] == 2)
                 assert bool(gone.any()) and \
                     (out[0][:, gone] == 0).all(), "K5 absent rows not 0"
+            # event time is the row's ms (as in earlier runs); device time
+            # beside it, the wrapper's host time left out
+            k5_dev, k5_ev = self.time_ms(lambda: so.splash_attention_fwd(
+                *fargs, bounds=(kv_lo, kv_hi)), 10)
             rows["fwd"].append(self._row(
                 "K5 splash_fwd", name, err, ref.float().abs().max().item(),
-                tol, _time_ms(torch, lambda: so.splash_attention_fwd(
-                    *fargs, bounds=(kv_lo, kv_hi)), 10),
+                tol, k5_ev,
                 _time_ms(torch, lambda: so._splash_fwd_reference(*fargs), 3),
-                4 * pairs * D, 4 * bh_sd + row_b + ids_b, lib_fwd, **tag))
+                4 * pairs * D, 4 * bh_sd + row_b + ids_b, lib_fwd,
+                device_ms=k5_dev, library_device_ms=lib_fwd_dev,
+                uniform_tiles=k5_uniform, **tag))
             del out, lse
             delta = fo._delta(ref, do)
             bargs = (q, k, v, qs, ks, do, ref_lse, delta, causal, scale, p,
@@ -845,13 +861,18 @@ class Smoke:
                       f"{pair_ms:.4f} ms = {pair_ms / lib_bwd:.3f} x the "
                       f"library's whole backward ({lib_bwd:.4f} ms); K5 "
                       f"{rows['fwd'][-1]['ms'] / lib_fwd:.3f} x its forward "
-                      f"({lib_fwd:.4f} ms)")
+                      f"({lib_fwd:.4f} ms), device time "
+                      f"{k5_dev / lib_fwd_dev:.3f} x ({lib_fwd_dev:.4f} ms)")
             del dk, dv, dk_ref, dv_ref, ref, ref_lse, delta, allowed
             torch.cuda.empty_cache()
         self.details["splash_kernels"] = rows
+        pack_shape = f"{packs.shape[0]}x{ph}x{S}x{D}"
         for key, name in (("fwd", "splash_fwd"), ("dq", "splash_bwd_dq"),
                           ("dkv", "splash_bwd_dkv")):
-            self.kernel_rows[name] = rows[key][-1]   # the packing phase's
+            # the packing phase's case: fp32 at the pack shape
+            self.kernel_rows[name] = next(
+                r for r in rows[key] if r["shape"] == pack_shape
+                and r["dtype"] == "float32")
 
         # SplashAttention (K5, then K6 + K7) against autograd through the
         # plain forward with the same keep mask: fp32, [2, 12, 1024, 64],

@@ -1,20 +1,35 @@
 #!/usr/bin/env python3
-"""A/B variants of the splash backward kernels (K6, K7) on one GPU.
+"""A/B variants of the splash kernels (K5, K6, K7) on one GPU.
 
     python3 kernel_ab.py shipped subtile_skip warp_skip shipped subtile_skip warp_skip
+    python3 kernel_ab.py shipped k5_always_test k5_index_order shipped k5_always_test k5_index_order
+    python3 kernel_ab.py shipped k5_no_floor k5_two_blocks shipped k5_no_floor k5_two_blocks
 
 Each argument names a variant: `shipped` is paddle_tpu_torch/csrc as it
 stands; the others are textual edits of it (VARIANTS below), copied into
 build/ab/<name>/ and built there. For each argument in turn (repeat names
-to alternate them), K6 and K7 are held to their plain versions and timed
-(CUDA events, mean of 20 calls) beside K3 and K4 at the same width, in
-fp32 and bf16, causal, on three id layouts: one segment a row (the flash
-kernels' work), packs of the packing bench's lengths at GPT-2 small's
-attention width [8, 12, 1024, 64], and the packing phase's
-[17, 4, 1024, 64]. Exits 1 if a variant disagrees with the plain version
-(fp32 atol 1e-4, bf16 1e-2 x max(1, max |ref|)).
+to alternate them), K5, K6 and K7 are held to their plain versions and
+timed (mean of 20 calls; K6, K7, K3 and K4 by CUDA events around each
+call, K5 and K2 by device time, `chip_smoke._time_ms(device=True)`, as
+their calls are short enough for the wrapper's host time to show in
+event time) beside K2, K3 and K4 at the same
+width, in fp32 and bf16, causal, on three id layouts: one segment a row
+(the flash kernels' work), packs of the packing bench's lengths at GPT-2
+small's attention width [8, 12, 1024, 64], and the packing phase's
+[17, 4, 1024, 64]. Each variant's build prints ptxas' registers and
+spills for the sources the requested variants edit. Exits 1 if a variant
+disagrees with the plain version (fp32 1e-4, bf16 1e-2, x max(1, max
+|ref|)).
 
 Variants:
+- k5_always_test: K5 runs its per-element segment test on every tile,
+  without the mask-free path for one-segment (warp band, key tile) pairs.
+- k5_index_order: K5's blocks take the query tiles in index order instead
+  of last first.
+- k5_no_floor: K5 with no blocks-an-SM floor in its launch bounds.
+- k5_two_blocks: K5 with a floor of 2 blocks an SM for every
+  instantiation (the shipped floor is 3 where a Q row is 128 bytes or
+  less).
 - subtile_skip: K6 and K7 test each 16x8 sub-tile (a warp's 16 rows, one
   n8 group of columns) for an allowed pair, as `splash_ops._subtile_mask`
   does, and skip the products of those without one: the B fragment and
@@ -36,6 +51,7 @@ REPO = Path(__file__).resolve().parent
 # (file, anchor, replacement): each anchor must occur exactly once
 _MMA = "flash_mma.cuh"
 _DQ = "splash_bwd_dq.cu"
+_FWD = "splash_fwd.cu"
 _DKV = "splash_bwd_dkv.cu"
 _DQ_IDS = ("  float acc[D / 8][4];\n",
            "  const int wq0 = q0 + 16 * warp, wq1 = wq0 + 15;\n"
@@ -48,6 +64,22 @@ _DKV_IDS = ("    const int q0 = qt * BQ;\n",
             " ks_last = ks_s[16 * warp + 15];\n")
 VARIANTS = {
     "shipped": [],
+    "k5_always_test": [
+        (_FWD, "    const bool one_seg = ",
+         "    const bool one_seg = false && "),
+    ],
+    "k5_index_order": [
+        (_FWD, "  const int qi = gridDim.y - 1 - blockIdx.y;",
+         "  const int qi = blockIdx.y;"),
+    ],
+    "k5_no_floor": [
+        (_FWD, "__launch_bounds__(kThreads, (kMinBlocks<T, D>))",
+         "__launch_bounds__(kThreads)"),
+    ],
+    "k5_two_blocks": [
+        (_FWD, "__launch_bounds__(kThreads, (kMinBlocks<T, D>))",
+         "__launch_bounds__(kThreads, 2)"),
+    ],
     "subtile_skip": [
         (_MMA, "                                             int rb, int kk, int lane) {",
          "                                             int rb, int kk, int lane,\n"
@@ -159,15 +191,22 @@ def main(argv):
                ("packed LM", sm.splash_ids(
                    17, chip_smoke.PACK["BS"]), chip_smoke.PACK["HEADS"])]
     shipped = _build.CSRC
+    edited = sorted({src for n in names for src, *_ in VARIANTS[n]
+                     if src.endswith(".cu")})
     bad = 0
     for name in names:
         _build.CSRC = _variant_dir(shipped, name)
         _build._libs.clear()
         _build._funcs.clear()
         t0 = time.perf_counter()
-        _build.build(["splash_bwd_dq.cu", "splash_bwd_dkv.cu",
-                      "flash_bwd_dq.cu", "flash_bwd_dkv.cu"])
+        _build.build(["splash_fwd.cu", "splash_bwd_dq.cu",
+                      "splash_bwd_dkv.cu", "flash_fwd.cu", "flash_bwd_dq.cu",
+                      "flash_bwd_dkv.cu"])
         print(f"== {name} (built in {time.perf_counter() - t0:.1f} s)")
+        for src in edited:
+            print(f"  ptxas {src}: " + "; ".join(
+                f"{k} {r} registers, spill {s[0]}/{s[1]}" for k, r, s in
+                chip_smoke._ptxas_kernels(_build.ptxas_log(src))))
         for dtype in (torch.float32, torch.bfloat16):
             tol = 1e-4 if dtype == torch.float32 else 1e-2
             for label, seg, H in layouts:
@@ -182,28 +221,36 @@ def main(argv):
                 delta = fo._delta(ref, do)
                 args = (q, k, v, seg, seg, do, lse, delta, True, sc)
                 bounds = so._block_bounds(seg, seg, 64, 64, True)
-                got = [so.splash_attention_dq(*args, bounds=bounds[:2]),
+                fwd = (q, k, v, seg, seg, True, sc)
+                got = [*so.splash_attention_fwd(*fwd, bounds=bounds[:2]),
+                       so.splash_attention_dq(*args, bounds=bounds[:2]),
                        *so.splash_attention_dkv(*args, bounds=bounds[2:])]
-                want = [so._splash_dq_reference(*args),
+                want = [ref, lse, so._splash_dq_reference(*args),
                         *so._splash_dkv_reference(*args)]
                 err = max((a.float() - b.float()).abs().max().item()
                           / max(1.0, b.float().abs().max().item())
                           for a, b in zip(got, want))
                 bad += err > tol
+                t5 = chip_smoke._time_ms(torch, lambda: so.splash_attention_fwd(
+                    *fwd, bounds=bounds[:2]), 20, device=True)
                 t6 = chip_smoke._time_ms(torch, lambda: so.splash_attention_dq(
                     *args, bounds=bounds[:2]), 20)
                 t7 = chip_smoke._time_ms(torch, lambda: so.splash_attention_dkv(
                     *args, bounds=bounds[2:]), 20)
                 line = (f"  {name} {str(dtype)[6:]} {label} [{B},{H},{S},{D}]"
-                        f": K6 {t6:.4f} ms K7 {t7:.4f} ms (err {err:.2e}"
+                        f": K5 {t5:.4f} ms K6 {t6:.4f} ms K7 {t7:.4f} ms"
+                        f" (err {err:.2e}"
                         f" x max(1, max |ref|), tol {tol})")
                 if label == "one segment":   # the flash kernels' work
                     fa = (q, k, v, None, do, lse, delta, True, sc)
+                    t2 = chip_smoke._time_ms(
+                        torch, lambda: fo.flash_attention_fwd(
+                            q, k, v, None, True, sc), 20, device=True)
                     t3 = chip_smoke._time_ms(
                         torch, lambda: fo.flash_attention_dq(*fa), 20)
                     t4 = chip_smoke._time_ms(
                         torch, lambda: fo.flash_attention_dkv(*fa), 20)
-                    line += f"; K3 {t3:.4f} K4 {t4:.4f} ms"
+                    line += f"; K2 {t2:.4f} K3 {t3:.4f} K4 {t4:.4f} ms"
                 print(line, flush=True)
     _build.CSRC = shipped
     return 1 if bad else 0

@@ -1,8 +1,7 @@
 // Pieces shared by the flash-attention kernels (flash_fwd.cu K2,
 // flash_bwd_dq.cu K3, flash_bwd_dkv.cu K4) and the splash kernels (K5-K7):
-// the dropout keep mask, and the splash forward's tiles (kBQ, kBK,
-// kThreads, load_tile; K2-K4, K6 and K7 keep their own tiles in
-// flash_mma.cuh's layout).
+// the masked-score value and the dropout keep mask. Their tiles live in
+// flash_mma.cuh.
 //
 // The dropout keep mask is keyed on ABSOLUTE coordinates, not on tiles:
 //
@@ -25,20 +24,7 @@
 
 namespace flash {
 
-constexpr int kBQ = 64;        // query tile
-constexpr int kBK = 64;        // key tile
-constexpr int kThreads = 256;  // 16 x 16 threads, a 4 x 4 register tile each
-                               // (K5)
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -58,16 +44,6 @@ __device__ __forceinline__ uint32_t drop_row(uint32_t seed, uint32_t bh,
 __device__ __forceinline__ bool drop_keep(uint32_t row, uint32_t j,
                                           uint32_t thresh) {
   return fmix32(row ^ (j * 0xC2B2AE3Du)) >= thresh;
-}
-
-// Widen a [rows, D] tile of T from global memory into a float tile in
-// shared memory with row stride D + 1 (the padding keeps column reads
-// free of bank conflicts).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int rows,
-                                          int tid) {
-  for (int idx = tid; idx < rows * D; idx += kThreads)
-    dst[(idx / D) * (D + 1) + idx % D] = to_f(src[idx]);
 }
 
 }  // namespace flash

@@ -1,6 +1,6 @@
 // Pieces shared by the splash-attention kernels (splash_fwd.cu K5,
-// splash_bwd_dq.cu K6, splash_bwd_dkv.cu K7), on top of the flash kernels'
-// tiles, loads and dropout hash (flash_common.cuh).
+// splash_bwd_dq.cu K6, splash_bwd_dkv.cu K7), on top of the dropout hash
+// of flash_common.cuh; their tiles and loads are flash_mma.cuh's.
 //
 // Segment ids are int32 [B, S], non-decreasing along each row (the packing
 // layout). The tile bounds are int32 [B, S / 64], computed by the wrapper

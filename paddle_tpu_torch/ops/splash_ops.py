@@ -47,7 +47,7 @@ __all__ = ["splash_attention", "SplashAttention", "splash_attention_fwd",
            "splash_attention_dq", "splash_attention_dkv", "splash_supported",
            "sdpa_segment_reference", "_splash_fwd_reference",
            "_splash_dq_reference", "_splash_dkv_reference", "_block_bounds",
-           "_subtile_mask"]
+           "_subtile_mask", "_uniform_tiles"]
 
 
 def _allowed(q_seg, kv_seg, causal):
@@ -113,6 +113,18 @@ def _block_bounds(q_seg, kv_seg, block_q, block_k, causal):
 _SUB_ROWS, _SUB_COLS = 16, 8   # a warp's rows, an mma n-tile's columns
 
 
+def _visited(lo, hi, S, cols):
+    """bool [B, S/16, S/cols]: the block of 16 rows and `cols` columns
+    lies in the span [lo, hi) (`_block_bounds` at 64) of its rows' 64-row
+    tile."""
+    dev = lo.device
+    row_tile = torch.arange(S // _SUB_ROWS, device=dev) \
+        // (_KERNEL_TILE // _SUB_ROWS)
+    unit = (torch.arange(S // cols, device=dev) * cols
+            // _KERNEL_TILE)[None, None, :]
+    return (lo[:, row_tile, None] <= unit) & (unit < hi[:, row_tile, None])
+
+
 def _subtile_mask(q_seg, kv_seg, causal, transposed=False):
     """The 16x8 sub-tiles of the scores, in the splash backward kernels'
     layout, that can hold an allowed pair: the share of the product work
@@ -146,13 +158,39 @@ def _subtile_mask(q_seg, kv_seg, causal, transposed=False):
             live = live & (c0 <= r0 + _SUB_ROWS - 1)
     bounds = _block_bounds(q_seg, kv_seg, _KERNEL_TILE, _KERNEL_TILE, causal)
     lo, hi = bounds[2:] if transposed else bounds[:2]
-    row_tile = torch.arange(S // _SUB_ROWS, device=dev) \
-        // (_KERNEL_TILE // _SUB_ROWS)
-    col_tile = (torch.arange(S // _SUB_COLS, device=dev)
-                // (_KERNEL_TILE // _SUB_COLS))[None, None, :]
-    visited = (lo[:, row_tile, None] <= col_tile) \
-        & (col_tile < hi[:, row_tile, None])
+    visited = _visited(lo, hi, S, _SUB_COLS)
     return visited, visited & live
+
+
+def _uniform_tiles(q_seg, kv_seg, causal, key_tile):
+    """The (16-row warp band, key tile) pairs of K5's loop that take its
+    mask-free path: the softmax step with no per-element segment test.
+
+    Returns bool tensors (visited, uniform), each [B, S/16, S/key_tile]:
+    rows are a warp's 16 queries, columns K5's key tiles of `key_tile`
+    keys (64, or 32 at head dim 128). `visited`: the tile lies in the
+    span (`_block_bounds` at 64) of the band's 64-query tile. `uniform`:
+    visited, and the band's first and last query ids and the tile's first
+    and last key ids are one value (the ids are non-decreasing, so the
+    band and the tile then lie in one segment) and, under causal, the
+    tile's last key is at or before the band's first query: every pair
+    of the two is allowed."""
+    B, S = q_seg.shape
+    dev = q_seg.device
+    band = q_seg.reshape(B, S // _SUB_ROWS, _SUB_ROWS)
+    tile = kv_seg.reshape(B, S // key_tile, key_tile)
+    q_one = band[..., 0] == band[..., -1]
+    k_one = tile[..., 0] == tile[..., -1]
+    uniform = (q_one[..., None] & k_one[:, None, :]
+               & (band[..., 0, None] == tile[:, None, :, 0]))
+    if causal:
+        r0 = torch.arange(0, S, _SUB_ROWS, device=dev)[:, None]
+        c_last = torch.arange(key_tile - 1, S, key_tile, device=dev)[None, :]
+        uniform = uniform & (c_last <= r0)
+    lo, hi = _block_bounds(q_seg, kv_seg, _KERNEL_TILE, _KERNEL_TILE,
+                           causal)[:2]
+    visited = _visited(lo, hi, S, key_tile)
+    return visited, visited & uniform
 
 
 # -- plain versions --------------------------------------------------------------
@@ -293,7 +331,7 @@ def _check_ids(q, q_seg, kv_seg, bounds):
                 f"on {q.device}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}")
     for name, t in (("q_seg", q_seg), ("kv_seg", kv_seg)):
-        if t.data_ptr() % 16:   # K6 and K7 copy ids in 16-byte pieces
+        if t.data_ptr() % 16:   # K5-K7 copy ids in 16-byte pieces
             raise InvalidArgumentError(
                 f"splash kernels: {name} must start on a 16-byte boundary")
 

@@ -17,6 +17,11 @@
 - The dispatch: `splash_supported`, STAT_splash_dispatches, the dense
   fallback, the attn_mask exclusivity, the non-monotonic raise, and the
   reference's positional contract (`name` 8th, `segment_ids` 9th).
+- K5's tiling: the (warp band, key tile) pairs `_uniform_tiles` sends
+  down the mask-free path hold only allowed pairs, and are exactly the
+  visited ones that do; K5's loop written out in torch (`_tiled_forward`)
+  equals `_splash_fwd_reference` (fp32 atol 1e-5, bf16 1e-2 x max(1,
+  max |ref|)) and, fp32 at p 0, the JAX package's splash forward.
 """
 import jax
 import jax.numpy as jnp
@@ -506,7 +511,7 @@ def test_tiled_subtile_grads_match_reference(dtype, causal, p, tile):
 
 
 def test_kernel_ids_must_be_16_byte_aligned():
-    """K6 and K7 copy segment ids in 16-byte pieces: the launch check
+    """K5-K7 copy segment ids in 16-byte pieces: the launch check
     refuses ids that do not start on a 16-byte boundary (a view into a
     larger buffer), and takes ids that do."""
     from paddle_tpu_torch.framework.errors import InvalidArgumentError
@@ -519,3 +524,150 @@ def test_kernel_ids_must_be_16_byte_aligned():
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
     with pytest.raises(InvalidArgumentError, match="16-byte"):
         tso._check_ids(q, shifted, seg, bounds)
+
+
+# -- K5's tiling: key tiles over the spans, the mask-free path ------------------
+
+def _edge_rows(S=256):
+    """Segment edges at 16-row boundaries (16, 64, 128, 224) and between
+    them (40, 100, 248), and a row whose edges all fall mid-band."""
+    return np.stack([_segments(S, (16, 40, 64, 100, 128, 224, 248)),
+                     _segments(S, (8, 70, 150, 233))]).astype(np.int32)
+
+
+def _tiling_layout(ids):
+    """[B, S] int32 ids: one segment a row, the packing bench's first pack,
+    a boundary-heavy row (as test_tiled_subtile_grads_match_reference
+    builds it), or _edge_rows."""
+    S = 256
+    if ids == "one":
+        return torch.zeros(2, S, dtype=torch.int32)
+    if ids == "bench_pack":
+        return _bench_first_pack()
+    if ids == "boundaries":
+        return torch.from_numpy(np.repeat(np.arange(S), np.random.RandomState(
+            9).randint(1, 16, size=S))[:S].astype(np.int32)[None])
+    return torch.from_numpy(_edge_rows(S))
+
+
+def _blocks(mask, key_tile):
+    """A [B, S/16, S/key_tile] band-by-tile mask as a [B, S, S] pair mask."""
+    return mask.repeat_interleave(16, 1).repeat_interleave(key_tile, 2)
+
+
+@pytest.mark.parametrize("key_tile", [32, 64])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("ids", ["one", "bench_pack", "boundaries", "edges"])
+def test_uniform_tiles_hold_only_allowed_pairs(ids, causal, key_tile):
+    """Every pair of a (warp band, key tile) that `_uniform_tiles` marks is
+    allowed, and the rule misses none: the marked ones are exactly the
+    visited ones whose every pair is allowed. On one segment a row and on
+    edges at 16-row boundaries the mask-free path is taken."""
+    seg = _tiling_layout(ids)
+    B, S = seg.shape
+    visited, uniform = tso._uniform_tiles(seg, seg, causal, key_tile)
+    assert uniform.shape == (B, S // 16, S // key_tile)
+    assert (uniform <= visited).all()
+    allowed = tso._allowed(seg, seg, causal)[:, 0]
+    assert not (_blocks(uniform, key_tile) & ~allowed).any()
+    whole = ~(~allowed).reshape(B, S // 16, 16, S // key_tile,
+                                key_tile).any(4).any(2)
+    assert torch.equal(uniform, visited & whole)
+    if ids in ("one", "edges"):
+        assert uniform.any()
+    if ids == "one" and not causal:
+        assert torch.equal(uniform, visited)
+
+
+def _tiled_forward(q, k, v, seg, causal, scale, p, seed, tile):
+    """K5's loop written out in torch: for each 64-query tile, the key
+    tiles of `tile` keys over its `_block_bounds` span (64-key units); for
+    each warp band of 16 queries an online softmax across those tiles,
+    the per-element segment test only where `_uniform_tiles` does not mark
+    the (band, tile) pair, P zeroed by the test, l summed before dropout,
+    P rounded to q's type before P V (as the kernel rounds it in bf16),
+    O = acc / l_safe and LSE = m + log(l_safe)."""
+    B, H, S, D = q.shape
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    allowed = tso._allowed(seg, seg, causal)[:, 0]
+    keep = tfo._keep_mask(seed, B, H, S, S, p, "cpu") if p > 0 else None
+    kv_lo, kv_hi = tso._block_bounds(seg, seg, 64, 64, causal)[:2]
+    _, uniform = tso._uniform_tiles(seg, seg, causal, tile)
+    out = torch.zeros(B, H, S, D)
+    lse = torch.zeros(B, H, S)
+    per = 64 // tile
+    for b in range(B):
+        for w in range(S // 16):
+            rows = slice(16 * w, 16 * w + 16)
+            m = torch.full((H, 16, 1), -1e30)
+            l = torch.zeros(H, 16, 1)
+            acc = torch.zeros(H, 16, D)
+            for t in range(int(kv_lo[b, w // 4]) * per,
+                           int(kv_hi[b, w // 4]) * per):
+                cols = slice(tile * t, tile * t + tile)
+                s = qf[b, :, rows] @ kf[b, :, cols].transpose(-1, -2) * scale
+                ok = None if uniform[b, w, t] else allowed[b, rows, cols]
+                if ok is not None:
+                    s = torch.where(ok, s, -1e30)
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha = torch.exp(m - m_new)
+                pr = torch.exp(s - m_new)
+                if ok is not None:
+                    pr = torch.where(ok, pr, 0.0)
+                l = alpha * l + pr.sum(-1, keepdim=True)
+                if keep is not None:
+                    pr = torch.where(keep[b, :, rows, cols], pr / (1.0 - p),
+                                     0.0)
+                acc = alpha * acc + pr.to(q.dtype).float() @ vf[b, :, cols]
+                m = m_new
+            l_safe = torch.where(l > 0, l, 1.0)
+            out[b, :, rows] = acc / l_safe
+            lse[b, :, rows] = (m + torch.log(l_safe))[..., 0]
+    return out.to(q.dtype), lse.reshape(B * H, S)
+
+
+_JAX_FWD = {}
+
+
+@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("p", [0.0, 0.2])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_forward_matches_reference(dtype, causal, p, tile):
+    """K5's tiling keeps the function: `_tiled_forward` (key tiles of 32 or
+    64 over the spans, the mask-free path where `_uniform_tiles` says, P
+    rounded to bf16 in bf16) equals `_splash_fwd_reference` on the same
+    inputs, ids and keep mask (fp32 atol 1e-5, summation order; bf16 1e-2
+    x max(1, max |ref|), one rounding of P and of O; LSE atol 1e-5 in
+    both) and, fp32 at p 0, the JAX package's splash_attention_raw
+    forward (Pallas in interpret mode; GRAD_TOL). Ids: SEG_LAYOUTS' rows,
+    a boundary-heavy row and _edge_rows, so both paths run."""
+    B, H, S, D = 5, 2, 256, 32
+    q, k, v = _arrays((B, H, S, D), 50 + causal, 3)
+    seg_np = np.concatenate([
+        np.stack([_segments(S, b) for b in SEG_LAYOUTS[0]]),
+        _tiling_layout("boundaries").numpy(), _edge_rows(S)])
+    seg = torch.from_numpy(seg_np)
+    visited, uniform = tso._uniform_tiles(seg, seg, causal, tile)
+    assert 0 < int(uniform.sum()) < int(visited.sum())
+    tq, tk, tv = (t.to(dtype) for t in _t(q, k, v))
+    scale, seed = 1.0 / D ** 0.5, 31
+    got, got_lse = _tiled_forward(tq, tk, tv, seg, causal, scale, p, seed,
+                                  tile)
+    want, want_lse = tso._splash_fwd_reference(tq, tk, tv, seg, seg, causal,
+                                               scale, p, seed)
+    assert got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    top = max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * top, f"O: {err:.3e} > {tol} x {top:.3e}"
+    np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), atol=1e-5,
+                               rtol=0)
+    if dtype == torch.float32 and p == 0.0:
+        if causal not in _JAX_FWD:
+            _JAX_FWD[causal] = np.asarray(jso.splash_attention_raw(
+                *(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(seg_np),
+                jnp.asarray(seg_np), jnp.zeros((), jnp.int32), causal, scale,
+                0.0))
+        np.testing.assert_allclose(got.numpy(), _JAX_FWD[causal],
+                                   rtol=GRAD_TOL, atol=GRAD_TOL)
