@@ -6,7 +6,8 @@
     python3 chip_smoke.py --profile  # also profile serving and train steps
 
 Phases:
- 1. card      name and power limit from nvidia-smi, torch/CUDA versions
+ 1. card      name and power limit from nvidia-smi, torch/CUDA versions,
+              the matmul settings (no TF32; 16-bit GEMMs reduce in fp32)
  2. build     nvcc builds every kernel from paddle_tpu_torch/csrc, timed;
               ptxas' registers and spills of every instantiation
  3. kernels   each kernel's wrapper against its plain PyTorch version on
@@ -20,11 +21,11 @@ Phases:
               decode profile's 8 x 230 tokens, 2 x 1024 tokens, and phase
               3's slots at head dims 80, 96 and 256; fp32 and bf16; the
               split count per row), K2 flash forward (serving
-              shape, fp32 and bf16, and the training shape with
+              shape, fp32, bf16 and fp16, and the training shape with
               dropout), K3 flash dQ and K4 flash
-              dK/dV (training shape, dropout 0 and 0.1, fp32 and bf16;
-              head dims 128 and 32 at the train width; Sq 1024 != Sk
-              1536), with the achieved TFLOP/s;
+              dK/dV (training shape, dropout 0 and 0.1, fp32, bf16 and
+              fp16; head dims 128 and 32 at the train width, fp32 and
+              bf16; Sq 1024 != Sk 1536), with the achieved TFLOP/s;
               FlashAttention's gradients against autograd through the
               plain forward; gradients reaching q/k/v through K2 (C4)
  4. model     GPT-2 small (GPTConfig() defaults, fp32, seed 0): a [2,1024]
@@ -41,16 +42,26 @@ Phases:
               learnable token set; the loss falls and stays finite, every
               flash kernel launched 12 times a step; then one train_batch
               through the kernels against one through the plain path
-              (dropout 0, [2, 1024]): loss and every gradient agree
+              (dropout 0, [2, 1024]): loss and every gradient agree.
+              Then the same fit under amp_configs="O1" (bf16; K2-K4
+              launched 12 times a step, all counted in bf16), and the
+              fp16 AMP loop of the same 20 steps (auto_cast(dtype=
+              "float16") + GradScaler; K2-K4 counted in fp16), and the
+              AMP step parities at [2, 1024], kernels against
+              FLAGS_use_flash_attention=False under the same AMP: one
+              bf16 train_batch, one hand-written amp.auto_cast(dtype=
+              "float16") step with GradScaler (K2-K4 counted in fp16)
  7. packing   the packed LM of bench.py --mode packing at its full size
               (T 1024, hidden 256, 4 heads, vocab 8192, 2048 sequences of
               clipped-lognormal lengths, 64 a pack) trained through
               hapi.Model.fit with io.PackingCollator: one epoch packed
               (first-fit), one padded (one sequence a row, 16 rows);
               effective tokens/s, fill, step wall, K5-K7 launches a step;
-              the loss falls; then packed-vs-padded loss parity on 8
-              sequences and one train_batch through K5-K7 against one
-              through the dense segment-masked path
+              the loss falls; then one packed epoch under
+              amp_configs="O1" (K5-K7 counted in bf16, the loss falls);
+              then packed-vs-padded loss parity on 8 sequences and one
+              train_batch through K5-K7 against one through the dense
+              segment-masked path
 Phase 3 also holds the splash kernels to their plain versions: K5 splash
 forward, K6 splash dQ and K7 splash dK/dV at GPT-2 small's attention
 width (B 8, H 12, S 1024, D 64) and at the packing phase's shape, with
@@ -63,8 +74,11 @@ hold an allowed pair and, where the library call runs, K5 against the
 library's forward and K6 + K7 against its whole backward;
 SplashAttention's gradients against autograd through the plain forward.
 --profile's profiler sessions come after serving, so that run's train
-and packing walls carry them.
-Then one JSON line describing the kernels, and as the last line
+and packing walls carry them; each train path (fp32, AMP) is profiled
+over 3 steps with its GEMM share.
+Then one JSON line describing the kernels (K2-K4 also as
+"flash_fwd.bfloat16"/".float16" rows and K5-K7 as ".bfloat16" rows,
+their launches counted in that type), and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits 1 with no result;
 no CUDA device, or no paddle_tpu_torch next to this file, exits 2.
 """
@@ -87,9 +101,15 @@ REPO = Path(__file__).resolve().parent
 # products a product): 495 / 3 TFLOP/s, the least time the card could take
 # for fp32 products; the CUDA cores' 67 TFLOP/s is printed beside it.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12,
+              "float16": 989e12}
 CUDA_CORE_FP32 = 67e12
 
+# kernel-vs-plain limits of K2-K4, x max(1, max |ref|) at the train shape
+# (absolute at the serving shape): fp32 summation order (3xTF32); one
+# rounding of P (K2) or dS / Pd (K3, K4) and of the output in the 16-bit
+# types, float16 keeping 10 mantissa bits to bfloat16's 7
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 2e-3}
 K1_SHAPE = dict(B=8, H=12, D=64, P=16, PP=64)
 K2_SHAPE = dict(B=2, H=12, S=1024, D=64)
 TRAIN_SHAPE = dict(B=8, H=12, S=1024, D=64)   # the train phase's attention
@@ -99,6 +119,12 @@ DROPOUT = 0.1
 PACK = dict(T=1024, DIM=256, HEADS=4, VOCAB=8192, NSEQ=2048, BS=64,
             HEADROOM=1.15, PAD_ROWS=16)
 SPLASH_SHAPE = dict(B=8, H=12, S=1024, D=64)   # GPT-2 small's attention
+# AMP step parity (kernels vs plain path under one AMP): loss rtol, and a
+# gradient's share of its own max (see Smoke.amp_step_parity)
+AMP_LOSS_RTOL = {"bfloat16": 1e-3, "float16": 1e-3}
+AMP_GRAD_SHARE = {"bfloat16": 2.5e-2, "float16": 1e-2}
+# kernel names of the GEMMs in a profile (cuBLAS, cuBLASLt, CUTLASS)
+_GEMM = r"gemm|nvjet|xmma|cutlass|splitKreduce"
 
 
 def _bench_lengths(np):
@@ -190,9 +216,18 @@ class Smoke:
         self.failures = []
         self.kernel_rows = {}
         self.path_launches = {}   # main path -> kernel -> launches
+        self.path_dtype_launches = {}   # ... -> kernel -> dtype -> launches
         self.details = {}
+        # fp32 products in full fp32, as the JAX package pins
+        # jax_default_matmul_precision="highest"; 16-bit GEMMs (the AMP
+        # phases) reduce in fp32 too, not in the 16-bit type, as XLA
+        # accumulates bf16 products in fp32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = \
+            False
         self.l2 = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
 
     def flush(self):
@@ -217,9 +252,25 @@ class Smoke:
     def zero_launches(self):
         for w in self._wrappers().values():
             w.launches = 0
+            if hasattr(w, "launches_by_dtype"):
+                w.launches_by_dtype.clear()
 
     def read_launches(self):
         return {n: w.launches for n, w in self._wrappers().items()}
+
+    def record_path(self, name):
+        """Keep the launch counts of the main path `name` just driven (in
+        all and by type); returns the counts in all."""
+        self.path_launches[name] = self.read_launches()
+        self.path_dtype_launches[name] = self.read_launches_by_dtype()
+        return self.path_launches[name]
+
+    def read_launches_by_dtype(self):
+        """{kernel: {dtype: launches}} of the wrappers that count by type
+        (K2-K7)."""
+        return {n: dict(w.launches_by_dtype)
+                for n, w in self._wrappers().items()
+                if hasattr(w, "launches_by_dtype")}
 
     def phase(self, name, fn):
         print(f"== phase {name}", flush=True)
@@ -244,6 +295,12 @@ class Smoke:
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"python {sys.version.split()[0]} devices "
               f"{torch.cuda.device_count()}")
+        m = torch.backends.cuda.matmul
+        print(f"matmul: allow_tf32 {m.allow_tf32}, "
+              f"allow_bf16_reduced_precision_reduction "
+              f"{m.allow_bf16_reduced_precision_reduction}, "
+              f"allow_fp16_reduced_precision_reduction "
+              f"{m.allow_fp16_reduced_precision_reduction}")
 
     # -- 2. build -------------------------------------------------------------
 
@@ -384,8 +441,8 @@ class Smoke:
         return q, k, v, bias
 
     def check_k2(self):
-        """K2 at the serving shape, p 0, fp32 and bf16, causal or not,
-        with and without a key-padding bias. ms and library ms: device
+        """K2 at the serving shape, p 0, fp32, bf16 and fp16, causal or
+        not, with and without a key-padding bias. ms and library ms: device
         time per call (`time_ms`), the event time beside each."""
         torch = self.torch
         import torch.nn.functional as TF
@@ -393,7 +450,8 @@ class Smoke:
         B, H, S, D = (K2_SHAPE[k] for k in ("B", "H", "S", "D"))
         scale = 1.0 / D ** 0.5
         rows = []
-        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 1e-2)):
+        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 1e-2),
+                           (torch.float16, FLASH_TOL["float16"])):
             for causal in (True, False):
                 for padded in (False, True):
                     q, k, v, bias = self.k2_inputs(dtype, causal, padded)
@@ -502,14 +560,12 @@ class Smoke:
     def check_train_kernels(self):
         """K2 with dropout, K3 and K4 against their plain versions on the
         same inputs and seed. At the train phase's attention shape: fp32
-        and bf16, causal or not, p 0 and 0.1, and a padded bias. At the
-        train width with other head dims (D 128 with H 6, D 32 with H 24),
+        bf16 and fp16, causal or not, p 0 and 0.1, and a padded bias (fp32).
+        At the train width with other head dims (D 128 with H 6, D 32 with H 24),
         causal, p 0.1, fp32 and bf16; and non-causal with Sq 1024 != Sk
         1536, p 0.1, fp32 and bf16. The backward pair is fed the plain
         forward's O, LSE and delta, so only the kernels' arithmetic
-        differs. Tolerances, relative to max(1, max |ref|): fp32 1e-4
-        (summation order), bf16 1e-2 (one bf16 rounding of dS / Pd and of
-        the output)."""
+        differs. Tolerances, relative to max(1, max |ref|): FLASH_TOL."""
         torch = self.torch
         import torch.nn.functional as TF
         from paddle_tpu_torch.ops import flash_ops as fo
@@ -518,7 +574,7 @@ class Smoke:
         rows = {"fwd": [], "dq": [], "dkv": []}
         train = dict(H=H0, D=D0, Sq=S0, Sk=S0)
         cases = [dict(train, dtype=dt, causal=c, p=p, padded=False)
-                 for dt in ("float32", "bfloat16")
+                 for dt in ("float32", "bfloat16", "float16")
                  for c in (True, False) for p in (0.0, DROPOUT)]
         cases += [dict(train, dtype="float32", causal=c, p=DROPOUT,
                        padded=True) for c in (True, False)]
@@ -536,7 +592,7 @@ class Smoke:
             H, D, Sq, Sk = (case[k] for k in ("H", "D", "Sq", "Sk"))
             dtype = getattr(torch, name)
             scale = 1.0 / D ** 0.5
-            tol = 1e-4 if name == "float32" else 1e-2
+            tol = FLASH_TOL[name]
             q, k, v, do, bias = self.train_inputs(dtype, causal, padded,
                                                   H=H, D=D, Sq=Sq, Sk=Sk)
             tag = dict(shape=f"{B}x{H}x{Sq}x{Sk}x{D}", causal=causal, p=p,
@@ -645,14 +701,16 @@ class Smoke:
             torch.cuda.empty_cache()
         self.details["train_kernels"] = rows
 
-        def pick(rs):   # the train phase's case: fp32, causal, p 0.1
-            return next(r for r in rs if r["dtype"] == "float32"
+        def pick(rs, dtype):   # the train phase's case: causal, p 0.1
+            return next(r for r in rs if r["dtype"] == dtype
                         and r["causal"] and r["p"] == DROPOUT
                         and not r["padded"]
                         and r["shape"] == f"{B}x{H0}x{S0}x{S0}x{D0}")
-        self.kernel_rows["flash_fwd"] = pick(rows["fwd"])
-        self.kernel_rows["flash_bwd_dq"] = pick(rows["dq"])
-        self.kernel_rows["flash_bwd_dkv"] = pick(rows["dkv"])
+        for dt in ("float32", "bfloat16", "float16"):
+            sfx = "" if dt == "float32" else f".{dt}"
+            self.kernel_rows["flash_fwd" + sfx] = pick(rows["fwd"], dt)
+            self.kernel_rows["flash_bwd_dq" + sfx] = pick(rows["dq"], dt)
+            self.kernel_rows["flash_bwd_dkv" + sfx] = pick(rows["dkv"], dt)
 
     def check_autograd(self):
         """FlashAttention's gradients on the card (K2 forward, K3 + K4
@@ -869,10 +927,12 @@ class Smoke:
         pack_shape = f"{packs.shape[0]}x{ph}x{S}x{D}"
         for key, name in (("fwd", "splash_fwd"), ("dq", "splash_bwd_dq"),
                           ("dkv", "splash_bwd_dkv")):
-            # the packing phase's case: fp32 at the pack shape
-            self.kernel_rows[name] = next(
-                r for r in rows[key] if r["shape"] == pack_shape
-                and r["dtype"] == "float32")
+            # the packing phase's cases: fp32 and (its AMP epoch) bf16 at
+            # the pack shape
+            for dt, sfx in (("float32", ""), ("bfloat16", ".bfloat16")):
+                self.kernel_rows[name + sfx] = next(
+                    r for r in rows[key] if r["shape"] == pack_shape
+                    and r["dtype"] == dt)
 
         # SplashAttention (K5, then K6 + K7) against autograd through the
         # plain forward with the same keep mask: fp32, [2, 12, 1024, 64],
@@ -1043,7 +1103,7 @@ class Smoke:
             ttft_ms=ttft, ttft_first_wave_ms=first, ttft_queued_ms=joined,
             tpot_ms=tpot, steps=stats["steps"],
             compiles=stats["compiles"])
-        self.path_launches["serving"] = self.read_launches()
+        self.record_path("serving")
         # checks: outputs, identity to generate(), launch counts, pages
         mismatches = 0
         for i, (p, out) in enumerate(zip(prompts, results)):
@@ -1101,8 +1161,7 @@ class Smoke:
         wall = time.perf_counter() - t0
         stats = eng.stats()
         eng.shutdown(drain=True, timeout_s=60)
-        launches = self.read_launches()
-        self.path_launches["serving_d96"] = launches
+        launches = self.record_path("serving_d96")
         k1 = launches["paged_attention"]
         same = [np.array_equal(o, gpt.generate(p[None], max_new_tokens=new)
                                [0].cpu().numpy())
@@ -1189,34 +1248,62 @@ class Smoke:
     # -- 6. train ----------------------------------------------------------------
 
     def train(self):
-        """GPT-2 small trained through hapi.Model.fit, then the step-parity
-        check (see the module docstring)."""
-        torch = self.torch
+        """GPT-2 small trained through hapi.Model.fit in fp32, then the
+        step-parity check; then the same fit under amp_configs="O1" and
+        the AMP step parities in bf16 and fp16 (see the module
+        docstring)."""
+        self.gpt = None   # the serving model's memory back to the pool
+        self.torch.cuda.empty_cache()
+        self.fit_gpt(None)
+        self.step_parity()
+        self.fit_gpt("O1")
+        self.train_fp16()
+        self.amp_step_parity("bfloat16")
+        self.amp_step_parity("float16")
+
+    def _gpt_train_setup(self):
+        """GPT-2 small (dropout 0.1, seed 0) on the card, the train data
+        (64 motifs of 3-8 ids out of 4096, each sequence one motif
+        repeated, so the loss must fall; [B * steps, S + 1] int64) and
+        AdamW under LinearWarmup with the global-norm clip."""
         import numpy as np
-        from paddle_tpu_torch import hapi, io, nn, optimizer
-        from paddle_tpu_torch.framework import monitor
+        from paddle_tpu_torch import nn, optimizer
         from paddle_tpu_torch.framework import random as frandom
         from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
         B, S = TRAIN_SHAPE["B"], TRAIN_SHAPE["S"]
-        steps = TRAIN_STEPS
-        self.gpt = None   # the serving model's memory back to the pool
-        torch.cuda.empty_cache()
         cfg = GPTConfig()
         assert cfg.dropout == DROPOUT
         frandom.seed(0)
         net = GPTForCausalLM(cfg, device="cuda", seed=0)
-        # a learnable token set: 64 motifs of 3-8 ids out of 4096, each
-        # sequence one motif repeated, so the loss must fall
         rng = np.random.RandomState(0)
         motifs = [rng.randint(0, 4096, size=rng.randint(3, 9))
                   for _ in range(64)]
         ids = np.stack([np.resize(motifs[rng.randint(64)], S + 1)
-                        for _ in range(B * steps)]).astype(np.int64)
-        data = io.TensorDataset([ids[:, :-1], ids[:, 1:]])
+                        for _ in range(B * TRAIN_STEPS)]).astype(np.int64)
         sched = optimizer.lr.LinearWarmup(6e-4, 5, 6e-5, 6e-4)
         opt = optimizer.AdamW(learning_rate=sched, weight_decay=0.01,
                               grad_clip=nn.ClipGradByGlobalNorm(1.0))
-        model = hapi.Model(net).prepare(opt, nn.CrossEntropyLoss())
+        return net, ids, opt
+
+    def fit_gpt(self, amp_level):
+        """TRAIN_STEPS steps of GPT-2 small (dropout 0.1) through
+        hapi.Model.fit, in fp32 (`amp_level` None, the path "train") or
+        under `amp_configs=amp_level` (bf16, the path "train_amp"): the
+        loss is finite and falls, K2-K4 launch 12 times a step, all in
+        the path's type."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import hapi, io, nn
+        from paddle_tpu_torch.framework import monitor
+        B, S = TRAIN_SHAPE["B"], TRAIN_SHAPE["S"]
+        steps = TRAIN_STEPS
+        path = "train" if amp_level is None else "train_amp"
+        dtype = "float32" if amp_level is None else "bfloat16"
+        net, ids, opt = self._gpt_train_setup()
+        cfg = net.gpt.config
+        data = io.TensorDataset([ids[:, :-1], ids[:, 1:]])
+        model = hapi.Model(net).prepare(opt, nn.CrossEntropyLoss(),
+                                        amp_configs=amp_level)
 
         class Steps(hapi.callbacks.Callback):
             """Loss handles and a CUDA event at every step's end: the
@@ -1243,40 +1330,43 @@ class Smoke:
                   callbacks=[rec])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = self.read_launches()
-        self.path_launches["train"] = launches
+        launches = self.record_path(path)
+        by_dtype = self.path_dtype_launches[path]
         syncs = monitor.stat_get("STAT_train_host_syncs") - syncs0
         losses = [float(x) for x in rec.losses]
         step_ms = [a.elapsed_time(b) for a, b in zip(rec.events,
                                                      rec.events[1:])]
         steady = sorted(step_ms[1:])   # the steps after the first two
         p50 = steady[len(steady) // 2]
-        print(f"train on {self.smi}: GPT-2 small fp32 dropout {DROPOUT}, "
-              f"batch {B} x {S}, {steps} steps in {wall:.2f} s wall "
-              f"(first step included)")
+        label = "fp32" if amp_level is None else f"AMP {amp_level} bf16"
+        print(f"{path} on {self.smi}: GPT-2 small {label} dropout "
+              f"{DROPOUT}, batch {B} x {S}, {steps} steps in {wall:.2f} s "
+              f"wall (first step included)")
         print("per-step loss: " + " ".join(f"{x:.4f}" for x in losses))
         print(f"loss first {losses[0]:.4f} last {losses[-1]:.4f}; step wall "
               f"p50 {p50:.2f} ms (device timeline, steps 3-{steps}), "
               f"{B * S / p50 * 1e3:.0f} tokens/s; host syncs {syncs}; "
               f"launches fwd {launches['flash_fwd']} dq "
-              f"{launches['flash_bwd_dq']} dkv {launches['flash_bwd_dkv']}")
-        self.details["train"] = dict(
+              f"{launches['flash_bwd_dq']} dkv {launches['flash_bwd_dkv']}; "
+              f"by type {by_dtype['flash_fwd']}")
+        self.details[path] = dict(
             losses=losses, step_ms=step_ms, step_ms_p50=p50,
             tokens_per_s=B * S / p50 * 1e3, wall_s=wall, host_syncs=syncs,
-            launches=launches)
+            launches=launches, launches_by_dtype=by_dtype)
         assert all(np.isfinite(losses)), "non-finite training loss"
         assert np.mean(losses[-3:]) < losses[0] - 1.0, "the loss did not fall"
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             assert launches[name] == cfg.num_layers * steps, \
                 f"{name} launched {launches[name]} times, expected " \
                 f"{cfg.num_layers} x {steps}"
+            assert by_dtype[name] == {dtype: cfg.num_layers * steps}, \
+                f"{name} launched {by_dtype[name]}, all {dtype} expected"
         assert launches["paged_attention"] == 0
         assert syncs <= -(-steps // log_freq) + 1, f"{syncs} host syncs"
         if self.args.profile:
-            self.profile_train_step(model, ids[:B])
+            self.profile_train_step(model, ids[:B], path)
         del model, net, opt
         torch.cuda.empty_cache()
-        self.step_parity()
 
     def step_parity(self):
         """One train_batch (update=False: gradients kept) through the
@@ -1333,9 +1423,149 @@ class Smoke:
         assert (np_["flash_fwd"], np_["flash_bwd_dq"],
                 np_["flash_bwd_dkv"]) == (0, 0, 0), np_
 
-    def profile_train_step(self, model, ids):
+    def train_fp16(self):
+        """GPT-2 small trained TRAIN_STEPS steps in float16 AMP (the path
+        "train_fp16"): hapi's AMP is bfloat16, as the JAX package's, so
+        the loop is written out: forward and loss under
+        amp.auto_cast(dtype="float16"), GradScaler scale / step inside
+        the block (C9), the LR stepped each step; _gpt_train_setup's
+        model, data and optimizer, batches in order. The loss is finite
+        and falls, K2-K4 launch 12 times a step, all in fp16; steps the
+        scaler skips on a non-finite gradient are counted."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import amp, nn
+        B, steps = TRAIN_SHAPE["B"], TRAIN_STEPS
+        net, ids, opt = self._gpt_train_setup()
+        opt._set_parameters(net.named_parameters())
+        L = net.gpt.config.num_layers
+        loss_fn = nn.CrossEntropyLoss()
+        scaler = amp.GradScaler()
+        batches = torch.from_numpy(ids).cuda().split(B)
+        net.train()
+        losses, events, skipped = [], [], 0
+        torch.cuda.synchronize()
+        # the main path starts here: every launch count from 0
+        self.zero_launches()
+        t0 = time.perf_counter()
+        for xy in batches:
+            with amp.auto_cast(dtype="float16"):
+                lv = loss_fn(net(xy[:, :-1]), xy[:, 1:]).float().mean()
+                scaler.scale(lv).backward()
+                n = opt._global_step
+                scaler.step(opt)
+                skipped += opt._global_step == n
+            opt.clear_grad()
+            opt._lr.step()
+            losses.append(lv.detach())
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = self.record_path("train_fp16")
+        by_dtype = self.path_dtype_launches["train_fp16"]
+        losses = [float(x) for x in losses]
+        step_ms = sorted(a.elapsed_time(b) for a, b in zip(events[1:],
+                                                            events[2:]))
+        p50 = step_ms[len(step_ms) // 2]
+        print(f"train_fp16 on {self.smi}: GPT-2 small AMP float16 dropout "
+              f"{DROPOUT}, batch {B} x {TRAIN_SHAPE['S']}, {steps} steps "
+              f"in {wall:.2f} s wall; loss first {losses[0]:.4f} last "
+              f"{losses[-1]:.4f}; step wall p50 {p50:.2f} ms (device "
+              f"timeline, steps 3-{steps}); scale {scaler.get_scale():g}, "
+              f"{skipped} steps skipped; launches by type "
+              f"{by_dtype['flash_fwd']}")
+        print("per-step loss: " + " ".join(f"{x:.4f}" for x in losses))
+        self.details["train_fp16"] = dict(
+            losses=losses, step_ms_p50=p50, wall_s=wall, skipped=skipped,
+            scale=scaler.get_scale(), launches_by_dtype=by_dtype)
+        assert all(np.isfinite(losses)), "non-finite fp16 training loss"
+        assert np.mean(losses[-3:]) < losses[0] - 1.0, \
+            "the fp16 loss did not fall"
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert launches[name] == L * steps, (name, launches[name])
+            assert by_dtype[name] == {"float16": L * steps}, by_dtype[name]
+        del net, opt
+        torch.cuda.empty_cache()
+
+    def amp_step_parity(self, dtype):
+        """One AMP step of GPT-2 small at [2, 1024], dropout 0, through
+        K2-K4 against one with FLAGS_use_flash_attention=False under the
+        same AMP, from the same weights. bfloat16: hapi's train_batch
+        (update=False) under amp_configs="O1". float16: hapi's AMP is
+        bfloat16, as the JAX package's, so the step is written out:
+        forward and loss under amp.auto_cast(dtype="float16"),
+        GradScaler.scale(loss).backward() and GradScaler.unscale_ (no
+        gradient may overflow). Both paths round at other places in the
+        16-bit type (the kernels keep S and P's sums in fp32, the plain
+        path rounds S, P and O), so the limits are the type's: loss rtol
+        AMP_LOSS_RTOL; each parameter's gradient within AMP_GRAD_SHARE x
+        its largest |gradient| + 1e-3 x the model's largest (the floor is
+        for the key biases, whose exact gradient is 0)."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import amp, hapi, nn, optimizer
+        from paddle_tpu_torch.framework.flags import set_flags
+        from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+        net = GPTForCausalLM(GPTConfig(dropout=0.0), device="cuda", seed=0)
+        opt = optimizer.AdamW(1e-4)
+        loss_fn = nn.CrossEntropyLoss()
+        model = hapi.Model(net).prepare(opt, loss_fn, amp_configs="O1")
+        ids = torch.from_numpy(np.random.RandomState(1).randint(
+            0, net.gpt.config.vocab_size, size=(2, 1025)))
+        x, y = ids[:, :-1].cuda(), ids[:, 1:].cuda()
+        scaler = amp.GradScaler()
+
+        def one():
+            self.zero_launches()
+            if dtype == "bfloat16":
+                (lv,), _ = model.train_batch([x], [y], update=False)
+            else:
+                net.train()
+                with amp.auto_cast(dtype="float16"):
+                    lv = loss_fn(net(x), y).float().mean()
+                    scaler.scale(lv).backward()
+                    scaler.unscale_(opt)
+                assert not scaler._found_inf, "fp16 gradients overflowed"
+            grads = {n: p.grad.clone() for n, p in net.named_parameters()}
+            opt.clear_grad()
+            return float(lv.detach()), grads, self.read_launches_by_dtype()
+
+        lf, gf, nf = one()
+        set_flags({"FLAGS_use_flash_attention": False})
+        try:
+            lp, gp, np_ = one()
+        finally:
+            set_flags({"FLAGS_use_flash_attention": True})
+        share = AMP_GRAD_SHARE[dtype]
+        floor = 1e-3 * max(g.abs().max().item() for g in gp.values())
+        worst = max(((gf[n] - gp[n]).abs().max().item()
+                     / (share * gp[n].abs().max().item() + floor), n)
+                    for n in gp)
+        kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        print(f"AMP {dtype} step parity [2,1024] dropout 0: loss flash "
+              f"{lf:.6f} plain {lp:.6f} (rtol {AMP_LOSS_RTOL[dtype]}); "
+              f"worst gradient max_abs_err / its tolerance {worst[0]:.3e} "
+              f"({worst[1]}); launches by type flash "
+              f"{[nf[k] for k in kernels]}, plain {[np_[k] for k in kernels]}")
+        self.details[f"amp_step_parity_{dtype}"] = dict(
+            loss_flash=lf, loss_plain=lp, worst_grad_over_tol=worst[0],
+            worst_param=worst[1], launches=nf)
+        assert abs(lf - lp) <= AMP_LOSS_RTOL[dtype] * abs(lp), \
+            f"AMP {dtype} step-parity loss differs"
+        assert worst[0] <= 1.0, \
+            f"AMP {dtype} step-parity gradient {worst[1]} differs"
+        L = net.gpt.config.num_layers
+        assert all(nf[k] == {dtype: L} for k in kernels), nf
+        assert all(np_[k] == {} for k in kernels), np_
+        del model, net, opt
+        torch.cuda.empty_cache()
+
+    def profile_train_step(self, model, ids, path):
         """torch.profiler over 3 train steps: wall per step, device busy
-        share, device time by kernel, and the flash kernels' share."""
+        share, device time by kernel, and the flash kernels' and the
+        GEMMs' shares (GEMM: cuBLAS/CUTLASS kernel names, _GEMM)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         x, y = [ids[:, :-1]], [ids[:, 1:]]
@@ -1353,15 +1583,19 @@ class Smoke:
                 model.train_batch(x, y)
             torch.cuda.synchronize()
         dev, top = _device_table(torch, prof, steps, bare_ms)
+        import re
         flash = sum(ms for key, ms, _ in top if "flash_" in key)
-        print(f"train step, batch {ids.shape[0]} x {ids.shape[1] - 1}: wall "
-              f"{bare_ms / steps:.2f} ms/step unprofiled; device busy "
+        gemm = sum(ms for key, ms, _ in top if re.search(_GEMM, key))
+        print(f"{path} step, batch {ids.shape[0]} x {ids.shape[1] - 1}: "
+              f"wall {bare_ms / steps:.2f} ms/step unprofiled; device busy "
               f"{dev:.2f} ms/step = {dev / (bare_ms / steps) * 100:.1f}% of "
               f"it; flash kernels {flash:.2f} ms/step = "
-              f"{flash / dev * 100:.1f}% of the device time")
-        self.details["profile_train"] = dict(
+              f"{flash / dev * 100:.1f}%, GEMMs {gemm:.2f} ms/step = "
+              f"{gemm / dev * 100:.1f}% of the device time")
+        self.details[f"profile_{path}"] = dict(
             steps=steps, wall_ms_per_step=bare_ms / steps,
-            device_ms_per_step=dev, flash_ms_per_step=flash, top=top[:12])
+            device_ms_per_step=dev, flash_ms_per_step=flash,
+            gemm_ms_per_step=gemm, top=top[:12])
 
     # -- 7. packing ---------------------------------------------------------------
 
@@ -1394,15 +1628,16 @@ class Smoke:
 
         class PackedLM(torch.nn.Module):
             """bench.py:2365-2387: embedding + position embedding, one
-            causal-within-segment attention block, LM head."""
+            causal-within-segment attention block, LM head; the port's nn
+            layers, so AMP casts its projections."""
 
             def __init__(self):
                 super().__init__()
-                self.emb = torch.nn.Embedding(VOCAB, DIM)
-                self.pos = torch.nn.Embedding(T, DIM)
-                self.qkv = torch.nn.Linear(DIM, 3 * DIM)
-                self.proj = torch.nn.Linear(DIM, DIM)
-                self.head = torch.nn.Linear(DIM, VOCAB)
+                self.emb = nn.Embedding(VOCAB, DIM)
+                self.pos = nn.Embedding(T, DIM)
+                self.qkv = nn.Linear(DIM, 3 * DIM)
+                self.proj = nn.Linear(DIM, DIM)
+                self.head = nn.Linear(DIM, VOCAB)
 
             def forward(self, toks, seg, pos):
                 x = self.emb(toks) + self.pos(pos)
@@ -1414,7 +1649,7 @@ class Smoke:
                 return self.head(x + self.proj(
                     o.transpose(1, 2).reshape(B, S, DIM)))
 
-        def make_model(seed):
+        def make_model(seed, amp_level=None):
             torch.manual_seed(seed)
             net = PackedLM().cuda()
             spec = [InputSpec([None, T], "int64", "toks"),
@@ -1423,7 +1658,8 @@ class Smoke:
             return net, hapi.Model(
                 net, inputs=spec,
                 labels=[InputSpec([None, T], "int64", "labels")]).prepare(
-                    optimizer.Adam(1e-3), nn.CrossEntropyLoss())
+                    optimizer.Adam(1e-3), nn.CrossEntropyLoss(),
+                    amp_configs=amp_level)
 
         class Steps(hapi.callbacks.Callback):
             """Loss handles, the real tokens of each step's pack (the
@@ -1443,11 +1679,11 @@ class Smoke:
                 self.tokens.append(self.coll.last_fill_ratio
                                    * self.coll.rows * T)
 
-        def arm(name, policy, pack_rows, batch):
+        def arm(name, policy, pack_rows, batch, amp_level=None):
             coll = io.PackingCollator(T, pack_rows, policy=policy)
             loader = io.DataLoader(SeqData(seqs), batch_size=batch,
                                    shuffle=False, collate_fn=coll)
-            net, model = make_model(0)
+            net, model = make_model(0, amp_level)
             rec = Steps(coll)
             c0 = {c: monitor.stat_get(c) for c in (
                 "STAT_packing_tokens", "STAT_packing_slots",
@@ -1460,8 +1696,7 @@ class Smoke:
                       verbose=0, callbacks=[rec])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = self.read_launches()
-            self.path_launches[name] = launches
+            launches = self.record_path(name)
             d = {c: monitor.stat_get(c) - v for c, v in c0.items()}
             losses = [float(x) for x in rec.losses]
             steps = len(losses)
@@ -1491,9 +1726,14 @@ class Smoke:
             assert all(np.isfinite(losses)), f"{name}: non-finite loss"
             assert np.mean(losses[-3:]) < losses[0] - 1.0, \
                 f"{name}: the loss did not fall"
+            dtype = "float32" if amp_level is None else "bfloat16"
+            by_dtype = self.path_dtype_launches[name]
+            r["launches_by_dtype"] = by_dtype
             for k in ("splash_fwd", "splash_bwd_dq", "splash_bwd_dkv"):
                 assert launches[k] == steps, \
                     f"{name}: {k} launched {launches[k]} times in {steps} steps"
+                assert by_dtype[k] == {dtype: steps}, \
+                    f"{name}: {k} launched {by_dtype[k]}, all {dtype} expected"
             assert launches["flash_fwd"] == launches["paged_attention"] == 0
             assert d["STAT_tail_pad_batches"] == 0, "a batch was row-padded"
             del model, net
@@ -1502,6 +1742,11 @@ class Smoke:
 
         packed = arm("packing", "first_fit", rows, BS)
         padded = arm("padded", "pad", PACK["PAD_ROWS"], PACK["PAD_ROWS"])
+        # one packed epoch under AMP O1: bf16 projections, K5-K7 in bf16
+        packed_amp = arm("packing_amp", "first_fit", rows, BS, "O1")
+        print(f"packed AMP O1 / fp32 effective tokens/s: "
+              f"{packed_amp['effective_tokens_per_s'] / packed['effective_tokens_per_s']:.3f} "
+              f"(epoch wall)")
         gain = packed["effective_tokens_per_s"] / \
             padded["effective_tokens_per_s"]
         print(f"packed / padded effective tokens/s: {gain:.3f} (epoch wall), "
@@ -1526,20 +1771,24 @@ class Smoke:
               f"|diff| {abs(la - lb):.3e} (tol 1e-3)")
         assert abs(la - lb) < 1e-3, "packed and padded losses differ"
         self.details["packing"] = dict(packed=packed, padded=padded,
-                                       gain=gain, parity=(la, lb))
+                                       packed_amp=packed_amp, gain=gain,
+                                       parity=(la, lb))
         self.splash_step_parity(make_model, seqs[:BS], rows)
         if self.args.profile:
-            self.profile_packed_step(make_model, seqs[:BS], rows)
+            for amp_level in (None, "O1"):
+                self.profile_packed_step(make_model, seqs[:BS], rows,
+                                         amp_level)
 
-    def profile_packed_step(self, make_model, sample, rows):
+    def profile_packed_step(self, make_model, sample, rows, amp_level):
         """torch.profiler over 5 packed train steps (collate included, as
-        fit runs it): wall per step, device busy share, device time by
-        kernel, and the splash kernels' share."""
+        fit runs it; fp32, or under amp_configs=`amp_level`): wall per
+        step, device busy share, device time by kernel, and the splash
+        kernels' share."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         from paddle_tpu_torch import io
         coll = io.PackingCollator(PACK["T"], rows)
-        _, model = make_model(3)
+        _, model = make_model(3, amp_level)
 
         def step():
             b = coll(sample)
@@ -1559,12 +1808,13 @@ class Smoke:
             torch.cuda.synchronize()
         dev, top = _device_table(torch, prof, steps, bare_ms)
         splash = sum(ms for key, ms, _ in top if "splash_" in key)
-        print(f"packed train step [{rows}, {PACK['T']}]: wall "
+        label = "fp32" if amp_level is None else f"AMP {amp_level}"
+        print(f"packed train step {label} [{rows}, {PACK['T']}]: wall "
               f"{bare_ms / steps:.2f} ms/step unprofiled; device busy "
               f"{dev:.2f} ms/step = {dev / (bare_ms / steps) * 100:.1f}% of "
               f"it; splash kernels {splash:.3f} ms/step = "
               f"{splash / dev * 100:.1f}% of the device time")
-        self.details["profile_packed"] = dict(
+        self.details[f"profile_packed_{label}"] = dict(
             steps=steps, wall_ms_per_step=bare_ms / steps,
             device_ms_per_step=dev, splash_ms_per_step=splash, top=top[:12])
 
@@ -1633,16 +1883,26 @@ class Smoke:
                                    "paddle_tpu/ops/splash_ops.py:242")}
         out = []
         for name, (src, rep) in srcs.items():
-            r = self.kernel_rows.get(name, {})
-            out.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep,
-                        "launches": sum(p.get(name, 0) for p in
-                                        self.path_launches.values()),
-                        "max_abs_err": r.get("max_abs_err"),
-                        "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
-                        "bound_ms": r.get("bound_ms"),
-                        "bound_by": r.get("bound_by"),
-                        "library_ms": r.get("library_ms")})
+            # the kernel in all (its fp32 row), then one entry per 16-bit
+            # type a row was kept for ("flash_fwd.bfloat16"), launches
+            # counted in that type
+            for key in [name] + sorted(k for k in self.kernel_rows
+                                       if k.startswith(name + ".")):
+                r = self.kernel_rows.get(key, {})
+                if key == name:
+                    n = sum(p.get(name, 0)
+                            for p in self.path_launches.values())
+                else:
+                    dt = key.split(".", 1)[1]
+                    n = sum(p.get(name, {}).get(dt, 0)
+                            for p in self.path_dtype_launches.values())
+                out.append({"name": key, "route": "cuda", "source": src,
+                            "replaces": rep, "launches": n,
+                            "max_abs_err": r.get("max_abs_err"),
+                            "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+                            "bound_ms": r.get("bound_ms"),
+                            "bound_by": r.get("bound_by"),
+                            "library_ms": r.get("library_ms")})
         return {"kernels": out}
 
 
@@ -1681,11 +1941,12 @@ def _kernel_name(mangled):
     if not m:
         return mangled
     base = rest[m.end():m.end() + int(m.group(1))]
-    t = re.match(r"I(f|13__nv_bfloat16)Li(\d+)E",
+    t = re.match(r"I(f|13__nv_bfloat16|6__half)Li(\d+)E",
                  rest[m.end() + int(m.group(1)):])
     if not t:
         return base
-    ty = "float" if t.group(1) == "f" else "bfloat16"
+    ty = {"f": "float", "13__nv_bfloat16": "bfloat16",
+          "6__half": "float16"}[t.group(1)]
     return f"{base}<{ty}, {t.group(2)}>"
 
 

@@ -20,9 +20,16 @@ Ported so far:
   loss of `hapi.Model` (fit / evaluate / predict), `static.InputSpec`,
   and segment-aware splash attention through
   `F.scaled_dot_product_attention(segment_ids=...)`
-  (`ops.splash_ops.SplashAttention`, three CUDA kernels).
+  (`ops.splash_ops.SplashAttention`, three CUDA kernels);
+- AMP: `amp.auto_cast` / `amp_guard` (O1, bfloat16 or float16),
+  `amp.decorate` (O2), `amp.GradScaler` and
+  `hapi.Model.prepare(amp_configs=...)`, casting by op name through the
+  `nn` layers and functionals (`Linear`, `Embedding`, `LayerNorm`,
+  `GELU`, `Dropout`; `linear`, `layer_norm`, `softmax`, ...) and
+  `ops.linalg`; the flash kernels take bfloat16 and float16.
 """
-from . import framework, hapi, io, models, nn, ops, optimizer  # noqa: F401
+from . import amp, framework, hapi, io, models, nn, ops  # noqa: F401
+from . import optimizer  # noqa: F401
 from . import serving, static  # noqa: F401
 from .framework import get_flags, set_flags  # noqa: F401
 

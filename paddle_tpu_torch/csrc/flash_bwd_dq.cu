@@ -17,10 +17,10 @@
 //
 // Bound: operations. Three products of 2*Sq*Sk*D flops (S, dP, dS K), half
 // of that when causal, against inputs read once. They run on the tensor
-// cores (flash_mma.cuh): bf16 operands on mma.sync m16n8k16 (989 TFLOP/s
-// peak), fp32 as 3xTF32 on mma.sync m16n8k8 (495 / 3 = 165 TFLOP/s of
-// fp32-accurate products). dS is rounded to bf16 before dS K in bf16, as the
-// TPU kernel casts it to K's type (pallas_ops.py:238).
+// cores (flash_mma.cuh): bf16 or fp16 operands on mma.sync m16n8k16 (989
+// TFLOP/s peak), fp32 as 3xTF32 on mma.sync m16n8k8 (495 / 3 = 165 TFLOP/s
+// of fp32-accurate products). In bf16 and fp16, dS is rounded to K's type
+// before dS K, as the TPU kernel casts it (pallas_ops.py:238).
 //
 // Design: one block of 4 warps per (64-query tile, b*h), no atomics: the
 // block owns its dQ rows, each warp 16 of them, and loops over key tiles
@@ -224,8 +224,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q/dout [B,H,Sq,D], k/v [B,H,Sk,D] contiguous in one type (dtype 0 =
-// float32, 1 = bfloat16); bias [B,Sk] float32 or null; lse and delta
-// [B*H,Sq] float32; dq like q. Sq and Sk multiples of 64; D 32, 64 or 128.
+// float32, 1 = bfloat16, 2 = float16); bias [B,Sk] float32 or null; lse
+// and delta [B*H,Sq] float32; dq like q.
+// Sq and Sk multiples of 64; D 32, 64 or 128.
 extern "C" int flash_attention_bwd_dq(void* q, void* k, void* v, void* bias,
                                       void* dout, void* lse, void* delta,
                                       void* dq, int B, int H, int Sq, int Sk,
@@ -236,13 +237,22 @@ extern "C" int flash_attention_bwd_dq(void* q, void* k, void* v, void* bias,
   if (Sq % 64 != 0 || Sk % 64 != 0) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = dtype == 0
-      ? launch<float>(q, k, v, bias, dout, lse, delta, dq, B, H, Sq, Sk, D,
-                      causal, scale, thresh, keep_scale, seed, s)
-      : launch<__nv_bfloat16>(q, k, v, bias, dout, lse, delta, dq, B, H, Sq,
-                              Sk, D, causal, scale, thresh, keep_scale, seed,
-                              s);
-  return (int)e;
+  switch (dtype) {
+    case 0:
+      return (int)launch<float>(q, k, v, bias, dout, lse, delta, dq, B, H, Sq,
+                                Sk, D, causal, scale, thresh, keep_scale,
+                                seed, s);
+    case 1:
+      return (int)launch<__nv_bfloat16>(q, k, v, bias, dout, lse, delta, dq,
+                                        B, H, Sq, Sk, D, causal, scale,
+                                        thresh, keep_scale, seed, s);
+    case 2:
+      return (int)launch<__half>(q, k, v, bias, dout, lse, delta, dq, B, H,
+                                 Sq, Sk, D, causal, scale, thresh,
+                                 keep_scale, seed, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* flash_bwd_dq_error_string(int err) {

@@ -23,10 +23,10 @@
 //
 // Bound: operations. S and O are two products of 2*Sq*Sk*D flops each (half
 // of that when causal) against inputs read once, ~2*Sk/3 flops a byte at D
-// 64. They run on the tensor cores (flash_mma.cuh): bf16 operands on
-// mma.sync m16n8k16 (989 TFLOP/s peak), fp32 as 3xTF32 on mma.sync m16n8k8
-// (495 / 3 = 165 TFLOP/s of fp32-accurate products). In bf16, P is rounded
-// to bf16 before P V, as the TPU kernel casts it to V's type
+// 64. They run on the tensor cores (flash_mma.cuh): bf16 or fp16 operands
+// on mma.sync m16n8k16 (989 TFLOP/s peak), fp32 as 3xTF32 on mma.sync m16n8k8
+// (495 / 3 = 165 TFLOP/s of fp32-accurate products). In bf16 and fp16, P is
+// rounded to V's type before P V, as the TPU kernel casts it
 // (pallas_ops.py:175-176). The first design ran both products on the fp32
 // CUDA cores with S through shared memory and synchronous loads.
 //
@@ -295,7 +295,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q [B,H,Sq,D], k/v [B,H,Sk,D] contiguous in one type (dtype 0 = float32,
-// 1 = bfloat16); bias [B,Sk] float32 or null; out like q; lse [B*H,Sq] f32.
+// 1 = bfloat16, 2 = float16); bias [B,Sk] float32 or null; out like q;
+// lse [B*H,Sq] f32.
 // Sq and Sk must be multiples of 64; D one of 32, 64, 128. Dropout: keep
 // where hash >= thresh (thresh 0 = no dropout), kept P scaled by keep_scale.
 extern "C" int flash_attention_forward(void* q, void* k, void* v, void* bias,
@@ -307,12 +308,22 @@ extern "C" int flash_attention_forward(void* q, void* k, void* v, void* bias,
   if (Sq % kBQ != 0 || Sk % 64 != 0) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = dtype == 0
-      ? launch<float>(q, k, v, bias, out, (float*)lse, B, H, Sq, Sk, D,
-                      causal, scale, thresh, keep_scale, seed, s)
-      : launch<__nv_bfloat16>(q, k, v, bias, out, (float*)lse, B, H, Sq, Sk,
-                              D, causal, scale, thresh, keep_scale, seed, s);
-  return (int)e;
+  switch (dtype) {
+    case 0:
+      return (int)launch<float>(q, k, v, bias, out, (float*)lse, B, H, Sq,
+                                Sk, D, causal, scale, thresh, keep_scale,
+                                seed, s);
+    case 1:
+      return (int)launch<__nv_bfloat16>(q, k, v, bias, out, (float*)lse, B,
+                                        H, Sq, Sk, D, causal, scale, thresh,
+                                        keep_scale, seed, s);
+    case 2:
+      return (int)launch<__half>(q, k, v, bias, out, (float*)lse, B, H, Sq,
+                                 Sk, D, causal, scale, thresh, keep_scale,
+                                 seed, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

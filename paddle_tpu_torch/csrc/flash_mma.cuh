@@ -1,12 +1,16 @@
 // Tensor-core pieces of the flash-attention kernels (flash_fwd.cu K2,
 // flash_bwd_dq.cu K3, flash_bwd_dkv.cu K4) and of the splash backward
 // kernels (splash_bwd_dq.cu K6, splash_bwd_dkv.cu K7): swizzled shared
-// tiles fed by cp.async, and warp-level mma.sync products in both input
-// types.
+// tiles fed by cp.async, and warp-level mma.sync products in every input
+// type.
 //
-// - bfloat16: mma.sync m16n8k16 with bf16 operands and fp32 sums. A
-//   operands from shared memory come through ldmatrix, B operands through
-//   ldmatrix (B stored [n][k]) or ldmatrix.trans (B stored [k][n]).
+// - bfloat16 and float16 (the 16-bit types, `Half16<T>`): mma.sync
+//   m16n8k16 with 16-bit operands and fp32 sums. The two differ only in
+//   the instruction's operand type and in the rounding of packed fp32
+//   values, so every tile, fragment and product below is written once
+//   for both (only K2-K4 are instantiated in float16). A operands from
+//   shared memory come through ldmatrix, B operands through ldmatrix (B
+//   stored [n][k]) or ldmatrix.trans (B stored [k][n]).
 // - float32: 3xTF32 on mma.sync m16n8k8. Each operand x splits into
 //   hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and a product is
 //   a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (small terms first): fp32 accuracy at
@@ -19,21 +23,22 @@
 // lane = 4 * g + t:
 //   accumulator C (16 x 8):   c0, c1 at (row g, cols 2t, 2t+1),
 //                             c2, c3 at (row g+8, cols 2t, 2t+1)
-//   bf16 A (16 x 16):         a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
+//   16-bit A (16 x 16):       a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
 //                             a3 (g+8, 2t+8..)
-//   bf16 B (16 x 8):          b0 (rows 2t, 2t+1; col g), b1 (rows 2t+8, 2t+9)
+//   16-bit B (16 x 8):        b0 (rows 2t, 2t+1; col g), b1 (rows 2t+8, 2t+9)
 //   tf32 A (16 x 8):          a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
 //   tf32 B (8 x 8):           b0 (row t, col g), b1 (row t+4, col g)
 // An accumulator is reused as the A operand of the next product in
-// registers (FlashAttention-2): in bf16 two n8 accumulators pack into one
-// k16 A fragment as they stand. In tf32 the accumulator holds columns 2t
-// and 2t+1 where A wants t and t+4, so the k index is permuted: slot t
-// carries column 2t and slot t+4 column 2t+1, and the B fragment is read
-// from rows 2t and 2t+1 to match (a sum over k does not depend on its
-// order).
+// registers (FlashAttention-2): in a 16-bit type two n8 accumulators pack
+// into one k16 A fragment as they stand. In tf32 the accumulator holds
+// columns 2t and 2t+1 where A wants t and t+4, so the k index is
+// permuted: slot t carries column 2t and slot t+4 column 2t+1, and the B
+// fragment is read from rows 2t and 2t+1 to match (a sum over k does not
+// depend on its order).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,7 +51,7 @@ namespace fmma {
 // A [rows, D] tile of T kept in 16-byte chunks. Chunk c of row r lies in
 // chunk slot `slot(r, c)`, XOR-swizzled so that the reads of one phase fall
 // in 8 different 16-byte bank groups:
-// - bf16: one ldmatrix phase reads one chunk of 8 consecutive rows, so
+// - 16-bit: one ldmatrix phase reads one chunk of 8 consecutive rows, so
 //   chunk c of row r goes to c ^ (r % 8). Rows of 64 bytes (D 32) swizzle
 //   each 128-byte line of two rows instead.
 // - float: a quarter-warp of 16-byte fragment loads (mma_abt) reads 4
@@ -136,14 +141,51 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
       : "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// The 16-bit operand types: c += a * b on mma.sync m16n8k16 with fp32
+// sums, two floats packed (rounded to nearest even) into one register of
+// the type, and a pair of floats stored as the type.
+template <typename T>
+struct Half16;
+
+template <>
+struct Half16<__nv_bfloat16> {
+  __device__ __forceinline__ static void mma(float c[4], const uint32_t a[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  __device__ __forceinline__ static void store2(__nv_bfloat16* p, float x,
+                                                float y) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+  }
+};
+
+template <>
+struct Half16<__half> {
+  __device__ __forceinline__ static void mma(float c[4], const uint32_t a[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  __device__ __forceinline__ static void store2(__half* p, float x,
+                                                float y) {
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
+  }
+};
 
 __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
                                          uint32_t b0, uint32_t b1) {
@@ -179,13 +221,8 @@ __device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t ah[4],
   mma_tf32(c, ah, bh[0], bh[1]);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // The A operand of one k16 step of A B^T for one warp (rows ra .. ra+15):
-// bf16 one m16k16 ldmatrix fragment; fp32 two m16k8 fragments, each split
+// 16-bit one m16k16 ldmatrix fragment; fp32 two m16k8 fragments, each split
 // into tf32 hi and lo. K2 keeps Q's fragments in registers across its key
 // tiles (but fp32 at D 128); mma_abt loads them step by step.
 template <typename T>
@@ -247,14 +284,15 @@ __device__ __forceinline__ void mma_abt_step(float (&acc)[NT][4],
       mma_3xtf32(acc[j], f.hi[1], f.lo[1], bh[1], bl[1]);
     }
   } else {
-    static_assert(NT % 2 == 0, "bf16 B fragments come two n-tiles at a time");
+    static_assert(NT % 2 == 0,
+                  "16-bit B fragments come two n-tiles at a time");
 #pragma unroll
     for (int j = 0; j < NT; j += 2) {
       uint32_t b[4];
       ldsm_x4(b, Bs + TL::at(rb + 8 * j + (lane & 7) + (lane >> 4) * 8,
                              kk + ((lane >> 3) & 1) * 8));
-      mma_bf16(acc[j], f.a, b[0], b[1]);
-      mma_bf16(acc[j + 1], f.a, b[2], b[3]);
+      Half16<T>::mma(acc[j], f.a, b[0], b[1]);
+      Half16<T>::mma(acc[j + 1], f.a, b[2], b[3]);
     }
   }
 }
@@ -276,7 +314,8 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const T* As,
 // acc[D/8][4] += P * B[rb : rb+8*KT, 0:D], one warp, where P (16 x 8*KT)
 // is held in accumulator fragments p[KT][4] and B is a swizzled [rows, D]
 // tile read with its rows as the k index (dS K, Pd^T dO, dS^T Q). P is
-// rounded to bf16 for bf16 tiles and split into tf32 pairs for float tiles.
+// rounded to the tile's type for 16-bit tiles and split into tf32 pairs
+// for float tiles.
 // For float tiles the output columns are permuted so that a thread's B
 // values come in 16-byte loads: column n of n-tile j is d = out_col<D>(j, n)
 // (store_rows puts them back).
@@ -320,29 +359,25 @@ __device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4],
       }
     }
   } else {
-    static_assert(KT % 2 == 0, "a bf16 k16 step takes two accumulators");
+    static_assert(KT % 2 == 0, "a 16-bit k16 step takes two accumulators");
+    using H = Half16<T>;
 #pragma unroll
     for (int kc = 0; kc < KT / 2; ++kc) {
-      const uint32_t a[4] = {pack_bf16(p[2 * kc][0], p[2 * kc][1]),
-                             pack_bf16(p[2 * kc][2], p[2 * kc][3]),
-                             pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
-                             pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
+      const uint32_t a[4] = {H::pack(p[2 * kc][0], p[2 * kc][1]),
+                             H::pack(p[2 * kc][2], p[2 * kc][3]),
+                             H::pack(p[2 * kc + 1][0], p[2 * kc + 1][1]),
+                             H::pack(p[2 * kc + 1][2], p[2 * kc + 1][3])};
 #pragma unroll
       for (int j = 0; j < D / 8; j += 2) {
         uint32_t b[4];
         ldsm_x4_trans(b, Bs + TL::at(rb + 16 * kc + (lane & 7)
                                          + ((lane >> 3) & 1) * 8,
                                      8 * j + (lane >> 4) * 8));
-        mma_bf16(acc[j], a, b[0], b[1]);
-        mma_bf16(acc[j + 1], a, b[2], b[3]);
+        H::mma(acc[j], a, b[0], b[1]);
+        H::mma(acc[j + 1], a, b[2], b[3]);
       }
     }
   }
-}
-
-// Store an accumulator pair (columns 2t, 2t+1 of one row) in bf16.
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 // Store a warp's [16, D] accumulator acc[D/8][4] from mma_pb times `mul`
@@ -367,9 +402,10 @@ __device__ __forceinline__ void store_rows(T* out, float (&acc)[D / 8][4],
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int c = 8 * j + 2 * t;
-      store2(out + (size_t)g * D + c, acc[j][0] * mul, acc[j][1] * mul);
-      store2(out + (size_t)(g + 8) * D + c, acc[j][2] * mul,
-             acc[j][3] * mul);
+      Half16<T>::store2(out + (size_t)g * D + c, acc[j][0] * mul,
+                        acc[j][1] * mul);
+      Half16<T>::store2(out + (size_t)(g + 8) * D + c, acc[j][2] * mul,
+                        acc[j][3] * mul);
     }
   }
 }

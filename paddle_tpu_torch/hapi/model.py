@@ -36,19 +36,27 @@ and the mean divides by the real rows. The model must be built with
 `inputs=` specs, so `_split_batch` knows how many leading pack leaves
 feed the network.
 
-Not ported yet (ROADMAP): metrics, AMP (`amp_configs`), tail bucketing
+AMP, as in the JAX package: `prepare(amp_configs=...)` takes a level
+("O1"/"O2", or a dict's "level"), and `train_batch` runs the forward
+and the loss (masked or not) under `amp.auto_cast(level=...)` in the
+default bfloat16; the loss is then the float32 mean. `eval_batch` and
+`predict_batch` run in the parameters' type, outside AMP.
+
+Not ported yet (ROADMAP): metrics, tail bucketing
 (row-padding the last partial batch: it saves the JAX package an XLA
 compile, and eager PyTorch has none to save), the fleet path,
 `DeviceFeeder`, and `save(training=False)` (export).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
 import numpy as np
 import torch
 
+from .. import amp
 from ..framework import monitor
 from ..io import DataLoader, Dataset
 from . import callbacks as cbks_mod
@@ -100,6 +108,7 @@ class Model:
         self._labels = labels
         self._optimizer = None
         self._loss = None
+        self._amp_level = None
         self.stop_training = False
 
     # -- preparation --------------------------------------------------------
@@ -108,10 +117,10 @@ class Model:
         if metrics:
             raise NotImplementedError("Model.prepare: metrics are not "
                                       "ported yet")
+        self._amp_level = None
         if amp_configs is not None:
-            raise NotImplementedError("Model.prepare: AMP (amp_configs) is "
-                                      "not ported yet; training runs in "
-                                      "the parameters' type")
+            self._amp_level = (amp_configs if isinstance(amp_configs, str)
+                               else amp_configs.get("level", "O1"))
         self._optimizer = optimizer
         self._loss = loss
         if optimizer is not None and optimizer._parameter_list is None:
@@ -236,7 +245,8 @@ class Model:
 
     # -- steps --------------------------------------------------------------
     def train_batch(self, inputs, labels=None, update=True, loss_mask=None):
-        """One training step. `update=False` leaves the gradients in the
+        """One training step (under `amp.auto_cast` when prepared with
+        `amp_configs`). `update=False` leaves the gradients in the
         parameters' `.grad` (they accumulate over calls) and skips the
         optimizer. `loss_mask`: a token [rows, T] or row [rows] mask
         folded into the loss (`_masked_loss`). Returns ([loss], []) with
@@ -245,7 +255,9 @@ class Model:
         ins = self._place(_flatten_batch(inputs))
         lbs = self._place(_flatten_batch(labels or []))
         self.network.train()
-        lv = self._step_loss(self.network(*ins), lbs, loss_mask)
+        with (amp.auto_cast(level=self._amp_level) if self._amp_level
+              else contextlib.nullcontext()):
+            lv = self._step_loss(self.network(*ins), lbs, loss_mask)
         lv.backward()
         if update:
             self._optimizer.step()

@@ -12,6 +12,14 @@ advances one position through caller-supplied `write_kv`/`attend` hooks.
 Both consumers run these exact expressions, which is what keeps the
 engine's greedy output token-identical to `generate()`.
 
+The layers are the port's `nn` layers (`Linear`, `Embedding`,
+`LayerNorm`, `GELU`, `Dropout`: torch.nn subclasses whose forwards go
+through the port's named ops), and the LM head is
+`ops.linalg.matmul(h, wte, transpose_y=True)`, so `amp.auto_cast` casts
+the training forward where the JAX package's does. The decode math
+below runs plain torch ops, outside every AMP hook, as the JAX package's
+runs raw jnp outside `apply_op`: AMP never reaches serving.
+
 Decode weights keep PyTorch's `[out, in]` Linear layout and go through
 `F.linear`; the JAX package stores `[in, out]`.
 """
@@ -25,6 +33,8 @@ from torch import nn
 from ..framework.errors import InvalidArgumentError
 from ..framework.place import resolve_device
 from ..nn.functional import scaled_dot_product_attention
+from ..nn.layer import GELU, Dropout, Embedding, LayerNorm, Linear
+from ..ops.linalg import matmul
 from ..ops.paged_ops import cached_attention
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_prefill",
@@ -174,10 +184,10 @@ class CausalSelfAttention(nn.Module):
         self.num_heads = cfg.num_heads
         self.head_dim = E // cfg.num_heads
         kw = dict(device=device, dtype=dtype)
-        self.q_proj = nn.Linear(E, E, **kw)
-        self.k_proj = nn.Linear(E, E, **kw)
-        self.v_proj = nn.Linear(E, E, **kw)
-        self.out_proj = nn.Linear(E, E, **kw)
+        self.q_proj = Linear(E, E, **kw)
+        self.k_proj = Linear(E, E, **kw)
+        self.v_proj = Linear(E, E, **kw)
+        self.out_proj = Linear(E, E, **kw)
         self.dropout = cfg.dropout
 
     def forward(self, x):
@@ -200,14 +210,14 @@ class GPTBlock(nn.Module):
             raise InvalidArgumentError(
                 "MoE blocks (MoEFeedForward) are not yet ported")
         kw = dict(device=device, dtype=dtype)
-        self.ln1 = nn.LayerNorm(cfg.hidden_size, **kw)
+        self.ln1 = LayerNorm(cfg.hidden_size, **kw)
         self.attn = CausalSelfAttention(cfg, **kw)
-        self.ln2 = nn.LayerNorm(cfg.hidden_size, **kw)
+        self.ln2 = LayerNorm(cfg.hidden_size, **kw)
         self.mlp = nn.Sequential(
-            nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw),
-            nn.GELU(),
-            nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw))
-        self.dropout = nn.Dropout(cfg.dropout)
+            Linear(cfg.hidden_size, cfg.intermediate_size, **kw),
+            GELU(),
+            Linear(cfg.intermediate_size, cfg.hidden_size, **kw))
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x):
         x = x + self.dropout(self.attn(self.ln1(x)))
@@ -222,13 +232,13 @@ class GPTModel(nn.Module):
         cfg = cfg or GPTConfig(**kwargs)
         self.config = cfg
         kw = dict(device=resolve_device(device), dtype=dtype)
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
-        self.wpe = nn.Embedding(cfg.max_position_embeddings,
-                                cfg.hidden_size, **kw)
-        self.drop = nn.Dropout(cfg.dropout)
+        self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.wpe = Embedding(cfg.max_position_embeddings, cfg.hidden_size,
+                             **kw)
+        self.drop = Dropout(cfg.dropout)
         self.blocks = nn.ModuleList([GPTBlock(cfg, **kw)
                                      for _ in range(cfg.num_layers)])
-        self.ln_f = nn.LayerNorm(cfg.hidden_size, **kw)
+        self.ln_f = LayerNorm(cfg.hidden_size, **kw)
 
     def forward(self, input_ids):
         s = input_ids.shape[1]
@@ -270,7 +280,8 @@ class GPTForCausalLM(nn.Module):
                 mod.bias.zero_()
 
     def forward(self, input_ids):
-        return TF.linear(self.gpt(input_ids), self.gpt.wte.weight)
+        return matmul(self.gpt(input_ids), self.gpt.wte.weight,
+                      transpose_y=True)
 
     def decode_weights(self):
         """The decode-math weight dict shared by `generate()` and
@@ -358,8 +369,8 @@ def load_reference_state(model: nn.Module, arrays) -> None:
     weights [in, out] and PyTorch [out, in], so every `nn.Linear` weight
     is transposed; embeddings and everything else copy as they are.
     Raises InvalidArgumentError on a missing, extra or mis-shaped key."""
-    linear = {f"{n}.weight" for n, m in model.named_modules()
-              if isinstance(m, nn.Linear)}
+    linear = {f"{n}.weight" if n else "weight"
+              for n, m in model.named_modules() if isinstance(m, nn.Linear)}
     own = model.state_dict()
     missing = sorted(set(own) - set(arrays))
     extra = sorted(set(arrays) - set(own))

@@ -20,6 +20,13 @@ passes, counted in STAT_splash_dispatches; else the dense fallback with
 the same segment-within-causal mask, so packed batches are always
 correct and only the work differs.
 
+AMP, as in the JAX package: the flash entry casts as the white op
+"flash_attention" (its key-padding bias stays float32), the plain
+branch as the white op "sdpa" (a float mask too); the splash
+("splash_attention") and the dense segment-masked ("sdpa_segment")
+branches are in no list, so their q/k/v run in the type the projections
+gave them.
+
 Everything else runs `_sdpa_ref`, the JAX package's fallback math
 exactly: bottom-right causal alignment when S < K (the KV-cache decode
 shape), -1e30 masking, dropout on the probabilities (upscale-in-train),
@@ -30,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import amp
 from ...framework import monitor
 from ...framework.flags import flag
 from ...ops.flash_ops import flash_attention, flash_supported
@@ -45,7 +53,10 @@ def _sdpa_ref(q, k, v, mask, scale, is_causal, dropout_p=0.0,
     # q,k,v: [B, H, S, D]; seg: (q_seg [B,S], kv_seg [B,K]) packed-row
     # segment ids, cross-segment pairs masked as the splash kernels do
     s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
-    neg = torch.full((), _NEG, dtype=s.dtype, device=s.device)
+    # -1e30 in s's type, by conversion: -inf in float16, as the JAX
+    # package's jnp.where(..., s, -1e30) gives (a row with no visible key
+    # is then NaN in float16 there too)
+    neg = torch.full((), _NEG, device=s.device).to(s.dtype)
     allowed = None
     if is_causal:
         S, K = s.shape[-2], s.shape[-1]
@@ -122,15 +133,26 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                     causal=is_causal, scale=scale,
                                     dropout_p=eff_dropout,
                                     generator=generator)
+        query, key, value = amp.cast_args("sdpa_segment", query, key,
+                                          value)
         return _sdpa_ref(query, key, value, None, scale, is_causal,
                          eff_dropout, generator,
                          seg=(_ids(q_seg, query.device),
                               _ids(kv_seg, query.device)))
-    if flag("FLAGS_use_flash_attention") and flash_supported(
-            tuple(query.shape), tuple(key.shape), tuple(value.shape),
-            attn_mask, is_causal=is_causal):
-        return flash_attention(query, key, value, causal=is_causal,
-                               scale=scale, attn_mask=attn_mask,
-                               dropout_p=eff_dropout, generator=generator)
+    if flag("FLAGS_use_flash_attention"):
+        # the gate sees the types flash_attention's AMP cast will give
+        fq, fk, fv = amp.cast_args("flash_attention", query, key, value)
+        if flash_supported(tuple(fq.shape), tuple(fk.shape),
+                           tuple(fv.shape), attn_mask, is_causal=is_causal,
+                           dtype={fq.dtype, fk.dtype, fv.dtype}):
+            return flash_attention(fq, fk, fv, causal=is_causal,
+                                   scale=scale, attn_mask=attn_mask,
+                                   dropout_p=eff_dropout,
+                                   generator=generator)
+    if attn_mask is None:
+        query, key, value = amp.cast_args("sdpa", query, key, value)
+    else:
+        query, key, value, attn_mask = amp.cast_args(
+            "sdpa", query, key, value, attn_mask)
     return _sdpa_ref(query, key, value, attn_mask, scale, is_causal,
                      eff_dropout, generator)

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from ... import amp
+
 __all__ = ["cross_entropy"]
 
 
@@ -26,7 +28,14 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     count 0 and leave the mean's denominator; `weight` [C] weights each
     position by its class, and the mean then divides by the summed
     weights of the counted positions. Soft labels: a distribution shaped
-    like `input`. `reduction` is "mean", "sum" or "none"."""
+    like `input`. `reduction` is "mean", "sum" or "none". AMP's black op
+    "cross_entropy": under AMP autocast-type logits (and soft labels, and
+    weight) are cast up to float32."""
+    if weight is None:
+        input, label = amp.cast_args("cross_entropy", input, label)
+    else:
+        input, label, weight = amp.cast_args("cross_entropy", input, label,
+                                             weight)
     if use_softmax:
         logp = torch.log_softmax(input, dim=axis)
     else:

@@ -15,8 +15,12 @@ Counterpart of `paddle_tpu/ops/pallas_ops.py` (`flash_attention`,
   `flash_attention_dkv` (K4, `csrc/flash_bwd_dkv.cu`): a CUDA `q`
   launches the hand-written kernel or raises; a CPU `q` runs the plain
   version (`_flash_fwd_reference`, `_dq_reference`, `_dkv_reference`).
-  Each wrapper's `.launches` counts its kernel launches, and
+  Each wrapper's `.launches` counts its kernel launches (and
+  `.launches_by_dtype` by operand type), and
   `STAT_flash_attention_fwd` / `_bwd` count them process-wide.
+- Types: float32 (3xTF32), bfloat16 and float16 (mma.sync with fp32
+  sums); `flash_supported(dtype=...)` and `_check` take the same three,
+  as the JAX package's kernels take q's type (`pallas_ops.py:342`).
 - Dropout: keep(i, j) <=> fmix32-chain hash of (seed, b*H + h, i, j) >=
   `_drop_thresh(p)`. The mask is keyed on absolute coordinates, so the
   forward and both backward kernels regenerate the same mask whatever
@@ -33,10 +37,12 @@ Counterpart of `paddle_tpu/ops/pallas_ops.py` (`flash_attention`,
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
+from .. import amp
 from ..framework import monitor
 from ..framework import random as frandom
 from ..framework.errors import InvalidArgumentError
@@ -52,7 +58,7 @@ _BLOCK_MIN = 128        # alignment the gate requires of S_q / S_kv
 _NEG_INF = -1e30
 _KERNEL_TILE = 64       # the CUDA kernels' q and kv tile
 _HEAD_DIMS = (32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _M32 = 0xFFFFFFFF
 
 
@@ -199,11 +205,17 @@ def _flash_bwd_reference(q, k, v, bias, out, lse, dout, causal, scale,
 # -- the shape gate ---------------------------------------------------------------
 
 def flash_supported(q_shape, k_shape=None, v_shape=None, mask=None,
-                    is_causal=False, min_seq=None):
+                    is_causal=False, min_seq=None, dtype=None):
     """Static gate: shapes the kernels handle. The JAX package's rules
     (4-D, matching B/H/D, causal only with Sq == Sk, sequence lengths
     multiples of 128, Sq >= FLAGS_flash_attention_min_seq, a [B,1,1,Sk]
-    key-padding mask at most) plus these kernels' head dims (32/64/128)."""
+    key-padding mask at most) plus these kernels' head dims (32/64/128)
+    and, when `dtype` is given (a torch dtype, or the set of q's, k's and
+    v's), the types `_check` takes: one of float32, bfloat16, float16."""
+    if dtype is not None:
+        types = dtype if isinstance(dtype, (set, frozenset)) else {dtype}
+        if len(types) != 1 or next(iter(types)) not in _DTYPES:
+            return False
     if len(q_shape) != 4:
         return False
     B, H, Sq, D = q_shape
@@ -267,16 +279,18 @@ def _launch(src, tensors, q, k, causal, scale, dropout_p, seed,
         raise RuntimeError(f"{entry} launch failed: {es(err).decode()}")
 
 
-def _check(q, k, v, bias, **rest):
-    """What the kernels take: float32 or bfloat16 q/k/v (and the other
-    [B,H,S,D] operands) of one type, head_dim 32/64/128, sequence lengths
-    multiples of 64, float32 [B, Sk] bias and [B*H, Sq] statistics,
-    everything contiguous on q's device."""
+def _check(q, k, v, bias, dtypes=_DTYPES, **rest):
+    """What the kernels take: q/k/v (and the other [B,H,S,D] operands) of
+    one type among `dtypes` (the flash kernels' float32, bfloat16 and
+    float16 by default), head_dim 32/64/128, sequence lengths multiples
+    of 64, float32 [B, Sk] bias and [B*H, Sq] statistics, everything
+    contiguous on q's device."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
+        names = "/".join(str(t).replace("torch.", "") for t in dtypes)
         raise InvalidArgumentError(
-            f"flash kernels take float32 or bfloat16 q/k/v of one type, got "
+            f"these kernels take q/k/v of one type among {names}, got "
             f"{q.dtype}/{k.dtype}/{v.dtype}")
     if D not in _HEAD_DIMS or Sq % _KERNEL_TILE or Sk % _KERNEL_TILE \
             or tuple(k.shape) != (B, H, Sk, D) or k.shape != v.shape:
@@ -330,7 +344,7 @@ def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None,
     lse = torch.empty(B * H, Sq, dtype=torch.float32, device=q.device)
     _launch("flash_fwd.cu", (q, k, v, bias, out, lse), q, k, causal, scale,
             dropout_p, seed)
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, q.dtype)
     monitor.stat_add("STAT_flash_attention_fwd")
     return out, lse
 
@@ -348,7 +362,7 @@ def flash_attention_dq(q, k, v, bias, dout, lse, delta, causal, scale,
     dq = torch.empty_like(q)
     _launch("flash_bwd_dq.cu", (q, k, v, bias, dout, lse, delta, dq), q, k,
             causal, scale, dropout_p, seed)
-    flash_attention_dq.launches += 1
+    _count(flash_attention_dq, q.dtype)
     monitor.stat_add("STAT_flash_attention_bwd")
     return dq
 
@@ -367,14 +381,21 @@ def flash_attention_dkv(q, k, v, bias, dout, lse, delta, causal, scale,
     dv = torch.empty_like(v)
     _launch("flash_bwd_dkv.cu", (q, k, v, bias, dout, lse, delta, dk, dv),
             q, k, causal, scale, dropout_p, seed)
-    flash_attention_dkv.launches += 1
+    _count(flash_attention_dkv, q.dtype)
     monitor.stat_add("STAT_flash_attention_bwd")
     return dk, dv
 
 
-flash_attention_fwd.launches = 0
-flash_attention_dq.launches = 0
-flash_attention_dkv.launches = 0
+def _count(wrapper, dtype):
+    """One kernel launch of `wrapper`, in `.launches` and in
+    `.launches_by_dtype` under the operands' type ("bfloat16")."""
+    wrapper.launches += 1
+    wrapper.launches_by_dtype[str(dtype).replace("torch.", "")] += 1
+
+
+for _w in (flash_attention_fwd, flash_attention_dq, flash_attention_dkv):
+    _w.launches = 0
+    _w.launches_by_dtype = collections.Counter()
 
 
 # -- autograd and the framework entry ---------------------------------------------
@@ -421,7 +442,11 @@ def flash_attention(query, key, value, causal=False, scale=None,
     attn_mask: None, or a [B, 1, 1, S_kv] additive (float) / boolean
     key-padding mask. With dropout, the int32 seed of the keep mask comes
     from `generator` when given, else from `framework.random.next_seed`
-    for the query's device (as `pallas_ops.py:516-520` draws it)."""
+    for the query's device (as `pallas_ops.py:516-520` draws it). AMP's
+    white op "flash_attention": under AMP float32 q/k/v are cast to the
+    autocast type; the bias is not an argument of the op (it is closed
+    over in the JAX package) and stays float32, as the kernels need."""
+    query, key, value = amp.cast_args("flash_attention", query, key, value)
     if scale is None:
         scale = 1.0 / (query.shape[-1] ** 0.5)
     bias = None if attn_mask is None else _mask_to_bias(

@@ -25,8 +25,11 @@ of that span, and the work follows the real tokens, not the row shape.
   launches the hand-written kernel or raises; a CPU `q` runs the plain
   version (`_splash_fwd_reference`, `_splash_dq_reference`,
   `_splash_dkv_reference`). Each wrapper's `.launches` counts its kernel
-  launches, and `STAT_splash_attention_fwd` / `_bwd` count them
+  launches (and `.launches_by_dtype` by operand type), and `STAT_splash_attention_fwd` / `_bwd` count them
   process-wide.
+- Types: float32 and bfloat16 (`_DTYPES`). There is no float16 build
+  yet: a float16 `q` on the card raises InvalidArgumentError in `_check`,
+  never a quiet plain path (ROADMAP C8; the flash kernels take float16).
 - A row with no visible key (its segment absent from kv) outputs zeros
   and its LSE is -1e30, as the TPU kernel's `l_safe` gives.
 - Dropout uses `flash_ops._keep_mask`, the flash kernels' coordinate
@@ -34,14 +37,18 @@ of that span, and the work follows the real tokens, not the row shape.
 """
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
+from .. import amp
 from ..framework import monitor
 from ..framework.errors import InvalidArgumentError
 from ..framework.flags import flag
 from .flash_ops import (_BLOCK_MIN, _HEAD_DIMS, _KERNEL_TILE, _NEG_INF,
-                        _check, _delta, _dropout_seed, _keep_mask, _launch)
+                        _check, _count, _delta, _dropout_seed, _keep_mask,
+                        _launch)
 
 __all__ = ["splash_attention", "SplashAttention", "splash_attention_fwd",
            "splash_attention_dq", "splash_attention_dkv", "splash_supported",
@@ -110,6 +117,8 @@ def _block_bounds(q_seg, kv_seg, block_q, block_k, causal):
                  for t in (kv_lo, kv_hi, q_lo, q_hi))
 
 
+# the types K5-K7 are built for, with the C entries' dtype codes
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SUB_ROWS, _SUB_COLS = 16, 8   # a warp's rows, an mma n-tile's columns
 
 
@@ -340,7 +349,7 @@ def _kernel_args(q, k, v, q_seg, kv_seg, causal, bounds, which, **rest):
     """Check a CUDA launch's operands; returns its (lo, hi) bounds, computed
     here when the caller passed none (`which` 0: the key spans of K5/K6,
     2: the query spans of K7)."""
-    _check(q, k, v, None, **rest)
+    _check(q, k, v, None, dtypes=_DTYPES, **rest)
     if tuple(k.shape) != tuple(q.shape):
         raise InvalidArgumentError(
             f"splash kernels: self-attention only, q {tuple(q.shape)} k "
@@ -372,7 +381,7 @@ def splash_attention_fwd(q, k, v, q_seg, kv_seg, causal=False, scale=None,
     lse = torch.empty(B * H, S, dtype=torch.float32, device=q.device)
     _launch("splash_fwd.cu", (q, k, v, q_seg, kv_seg, lo, hi, out, lse), q,
             k, causal, scale, dropout_p, seed, entries=_ENTRIES)
-    splash_attention_fwd.launches += 1
+    _count(splash_attention_fwd, q.dtype)
     monitor.stat_add("STAT_splash_attention_fwd")
     return out, lse
 
@@ -393,7 +402,7 @@ def splash_attention_dq(q, k, v, q_seg, kv_seg, dout, lse, delta, causal,
     _launch("splash_bwd_dq.cu", (q, k, v, q_seg, kv_seg, lo, hi, dout, lse,
                                  delta, dq), q, k, causal, scale, dropout_p,
             seed, entries=_ENTRIES)
-    splash_attention_dq.launches += 1
+    _count(splash_attention_dq, q.dtype)
     monitor.stat_add("STAT_splash_attention_bwd")
     return dq
 
@@ -414,14 +423,14 @@ def splash_attention_dkv(q, k, v, q_seg, kv_seg, dout, lse, delta, causal,
     _launch("splash_bwd_dkv.cu", (q, k, v, q_seg, kv_seg, lo, hi, dout, lse,
                                   delta, dk, dv), q, k, causal, scale,
             dropout_p, seed, entries=_ENTRIES)
-    splash_attention_dkv.launches += 1
+    _count(splash_attention_dkv, q.dtype)
     monitor.stat_add("STAT_splash_attention_bwd")
     return dk, dv
 
 
-splash_attention_fwd.launches = 0
-splash_attention_dq.launches = 0
-splash_attention_dkv.launches = 0
+for _w in (splash_attention_fwd, splash_attention_dq, splash_attention_dkv):
+    _w.launches = 0
+    _w.launches_by_dtype = collections.Counter()
 
 
 # -- autograd and the framework entry ---------------------------------------------
@@ -476,7 +485,10 @@ def splash_attention(query, key, value, q_seg, kv_seg, causal=False,
     per row; a pack's padding carries its own trailing segment id, so pad
     tokens only ever attend to each other. With dropout, the int32 seed
     of the keep mask comes from `generator` when given, else from
-    `framework.random.next_seed` for the query's device."""
+    `framework.random.next_seed` for the query's device. The AMP op
+    "splash_attention" is in no list: q/k/v keep their type unless a
+    custom list of `auto_cast` names it."""
+    query, key, value = amp.cast_args("splash_attention", query, key, value)
     if scale is None:
         scale = 1.0 / (query.shape[-1] ** 0.5)
     _check_monotonic(q_seg)

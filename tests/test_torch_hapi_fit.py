@@ -202,9 +202,22 @@ def test_save_load_round_trip(tmp_path):
 
 
 def test_unported_options_raise():
-    net = GPTForCausalLM(GPTConfig.tiny(), device="cpu")
+    """Metrics and DataLoader workers are not ported and raise. AMP is
+    ported: `prepare(amp_configs="O1")` returns the model and
+    `train_batch` runs, its logits bfloat16 inside the step and its loss
+    a finite float32 (tests/test_torch_amp.py holds it to the JAX
+    package)."""
+    net = GPTForCausalLM(GPTConfig.tiny(dropout=0.0), device="cpu")
     model = hapi.Model(net)
     with pytest.raises(NotImplementedError):
-        model.prepare(optimizer.SGD(0.1), amp_configs="O1")
+        model.prepare(optimizer.SGD(0.1), metrics=[object()])
+    assert model.prepare(optimizer.SGD(0.1), nn.CrossEntropyLoss(),
+                         amp_configs="O1") is model
+    seen = []
+    net.register_forward_hook(lambda m, i, out: seen.append(out.dtype))
+    ids = torch.from_numpy(_motif_tokens(2, 512, seed=4)[:, :17])
+    (lv,), _ = model.train_batch([ids[:, :-1]], [ids[:, 1:]])
+    assert seen == [torch.bfloat16]
+    assert lv.dtype == torch.float32 and torch.isfinite(lv)
     with pytest.raises(NotImplementedError):
         io.DataLoader(io.TensorDataset([np.zeros((2, 3))]), num_workers=2)

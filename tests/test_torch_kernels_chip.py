@@ -84,6 +84,12 @@ def test_paged_attention_kernel_raises_on_unserved_head_dim(cuda, D):
     assert paged_ops.paged_attention.launches == n0
 
 
+# max |kernel - plain| <= TOL x max(1, max |plain|) in the 16-bit types: one
+# rounding of P (K2), of dS / Pd (K3, K4) and of the output; float16 keeps
+# 10 mantissa bits to bfloat16's 7
+TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3}
+
+
 def _assert_within(got, want, tol):
     """max |got - want| <= tol x max(1, max |want|), in float32."""
     err = (got.float() - want.float()).abs().max().item()
@@ -92,15 +98,16 @@ def _assert_within(got, want, tol):
 
 
 @pytest.mark.parametrize("p", [0.0, 0.2])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("D", [32, 64, 128])
 def test_flash_kernel_matches_plain(cuda, causal, D, dtype, p):
     """K2 against `_flash_fwd_reference` on the same inputs and seed, so
     the keep mask is replayed bit for bit: fp32 atol 1e-4 (the products
-    are 3xTF32, fp32-accurate, summed in another order); bf16 1e-2 x
-    max(1, max |ref|) (K2 rounds P to bf16 before P V, and the output to
-    bf16). The bias masks a tail of the second sequence."""
+    are 3xTF32, fp32-accurate, summed in another order); bf16 1e-2 and
+    fp16 2e-3 x max(1, max |ref|) (K2 rounds P to q's type before P V,
+    and the output). The bias masks a tail of the second sequence."""
     g = torch.Generator(device=cuda).manual_seed(D + causal)
     q, k, v = (torch.randn(2, 3, 192, D, generator=g, device=cuda)
                .to(dtype) for _ in range(3))
@@ -116,11 +123,12 @@ def test_flash_kernel_matches_plain(cuda, causal, D, dtype, p):
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     else:
-        _assert_within(out, ref, 1e-2)
+        _assert_within(out, ref, TOL[dtype])
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("p", [0.0, 0.2])
 @pytest.mark.parametrize("causal,Sq,Sk", [(False, 192, 192),
                                           (True, 192, 192),
@@ -129,8 +137,8 @@ def test_flash_kernel_matches_plain(cuda, causal, D, dtype, p):
 def test_flash_backward_kernels_match_plain(cuda, p, causal, Sq, Sk, D,
                                             dtype):
     """K2 with dropout, K3 and K4 against their plain versions on the same
-    inputs and seed: fp32 atol 1e-4, bf16 atol 1e-2 x max(1, max |ref|)
-    (one bf16 rounding of dS / Pd and of the output). S 192 is an odd
+    inputs and seed: fp32 atol 1e-4, bf16 1e-2 and fp16 2e-3 x max(1, max
+    |ref|) (one rounding of dS / Pd and of the output). S 192 is an odd
     number of 64-row tiles, so the double buffers end on either one;
     Sq != Sk holds the non-causal key and query ranges apart."""
     g = torch.Generator(device=cuda).manual_seed(D + causal + Sk)
@@ -144,7 +152,7 @@ def test_flash_backward_kernels_match_plain(cuda, p, causal, Sq, Sk, D,
                                              11)
     ref, ref_lse = flash_ops._flash_fwd_reference(q, k, v, bias, causal,
                                                   0.2, p, 11)
-    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    tol = TOL.get(dtype, 1e-4)
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     else:
@@ -271,6 +279,29 @@ def test_splash_kernels_match_plain(cuda, p, causal, D, dtype, layout):
                                  splash_ops.splash_attention_dq,
                                  splash_ops.splash_attention_dkv)] == \
         [x + 1 for x in n]
+
+
+def test_float16_reaches_flash_but_splash_raises(cuda):
+    """ROADMAP C8. float16 passes flash_supported's type check and K2
+    takes it; K5-K7 have no float16 build, so a float16 splash call on
+    the card raises InvalidArgumentError (never a quiet plain path) and
+    launches nothing."""
+    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+    from paddle_tpu_torch.ops import splash_ops
+    q = torch.randn(1, 2, 128, 64, device=cuda).half()
+    seg = torch.zeros(1, 128, dtype=torch.int32, device=cuda)
+    assert flash_ops.flash_supported(tuple(q.shape), dtype=q.dtype,
+                                     min_seq=128)
+    n2 = flash_ops.flash_attention_fwd.launches_by_dtype["float16"]
+    out = flash_ops.flash_attention(q, q, q, causal=True)
+    assert out.dtype == torch.float16
+    assert flash_ops.flash_attention_fwd.launches_by_dtype["float16"] == \
+        n2 + 1
+    assert splash_ops.splash_supported(tuple(q.shape), min_seq=128)
+    n5 = splash_ops.splash_attention_fwd.launches
+    with pytest.raises(InvalidArgumentError, match="float16"):
+        splash_ops.splash_attention(q, q, q, seg, seg, causal=True)
+    assert splash_ops.splash_attention_fwd.launches == n5
 
 
 def test_splash_absent_segment_rows_are_zero(cuda):
