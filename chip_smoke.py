@@ -36,6 +36,19 @@ Phases:
               own generate(); kernel launch counts read off this run;
               then a GPT with head dim 96 (hidden 768, 8 heads, 2 layers)
               serving 4 requests through K1, token-identical to generate()
+ 5b. features GPT-2 small served with the JAX engine's three scheduling
+              features, each against generate() and the engine with it
+              off: a prefix arm (8 requests sharing a 192-token system
+              prompt + a full-prompt repeat, cache on / off at equal
+              pages: hits, one CoW split, K1 once a layer a step, no
+              page leaked; TTFT p50), a spec arm (spec_k 4: the
+              NGramProposer on motif prompts, spec off, an oracle
+              proposer with acceptance 1.0 in <= ceil(64/5)+1 steps, a
+              reject proposer and a later owner of its pages; no K1
+              launch; tokens/s) and a chunk arm (a 900-token prompt
+              joining 4 live streams with prefill_chunk 128, then 0:
+              8 chunks and no K2 launch, then K2; the live streams'
+              TPOT p50 and p99)
  6. train     GPT-2 small (dropout 0.1, fp32) trained through
               hapi.Model.fit: AdamW under LinearWarmup, global-norm clip,
               cross-entropy, batch 8 x 1024, 20 steps over a seeded
@@ -58,16 +71,18 @@ Phases:
               (first-fit), one padded (one sequence a row, 16 rows);
               effective tokens/s, fill, step wall, K5-K7 launches a step;
               the loss falls; then one packed epoch under
-              amp_configs="O1" (K5-K7 counted in bf16, the loss falls);
-              then packed-vs-padded loss parity on 8 sequences and one
+              amp_configs="O1" (K5-K7 counted in bf16, the loss falls)
+              and one written out under auto_cast(dtype="float16") +
+              GradScaler (K5-K7 counted in fp16); then packed-vs-padded loss parity on 8 sequences and one
               train_batch through K5-K7 against one through the dense
               segment-masked path
 Phase 3 also holds the splash kernels to their plain versions: K5 splash
 forward, K6 splash dQ and K7 splash dK/dV at GPT-2 small's attention
 width (B 8, H 12, S 1024, D 64) and at the packing phase's shape, with
 segment ids from io.PackingCollator over the bench's lengths (causal, p
-0 and 0.1, fp32 and bf16, and a non-causal case whose absent segment
-gives exact zero rows; the packing phase's shape in fp32 and bf16), with
+0 and 0.1, fp32, bf16 and fp16, and a non-causal case whose absent
+segment gives exact zero rows; the packing phase's shape in fp32, bf16
+and fp16), with
 the share of K5's (warp band, key tile) pairs that take its mask-free
 path, the share of the 16x8 sub-tiles of K6's and K7's tiles that can
 hold an allowed pair and, where the library call runs, K5 against the
@@ -77,8 +92,8 @@ SplashAttention's gradients against autograd through the plain forward.
 and packing walls carry them; each train path (fp32, AMP) is profiled
 over 3 steps with its GEMM share.
 Then one JSON line describing the kernels (K2-K4 also as
-"flash_fwd.bfloat16"/".float16" rows and K5-K7 as ".bfloat16" rows,
-their launches counted in that type), and as the last line
+"flash_fwd.bfloat16"/".float16" rows and K5-K7 as ".bfloat16" and
+".float16" rows, their launches counted in that type), and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits 1 with no result;
 no CUDA device, or no paddle_tpu_torch next to this file, exits 2.
 """
@@ -119,6 +134,9 @@ DROPOUT = 0.1
 PACK = dict(T=1024, DIM=256, HEADS=4, VOCAB=8192, NSEQ=2048, BS=64,
             HEADROOM=1.15, PAD_ROWS=16)
 SPLASH_SHAPE = dict(B=8, H=12, S=1024, D=64)   # GPT-2 small's attention
+# phase 5b's engines: phase 5's slots, page and buckets; spec_k of its
+# spec arm
+FEAT = dict(slots=8, page=16, buckets=(16, 64, 256, 1024), spec_k=4)
 # AMP step parity (kernels vs plain path under one AMP): loss rtol, and a
 # gradient's share of its own max (see Smoke.amp_step_parity)
 AMP_LOSS_RTOL = {"bfloat16": 1e-3, "float16": 1e-3}
@@ -777,11 +795,11 @@ class Smoke:
     def check_splash_kernels(self):
         """K5, K6 and K7 against their plain versions on the same inputs,
         ids and seed, as check_train_kernels holds K2-K4 (same
-        tolerances): at GPT-2 small's attention width, causal, fp32 and
-        bf16, p 0 and 0.1, plus a non-causal fp32 case whose kv lacks one
-        query segment (those rows must be exactly 0); and at the packing
-        phase's shape, causal p 0, bf16 and fp32 (the kernels line's
-        row).
+        tolerances, FLASH_TOL): at GPT-2 small's attention width, causal,
+        fp32, bf16 and fp16, p 0 and 0.1, plus a non-causal fp32 case
+        whose kv lacks one query segment (those rows must be exactly 0);
+        and at the packing phase's shape, causal p 0, bf16, fp16 and fp32
+        (the kernels line's rows).
         The bound counts the allowed (query, key) pairs of these ids; the
         library call is SDPA with the boolean segment-within-causal mask
         (no row of these packs is fully masked, so it computes the same
@@ -801,17 +819,18 @@ class Smoke:
                                headroom=PACK["HEADROOM"])
         ph = PACK["HEADS"]
         cases = [("gpt2", dt, True, p, ids, ids)
-                 for dt in ("float32", "bfloat16") for p in (0.0, DROPOUT)]
+                 for dt in ("float32", "bfloat16", "float16")
+                 for p in (0.0, DROPOUT)]
         packs = self.splash_ids(prow, PACK["BS"])
         cases += [("gpt2", "float32", False, 0.0, ids, absent)]
         cases += [("packed_lm", dt, True, 0.0, packs, None)
-                  for dt in ("bfloat16", "float32")]
+                  for dt in ("bfloat16", "float16", "float32")]
         rows = {"fwd": [], "dq": [], "dkv": []}
         for shape, name, causal, p, qs, ks in cases:
             ks = qs if ks is None else ks
             Bc, Hc = (B, H) if shape == "gpt2" else (qs.shape[0], ph)
             dtype = getattr(torch, name)
-            tol = 1e-4 if name == "float32" else 1e-2
+            tol = FLASH_TOL[name]
             g = torch.Generator(device="cuda").manual_seed(11 + causal)
             q, k, v, do = (torch.randn(Bc, Hc, S, D, generator=g,
                                        device="cuda").to(dtype)
@@ -927,9 +946,10 @@ class Smoke:
         pack_shape = f"{packs.shape[0]}x{ph}x{S}x{D}"
         for key, name in (("fwd", "splash_fwd"), ("dq", "splash_bwd_dq"),
                           ("dkv", "splash_bwd_dkv")):
-            # the packing phase's cases: fp32 and (its AMP epoch) bf16 at
-            # the pack shape
-            for dt, sfx in (("float32", ""), ("bfloat16", ".bfloat16")):
+            # the packing phase's cases at the pack shape: fp32, bf16 (its
+            # AMP epoch) and fp16 (its fp16 AMP steps)
+            for dt, sfx in (("float32", ""), ("bfloat16", ".bfloat16"),
+                            ("float16", ".float16")):
                 self.kernel_rows[name + sfx] = next(
                     r for r in rows[key] if r["shape"] == pack_shape
                     and r["dtype"] == dt)
@@ -1105,24 +1125,7 @@ class Smoke:
             compiles=stats["compiles"])
         self.record_path("serving")
         # checks: outputs, identity to generate(), launch counts, pages
-        mismatches = 0
-        for i, (p, out) in enumerate(zip(prompts, results)):
-            assert out is not None, f"request {i} produced no result"
-            assert out.shape == (lens[i] + new[i],), out.shape
-            ref = self.gpt.generate(p[None], max_new_tokens=new[i])[0]
-            ref = ref.cpu().numpy()
-            if not np.array_equal(out, ref):
-                mismatches += 1
-                step = int(np.nonzero(out != ref)[0][0]) - lens[i]
-                with torch.inference_mode():
-                    ctx = torch.as_tensor(ref[:lens[i] + step][None],
-                                          device="cuda")
-                    top2 = torch.topk(self.gpt(ctx)[0, -1], 2).values
-                print(f"request {i} (prompt {lens[i]}): first differing "
-                      f"step {step}, engine token {out[lens[i] + step]} vs "
-                      f"generate {ref[lens[i] + step]}, top-2 logit margin "
-                      f"{(top2[0] - top2[1]).item():.3e}")
-        assert mismatches == 0, f"{mismatches} requests differ from generate()"
+        self.assert_identical("serving", prompts, new, results)
         assert k1 == stats["steps"] * cfg.num_layers, \
             f"paged_attention launches {k1} != steps {stats['steps']} x " \
             f"{cfg.num_layers} layers"
@@ -1130,6 +1133,40 @@ class Smoke:
         assert eng.stats()["pages"]["pages_in_use"] == 0, "pages leaked"
         assert joined_at is not None and joined_at > 0
         self.serving_d96()
+
+    def generate_refs(self, prompts, new):
+        """The port's generate() of each prompt (one call a prompt),
+        host arrays."""
+        return [self.gpt.generate(p[None], max_new_tokens=n)[0]
+                .cpu().numpy() for p, n in zip(prompts, new)]
+
+    def assert_identical(self, label, prompts, new, outs, refs=None):
+        """Every output token-identical to generate(); for each one that
+        differs, print the first differing step and the top-2 logit
+        margin of the full forward there."""
+        torch = self.torch
+        import numpy as np
+        refs = self.generate_refs(prompts, new) if refs is None else refs
+        mismatches = 0
+        for i, (p, out, ref) in enumerate(zip(prompts, outs, refs)):
+            S = len(p)
+            assert out is not None, f"{label}: request {i} produced no result"
+            assert out.shape == (S + new[i],), \
+                f"{label}: request {i} shape {out.shape}"
+            if not np.array_equal(out, ref):
+                mismatches += 1
+                step = int(np.nonzero(out != ref)[0][0]) - S
+                with torch.inference_mode():
+                    ctx = torch.as_tensor(ref[:S + step][None],
+                                          device="cuda")
+                    top2 = torch.topk(self.gpt(ctx)[0, -1], 2).values
+                print(f"{label}: request {i} (prompt {S}): first differing "
+                      f"step {step}, engine token {out[S + step]} vs "
+                      f"generate {ref[S + step]}, top-2 logit margin "
+                      f"{(top2[0] - top2[1]).item():.3e}")
+        assert mismatches == 0, \
+            f"{label}: {mismatches} requests differ from generate()"
+        return refs
 
     def serving_d96(self):
         """ROADMAP C7 on the card: a GPT with head dim 96 (hidden 768, 8
@@ -1177,6 +1214,307 @@ class Smoke:
             f"K1 launched {k1} times in {stats['steps']} steps"
         del eng, gpt
         self.torch.cuda.empty_cache()
+
+    # -- 5b. prefix cache, speculative decoding, chunked prefill ----------------
+
+    def feature_engine(self, name, num_pages, **kw):
+        """GenerationEngine over GPT-2 small at phase 5's settings (8
+        slots, page 16, buckets 16/64/256/1024), built and warmed."""
+        from paddle_tpu_torch.serving import GenerationEngine
+        return GenerationEngine(
+            self.gpt, device="cuda", name=name, max_slots=FEAT["slots"],
+            page_size=FEAT["page"], num_pages=num_pages,
+            prefill_buckets=FEAT["buckets"], max_new_tokens=64,
+            request_timeout_ms=0, **kw)
+
+    def stream_run(self, eng, prompts, new, first=None, join_steps=0):
+        """Submit prompts as streams: all at once while holding the
+        engine's lock (admitted in one pass), or `first` of them, then
+        the rest once the engine has taken `join_steps` steps. Returns
+        (results, per-request token arrival times, submit times, wall
+        seconds)."""
+        n = len(prompts)
+        arrivals = [[] for _ in range(n)]
+        submit_t = [0.0] * n
+        results = [None] * n
+        threads = []
+
+        def consume(i, stream):
+            for _ in stream:
+                arrivals[i].append(time.perf_counter())
+            results[i] = stream.result()
+
+        def submit(i):
+            submit_t[i] = time.perf_counter()
+            st = eng.submit_stream(prompts[i], max_new_tokens=new[i])
+            th = threading.Thread(target=consume, args=(i, st), daemon=True)
+            th.start()
+            threads.append(th)
+
+        t0 = time.perf_counter()
+        if first is None:
+            with eng._cv:
+                for i in range(n):
+                    submit(i)
+        else:
+            for i in range(first):
+                submit(i)
+            while eng.stats()["steps"] < join_steps:
+                time.sleep(0.0005)
+            for i in range(first, n):
+                submit(i)
+        for th in threads:
+            th.join(600)
+        return results, arrivals, submit_t, time.perf_counter() - t0
+
+    def features(self):
+        """Phase 5b: the JAX engine's three scheduling features on the
+        port's engine, GPT-2 small (fp32, seed 0), each arm against the
+        port's generate() and the same engine with the feature off."""
+        if not hasattr(self, "gpt"):
+            from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+            self.gpt = GPTForCausalLM(GPTConfig(), device="cuda",
+                                      seed=0).eval()
+        self.feature_prefix()
+        self.feature_spec()
+        self.feature_chunk()
+
+    def feature_prefix(self):
+        """Prefix arm: 8 greedy requests share one 192-token system
+        prompt (12 pages) plus a distinct 16-token tail, 32 new tokens
+        each; request 0 first, requests 1-7 and a repeat of request 0's
+        whole prompt (a full-prompt match: one CoW split) once it
+        decodes. Cache on and cache off at equal num_pages: outputs
+        identical to each other and to generate(); with the cache on,
+        prefix tokens > 0, prefill_tail[b=..] and cow_copy in the ledger,
+        K1 launched once a layer a decode step, and no page held after
+        the drain but the cached chains (evicting them all empties the
+        pool). TTFT p50 of both arms."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.framework import monitor
+        cfg = self.gpt.gpt.config
+        L, P = cfg.num_layers, FEAT["page"]
+        rng = np.random.RandomState(10)
+        system = rng.randint(0, cfg.vocab_size, size=(192,))
+        prompts = [np.concatenate([system, rng.randint(
+            0, cfg.vocab_size, size=(16,))]) for _ in range(8)]
+        prompts.append(prompts[0].copy())           # the full-prompt repeat
+        new = [32] * len(prompts)
+        num_pages = 1 + sum(-(-(len(p) + n) // P)
+                            for p, n in zip(prompts, new))
+        refs = self.generate_refs(prompts, new)
+        out = {}
+        for arm, on in (("prefix_on", True), ("prefix_off", False)):
+            eng = self.feature_engine(f"chip_smoke_{arm}", num_pages,
+                                      prefix_cache=on)
+            cow0 = monitor.stat_get("STAT_cow_splits")
+            torch.cuda.synchronize()
+            # this path starts here: every launch count from 0
+            self.zero_launches()
+            res, arr, sub, wall = self.stream_run(eng, prompts, new, first=1,
+                                                  join_steps=1)
+            launches = self.record_path(arm)
+            stats = eng.stats()
+            eng.shutdown(drain=True, timeout_s=60)
+            ttft = sorted((a[0] - s) * 1e3 for a, s in zip(arr, sub))
+            toks = sum(len(a) for a in arr)
+            out[arm] = dict(ttft_ms=ttft, ttft_p50_ms=ttft[len(ttft) // 2],
+                            wall_s=wall, tokens_per_s=toks / wall,
+                            steps=stats["steps"], compiles=stats["compiles"],
+                            prefix=stats["kv"]["prefix"],
+                            cow_splits=monitor.stat_get("STAT_cow_splits")
+                            - cow0, launches=launches)
+            print(f"prefix arm {arm} on {self.smi}: {len(prompts)} requests "
+                  f"(192-token system prompt + 16), {toks} tokens in "
+                  f"{wall:.3f} s = {toks / wall:.1f} tokens/s; TTFT p50 "
+                  f"{out[arm]['ttft_p50_ms']:.2f} ms max {ttft[-1]:.2f} ms; "
+                  f"{stats['steps']} steps; K1 launches "
+                  f"{launches['paged_attention']}; prefix "
+                  f"{stats['kv']['prefix']}; CoW splits "
+                  f"{out[arm]['cow_splits']}; compiles {stats['compiles']}")
+            self.assert_identical(arm, prompts, new, res, refs)
+            assert launches["paged_attention"] == stats["steps"] * L, \
+                f"{arm}: K1 launched {launches['paged_attention']} times " \
+                f"in {stats['steps']} steps"
+            cache = eng._cache
+            assert cache.owners() == {}, f"{arm}: pages still owned"
+            if on:
+                p = stats["kv"]["prefix"]
+                assert p["hit_tokens"] > 0 and p["hits"] >= 8, p
+                assert out[arm]["cow_splits"] >= 1, "no CoW split"
+                assert "cow_copy" in stats["compiles"]
+                assert any(k.startswith("prefill_tail[b=")
+                           for k in stats["compiles"]), stats["compiles"]
+                refs_held = cache.refcounts()
+                assert set(refs_held) == set(cache.cached_pages())
+                assert set(refs_held.values()) <= {1}
+                freed = eng._prefix.evict(cache.usable_pages)
+                assert sorted(freed) == sorted(refs_held), "chain leaked"
+            assert cache.pages_in_use == 0, f"{arm}: pages leaked"
+            del eng
+            torch.cuda.empty_cache()
+        print(f"prefix arm on {self.smi}: TTFT p50 cache on "
+              f"{out['prefix_on']['ttft_p50_ms']:.2f} ms, cache off "
+              f"{out['prefix_off']['ttft_p50_ms']:.2f} ms "
+              f"({out['prefix_off']['ttft_p50_ms'] / out['prefix_on']['ttft_p50_ms']:.2f}x)")
+        self.details["feature_prefix"] = out
+
+    def feature_spec(self):
+        """Spec arm: spec_k=4, spec_ngram=3, 8 prompts each a 16-token
+        motif repeated to 256 tokens, 64 new tokens, submitted together:
+        the engine's NGramProposer (acceptance rate recorded, not
+        gated), speculation off (the tokens/s it is held against), an
+        oracle proposer drafting generate()'s own continuation
+        (acceptance rate 1.0, accepted > 0, steps <= ceil(64 / 5) + 1),
+        and a reject proposer (every draft wrong; then a later request
+        reuses the freed pages). Every output identical to generate(),
+        verify[k=4] in the ledger, K1 never launched."""
+        torch = self.torch
+        import numpy as np
+        cfg = self.gpt.gpt.config
+        K, P = FEAT["spec_k"], FEAT["page"]
+        rng = np.random.RandomState(11)
+        prompts = [np.resize(rng.randint(0, cfg.vocab_size, size=(16,)), 256)
+                   for _ in range(8)]
+        new = [64] * len(prompts)
+        refs = self.generate_refs(prompts, new)
+        later, later_new = prompts[0], 96
+        later_ref = self.generate_refs([later], [later_new])
+        num_pages = 1 + len(prompts) * -(-(256 + later_new) // P)
+
+        class Oracle:
+            def propose(self, tokens, k):
+                toks = np.asarray(tokens, np.int32)
+                for full in refs:
+                    if np.array_equal(full[:toks.size], toks):
+                        return full[toks.size:toks.size + k].astype(np.int32)
+                return np.zeros((0,), np.int32)
+
+        class Reject:
+            def propose(self, tokens, k):
+                t = np.asarray(tokens, np.int32)
+                return ((np.repeat(t[-1:], k) + 7)
+                        % cfg.vocab_size).astype(np.int32)
+
+        out = {}
+        for arm, k, proposer in (("spec_ngram", K, None),
+                                 ("spec_off", 0, None),
+                                 ("spec_oracle", K, Oracle()),
+                                 ("spec_reject", K, Reject())):
+            eng = self.feature_engine(f"chip_smoke_{arm}", num_pages,
+                                      spec_k=k, spec_ngram=3)
+            if proposer is not None:
+                eng._proposer = proposer
+            torch.cuda.synchronize()
+            # this path starts here: every launch count from 0
+            self.zero_launches()
+            res, arr, _, wall = self.stream_run(eng, prompts, new)
+            if arm == "spec_reject":
+                # a later owner of the rejection-heavy run's freed pages
+                res.append(eng.generate(later, max_new_tokens=later_new))
+            launches = self.record_path(arm)
+            stats = eng.stats()
+            eng.shutdown(drain=True, timeout_s=60)
+            toks = sum(len(a) for a in arr)
+            sp = stats["spec"]
+            out[arm] = dict(wall_s=wall, tokens_per_s=toks / wall,
+                            steps=stats["steps"], spec=sp,
+                            compiles=stats["compiles"], launches=launches)
+            print(f"spec arm {arm} on {self.smi}: {toks} tokens in "
+                  f"{wall:.3f} s = {toks / wall:.1f} tokens/s, "
+                  f"{stats['steps']} steps; spec {sp}; compiles "
+                  f"{stats['compiles']}; K1 launches "
+                  f"{launches['paged_attention']}")
+            if arm == "spec_reject":
+                self.assert_identical(arm, prompts + [later],
+                                      new + [later_new], res,
+                                      refs + later_ref)
+            else:
+                self.assert_identical(arm, prompts, new, res, refs)
+            assert eng._cache.pages_in_use == 0, f"{arm}: pages leaked"
+            if k:
+                assert stats["compiles"].get(f"verify[k={K}]") == 1, \
+                    stats["compiles"]
+                assert launches["paged_attention"] == 0, \
+                    f"{arm}: K1 launched under speculation"
+            if arm == "spec_oracle":
+                assert sp["accepted"] > 0 and sp["acceptance_rate"] == 1.0, sp
+                assert stats["steps"] <= -(-new[0] // (K + 1)) + 1, \
+                    f"oracle run took {stats['steps']} steps"
+            if arm == "spec_reject":
+                assert sp["drafted"] > 0 and sp["accepted"] == 0, sp
+            del eng
+            torch.cuda.empty_cache()
+        print(f"spec arm on {self.smi}: tokens/s NGramProposer "
+              f"{out['spec_ngram']['tokens_per_s']:.1f} (acceptance rate "
+              f"{out['spec_ngram']['spec']['acceptance_rate']}) vs spec off "
+              f"{out['spec_off']['tokens_per_s']:.1f} = "
+              f"{out['spec_ngram']['tokens_per_s'] / out['spec_off']['tokens_per_s']:.2f}x; "
+              f"oracle {out['spec_oracle']['tokens_per_s']:.1f} = "
+              f"{out['spec_oracle']['tokens_per_s'] / out['spec_off']['tokens_per_s']:.2f}x")
+        self.details["feature_spec"] = out
+
+    def feature_chunk(self):
+        """Chunk arm: 4 live streams (64-token prompts, 48 new tokens);
+        a 900-token prompt (32 new) joins once they decode, with
+        prefill_chunk=128, then with 0 (whole-prompt prefill, bucket
+        1024). Identity to generate(); prefill_chunks == ceil(900/128);
+        K2 launched 0 times in the chunked run and > 0 in the whole-
+        prompt run; the live streams' TPOT p50 and p99 in both runs."""
+        torch = self.torch
+        import numpy as np
+        cfg = self.gpt.gpt.config
+        P, chunk = FEAT["page"], 128
+        rng = np.random.RandomState(12)
+        prompts = [rng.randint(0, cfg.vocab_size, size=(64,))
+                   for _ in range(4)]
+        prompts.append(rng.randint(0, cfg.vocab_size, size=(900,)))
+        new = [48] * 4 + [32]
+        num_pages = 1 + sum(-(-(len(p) + n) // P)
+                            for p, n in zip(prompts, new))
+        refs = self.generate_refs(prompts, new)
+        out = {}
+        for arm, c in (("chunk_128", chunk), ("chunk_0", 0)):
+            eng = self.feature_engine(f"chip_smoke_{arm}", num_pages,
+                                      prefill_chunk=c)
+            torch.cuda.synchronize()
+            # this path starts here: every launch count from 0
+            self.zero_launches()
+            res, arr, sub, wall = self.stream_run(eng, prompts, new, first=4,
+                                                  join_steps=4)
+            launches = self.record_path(arm)
+            stats = eng.stats()
+            eng.shutdown(drain=True, timeout_s=60)
+            gaps = sorted((b - a) * 1e3 for a_ in arr[:4]
+                          for a, b in zip(a_, a_[1:]))
+            p50, p99 = gaps[len(gaps) // 2], gaps[int(0.99 * (len(gaps) - 1))]
+            ttft_long = (arr[4][0] - sub[4]) * 1e3
+            out[arm] = dict(tpot_p50_ms=p50, tpot_p99_ms=p99,
+                            tpot_max_ms=gaps[-1], ttft_long_ms=ttft_long,
+                            wall_s=wall, prefill_chunks=stats["prefill_chunks"],
+                            steps=stats["steps"], compiles=stats["compiles"],
+                            launches=launches)
+            print(f"chunk arm {arm} on {self.smi}: live streams' TPOT p50 "
+                  f"{p50:.3f} ms p99 {p99:.3f} ms max {gaps[-1]:.3f} ms; the "
+                  f"900-token prompt's TTFT {ttft_long:.2f} ms; "
+                  f"{stats['prefill_chunks']} chunks, {stats['steps']} steps; "
+                  f"K2 launches {launches['flash_fwd']}, K1 "
+                  f"{launches['paged_attention']}; compiles "
+                  f"{stats['compiles']}")
+            self.assert_identical(arm, prompts, new, res, refs)
+            assert eng._cache.pages_in_use == 0, f"{arm}: pages leaked"
+            if c:
+                assert stats["prefill_chunks"] == -(-900 // chunk), stats
+                assert launches["flash_fwd"] == 0, \
+                    "K2 launched for a chunked prompt"
+            else:
+                assert stats["prefill_chunks"] == 0
+                assert launches["flash_fwd"] > 0, \
+                    "K2 never launched for the 900-token prefill"
+            del eng
+            torch.cuda.empty_cache()
+        self.details["feature_chunk"] = out
 
     # -- optional: where the serving time goes ---------------------------------
 
@@ -1744,6 +2082,8 @@ class Smoke:
         padded = arm("padded", "pad", PACK["PAD_ROWS"], PACK["PAD_ROWS"])
         # one packed epoch under AMP O1: bf16 projections, K5-K7 in bf16
         packed_amp = arm("packing_amp", "first_fit", rows, BS, "O1")
+        # the same packs under auto_cast(dtype="float16") + GradScaler
+        packed_fp16 = self.packing_fp16(make_model, seqs, rows)
         print(f"packed AMP O1 / fp32 effective tokens/s: "
               f"{packed_amp['effective_tokens_per_s'] / packed['effective_tokens_per_s']:.3f} "
               f"(epoch wall)")
@@ -1771,13 +2111,75 @@ class Smoke:
               f"|diff| {abs(la - lb):.3e} (tol 1e-3)")
         assert abs(la - lb) < 1e-3, "packed and padded losses differ"
         self.details["packing"] = dict(packed=packed, padded=padded,
-                                       packed_amp=packed_amp, gain=gain,
+                                       packed_amp=packed_amp,
+                                       packed_fp16=packed_fp16, gain=gain,
                                        parity=(la, lb))
         self.splash_step_parity(make_model, seqs[:BS], rows)
         if self.args.profile:
             for amp_level in (None, "O1"):
                 self.profile_packed_step(make_model, seqs[:BS], rows,
                                          amp_level)
+
+    def packing_fp16(self, make_model, seqs, rows):
+        """The packed LM trained one epoch of packs in float16 AMP (the
+        path "packing_fp16"): hapi's AMP is bfloat16, as the JAX
+        package's, so the step is written out as train_fp16's is: the
+        forward and the token-masked loss under
+        amp.auto_cast(dtype="float16"), GradScaler scale / step inside
+        the block (C9). The loss is finite and falls (the mean of the
+        last 3 below the first by more than 1), K5-K7 launch once a step
+        each, all counted in float16; fewer than half the steps may be
+        skipped by the scaler."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import amp, io
+        coll = io.PackingCollator(PACK["T"], rows)
+        BS = PACK["BS"]
+        packs = [coll(seqs[i:i + BS]) for i in range(0, len(seqs), BS)]
+        net, model = make_model(0)
+        opt = model._optimizer
+        scaler = amp.GradScaler()
+        net.train()
+        losses, skipped = [], 0
+        torch.cuda.synchronize()
+        # the main path starts here: every launch count from 0
+        self.zero_launches()
+        t0 = time.perf_counter()
+        for b in packs:
+            ins = model._place(list(b[:3]))
+            lbs = model._place([b[3]])
+            with amp.auto_cast(dtype="float16"):
+                lv = model._step_loss(net(*ins), lbs, b[4])
+                scaler.scale(lv).backward()
+                n = opt._global_step
+                scaler.step(opt)
+                skipped += opt._global_step == n
+            opt.clear_grad()
+            losses.append(lv.detach())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = self.record_path("packing_fp16")
+        by_dtype = self.path_dtype_launches["packing_fp16"]
+        losses = [float(x) for x in losses]
+        steps = len(losses)
+        print(f"packing_fp16 on {self.smi}: [{rows}, {PACK['T']}] x {steps} "
+              f"steps in {wall:.3f} s wall; loss first {losses[0]:.4f} last "
+              f"{losses[-1]:.4f}; scale {scaler.get_scale():g}, {skipped} "
+              f"steps skipped; K5-K7 launches by type "
+              f"{by_dtype['splash_fwd']}/{by_dtype['splash_bwd_dq']}/"
+              f"{by_dtype['splash_bwd_dkv']}")
+        assert all(np.isfinite(losses)), "non-finite fp16 packed loss"
+        assert np.mean(losses[-3:]) < losses[0] - 1.0, \
+            "the fp16 packed loss did not fall"
+        assert skipped < steps // 2, f"{skipped} of {steps} steps skipped"
+        for k in ("splash_fwd", "splash_bwd_dq", "splash_bwd_dkv"):
+            assert launches[k] == steps, (k, launches[k], steps)
+            assert by_dtype[k] == {"float16": steps}, (k, by_dtype[k])
+        del model, net
+        torch.cuda.empty_cache()
+        return dict(steps=steps, wall_s=wall, losses=losses,
+                    skipped=skipped, scale=scaler.get_scale(),
+                    launches_by_dtype=by_dtype)
 
     def profile_packed_step(self, make_model, sample, rows, amp_level):
         """torch.profiler over 5 packed train steps (collate included, as
@@ -2003,6 +2405,7 @@ def main(argv=None):
         if not args.kernels:
             sm.phase("model", sm.model)
             sm.phase("serving", sm.serving)
+            sm.phase("features", sm.features)
             if args.profile:
                 sm.phase("profile", sm.profile)
             sm.phase("train", sm.train)

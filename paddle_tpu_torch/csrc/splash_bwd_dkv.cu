@@ -18,10 +18,11 @@
 //
 // Bound: operations. Four products of 2*D flops for each allowed pair (S,
 // dP, dV, dK), against inputs read once. They run on the tensor cores
-// (flash_mma.cuh): bf16 operands on mma.sync m16n8k16 (989 TFLOP/s peak),
-// fp32 as 3xTF32 on mma.sync m16n8k8 (495 / 3 = 165 TFLOP/s of
-// fp32-accurate products). Pd and dS are rounded to bf16 before the second
-// products in bf16, as the TPU kernel casts them (splash_ops.py:277, 281).
+// (flash_mma.cuh): bf16 or fp16 operands on mma.sync m16n8k16 (989
+// TFLOP/s peak), fp32 as 3xTF32 on mma.sync m16n8k8 (495 / 3 = 165 TFLOP/s
+// of fp32-accurate products). Pd and dS are rounded to the operand type
+// before the second products in bf16 and fp16, as the TPU kernel casts them
+// (splash_ops.py:277, 281).
 //
 // Design: K4's (flash_bwd_dkv.cu). One block of 4 warps per (64-key tile,
 // b*h) owns its dK and dV rows, each warp 16 keys, so the sums over queries
@@ -257,8 +258,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q/k/v/dout [B,H,S,D] contiguous in one type (dtype 0 = float32, 1 =
-// bfloat16); qseg/kseg [B,S] int32; q_lo/q_hi [B,S/64] int32 (the
-// query span of each 64-key tile, in 64-query units); lse and delta
+// bfloat16, 2 = float16); qseg/kseg [B,S] int32; q_lo/q_hi [B,S/64]
+// int32 (the query span of each 64-key tile, in 64-query units); lse and delta
 // [B*H,S] float32; dk/dv like k. Self-attention only (Sq == Sk), a
 // multiple of 64; D 32, 64, 128; every pointer 16-byte aligned.
 extern "C" int splash_attention_bwd_dkv(void* q, void* k, void* v, void* qseg,
@@ -276,13 +277,22 @@ extern "C" int splash_attention_bwd_dkv(void* q, void* k, void* v, void* qseg,
   const int* ks = (const int*)kseg;
   const int* lo = (const int*)q_lo;
   const int* hi = (const int*)q_hi;
-  cudaError_t e = dtype == 0
-      ? launch<float>(q, k, v, qs, ks, lo, hi, dout, lse, delta, dk, dv, B, H,
-                      Sq, D, causal, scale, thresh, keep_scale, seed, s)
-      : launch<__nv_bfloat16>(q, k, v, qs, ks, lo, hi, dout, lse, delta, dk,
-                              dv, B, H, Sq, D, causal, scale, thresh,
-                              keep_scale, seed, s);
-  return (int)e;
+  switch (dtype) {
+    case 0:
+      return (int)launch<float>(q, k, v, qs, ks, lo, hi, dout, lse, delta, dk,
+                                dv, B, H, Sq, D, causal, scale, thresh,
+                                keep_scale, seed, s);
+    case 1:
+      return (int)launch<__nv_bfloat16>(q, k, v, qs, ks, lo, hi, dout, lse,
+                                        delta, dk, dv, B, H, Sq, D, causal,
+                                        scale, thresh, keep_scale, seed, s);
+    case 2:
+      return (int)launch<__half>(q, k, v, qs, ks, lo, hi, dout, lse, delta,
+                                 dk, dv, B, H, Sq, D, causal, scale, thresh,
+                                 keep_scale, seed, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* splash_bwd_dkv_error_string(int err) {

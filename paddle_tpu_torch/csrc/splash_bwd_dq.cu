@@ -18,10 +18,10 @@
 //
 // Bound: operations. Three products of 2*D flops for each allowed pair (S,
 // dP, dS K), against inputs read once. They run on the tensor cores
-// (flash_mma.cuh): bf16 operands on mma.sync m16n8k16 (989 TFLOP/s peak),
-// fp32 as 3xTF32 on mma.sync m16n8k8 (495 / 3 = 165 TFLOP/s of
-// fp32-accurate products). dS is rounded to bf16 before dS K in bf16, as
-// the TPU kernel casts it (splash_ops.py:233).
+// (flash_mma.cuh): bf16 or fp16 operands on mma.sync m16n8k16 (989
+// TFLOP/s peak), fp32 as 3xTF32 on mma.sync m16n8k8 (495 / 3 = 165 TFLOP/s
+// of fp32-accurate products). dS is rounded to the operand type before dS K
+// in bf16 and fp16, as the TPU kernel casts it (splash_ops.py:233).
 //
 // Design: K3's (flash_bwd_dq.cu). One block of 4 warps per (64-query tile,
 // b*h), no atomics: the block owns its dQ rows, each warp 16 of them. Q and
@@ -236,10 +236,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q/k/v/dout [B,H,S,D] contiguous in one type (dtype 0 = float32, 1 =
-// bfloat16); qseg/kseg [B,S] int32; kv_lo/kv_hi [B,S/64] int32 (the
-// forward's key spans, in 64-key units); lse and delta [B*H,S] float32; dq
-// like q. Self-attention only (Sq == Sk), a multiple of 64; D 32, 64 or
-// 128; every pointer 16-byte aligned.
+// bfloat16, 2 = float16); qseg/kseg [B,S] int32; kv_lo/kv_hi [B,S/64]
+// int32 (the forward's key spans, in 64-key units); lse and delta [B*H,S]
+// float32; dq like q. Self-attention only (Sq == Sk), a multiple of 64; D
+// 32, 64 or 128; every pointer 16-byte aligned.
 extern "C" int splash_attention_bwd_dq(void* q, void* k, void* v, void* qseg,
                                        void* kseg, void* kv_lo, void* kv_hi,
                                        void* dout, void* lse, void* delta,
@@ -255,13 +255,22 @@ extern "C" int splash_attention_bwd_dq(void* q, void* k, void* v, void* qseg,
   const int* ks = (const int*)kseg;
   const int* lo = (const int*)kv_lo;
   const int* hi = (const int*)kv_hi;
-  cudaError_t e = dtype == 0
-      ? launch<float>(q, k, v, qs, ks, lo, hi, dout, lse, delta, dq, B, H, Sq,
-                      D, causal, scale, thresh, keep_scale, seed, s)
-      : launch<__nv_bfloat16>(q, k, v, qs, ks, lo, hi, dout, lse, delta, dq,
-                              B, H, Sq, D, causal, scale, thresh, keep_scale,
-                              seed, s);
-  return (int)e;
+  switch (dtype) {
+    case 0:
+      return (int)launch<float>(q, k, v, qs, ks, lo, hi, dout, lse, delta, dq,
+                                B, H, Sq, D, causal, scale, thresh,
+                                keep_scale, seed, s);
+    case 1:
+      return (int)launch<__nv_bfloat16>(q, k, v, qs, ks, lo, hi, dout, lse,
+                                        delta, dq, B, H, Sq, D, causal, scale,
+                                        thresh, keep_scale, seed, s);
+    case 2:
+      return (int)launch<__half>(q, k, v, qs, ks, lo, hi, dout, lse, delta,
+                                 dq, B, H, Sq, D, causal, scale, thresh,
+                                 keep_scale, seed, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* splash_bwd_dq_error_string(int err) {

@@ -15,14 +15,16 @@
 // the TPU kernel's `l_safe` (splash_ops.py:183); the plain version is
 // `_splash_fwd_reference` (paddle_tpu_torch/ops/splash_ops.py). Masked
 // entries get P = 0 from the segment test, never from exp(-1e30 - m), which
-// is 1 while a row has seen no visible key. In bf16, P is rounded to bf16
-// before P V, as the TPU kernel casts it to V's type (splash_ops.py:172-174).
+// is 1 while a row has seen no visible key. In bf16 and fp16, P is rounded
+// to the operand type before P V (`Half16<T>::pack`), as the TPU kernel
+// casts it to V's type (splash_ops.py:172-174).
 // The keep mask is the coordinate hash of flash_common.cuh (K6 and K7
 // replay it); `thresh == 0` skips it.
 //
 // Bound: operations. S and O are two products of 2*D flops for each allowed
 // (query, key) pair, against inputs read once. They run on the tensor cores
-// (flash_mma.cuh): bf16 operands on mma.sync m16n8k16 (989 TFLOP/s peak),
+// (flash_mma.cuh): bf16 or fp16 operands on mma.sync m16n8k16 (989 TFLOP/s
+// peak),
 // fp32 as 3xTF32 on mma.sync m16n8k8 (495 / 3 = 165 TFLOP/s of
 // fp32-accurate products). Beyond the bound, every pair of a visited tile
 // is multiplied, allowed or not: the spans cut whole tiles of other
@@ -353,7 +355,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q/k/v [B,H,S,D] contiguous in one type (dtype 0 = float32, 1 = bfloat16);
+// q/k/v [B,H,S,D] contiguous in one type (dtype 0 = float32, 1 = bfloat16,
+// 2 = float16);
 // qseg/kseg [B,S] int32, non-decreasing per row; kv_lo/kv_hi [B,S/64] int32
 // (the key span of each query tile, in 64-key units); out like q; lse
 // [B*H,S] float32. Self-attention only (Sq == Sk), a multiple of 64; D one
@@ -373,13 +376,22 @@ extern "C" int splash_attention_forward(void* q, void* k, void* v,
   const int* ks = (const int*)kseg;
   const int* lo = (const int*)kv_lo;
   const int* hi = (const int*)kv_hi;
-  cudaError_t e = dtype == 0
-      ? launch<float>(q, k, v, qs, ks, lo, hi, out, (float*)lse, B, H, Sq, D,
-                      causal, scale, thresh, keep_scale, seed, s)
-      : launch<__nv_bfloat16>(q, k, v, qs, ks, lo, hi, out, (float*)lse, B, H,
-                              Sq, D, causal, scale, thresh, keep_scale, seed,
-                              s);
-  return (int)e;
+  switch (dtype) {
+    case 0:
+      return (int)launch<float>(q, k, v, qs, ks, lo, hi, out, (float*)lse, B,
+                                H, Sq, D, causal, scale, thresh, keep_scale,
+                                seed, s);
+    case 1:
+      return (int)launch<__nv_bfloat16>(q, k, v, qs, ks, lo, hi, out,
+                                        (float*)lse, B, H, Sq, D, causal,
+                                        scale, thresh, keep_scale, seed, s);
+    case 2:
+      return (int)launch<__half>(q, k, v, qs, ks, lo, hi, out, (float*)lse,
+                                 B, H, Sq, D, causal, scale, thresh,
+                                 keep_scale, seed, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* splash_fwd_error_string(int err) {

@@ -90,6 +90,42 @@ register_flag("FLAGS_gen_request_timeout_ms", 30000.0,
               "serving.GenerationEngine: default per-request deadline, "
               "enforced while queued and before every decode step "
               "(0 disables)")
+register_flag("FLAGS_gen_prefix_cache", False,
+              "serving.GenerationEngine: content-hash prefix cache over "
+              "the paged KV pools (serving/prefix_cache.py) — a request "
+              "whose prompt prefix matches a cached block chain maps "
+              "those pages read-only (copy-on-write on the one "
+              "divergent write) and prefills only the tail; refcount-0 "
+              "chains are LRU-evicted before alloc. Opt-in: off keeps "
+              "the single-owner page semantics exactly")
+register_flag("FLAGS_gen_spec_k", 0,
+              "serving.GenerationEngine: speculative-decoding draft "
+              "tokens per decode step (serving/spec_decode.py prompt-"
+              "lookup proposer + ONE fixed-k verify program scoring k+1 "
+              "positions over the paged KV cache per step; the longest "
+              "greedily-agreeing draft prefix is accepted plus the bonus "
+              "token, so a step delivers 1 to k+1 tokens — greedy output "
+              "stays token-identical to speculation off). 0 disables "
+              "(the plain one-token decode program)")
+register_flag("FLAGS_gen_spec_ngram", 3,
+              "serving.GenerationEngine: longest n-gram the prompt-"
+              "lookup draft proposer matches against the sequence's "
+              "own token history (tried n..1, rightmost match wins); "
+              "only read when FLAGS_gen_spec_k > 0")
+register_flag("FLAGS_gen_prefill_chunk", 0,
+              "serving.GenerationEngine: split prompts longer than "
+              "this into fixed-size prefill chunks driven through the "
+              "per-bucket tail-extension programs, ONE chunk per "
+              "engine iteration interleaved with decode steps — a "
+              "long prompt admitting no longer stalls every live "
+              "sequence's TPOT for its whole prefill. 0 disables "
+              "(whole-prompt bucketed prefill at admission)")
+register_flag("FLAGS_gen_prefix_cache_max_pages", 0,
+              "serving.GenerationEngine: byte budget for the prefix "
+              "cache as a page-count cap — register() eagerly LRU-"
+              "evicts cached chains back to this budget instead of "
+              "waiting for an admission to run short of free pages. "
+              "0 = unbounded (evict-on-demand only)")
 
 
 def set_flags(flags: Dict[str, Any]) -> None:

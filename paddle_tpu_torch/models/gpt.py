@@ -38,8 +38,9 @@ from ..ops.linalg import matmul
 from ..ops.paged_ops import cached_attention
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_prefill",
-           "gpt_decode_step", "gpt_logits", "dense_cache_write",
-           "dense_cache_attend", "load_reference_state"]
+           "gpt_prefill_extend", "gpt_decode_step", "gpt_spec_verify",
+           "gpt_logits", "dense_cache_write", "dense_cache_attend",
+           "load_reference_state"]
 
 
 # -- shared decode math (generate() AND serving.GenerationEngine) -----------
@@ -99,6 +100,41 @@ def gpt_prefill(W, ids, *, num_heads, scale):
                                             training=False, scale=scale)
 
     return _gen_block_pass(W, h, attend, num_heads=num_heads)
+
+
+def gpt_prefill_extend(W, ids, positions, ctx_attend, *, num_heads,
+                       scale):
+    """Batched causal pass over a prompt TAIL whose prefix K/V already
+    lives in an external cache (the prefix-cache hit path, and every
+    prefill chunk).
+
+    ids [B, S_t] tail token ids at absolute positions `positions` [S_t]
+    (the caller clamps pad positions into range); attention is delegated
+    per layer to
+
+        ctx_attend(layer, q, k, v) -> [B, H, S_t, D]
+
+    with q/k/v the tail's own projections: the hook attends each tail
+    query over (cached context + the given within-tail K/V) and owns the
+    cache layout, masks and softmax scale. Returns `(h, ks, vs)` like
+    `gpt_prefill`; both run `_gen_block_pass`, so the block math cannot
+    diverge from the full prefill."""
+    del scale  # the ctx_attend hook owns the scale
+    h = W["wte"][ids] + W["wpe"][positions][None]
+    return _gen_block_pass(W, h, ctx_attend, num_heads=num_heads)
+
+
+def gpt_spec_verify(W, toks, positions, ctx_attend, *, num_heads):
+    """Batched multi-position decode block for speculative verification:
+    score a [B, K+1] block of tokens (each row's current token followed
+    by K draft tokens) at PER-ROW absolute positions [B, K+1] in one
+    `_gen_block_pass`, so verifying K drafts costs one forward over K+1
+    positions instead of K+1 decode steps. `ctx_attend(layer, q, k, v)
+    -> [B, H, K+1, D]` is `gpt_prefill_extend`'s seam batched over rows.
+    Returns `(h, ks, vs)` ([B, K+1, E] hidden states, [L, B, H, K+1, D]
+    per-layer block K/V for the caller's acceptance-masked writes)."""
+    h = W["wte"][toks] + W["wpe"][positions]
+    return _gen_block_pass(W, h, ctx_attend, num_heads=num_heads)
 
 
 def gpt_decode_step(W, tok, pos, cache, write_kv, attend, *, num_heads,

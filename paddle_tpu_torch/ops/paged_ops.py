@@ -22,6 +22,12 @@ maps logical positions to physical pages (`serving/kv_cache.py`).
   `pos` mask to -1e30, so page-tail junk contributes exactly 0).
 
 `STAT_paged_attn_kernel` / `STAT_paged_attn_reference` count calls.
+
+The prefix-cache tail prefill and the speculative verify step attend
+multi-position queries over cached pages plus their own in-flight K/V:
+`paged_gather_layers` + `paged_prefix_attention`. The JAX package
+computes these with plain jnp outside any Pallas kernel, and so they are
+plain PyTorch here, on the card too.
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ from ..framework.flags import flag
 from . import _build
 
 __all__ = ["cached_attention", "paged_attention", "paged_attention_plain",
-           "paged_gather", "paged_write", "page_rows_for_positions"]
+           "paged_gather", "paged_gather_layers", "paged_prefix_attention",
+           "paged_write", "page_rows_for_positions"]
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,6 +77,50 @@ def paged_gather(pages, page_table):
     B, PP = page_table.shape
     kb = pages[:, page_table.long()]            # [H, B, PP, P, D]
     return kb.movedim(1, 0).reshape(B, H, PP * P, D)
+
+
+def paged_gather_layers(pages, page_table):
+    """ONE sequence's page-table row as a dense view across ALL layers at
+    once: pages [L, H, N, P, D] + page_table [PP] -> [L, H, PP*P, D].
+    One gather of this row's pages instead of a per-layer slice of the
+    pool."""
+    L, H, _, P, D = pages.shape
+    PP = page_table.shape[0]
+    kb = pages[:, :, page_table.long()]         # [L, H, PP, P, D]
+    return kb.reshape(L, H, PP * P, D)
+
+
+def paged_prefix_attention(q, kb, vb, k_tail, v_tail, prefix_len, scale):
+    """Tail-prefill attention: multi-position queries over a cached
+    prefix (gathered from pages) plus the tail's own in-flight K/V.
+
+    q / k_tail / v_tail [B, H, S, D]; kb/vb [B, H, T, D] (one layer of a
+    gathered page-table view); prefix_len an int (or 0-d tensor), or a
+    [B] int tensor of per-row context lengths (the speculative verify
+    block: every decode slot has its own cache length). Cached positions
+    t < prefix_len are attended; everything at or past it in the gathered
+    view (fresh pages, table padding) masks to -1e30, an exact 0.0 after
+    the softmax. Tail position j is attended by tail query i iff j <= i.
+    The joint softmax over [prefix ; tail] is `cached_attention`'s masked
+    expression, the JAX package's `paged_prefix_attention`. Returns
+    [B, H, S, D]."""
+    monitor.stat_add("STAT_paged_attn_reference")
+    T = kb.shape[2]
+    S = q.shape[2]
+    neg = torch.full((), _NEG, dtype=q.dtype, device=q.device)
+    sp = torch.einsum("bhsd,bhtd->bhst", q, kb) * scale
+    t = torch.arange(T, device=q.device)
+    if torch.is_tensor(prefix_len) and prefix_len.dim():
+        limit = prefix_len.to(q.device).long()[:, None, None, None]
+    else:
+        limit = int(prefix_len)
+    sp = torch.where(t[None, None, None, :] < limit, sp, neg)
+    st = torch.einsum("bhsd,bhtd->bhst", q, k_tail) * scale
+    i = torch.arange(S, device=q.device)
+    st = torch.where((i[:, None] >= i[None, :])[None, None], st, neg)
+    p = torch.softmax(torch.cat([sp, st], dim=-1), dim=-1)
+    return (torch.einsum("bhst,bhtd->bhsd", p[..., :T], vb)
+            + torch.einsum("bhst,bhtd->bhsd", p[..., T:], v_tail))
 
 
 def page_rows_for_positions(page_table, positions, page_size):

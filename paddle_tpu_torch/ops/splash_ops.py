@@ -27,9 +27,11 @@ of that span, and the work follows the real tokens, not the row shape.
   `_splash_dkv_reference`). Each wrapper's `.launches` counts its kernel
   launches (and `.launches_by_dtype` by operand type), and `STAT_splash_attention_fwd` / `_bwd` count them
   process-wide.
-- Types: float32 and bfloat16 (`_DTYPES`). There is no float16 build
-  yet: a float16 `q` on the card raises InvalidArgumentError in `_check`,
-  never a quiet plain path (ROADMAP C8; the flash kernels take float16).
+- Types: float32, bfloat16 and float16 (`_DTYPES`), the flash kernels'
+  three, so packed training under `amp.auto_cast(dtype="float16")` runs
+  K5-K7 as the JAX package's splash takes float16 (ROADMAP C8). Any
+  other type raises InvalidArgumentError in `_check` on the card, never
+  a quiet plain path.
 - A row with no visible key (its segment absent from kv) outputs zeros
   and its LSE is -1e30, as the TPU kernel's `l_safe` gives.
 - Dropout uses `flash_ops._keep_mask`, the flash kernels' coordinate
@@ -118,7 +120,7 @@ def _block_bounds(q_seg, kv_seg, block_q, block_k, causal):
 
 
 # the types K5-K7 are built for, with the C entries' dtype codes
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SUB_ROWS, _SUB_COLS = 16, 8   # a warp's rows, an mma n-tile's columns
 
 

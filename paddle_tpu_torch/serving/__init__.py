@@ -2,6 +2,9 @@
 from .generation import (EngineOverloaded, GenerationConfig,  # noqa: F401
                          GenerationEngine, TokenStream)
 from .kv_cache import TRASH_PAGE, PagedKVCache  # noqa: F401
+from .prefix_cache import PrefixCache, chain_digests  # noqa: F401
+from .spec_decode import NGramProposer  # noqa: F401
 
 __all__ = ["EngineOverloaded", "GenerationConfig", "GenerationEngine",
-           "PagedKVCache", "TokenStream", "TRASH_PAGE"]
+           "NGramProposer", "PagedKVCache", "PrefixCache", "TokenStream",
+           "TRASH_PAGE", "chain_digests"]

@@ -16,17 +16,39 @@ engine's trace ledger. Each decode layer attends through
 `ops.paged_ops.paged_attention`: the hand-written CUDA kernel on the
 card, the dense-gather plain version on the CPU.
 
+**Prefix cache** (`FLAGS_gen_prefix_cache` / `prefix_cache=True`): full
+pages of prompt K/V are indexed by a content-hash block chain
+(`serving/prefix_cache.py`) over refcounted pages; a request whose prompt
+walks a cached chain maps those pages read-only and prefills ONLY the
+tail through a per-bucket `prefill_tail[b=S]` program (tail queries
+attend the cached pages plus their own in-flight K/V,
+`ops.paged_ops.paged_prefix_attention`). A full-prompt match recomputes
+just its last position, copy-on-write splitting the page that holds it
+(`cow_copy`), so the shared original is never written under its other
+readers. Zero-on-free keys on refcounts, and refcount-0 cached chains are
+LRU-evicted before alloc whenever the free list alone is short.
+
+**Speculative decoding** (`FLAGS_gen_spec_k` / `spec_k=K`): ONE fixed-k
+verify program (`verify[k=K]`) replaces the decode step. Each live slot's
+[current token + K prompt-lookup drafts] block (`serving/spec_decode.py`)
+runs one `gpt_spec_verify` pass over the paged cache; acceptance (exact
+greedy agreement) is computed on the device and only consumed positions'
+K/V commit: rejected lanes, inactive slots and pad positions write to the
+scratch page. A step delivers 1..K+1 tokens, token-identical to
+speculation off. **Chunked prefill** (`FLAGS_gen_prefill_chunk`): long
+prompts admit at once but prefill one fixed-size chunk per engine
+iteration through the tail programs, between decode steps.
+
 Hardening: bounded intake (`EngineOverloaded`), worst-case page admission
 with FIFO head-of-line blocking, per-request deadlines checked while
 queued and before every decode step, poison isolation through a
 per-slot non-finite-logit flag (pages zeroed before reuse), shutdown
 drain, and `health()`.
 
-Not ported yet, each raising `InvalidArgumentError` when asked for:
-prefix cache, speculative decoding, chunked prefill, the host KV tier,
-the program store, tensor-parallel lanes and int8 pages. The step log,
-audit ring, SLO tracking, exporter, failpoints and supervisor hooks come
-with later slices too.
+Not ported yet, each raising `InvalidArgumentError` when asked for: the
+host KV tier, the program store, tensor-parallel lanes and int8 pages.
+The step log, audit ring, SLO tracking, exporter, failpoints and
+supervisor hooks come with later slices too.
 """
 from __future__ import annotations
 
@@ -49,10 +71,14 @@ from ..framework.errors import (ExecutionTimeoutError, FatalError,
 from ..framework.flags import flag
 from ..framework.place import resolve_device
 from ..models.gpt import (GPTForCausalLM, gpt_decode_step, gpt_logits,
-                          gpt_prefill, sample_logits)
+                          gpt_prefill, gpt_prefill_extend, gpt_spec_verify,
+                          sample_logits)
 from ..ops.paged_ops import (page_rows_for_positions, paged_attention,
-                             paged_write)
+                             paged_gather, paged_gather_layers,
+                             paged_prefix_attention, paged_write)
 from .kv_cache import TRASH_PAGE, PagedKVCache
+from .prefix_cache import PrefixCache
+from .spec_decode import NGramProposer
 
 monitor.register_gauge("STAT_gen_queue_depth", updown=True)
 
@@ -77,7 +103,8 @@ def _not_ported(knob: str):
 class GenerationConfig:
     """Continuous-batching knobs; defaults ride the FLAGS_gen_* /
     FLAGS_paged_* registry. The JAX engine's knobs that are not ported
-    yet are accepted only in their off state and raise otherwise."""
+    yet (kv_tier, program_store, tp, int8 pages) are accepted only in
+    their off state and raise otherwise."""
 
     def __init__(self, max_slots: Optional[int] = None,
                  page_size: Optional[int] = None,
@@ -89,16 +116,15 @@ class GenerationConfig:
                  request_timeout_ms: Optional[float] = None,
                  kv_cache_dtype: Optional[str] = None,
                  prefix_cache: Optional[bool] = None,
+                 prefix_cache_max_pages: Optional[int] = None,
                  spec_k: Optional[int] = None,
+                 spec_ngram: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  kv_tier: Optional[bool] = None,
                  program_store: Optional[str] = None,
                  tp: Optional[int] = None,
                  top_k: int = 0, seed: int = 0):
-        for knob, value, off in (("prefix_cache", prefix_cache, False),
-                                 ("spec_k", spec_k, 0),
-                                 ("prefill_chunk", prefill_chunk, 0),
-                                 ("kv_tier", kv_tier, False),
+        for knob, value, off in (("kv_tier", kv_tier, False),
                                  ("program_store", program_store, ""),
                                  ("tp", tp, 1)):
             if value is not None and value != off:
@@ -138,6 +164,29 @@ class GenerationConfig:
             raise InvalidArgumentError(
                 f"kv_cache_dtype must be auto/float32/bfloat16, got "
                 f"{self.kv_cache_dtype!r}")
+        self.prefix_cache = bool(flag("FLAGS_gen_prefix_cache")
+                                 if prefix_cache is None else prefix_cache)
+        self.prefix_cache_max_pages = int(
+            flag("FLAGS_gen_prefix_cache_max_pages")
+            if prefix_cache_max_pages is None else prefix_cache_max_pages)
+        if self.prefix_cache_max_pages < 0:
+            raise InvalidArgumentError(
+                "prefix_cache_max_pages must be >= 0 (0 = unbounded)")
+        self.spec_k = int(flag("FLAGS_gen_spec_k")
+                          if spec_k is None else spec_k)
+        if self.spec_k < 0:
+            raise InvalidArgumentError("spec_k must be >= 0 (0 = off)")
+        self.spec_ngram = int(flag("FLAGS_gen_spec_ngram")
+                              if spec_ngram is None else spec_ngram)
+        if self.spec_k and self.spec_ngram < 1:
+            raise InvalidArgumentError(
+                "spec_ngram must be >= 1 when spec_k > 0")
+        self.prefill_chunk = int(flag("FLAGS_gen_prefill_chunk")
+                                 if prefill_chunk is None
+                                 else prefill_chunk)
+        if self.prefill_chunk < 0:
+            raise InvalidArgumentError(
+                "prefill_chunk must be >= 0 (0 = whole-prompt prefill)")
         self.top_k = int(top_k)
         self.seed = int(seed)
 
@@ -187,7 +236,9 @@ class _GenRequest:
     __slots__ = ("rid", "prompt", "max_new", "eos", "do_sample",
                  "temperature", "future", "deadline_ms", "t_enqueue_ms",
                  "slot", "pt_row", "toks", "next_pos", "stream",
-                 "ttft_deadline_ms", "t_first_ms", "t_last_ms")
+                 "ttft_deadline_ms", "t_first_ms", "t_last_ms",
+                 "prefix_tokens", "prefill_pos", "pending_digests",
+                 "spec_accepted")
 
     _ids = itertools.count(1)
 
@@ -211,6 +262,12 @@ class _GenRequest:
         self.ttft_deadline_ms = ttft_deadline_ms  # HARD (streams)
         self.t_first_ms = None
         self.t_last_ms = None
+        self.prefix_tokens = 0          # prompt tokens served from cache
+        self.prefill_pos = None         # chunked prefill: next prompt
+        #                                 position to prefill (None =
+        #                                 prefill complete / not chunked)
+        self.pending_digests = None     # prompt digests held across chunks
+        self.spec_accepted = 0          # draft tokens accepted
 
 
 class GenerationEngine:
@@ -277,6 +334,26 @@ class GenerationEngine:
             self._cfg.num_pages, self._cfg.pages_per_seq, dtype=kv_dtype,
             device=dev)
         self._gen = torch.Generator(device=dev).manual_seed(self._cfg.seed)
+        # prefix cache: content-hash chain index over the refcounted
+        # pages; None keeps single-owner pages (refcount 1, none shared)
+        self._prefix = (PrefixCache(
+            self._cache, name, max_pages=self._cfg.prefix_cache_max_pages)
+            if self._cfg.prefix_cache else None)
+        # chunks ride the per-bucket tail programs, so a chunk is never
+        # wider than the largest bucket; 0 keeps whole-prompt prefill
+        self._cfg.prefill_chunk = min(self._cfg.prefill_chunk,
+                                      self._cfg.prefill_buckets[-1])
+        # the tail programs serve both prefix hits and prefill chunks
+        self._use_tail = (self._prefix is not None
+                          or self._cfg.prefill_chunk > 0)
+        # speculative decoding: prompt-lookup drafts + ONE fixed-k verify
+        # program in place of the decode step
+        self._spec_k = self._cfg.spec_k
+        self._proposer = (NGramProposer(self._cfg.spec_ngram)
+                          if self._spec_k else None)
+        self._spec_drafted_total = 0
+        self._spec_accepted_total = 0
+        self._chunks_total = 0
 
         self._cv = threading.Condition()
         self._queue: deque = deque()
@@ -292,7 +369,7 @@ class GenerationEngine:
         self._steps_total = 0
         self._prefills_total = 0
         self._tokens_total = 0
-        self._ledger = {}              # "decode[m=M]"/"prefill[b=S]" -> 1
+        self._ledger = {}              # program shape key -> 1
         self._death: Optional[BaseException] = None
         self._pre_step_hook = None     # test seam: runs on the step thread
         self._hist = monitor.histogram(f"{name}_request_ms")
@@ -333,6 +410,63 @@ class GenerationEngine:
         idx = min(max(int(length) - 1, 0), S_b - 1)
         return gpt_logits(self._W, h[0, idx])
 
+    def _tail_prefill_call(self, pt_row, ids, length, offset):
+        """Prefill of a prompt TAIL (a prefix-cache hit, or one chunk):
+        only positions [offset, offset + length) run the model; their
+        queries attend the sequence's cached pages READ-ONLY (positions
+        < offset) plus their own in-flight K/V, and their writes land in
+        the tail's pages (pad positions go to the scratch page, so a
+        shared page never receives a pad write). Returns the last real
+        position's logits [V]."""
+        S_b = ids.shape[1]
+        self._note(f"prefill_tail[b={S_b}]")
+        P, scale = self._cfg.page_size, self._scale
+        ar = torch.arange(S_b, device=self._device)
+        valid = ar < length
+        # pad positions clamp to 0: neither the wpe gather nor the page
+        # arithmetic reads out of range; their writes go to the scratch
+        # page below
+        positions = torch.where(valid, offset + ar, 0)
+        pt_t = self._t(pt_row)
+        # this row's pages, gathered once across all layers
+        kb_all = paged_gather_layers(self._cache.k_pages, pt_t)
+        vb_all = paged_gather_layers(self._cache.v_pages, pt_t)
+
+        def ctx_attend(layer, q, k, v):
+            return paged_prefix_attention(
+                q, kb_all[layer][None].to(q.dtype),
+                vb_all[layer][None].to(q.dtype), k, v, offset, scale)
+
+        h, ks, vs = gpt_prefill_extend(self._W, self._t(ids, torch.long),
+                                       positions, ctx_attend,
+                                       num_heads=self._H, scale=scale)
+        page_ids, offs = page_rows_for_positions(pt_t, positions, P)
+        page_ids = torch.where(valid, page_ids, TRASH_PAGE)
+        offs = torch.where(valid, offs, 0)
+        paged_write(self._cache.k_pages, None, page_ids, offs, ks[:, 0])
+        paged_write(self._cache.v_pages, None, page_ids, offs, vs[:, 0])
+        idx = min(max(int(length) - 1, 0), S_b - 1)
+        return gpt_logits(self._W, h[0, idx])
+
+    def _cow_copy(self, src: int, dst: int):
+        """Copy-on-write split on the device: clone one page's content
+        across every layer and head from `src` to `dst`, in place."""
+        self._note("cow_copy")
+        for pool in (self._cache.k_pages, self._cache.v_pages):
+            pool[:, :, dst] = pool[:, :, src]
+
+    def _sample(self, logits, temps, smask):
+        """The decode programs' next token: greedy argmax, or for the
+        slots in `smask` a temperature / top-k draw through the engine's
+        generator (drawn only when some slot samples)."""
+        nxt = torch.argmax(logits, -1)
+        if smask.any():
+            lg = logits / self._t(np.maximum(temps, 1e-6))[:, None]
+            sampled = sample_logits(lg, True, 1.0, self._cfg.top_k,
+                                    self._gen)
+            nxt = torch.where(self._t(smask), sampled, nxt)
+        return nxt
+
     def _decode_call(self, pt, toks, pos, active, temps, smask):
         """ONE fixed-slot decode step. Returns host arrays (next token
         [M] int, non-finite-logit flag [M] bool) — the step's only
@@ -356,39 +490,112 @@ class GenerationEngine:
         logits, _ = gpt_decode_step(
             self._W, self._t(toks, torch.long), pos_t, None, write_kv,
             attend, num_heads=self._H, scale=scale)
-        nxt = torch.argmax(logits, -1)
-        if smask.any():
-            lg = logits / self._t(np.maximum(temps, 1e-6))[:, None]
-            sampled = sample_logits(lg, True, 1.0, self._cfg.top_k,
-                                    self._gen)
-            nxt = torch.where(self._t(smask), sampled, nxt)
+        nxt = self._sample(logits, temps, smask)
         active_t = self._t(active)
         nxt = torch.where(active_t, nxt, 0)
         bad = active_t & ~torch.isfinite(logits).all(-1)
         out = torch.stack([nxt, bad.long()]).cpu().numpy()
         return out[0], out[1].astype(bool)
 
+    def _verify_call(self, pt, toks_blk, dmask, pos0, active, temps, smask):
+        """ONE speculative verify step: score every live slot's [current
+        token + K drafts] block (K+1 positions) in one pass over the
+        paged cache (`gpt_spec_verify`), accept the longest greedily
+        agreeing draft prefix on the device, and commit only the
+        consumed positions' K/V: rejected draft lanes, inactive slots
+        and clamped pad positions write to the scratch page, so a
+        rejected draft never dirties a real page (that routing IS the
+        rollback). Block queries attend the cached pages READ-ONLY
+        (per-slot prefix length = the slot's cache position) plus the
+        block's own K/V. Sampled slots take no drafts and sample their
+        first position as the decode step does. Returns host arrays
+        (accepted drafts [M], next token [M], non-finite flag [M])."""
+        M, K1 = toks_blk.shape
+        self._note(f"verify[k={K1 - 1}]")
+        kp, vp = self._cache.k_pages, self._cache.v_pages
+        P, scale = self._cfg.page_size, self._scale
+        pt_t = self._t(pt)
+        pos0_t = self._t(pos0)
+        toks_t = self._t(toks_blk, torch.long)
+        # pad / overflow positions clamp into the wpe range; their writes
+        # go to the scratch page (drafts are truncated to each request's
+        # token budget, so every consumed position is in range)
+        positions = (pos0_t.long()[:, None]
+                     + torch.arange(K1, device=self._device)[None, :]
+                     ).clamp(0, self._max_position - 1)
+
+        def ctx_attend(layer, q, k, v):
+            kb = paged_gather(kp[layer], pt_t).to(q.dtype)
+            vb = paged_gather(vp[layer], pt_t).to(q.dtype)
+            return paged_prefix_attention(q, kb, vb, k, v, pos0_t, scale)
+
+        h, ks, vs = gpt_spec_verify(self._W, toks_t, positions, ctx_attend,
+                                    num_heads=self._H)
+        logits = gpt_logits(self._W, h)                     # [M, K1, V]
+        greedy = torch.argmax(logits, -1)
+        # draft j+1 is accepted iff it equals greedy[j], the model's token
+        # after position j; n_acc = the longest agreeing prefix
+        agree = (greedy[:, :-1] == toks_t[:, 1:]) & self._t(dmask)
+        n_acc = torch.cumprod(agree.long(), dim=1).sum(1)
+        smask_t = self._t(smask)
+        n_acc = torch.where(smask_t, 0, n_acc)
+        bonus = torch.gather(greedy, 1, n_acc[:, None])[:, 0]
+        nxt = torch.where(smask_t, self._sample(logits[:, 0], temps, smask),
+                          bonus)
+        active_t = self._t(active)
+        nxt = torch.where(active_t, nxt, 0)
+        consumed = (torch.arange(K1, device=self._device)[None, :]
+                    <= n_acc[:, None])
+        finite = torch.isfinite(logits).all(-1)             # [M, K1]
+        bad = active_t & (consumed & ~finite).any(1)
+        commit = consumed & active_t[:, None]
+        page_ids, offs = page_rows_for_positions(pt_t, positions, P)
+        page_ids = torch.where(commit, page_ids, TRASH_PAGE).reshape(-1)
+        offs = torch.where(commit, offs, 0).reshape(-1)
+        L, _, H, _, D = ks.shape
+        # [L, M, H, K1, D] -> [L, H, M*K1, D]: the prefill-shaped
+        # all-layers write (index m*K1 + j, as page_ids)
+        paged_write(kp, None, page_ids, offs,
+                    ks.transpose(1, 2).reshape(L, H, M * K1, D))
+        paged_write(vp, None, page_ids, offs,
+                    vs.transpose(1, 2).reshape(L, H, M * K1, D))
+        out = torch.stack([n_acc, nxt, bad.long()]).cpu().numpy()
+        return out[0], out[1], out[2].astype(bool)
+
     def _zero_pages(self, pages):
-        """Zero freed pages on device (the trash-padded row also scrubs
-        the scratch page)."""
-        row = self._t(self._cache.zero_rows(pages), torch.long)
-        self._cache.k_pages[:, :, row] = 0
-        self._cache.v_pages[:, :, row] = 0
+        """Zero freed pages on device, in rows of the fixed zeroing width
+        (one sequence's free fits one row; a prefix-cache eviction can
+        return more pages at once). The trash-padded row also scrubs the
+        scratch page."""
+        PP = self._cfg.pages_per_seq
+        for i in range(0, max(len(pages), 1), PP):
+            row = self._t(self._cache.zero_rows(pages[i:i + PP]),
+                          torch.long)
+            self._cache.k_pages[:, :, row] = 0
+            self._cache.v_pages[:, :, row] = 0
 
     @torch.inference_mode()
     def _warmup(self):
-        """Run every prefill bucket and the decode step once, so the
-        kernels are built and the ledger is complete before the first
-        request. Writes land only on the scratch page."""
-        M, PP = self._cfg.max_slots, self._cfg.pages_per_seq
+        """Run every prefill bucket (and, with the prefix cache or
+        chunking on, its tail program), the CoW copy with the prefix
+        cache, and the decode step (or, with speculation on, the ONE
+        verify[k] program that replaces it) once, so the kernels are
+        built and the ledger is complete before the first request, as
+        the JAX engine's warmup compiles them. Writes land only on the
+        scratch page."""
+        PP = self._cfg.pages_per_seq
         trash = np.zeros((PP,), np.int32)
         for b in self._cfg.prefill_buckets:
-            lg = self._prefill_call(trash, np.zeros((1, b), np.int64), 1)
-            lg.cpu()
-        self._decode_call(np.zeros((M, PP), np.int32),
-                          np.zeros((M,), np.int64), np.zeros((M,), np.int32),
-                          np.zeros((M,), bool), np.ones((M,), np.float32),
-                          np.zeros((M,), bool))
+            ids = np.zeros((1, b), np.int64)
+            self._prefill_call(trash, ids, 1).cpu()
+            if self._use_tail:
+                self._tail_prefill_call(trash, ids, 1, 0).cpu()
+        if self._prefix is not None:
+            self._cow_copy(TRASH_PAGE, TRASH_PAGE)
+        if self._spec_k:
+            self._verify_call(*self._spec_arrays()[0])
+        else:
+            self._decode_call(*self._step_arrays())
         self._zero_pages([])
 
     # -- request intake ----------------------------------------------------
@@ -520,8 +727,11 @@ class GenerationEngine:
                     return
             self._admit()
             self._expire_active()
+            if self._cfg.prefill_chunk:
+                self._advance_prefills()
             stepped = False
-            if self._num_active():
+            if any(r is not None and r.prefill_pos is None
+                   for r in self._slots):
                 self._step()
                 stepped = True
             self._flush_resolutions()
@@ -588,7 +798,14 @@ class GenerationEngine:
     def _admit(self):
         """Admit queued requests while a slot AND worst-case pages are
         both free (FIFO, head-of-line blocking — later smaller requests
-        never overtake)."""
+        never overtake). With the prefix cache, the longest cached chain
+        the prompt walks maps read-only (pinned across the eviction
+        pass), evictable chains are LRU-evicted before alloc when the
+        free list alone is short, and a full-prompt match CoW-splits the
+        page holding its last position. A prompt whose uncached tail is
+        longer than `prefill_chunk` is admitted now and prefilled one
+        chunk per iteration."""
+        P = self._cfg.page_size
         while True:
             with self._cv:
                 self._expire_queued()
@@ -599,20 +816,74 @@ class GenerationEngine:
                              if r is None), None)
                 if slot is None:
                     return
-                total = int(req.prompt.size) + req.max_new
-                if not self._cache.can_admit(total):
-                    monitor.stat_add("STAT_gen_admit_blocked")
-                    return
-                self._queue.popleft()
-                monitor.stat_sub("STAT_gen_queue_depth")
-                if not req.future.set_running_or_notify_cancel():
-                    if req.stream is not None:
-                        self._stream_q.append((req.stream, CancelledError()))
-                    continue
-                req.slot = slot
-                req.pt_row = self._cache.alloc(req.rid, total)
+                S = int(req.prompt.size)
+                total = S + req.max_new
+                need = self._cache.pages_needed(total)
+                digests, hit_pages = [], []
+                if self._prefix is not None:
+                    digests, hit_pages = self._prefix.lookup(req.prompt)
+                matched = len(hit_pages)
+                # a FULL-prompt match keeps every page but recomputes its
+                # last position's logits, through a private copy of the
+                # page holding it (the one divergent write)
+                full_match = matched > 0 and matched * P == S
+                fresh_needed = need - matched + (1 if full_match else 0)
+                if matched:
+                    # refcount >= 2 takes the matched chain out of the
+                    # evictable set for the eviction below
+                    self._cache.pin(hit_pages)
+                try:
+                    if fresh_needed > self._cache.reclaimable_pages:
+                        monitor.stat_add("STAT_gen_admit_blocked")
+                        return
+                    if fresh_needed > self._cache.free_pages:
+                        # evictable pages counted as capacity above;
+                        # reclaim them now, before alloc
+                        freed = self._prefix.evict(
+                            fresh_needed - self._cache.free_pages,
+                            exclude=hit_pages)
+                        if freed:
+                            self._zero_pages(freed)
+                        if fresh_needed > self._cache.free_pages:
+                            # every remaining chain is live-shared or
+                            # excluded: defer, pages return through
+                            # those sequences' frees
+                            monitor.stat_add("STAT_gen_admit_blocked")
+                            return
+                    self._queue.popleft()
+                    monitor.stat_sub("STAT_gen_queue_depth")
+                    if not req.future.set_running_or_notify_cancel():
+                        if req.stream is not None:
+                            self._stream_q.append(
+                                (req.stream, CancelledError()))
+                        continue
+                    req.slot = slot
+                    req.pt_row = self._cache.alloc_shared(req.rid, total,
+                                                          hit_pages)
+                finally:
+                    if matched:
+                        self._cache.unpin(hit_pages)
+                cow_src = cow_dst = None
+                if full_match:
+                    cow_src = hit_pages[-1]
+                    cow_dst = self._cache.cow_split(req.rid, cow_src)
+                    req.pt_row[matched - 1] = cow_dst
+                    monitor.stat_add("STAT_cow_splits")
                 self._slots[slot] = req
-            self._do_prefill(req)
+            if cow_dst is not None:
+                # clone the shared page before the tail prefill writes
+                # position S-1 through the private copy
+                self._cow_copy(cow_src, cow_dst)
+            req.prefix_tokens = (S - 1) if full_match else matched * P
+            if self._prefix is not None:
+                self._prefix.note_admitted(req.prefix_tokens)
+            chunk = self._cfg.prefill_chunk
+            if chunk and S - req.prefix_tokens > chunk:
+                # the slot joins decode when prefill_pos reaches S
+                req.prefill_pos = req.prefix_tokens
+                req.pending_digests = digests
+            else:
+                self._do_prefill(req, digests)
 
     def _expire_queued(self):
         """Fail every expired request and drop every cancelled one from
@@ -645,28 +916,83 @@ class GenerationEngine:
                 return b
         return self._cfg.prefill_buckets[-1]
 
-    def _do_prefill(self, req: _GenRequest):
+    def _do_prefill(self, req: _GenRequest, digests=None):
         """Prefill the prompt through its bucket (writes its K/V pages),
-        sample the first token, and mark the slot live. Non-finite
+        sample the first token, and mark the slot live. A prefix hit
+        (req.prefix_tokens > 0) prefills ONLY the tail through the tail
+        program; the cached pages are read, never written. Non-finite
         logits fail ONLY this request and return its pages zeroed."""
         S = int(req.prompt.size)
-        bucket = self._bucket_for(S)
-        ids = np.zeros((1, bucket), np.int64)
-        ids[0, :S] = req.prompt
-        lg = self._prefill_call(req.pt_row, ids, S)
+        pfx = req.prefix_tokens
+        if pfx:
+            tail = S - pfx
+            ids = np.zeros((1, self._bucket_for(tail)), np.int64)
+            ids[0, :tail] = req.prompt[pfx:]
+            lg = self._tail_prefill_call(req.pt_row, ids, tail, pfx)
+        else:
+            ids = np.zeros((1, self._bucket_for(S)), np.int64)
+            ids[0, :S] = req.prompt
+            lg = self._prefill_call(req.pt_row, ids, S)
+        self._finish_prefill(req, lg, digests)
+
+    def _poison_prefill(self, req: _GenRequest):
+        monitor.stat_add("STAT_gen_poisoned")
+        self._release(req)
+        self._resolve_later(req, exc=FatalError(
+            f"{self.name}: non-finite prefill logits for request "
+            f"{req.rid} (poisoned prompt or weights)"))
+
+    def _finish_prefill(self, req: _GenRequest, lg, digests):
+        """Shared end of every prefill flavor (whole prompt, prefix tail,
+        final chunk): sample the first token, register the prompt's full
+        pages in the prefix cache, mark the slot decode-live."""
         tok, finite = self._first_token(req, lg)
         if not finite:
-            monitor.stat_add("STAT_gen_poisoned")
-            self._release(req)
-            self._resolve_later(req, exc=FatalError(
-                f"{self.name}: non-finite prefill logits for request "
-                f"{req.rid} (poisoned prompt or weights)"))
+            self._poison_prefill(req)
             return
         self._prefills_total += 1
         monitor.stat_add("STAT_gen_prefills")
-        req.next_pos = S
+        if self._prefix is not None and digests:
+            self._register_pages(req, digests)
+        req.next_pos = int(req.prompt.size)
         req.t_first_ms = req.t_last_ms = _now_ms()
         self._deliver(req, tok)
+
+    def _register_pages(self, req: _GenRequest, digests):
+        """Index full pages in the prefix cache; pages that a budget
+        eviction freed (`prefix_cache_max_pages`) are zeroed here."""
+        freed = self._prefix.register(digests, req.pt_row)
+        if freed:
+            self._zero_pages(freed)
+
+    def _advance_prefills(self):
+        """Advance the OLDEST partially prefilled slot by ONE chunk
+        through the tail program. One chunk per engine iteration: between
+        chunks the loop runs a decode step for every live sequence, which
+        is the TPOT protection chunked prefill exists for."""
+        req = None
+        for r in self._slots:
+            if (r is not None and r.prefill_pos is not None
+                    and (req is None or r.rid < req.rid)):
+                req = r
+        if req is None:
+            return
+        S = int(req.prompt.size)
+        take = min(self._cfg.prefill_chunk, S - req.prefill_pos)
+        ids = np.zeros((1, self._bucket_for(take)), np.int64)
+        ids[0, :take] = req.prompt[req.prefill_pos:req.prefill_pos + take]
+        lg = self._tail_prefill_call(req.pt_row, ids, take, req.prefill_pos)
+        self._chunks_total += 1
+        monitor.stat_add("STAT_gen_prefill_chunks")
+        req.prefill_pos += take
+        if req.prefill_pos < S:
+            if not bool(torch.isfinite(lg).all()):
+                req.prefill_pos = req.pending_digests = None
+                self._poison_prefill(req)
+            return
+        req.prefill_pos = None
+        digests, req.pending_digests = req.pending_digests, None
+        self._finish_prefill(req, lg, digests)
 
     def _first_token(self, req: _GenRequest, logits):
         """First-token sampling from the prefill logits, through the
@@ -695,8 +1021,8 @@ class GenerationEngine:
         smask = np.zeros((M,), bool)
         pt = np.zeros((M, PP), np.int32)
         for i, req in enumerate(self._slots):
-            if req is None:
-                continue
+            if req is None or req.prefill_pos is not None:
+                continue  # empty, or still chunk-prefilling (no toks)
             active[i] = True
             toks[i] = req.toks[-1]
             pos[i] = req.next_pos
@@ -705,17 +1031,61 @@ class GenerationEngine:
             pt[i] = req.pt_row
         return pt, toks, pos, active, temps, smask
 
+    def _spec_arrays(self):
+        """Verify-step inputs: per-slot [current token + K drafts]
+        blocks. Drafts come from the proposer over each sequence's OWN
+        tokens, truncated to the request's remaining token budget (so
+        every consumed position stays in the pages admission reserved);
+        sampled slots take no drafts. Returns (args, drafted count)."""
+        M, PP = self._cfg.max_slots, self._cfg.pages_per_seq
+        K = self._spec_k
+        toks_blk = np.zeros((M, K + 1), np.int64)
+        dmask = np.zeros((M, K), bool)
+        pos = np.zeros((M,), np.int32)
+        active = np.zeros((M,), bool)
+        temps = np.ones((M,), np.float32)
+        smask = np.zeros((M,), bool)
+        pt = np.zeros((M, PP), np.int32)
+        drafted = 0
+        for i, req in enumerate(self._slots):
+            if req is None or req.prefill_pos is not None:
+                continue
+            active[i] = True
+            toks_blk[i, 0] = req.toks[-1]
+            pos[i] = req.next_pos
+            temps[i] = req.temperature
+            smask[i] = req.do_sample
+            pt[i] = req.pt_row
+            if not req.do_sample:
+                budget = min(K, req.max_new - len(req.toks) - 1)
+                if budget > 0:
+                    drafts = self._proposer.propose(
+                        np.concatenate([req.prompt,
+                                        np.asarray(req.toks, np.int32)]),
+                        budget)
+                    n = int(drafts.size)
+                    if n:
+                        toks_blk[i, 1:1 + n] = drafts
+                        dmask[i, :n] = True
+                        drafted += n
+        return (pt, toks_blk, dmask, pos, active, temps, smask), drafted
+
     def _step(self):
-        """ONE engine step: every live sequence advances one token;
-        inactive slots park on the scratch page."""
+        """ONE engine step: every live sequence advances one token
+        (or, with speculation on, 1 to K+1 tokens through the verify
+        program); inactive and chunk-prefilling slots park on the
+        scratch page."""
         if self._pre_step_hook is not None:
             self._pre_step_hook(self)
+        if self._spec_k:
+            self._spec_step()
+            return
         nxt, bad = self._decode_call(*self._step_arrays())
         self._steps_total += 1
         monitor.stat_add("STAT_gen_steps")
         now = _now_ms()
         for i, req in enumerate(self._slots):
-            if req is None:
+            if req is None or req.prefill_pos is not None:
                 continue
             if bad[i]:
                 # poison isolation: only THIS sequence fails; its pages
@@ -728,6 +1098,46 @@ class GenerationEngine:
             req.next_pos += 1
             req.t_last_ms = now
             self._deliver(req, int(nxt[i]))
+
+    def _spec_step(self):
+        """ONE speculative engine step: every live sequence advances by
+        its accepted drafts plus the bonus token the verify pass scored
+        at the first disagreement. Rejected positions were routed to the
+        scratch page on the device, so there is nothing to undo here."""
+        args, drafted = self._spec_arrays()
+        n_acc, nxt, bad = self._verify_call(*args)
+        self._steps_total += 1
+        monitor.stat_add("STAT_gen_steps")
+        if drafted:
+            monitor.stat_add("STAT_spec_drafted", drafted)
+            self._spec_drafted_total += drafted
+        now = _now_ms()
+        toks_blk = args[1]
+        for i, req in enumerate(self._slots):
+            if req is None or req.prefill_pos is not None:
+                continue
+            if bad[i]:
+                monitor.stat_add("STAT_gen_poisoned")
+                self._evict(req, FatalError(
+                    f"{self.name}: sequence {req.rid} produced non-finite "
+                    f"logits at step {len(req.toks)}"))
+                continue
+            acc = int(n_acc[i])
+            if acc:
+                monitor.stat_add("STAT_spec_accepted", acc)
+                self._spec_accepted_total += acc
+                req.spec_accepted += acc
+            req.t_last_ms = now
+            # accepted drafts in order, then the bonus token; EOS (or the
+            # token budget) inside the block ends the sequence there —
+            # later committed positions lie past next_pos, masked from
+            # every later attend and zeroed with the free
+            for tok in ([int(t) for t in toks_blk[i, 1:1 + acc]]
+                        + [int(nxt[i])]):
+                req.next_pos += 1
+                self._deliver(req, tok)
+                if self._finished(req, tok):
+                    break
 
     def _finished(self, req: _GenRequest, tok: int) -> bool:
         return ((req.eos is not None and tok == req.eos)
@@ -772,6 +1182,15 @@ class GenerationEngine:
 
     def _complete(self, req: _GenRequest):
         out = np.concatenate([req.prompt, np.asarray(req.toks, np.int32)])
+        if self._prefix is not None and req.pt_row is not None:
+            # register the full pages of prompt + answer before the
+            # release, so a follow-up turn whose prompt is this whole
+            # conversation walks the chain end to end. Only pages fully
+            # covered by WRITTEN positions qualify: the final token's K/V
+            # is never written, so the chain stops at next_pos
+            self._register_pages(
+                req, self._prefix.digests(out)[:req.next_pos
+                                               // self._cfg.page_size])
         self._release(req)
         t_done = _now_ms()
         self._hist.observe(t_done - req.t_enqueue_ms)
@@ -816,11 +1235,15 @@ class GenerationEngine:
                      for i, r in enumerate(self._slots)]
             slot_of = {r.rid: i for i, r in enumerate(self._slots)
                        if r is not None}
+            decode_tokens = self._tokens_total - self._prefills_total
+            steps = self._steps_total
         kv = dict(self._cache.stats())
         kv["owners"] = [{"rid": rid, "slot": slot_of.get(rid),
                          "pages": pages}
                         for rid, pages in sorted(self._cache.owners()
                                                  .items())]
+        kv["prefix"] = (self._prefix.stats() if self._prefix is not None
+                        else {"enabled": False})
         return {
             "slots": slots,
             "queue_depth": depth,
@@ -830,6 +1253,21 @@ class GenerationEngine:
             "steps": self._steps_total,
             "prefills": self._prefills_total,
             "tokens": self._tokens_total,
+            # speculation economics (tokens_per_step > 1 is the win) and
+            # the chunk count, under the JAX engine's names
+            "spec": {
+                "enabled": bool(self._spec_k),
+                "k": self._spec_k,
+                "drafted": self._spec_drafted_total,
+                "accepted": self._spec_accepted_total,
+                "acceptance_rate": round(
+                    self._spec_accepted_total
+                    / max(1, self._spec_drafted_total), 4),
+                # decode-delivered tokens per decode step (every
+                # prefill delivers one token, so those are subtracted)
+                "tokens_per_step": round(decode_tokens / max(1, steps), 4),
+            },
+            "prefill_chunks": self._chunks_total,
             "device": str(self._device),
             "latency_ms": self._hist.snapshot(),
             "ttft_ms": self._ttft_hist.snapshot(),

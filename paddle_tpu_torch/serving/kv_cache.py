@@ -1,8 +1,8 @@
 """Paged KV cache: block allocator + preallocated per-layer K/V pools.
 
-Port of `paddle_tpu.serving.kv_cache.PagedKVCache` without the prefix-
-cache references (`alloc_shared`, `cow_split`, `pin`, `cache_hold`), the
-tp mesh and the int8 scale pools, which come with later slices.
+Port of `paddle_tpu.serving.kv_cache.PagedKVCache` with its refcount
+layer (the prefix cache's substrate); the tp mesh, the int8 scale pools
+and the host tier's page sizing come with later slices.
 
 - Pools `[L, H, num_pages, page_size, D]` live on the device; the
   engine updates them in place.
@@ -16,6 +16,16 @@ tp mesh and the int8 scale pools, which come with later slices.
   reach the next owner. The decode kernel reads only positions up to a
   sequence's length; the plain path masks the rest to an exact 0, which
   is only safe when stale never means NaN.
+- **Refcounted sharing (prefix cache)**: every allocated page carries a
+  refcount. `alloc_shared` maps an already-filled prefix chain read-only
+  into a new sequence's page table (incref), the prefix index holds a
+  reference on registered pages (`cache_hold`), and `cow_split` swaps one
+  shared page for a private copy. Zero-on-free keys on refcounts:
+  `free()` returns ONLY the pages whose count hit 0, so a page another
+  sequence (or the prefix index) still reads is never zeroed under it.
+  Pages held only by the index (refcount 1, cache-held) are *evictable*:
+  `can_admit`/`headroom` count them as reclaimable, and the engine
+  evicts them (LRU, through the prefix index) before allocating.
 
 `alloc()`/`free()` are not thread-safe: the engine calls them from its
 single step thread.
@@ -69,6 +79,10 @@ class PagedKVCache:
         # LIFO free list: the page freed last is reallocated first
         self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
         self._owned: Dict[int, List[int]] = {}  # seq id -> pages
+        self._ref: Dict[int, int] = {}          # page -> refcount
+        # pages the prefix index holds a reference on (cache_hold);
+        # evictable = cache-held AND refcount 1 (no live sequence reads)
+        self._cache_held: set = set()
         self._free_low_water = len(self._free)
         self._free_high_water = len(self._free)
         monitor.stat_set("STAT_kv_pages_inuse", 0)
@@ -99,10 +113,24 @@ class PagedKVCache:
         need = self.pages_needed(tokens)
         return need <= self.pages_per_seq and need <= self.usable_pages
 
+    @property
+    def evictable_pages(self) -> int:
+        """Pages the prefix index alone holds (refcount 1, cache-held):
+        reclaimable on demand by an LRU eviction before alloc."""
+        return sum(1 for p in list(self._cache_held)
+                   if self._ref.get(p) == 1)
+
+    @property
+    def reclaimable_pages(self) -> int:
+        """Free-list pages plus evictable cached pages: the admission
+        capacity (the caller evicts before alloc)."""
+        return len(self._free) + self.evictable_pages
+
     def can_admit(self, tokens: int) -> bool:
-        """Admission check: worst-case pages free RIGHT NOW."""
+        """Admission check: worst-case pages available RIGHT NOW (free
+        list + evictable cached pages)."""
         need = self.pages_needed(tokens)
-        return need <= self.pages_per_seq and need <= len(self._free)
+        return need <= self.pages_per_seq and need <= self.reclaimable_pages
 
     # -- alloc / free ------------------------------------------------------
 
@@ -124,6 +152,8 @@ class PagedKVCache:
                 f"KV page pool exhausted: need {need} pages, "
                 f"{len(self._free)} free of {self.usable_pages}")
         pages = [self._free.pop() for _ in range(need)]
+        for p in pages:
+            self._ref[p] = 1
         self._owned[seq_id] = pages
         self._free_low_water = min(self._free_low_water, len(self._free))
         monitor.stat_set("STAT_kv_pages_inuse", self.pages_in_use)
@@ -131,15 +161,156 @@ class PagedKVCache:
         row[:need] = pages
         return row
 
+    def alloc_shared(self, seq_id: int, tokens: int,
+                     shared_pages: List[int]) -> np.ndarray:
+        """Like `alloc`, but the leading pages of the page-table row map
+        an already-filled prefix chain READ-ONLY (each shared page's
+        refcount is incremented; the sequence never writes them — its
+        first write lies past the shared prefix, or behind a
+        `cow_split`). Only the tail pages come off the free list."""
+        if seq_id in self._owned:
+            raise InvalidArgumentError(
+                f"sequence {seq_id} already holds pages")
+        need = self.pages_needed(tokens)
+        fresh = need - len(shared_pages)
+        if fresh < 0 or need > self.pages_per_seq:
+            raise InvalidArgumentError(
+                f"{tokens} tokens need {need} pages "
+                f"(pages_per_seq={self.pages_per_seq}, "
+                f"{len(shared_pages)} shared)")
+        for p in shared_pages:
+            if self._ref.get(p, 0) < 1:
+                raise InvalidArgumentError(
+                    f"shared page {p} is not allocated")
+        if fresh > len(self._free):
+            raise ResourceExhaustedError(
+                f"KV page pool exhausted: need {fresh} fresh pages, "
+                f"{len(self._free)} free of {self.usable_pages}")
+        for p in shared_pages:
+            self._ref[p] += 1
+        pages = [self._free.pop() for _ in range(fresh)]
+        for p in pages:
+            self._ref[p] = 1
+        self._owned[seq_id] = list(shared_pages) + pages
+        self._free_low_water = min(self._free_low_water, len(self._free))
+        monitor.stat_set("STAT_kv_pages_inuse", self.pages_in_use)
+        row = np.full((self.pages_per_seq,), TRASH_PAGE, np.int32)
+        row[:need] = self._owned[seq_id]
+        return row
+
+    def _decref(self, page: int) -> bool:
+        """Drop one reference; True when the page returned to the free
+        list (refcount hit 0): zero-on-free applies to exactly these
+        pages and defers while any sharer remains."""
+        n = self._ref.get(page, 0) - 1
+        if n > 0:
+            self._ref[page] = n
+            return False
+        self._ref.pop(page, None)
+        self._cache_held.discard(page)
+        self._free.append(page)
+        return True
+
     def free(self, seq_id: int) -> List[int]:
-        """Release a sequence's pages and return them (the engine zeroes
-        them on device before reuse). Idempotent — a double free (evict
-        racing natural EOS) is a no-op."""
+        """Release a sequence's references; returns ONLY the pages whose
+        refcount hit 0 (the engine zeroes those on device before reuse;
+        pages another sequence or the prefix index still reads are not
+        returned and must not be zeroed). Idempotent — a double free
+        (evict racing natural EOS) is a no-op."""
         pages = self._owned.pop(seq_id, [])
-        self._free.extend(pages)
+        freed = [p for p in pages if self._decref(p)]
         self._free_high_water = max(self._free_high_water, len(self._free))
         monitor.stat_set("STAT_kv_pages_inuse", self.pages_in_use)
-        return pages
+        return freed
+
+    # -- prefix-cache references -------------------------------------------
+
+    def pin(self, pages: List[int]) -> None:
+        """Temporarily incref pages (an admission holding its matched
+        chain across an eviction pass); pair with `unpin`."""
+        for p in pages:
+            if self._ref.get(p, 0) < 1:
+                raise InvalidArgumentError(f"page {p} is not allocated")
+            self._ref[p] += 1
+
+    def unpin(self, pages: List[int]) -> List[int]:
+        """Drop a `pin`; returns any pages freed (refcount hit 0)."""
+        freed = [p for p in pages if self._decref(p)]
+        if freed:
+            self._free_high_water = max(self._free_high_water,
+                                        len(self._free))
+            monitor.stat_set("STAT_kv_pages_inuse", self.pages_in_use)
+        return freed
+
+    def cache_hold(self, pages: List[int]) -> None:
+        """The prefix index takes a reference on registered chain pages:
+        they survive their producer sequence's free (content kept for
+        later hits) and become evictable once no live sequence shares
+        them."""
+        self.pin(pages)
+        self._cache_held.update(pages)
+
+    def cache_release(self, pages: List[int]) -> List[int]:
+        """Drop the prefix index's reference (chain eviction); returns
+        the pages freed NOW (refcount 0: the caller zeroes them). Pages
+        a live sequence still shares stay allocated and zero later, when
+        that sequence frees."""
+        for p in pages:
+            self._cache_held.discard(p)
+        return self.unpin(pages)
+
+    def cow_split(self, seq_id: int, old_page: int) -> int:
+        """Copy-on-write split: swap one SHARED page in `seq_id`'s
+        ownership for a fresh private page (the caller copies the
+        content on device, then writes through the private copy).
+        Returns the new page id; the shared original keeps its other
+        readers."""
+        pages = self._owned.get(seq_id)
+        if pages is None or old_page not in pages:
+            raise InvalidArgumentError(
+                f"sequence {seq_id} does not hold page {old_page}")
+        if self._ref.get(old_page, 0) < 2:
+            raise InvalidArgumentError(
+                f"page {old_page} is not shared (refcount "
+                f"{self._ref.get(old_page, 0)}); split is pointless")
+        if not self._free:
+            raise ResourceExhaustedError(
+                "KV page pool exhausted: no free page for CoW split")
+        new = self._free.pop()
+        self._ref[new] = 1
+        self._ref[old_page] -= 1
+        pages[pages.index(old_page)] = new
+        self._free_low_water = min(self._free_low_water, len(self._free))
+        monitor.stat_set("STAT_kv_pages_inuse", self.pages_in_use)
+        return new
+
+    def refcounts(self) -> Dict[int, int]:
+        """{page: refcount} snapshot."""
+        out = {}
+        for p in list(self._ref):
+            n = self._ref.get(p)
+            if n is not None:
+                out[p] = n
+        return out
+
+    def cached_pages(self) -> List[int]:
+        """Pages the prefix index currently holds (snapshot)."""
+        return list(self._cache_held)
+
+    def headroom(self, token_counts) -> Dict[int, int]:
+        """For each request size (total tokens = prompt + max_new), how
+        many MORE such requests `can_admit` would accept RIGHT NOW from
+        the free list plus the evictable cached pages (0 when the shape
+        can never fit the page table)."""
+        out = {}
+        free = self.reclaimable_pages
+        for tokens in token_counts:
+            need = self.pages_needed(tokens)
+            if need > self.pages_per_seq or need <= 0:
+                out[int(tokens)] = 0
+            else:
+                out[int(tokens)] = free // need
+        return out
 
     def owned(self, seq_id: int):
         pages = self._owned.get(seq_id)
@@ -175,4 +346,9 @@ class PagedKVCache:
                                / max(1, self.usable_pages), 4),
             "free_low_water": self._free_low_water,
             "free_high_water": self._free_high_water,
+            # prefix-cache occupancy: cached = held by the prefix index
+            # at all; evictable = held ONLY by it
+            "cached_pages": len(self._cache_held),
+            "evictable_pages": self.evictable_pages,
+            "reclaimable_pages": self.reclaimable_pages,
         }

@@ -466,8 +466,8 @@ def test_gpt_train_batch_matches_jax(attn, dtype, flash_flags, monkeypatch):
 def test_flash_gate_agrees_with_the_kernels_check(dtypes):
     """ROADMAP C8: `flash_supported` passes exactly the types `_check`
     takes (float32, bfloat16, float16, one type for q, k and v), so no
-    type reaches a kernel that raises; the splash kernels' check refuses
-    float16."""
+    type reaches a kernel that raises; the splash kernels' check takes
+    the same types (float16 included since C8's repair)."""
     from paddle_tpu_torch.framework.errors import InvalidArgumentError
     from paddle_tpu_torch.ops import splash_ops
     q, k, v = (torch.zeros(1, 2, 128, 32, dtype=getattr(torch, d))
@@ -481,9 +481,12 @@ def test_flash_gate_agrees_with_the_kernels_check(dtypes):
         took = False
     assert gate == took == (dtypes[0] in ("float32", "bfloat16", "float16")
                             and len(set(dtypes)) == 1)
-    if dtypes[0] == "float16" and took:
-        with pytest.raises(InvalidArgumentError, match="float16"):
-            flash_ops._check(q, k, v, None, dtypes=splash_ops._DTYPES)
+    try:
+        flash_ops._check(q, k, v, None, dtypes=splash_ops._DTYPES)
+        splash_took = True
+    except InvalidArgumentError:
+        splash_took = False
+    assert splash_took == took
 
 
 def test_sdpa_under_float16_amp_takes_flash(flash_flags, monkeypatch):

@@ -160,12 +160,36 @@ def test_request_that_can_never_fit_fails_fast(pair):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(prefix_cache=True), dict(spec_k=2), dict(prefill_chunk=4),
     dict(kv_tier=True), dict(program_store="/nonexistent"), dict(tp=2),
     dict(kv_cache_dtype="int8")])
 def test_unported_knob_raises(knob):
     with pytest.raises(InvalidArgumentError, match="not yet ported"):
         GenerationConfig(**knob)
+
+
+@pytest.mark.parametrize("knob,programs", [
+    (dict(prefix_cache=True), {"prefill_tail[b=8]", "cow_copy",
+                               "decode[m=2]"}),
+    (dict(spec_k=2), {"verify[k=2]"}),
+    (dict(prefill_chunk=4), {"prefill_tail[b=8]", "decode[m=2]"})])
+def test_ported_knob_builds_and_serves(pair, knob, programs):
+    """The knobs the JAX engine schedules with (prefix cache, speculative
+    decoding, chunked prefill) build a config and an engine that serves
+    greedy requests token-identical to generate(), with each mode's
+    programs in the ledger (tests/test_torch_prefix_cache.py and
+    tests/test_torch_spec_decode.py hold them to the JAX engine)."""
+    _, port = pair
+    cfg = GenerationConfig(**{**_KW, **knob})
+    for k, v in knob.items():
+        assert getattr(cfg, k) == v
+    ids = _prompts(n=2, seed=7)
+    with GenerationEngine(port, cfg, device="cpu") as eng:
+        outs = [eng.generate(p, max_new_tokens=5) for p in ids]
+        s = eng.stats()
+    for o, p in zip(outs, ids):
+        np.testing.assert_array_equal(o, _generate(port, p, 5))
+    assert set(s["compiles"]) == programs | {"prefill[b=8]"}
+    assert s["pages"]["pages_in_use"] == s["pages"]["cached_pages"]
 
 
 def test_unported_knobs_accept_their_off_state():

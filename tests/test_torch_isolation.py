@@ -68,7 +68,8 @@ def test_importing_every_module_builds_nothing():
                 "io.packing", "static.input_spec", "amp", "ops.linalg",
                 "nn.functional.common", "nn.functional.norm",
                 "nn.functional.activation", "nn.layer.common",
-                "nn.layer.norm", "nn.layer.activation"):
+                "nn.layer.norm", "nn.layer.activation",
+                "serving.prefix_cache", "serving.spec_decode"):
         assert f"paddle_tpu_torch.{sub}" in names
     for name in names:
         importlib.import_module(name)

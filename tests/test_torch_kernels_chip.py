@@ -228,7 +228,8 @@ def _packed_ids(B, S, g, device, layout="packed"):
 
 @pytest.mark.parametrize("layout", ["packed", "boundaries", "one",
                                     "aligned", "midwarp"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("p", [0.0, 0.2])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("D", [32, 64, 128])
@@ -239,7 +240,8 @@ def test_splash_kernels_match_plain(cuda, p, causal, D, dtype, layout):
     "aligned" and "midwarp" ids 1e-4 x max(1, max |ref|) as chip_smoke's
     phase 3 holds them (their gradients reach ~8 at D 128); bf16 1e-2 x
     max(1, max |ref|) (one bf16 rounding of P in K5 and of dS and Pd in
-    K6 and K7, as the TPU kernels cast them, and of the output). The
+    K6 and K7, as the TPU kernels cast them, and of the output); fp16
+    2e-3 x max(1, max |ref|), as the flash kernels' fp16 rows. The
     backward pair is fed the plain forward's O and LSE. On "aligned" ids
     most of K5's (warp band, key tile) pairs take its mask-free path."""
     from paddle_tpu_torch.ops import splash_ops
@@ -264,7 +266,8 @@ def test_splash_kernels_match_plain(cuda, p, causal, D, dtype, layout):
                                                  "one"):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
         else:
-            _assert_within(a, b, 1e-4 if dtype == torch.float32 else 1e-2)
+            _assert_within(a, b, {torch.float32: 1e-4, torch.bfloat16: 1e-2,
+                                  torch.float16: 2e-3}[dtype])
     close(out, ref)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
     delta = flash_ops._delta(ref, do)
@@ -281,15 +284,19 @@ def test_splash_kernels_match_plain(cuda, p, causal, D, dtype, layout):
         [x + 1 for x in n]
 
 
-def test_float16_reaches_flash_but_splash_raises(cuda):
-    """ROADMAP C8. float16 passes flash_supported's type check and K2
-    takes it; K5-K7 have no float16 build, so a float16 splash call on
-    the card raises InvalidArgumentError (never a quiet plain path) and
-    launches nothing."""
-    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+def test_float16_reaches_flash_and_splash(cuda):
+    """ROADMAP C8, repaired. float16 passes flash_supported's and
+    splash_supported's checks, and K2 and K5-K7 take it: a float16 splash
+    call on the card launches K5 forward and K6 + K7 backward in float16
+    (counted by type) and agrees with the dense float32 reference within
+    2e-3 x max(1, max |ref|)."""
     from paddle_tpu_torch.ops import splash_ops
-    q = torch.randn(1, 2, 128, 64, device=cuda).half()
-    seg = torch.zeros(1, 128, dtype=torch.int32, device=cuda)
+    g = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(1, 2, 128, 64, generator=g).to(cuda).half()
+                   for _ in range(4))
+    seg = torch.zeros(1, 128, dtype=torch.int32)
+    seg[:, 50:] = 1
+    seg = seg.to(cuda)
     assert flash_ops.flash_supported(tuple(q.shape), dtype=q.dtype,
                                      min_seq=128)
     n2 = flash_ops.flash_attention_fwd.launches_by_dtype["float16"]
@@ -298,10 +305,20 @@ def test_float16_reaches_flash_but_splash_raises(cuda):
     assert flash_ops.flash_attention_fwd.launches_by_dtype["float16"] == \
         n2 + 1
     assert splash_ops.splash_supported(tuple(q.shape), min_seq=128)
-    n5 = splash_ops.splash_attention_fwd.launches
-    with pytest.raises(InvalidArgumentError, match="float16"):
-        splash_ops.splash_attention(q, q, q, seg, seg, causal=True)
-    assert splash_ops.splash_attention_fwd.launches == n5
+    counts = {w: w.launches_by_dtype["float16"]
+              for w in (splash_ops.splash_attention_fwd,
+                        splash_ops.splash_attention_dq,
+                        splash_ops.splash_attention_dkv)}
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    out = splash_ops.splash_attention(qq, kk, vv, seg, seg, causal=True)
+    out.backward(do)
+    assert out.dtype == qq.grad.dtype == torch.float16
+    for w, n in counts.items():
+        assert w.launches_by_dtype["float16"] == n + 1, w.__name__
+    ref = splash_ops.sdpa_segment_reference(q.float(), k.float(), v.float(),
+                                            seg, seg, True, 0.125)
+    lim = 2e-3 * max(1.0, ref.abs().max().item())
+    assert (out.float() - ref).abs().max().item() <= lim
 
 
 def test_splash_absent_segment_rows_are_zero(cuda):
