@@ -19,13 +19,15 @@ Phases:
               _time_ms):
               K1 paged decode (phase 3's 8 slots of random lengths, the
               decode profile's 8 x 230 tokens, 2 x 1024 tokens, and phase
-              3's slots at head dims 80, 96 and 256; fp32 and bf16; the
-              split count per row), K2 flash forward (serving
+              3's slots at head dims 80, 96 and 256; fp32, bf16 and fp16;
+              the split count per row), K2 flash forward (serving
               shape, fp32, bf16 and fp16, and the training shape with
               dropout), K3 flash dQ and K4 flash
               dK/dV (training shape, dropout 0 and 0.1, fp32, bf16 and
               fp16; head dims 128 and 32 at the train width, fp32 and
-              bf16; Sq 1024 != Sk 1536), with the achieved TFLOP/s;
+              bf16; Sq 1024 != Sk 1536; head dims 80, 96 and 256, which
+              run at padded widths, in fp32, bf16 and fp16), with the
+              achieved TFLOP/s;
               FlashAttention's gradients against autograd through the
               plain forward; gradients reaching q/k/v through K2 (C4)
  4. model     GPT-2 small (GPTConfig() defaults, fp32, seed 0): a [2,1024]
@@ -35,7 +37,8 @@ Phases:
               others decode; every output token-identical to the port's
               own generate(); kernel launch counts read off this run;
               then a GPT with head dim 96 (hidden 768, 8 heads, 2 layers)
-              serving 4 requests through K1, token-identical to generate()
+              serving 4 requests through K1, token-identical to generate(),
+              its 300-token prompt prefilled through K2 at head dim 96
  5b. features GPT-2 small served with the JAX engine's three scheduling
               features, each against generate() and the engine with it
               off: a prefix arm (8 requests sharing a 192-token system
@@ -49,6 +52,21 @@ Phases:
               joining 4 live streams with prefill_chunk 128, then 0:
               8 chunks and no K2 launch, then K2; the live streams'
               TPOT p50 and p99)
+ 5c. quant    GPT-2 small quantized on phase 5's engine settings and 16
+              requests (int4 and fp16 arms: the first 8): weight-only
+              int8 and int4 weights over fp32 pools
+              (each token-identical to generate() on the same quantized
+              model; K1 once a layer a step; K2 for the long prompts;
+              resident weight bytes), fp32 weights over int8 pools twice
+              (first token exact against fp32 pools, bit-stable, no K1;
+              agreement, flip margins and can_admit capacity at equal pool
+              bytes recorded), int8 pools with the prefix cache on 5b's
+              prefix requests (the miss identical to the cache off, every
+              other output up to a near-tie flip; one CoW split, freed
+              pages' scale rows 0) and an fp16 GPT-2 small over fp16
+              pools (first tokens exact, identical to its generate() up
+              to near-tie flips, K1 in fp16); with --profile, the
+              quantized decode steps' device time
  6. train     GPT-2 small (dropout 0.1, fp32) trained through
               hapi.Model.fit: AdamW under LinearWarmup, global-norm clip,
               cross-entropy, batch 8 x 1024, 20 steps over a seeded
@@ -82,7 +100,7 @@ width (B 8, H 12, S 1024, D 64) and at the packing phase's shape, with
 segment ids from io.PackingCollator over the bench's lengths (causal, p
 0 and 0.1, fp32, bf16 and fp16, and a non-causal case whose absent
 segment gives exact zero rows; the packing phase's shape in fp32, bf16
-and fp16), with
+and fp16, and at head dims 80, 96 and 256 in the three types), with
 the share of K5's (warp band, key tile) pairs that take its mask-free
 path, the share of the 16x8 sub-tiles of K6's and K7's tiles that can
 hold an allowed pair and, where the library call runs, K5 against the
@@ -91,9 +109,10 @@ SplashAttention's gradients against autograd through the plain forward.
 --profile's profiler sessions come after serving, so that run's train
 and packing walls carry them; each train path (fp32, AMP) is profiled
 over 3 steps with its GEMM share.
-Then one JSON line describing the kernels (K2-K4 also as
-"flash_fwd.bfloat16"/".float16" rows and K5-K7 as ".bfloat16" and
-".float16" rows, their launches counted in that type), and as the last line
+Then one JSON line describing the kernels (K1 also as a
+"paged_attention.float16" row, K2-K4 as "flash_fwd.bfloat16"/".float16"
+rows and K5-K7 as ".bfloat16" and ".float16" rows, their launches
+counted in that type), and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits 1 with no result;
 no CUDA device, or no paddle_tpu_torch next to this file, exits 2.
 """
@@ -125,6 +144,10 @@ CUDA_CORE_FP32 = 67e12
 # rounding of P (K2) or dS / Pd (K3, K4) and of the output in the 16-bit
 # types, float16 keeping 10 mantissa bits to bfloat16's 7
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 2e-3}
+# K1 in fp16 (ROADMAP C10) against the plain version in fp32 on the same
+# fp16 values, rounded to fp16: one rounding of an output below 4 in
+# magnitude (ulp <= 2^-9) over fp32 sums
+K1_FP16_TOL = 2e-3
 K1_SHAPE = dict(B=8, H=12, D=64, P=16, PP=64)
 K2_SHAPE = dict(B=2, H=12, S=1024, D=64)
 TRAIN_SHAPE = dict(B=8, H=12, S=1024, D=64)   # the train phase's attention
@@ -134,9 +157,20 @@ DROPOUT = 0.1
 PACK = dict(T=1024, DIM=256, HEADS=4, VOCAB=8192, NSEQ=2048, BS=64,
             HEADROOM=1.15, PAD_ROWS=16)
 SPLASH_SHAPE = dict(B=8, H=12, S=1024, D=64)   # GPT-2 small's attention
+# ROADMAP C11: head dims K2-K7 run at padded widths, each with the heads
+# that keep about GPT-2 small's width (768) at the train and pack shapes
+HEAD_DIM_CASES = ((80, 10), (96, 8), (256, 3))
 # phase 5b's engines: phase 5's slots, page and buckets; spec_k of its
 # spec arm
 FEAT = dict(slots=8, page=16, buckets=(16, 64, 256, 1024), spec_k=4)
+# phase 5c: a top-2 logit gap below which a token flip between two paths
+# that round differently (an int8 prefix-cache hit against a miss; the
+# fp16 engine's K1 against generate()'s dense fp16 attention) counts as a
+# near-tie. Int8 pages move GPT-2 small's logits (std 0.55) by about 1e-3,
+# and fp16 logits resolve 2^-9 = 1.95e-3 near its top logits; on an NVIDIA
+# H100 80GB HBM3 at 700 W the flips sat at gaps of 2.9e-4 to 2.9e-3
+# (PERF.md §2)
+NEAR_TIE = 1e-2
 # AMP step parity (kernels vs plain path under one AMP): loss rtol, and a
 # gradient's share of its own max (see Smoke.amp_step_parity)
 AMP_LOSS_RTOL = {"bfloat16": 1e-3, "float16": 1e-3}
@@ -372,7 +406,8 @@ class Smoke:
         return q, kp, vp, pt, pos, lens
 
     def check_k1(self):
-        """K1 against its plain version at three shapes, fp32 and bf16:
+        """K1 against its plain version at three shapes, fp32, bf16 and
+        fp16 (ROADMAP C10):
         phase 3's (8 slots of random lengths up to 1024), the decode
         profile's (8 slots of 230 tokens) and a long context (2 slots of
         1024); and phase 3's slots at head dims 80, 96 and 256 (ROADMAP
@@ -394,7 +429,8 @@ class Smoke:
         rows = []
         for shape, B, lens_in, D in shapes:
             scale = 1.0 / D ** 0.5
-            for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
+            for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2),
+                               (torch.float16, K1_FP16_TOL)):
                 q, kp, vp, pt, pos, lens = self.k1_inputs(dtype, B, lens_in,
                                                           D=D)
                 out = po.paged_attention(q, kp, vp, pt, pos, scale)
@@ -442,6 +478,10 @@ class Smoke:
                     f"K1 {name} {shape} disagrees with its plain version"
         self.details["k1"] = rows
         self.kernel_rows["paged_attention"] = rows[0]
+        # the fp16 serving path's row (phase 5c's fp16 arm): phase 3's slots
+        self.kernel_rows["paged_attention.float16"] = next(
+            r for r in rows if r["shape"] == "phase3"
+            and r["dtype"] == "float16")
 
     def k2_inputs(self, dtype, causal, padded, seed=1):
         torch = self.torch
@@ -603,6 +643,11 @@ class Smoke:
                            p=DROPOUT, padded=False),
                       dict(H=H0, D=D0, Sq=S0, Sk=1536, dtype=dt,
                            causal=False, p=DROPOUT, padded=False)]
+        # ROADMAP C11: head dims at padded widths, in every type
+        cases += [dict(H=H, D=D, Sq=S0, Sk=S0, dtype=dt, causal=True,
+                       p=DROPOUT, padded=False)
+                  for D, H in HEAD_DIM_CASES
+                  for dt in ("float32", "bfloat16", "float16")]
         lib = {}
         for case in cases:
             name, causal, p, padded = (case[k] for k in
@@ -818,21 +863,26 @@ class Smoke:
         prow = io.suggest_rows(_bench_lengths(np), PACK["BS"], PACK["T"],
                                headroom=PACK["HEADROOM"])
         ph = PACK["HEADS"]
-        cases = [("gpt2", dt, True, p, ids, ids)
+        cases = [("gpt2", dt, True, p, ids, ids, H, D)
                  for dt in ("float32", "bfloat16", "float16")
                  for p in (0.0, DROPOUT)]
         packs = self.splash_ids(prow, PACK["BS"])
-        cases += [("gpt2", "float32", False, 0.0, ids, absent)]
-        cases += [("packed_lm", dt, True, 0.0, packs, None)
+        cases += [("gpt2", "float32", False, 0.0, ids, absent, H, D)]
+        cases += [("packed_lm", dt, True, 0.0, packs, None, ph, D)
                   for dt in ("bfloat16", "float16", "float32")]
+        # ROADMAP C11: the pack at head dims of padded widths, every type
+        cases += [("packed_lm", dt, True, 0.0, packs, None, hh, dd)
+                  for dd, hh in HEAD_DIM_CASES
+                  for dt in ("float32", "bfloat16", "float16")]
         rows = {"fwd": [], "dq": [], "dkv": []}
-        for shape, name, causal, p, qs, ks in cases:
+        for shape, name, causal, p, qs, ks, Hc, Dc in cases:
             ks = qs if ks is None else ks
-            Bc, Hc = (B, H) if shape == "gpt2" else (qs.shape[0], ph)
+            Bc = B if shape == "gpt2" else qs.shape[0]
             dtype = getattr(torch, name)
             tol = FLASH_TOL[name]
+            sc = 1.0 / Dc ** 0.5
             g = torch.Generator(device="cuda").manual_seed(11 + causal)
-            q, k, v, do = (torch.randn(Bc, Hc, S, D, generator=g,
+            q, k, v, do = (torch.randn(Bc, Hc, S, Dc, generator=g,
                                        device="cuda").to(dtype)
                            for _ in range(4))
             kv_lo, kv_hi, q_lo, q_hi = so._block_bounds(qs, ks, 64, 64,
@@ -844,13 +894,13 @@ class Smoke:
             tiles = int((kv_hi - kv_lo).sum()) / sweep
             tiles_t = int((q_hi - q_lo).sum()) / sweep
             full = Bc * Hc * (S * (S + 1) // 2 if causal else S * S)
-            tag = dict(shape=f"{Bc}x{Hc}x{S}x{D}", causal=causal, p=p,
+            tag = dict(shape=f"{Bc}x{Hc}x{S}x{Dc}", causal=causal, p=p,
                        absent=ks is not qs, tiles_visited=tiles,
                        pair_share=pairs / full)
             # K5's (warp band, key tile) pairs that take the mask-free path
             # (`_uniform_tiles`), of those its spans visit
             vis, uni = so._uniform_tiles(qs, ks, causal,
-                                         32 if D == 128 else 64)
+                                         so._k5_key_tile(Dc, dtype))
             k5_uniform = int(uni.sum()) / int(vis.sum())
             # the 16x8 sub-tiles of K6's and K7's visited tiles that can
             # hold an allowed pair (`_subtile_mask`): what a sub-tile skip
@@ -860,7 +910,7 @@ class Smoke:
                 vis, live = so._subtile_mask(qs, ks, causal, tr)
                 sub[kname] = dict(
                     subtiles_live=int(live.sum()) / int(vis.sum()))
-            bh_sd = Bc * Hc * S * D * q.element_size()
+            bh_sd = Bc * Hc * S * Dc * q.element_size()
             row_b = Bc * Hc * S * 4
             ids_b = 2 * Bc * S * 4 + 2 * Bc * nt * 4
             lib_fwd = lib_bwd = lib_fwd_dev = None
@@ -874,7 +924,7 @@ class Smoke:
                 lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(
                     ol, (ql, kl, vl), do, retain_graph=True), 10)
                 del ql, kl, vl, ol, mask
-            fargs = (q, k, v, qs, ks, causal, scale, p, seed)
+            fargs = (q, k, v, qs, ks, causal, sc, p, seed)
             out, lse = so.splash_attention_fwd(*fargs, bounds=(kv_lo, kv_hi))
             ref, ref_lse = so._splash_fwd_reference(*fargs)
             torch.cuda.synchronize()
@@ -893,12 +943,12 @@ class Smoke:
                 "K5 splash_fwd", name, err, ref.float().abs().max().item(),
                 tol, k5_ev,
                 _time_ms(torch, lambda: so._splash_fwd_reference(*fargs), 3),
-                4 * pairs * D, 4 * bh_sd + row_b + ids_b, lib_fwd,
+                4 * pairs * Dc, 4 * bh_sd + row_b + ids_b, lib_fwd,
                 device_ms=k5_dev, library_device_ms=lib_fwd_dev,
                 uniform_tiles=k5_uniform, **tag))
             del out, lse
             delta = fo._delta(ref, do)
-            bargs = (q, k, v, qs, ks, do, ref_lse, delta, causal, scale, p,
+            bargs = (q, k, v, qs, ks, do, ref_lse, delta, causal, sc, p,
                      seed)
             dq = so.splash_attention_dq(*bargs, bounds=(kv_lo, kv_hi))
             dq_ref = so._splash_dq_reference(*bargs)
@@ -913,7 +963,7 @@ class Smoke:
                 _time_ms(torch, lambda: so.splash_attention_dq(
                     *bargs, bounds=(kv_lo, kv_hi)), 10),
                 _time_ms(torch, lambda: so._splash_dq_reference(*bargs), 3),
-                6 * pairs * D, 5 * bh_sd + 2 * row_b + ids_b, lib_bwd,
+                6 * pairs * Dc, 5 * bh_sd + 2 * row_b + ids_b, lib_bwd,
                 **sub["dq"], **tag))
             del dq, dq_ref
             dk, dv = so.splash_attention_dkv(*bargs, bounds=(q_lo, q_hi))
@@ -930,7 +980,7 @@ class Smoke:
                 _time_ms(torch, lambda: so.splash_attention_dkv(
                     *bargs, bounds=(q_lo, q_hi)), 10),
                 _time_ms(torch, lambda: so._splash_dkv_reference(*bargs), 3),
-                8 * pairs * D, 6 * bh_sd + 2 * row_b + ids_b, lib_bwd,
+                8 * pairs * Dc, 6 * bh_sd + 2 * row_b + ids_b, lib_bwd,
                 tiles_visited_t=tiles_t, **sub["dkv"], **tag))
             if lib_bwd is not None:
                 pair_ms = rows["dq"][-1]["ms"] + rows["dkv"][-1]["ms"]
@@ -1042,12 +1092,9 @@ class Smoke:
             self.gpt = GPTForCausalLM(GPTConfig(), device="cuda",
                                       seed=0).eval()
         cfg = self.gpt.gpt.config
-        rng = np.random.RandomState(0)
-        n_req = 16
-        lens = [16, 900, 40, 700, 130, 300, 17, 520, 64, 800, 250, 33,
-                610, 90, 400, 880]
-        prompts = [rng.randint(0, cfg.vocab_size, size=(n,)) for n in lens]
-        new = [int(x) for x in rng.randint(32, 65, size=n_req)]
+        prompts, new = self.serving_requests(cfg.vocab_size)
+        lens = [len(p) for p in prompts]
+        n_req = len(prompts)
         page, slots = 16, 8
         num_pages = 1 + sum(-(-(s + m) // page)
                             for s, m in zip(lens, new))
@@ -1125,7 +1172,9 @@ class Smoke:
             compiles=stats["compiles"])
         self.record_path("serving")
         # checks: outputs, identity to generate(), launch counts, pages
-        self.assert_identical("serving", prompts, new, results)
+        # kept for phase 5c, whose int8-KV arm serves the same requests
+        self.serving_refs = self.assert_identical("serving", prompts, new,
+                                                  results)
         assert k1 == stats["steps"] * cfg.num_layers, \
             f"paged_attention launches {k1} != steps {stats['steps']} x " \
             f"{cfg.num_layers} layers"
@@ -1134,38 +1183,66 @@ class Smoke:
         assert joined_at is not None and joined_at > 0
         self.serving_d96()
 
-    def generate_refs(self, prompts, new):
-        """The port's generate() of each prompt (one call a prompt),
-        host arrays."""
-        return [self.gpt.generate(p[None], max_new_tokens=n)[0]
+    @staticmethod
+    def serving_requests(vocab):
+        """Phase 5's 16 greedy requests (seeded): prompts of 16-900
+        tokens and 32-64 new tokens each."""
+        import numpy as np
+        rng = np.random.RandomState(0)
+        lens = [16, 900, 40, 700, 130, 300, 17, 520, 64, 800, 250, 33,
+                610, 90, 400, 880]
+        prompts = [rng.randint(0, vocab, size=(n,)) for n in lens]
+        new = [int(x) for x in rng.randint(32, 65, size=len(lens))]
+        return prompts, new
+
+    def generate_refs(self, prompts, new, gpt=None):
+        """The port's generate() of each prompt (one call a prompt) on
+        `gpt` (phase 5's model by default), host arrays."""
+        gpt = self.gpt if gpt is None else gpt
+        return [gpt.generate(p[None], max_new_tokens=n)[0]
                 .cpu().numpy() for p, n in zip(prompts, new)]
 
-    def assert_identical(self, label, prompts, new, outs, refs=None):
-        """Every output token-identical to generate(); for each one that
-        differs, print the first differing step and the top-2 logit
-        margin of the full forward there."""
+    def first_flips(self, prompts, new, outs, refs, gpt=None):
+        """For each output that differs from its reference: (request,
+        first differing step, top-2 logit gap of `gpt`'s full forward on
+        the reference's context there)."""
         torch = self.torch
         import numpy as np
-        refs = self.generate_refs(prompts, new) if refs is None else refs
-        mismatches = 0
+        gpt = self.gpt if gpt is None else gpt
+        flips = []
         for i, (p, out, ref) in enumerate(zip(prompts, outs, refs)):
+            if np.array_equal(out, ref):
+                continue
             S = len(p)
+            step = int(np.nonzero(out != ref)[0][0]) - S
+            with torch.inference_mode():
+                ctx = torch.as_tensor(ref[:S + step][None], device="cuda")
+                top2 = torch.topk(gpt(ctx)[0, -1].float(), 2).values
+            flips.append((i, step, (top2[0] - top2[1]).item()))
+        return flips
+
+    def assert_identical(self, label, prompts, new, outs, refs=None,
+                         gpt=None):
+        """Every output token-identical to generate() (of `gpt`, phase
+        5's model by default); for each one that differs, print the first
+        differing step and the top-2 logit margin of the full forward
+        there (`first_flips`). Returns the references."""
+        gpt = self.gpt if gpt is None else gpt
+        refs = self.generate_refs(prompts, new, gpt) if refs is None \
+            else refs
+        for i, (p, out) in enumerate(zip(prompts, outs)):
             assert out is not None, f"{label}: request {i} produced no result"
-            assert out.shape == (S + new[i],), \
+            assert out.shape == (len(p) + new[i],), \
                 f"{label}: request {i} shape {out.shape}"
-            if not np.array_equal(out, ref):
-                mismatches += 1
-                step = int(np.nonzero(out != ref)[0][0]) - S
-                with torch.inference_mode():
-                    ctx = torch.as_tensor(ref[:S + step][None],
-                                          device="cuda")
-                    top2 = torch.topk(self.gpt(ctx)[0, -1], 2).values
-                print(f"{label}: request {i} (prompt {S}): first differing "
-                      f"step {step}, engine token {out[S + step]} vs "
-                      f"generate {ref[S + step]}, top-2 logit margin "
-                      f"{(top2[0] - top2[1]).item():.3e}")
-        assert mismatches == 0, \
-            f"{label}: {mismatches} requests differ from generate()"
+        flips = self.first_flips(prompts, new, outs, refs, gpt)
+        for i, step, gap in flips:
+            S = len(prompts[i])
+            print(f"{label}: request {i} (prompt {S}): first differing "
+                  f"step {step}, engine token {outs[i][S + step]} vs "
+                  f"generate {refs[i][S + step]}, top-2 logit margin "
+                  f"{gap:.3e}")
+        assert not flips, \
+            f"{label}: {len(flips)} requests differ from generate()"
         return refs
 
     def serving_d96(self):
@@ -1174,9 +1251,12 @@ class Smoke:
         seed 0) served by GenerationEngine: 4 greedy requests, 8 new
         tokens each, token-identical to the port's generate(), its decode
         attention through K1 (launches counted on this path, one a layer
-        a step). Prefill takes the plain attention: the flash kernels are
-        built for head dims 32/64/128 (ROADMAP B item 5)."""
+        a step). The 300-token prompt prefills in bucket 512, at
+        FLAGS_flash_attention_min_seq, through K2 at head dim 96 (ROADMAP
+        C11: K2 runs at the padded width 128 there); its launches are
+        counted on this path."""
         import numpy as np
+        from paddle_tpu_torch.framework.flags import flag
         from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
         from paddle_tpu_torch.serving import GenerationEngine
         cfg = GPTConfig(hidden_size=768, num_heads=8, num_layers=2)
@@ -1200,29 +1280,38 @@ class Smoke:
         eng.shutdown(drain=True, timeout_s=60)
         launches = self.record_path("serving_d96")
         k1 = launches["paged_attention"]
+        k2 = launches["flash_fwd"]
         same = [np.array_equal(o, gpt.generate(p[None], max_new_tokens=new)
                                [0].cpu().numpy())
                 for o, p in zip(outs, prompts)]
         print(f"serving head dim 96 (hidden 768, 8 heads, 2 layers): "
               f"{len(prompts)} requests, {len(prompts) * new} tokens in "
               f"{wall:.3f} s, {stats['steps']} decode steps; identical to "
-              f"generate(): {sum(same)} of {len(same)}; K1 launches {k1}")
+              f"generate(): {sum(same)} of {len(same)}; K1 launches {k1}, "
+              f"K2 launches {k2} (head dim 96, bucket 512 >= min-seq "
+              f"{flag('FLAGS_flash_attention_min_seq')})")
         self.details["serving_d96"] = dict(steps=stats["steps"], k1=k1,
-                                           identical=sum(same), wall_s=wall)
+                                           k2=k2, identical=sum(same),
+                                           wall_s=wall)
         assert all(same), "the D 96 engine differs from generate()"
         assert k1 > 0 and k1 == stats["steps"] * cfg.num_layers, \
             f"K1 launched {k1} times in {stats['steps']} steps"
+        assert k2 == cfg.num_layers, \
+            f"K2 launched {k2} times for one bucket-512 prefill of " \
+            f"{cfg.num_layers} layers"
         del eng, gpt
         self.torch.cuda.empty_cache()
 
     # -- 5b. prefix cache, speculative decoding, chunked prefill ----------------
 
-    def feature_engine(self, name, num_pages, **kw):
-        """GenerationEngine over GPT-2 small at phase 5's settings (8
-        slots, page 16, buckets 16/64/256/1024), built and warmed."""
+    def feature_engine(self, name, num_pages, gpt=None, **kw):
+        """GenerationEngine over GPT-2 small (phase 5's model unless
+        `gpt` is given) at phase 5's settings (8 slots, page 16, buckets
+        16/64/256/1024), built and warmed."""
         from paddle_tpu_torch.serving import GenerationEngine
         return GenerationEngine(
-            self.gpt, device="cuda", name=name, max_slots=FEAT["slots"],
+            self.gpt if gpt is None else gpt, device="cuda", name=name,
+            max_slots=FEAT["slots"],
             page_size=FEAT["page"], num_pages=num_pages,
             prefill_buckets=FEAT["buckets"], max_new_tokens=64,
             request_timeout_ms=0, **kw)
@@ -1516,6 +1605,304 @@ class Smoke:
             torch.cuda.empty_cache()
         self.details["feature_chunk"] = out
 
+    # -- 5c. quantized serving --------------------------------------------------
+
+    def quant_serve(self, gpt, arm, num_pages, prompts, new, **kw):
+        """Serve phase 5's way (8 requests, then the rest once the engine
+        has taken 4 steps) on `gpt` with engine options `kw`; launches
+        counted from 0 for this path. Returns (engine, results, row)."""
+        torch = self.torch
+        eng = self.feature_engine(f"chip_smoke_{arm}", num_pages, gpt=gpt,
+                                  **kw)
+        torch.cuda.synchronize()
+        # this path starts here: every launch count from 0
+        self.zero_launches()
+        res, arr, sub, wall = self.stream_run(eng, prompts, new, first=8,
+                                              join_steps=4)
+        launches = self.record_path(arm)
+        stats = eng.stats()
+        eng.shutdown(drain=True, timeout_s=60)
+        toks = sum(len(a) for a in arr)
+        tpot = sorted((a[-1] - a[0]) * 1e3 / (len(a) - 1)
+                      for a in arr if len(a) > 1)
+        ttft = sorted((a[0] - s0) * 1e3 for a, s0 in zip(arr, sub))
+        row = dict(tokens=toks, wall_s=wall, tokens_per_s=toks / wall,
+                   tpot_p50_ms=tpot[len(tpot) // 2],
+                   ttft_p50_ms=ttft[len(ttft) // 2], steps=stats["steps"],
+                   compiles=stats["compiles"], launches=launches,
+                   launches_by_dtype=self.path_dtype_launches[arm],
+                   pages=stats["pages"])
+        print(f"quant arm {arm} on {self.smi}: {len(prompts)} requests, "
+              f"{toks} tokens in {wall:.3f} s = {toks / wall:.1f} tokens/s; "
+              f"TPOT p50 {row['tpot_p50_ms']:.3f} ms; TTFT p50 "
+              f"{row['ttft_p50_ms']:.2f} ms; {stats['steps']} steps; pools "
+              f"{stats['pages']['dtype']} {stats['pages']['hbm_bytes']} "
+              f"bytes; launches {launches}")
+        return eng, res, row
+
+    @staticmethod
+    def resident_bytes(model):
+        """Device bytes of a model's parameters and buffers (each tensor
+        once)."""
+        seen, n = set(), 0
+        for t in list(model.parameters()) + list(model.buffers()):
+            if t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                n += t.numel() * t.element_size()
+        return n
+
+    def quant(self):
+        """Phase 5c: quantized serving of GPT-2 small (GPTConfig(), seed
+        0) at phase 5's engine settings on phase 5's 16 requests ((b)
+        and (e) on its first 8): (a) weight-only int8 and (b) int4
+        weights over float32 pools, each
+        token-identical to generate() on the same quantized model, K1 once
+        a layer a decode step, K2 for every prompt in a bucket at or above
+        FLAGS_flash_attention_min_seq; (c) float32 weights over int8 pools
+        (two runs): first generated token exact against float32 pools,
+        output bit-stable, no K1 launch, no page in use after the drain
+        (token agreement, the top-2 logit gap at each first flip and
+        can_admit capacity at equal pool bytes recorded); (d) int8 pools
+        with the prefix cache on phase 5b's prefix-arm requests against
+        the same engine with the cache off: the miss identical, every
+        other output identical up to a first flip at a near-tie (top-2
+        logit gap < NEAR_TIE), one CoW split, every freed page's scale
+        rows 0 (agreement and TTFT p50 recorded); (e) a
+        float16 GPT-2 small over float16 pools against its generate():
+        first tokens exact, every output identical up to a first flip at
+        a near-tie, K1 counted in float16. With --profile, the decode
+        step of (a), (b) and (c) under torch.profiler, after all arms."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import quantization
+        from paddle_tpu_torch.framework import monitor
+        from paddle_tpu_torch.framework.flags import flag
+        from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+        from paddle_tpu_torch.serving import PagedKVCache
+        cfg = GPTConfig()
+        L, P = cfg.num_layers, FEAT["page"]
+        prompts, new = self.serving_requests(cfg.vocab_size)
+        num_pages = 1 + sum(-(-(len(p) + n) // P)
+                            for p, n in zip(prompts, new))
+
+        def flash_prefills(ps):
+            # prompts whose bucket reaches FLAGS_flash_attention_min_seq
+            return sum(next(b for b in FEAT["buckets"] if b >= len(p_))
+                       >= flag("FLAGS_flash_attention_min_seq") for p_ in ps)
+        # (b) and (e) serve the first 8 requests (prompts 16-900 tokens,
+        # the 900-token one included), to keep the phase near the time of
+        # phases 5 and 5b
+        short = (prompts[:8], new[:8])
+        out, profiled = {}, {}
+
+        def fresh():
+            return GPTForCausalLM(cfg, device="cuda", seed=0).eval()
+
+        # (a), (b): weight-only int8 / int4 weights, float32 pools
+        arm_s = {}   # wall seconds of each arm, references included
+        for arm, bits, (ps, ns) in (("quant_w8", 8, (prompts, new)),
+                                    ("quant_w4", 4, short)):
+            t_arm = time.perf_counter()
+            gpt = fresh()
+            fp32_bytes = self.resident_bytes(gpt)
+            quantization.quantize_weights(gpt, bits=bits)
+            refs = self.generate_refs(ps, ns, gpt)
+            eng, res, row = self.quant_serve(gpt, arm, num_pages, ps, ns)
+            row.update(weight_bytes=self.resident_bytes(gpt),
+                       fp32_weight_bytes=fp32_bytes)
+            print(f"quant arm {arm}: resident weights {row['weight_bytes']} "
+                  f"bytes against {fp32_bytes} in fp32 "
+                  f"({fp32_bytes / row['weight_bytes']:.2f}x smaller)")
+            out[arm] = row
+            self.assert_identical(arm, ps, ns, res, refs, gpt)
+            n = row["launches"]
+            assert n["paged_attention"] == row["steps"] * L, \
+                f"{arm}: K1 launched {n['paged_attention']} times in " \
+                f"{row['steps']} steps"
+            assert n["flash_fwd"] == flash_prefills(ps) * L, \
+                f"{arm}: K2 launched {n['flash_fwd']} times for " \
+                f"{flash_prefills(ps)} long prefills"
+            assert eng._cache.pages_in_use == 0, f"{arm}: pages leaked"
+            profiled[arm] = (gpt, {})
+            del eng
+            arm_s[arm] = time.perf_counter() - t_arm
+
+        # (c): float32 weights, int8 pools, twice
+        t_arm = time.perf_counter()
+        gpt = self.gpt if getattr(self, "gpt", None) is not None else fresh()
+        refs = getattr(self, "serving_refs", None) or \
+            self.generate_refs(prompts, new, gpt)
+        runs = []
+        for arm in ("quant_kv8", "quant_kv8_repeat"):
+            eng, res, row = self.quant_serve(gpt, arm, num_pages, prompts,
+                                             new, kv_cache_dtype="int8")
+            runs.append(res)
+            out[arm] = row
+            assert row["pages"]["dtype"] == "int8" and \
+                row["pages"]["quantized"]
+            assert row["launches"]["paged_attention"] == 0, \
+                f"{arm}: K1 launched on int8 pools"
+            assert eng._cache.pages_in_use == 0, f"{arm}: pages leaked"
+            del eng
+        row = out["quant_kv8"]
+        for i, (a, b) in enumerate(zip(*runs)):
+            assert np.array_equal(a, b), f"int8 KV request {i} not stable"
+        S = [len(p_) for p_ in prompts]
+        first = [int(r[s_] == f[s_]) for r, f, s_ in zip(runs[0], refs, S)]
+        agree = float(np.mean([np.mean(r[s_:] == f[s_:])
+                               for r, f, s_ in zip(runs[0], refs, S)]))
+        flips = self.first_flips(prompts, new, runs[0], refs, gpt)
+        dims = dict(num_layers=L, num_heads=cfg.num_heads,
+                    head_dim=cfg.hidden_size // cfg.num_heads, page_size=P)
+        budget = num_pages * PagedKVCache.page_hbm_bytes(dtype="float32",
+                                                         **dims)
+        cap = {}
+        for dt in ("float32", "int8"):
+            c = PagedKVCache(num_pages=PagedKVCache.pages_for_budget(
+                budget, dtype=dt, **dims), pages_per_seq=64, dtype=dt,
+                device="cuda", **dims)
+            while c.can_admit(320):           # a 256-token prompt + 64
+                c.alloc(cap.setdefault(dt, 0), 320)
+                cap[dt] += 1
+            del c
+        row.update(first_token_exact=sum(first), token_agreement=agree,
+                   flips=flips, capacity_at_equal_bytes=cap,
+                   pool_budget_bytes=budget)
+        print(f"quant arm quant_kv8 on {self.smi}: first token exact "
+              f"{sum(first)} of {len(first)}; token agreement with fp32 "
+              f"pools {agree:.4f}; first flips (request, step, top-2 logit "
+              f"gap) {flips}; can_admit capacity at {budget} pool bytes: "
+              f"fp32 {cap['float32']}, int8 {cap['int8']} requests of 320 "
+              f"tokens ({cap['int8'] / cap['float32']:.2f}x)")
+        assert all(first), "int8 KV changed a first generated token"
+        profiled["quant_kv8"] = (gpt, dict(kv_cache_dtype="int8"))
+        arm_s["quant_kv8"] = time.perf_counter() - t_arm
+        t_arm = time.perf_counter()
+
+        # (d): int8 pools with the prefix cache, phase 5b's prefix arm
+        rng = np.random.RandomState(10)
+        system = rng.randint(0, cfg.vocab_size, size=(192,))
+        pprompts = [np.concatenate([system, rng.randint(
+            0, cfg.vocab_size, size=(16,))]) for _ in range(8)]
+        pprompts.append(pprompts[0].copy())     # the full-prompt repeat
+        pnew = [32] * len(pprompts)
+        pnum = 1 + sum(-(-(len(p_) + n_) // P)
+                       for p_, n_ in zip(pprompts, pnew))
+        res_on = None
+        for arm, on in (("quant_kv8_prefix_on", True),
+                        ("quant_kv8_prefix_off", False)):
+            eng = self.feature_engine(f"chip_smoke_{arm}", pnum, gpt=gpt,
+                                      kv_cache_dtype="int8",
+                                      prefix_cache=on)
+            cow0 = monitor.stat_get("STAT_cow_splits")
+            torch.cuda.synchronize()
+            self.zero_launches()
+            res, arr, sub, wall = self.stream_run(eng, pprompts, pnew,
+                                                  first=1, join_steps=1)
+            launches = self.record_path(arm)
+            stats = eng.stats()
+            eng.shutdown(drain=True, timeout_s=60)
+            ttft = sorted((a[0] - s0) * 1e3 for a, s0 in zip(arr, sub))
+            cows = monitor.stat_get("STAT_cow_splits") - cow0
+            out[arm] = dict(ttft_p50_ms=ttft[len(ttft) // 2], wall_s=wall,
+                            steps=stats["steps"], cow_splits=cows,
+                            prefix=stats["kv"]["prefix"],
+                            compiles=stats["compiles"], launches=launches)
+            print(f"quant arm {arm} on {self.smi}: TTFT p50 "
+                  f"{out[arm]['ttft_p50_ms']:.2f} ms; {stats['steps']} "
+                  f"steps; prefix {stats['kv']['prefix']}; CoW splits "
+                  f"{cows}; K1 launches {launches['paged_attention']}")
+            cache = eng._cache
+            assert cache.owners() == {}, f"{arm}: pages still owned"
+            assert launches["paged_attention"] == 0
+            # every page the sequences freed has scale rows 0; the cached
+            # chains keep theirs until their eviction zeroes them
+            held = set(cache.cached_pages())
+            freed = [pg for pg in range(1, cache.num_pages)
+                     if pg not in held]
+            for sc in (cache.k_scales, cache.v_scales):
+                assert bool((sc[:, :, freed] == 0).all()), \
+                    f"{arm}: a freed page kept its scale row"
+            if on:
+                res_on = res
+                assert cows == 1, f"{arm}: {cows} CoW splits"
+                assert stats["kv"]["prefix"]["hits"] >= 8
+                assert held and bool((cache.k_scales[:, :, sorted(held)]
+                                      > 0).any())
+                # the engine's own eviction path: evict, then zero
+                eng._zero_pages(eng._prefix.evict(cache.usable_pages))
+            else:
+                # a hit's tail attends its prefix dequantized from the int8
+                # pages where the cache-off prefill computes it fresh, as
+                # in the JAX engine: a near-tie may flip there, and the two
+                # sequences part from that token on. The miss (request 0)
+                # is exact, and every output equals the cache-off one up
+                # to a first flip at a near-tie (agreement recorded)
+                flips_d = self.first_flips(pprompts, pnew, res_on, res, gpt)
+                S = len(pprompts[0])
+                agree_d = float(np.mean([np.mean(a[S:] == b[S:])
+                                         for a, b in zip(res_on, res)]))
+                out[arm].update(flips_against_cache_on=flips_d,
+                                agreement_with_cache_on=agree_d)
+                print(f"quant arm int8 prefix cache on vs off on "
+                      f"{self.smi}: token agreement {agree_d:.4f}; first "
+                      f"flips (request, step, top-2 logit gap) {flips_d}")
+                assert np.array_equal(res_on[0], res[0]), \
+                    "the int8 prefix-cache miss differs from the cache off"
+                assert all(gap < NEAR_TIE for _, _, gap in flips_d), \
+                    f"a flip at a gap of {NEAR_TIE} or more: {flips_d}"
+            assert cache.pages_in_use == 0, f"{arm}: pages leaked"
+            for sc in (cache.k_scales, cache.v_scales):
+                assert bool((sc[:, :, 1:] == 0).all()), \
+                    f"{arm}: an evicted page kept its scale row"
+            del eng
+
+        arm_s["quant_kv8_prefix"] = time.perf_counter() - t_arm
+        # (e): float16 GPT-2 small, float16 pools (ROADMAP C10)
+        t_arm = time.perf_counter()
+        gpt16 = fresh().half()
+        ps, ns = short
+        refs16 = self.generate_refs(ps, ns, gpt16)
+        eng, res, row = self.quant_serve(gpt16, "fp16", num_pages, ps, ns)
+        out["fp16"] = row
+        by = row["launches_by_dtype"]["paged_attention"]
+        assert row["pages"]["dtype"] == "float16"
+        # K1 sums in fp32 where generate()'s dense attention rounds P to
+        # fp16, and fp16 logits resolve 2^-9 near GPT-2 small's top
+        # logits: a tie at one fp16 step may flip. The first token
+        # (prefill, the same program) is exact, and every output equals
+        # generate()'s up to a first flip at a near-tie
+        flips16 = self.first_flips(ps, ns, res, refs16, gpt16)
+        same16 = len(ps) - len(flips16)
+        first16 = sum(int(r[len(p_)] == f[len(p_)])
+                      for r, f, p_ in zip(res, refs16, ps))
+        row.update(identical=same16, first_token_exact=first16,
+                   flips=flips16)
+        print(f"quant arm fp16 on {self.smi}: identical to generate() "
+              f"{same16} of {len(ps)}; first token exact {first16}; "
+              f"first flips (request, step, top-2 logit gap) {flips16}")
+        assert first16 == len(ps), "fp16: a first token differs"
+        assert all(gap < NEAR_TIE for _, _, gap in flips16), \
+            f"fp16: a flip at a gap of {NEAR_TIE} or more: {flips16}"
+        assert by.get("float16", 0) == row["launches"]["paged_attention"] \
+            == row["steps"] * L, f"fp16: K1 launches {by} in " \
+            f"{row['steps']} steps"
+        assert row["launches_by_dtype"]["flash_fwd"].get("float16", 0) == \
+            flash_prefills(ps) * L
+        del eng, gpt16
+        arm_s["fp16"] = time.perf_counter() - t_arm
+        print(f"phase 5c arms' wall seconds: "
+              f"{ {k: round(v, 1) for k, v in arm_s.items()} }")
+        out["arm_s"] = arm_s
+
+        if self.args.profile:
+            for arm, (g, kw) in profiled.items():
+                out[arm]["decode_profile"] = self.profile_decode(
+                    g, f"profile_{arm}", **kw)
+        self.details["quant"] = out
+        del profiled
+        torch.cuda.empty_cache()
+
     # -- optional: where the serving time goes ---------------------------------
 
     def profile(self):
@@ -1523,10 +1910,7 @@ class Smoke:
         decode steps of 8 live sequences: wall per step, device busy
         share, device time by kernel."""
         torch = self.torch
-        from torch.profiler import ProfilerActivity, profile
-        import numpy as np
         from paddle_tpu_torch.models.gpt import gpt_prefill
-        from paddle_tpu_torch.serving import GenerationEngine
         cfg = self.gpt.gpt.config
         W = self.gpt.decode_weights()
         H = cfg.num_heads
@@ -1542,12 +1926,22 @@ class Smoke:
                 torch.cuda.synchronize()
                 print(f"prefill[b={b}] wall "
                       f"{(time.perf_counter() - t0) / 5 * 1e3:.2f} ms")
+        self.details["profile"] = self.profile_decode(self.gpt, "profile")
+
+    def profile_decode(self, gpt, name, **engine_kw):
+        """torch.profiler over 20 decode steps of 8 live slots at 230
+        cached tokens each, on `gpt`'s engine (engine_kw: e.g. the pools'
+        type): wall per step, device busy share, device time by kernel."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        import numpy as np
+        from paddle_tpu_torch.serving import GenerationEngine
         # the decode step of 8 live slots at ~230 cached tokens each,
         # called on this thread (the profiler sees this thread's launches)
-        eng = GenerationEngine(self.gpt, device="cuda", name="profile",
+        eng = GenerationEngine(gpt, device="cuda", name=name,
                                max_slots=8, page_size=16, num_pages=8 * 20 + 1,
                                prefill_buckets=(256,), max_new_tokens=64,
-                               request_timeout_ms=0)
+                               request_timeout_ms=0, **engine_kw)
         eng.shutdown()
         M, PP = 8, eng._cfg.pages_per_seq
         pt = np.zeros((M, PP), np.int32)
@@ -1574,14 +1968,13 @@ class Smoke:
             torch.cuda.synchronize()
             bare_ms = (time.perf_counter() - t0) * 1e3
         dev, top = _device_table(torch, prof, steps, bare_ms)
-        print(f"decode step, 8 live slots at 230 cached tokens: wall "
-              f"{bare_ms / steps:.3f} ms/step unprofiled, "
+        print(f"decode step ({name}), 8 live slots at 230 cached tokens on "
+              f"{self.smi}: wall {bare_ms / steps:.3f} ms/step unprofiled, "
               f"{wall_ms / steps:.3f} ms/step profiled; device busy "
               f"{dev:.3f} ms/step = {dev / (bare_ms / steps) * 100:.1f}% "
               f"of the unprofiled wall")
-        self.details["profile"] = dict(
-            steps=steps, wall_ms_per_step=bare_ms / steps,
-            device_ms_per_step=dev, top=top[:12])
+        return dict(steps=steps, wall_ms_per_step=bare_ms / steps,
+                    device_ms_per_step=dev, top=top[:12])
 
     # -- 6. train ----------------------------------------------------------------
 
@@ -2333,7 +2726,9 @@ def _ptxas_kernels(log):
 def _kernel_name(mangled):
     """`paged_split_kernel<float, 80>` from its Itanium-mangled name (a
     kernel in an anonymous namespace, templated on a type and an int:
-    `_ZN<n><namespace><m><name>I<type>Li<D>E...`)."""
+    `_ZN<n><namespace><m><name>I<type>Li<D>E...`); K2-K7's padded
+    instantiations (a third, bool argument `Lb1E`) read
+    `flash_fwd_kernel<float, 96, pad>`."""
     import re
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
@@ -2343,13 +2738,14 @@ def _kernel_name(mangled):
     if not m:
         return mangled
     base = rest[m.end():m.end() + int(m.group(1))]
-    t = re.match(r"I(f|13__nv_bfloat16|6__half)Li(\d+)E",
+    t = re.match(r"I(f|13__nv_bfloat16|6__half)Li(\d+)E(Lb([01])E)?",
                  rest[m.end() + int(m.group(1)):])
     if not t:
         return base
     ty = {"f": "float", "13__nv_bfloat16": "bfloat16",
           "6__half": "float16"}[t.group(1)]
-    return f"{base}<{ty}, {t.group(2)}>"
+    pad = ", pad" if t.group(4) == "1" else ""
+    return f"{base}<{ty}, {t.group(2)}{pad}>"
 
 
 def _device_table(torch, prof, steps, wall_ms):
@@ -2406,6 +2802,7 @@ def main(argv=None):
             sm.phase("model", sm.model)
             sm.phase("serving", sm.serving)
             sm.phase("features", sm.features)
+            sm.phase("quant", sm.quant)
             if args.profile:
                 sm.phase("profile", sm.profile)
             sm.phase("train", sm.train)

@@ -53,10 +53,10 @@ _MMA = "flash_mma.cuh"
 _DQ = "splash_bwd_dq.cu"
 _FWD = "splash_fwd.cu"
 _DKV = "splash_bwd_dkv.cu"
-_DQ_IDS = ("  float acc[D / 8][4];\n",
+_DQ_IDS = ("  float acc[DC / 8][4];\n",
            "  const int wq0 = q0 + 16 * warp, wq1 = wq0 + 15;\n"
            "  const int qs_first = qsrow[wq0], qs_last = qsrow[wq1];\n"
-           "  float acc[D / 8][4];\n")
+           "  float acc[DC / 8][4];\n")
 _DKV_IDS = ("    const int q0 = qt * BQ;\n",
             "    const int q0 = qt * BQ;\n"
             "    const int wk0 = k0 + 16 * warp;\n"
@@ -73,11 +73,11 @@ VARIANTS = {
          "  const int qi = blockIdx.y;"),
     ],
     "k5_no_floor": [
-        (_FWD, "__launch_bounds__(kThreads, (kMinBlocks<T, D>))",
+        (_FWD, "__launch_bounds__(kThreads, (kMinBlocks<T, DP>))",
          "__launch_bounds__(kThreads)"),
     ],
     "k5_two_blocks": [
-        (_FWD, "__launch_bounds__(kThreads, (kMinBlocks<T, D>))",
+        (_FWD, "__launch_bounds__(kThreads, (kMinBlocks<T, DP>))",
          "__launch_bounds__(kThreads, 2)"),
     ],
     "subtile_skip": [
@@ -94,8 +94,8 @@ VARIANTS = {
          "                                        int lane, uint32_t live = ~0u) {"),
         (_MMA, "    mma_abt_step<T, D, NT>(acc, f, Bs, rb, kk, lane);",
          "    mma_abt_step<T, D, NT>(acc, f, Bs, rb, kk, lane, live);"),
-        (_MMA, "                                       int rb, int lane) {",
-         "                                       int rb, int lane,\n"
+        (_MMA, "                                       int rb, int lane, int c0 = 0) {",
+         "                                       int rb, int lane, int c0 = 0,\n"
          "                                       uint32_t live = ~0u) {"),
         (_MMA, "    for (int kc = 0; kc < KT; ++kc) {\n",
          "    for (int kc = 0; kc < KT; ++kc) {\n"
@@ -114,7 +114,7 @@ VARIANTS = {
          "    float s[NT][4], dp[NT][4];\n"),
         (_DQ, "Kt, 0, lane);\n    fmma::mma_abt", "Kt, 0, lane, live);\n    fmma::mma_abt"),
         (_DQ, "Vt, 0, lane);", "Vt, 0, lane, live);"),
-        (_DQ, "(acc, s, Kt, 0, lane);", "(acc, s, Kt, 0, lane, live);"),
+        (_DQ, "(acc, s, Kt, 0, lane, c0);", "(acc, s, Kt, 0, lane, c0, live);"),
         (_DKV,) + _DKV_IDS,
         (_DKV, "    float s[NT][4], dp[NT][4];\n",
          "    uint32_t live = 0u;\n"
@@ -126,8 +126,10 @@ VARIANTS = {
          "    float s[NT][4], dp[NT][4];\n"),
         (_DKV, "Qt, 0, lane);\n    fmma::mma_abt", "Qt, 0, lane, live);\n    fmma::mma_abt"),
         (_DKV, "dOt, 0, lane);\n\n", "dOt, 0, lane, live);\n\n"),
-        (_DKV, "(acc_v, s, dOt, 0, lane);", "(acc_v, s, dOt, 0, lane, live);"),
-        (_DKV, "(acc_k, dp, Qt, 0, lane);", "(acc_k, dp, Qt, 0, lane, live);"),
+        (_DKV, "(acc_v, s, dOt, 0, lane, c0);",
+         "(acc_v, s, dOt, 0, lane, c0, live);"),
+        (_DKV, "(acc_k, dp, Qt, 0, lane, c0);",
+         "(acc_k, dp, Qt, 0, lane, c0, live);"),
     ],
     "warp_skip": [
         (_DQ,) + _DQ_IDS,
@@ -135,15 +137,16 @@ VARIANTS = {
          "    if (kst[0] <= qs_last && kst[BK - 1] >= qs_first\n"
          "        && (!causal || k0 <= wq1)) {\n"
          "    float s[NT][4], dp[NT][4];\n"),
-        (_DQ, "    fmma::mma_pb<T, D, NT>(acc, s, Kt, 0, lane);\n",
-         "    fmma::mma_pb<T, D, NT>(acc, s, Kt, 0, lane);\n    }\n"),
+        (_DQ, "    fmma::mma_pb<T, DP, NT, DC>(acc, s, Kt, 0, lane, c0);\n",
+         "    fmma::mma_pb<T, DP, NT, DC>(acc, s, Kt, 0, lane, c0);\n    }\n"),
         (_DKV,) + _DKV_IDS,
         (_DKV, "    float s[NT][4], dp[NT][4];\n",
          "    if (ks_first <= qst[BQ - 1] && ks_last >= qst[0]\n"
          "        && (!causal || wk0 <= q0 + BQ - 1)) {\n"
          "    float s[NT][4], dp[NT][4];\n"),
-        (_DKV, "    fmma::mma_pb<T, D, NT>(acc_k, dp, Qt, 0, lane);\n",
-         "    fmma::mma_pb<T, D, NT>(acc_k, dp, Qt, 0, lane);\n    }\n"),
+        (_DKV, "    fmma::mma_pb<T, DP, NT, DC>(acc_k, dp, Qt, 0, lane, c0);\n",
+         "    fmma::mma_pb<T, DP, NT, DC>(acc_k, dp, Qt, 0, lane, c0);\n"
+         "    }\n"),
     ],
 }
 

@@ -26,10 +26,15 @@ Ported so far:
   `hapi.Model.prepare(amp_configs=...)`, casting by op name through the
   `nn` layers and functionals (`Linear`, `Embedding`, `LayerNorm`,
   `GELU`, `Dropout`; `linear`, `layer_norm`, `softmax`, ...) and
-  `ops.linalg`; the flash kernels take bfloat16 and float16.
+  `ops.linalg`; the flash kernels take bfloat16 and float16;
+- quantized serving: int8 KV pages in `serving.GenerationEngine`
+  (`kv_cache_dtype="int8"`), weight-only int8/int4 weights
+  (`quantization.quantize_weights`, `quantization.WeightOnlyLinear`,
+  `nn.quant`), and the fake-quant wrappers of
+  `quantization.ImperativeQuantAware` / `PTQ`.
 """
 from . import amp, framework, hapi, io, models, nn, ops  # noqa: F401
-from . import optimizer  # noqa: F401
+from . import optimizer, quantization  # noqa: F401
 from . import serving, static  # noqa: F401
 from .framework import get_flags, set_flags  # noqa: F401
 

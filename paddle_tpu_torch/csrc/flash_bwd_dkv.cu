@@ -25,9 +25,13 @@
 //
 // Design: one block of 4 warps per (64-key tile, b*h). The block owns its
 // dK and dV rows, each warp 16 keys, so the sums over queries stay in
-// registers with no atomics and the result does not depend on scheduling.
+// registers with no atomics and the result does not depend on scheduling
+// (above D 128, one column half of them: two blocks a key tile, each
+// recomputing the scores). Every D % 8 == 0 up to 256 runs at a padded
+// width (flash_mma.cuh, "Head dims").
 // K and V stay in shared memory in their input type; query tiles (64
-// queries; 32 at D 128, to keep the two D-wide accumulators free of spills)
+// queries; 32 above D 64, to keep the two D-wide accumulators free of
+// spills; 16 in fp32 above D 128, for shared memory)
 // of Q, dO, LSE and delta stream through, double-buffered with 16-byte
 // cp.async (with the tile's dropout row hashes, computed once a tile), starting at the diagonal tile when causal (the TPU kernel's
 // range, pallas_ops.py:298-300). The kernel computes the TRANSPOSED scores,
@@ -47,6 +51,8 @@
 // for 16-bit types). dO in Pd^T dO and Q in dS^T Q arrive MN-major, so fp32
 // wgmma would need a transposing copy of every streamed tile; one mma.sync
 // fragment path serves both types.
+#include <type_traits>
+
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 
@@ -56,33 +62,58 @@ constexpr int kBK = 64;       // keys a block
 constexpr int kWarps = 4;     // 16 keys a warp
 constexpr int kThreads = 32 * kWarps;
 
-template <int D>
-constexpr int kQueryTile = D == 128 ? 32 : 64;   // queries a tile
+// queries a tile, at the padded width DP: 64; 32 above DP 64, to keep the
+// two accumulators free of spills; 16 in fp32 above DP 128, so that K, V
+// and the double-buffered Q and dO tiles fit in shared memory, and at the
+// padded fp32 width 128, whose run-time offsets spilled at 32 (the exact
+// D 128 takes all 255 registers)
+template <typename T, int DP, bool kPad>
+constexpr int kQueryTile =
+    DP <= 64 ? 64
+    : (std::is_same<T, float>::value && (DP > 128 || (kPad && DP == 128)))
+        ? 16 : 32;
 
-template <typename T, int D>
+// Above DP 128 the two [16, DP] accumulators would take 256 registers or
+// more: a block then owns one of kParts column halves of its dK and dV
+// rows (blockIdx.z) and recomputes S^T and dP^T for it.
+template <int DP>
+constexpr int kParts = DP > 128 ? 2 : 1;
+
+// Padded widths compute their global offsets at run time, and ptxas,
+// aiming at 168 registers (3 blocks an SM) there, spilled at fp32 width
+// 32; a floor of 2 blocks lets it take up to 255. The exact widths keep
+// the bound they were tuned with.
+constexpr int kMinBlocks = 2;
+
+template <typename T, int DP, bool kPad>
 constexpr int smem_bytes() {
-  return (2 * kBK * D + 4 * kQueryTile<D> * D) * (int)sizeof(T)
-         + 6 * kQueryTile<D> * (int)sizeof(float);
+  return (2 * kBK * DP + 4 * kQueryTile<T, DP, kPad> * DP) * (int)sizeof(T)
+         + 6 * kQueryTile<T, DP, kPad> * (int)sizeof(float);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Sq, int Sk, int causal,
-                     float scale, uint32_t thresh, float keep_scale,
-                     uint32_t seed) {
-  constexpr int BQ = kQueryTile<D>;
+// DP: the padded width of the tiles; with kPad the head dim is the
+// run-time d (global row stride, d <= DP), else DP itself
+template <typename T, int DP, bool kPad>
+__device__ __forceinline__ void
+flash_bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const float* __restrict__ bias,
+                   const T* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dk,
+                   T* __restrict__ dv, int H, int Sq, int Sk, int d, int causal,
+                   float scale, uint32_t thresh, float keep_scale,
+                   uint32_t seed) {
+  constexpr int BQ = kQueryTile<T, DP, kPad>;
   constexpr int NT = BQ / 8;   // score n-tiles (queries) a warp
+  constexpr int DC = DP / kParts<DP>;   // output columns a block
+  const int D = kPad ? d : DP;
+  // this block's first column (0 unless the outputs are split)
+  const int c0 = kParts<DP> > 1 ? (int)blockIdx.z * DC : 0;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + kBK * D;
-  T* Qs = Vs + kBK * D;             // [2][BQ * D]
-  T* dOs = Qs + 2 * BQ * D;         // [2][BQ * D]
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * D);   // [2][BQ]
+  T* Vs = Ks + kBK * DP;
+  T* Qs = Vs + kBK * DP;            // [2][BQ * DP]
+  T* dOs = Qs + 2 * BQ * DP;        // [2][BQ * DP]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * DP);  // [2][BQ]
   float* dl_s = lse_s + 2 * BQ;                                // [2][BQ]
   uint32_t* rh_s = reinterpret_cast<uint32_t*>(dl_s + 2 * BQ);  // [2][BQ]
 
@@ -102,18 +133,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nqb = Sq / BQ;
   const int first = causal ? k0 / BQ : 0;
   auto fetch = [&](int qt, int buf) {
-    fmma::load_tile_async<T, D, BQ, kThreads>(
-        Qs + buf * BQ * D, qb + (size_t)qt * BQ * D, tid);
-    fmma::load_tile_async<T, D, BQ, kThreads>(
-        dOs + buf * BQ * D, ob + (size_t)qt * BQ * D, tid);
+    fmma::load_tile_async<T, DP, BQ, kThreads, kPad>(
+        Qs + buf * BQ * DP, qb + (size_t)qt * BQ * D, tid, D);
+    fmma::load_tile_async<T, DP, BQ, kThreads, kPad>(
+        dOs + buf * BQ * DP, ob + (size_t)qt * BQ * D, tid, D);
     fmma::load_vec_async<kThreads>(lse_s + buf * BQ, lb + qt * BQ, BQ, tid);
     fmma::load_vec_async<kThreads>(dl_s + buf * BQ, db + qt * BQ, BQ, tid);
     if (thresh)   // the dropout hash of each query row, once a tile
       for (int i = tid; i < BQ; i += kThreads)
         rh_s[buf * BQ + i] = flash::drop_row(seed, bh, qt * BQ + i);
   };
-  fmma::load_tile_async<T, D, kBK, kThreads>(Ks, k + koff, tid);
-  fmma::load_tile_async<T, D, kBK, kThreads>(Vs, v + koff, tid);
+  fmma::load_tile_async<T, DP, kBK, kThreads, kPad>(Ks, k + koff, tid, D);
+  fmma::load_tile_async<T, DP, kBK, kThreads, kPad>(Vs, v + koff, tid, D);
   if (first < nqb) fetch(first, 0);
   fmma::cp_async_commit();
 
@@ -127,9 +158,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     kpos[h] = k0 + r0 + 8 * h;
     kbias[h] = bias != nullptr ? bias[(size_t)b * Sk + kpos[h]] : 0.f;
   }
-  float acc_k[D / 8][4], acc_v[D / 8][4];
+  float acc_k[DC / 8][4], acc_v[DC / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
 
@@ -143,8 +174,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       fmma::cp_async_wait<0>();
     }
     __syncthreads();
-    const T* Qt = Qs + buf * BQ * D;
-    const T* dOt = dOs + buf * BQ * D;
+    const T* Qt = Qs + buf * BQ * DP;
+    const T* dOt = dOs + buf * BQ * DP;
     const float* lt = lse_s + buf * BQ;
     const float* dt = dl_s + buf * BQ;
     const uint32_t* rht = rh_s + buf * BQ;
@@ -156,8 +187,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    fmma::mma_abt<T, D, NT>(s, Ks, 16 * warp, Qt, 0, lane);
-    fmma::mma_abt<T, D, NT>(dp, Vs, 16 * warp, dOt, 0, lane);
+    fmma::mma_abt<T, DP, NT>(s, Ks, 16 * warp, Qt, 0, lane);
+    fmma::mma_abt<T, DP, NT>(dp, Vs, 16 * warp, dOt, 0, lane);
 
     // Pd^T in place of S^T and dS^T in place of dP^T: rows kpos[e / 2],
     // queries q0 + 8 j + 2 t4 + e % 2
@@ -186,33 +217,73 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           dp[j][e] = p * (gd - dl_c);
         }
       }
-    fmma::mma_pb<T, D, NT>(acc_v, s, dOt, 0, lane);
-    fmma::mma_pb<T, D, NT>(acc_k, dp, Qt, 0, lane);
+    fmma::mma_pb<T, DP, NT, DC>(acc_v, s, dOt, 0, lane, c0);
+    fmma::mma_pb<T, DP, NT, DC>(acc_k, dp, Qt, 0, lane, c0);
     __syncthreads();   // this tile's Q/dO/LSE/delta/hash reads are done
   }
   fmma::cp_async_wait<0>();   // nothing left in flight (no query tile at all)
 
-  const size_t wo = koff + (size_t)16 * warp * D;
-  fmma::store_rows<T, D>(dk + wo, acc_k, scale, lane);
-  fmma::store_rows<T, D>(dv + wo, acc_v, 1.f, lane);
+  const size_t wo = koff + (size_t)16 * warp * D + c0;
+  fmma::store_rows<T, DC, kPad>(dk + wo, acc_k, scale, lane, D, D - c0);
+  fmma::store_rows<T, DC, kPad>(dv + wo, acc_v, 1.f, lane, D, D - c0);
 }
 
-template <typename T, int D>
+// Two entries over one body: the exact widths (kPad false) with the launch
+// bound they were tuned with, the padded widths with kMinBlocks.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ bias,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int H, int Sq, int Sk, int d,
+                     int causal, float scale, uint32_t thresh, float keep_scale,
+                     uint32_t seed) {
+  flash_bwd_dkv_body<T, DP, false>(
+      q, k, v, bias, dout, lse, delta, dk, dv, H, Sq, Sk, d, causal, scale,
+      thresh, keep_scale, seed);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_bwd_dkv_kernel_pad(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v,
+                         const float* __restrict__ bias,
+                         const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dk,
+                         T* __restrict__ dv, int H, int Sq, int Sk, int d,
+                         int causal, float scale, uint32_t thresh,
+                         float keep_scale, uint32_t seed) {
+  flash_bwd_dkv_body<T, DP, true>(
+      q, k, v, bias, dout, lse, delta, dk, dv, H, Sq, Sk, d, causal, scale,
+      thresh, keep_scale, seed);
+}
+
+// the entry of width DP: the exact one, or the padded one
+template <typename T, int DP, bool kPad>
+auto kernel_for() {
+  if constexpr (kPad) return flash_bwd_dkv_kernel_pad<T, DP>;
+  else return flash_bwd_dkv_kernel<T, DP>;
+}
+
+template <typename T, int DP, bool kPad>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* bias, const void* dout, const void* lse,
                      const void* delta, void* dk, void* dv, int B, int H,
-                     int Sq, int Sk, int causal, float scale, uint32_t thresh,
-                     float keep_scale, uint32_t seed, cudaStream_t stream) {
-  const int bytes = smem_bytes<T, D>();
+                     int Sq, int Sk, int D, int causal, float scale,
+                     uint32_t thresh, float keep_scale, uint32_t seed,
+                     cudaStream_t stream) {
+  const int bytes = smem_bytes<T, DP, kPad>();
+  auto* kernel = kernel_for<T, DP, kPad>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  dim3 grid(B * H, Sk / kBK), block(kThreads);
-  flash_bwd_dkv_kernel<T, D><<<grid, block, bytes, stream>>>(
+  dim3 grid(B * H, Sk / kBK, kParts<DP>), block(kThreads);
+  kernel<<<grid, block, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
       (const T*)dout, (const float*)lse, (const float*)delta, (T*)dk, (T*)dv,
-      H, Sq, Sk, causal, scale, thresh, keep_scale, seed);
+      H, Sq, Sk, D, causal, scale, thresh, keep_scale, seed);
   return cudaGetLastError();
 }
 
@@ -223,22 +294,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int Sq, int Sk, int D, int causal, float scale,
                    uint32_t thresh, float keep_scale, uint32_t seed,
                    cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch_d<T, 32>(q, k, v, bias, dout, lse, delta, dk, dv, B, H,
-                             Sq, Sk, causal, scale, thresh, keep_scale, seed,
-                             stream);
-    case 64:
-      return launch_d<T, 64>(q, k, v, bias, dout, lse, delta, dk, dv, B, H,
-                             Sq, Sk, causal, scale, thresh, keep_scale, seed,
-                             stream);
-    case 128:
-      return launch_d<T, 128>(q, k, v, bias, dout, lse, delta, dk, dv, B, H,
-                              Sq, Sk, causal, scale, thresh, keep_scale,
-                              seed, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return fmma::dispatch_width<T>(D, [&](auto dp, auto pad) {
+    return launch_d<T, decltype(dp)::value, decltype(pad)::value>(
+        q, k, v, bias, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, causal,
+        scale, thresh, keep_scale, seed, stream);
+  });
 }
 
 }  // namespace
@@ -246,7 +306,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // q/dout [B,H,Sq,D], k/v [B,H,Sk,D] contiguous in one type (dtype 0 =
 // float32, 1 = bfloat16, 2 = float16); bias [B,Sk] float32 or null; lse
 // and delta [B*H,Sq] float32; dk/dv like k.
-// Sq and Sk multiples of 64; D 32, 64, 128.
+// Sq and Sk multiples of 64; D % 8 == 0, D <= 256.
 extern "C" int flash_attention_bwd_dkv(void* q, void* k, void* v, void* bias,
                                        void* dout, void* lse, void* delta,
                                        void* dk, void* dv, int B, int H,

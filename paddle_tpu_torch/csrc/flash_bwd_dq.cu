@@ -24,7 +24,10 @@
 //
 // Design: one block of 4 warps per (64-query tile, b*h), no atomics: the
 // block owns its dQ rows, each warp 16 of them, and loops over key tiles
-// (64 keys; 32 at D 128, to keep the registers free of spills), stopping at
+// (64 keys; 32 above D 64, to keep the registers free of spills, 16 in fp32
+// above D 128, for shared memory; every D % 8 == 0 up to 256 at a padded
+// width, flash_mma.cuh "Head dims"; in fp32 above D 192 two blocks share
+// the rows, one column half each), stopping at
 // the diagonal tile when causal (the TPU kernel's range,
 // pallas_ops.py:243-245). Q and dO stay in shared memory in their input
 // type; K, V and the bias tile are double-buffered with 16-byte cp.async,
@@ -52,31 +55,54 @@ constexpr int kBQ = 64;       // query rows a block
 constexpr int kWarps = 4;     // 16 query rows a warp
 constexpr int kThreads = 32 * kWarps;
 
-template <int D>
-constexpr int kKeyTile = D == 128 ? 32 : 64;   // keys a tile
+// keys a tile, at the padded width DP (K2's rule): 64; 32 above DP 64, to
+// keep the registers free of spills; 16 in fp32 above DP 128, so that Q,
+// dO and the double-buffered K and V tiles fit in shared memory
+template <typename T, int DP>
+constexpr int kKeyTile =
+    DP <= 64 ? 64 : (std::is_same<T, float>::value && DP > 128) ? 16 : 32;
 
-template <typename T, int D>
+// In fp32 above DP 192 the [16, DP] accumulator and the streamed tiles'
+// tf32 splits outgrow 255 registers: a block then owns one of two column
+// halves of its dQ rows (blockIdx.z) and recomputes S and dP for it, as
+// K4 splits dK and dV
+template <typename T, int DP>
+constexpr int kParts = std::is_same<T, float>::value && DP > 192 ? 2 : 1;
+
+// Padded widths compute their global offsets at run time, and ptxas,
+// aiming at 168 registers (3 blocks an SM) there, spilled at bf16 width 64
+// and fp32 width 32; a floor of 2 blocks lets it take up to 255. The
+// exact widths keep the bound they were tuned with.
+constexpr int kMinBlocks = 2;
+
+template <typename T, int DP>
 constexpr int smem_bytes() {
-  return (2 * kBQ * D + 4 * kKeyTile<D> * D) * (int)sizeof(T)
-         + 2 * kKeyTile<D> * (int)sizeof(float);
+  return (2 * kBQ * DP + 4 * kKeyTile<T, DP> * DP) * (int)sizeof(T)
+         + 2 * kKeyTile<T, DP> * (int)sizeof(float);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ bias,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int H, int Sq, int Sk, int causal, float scale,
-                    uint32_t thresh, float keep_scale, uint32_t seed) {
-  constexpr int BK = kKeyTile<D>;
+// DP: the padded width of the tiles; with kPad the head dim is the
+// run-time d (global row stride, d <= DP), else DP itself
+template <typename T, int DP, bool kPad>
+__device__ __forceinline__ void
+flash_bwd_dq_body(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const float* __restrict__ bias,
+                  const T* __restrict__ dout, const float* __restrict__ lse,
+                  const float* __restrict__ delta, T* __restrict__ dq, int H,
+                  int Sq, int Sk, int d, int causal, float scale,
+                  uint32_t thresh, float keep_scale, uint32_t seed) {
+  constexpr int BK = kKeyTile<T, DP>;
   constexpr int NT = BK / 8;   // score n-tiles a warp
+  constexpr int DC = DP / kParts<T, DP>;   // output columns a block
+  const int D = kPad ? d : DP;
+  // this block's first column (0 unless the output is split)
+  const int c0 = kParts<T, DP> > 1 ? (int)blockIdx.z * DC : 0;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + kBQ * D;
-  T* Ks = dOs + kBQ * D;            // [2][BK * D]
-  T* Vs = Ks + 2 * BK * D;          // [2][BK * D]
-  float* bs = reinterpret_cast<float*>(Vs + 2 * BK * D);   // [2][BK]
+  T* dOs = Qs + kBQ * DP;
+  T* Ks = dOs + kBQ * DP;           // [2][BK * DP]
+  T* Vs = Ks + 2 * BK * DP;         // [2][BK * DP]
+  float* bs = reinterpret_cast<float*>(Vs + 2 * BK * DP);   // [2][BK]
 
   const int bh = blockIdx.x;
   const int qi = gridDim.y - 1 - blockIdx.y;   // heaviest tile first
@@ -98,15 +124,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   auto fetch = [&](int t) {
     const int buf = t & 1;
-    fmma::load_tile_async<T, D, BK, kThreads>(
-        Ks + buf * BK * D, kb + (size_t)t * BK * D, tid);
-    fmma::load_tile_async<T, D, BK, kThreads>(
-        Vs + buf * BK * D, vb + (size_t)t * BK * D, tid);
+    fmma::load_tile_async<T, DP, BK, kThreads, kPad>(
+        Ks + buf * BK * DP, kb + (size_t)t * BK * D, tid, D);
+    fmma::load_tile_async<T, DP, BK, kThreads, kPad>(
+        Vs + buf * BK * DP, vb + (size_t)t * BK * D, tid, D);
     if (brow != nullptr)
       fmma::load_vec_async<kThreads>(bs + buf * BK, brow + t * BK, BK, tid);
   };
-  fmma::load_tile_async<T, D, kBQ, kThreads>(Qs, q + qoff, tid);
-  fmma::load_tile_async<T, D, kBQ, kThreads>(dOs, dout + qoff, tid);
+  fmma::load_tile_async<T, DP, kBQ, kThreads, kPad>(Qs, q + qoff, tid, D);
+  fmma::load_tile_async<T, DP, kBQ, kThreads, kPad>(dOs, dout + qoff, tid,
+                                                    D);
   if (last > 0) fetch(0);
   fmma::cp_async_commit();
 
@@ -122,9 +149,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     dl_r[h] = delta[(size_t)bh * Sq + qpos[h]];
     rh[h] = thresh ? flash::drop_row(seed, bh, qpos[h]) : 0u;
   }
-  float acc[D / 8][4];
+  float acc[DC / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
@@ -138,8 +165,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     const int buf = t & 1;
-    const T* Kt = Ks + buf * BK * D;
-    const T* Vt = Vs + buf * BK * D;
+    const T* Kt = Ks + buf * BK * DP;
+    const T* Vt = Vs + buf * BK * DP;
     const float* bt = bs + buf * BK;
     const int k0 = t * BK;
 
@@ -148,8 +175,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    fmma::mma_abt<T, D, NT>(s, Qs, 16 * warp, Kt, 0, lane);
-    fmma::mma_abt<T, D, NT>(dp, dOs, 16 * warp, Vt, 0, lane);
+    fmma::mma_abt<T, DP, NT>(s, Qs, 16 * warp, Kt, 0, lane);
+    fmma::mma_abt<T, DP, NT>(dp, dOs, 16 * warp, Vt, 0, lane);
 
     // dS in place of S: rows qpos[e / 2], keys k0 + 8 j + 2 t4 + e % 2
     const bool mask = causal && k0 + BK - 1 > q0 + 16 * warp;
@@ -169,31 +196,67 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                                         : 0.f;
         s[j][e] = p * (gd - dl_r[h]);
       }
-    fmma::mma_pb<T, D, NT>(acc, s, Kt, 0, lane);
+    fmma::mma_pb<T, DP, NT, DC>(acc, s, Kt, 0, lane, c0);
     __syncthreads();   // this tile's K/V/bias reads are done
   }
   fmma::cp_async_wait<0>();   // nothing left in flight (no key tile at all)
 
-  fmma::store_rows<T, D>(dq + qoff + (size_t)16 * warp * D, acc, scale,
-                         lane);
+  fmma::store_rows<T, DC, kPad>(dq + qoff + (size_t)16 * warp * D + c0,
+                                acc, scale, lane, D, D - c0);
 }
 
-template <typename T, int D>
+// Two entries over one body: the exact widths (kPad false) with the launch
+// bound they were tuned with, the padded widths with kMinBlocks.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ bias,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq, int H,
+                    int Sq, int Sk, int d, int causal, float scale,
+                    uint32_t thresh, float keep_scale, uint32_t seed) {
+  flash_bwd_dq_body<T, DP, false>(
+      q, k, v, bias, dout, lse, delta, dq, H, Sq, Sk, d, causal, scale, thresh,
+      keep_scale, seed);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_bwd_dq_kernel_pad(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const float* __restrict__ bias,
+                        const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        int H, int Sq, int Sk, int d, int causal, float scale,
+                        uint32_t thresh, float keep_scale, uint32_t seed) {
+  flash_bwd_dq_body<T, DP, true>(
+      q, k, v, bias, dout, lse, delta, dq, H, Sq, Sk, d, causal, scale, thresh,
+      keep_scale, seed);
+}
+
+// the entry of width DP: the exact one, or the padded one
+template <typename T, int DP, bool kPad>
+auto kernel_for() {
+  if constexpr (kPad) return flash_bwd_dq_kernel_pad<T, DP>;
+  else return flash_bwd_dq_kernel<T, DP>;
+}
+
+template <typename T, int DP, bool kPad>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* bias, const void* dout, const void* lse,
                      const void* delta, void* dq, int B, int H, int Sq,
-                     int Sk, int causal, float scale, uint32_t thresh,
+                     int Sk, int D, int causal, float scale, uint32_t thresh,
                      float keep_scale, uint32_t seed, cudaStream_t stream) {
-  const int bytes = smem_bytes<T, D>();
+  const int bytes = smem_bytes<T, DP>();
+  auto* kernel = kernel_for<T, DP, kPad>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  dim3 grid(B * H, Sq / kBQ), block(kThreads);
-  flash_bwd_dq_kernel<T, D><<<grid, block, bytes, stream>>>(
+  dim3 grid(B * H, Sq / kBQ, kParts<T, DP>), block(kThreads);
+  kernel<<<grid, block, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
       (const T*)dout, (const float*)lse, (const float*)delta, (T*)dq, H, Sq,
-      Sk, causal, scale, thresh, keep_scale, seed);
+      Sk, D, causal, scale, thresh, keep_scale, seed);
   return cudaGetLastError();
 }
 
@@ -203,22 +266,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* delta, void* dq, int B, int H, int Sq, int Sk,
                    int D, int causal, float scale, uint32_t thresh,
                    float keep_scale, uint32_t seed, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch_d<T, 32>(q, k, v, bias, dout, lse, delta, dq, B, H, Sq,
-                             Sk, causal, scale, thresh, keep_scale, seed,
-                             stream);
-    case 64:
-      return launch_d<T, 64>(q, k, v, bias, dout, lse, delta, dq, B, H, Sq,
-                             Sk, causal, scale, thresh, keep_scale, seed,
-                             stream);
-    case 128:
-      return launch_d<T, 128>(q, k, v, bias, dout, lse, delta, dq, B, H, Sq,
-                              Sk, causal, scale, thresh, keep_scale, seed,
-                              stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return fmma::dispatch_width<T>(D, [&](auto dp, auto pad) {
+    return launch_d<T, decltype(dp)::value, decltype(pad)::value>(
+        q, k, v, bias, dout, lse, delta, dq, B, H, Sq, Sk, D, causal, scale,
+        thresh, keep_scale, seed, stream);
+  });
 }
 
 }  // namespace
@@ -226,7 +278,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // q/dout [B,H,Sq,D], k/v [B,H,Sk,D] contiguous in one type (dtype 0 =
 // float32, 1 = bfloat16, 2 = float16); bias [B,Sk] float32 or null; lse
 // and delta [B*H,Sq] float32; dq like q.
-// Sq and Sk multiples of 64; D 32, 64 or 128.
+// Sq and Sk multiples of 64; D % 8 == 0, D <= 256.
 extern "C" int flash_attention_bwd_dq(void* q, void* k, void* v, void* bias,
                                       void* dout, void* lse, void* delta,
                                       void* dq, int B, int H, int Sq, int Sk,

@@ -35,8 +35,10 @@
 // heaviest first (the last tile has the most keys under causal masking).
 // Q stays in shared memory in its input type, XOR-swizzled; K, V and the
 // bias tile are double-buffered with 16-byte cp.async, so the next key
-// tile's copy overlaps this tile's products (key tiles of 64 rows; 32 at
-// D 128, where the [16, 128] accumulator takes the registers). Q's A
+// tile's copy overlaps this tile's products (key tiles of 64 rows; 32
+// above D 64, where the [16, D] accumulator takes the registers, and 16 in
+// fp32 above D 128, for shared memory). Every D % 8 == 0 up to 256 runs at
+// a padded width (flash_mma.cuh, "Head dims"). Q's A
 // fragments are the same for every key tile, so they are formed once and
 // held in registers (ldmatrix fragments in bf16, tf32 hi/lo in fp32), and
 // only the streamed K and V values are split inside the loop. In fp32 at
@@ -64,37 +66,45 @@ constexpr int kBQ = 64;       // query rows a block
 constexpr int kWarps = 4;     // 16 query rows a warp
 constexpr int kThreads = 32 * kWarps;
 
-template <int D>
-constexpr int kKeyTile = D == 128 ? 32 : 64;   // keys a tile
+// keys a tile, at the padded width DP: 64; 32 above DP 64, where the
+// [16, DP] accumulator takes the registers; 16 in fp32 above DP 128, so
+// that Q and the double-buffered K and V tiles fit in shared memory
+template <typename T, int DP>
+constexpr int kKeyTile =
+    DP <= 64 ? 64 : (std::is_same<T, float>::value && DP > 128) ? 16 : 32;
 
 // Q's A fragments stay in registers across the key tiles, except in fp32
-// at D 128 (128 registers of tf32 hi/lo), where they are formed from the
-// shared Q tile at every key tile
-template <typename T, int D>
-constexpr bool kQFrags = !(std::is_same<T, float>::value && D > 64);
+// above DP 64 (128 registers of tf32 hi/lo at DP 128) and in the 16-bit
+// types above DP 128, where they are formed from the shared Q tile at
+// every key tile
+template <typename T, int DP>
+constexpr bool kQFrags = DP <= (std::is_same<T, float>::value ? 64 : 128);
 
-template <typename T, int D>
+template <typename T, int DP>
 constexpr int smem_bytes() {
-  return (kBQ * D + 4 * kKeyTile<D> * D) * (int)sizeof(T)
-         + 2 * kKeyTile<D> * (int)sizeof(float);
+  return (kBQ * DP + 4 * kKeyTile<T, DP> * DP) * (int)sizeof(T)
+         + 2 * kKeyTile<T, DP> * (int)sizeof(float);
 }
 
-template <typename T, int D>
+// DP: the padded width of the tiles; with kPad the head dim is the
+// run-time d (global row stride, d <= DP), else DP itself
+template <typename T, int DP, bool kPad>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
                  T* __restrict__ out, float* __restrict__ lse, int H, int Sq,
-                 int Sk, int causal, float scale, uint32_t thresh,
+                 int Sk, int d, int causal, float scale, uint32_t thresh,
                  float keep_scale, uint32_t seed) {
-  constexpr int BK = kKeyTile<D>;
+  constexpr int BK = kKeyTile<T, DP>;
   constexpr int NT = BK / 8;    // score n-tiles a warp
-  constexpr int KS = D / 16;    // k16 steps of Q K^T
-  constexpr bool kHoldQ = kQFrags<T, D>;
+  constexpr int KS = DP / 16;   // k16 steps of Q K^T
+  constexpr bool kHoldQ = kQFrags<T, DP>;
+  const int D = kPad ? d : DP;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + kBQ * D;             // [2][BK * D]
-  T* Vs = Ks + 2 * BK * D;          // [2][BK * D]
-  float* bs = reinterpret_cast<float*>(Vs + 2 * BK * D);   // [2][BK]
+  T* Ks = Qs + kBQ * DP;            // [2][BK * DP]
+  T* Vs = Ks + 2 * BK * DP;         // [2][BK * DP]
+  float* bs = reinterpret_cast<float*>(Vs + 2 * BK * DP);   // [2][BK]
 
   const int bh = blockIdx.x;
   const int qi = gridDim.y - 1 - blockIdx.y;   // heaviest tile first
@@ -116,14 +126,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   auto fetch = [&](int t) {
     const int buf = t & 1;
-    fmma::load_tile_async<T, D, BK, kThreads>(
-        Ks + buf * BK * D, kb + (size_t)t * BK * D, tid);
-    fmma::load_tile_async<T, D, BK, kThreads>(
-        Vs + buf * BK * D, vb + (size_t)t * BK * D, tid);
+    fmma::load_tile_async<T, DP, BK, kThreads, kPad>(
+        Ks + buf * BK * DP, kb + (size_t)t * BK * D, tid, D);
+    fmma::load_tile_async<T, DP, BK, kThreads, kPad>(
+        Vs + buf * BK * DP, vb + (size_t)t * BK * D, tid, D);
     if (brow != nullptr)
       fmma::load_vec_async<kThreads>(bs + buf * BK, brow + t * BK, BK, tid);
   };
-  fmma::load_tile_async<T, D, kBQ, kThreads>(Qs, q + qoff, tid);
+  fmma::load_tile_async<T, DP, kBQ, kThreads, kPad>(Qs, q + qoff, tid, D);
   fmma::cp_async_commit();
   if (last > 0) fetch(0);
   fmma::cp_async_commit();
@@ -135,7 +145,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if constexpr (kHoldQ) {
 #pragma unroll
     for (int s = 0; s < KS; ++s)
-      fmma::load_a<T, D>(qf[s], Qs, 16 * warp, 16 * s, lane);
+      fmma::load_a<T, DP>(qf[s], Qs, 16 * warp, 16 * s, lane);
   }
 
   // this thread's two query rows (g and g + 8 of its warp's 16)
@@ -150,9 +160,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l_r[h] = 0.f;
     rh[h] = thresh ? flash::drop_row(seed, bh, qpos[h]) : 0u;
   }
-  float acc[D / 8][4];
+  float acc[DP / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
@@ -166,8 +176,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();   // tile t visible
     const int buf = t & 1;
-    const T* Kt = Ks + buf * BK * D;
-    const T* Vt = Vs + buf * BK * D;
+    const T* Kt = Ks + buf * BK * DP;
+    const T* Vt = Vs + buf * BK * DP;
     const float* bt = bs + buf * BK;
     const int k0 = t * BK;
 
@@ -179,9 +189,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if constexpr (kHoldQ) {
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
-        fmma::mma_abt_step<T, D, NT>(s, qf[ks], Kt, 0, 16 * ks, lane);
+        fmma::mma_abt_step<T, DP, NT>(s, qf[ks], Kt, 0, 16 * ks, lane);
     } else {
-      fmma::mma_abt<T, D, NT>(s, Qs, 16 * warp, Kt, 0, lane);
+      fmma::mma_abt<T, DP, NT>(s, Qs, 16 * warp, Kt, 0, lane);
     }
 
     // scores, rows qpos[e / 2], keys k0 + 8 j + 2 t4 + e % 2
@@ -227,26 +237,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l_r[h] = alpha[h] * l_r[h] + sum[h];
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DP / 8; ++j) {
       acc[j][0] *= alpha[0];
       acc[j][1] *= alpha[0];
       acc[j][2] *= alpha[1];
       acc[j][3] *= alpha[1];
     }
-    fmma::mma_pb<T, D, NT>(acc, s, Vt, 0, lane);
+    fmma::mma_pb<T, DP, NT>(acc, s, Vt, 0, lane);
     __syncthreads();   // this tile's K/V/bias reads are done
   }
   fmma::cp_async_wait<0>();   // nothing left in flight (no key tile at all)
 
   const float inv0 = 1.f / l_r[0], inv1 = 1.f / l_r[1];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DP / 8; ++j) {
     acc[j][0] *= inv0;
     acc[j][1] *= inv0;
     acc[j][2] *= inv1;
     acc[j][3] *= inv1;
   }
-  fmma::store_rows<T, D>(out + qoff + (size_t)16 * warp * D, acc, 1.f, lane);
+  fmma::store_rows<T, DP, kPad>(out + qoff + (size_t)16 * warp * D, acc,
+                                1.f, lane, D, D);
   if (t4 == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -254,20 +265,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int DP, bool kPad>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* bias, void* out, float* lse, int B, int H,
-                     int Sq, int Sk, int causal, float scale, uint32_t thresh,
-                     float keep_scale, uint32_t seed, cudaStream_t stream) {
-  const int bytes = smem_bytes<T, D>();
+                     int Sq, int Sk, int D, int causal, float scale,
+                     uint32_t thresh, float keep_scale, uint32_t seed,
+                     cudaStream_t stream) {
+  const int bytes = smem_bytes<T, DP>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_fwd_kernel<T, DP, kPad>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   dim3 grid(B * H, Sq / kBQ), block(kThreads);
-  flash_fwd_kernel<T, D><<<grid, block, bytes, stream>>>(
+  flash_fwd_kernel<T, DP, kPad><<<grid, block, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out,
-      lse, H, Sq, Sk, causal, scale, thresh, keep_scale, seed);
+      lse, H, Sq, Sk, D, causal, scale, thresh, keep_scale, seed);
   return cudaGetLastError();
 }
 
@@ -277,19 +289,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int Sq, int Sk, int D, int causal, float scale,
                    uint32_t thresh, float keep_scale, uint32_t seed,
                    cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch_d<T, 32>(q, k, v, bias, out, lse, B, H, Sq, Sk, causal,
-                             scale, thresh, keep_scale, seed, stream);
-    case 64:
-      return launch_d<T, 64>(q, k, v, bias, out, lse, B, H, Sq, Sk, causal,
-                             scale, thresh, keep_scale, seed, stream);
-    case 128:
-      return launch_d<T, 128>(q, k, v, bias, out, lse, B, H, Sq, Sk, causal,
-                              scale, thresh, keep_scale, seed, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return fmma::dispatch_width<T>(D, [&](auto dp, auto pad) {
+    return launch_d<T, decltype(dp)::value, decltype(pad)::value>(
+        q, k, v, bias, out, lse, B, H, Sq, Sk, D, causal, scale, thresh,
+        keep_scale, seed, stream);
+  });
 }
 
 }  // namespace
@@ -297,7 +301,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // q [B,H,Sq,D], k/v [B,H,Sk,D] contiguous in one type (dtype 0 = float32,
 // 1 = bfloat16, 2 = float16); bias [B,Sk] float32 or null; out like q;
 // lse [B*H,Sq] f32.
-// Sq and Sk must be multiples of 64; D one of 32, 64, 128. Dropout: keep
+// Sq and Sk must be multiples of 64; D % 8 == 0, D <= 256. Dropout: keep
 // where hash >= thresh (thresh 0 = no dropout), kept P scaled by keep_scale.
 extern "C" int flash_attention_forward(void* q, void* k, void* v, void* bias,
                                        void* out, void* lse, int B, int H,

@@ -1,14 +1,29 @@
 // Tensor-core pieces of the flash-attention kernels (flash_fwd.cu K2,
-// flash_bwd_dq.cu K3, flash_bwd_dkv.cu K4) and of the splash backward
-// kernels (splash_bwd_dq.cu K6, splash_bwd_dkv.cu K7): swizzled shared
-// tiles fed by cp.async, and warp-level mma.sync products in every input
-// type.
+// flash_bwd_dq.cu K3, flash_bwd_dkv.cu K4) and of the splash kernels
+// (splash_fwd.cu K5, splash_bwd_dq.cu K6, splash_bwd_dkv.cu K7): swizzled
+// shared tiles fed by cp.async, warp-level mma.sync products in every
+// input type, and the head-dim dispatch.
+//
+// Head dims. K2-K7 take every D with D % 8 == 0 and D <= 256, as the
+// reference kernels take every D % 8 == 0 (up to 512, pallas_ops.py:482).
+// The tiles and products are written for a padded width DP: a whole number
+// of the swizzle's 8-chunk groups a row (a multiple of 64 elements in the
+// 16-bit types, of 32 in float; 32 itself in the 16-bit types, where two
+// rows share a group), and a multiple of 64 above 128 so that K4 and K7 can
+// split their outputs in two halves of whole 32-column groups. A row of
+// D < DP elements is copied with its D / (16 / sizeof(T)) data chunks and
+// zero-filled past them (cp.async with a source size of 0): zero columns
+// leave Q K^T, dO V^T and their gradients unchanged, and the output
+// columns at or past D are never stored. Global row strides stay D.
+// `dispatch_width` picks the instantiation: D 32, 64 and 128 keep their
+// compile-time widths (kPad false, the code of the kernels before padding),
+// every other D runs at padded_width(D) with D a run-time stride (kPad).
 //
 // - bfloat16 and float16 (the 16-bit types, `Half16<T>`): mma.sync
 //   m16n8k16 with 16-bit operands and fp32 sums. The two differ only in
 //   the instruction's operand type and in the rounding of packed fp32
 //   values, so every tile, fragment and product below is written once
-//   for both (only K2-K4 are instantiated in float16). A operands from
+//   for both (K2-K7 are instantiated in both). A operands from
 //   shared memory come through ldmatrix, B operands through ldmatrix (B
 //   stored [n][k]) or ldmatrix.trans (B stored [k][n]).
 // - float32: 3xTF32 on mma.sync m16n8k8. Each operand x splits into
@@ -101,16 +116,34 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// 16 bytes from src, or 16 zero bytes where `data` is false (source size
+// 0: nothing is read, the destination is zero-filled)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool data) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(data ? 16 : 0)
+               : "memory");
+}
+
 // Start the copy of a [ROWS, D] row-major tile at `src` into the swizzled
-// tile `dst`, 16 bytes a copy, spread over NTHREADS threads.
-template <typename T, int D, int ROWS, int NTHREADS>
+// tile `dst`, 16 bytes a copy, spread over NTHREADS threads. With kPad the
+// global rows are `ld` elements long (ld % 8 == 0, ld <= D) and the tile's
+// columns from ld to D are zero-filled.
+template <typename T, int D, int ROWS, int NTHREADS, bool kPad = false>
 __device__ __forceinline__ void load_tile_async(T* dst, const T* src,
-                                                int tid) {
+                                                int tid, int ld = D) {
   using TL = Tile<T, D>;
+  const int nc = ld / TL::kEC;   // chunks of a row that hold data
   for (int i = tid; i < ROWS * TL::kRC; i += NTHREADS) {
     const int r = i / TL::kRC, c = i % TL::kRC;
-    cp_async16(dst + TL::slot(r, c) * TL::kEC,
-               src + (size_t)r * D + c * TL::kEC);
+    T* d = dst + TL::slot(r, c) * TL::kEC;
+    if constexpr (kPad) {
+      const T* row = src + (size_t)r * ld;
+      cp_async16_zfill(d, c < nc ? row + c * TL::kEC : row, c < nc);
+    } else {
+      cp_async16(d, src + (size_t)r * D + c * TL::kEC);
+    }
   }
 }
 
@@ -324,11 +357,15 @@ __device__ __forceinline__ int out_col(int j, int n) {
   return 32 * (j / 4) + 4 * n + j % 4;
 }
 
-template <typename T, int D, int KT>
-__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4],
+// With DC < D the product covers the output columns c0 .. c0 + DC of the
+// tile only (c0 and DC multiples of 32): K4 and K7 split their outputs so
+// above D 128.
+template <typename T, int D, int KT, int DC = D>
+__device__ __forceinline__ void mma_pb(float (&acc)[DC / 8][4],
                                        float (&p)[KT][4], const T* Bs,
-                                       int rb, int lane) {
+                                       int rb, int lane, int c0 = 0) {
   using TL = Tile<T, D>;
+  static_assert(DC % 32 == 0 && DC <= D, "whole 32-column groups");
   const int g = lane >> 2, t = lane & 3;
   if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
@@ -341,12 +378,13 @@ __device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4],
       split_tf32(p[kc][3], ah[3], al[3]);
       const int r0 = rb + 8 * kc + 2 * t;
 #pragma unroll
-      for (int m = 0; m < D / 32; ++m) {
+      for (int m = 0; m < DC / 32; ++m) {
         // b0 (row 2t) and b1 (row 2t+1) of n-tiles 4m .. 4m+3: chunk g + 8m
+        const int ch = c0 / 4 + g + 8 * m;
         const float4 y0 = *reinterpret_cast<const float4*>(
-            Bs + TL::slot(r0, g + 8 * m) * 4);
+            Bs + TL::slot(r0, ch) * 4);
         const float4 y1 = *reinterpret_cast<const float4*>(
-            Bs + TL::slot(r0 + 1, g + 8 * m) * 4);
+            Bs + TL::slot(r0 + 1, ch) * 4);
         const float b0[4] = {y0.x, y0.y, y0.z, y0.w};
         const float b1[4] = {y1.x, y1.y, y1.z, y1.w};
 #pragma unroll
@@ -368,11 +406,11 @@ __device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4],
                              H::pack(p[2 * kc + 1][0], p[2 * kc + 1][1]),
                              H::pack(p[2 * kc + 1][2], p[2 * kc + 1][3])};
 #pragma unroll
-      for (int j = 0; j < D / 8; j += 2) {
+      for (int j = 0; j < DC / 8; j += 2) {
         uint32_t b[4];
         ldsm_x4_trans(b, Bs + TL::at(rb + 16 * kc + (lane & 7)
                                          + ((lane >> 3) & 1) * 8,
-                                     8 * j + (lane >> 4) * 8));
+                                     c0 + 8 * j + (lane >> 4) * 8));
         H::mma(acc[j], a, b[0], b[1]);
         H::mma(acc[j + 1], a, b[2], b[3]);
       }
@@ -381,10 +419,12 @@ __device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4],
 }
 
 // Store a warp's [16, D] accumulator acc[D/8][4] from mma_pb times `mul`
-// at `out` (row stride D).
-template <typename T, int D>
+// at `out` (row stride ld). With kPad only the columns below `ncol` are
+// stored (ncol % 8 == 0): the padded width's zero columns never leave.
+template <typename T, int D, bool kPad = false>
 __device__ __forceinline__ void store_rows(T* out, float (&acc)[D / 8][4],
-                                           float mul, int lane) {
+                                           float mul, int lane, int ld = D,
+                                           int ncol = D) {
   const int g = lane >> 2, t = lane & 3;
   if constexpr (std::is_same<T, float>::value) {
     // n-tiles 4m .. 4m+3 of one accumulator column are 4 neighbouring d
@@ -393,21 +433,70 @@ __device__ __forceinline__ void store_rows(T* out, float (&acc)[D / 8][4],
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = g + 8 * (e >> 1);
-        *reinterpret_cast<float4*>(
-            out + (size_t)row * D + out_col<D>(4 * m, 2 * t + (e & 1))) =
-            make_float4(acc[4 * m][e] * mul, acc[4 * m + 1][e] * mul,
-                        acc[4 * m + 2][e] * mul, acc[4 * m + 3][e] * mul);
+        const int col = out_col<D>(4 * m, 2 * t + (e & 1));
+        if (!kPad || col < ncol)
+          *reinterpret_cast<float4*>(out + (size_t)row * ld + col) =
+              make_float4(acc[4 * m][e] * mul, acc[4 * m + 1][e] * mul,
+                          acc[4 * m + 2][e] * mul, acc[4 * m + 3][e] * mul);
       }
   } else {
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int c = 8 * j + 2 * t;
-      Half16<T>::store2(out + (size_t)g * D + c, acc[j][0] * mul,
+      if (kPad && c >= ncol) continue;
+      Half16<T>::store2(out + (size_t)g * ld + c, acc[j][0] * mul,
                         acc[j][1] * mul);
-      Half16<T>::store2(out + (size_t)(g + 8) * D + c, acc[j][2] * mul,
+      Half16<T>::store2(out + (size_t)(g + 8) * ld + c, acc[j][2] * mul,
                         acc[j][3] * mul);
     }
   }
+}
+
+// -- head dims ----------------------------------------------------------------
+
+constexpr int kMaxHeadDim = 256;
+
+// The width a head dim d runs at: whole 8-chunk swizzle groups a row (see
+// the top of this file), and a multiple of 64 above 128.
+__host__ __device__ constexpr int padded_width(int d, bool is_float) {
+  return d <= 32 ? 32
+         : d <= 64 ? 64
+         : (is_float && d <= 96) ? 96
+         : d <= 128 ? 128
+         : d <= 192 ? 192 : 256;
+}
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+template <bool V>
+using Bool = std::integral_constant<bool, V>;
+
+// f(Int<DP>{}, Bool<kPad>{}) for head dim D: D 32, 64 and 128 at their own
+// width (kPad false), every other D % 8 == 0 up to kMaxHeadDim at
+// padded_width(D) (kPad true, D a run-time row stride); anything else is
+// refused. Each kernel instantiates only these widths.
+template <typename T, typename F>
+cudaError_t dispatch_width(int D, F&& f) {
+  constexpr bool kF = std::is_same<T, float>::value;
+  switch (D) {
+    case 32: return f(Int<32>{}, Bool<false>{});
+    case 64: return f(Int<64>{}, Bool<false>{});
+    case 128: return f(Int<128>{}, Bool<false>{});
+    default: break;
+  }
+  if (D <= 0 || D % 8 != 0 || D > kMaxHeadDim) return cudaErrorInvalidValue;
+  switch (padded_width(D, kF)) {
+    case 32: return f(Int<32>{}, Bool<true>{});
+    case 64: return f(Int<64>{}, Bool<true>{});
+    case 96:
+      if constexpr (kF) return f(Int<96>{}, Bool<true>{});
+      break;
+    case 128: return f(Int<128>{}, Bool<true>{});
+    case 192: return f(Int<192>{}, Bool<true>{});
+    case 256: return f(Int<256>{}, Bool<true>{});
+    default: break;
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace fmma

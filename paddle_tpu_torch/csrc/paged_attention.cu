@@ -19,7 +19,10 @@
 // Layouts: q [B,H,D]; k_pages/v_pages [H,N,P,D] (one layer of the pools);
 // page_table [B,PP] int32; pos [B] int32 (pos >= 0); out [B,H,D] in q's type;
 // workspace [B,H,nsplit,D+2] float32, nsplit = ceil(PP / pages_per_split).
-// float32 or bfloat16 pools; all statistics and sums in float32.
+// float32, bfloat16 or float16 pools (the JAX package's pools take any
+// float type); all statistics and sums in float32, each 16-bit value widened
+// to float as it is loaded (`Chunk<T>::widen`), the output rounded to
+// nearest once.
 //
 // Bound: bytes. The work reads K and V once, 2*B*H*len*D*sizeof(T) bytes, at
 // about 2 flops a byte, far below the card's ridge. What keeps a decode from
@@ -51,8 +54,9 @@
 //   exp(m_s - M) / sum_s l_s exp(m_s - M), written in q's type; each lane
 //   holds ceil(D / 32) columns, the tail past D masked.
 // - Built for every D with D % 8 == 0 and D <= 256 (a 16-byte chunk of
-//   either type divides such a row), one instantiation each.
+//   any of the three types divides such a row), one instantiation each.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,9 +97,27 @@ struct Chunk<__nv_bfloat16> {
   }
 };
 
+template <>
+struct Chunk<__half> {
+  using Raw = uint4;
+  static constexpr int kN = 8;
+  __device__ __forceinline__ static void widen(const uint4& r, float* f) {
+    const __half2* h = reinterpret_cast<const __half2*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __half22float2(h[i]);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+};
+
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 __device__ __forceinline__ int seq_len(const int32_t* pos, int b, int cap) {
@@ -381,8 +403,8 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it); D a
-// multiple of 8, at most 256. workspace:
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, pools and out share
+// it); D a multiple of 8, at most 256. workspace:
 // float32 [B, H, ceil(PP / pages_per_split), D + 2], written and read here.
 extern "C" int paged_attention_decode(void* q, void* k_pages, void* v_pages,
                                       void* page_table, void* pos, void* out,
@@ -395,12 +417,22 @@ extern "C" int paged_attention_decode(void* q, void* k_pages, void* v_pages,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   float* ws = (float*)workspace;
-  cudaError_t e = dtype == 0
-      ? launch<float>(q, k_pages, v_pages, page_table, pos, out, ws, B, H, N,
-                      P, PP, pages_per_split, D, scale, s)
-      : launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, pos, out, ws,
-                              B, H, N, P, PP, pages_per_split, D, scale, s);
-  return (int)e;
+  switch (dtype) {
+    case 0:
+      return (int)launch<float>(q, k_pages, v_pages, page_table, pos, out,
+                                ws, B, H, N, P, PP, pages_per_split, D,
+                                scale, s);
+    case 1:
+      return (int)launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, pos,
+                                        out, ws, B, H, N, P, PP,
+                                        pages_per_split, D, scale, s);
+    case 2:
+      return (int)launch<__half>(q, k_pages, v_pages, page_table, pos, out,
+                                 ws, B, H, N, P, PP, pages_per_split, D,
+                                 scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* paged_attention_error_string(int err) {

@@ -30,9 +30,11 @@
 // scheduling. K, V and the key segment ids stay in shared memory; query
 // tiles of Q, dO, LSE, delta and the query segment ids stream through,
 // double-buffered with 16-byte cp.async, with the tile's dropout row
-// hashes. Tiles are 64 queries; at D 128, 32 in bf16 and 8 in fp32, to
-// keep the two D-wide accumulators free of spills (32 and 16 spilled in
-// fp32, PERF.md §6).
+// hashes. Tiles are 64 queries; above D 64, 32 in the 16-bit types and 8
+// in fp32, to keep the two D-wide accumulators free of spills (32 and 16
+// spilled in fp32 at D 128, PERF.md §6); above D 128 a block owns one
+// column half of its dK and dV rows, as in K4. Every D % 8 == 0 up to 256
+// runs at a padded width (flash_mma.cuh, "Head dims").
 // The query loop runs over the wrapper's transposed span [q_lo, q_hi) for
 // this (b, key tile), in 64-query units. The kernel computes the TRANSPOSED
 // scores, S^T = K Q^T and dP^T = V dO^T, so its own keys are the MMA rows:
@@ -61,37 +63,54 @@ constexpr int kUnit = 64;     // the wrapper's span unit, in queries
 constexpr int kWarps = 4;     // 16 keys a warp
 constexpr int kThreads = 32 * kWarps;
 
-template <typename T, int D>   // queries a tile
+// queries a tile, at the padded width DP: 64; above DP 64, 32 in the
+// 16-bit types and 8 in fp32, to keep the two accumulators free of spills
+template <typename T, int DP>
 constexpr int kQueryTile =
-    D == 128 ? (std::is_same<T, float>::value ? 8 : 32) : 64;
+    DP <= 64 ? 64 : (std::is_same<T, float>::value ? 8 : 32);
 
-template <typename T, int D>
+// Above DP 128 a block owns one of two column halves of its dK and dV rows
+// (blockIdx.z), as K4 does
+template <int DP>
+constexpr int kParts = DP > 128 ? 2 : 1;
+
+// Padded widths compute their global offsets at run time, and ptxas,
+// aiming at 168 registers (3 blocks an SM) there, spilled at fp32 width
+// 32; a floor of 2 blocks lets it take up to 255. The exact widths keep
+// the bound they were tuned with.
+constexpr int kMinBlocks = 2;
+
+template <typename T, int DP>
 constexpr int smem_bytes() {
-  return (2 * kBK * D + 4 * kQueryTile<T, D> * D) * (int)sizeof(T)
-         + 8 * kQueryTile<T, D> * 4 + kBK * 4;
+  return (2 * kBK * DP + 4 * kQueryTile<T, DP> * DP) * (int)sizeof(T)
+         + 8 * kQueryTile<T, DP> * 4 + kBK * 4;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-splash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const int* __restrict__ qseg,
-                      const int* __restrict__ kseg,
-                      const int* __restrict__ q_lo,
-                      const int* __restrict__ q_hi,
-                      const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int H, int S, int causal,
-                      float scale, uint32_t thresh, float keep_scale,
-                      uint32_t seed) {
-  constexpr int BQ = kQueryTile<T, D>;
+// DP: the padded width of the tiles; with kPad the head dim is the
+// run-time d (global row stride, d <= DP), else DP itself
+template <typename T, int DP, bool kPad>
+__device__ __forceinline__ void
+splash_bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ qseg,
+                    const int* __restrict__ kseg, const int* __restrict__ q_lo,
+                    const int* __restrict__ q_hi, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dk,
+                    T* __restrict__ dv, int H, int S, int d, int causal,
+                    float scale, uint32_t thresh, float keep_scale,
+                    uint32_t seed) {
+  constexpr int BQ = kQueryTile<T, DP>;
   constexpr int NT = BQ / 8;   // score n-tiles (query groups) a warp
+  constexpr int DC = DP / kParts<DP>;   // output columns a block
+  const int D = kPad ? d : DP;
+  // this block's first column (0 unless the outputs are split)
+  const int c0 = kParts<DP> > 1 ? (int)blockIdx.z * DC : 0;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + kBK * D;
-  T* Qs = Vs + kBK * D;             // [2][BQ * D]
-  T* dOs = Qs + 2 * BQ * D;         // [2][BQ * D]
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * D);   // [2][BQ]
+  T* Vs = Ks + kBK * DP;
+  T* Qs = Vs + kBK * DP;            // [2][BQ * DP]
+  T* dOs = Qs + 2 * BQ * DP;        // [2][BQ * DP]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * DP);  // [2][BQ]
   float* dl_s = lse_s + 2 * BQ;                                // [2][BQ]
   int* qs_s = reinterpret_cast<int*>(dl_s + 2 * BQ);           // [2][BQ]
   uint32_t* rh_s = reinterpret_cast<uint32_t*>(qs_s + 2 * BQ);  // [2][BQ]
@@ -118,10 +137,10 @@ splash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   last = last * (kUnit / BQ);
   auto fetch = [&](int qt) {
     const int buf = qt & 1;
-    fmma::load_tile_async<T, D, BQ, kThreads>(
-        Qs + buf * BQ * D, qb + (size_t)qt * BQ * D, tid);
-    fmma::load_tile_async<T, D, BQ, kThreads>(
-        dOs + buf * BQ * D, ob + (size_t)qt * BQ * D, tid);
+    fmma::load_tile_async<T, DP, BQ, kThreads, kPad>(
+        Qs + buf * BQ * DP, qb + (size_t)qt * BQ * D, tid, D);
+    fmma::load_tile_async<T, DP, BQ, kThreads, kPad>(
+        dOs + buf * BQ * DP, ob + (size_t)qt * BQ * D, tid, D);
     fmma::load_vec_async<kThreads>(lse_s + buf * BQ, lb + qt * BQ, BQ, tid);
     fmma::load_vec_async<kThreads>(dl_s + buf * BQ, db + qt * BQ, BQ, tid);
     fmma::load_vec_async<kThreads>(qs_s + buf * BQ, qsrow + qt * BQ, BQ,
@@ -130,8 +149,8 @@ splash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = tid; i < BQ; i += kThreads)
         rh_s[buf * BQ + i] = flash::drop_row(seed, bh, qt * BQ + i);
   };
-  fmma::load_tile_async<T, D, kBK, kThreads>(Ks, k + koff, tid);
-  fmma::load_tile_async<T, D, kBK, kThreads>(Vs, v + koff, tid);
+  fmma::load_tile_async<T, DP, kBK, kThreads, kPad>(Ks, k + koff, tid, D);
+  fmma::load_tile_async<T, DP, kBK, kThreads, kPad>(Vs, v + koff, tid, D);
   fmma::load_vec_async<kThreads>(ks_s, kseg + (size_t)b * S + k0, kBK, tid);
   if (first < last) fetch(first);
   fmma::cp_async_commit();
@@ -139,9 +158,9 @@ splash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // this thread's two keys: rows g and g + 8 of its warp's 16, their ids
   // in the shared tile
   const int kr = 16 * warp + g;
-  float acc_k[D / 8][4], acc_v[D / 8][4];
+  float acc_k[DC / 8][4], acc_v[DC / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
 
@@ -155,8 +174,8 @@ splash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       fmma::cp_async_wait<0>();
     }
     __syncthreads();
-    const T* Qt = Qs + buf * BQ * D;
-    const T* dOt = dOs + buf * BQ * D;
+    const T* Qt = Qs + buf * BQ * DP;
+    const T* dOt = dOs + buf * BQ * DP;
     const float* lt = lse_s + buf * BQ;
     const float* dt = dl_s + buf * BQ;
     const int* qst = qs_s + buf * BQ;
@@ -169,8 +188,8 @@ splash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    fmma::mma_abt<T, D, NT>(s, Ks, 16 * warp, Qt, 0, lane);
-    fmma::mma_abt<T, D, NT>(dp, Vs, 16 * warp, dOt, 0, lane);
+    fmma::mma_abt<T, DP, NT>(s, Ks, 16 * warp, Qt, 0, lane);
+    fmma::mma_abt<T, DP, NT>(dp, Vs, 16 * warp, dOt, 0, lane);
 
     // Pd^T in place of S^T and dS^T in place of dP^T: rows
     // k0 + kr + 8 (e / 2), queries q0 + 8 j + 2 t4 + e % 2
@@ -199,34 +218,78 @@ splash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           dp[j][e] = p * (gd - dl_c);
         }
       }
-    fmma::mma_pb<T, D, NT>(acc_v, s, dOt, 0, lane);
-    fmma::mma_pb<T, D, NT>(acc_k, dp, Qt, 0, lane);
+    fmma::mma_pb<T, DP, NT, DC>(acc_v, s, dOt, 0, lane, c0);
+    fmma::mma_pb<T, DP, NT, DC>(acc_k, dp, Qt, 0, lane, c0);
     __syncthreads();   // this tile's Q/dO/LSE/delta/id/hash reads are done
   }
   fmma::cp_async_wait<0>();   // nothing left in flight (no query tile at all)
 
-  const size_t wo = koff + (size_t)16 * warp * D;
-  fmma::store_rows<T, D>(dk + wo, acc_k, scale, lane);
-  fmma::store_rows<T, D>(dv + wo, acc_v, 1.f, lane);
+  const size_t wo = koff + (size_t)16 * warp * D + c0;
+  fmma::store_rows<T, DC, kPad>(dk + wo, acc_k, scale, lane, D, D - c0);
+  fmma::store_rows<T, DC, kPad>(dv + wo, acc_v, 1.f, lane, D, D - c0);
 }
 
-template <typename T, int D>
+// Two entries over one body: the exact widths (kPad false) with the launch
+// bound they were tuned with, the padded widths with kMinBlocks.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+splash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const int* __restrict__ qseg,
+                      const int* __restrict__ kseg,
+                      const int* __restrict__ q_lo,
+                      const int* __restrict__ q_hi, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int H, int S, int d, int causal,
+                      float scale, uint32_t thresh, float keep_scale,
+                      uint32_t seed) {
+  splash_bwd_dkv_body<T, DP, false>(
+      q, k, v, qseg, kseg, q_lo, q_hi, dout, lse, delta, dk, dv, H, S, d,
+      causal, scale, thresh, keep_scale, seed);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+splash_bwd_dkv_kernel_pad(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const int* __restrict__ qseg,
+                          const int* __restrict__ kseg,
+                          const int* __restrict__ q_lo,
+                          const int* __restrict__ q_hi,
+                          const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, T* __restrict__ dk,
+                          T* __restrict__ dv, int H, int S, int d, int causal,
+                          float scale, uint32_t thresh, float keep_scale,
+                          uint32_t seed) {
+  splash_bwd_dkv_body<T, DP, true>(
+      q, k, v, qseg, kseg, q_lo, q_hi, dout, lse, delta, dk, dv, H, S, d,
+      causal, scale, thresh, keep_scale, seed);
+}
+
+// the entry of width DP: the exact one, or the padded one
+template <typename T, int DP, bool kPad>
+auto kernel_for() {
+  if constexpr (kPad) return splash_bwd_dkv_kernel_pad<T, DP>;
+  else return splash_bwd_dkv_kernel<T, DP>;
+}
+
+template <typename T, int DP, bool kPad>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const int* qseg, const int* kseg, const int* lo,
                      const int* hi, const void* dout, const void* lse,
                      const void* delta, void* dk, void* dv, int B, int H,
-                     int S, int causal, float scale, uint32_t thresh,
+                     int S, int D, int causal, float scale, uint32_t thresh,
                      float keep_scale, uint32_t seed, cudaStream_t stream) {
-  const int bytes = smem_bytes<T, D>();
+  const int bytes = smem_bytes<T, DP>();
+  auto* kernel = kernel_for<T, DP, kPad>();
   cudaError_t e = cudaFuncSetAttribute(
-      splash_bwd_dkv_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  dim3 grid(B * H, S / kBK), block(kThreads);
-  splash_bwd_dkv_kernel<T, D><<<grid, block, bytes, stream>>>(
+  dim3 grid(B * H, S / kBK, kParts<DP>), block(kThreads);
+  kernel<<<grid, block, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, qseg, kseg, lo, hi,
       (const T*)dout, (const float*)lse, (const float*)delta, (T*)dk, (T*)dv,
-      H, S, causal, scale, thresh, keep_scale, seed);
+      H, S, D, causal, scale, thresh, keep_scale, seed);
   return cudaGetLastError();
 }
 
@@ -237,22 +300,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* delta, void* dk, void* dv, int B, int H, int S,
                    int D, int causal, float scale, uint32_t thresh,
                    float keep_scale, uint32_t seed, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch_d<T, 32>(q, k, v, qseg, kseg, lo, hi, dout, lse, delta,
-                             dk, dv, B, H, S, causal, scale, thresh,
-                             keep_scale, seed, stream);
-    case 64:
-      return launch_d<T, 64>(q, k, v, qseg, kseg, lo, hi, dout, lse, delta,
-                             dk, dv, B, H, S, causal, scale, thresh,
-                             keep_scale, seed, stream);
-    case 128:
-      return launch_d<T, 128>(q, k, v, qseg, kseg, lo, hi, dout, lse, delta,
-                              dk, dv, B, H, S, causal, scale, thresh,
-                              keep_scale, seed, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return fmma::dispatch_width<T>(D, [&](auto dp, auto pad) {
+    return launch_d<T, decltype(dp)::value, decltype(pad)::value>(
+        q, k, v, qseg, kseg, lo, hi, dout, lse, delta, dk, dv, B, H, S, D,
+        causal, scale, thresh, keep_scale, seed, stream);
+  });
 }
 
 }  // namespace
@@ -261,7 +313,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // bfloat16, 2 = float16); qseg/kseg [B,S] int32; q_lo/q_hi [B,S/64]
 // int32 (the query span of each 64-key tile, in 64-query units); lse and delta
 // [B*H,S] float32; dk/dv like k. Self-attention only (Sq == Sk), a
-// multiple of 64; D 32, 64, 128; every pointer 16-byte aligned.
+// multiple of 64; D % 8 == 0, D <= 256; every pointer 16-byte aligned.
 extern "C" int splash_attention_bwd_dkv(void* q, void* k, void* v, void* qseg,
                                         void* kseg, void* q_lo, void* q_hi,
                                         void* dout, void* lse, void* delta,

@@ -26,8 +26,11 @@
 // Design: K3's (flash_bwd_dq.cu). One block of 4 warps per (64-query tile,
 // b*h), no atomics: the block owns its dQ rows, each warp 16 of them. Q and
 // dO stay in shared memory in their input type; K, V and the key segment
-// ids are double-buffered with 16-byte cp.async in tiles of 64 keys (32 at
-// D 128, to keep the registers free of spills). The key loop runs over the
+// ids are double-buffered with 16-byte cp.async in tiles of 64 keys (32
+// above D 64, to keep the registers free of spills; 16 in fp32 above D 128,
+// for shared memory; every D % 8 == 0 up to 256 at a padded width,
+// flash_mma.cuh "Head dims"; in fp32 above D 192 two blocks share the rows,
+// one column half each, as in K3). The key loop runs over the
 // wrapper's [kv_lo, kv_hi) for this (b, query tile), the forward's span, in
 // 64-key units. S and dP come out of mma in accumulator fragments (queries
 // as rows), dS is formed there, and that fragment is the A operand of
@@ -51,6 +54,8 @@
 // Why mma.sync and not wgmma: K3's reason (flash_bwd_dq.cu). The main
 // path's type is fp32, and tf32 wgmma takes both operands K-major from
 // shared memory only; K in dS K arrives MN-major.
+#include <type_traits>
+
 #include "flash_mma.cuh"
 #include "splash_common.cuh"
 
@@ -61,35 +66,56 @@ constexpr int kUnit = 64;     // the wrapper's span unit, in keys
 constexpr int kWarps = 4;     // 16 query rows a warp
 constexpr int kThreads = 32 * kWarps;
 
-template <int D>
-constexpr int kKeyTile = D == 128 ? 32 : 64;   // keys a tile
+// keys a tile, at the padded width DP (K3's rule): 64; 32 above DP 64, to
+// keep the registers free of spills; 16 in fp32 above DP 128, for shared
+// memory
+template <typename T, int DP>
+constexpr int kKeyTile =
+    DP <= 64 ? 64 : (std::is_same<T, float>::value && DP > 128) ? 16 : 32;
 
-template <typename T, int D>
+// In fp32 above DP 192 the [16, DP] accumulator and the streamed tiles'
+// tf32 splits outgrow 255 registers: a block then owns one of two column
+// halves of its dQ rows (blockIdx.z) and recomputes S and dP for it, as
+// K4 splits dK and dV
+template <typename T, int DP>
+constexpr int kParts = std::is_same<T, float>::value && DP > 192 ? 2 : 1;
+
+// Padded widths compute their global offsets at run time, and ptxas,
+// aiming at 168 registers (3 blocks an SM) there, spilled at bf16 width 64
+// and fp32 width 32; a floor of 2 blocks lets it take up to 255. The
+// exact widths keep the bound they were tuned with.
+constexpr int kMinBlocks = 2;
+
+template <typename T, int DP>
 constexpr int smem_bytes() {
-  return (2 * kBQ * D + 4 * kKeyTile<D> * D) * (int)sizeof(T)
-         + 2 * kKeyTile<D> * (int)sizeof(int);
+  return (2 * kBQ * DP + 4 * kKeyTile<T, DP> * DP) * (int)sizeof(T)
+         + 2 * kKeyTile<T, DP> * (int)sizeof(int);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-splash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ qseg,
-                     const int* __restrict__ kseg,
-                     const int* __restrict__ kv_lo,
-                     const int* __restrict__ kv_hi,
-                     const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dq,
-                     int H, int S, int causal, float scale, uint32_t thresh,
-                     float keep_scale, uint32_t seed) {
-  constexpr int BK = kKeyTile<D>;
+// DP: the padded width of the tiles; with kPad the head dim is the
+// run-time d (global row stride, d <= DP), else DP itself
+template <typename T, int DP, bool kPad>
+__device__ __forceinline__ void
+splash_bwd_dq_body(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ qseg,
+                   const int* __restrict__ kseg, const int* __restrict__ kv_lo,
+                   const int* __restrict__ kv_hi, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dq, int H,
+                   int S, int d, int causal, float scale, uint32_t thresh,
+                   float keep_scale, uint32_t seed) {
+  constexpr int BK = kKeyTile<T, DP>;
   constexpr int NT = BK / 8;   // score n-tiles (key groups) a warp
+  constexpr int DC = DP / kParts<T, DP>;   // output columns a block
+  const int D = kPad ? d : DP;
+  // this block's first column (0 unless the output is split)
+  const int c0 = kParts<T, DP> > 1 ? (int)blockIdx.z * DC : 0;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + kBQ * D;
-  T* Ks = dOs + kBQ * D;            // [2][BK * D]
-  T* Vs = Ks + 2 * BK * D;          // [2][BK * D]
-  int* ks_s = reinterpret_cast<int*>(Vs + 2 * BK * D);   // [2][BK]
+  T* dOs = Qs + kBQ * DP;
+  T* Ks = dOs + kBQ * DP;           // [2][BK * DP]
+  T* Vs = Ks + 2 * BK * DP;         // [2][BK * DP]
+  int* ks_s = reinterpret_cast<int*>(Vs + 2 * BK * DP);   // [2][BK]
 
   const int bh = blockIdx.x;
   const int qi = gridDim.y - 1 - blockIdx.y;   // most keys first (causal)
@@ -110,14 +136,15 @@ splash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   last = last * (kUnit / BK);
   auto fetch = [&](int t) {
     const int buf = t & 1;
-    fmma::load_tile_async<T, D, BK, kThreads>(
-        Ks + buf * BK * D, kb + (size_t)t * BK * D, tid);
-    fmma::load_tile_async<T, D, BK, kThreads>(
-        Vs + buf * BK * D, vb + (size_t)t * BK * D, tid);
+    fmma::load_tile_async<T, DP, BK, kThreads, kPad>(
+        Ks + buf * BK * DP, kb + (size_t)t * BK * D, tid, D);
+    fmma::load_tile_async<T, DP, BK, kThreads, kPad>(
+        Vs + buf * BK * DP, vb + (size_t)t * BK * D, tid, D);
     fmma::load_vec_async<kThreads>(ks_s + buf * BK, ksrow + t * BK, BK, tid);
   };
-  fmma::load_tile_async<T, D, kBQ, kThreads>(Qs, q + qoff, tid);
-  fmma::load_tile_async<T, D, kBQ, kThreads>(dOs, dout + qoff, tid);
+  fmma::load_tile_async<T, DP, kBQ, kThreads, kPad>(Qs, q + qoff, tid, D);
+  fmma::load_tile_async<T, DP, kBQ, kThreads, kPad>(dOs, dout + qoff, tid,
+                                                    D);
   if (first < last) fetch(first);
   fmma::cp_async_commit();
 
@@ -134,9 +161,9 @@ splash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     dl_r[h] = delta[(size_t)bh * S + qpos[h]];
     rh[h] = thresh ? flash::drop_row(seed, bh, qpos[h]) : 0u;
   }
-  float acc[D / 8][4];
+  float acc[DC / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
@@ -150,8 +177,8 @@ splash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     const int buf = t & 1;
-    const T* Kt = Ks + buf * BK * D;
-    const T* Vt = Vs + buf * BK * D;
+    const T* Kt = Ks + buf * BK * DP;
+    const T* Vt = Vs + buf * BK * DP;
     const int* kst = ks_s + buf * BK;
     const int k0 = t * BK;
 
@@ -160,8 +187,8 @@ splash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    fmma::mma_abt<T, D, NT>(s, Qs, 16 * warp, Kt, 0, lane);
-    fmma::mma_abt<T, D, NT>(dp, dOs, 16 * warp, Vt, 0, lane);
+    fmma::mma_abt<T, DP, NT>(s, Qs, 16 * warp, Kt, 0, lane);
+    fmma::mma_abt<T, DP, NT>(dp, dOs, 16 * warp, Vt, 0, lane);
 
     // dS in place of S: rows qpos[e / 2], keys k0 + 8 j + 2 t4 + e % 2
 #pragma unroll
@@ -179,32 +206,74 @@ splash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                                         : 0.f;
         s[j][e] = p * (gd - dl_r[h]);
       }
-    fmma::mma_pb<T, D, NT>(acc, s, Kt, 0, lane);
+    fmma::mma_pb<T, DP, NT, DC>(acc, s, Kt, 0, lane, c0);
     __syncthreads();   // this tile's K/V/id reads are done
   }
   fmma::cp_async_wait<0>();   // nothing left in flight (no key tile at all)
 
-  fmma::store_rows<T, D>(dq + qoff + (size_t)16 * warp * D, acc, scale,
-                         lane);
+  fmma::store_rows<T, DC, kPad>(dq + qoff + (size_t)16 * warp * D + c0,
+                                acc, scale, lane, D, D - c0);
 }
 
-template <typename T, int D>
+// Two entries over one body: the exact widths (kPad false) with the launch
+// bound they were tuned with, the padded widths with kMinBlocks.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+splash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const int* __restrict__ qseg,
+                     const int* __restrict__ kseg,
+                     const int* __restrict__ kv_lo,
+                     const int* __restrict__ kv_hi, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dq, int H,
+                     int S, int d, int causal, float scale, uint32_t thresh,
+                     float keep_scale, uint32_t seed) {
+  splash_bwd_dq_body<T, DP, false>(
+      q, k, v, qseg, kseg, kv_lo, kv_hi, dout, lse, delta, dq, H, S, d, causal,
+      scale, thresh, keep_scale, seed);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+splash_bwd_dq_kernel_pad(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const int* __restrict__ qseg,
+                         const int* __restrict__ kseg,
+                         const int* __restrict__ kv_lo,
+                         const int* __restrict__ kv_hi,
+                         const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dq,
+                         int H, int S, int d, int causal, float scale,
+                         uint32_t thresh, float keep_scale, uint32_t seed) {
+  splash_bwd_dq_body<T, DP, true>(
+      q, k, v, qseg, kseg, kv_lo, kv_hi, dout, lse, delta, dq, H, S, d, causal,
+      scale, thresh, keep_scale, seed);
+}
+
+// the entry of width DP: the exact one, or the padded one
+template <typename T, int DP, bool kPad>
+auto kernel_for() {
+  if constexpr (kPad) return splash_bwd_dq_kernel_pad<T, DP>;
+  else return splash_bwd_dq_kernel<T, DP>;
+}
+
+template <typename T, int DP, bool kPad>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const int* qseg, const int* kseg, const int* lo,
                      const int* hi, const void* dout, const void* lse,
-                     const void* delta, void* dq, int B, int H, int S,
+                     const void* delta, void* dq, int B, int H, int S, int D,
                      int causal, float scale, uint32_t thresh,
                      float keep_scale, uint32_t seed, cudaStream_t stream) {
-  const int bytes = smem_bytes<T, D>();
+  const int bytes = smem_bytes<T, DP>();
+  auto* kernel = kernel_for<T, DP, kPad>();
   cudaError_t e = cudaFuncSetAttribute(
-      splash_bwd_dq_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  dim3 grid(B * H, S / kBQ), block(kThreads);
-  splash_bwd_dq_kernel<T, D><<<grid, block, bytes, stream>>>(
+  dim3 grid(B * H, S / kBQ, kParts<T, DP>), block(kThreads);
+  kernel<<<grid, block, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, qseg, kseg, lo, hi,
       (const T*)dout, (const float*)lse, (const float*)delta, (T*)dq, H, S,
-      causal, scale, thresh, keep_scale, seed);
+      D, causal, scale, thresh, keep_scale, seed);
   return cudaGetLastError();
 }
 
@@ -215,22 +284,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* delta, void* dq, int B, int H, int S, int D,
                    int causal, float scale, uint32_t thresh,
                    float keep_scale, uint32_t seed, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch_d<T, 32>(q, k, v, qseg, kseg, lo, hi, dout, lse, delta,
-                             dq, B, H, S, causal, scale, thresh, keep_scale,
-                             seed, stream);
-    case 64:
-      return launch_d<T, 64>(q, k, v, qseg, kseg, lo, hi, dout, lse, delta,
-                             dq, B, H, S, causal, scale, thresh, keep_scale,
-                             seed, stream);
-    case 128:
-      return launch_d<T, 128>(q, k, v, qseg, kseg, lo, hi, dout, lse, delta,
-                              dq, B, H, S, causal, scale, thresh, keep_scale,
-                              seed, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return fmma::dispatch_width<T>(D, [&](auto dp, auto pad) {
+    return launch_d<T, decltype(dp)::value, decltype(pad)::value>(
+        q, k, v, qseg, kseg, lo, hi, dout, lse, delta, dq, B, H, S, D,
+        causal, scale, thresh, keep_scale, seed, stream);
+  });
 }
 
 }  // namespace
@@ -238,8 +296,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // q/k/v/dout [B,H,S,D] contiguous in one type (dtype 0 = float32, 1 =
 // bfloat16, 2 = float16); qseg/kseg [B,S] int32; kv_lo/kv_hi [B,S/64]
 // int32 (the forward's key spans, in 64-key units); lse and delta [B*H,S]
-// float32; dq like q. Self-attention only (Sq == Sk), a multiple of 64; D
-// 32, 64 or 128; every pointer 16-byte aligned.
+// float32; dq like q. Self-attention only (Sq == Sk), a multiple of 64;
+// D % 8 == 0, D <= 256; every pointer 16-byte aligned.
 extern "C" int splash_attention_bwd_dq(void* q, void* k, void* v, void* qseg,
                                        void* kseg, void* kv_lo, void* kv_hi,
                                        void* dout, void* lse, void* delta,

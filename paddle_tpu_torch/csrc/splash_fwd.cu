@@ -35,14 +35,17 @@
 // (splash_bwd_dq.cu). One block of 4 warps per (64-query tile, b*h), each
 // warp owning 16 query rows; query tiles run last first, as K6's do. Q
 // stays in shared memory in its input type, XOR-swizzled, and its A
-// fragments are formed once and held in registers, except in fp32 at D 128
-// (128 registers of tf32 hi/lo), where they are formed from the shared tile
-// at every key tile, as in K2. K, V and the key segment ids are
+// fragments are formed once and held in registers, except in fp32 above D
+// 64 (128 registers of tf32 hi/lo at D 128) and in the 16-bit types above D
+// 128, where they are formed from the shared tile at every key tile, as in
+// K2. K, V and the key segment ids are
 // double-buffered with 16-byte cp.async, so the next key tile's copy
 // overlaps this tile's products. The key loop runs over the wrapper's
 // [kv_lo, kv_hi) for this (b, query tile), counted in 64-key units and
-// walked in tiles of 64 keys (32 at D 128, where the [16, 128] accumulator
-// takes the registers); tiles outside the span are never loaded. S comes
+// walked in tiles of 64 keys (32 above D 64, where the [16, D] accumulator
+// takes the registers; 16 in fp32 above D 128, for shared memory; every
+// D % 8 == 0 up to 256 at a padded width, flash_mma.cuh "Head dims");
+// tiles outside the span are never loaded. S comes
 // out of mma in accumulator fragments (thread (g, t) holds rows g and g+8,
 // columns 2t, 2t+1 of each n-tile); the segment test, the online softmax
 // (row max and sum over the quad's 4 lanes), dropout and the rescale of O
@@ -72,18 +75,22 @@ constexpr int kUnit = 64;     // the wrapper's span unit, in keys
 constexpr int kWarps = 4;     // 16 query rows a warp
 constexpr int kThreads = 32 * kWarps;
 
-template <int D>
-constexpr int kKeyTile = D == 128 ? 32 : 64;   // keys a tile
+// keys a tile, at the padded width DP (K2's rule): 64; 32 above DP 64,
+// where the [16, DP] accumulator takes the registers; 16 in fp32 above DP
+// 128, for shared memory
+template <typename T, int DP>
+constexpr int kKeyTile =
+    DP <= 64 ? 64 : (std::is_same<T, float>::value && DP > 128) ? 16 : 32;
 
-// Q's A fragments stay in registers across the key tiles, but in fp32 at
-// D 128 (K2's rule)
-template <typename T, int D>
-constexpr bool kQFrags = !(std::is_same<T, float>::value && D > 64);
+// Q's A fragments stay in registers across the key tiles, but in fp32
+// above DP 64 and in the 16-bit types above DP 128 (K2's rule)
+template <typename T, int DP>
+constexpr bool kQFrags = DP <= (std::is_same<T, float>::value ? 64 : 128);
 
-template <typename T, int D>
+template <typename T, int DP>
 constexpr int smem_bytes() {
-  return (kBQ * D + 4 * kKeyTile<D> * D) * (int)sizeof(T)
-         + 2 * kKeyTile<D> * (int)sizeof(int);
+  return (kBQ * DP + 4 * kKeyTile<T, DP> * DP) * (int)sizeof(T)
+         + 2 * kKeyTile<T, DP> * (int)sizeof(int);
 }
 
 // One key tile's softmax step on a warp's scores s (rows qpos[e / 2], keys
@@ -157,28 +164,31 @@ __device__ __forceinline__ void softmax_tile(
 // measured 7-21 % slower than at 3 (168 registers; kernel_ab.py's
 // k5_no_floor and k5_two_blocks, PERF.md §6). No instantiation spills with
 // these floors.
-template <typename T, int D>
-constexpr int kMinBlocks = sizeof(T) * D <= 128 ? 3 : 2;
+template <typename T, int DP>
+constexpr int kMinBlocks = sizeof(T) * DP <= 128 ? 3 : 2;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, (kMinBlocks<T, D>))
+// DP: the padded width of the tiles; with kPad the head dim is the
+// run-time d (global row stride, d <= DP), else DP itself
+template <typename T, int DP, bool kPad>
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<T, DP>))
 splash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ qseg,
                   const int* __restrict__ kseg,
                   const int* __restrict__ kv_lo,
                   const int* __restrict__ kv_hi, T* __restrict__ out,
-                  float* __restrict__ lse, int H, int S, int causal,
+                  float* __restrict__ lse, int H, int S, int d, int causal,
                   float scale, uint32_t thresh, float keep_scale,
                   uint32_t seed) {
-  constexpr int BK = kKeyTile<D>;
+  constexpr int BK = kKeyTile<T, DP>;
   constexpr int NT = BK / 8;    // score n-tiles a warp
-  constexpr int KS = D / 16;    // k16 steps of Q K^T
-  constexpr bool kHoldQ = kQFrags<T, D>;
+  constexpr int KS = DP / 16;   // k16 steps of Q K^T
+  constexpr bool kHoldQ = kQFrags<T, DP>;
+  const int D = kPad ? d : DP;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + kBQ * D;             // [2][BK * D]
-  T* Vs = Ks + 2 * BK * D;          // [2][BK * D]
-  int* ks_s = reinterpret_cast<int*>(Vs + 2 * BK * D);   // [2][BK]
+  T* Ks = Qs + kBQ * DP;            // [2][BK * DP]
+  T* Vs = Ks + 2 * BK * DP;         // [2][BK * DP]
+  int* ks_s = reinterpret_cast<int*>(Vs + 2 * BK * DP);   // [2][BK]
 
   const int bh = blockIdx.x;
   const int qi = gridDim.y - 1 - blockIdx.y;   // last tile first, as K6
@@ -200,13 +210,13 @@ splash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   last = last * (kUnit / BK);
   auto fetch = [&](int t) {
     const int buf = t & 1;
-    fmma::load_tile_async<T, D, BK, kThreads>(
-        Ks + buf * BK * D, kb + (size_t)t * BK * D, tid);
-    fmma::load_tile_async<T, D, BK, kThreads>(
-        Vs + buf * BK * D, vb + (size_t)t * BK * D, tid);
+    fmma::load_tile_async<T, DP, BK, kThreads, kPad>(
+        Ks + buf * BK * DP, kb + (size_t)t * BK * D, tid, D);
+    fmma::load_tile_async<T, DP, BK, kThreads, kPad>(
+        Vs + buf * BK * DP, vb + (size_t)t * BK * D, tid, D);
     fmma::load_vec_async<kThreads>(ks_s + buf * BK, ksrow + t * BK, BK, tid);
   };
-  fmma::load_tile_async<T, D, kBQ, kThreads>(Qs, q + qoff, tid);
+  fmma::load_tile_async<T, DP, kBQ, kThreads, kPad>(Qs, q + qoff, tid, D);
   fmma::cp_async_commit();
   if (first < last) fetch(first);
   fmma::cp_async_commit();
@@ -218,7 +228,7 @@ splash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if constexpr (kHoldQ) {
 #pragma unroll
     for (int s = 0; s < KS; ++s)
-      fmma::load_a<T, D>(qf[s], Qs, 16 * warp, 16 * s, lane);
+      fmma::load_a<T, DP>(qf[s], Qs, 16 * warp, 16 * s, lane);
   }
 
   // the warp's first query and its id range; this thread's two query rows
@@ -236,9 +246,9 @@ splash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l_r[h] = 0.f;
     rh[h] = thresh ? flash::drop_row(seed, bh, qpos[h]) : 0u;
   }
-  float acc[D / 8][4];
+  float acc[DP / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
@@ -252,8 +262,8 @@ splash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();   // tile t visible
     const int buf = t & 1;
-    const T* Kt = Ks + buf * BK * D;
-    const T* Vt = Vs + buf * BK * D;
+    const T* Kt = Ks + buf * BK * DP;
+    const T* Vt = Vs + buf * BK * DP;
     const int* kst = ks_s + buf * BK;
     const int k0 = t * BK;
 
@@ -265,9 +275,9 @@ splash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if constexpr (kHoldQ) {
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
-        fmma::mma_abt_step<T, D, NT>(s, qf[ks], Kt, 0, 16 * ks, lane);
+        fmma::mma_abt_step<T, DP, NT>(s, qf[ks], Kt, 0, 16 * ks, lane);
     } else {
-      fmma::mma_abt<T, D, NT>(s, Qs, 16 * warp, Kt, 0, lane);
+      fmma::mma_abt<T, DP, NT>(s, Qs, 16 * warp, Kt, 0, lane);
     }
 
     // one segment over the warp's rows and the tile, wholly visible
@@ -282,13 +292,13 @@ splash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       softmax_tile<true, NT>(s, m_r, l_r, alpha, qsg, qpos, rh, kst, k0, t4,
                              causal, scale, thresh, keep_scale);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DP / 8; ++j) {
       acc[j][0] *= alpha[0];
       acc[j][1] *= alpha[0];
       acc[j][2] *= alpha[1];
       acc[j][3] *= alpha[1];
     }
-    fmma::mma_pb<T, D, NT>(acc, s, Vt, 0, lane);
+    fmma::mma_pb<T, DP, NT>(acc, s, Vt, 0, lane);
     __syncthreads();   // this tile's K/V/id reads are done
   }
   fmma::cp_async_wait<0>();   // nothing left in flight (no key tile at all)
@@ -299,13 +309,14 @@ splash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int h = 0; h < 2; ++h) l_safe[h] = l_r[h] > 0.f ? l_r[h] : 1.f;
   const float inv0 = 1.f / l_safe[0], inv1 = 1.f / l_safe[1];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DP / 8; ++j) {
     acc[j][0] *= inv0;
     acc[j][1] *= inv0;
     acc[j][2] *= inv1;
     acc[j][3] *= inv1;
   }
-  fmma::store_rows<T, D>(out + qoff + (size_t)16 * warp * D, acc, 1.f, lane);
+  fmma::store_rows<T, DP, kPad>(out + qoff + (size_t)16 * warp * D, acc,
+                                1.f, lane, D, D);
   if (t4 == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -313,21 +324,21 @@ splash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int DP, bool kPad>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const int* qseg, const int* kseg, const int* lo,
                      const int* hi, void* out, float* lse, int B, int H,
-                     int S, int causal, float scale, uint32_t thresh,
+                     int S, int D, int causal, float scale, uint32_t thresh,
                      float keep_scale, uint32_t seed, cudaStream_t stream) {
-  const int bytes = smem_bytes<T, D>();
+  const int bytes = smem_bytes<T, DP>();
   cudaError_t e = cudaFuncSetAttribute(
-      splash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      splash_fwd_kernel<T, DP, kPad>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   dim3 grid(B * H, S / kBQ), block(kThreads);
-  splash_fwd_kernel<T, D><<<grid, block, bytes, stream>>>(
+  splash_fwd_kernel<T, DP, kPad><<<grid, block, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, qseg, kseg, lo, hi, (T*)out,
-      lse, H, S, causal, scale, thresh, keep_scale, seed);
+      lse, H, S, D, causal, scale, thresh, keep_scale, seed);
   return cudaGetLastError();
 }
 
@@ -337,20 +348,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* hi, void* out, float* lse, int B, int H, int S,
                    int D, int causal, float scale, uint32_t thresh,
                    float keep_scale, uint32_t seed, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch_d<T, 32>(q, k, v, qseg, kseg, lo, hi, out, lse, B, H, S,
-                             causal, scale, thresh, keep_scale, seed, stream);
-    case 64:
-      return launch_d<T, 64>(q, k, v, qseg, kseg, lo, hi, out, lse, B, H, S,
-                             causal, scale, thresh, keep_scale, seed, stream);
-    case 128:
-      return launch_d<T, 128>(q, k, v, qseg, kseg, lo, hi, out, lse, B, H, S,
-                              causal, scale, thresh, keep_scale, seed,
-                              stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return fmma::dispatch_width<T>(D, [&](auto dp, auto pad) {
+    return launch_d<T, decltype(dp)::value, decltype(pad)::value>(
+        q, k, v, qseg, kseg, lo, hi, out, lse, B, H, S, D, causal, scale,
+        thresh, keep_scale, seed, stream);
+  });
 }
 
 }  // namespace
@@ -359,9 +361,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // 2 = float16);
 // qseg/kseg [B,S] int32, non-decreasing per row; kv_lo/kv_hi [B,S/64] int32
 // (the key span of each query tile, in 64-key units); out like q; lse
-// [B*H,S] float32. Self-attention only (Sq == Sk), a multiple of 64; D one
-// of 32, 64, 128; every pointer 16-byte aligned. Dropout: keep where hash
-// >= thresh (thresh 0 = no dropout), kept P scaled by keep_scale.
+// [B*H,S] float32. Self-attention only (Sq == Sk), a multiple of 64;
+// D % 8 == 0, D <= 256; every pointer 16-byte aligned. Dropout: keep where
+// hash >= thresh (thresh 0 = no dropout), kept P scaled by keep_scale.
 extern "C" int splash_attention_forward(void* q, void* k, void* v,
                                         void* qseg, void* kseg, void* kv_lo,
                                         void* kv_hi, void* out, void* lse,

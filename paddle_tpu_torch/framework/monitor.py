@@ -13,6 +13,12 @@ The subset of `paddle_tpu.framework.monitor` the ported slices write:
   launches as the flash counters do, `STAT_splash_dispatches` the
   `F.scaled_dot_product_attention(segment_ids=...)` calls routed to
   splash attention (CPU tensors included);
+- `STAT_attention_wide_head_fallback` (the port's own): flash or splash
+  gate calls refused only because the head dim lies in (256, 512], which
+  the JAX package's kernels take and K2-K7 are not built for;
+- int8 KV pages: `STAT_kv_quant_writes` / `STAT_kv_quant_reads` count
+  calls of `paged_write_quantized` / `paged_gather_quantized` (the JAX
+  package counts traces);
 - packing (`io.PackingCollator`): `STAT_packing_packs`,
   `STAT_packing_sequences`, `STAT_packing_tokens` (real),
   `STAT_packing_slots` (rows * max_tokens), `STAT_packing_fill_ratio_pct`

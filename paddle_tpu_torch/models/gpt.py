@@ -21,7 +21,12 @@ below runs plain torch ops, outside every AMP hook, as the JAX package's
 runs raw jnp outside `apply_op`: AMP never reaches serving.
 
 Decode weights keep PyTorch's `[out, in]` Linear layout and go through
-`F.linear`; the JAX package stores `[in, out]`.
+`F.linear`; the JAX package stores `[in, out]`. A projection that
+`quantization.quantize_weights` replaced by a `WeightOnlyLinear`
+contributes a `(q_int8 [out, in], scale [out])` leaf instead of a float
+weight; `_gen_w` dequantizes it at its point of use, into a temporary of
+the activations' type, so the integer tensor is the only copy that stays
+on the device (the JAX package's `_gen_w`, `models/gpt.py:41-52`).
 """
 from __future__ import annotations
 
@@ -51,6 +56,23 @@ def _gen_ln(x, w, b):
     return (x - m) / torch.sqrt(v + 1e-5) * w + b
 
 
+def _gen_w(w, dtype):
+    """Resolve one decode-weight leaf: a float tensor passes through; a
+    weight-only-quantized leaf `(q_int8 [out, in], scale [out])` (from
+    `decode_weights()` for a `quantization.WeightOnlyLinear`) is
+    dequantized here, `q * scale` in `dtype`, a temporary of this product
+    only."""
+    if isinstance(w, tuple):
+        q, s = w
+        return q.to(dtype) * s.to(dtype)[:, None]
+    return w
+
+
+def _lin(x, w, b):
+    """x W^T + b with W a decode-weight leaf (`_gen_w`)."""
+    return TF.linear(x, _gen_w(w, x.dtype), b)
+
+
 def gpt_logits(W, h):
     """Final LN + tied LM head over hidden states `h` [..., E]."""
     lnfw, lnfb = W["lnf"]
@@ -71,16 +93,16 @@ def _gen_block_pass(W, h, attend, *, num_heads):
 
         def heads(t):
             return t.reshape(B, S, H, -1).transpose(1, 2)
-        q = heads(TF.linear(x, wq, bq))
-        k = heads(TF.linear(x, wk, bk))
-        v = heads(TF.linear(x, wv, bv))
+        q = heads(_lin(x, wq, bq))
+        k = heads(_lin(x, wk, bk))
+        v = heads(_lin(x, wv, bv))
         ks.append(k)
         vs.append(v)
         o = attend(i, q, k, v)
         o = o.transpose(1, 2).reshape(B, S, -1)
-        h = h + TF.linear(o, wo, bo)
+        h = h + _lin(o, wo, bo)
         x2 = _gen_ln(h, l2w, l2b)
-        h = h + TF.linear(TF.gelu(TF.linear(x2, w1, b1)), w2, b2)
+        h = h + _lin(TF.gelu(_lin(x2, w1, b1)), w2, b2)
     return h, torch.stack(ks), torch.stack(vs)
 
 
@@ -155,14 +177,14 @@ def gpt_decode_step(W, tok, pos, cache, write_kv, attend, *, num_heads,
     for i, (l1w, l1b, wq, bq, wk, bk, wv, bv, wo, bo, l2w, l2b,
             w1, b1, w2, b2) in enumerate(W["blocks"]):
         x = _gen_ln(h, l1w, l1b)
-        q = TF.linear(x, wq, bq).reshape(B, H, -1)
-        k = TF.linear(x, wk, bk).reshape(B, H, -1)
-        v = TF.linear(x, wv, bv).reshape(B, H, -1)
+        q = _lin(x, wq, bq).reshape(B, H, -1)
+        k = _lin(x, wk, bk).reshape(B, H, -1)
+        v = _lin(x, wv, bv).reshape(B, H, -1)
         cache = write_kv(cache, i, k, v, pos)
         o = attend(cache, i, q, pos).reshape(B, -1)
-        h = h + TF.linear(o, wo, bo)
+        h = h + _lin(o, wo, bo)
         x2 = _gen_ln(h, l2w, l2b)
-        h = h + TF.linear(TF.gelu(TF.linear(x2, w1, b1)), w2, b2)
+        h = h + _lin(TF.gelu(_lin(x2, w1, b1)), w2, b2)
     return gpt_logits(W, h), cache
 
 
@@ -322,13 +344,18 @@ class GPTForCausalLM(nn.Module):
     def decode_weights(self):
         """The decode-math weight dict shared by `generate()` and
         `serving.GenerationEngine` (detached parameter tensors, Linear
-        weights in PyTorch's [out, in] layout)."""
+        weights in PyTorch's [out, in] layout). A projection replaced by
+        `quantization.WeightOnlyLinear` contributes its
+        `quant_decode_leaf()`, a `(q_int8, scale)` leaf (int4 unpacked
+        once to int8), which `_gen_w` dequantizes at its point of use."""
         gpt = self.gpt
         if gpt.config.use_moe:
             raise NotImplementedError("generate() with MoE blocks")
 
         def lin(m):
-            return m.weight.detach(), m.bias.detach()
+            leaf = getattr(m, "quant_decode_leaf", None)
+            w = leaf() if leaf is not None else m.weight.detach()
+            return w, m.bias.detach()
 
         return {
             "wte": gpt.wte.weight.detach(), "wpe": gpt.wpe.weight.detach(),
@@ -401,12 +428,21 @@ def sample_logits(logits, do_sample, temperature, top_k, generator):
 def load_reference_state(model: nn.Module, arrays) -> None:
     """Copy a `paddle_tpu` state dict, given as {name: np.ndarray}, into
     `model` (any `nn.Module` whose names match the `paddle_tpu` layer's,
-    such as GPTForCausalLM) by parameter name. `paddle_tpu` stores Linear
-    weights [in, out] and PyTorch [out, in], so every `nn.Linear` weight
-    is transposed; embeddings and everything else copy as they are.
-    Raises InvalidArgumentError on a missing, extra or mis-shaped key."""
-    linear = {f"{n}.weight" if n else "weight"
-              for n, m in model.named_modules() if isinstance(m, nn.Linear)}
+    such as GPTForCausalLM) by parameter and buffer name. `paddle_tpu`
+    stores Linear weights [in, out] and PyTorch [out, in], so every
+    `nn.Linear` weight is transposed, and so is the integer weight of a
+    `quantization.WeightOnlyLinear` (int8 [in, out], or int4 packed
+    [in, ceil(out / 2)] along the output axis): the JAX package's integers
+    and scales are carried across as they are, never re-quantized;
+    embeddings and everything else copy as they are. Raises
+    InvalidArgumentError on a missing, extra or mis-shaped key."""
+    def pre(n):
+        return f"{n}." if n else ""
+    linear = {f"{pre(n)}weight" for n, m in model.named_modules()
+              if isinstance(m, nn.Linear)}
+    linear |= {f"{pre(n)}{qname}" for n, m in model.named_modules()
+               if hasattr(m, "quant_weight_spec")
+               for qname, _, _ in m.quant_weight_spec()}
     own = model.state_dict()
     missing = sorted(set(own) - set(arrays))
     extra = sorted(set(arrays) - set(own))

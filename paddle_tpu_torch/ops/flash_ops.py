@@ -26,11 +26,16 @@ Counterpart of `paddle_tpu/ops/pallas_ops.py` (`flash_attention`,
   forward and both backward kernels regenerate the same mask whatever
   their tiles, and `_keep_mask` reproduces it bit for bit. It is not the
   TPU kernel's mask (that one comes from the TPU PRNG, per tile).
-- `flash_supported`: the static shape gate of the JAX package, plus the
-  head dims the kernels are built for.
+- `flash_supported`: the static shape gate of the JAX package (head dims
+  D % 8 == 0 up to 512), cut at the head dims the kernels are built for,
+  every D % 8 == 0 up to 256 (`_head_dim_ok`, `csrc/flash_mma.cuh`
+  "Head dims"). A shape the JAX gate takes only because its head dim lies
+  in (256, 512] runs the plain path, and each such refusal counts in
+  `STAT_attention_wide_head_fallback`.
 - `_pick_blocks`: the JAX package's tile choice, kept for parity; the
-  CUDA kernels use their own tiles of 64 rows (32 or 64 streamed keys or
-  queries in K2–K4, by head dim; see the sources). K2–K4 run on the
+  CUDA kernels use their own tiles of 64 rows (16, 32 or 64 streamed keys
+  or queries in K2–K4, by head dim and type; see the sources). K2–K4 run
+  on the
   tensor cores (fp32 as 3xTF32), so their fp32 results differ from the
   plain versions in the last bits; in bf16 K2 rounds P to bf16 before
   P V, as the TPU kernel does.
@@ -57,7 +62,8 @@ __all__ = ["flash_attention", "FlashAttention", "flash_attention_fwd",
 _BLOCK_MIN = 128        # alignment the gate requires of S_q / S_kv
 _NEG_INF = -1e30
 _KERNEL_TILE = 64       # the CUDA kernels' q and kv tile
-_HEAD_DIMS = (32, 64, 128)
+_MAX_HEAD_DIM = 256     # K2-K7 are built for every D % 8 == 0 up to this
+_REF_MAX_HEAD_DIM = 512  # the JAX package's gate (pallas_ops.py:482)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _M32 = 0xFFFFFFFF
 
@@ -204,14 +210,44 @@ def _flash_bwd_reference(q, k, v, bias, out, lse, dout, causal, scale,
 
 # -- the shape gate ---------------------------------------------------------------
 
+def _head_dim_ok(D):
+    """A head dim K2-K7 are built for: D % 8 == 0, 0 < D <= 256."""
+    return 0 < D <= _MAX_HEAD_DIM and D % 8 == 0
+
+
+def _padded_width(D, is_float):
+    """The width head dim D runs at in K2-K7 (`padded_width` of
+    csrc/flash_mma.cuh): whole 8-chunk swizzle groups a row, a multiple
+    of 64 above 128."""
+    for w in (32, 64) + ((96,) if is_float else ()) + (128, 192, 256):
+        if D <= w:
+            return w
+    raise ValueError(f"head dim {D} exceeds {_MAX_HEAD_DIM}")
+
+
+def _gate_head_dim(D):
+    """The head-dim part of the flash and splash gates: the JAX package's
+    rule (D % 8 == 0, D <= 512) cut at the kernels' 256. A head dim of
+    (256, 512], which the JAX package's kernels take, is refused and
+    counted in STAT_attention_wide_head_fallback, so the plain path it
+    falls to is visible."""
+    if D % 8 != 0 or D > _REF_MAX_HEAD_DIM:
+        return False
+    if D > _MAX_HEAD_DIM:
+        monitor.stat_add("STAT_attention_wide_head_fallback")
+        return False
+    return True
+
+
 def flash_supported(q_shape, k_shape=None, v_shape=None, mask=None,
                     is_causal=False, min_seq=None, dtype=None):
     """Static gate: shapes the kernels handle. The JAX package's rules
     (4-D, matching B/H/D, causal only with Sq == Sk, sequence lengths
-    multiples of 128, Sq >= FLAGS_flash_attention_min_seq, a [B,1,1,Sk]
-    key-padding mask at most) plus these kernels' head dims (32/64/128)
-    and, when `dtype` is given (a torch dtype, or the set of q's, k's and
-    v's), the types `_check` takes: one of float32, bfloat16, float16."""
+    multiples of 128, D % 8 == 0, Sq >= FLAGS_flash_attention_min_seq, a
+    [B,1,1,Sk] key-padding mask at most), with head dims cut at the
+    kernels' 256 (`_gate_head_dim`), and, when `dtype` is given (a torch
+    dtype, or the set of q's, k's and v's), the types `_check` takes: one
+    of float32, bfloat16, float16."""
     if dtype is not None:
         types = dtype if isinstance(dtype, (set, frozenset)) else {dtype}
         if len(types) != 1 or next(iter(types)) not in _DTYPES:
@@ -228,7 +264,7 @@ def flash_supported(q_shape, k_shape=None, v_shape=None, mask=None,
         return False
     if is_causal and Sk != Sq:
         return False
-    if Sq % _BLOCK_MIN != 0 or Sk % _BLOCK_MIN != 0 or D not in _HEAD_DIMS:
+    if Sq % _BLOCK_MIN != 0 or Sk % _BLOCK_MIN != 0:
         return False
     if min_seq is None:
         min_seq = flag("FLAGS_flash_attention_min_seq")
@@ -239,7 +275,7 @@ def flash_supported(q_shape, k_shape=None, v_shape=None, mask=None,
         if ms is None or len(ms) != 4 or ms[1] != 1 or ms[2] != 1 \
                 or ms[0] != B or ms[3] != Sk:
             return False
-    return True
+    return _gate_head_dim(D)
 
 
 # -- the kernels ---------------------------------------------------------------------
@@ -282,8 +318,9 @@ def _launch(src, tensors, q, k, causal, scale, dropout_p, seed,
 def _check(q, k, v, bias, dtypes=_DTYPES, **rest):
     """What the kernels take: q/k/v (and the other [B,H,S,D] operands) of
     one type among `dtypes` (the flash kernels' float32, bfloat16 and
-    float16 by default), head_dim 32/64/128, sequence lengths multiples
-    of 64, float32 [B, Sk] bias and [B*H, Sq] statistics, everything
+    float16 by default), a head dim D % 8 == 0 up to 256, sequence
+    lengths multiples of 64, float32 [B, Sk] bias and [B*H, Sq]
+    statistics, everything
     contiguous on q's device."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
@@ -292,12 +329,12 @@ def _check(q, k, v, bias, dtypes=_DTYPES, **rest):
         raise InvalidArgumentError(
             f"these kernels take q/k/v of one type among {names}, got "
             f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if D not in _HEAD_DIMS or Sq % _KERNEL_TILE or Sk % _KERNEL_TILE \
+    if not _head_dim_ok(D) or Sq % _KERNEL_TILE or Sk % _KERNEL_TILE \
             or tuple(k.shape) != (B, H, Sk, D) or k.shape != v.shape:
         raise InvalidArgumentError(
             f"flash kernels: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-            f"{tuple(v.shape)} (head_dim in {_HEAD_DIMS}, sequence lengths "
-            f"multiples of {_KERNEL_TILE})")
+            f"{tuple(v.shape)} (head_dim D % 8 == 0, D <= {_MAX_HEAD_DIM}, "
+            f"sequence lengths multiples of {_KERNEL_TILE})")
     if bias is not None and (tuple(bias.shape) != (B, Sk)
                              or bias.dtype != torch.float32):
         raise InvalidArgumentError(

@@ -28,9 +28,27 @@ multi-position queries over cached pages plus their own in-flight K/V:
 `paged_gather_layers` + `paged_prefix_attention`. The JAX package
 computes these with plain jnp outside any Pallas kernel, and so they are
 plain PyTorch here, on the card too.
+
+**int8 pages** (`kv_cache_dtype="int8"`): the pools store int8 with a
+per-(layer, head, page) float32 scale pool (symmetric abs-max; dequant =
+q * scale). `paged_write_quantized` quantizes on append: a decode append
+whose abs-max exceeds its page's scale requantizes the page's content
+onto the wider grid (round(q * old / new)); a prefill builds each target
+page's scale by a duplicate-safe scatter-max over every token landing in
+it, then quantizes every token against its page's final scale (and with
+`requant=True`, for pages that arrive with content, first requantizes
+that content). Reads dequantize on gather (`paged_gather_quantized`,
+`paged_gather_layers(scales=...)`), materializing only this batch's
+pages in float. `paged_attention` with `k_scales`/`v_scales` takes that
+dequantizing gather + `cached_attention` and launches no K1, exactly as
+the JAX package never hands int8 pools to its Pallas kernel
+(`paddle_tpu/ops/paged_ops.py:232-238`). Scale 0 marks an empty page
+(zero-on-free resets both pools). `STAT_kv_quant_writes` /
+`STAT_kv_quant_reads` count the calls.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -41,11 +59,12 @@ from ..framework.flags import flag
 from . import _build
 
 __all__ = ["cached_attention", "paged_attention", "paged_attention_plain",
-           "paged_gather", "paged_gather_layers", "paged_prefix_attention",
-           "paged_write", "page_rows_for_positions"]
+           "paged_gather", "paged_gather_layers", "paged_gather_quantized",
+           "paged_prefix_attention", "paged_write", "paged_write_quantized",
+           "page_rows_for_positions"]
 
 _NEG = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_HEAD_DIM = 256    # K1 is built for every multiple of 8 up to this
 
 
@@ -62,8 +81,10 @@ def cached_attention(q, kb, vb, pos, scale):
         allowed = t[None, None, :] <= pos.to(kb.device)[:, None, None]
     else:
         allowed = (t <= int(pos))[None, None, :]
-    s = torch.where(allowed, s, torch.full((), _NEG, dtype=s.dtype,
-                                           device=s.device))
+    # -1e30 in s's type by conversion: -inf in float16, as the JAX
+    # package's jnp.where(..., s, -1e30) gives
+    s = torch.where(allowed, s, torch.full((), _NEG, device=s.device)
+                    .to(s.dtype))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bht,bhtd->bhd", p, vb)
 
@@ -79,14 +100,21 @@ def paged_gather(pages, page_table):
     return kb.movedim(1, 0).reshape(B, H, PP * P, D)
 
 
-def paged_gather_layers(pages, page_table):
+def paged_gather_layers(pages, page_table, scales=None,
+                        dtype=torch.float32):
     """ONE sequence's page-table row as a dense view across ALL layers at
-    once: pages [L, H, N, P, D] + page_table [PP] -> [L, H, PP*P, D].
-    One gather of this row's pages instead of a per-layer slice of the
-    pool."""
+    once: pages [L, H, N, P, D] + page_table [PP] -> [L, H, PP*P, D]
+    (dequantized to `dtype` through the per-page `scales` [L, H, N] of
+    the int8 mode). One gather of this row's pages instead of a per-layer
+    slice of the pool."""
     L, H, _, P, D = pages.shape
     PP = page_table.shape[0]
-    kb = pages[:, :, page_table.long()]         # [L, H, PP, P, D]
+    idx = page_table.long()
+    kb = pages[:, :, idx]                       # [L, H, PP, P, D]
+    if scales is not None:
+        monitor.stat_add("STAT_kv_quant_reads")
+        sc = scales[:, :, idx]                  # [L, H, PP]
+        kb = kb.to(dtype) * sc[..., None, None].to(dtype)
     return kb.reshape(L, H, PP * P, D)
 
 
@@ -107,7 +135,7 @@ def paged_prefix_attention(q, kb, vb, k_tail, v_tail, prefix_len, scale):
     monitor.stat_add("STAT_paged_attn_reference")
     T = kb.shape[2]
     S = q.shape[2]
-    neg = torch.full((), _NEG, dtype=q.dtype, device=q.device)
+    neg = torch.full((), _NEG, device=q.device).to(q.dtype)  # fp16: -inf
     sp = torch.einsum("bhsd,bhtd->bhst", q, kb) * scale
     t = torch.arange(T, device=q.device)
     if torch.is_tensor(prefix_len) and prefix_len.dim():
@@ -161,6 +189,99 @@ def paged_write(pages, layer, page_ids, offsets, values):
     return pages
 
 
+# -- int8 pages ---------------------------------------------------------------
+
+def _q8(v, s):
+    """Symmetric int8 quantization of `v` against per-slice scales `s`
+    (broadcastable); s == 0 (an empty or all-zero slice) maps to 0."""
+    pos = s > 0
+    q = torch.where(pos, v / torch.where(pos, s, torch.ones_like(s)),
+                    torch.zeros_like(v))
+    return torch.clamp(torch.round(q), -127, 127).to(torch.int8)
+
+
+def _per127(a):
+    """a / 127 as a tensor division (a Python divisor may run as a
+    multiplication by its reciprocal, which rounds otherwise)."""
+    return a / torch.full_like(a, 127.0)
+
+
+def _ratio(s_old, s_new):
+    """old / new grid ratio of a requantization; 1 where the new scale
+    is 0 (an empty page)."""
+    pos = s_new > 0
+    return torch.where(pos, s_old / torch.where(pos, s_new,
+                                                torch.ones_like(s_new)),
+                       torch.ones_like(s_new))
+
+
+def paged_gather_quantized(pages, scales, page_table, dtype=torch.float32):
+    """Dequantizing gather: int8 pages [H, N, P, D] + scales [H, N] ->
+    dense `dtype` [B, H, PP*P, D] (only THIS batch's pages are ever
+    materialized in float; the pools stay int8 on the device)."""
+    monitor.stat_add("STAT_kv_quant_reads")
+    H, _, P, D = pages.shape
+    B, PP = page_table.shape
+    idx = page_table.long()
+    kb = pages[:, idx]                          # [H, B, PP, P, D]
+    sc = scales[:, idx]                         # [H, B, PP]
+    kb = kb.to(dtype) * sc[..., None, None].to(dtype)
+    return kb.movedim(1, 0).reshape(B, H, PP * P, D)
+
+
+def paged_write_quantized(pages, scales, layer, page_ids, offsets, values,
+                          requant=False):
+    """Quantize-on-append into int8 pools, IN PLACE; returns (pages,
+    scales).
+
+    Decode (`layer` an int): page_ids/offsets [B], values [B, H, D]. Each
+    row's page grows its scale to cover the new token, requantizing its
+    content onto the wider grid when it does, and the token is written
+    quantized. Duplicate page ids (inactive slots parked on the scratch
+    page) keep one of the writes: scratch content is masked junk.
+
+    Prefill (`layer=None`): page_ids/offsets [S], values [L, H, S, D]. A
+    scatter-max (duplicate-safe) builds each target page's scale over every
+    token landing in it, then every token quantizes against its page's
+    final scale. Target pages are assumed freshly zeroed (scale 0, what
+    zero-on-free guarantees for an alloc) unless `requant=True`: the tail
+    program, a verify commit or a chunk writes onto pages that hold
+    content and a non-zero scale, and their content is first requantized
+    onto the (possibly widened) grid. Duplicate page ids compute identical
+    requantized pages, so their writes agree."""
+    monitor.stat_add("STAT_kv_quant_writes")
+    page_ids, offsets = page_ids.long(), offsets.long()
+    fdt = values.dtype
+    # mixed float operands promote as jnp's do (bf16 x fp32 -> fp32)
+    if layer is None:
+        L, H, S = values.shape[:3]
+        a = _per127(values.abs().amax(-1))                   # [L, H, S]
+        s_old = scales[:, :, page_ids]                       # [L, H, S]
+        scales.scatter_reduce_(2, page_ids.expand(L, H, S),
+                               a.to(scales.dtype), "amax",
+                               include_self=True)
+        s_tok = scales[:, :, page_ids]                       # [L, H, S]
+        if requant:
+            pk = pages[:, :, page_ids]                       # [L,H,S,P,D]
+            ratio = _ratio(s_old, s_tok)
+            pages[:, :, page_ids] = torch.round(
+                pk.to(fdt) * ratio[..., None, None]).to(torch.int8)
+        pages[:, :, page_ids, offsets, :] = _q8(values, s_tok[..., None])
+        return pages, scales
+    B = page_ids.shape[0]
+    a = _per127(values.abs().amax(-1))                       # [B, H]
+    s_old = scales[layer][:, page_ids]                       # [H, B]
+    s_new = torch.maximum(s_old, a.t().to(s_old.dtype))      # [H, B]
+    pk = pages[layer][:, page_ids]                           # [H, B, P, D]
+    ratio = _ratio(s_old, s_new)
+    pk = torch.round(pk.to(fdt) * ratio[..., None, None]).to(torch.int8)
+    q = _q8(values, s_new.t()[..., None])                    # [B, H, D]
+    pk[:, torch.arange(B, device=pk.device), offsets, :] = q.movedim(0, 1)
+    pages[layer][:, page_ids] = pk
+    scales[layer][:, page_ids] = s_new
+    return pages, scales
+
+
 def paged_attention_plain(q, k_pages, v_pages, page_table, pos, scale):
     """The plain PyTorch version of kernel K1: dense gather + masked
     softmax (`paged_gather` + `cached_attention`)."""
@@ -181,17 +302,18 @@ def _pages_per_split(page_size):
 
 def _check_kernel_args(q, k_pages, v_pages, page_table, pos):
     """What K1 takes, checked without building or launching anything:
-    float32 or bfloat16 q [B, H, D] and pools [H, N, P, D] of one type,
-    a head dim D with D % 8 == 0 and D <= 256, int32 page_table [B, PP]
-    and pos [B], everything contiguous on q's device. Raises
+    float32, bfloat16 or float16 q [B, H, D] and pools [H, N, P, D] of one
+    type, a head dim D with D % 8 == 0 and D <= 256, int32 page_table
+    [B, PP] and pos [B], everything contiguous on q's device. Raises
     InvalidArgumentError on anything else."""
     H, N, P, D = k_pages.shape
     B, PP = page_table.shape
     if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
         raise InvalidArgumentError(
-            f"paged_attention kernel takes float32 or bfloat16 q and pools "
-            f"of one type, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+            f"paged_attention kernel takes float32, bfloat16 or float16 q "
+            f"and pools of one type, got {q.dtype}/{k_pages.dtype}/"
+            f"{v_pages.dtype}")
     if not (0 < D <= _MAX_HEAD_DIM and D % 8 == 0):
         raise InvalidArgumentError(
             f"paged_attention kernel: head_dim {D} is not served; K1 takes "
@@ -242,19 +364,31 @@ def _launch_paged_kernel(q, k_pages, v_pages, page_table, pos, scale):
         raise RuntimeError(
             f"paged_attention kernel launch failed: {es(err).decode()}")
     paged_attention.launches += 1
+    paged_attention.launches_by_dtype[
+        str(q.dtype).replace("torch.", "")] += 1
     return out
 
 
-def paged_attention(q, k_pages, v_pages, page_table, pos, scale):
+def paged_attention(q, k_pages, v_pages, page_table, pos, scale,
+                    k_scales=None, v_scales=None):
     """One decode position of attention over a paged KV cache.
 
     q [B, H, D]; k_pages/v_pages [H, N, P, D] (ONE layer's pool);
     page_table [B, PP] int32; pos [B] int32 (last valid position, the
     token just written). Returns [B, H, D].
 
-    A CUDA `q` launches kernel K1 (or raises); a CPU `q` — or
+    int8 pools pass k_scales/v_scales ([H, N] per-page scales): they take
+    the dequantizing gather + `cached_attention` on every device, and K1
+    is not launched (the JAX package hands int8 pools to no kernel).
+    Otherwise a CUDA `q` launches kernel K1 (or raises); a CPU `q` — or
     FLAGS_use_paged_attention off — runs `paged_attention_plain`.
-    `paged_attention.launches` counts kernel launches."""
+    `paged_attention.launches` counts kernel launches, and
+    `.launches_by_dtype` counts them by q's type ("float16")."""
+    if k_scales is not None:
+        monitor.stat_add("STAT_paged_attn_reference")
+        kb = paged_gather_quantized(k_pages, k_scales, page_table, q.dtype)
+        vb = paged_gather_quantized(v_pages, v_scales, page_table, q.dtype)
+        return cached_attention(q, kb, vb, pos, scale)
     if q.is_cuda and flag("FLAGS_use_paged_attention"):
         monitor.stat_add("STAT_paged_attn_kernel")
         return _launch_paged_kernel(q, k_pages, v_pages, page_table, pos,
@@ -264,3 +398,4 @@ def paged_attention(q, k_pages, v_pages, page_table, pos, scale):
 
 
 paged_attention.launches = 0
+paged_attention.launches_by_dtype = collections.Counter()

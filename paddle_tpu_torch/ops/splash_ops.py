@@ -48,15 +48,15 @@ from .. import amp
 from ..framework import monitor
 from ..framework.errors import InvalidArgumentError
 from ..framework.flags import flag
-from .flash_ops import (_BLOCK_MIN, _HEAD_DIMS, _KERNEL_TILE, _NEG_INF,
-                        _check, _count, _delta, _dropout_seed, _keep_mask,
-                        _launch)
+from .flash_ops import (_BLOCK_MIN, _KERNEL_TILE, _NEG_INF, _check, _count,
+                        _delta, _dropout_seed, _gate_head_dim, _keep_mask,
+                        _launch, _padded_width)
 
 __all__ = ["splash_attention", "SplashAttention", "splash_attention_fwd",
            "splash_attention_dq", "splash_attention_dkv", "splash_supported",
            "sdpa_segment_reference", "_splash_fwd_reference",
            "_splash_dq_reference", "_splash_dkv_reference", "_block_bounds",
-           "_subtile_mask", "_uniform_tiles"]
+           "_subtile_mask", "_uniform_tiles", "_k5_key_tile"]
 
 
 def _allowed(q_seg, kv_seg, causal):
@@ -173,13 +173,22 @@ def _subtile_mask(q_seg, kv_seg, causal, transposed=False):
     return visited, visited & live
 
 
+def _k5_key_tile(D, dtype):
+    """K5's key tile at head dim D in `dtype` (`kKeyTile` of
+    csrc/splash_fwd.cu at the padded width): 64 up to width 64, then 32,
+    and 16 in float32 above width 128."""
+    f32 = dtype == torch.float32
+    w = _padded_width(D, f32)
+    return 64 if w <= 64 else 16 if (f32 and w > 128) else 32
+
+
 def _uniform_tiles(q_seg, kv_seg, causal, key_tile):
     """The (16-row warp band, key tile) pairs of K5's loop that take its
     mask-free path: the softmax step with no per-element segment test.
 
     Returns bool tensors (visited, uniform), each [B, S/16, S/key_tile]:
     rows are a warp's 16 queries, columns K5's key tiles of `key_tile`
-    keys (64, or 32 at head dim 128). `visited`: the tile lies in the
+    keys (`_k5_key_tile`). `visited`: the tile lies in the
     span (`_block_bounds` at 64) of the band's 64-query tile. `uniform`:
     visited, and the band's first and last query ids and the tile's first
     and last key ids are one value (the ids are non-decreasing, so the
@@ -276,8 +285,10 @@ def splash_supported(q_shape, k_shape=None, v_shape=None, is_causal=False,
                      min_seq=None):
     """Static gate (`splash_ops.py:472`): strict self-attention (k and v
     shaped like q: packed rows), sequence length a multiple of 128 and at
-    least FLAGS_splash_attention_min_seq, and a head dim the kernels are
-    built for (32/64/128)."""
+    least FLAGS_splash_attention_min_seq, and a head dim D % 8 == 0 cut at
+    the kernels' 256 (`flash_ops._gate_head_dim`: a D of (256, 512], which
+    the JAX package takes, is refused and counted in
+    STAT_attention_wide_head_fallback)."""
     if len(q_shape) != 4:
         return False
     B, H, Sq, D = q_shape
@@ -285,11 +296,11 @@ def splash_supported(q_shape, k_shape=None, v_shape=None, is_causal=False,
     v_shape = tuple(v_shape) if v_shape is not None else k_shape
     if k_shape != v_shape or k_shape != (B, H, Sq, D):
         return False
-    if Sq % _BLOCK_MIN != 0 or D not in _HEAD_DIMS:
+    if Sq % _BLOCK_MIN != 0:
         return False
     if min_seq is None:
         min_seq = flag("FLAGS_splash_attention_min_seq")
-    return Sq >= min_seq
+    return Sq >= min_seq and _gate_head_dim(D)
 
 
 def _check_monotonic(seg):

@@ -1,4 +1,6 @@
-"""Generative serving: continuous batching over a paged KV cache."""
+"""Generative serving: continuous batching over a paged KV cache (float
+or int8 pages; a `quantization.quantize_weights`'d model serves as any
+other)."""
 from .generation import (EngineOverloaded, GenerationConfig,  # noqa: F401
                          GenerationEngine, TokenStream)
 from .kv_cache import TRASH_PAGE, PagedKVCache  # noqa: F401

@@ -45,10 +45,22 @@ queued and before every decode step, poison isolation through a
 per-slot non-finite-logit flag (pages zeroed before reuse), shutdown
 drain, and `health()`.
 
+**int8 KV pages** (`kv_cache_dtype="int8"`, FLAGS_kv_cache_dtype): the
+pools store int8 pages beside per-(layer, head, page) scale pools; every
+program quantizes on append (`paged_write_quantized`: decode appends grow
+and requantize their page, prefills scatter-max their pages' scales, the
+tail, chunk and verify writes requantize pages that hold content) and
+dequantizes on read (the decode attention takes the dequantizing gather
+and launches no K1, as the JAX engine's does); `cow_copy` clones the
+scale row, and zero-on-free resets freed pages' scales to 0. About 4x the
+sequences a pool byte. A `quantization.quantize_weights`'d model
+composes independently: its decode-weight leaves are (int8, scale) pairs
+dequantized at their point of use.
+
 Not ported yet, each raising `InvalidArgumentError` when asked for: the
-host KV tier, the program store, tensor-parallel lanes and int8 pages.
-The step log, audit ring, SLO tracking, exporter, failpoints and
-supervisor hooks come with later slices too.
+host KV tier, the program store and tensor-parallel lanes. The step log,
+audit ring, SLO tracking, exporter, failpoints and supervisor hooks come
+with later slices too.
 """
 from __future__ import annotations
 
@@ -75,7 +87,8 @@ from ..models.gpt import (GPTForCausalLM, gpt_decode_step, gpt_logits,
                           sample_logits)
 from ..ops.paged_ops import (page_rows_for_positions, paged_attention,
                              paged_gather, paged_gather_layers,
-                             paged_prefix_attention, paged_write)
+                             paged_gather_quantized, paged_prefix_attention,
+                             paged_write, paged_write_quantized)
 from .kv_cache import TRASH_PAGE, PagedKVCache
 from .prefix_cache import PrefixCache
 from .spec_decode import NGramProposer
@@ -103,8 +116,8 @@ def _not_ported(knob: str):
 class GenerationConfig:
     """Continuous-batching knobs; defaults ride the FLAGS_gen_* /
     FLAGS_paged_* registry. The JAX engine's knobs that are not ported
-    yet (kv_tier, program_store, tp, int8 pages) are accepted only in
-    their off state and raise otherwise."""
+    yet (kv_tier, program_store, tp) are accepted only in their off state
+    and raise otherwise."""
 
     def __init__(self, max_slots: Optional[int] = None,
                  page_size: Optional[int] = None,
@@ -158,11 +171,10 @@ class GenerationConfig:
         self.kv_cache_dtype = str(flag("FLAGS_kv_cache_dtype")
                                   if kv_cache_dtype is None
                                   else kv_cache_dtype)
-        if self.kv_cache_dtype == "int8":
-            raise _not_ported("kv_cache_dtype='int8'")
-        if self.kv_cache_dtype not in ("auto", "float32", "bfloat16"):
+        if self.kv_cache_dtype not in ("auto", "int8", "float32",
+                                       "bfloat16"):
             raise InvalidArgumentError(
-                f"kv_cache_dtype must be auto/float32/bfloat16, got "
+                f"kv_cache_dtype must be auto/int8/float32/bfloat16, got "
                 f"{self.kv_cache_dtype!r}")
         self.prefix_cache = bool(flag("FLAGS_gen_prefix_cache")
                                  if prefix_cache is None else prefix_cache)
@@ -326,6 +338,7 @@ class GenerationEngine:
                   self._cfg.pages_per_seq * self._cfg.page_size)
         self._cfg.prefill_buckets = tuple(sorted(
             {min(int(b), cap) for b in self._cfg.prefill_buckets}))
+        # "auto" pools take the weights' type (float16 too, ROADMAP C10)
         wdt = str(self._W["wte"].dtype).replace("torch.", "")
         kv_dtype = (wdt if self._cfg.kv_cache_dtype == "auto"
                     else self._cfg.kv_cache_dtype)
@@ -333,6 +346,10 @@ class GenerationEngine:
             mcfg.num_layers, self._H, self._D, self._cfg.page_size,
             self._cfg.num_pages, self._cfg.pages_per_seq, dtype=kv_dtype,
             device=dev)
+        # int8 page mode: the programs write and read the scale pools
+        # beside the pages; everything above the pools (admission, page
+        # tables, zero-on-free, the ledger) is type-blind
+        self._quant_kv = self._cache.quantized
         self._gen = torch.Generator(device=dev).manual_seed(self._cfg.seed)
         # prefix cache: content-hash chain index over the refcounted
         # pages; None keeps single-owner pages (refcount 1, none shared)
@@ -391,6 +408,32 @@ class GenerationEngine:
     def _t(self, a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=self._device)
 
+    def _write_pages(self, layer, page_ids, offs, k, v, requant=False):
+        """Write K/V into the pools in place: quantized on append in the
+        int8 mode (`requant=True` where the target pages may hold content:
+        the tail, chunk and verify writes), else cast to the pools' type."""
+        c = self._cache
+        if self._quant_kv:
+            paged_write_quantized(c.k_pages, c.k_scales, layer, page_ids,
+                                  offs, k, requant=requant)
+            paged_write_quantized(c.v_pages, c.v_scales, layer, page_ids,
+                                  offs, v, requant=requant)
+        else:
+            paged_write(c.k_pages, layer, page_ids, offs, k)
+            paged_write(c.v_pages, layer, page_ids, offs, v)
+
+    def _gather_layer(self, layer, pt, dtype):
+        """One layer's K and V of the page-table rows `pt` [B, PP] as dense
+        `dtype` views [B, H, PP*P, D] (dequantized in the int8 mode)."""
+        c = self._cache
+        if self._quant_kv:
+            return (paged_gather_quantized(c.k_pages[layer],
+                                           c.k_scales[layer], pt, dtype),
+                    paged_gather_quantized(c.v_pages[layer],
+                                           c.v_scales[layer], pt, dtype))
+        return (paged_gather(c.k_pages[layer], pt).to(dtype),
+                paged_gather(c.v_pages[layer], pt).to(dtype))
+
     def _prefill_call(self, pt_row, ids, length):
         """Bucketed prefill of one prompt: writes its K/V pages (pad
         positions go to the scratch page) and returns the last real
@@ -402,11 +445,13 @@ class GenerationEngine:
         pos = torch.arange(S_b, device=self._device)
         page_ids, offs = page_rows_for_positions(
             self._t(pt_row), pos, self._cfg.page_size)
+        # bucket-pad positions write to the scratch page, never the
+        # sequence's own pages: in the int8 mode the scatter-max scales
+        # must not take pad tokens' magnitudes into a real page's grid
         valid = pos < length
         page_ids = torch.where(valid, page_ids, TRASH_PAGE)
         offs = torch.where(valid, offs, 0)
-        paged_write(self._cache.k_pages, None, page_ids, offs, ks[:, 0])
-        paged_write(self._cache.v_pages, None, page_ids, offs, vs[:, 0])
+        self._write_pages(None, page_ids, offs, ks[:, 0], vs[:, 0])
         idx = min(max(int(length) - 1, 0), S_b - 1)
         return gpt_logits(self._W, h[0, idx])
 
@@ -428,9 +473,11 @@ class GenerationEngine:
         # page below
         positions = torch.where(valid, offset + ar, 0)
         pt_t = self._t(pt_row)
-        # this row's pages, gathered once across all layers
-        kb_all = paged_gather_layers(self._cache.k_pages, pt_t)
-        vb_all = paged_gather_layers(self._cache.v_pages, pt_t)
+        # this row's pages, gathered once across all layers (dequantized
+        # in the int8 mode)
+        c = self._cache
+        kb_all = paged_gather_layers(c.k_pages, pt_t, c.k_scales)
+        vb_all = paged_gather_layers(c.v_pages, pt_t, c.v_scales)
 
         def ctx_attend(layer, q, k, v):
             return paged_prefix_attention(
@@ -443,16 +490,27 @@ class GenerationEngine:
         page_ids, offs = page_rows_for_positions(pt_t, positions, P)
         page_ids = torch.where(valid, page_ids, TRASH_PAGE)
         offs = torch.where(valid, offs, 0)
-        paged_write(self._cache.k_pages, None, page_ids, offs, ks[:, 0])
-        paged_write(self._cache.v_pages, None, page_ids, offs, vs[:, 0])
+        # requant: a CoW split page (or a chunk's partial page) arrives
+        # with content and, in the int8 mode, a non-zero scale
+        self._write_pages(None, page_ids, offs, ks[:, 0], vs[:, 0],
+                          requant=True)
         idx = min(max(int(length) - 1, 0), S_b - 1)
         return gpt_logits(self._W, h[0, idx])
 
+    def _pools(self):
+        """The device pools: K and V pages, and the scale pools in the
+        int8 mode."""
+        c = self._cache
+        return ((c.k_pages, c.v_pages, c.k_scales, c.v_scales)
+                if self._quant_kv else (c.k_pages, c.v_pages))
+
     def _cow_copy(self, src: int, dst: int):
         """Copy-on-write split on the device: clone one page's content
-        across every layer and head from `src` to `dst`, in place."""
+        across every layer and head from `src` to `dst`, in place, with
+        its scale rows in the int8 mode, so the private copy dequantizes
+        as the shared original does."""
         self._note("cow_copy")
-        for pool in (self._cache.k_pages, self._cache.v_pages):
+        for pool in self._pools():
             pool[:, :, dst] = pool[:, :, src]
 
     def _sample(self, logits, temps, smask):
@@ -473,19 +531,21 @@ class GenerationEngine:
         device-to-host copy."""
         M = toks.shape[0]
         self._note(f"decode[m={M}]")
-        kp, vp = self._cache.k_pages, self._cache.v_pages
+        c = self._cache
         P, scale = self._cfg.page_size, self._scale
         pt_t = self._t(pt)
         pos_t = self._t(pos)
 
         def write_kv(cache, layer, k, v, p):
             page_ids, offs = page_rows_for_positions(pt_t, p, P)
-            paged_write(kp, layer, page_ids, offs, k)
-            paged_write(vp, layer, page_ids, offs, v)
+            self._write_pages(layer, page_ids, offs, k, v)
             return cache
 
         def attend(cache, layer, q, p):
-            return paged_attention(q, kp[layer], vp[layer], pt_t, p, scale)
+            scales = ((c.k_scales[layer], c.v_scales[layer])
+                      if self._quant_kv else ())
+            return paged_attention(q, c.k_pages[layer], c.v_pages[layer],
+                                   pt_t, p, scale, *scales)
 
         logits, _ = gpt_decode_step(
             self._W, self._t(toks, torch.long), pos_t, None, write_kv,
@@ -512,7 +572,6 @@ class GenerationEngine:
         (accepted drafts [M], next token [M], non-finite flag [M])."""
         M, K1 = toks_blk.shape
         self._note(f"verify[k={K1 - 1}]")
-        kp, vp = self._cache.k_pages, self._cache.v_pages
         P, scale = self._cfg.page_size, self._scale
         pt_t = self._t(pt)
         pos0_t = self._t(pos0)
@@ -525,8 +584,7 @@ class GenerationEngine:
                      ).clamp(0, self._max_position - 1)
 
         def ctx_attend(layer, q, k, v):
-            kb = paged_gather(kp[layer], pt_t).to(q.dtype)
-            vb = paged_gather(vp[layer], pt_t).to(q.dtype)
+            kb, vb = self._gather_layer(layer, pt_t, q.dtype)
             return paged_prefix_attention(q, kb, vb, k, v, pos0_t, scale)
 
         h, ks, vs = gpt_spec_verify(self._W, toks_t, positions, ctx_attend,
@@ -554,11 +612,12 @@ class GenerationEngine:
         offs = torch.where(commit, offs, 0).reshape(-1)
         L, _, H, _, D = ks.shape
         # [L, M, H, K1, D] -> [L, H, M*K1, D]: the prefill-shaped
-        # all-layers write (index m*K1 + j, as page_ids)
-        paged_write(kp, None, page_ids, offs,
-                    ks.transpose(1, 2).reshape(L, H, M * K1, D))
-        paged_write(vp, None, page_ids, offs,
-                    vs.transpose(1, 2).reshape(L, H, M * K1, D))
+        # all-layers write (index m*K1 + j, as page_ids); requant: commits
+        # land on each slot's current partial page, which holds content
+        self._write_pages(None, page_ids, offs,
+                          ks.transpose(1, 2).reshape(L, H, M * K1, D),
+                          vs.transpose(1, 2).reshape(L, H, M * K1, D),
+                          requant=True)
         out = torch.stack([n_acc, nxt, bad.long()]).cpu().numpy()
         return out[0], out[1], out[2].astype(bool)
 
@@ -566,13 +625,15 @@ class GenerationEngine:
         """Zero freed pages on device, in rows of the fixed zeroing width
         (one sequence's free fits one row; a prefix-cache eviction can
         return more pages at once). The trash-padded row also scrubs the
-        scratch page."""
+        scratch page. The int8 mode resets the pages' scales to 0 too, so
+        the next owner starts from a clean grid and a poisoned page's
+        scale cannot outlive its content."""
         PP = self._cfg.pages_per_seq
         for i in range(0, max(len(pages), 1), PP):
             row = self._t(self._cache.zero_rows(pages[i:i + PP]),
                           torch.long)
-            self._cache.k_pages[:, :, row] = 0
-            self._cache.v_pages[:, :, row] = 0
+            for pool in self._pools():
+                pool[:, :, row] = 0
 
     @torch.inference_mode()
     def _warmup(self):

@@ -1,7 +1,7 @@
 """Paged KV cache: block allocator + preallocated per-layer K/V pools.
 
 Port of `paddle_tpu.serving.kv_cache.PagedKVCache` with its refcount
-layer (the prefix cache's substrate); the tp mesh, the int8 scale pools
+layer (the prefix cache's substrate) and its int8 page mode; the tp mesh
 and the host tier's page sizing come with later slices.
 
 - Pools `[L, H, num_pages, page_size, D]` live on the device; the
@@ -26,6 +26,16 @@ and the host tier's page sizing come with later slices.
   Pages held only by the index (refcount 1, cache-held) are *evictable*:
   `can_admit`/`headroom` count them as reclaimable, and the engine
   evicts them (LRU, through the prefix index) before allocating.
+- **Pool types**: float32, bfloat16 and float16 pools hold K/V as they
+  are (the decode kernel K1 reads all three). **int8 page mode**
+  (`dtype="int8"`): the pools store int8 with parallel per-(layer, head,
+  page) float32 scale pools (`k_scales`/`v_scales` [L, H, N]);
+  `ops.paged_ops.paged_write_quantized` quantizes on append and the
+  attention path dequantizes on gather. One page costs about 4x fewer
+  device bytes than float32 (`page_hbm_bytes`/`pages_for_budget` do the
+  arithmetic, scale pools included), so the same pool budget admits
+  about 4x the concurrent sequences. Zero-on-free covers the scale pools:
+  a freed page's scale returns to 0 ("empty") with its content.
 
 `alloc()`/`free()` are not thread-safe: the engine calls them from its
 single step thread.
@@ -45,7 +55,8 @@ __all__ = ["PagedKVCache", "TRASH_PAGE"]
 
 TRASH_PAGE = 0
 
-_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16, "int8": torch.int8}
 
 
 class PagedKVCache:
@@ -61,8 +72,8 @@ class PagedKVCache:
                 f"{page_size}/{num_pages}/{pages_per_seq}")
         if str(dtype) not in _TORCH_DTYPES:
             raise InvalidArgumentError(
-                f"PagedKVCache dtype {dtype!r} is not yet ported "
-                f"(float32/bfloat16)")
+                f"PagedKVCache dtype {dtype!r} is not one of "
+                f"{sorted(_TORCH_DTYPES)}")
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
@@ -70,12 +81,23 @@ class PagedKVCache:
         self.num_pages = int(num_pages)
         self.pages_per_seq = int(pages_per_seq)
         self.dtype = str(dtype)
+        self.quantized = self.dtype == "int8"
         shape = (self.num_layers, self.num_heads, self.num_pages,
                  self.page_size, self.head_dim)
         tdt = _TORCH_DTYPES[self.dtype]
         device = resolve_device(device)
         self.k_pages = torch.zeros(shape, dtype=tdt, device=device)
         self.v_pages = torch.zeros(shape, dtype=tdt, device=device)
+        # int8 page mode: per-(layer, head, page) symmetric abs-max scales
+        # in parallel pools (dequant = q * scale; scale 0 = page empty)
+        if self.quantized:
+            sshape = (self.num_layers, self.num_heads, self.num_pages)
+            self.k_scales = torch.zeros(sshape, dtype=torch.float32,
+                                        device=device)
+            self.v_scales = torch.zeros(sshape, dtype=torch.float32,
+                                        device=device)
+        else:
+            self.k_scales = self.v_scales = None
         # LIFO free list: the page freed last is reallocated first
         self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
         self._owned: Dict[int, List[int]] = {}  # seq id -> pages
@@ -89,9 +111,38 @@ class PagedKVCache:
 
     # -- capacity arithmetic ----------------------------------------------
 
+    @staticmethod
+    def page_hbm_bytes(num_layers: int, num_heads: int, head_dim: int,
+                       page_size: int, dtype="float32") -> int:
+        """Device bytes ONE page costs across both pools (K and V, every
+        layer), its slice of the int8 scale pools included: the unit of
+        the capacity arithmetic."""
+        item = torch.empty((), dtype=_TORCH_DTYPES[str(dtype)]) \
+            .element_size()
+        b = 2 * num_layers * num_heads * page_size * head_dim * item
+        if str(dtype) == "int8":
+            b += 2 * num_layers * num_heads * 4  # fp32 scale per (L, H)
+        return b
+
+    @classmethod
+    def pages_for_budget(cls, budget_bytes: int, *, num_layers: int,
+                         num_heads: int, head_dim: int, page_size: int,
+                         dtype="float32") -> int:
+        """Most pages (the reserved scratch page included) a device
+        budget admits: int8 pages are about 4x denser than float32, the
+        serving-capacity multiplier the quantized KV mode exists for."""
+        per = cls.page_hbm_bytes(num_layers, num_heads, head_dim,
+                                 page_size, dtype)
+        return max(2, int(budget_bytes) // per)
+
     def hbm_bytes(self) -> int:
-        return (self.k_pages.numel() * self.k_pages.element_size()
-                + self.v_pages.numel() * self.v_pages.element_size())
+        """Live device bytes of the K/V pools and the scale pools."""
+        b = (self.k_pages.numel() * self.k_pages.element_size()
+             + self.v_pages.numel() * self.v_pages.element_size())
+        if self.quantized:
+            b += (self.k_scales.numel() * self.k_scales.element_size()
+                  + self.v_scales.numel() * self.v_scales.element_size())
+        return b
 
     @property
     def usable_pages(self) -> int:
@@ -335,6 +386,7 @@ class PagedKVCache:
     def stats(self) -> dict:
         return {
             "dtype": self.dtype,
+            "quantized": self.quantized,
             "hbm_bytes": self.hbm_bytes(),
             "page_size": self.page_size,
             "usable_pages": self.usable_pages,

@@ -161,7 +161,7 @@ def test_request_that_can_never_fit_fails_fast(pair):
 
 @pytest.mark.parametrize("knob", [
     dict(kv_tier=True), dict(program_store="/nonexistent"), dict(tp=2),
-    dict(kv_cache_dtype="int8")])
+    dict(tp=4)])
 def test_unported_knob_raises(knob):
     with pytest.raises(InvalidArgumentError, match="not yet ported"):
         GenerationConfig(**knob)

@@ -69,7 +69,8 @@ def test_importing_every_module_builds_nothing():
                 "nn.functional.common", "nn.functional.norm",
                 "nn.functional.activation", "nn.layer.common",
                 "nn.layer.norm", "nn.layer.activation",
-                "serving.prefix_cache", "serving.spec_decode"):
+                "serving.prefix_cache", "serving.spec_decode",
+                "nn.quant", "quantization"):
         assert f"paddle_tpu_torch.{sub}" in names
     for name in names:
         importlib.import_module(name)

@@ -25,7 +25,8 @@ def cuda():
 
 
 @pytest.mark.parametrize("case", ["edges", "long"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("D", [32, 64, 128, 80, 96, 256])
 def test_paged_attention_kernel_matches_plain(cuda, D, dtype, case):
     """K1 (split-K: partials per span of pages, then the merge) against
@@ -34,7 +35,9 @@ def test_paged_attention_kernel_matches_plain(cuda, D, dtype, case):
     table) and a scratch page full of junk the kernel must never read;
     "long": one sequence of 2040 tokens over 255 pages. fp32 atol 2e-5
     (summation order); bf16 against the plain version in fp32 on the same
-    values, rounded to bf16, atol 1e-2 (one rounding of the output). D 80
+    values, rounded to bf16, atol 1e-2 (one rounding of the output); fp16
+    (ROADMAP C10) the same way, atol 2e-3 (one rounding to 10 mantissa
+    bits of an output below 4 in magnitude, ulp 2^-9, with fp32 sums). D 80
     and 96 give a row a number of 16-byte chunks that is not a power of
     two (lanes past it idle); fp32 D 256 gives a lane two chunks."""
     g = torch.Generator(device=cuda).manual_seed(D)
@@ -65,8 +68,9 @@ def test_paged_attention_kernel_matches_plain(cuda, D, dtype, case):
     assert paged_ops.paged_attention.launches == n0 + 1
     assert out.dtype == dtype and torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(),
-                               atol=2e-5 if dtype == torch.float32 else 1e-2,
-                               rtol=0)
+                               atol={torch.float32: 2e-5,
+                                     torch.bfloat16: 1e-2,
+                                     torch.float16: 2e-3}[dtype], rtol=0)
 
 
 @pytest.mark.parametrize("D", [100, 264])
@@ -97,11 +101,20 @@ def _assert_within(got, want, tol):
     assert err <= tol * top, f"max abs err {err:.3e} > {tol} x {top:.3e}"
 
 
+# head dims: the three built before ROADMAP C11 (scale 0.2), and since
+# C11 D 80, 96 and 256 (scale 1/sqrt(D)), which run at padded widths
+HEAD_DIMS = [32, 64, 128, 80, 96, 256]
+
+
+def _scale(D):
+    return 0.2 if D in (32, 64, 128) else D ** -0.5
+
+
 @pytest.mark.parametrize("p", [0.0, 0.2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", HEAD_DIMS)
 def test_flash_kernel_matches_plain(cuda, causal, D, dtype, p):
     """K2 against `_flash_fwd_reference` on the same inputs and seed, so
     the keep mask is replayed bit for bit: fp32 atol 1e-4 (the products
@@ -113,11 +126,12 @@ def test_flash_kernel_matches_plain(cuda, causal, D, dtype, p):
                .to(dtype) for _ in range(3))
     bias = torch.zeros(2, 192, device=cuda)
     bias[1, 150:] = -1e30
+    sc = _scale(D)
     n0 = flash_ops.flash_attention_fwd.launches
-    out, lse = flash_ops.flash_attention_fwd(q, k, v, bias, causal, 0.2, p,
+    out, lse = flash_ops.flash_attention_fwd(q, k, v, bias, causal, sc, p,
                                              17)
     assert flash_ops.flash_attention_fwd.launches == n0 + 1
-    ref, ref_lse = flash_ops._flash_fwd_reference(q, k, v, bias, causal, 0.2,
+    ref, ref_lse = flash_ops._flash_fwd_reference(q, k, v, bias, causal, sc,
                                                   p, 17)
     assert out.dtype == dtype
     if dtype == torch.float32:
@@ -133,7 +147,7 @@ def test_flash_kernel_matches_plain(cuda, causal, D, dtype, p):
 @pytest.mark.parametrize("causal,Sq,Sk", [(False, 192, 192),
                                           (True, 192, 192),
                                           (False, 128, 320)])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", HEAD_DIMS)
 def test_flash_backward_kernels_match_plain(cuda, p, causal, Sq, Sk, D,
                                             dtype):
     """K2 with dropout, K3 and K4 against their plain versions on the same
@@ -148,17 +162,18 @@ def test_flash_backward_kernels_match_plain(cuda, p, causal, Sq, Sk, D,
             for _ in range(2))
     bias = torch.zeros(2, Sk, device=cuda)
     bias[1, 150:] = -1e30
-    out, lse = flash_ops.flash_attention_fwd(q, k, v, bias, causal, 0.2, p,
+    sc = _scale(D)
+    out, lse = flash_ops.flash_attention_fwd(q, k, v, bias, causal, sc, p,
                                              11)
     ref, ref_lse = flash_ops._flash_fwd_reference(q, k, v, bias, causal,
-                                                  0.2, p, 11)
+                                                  sc, p, 11)
     tol = TOL.get(dtype, 1e-4)
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     else:
         _assert_within(out, ref, tol)
     delta = flash_ops._delta(ref, do)
-    args = (q, k, v, bias, do, ref_lse, delta, causal, 0.2, p, 11)
+    args = (q, k, v, bias, do, ref_lse, delta, causal, sc, p, 11)
     n3 = flash_ops.flash_attention_dq.launches
     n4 = flash_ops.flash_attention_dkv.launches
     got = [flash_ops.flash_attention_dq(*args),
@@ -232,7 +247,7 @@ def _packed_ids(B, S, g, device, layout="packed"):
                                    torch.float16])
 @pytest.mark.parametrize("p", [0.0, 0.2])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", HEAD_DIMS)
 def test_splash_kernels_match_plain(cuda, p, causal, D, dtype, layout):
     """K5, K6 and K7 against their plain versions on the same inputs,
     segment ids and seed, one launch each. fp32 atol 1e-4 (the kernels
@@ -250,16 +265,17 @@ def test_splash_kernels_match_plain(cuda, p, causal, D, dtype, layout):
                    for _ in range(4))
     seg = _packed_ids(3, 256, g, cuda, layout)
     if layout == "aligned" and not causal:
-        vis, uni = splash_ops._uniform_tiles(seg, seg, causal,
-                                             32 if D == 128 else 64)
+        vis, uni = splash_ops._uniform_tiles(
+            seg, seg, causal, splash_ops._k5_key_tile(D, dtype))
         assert int(uni.sum()) > int(vis.sum()) // 2
     n = [w.launches for w in (splash_ops.splash_attention_fwd,
                               splash_ops.splash_attention_dq,
                               splash_ops.splash_attention_dkv)]
+    sc = _scale(D)
     out, lse = splash_ops.splash_attention_fwd(q, k, v, seg, seg, causal,
-                                               0.2, p, 11)
+                                               sc, p, 11)
     ref, ref_lse = splash_ops._splash_fwd_reference(q, k, v, seg, seg,
-                                                    causal, 0.2, p, 11)
+                                                    causal, sc, p, 11)
     def close(a, b):
         assert a.dtype == dtype and a.shape == b.shape
         if dtype == torch.float32 and layout in ("packed", "boundaries",
@@ -271,7 +287,7 @@ def test_splash_kernels_match_plain(cuda, p, causal, D, dtype, layout):
     close(out, ref)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
     delta = flash_ops._delta(ref, do)
-    args = (q, k, v, seg, seg, do, ref_lse, delta, causal, 0.2, p, 11)
+    args = (q, k, v, seg, seg, do, ref_lse, delta, causal, sc, p, 11)
     got = [splash_ops.splash_attention_dq(*args),
            *splash_ops.splash_attention_dkv(*args)]
     want = [splash_ops._splash_dq_reference(*args),
@@ -350,3 +366,84 @@ def test_splash_absent_segment_rows_are_zero(cuda):
         *dense, q_seg, kv_seg, False, 0.125)[0], dense, do)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+# one head dim of every padded width each type runs (csrc/flash_mma.cuh
+# "Head dims"): 8 and 24 -> 32, 40 -> 64, 72 -> 96 (fp32) or 128, 104 ->
+# 128, 136 and 184 -> 192, 200 and 248 -> 256; 192 and 256 fill theirs
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("D", [8, 24, 40, 72, 104, 136, 184, 192, 200,
+                               248])
+def test_every_padded_width_matches_plain(cuda, D, dtype):
+    """ROADMAP C11: K2-K7 at a head dim of every padded width, causal, p
+    0.2, against their plain versions (tolerances as above: fp32 atol 1e-4
+    x max(1, max |ref|), bf16 1e-2, fp16 2e-3): the zero-filled columns
+    past D change no score and are never stored, and the column halves of
+    K4 and K7 above width 128 meet. One launch of each kernel, counted by
+    type; no call falls to a plain version."""
+    from paddle_tpu_torch.ops import splash_ops
+    g = torch.Generator().manual_seed(D)
+    q, k, v, do = (torch.randn(2, 2, 192, D, generator=g).to(cuda, dtype)
+                   for _ in range(4))
+    seg = _packed_ids(2, 192, g, cuda, "packed")
+    sc = D ** -0.5
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2,
+           torch.float16: 2e-3}[dtype]
+    name = str(dtype).replace("torch.", "")
+    wrappers = (flash_ops.flash_attention_fwd, flash_ops.flash_attention_dq,
+                flash_ops.flash_attention_dkv,
+                splash_ops.splash_attention_fwd,
+                splash_ops.splash_attention_dq,
+                splash_ops.splash_attention_dkv)
+    n = [w.launches_by_dtype[name] for w in wrappers]
+    out, lse = flash_ops.flash_attention_fwd(q, k, v, None, True, sc, 0.2, 5)
+    ref, ref_lse = flash_ops._flash_fwd_reference(q, k, v, None, True, sc,
+                                                  0.2, 5)
+    _assert_within(out, ref, tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    delta = flash_ops._delta(ref, do)
+    args = (q, k, v, None, do, ref_lse, delta, True, sc, 0.2, 5)
+    for a, b in zip([flash_ops.flash_attention_dq(*args),
+                     *flash_ops.flash_attention_dkv(*args)],
+                    [flash_ops._dq_reference(*args),
+                     *flash_ops._dkv_reference(*args)]):
+        assert a.dtype == dtype and a.shape == b.shape
+        _assert_within(a, b, tol)
+    out, lse = splash_ops.splash_attention_fwd(q, k, v, seg, seg, True, sc,
+                                               0.2, 5)
+    ref, ref_lse = splash_ops._splash_fwd_reference(q, k, v, seg, seg, True,
+                                                    sc, 0.2, 5)
+    _assert_within(out, ref, tol)
+    delta = flash_ops._delta(ref, do)
+    args = (q, k, v, seg, seg, do, ref_lse, delta, True, sc, 0.2, 5)
+    for a, b in zip([splash_ops.splash_attention_dq(*args),
+                     *splash_ops.splash_attention_dkv(*args)],
+                    [splash_ops._splash_dq_reference(*args),
+                     *splash_ops._splash_dkv_reference(*args)]):
+        assert a.dtype == dtype and a.shape == b.shape
+        _assert_within(a, b, tol)
+    assert [w.launches_by_dtype[name] for w in wrappers] == \
+        [x + 1 for x in n]
+
+
+@pytest.mark.parametrize("D", [264, 512])
+def test_wide_head_dims_fall_back_counted(cuda, D):
+    """ROADMAP C11's limit: a head dim of (256, 512], which the JAX
+    package's kernels take, is refused by both gates (counted in
+    STAT_attention_wide_head_fallback) and served by the plain path, so
+    F.scaled_dot_product_attention on the card launches no kernel; the
+    kernels' own check raises on it."""
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+    from paddle_tpu_torch.nn.functional import attention
+    q = torch.randn(1, 2, 512, D, device=cuda)
+    n0 = monitor.stat_get("STAT_attention_wide_head_fallback")
+    k0 = flash_ops.flash_attention_fwd.launches
+    out = attention.scaled_dot_product_attention(q, q, q, is_causal=True,
+                                                 training=False)
+    assert out.shape == q.shape
+    assert flash_ops.flash_attention_fwd.launches == k0
+    assert monitor.stat_get("STAT_attention_wide_head_fallback") == n0 + 1
+    with pytest.raises(InvalidArgumentError):
+        flash_ops.flash_attention_fwd(q, q, q, None, True, 0.1)

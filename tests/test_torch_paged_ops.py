@@ -183,11 +183,13 @@ def test_split_merge_matches_plain(P, PP):
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("D", [80, 96, 256, 100, 264])
 def test_kernel_argument_check_head_dims(D, dtype):
     """ROADMAP C7: K1's argument check (which builds and launches nothing)
-    takes every head dim with D % 8 == 0 and D <= 256, in both types, and
+    takes every head dim with D % 8 == 0 and D <= 256, in the three types
+    (float16 since ROADMAP C10), and
     raises InvalidArgumentError naming D and the accepted set for any
     other, such as D 100 or 264."""
     from paddle_tpu_torch.framework.errors import InvalidArgumentError

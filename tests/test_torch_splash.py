@@ -243,8 +243,10 @@ def test_splash_supported_gates():
     assert not tso.splash_supported((2, 2, 256, 32), min_seq=512)
     assert not tso.splash_supported((2, 2, 256, 32), (2, 2, 128, 32),
                                     (2, 2, 128, 32), min_seq=128)
-    # head dims the CUDA kernels are not built for
-    assert not tso.splash_supported((2, 2, 256, 16), min_seq=128)
+    # head dims: every D % 8 == 0 up to 256, as the JAX gate (ROADMAP C11)
+    assert tso.splash_supported((2, 2, 256, 16), min_seq=128)
+    assert tso.splash_supported((2, 2, 256, 16), min_seq=128) == \
+        jso.splash_supported((2, 2, 256, 16), min_seq=128)
     assert not tso.splash_supported((2, 2, 256, 12), min_seq=128)
     tflags.set_flags({"FLAGS_splash_attention_min_seq": 512})
     assert not tso.splash_supported((2, 2, 256, 32))
