@@ -19,7 +19,8 @@ Phases:
               _time_ms):
               K1 paged decode (phase 3's 8 slots of random lengths, the
               decode profile's 8 x 230 tokens, 2 x 1024 tokens, and phase
-              3's slots at head dims 80, 96 and 256; fp32, bf16 and fp16;
+              3's slots at head dims 80, 96, 256, 36 and 264; fp32, bf16
+              and fp16;
               the split count per row), K2 flash forward (serving
               shape, fp32, bf16 and fp16, and the training shape with
               dropout), K3 flash dQ and K4 flash
@@ -36,6 +37,12 @@ Phases:
               serving 16 greedy streamed requests, some joining while
               others decode; every output token-identical to the port's
               own generate(); kernel launch counts read off this run;
+              the observability gates (check_observability): the step
+              ring read from /steps sums to stats() and the requests,
+              its goodput buckets tile each iteration's wall exactly,
+              /metrics over 127.0.0.1 shows STAT_kv_cache_hbm_bytes equal
+              to the live caches' bytes, the device-memory gauge and one
+              ttft_ms / tpot_ms count a request, /healthz 200;
               then a GPT with head dim 96 (hidden 768, 8 heads, 2 layers)
               serving 4 requests through K1, token-identical to generate(),
               its 300-token prompt prefilled through K2 at head dim 96
@@ -67,6 +74,21 @@ Phases:
               pools (first tokens exact, identical to its generate() up
               to near-tie flips, K1 in fp16); with --profile, the
               quantized decode steps' device time
+ 5d. tier    GPT-2 small with the prefix cache (80 pages) and the host
+              KV tier on: four 592-token system prompts served one at a
+              time, then again with new tails, so each revisit promotes
+              its demoted chain; fp32 and int8 pools and the two tier
+              failpoints (promote_upload@2, demote_gather@1); every output
+              identical to a never-evicting engine (fp32: and to
+              generate()), the audit counts each arm implies, no page
+              leaked on either tier, K1 = steps x 12 (fp32), K2 = 12 x the
+              cold prefills, the observability gates; TTFT of promoted
+              against cold against device hits, the revisit's admission
+              iteration by part, promotion ms a page, its H2D rate and
+              host ms by part, demotion ms (host and stream), garbage
+              collections, tokens/s with the step log, audit ring and
+              spans on against off, and the host time of each
+              observability call an iteration
  6. train     GPT-2 small (dropout 0.1, fp32) trained through
               hapi.Model.fit: AdamW under LinearWarmup, global-norm clip,
               cross-entropy, batch 8 x 1024, 20 steps over a seeded
@@ -411,7 +433,9 @@ class Smoke:
         phase 3's (8 slots of random lengths up to 1024), the decode
         profile's (8 slots of 230 tokens) and a long context (2 slots of
         1024); and phase 3's slots at head dims 80, 96 and 256 (ROADMAP
-        C7: rows of 20/10, 24/12 and 64/32 16-byte chunks in fp32/bf16).
+        C7: rows of 20/10, 24/12 and 64/32 16-byte chunks in fp32/bf16),
+        36 and 264 (D % 8 != 0 and D > 256: the padded widths 64 and 512,
+        one-value loads masked at D).
         ms: device time per call (`time_ms`; both kernels of the split),
         the event time beside it; the L2 is flushed before each call, as a
         decode step finds it cold; no library call computes K1's
@@ -425,7 +449,7 @@ class Smoke:
                   ("decode_profile", 8, [230] * 8, K1_SHAPE["D"]),
                   ("long", 2, [PP * P] * 2, K1_SHAPE["D"])]
         shapes += [(f"phase3_d{D}", K1_SHAPE["B"], None, D)
-                   for D in (80, 96, 256)]
+                   for D in (80, 96, 256, 36, 264)]
         rows = []
         for shape, B, lens_in, D in shapes:
             scale = 1.0 / D ** 0.5
@@ -1103,7 +1127,8 @@ class Smoke:
             self.gpt, device="cuda", name="chip_smoke", max_slots=slots,
             page_size=page, num_pages=num_pages,
             prefill_buckets=(16, 64, 256, 1024), max_new_tokens=64,
-            request_timeout_ms=0)
+            request_timeout_ms=0, metrics_port=0)
+        before = self.scrape(eng)
         print(f"engine: {slots} slots, page {page}, {num_pages} pages "
               f"({eng.stats()['pages']['hbm_bytes'] / 1e9:.2f} GB pools), "
               f"built + warmed in {time.perf_counter() - t0:.1f} s")
@@ -1141,6 +1166,7 @@ class Smoke:
             th.join(600)
         t_end = time.perf_counter()
         stats = eng.stats()
+        self.check_observability("serving", eng, before, n_req)
         eng.shutdown(drain=True, timeout_s=60)
         k1 = paged_ops.paged_attention.launches
         k2 = flash_ops.flash_attention_fwd.launches
@@ -1902,6 +1928,553 @@ class Smoke:
         self.details["quant"] = out
         del profiled
         torch.cuda.empty_cache()
+
+    # -- observability: exporter scrapes and the step ring ----------------------
+
+    def scrape(self, eng):
+        """{metric: value} of the engine's `/metrics` page over 127.0.0.1
+        (histograms by their _count and _sum lines)."""
+        import urllib.request
+        url = eng.metrics_server.url
+        assert url.startswith("http://127.0.0.1:"), url
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+            text = r.read().decode()
+        vals = {}
+        for line in text.splitlines():
+            if line and not line.startswith("#") and "_bucket{" not in line:
+                k, v = line.rsplit(" ", 1)
+                vals[k] = float(v)
+        return vals
+
+    def check_observability(self, label, eng, before, n_req):
+        """The observability gates on a drained engine still running:
+        the step ring (read from `/steps`) sums to stats() (tokens) and
+        to the requests (admitted, completed), every record's six attr_*
+        buckets sum exactly to its attr_wall_ms; `/metrics` shows
+        STAT_kv_cache_hbm_bytes equal to the sum of every live cache's
+        hbm_bytes(), STAT_device0_hbm_bytes_in_use > 0 and one
+        ttft_ms / tpot_ms count per request since `before`; `/healthz`
+        is 200. Returns the ring's records."""
+        import gc
+        import urllib.request
+        from paddle_tpu_torch.serving import PagedKVCache
+        url = eng.metrics_server.url
+        st = eng.stats()
+        with urllib.request.urlopen(url + "/steps", timeout=30) as r:
+            steps = json.loads(r.read().decode())
+        ring = steps["engines"][eng.name]
+        recs = ring["records"]
+        assert ring["recorded_total"] == len(recs), \
+            f"{label}: the step ring overflowed ({ring['recorded_total']})"
+        sums = {k: sum(r[k] for r in recs)
+                for k in ("tokens", "admitted", "completed")}
+        assert sums["tokens"] == st["tokens"], (label, sums, st["tokens"])
+        assert sums["admitted"] == sums["completed"] == n_req, (label, sums)
+        parts = ("attr_admit_ms", "prefill_ms", "attr_promote_ms",
+                 "decode_ms", "attr_bookkeep_ms", "attr_idle_ms")
+        off = [r for r in recs if r["attr_wall_ms"] > 0
+               and abs(sum(r[p] for p in parts) - r["attr_wall_ms"]) > 1e-9]
+        assert not off, f"{label}: attribution off in {len(off)} records"
+        gc.collect()
+        live = sum(o.hbm_bytes() for o in gc.get_objects()
+                   if isinstance(o, PagedKVCache))
+        after = self.scrape(eng)
+        gauge = after["paddle_tpu_stat_kv_cache_hbm_bytes"]
+        dev = after.get("paddle_tpu_stat_device0_hbm_bytes_in_use", 0)
+        counts = {h: after[f"paddle_tpu_{h}_count"]
+                  - before.get(f"paddle_tpu_{h}_count", 0)
+                  for h in ("ttft_ms", "tpot_ms")}
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            health = r.status
+        attr = {p: round(sum(r[p] for r in recs), 3) for p in parts}
+        print(f"observability {label}: {len(recs)} step records, ring sums "
+              f"{sums}, attribution ms {attr}; /metrics "
+              f"STAT_kv_cache_hbm_bytes {gauge:.0f} (live caches {live}), "
+              f"STAT_device0_hbm_bytes_in_use {dev:.0f}, ttft/tpot counts "
+              f"{counts}; /healthz {health}")
+        assert gauge == live, f"{label}: gauge {gauge} != live {live}"
+        assert dev > 0, f"{label}: no device memory gauge"
+        assert counts == {"ttft_ms": n_req, "tpot_ms": n_req}, counts
+        assert health == 200
+        self.details.setdefault("observability", {})[label] = dict(
+            records=len(recs), sums=sums, attr_ms=attr, kv_gauge=gauge,
+            device0_in_use=dev)
+        return recs
+
+    # -- 5d. the host KV tier and the engine's observability --------------------
+
+    def tier_traffic(self, vocab):
+        """Phase 5d's requests: four distinct 592-token system prompts
+        (37 pages of 16) A-D, each with a 16-48-token user tail; wave 2
+        the same system prompts with new tails. 32 new tokens each."""
+        import numpy as np
+        rng = np.random.RandomState(20)
+        systems = [rng.randint(0, vocab, size=(592,)) for _ in range(4)]
+        waves = [[np.concatenate([s, rng.randint(
+            0, vocab, size=(int(rng.randint(16, 49)),))]) for s in systems]
+            for _ in range(2)]
+        return waves[0] + waves[1], [32] * 8
+
+    def tier_serve(self, arm, prompts, new, num_pages, **kw):
+        """Serve `prompts` one at a time (each drained before the next)
+        on a GPT-2-small engine at phase 5's settings with the prefix
+        cache on and `kw`; launches counted from 0 for this path. Per
+        request: TTFT on the client clock. The promotion's device time
+        (CUDA events on the engine's stream around `_promote_upload`),
+        each demotion's slot reservation (host time), and each eviction
+        pass's batched gather (`_tier_gather_flush`: host time, pages, and
+        the stream time between CUDA events around it, its copies being
+        queued, not waited for) are recorded. Returns (engine, outputs,
+        row)."""
+        torch = self.torch
+        eng = self.feature_engine(f"chip_smoke_{arm}", num_pages,
+                                  prefix_cache=True, metrics_port=0, **kw)
+        promote, demote, reserve = [], [], []
+        if eng._tier is not None:
+            orig_promote, orig_gather, orig_flush = eng._promote_upload, \
+                eng._prefix._gather, eng._prefix._flush
+
+            # host ms of a promotion's parts, summed per promotion (a
+            # stall shows in the part that holds it)
+            parts = {}
+
+            def timed_part(name, fn):
+                def wrapper(*a, **k):
+                    t0 = time.perf_counter()
+                    try:
+                        return fn(*a, **k)
+                    finally:
+                        parts[name] = parts.get(name, 0.0) + (
+                            time.perf_counter() - t0) * 1e3
+                return wrapper
+            eng._tier_upload = timed_part("upload", eng._tier_upload)
+            eng._tier_write = timed_part("write", eng._tier_write)
+            eng._zero_pages = timed_part("zero", eng._zero_pages)
+            eng._prefix.consume_promoted = timed_part(
+                "consume", eng._prefix.consume_promoted)
+
+            def timed_promote(req, host_digests, matched_hbm):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                parts.clear()
+                s.record()
+                ok = orig_promote(req, host_digests, matched_hbm)
+                e.record()
+                promote.append((s, e, len(host_digests), ok,
+                                {k: round(v, 3) for k, v in parts.items()}))
+                return ok
+
+            def timed_gather(page):
+                t0 = time.perf_counter()
+                out = orig_gather(page)
+                reserve.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            def timed_flush():
+                n = len(eng._gather_q)
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                s.record()
+                orig_flush()
+                e.record()
+                if n:
+                    demote.append(((time.perf_counter() - t0) * 1e3, n,
+                                   s, e))
+            eng._promote_upload = timed_promote
+            eng._prefix._gather = timed_gather
+            eng._prefix._flush = timed_flush
+        before = self.scrape(eng)
+        torch.cuda.synchronize()
+        # the interpreter's garbage collections during the run (a pause
+        # of one shows as a stall of whatever the thread was doing)
+        import gc
+        gc_open, gc_pauses = [], []
+
+        def on_gc(phase, info):
+            if phase == "start":
+                gc_open.append(time.perf_counter())
+            elif gc_open:
+                gc_pauses.append(((time.perf_counter() - gc_open.pop())
+                                  * 1e3, info["generation"]))
+        gc.callbacks.append(on_gc)
+        # this path starts here: every launch count from 0
+        self.zero_launches()
+        outs, ttft = [], []
+        t0 = time.perf_counter()
+        try:
+            for p, n in zip(prompts, new):
+                t_sub = time.perf_counter()
+                st = eng.submit_stream(p, max_new_tokens=n)
+                first = None
+                for _ in st:
+                    if first is None:
+                        first = time.perf_counter()
+                outs.append(st.result())
+                ttft.append((first - t_sub) * 1e3)
+        finally:
+            gc.callbacks.remove(on_gc)
+        wall = time.perf_counter() - t0
+        launches = self.record_path(arm)
+        stats = eng.stats()
+        torch.cuda.synchronize()
+        prom = [(s.elapsed_time(e), n, ok) for s, e, n, ok, _p in promote]
+        prom_parts = [p for _s, _e, _n, _ok, p in promote]
+        row = dict(wall_s=wall, ttft_ms=ttft, steps=stats["steps"],
+                   launches=launches, compiles=stats["compiles"],
+                   prefix=stats["kv"]["prefix"], promote=prom,
+                   promote_parts_ms=prom_parts,
+                   demote_passes=[(h, n, s.elapsed_time(e))
+                                  for h, n, s, e in demote],
+                   demote_reserve_ms=reserve,
+                   pages=stats["pages"], gc_pauses_ms=gc_pauses,
+                   audit=[e["reason"] for e in eng._audit.tail(2048)],
+                   audit_events=eng._audit.tail(2048))
+        recs = self.check_observability(arm, eng, before, len(prompts))
+        row["step_records"] = len(recs)
+        # the iteration that admitted each request (one at a time): its
+        # first token is delivered at that iteration's end
+        row["admit_iters"] = [
+            {k: r[k] for k in ("attr_admit_ms", "prefill_ms",
+                               "attr_promote_ms", "decode_ms",
+                               "attr_bookkeep_ms", "attr_idle_ms",
+                               "attr_wall_ms")}
+            for r in recs if r["admitted"]]
+        print(f"tier arm {arm} on {self.smi}: {len(prompts)} requests in "
+              f"{wall:.3f} s; TTFT ms {[round(x, 2) for x in ttft]}; "
+              f"{stats['steps']} steps; launches {launches}; prefix "
+              f"{stats['kv']['prefix']}")
+        return eng, outs, row
+
+    @staticmethod
+    def tier_leak_free(eng):
+        """After the drain no page leaks on either tier: the host tier's
+        byte ledger equals its entries' bytes and the host slab's held
+        slots its entries, and every allocated pool page is held once,
+        by the prefix cache alone."""
+        tier, cache = eng._tier, eng._cache
+        refs = cache.refcounts()
+        cached = set(cache.cached_pages())
+        host_ok = tier is None or (
+            tier.host_bytes == sum(e.nbytes for e in tier._entries.values())
+            and eng._slab.held == len(tier))
+        return (host_ok and cache.owners() == {} and set(refs) == cached
+                and sum(refs.values()) == len(cached)
+                and cache.pages_in_use == len(cached))
+
+    def tier(self):
+        """Phase 5d: GPT-2 small (fp32, seed 0) at phase 5's engine
+        settings with the prefix cache (at most 80 pages: two of the
+        ~40-page chains) and the host KV tier on (256 MB, chunks of 4
+        pages). Wave 1 serves A-D one at a time; the budget demotes the
+        least recently used chains to the host, so wave 2 (A-D with new
+        tails) finds each system prompt there and promotes it. Arms:
+        fp32 pools, int8 pools, `kv_tier.promote_upload@2` and
+        `kv_tier.demote_gather@1`. Gates: every output token-identical
+        to a tier-off engine whose prefix cache is unbounded (chains
+        never evicted; fp32 also to generate()); 4 KV_PROMOTE in the
+        fp32 and int8 arms and no host-budget eviction; the upload
+        failpoint's arm exactly 1 KV_PROMOTE_ABANDON, that request a
+        cold prefill; the gather failpoint's arm one demotion fewer than
+        the fp32 arm, its first eviction plain; no page leaked on either
+        tier; K1 = steps x 12 on fp32 pools (0 on int8), K2 = 12 x the
+        cold prefills (every prompt is in the 1024 bucket); the
+        observability gates (`check_observability`). Printed: TTFT p50 of
+        wave 2 against wave 1 and the never-evicted engine's device
+        hits, wave 2's admission iterations by part, promotion ms per
+        page, the H2D rate and each promotion's host ms by part,
+        demotion ms per chain (host) and per page (stream), the
+        collections during each arm; then tokens/s and wall per step
+        with the step log, audit ring and spans on against off (phase
+        5's first 8 requests, on, off, off, on) and the observability
+        calls' host time (`observability_host_cost`)."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.framework.flags import set_flags
+        from paddle_tpu_torch.serving import failpoints
+        if not hasattr(self, "gpt"):
+            from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+            self.gpt = GPTForCausalLM(GPTConfig(), device="cuda",
+                                      seed=0).eval()
+        L, P = self.gpt.gpt.config.num_layers, FEAT["page"]
+        prompts, new = self.tier_traffic(self.gpt.gpt.config.vocab_size)
+        need = max(-(-(len(p) + n) // P) for p, n in zip(prompts, new))
+        budget = 80
+        tier_pages = 1 + budget + need + 2
+        ref_pages = 1 + sum(-(-(len(p) + n) // P)
+                            for p, n in zip(prompts, new))
+        tier_kw = dict(prefix_cache_max_pages=budget, kv_tier=True,
+                       kv_tier_host_bytes=256 << 20, kv_tier_chunk_pages=4)
+        gen_refs = self.generate_refs(prompts, new)
+        out = {}
+
+        def p50(xs):
+            return sorted(xs)[len(xs) // 2]
+
+        for dtype in ("float32", "int8"):
+            eng, ref_outs, row = self.tier_serve(
+                f"tier_ref_{dtype}", prompts, new, ref_pages,
+                kv_cache_dtype=dtype)
+            eng.shutdown(drain=True, timeout_s=60)
+            assert row["prefix"]["evictions"] == 0, "a chain was evicted"
+            if dtype == "float32":
+                self.assert_identical("tier_ref_float32", prompts, new,
+                                      ref_outs, gen_refs)
+            out[f"ref_{dtype}"] = dict(outs=ref_outs, row=row)
+            del eng
+            torch.cuda.empty_cache()
+
+        arms = (("tier_fp32", "float32", ""), ("tier_int8", "int8", ""),
+                ("tier_abandon", "float32", "kv_tier.promote_upload@2"),
+                ("tier_nogather", "float32", "kv_tier.demote_gather@1"))
+        for arm, dtype, fp in arms:
+            failpoints.reset()
+            set_flags({"FLAGS_failpoints": fp})
+            try:
+                eng, outs, row = self.tier_serve(
+                    arm, prompts, new, tier_pages, kv_cache_dtype=dtype,
+                    **tier_kw)
+            finally:
+                set_flags({"FLAGS_failpoints": ""})
+            ref = out[f"ref_{dtype}"]["outs"]
+            same = [np.array_equal(a, b) for a, b in zip(outs, ref)]
+            reasons = row["audit"]
+            n = {c: reasons.count(c) for c in (
+                "KV_PROMOTE", "KV_PROMOTE_ABANDON", "KV_DEMOTE",
+                "KV_TIER_EVICT", "ADMIT", "ADMIT_PREFIX_HIT")}
+            budget_evicts = [e for e in row["audit_events"]
+                             if e["reason"] == "KV_TIER_EVICT"
+                             and e["rid"] is None]
+            leak_free = self.tier_leak_free(eng)
+            tier_stats = eng._tier.stats()
+            cold = n["ADMIT"]
+            pr = [(ms, pages) for ms, pages, ok in row["promote"] if ok]
+            page_bytes = eng._cache.page_host_bytes()
+            prom_host = [e["ms"] for e in row["audit_events"]
+                         if e["reason"] == "KV_PROMOTE"]
+            row.update(identical=sum(same), audit_counts=n,
+                       tier=tier_stats, leak_free=leak_free,
+                       promote_host_ms=prom_host)
+            del row["audit"], row["audit_events"]
+            print(f"tier arm {arm}: identical to the never-evicted "
+                  f"{dtype} engine {sum(same)} of {len(same)}; audit "
+                  f"{n}; tier {tier_stats}; leak-free {leak_free}")
+            if pr:
+                ms = sum(m for m, _ in pr)
+                pages = sum(p for _, p in pr)
+                row["promote_ms_per_page"] = ms / pages
+                row["promote_h2d_gb_s"] = pages * page_bytes / ms / 1e6
+                print(f"tier arm {arm} on {self.smi}: promotion "
+                      f"{ms / pages:.4f} ms a page ({page_bytes} bytes), "
+                      f"{pages * page_bytes / ms / 1e6:.2f} GB/s implied, "
+                      f"over {len(pr)} promotions of {pages} pages")
+            if row["demote_passes"]:
+                passes = row["demote_passes"]
+                pages = sum(n for _h, n, _s in passes)
+                host = sum(row["demote_reserve_ms"]) + sum(
+                    h for h, _n, _s in passes)
+                stream = sum(st for _h, _n, st in passes)
+                row["demote_ms_per_page"] = host / pages
+                row["demote_stream_ms_per_page"] = stream / pages
+                print(f"tier arm {arm} on {self.smi}: demotion "
+                      f"{host / pages:.4f} ms a page on the step thread "
+                      f"(slot reservations and batched gathers), "
+                      f"{host / pages * 37:.3f} ms a 37-page system "
+                      f"prompt ({pages} pages in {len(passes)} passes, "
+                      f"the longest pass {max(h for h, _n, _s in passes):.3f}"
+                      f" ms); stream time {stream / pages:.4f} ms a page "
+                      f"({pages * page_bytes / stream / 1e6:.2f} GB/s "
+                      f"D2H); host slab {eng._slab.segments} segments, "
+                      f"{eng._slab.reserved_bytes} bytes")
+            prom_ms = [round(m, 3) for m, _p, _ok in row["promote"]]
+            gcs = row["gc_pauses_ms"]
+            print(f"tier arm {arm}: promotions in order, stream ms "
+                  f"{prom_ms}, host ms {prom_host}, host ms by part "
+                  f"{row['promote_parts_ms']}; {len(gcs)} garbage "
+                  f"collections, the longest "
+                  f"{max(gcs, default=(0.0, None))[0]:.3f} ms (generation "
+                  f"{max(gcs, default=(0.0, None))[1]})")
+            ttft = row["ttft_ms"]
+            row["ttft_p50_wave1_ms"] = p50(ttft[:4])
+            row["ttft_p50_wave2_ms"] = p50(ttft[4:])
+            out[arm] = row
+            assert all(same), f"{arm}: outputs differ from the " \
+                f"never-evicted engine"
+            if dtype == "float32":
+                self.assert_identical(arm, prompts, new, outs, gen_refs)
+            assert leak_free, f"{arm}: a page leaked"
+            eng.shutdown(drain=True, timeout_s=60)
+            assert not budget_evicts, f"{arm}: host-budget evictions"
+            k1, k2 = row["launches"]["paged_attention"], \
+                row["launches"]["flash_fwd"]
+            assert k1 == (row["steps"] * L if dtype == "float32" else 0), \
+                f"{arm}: K1 launched {k1} in {row['steps']} steps"
+            assert k2 == L * cold, f"{arm}: K2 {k2} for {cold} cold prefills"
+            if arm in ("tier_fp32", "tier_int8"):
+                assert n["KV_PROMOTE"] == 4 and n["KV_PROMOTE_ABANDON"] == 0 \
+                    and cold == 4, n
+            elif arm == "tier_abandon":
+                assert n["KV_PROMOTE_ABANDON"] == 1 and \
+                    n["KV_PROMOTE"] == 3 and cold == 5, n
+                assert tier_stats["abandons"] == 1
+            else:
+                assert tier_stats["demotions"] == \
+                    out["tier_fp32"]["tier"]["demotions"] - 1, tier_stats
+                assert row["prefix"]["evictions"] == \
+                    out["tier_fp32"]["prefix"]["evictions"]
+            del eng
+            torch.cuda.empty_cache()
+        hits = out["ref_float32"]["row"]["ttft_ms"][4:]
+        print(f"tier TTFT p50 on {self.smi}: wave 1 cold "
+              f"{out['tier_fp32']['ttft_p50_wave1_ms']:.2f} ms, wave 2 "
+              f"promoted {out['tier_fp32']['ttft_p50_wave2_ms']:.2f} ms, "
+              f"never-evicted device hits {p50(hits):.2f} ms (fp32); int8 "
+              f"{out['tier_int8']['ttft_p50_wave1_ms']:.2f} / "
+              f"{out['tier_int8']['ttft_p50_wave2_ms']:.2f} / "
+              f"{p50(out['ref_int8']['row']['ttft_ms'][4:]):.2f} ms")
+
+        def admit_parts(row):   # wave 2's admission iterations, mean ms
+            its = row["admit_iters"][4:]
+            return {k: round(sum(i[k] for i in its) / len(its), 3)
+                    for k in its[0]}
+        print(f"tier wave-2 admission iteration on {self.smi} (mean ms a "
+              f"part): promoted {admit_parts(out['tier_fp32'])}, "
+              f"never-evicted {admit_parts(out['ref_float32']['row'])}")
+        for r in out.values():
+            r.pop("outs", None)
+        out["overhead"] = self.observability_overhead()
+        self.details["tier"] = out
+
+    def observability_overhead(self):
+        """Tokens/s and wall per decode step of phase 5's engine on its
+        first 8 requests with the step log, the audit ring and the spans
+        on (the defaults) against off, in turns on, off, off, on. Off:
+        FLAGS_gen_step_log and FLAGS_serving_spans false at construction,
+        and the engine's audit ring replaced by a no-op on that engine
+        (the ring has no flag; this patch is the measurement's only)."""
+        from paddle_tpu_torch.framework.flags import set_flags
+        prompts, new = self.serving_requests(self.gpt.gpt.config.vocab_size)
+        prompts, new = prompts[:8], new[:8]
+        num_pages = 1 + sum(-(-(len(p) + n) // FEAT["page"])
+                            for p, n in zip(prompts, new))
+        rows = []
+        for on in (True, False, False, True):
+            set_flags({"FLAGS_gen_step_log": on, "FLAGS_serving_spans": on})
+            try:
+                eng = self.feature_engine(f"chip_smoke_obs_{on}", num_pages)
+            finally:
+                set_flags({"FLAGS_gen_step_log": True,
+                           "FLAGS_serving_spans": True})
+            if not on:
+                eng._audit.audit = lambda *a, **k: None
+            res, arr, sub, wall = self.stream_run(eng, prompts, new)
+            stats = eng.stats()
+            eng.shutdown(drain=True, timeout_s=60)
+            toks = sum(len(a) for a in arr)
+            rows.append(dict(on=on, tokens_per_s=toks / wall,
+                             ms_per_step=wall * 1e3 / stats["steps"],
+                             steps=stats["steps"]))
+            del eng
+        for r in rows:
+            print(f"observability {'on' if r['on'] else 'off'} on "
+                  f"{self.smi}: {r['tokens_per_s']:.1f} tokens/s, "
+                  f"{r['ms_per_step']:.3f} ms wall a step "
+                  f"({r['steps']} steps)")
+        on = [r["tokens_per_s"] for r in rows if r["on"]]
+        off = [r["tokens_per_s"] for r in rows if not r["on"]]
+        print(f"observability on / off tokens/s (same call): "
+              f"{sum(on) / sum(off):.3f}")
+        return dict(runs=rows, host_cost=self.observability_host_cost(
+            prompts, new, num_pages))
+
+    def observability_host_cost(self, prompts, new, num_pages):
+        """The host time of the engine's observability calls, measured
+        around each call (perf_counter) and summed over one run of phase
+        5's first 8 requests with everything on: RecordEvent's begin and
+        end (ring append and NVTX push / pop), the iteration's StepRecord
+        (`_record_iteration`, which also republishes `pressure()`), the
+        audit ring's calls and sink flushes, and the spans' stamps and
+        finish. Per iteration, and as a share of the run's wall an
+        iteration. Then one RecordEvent scope in a tight loop of 20000,
+        NVTX on and off. The patches are this measurement's only."""
+        import collections
+        from paddle_tpu_torch import profiler
+        from paddle_tpu_torch.profiler import spans
+        acc, calls = collections.Counter(), collections.Counter()
+
+        def timed(key, fn):
+            def wrapper(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    acc[key] += time.perf_counter() - t0
+                    calls[key] += 1
+            return wrapper
+        saved = [(cls, name, cls.__dict__[name])
+                 for cls, name in ((profiler.RecordEvent, "begin"),
+                                   (profiler.RecordEvent, "end"),
+                                   (spans.GenSpan, "stamp"),
+                                   (spans.GenSpan, "finish"))]
+        groups = {"RecordEvent.begin": "record_event",
+                  "RecordEvent.end": "record_event",
+                  "GenSpan.stamp": "spans", "GenSpan.finish": "spans",
+                  "_record_iteration": "step_record", "audit": "audit",
+                  "flush_sink": "audit"}
+        for cls, name, fn in saved:
+            setattr(cls, name, timed(f"{cls.__name__}.{name}", fn))
+        try:
+            eng = self.feature_engine("chip_smoke_obs_cost", num_pages)
+            eng._record_iteration = timed("_record_iteration",
+                                          eng._record_iteration)
+            eng._audit.audit = timed("audit", eng._audit.audit)
+            eng._audit.flush_sink = timed("flush_sink",
+                                          eng._audit.flush_sink)
+            acc.clear()
+            calls.clear()
+            it0 = eng._iters
+            _res, _arr, _sub, wall = self.stream_run(eng, prompts, new)
+            iters = eng._iters - it0
+            steps = eng.stats()["steps"]
+            eng.shutdown(drain=True, timeout_s=60)
+        finally:
+            for cls, name, fn in saved:
+                setattr(cls, name, fn)
+        us = collections.Counter()
+        for k, v in acc.items():
+            us[groups[k]] += v * 1e6 / iters
+        total = sum(us.values())
+        wall_it_ms = wall * 1e3 / iters
+        # one scope in a tight loop, NVTX as the card has it, then off
+        ev = profiler.RecordEvent("chip_smoke::scope")
+        nvtx = list(profiler._nvtx)
+        tight = {}
+        try:
+            for label, on in (("nvtx_on", True), ("nvtx_off", False)):
+                profiler._nvtx[:] = [on]
+                t0 = time.perf_counter()
+                for _ in range(20000):
+                    with ev:
+                        pass
+                tight[label] = (time.perf_counter() - t0) * 1e6 / 20000
+        finally:
+            profiler._nvtx[:] = nvtx
+        row = dict(iters=iters, steps=steps, wall_ms_per_iter=wall_it_ms,
+                   us_per_iter=dict(us), total_us_per_iter=total,
+                   share_of_wall=total / (wall_it_ms * 1e3),
+                   calls_per_iter={k: v / iters for k, v in calls.items()},
+                   record_event_us=tight)
+        print(f"observability host cost on {self.smi}: {total:.1f} us an "
+              f"iteration = {100 * row['share_of_wall']:.2f} % of "
+              f"{wall_it_ms:.3f} ms wall an iteration ({iters} iterations, "
+              f"{steps} decode steps); by part (us an iteration): "
+              f"{ {k: round(v, 2) for k, v in us.items()} }; calls an "
+              f"iteration: "
+              f"{ {k: round(v, 2) for k, v in row['calls_per_iter'].items()} }"
+              f"; one RecordEvent scope in a tight loop: "
+              f"{tight['nvtx_on']:.3f} us with NVTX, "
+              f"{tight['nvtx_off']:.3f} us without")
+        return row
 
     # -- optional: where the serving time goes ---------------------------------
 
@@ -2803,6 +3376,7 @@ def main(argv=None):
             sm.phase("serving", sm.serving)
             sm.phase("features", sm.features)
             sm.phase("quant", sm.quant)
+            sm.phase("tier", sm.tier)
             if args.profile:
                 sm.phase("profile", sm.profile)
             sm.phase("train", sm.train)

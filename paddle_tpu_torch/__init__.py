@@ -31,10 +31,14 @@ Ported so far:
   (`kv_cache_dtype="int8"`), weight-only int8/int4 weights
   (`quantization.quantize_weights`, `quantization.WeightOnlyLinear`,
   `nn.quant`), and the fake-quant wrappers of
-  `quantization.ImperativeQuantAware` / `PTQ`.
+  `quantization.ImperativeQuantAware` / `PTQ`;
+- serving observability and the host KV tier: `profiler` (RecordEvent,
+  Profiler, the step and audit rings, spans, SLO, flight recorder,
+  device telemetry, the HTTP exporter), `serving.failpoints`, and the
+  host tier under the prefix cache (`serving.kv_tier`).
 """
 from . import amp, framework, hapi, io, models, nn, ops  # noqa: F401
-from . import optimizer, quantization  # noqa: F401
+from . import optimizer, profiler, quantization  # noqa: F401
 from . import serving, static  # noqa: F401
 from .framework import get_flags, set_flags  # noqa: F401
 

@@ -55,6 +55,13 @@
 //   holds ceil(D / 32) columns, the tail past D masked.
 // - Built for every D with D % 8 == 0 and D <= 256 (a 16-byte chunk of
 //   any of the three types divides such a row), one instantiation each.
+// - Any other D up to 512 (D % 8 != 0, or 256 < D <= 512) runs the same
+//   two kernels at a padded width Dp, the least power of two >= max(D,
+//   32), with the row stride D given at run time: a chunk is loaded one
+//   value at a time, since a row no longer starts on a 16-byte boundary,
+//   and the columns at or past D read as 0, so they add 0 to q.k and
+//   their accumulators stay 0. The workspace rows are Dp + 2 wide
+//   (`paged_attention_workspace_width`); the combine writes D columns.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -134,12 +141,28 @@ __host__ __device__ constexpr int pow2_ceil(int x) {
 template <typename T, int D>
 constexpr bool kPow2Row = pow2_ceil(D / Chunk<T>::kN) == D / Chunk<T>::kN;
 
-template <typename T, int D>
+// the chunk of E values at column col0 of a row of dr, one value at a time
+// (any alignment); the columns at or past dr read as 0
+template <typename T>
+__device__ __forceinline__ typename Chunk<T>::Raw load_masked(
+    const T* __restrict__ p, int col0, int dr) {
+  typename Chunk<T>::Raw r{};
+  T* e = reinterpret_cast<T*>(&r);
+#pragma unroll
+  for (int i = 0; i < Chunk<T>::kN; ++i)
+    if (col0 + i < dr) e[i] = p[i];
+  return r;
+}
+
+// kExact: D is the head dim, rows of D values in 16-byte loads. Otherwise
+// D is the padded width and dr (< D, or D % 8 != 0) the head dim and the
+// row stride of q and the pools, loaded by `load_masked`.
+template <typename T, int D, bool kExact>
 __device__ __forceinline__ void split_body(
     const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const int32_t* __restrict__ page_table,
     const int32_t* __restrict__ pos, float* __restrict__ ws, int H, int N,
-    int P, int PP, int pps, int nsplit, float scale) {
+    int P, int PP, int pps, int nsplit, int dr, float scale) {
   using CT = Chunk<T>;
   using Raw = typename CT::Raw;
   constexpr int E = CT::kN;              // elements a chunk
@@ -150,7 +173,8 @@ __device__ __forceinline__ void split_body(
   constexpr int R = 32 / L;              // rows a load instruction
   constexpr int NL = kLoads / NC;        // row loads a lane a step
   constexpr int RS = R * NL;             // rows a step
-  static_assert(D % E == 0 && NL >= 1, "D % 8 == 0 and D <= 256");
+  static_assert(D % E == 0 && NL >= 1, "D % 8 == 0 and D <= 512");
+  const int ld = kExact ? D : dr;        // a row's stride in q, the pools
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
@@ -169,15 +193,18 @@ __device__ __forceinline__ void split_body(
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
     if (live(i)) {
-      CT::widen(*reinterpret_cast<const Raw*>(q + (size_t)bh * D
-                                              + (c + L * i) * E), qf[i]);
+      const T* qc = q + (size_t)bh * ld + (c + L * i) * E;
+      if constexpr (kExact)
+        CT::widen(*reinterpret_cast<const Raw*>(qc), qf[i]);
+      else
+        CT::widen(load_masked<T>(qc, (c + L * i) * E, dr), qf[i]);
     } else {
 #pragma unroll
       for (int e = 0; e < E; ++e) qf[i][e] = 0.f;
     }
   }
   const int32_t* row = page_table + (size_t)b * PP;
-  const size_t head = (size_t)h * N * P * D;
+  const size_t head = (size_t)h * N * P * ld;
   const T* kh = k_pages + head;
   const T* vh = v_pages + head;
 
@@ -187,14 +214,18 @@ __device__ __forceinline__ void split_body(
     for (int u = 0; u < NL; ++u) {
       const int t = t0 + u * R + r;
       if (t < t_end) {
-        const size_t off = ((size_t)row[t / P] * P + t % P) * D;
+        const size_t off = ((size_t)row[t / P] * P + t % P) * ld;
 #pragma unroll
         for (int i = 0; i < NC; ++i) {
           if (live(i)) {
-            kr[u][i] = __ldg(reinterpret_cast<const Raw*>(
-                kh + off + (c + L * i) * E));
-            vr[u][i] = __ldg(reinterpret_cast<const Raw*>(
-                vh + off + (c + L * i) * E));
+            const int col = (c + L * i) * E;
+            if constexpr (kExact) {
+              kr[u][i] = __ldg(reinterpret_cast<const Raw*>(kh + off + col));
+              vr[u][i] = __ldg(reinterpret_cast<const Raw*>(vh + off + col));
+            } else {
+              kr[u][i] = load_masked<T>(kh + off + col, col, dr);
+              vr[u][i] = load_masked<T>(vh + off + col, col, dr);
+            }
           } else {
             kr[u][i] = vr[u][i] = Raw{};
           }
@@ -297,19 +328,19 @@ __device__ __forceinline__ void split_body(
 // then spill. The _npow2 kernel is compiled for 4 blocks an SM (128
 // registers), which keeps them in registers; the others keep the default,
 // and the code of D 32, 64 and 128.
-template <typename T, int D>
+template <typename T, int D, bool kExact>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                    const T* __restrict__ v_pages,
                    const int32_t* __restrict__ page_table,
                    const int32_t* __restrict__ pos, float* __restrict__ ws,
-                   int H, int N, int P, int PP, int pps, int nsplit,
+                   int H, int N, int P, int PP, int pps, int nsplit, int dr,
                    float scale) {
-  split_body<T, D>(q, k_pages, v_pages, page_table, pos, ws, H, N, P, PP,
-                   pps, nsplit, scale);
+  split_body<T, D, kExact>(q, k_pages, v_pages, page_table, pos, ws, H, N,
+                           P, PP, pps, nsplit, dr, scale);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kExact>
 __global__ void __launch_bounds__(kWarps * 32, 4)
 paged_split_kernel_npow2(const T* __restrict__ q,
                          const T* __restrict__ k_pages,
@@ -317,21 +348,24 @@ paged_split_kernel_npow2(const T* __restrict__ q,
                          const int32_t* __restrict__ page_table,
                          const int32_t* __restrict__ pos,
                          float* __restrict__ ws, int H, int N, int P, int PP,
-                         int pps, int nsplit, float scale) {
-  split_body<T, D>(q, k_pages, v_pages, page_table, pos, ws, H, N, P, PP,
-                   pps, nsplit, scale);
+                         int pps, int nsplit, int dr, float scale) {
+  split_body<T, D, kExact>(q, k_pages, v_pages, page_table, pos, ws, H, N,
+                           P, PP, pps, nsplit, dr, scale);
 }
 
+// D the workspace's width (the head dim, or the padded width), dr the head
+// dim: out rows are dr wide
 template <typename T, int D>
 __global__ void __launch_bounds__(128)
 paged_combine_kernel(const float* __restrict__ ws,
                      const int32_t* __restrict__ pos, T* __restrict__ out,
-                     int BH, int H, int P, int PP, int pps, int nsplit) {
+                     int BH, int H, int P, int PP, int pps, int nsplit,
+                     int dr) {
   constexpr int DL = (D + 31) / 32;   // columns a lane, the tail masked
   const int bh = blockIdx.x * 4 + (threadIdx.x >> 5);
   if (bh >= BH) return;
   const int lane = threadIdx.x & 31;
-  auto live = [&](int i) { return D % 32 == 0 || lane + 32 * i < D; };
+  auto live = [&](int i) { return lane + 32 * i < dr; };
   const int span = pps * P;
   const int n = (seq_len(pos, bh / H, PP * P) + span - 1) / span;
   const float* part = ws + (size_t)bh * nsplit * (D + 2);
@@ -359,32 +393,43 @@ paged_combine_kernel(const float* __restrict__ ws,
   }
 #pragma unroll
   for (int i = 0; i < DL; ++i)
-    if (live(i)) store(out + (size_t)bh * D + lane + 32 * i, acc[i] / L);
+    if (live(i)) store(out + (size_t)bh * dr + lane + 32 * i, acc[i] / L);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kExact>
 cudaError_t launch_d(const void* q, const void* kp, const void* vp,
                      const void* pt, const void* pos, void* out, float* ws,
-                     int B, int H, int N, int P, int PP, int pps, float scale,
-                     cudaStream_t stream) {
+                     int B, int H, int N, int P, int PP, int pps, int dr,
+                     float scale, cudaStream_t stream) {
   const int nsplit = (PP + pps - 1) / pps;
   dim3 grid((nsplit + kWarps - 1) / kWarps, B * H);
   if constexpr (kPow2Row<T, D>)
-    paged_split_kernel<T, D><<<grid, kWarps * 32, 0, stream>>>(
+    paged_split_kernel<T, D, kExact><<<grid, kWarps * 32, 0, stream>>>(
         (const T*)q, (const T*)kp, (const T*)vp, (const int32_t*)pt,
-        (const int32_t*)pos, ws, H, N, P, PP, pps, nsplit, scale);
+        (const int32_t*)pos, ws, H, N, P, PP, pps, nsplit, dr, scale);
   else
-    paged_split_kernel_npow2<T, D><<<grid, kWarps * 32, 0, stream>>>(
+    paged_split_kernel_npow2<T, D, kExact><<<grid, kWarps * 32, 0, stream>>>(
         (const T*)q, (const T*)kp, (const T*)vp, (const int32_t*)pt,
-        (const int32_t*)pos, ws, H, N, P, PP, pps, nsplit, scale);
+        (const int32_t*)pos, ws, H, N, P, PP, pps, nsplit, dr, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   paged_combine_kernel<T, D><<<(B * H + 3) / 4, 128, 0, stream>>>(
-      ws, (const int32_t*)pos, (T*)out, B * H, H, P, PP, pps, nsplit);
+      ws, (const int32_t*)pos, (T*)out, B * H, H, P, PP, pps, nsplit, dr);
   return cudaGetLastError();
 }
 
-constexpr int kMaxD = 256;
+constexpr int kMaxD = 256;         // the 16-byte-load instantiations
+constexpr int kMaxPaddedD = 512;   // the padded ones
+
+// the width a head dim d runs at: d itself where d % 8 == 0 and d <= kMaxD,
+// else the least power of two >= max(d, 32) up to kMaxPaddedD; 0 when no
+// instantiation serves d
+__host__ __device__ constexpr int run_width(int d) {
+  return d <= 0 ? 0
+         : (d % 8 == 0 && d <= kMaxD) ? d
+         : d <= kMaxPaddedD ? (d <= 32 ? 32 : pow2_ceil(d))
+         : 0;
+}
 
 // the instantiation for head dim d: one for every multiple of 8 up to kMaxD
 template <typename T, int D = 8>
@@ -393,19 +438,48 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
                    int B, int H, int N, int P, int PP, int pps, int d,
                    float scale, cudaStream_t stream) {
   if (d == D)
-    return launch_d<T, D>(q, kp, vp, pt, pos, out, ws, B, H, N, P, PP, pps,
-                          scale, stream);
+    return launch_d<T, D, true>(q, kp, vp, pt, pos, out, ws, B, H, N, P, PP,
+                                pps, d, scale, stream);
   if constexpr (D < kMaxD)
     return launch<T, D + 8>(q, kp, vp, pt, pos, out, ws, B, H, N, P, PP,
                             pps, d, scale, stream);
   return cudaErrorInvalidValue;
 }
 
+// the padded instantiation for head dim d: one for every power of two from
+// 32 up to kMaxPaddedD
+template <typename T, int D = 32>
+cudaError_t launch_padded(const void* q, const void* kp, const void* vp,
+                          const void* pt, const void* pos, void* out,
+                          float* ws, int B, int H, int N, int P, int PP,
+                          int pps, int d, float scale, cudaStream_t stream) {
+  if (run_width(d) == D)
+    return launch_d<T, D, false>(q, kp, vp, pt, pos, out, ws, B, H, N, P, PP,
+                                 pps, d, scale, stream);
+  if constexpr (D < kMaxPaddedD)
+    return launch_padded<T, 2 * D>(q, kp, vp, pt, pos, out, ws, B, H, N, P,
+                                   PP, pps, d, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch(const void* q, const void* kp, const void* vp,
+                     const void* pt, const void* pos, void* out, float* ws,
+                     int B, int H, int N, int P, int PP, int pps, int d,
+                     float scale, cudaStream_t stream) {
+  if (d % 8 == 0 && d <= kMaxD)
+    return launch<T>(q, kp, vp, pt, pos, out, ws, B, H, N, P, PP, pps, d,
+                     scale, stream);
+  return launch_padded<T>(q, kp, vp, pt, pos, out, ws, B, H, N, P, PP, pps,
+                          d, scale, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, pools and out share
-// it); D a multiple of 8, at most 256. workspace:
-// float32 [B, H, ceil(PP / pages_per_split), D + 2], written and read here.
+// it); any D up to 512. workspace: float32
+// [B, H, ceil(PP / pages_per_split), paged_attention_workspace_width(D) + 2],
+// written and read here.
 extern "C" int paged_attention_decode(void* q, void* k_pages, void* v_pages,
                                       void* page_table, void* pos, void* out,
                                       void* workspace, int B, int H, int N,
@@ -419,21 +493,25 @@ extern "C" int paged_attention_decode(void* q, void* k_pages, void* v_pages,
   float* ws = (float*)workspace;
   switch (dtype) {
     case 0:
-      return (int)launch<float>(q, k_pages, v_pages, page_table, pos, out,
-                                ws, B, H, N, P, PP, pages_per_split, D,
-                                scale, s);
+      return (int)dispatch<float>(q, k_pages, v_pages, page_table, pos, out,
+                                  ws, B, H, N, P, PP, pages_per_split, D,
+                                  scale, s);
     case 1:
-      return (int)launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, pos,
-                                        out, ws, B, H, N, P, PP,
-                                        pages_per_split, D, scale, s);
+      return (int)dispatch<__nv_bfloat16>(q, k_pages, v_pages, page_table,
+                                          pos, out, ws, B, H, N, P, PP,
+                                          pages_per_split, D, scale, s);
     case 2:
-      return (int)launch<__half>(q, k_pages, v_pages, page_table, pos, out,
-                                 ws, B, H, N, P, PP, pages_per_split, D,
-                                 scale, s);
+      return (int)dispatch<__half>(q, k_pages, v_pages, page_table, pos, out,
+                                   ws, B, H, N, P, PP, pages_per_split, D,
+                                   scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// the width of a workspace row less its two statistics: D, or the padded
+// width D runs at (0 where D is not served)
+extern "C" int paged_attention_workspace_width(int D) { return run_width(D); }
 
 extern "C" const char* paged_attention_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -127,6 +127,134 @@ register_flag("FLAGS_gen_prefix_cache_max_pages", 0,
               "waiting for an admission to run short of free pages. "
               "0 = unbounded (evict-on-demand only)")
 
+register_flag("FLAGS_kv_tier", False,
+              "serving.GenerationEngine: host-memory demotion tier under "
+              "the prefix cache (serving/kv_tier.py): a prefix-cache "
+              "eviction copies a cold chain's pages off the device into "
+              "a bounded host store (raw int8 bytes and fp32 scale rows, "
+              "so the round trip is exact) instead of discarding them, "
+              "and a later lookup that misses the device but hits the "
+              "host tier re-uploads the pages in chunks on a side CUDA "
+              "stream ahead of the tail prefill. Requires "
+              "FLAGS_gen_prefix_cache; off keeps the two-state (device "
+              "or gone) prefix cache")
+register_flag("FLAGS_kv_tier_host_bytes", 256 << 20,
+              "serving/kv_tier.py host-store byte budget: demoted page "
+              "entries beyond it are LRU-evicted (audit code "
+              "KV_TIER_EVICT); an entry that alone exceeds the budget "
+              "is refused and the eviction proceeds plain")
+register_flag("FLAGS_kv_tier_chunk_pages", 4,
+              "pages per upload chunk of the promotion pipeline "
+              "(serving/kv_tier.py): the engine stages chunk i+1 while "
+              "chunk i's scatter is in flight, and the fixed width of "
+              "the tier_write program in the ledger. Not a measured "
+              "default")
+register_flag("FLAGS_gen_step_log", True,
+              "serving.GenerationEngine: record one compact scheduler "
+              "record per engine iteration into the bounded per-engine "
+              "step ring (profiler/step_log.py; /steps, chrome counter "
+              "tracks, engine_step_ms/gen_queue_age_ms histograms); off "
+              "removes the per-iteration accounting")
+register_flag("FLAGS_gen_step_log_size", 4096,
+              "per-engine step-ring capacity in records; the oldest "
+              "record is overwritten")
+register_flag("FLAGS_gen_audit_log", "",
+              "optional JSONL sink for the generation scheduler's "
+              "decision audit log (profiler/audit.py): every "
+              "admit/defer/evict/expire/poison decision appends one "
+              "reason-coded line to this path; '' keeps the bounded "
+              "in-memory ring only")
+register_flag("FLAGS_failpoints", "",
+              "deterministic fault-injection spec (serving/failpoints.py): "
+              "';'-separated `site@trigger[:arg]` terms where trigger is "
+              "`N` (fire on the Nth hit only) or `every:K` (every Kth "
+              "hit) and arg is a site-specific number (slow_step_ms "
+              "sleep). Sites: decode_step_raise, prefill_raise, "
+              "decode_poison_nan, alloc_exhaust, slow_step_ms, "
+              "kv_tier.promote_upload, kv_tier.demote_gather. '' "
+              "disables every site")
+register_flag("FLAGS_slo_ttft_p99_ms", 0.0,
+              "SLO objective: generative time-to-first-token p99 target "
+              "in ms: at most 1% of requests in a window may exceed it "
+              "(profiler/slo.py burn rates, /slo, Prometheus gauges); "
+              "0 disables the objective")
+register_flag("FLAGS_slo_tpot_p99_ms", 0.0,
+              "SLO objective: generative time-per-output-token p99 "
+              "target in ms (same 1% budget semantics); 0 disables")
+register_flag("FLAGS_slo_error_rate", 0.0,
+              "SLO objective: max fraction of requests that may fail "
+              "(timeout/poison/engine death) per rolling window; "
+              "0 disables")
+register_flag("FLAGS_slo_windows_s", "60,300",
+              "comma-separated rolling-window lengths (seconds) the SLO "
+              "burn rates are evaluated over, shortest window first "
+              "(the fast-burn window readiness shedding keys on)")
+register_flag("FLAGS_slo_max_burn_rate", 0.0,
+              "fold SLO burn into /readyz: an engine reports not-ready "
+              "while any objective's fast-window burn rate is >= this "
+              "value (0 never sheds; 1.0 = shedding exactly at "
+              "budget-burn speed)")
+register_flag("FLAGS_trace_ring_size", 16384,
+              "profiler.tracer: per-thread trace event ring capacity; the "
+              "ring overwrites its oldest events instead of growing")
+register_flag("FLAGS_flight_recorder", True,
+              "always-on bounded crash context: RecordEvent scopes keep "
+              "recording into the per-thread rings even with the profiler "
+              "stopped, and the engine's failure paths (engine death, "
+              "poisoned sequence, allocator exhaustion) dump a postmortem "
+              "JSON artifact (profiler/flight_recorder.py)")
+register_flag("FLAGS_flight_recorder_events", 512,
+              "how many trailing trace events a flight-recorder dump "
+              "includes (the tail of the merged per-thread rings)")
+register_flag("FLAGS_flight_recorder_dir", "",
+              "directory for flight-recorder dump files; '' = "
+              "<tempdir>/paddle_tpu_flightrec")
+register_flag("FLAGS_flight_recorder_interval_s", 2.0,
+              "period of the flight recorder's background counter "
+              "sampler (the periodic monitor snapshots that give a dump "
+              "its recent-counters timeline); 0 disables the sampler")
+register_flag("FLAGS_flight_recorder_max_dumps", 16,
+              "most dump files kept per process; the oldest is pruned "
+              "so a crash-looping failure path cannot fill the disk")
+register_flag("FLAGS_serving_spans", True,
+              "per-request latency attribution: submit() opens a span "
+              "that stamps every phase (queued/admitted/prefilled/"
+              "first_token/last_token/resolved), feeding the ttft_ms / "
+              "tpot_ms histograms and the `reqspan:` trace instants; off "
+              "removes the per-request accounting (profiler/spans.py)")
+register_flag("FLAGS_device_telemetry_interval_s", 5.0,
+              "period of the lazy device-telemetry sampler "
+              "(profiler/device_telemetry.py): per-device live and "
+              "limit device-memory bytes from torch.cuda, and the MFU "
+              "gauge when a FLOP rate is fed; 0 disables the sampler "
+              "(explicit sample() calls still refresh the gauges)")
+register_flag("FLAGS_device_peak_flops", 0.0,
+              "per-device peak FLOP/s used for the MFU gauge; 0 = look "
+              "up the device name in the built-in table (NVIDIA H100: "
+              "989e12, its published dense bf16 rate); other cards "
+              "export no MFU unless this is set")
+register_flag("FLAGS_metrics_port", 0,
+              "profiler.exporter.MetricsServer port: serve /metrics "
+              "(Prometheus text), /stats, /steps, /slo, /trace, "
+              "/history, /healthz and /readyz on 127.0.0.1; 0 = off; "
+              "engines also accept GenerationEngine(metrics_port=)")
+register_flag("FLAGS_trace_propagation", True,
+              "trace-context propagation (profiler/trace_context.py): "
+              "the engine mints one 16-hex trace id per direct submit "
+              "(or takes the caller's); it rides the request's span "
+              "(',tid=' reqspan field) and stream and is emitted as "
+              "'fleet_request' chrome flow events; off = no ids minted")
+register_flag("FLAGS_metrics_history_interval_s", 5.0,
+              "period of the lazy time-series sampler "
+              "(profiler/timeseries.py): every registered monitor "
+              "counter (as a rate/s) and gauge (as a level) plus "
+              "per-engine pressure() ticks recorded into bounded "
+              "per-name rings, served as /history JSON and chrome 'C' "
+              "counter tracks; 0 disables sampling")
+register_flag("FLAGS_metrics_history_samples", 512,
+              "max samples kept per series by the time-series sampler "
+              "(ring semantics: oldest samples drop first)")
+
 
 def set_flags(flags: Dict[str, Any]) -> None:
     for k, v in flags.items():

@@ -29,36 +29,75 @@ The subset of `paddle_tpu.framework.monitor` the ported slices write:
   rows, so it stays 0 (tests read it as the JAX tests do);
 - training (`hapi.Model`): `STAT_train_steps`, `STAT_train_step_ns` (host
   wall time of `train_batch`, which returns before the device finishes)
-  and `STAT_train_host_syncs` (losses fit forced to a host float)."""
+  and `STAT_train_host_syncs` (losses fit forced to a host float);
+- residency gauges: `STAT_kv_cache_hbm_bytes`, the pool (and scale-pool)
+  bytes of every live `serving.PagedKVCache`, added at construction and
+  subtracted when the cache is collected (`stat_gauge_add`).
+
+Gauges come in two kinds, as in the JAX package: "level" (an absolute
+level; `stat_set` and `stat_gauge_add` mark their names so) and
+"updown" (a counter that moves both ways, registered by its owner). The
+exporter renders both as Prometheus gauges (`gauge_kind`)."""
 from __future__ import annotations
 
 import bisect
 import math
 import threading
+from collections import deque
 from typing import Dict
 
-__all__ = ["stat_add", "stat_sub", "stat_get", "stat_set", "register_gauge",
-           "is_gauge_name", "histogram"]
+__all__ = ["stat_add", "stat_sub", "stat_get", "stat_set", "stat_gauge_add",
+           "stat_gauge_add_later", "register_gauge", "gauge_kind",
+           "is_gauge_name", "histogram", "all_stats", "all_histograms",
+           "registered_histograms"]
 
 _lock = threading.Lock()
 _stats: Dict[str, int] = {}
-_gauges: Dict[str, bool] = {}      # name -> updown
+_gauges: Dict[str, str] = {}       # name -> "level" | "updown"
 _hists: Dict[str, "StatHistogram"] = {}
+# gauge deltas from weakref.finalize callbacks: a finalizer runs wherever
+# a garbage collection starts, possibly inside a locked section below on
+# the same thread, so it must not take _lock; it queues its delta here (a
+# deque append takes no lock) and the next locked call applies it
+_later: deque = deque()
+
+
+def _apply_later() -> None:
+    # caller holds _lock
+    while _later:
+        name, n = _later.popleft()
+        _stats[name] = _stats.get(name, 0) + n
+        _note_level_gauge(name)
 
 
 def register_gauge(name: str, updown: bool = False) -> None:
     """Declare `name` a gauge (a level, not a monotonic counter);
     `updown` gauges move both ways through stat_add/stat_sub."""
     with _lock:
-        _gauges[name] = bool(updown)
+        _gauges[name] = "updown" if updown else "level"
+
+
+def _note_level_gauge(name: str) -> None:
+    # caller holds _lock; an explicit updown registration wins
+    if _gauges.get(name) != "updown":
+        _gauges[name] = "level"
+
+
+def gauge_kind(name: str):
+    """"level" / "updown" / None (a plain monotone counter)."""
+    with _lock:
+        _apply_later()
+        return _gauges.get(name)
 
 
 def is_gauge_name(name: str) -> bool:
-    return name in _gauges
+    """Should `name` render as a Prometheus gauge?"""
+    return gauge_kind(name) is not None
 
 
 def stat_add(name: str, n: int = 1) -> int:
     with _lock:
+        _apply_later()
         v = _stats[name] = _stats.get(name, 0) + int(n)
         return v
 
@@ -68,13 +107,40 @@ def stat_sub(name: str, n: int = 1) -> int:
 
 
 def stat_set(name: str, v: int) -> int:
+    """Set an absolute level (marks `name` a level gauge)."""
     with _lock:
+        _apply_later()
         _stats[name] = int(v)
+        _note_level_gauge(name)
         return int(v)
+
+
+def stat_gauge_add(name: str, n: int) -> int:
+    """Move a level gauge by a (possibly negative) delta: residency
+    gauges whose owners add on construction and subtract on teardown."""
+    with _lock:
+        _apply_later()
+        v = _stats[name] = _stats.get(name, 0) + int(n)
+        _note_level_gauge(name)
+        return v
+
+
+def stat_gauge_add_later(name: str, n: int) -> None:
+    """`stat_gauge_add` for a weakref.finalize callback: takes no lock
+    (see `_later`); every later monitor call sees the delta applied."""
+    _later.append((name, int(n)))
+
+
+def all_stats() -> Dict[str, int]:
+    """Snapshot of every counter and gauge, sorted by name."""
+    with _lock:
+        _apply_later()
+        return dict(sorted(_stats.items()))
 
 
 def stat_get(name: str) -> int:
     with _lock:
+        _apply_later()
         return _stats.get(name, 0)
 
 
@@ -122,6 +188,27 @@ class StatHistogram:
                 seen += c
             return self._max
 
+    @property
+    def count(self) -> int:
+        return self._n
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    def buckets(self):
+        """Cumulative `[(upper_bound, cumulative_count)]`, ending with
+        `(inf, count)`: the shape of a Prometheus `_bucket{le=...}`
+        series."""
+        with self._lock:
+            counts = list(self._counts)
+        out, cum = [], 0
+        for i, c in enumerate(counts):
+            cum += c
+            out.append((self._EDGES[i] if i < len(self._EDGES)
+                        else float("inf"), cum))
+        return out
+
     def snapshot(self) -> Dict[str, float]:
         n = self._n
         return {"count": n, "sum": self._sum,
@@ -138,3 +225,16 @@ def histogram(name: str) -> StatHistogram:
         if h is None:
             h = _hists[name] = StatHistogram(name)
         return h
+
+
+def all_histograms() -> Dict[str, Dict[str, float]]:
+    """`{name: snapshot}` of every histogram, sorted by name."""
+    with _lock:
+        items = sorted(_hists.items())
+    return {n: h.snapshot() for n, h in items}
+
+
+def registered_histograms() -> Dict[str, StatHistogram]:
+    """The live histogram objects (the exporter renders `buckets()`)."""
+    with _lock:
+        return dict(_hists)

@@ -14,8 +14,10 @@ maps logical positions to physical pages (`serving/kv_cache.py`).
   of whole pages (`_pages_per_split`) that write partials (acc, max,
   sum) into a float32 workspace the wrapper allocates, the second
   merging them; one call is one `.launches`. K1 serves every head dim
-  D with D % 8 == 0 and D <= 256; any other D raises
-  `InvalidArgumentError` (`_check_kernel_args`), never the plain version.
+  up to 512: D % 8 == 0 and D <= 256 at D itself with 16-byte loads, any
+  other D at a padded power-of-two width with one-value loads masked at
+  D. A larger D raises `InvalidArgumentError` (`_check_kernel_args`),
+  never the plain version.
 - **CPU tensors** run the plain version: gather the page table into a
   dense `[B, H, T, D]` buffer and run `cached_attention`, the masked
   softmax `GPTForCausalLM.generate`'s dense cache uses (positions beyond
@@ -50,6 +52,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import torch
 
@@ -65,7 +68,7 @@ __all__ = ["cached_attention", "paged_attention", "paged_attention_plain",
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_MAX_HEAD_DIM = 256    # K1 is built for every multiple of 8 up to this
+_MAX_HEAD_DIM = 512    # K1 serves every head dim up to this (see the .cu)
 
 
 def cached_attention(q, kb, vb, pos, scale):
@@ -303,9 +306,10 @@ def _pages_per_split(page_size):
 def _check_kernel_args(q, k_pages, v_pages, page_table, pos):
     """What K1 takes, checked without building or launching anything:
     float32, bfloat16 or float16 q [B, H, D] and pools [H, N, P, D] of one
-    type, a head dim D with D % 8 == 0 and D <= 256, int32 page_table
-    [B, PP] and pos [B], everything contiguous on q's device. Raises
-    InvalidArgumentError on anything else."""
+    type, a head dim D <= 512 (D % 8 == 0 and D <= 256 at D itself, any
+    other at a padded width), int32 page_table [B, PP] and pos [B],
+    everything contiguous on q's device. Raises InvalidArgumentError on
+    anything else."""
     H, N, P, D = k_pages.shape
     B, PP = page_table.shape
     if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
@@ -314,10 +318,10 @@ def _check_kernel_args(q, k_pages, v_pages, page_table, pos):
             f"paged_attention kernel takes float32, bfloat16 or float16 q "
             f"and pools of one type, got {q.dtype}/{k_pages.dtype}/"
             f"{v_pages.dtype}")
-    if not (0 < D <= _MAX_HEAD_DIM and D % 8 == 0):
+    if not 0 < D <= _MAX_HEAD_DIM:
         raise InvalidArgumentError(
             f"paged_attention kernel: head_dim {D} is not served; K1 takes "
-            f"head dims D with D % 8 == 0 and D <= {_MAX_HEAD_DIM}")
+            f"head dims D <= {_MAX_HEAD_DIM}")
     if tuple(q.shape) != (B, H, D) \
             or tuple(v_pages.shape) != tuple(k_pages.shape):
         raise InvalidArgumentError(
@@ -338,6 +342,16 @@ def _check_kernel_args(q, k_pages, v_pages, page_table, pos):
             "paged_attention: page_table [B, PP] and pos [B] must be int32")
 
 
+@functools.lru_cache(maxsize=None)
+def _workspace_width(D):
+    """The width of a K1 workspace row less its two statistics
+    (`paged_attention_workspace_width` of csrc/paged_attention.cu)."""
+    fn = _build.function("paged_attention.cu",
+                         "paged_attention_workspace_width", [ctypes.c_int],
+                         ctypes.c_int)
+    return int(fn(D))
+
+
 def _launch_paged_kernel(q, k_pages, v_pages, page_table, pos, scale):
     """K1 on the card. Checks what the kernel takes and raises on
     anything else; never falls back to the plain version."""
@@ -348,9 +362,10 @@ def _launch_paged_kernel(q, k_pages, v_pages, page_table, pos, scale):
                          _K1_ARGTYPES)
     pps = _pages_per_split(P)
     out = torch.empty_like(q)
-    # the splits' partials (acc[D], max, sum), written and merged by K1
-    ws = torch.empty(B, H, -(-PP // pps), D + 2, dtype=torch.float32,
-                     device=q.device)
+    # the splits' partials (acc[W], max, sum), written and merged by K1; W
+    # is D, or the padded width K1 runs D at
+    ws = torch.empty(B, H, -(-PP // pps), _workspace_width(D) + 2,
+                     dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -380,10 +395,11 @@ def paged_attention(q, k_pages, v_pages, page_table, pos, scale,
     int8 pools pass k_scales/v_scales ([H, N] per-page scales): they take
     the dequantizing gather + `cached_attention` on every device, and K1
     is not launched (the JAX package hands int8 pools to no kernel).
-    Otherwise a CUDA `q` launches kernel K1 (or raises); a CPU `q` — or
-    FLAGS_use_paged_attention off — runs `paged_attention_plain`.
-    `paged_attention.launches` counts kernel launches, and
-    `.launches_by_dtype` counts them by q's type ("float16")."""
+    Otherwise a CUDA `q` launches kernel K1 (or raises: K1 serves head
+    dims up to 512); a CPU `q` — or FLAGS_use_paged_attention off — runs
+    `paged_attention_plain`. `paged_attention.launches` counts kernel
+    launches, and `.launches_by_dtype` counts them by q's type
+    ("float16")."""
     if k_scales is not None:
         monitor.stat_add("STAT_paged_attn_reference")
         kb = paged_gather_quantized(k_pages, k_scales, page_table, q.dtype)

@@ -57,10 +57,42 @@ sequences a pool byte. A `quantization.quantize_weights`'d model
 composes independently: its decode-weight leaves are (int8, scale) pairs
 dequantized at their point of use.
 
+**Host KV tier** (`FLAGS_kv_tier` / `kv_tier=True`, with the prefix
+cache): a prefix-cache eviction demotes the chain's pages into a
+bounded host store (`serving/kv_tier.py`: raw bytes and int8 scale rows
+in the slots of a host slab that grows by segments up to the budget,
+pinned on the card) instead of discarding them, through the
+`tier_gather` program (one batch an eviction pass: a gather a pool, then
+a device-to-host copy a page, queued on the engine's stream and not
+waited for).
+A later prompt that walks the chain through host-state nodes promotes
+them: chunks of `kv_tier_chunk_pages` pages upload on a side CUDA stream
+into fresh staging buffers while the main stream scatters the previous
+chunk into the admission's fresh pages (`tier_write[w=C]`). Every pool
+write (zero-on-free, the scatter, an abandon's zeroing) stays on the
+main stream, which waits on each chunk's upload event before its
+scatter, so the tail prefill and every later decode read the promoted
+pages in order. The `kv_tier.promote_upload` failpoint abandons a
+promotion (written pages zeroed, cold prefill), `kv_tier.demote_gather`
+turns a demotion into a plain eviction.
+
+**Observability**, as in the JAX engine: a reason-coded decision audit
+ring (`profiler/audit.py`, optional JSONL sink `FLAGS_gen_audit_log`),
+one `StepRecord` per engine iteration (`profiler/step_log.py`,
+`FLAGS_gen_step_log`) whose six goodput buckets tile the iteration wall
+exactly, per-request spans with trace ids (`profiler/spans.py`,
+`FLAGS_serving_spans`) feeding the `ttft_ms`/`tpot_ms` histograms and
+the SLO burn rates (`profiler/slo.py`), flight-recorder dumps on engine
+death, a poisoned sequence and allocator exhaustion, device telemetry,
+and the HTTP exporter (`metrics_port=`: `/metrics`, `/stats`, `/steps`,
+`/slo`, `/trace`, `/history`, `/healthz`, `/readyz`). Deterministic
+fault injection goes through `serving/failpoints.py`
+(`FLAGS_failpoints`).
+
 Not ported yet, each raising `InvalidArgumentError` when asked for: the
-host KV tier, the program store and tensor-parallel lanes. The step log,
-audit ring, SLO tracking, exporter, failpoints and supervisor hooks come
-with later slices too.
+program store and tensor-parallel lanes. The supervisor seams
+(`incarnation`, `on_death`, `replay_submit`) and the degraded modes come
+with a later slice.
 """
 from __future__ import annotations
 
@@ -82,6 +114,11 @@ from ..framework.errors import (ExecutionTimeoutError, FatalError,
                                 ResourceExhaustedError, UnavailableError)
 from ..framework.flags import flag
 from ..framework.place import resolve_device
+from ..profiler import (RecordEvent, audit, device_telemetry, exporter,
+                        flight_recorder, slo, spans, step_log, timeseries,
+                        trace_context)
+from . import failpoints
+from .kv_tier import HostEntry, HostSlab, HostTier
 from ..models.gpt import (GPTForCausalLM, gpt_decode_step, gpt_logits,
                           gpt_prefill, gpt_prefill_extend, gpt_spec_verify,
                           sample_logits)
@@ -115,9 +152,12 @@ def _not_ported(knob: str):
 
 class GenerationConfig:
     """Continuous-batching knobs; defaults ride the FLAGS_gen_* /
-    FLAGS_paged_* registry. The JAX engine's knobs that are not ported
-    yet (kv_tier, program_store, tp) are accepted only in their off state
-    and raise otherwise."""
+    FLAGS_paged_* / FLAGS_kv_tier* registry. The JAX engine's knobs that
+    are not ported yet (program_store, tp) are accepted only in their
+    off state and raise otherwise. `warmup=False` skips the
+    construction-time run of every program: the ledger then fills at
+    each program's first call (and on the card the kernels build
+    then)."""
 
     def __init__(self, max_slots: Optional[int] = None,
                  page_size: Optional[int] = None,
@@ -134,11 +174,12 @@ class GenerationConfig:
                  spec_ngram: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  kv_tier: Optional[bool] = None,
+                 kv_tier_host_bytes: Optional[int] = None,
+                 kv_tier_chunk_pages: Optional[int] = None,
                  program_store: Optional[str] = None,
                  tp: Optional[int] = None,
-                 top_k: int = 0, seed: int = 0):
-        for knob, value, off in (("kv_tier", kv_tier, False),
-                                 ("program_store", program_store, ""),
+                 top_k: int = 0, seed: int = 0, warmup: bool = True):
+        for knob, value, off in (("program_store", program_store, ""),
                                  ("tp", tp, 1)):
             if value is not None and value != off:
                 raise _not_ported(knob)
@@ -199,8 +240,29 @@ class GenerationConfig:
         if self.prefill_chunk < 0:
             raise InvalidArgumentError(
                 "prefill_chunk must be >= 0 (0 = whole-prompt prefill)")
+        # the host tier demotes prefix-cache chains: without the chain
+        # index there is nothing to demote or promote
+        self.kv_tier = bool(flag("FLAGS_kv_tier")
+                            if kv_tier is None else kv_tier)
+        if self.kv_tier and not self.prefix_cache:
+            raise InvalidArgumentError(
+                "kv_tier requires prefix_cache (the host tier demotes "
+                "prefix-cache chains; enable FLAGS_gen_prefix_cache)")
+        self.kv_tier_host_bytes = int(
+            flag("FLAGS_kv_tier_host_bytes")
+            if kv_tier_host_bytes is None else kv_tier_host_bytes)
+        if self.kv_tier and self.kv_tier_host_bytes < 1:
+            raise InvalidArgumentError(
+                "kv_tier_host_bytes must be >= 1 when kv_tier is on")
+        self.kv_tier_chunk_pages = int(
+            flag("FLAGS_kv_tier_chunk_pages")
+            if kv_tier_chunk_pages is None else kv_tier_chunk_pages)
+        if self.kv_tier and self.kv_tier_chunk_pages < 1:
+            raise InvalidArgumentError(
+                "kv_tier_chunk_pages must be >= 1 when kv_tier is on")
         self.top_k = int(top_k)
         self.seed = int(seed)
+        self.warmup = bool(warmup)
 
 
 class TokenStream:
@@ -218,6 +280,9 @@ class TokenStream:
         self._exc: Optional[BaseException] = None
         self._ended = False
         self.future = future
+        # trace id, set at submit, so a streaming caller can correlate
+        # its tokens with the trace
+        self.trace_id: Optional[str] = None
 
     def _put(self, item) -> None:     # engine-side (step thread)
         self._q.put(item)
@@ -247,16 +312,16 @@ class TokenStream:
 class _GenRequest:
     __slots__ = ("rid", "prompt", "max_new", "eos", "do_sample",
                  "temperature", "future", "deadline_ms", "t_enqueue_ms",
-                 "slot", "pt_row", "toks", "next_pos", "stream",
-                 "ttft_deadline_ms", "t_first_ms", "t_last_ms",
+                 "span", "slot", "pt_row", "toks", "next_pos", "ordinal",
+                 "defer_logged", "stream", "ttft_deadline_ms",
                  "prefix_tokens", "prefill_pos", "pending_digests",
-                 "spec_accepted")
+                 "spec_accepted", "trace_id")
 
     _ids = itertools.count(1)
 
     def __init__(self, prompt, max_new, eos, do_sample, temperature,
-                 future, deadline_ms, t_enqueue_ms, stream=None,
-                 ttft_deadline_ms=None):
+                 future, deadline_ms, t_enqueue_ms, span, stream=None,
+                 ttft_deadline_ms=None, trace_id=None):
         self.rid = next(self._ids)
         self.prompt = prompt            # np.int32 [S]
         self.max_new = max_new
@@ -266,20 +331,22 @@ class _GenRequest:
         self.future = future
         self.deadline_ms = deadline_ms
         self.t_enqueue_ms = t_enqueue_ms
+        self.span = span                # GenSpan or None
         self.slot: Optional[int] = None
         self.pt_row = None              # np.int32 [pages_per_seq]
         self.toks: List[int] = []       # generated tokens (eos included)
         self.next_pos = 0               # cache position the NEXT step writes
+        self.ordinal = 0                # engine-local submit ordinal
+        self.defer_logged = set()       # audit DEFER_* causes noted once
         self.stream = stream            # TokenStream or None
         self.ttft_deadline_ms = ttft_deadline_ms  # HARD (streams)
-        self.t_first_ms = None
-        self.t_last_ms = None
         self.prefix_tokens = 0          # prompt tokens served from cache
         self.prefill_pos = None         # chunked prefill: next prompt
         #                                 position to prefill (None =
         #                                 prefill complete / not chunked)
         self.pending_digests = None     # prompt digests held across chunks
         self.spec_accepted = 0          # draft tokens accepted
+        self.trace_id = trace_id        # 16-hex trace id or None
 
 
 class GenerationEngine:
@@ -298,10 +365,14 @@ class GenerationEngine:
     step. Deadlines are whole-request and checked before every step.
 
     The engine runs on `device` (default the CUDA card; raises where
-    there is none); the model must live there already."""
+    there is none); the model must live there already. `metrics_port`
+    starts (or shares) the exporter's HTTP server on 127.0.0.1: 0 binds
+    an ephemeral port owned by this engine (read it back from
+    `engine.metrics_server.port`), None follows FLAGS_metrics_port."""
 
     def __init__(self, model, config: Optional[GenerationConfig] = None,
-                 name: str = "generation", device=None, **overrides):
+                 name: str = "generation", device=None,
+                 metrics_port: Optional[int] = None, **overrides):
         if config is None:
             config = GenerationConfig(**overrides)
         elif overrides:
@@ -356,6 +427,32 @@ class GenerationEngine:
         self._prefix = (PrefixCache(
             self._cache, name, max_pages=self._cfg.prefix_cache_max_pages)
             if self._cfg.prefix_cache else None)
+        # host tier: bounded host store the prefix cache demotes cold
+        # chains into (attach_tier below, once the audit ring exists).
+        # Its entries live in a host slab (pinned on the card) that grows
+        # by segments, one slot a page, up to enough slots for a full
+        # budget, or for one admission's protected run with the budget
+        # overshot by it, plus the page being gathered
+        self._slab = self._tier = None
+        if self._cfg.kv_tier and self._prefix is not None:
+            c = self._cache
+            parts = [((c.num_layers, c.num_heads, c.page_size, c.head_dim),
+                      c.k_pages.dtype)] * 2
+            if self._quant_kv:
+                parts += [((c.num_layers, c.num_heads), torch.float32)] * 2
+            per = c.page_host_bytes()
+            self._slab = HostSlab(
+                parts, max(self._cfg.kv_tier_host_bytes // per,
+                           self._cfg.pages_per_seq + 1) + 1,
+                pin=dev.type == "cuda")
+            self._tier = HostTier(self._cfg.kv_tier_host_bytes, name,
+                                  slab=self._slab)
+        # promotion uploads run on their own stream (created at first
+        # use on the card); pool writes stay on the current stream
+        self._upload_stream = None
+        # demoted pages whose copy waits for the end of the eviction
+        # pass: (page, slab slot), step thread only
+        self._gather_q: List[tuple] = []
         # chunks ride the per-bucket tail programs, so a chunk is never
         # wider than the largest bucket; 0 keeps whole-prompt prefill
         self._cfg.prefill_chunk = min(self._cfg.prefill_chunk,
@@ -383,19 +480,69 @@ class GenerationEngine:
         # stream's final token precedes its future's resolution
         self._resolve_q: List[tuple] = []
         self._stream_q: List[tuple] = []
+        self._warmed = False
         self._steps_total = 0
         self._prefills_total = 0
         self._tokens_total = 0
+        self._exhaust_dumped = False   # one flight dump per episode
+        self._req_seq = 0              # engine-local submit ordinal
         self._ledger = {}              # program shape key -> 1
         self._death: Optional[BaseException] = None
         self._pre_step_hook = None     # test seam: runs on the step thread
         self._hist = monitor.histogram(f"{name}_request_ms")
-        self._ttft_hist = monitor.histogram("ttft_ms")
-        self._tpot_hist = monitor.histogram("tpot_ms")
-        self._warmup()
-        self._thread = threading.Thread(
-            target=self._loop, daemon=True, name=f"{name}-genstep")
-        self._thread.start()
+        # decision audit ring (always on: one deque append a decision)
+        # and the per-iteration step ring (FLAGS_gen_step_log, read once
+        # here so a flag flip cannot half-enable a running engine)
+        self._audit = audit.AuditLog(name)
+        if self._tier is not None:
+            # demote-on-evict: evictions copy page content off the
+            # device into the host store before freeing it
+            self._prefix.attach_tier(self._tier, self._tier_gather_page,
+                                     audit=self._audit,
+                                     flush=self._tier_gather_flush)
+        self._step_log = (step_log.StepLog(name) if step_log.enabled()
+                          else None)
+        self._iters = 0
+        # last-seen cumulative tier counters: _record_iteration takes
+        # deltas for the per-iteration demote/promote counts
+        self._tier_counts = (0, 0)
+        self._it = self._fresh_it()
+        # published before the step thread exists, so a poller reads a
+        # truthful empty-engine snapshot
+        self._pressure = self._compute_pressure()
+        flight_recorder.touch()
+        device_telemetry.touch()
+        timeseries.touch()
+        exporter.register_engine(self)
+        try:
+            if self._cfg.warmup:
+                self._warmup()
+            self._warmed = True
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True, name=f"{name}-genstep")
+            self._thread.start()
+            self._owns_metrics_server = (metrics_port is not None
+                                         and int(metrics_port) == 0)
+            self.metrics_server = None
+            self.metrics_server = exporter.start_metrics_server(
+                metrics_port)
+        except Exception:
+            exporter.unregister_engine(self)
+            if self._step_log is not None:
+                step_log.unregister(self._step_log)
+            raise
+
+    @staticmethod
+    def _fresh_it() -> dict:
+        """The per-iteration counters `_record_iteration` turns into a
+        StepRecord (zeroed every iteration, step ring on or off)."""
+        return {"admitted": 0, "completed": 0, "expired": 0,
+                "poisoned": 0, "aborted": 0, "freed": 0,
+                "prefix_tokens": 0, "cow_splits": 0, "tokens": 0,
+                "spec_drafted": 0, "spec_accepted": 0,
+                "prefill_chunks": 0, "prefill_ms": 0.0, "decode_ms": 0.0,
+                "promote_ms": 0.0, "attr_idle_ms": 0.0,
+                "attr_sched_ms": 0.0, "attr_wall_ms": 0.0}
 
     # -- device programs ---------------------------------------------------
 
@@ -407,6 +554,14 @@ class GenerationEngine:
 
     def _t(self, a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=self._device)
+
+    def _t_async(self, a, dtype=None):
+        """`_t` without waiting for the stream: on the card the host
+        array goes up through pinned memory, in stream order."""
+        t = torch.as_tensor(a, dtype=dtype)
+        if self._device.type != "cuda":
+            return t
+        return t.pin_memory().to(self._device, non_blocking=True)
 
     def _write_pages(self, layer, page_ids, offs, k, v, requant=False):
         """Write K/V into the pools in place: quantized on append in the
@@ -630,22 +785,174 @@ class GenerationEngine:
         scale cannot outlive its content."""
         PP = self._cfg.pages_per_seq
         for i in range(0, max(len(pages), 1), PP):
-            row = self._t(self._cache.zero_rows(pages[i:i + PP]),
-                          torch.long)
+            row = self._t_async(self._cache.zero_rows(pages[i:i + PP]),
+                                torch.long)
             for pool in self._pools():
                 pool[:, :, row] = 0
+
+    # -- host tier ---------------------------------------------------------
+
+    def _tier_gather(self, page: int) -> HostEntry:
+        """One page's demotion: a free slot of the host slab (pinned on
+        the card) is taken for it and the page queued. The copy is the
+        `tier_gather` program at `_tier_gather_flush`, which the prefix
+        cache runs when its eviction pass is over, before the engine can
+        zero or reuse a freed page."""
+        slot, views = self._slab.take()
+        self._gather_q.append((page, slot))
+        return HostEntry(*views, slot=slot)
+
+    def _tier_gather_flush(self):
+        """The `tier_gather` program: the queued pages' raw blocks (and
+        int8 scale rows) in one batch, one gather a pool into a device
+        buffer of slot-shaped rows, then one copy a page into its slot.
+        On the card the copies are queued on the engine's stream and not
+        waited for: every later write of a page (its zeroing when freed,
+        a new owner's prefill) queues behind them on that stream, and a
+        promotion's uploads wait for it (`_tier_upload`). It first waits
+        for the upload stream: a slot freed by a promotion may still be
+        read by that promotion's uploads."""
+        queued, self._gather_q = self._gather_q, []
+        if not queued:
+            return
+        self._note("tier_gather")
+        # a slot released and taken again within one pass holds the
+        # later page
+        page_of = {slot: page for page, slot in queued}
+        slots = list(page_of)
+        cuda = self._device.type == "cuda"
+        if cuda and self._upload_stream is not None:
+            torch.cuda.current_stream(self._device).wait_stream(
+                self._upload_stream)
+        idx = self._t_async(np.asarray([page_of[s] for s in slots],
+                                       np.int64))
+        rows = torch.empty(len(slots), self._slab.slot_bytes,
+                           dtype=torch.uint8, device=self._device)
+        for pool, dst in zip(self._pools(), self._slab.part_views(rows)):
+            dst.copy_(pool[:, :, idx].movedim(2, 0))
+        for row, slot in zip(rows, slots):
+            self._slab.raw(slot).copy_(row, non_blocking=cuda)
+
+    def _tier_gather_page(self, page: int):
+        """Demotion gather callback (`PrefixCache.attach_tier`): the
+        page's `HostEntry`, or None when the `kv_tier.demote_gather`
+        failpoint fires (the eviction then proceeds plain, content
+        discarded)."""
+        if failpoints.fire("kv_tier.demote_gather") is not None:
+            return None
+        return self._tier_gather(page)
+
+    def _tier_upload(self, entries):
+        """Stage host entries on the device, one copy of a slot's bytes
+        a page: on the card the copies run on the upload stream into a
+        fresh staging buffer (the slab is pinned, so they are
+        asynchronous DMA), after the engine's stream has queued the
+        entries' gathers, and the event recorded after them is returned
+        for the scatter to wait on; on the CPU the slots are stacked in
+        place. Returns (blocks, event), blocks [c, L, H, P, D] (scale
+        blocks [c, L, H]), views of the staging buffer."""
+        if self._device.type != "cuda":
+            rows = torch.stack([self._slab.raw(e.slot) for e in entries])
+            return self._slab.part_views(rows), None
+        if self._upload_stream is None:
+            self._upload_stream = torch.cuda.Stream(self._device)
+        self._upload_stream.wait_stream(
+            torch.cuda.current_stream(self._device))
+        with torch.cuda.stream(self._upload_stream):
+            rows = torch.empty(len(entries), self._slab.slot_bytes,
+                               dtype=torch.uint8, device=self._device)
+            for row, e in zip(rows, entries):
+                row.copy_(self._slab.raw(e.slot), non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self._upload_stream)
+        return self._slab.part_views(rows), ev
+
+    def _tier_write(self, targets, blocks, ev):
+        """The `tier_write[w=C]` program: scatter one staged chunk into
+        its target pages on the current stream, after the chunk's upload
+        event. The staging buffer is marked in use by this stream, so
+        the allocator cannot hand it back to the upload stream before
+        the scatter has read it."""
+        self._note(f"tier_write[w={self._cfg.kv_tier_chunk_pages}]")
+        idx = self._t_async(np.asarray(targets, np.int64))
+        if ev is not None:
+            cur = torch.cuda.current_stream(self._device)
+            cur.wait_event(ev)
+            blocks[0].record_stream(cur)
+        for pool, b in zip(self._pools(), blocks):
+            pool[:, :, idx] = b.movedim(0, 2)
+
+    def _promote_upload(self, req: _GenRequest, host_digests,
+                        matched_hbm: int) -> bool:
+        """Re-upload an admission's matched host-tier run into its own
+        fresh target pages (`pt_row[matched_hbm:]`), double-buffered:
+        chunk i+1's upload is issued before chunk i's scatter, so on the
+        card the two overlap, and nothing here waits for the device —
+        the tail prefill queues behind the scatters on the same stream.
+        Returns True on success, False on abandon.
+
+        Abandon (the `kv_tier.promote_upload` failpoint, checked before
+        each chunk's scatter): the target pages written so far are
+        zeroed, content and int8 scale grids (the tail prefill's
+        requant write would otherwise merge junk scales into a grid that
+        only ever widens); the never-written rest is still zero (fresh
+        pages arrive zeroed), and the caller falls back to prefilling
+        the whole suffix cold. The popped host entries are gone either
+        way: move semantics, one copy ever."""
+        C = self._cfg.kv_tier_chunk_pages
+        n = len(host_digests)
+        targets = [int(p) for p in
+                   req.pt_row[matched_hbm:matched_hbm + n]]
+        entries, cascaded = self._prefix.consume_promoted(host_digests)
+        if cascaded:
+            self._audit.audit("KV_TIER_EVICT", rid=req.rid,
+                              entries=cascaded)
+        if any(e is None for e in entries):
+            # protect() held these across the eviction pass, so a
+            # missing entry is a logic fault: abandon before any write
+            self._tier.note_abandon()
+            self._audit.audit("KV_PROMOTE_ABANDON", rid=req.rid,
+                              pages=n, written=0)
+            return False
+        t0 = _now_ms()
+        written = 0
+        staged = self._tier_upload(entries[:C])
+        while written < n:
+            if failpoints.fire("kv_tier.promote_upload") is not None:
+                self._zero_pages(targets[:written])
+                self._tier.note_abandon()
+                self._audit.audit("KV_PROMOTE_ABANDON", rid=req.rid,
+                                  pages=n, written=written)
+                self._it["promote_ms"] += _now_ms() - t0
+                return False
+            hi = min(written + C, n)
+            nxt = (self._tier_upload(entries[hi:hi + C]) if hi < n
+                   else None)
+            with RecordEvent(f"generation::tier_write[w={C}]"):
+                self._tier_write(targets[written:hi], *staged)
+            written, staged = hi, nxt
+        self._tier.note_promotion(n)
+        self._audit.audit("KV_PROMOTE", rid=req.rid, pages=n,
+                          tokens=n * self._cfg.page_size,
+                          ms=round(_now_ms() - t0, 3))
+        self._it["promote_ms"] += _now_ms() - t0
+        return True
 
     @torch.inference_mode()
     def _warmup(self):
         """Run every prefill bucket (and, with the prefix cache or
         chunking on, its tail program), the CoW copy with the prefix
-        cache, and the decode step (or, with speculation on, the ONE
-        verify[k] program that replaces it) once, so the kernels are
-        built and the ledger is complete before the first request, as
-        the JAX engine's warmup compiles them. Writes land only on the
-        scratch page."""
+        cache, the tier gather and write with the host tier, and the
+        decode step (or, with speculation on, the ONE verify[k] program
+        that replaces it) once, so the kernels are built and the ledger
+        is complete before the first request, as the JAX engine's
+        warmup compiles them. Writes land only on the scratch page."""
         PP = self._cfg.pages_per_seq
         trash = np.zeros((PP,), np.int32)
+        with RecordEvent("generation::warmup"):
+            self._warmup_programs(trash)
+
+    def _warmup_programs(self, trash):
         for b in self._cfg.prefill_buckets:
             ids = np.zeros((1, b), np.int64)
             self._prefill_call(trash, ids, 1).cpu()
@@ -653,6 +960,18 @@ class GenerationEngine:
                 self._tail_prefill_call(trash, ids, 1, 0).cpu()
         if self._prefix is not None:
             self._cow_copy(TRASH_PAGE, TRASH_PAGE)
+        if self._tier is not None:
+            # the tier programs, on the scratch page: a gather, then two
+            # full chunks of its copy in flight at once and scattered
+            # back, as a promotion runs them, so the staging buffers a
+            # promotion uses are allocated here and not on a request
+            C = self._cfg.kv_tier_chunk_pages
+            e = self._tier_gather(TRASH_PAGE)
+            self._tier_gather_flush()
+            staged = [self._tier_upload([e] * C) for _ in range(2)]
+            for st in staged:
+                self._tier_write([TRASH_PAGE] * C, *st)
+            self._slab.release(e.slot)
         if self._spec_k:
             self._verify_call(*self._spec_arrays()[0])
         else:
@@ -665,15 +984,19 @@ class GenerationEngine:
                eos_token_id: Optional[int] = None,
                timeout_ms: Optional[float] = None,
                do_sample: bool = False,
-               temperature: float = 1.0) -> Future:
+               temperature: float = 1.0,
+               trace_id: Optional[str] = None) -> Future:
         """Enqueue one prompt (1-D int token ids); returns a Future of
         the full sequence (prompt + generated tokens, numpy int32; EOS,
         when hit, is included). Raises `EngineOverloaded` at
         max_queue_depth, `InvalidArgumentError`/`ResourceExhaustedError`
-        for requests that could never run."""
+        for requests that could never run. `trace_id` is an upstream
+        hop's 16-hex trace id; omitted, the engine mints its own when
+        FLAGS_trace_propagation is on."""
         return self._submit(prompt_ids, max_new_tokens, eos_token_id,
                             timeout_ms, do_sample, temperature,
-                            stream=None, ttft_timeout_ms=None).future
+                            stream=None, ttft_timeout_ms=None,
+                            trace_id=trace_id).future
 
     def submit_stream(self, prompt_ids,
                       max_new_tokens: Optional[int] = None,
@@ -681,7 +1004,8 @@ class GenerationEngine:
                       timeout_ms: Optional[float] = None,
                       ttft_timeout_ms: Optional[float] = None,
                       do_sample: bool = False,
-                      temperature: float = 1.0) -> TokenStream:
+                      temperature: float = 1.0,
+                      trace_id: Optional[str] = None) -> TokenStream:
         """Streaming submit: tokens leave the engine as they are decoded.
         `ttft_timeout_ms` is HARD (expiry before the first token cancels
         with ExecutionTimeoutError); `timeout_ms` is SOFT once tokens
@@ -691,11 +1015,13 @@ class GenerationEngine:
         stream = TokenStream(Future())
         self._submit(prompt_ids, max_new_tokens, eos_token_id, timeout_ms,
                      do_sample, temperature, stream=stream,
-                     ttft_timeout_ms=ttft_timeout_ms)
+                     ttft_timeout_ms=ttft_timeout_ms, trace_id=trace_id)
         return stream
 
+    @RecordEvent("generation::submit")
     def _submit(self, prompt_ids, max_new_tokens, eos_token_id, timeout_ms,
-                do_sample, temperature, stream, ttft_timeout_ms):
+                do_sample, temperature, stream, ttft_timeout_ms,
+                trace_id=None):
         if torch.is_tensor(prompt_ids):
             prompt_ids = prompt_ids.cpu().numpy()
         prompt = np.asarray(prompt_ids)
@@ -732,24 +1058,47 @@ class GenerationEngine:
         tmo = (self._cfg.request_timeout_ms if timeout_ms is None
                else float(timeout_ms))
         ttft_tmo = 0.0 if ttft_timeout_ms is None else float(ttft_timeout_ms)
+        # trace context: an upstream hop's id continues its chain (a
+        # flow STEP); a direct submit mints the chain root when
+        # propagation is on; off = no id, no cost
+        tid, trace_root = None, True
+        if trace_id is not None and trace_context.is_trace_id(str(trace_id)):
+            tid, trace_root = str(trace_id), False
+        elif trace_context.enabled():
+            tid = trace_context.new_trace_id()
+        reject_depth = None
         with self._cv:
             if self._closed:
                 raise UnavailableError(f"{self.name}: engine is shut down")
             if len(self._queue) >= self._cfg.max_queue_depth:
-                monitor.stat_add("STAT_gen_rejected")
-                raise EngineOverloaded(
-                    f"{self.name}: queue depth {self._cfg.max_queue_depth} "
-                    f"reached; shed load or raise "
-                    f"FLAGS_gen_max_queue_depth")
-            req = _GenRequest(
-                prompt, max_new, eos_token_id, bool(do_sample),
-                float(temperature),
-                stream.future if stream is not None else Future(),
-                None if not tmo else t + tmo, t, stream=stream,
-                ttft_deadline_ms=t + ttft_tmo if ttft_tmo else None)
-            self._queue.append(req)
-            monitor.stat_add("STAT_gen_queue_depth")
-            self._cv.notify_all()
+                reject_depth = len(self._queue)
+            else:
+                req = _GenRequest(
+                    prompt, max_new, eos_token_id, bool(do_sample),
+                    float(temperature),
+                    stream.future if stream is not None else Future(),
+                    None if not tmo else t + tmo, t,
+                    spans.start_gen(self.name, trace_id=tid,
+                                    trace_root=trace_root),
+                    stream=stream,
+                    ttft_deadline_ms=t + ttft_tmo if ttft_tmo else None,
+                    trace_id=tid)
+                if stream is not None:
+                    stream.trace_id = tid
+                self._req_seq += 1
+                req.ordinal = self._req_seq
+                self._queue.append(req)
+                monitor.stat_add("STAT_gen_queue_depth")
+                self._cv.notify_all()
+        if reject_depth is not None:
+            # audited outside the lock: the JSONL sink's disk write must
+            # not stall the step thread behind rejected clients
+            monitor.stat_add("STAT_gen_rejected")
+            self._audit.audit("REJECT_QUEUE_FULL", queue_depth=reject_depth)
+            self._audit.flush_sink()
+            raise EngineOverloaded(
+                f"{self.name}: queue depth {self._cfg.max_queue_depth} "
+                f"reached; shed load or raise FLAGS_gen_max_queue_depth")
         monitor.stat_add("STAT_gen_requests")
         return req
 
@@ -773,28 +1122,52 @@ class GenerationEngine:
             raise
 
     def _run(self):
+        # goodput attribution marks: `t_mark` is the previous
+        # iteration's record boundary, so the wall is mark to mark and
+        # the record/flush work after a record lands is charged to the
+        # NEXT iteration's bookkeeping bucket: consecutive records tile
+        # the step thread's timeline exactly
+        t_mark = time.perf_counter()
+        idle_s = 0.0
         while True:
             with self._cv:
                 while (not self._queue and self._num_active() == 0
                        and not self._closed):
+                    t0 = time.perf_counter()
                     self._cv.wait()
+                    idle_s += time.perf_counter() - t0
                 if self._closed and self._abort:
                     self._evict_all(UnavailableError(
                         f"{self.name}: engine shut down"))
+                    # the aborted/freed counts land in the ring too, so
+                    # its sums reconcile on the abort exit
+                    self._record_iteration()
                     self._flush_resolutions()
                     return
                 if (self._closed and not self._queue
                         and self._num_active() == 0):
                     return
+            t0 = time.perf_counter()
             self._admit()
             self._expire_active()
             if self._cfg.prefill_chunk:
                 self._advance_prefills()
+            sched_s = time.perf_counter() - t0
             stepped = False
             if any(r is not None and r.prefill_pos is None
                    for r in self._slots):
                 self._step()
                 stepped = True
+            now = time.perf_counter()
+            it = self._it
+            it["attr_idle_ms"] = idle_s * 1000.0
+            it["attr_sched_ms"] = sched_s * 1000.0
+            it["attr_wall_ms"] = (now - t_mark) * 1000.0
+            t_mark, idle_s = now, 0.0
+            self._record_iteration()
+            # sink before resolutions: a caller woken by result() may
+            # read the JSONL at once, and its own event must be there
+            self._audit.flush_sink()
             self._flush_resolutions()
             if not stepped:
                 with self._cv:
@@ -802,15 +1175,86 @@ class GenerationEngine:
                             and not self._abort):
                         # unadmittable head (page exhaustion): bounded
                         # wait so queued deadlines still expire
+                        t0 = time.perf_counter()
                         self._cv.wait(0.01)
+                        idle_s += time.perf_counter() - t0
 
-    def _resolve_later(self, req: _GenRequest, result=None, exc=None):
-        """Hold a request's resolution until the end of the iteration;
-        its stream (if any) gets the terminal marker first."""
+    def _record_iteration(self):
+        """One compact scheduler record per engine iteration: decisions
+        taken this pass, queue pressure, page-pool occupancy, prefill
+        and decode wall, and the six goodput buckets. Host bookkeeping
+        only: one ring append and a few histogram observes. The
+        per-iteration counters are zeroed whether or not the ring is
+        on."""
+        it, self._it = self._it, self._fresh_it()
+        # pressure snapshot, republished on the step thread (the only
+        # thread that moves the allocator), so pressure() takes no lock
+        self._pressure = self._compute_pressure()
+        if self._step_log is None:
+            return
+        self._iters += 1
+        with self._cv:
+            depth = len(self._queue)
+            oldest = (self._queue[0].t_enqueue_ms if self._queue
+                      else None)
+            live = self._num_active()
+        tier_dem = tier_pro = 0
+        if self._tier is not None:
+            d, p = self._tier.demotions, self._tier.promotions
+            ld, lp = self._tier_counts
+            tier_dem, tier_pro = d - ld, p - lp
+            self._tier_counts = (d, p)
+        # six buckets that reconcile EXACTLY to the iteration wall: every
+        # stored value is rounded first and bookkeeping is the remainder
+        # of the rounded parts. The admit bucket is the scheduler time
+        # less the prefill and promote work nested inside it
+        a_wall = round(it["attr_wall_ms"], 3)
+        a_idle = round(it["attr_idle_ms"], 3)
+        a_prefill = round(it["prefill_ms"], 3)
+        a_promote = round(it["promote_ms"], 3)
+        a_decode = round(it["decode_ms"], 3)
+        a_admit = round(max(0.0, it["attr_sched_ms"] - it["prefill_ms"]
+                            - it["promote_ms"]), 3)
+        a_book = (a_wall - a_idle - a_admit - a_prefill - a_promote
+                  - a_decode)
+        self._step_log.record(step_log.StepRecord(
+            it=self._iters, step=self._steps_total,
+            t=time.perf_counter(), live=live, queue_depth=depth,
+            oldest_age_ms=(round(_now_ms() - oldest, 3)
+                           if oldest is not None else 0.0),
+            pages_in_use=self._cache.pages_in_use,
+            free_pages=self._cache.free_pages,
+            admitted=it["admitted"], completed=it["completed"],
+            expired=it["expired"], poisoned=it["poisoned"],
+            aborted=it["aborted"], freed=it["freed"],
+            prefix_tokens=it["prefix_tokens"],
+            cow_splits=it["cow_splits"], tokens=it["tokens"],
+            spec_drafted=it["spec_drafted"],
+            spec_accepted=it["spec_accepted"],
+            prefill_chunks=it["prefill_chunks"],
+            prefill_ms=a_prefill, decode_ms=a_decode, incarnation=0,
+            tier_demotions=tier_dem, tier_promotions=tier_pro, tp=1,
+            attr_admit_ms=a_admit, attr_promote_ms=a_promote,
+            attr_bookkeep_ms=a_book, attr_idle_ms=a_idle,
+            attr_wall_ms=a_wall))
+
+    def _resolve_later(self, req: Optional[_GenRequest], fut, result=None,
+                       exc=None):
+        """Hold a future's resolution until this iteration's record has
+        landed: a caller woken by result() then sees a step ring and an
+        audit tail that include its own outcome. `req` rides along so
+        _die never hands a request with a staged outcome the death
+        error as well."""
+        self._resolve_q.append((req, fut, result, exc))
+
+    def _resolve_req_later(self, req: _GenRequest, result=None, exc=None):
+        """Request-level resolution: the stream (if any) gets its
+        terminal marker (the error, or the end marker) staged before the
+        future, behind the same barrier."""
         if req.stream is not None:
             self._stream_q.append((req.stream, exc if exc is not None
                                    else TokenStream._END))
-        self._resolve_q.append((req.future, result, exc))
+        self._resolve_later(req, req.future, result, exc)
 
     def _stage_token(self, req: _GenRequest, tok: int):
         if req.stream is not None:
@@ -821,7 +1265,7 @@ class GenerationEngine:
         for stream, item in sq:
             stream._put(item)
         q, self._resolve_q = self._resolve_q, []
-        for fut, result, exc in q:
+        for _req, fut, result, exc in q:
             try:
                 if exc is not None:
                     fut.set_exception(exc)
@@ -832,27 +1276,60 @@ class GenerationEngine:
 
     def _die(self, e: BaseException):
         """The step loop raised: fail every queued and live request with
-        a typed error instead of leaving its caller waiting."""
+        a typed error instead of leaving its caller waiting, audit each
+        as ENGINE_DIED, and dump the flight record with the step-log and
+        audit tails that led here."""
+        # two independent try blocks: a failed ring record on a
+        # half-broken engine must not also strand the staged resolutions
+        try:
+            self._record_iteration()
+        except Exception:  # noqa: BLE001 — best effort on a dying engine
+            pass
+        # requests with an outcome staged this iteration get it, never
+        # the death error as well
+        settled = {req.rid for req, _f, _r, _e in self._resolve_q
+                   if req is not None}
         try:
             self._flush_resolutions()
         except Exception:  # noqa: BLE001 — best effort on a dying engine
             pass
+        stranded = []
         with self._cv:
             self._closed = True
             self._death = e
-            stranded = list(self._queue)
-            self._queue.clear()
-            monitor.stat_sub("STAT_gen_queue_depth", len(stranded))
+            while self._queue:
+                req = self._queue.popleft()
+                monitor.stat_sub("STAT_gen_queue_depth")
+                if req.rid not in settled:
+                    stranded.append(req)
             self._cv.notify_all()
+        active = [r for r in self._slots
+                  if r is not None and r.rid not in settled]
         err = UnavailableError(f"{self.name}: generation engine died: "
                                f"{e!r}")
-        for req in [r for r in self._slots if r is not None] + stranded:
+        for req in active + stranded:
             if req.stream is not None:
+                # direct put: the step loop is dead, no flush follows
                 req.stream._put(err)
             try:
                 req.future.set_exception(err)
             except Exception:  # noqa: BLE001 — already settled
                 pass
+            self._audit.audit("ENGINE_DIED", rid=req.rid, error=repr(e))
+            slo.observe_request(self.name, ok=False)
+        self._audit.flush_sink()
+        flight_recorder.dump("gen_engine_death", {
+            "engine": self.name, "error": repr(e),
+            "stranded_requests": len(stranded),
+            "active_sequences": len(active),
+            "inflight_spans": [r.span.to_dict() for r in active
+                               if r.span is not None][:64],
+            "step_log_tail": self._step_log_tail(),
+            "audit_tail": self._audit.tail(64)})
+
+    def _step_log_tail(self):
+        return (self._step_log.tail(32) if self._step_log is not None
+                else [])
 
     # -- admission ---------------------------------------------------------
 
@@ -863,12 +1340,16 @@ class GenerationEngine:
         the prompt walks maps read-only (pinned across the eviction
         pass), evictable chains are LRU-evicted before alloc when the
         free list alone is short, and a full-prompt match CoW-splits the
-        page holding its last position. A prompt whose uncached tail is
-        longer than `prefill_chunk` is admitted now and prefilled one
-        chunk per iteration."""
+        page holding its last position. With the host tier, the walk
+        continues through demoted pages, which are promoted into the
+        admission's fresh pages before its tail prefill. A prompt whose
+        uncached tail is longer than `prefill_chunk` is admitted now and
+        prefilled one chunk per iteration."""
         P = self._cfg.page_size
         while True:
             with self._cv:
+                # whole-queue sweep: a request behind a page-blocked head
+                # still gets its deadline error on time
                 self._expire_queued()
                 if not self._queue:
                     return
@@ -876,26 +1357,51 @@ class GenerationEngine:
                 slot = next((i for i, r in enumerate(self._slots)
                              if r is None), None)
                 if slot is None:
+                    # once per request per cause: a full batch defers the
+                    # head every iteration
+                    if "slots" not in req.defer_logged:
+                        req.defer_logged.add("slots")
+                        self._audit.audit("DEFER_SLOTS", rid=req.rid,
+                                          queue_depth=len(self._queue))
                     return
                 S = int(req.prompt.size)
                 total = S + req.max_new
                 need = self._cache.pages_needed(total)
-                digests, hit_pages = [], []
+                digests, hit_pages, host_digests = [], [], []
                 if self._prefix is not None:
-                    digests, hit_pages = self._prefix.lookup(req.prompt)
-                matched = len(hit_pages)
+                    if self._tier is not None:
+                        digests, hit_pages, host_digests = \
+                            self._prefix.lookup_tiered(req.prompt)
+                    else:
+                        digests, hit_pages = self._prefix.lookup(req.prompt)
+                matched_hbm = len(hit_pages)
+                promote_n = len(host_digests)
+                matched = matched_hbm + promote_n
                 # a FULL-prompt match keeps every page but recomputes its
                 # last position's logits, through a private copy of the
-                # page holding it (the one divergent write)
+                # page holding it (the one divergent write); a full match
+                # whose tail comes up from the host tier needs no CoW:
+                # the last promoted page is this request's own
                 full_match = matched > 0 and matched * P == S
-                fresh_needed = need - matched + (1 if full_match else 0)
-                if matched:
+                cow_needed = full_match and promote_n == 0
+                # promotion targets are fresh pages too: (need - matched)
+                # suffix pages + promote_n targets = need - matched_hbm
+                fresh_needed = need - matched_hbm + (1 if cow_needed else 0)
+                if matched_hbm:
                     # refcount >= 2 takes the matched chain out of the
                     # evictable set for the eviction below
                     self._cache.pin(hit_pages)
+                if promote_n:
+                    # the same eviction pass may demote victims into the
+                    # tier: shield the matched host run from its LRU
+                    self._prefix.protect(host_digests)
                 try:
-                    if fresh_needed > self._cache.reclaimable_pages:
-                        monitor.stat_add("STAT_gen_admit_blocked")
+                    # the alloc_exhaust failpoint forces the exhaustion
+                    # verdict without draining the pool
+                    if (fresh_needed > self._cache.reclaimable_pages
+                            or failpoints.fire("alloc_exhaust")
+                            is not None):
+                        self._defer_pages(req, fresh_needed)
                         return
                     if fresh_needed > self._cache.free_pages:
                         # evictable pages counted as capacity above;
@@ -903,6 +1409,10 @@ class GenerationEngine:
                         freed = self._prefix.evict(
                             fresh_needed - self._cache.free_pages,
                             exclude=hit_pages)
+                        self._audit.audit(
+                            "EVICT_PREFIX_LRU", rid=req.rid,
+                            pages=len(freed),
+                            free_pages=self._cache.free_pages)
                         if freed:
                             self._zero_pages(freed)
                         if fresh_needed > self._cache.free_pages:
@@ -914,6 +1424,7 @@ class GenerationEngine:
                     self._queue.popleft()
                     monitor.stat_sub("STAT_gen_queue_depth")
                     if not req.future.set_running_or_notify_cancel():
+                        self._audit.audit("CANCELLED", rid=req.rid)
                         if req.stream is not None:
                             self._stream_q.append(
                                 (req.stream, CancelledError()))
@@ -922,22 +1433,53 @@ class GenerationEngine:
                     req.pt_row = self._cache.alloc_shared(req.rid, total,
                                                           hit_pages)
                 finally:
-                    if matched:
+                    if matched_hbm:
                         self._cache.unpin(hit_pages)
+                    if promote_n:
+                        self._prefix.unprotect()
                 cow_src = cow_dst = None
-                if full_match:
+                if cow_needed:
                     cow_src = hit_pages[-1]
                     cow_dst = self._cache.cow_split(req.rid, cow_src)
                     req.pt_row[matched - 1] = cow_dst
                     monitor.stat_add("STAT_cow_splits")
+                    self._it["cow_splits"] += 1
+                    self._audit.audit("COW_SPLIT", rid=req.rid,
+                                      src_page=cow_src, dst_page=cow_dst)
                 self._slots[slot] = req
+                self._it["admitted"] += 1
             if cow_dst is not None:
                 # clone the shared page before the tail prefill writes
                 # position S-1 through the private copy
                 self._cow_copy(cow_src, cow_dst)
+            if promote_n and not self._promote_upload(req, host_digests,
+                                                      matched_hbm):
+                # abandon: the match shrinks back to the device run and
+                # the tail prefill covers the rest cold
+                matched, full_match = matched_hbm, False
+            # counted after the promotion resolved: an abandon must not
+            # count host pages it never served
             req.prefix_tokens = (S - 1) if full_match else matched * P
             if self._prefix is not None:
-                self._prefix.note_admitted(req.prefix_tokens)
+                self._prefix.note_admitted(
+                    req.prefix_tokens,
+                    host_tokens=(matched - matched_hbm) * P)
+            self._it["prefix_tokens"] += req.prefix_tokens
+            if matched:
+                self._audit.audit(
+                    "ADMIT_PREFIX_HIT", rid=req.rid, slot=slot, pages=need,
+                    shared_pages=matched_hbm,
+                    promoted_pages=matched - matched_hbm,
+                    prefix_tokens=req.prefix_tokens,
+                    queued_ms=round(_now_ms() - req.t_enqueue_ms, 3))
+            else:
+                self._audit.audit(
+                    "ADMIT", rid=req.rid, slot=slot, pages=need,
+                    queued_ms=round(_now_ms() - req.t_enqueue_ms, 3))
+            if req.span is not None:
+                req.span.slot = slot
+                req.span.prefix_tokens = req.prefix_tokens
+                req.span.stamp("admitted")
             chunk = self._cfg.prefill_chunk
             if chunk and S - req.prefix_tokens > chunk:
                 # the slot joins decode when prefill_pos reaches S
@@ -945,6 +1487,27 @@ class GenerationEngine:
                 req.pending_digests = digests
             else:
                 self._do_prefill(req, digests)
+
+    def _defer_pages(self, req: _GenRequest, fresh_needed: int):
+        """The head cannot get its worst-case pages: count it, audit it
+        once per request, and dump one flight record per exhaustion
+        episode (a free of pages starts the next). Caller holds the
+        lock."""
+        monitor.stat_add("STAT_gen_admit_blocked")
+        if "pages" not in req.defer_logged:
+            req.defer_logged.add("pages")
+            self._audit.audit(
+                "DEFER_PAGES", rid=req.rid, need_pages=fresh_needed,
+                free_pages=self._cache.free_pages,
+                reclaimable=self._cache.reclaimable_pages)
+        if not self._exhaust_dumped:
+            self._exhaust_dumped = True
+            flight_recorder.dump("gen_allocator_exhausted", {
+                "engine": self.name, "rid": req.rid,
+                "need_pages": fresh_needed, "cache": self._cache.stats(),
+                "queue_depth": len(self._queue),
+                "step_log_tail": self._step_log_tail(),
+                "audit_tail": self._audit.tail(64)})
 
     def _expire_queued(self):
         """Fail every expired request and drop every cancelled one from
@@ -959,12 +1522,17 @@ class GenerationEngine:
             if deadlines and t > min(deadlines):
                 monitor.stat_sub("STAT_gen_queue_depth")
                 monitor.stat_add("STAT_gen_timeouts")
-                self._resolve_later(req, exc=ExecutionTimeoutError(
+                self._it["expired"] += 1
+                self._audit.audit("EXPIRE_QUEUED", rid=req.rid,
+                                  queued_ms=round(t - req.t_enqueue_ms, 3))
+                slo.observe_request(self.name, ok=False)
+                self._resolve_req_later(req, exc=ExecutionTimeoutError(
                     f"{self.name}: request expired after "
                     f"{t - req.t_enqueue_ms:.1f}ms in queue"))
                 continue
             if req.future.cancelled():
                 monitor.stat_sub("STAT_gen_queue_depth")
+                self._audit.audit("CANCELLED", rid=req.rid)
                 if req.stream is not None:
                     self._stream_q.append((req.stream, CancelledError()))
                 continue
@@ -982,41 +1550,80 @@ class GenerationEngine:
         sample the first token, and mark the slot live. A prefix hit
         (req.prefix_tokens > 0) prefills ONLY the tail through the tail
         program; the cached pages are read, never written. Non-finite
-        logits fail ONLY this request and return its pages zeroed."""
+        logits fail ONLY this request and return its pages zeroed; an
+        exception from the call itself kills the engine."""
+        failpoints.maybe_raise("prefill_raise")
         S = int(req.prompt.size)
         pfx = req.prefix_tokens
+        t0 = _now_ms()
         if pfx:
             tail = S - pfx
-            ids = np.zeros((1, self._bucket_for(tail)), np.int64)
+            bucket = self._bucket_for(tail)
+            ids = np.zeros((1, bucket), np.int64)
             ids[0, :tail] = req.prompt[pfx:]
-            lg = self._tail_prefill_call(req.pt_row, ids, tail, pfx)
+            with RecordEvent(f"generation::prefill_tail[b={bucket}]"):
+                lg = self._tail_prefill_call(req.pt_row, ids, tail, pfx)
+                tok, finite = self._first_token(req, lg)
         else:
-            ids = np.zeros((1, self._bucket_for(S)), np.int64)
+            bucket = self._bucket_for(S)
+            ids = np.zeros((1, bucket), np.int64)
             ids[0, :S] = req.prompt
-            lg = self._prefill_call(req.pt_row, ids, S)
-        self._finish_prefill(req, lg, digests)
+            with RecordEvent(f"generation::prefill[b={bucket}]"):
+                lg = self._prefill_call(req.pt_row, ids, S)
+                tok, finite = self._first_token(req, lg)
+        self._it["prefill_ms"] += _now_ms() - t0
+        if not finite:
+            self._poison_prefill(req, bucket)
+            return
+        self._finish_prefill(req, tok, digests)
 
-    def _poison_prefill(self, req: _GenRequest):
+    def _poison_decode(self, req: _GenRequest, slot: int):
+        """Non-finite decode/verify logits: only THIS sequence fails,
+        its pages return zeroed."""
         monitor.stat_add("STAT_gen_poisoned")
+        self._it["poisoned"] += 1
+        self._audit.audit("POISON_DECODE", rid=req.rid, slot=slot,
+                          generated=len(req.toks))
+        slo.observe_request(self.name, ok=False)
+        flight_recorder.dump("gen_poisoned_sequence", {
+            "engine": self.name, "rid": req.rid, "stage": "decode",
+            "slot": slot, "generated": len(req.toks),
+            "error": "non-finite decode logits",
+            "step_log_tail": self._step_log_tail(),
+            "audit_tail": self._audit.tail(64)})
+        self._evict(req, FatalError(
+            f"{self.name}: sequence {req.rid} produced non-finite logits "
+            f"at step {len(req.toks)}"))
+
+    def _poison_prefill(self, req: _GenRequest, bucket: int):
+        """Non-finite prefill logits (whole prompt, tail or chunk): only
+        THIS request fails and its pages return zeroed."""
+        monitor.stat_add("STAT_gen_poisoned")
+        self._it["poisoned"] += 1
+        self._audit.audit("POISON_PREFILL", rid=req.rid, bucket=bucket)
+        slo.observe_request(self.name, ok=False)
+        flight_recorder.dump("gen_poisoned_sequence", {
+            "engine": self.name, "rid": req.rid, "stage": "prefill",
+            "bucket": bucket, "error": "non-finite prefill logits",
+            "step_log_tail": self._step_log_tail(),
+            "audit_tail": self._audit.tail(64)})
         self._release(req)
-        self._resolve_later(req, exc=FatalError(
+        self._resolve_req_later(req, exc=FatalError(
             f"{self.name}: non-finite prefill logits for request "
             f"{req.rid} (poisoned prompt or weights)"))
 
-    def _finish_prefill(self, req: _GenRequest, lg, digests):
+    def _finish_prefill(self, req: _GenRequest, tok: int, digests):
         """Shared end of every prefill flavor (whole prompt, prefix tail,
-        final chunk): sample the first token, register the prompt's full
-        pages in the prefix cache, mark the slot decode-live."""
-        tok, finite = self._first_token(req, lg)
-        if not finite:
-            self._poison_prefill(req)
-            return
+        final chunk): register the prompt's full pages in the prefix
+        cache, deliver the first token, mark the slot decode-live."""
         self._prefills_total += 1
         monitor.stat_add("STAT_gen_prefills")
         if self._prefix is not None and digests:
             self._register_pages(req, digests)
         req.next_pos = int(req.prompt.size)
-        req.t_first_ms = req.t_last_ms = _now_ms()
+        if req.span is not None:
+            req.span.stamp("prefilled")
+            req.span.stamp("first_token")
         self._deliver(req, tok)
 
     def _register_pages(self, req: _GenRequest, digests):
@@ -1025,6 +1632,9 @@ class GenerationEngine:
         freed = self._prefix.register(digests, req.pt_row)
         if freed:
             self._zero_pages(freed)
+            self._audit.audit("EVICT_PREFIX_BUDGET", rid=req.rid,
+                              pages=len(freed),
+                              free_pages=self._cache.free_pages)
 
     def _advance_prefills(self):
         """Advance the OLDEST partially prefilled slot by ONE chunk
@@ -1034,30 +1644,40 @@ class GenerationEngine:
         req = None
         for r in self._slots:
             if (r is not None and r.prefill_pos is not None
-                    and (req is None or r.rid < req.rid)):
+                    and (req is None or r.ordinal < req.ordinal)):
                 req = r
         if req is None:
             return
+        failpoints.maybe_raise("prefill_raise")
         S = int(req.prompt.size)
         take = min(self._cfg.prefill_chunk, S - req.prefill_pos)
-        ids = np.zeros((1, self._bucket_for(take)), np.int64)
+        bucket = self._bucket_for(take)
+        ids = np.zeros((1, bucket), np.int64)
         ids[0, :take] = req.prompt[req.prefill_pos:req.prefill_pos + take]
-        lg = self._tail_prefill_call(req.pt_row, ids, take, req.prefill_pos)
+        t0 = _now_ms()
+        with RecordEvent(f"generation::prefill_chunk[b={bucket}]"):
+            lg = self._tail_prefill_call(req.pt_row, ids, take,
+                                         req.prefill_pos)
+            tok, finite = self._first_token(req, lg)
+        self._it["prefill_ms"] += _now_ms() - t0
+        self._it["prefill_chunks"] += 1
         self._chunks_total += 1
         monitor.stat_add("STAT_gen_prefill_chunks")
+        if not finite:
+            req.prefill_pos = req.pending_digests = None
+            self._poison_prefill(req, bucket)
+            return
         req.prefill_pos += take
         if req.prefill_pos < S:
-            if not bool(torch.isfinite(lg).all()):
-                req.prefill_pos = req.pending_digests = None
-                self._poison_prefill(req)
             return
         req.prefill_pos = None
         digests, req.pending_digests = req.pending_digests, None
-        self._finish_prefill(req, lg, digests)
+        self._finish_prefill(req, tok, digests)
 
     def _first_token(self, req: _GenRequest, logits):
         """First-token sampling from the prefill logits, through the
-        engine's generator. Returns (token, logits-all-finite)."""
+        engine's generator. Returns (token, logits-all-finite): the
+        prefill's one device-to-host copy."""
         tok = sample_logits(logits[None], req.do_sample, req.temperature,
                             self._cfg.top_k, self._gen)[0]
         out = torch.stack([tok, torch.isfinite(logits).all().long()]).cpu()
@@ -1067,7 +1687,10 @@ class GenerationEngine:
         req.toks.append(tok)
         self._tokens_total += 1
         monitor.stat_add("STAT_gen_tokens")
+        self._it["tokens"] += 1
         self._stage_token(req, tok)
+        if req.span is not None:
+            req.span.stamp("last_token")
         if self._finished(req, tok):
             self._complete(req)
 
@@ -1131,6 +1754,17 @@ class GenerationEngine:
                         drafted += n
         return (pt, toks_blk, dmask, pos, active, temps, smask), drafted
 
+    def _inject_poison(self, bad: np.ndarray) -> np.ndarray:
+        """`decode_poison_nan` failpoint: mark the first live slot's
+        logits non-finite on the host, the verdict the decode program's
+        isfinite check would have returned."""
+        bad = np.array(bad, copy=True)
+        for i, r in enumerate(self._slots):
+            if r is not None and r.prefill_pos is None:
+                bad[i] = True
+                break
+        return bad
+
     def _step(self):
         """ONE engine step: every live sequence advances one token
         (or, with speculation on, 1 to K+1 tokens through the verify
@@ -1138,26 +1772,33 @@ class GenerationEngine:
         scratch page."""
         if self._pre_step_hook is not None:
             self._pre_step_hook(self)
+        # fault-injection seams: a slow step first, then the
+        # engine-fatal raise, as a failing launch would
+        ms = failpoints.fire("slow_step_ms")
+        if ms:
+            time.sleep(ms / 1000.0)
+        failpoints.maybe_raise("decode_step_raise")
         if self._spec_k:
             self._spec_step()
             return
-        nxt, bad = self._decode_call(*self._step_arrays())
+        args = self._step_arrays()
+        t0 = _now_ms()
+        with RecordEvent(f"generation::step[m={self._cfg.max_slots}]"):
+            nxt, bad = self._decode_call(*args)
+        if failpoints.fire("decode_poison_nan") is not None:
+            bad = self._inject_poison(bad)
+        self._it["decode_ms"] += _now_ms() - t0
         self._steps_total += 1
         monitor.stat_add("STAT_gen_steps")
-        now = _now_ms()
         for i, req in enumerate(self._slots):
             if req is None or req.prefill_pos is not None:
                 continue
             if bad[i]:
                 # poison isolation: only THIS sequence fails; its pages
                 # are zeroed before reuse
-                monitor.stat_add("STAT_gen_poisoned")
-                self._evict(req, FatalError(
-                    f"{self.name}: sequence {req.rid} produced non-finite "
-                    f"logits at step {len(req.toks)}"))
+                self._poison_decode(req, i)
                 continue
             req.next_pos += 1
-            req.t_last_ms = now
             self._deliver(req, int(nxt[i]))
 
     def _spec_step(self):
@@ -1166,29 +1807,31 @@ class GenerationEngine:
         at the first disagreement. Rejected positions were routed to the
         scratch page on the device, so there is nothing to undo here."""
         args, drafted = self._spec_arrays()
-        n_acc, nxt, bad = self._verify_call(*args)
+        t0 = _now_ms()
+        with RecordEvent(f"generation::verify[k={self._spec_k}]"):
+            n_acc, nxt, bad = self._verify_call(*args)
+        if failpoints.fire("decode_poison_nan") is not None:
+            bad = self._inject_poison(bad)
+        self._it["decode_ms"] += _now_ms() - t0
         self._steps_total += 1
         monitor.stat_add("STAT_gen_steps")
         if drafted:
             monitor.stat_add("STAT_spec_drafted", drafted)
+            self._it["spec_drafted"] += drafted
             self._spec_drafted_total += drafted
-        now = _now_ms()
         toks_blk = args[1]
         for i, req in enumerate(self._slots):
             if req is None or req.prefill_pos is not None:
                 continue
             if bad[i]:
-                monitor.stat_add("STAT_gen_poisoned")
-                self._evict(req, FatalError(
-                    f"{self.name}: sequence {req.rid} produced non-finite "
-                    f"logits at step {len(req.toks)}"))
+                self._poison_decode(req, i)
                 continue
             acc = int(n_acc[i])
             if acc:
                 monitor.stat_add("STAT_spec_accepted", acc)
+                self._it["spec_accepted"] += acc
                 self._spec_accepted_total += acc
                 req.spec_accepted += acc
-            req.t_last_ms = now
             # accepted drafts in order, then the bonus token; EOS (or the
             # token budget) inside the block ends the sequence there —
             # later committed positions lie past next_pos, masked from
@@ -1219,12 +1862,24 @@ class GenerationEngine:
             if not deadlines or t <= min(deadlines):
                 continue
             monitor.stat_add("STAT_gen_timeouts")
+            self._it["expired"] += 1
+            self._audit.audit(
+                "EXPIRE_DECODE", rid=req.rid, slot=req.slot,
+                generated=len(req.toks), stream=req.stream is not None,
+                age_ms=round(t - req.t_enqueue_ms, 3))
+            slo.observe_request(self.name, ok=False)
             if req.stream is not None and req.toks:
                 self._release(req)
-                self._resolve_later(req, result=np.concatenate(
+                self._resolve_req_later(req, result=np.concatenate(
                     [req.prompt, np.asarray(req.toks, np.int32)]))
+                self._finish_span(req)
                 continue
+            ttft_hit = (req.ttft_deadline_ms is not None and not req.toks
+                        and t > req.ttft_deadline_ms)
             self._evict(req, ExecutionTimeoutError(
+                f"{self.name}: request {req.rid} missed its HARD TTFT "
+                f"deadline after {t - req.t_enqueue_ms:.1f}ms admitted "
+                f"but still prefilling (no first token)" if ttft_hit else
                 f"{self.name}: request {req.rid} expired after "
                 f"{t - req.t_enqueue_ms:.1f}ms with "
                 f"{len(req.toks)}/{req.max_new} tokens decoded"))
@@ -1236,10 +1891,18 @@ class GenerationEngine:
         pages = self._cache.free(req.rid)
         if pages:
             self._zero_pages(pages)
+            self._exhaust_dumped = False  # pages freed: a new episode
         if req.slot is not None and self._slots[req.slot] is req:
             self._slots[req.slot] = None
+            self._it["freed"] += 1
         with self._cv:
             self._cv.notify_all()
+
+    def _finish_span(self, req: _GenRequest):
+        if req.span is not None:
+            req.span.stamp("resolved")
+            req.span.finish(len(req.toks), prefix_tokens=req.prefix_tokens,
+                            spec_tokens=req.spec_accepted)
 
     def _complete(self, req: _GenRequest):
         out = np.concatenate([req.prompt, np.asarray(req.toks, np.int32)])
@@ -1255,37 +1918,57 @@ class GenerationEngine:
         self._release(req)
         t_done = _now_ms()
         self._hist.observe(t_done - req.t_enqueue_ms)
-        self._ttft_hist.observe(req.t_first_ms - req.t_enqueue_ms)
-        if len(req.toks) > 1:
-            self._tpot_hist.observe((req.t_last_ms - req.t_first_ms)
-                                    / (len(req.toks) - 1))
-        if req.deadline_ms is not None and t_done > req.deadline_ms \
-                and req.stream is None:
+        if req.deadline_ms is not None and t_done > req.deadline_ms:
+            # finished the instant it expired: a timeout, not a
+            # completion (a stream still gets its complete sequence)
             monitor.stat_add("STAT_gen_timeouts")
-            self._resolve_later(req, exc=ExecutionTimeoutError(
+            self._it["expired"] += 1
+            self._audit.audit("EXPIRE_LATE", rid=req.rid,
+                              generated=len(req.toks))
+            slo.observe_request(self.name, ok=False)
+            if req.stream is not None:
+                self._resolve_req_later(req, result=out)
+                self._finish_span(req)
+                return
+            self._resolve_later(req, req.future, exc=ExecutionTimeoutError(
                 f"{self.name}: request expired after "
                 f"{t_done - req.t_enqueue_ms:.1f}ms"))
             return
-        self._resolve_later(req, result=out)
+        self._resolve_req_later(req, result=out)
         monitor.stat_add("STAT_gen_completions")
+        self._it["completed"] += 1
+        self._audit.audit(
+            "COMPLETE_EOS" if (req.eos is not None and req.toks
+                               and req.toks[-1] == req.eos)
+            else "COMPLETE_MAX_NEW",
+            rid=req.rid, generated=len(req.toks),
+            e2e_ms=round(t_done - req.t_enqueue_ms, 3))
+        slo.observe_request(self.name, ok=True)
+        self._finish_span(req)
 
     def _evict(self, req: _GenRequest, err: BaseException):
         """Cancel a LIVE sequence: free + zero its pages, fail only its
         own future (and stream)."""
         self._release(req)
         monitor.stat_add("STAT_gen_evictions")
-        self._resolve_later(req, exc=err)
+        self._resolve_req_later(req, exc=err)
 
     def _evict_all(self, err: BaseException):
         for req in list(self._slots):
             if req is not None:
+                # an operator's action: audited, but not an SLO error
+                self._it["aborted"] += 1
+                self._audit.audit("EVICT_SHUTDOWN", rid=req.rid,
+                                  generated=len(req.toks))
                 self._evict(req, err)
 
     # -- lifecycle / introspection -----------------------------------------
 
     def stats(self) -> dict:
-        """Engine snapshot: per-slot state, page-pool occupancy, the
-        program-shape ledger, token/step totals and latency histograms."""
+        """Engine snapshot: per-slot state, page-pool occupancy and KV
+        introspection (owners, prefix and tier numbers, admission
+        headroom), the program-shape ledger, token/step totals, the step
+        log's counts and the latency histograms."""
         with self._cv:
             depth = len(self._queue)
             slots = [{"slot": i,
@@ -1305,6 +1988,7 @@ class GenerationEngine:
                                                  .items())]
         kv["prefix"] = (self._prefix.stats() if self._prefix is not None
                         else {"enabled": False})
+        kv["admit_headroom"] = self._headroom()
         return {
             "slots": slots,
             "queue_depth": depth,
@@ -1329,30 +2013,87 @@ class GenerationEngine:
                 "tokens_per_step": round(decode_tokens / max(1, steps), 4),
             },
             "prefill_chunks": self._chunks_total,
+            "step_log": {
+                "enabled": self._step_log is not None,
+                "recorded": (self._step_log.recorded
+                             if self._step_log is not None else 0),
+                "audit_events": self._audit.recorded,
+            },
             "device": str(self._device),
             "latency_ms": self._hist.snapshot(),
-            "ttft_ms": self._ttft_hist.snapshot(),
-            "tpot_ms": self._tpot_hist.snapshot(),
+            "ttft_ms": monitor.histogram("ttft_ms").snapshot(),
+            "tpot_ms": monitor.histogram("tpot_ms").snapshot(),
         }
 
+    def _headroom(self) -> dict:
+        """`can_admit` counts for this engine's representative request
+        shapes (each prefill bucket + the default max-new)."""
+        shapes = sorted({b + self._cfg.max_new_tokens
+                         for b in self._cfg.prefill_buckets})
+        return {str(t): n for t, n in sorted(
+            self._cache.headroom(shapes).items())}
+
+    def _compute_pressure(self) -> dict:
+        """Step-thread half of `pressure()`: admission headroom, pool
+        occupancy, slot availability (and the tier's surface), published
+        as one plain-dict attribute store."""
+        snap = {
+            "headroom": self._headroom(),
+            "free_pages": self._cache.free_pages,
+            "pages_in_use": self._cache.pages_in_use,
+            "slots_free": sum(1 for r in self._slots if r is None),
+            "live": self._num_active(),
+            "tp": 1,
+            "kv_shard_bytes": self._cache.hbm_bytes(),
+        }
+        if self._tier is not None:
+            snap["tier"] = {
+                "host_bytes": self._tier.host_bytes,
+                "entries": len(self._tier),
+                "hit_rate": round(
+                    self._tier.hits
+                    / max(1, self._prefix.hits + self._prefix.misses), 4),
+            }
+        return snap
+
+    def pressure(self) -> dict:
+        """Cheap pressure snapshot: page/slot fields from the step
+        thread's last published `_compute_pressure()` (no engine lock),
+        queue depth and oldest-queue age read live."""
+        snap = dict(self._pressure)
+        q = self._queue
+        snap["queue_depth"] = len(q)
+        try:
+            snap["oldest_age_ms"] = round(_now_ms() - q[0].t_enqueue_ms, 3)
+        except IndexError:   # the head raced an admission's popleft
+            snap["oldest_age_ms"] = 0.0
+        snap["queue_limit"] = self._cfg.max_queue_depth
+        return snap
+
     def health(self) -> dict:
-        """Readiness verdict, same shape as the JAX engine's."""
+        """`/readyz` verdict, same shape as the JAX engine's; with
+        FLAGS_slo_max_burn_rate set, an engine burning its error budget
+        too fast reports not-ready."""
         with self._cv:
             depth = len(self._queue)
             draining = self._closed
-            live = int(self._thread.is_alive() and self._death is None)
+            live = int(getattr(self, "_thread", None) is not None
+                       and self._thread.is_alive() and self._death is None)
             slots_free = sum(1 for r in self._slots if r is None)
         limit = self._cfg.max_queue_depth
+        warmed = self._warmed
         if draining:
             reason = "draining"
+        elif not warmed:
+            reason = "warming up"
         elif not live:
             reason = "step loop dead"
         elif depth >= limit:
             reason = "queue at rejection threshold"
         else:
-            reason = "ok"
+            reason = slo.shed_verdict(self.name) or "ok"
         return {"ready": reason == "ok", "reason": reason,
-                "warmup_complete": True, "draining": draining,
+                "warmup_complete": warmed, "draining": draining,
                 "live_lanes": live, "queue_depth": depth,
                 "queue_limit": limit, "slots_free": slots_free,
                 "slots": self._cfg.max_slots}
@@ -1362,6 +2103,7 @@ class GenerationEngine:
         """Stop intake; by default every queued + live sequence finishes
         before the step loop exits. drain=False fails pending futures
         fast (live sequences are evicted, pages freed)."""
+        dropped = []
         with self._cv:
             self._closed = True
             if not drain:
@@ -1369,6 +2111,7 @@ class GenerationEngine:
                 while self._queue:
                     req = self._queue.popleft()
                     monitor.stat_sub("STAT_gen_queue_depth")
+                    dropped.append(req)
                     err = UnavailableError(f"{self.name}: engine shut down")
                     if req.stream is not None:
                         req.stream._put(err)
@@ -1377,7 +2120,22 @@ class GenerationEngine:
                     except Exception:  # noqa: BLE001 — already settled
                         pass
             self._cv.notify_all()
-        self._thread.join(timeout_s)
+        for req in dropped:
+            # audited outside the lock (disk sink)
+            self._audit.audit("EVICT_SHUTDOWN_QUEUED", rid=req.rid,
+                              queued_ms=round(_now_ms()
+                                              - req.t_enqueue_ms, 3))
+        t = getattr(self, "_thread", None)
+        if t is not None:
+            t.join(timeout_s)
+        exporter.unregister_engine(self)
+        if self._step_log is not None:
+            step_log.unregister(self._step_log)
+        self._audit.close()
+        slo.forget(self.name)
+        if getattr(self, "_owns_metrics_server", False) \
+                and self.metrics_server is not None:
+            self.metrics_server.close()
 
     def __enter__(self):
         return self

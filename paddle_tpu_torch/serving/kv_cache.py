@@ -1,8 +1,9 @@
 """Paged KV cache: block allocator + preallocated per-layer K/V pools.
 
 Port of `paddle_tpu.serving.kv_cache.PagedKVCache` with its refcount
-layer (the prefix cache's substrate) and its int8 page mode; the tp mesh
-and the host tier's page sizing come with later slices.
+layer (the prefix cache's substrate), its int8 page mode and the host
+tier's page sizing (`page_host_bytes`); the tp mesh comes with a later
+slice.
 
 - Pools `[L, H, num_pages, page_size, D]` live on the device; the
   engine updates them in place.
@@ -37,11 +38,18 @@ and the host tier's page sizing come with later slices.
   about 4x the concurrent sequences. Zero-on-free covers the scale pools:
   a freed page's scale returns to 0 ("empty") with its content.
 
+- **Residency gauge**: each live cache adds its pool (and scale-pool)
+  bytes to `STAT_kv_cache_hbm_bytes` at construction and subtracts them
+  when it is collected (`weakref.finalize`: the engine drops its cache
+  on garbage collection, there is no explicit close), so a process with
+  several engines exports what exists.
+
 `alloc()`/`free()` are not thread-safe: the engine calls them from its
 single step thread.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List
 
 import numpy as np
@@ -54,6 +62,7 @@ from ..framework.place import resolve_device
 __all__ = ["PagedKVCache", "TRASH_PAGE"]
 
 TRASH_PAGE = 0
+
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16, "int8": torch.int8}
@@ -108,6 +117,10 @@ class PagedKVCache:
         self._free_low_water = len(self._free)
         self._free_high_water = len(self._free)
         monitor.stat_set("STAT_kv_pages_inuse", 0)
+        b = self.hbm_bytes()
+        monitor.stat_gauge_add("STAT_kv_cache_hbm_bytes", b)
+        weakref.finalize(self, monitor.stat_gauge_add_later,
+                         "STAT_kv_cache_hbm_bytes", -b)
 
     # -- capacity arithmetic ----------------------------------------------
 
@@ -123,6 +136,16 @@ class PagedKVCache:
         if str(dtype) == "int8":
             b += 2 * num_layers * num_heads * 4  # fp32 scale per (L, H)
         return b
+
+    def page_host_bytes(self) -> int:
+        """Host bytes ONE page costs demoted into the host KV tier: the
+        raw K/V page blocks in the pool type plus (int8 mode) the fp32
+        scale rows, the same arithmetic as `page_hbm_bytes`, because the
+        tier stores the bytes as they are (a promotion re-uploads
+        identical bytes)."""
+        return self.page_hbm_bytes(self.num_layers, self.num_heads,
+                                   self.head_dim, self.page_size,
+                                   self.dtype)
 
     @classmethod
     def pages_for_budget(cls, budget_bytes: int, *, num_layers: int,

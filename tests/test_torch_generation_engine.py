@@ -163,7 +163,12 @@ def test_request_that_can_never_fit_fails_fast(pair):
     dict(kv_tier=True), dict(program_store="/nonexistent"), dict(tp=2),
     dict(tp=4)])
 def test_unported_knob_raises(knob):
-    with pytest.raises(InvalidArgumentError, match="not yet ported"):
+    """The knobs not ported yet raise; the host tier is ported and
+    raises only where the JAX engine's config does: without the prefix
+    cache it has nothing to demote."""
+    match = ("requires prefix_cache" if "kv_tier" in knob
+             else "not yet ported")
+    with pytest.raises(InvalidArgumentError, match=match):
         GenerationConfig(**knob)
 
 
@@ -171,10 +176,14 @@ def test_unported_knob_raises(knob):
     (dict(prefix_cache=True), {"prefill_tail[b=8]", "cow_copy",
                                "decode[m=2]"}),
     (dict(spec_k=2), {"verify[k=2]"}),
-    (dict(prefill_chunk=4), {"prefill_tail[b=8]", "decode[m=2]"})])
+    (dict(prefill_chunk=4), {"prefill_tail[b=8]", "decode[m=2]"}),
+    (dict(prefix_cache=True, kv_tier=True, kv_tier_chunk_pages=2),
+     {"prefill_tail[b=8]", "cow_copy", "tier_gather", "tier_write[w=2]",
+      "decode[m=2]"})])
 def test_ported_knob_builds_and_serves(pair, knob, programs):
     """The knobs the JAX engine schedules with (prefix cache, speculative
-    decoding, chunked prefill) build a config and an engine that serves
+    decoding, chunked prefill, the host tier) build a config and an
+    engine that serves
     greedy requests token-identical to generate(), with each mode's
     programs in the ledger (tests/test_torch_prefix_cache.py and
     tests/test_torch_spec_decode.py hold them to the JAX engine)."""
@@ -334,6 +343,67 @@ def test_head_dim_96_gpt_identical_to_jax_engine():
     with _engine(port) as eng:
         got = [f.result(timeout=120)
                for f in [eng.submit(p, max_new_tokens=5) for p in ids]]
+    for g, w, p in zip(got, want, ids):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, _generate(port, p, 5))
+
+
+@pytest.mark.parametrize("knob", [dict(), dict(prefix_cache=True,
+                                               kv_tier=True)])
+def test_warmup_false_fills_the_ledger_at_first_use(pair, knob):
+    """ROADMAP C13: `GenerationConfig(warmup=False)` skips the
+    construction-time run of every program, as the JAX engine's does:
+    the ledger is empty before the first request and, after one, holds
+    exactly the programs that request ran, key for key the JAX engine's;
+    the tokens are the warmed engine's."""
+    ref, port = pair
+    ids = _prompts(n=1, seed=3)
+    kw = {**_KW, **knob, "warmup": False}
+    with jserving.GenerationEngine(ref, **kw) as jeng:
+        jbefore = dict(jeng.stats()["compiles"])
+        want = jeng.generate(ids[0], max_new_tokens=4)
+        jafter = jeng.stats()["compiles"]
+        jhealth = jeng.health()["warmup_complete"]
+    with _engine(port, **knob, warmup=False) as eng:
+        before = dict(eng.stats()["compiles"])
+        got = eng.generate(ids[0], max_new_tokens=4)
+        after = eng.stats()["compiles"]
+        health = eng.health()["warmup_complete"]
+    assert before == jbefore == {}
+    assert after == jafter and set(after) >= {"prefill[b=8]",
+                                              "decode[m=2]"}
+    assert health is jhealth is True
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _generate(port, ids[0], 4))
+
+
+def test_head_dim_36_gpt_identical_to_jax_engine():
+    """A GPT with head dim 36 (hidden 144, 4 heads, 36 % 8 != 0), which
+    the JAX package serves: the port's engine serves it token-identical
+    to the JAX engine and to its own generate(), its decode attention on
+    the CPU counted as the plain path in STAT_paged_attn_reference (on
+    the card it runs K1 at the padded width 64,
+    tests/test_torch_kernels_chip.py)."""
+    paddle.seed(6)
+    kw = dict(hidden_size=144, num_heads=4, intermediate_size=288,
+              dropout=0.0)
+    ref = JGPT(JConfig.tiny(**kw))
+    ref.eval()
+    port = GPTForCausalLM(GPTConfig.tiny(**kw), device="cpu").eval()
+    load_reference_state(port, {k: np.asarray(v.numpy())
+                                for k, v in ref.state_dict().items()})
+    assert port.gpt.config.hidden_size // port.gpt.config.num_heads == 36
+    ids = _prompts(n=3, seed=8)
+    with jserving.GenerationEngine(ref, **_KW) as jeng:
+        want = [f.result(timeout=120)
+                for f in [jeng.submit(p, max_new_tokens=5) for p in ids]]
+    r0 = monitor.stat_get("STAT_paged_attn_reference")
+    with _engine(port) as eng:
+        got = [f.result(timeout=120)
+               for f in [eng.submit(p, max_new_tokens=5) for p in ids]]
+        steps = eng.stats()["steps"]
+    assert monitor.stat_get("STAT_paged_attn_reference") - r0 >= \
+        (steps + 1) * 2
     for g, w, p in zip(got, want, ids):
         np.testing.assert_array_equal(g, w)
         np.testing.assert_array_equal(g, _generate(port, p, 5))

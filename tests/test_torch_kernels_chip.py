@@ -27,7 +27,8 @@ def cuda():
 @pytest.mark.parametrize("case", ["edges", "long"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("D", [32, 64, 128, 80, 96, 256])
+@pytest.mark.parametrize("D", [32, 64, 128, 80, 96, 256, 36, 100, 264,
+                               512])
 def test_paged_attention_kernel_matches_plain(cuda, D, dtype, case):
     """K1 (split-K: partials per span of pages, then the merge) against
     the plain version on the same inputs. "edges": lengths at every edge
@@ -39,7 +40,9 @@ def test_paged_attention_kernel_matches_plain(cuda, D, dtype, case):
     (ROADMAP C10) the same way, atol 2e-3 (one rounding to 10 mantissa
     bits of an output below 4 in magnitude, ulp 2^-9, with fp32 sums). D 80
     and 96 give a row a number of 16-byte chunks that is not a power of
-    two (lanes past it idle); fp32 D 256 gives a lane two chunks."""
+    two (lanes past it idle); fp32 D 256 gives a lane two chunks. D 36,
+    100, 264 and 512 run at the padded widths 64, 128, 512 and 512, their
+    rows loaded one value at a time and masked at D."""
     g = torch.Generator(device=cuda).manual_seed(D)
     H, P = 3, 8
     span = paged_ops._pages_per_split(P) * P
@@ -73,10 +76,11 @@ def test_paged_attention_kernel_matches_plain(cuda, D, dtype, case):
                                      torch.float16: 2e-3}[dtype], rtol=0)
 
 
-@pytest.mark.parametrize("D", [100, 264])
+@pytest.mark.parametrize("D", [520, 1024])
 def test_paged_attention_kernel_raises_on_unserved_head_dim(cuda, D):
-    """ROADMAP C7's limit: on a CUDA tensor a head dim outside D % 8 == 0,
-    D <= 256 raises; it is never served by the plain version."""
+    """ROADMAP B: on a CUDA tensor a head dim above 512 raises, from
+    `paged_attention` and from K1's own check alike, before any launch;
+    it is never served by the plain version."""
     from paddle_tpu_torch.framework.errors import InvalidArgumentError
     q = torch.zeros(1, 2, D, device=cuda)
     kp = torch.zeros(2, 3, 4, D, device=cuda)
@@ -85,7 +89,49 @@ def test_paged_attention_kernel_raises_on_unserved_head_dim(cuda, D):
     n0 = paged_ops.paged_attention.launches
     with pytest.raises(InvalidArgumentError, match=str(D)):
         paged_ops.paged_attention(q, kp, kp, pt, pos, 0.125)
+    with pytest.raises(InvalidArgumentError, match=str(D)):
+        paged_ops._launch_paged_kernel(q, kp, kp, pt, pos, 0.125)
     assert paged_ops.paged_attention.launches == n0
+
+
+def test_head_dim_36_gpt_serves_on_cuda(cuda):
+    """A GPT with head dim 36 (hidden 144, 4 heads) serves on the card
+    through K1 at its padded width: one launch a layer a step, none of
+    them the plain version (STAT_paged_attn_reference stays), token for
+    token what the port's engine gives on the CPU (which
+    `tests/test_torch_generation_engine.py::
+    test_head_dim_36_gpt_identical_to_jax_engine` holds to the JAX
+    engine) and what the model's dense `generate()` gives on the card."""
+    import numpy as np
+
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import GenerationEngine
+    cfg = GPTConfig.tiny(hidden_size=144, intermediate_size=288,
+                         dropout=0.0)
+    cpu_model = GPTForCausalLM(cfg, device="cpu").eval()
+    gpu_model = GPTForCausalLM(cfg, device="cuda").eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    prompts = [np.arange(1, 6 + 3 * i) % 512 for i in range(3)]
+    kw = dict(max_slots=2, page_size=4, num_pages=32,
+              prefill_buckets=(16, 32), max_new_tokens=6)
+    with GenerationEngine(cpu_model, device="cpu", **kw) as e:
+        want = [e.generate(p) for p in prompts]
+    n0 = paged_ops.paged_attention.launches
+    with GenerationEngine(gpu_model, device="cuda", **kw) as e:
+        r0 = monitor.stat_get("STAT_paged_attn_reference")
+        n1 = paged_ops.paged_attention.launches
+        got = [e.generate(p) for p in prompts]
+        steps = e.stats()["steps"]
+        assert monitor.stat_get("STAT_paged_attn_reference") == r0
+        assert paged_ops.paged_attention.launches - n1 == \
+            steps * cfg.num_layers
+    assert n1 > n0    # the warmup's decode step launched K1 too
+    for w, g_, p in zip(want, got, prompts):
+        np.testing.assert_array_equal(w, g_)
+        np.testing.assert_array_equal(
+            g_, gpu_model.generate(torch.as_tensor(p[None]),
+                                   max_new_tokens=6)[0].cpu().numpy())
 
 
 # max |kernel - plain| <= TOL x max(1, max |plain|) in the 16-bit types: one

@@ -241,7 +241,10 @@ def test_can_admit_capacity_at_equal_bytes_equals_jax():
 
 def test_generation_config_takes_int8_and_refuses_the_unported():
     assert GenerationConfig(kv_cache_dtype="int8").kv_cache_dtype == "int8"
-    for kw in (dict(kv_tier=True), dict(program_store="/x"), dict(tp=2)):
+    # the host tier is ported: int8 pools take it with the prefix cache
+    assert GenerationConfig(kv_cache_dtype="int8", prefix_cache=True,
+                            kv_tier=True).kv_tier
+    for kw in (dict(program_store="/x"), dict(tp=2)):
         with pytest.raises(InvalidArgumentError, match="not yet ported"):
             GenerationConfig(**kw)
     with pytest.raises(InvalidArgumentError, match="kv_cache_dtype"):
