@@ -89,6 +89,35 @@ Phases:
               collections, tokens/s with the step log, audit ring and
               spans on against off, and the host time of each
               observability call an iteration
+ 5e. fleet   GPT-2 small at phase 5's engine settings under the
+              supervisor and the router. (a) Phase 5's 16 streamed
+              requests (8 joining while 8 decode) through one
+              EngineSupervisor (backoff 5 ms): decode_step_raise@12 (8
+              live, 8 queued at the death), prefill_raise@1, and a
+              spec_k 4 engine whose poison storm turns speculation off
+              before decode_step_raise@1; each identical to generate(),
+              every stream exactly once, one ENGINE_RESTART, REPLAY_ADMIT
+              = the manifest's entries = the STAT_gen_replayed_requests
+              delta, incarnation 1, no ledger key, no nvcc and the same
+              loaded libraries, K1 = 12 x (decode steps of both
+              incarnations + the rebuild's warmup step), K2 = 12 x the
+              prefills in the 1024 bucket, no page leaked, the residency
+              gauge back to one cache, the dead pools released, and the
+              restart's peak allocated bytes under the death step's +
+              half a pool set; the breaker arm (every step dies, retry
+              limit 2, threshold 3): every request typed
+              UnavailableError, BREAKER_OPEN once, /readyz 503 with the
+              reason. (b) A Router over two supervised replicas (prefix
+              cache on): four agent sessions of three turns with
+              affinity on (turns 2-3 on turn 1's replica, 8
+              ROUTE_AFFINITY) and off, identical to generate(); phase 5's
+              requests with decode_step_raise@6 killing one replica
+              (every request served through its replay, no
+              ROUTE_REROUTE, the router's /readyz 200 throughout); two
+              replicas against one engine, tokens/s. Printed: recovery
+              ms, death to the first replayed token, steady and peak
+              allocated bytes, prefix-hit tokens and TTFT with affinity
+              on and off
  6. train     GPT-2 small (dropout 0.1, fp32) trained through
               hapi.Model.fit: AdamW under LinearWarmup, global-norm clip,
               cross-entropy, batch 8 x 1024, 20 steps over a seeded
@@ -1210,11 +1239,12 @@ class Smoke:
         self.serving_d96()
 
     @staticmethod
-    def serving_requests(vocab):
+    def serving_requests(vocab, seed=0):
         """Phase 5's 16 greedy requests (seeded): prompts of 16-900
-        tokens and 32-64 new tokens each."""
+        tokens and 32-64 new tokens each; another `seed` gives other
+        tokens at the same lengths."""
         import numpy as np
-        rng = np.random.RandomState(0)
+        rng = np.random.RandomState(seed)
         lens = [16, 900, 40, 700, 130, 300, 17, 520, 64, 800, 250, 33,
                 610, 90, 400, 880]
         prompts = [rng.randint(0, vocab, size=(n,)) for n in lens]
@@ -2478,6 +2508,690 @@ class Smoke:
 
     # -- optional: where the serving time goes ---------------------------------
 
+    # -- 5e. supervised restart and the prefix-affinity router ------------------
+
+    def fleet_kw(self, num_pages, **kw):
+        """Phase 5's engine settings for a supervisor or a router."""
+        return dict(device="cuda", max_slots=FEAT["slots"],
+                    page_size=FEAT["page"], num_pages=num_pages,
+                    prefill_buckets=FEAT["buckets"], max_new_tokens=64,
+                    request_timeout_ms=0, **kw)
+
+    @staticmethod
+    def http_get(url):
+        """(status, body) of a GET on 127.0.0.1, 5xx answers included."""
+        import urllib.error
+        import urllib.request
+        assert url.startswith("http://127.0.0.1:"), url
+        try:
+            with urllib.request.urlopen(url, timeout=30) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    @staticmethod
+    def fleet_streams(front, prompts, new, join=None, lock=None,
+                      handles=None):
+        """Stream `prompts` through `front` (a supervisor or a router).
+        With `join`, the first 8 go in at once, then, once `join()` says
+        so, the rest at once (8 joining while 8 decode); else all at
+        once. `lock()` gives the lock to hold while a group is submitted
+        (the engine's, so its step thread admits the group in one pass),
+        or None; `handles`, a list, receives the streams. Returns
+        (results: the sequence or the exception, collected tokens,
+        arrival times, submit times, wall s)."""
+        n = len(prompts)
+        results, collected = [None] * n, [[] for _ in range(n)]
+        arrivals, submit_t = [[] for _ in range(n)], [0.0] * n
+        threads = []
+        if handles is not None:
+            handles[:] = [None] * n
+
+        def consume(i, stream):
+            try:
+                for tok in stream:
+                    arrivals[i].append(time.perf_counter())
+                    collected[i].append(tok)
+                results[i] = stream.result()
+            except Exception as e:  # noqa: BLE001 — the gates read it
+                results[i] = e
+
+        def submit(idx):
+            lk = lock() if lock is not None else None
+            if lk is not None:
+                lk.acquire()
+            try:
+                for i in idx:
+                    submit_t[i] = time.perf_counter()
+                    st = front.submit_stream(prompts[i],
+                                             max_new_tokens=new[i])
+                    if handles is not None:
+                        handles[i] = st
+                    th = threading.Thread(target=consume, args=(i, st),
+                                          daemon=True)
+                    th.start()
+                    threads.append(th)
+            finally:
+                if lk is not None:
+                    lk.release()
+
+        t0 = time.perf_counter()
+        if join is None:
+            submit(range(n))
+        else:
+            submit(range(min(8, n)))
+            while not join():
+                time.sleep(0.0005)
+            submit(range(8, n))
+        for th in threads:
+            th.join(600)
+        return results, collected, arrivals, submit_t, \
+            time.perf_counter() - t0
+
+    def death_probe(self, sup, n_death):
+        """Instrument incarnation 0 of `sup`. Its pre-step hook counts
+        steps; at step `n_death` (the step `decode_step_raise@n_death`
+        kills) it records the time, the allocated bytes (the steady
+        state) and resets the allocator's peak. Its death callback
+        records the handover time, the manifest's entries and the dead
+        pools' bytes, then runs the supervisor's and records the peak
+        allocated bytes once the rebuilt engine is built and warmed, and
+        once it has taken the replays."""
+        torch = self.torch
+        eng = sup.engine
+        probe = {"steps": 0}
+
+        def hook(e):
+            probe["steps"] += 1
+            if probe["steps"] == n_death:
+                probe["t_death"] = time.perf_counter()
+                probe["steady"] = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+
+        def on_death(manifest, orig=eng._on_death):
+            probe.setdefault("t_death", time.perf_counter())
+            probe["t_handover"] = time.perf_counter()
+            probe["live"] = sum(not e.queued for e in manifest.entries)
+            probe["queued"] = sum(e.queued for e in manifest.entries)
+            probe["replay_lens"] = [int(e.prompt.size) + len(e.toks)
+                                    for e in manifest.entries]
+            # tokens each stream had received before the death: its
+            # next one is the first the new incarnation delivers
+            probe["delivered"] = [(e.stream, e.delivered)
+                                  for e in manifest.entries
+                                  if e.stream is not None]
+            probe["dead_hbm"] = eng._cache.hbm_bytes()
+            orig(manifest)
+            probe["t_rebuilt"] = time.perf_counter()
+            probe["peak_rebuilt"] = torch.cuda.max_memory_allocated()
+
+        def build(incarnation, carry, orig=sup._build_engine):
+            new = orig(incarnation, carry)
+            # the rebuilt engine allocated and warmed, no replay yet
+            probe["peak_built"] = torch.cuda.max_memory_allocated()
+            return new
+
+        eng._pre_step_hook = hook
+        eng._on_death = on_death
+        sup._build_engine = build
+        return probe
+
+    @staticmethod
+    def count_long_prefills():
+        """Patch GenerationEngine._prefill_call to count the prefills (a
+        rebuild's warmup included) whose bucket reaches
+        FLAGS_flash_attention_min_seq, the ones that run K2. Returns
+        (counter, undo)."""
+        from paddle_tpu_torch.framework.flags import flag
+        from paddle_tpu_torch.serving import generation
+        orig = generation.GenerationEngine._prefill_call
+        box = {"n": 0}
+
+        def counted(eng, pt_row, ids, length):
+            if ids.shape[1] >= int(flag("FLAGS_flash_attention_min_seq")):
+                box["n"] += 1
+            return orig(eng, pt_row, ids, length)
+
+        generation.GenerationEngine._prefill_call = counted
+
+        def undo():
+            generation.GenerationEngine._prefill_call = orig
+        return box, undo
+
+    def fleet_restart_arm(self, arm, fp, prompts, new, refs, num_pages,
+                          n_death=None, join=None, sup=None, **kw):
+        """One supervised-restart arm: phase 5's streamed requests
+        through an EngineSupervisor (built here with `kw` unless `sup`
+        is given) with failpoint `fp` armed, launch counts from 0. The
+        exact gates: outputs identical to generate(), each stream its
+        generated tokens exactly once, one ENGINE_RESTART, REPLAY_ADMIT
+        = the manifest's entries = the STAT_gen_replayed_requests delta,
+        incarnation 1, the ledger, the loaded kernel libraries and nvcc
+        untouched, K1 = 12 x (decode steps of both incarnations + the
+        rebuild's warmup step), K2 = 12 x the prefills in buckets >= the
+        min-seq flag, no page leaked, STAT_kv_cache_hbm_bytes back to
+        before + the live cache's bytes, the dead pools released. Returns
+        (supervisor, row)."""
+        torch = self.torch
+        import gc
+        import numpy as np
+        from paddle_tpu_torch.framework import monitor
+        from paddle_tpu_torch.framework.flags import set_flags
+        from paddle_tpu_torch.ops import _build
+        from paddle_tpu_torch.serving import EngineSupervisor, failpoints
+        L = self.gpt.gpt.config.num_layers
+        gc.collect()
+        # the residency gauge without this arm's caches
+        gauge0 = monitor.stat_get("STAT_kv_cache_hbm_bytes") - (
+            sup.engine._cache.hbm_bytes() if sup is not None else 0)
+        if sup is None:
+            sup = EngineSupervisor(self.gpt, name=f"chip_smoke_{arm}",
+                                   **self.fleet_kw(num_pages, **kw))
+        eng0 = sup.engine
+        ledger0, libs0 = dict(eng0._ledger), dict(_build._libs)
+        pool_bytes = eng0._cache.hbm_bytes()
+        probe = self.death_probe(sup, n_death)
+        nvcc_calls = []
+        orig_nvcc = _build._nvcc
+        _build._nvcc = lambda: nvcc_calls.append(1) or orig_nvcc()
+        prefills, undo = self.count_long_prefills()
+        replayed0 = monitor.stat_get("STAT_gen_replayed_requests")
+        steps0 = eng0.stats()["steps"]
+        failpoints.reset()
+        set_flags({"FLAGS_failpoints": fp})
+        # this path starts here: every launch count from 0
+        self.zero_launches()
+        streams = []
+        try:
+            res, collected, arrivals, _s, wall = self.fleet_streams(
+                sup, prompts, new, join=join and (lambda: join(sup)),
+                lock=lambda: sup.engine._cv, handles=streams)
+        finally:
+            set_flags({"FLAGS_failpoints": ""})
+            undo()
+            _build._nvcc = orig_nvcc
+        launches = self.record_path(arm)
+        eng1 = sup.engine
+        st1 = eng1.stats()
+        steps = eng0.stats()["steps"] - steps0 + st1["steps"]
+        reasons = [e["reason"] for e in eng1._audit.tail(4096)]
+        restarts = [e for e in eng1._audit.tail(4096)
+                    if e["reason"] == "ENGINE_RESTART"]
+        sstats = sup.supervisor_stats()
+        replayed = monitor.stat_get("STAT_gen_replayed_requests") - replayed0
+        peak_end = torch.cuda.max_memory_allocated()
+        gen_tokens = sum(len(c) for c in collected)
+        t_death = probe.get("t_death")
+        index = {id(st): i for i, st in enumerate(streams)}
+        first_replayed = min(
+            (arrivals[index[id(st)]][d] for st, d in probe.get(
+                "delivered", []) if id(st) in index
+             and len(arrivals[index[id(st)]]) > d), default=None)
+        row = dict(
+            wall_s=wall, tokens=gen_tokens, tokens_per_s=gen_tokens / wall,
+            steps=steps, launches=launches, long_prefills=prefills["n"],
+            live_at_death=probe.get("live"),
+            queued_at_death=probe.get("queued"),
+            entries=sum(e["entries"] for e in restarts),
+            replay_admit=reasons.count("REPLAY_ADMIT"),
+            replayed_stat=replayed, supervisor=sstats,
+            handover_ms=(probe["t_handover"] - t_death) * 1e3
+            if "t_handover" in probe else None,
+            rebuilt_ms=(probe["t_rebuilt"] - t_death) * 1e3
+            if "t_rebuilt" in probe else None,
+            first_replayed_token_ms=(first_replayed - t_death) * 1e3
+            if first_replayed is not None else None,
+            steady_bytes=probe.get("steady"),
+            peak_built_bytes=probe.get("peak_built"),
+            peak_rebuilt_bytes=probe.get("peak_rebuilt"),
+            peak_end_bytes=peak_end, pool_bytes=pool_bytes)
+        print(f"fleet arm {arm} on {self.smi}: {len(prompts)} requests, "
+              f"{gen_tokens} tokens in {wall:.3f} s "
+              f"({gen_tokens / wall:.1f} tokens/s); {sstats['restarts']} "
+              f"restart(s), {row['live_at_death']} live + "
+              f"{row['queued_at_death']} queued at the death, "
+              f"{row['replay_admit']} REPLAY_ADMIT; recovery "
+              f"{sstats['last_recovery_ms']} ms in the supervisor "
+              f"(rebuild, warmup, replay), death -> rebuilt "
+              f"{row['rebuilt_ms']} ms, death -> first replayed token "
+              f"{row['first_replayed_token_ms']} ms; {steps} decode steps, "
+              f"launches {launches}, {prefills['n']} prefills in buckets "
+              f">= the min-seq flag")
+        if row["steady_bytes"] is not None:
+            print(f"fleet arm {arm} on {self.smi}: allocated bytes steady "
+                  f"(at the death step) {row['steady_bytes']}, peak to "
+                  f"the rebuild's warmup {row['peak_built_bytes']} "
+                  f"(+{row['peak_built_bytes'] - row['steady_bytes']}), "
+                  f"to the replays taken {row['peak_rebuilt_bytes']} "
+                  f"(+{row['peak_rebuilt_bytes'] - row['steady_bytes']}), "
+                  f"peak to the arm's end {peak_end} "
+                  f"(+{peak_end - row['steady_bytes']}); one pool set "
+                  f"{pool_bytes}")
+        # gates
+        outs = [r if isinstance(r, np.ndarray) else None for r in res]
+        bad = [(i, repr(r)) for i, r in enumerate(res)
+               if not isinstance(r, np.ndarray)]
+        assert not bad, f"{arm}: requests failed: {bad}"
+        self.assert_identical(arm, prompts, new, outs, refs)
+        once = [i for i, (p, o) in enumerate(zip(prompts, outs))
+                if collected[i] != o[len(p):].tolist()]
+        assert not once, f"{arm}: streams {once} not exactly once"
+        assert sstats["restarts"] == len(restarts) == 1, (sstats, restarts)
+        assert st1["incarnation"] == sstats["incarnation"] == 1, st1
+        assert row["replay_admit"] == row["entries"] == replayed, row
+        assert dict(eng1._ledger) == ledger0, \
+            f"{arm}: the rebuild added ledger keys"
+        assert dict(_build._libs) == libs0 and not nvcc_calls, \
+            f"{arm}: a kernel was built during the arm"
+        assert launches["paged_attention"] == (steps + 1) * L, \
+            f"{arm}: K1 {launches['paged_attention']} for {steps} steps " \
+            f"+ the rebuild's warmup step"
+        assert launches["flash_fwd"] == prefills["n"] * L, \
+            f"{arm}: K2 {launches['flash_fwd']} for {prefills['n']} " \
+            f"long prefills"
+        long_replays = sum(n > 256 for n in probe.get("replay_lens", []))
+        assert prefills["n"] >= 1 + long_replays, (prefills, long_replays)
+        assert probe.get("dead_hbm") == 0, "the dead pools were not released"
+        sup.shutdown(drain=True, timeout_s=60)
+        assert st1["pages"]["pages_in_use"] == 0 == \
+            eng1.stats()["pages"]["pages_in_use"], f"{arm}: pages leaked"
+        gc.collect()
+        gauge = monitor.stat_get("STAT_kv_cache_hbm_bytes")
+        assert gauge == gauge0 + eng1._cache.hbm_bytes(), \
+            f"{arm}: STAT_kv_cache_hbm_bytes {gauge} != {gauge0} + " \
+            f"{eng1._cache.hbm_bytes()}"
+        if row["steady_bytes"] is not None:
+            for k in ("peak_built_bytes", "peak_rebuilt_bytes",
+                      "peak_end_bytes"):
+                assert row[k] - row["steady_bytes"] < pool_bytes / 2, \
+                    f"{arm}: {k} {row[k]} exceeds steady " \
+                    f"{row['steady_bytes']} by half a pool set or more"
+        row["reasons"] = {c: reasons.count(c) for c in set(reasons)}
+        return sup, row
+
+    def fleet_sessions(self, vocab, seed):
+        """Four agent sessions: each its own 192-token system prompt; a
+        turn's user message 16-32 tokens (seeded)."""
+        import numpy as np
+        rng = np.random.RandomState(seed)
+        systems = [rng.randint(0, vocab, size=(192,)) for _ in range(4)]
+        users = [[rng.randint(0, vocab, size=(int(rng.randint(16, 33)),))
+                  for _ in range(3)] for _ in range(4)]
+        return systems, users
+
+    def fleet_session_run(self, router, systems, users, new=32):
+        """Serve the four sessions turn by turn through `router`: turn
+        t's prompt is turn t-1's prompt and output plus the next user
+        message; turn t submits the sessions in an order rotated by t
+        (agents answer at different times). Returns (prompts
+        [turn][session], outputs, TTFT ms, the replica each request was
+        placed on [turn][session], read off the router's audit ring)."""
+        import numpy as np
+        S = len(systems)
+        prompts, outs, ttft, placed = [], [], [], []
+        prev = [None] * S
+        for t in range(3):
+            order = [(i + t) % S for i in range(S)]
+            ps = [np.concatenate([systems[s] if prev[s] is None
+                                  else prev[s], users[s][t]])
+                  for s in order]
+            n0 = len(router.stats()["router"]["audit_tail"])
+            res, _c, arr, sub, _w = self.fleet_streams(
+                router, ps, [new] * S)
+            for s, r in zip(order, res):
+                assert isinstance(r, np.ndarray), \
+                    f"session {s} turn {t}: {r!r}"
+            where = [e["replica"] for e in router.stats()["router"][
+                "audit_tail"][n0:] if e["reason"] in (
+                    "ROUTE_AFFINITY", "ROUTE_LEAST_PRESSURE")]
+            back = {s: i for i, s in enumerate(order)}
+            prompts.append([ps[back[s]] for s in range(S)])
+            outs.append([res[back[s]] for s in range(S)])
+            ttft.append([(arr[back[s]][0] - sub[back[s]]) * 1e3
+                         for s in range(S)])
+            placed.append([where[back[s]] for s in range(S)])
+            prev = outs[-1]
+        return prompts, outs, ttft, placed
+
+    def fleet_router_arms(self, prompts5, new5, refs5, num_pages):
+        """Phase 5e (b): two replicas (EngineSupervisors with the prefix
+        cache on) over the one GPT-2 small behind a Router. Four agent
+        sessions of three turns with affinity on, then off (outputs
+        identical to generate(); with affinity, turns 2-3 on turn 1's
+        replica: 8 ROUTE_AFFINITY); then, on the affinity router, the
+        kill arm (phase 5's 16 requests, decode_step_raise@6: every
+        request served through its replica's replay, identical to
+        generate() and exactly once, no ROUTE_REROUTE, the router's
+        /readyz 200 throughout); then 16 requests at phase 5's lengths
+        through the two replicas and through one engine (tokens/s, the
+        same outputs). No page leaked on either replica."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.framework import monitor
+        from paddle_tpu_torch.framework.flags import set_flags
+        from paddle_tpu_torch.serving import (EngineSupervisor, Router,
+                                              failpoints)
+        L = self.gpt.gpt.config.num_layers
+        out = {}
+
+        def p50(xs):
+            return sorted(xs)[len(xs) // 2]
+
+        def hit_tokens(r):
+            return sum(rep.sup.stats()["kv"]["prefix"]["hit_tokens"]
+                       for rep in r._replicas)
+
+        def leak_free(r):
+            return all(rep.sup.engine._cache.owners() == {}
+                       and rep.sup.engine._cache.pages_in_use
+                       == len(rep.sup.engine._cache.cached_pages())
+                       for rep in r._replicas)
+
+        # sessions through the affinity router and the round-robin one,
+        # in the order on, off, off, on (two session sets; each router
+        # meets a set once), so the two are compared in turns
+        routers = {aff: Router(
+            self.gpt, num_replicas=2,
+            name=f"chip_smoke_fleet_{'affinity' if aff else 'rr'}",
+            affinity=aff, prefix_cache=True,
+            metrics_port=0 if aff else None, **self.fleet_kw(num_pages))
+            for aff in (True, False)}
+        by_seed = {}
+        for n, (aff, seed) in enumerate(((True, 5), (False, 5), (False, 6),
+                                         (True, 6))):
+            r = routers[aff]
+            arm = f"fleet_sessions_{'on' if aff else 'off'}_{n // 2 + 1}"
+            systems, users = self.fleet_sessions(
+                self.gpt.gpt.config.vocab_size, seed)
+            audit0 = len(r.stats()["router"]["audit_tail"])
+            hits0 = hit_tokens(r)
+            self.zero_launches()
+            t0 = time.perf_counter()
+            prompts, outs, ttft, placed = self.fleet_session_run(
+                r, systems, users)
+            wall = time.perf_counter() - t0
+            launches = self.record_path(arm)
+            reasons = [e["reason"] for e in
+                       r.stats()["router"]["audit_tail"][audit0:]]
+            flat_p = [p for turn in prompts for p in turn]
+            flat_o = [o for turn in outs for o in turn]
+            if seed not in by_seed:
+                by_seed[seed] = (flat_p, self.generate_refs(
+                    flat_p, [32] * len(flat_p)))
+            same_p = all(np.array_equal(a, b)
+                         for a, b in zip(flat_p, by_seed[seed][0]))
+            assert same_p, f"{arm}: prompts differ between the routers"
+            self.assert_identical(arm, flat_p, [32] * len(flat_p), flat_o,
+                                  by_seed[seed][1])
+            row = dict(wall_s=wall, placed=placed, launches=launches,
+                       affinity_routes=reasons.count("ROUTE_AFFINITY"),
+                       hit_tokens=hit_tokens(r) - hits0, ttft_ms=ttft,
+                       ttft_p50_turns23_ms=p50(ttft[1] + ttft[2]),
+                       ttft_p50_turn1_ms=p50(ttft[0]))
+            out[arm] = row
+            print(f"fleet arm {arm} on {self.smi}: 4 sessions x 3 turns "
+                  f"in {wall:.3f} s; replicas by turn {placed}; "
+                  f"ROUTE_AFFINITY {row['affinity_routes']}; prefix-hit "
+                  f"tokens {row['hit_tokens']}; TTFT p50 turns 2-3 "
+                  f"{row['ttft_p50_turns23_ms']:.2f} ms, turn 1 "
+                  f"{row['ttft_p50_turn1_ms']:.2f} ms; launches "
+                  f"{launches}")
+            assert leak_free(r), f"{arm}: a page leaked"
+            if aff:
+                assert placed[1] == placed[0] == placed[2], \
+                    f"{arm}: turns 2-3 left their session's replica " \
+                    f"{placed}"
+                assert row["affinity_routes"] == 8, reasons
+        routers[False].shutdown(drain=True, timeout_s=60)
+        assert leak_free(routers[False]), "fleet_sessions_off: a page leaked"
+        del routers[False]
+        r = routers[True]
+
+        # the kill arm: decode_step_raise@6 kills one replica mid-load
+        arm = "fleet_kill"
+        engines0 = [rep.sup.engine for rep in r._replicas]
+        steps0 = [e.stats()["steps"] for e in engines0]
+        ledgers0 = [dict(e._ledger) for e in engines0]
+        reroutes0 = monitor.stat_get("STAT_router_reroutes")
+        audit0 = len(r.stats()["router"]["audit_tail"])
+        url = r.metrics_server.url if r.metrics_server is not None else None
+        statuses, stop = [], threading.Event()
+
+        def poll():
+            while not stop.is_set():
+                code, body = self.http_get(url + "/readyz")
+                statuses.append((code, json.loads(body)["engines"].get(
+                    r.name, {}).get("ready")))
+                time.sleep(0.01)
+
+        poller = threading.Thread(target=poll, daemon=True)
+        failpoints.reset()
+        set_flags({"FLAGS_failpoints": "decode_step_raise@6"})
+        self.zero_launches()
+        poller.start()
+        try:
+            res, collected, _a, _s, wall = self.fleet_streams(
+                r, prompts5, new5)
+        finally:
+            set_flags({"FLAGS_failpoints": ""})
+            stop.set()
+            poller.join(30)
+        launches = self.record_path(arm)
+        restarts = sum(rep.sup.restarts for rep in r._replicas)
+        steps = sum(e.stats()["steps"] - s0
+                    for e, s0 in zip(engines0, steps0))
+        steps += sum(rep.sup.engine.stats()["steps"]
+                     for rep, e in zip(r._replicas, engines0)
+                     if rep.sup.engine is not e)
+        route = [e["reason"] for e in
+                 r.stats()["router"]["audit_tail"][audit0:]]
+        reroutes = monitor.stat_get("STAT_router_reroutes") - reroutes0
+        row = dict(wall_s=wall, restarts=restarts, steps=steps,
+                   launches=launches, reroutes=reroutes,
+                   route={c: route.count(c) for c in set(route)},
+                   readyz=sorted({s for s in statuses}, key=str),
+                   readyz_polls=len(statuses),
+                   recovery_ms=[rep.sup.supervisor_stats()[
+                       "last_recovery_ms"] for rep in r._replicas])
+        out[arm] = row
+        print(f"fleet arm {arm} on {self.smi}: {len(prompts5)} requests in "
+              f"{wall:.3f} s; {restarts} restart(s), recovery ms "
+              f"{row['recovery_ms']}; router audit {row['route']}; "
+              f"/readyz (status, router ready) seen {row['readyz']} over "
+              f"{len(statuses)} polls; {steps} decode steps, launches "
+              f"{launches}")
+        bad = [(i, repr(x)) for i, x in enumerate(res)
+               if not isinstance(x, np.ndarray)]
+        assert not bad, f"{arm}: requests failed: {bad}"
+        self.assert_identical(arm, prompts5, new5, res, refs5)
+        once = [i for i, (p, o) in enumerate(zip(prompts5, res))
+                if collected[i] != o[len(p):].tolist()]
+        assert not once, f"{arm}: streams {once} not exactly once"
+        assert restarts == 1, f"{arm}: {restarts} restarts"
+        assert reroutes == 0 and "ROUTE_REROUTE" not in route, \
+            f"{arm}: re-routes without a placement-time failure"
+        assert statuses and all(s == (200, True) for s in statuses), \
+            f"{arm}: the router's /readyz left 200: {row['readyz']}"
+        assert [dict(rep.sup.engine._ledger) for rep in r._replicas] == \
+            ledgers0, f"{arm}: a rebuild added ledger keys"
+        assert launches["paged_attention"] == (steps + restarts) * L, \
+            f"{arm}: K1 {launches['paged_attention']} for {steps} steps " \
+            f"+ {restarts} rebuild warmup step(s)"
+        assert leak_free(r), f"{arm}: a page leaked"
+        # aggregate tokens/s: phase 5's lengths with other tokens (no
+        # prefix a replica holds) through the two replicas and through one
+        # engine with the same settings, in the order two, one, one, two
+        # (two token sets; each front meets a set once); the two fronts
+        # give the same outputs
+        one = EngineSupervisor(self.gpt, name="chip_smoke_fleet_one",
+                               prefix_cache=True, **self.fleet_kw(num_pages))
+        thr, outs_t = {"fleet_two": [], "fleet_one": []}, {}
+        for arm, seed in (("fleet_two", 1), ("fleet_one", 1),
+                          ("fleet_one", 2), ("fleet_two", 2)):
+            front = r if arm == "fleet_two" else one
+            prompts_t, new_t = self.serving_requests(
+                self.gpt.gpt.config.vocab_size, seed=seed)
+            self.zero_launches()
+            res, _c, _a, _s, wall = self.fleet_streams(front, prompts_t,
+                                                       new_t)
+            self.record_path(f"{arm}_{seed}")
+            bad = [(i, repr(x)) for i, x in enumerate(res)
+                   if not isinstance(x, np.ndarray)]
+            assert not bad, f"{arm}: requests failed: {bad}"
+            thr[arm].append(sum(len(o) - len(p)
+                                for o, p in zip(res, prompts_t)) / wall)
+            if seed in outs_t:
+                same = [np.array_equal(a, b)
+                        for a, b in zip(outs_t[seed], res)]
+                assert all(same), \
+                    f"two replicas and one engine differ: {same}"
+            outs_t[seed] = res
+        one.shutdown(drain=True, timeout_s=60)
+        del one
+        out["tokens_per_s"] = thr
+        two, single = sum(thr["fleet_two"]) / 2, sum(thr["fleet_one"]) / 2
+        print(f"fleet throughput on {self.smi}: 16 requests at phase 5's "
+              f"lengths, two replicas {[round(x, 1) for x in thr['fleet_two']]}"
+              f" tokens/s, one engine "
+              f"{[round(x, 1) for x in thr['fleet_one']]} tokens/s (two, "
+              f"one, one, two: {two / single:.2f}x on the means)")
+        r.shutdown(drain=True, timeout_s=60)
+        assert leak_free(r), "fleet_two: a page leaked"
+        del r
+        torch.cuda.empty_cache()
+        return out
+
+    def fleet(self):
+        """Phase 5e: GPT-2 small (fp32, seed 0) at phase 5's engine
+        settings under EngineSupervisor and Router. (a) Phase 5's 16
+        streamed requests (8 joining while 8 decode) through one
+        supervisor with FLAGS_gen_restart_backoff_ms 5: arms
+        decode_step_raise@12 (8 live and 8 queued at the death),
+        prefill_raise@1, and a spec_k 4 engine with
+        FLAGS_gen_poison_degrade_k 2 (decode_poison_nan@every:1 on two
+        requests, then decode_step_raise@1); the exact gates of
+        `fleet_restart_arm`; the restart's peak allocated bytes over the
+        death step's by less than half a pool set; then the breaker arm
+        (decode_step_raise@every:1, retry limit 2, threshold 3): every
+        request fails typed, BREAKER_OPEN once, /readyz 503 with the
+        reason. (b) `fleet_router_arms`."""
+        torch = self.torch
+        from paddle_tpu_torch.framework.errors import UnavailableError
+        from paddle_tpu_torch.framework.flags import get_flags, set_flags
+        from paddle_tpu_torch.serving import EngineSupervisor, failpoints
+        if not hasattr(self, "gpt"):
+            from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+            self.gpt = GPTForCausalLM(GPTConfig(), device="cuda",
+                                      seed=0).eval()
+        prompts, new = self.serving_requests(self.gpt.gpt.config.vocab_size)
+        refs = getattr(self, "serving_refs", None) or \
+            self.generate_refs(prompts, new)
+        P = FEAT["page"]
+        num_pages = 1 + sum(-(-(len(p) + n) // P)
+                            for p, n in zip(prompts, new))
+        saved = get_flags(["FLAGS_gen_restart_backoff_ms",
+                           "FLAGS_gen_poison_degrade_k"])
+        set_flags({"FLAGS_gen_restart_backoff_ms": 5.0})
+        out = {}
+        try:
+            def steps_at(k, after_restart=False):
+                return lambda sup: (sup.engine.stats()["steps"] >= k
+                                    and (sup.restarts >= 1
+                                         or not after_restart))
+
+            _, out["fleet_restart"] = self.fleet_restart_arm(
+                "fleet_restart", "decode_step_raise@12", prompts, new, refs,
+                num_pages, n_death=12, join=steps_at(2))
+            r = out["fleet_restart"]
+            assert (r["live_at_death"], r["queued_at_death"]) == (8, 8), r
+            assert r["steady_bytes"] is not None
+            torch.cuda.empty_cache()
+            _, out["fleet_prefill"] = self.fleet_restart_arm(
+                "fleet_prefill", "prefill_raise@1", prompts, new, refs,
+                num_pages, join=steps_at(2, after_restart=True))
+            torch.cuda.empty_cache()
+
+            # degraded: speculation off after two poison events, then a
+            # death; incarnation 1 starts with speculation off
+            set_flags({"FLAGS_gen_poison_degrade_k": 2})
+            sup = EngineSupervisor(self.gpt, name="chip_smoke_fleet_spec",
+                                   spec_k=FEAT["spec_k"],
+                                   **self.fleet_kw(num_pages))
+            failpoints.reset()
+            set_flags({"FLAGS_failpoints": "decode_poison_nan@every:1"})
+            self.zero_launches()
+            try:
+                for i in (0, 2):
+                    try:
+                        sup.submit(prompts[i],
+                                   max_new_tokens=new[i]).result(60)
+                        raise AssertionError("a poisoned request succeeded")
+                    except AssertionError:
+                        raise
+                    except Exception as e:  # noqa: BLE001 — checked here
+                        assert "non-finite" in str(e), repr(e)
+            finally:
+                set_flags({"FLAGS_failpoints": ""})
+            poison = self.record_path("fleet_spec_poison")
+            reasons = [e["reason"] for e in sup.engine._audit.tail(4096)]
+            assert reasons.count("DEGRADED_SPEC_OFF") == 1, reasons
+            assert sup.stats()["degraded"]["spec_off"]
+            assert poison["paged_attention"] == 0, \
+                f"the verify program launched K1: {poison}"
+            _, row = self.fleet_restart_arm(
+                "fleet_degraded", "decode_step_raise@1", prompts, new, refs,
+                num_pages, join=steps_at(2, after_restart=True), sup=sup)
+            assert row["reasons"]["DEGRADED_SPEC_OFF"] == 1, row["reasons"]
+            assert row["launches"]["paged_attention"] > 0
+            out["fleet_degraded"] = row
+            degraded = sup.engine.stats()
+            assert degraded["degraded"]["spec_off"] and \
+                degraded["incarnation"] == 1, degraded["degraded"]
+            del sup
+            set_flags({"FLAGS_gen_poison_degrade_k": 0})
+            torch.cuda.empty_cache()
+
+            # the breaker: every step dies
+            sup = EngineSupervisor(self.gpt, name="chip_smoke_fleet_breaker",
+                                   retry_limit=2, breaker_threshold=3,
+                                   metrics_port=0,
+                                   **self.fleet_kw(num_pages))
+            few = [0, 2, 6, 11]
+            failpoints.reset()
+            set_flags({"FLAGS_failpoints": "decode_step_raise@every:1"})
+            self.zero_launches()
+            try:
+                res, _c, _a, _s, wall = self.fleet_streams(
+                    sup, [prompts[i] for i in few], [new[i] for i in few],
+                    lock=lambda: sup.engine._cv)
+            finally:
+                set_flags({"FLAGS_failpoints": ""})
+            self.record_path("fleet_breaker")
+            code, body = self.http_get(sup.metrics_server.url + "/readyz")
+            entry = json.loads(body)["engines"][sup.name]
+            reasons = [e["reason"] for e in sup.engine._audit.tail(4096)]
+            ss = sup.supervisor_stats()
+            print(f"fleet arm fleet_breaker on {self.smi}: "
+                  f"{[type(x).__name__ for x in res]} in {wall:.3f} s; "
+                  f"{ss['incarnation']} incarnations, breaker "
+                  f"{ss['breaker']}; /readyz {code} {entry['reason']!r}")
+            out["fleet_breaker"] = dict(
+                errors=[type(x).__name__ for x in res], readyz=code,
+                reason=entry["reason"], supervisor=ss,
+                reasons={c: reasons.count(c) for c in set(reasons)})
+            assert all(isinstance(x, UnavailableError) for x in res), res
+            assert reasons.count("BREAKER_OPEN") == 1, reasons
+            assert code == 503 and not entry["ready"] and \
+                "breaker open" in entry["reason"], (code, entry)
+            sup.shutdown(drain=True, timeout_s=60)
+            del sup
+            torch.cuda.empty_cache()
+            out.update(self.fleet_router_arms(prompts, new, refs, num_pages))
+        finally:
+            set_flags(saved)
+            set_flags({"FLAGS_failpoints": ""})
+        self.details["fleet"] = out
+
     def profile(self):
         """Prefill wall time per bucket, then torch.profiler over 20
         decode steps of 8 live sequences: wall per step, device busy
@@ -3377,6 +4091,7 @@ def main(argv=None):
             sm.phase("features", sm.features)
             sm.phase("quant", sm.quant)
             sm.phase("tier", sm.tier)
+            sm.phase("fleet", sm.fleet)
             if args.profile:
                 sm.phase("profile", sm.profile)
             sm.phase("train", sm.train)
@@ -3385,7 +4100,8 @@ def main(argv=None):
         os.makedirs(os.path.dirname(os.path.abspath(args.details)),
                     exist_ok=True)
         with open(args.details, "w") as f:
-            json.dump({"card": sm.smi, "details": sm.details}, f, indent=1)
+            json.dump({"card": sm.smi, "details": sm.details,
+                       "path_launches": sm.path_launches}, f, indent=1)
     if sm.failures or args.kernels:
         print(f"chip_smoke: failed phases {sm.failures}" if sm.failures
               else "chip_smoke: kernel phases only, no result")

@@ -173,6 +173,46 @@ register_flag("FLAGS_failpoints", "",
               "decode_poison_nan, alloc_exhaust, slow_step_ms, "
               "kv_tier.promote_upload, kv_tier.demote_gather. '' "
               "disables every site")
+register_flag("FLAGS_gen_retry_limit", 2,
+              "serving.EngineSupervisor: per-request replay budget: a "
+              "request may survive at most this many engine restarts "
+              "before it fails with a typed UnavailableError "
+              "(audit code RETRY_EXHAUSTED)")
+register_flag("FLAGS_gen_restart_backoff_ms", 100.0,
+              "serving.EngineSupervisor base backoff between consecutive "
+              "engine deaths (doubles per consecutive death, capped at "
+              "32x). The JAX package's default; not measured on a GPU")
+register_flag("FLAGS_gen_breaker_threshold", 5,
+              "serving.EngineSupervisor crash-storm circuit breaker: "
+              "this many engine deaths inside "
+              "FLAGS_gen_breaker_window_s opens the breaker: the "
+              "supervisor stays down, /readyz reports 503 with the "
+              "breaker reason, and pending work fails typed "
+              "(audit code BREAKER_OPEN)")
+register_flag("FLAGS_gen_breaker_window_s", 30.0,
+              "rolling window the crash-storm breaker counts engine "
+              "deaths over (see FLAGS_gen_breaker_threshold)")
+register_flag("FLAGS_gen_poison_degrade_k", 0,
+              "serving.GenerationEngine degraded mode: this many poison "
+              "events (non-finite logits) inside "
+              "FLAGS_gen_degraded_window_s flips speculative decoding "
+              "OFF for the engine (audit code DEGRADED_SPEC_OFF; the "
+              "plain decode program is warmed too, so the flip adds no "
+              "ledger entry). 0 disables the detector; snapshotted at "
+              "engine construction")
+register_flag("FLAGS_gen_exhaust_clamp_k", 0,
+              "serving.GenerationEngine degraded mode: this many "
+              "page-blocked admission iterations inside "
+              "FLAGS_gen_degraded_window_s clamps admission: new "
+              "submits that the pool cannot cover RIGHT NOW fail fast "
+              "with ResourceExhaustedError instead of queueing toward a "
+              "timeout (audit code DEGRADED_ADMIT_CLAMP; clears on the "
+              "next successful admission). 0 disables; snapshotted at "
+              "construction")
+register_flag("FLAGS_gen_degraded_window_s", 60.0,
+              "rolling window both degraded-mode detectors "
+              "(FLAGS_gen_poison_degrade_k / "
+              "FLAGS_gen_exhaust_clamp_k) count events over")
 register_flag("FLAGS_slo_ttft_p99_ms", 0.0,
               "SLO objective: generative time-to-first-token p99 target "
               "in ms: at most 1% of requests in a window may exceed it "
@@ -194,6 +234,25 @@ register_flag("FLAGS_slo_max_burn_rate", 0.0,
               "while any objective's fast-window burn rate is >= this "
               "value (0 never sheds; 1.0 = shedding exactly at "
               "budget-burn speed)")
+register_flag("FLAGS_router_replicas", 2,
+              "default replica count for serving.Router when neither "
+              "num_replicas nor prebuilt replicas are passed; each "
+              "replica is an EngineSupervisor-wrapped GenerationEngine "
+              "(serving/router.py)")
+register_flag("FLAGS_router_affinity", True,
+              "prefix-affinity placement (serving/router.py): steer a "
+              "request to the replica whose sketch holds the longest "
+              "blake2b chain over the prompt's leading full pages; "
+              "False = pure round-robin over undrained replicas")
+register_flag("FLAGS_router_sketch_digests", 8192,
+              "per-replica LRU sketch capacity, in chain digests, the "
+              "router's affinity placement matches against (16 bytes a "
+              "digest a replica); oldest digests age out first")
+register_flag("FLAGS_router_pressure_ttl_ms", 50.0,
+              "max age of the router's cached per-replica pressure and "
+              "health snapshot before a placement refreshes it; 0 "
+              "refreshes every placement (serving/router.py). The JAX "
+              "package's default; not measured on a GPU")
 register_flag("FLAGS_trace_ring_size", 16384,
               "profiler.tracer: per-thread trace event ring capacity; the "
               "ring overwrites its oldest events instead of growing")

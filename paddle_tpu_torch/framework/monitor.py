@@ -30,6 +30,14 @@ The subset of `paddle_tpu.framework.monitor` the ported slices write:
 - training (`hapi.Model`): `STAT_train_steps`, `STAT_train_step_ns` (host
   wall time of `train_batch`, which returns before the device finishes)
   and `STAT_train_host_syncs` (losses fit forced to a host float);
+- supervised restart and degraded modes: `STAT_gen_restarts`,
+  `STAT_gen_replay_ms` (cumulative ms of death handling: rebuild and
+  replay), `STAT_gen_replayed_requests`, `STAT_gen_breaker_open`,
+  `STAT_gen_degraded_spec_off`, `STAT_gen_admit_clamped`;
+- the router: `STAT_router_requests`, `STAT_router_affinity_hits`,
+  `STAT_router_affinity_pages`, `STAT_router_least_pressure`,
+  `STAT_router_reroutes`, `STAT_router_drains`,
+  `STAT_router_pressure_refreshes`;
 - residency gauges: `STAT_kv_cache_hbm_bytes`, the pool (and scale-pool)
   bytes of every live `serving.PagedKVCache`, added at construction and
   subtracted when the cache is collected (`stat_gauge_add`).

@@ -89,10 +89,26 @@ and the HTTP exporter (`metrics_port=`: `/metrics`, `/stats`, `/steps`,
 fault injection goes through `serving/failpoints.py`
 (`FLAGS_failpoints`).
 
+**Supervised restart** (`serving/supervisor.py`): an engine built with
+`on_death=` hands a `CrashManifest` to that callback when its step loop
+raises (queued requests verbatim, live slots as prompt + generated
+continuations, each with the caller's future and stream) instead of
+failing the requests; `replay_submit` re-enqueues an entry on the rebuilt
+engine, and a from-scratch greedy replay suppresses the `skip_stream`
+tokens a stream already delivered. The dead engine releases its pools
+before the callback runs (the JAX engine donated them into the failing
+call), so a rebuild never holds two sets. `incarnation` rides every
+StepRecord and span; `_carryover` hands the next incarnation the program
+ledger, the step and audit rings and the degraded verdict. **Degraded
+modes**: `FLAGS_gen_poison_degrade_k` poison events in
+`FLAGS_gen_degraded_window_s` turn speculation off (the plain decode
+step is warmed beside the verify program, so the ledger does not move),
+and `FLAGS_gen_exhaust_clamp_k` page-blocked admission iterations clamp
+admission (submits the pool cannot cover now fail fast) until the next
+admission.
+
 Not ported yet, each raising `InvalidArgumentError` when asked for: the
-program store and tensor-parallel lanes. The supervisor seams
-(`incarnation`, `on_death`, `replay_submit`) and the degraded modes come
-with a later slice.
+program store and tensor-parallel lanes.
 """
 from __future__ import annotations
 
@@ -101,6 +117,7 @@ import itertools
 import queue as _queue
 import threading
 import time
+import traceback
 from collections import deque
 from concurrent.futures import CancelledError, Future
 from typing import List, Optional
@@ -132,8 +149,8 @@ from .spec_decode import NGramProposer
 
 monitor.register_gauge("STAT_gen_queue_depth", updown=True)
 
-__all__ = ["EngineOverloaded", "GenerationConfig", "GenerationEngine",
-           "TokenStream"]
+__all__ = ["CrashManifest", "EngineOverloaded", "GenerationConfig",
+           "GenerationEngine", "ReplayEntry", "TokenStream"]
 
 
 class EngineOverloaded(ResourceExhaustedError):
@@ -315,7 +332,8 @@ class _GenRequest:
                  "span", "slot", "pt_row", "toks", "next_pos", "ordinal",
                  "defer_logged", "stream", "ttft_deadline_ms",
                  "prefix_tokens", "prefill_pos", "pending_digests",
-                 "spec_accepted", "trace_id")
+                 "spec_accepted", "claimed", "retries", "skip_stream",
+                 "trace_id")
 
     _ids = itertools.count(1)
 
@@ -346,7 +364,89 @@ class _GenRequest:
         #                                 prefill complete / not chunked)
         self.pending_digests = None     # prompt digests held across chunks
         self.spec_accepted = 0          # draft tokens accepted
-        self.trace_id = trace_id        # 16-hex trace id or None
+        self.claimed = False            # future claimed running (_admit)
+        self.retries = 0                # supervised restarts survived
+        self.skip_stream = 0            # stream tokens to suppress on a
+        #                                 from-scratch greedy replay
+        #                                 (exactly-once across restarts)
+        self.trace_id = trace_id        # 16-hex trace id or None; one id
+        #                                 across every incarnation
+
+
+class ReplayEntry:
+    """One request's restartable state inside a `CrashManifest`: the
+    submit parameters verbatim, the generated prefix (a live slot replays
+    as a prompt + generated continuation), the future and stream the
+    caller still holds, and what an exactly-once replay needs
+    (`delivered` streamed tokens, `claimed` future state, the `retries`
+    already spent)."""
+
+    __slots__ = ("rid", "ordinal", "prompt", "toks", "max_new", "eos",
+                 "do_sample", "temperature", "future", "stream",
+                 "deadline_ms", "ttft_deadline_ms", "t_enqueue_ms",
+                 "claimed", "retries", "delivered", "queued", "trace_id")
+
+    def __init__(self, req: "_GenRequest", queued: bool):
+        self.rid = req.rid
+        self.ordinal = req.ordinal
+        self.prompt = req.prompt
+        self.toks = list(req.toks)
+        self.max_new = req.max_new
+        self.eos = req.eos
+        self.do_sample = req.do_sample
+        self.temperature = req.temperature
+        self.future = req.future
+        self.stream = req.stream
+        self.deadline_ms = req.deadline_ms
+        self.ttft_deadline_ms = req.ttft_deadline_ms
+        self.t_enqueue_ms = req.t_enqueue_ms
+        self.claimed = req.claimed
+        self.retries = req.retries
+        # _die flushes the staged stream items before the manifest is
+        # built, so every generated token was delivered or, in a
+        # from-scratch replay, suppressed because an earlier incarnation
+        # delivered it (skip_stream counts the suppressions still owed):
+        # what the caller has seen = generated here + still owed
+        self.delivered = (len(req.toks) + req.skip_stream
+                          if req.stream is not None else 0)
+        self.queued = queued
+        self.trace_id = req.trace_id
+
+
+class CrashManifest:
+    """What `EngineSupervisor` needs to resurrect a dead engine: the
+    replayable requests in admission order (live slots first, then the
+    queued tail), the fatal error, the page-pool snapshot, the program
+    ledger at death (the rebuilt engine must add no key to it) and the
+    degraded state that survives the restart."""
+
+    __slots__ = ("engine", "incarnation", "error", "entries",
+                 "degraded_spec_off", "kv", "compiles")
+
+    def __init__(self, engine: str, incarnation: int,
+                 error: BaseException, entries: List[ReplayEntry],
+                 degraded_spec_off: bool, kv: dict, compiles: dict):
+        self.engine = engine
+        self.incarnation = incarnation
+        self.error = error
+        self.entries = entries
+        self.degraded_spec_off = degraded_spec_off
+        self.kv = kv
+        self.compiles = compiles
+
+    def summary(self) -> dict:
+        """Flight-dump payload: counts and per-entry state, no futures."""
+        return {
+            "engine": self.engine, "incarnation": self.incarnation,
+            "error": repr(self.error),
+            "entries": [{"rid": e.rid, "queued": e.queued,
+                         "generated": len(e.toks),
+                         "delivered": e.delivered,
+                         "stream": e.stream is not None,
+                         "retries": e.retries}
+                        for e in self.entries],
+            "degraded_spec_off": self.degraded_spec_off,
+            "kv": self.kv, "compiles": dict(self.compiles)}
 
 
 class GenerationEngine:
@@ -368,11 +468,20 @@ class GenerationEngine:
     there is none); the model must live there already. `metrics_port`
     starts (or shares) the exporter's HTTP server on 127.0.0.1: 0 binds
     an ephemeral port owned by this engine (read it back from
-    `engine.metrics_server.port`), None follows FLAGS_metrics_port."""
+    `engine.metrics_server.port`), None follows FLAGS_metrics_port.
+
+    The supervisor seam: `incarnation` is this engine generation's
+    ordinal (on every StepRecord and span); with `on_death` set, a death
+    hands a `CrashManifest` to it instead of failing the requests, and
+    the supervisor, not the engine, is the exporter's registered entity;
+    `_carryover` passes the previous incarnation's program ledger, step
+    and audit rings and degraded verdict forward."""
 
     def __init__(self, model, config: Optional[GenerationConfig] = None,
                  name: str = "generation", device=None,
-                 metrics_port: Optional[int] = None, **overrides):
+                 metrics_port: Optional[int] = None,
+                 incarnation: int = 0, on_death=None, _carryover=None,
+                 **overrides):
         if config is None:
             config = GenerationConfig(**overrides)
         elif overrides:
@@ -381,6 +490,9 @@ class GenerationEngine:
                 "not both")
         self._cfg = copy.copy(config)
         self.name = name
+        self.incarnation = int(incarnation)
+        self._on_death = on_death
+        carry = _carryover or {}
         if not isinstance(model, GPTForCausalLM):
             raise InvalidArgumentError(
                 f"GenerationEngine serves a models.GPTForCausalLM "
@@ -486,22 +598,42 @@ class GenerationEngine:
         self._tokens_total = 0
         self._exhaust_dumped = False   # one flight dump per episode
         self._req_seq = 0              # engine-local submit ordinal
-        self._ledger = {}              # program shape key -> 1
+        # program shape key -> 1; a resurrection shares the dead
+        # incarnation's dict, as the JAX engine shares its program pack's,
+        # so a rebuild that runs no new program shape adds no key
+        ledger = carry.get("ledger")
+        self._ledger = {} if ledger is None else ledger
         self._death: Optional[BaseException] = None
         self._pre_step_hook = None     # test seam: runs on the step thread
         self._hist = monitor.histogram(f"{name}_request_ms")
+        # degraded modes: the detector knobs are read once here (a flag
+        # flip must not turn speculation on over an unwarmed program); the
+        # spec-off verdict rides the crash manifest across a restart
+        self._poison_degrade_k = int(flag("FLAGS_gen_poison_degrade_k"))
+        self._exhaust_clamp_k = int(flag("FLAGS_gen_exhaust_clamp_k"))
+        self._degraded_window_s = float(flag("FLAGS_gen_degraded_window_s"))
+        self._degraded_spec_off = bool(carry.get("degraded_spec_off"))
+        self._poison_times: deque = deque()
+        self._exhaust_times: deque = deque()
+        self._admit_clamped = False
         # decision audit ring (always on: one deque append a decision)
         # and the per-iteration step ring (FLAGS_gen_step_log, read once
-        # here so a flag flip cannot half-enable a running engine)
-        self._audit = audit.AuditLog(name)
+        # here so a flag flip cannot half-enable a running engine); a
+        # resurrection keeps the previous incarnation's rings, so the
+        # restart lands in the same trail as the death that caused it
+        self._audit = carry.get("audit") or audit.AuditLog(name)
         if self._tier is not None:
             # demote-on-evict: evictions copy page content off the
             # device into the host store before freeing it
             self._prefix.attach_tier(self._tier, self._tier_gather_page,
                                      audit=self._audit,
                                      flush=self._tier_gather_flush)
-        self._step_log = (step_log.StepLog(name) if step_log.enabled()
-                          else None)
+        self._step_log = carry.get("step_log") or (
+            step_log.StepLog(name) if step_log.enabled() else None)
+        if carry.get("step_log") is not None:
+            # a failed rebuild attempt's error path unregisters the
+            # carried ring; the next attempt restores it
+            step_log.register(self._step_log)
         self._iters = 0
         # last-seen cumulative tier counters: _record_iteration takes
         # deltas for the per-iteration demote/promote counts
@@ -513,7 +645,10 @@ class GenerationEngine:
         flight_recorder.touch()
         device_telemetry.touch()
         timeseries.touch()
-        exporter.register_engine(self)
+        if self._on_death is None:
+            # a supervised engine never registers: the supervisor is the
+            # stable /readyz and /stats entity across incarnations
+            exporter.register_engine(self)
         try:
             if self._cfg.warmup:
                 self._warmup()
@@ -527,7 +662,7 @@ class GenerationEngine:
             self.metrics_server = exporter.start_metrics_server(
                 metrics_port)
         except Exception:
-            exporter.unregister_engine(self)
+            exporter.unregister_engine(self)   # no-op when supervised
             if self._step_log is not None:
                 step_log.unregister(self._step_log)
             raise
@@ -974,7 +1109,12 @@ class GenerationEngine:
             self._slab.release(e.slot)
         if self._spec_k:
             self._verify_call(*self._spec_arrays()[0])
-        else:
+        if (not self._spec_k or self._poison_degrade_k
+                or self._degraded_spec_off):
+            # with speculation on, the poison-storm detector may switch
+            # the engine to the plain decode step mid-flight: warm it too,
+            # so the DEGRADED_SPEC_OFF flip adds no ledger key (the ledger
+            # then holds both verify[k] and decode[m])
             self._decode_call(*self._step_arrays())
         self._zero_pages([])
 
@@ -1054,6 +1194,16 @@ class GenerationEngine:
                 f"holds {self._cache.usable_pages} "
                 f"(pages_per_seq={self._cache.pages_per_seq}); raise "
                 f"FLAGS_paged_num_pages or shrink the request")
+        if self._admit_clamped and not self._cache.can_admit(total):
+            # degraded admission clamp: the allocator was exhausted again
+            # and again, so a request the pool cannot cover now would only
+            # queue toward a timeout; shed it fast, typed
+            monitor.stat_add("STAT_gen_rejected")
+            raise ResourceExhaustedError(
+                f"{self.name}: admission clamped after repeated allocator "
+                f"exhaustion (FLAGS_gen_exhaust_clamp_k) and the pool "
+                f"cannot cover {total} tokens now; retry later or shrink "
+                f"the request")
         t = _now_ms()
         tmo = (self._cfg.request_timeout_ms if timeout_ms is None
                else float(timeout_ms))
@@ -1078,8 +1228,8 @@ class GenerationEngine:
                     float(temperature),
                     stream.future if stream is not None else Future(),
                     None if not tmo else t + tmo, t,
-                    spans.start_gen(self.name, trace_id=tid,
-                                    trace_root=trace_root),
+                    spans.start_gen(self.name, incarnation=self.incarnation,
+                                    trace_id=tid, trace_root=trace_root),
                     stream=stream,
                     ttft_deadline_ms=t + ttft_tmo if ttft_tmo else None,
                     trace_id=tid)
@@ -1106,6 +1256,49 @@ class GenerationEngine:
         """Synchronous submit: blocks for this prompt's full sequence."""
         return self.submit(prompt_ids, **kw).result()
 
+    def replay_submit(self, entry: ReplayEntry, prompt: np.ndarray,
+                      max_new: int, skip_stream: int = 0) -> None:
+        """Re-enqueue a crash-manifest entry on THIS (rebuilt) engine, the
+        supervisor's seam. The caller's future and stream are kept as
+        they are; `prompt`/`max_new` are the supervisor's continuation
+        (prompt + generated so far, the remaining budget) or the original
+        pair for a from-scratch replay, where `skip_stream` suppresses the
+        greedy tokens a stream already delivered. Deadlines carry over
+        unchanged (a replay buys no time). The queue-depth bound does not
+        apply: the request was admitted once already."""
+        prompt = np.asarray(prompt, np.int32)
+        with self._cv:
+            if self._closed:
+                raise UnavailableError(f"{self.name}: engine is shut down")
+            # the hard TTFT deadline is met once any token was delivered,
+            # in an earlier incarnation too; the whole-request deadline
+            # carries over as it is
+            ttft = (entry.ttft_deadline_ms
+                    if not entry.toks and not entry.delivered else None)
+            req = _GenRequest(
+                prompt, int(max_new), entry.eos, entry.do_sample,
+                entry.temperature, entry.future, entry.deadline_ms,
+                entry.t_enqueue_ms,
+                spans.start_gen(self.name, incarnation=self.incarnation,
+                                trace_id=entry.trace_id, trace_root=False),
+                stream=entry.stream, ttft_deadline_ms=ttft,
+                trace_id=entry.trace_id)
+            req.claimed = entry.claimed
+            req.retries = entry.retries + 1
+            req.skip_stream = int(skip_stream)
+            self._req_seq += 1
+            req.ordinal = self._req_seq
+            self._queue.append(req)
+            monitor.stat_add("STAT_gen_queue_depth")
+            self._cv.notify_all()
+        monitor.stat_add("STAT_gen_replayed_requests")
+        self._audit.audit(
+            "REPLAY_ADMIT", rid=req.rid, orig_rid=entry.rid,
+            retries=req.retries, generated=len(entry.toks),
+            continuation=int(prompt.size) > int(entry.prompt.size),
+            skip_stream=int(skip_stream),
+            **({"trace": entry.trace_id} if entry.trace_id else {}))
+
     # -- step loop ---------------------------------------------------------
 
     def _num_active(self) -> int:
@@ -1118,7 +1311,10 @@ class GenerationEngine:
             with torch.inference_mode():
                 self._run()
         except BaseException as e:  # noqa: BLE001 — never hang submitters
-            self._die(e)
+            # _die runs outside the inference mode: a supervisor rebuilds
+            # the next engine from here
+            if self._die(e):
+                return   # supervised: handed over and handled
             raise
 
     def _run(self):
@@ -1232,7 +1428,8 @@ class GenerationEngine:
             spec_drafted=it["spec_drafted"],
             spec_accepted=it["spec_accepted"],
             prefill_chunks=it["prefill_chunks"],
-            prefill_ms=a_prefill, decode_ms=a_decode, incarnation=0,
+            prefill_ms=a_prefill, decode_ms=a_decode,
+            incarnation=self.incarnation,
             tier_demotions=tier_dem, tier_promotions=tier_pro, tp=1,
             attr_admit_ms=a_admit, attr_promote_ms=a_promote,
             attr_bookkeep_ms=a_book, attr_idle_ms=a_idle,
@@ -1257,8 +1454,17 @@ class GenerationEngine:
         self._resolve_later(req, req.future, result, exc)
 
     def _stage_token(self, req: _GenRequest, tok: int):
-        if req.stream is not None:
-            self._stream_q.append((req.stream, tok))
+        """Stage one token for delivery after the iteration's barrier. A
+        from-scratch greedy replay suppresses its first `skip_stream`
+        tokens: an earlier incarnation delivered them, and greedy
+        re-derivation gives the same ones, so each reaches the caller
+        once."""
+        if req.stream is None:
+            return
+        if req.skip_stream > 0:
+            req.skip_stream -= 1
+            return
+        self._stream_q.append((req.stream, tok))
 
     def _flush_resolutions(self):
         sq, self._stream_q = self._stream_q, []
@@ -1274,11 +1480,14 @@ class GenerationEngine:
             except Exception:  # noqa: BLE001 — racing caller-side cancel
                 pass
 
-    def _die(self, e: BaseException):
-        """The step loop raised: fail every queued and live request with
-        a typed error instead of leaving its caller waiting, audit each
-        as ENGINE_DIED, and dump the flight record with the step-log and
-        audit tails that led here."""
+    def _die(self, e: BaseException) -> bool:
+        """The step loop raised. Supervised (`on_death`): build the crash
+        manifest of every queued and live request, dump it, release the
+        pools and hand the manifest over; returns True. Otherwise, or if
+        the supervisor itself fails: fail every queued and live request
+        with a typed error instead of leaving its caller waiting, audit
+        each as ENGINE_DIED, dump the flight record with the step-log
+        and audit tails that led here, and return False."""
         # two independent try blocks: a failed ring record on a
         # half-broken engine must not also strand the staged resolutions
         try:
@@ -1305,6 +1514,36 @@ class GenerationEngine:
             self._cv.notify_all()
         active = [r for r in self._slots
                   if r is not None and r.rid not in settled]
+        if self._on_death is not None:
+            manifest = CrashManifest(
+                engine=self.name, incarnation=self.incarnation, error=e,
+                entries=([ReplayEntry(r, queued=False)
+                          for r in sorted(active, key=lambda r: r.ordinal)]
+                         + [ReplayEntry(r, queued=True) for r in stranded]),
+                degraded_spec_off=self._degraded_spec_off,
+                kv=self._cache.manifest(), compiles=dict(self._ledger))
+            self._audit.flush_sink()
+            flight_recorder.dump("gen_engine_death", {
+                "engine": self.name, "error": repr(e), "supervised": True,
+                "manifest": manifest.summary(),
+                "inflight_spans": [r.span.to_dict() for r in active
+                                   if r.span is not None][:64],
+                "step_log_tail": self._step_log_tail(),
+                "audit_tail": self._audit.tail(64)})
+            # the JAX engine's pools were donated into the failing call;
+            # here the dead pools go now, before the supervisor allocates
+            # the next set. The traceback's finished frames may hold
+            # views of them (a decode step's locals): clear those too
+            traceback.clear_frames(e.__traceback__)
+            self._cache.release_pools()
+            try:
+                self._on_death(manifest)
+                return True
+            except Exception as sup_e:  # noqa: BLE001 — the supervisor
+                #                         failed: strand typed instead
+                e = RuntimeError(
+                    f"supervisor failed during restart: {sup_e!r} "
+                    f"(original death: {e!r})")
         err = UnavailableError(f"{self.name}: generation engine died: "
                                f"{e!r}")
         for req in active + stranded:
@@ -1326,6 +1565,7 @@ class GenerationEngine:
                                if r.span is not None][:64],
             "step_log_tail": self._step_log_tail(),
             "audit_tail": self._audit.tail(64)})
+        return False
 
     def _step_log_tail(self):
         return (self._step_log.tail(32) if self._step_log is not None
@@ -1423,12 +1663,16 @@ class GenerationEngine:
                             return
                     self._queue.popleft()
                     monitor.stat_sub("STAT_gen_queue_depth")
-                    if not req.future.set_running_or_notify_cancel():
-                        self._audit.audit("CANCELLED", rid=req.rid)
-                        if req.stream is not None:
-                            self._stream_q.append(
-                                (req.stream, CancelledError()))
-                        continue
+                    # a replayed request's future is RUNNING since its
+                    # first admission: claiming it again would raise
+                    if not req.claimed:
+                        if not req.future.set_running_or_notify_cancel():
+                            self._audit.audit("CANCELLED", rid=req.rid)
+                            if req.stream is not None:
+                                self._stream_q.append(
+                                    (req.stream, CancelledError()))
+                            continue
+                        req.claimed = True
                     req.slot = slot
                     req.pt_row = self._cache.alloc_shared(req.rid, total,
                                                           hit_pages)
@@ -1448,6 +1692,11 @@ class GenerationEngine:
                                       src_page=cow_src, dst_page=cow_dst)
                 self._slots[slot] = req
                 self._it["admitted"] += 1
+                if self._admit_clamped:
+                    # the pool covered an admission again: the exhaustion
+                    # episode is over, the clamp lifts
+                    self._admit_clamped = False
+                    self._exhaust_times.clear()
             if cow_dst is not None:
                 # clone the shared page before the tail prefill writes
                 # position S-1 through the private copy
@@ -1492,8 +1741,11 @@ class GenerationEngine:
         """The head cannot get its worst-case pages: count it, audit it
         once per request, and dump one flight record per exhaustion
         episode (a free of pages starts the next). Caller holds the
-        lock."""
+        lock. Every blocked iteration counts toward the admission-clamp
+        detector: head-of-line blocking defers only the head, so a count
+        a request would see one event an episode."""
         monitor.stat_add("STAT_gen_admit_blocked")
+        self._note_exhaust()
         if "pages" not in req.defer_logged:
             req.defer_logged.add("pages")
             self._audit.audit(
@@ -1582,6 +1834,7 @@ class GenerationEngine:
         its pages return zeroed."""
         monitor.stat_add("STAT_gen_poisoned")
         self._it["poisoned"] += 1
+        self._note_poison()
         self._audit.audit("POISON_DECODE", rid=req.rid, slot=slot,
                           generated=len(req.toks))
         slo.observe_request(self.name, ok=False)
@@ -1600,6 +1853,7 @@ class GenerationEngine:
         THIS request fails and its pages return zeroed."""
         monitor.stat_add("STAT_gen_poisoned")
         self._it["poisoned"] += 1
+        self._note_poison()
         self._audit.audit("POISON_PREFILL", rid=req.rid, bucket=bucket)
         slo.observe_request(self.name, ok=False)
         flight_recorder.dump("gen_poisoned_sequence", {
@@ -1765,6 +2019,48 @@ class GenerationEngine:
                 break
         return bad
 
+    def _note_poison(self):
+        """Poison-storm detector: k poison events inside the rolling
+        window turn speculation OFF for this engine (non-finite logits
+        keep coming: stop spending verify-wide commits on them and take
+        the warmed one-token decode step). The verdict survives restarts
+        through the crash manifest."""
+        if (not self._poison_degrade_k or not self._spec_k
+                or self._degraded_spec_off):
+            return
+        now = time.monotonic()
+        self._poison_times.append(now)
+        while (self._poison_times
+               and now - self._poison_times[0] > self._degraded_window_s):
+            self._poison_times.popleft()
+        if len(self._poison_times) >= self._poison_degrade_k:
+            self._degraded_spec_off = True
+            monitor.stat_add("STAT_gen_degraded_spec_off")
+            self._audit.audit(
+                "DEGRADED_SPEC_OFF", poison_events=len(self._poison_times),
+                window_s=self._degraded_window_s)
+
+    def _note_exhaust(self):
+        """Admission-clamp detector: k page-blocked admission iterations
+        inside the rolling window clamp admission: new submits the pool
+        cannot cover now fail fast with ResourceExhaustedError instead of
+        queueing toward a timeout. The next admission clears it."""
+        if not self._exhaust_clamp_k or self._admit_clamped:
+            return
+        now = time.monotonic()
+        self._exhaust_times.append(now)
+        while (self._exhaust_times
+               and now - self._exhaust_times[0] > self._degraded_window_s):
+            self._exhaust_times.popleft()
+        if len(self._exhaust_times) >= self._exhaust_clamp_k:
+            self._admit_clamped = True
+            monitor.stat_add("STAT_gen_admit_clamped")
+            self._audit.audit(
+                "DEGRADED_ADMIT_CLAMP",
+                exhaust_events=len(self._exhaust_times),
+                window_s=self._degraded_window_s,
+                free_pages=self._cache.free_pages)
+
     def _step(self):
         """ONE engine step: every live sequence advances one token
         (or, with speculation on, 1 to K+1 tokens through the verify
@@ -1778,7 +2074,7 @@ class GenerationEngine:
         if ms:
             time.sleep(ms / 1000.0)
         failpoints.maybe_raise("decode_step_raise")
-        if self._spec_k:
+        if self._spec_k and not self._degraded_spec_off:
             self._spec_step()
             return
         args = self._step_arrays()
@@ -1868,7 +2164,12 @@ class GenerationEngine:
                 generated=len(req.toks), stream=req.stream is not None,
                 age_ms=round(t - req.t_enqueue_ms, 3))
             slo.observe_request(self.name, ok=False)
-            if req.stream is not None and req.toks:
+            if (req.stream is not None and req.toks
+                    and req.skip_stream == 0):
+                # soft: the stream ends normally with what it has. A
+                # from-scratch replay still owing suppressions takes the
+                # hard path below: resolving now would hand back fewer
+                # tokens than the caller already streamed
                 self._release(req)
                 self._resolve_req_later(req, result=np.concatenate(
                     [req.prompt, np.asarray(req.toks, np.int32)]))
@@ -2013,6 +2314,15 @@ class GenerationEngine:
                 "tokens_per_step": round(decode_tokens / max(1, steps), 4),
             },
             "prefill_chunks": self._chunks_total,
+            # which engine generation this is, and whether a degraded
+            # mode is on
+            "incarnation": self.incarnation,
+            "degraded": {
+                "spec_off": self._degraded_spec_off,
+                "admit_clamped": self._admit_clamped,
+                "poison_degrade_k": self._poison_degrade_k,
+                "exhaust_clamp_k": self._exhaust_clamp_k,
+            },
             "step_log": {
                 "enabled": self._step_log is not None,
                 "recorded": (self._step_log.recorded

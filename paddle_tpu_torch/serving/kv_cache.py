@@ -40,9 +40,9 @@ slice.
 
 - **Residency gauge**: each live cache adds its pool (and scale-pool)
   bytes to `STAT_kv_cache_hbm_bytes` at construction and subtracts them
-  when it is collected (`weakref.finalize`: the engine drops its cache
-  on garbage collection, there is no explicit close), so a process with
-  several engines exports what exists.
+  when it is collected (`weakref.finalize`) or when a dead engine's
+  pools are released (`release_pools`), so a process with several
+  engines exports what exists.
 
 `alloc()`/`free()` are not thread-safe: the engine calls them from its
 single step thread.
@@ -119,8 +119,9 @@ class PagedKVCache:
         monitor.stat_set("STAT_kv_pages_inuse", 0)
         b = self.hbm_bytes()
         monitor.stat_gauge_add("STAT_kv_cache_hbm_bytes", b)
-        weakref.finalize(self, monitor.stat_gauge_add_later,
-                         "STAT_kv_cache_hbm_bytes", -b)
+        self._gauge_finalizer = weakref.finalize(
+            self, monitor.stat_gauge_add_later, "STAT_kv_cache_hbm_bytes",
+            -b)
 
     # -- capacity arithmetic ----------------------------------------------
 
@@ -405,6 +406,34 @@ class PagedKVCache:
         row = np.full((self.pages_per_seq,), TRASH_PAGE, np.int32)
         row[:len(pages)] = pages[:self.pages_per_seq]
         return row
+
+    def release_pools(self) -> None:
+        """Drop the device pools of a dead engine's cache, at once and not
+        at its collection: the JAX engine donates its pools into the call
+        that failed, so a restart never holds two sets, and this is the
+        port's counterpart. The pools become empty tensors of the same
+        type and device, the residency gauge gives their bytes back now,
+        and the bookkeeping (owners, refcounts, `stats()`) stays readable
+        for the crash record."""
+        if not self._gauge_finalizer.alive:
+            return
+        b = self.hbm_bytes()
+        self._gauge_finalizer.detach()
+        empty = self.k_pages.new_empty((0,))
+        self.k_pages = self.v_pages = empty
+        if self.quantized:
+            self.k_scales = self.v_scales = \
+                self.k_scales.new_empty((0,))
+        monitor.stat_gauge_add("STAT_kv_cache_hbm_bytes", -b)
+
+    def manifest(self) -> dict:
+        """Crash-manifest snapshot: pool stats plus the ownership and
+        refcount maps, taken at engine death so the flight dump records
+        which sequences held which pages when the pools were lost; the
+        rebuilt engine starts from a fresh pool, so this is the only
+        record of the dead layout."""
+        return {"stats": self.stats(), "owners": self.owners(),
+                "refcounts": self.refcounts()}
 
     def stats(self) -> dict:
         return {
