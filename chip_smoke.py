@@ -145,6 +145,36 @@ Phases:
               GradScaler (K5-K7 counted in fp16); then packed-vs-padded loss parity on 8 sequences and one
               train_batch through K5-K7 against one through the dense
               segment-masked path
+ 8. ernie     the ERNIE/BERT encoder family through hapi.Model. (a)
+              bench.py's headline configuration (bench.py:164-233):
+              ERNIE-base (ErnieConfig.base(), seed 0),
+              ErnieForSequenceClassification(2), AdamW 5e-5,
+              CrossEntropyLoss, metric.Accuracy, amp_configs="O1" (bf16),
+              batch 32 x seq 128, 40 fit steps over a seeded learnable
+              set: the loss finite and falling, the fit's acc equal to
+              Accuracy over its steps' logits, evaluate's acc equal to
+              Accuracy over predict's logits, K2-K4 launched 0 times (seq
+              128 is below the flash minimum); samples/s (the samples of
+              steps 3-40 over their time on the device timeline, as
+              bench.py counts a window) printed under the JAX bench's
+              metric name, with the step p50 beside it. (b) ERNIE-base at batch 8 x seq
+              512 with an attention_mask of seeded lengths 128-512,
+              dropout 0.1, 12 fit steps in fp32 and then under O1 bf16:
+              the loss falls, K2, K3 and K4 launched exactly 12 times a
+              step in the path's type; real tokens/s. (c) one train_batch
+              through K2-K4 against FLAGS_use_flash_attention=False at
+              [2, 512] with a padding mask, dropout 0, for the classifier
+              and ErnieForPretraining (MLM + NSP), in fp32 (phase 6's
+              limits) and bf16 O1 (its AMP gradient limits; the loss to
+              ERNIE_AMP_LOSS_TOL), with readings against a float64 step
+              (fp32) and the fp32 step (bf16) printed beside them for
+              the record. (d) BERT-large
+              (BertConfig.large(): 24 layers, 16 heads of 64), one O1
+              train_batch at [8, 512] with a padding mask: K2-K4 launched
+              24 times each in bf16. Then, informational, (a)'s step at
+              FLAGS_flash_attention_min_seq 512 and 128: wall a step,
+              K2-K4 launches a step (0 and 12), and each step profiled
+              (device ms, kernel table, GEMM share)
 Phase 3 also holds the splash kernels to their plain versions: K5 splash
 forward, K6 splash dQ and K7 splash dK/dV at GPT-2 small's attention
 width (B 8, H 12, S 1024, D 64) and at the packing phase's shape, with
@@ -157,9 +187,18 @@ path, the share of the 16x8 sub-tiles of K6's and K7's tiles that can
 hold an allowed pair and, where the library call runs, K5 against the
 library's forward and K6 + K7 against its whole backward;
 SplashAttention's gradients against autograd through the plain forward.
+Phase 3 also holds K2, K3 and K4 at every shape and type at which a
+phase 8 path launches them, non-causal, p 0.1: (b)'s and (c)'s [8, 12,
+512, 64] on ERNIE's key-padding bias ((1 - m) * -1e4 over seeded
+lengths) in fp32 and bf16; (a)'s step at flash minimum 128, [32, 12,
+128, 64] bf16 with no bias (the whole sequence one key tile); and (d)'s
+BERT-large, [8, 16, 512, 64] bf16 on the bias. The library's SDPA on the
+same [B,1,1,S] float mask and p is the yardstick (K3 + K4 against its
+whole backward).
 --profile's profiler sessions come after serving, so that run's train
 and packing walls carry them; each train path (fp32, AMP) is profiled
-over 3 steps with its GEMM share.
+over 3 steps with its GEMM share (phase 8 profiles its ERNIE-base step in
+every run).
 Then one JSON line describing the kernels (K1 also as a
 "paged_attention.float16" row, K2-K4 as "flash_fwd.bfloat16"/".float16"
 rows and K5-K7 as ".bfloat16" and ".float16" rows, their launches
@@ -222,12 +261,44 @@ FEAT = dict(slots=8, page=16, buckets=(16, 64, 256, 1024), spec_k=4)
 # H100 80GB HBM3 at 700 W the flips sat at gaps of 2.9e-4 to 2.9e-3
 # (PERF.md §2)
 NEAR_TIE = 1e-2
-# AMP step parity (kernels vs plain path under one AMP): loss rtol, and a
-# gradient's share of its own max (see Smoke.amp_step_parity)
+# AMP step parity (kernels vs plain path under one AMP): loss rtol, a
+# gradient's share of its own max, and the floor's share of the model's
+# largest gradient (see Smoke.amp_step_parity)
 AMP_LOSS_RTOL = {"bfloat16": 1e-3, "float16": 1e-3}
 AMP_GRAD_SHARE = {"bfloat16": 2.5e-2, "float16": 1e-2}
+AMP_GRAD_FLOOR = 1e-3
+# phase 8 (c)'s bf16 loss: within 2e-2 x max(1, |loss|) (tests/
+# test_torch_amp.py's bf16 limit on an op's output), not AMP_LOSS_RTOL.
+# The classifier's loss comes from 2 rows, not from phase 6's 2048
+# tokens, and the plain path rounds S, P and O to bf16 where the kernels
+# keep them in fp32: on an NVIDIA H100 80GB HBM3 at 700 W the plain bf16
+# loss sat 7.5e-3 (relative) from the fp32 step and the kernels' 7e-5,
+# so AMP_LOSS_RTOL would read the plain path's rounding (PERF.md §2)
+ERNIE_AMP_LOSS_TOL = 2e-2
 # kernel names of the GEMMs in a profile (cuBLAS, cuBLASLt, CUTLASS)
 _GEMM = r"gemm|nvjet|xmma|cutlass|splitKreduce"
+# phase 8: ERNIE-base fine-tuning in bench.py's headline configuration
+# (bench.py:164-233: ErnieForSequenceClassification, batch 32 x seq 128,
+# AdamW 5e-5, CrossEntropyLoss, bf16 AMP O1), printed under its metric
+# name; (b) long padded batches at seq 512 (lengths 128-512, dropout 0.1),
+# whose attention reaches the flash kernels; (c) kernel-vs-plain step
+# parity at [2, 512]; (d) BERT-large at [8, 512]
+ERNIE_METRIC = "ernie_base_train_samples_per_sec_bs32_seq128_bf16"
+ERNIE_A = dict(B=32, S=128, STEPS=40, LR=5e-5)
+ERNIE_LONG = dict(B=8, S=512, STEPS=12, LR=1e-4, MIN_LEN=128)
+ERNIE_PARITY = dict(B=2, S=512)
+# phase 3's ERNIE rows: each shape and type at which a phase 8 path
+# launches K2-K4, non-causal, p 0.1: (b)'s and (c)'s padded batches,
+# (a)'s step at FLAGS_flash_attention_min_seq=128 (one 128-key tile, no
+# padding, as bench.py feeds it) and (d)'s BERT-large
+ERNIE_KERNEL_CASES = (
+    dict(B=8, H=12, S=512, D=64, padded="ernie",
+         dtypes=("float32", "bfloat16")),
+    dict(B=32, H=12, S=128, D=64, padded=False, dtypes=("bfloat16",)),
+    dict(B=8, H=16, S=512, D=64, padded="ernie", dtypes=("bfloat16",)),
+)
+# the informational arm of (a): the same step at these flash minimums
+ERNIE_MIN_SEQS = (512, 128)
 
 
 def _bench_lengths(np):
@@ -253,6 +324,39 @@ def _motif_seqs(np, lengths):
     return out
 
 
+def _ernie_lengths(np, rows, S, seed):
+    """Seeded row lengths ERNIE_LONG["MIN_LEN"]..S, the first row S."""
+    lens = np.random.RandomState(seed).randint(ERNIE_LONG["MIN_LEN"], S + 1,
+                                               size=rows)
+    lens[0] = S
+    return lens
+
+
+def _ernie_cls_set(np, n, S, vocab, batch, seed, lengths=None):
+    """A learnable two-class set of n rows, every `batch` consecutive
+    rows half of each class: random ids, of which half (at seeded
+    positions) are the label's token, 2000 or 3000. A randomly
+    initialised ERNIE-base maps the [CLS] position of any two rows to
+    nearly one vector (pooled outputs at cosine 0.99 on a CPU check,
+    whatever one token says), so a label one token carries is not
+    learnable in a few steps; half the row carrying it keeps the two
+    classes' pooled outputs apart (cosine 0.87). With
+    `lengths`, ids past a row's length are the pad id 0 and the 1/0
+    mask [n, S] marks the real tokens (else all ones). Returns (ids,
+    labels, mask)."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(5, vocab, size=(n, S)).astype(np.int64)
+    labels = np.concatenate([rng.permutation(np.arange(batch) % 2)
+                             for _ in range(n // batch)]).astype(np.int64)
+    marked = rng.rand(n, S) < 0.5
+    ids = np.where(marked, np.where(labels[:, None] == 1, 3000, 2000), ids)
+    mask = np.ones((n, S), np.float32)
+    if lengths is not None:
+        mask = (np.arange(S)[None] < lengths[:, None]).astype(np.float32)
+        ids[mask == 0] = 0
+    return ids, labels, mask
+
+
 def _smi() -> str:
     try:
         return subprocess.run(
@@ -261,6 +365,16 @@ def _smi() -> str:
             timeout=30).stdout.strip()
     except (OSError, subprocess.SubprocessError) as e:
         return f"nvidia-smi unavailable ({e})"
+
+
+def _grad_worst(ga, gb, share, floor_share):
+    """(the worst over parameters of max |ga - gb| / (share x max |gb| +
+    floor_share x the largest |gb| of the model), that parameter), in
+    float64, gradients by name."""
+    floor = floor_share * max(g.abs().max().item() for g in gb.values())
+    return max(((ga[n].double() - gb[n].double()).abs().max().item()
+                / (share * gb[n].abs().max().item() + floor), n)
+               for n in gb)
 
 
 def _rates(flops, ms, dtype):
@@ -626,13 +740,24 @@ class Smoke:
                         f"disagrees with its plain version"
         self.details["k2"] = rows
 
+    def ernie_bias(self, B, S, seed=0):
+        """ERNIE's key-padding bias as the flash kernels take it: float32
+        [B, S] on the card, (1 - m) * -1e4 (models/ernie.py) over seeded
+        row lengths ERNIE_LONG["MIN_LEN"]..S, the first row unpadded."""
+        import numpy as np
+        lens = _ernie_lengths(np, B, S, seed)
+        m = np.arange(S)[None] < lens[:, None]
+        return self.torch.from_numpy(
+            ((1.0 - m) * -1e4).astype(np.float32)).cuda()
+
     def train_inputs(self, dtype, causal, padded, seed=2, H=None, D=None,
-                     Sq=None, Sk=None):
+                     Sq=None, Sk=None, B=None):
         """q, dO [B, H, Sq, D] and k, v [B, H, Sk, D] (by default the
         train phase's attention shape), and a key bias whose masked tails
-        leave every row some visible key."""
+        leave every row some visible key: `padded` True masks tails of
+        two rows with -1e30, "ernie" is `ernie_bias`."""
         torch = self.torch
-        B = TRAIN_SHAPE["B"]
+        B = B or TRAIN_SHAPE["B"]
         H = H or TRAIN_SHAPE["H"]
         D = D or TRAIN_SHAPE["D"]
         Sq = Sq or TRAIN_SHAPE["S"]
@@ -641,7 +766,9 @@ class Smoke:
         q, k, v, do = (torch.randn(B, H, S, D, generator=g, device="cuda")
                        .to(dtype) for S in (Sq, Sk, Sk, Sq))
         bias = None
-        if padded:
+        if padded == "ernie":
+            bias = self.ernie_bias(B, Sk)
+        elif padded:
             bias = torch.zeros(B, Sk, device="cuda")
             bias[0, 700:] = -1e30
             bias[1, 300:] = -1e30
@@ -672,6 +799,10 @@ class Smoke:
         """K2 with dropout, K3 and K4 against their plain versions on the
         same inputs and seed. At the train phase's attention shape: fp32
         bf16 and fp16, causal or not, p 0 and 0.1, and a padded bias (fp32).
+        At each of ERNIE_KERNEL_CASES (every shape and type at which a
+        phase 8 path launches the kernels): non-causal, p 0.1, on ERNIE's
+        key-padding bias where the path pads, with the library's SDPA on
+        the same [B,1,1,S] float mask and p.
         At the train width with other head dims (D 128 with H 6, D 32 with H 24),
         causal, p 0.1, fp32 and bf16; and non-causal with Sq 1024 != Sk
         1536, p 0.1, fp32 and bf16. The backward pair is fed the plain
@@ -701,18 +832,25 @@ class Smoke:
                        p=DROPOUT, padded=False)
                   for D, H in HEAD_DIM_CASES
                   for dt in ("float32", "bfloat16", "float16")]
+        cases = [dict(c, B=B) for c in cases]
+        # phase 8's paths through the kernels
+        ernie = [dict(B=e["B"], H=e["H"], D=e["D"], Sq=e["S"], Sk=e["S"],
+                      dtype=dt, causal=False, p=DROPOUT, padded=e["padded"],
+                      ernie=True)
+                 for e in ERNIE_KERNEL_CASES for dt in e["dtypes"]]
         lib = {}
-        for case in cases:
+        for case in cases + ernie:
             name, causal, p, padded = (case[k] for k in
                                        ("dtype", "causal", "p", "padded"))
-            H, D, Sq, Sk = (case[k] for k in ("H", "D", "Sq", "Sk"))
+            B, H, D, Sq, Sk = (case[k] for k in ("B", "H", "D", "Sq", "Sk"))
             dtype = getattr(torch, name)
             scale = 1.0 / D ** 0.5
             tol = FLASH_TOL[name]
             q, k, v, do, bias = self.train_inputs(dtype, causal, padded,
-                                                  H=H, D=D, Sq=Sq, Sk=Sk)
+                                                  H=H, D=D, Sq=Sq, Sk=Sk, B=B)
             tag = dict(shape=f"{B}x{H}x{Sq}x{Sk}x{D}", causal=causal, p=p,
-                       padded=padded)
+                       padded=padded, **({"ernie": True} if case.get("ernie")
+                                         else {}))
             pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
             # bytes each kernel must move: its [B,H,S,D] operands read or
             # written once, the [B*H,Sq] f32 statistics, the [B,Sk] bias
@@ -720,25 +858,28 @@ class Smoke:
             k_b = B * H * Sk * D * q.element_size()
             row_b = B * H * Sq * 4
             bias_b = B * Sk * 4 if padded else 0
-            key = (name, causal, tag["shape"])
-            if key not in lib and not padded:
-                # the library yardsticks, p = 0: SDPA forward (device time,
-                # its event time beside it), and its backward under
-                # autograd timed as one call (event time)
+            key = (name, causal, tag["shape"], padded)
+            if key not in lib and padded is not True:
+                # the library yardsticks: SDPA forward (device time, its
+                # event time beside it), and its backward under autograd
+                # timed as one call (event time); p = 0, or on ERNIE's
+                # rows the same [B,1,1,S] float mask and p as the kernels
                 ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+                lkw = dict(is_causal=causal)
+                if case.get("ernie"):
+                    lkw = dict(dropout_p=p)
+                if padded == "ernie":
+                    lkw["attn_mask"] = bias[:, None, None, :].to(dtype)
 
                 def lib_call():
-                    TF.scaled_dot_product_attention(ql, kl, vl,
-                                                    is_causal=causal)
+                    TF.scaled_dot_product_attention(ql, kl, vl, **lkw)
                 fwd_ms, fwd_event_ms = self.time_ms(lib_call, 10)
-                ol = TF.scaled_dot_product_attention(ql, kl, vl,
-                                                     is_causal=causal)
+                ol = TF.scaled_dot_product_attention(ql, kl, vl, **lkw)
                 bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
                     ol, (ql, kl, vl), do, retain_graph=True), 10)
                 lib[key] = (fwd_ms, bwd_ms, fwd_event_ms)
                 del ql, kl, vl, ol
-            lib_fwd, lib_bwd, lib_fwd_event = lib.get(
-                key, (None, None, None)) if not padded else (None, None, None)
+            lib_fwd, lib_bwd, lib_fwd_event = lib.get(key, (None, None, None))
             # K2 (ms: device time, the event time beside it)
             out, lse = fo.flash_attention_fwd(q, k, v, bias, causal, scale,
                                               p, seed)
@@ -816,6 +957,9 @@ class Smoke:
             del dk, dv, dk_ref, dv_ref, ref, ref_lse, delta
             torch.cuda.empty_cache()
         self.details["train_kernels"] = rows
+        self.details["ernie_kernel_rows"] = {
+            k: [r for r in rs if r.get("ernie")] for k, rs in rows.items()}
+        B = TRAIN_SHAPE["B"]
 
         def pick(rs, dtype):   # the train phase's case: causal, p 0.1
             return next(r for r in rs if r["dtype"] == dtype
@@ -3382,7 +3526,8 @@ class Smoke:
         assert launches["paged_attention"] == 0
         assert syncs <= -(-steps // log_freq) + 1, f"{syncs} host syncs"
         if self.args.profile:
-            self.profile_train_step(model, ids[:B], path)
+            self.profile_train_step(model, [ids[:B, :-1]], [ids[:B, 1:]],
+                                    path)
         del model, net, opt
         torch.cuda.empty_cache()
 
@@ -3519,8 +3664,8 @@ class Smoke:
         16-bit type (the kernels keep S and P's sums in fp32, the plain
         path rounds S, P and O), so the limits are the type's: loss rtol
         AMP_LOSS_RTOL; each parameter's gradient within AMP_GRAD_SHARE x
-        its largest |gradient| + 1e-3 x the model's largest (the floor is
-        for the key biases, whose exact gradient is 0)."""
+        its largest |gradient| + AMP_GRAD_FLOOR x the model's largest (the
+        floor is for the key biases, whose exact gradient is 0)."""
         torch = self.torch
         import numpy as np
         from paddle_tpu_torch import amp, hapi, nn, optimizer
@@ -3556,11 +3701,7 @@ class Smoke:
             lp, gp, np_ = one()
         finally:
             set_flags({"FLAGS_use_flash_attention": True})
-        share = AMP_GRAD_SHARE[dtype]
-        floor = 1e-3 * max(g.abs().max().item() for g in gp.values())
-        worst = max(((gf[n] - gp[n]).abs().max().item()
-                     / (share * gp[n].abs().max().item() + floor), n)
-                    for n in gp)
+        worst = _grad_worst(gf, gp, AMP_GRAD_SHARE[dtype], AMP_GRAD_FLOOR)
         kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
         print(f"AMP {dtype} step parity [2,1024] dropout 0: loss flash "
               f"{lf:.6f} plain {lp:.6f} (rtol {AMP_LOSS_RTOL[dtype]}); "
@@ -3580,13 +3721,13 @@ class Smoke:
         del model, net, opt
         torch.cuda.empty_cache()
 
-    def profile_train_step(self, model, ids, path):
-        """torch.profiler over 3 train steps: wall per step, device busy
-        share, device time by kernel, and the flash kernels' and the
-        GEMMs' shares (GEMM: cuBLAS/CUTLASS kernel names, _GEMM)."""
+    def profile_train_step(self, model, x, y, path):
+        """torch.profiler over 3 train steps of `model` on inputs `x` and
+        labels `y`: wall per step, device busy share, device time by
+        kernel, and the flash kernels' and the GEMMs' shares (GEMM:
+        cuBLAS/CUTLASS kernel names, _GEMM)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
-        x, y = [ids[:, :-1]], [ids[:, 1:]]
         model.train_batch(x, y)
         torch.cuda.synchronize()
         steps = 3
@@ -3604,7 +3745,7 @@ class Smoke:
         import re
         flash = sum(ms for key, ms, _ in top if "flash_" in key)
         gemm = sum(ms for key, ms, _ in top if re.search(_GEMM, key))
-        print(f"{path} step, batch {ids.shape[0]} x {ids.shape[1] - 1}: "
+        print(f"{path} step, batch {' x '.join(map(str, x[0].shape))}: "
               f"wall {bare_ms / steps:.2f} ms/step unprofiled; device busy "
               f"{dev:.2f} ms/step = {dev / (bare_ms / steps) * 100:.1f}% of "
               f"it; flash kernels {flash:.2f} ms/step = "
@@ -3945,6 +4086,458 @@ class Smoke:
         assert (nd["splash_fwd"], nd["splash_bwd_dq"],
                 nd["splash_bwd_dkv"]) == (0, 0, 0), nd
 
+    # -- 8. ernie -----------------------------------------------------------------
+
+    def ernie(self):
+        """ERNIE-base fine-tuned through hapi.Model (a), long padded
+        batches through the flash kernels in fp32 and bf16 (b), the
+        kernel-vs-plain step parities (c), BERT-large (d), then (a)'s
+        step at each flash minimum (see the module docstring)."""
+        self.gpt = None
+        self.torch.cuda.empty_cache()
+        net, x, y = self.ernie_headline()
+        self.ernie_long(None)
+        self.ernie_long("O1")
+        for head in ("cls", "pretrain"):
+            self.ernie_step_parity(head, "float32")
+            self.ernie_step_parity(head, "bfloat16")
+        self.bert_large()
+        self.ernie_min_seq(net, x, y)
+
+    def _step_recorder(self):
+        """A callback keeping each step's loss handle, a CUDA event at each
+        step's end (the device timeline, no host wait) and the epoch's
+        last logs."""
+        torch = self.torch
+        from paddle_tpu_torch import hapi
+
+        class Steps(hapi.callbacks.Callback):
+            def __init__(self):
+                super().__init__()
+                self.losses, self.events, self.epoch_logs = [], [], {}
+
+            def on_train_batch_end(self, step, logs=None):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.events.append(ev)
+                self.losses.append(logs["loss"])
+
+            def on_epoch_end(self, epoch, logs=None):
+                self.epoch_logs = dict(logs)
+        return Steps()
+
+    @staticmethod
+    def _step_times(rec):
+        """Steps 3 on (the first two warm up): their count, the window's
+        ms on the device timeline from step 2's end to the last step's
+        end (stalls included), and the p50 of the per-step gaps."""
+        gaps = sorted(a.elapsed_time(b) for a, b in zip(rec.events[1:],
+                                                        rec.events[2:]))
+        window = rec.events[1].elapsed_time(rec.events[-1])
+        return len(gaps), window, gaps[len(gaps) // 2], gaps
+
+    def ernie_headline(self):
+        """(a) ERNIE-base (seed 0), ErnieForSequenceClassification(2),
+        AdamW 5e-5, CrossEntropyLoss, metric.Accuracy, amp_configs="O1",
+        batch 32 x seq 128 (no padding, as bench.py feeds it), 40 fit steps
+        over the seeded learnable set, no shuffle. Gates: the loss is
+        finite and the mean of its last 3 steps is below the mean of its
+        first 3; the fit's `acc` equals Accuracy recomputed from the
+        logits its steps produced (a forward hook); `evaluate`'s `acc`
+        equals Accuracy over `predict`'s logits of the same data in eval
+        mode; K2-K4 launch 0 times (seq 128 is below the flash minimum,
+        512, in the port as in the JAX package). Returns (net, x, y) for
+        ernie_min_seq."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import hapi, io, metric, nn, optimizer
+        from paddle_tpu_torch.framework import random as frandom
+        from paddle_tpu_torch.models import (ErnieConfig,
+                                             ErnieForSequenceClassification)
+        B, S, steps = (ERNIE_A[k] for k in ("B", "S", "STEPS"))
+        cfg = ErnieConfig.base()
+        frandom.seed(0)
+        net = ErnieForSequenceClassification(cfg, num_classes=2,
+                                             device="cuda", seed=0)
+        nparams = sum(p.numel() for p in net.parameters())
+        print(f"ERNIE-base: vocab {cfg.vocab_size} hidden "
+              f"{cfg.hidden_size} layers {cfg.num_hidden_layers} heads "
+              f"{cfg.num_attention_heads} ffn {cfg.intermediate_size} "
+              f"positions {cfg.max_position_embeddings}: {nparams} "
+              f"parameters fp32 (classifier head included)")
+        ids, labels, _ = _ernie_cls_set(np, B * steps, S, cfg.vocab_size, B,
+                                        seed=0)
+        data = io.TensorDataset([ids, labels])
+        model = hapi.Model(net).prepare(
+            optimizer.AdamW(ERNIE_A["LR"]), nn.CrossEntropyLoss(),
+            metric.Accuracy(), amp_configs="O1")
+        seen = []
+        hook = net.register_forward_hook(
+            lambda m, i, o: seen.append(o.detach()) if m.training else None)
+        rec = self._step_recorder()
+        torch.cuda.synchronize()
+        # the main path starts here: every launch count from 0
+        self.zero_launches()
+        t0 = time.perf_counter()
+        model.fit(data, batch_size=B, epochs=1, shuffle=False, log_freq=10,
+                  verbose=0, callbacks=[rec])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = self.record_path("ernie_headline")
+        hook.remove()
+        losses = [float(v) for v in rec.losses]
+        n, window, p50, gaps = self._step_times(rec)
+        fit_acc = rec.epoch_logs["acc"]
+        check = metric.Accuracy()
+        for out, lab in zip(seen, np.split(labels, steps)):
+            check.update(check.compute(out, lab))
+        recomputed = check.accumulate()
+        ev = model.evaluate(data, batch_size=B, verbose=0)
+        logits = model.predict(data, batch_size=B, stack_outputs=True)
+        pacc = metric.Accuracy()
+        pacc.update(pacc.compute(logits, labels))
+        # bench.py:220-227's statistic: every sample of the measured
+        # steps over the window's time
+        sps = B * n / window * 1e3
+        print(f"{ERNIE_METRIC}: {sps:.2f} samples/s on {self.smi} "
+              f"(hapi.Model.fit with Accuracy, AMP O1 bf16; {B} x {n} "
+              f"samples of steps 3-{steps} over their {window:.2f} ms on "
+              f"the device timeline; step p50 {p50:.2f} ms; {steps} steps "
+              f"in {wall:.2f} s wall, first step included)")
+        print("per-step loss: " + " ".join(f"{v:.4f}" for v in losses))
+        print(f"fit acc {fit_acc:.4f}, recomputed from the steps' logits "
+              f"{recomputed:.4f}; evaluate loss {ev['loss']:.4f} acc "
+              f"{ev['acc']:.4f}, Accuracy over predict's logits "
+              f"{pacc.accumulate():.4f}; launches {launches}")
+        self.details["ernie_headline"] = dict(
+            metric=ERNIE_METRIC, samples_per_s=sps, window_ms=window,
+            measured_steps=n, step_ms_p50=p50, step_ms=gaps, wall_s=wall, losses=losses, fit_acc=float(fit_acc),
+            recomputed_acc=float(recomputed),
+            evaluate={k: float(v) for k, v in ev.items()},
+            predict_acc=float(pacc.accumulate()), launches=launches)
+        assert all(np.isfinite(losses)), "non-finite ERNIE loss"
+        assert np.mean(losses[-3:]) < np.mean(losses[:3]), \
+            "the ERNIE loss did not fall"
+        assert len(seen) == steps and fit_acc == recomputed, \
+            "fit's acc is not Accuracy over its steps' logits"
+        assert ev["acc"] == pacc.accumulate(), \
+            "evaluate's acc is not Accuracy over predict's logits"
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert launches[name] == 0, (name, launches[name])
+        return net, [ids[:B]], [labels[:B]]
+
+    def ernie_long(self, amp_level):
+        """(b) ERNIE-base (dropout 0.1, seed 0) at batch 8 x seq 512, the
+        `attention_mask` of seeded lengths 128-512, 12 fit steps (AdamW
+        1e-4, no shuffle) in fp32 (`amp_level` None, the path
+        "ernie_long") or under amp_configs="O1" (bf16, "ernie_long_amp").
+        Gates: the loss is finite and falls (mean of the last 3 steps
+        below the mean of the first 3); K2, K3 and K4 launch 12 times a
+        step, all in the path's type. Printed: real tokens/s over steps
+        3 on (padding not counted), the fill and the step p50."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import hapi, io, nn, optimizer
+        from paddle_tpu_torch.framework import random as frandom
+        from paddle_tpu_torch.models import (ErnieConfig,
+                                             ErnieForSequenceClassification)
+        from paddle_tpu_torch.static import InputSpec
+        B, S, steps = (ERNIE_LONG[k] for k in ("B", "S", "STEPS"))
+        path = "ernie_long" if amp_level is None else "ernie_long_amp"
+        dtype = "float32" if amp_level is None else "bfloat16"
+        cfg = ErnieConfig.base()
+        frandom.seed(1)
+        net = ErnieForSequenceClassification(cfg, device="cuda", seed=0)
+        lens = _ernie_lengths(np, B * steps, S, seed=1)
+        ids, labels, mask = _ernie_cls_set(np, B * steps, S, cfg.vocab_size,
+                                           B, seed=1, lengths=lens)
+        rows = [ids, np.zeros_like(ids), np.tile(np.arange(S), (len(ids), 1)),
+                mask, labels]
+        specs = [InputSpec([None, S], "int64", n) for n in
+                 ("input_ids", "token_type_ids", "position_ids")] + [
+            InputSpec([None, S], "float32", "attention_mask")]
+        model = hapi.Model(net, inputs=specs).prepare(
+            optimizer.AdamW(ERNIE_LONG["LR"]), nn.CrossEntropyLoss(),
+            amp_configs=amp_level)
+        rec = self._step_recorder()
+        torch.cuda.synchronize()
+        # the main path starts here: every launch count from 0
+        self.zero_launches()
+        t0 = time.perf_counter()
+        model.fit(io.TensorDataset(rows), batch_size=B, epochs=1,
+                  shuffle=False, log_freq=10, verbose=0, callbacks=[rec])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = self.record_path(path)
+        by_dtype = self.path_dtype_launches[path]
+        losses = [float(v) for v in rec.losses]
+        n, window, p50, gaps = self._step_times(rec)
+        real = float(mask.sum()) / steps
+        # real tokens of the measured steps over the window's time
+        tps = float(mask[-n * B:].sum()) / window * 1e3
+        label = "fp32" if amp_level is None else "AMP O1 bf16"
+        print(f"{path} on {self.smi}: ERNIE-base {label} dropout "
+              f"{cfg.hidden_dropout_prob}, batch {B} x {S}, lengths "
+              f"{ERNIE_LONG['MIN_LEN']}-{S} (fill {real / (B * S):.3f}), "
+              f"{steps} steps in {wall:.2f} s wall; {tps:.0f} real "
+              f"tokens/s (steps 3-{steps} over their {window:.2f} ms on the "
+              f"device timeline); step p50 {p50:.2f} ms; launches "
+              f"{launches}; by type "
+              f"{by_dtype['flash_fwd']}")
+        print("per-step loss: " + " ".join(f"{v:.4f}" for v in losses))
+        self.details[path] = dict(
+            losses=losses, step_ms_p50=p50, step_ms=gaps, wall_s=wall,
+            window_ms=window, measured_steps=n,
+            real_tokens_per_step=real, real_tokens_per_s=tps,
+            fill=real / (B * S), launches=launches,
+            launches_by_dtype=by_dtype)
+        assert all(np.isfinite(losses)), f"non-finite {path} loss"
+        assert np.mean(losses[-3:]) < np.mean(losses[:3]), \
+            f"the {path} loss did not fall"
+        L = cfg.num_hidden_layers
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert launches[name] == L * steps, (name, launches[name])
+            assert by_dtype[name] == {dtype: L * steps}, \
+                f"{name} launched {by_dtype[name]}, all {dtype} expected"
+        del model, net
+        torch.cuda.empty_cache()
+
+    def ernie_step_parity(self, head, dtype):
+        """(c) One train_batch (update=False) of ERNIE-base, dropout 0, at
+        [2, 512] with a padding mask (lengths 512 and 300) through K2-K4
+        against one with FLAGS_use_flash_attention=False, from the same
+        weights: the classifier ("cls", CrossEntropyLoss) or
+        ErnieForPretraining ("pretrain": MLM cross entropy over 15 % of
+        the real tokens + NSP cross entropy). float32: phase 6's limits
+        (loss rtol 1e-5; each gradient within 1e-3 x its max + 1e-6 x the
+        model's max); bfloat16 under amp_configs="O1": each gradient
+        within phase 6's AMP limits (AMP_GRAD_SHARE, AMP_GRAD_FLOOR), the
+        loss within ERNIE_AMP_LOSS_TOL (see there). The kernel step
+        launches K2-K4 12 times each, all in `dtype`; the plain one
+        none. Both rows carry one label (class 0, and NSP 0): the two
+        rows' pooled outputs of a random ERNIE-base agree to cosine
+        0.996, so with two labels a head's gradient would be a difference
+        of two nearly equal rows, and its relative error in bf16 that of
+        the difference, not of the paths.
+        For the record only (no gate): in float32 both paths against the
+        plain step in float64 (its loss is reduced in fp32), under the
+        fp32 limits; in bfloat16 both paths against the fp32 step through
+        the kernels, and each pair under phase 6's AMP limits, on this
+        input and, for "cls", on labels 0 and 1."""
+        torch = self.torch
+        import copy
+        import numpy as np
+        from paddle_tpu_torch import hapi, nn, optimizer
+        from paddle_tpu_torch.framework.flags import set_flags
+        from paddle_tpu_torch.models import (ErnieConfig, ErnieForPretraining,
+                                             ErnieForSequenceClassification)
+        B, S = ERNIE_PARITY["B"], ERNIE_PARITY["S"]
+        cfg = ErnieConfig(hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+        rng = np.random.RandomState(2)
+        ids = rng.randint(5, cfg.vocab_size, size=(B, S)).astype(np.int64)
+        mask = np.ones((B, S), np.float32)
+        mask[1, 300:] = 0
+        ids[mask == 0] = 0
+        x = [ids, np.zeros_like(ids), np.tile(np.arange(S), (B, 1)), mask]
+        if head == "cls":
+            build = ErnieForSequenceClassification
+            loss = nn.CrossEntropyLoss()
+            ys = {"one label": [np.array([0, 0], np.int64)],
+                  "labels 0/1": [np.array([0, 1], np.int64)]}
+        else:
+            build = ErnieForPretraining
+            ce = nn.CrossEntropyLoss()
+
+            def loss(mlm, nsp, mlm_labels, nsp_labels):
+                return ce(mlm, mlm_labels) + ce(nsp, nsp_labels)
+            pick = (rng.rand(B, S) < 0.15) & (mask > 0)
+            ys = {"one label": [np.where(pick, ids, -100).astype(np.int64),
+                                np.array([0, 0], np.int64)]}
+        net = build(cfg, device="cuda", seed=0)
+        amp_level = None if dtype == "float32" else "O1"
+        opt = optimizer.AdamW(1e-4)
+        model = hapi.Model(net, inputs=[None] * 4).prepare(
+            opt, loss, amp_configs=amp_level)
+
+        def one(y, level=amp_level, flash=True, m=model):
+            m._amp_level = level
+            self.zero_launches()
+            set_flags({"FLAGS_use_flash_attention": flash})
+            try:
+                lv, _ = m.train_batch(x, y, update=False)
+            finally:
+                set_flags({"FLAGS_use_flash_attention": True})
+            grads = {n: p.grad.clone() for n, p in m.network.named_parameters()}
+            m._optimizer.clear_grad()
+            return float(lv[0]), grads, self.read_launches_by_dtype()
+
+        if dtype == "float32":
+            loss_rtol, share, floor_share = 1e-5, 1e-3, 1e-6
+        else:
+            loss_rtol, share, floor_share = (
+                AMP_LOSS_RTOL[dtype], AMP_GRAD_SHARE[dtype], AMP_GRAD_FLOOR)
+
+        def reading(a, b):
+            """(|loss a - loss b| / (loss_rtol x |loss b|), the worst
+            gradient error of a against b over its limit, that
+            parameter)"""
+            worst = _grad_worst(a[1], b[1], share, floor_share)
+            return dict(loss_over_rtol=abs(a[0] - b[0]) / (loss_rtol
+                                                           * abs(b[0])),
+                        grad_over_limit=worst[0], grad_param=worst[1])
+
+        y = ys["one label"]
+        flash = one(y)
+        plain = one(y, flash=False)
+        (lf, gf, nf), (lp, gp, np_) = flash, plain
+        record = {}
+        if dtype == "float32":
+            net64 = copy.deepcopy(net).double()
+            m64 = hapi.Model(net64, inputs=[None] * 4).prepare(
+                optimizer.AdamW(1e-4), loss)
+            ref = one(y, flash=False, m=m64)
+            record["one label"] = {
+                f"{path} vs float64": reading(r, ref)
+                for path, r in (("kernels", flash), ("plain", plain))}
+            del m64, net64, ref
+        else:
+            for label, yy in ys.items():
+                pair = (flash, plain) if yy is y else (one(yy),
+                                                       one(yy, flash=False))
+                ref = one(yy, level=None)
+                record[label] = {
+                    "kernels vs plain": reading(*pair),
+                    "kernels vs fp32": reading(pair[0], ref),
+                    "plain vs fp32": reading(pair[1], ref)}
+                del pair, ref
+        loss_tol = (1e-5 * abs(lp) if dtype == "float32"
+                    else ERNIE_AMP_LOSS_TOL * max(1.0, abs(lp)))
+        worst = _grad_worst(gf, gp, share, floor_share)
+        kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        print(f"ERNIE-base {head} step parity [{B},{S}] padded, dropout 0, "
+              f"{dtype}: loss flash {lf:.6f} plain {lp:.6f} (tol "
+              f"{loss_tol:.3e}); "
+              f"worst gradient max_abs_err / its tolerance {worst[0]:.3e} "
+              f"({worst[1]}); launches by type flash "
+              f"{[nf[k] for k in kernels]}, plain {[np_[k] for k in kernels]}")
+        for label, pairs in record.items():
+            for what, r in pairs.items():
+                print(f"  record, {label}, {what}: loss "
+                      f"{r['loss_over_rtol']:.3e} x rtol {loss_rtol}, "
+                      f"worst gradient {r['grad_over_limit']:.3e} x its "
+                      f"limit ({r['grad_param']})")
+        self.details[f"ernie_parity_{head}_{dtype}"] = dict(
+            loss_flash=lf, loss_plain=lp, worst_grad_over_tol=worst[0],
+            worst_param=worst[1], launches=nf, record=record)
+        assert abs(lf - lp) <= loss_tol, \
+            f"ERNIE {head} {dtype} step-parity loss differs"
+        assert worst[0] <= 1.0, \
+            f"ERNIE {head} {dtype} step-parity gradient {worst[1]} differs"
+        L = cfg.num_hidden_layers
+        assert all(nf[k] == {dtype: L} for k in kernels), nf
+        assert all(np_[k] == {} for k in kernels), np_
+        del model, net, opt, flash, plain, gf, gp
+        torch.cuda.empty_cache()
+
+    def bert_large(self):
+        """(d) BertForSequenceClassification(BertConfig.large()): 24
+        layers, 16 heads of 64, seed 0, one train_batch under
+        amp_configs="O1" at [8, 512] with a padding mask (lengths
+        128-512). Gates: the loss is finite; K2, K3 and K4 launch 24
+        times each, all in bf16."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import hapi, nn, optimizer
+        from paddle_tpu_torch.models import (BertConfig,
+                                             BertForSequenceClassification)
+        B, S = ERNIE_LONG["B"], ERNIE_LONG["S"]
+        cfg = BertConfig.large()
+        net = BertForSequenceClassification(cfg, device="cuda", seed=0)
+        ids, labels, mask = _ernie_cls_set(
+            np, B, S, cfg.vocab_size, B, seed=3,
+            lengths=_ernie_lengths(np, B, S, seed=3))
+        x = [ids, np.zeros_like(ids), np.tile(np.arange(S), (B, 1)), mask]
+        model = hapi.Model(net, inputs=[None] * 4).prepare(
+            optimizer.AdamW(1e-4), nn.CrossEntropyLoss(), amp_configs="O1")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path starts here: every launch count from 0
+        self.zero_launches()
+        t0 = time.perf_counter()
+        (lv,), _ = model.train_batch(x, [labels])
+        loss = float(lv)
+        wall = time.perf_counter() - t0
+        launches = self.record_path("bert_large")
+        by_dtype = self.path_dtype_launches["bert_large"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        nparams = sum(p.numel() for p in net.parameters())
+        print(f"BERT-large on {self.smi}: {nparams} parameters, one AMP O1 "
+              f"bf16 train_batch at [{B},{S}] (fill {mask.mean():.3f}): "
+              f"loss {loss:.4f}, {wall:.2f} s wall (first step: AdamW "
+              f"state and allocations included), peak allocated "
+              f"{peak:.2f} GB over the step; launches by type "
+              f"{by_dtype['flash_fwd']} / {by_dtype['flash_bwd_dq']} / "
+              f"{by_dtype['flash_bwd_dkv']}")
+        self.details["bert_large"] = dict(loss=loss, wall_s=wall,
+                                          peak_gb=peak, launches=launches,
+                                          launches_by_dtype=by_dtype)
+        assert np.isfinite(loss), "non-finite BERT-large loss"
+        L = cfg.num_hidden_layers
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert by_dtype[name] == {"bfloat16": L}, (name, by_dtype[name])
+        del model, net
+        torch.cuda.empty_cache()
+
+    def ernie_min_seq(self, net, x, y):
+        """(a), informational: (a)'s train step (AMP O1, batch 32 x 128,
+        train_batch without metrics) at each flash minimum of
+        ERNIE_MIN_SEQS, no default changed: host wall a step over 10
+        steps and K2-K4 launches a step (0 at the default 512, 12 at
+        128), then `profile_train_step`'s device ms, kernel table and
+        GEMM share (the ERNIE step `--profile` asks for, run by
+        default)."""
+        torch = self.torch
+        from paddle_tpu_torch import hapi, nn, optimizer
+        from paddle_tpu_torch.framework.flags import get_flags, set_flags
+        model = hapi.Model(net).prepare(
+            optimizer.AdamW(ERNIE_A["LR"]), nn.CrossEntropyLoss(),
+            amp_configs="O1")
+        L = net.ernie.config.num_hidden_layers
+        old = get_flags("FLAGS_flash_attention_min_seq")
+        arms = {}
+        try:
+            for min_seq in ERNIE_MIN_SEQS:
+                set_flags({"FLAGS_flash_attention_min_seq": min_seq})
+                for _ in range(2):
+                    model.train_batch(x, y)
+                torch.cuda.synchronize()
+                # the main path starts here: every launch count from 0
+                self.zero_launches()
+                steps = 10
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    model.train_batch(x, y)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / steps
+                path = f"ernie_min_seq_{min_seq}"
+                launches = self.record_path(path)
+                per = {k: launches[k] / steps for k in
+                       ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+                print(f"ERNIE-base (a)'s step at FLAGS_flash_attention_min_"
+                      f"seq={min_seq} on {self.smi}: wall {wall:.2f} "
+                      f"ms/step, {ERNIE_A['B'] / wall * 1e3:.1f} "
+                      f"samples/s; K2-K4 launches a step {per}")
+                self.profile_train_step(model, x, y, path)
+                arms[min_seq] = dict(wall_ms=wall, launches_per_step=per)
+                want = L if min_seq <= ERNIE_A["S"] else 0
+                assert all(v == want for v in per.values()), per
+        finally:
+            set_flags(old)
+        self.details["ernie_min_seq"] = arms
+        del model
+        torch.cuda.empty_cache()
+
     def kernels_line(self):
         srcs = {"paged_attention": (
                     "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -4096,6 +4689,7 @@ def main(argv=None):
                 sm.phase("profile", sm.profile)
             sm.phase("train", sm.train)
             sm.phase("packing", sm.packing)
+            sm.phase("ernie", sm.ernie)
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)),
                     exist_ok=True)

@@ -35,9 +35,15 @@ Ported so far:
 - serving observability and the host KV tier: `profiler` (RecordEvent,
   Profiler, the step and audit rings, spans, SLO, flight recorder,
   device telemetry, the HTTP exporter), `serving.failpoints`, and the
-  host tier under the prefix cache (`serving.kv_tier`).
+  host tier under the prefix cache (`serving.kv_tier`);
+- the ERNIE/BERT encoder family: `models.{Ernie,Bert}{Model,
+  ForSequenceClassification,ForPretraining}` over `nn.TransformerEncoder`
+  (its `MultiHeadAttention` reaches the flash kernels on a key-padding
+  mask), the rest of `nn`'s activations, its containers, transformer
+  layers and `nn.initializer`, and `metric` through `hapi.Model`
+  (`prepare(metrics=)`, fit / evaluate logs).
 """
-from . import amp, framework, hapi, io, models, nn, ops  # noqa: F401
+from . import amp, framework, hapi, io, metric, models, nn, ops  # noqa: F401
 from . import optimizer, profiler, quantization  # noqa: F401
 from . import serving, static  # noqa: F401
 from .framework import get_flags, set_flags  # noqa: F401

@@ -13,7 +13,8 @@ Training hot-loop contract, as in the JAX package:
 * `train_batch` runs the forward, the loss (the float32 mean of what
   the prepared loss returns), `backward`, the gradient clip and
   `optimizer.step()`, then `clear_grad()`. It returns `([loss], [])`
-  with the loss left on the device: nothing in it waits for the card.
+  with the loss left on the device: nothing in it waits for the card,
+  unless metrics are prepared (below).
 * Batches are moved to the model's device (the device of its first
   parameter) through pinned host memory, without a synchronisation.
 * `fit` forces a host float only every `log_freq` steps and at epoch
@@ -42,7 +43,20 @@ and the loss (masked or not) under `amp.auto_cast(level=...)` in the
 default bfloat16; the loss is then the float32 mean. `eval_batch` and
 `predict_batch` run in the parameters' type, outside AMP.
 
-Not ported yet (ROADMAP): metrics, tail bucketing
+Metrics, as in the JAX package: `prepare(metrics=)` takes one
+`metric.Metric` or a list. Each step hands the network's first output
+and the labels to every metric's `compute` and the result to its
+`update`, on the host (the metric's numpy arithmetic; the one wait for
+the card a metric step adds, as the JAX package's host-side update
+does). `train_batch` then returns `(loss, metrics)`, the loss bare, and
+`eval_batch` `(loss, metrics)`, one `update` result a metric. Rows that
+a row mask drops never reach a metric; a token mask keeps whole rows.
+`fit` logs each batch's metric values under the metrics' names, resets
+them at each epoch's start and logs their `accumulate()` at its end;
+`evaluate` resets them, runs the pass and returns their `accumulate()`
+beside the loss.
+
+Not ported yet (ROADMAP): tail bucketing
 (row-padding the last partial batch: it saves the JAX package an XLA
 compile, and eager PyTorch has none to save), the fleet path,
 `DeviceFeeder`, and `save(training=False)` (export).
@@ -59,6 +73,7 @@ import torch
 from .. import amp
 from ..framework import monitor
 from ..io import DataLoader, Dataset
+from ..metric import Metric
 from . import callbacks as cbks_mod
 
 __all__ = ["Model"]
@@ -96,6 +111,43 @@ def _host_floats(values):
     return [next(got) if on_dev(v) else float(v) for v in values]
 
 
+def _real_rows(mask):
+    """(rows, the indices of the real rows) of a loss mask: a row mask
+    [rows] counts a row when its entry is > 0, a token mask [rows, T]
+    when any of its tokens is (metrics then see whole packed rows)."""
+    m = mask.detach().cpu().numpy() if torch.is_tensor(mask) \
+        else np.asarray(mask)
+    if m.ndim > 1:
+        m = m.reshape(m.shape[0], -1) > 0
+        m = m.any(axis=1)
+    return int(m.shape[0]), np.flatnonzero(m > 0)
+
+
+def _select_rows(leaves, rows, idx):
+    """The real rows `idx` of every leaf whose first dimension is `rows`;
+    other leaves as they are."""
+    out = []
+    for x in leaves:
+        if getattr(x, "ndim", 0) >= 1 and x.shape[0] == rows:
+            x = x[torch.as_tensor(idx, device=x.device)] \
+                if torch.is_tensor(x) else x[idx]
+        out.append(x)
+    return out
+
+
+def _metric_names(m):
+    names = m.name()
+    return names if isinstance(names, list) else [names]
+
+
+def _log_metrics(logs, metrics, values):
+    """Put each metric's value(s) into `logs` under its name(s)."""
+    for m, v in zip(metrics, values):
+        vals = v if isinstance(v, list) else [v]
+        for n, x in zip(_metric_names(m), vals):
+            logs[n] = x
+
+
 class _TailMaskError(TypeError):
     """The prepared loss gives no per-token (token mask) or per-row (row
     mask) values, so the mask cannot be folded into it."""
@@ -108,15 +160,19 @@ class Model:
         self._labels = labels
         self._optimizer = None
         self._loss = None
+        self._metrics = []
         self._amp_level = None
         self.stop_training = False
 
     # -- preparation --------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None):
-        if metrics:
-            raise NotImplementedError("Model.prepare: metrics are not "
-                                      "ported yet")
+        if metrics is None:
+            self._metrics = []
+        elif isinstance(metrics, Metric):
+            self._metrics = [metrics]
+        else:
+            self._metrics = list(metrics)
         self._amp_level = None
         if amp_configs is not None:
             self._amp_level = (amp_configs if isinstance(amp_configs, str)
@@ -243,6 +299,25 @@ class Model:
                               num_workers=num_workers, drop_last=drop_last)
         return data
 
+    def _update_metrics(self, outputs, labels, loss_mask):
+        """Every prepared metric's `update(compute(first output, *labels))`
+        on the rows the mask keeps; the list of what each returns."""
+        if not self._metrics:
+            return []
+        outs = list(outputs) if isinstance(outputs, (list, tuple)) \
+            else [outputs]
+        outs = [o.detach() for o in outs]
+        if loss_mask is not None and not self._is_token_mask(loss_mask):
+            rows, idx = _real_rows(loss_mask)
+            if len(idx) < rows:
+                outs = _select_rows(outs, rows, idx)
+                labels = _select_rows(labels, rows, idx)
+        res = []
+        for m in self._metrics:
+            inp = m.compute(outs[0], *labels)
+            res.append(m.update(inp[0] if isinstance(inp, tuple) else inp))
+        return res
+
     # -- steps --------------------------------------------------------------
     def train_batch(self, inputs, labels=None, update=True, loss_mask=None):
         """One training step (under `amp.auto_cast` when prepared with
@@ -250,34 +325,41 @@ class Model:
         parameters' `.grad` (they accumulate over calls) and skips the
         optimizer. `loss_mask`: a token [rows, T] or row [rows] mask
         folded into the loss (`_masked_loss`). Returns ([loss], []) with
-        the loss a device tensor."""
+        the loss a device tensor, or, with metrics prepared, (loss,
+        [each metric's update result])."""
         t0 = time.perf_counter_ns()
         ins = self._place(_flatten_batch(inputs))
         lbs = self._place(_flatten_batch(labels or []))
         self.network.train()
         with (amp.auto_cast(level=self._amp_level) if self._amp_level
               else contextlib.nullcontext()):
-            lv = self._step_loss(self.network(*ins), lbs, loss_mask)
+            out = self.network(*ins)
+            lv = self._step_loss(out, lbs, loss_mask)
         lv.backward()
         if update:
             self._optimizer.step()
             self._optimizer.clear_grad()
         monitor.stat_add("STAT_train_steps")
         monitor.stat_add("STAT_train_step_ns", time.perf_counter_ns() - t0)
-        return [lv.detach()], []
+        metrics = self._update_metrics(out, lbs, loss_mask)
+        loss = lv.detach()
+        return (loss, metrics) if self._metrics else ([loss], metrics)
 
     @torch.no_grad()
     def eval_batch(self, inputs, labels=None, loss_mask=None):
-        """Forward in eval mode; returns (loss, []) with the loss a device
-        tensor (0 when no loss is prepared or no labels are given),
-        `loss_mask` folded in as in `train_batch`."""
+        """Forward in eval mode; returns (loss, metrics) with the loss a
+        device tensor (0 when no loss is prepared or no labels are given),
+        `loss_mask` folded in as in `train_batch`, and each prepared
+        metric's update result."""
         ins = self._place(_flatten_batch(inputs))
         lbs = self._place(_flatten_batch(labels or []))
         self.network.eval()
         out = self.network(*ins)
         if self._loss is None or not lbs:
-            return torch.zeros((), device=self.device), []
-        return self._step_loss(out, lbs, loss_mask), []
+            lv = torch.zeros((), device=self.device)
+        else:
+            lv = self._step_loss(out, lbs, loss_mask)
+        return lv, self._update_metrics(out, lbs, loss_mask)
 
     @torch.no_grad()
     def predict_batch(self, inputs):
@@ -304,7 +386,8 @@ class Model:
         cbks = cbks_mod.config_callbacks(
             callbacks, model=self, epochs=epochs, steps=_steps_of(loader),
             log_freq=log_freq, save_freq=save_freq, save_dir=save_dir,
-            verbose=verbose, metrics=["loss"])
+            verbose=verbose, metrics=["loss"] + [
+                n for m in self._metrics for n in _metric_names(m)])
         cbks.on_begin("train")
         self.stop_training = False
         step_count = 0
@@ -315,6 +398,8 @@ class Model:
             if hasattr(sampler, "set_epoch"):
                 sampler.set_epoch(epoch)
             cbks.on_epoch_begin(epoch)
+            for m in self._metrics:
+                m.reset()
             logs = {}
             for step, batch in enumerate(loader):
                 cbks.on_batch_begin("train", step, logs)
@@ -322,13 +407,15 @@ class Model:
                 mask = None
                 if token_masked:
                     lbs, mask = self._pop_token_mask(lbs)
-                (lv,), _ = self.train_batch(ins, lbs, loss_mask=mask)
+                loss, metrics = self.train_batch(ins, lbs, loss_mask=mask)
+                lv = loss[0] if isinstance(loss, list) else loss
                 # deferred host sync: the loss stays on the device except
                 # on the log cadence
                 if log_freq and step % log_freq == 0:
                     lv = _host_float(lv)
                 logs = {"loss": lv, "step": step,
                         "batch_size": int(torch.as_tensor(ins[0]).shape[0])}
+                _log_metrics(logs, self._metrics, metrics)
                 cbks.on_batch_end("train", step, logs)
                 step_count += 1
                 if num_iters is not None and step_count >= num_iters:
@@ -336,6 +423,8 @@ class Model:
                     break
             if torch.is_tensor(logs.get("loss")):
                 logs["loss"] = _host_float(logs["loss"])
+            _log_metrics(logs, self._metrics,
+                         [m.accumulate() for m in self._metrics])
             cbks.on_epoch_end(epoch, logs)
             if eval_loader is not None and (epoch + 1) % eval_freq == 0:
                 self.evaluate(eval_loader, batch_size=batch_size, verbose=0)
@@ -347,12 +436,16 @@ class Model:
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
                  num_workers=0, callbacks=None):
         """Mean loss over `eval_data`, with one wait for the card at the
-        end of the pass. Under a packing collator each pack's loss is
-        already real-token-normalised, and the pass weights packs by
-        their real-token counts, so the result is the true per-token
-        mean (a near-empty last pack does not count like a full one)."""
+        end of the pass (and one a batch for prepared metrics, whose
+        `accumulate()` the result carries under their names). Under a
+        packing collator each pack's loss is already real-token-
+        normalised, and the pass weights packs by their real-token
+        counts, so the result is the true per-token mean (a near-empty
+        last pack does not count like a full one)."""
         loader = self._as_loader(eval_data, batch_size, False, num_workers,
                                  False)
+        for m in self._metrics:
+            m.reset()
         token_masked = self._token_masked(loader)
         losses, weights = [], []
         for batch in loader:
@@ -363,13 +456,18 @@ class Model:
                 weights.append(torch.as_tensor(mask).float().sum())
             losses.append(self.eval_batch(ins, lbs, loss_mask=mask)[0])
         if not losses:
-            return {"loss": 0.0}
-        vals = _host_floats(losses + weights)
-        monitor.stat_add("STAT_train_host_syncs")
-        vals, weights = vals[:len(losses)], vals[len(losses):]
-        if token_masked and sum(weights) > 0:
-            return {"loss": float(np.average(vals, weights=weights))}
-        return {"loss": sum(vals) / len(vals)}
+            logs = {"loss": 0.0}
+        else:
+            vals = _host_floats(losses + weights)
+            monitor.stat_add("STAT_train_host_syncs")
+            vals, weights = vals[:len(losses)], vals[len(losses):]
+            if token_masked and sum(weights) > 0:
+                logs = {"loss": float(np.average(vals, weights=weights))}
+            else:
+                logs = {"loss": sum(vals) / len(vals)}
+        _log_metrics(logs, self._metrics,
+                     [m.accumulate() for m in self._metrics])
+        return logs
 
     def predict(self, test_data, batch_size=1, num_workers=0,
                 stack_outputs=False, verbose=1, callbacks=None):

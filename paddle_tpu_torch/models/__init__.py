@@ -1,2 +1,6 @@
+from .bert import (BertConfig, BertForPretraining,  # noqa: F401
+                   BertForSequenceClassification, BertModel)
+from .ernie import (ErnieConfig, ErnieForPretraining,  # noqa: F401
+                    ErnieForSequenceClassification, ErnieModel, tp_annotate)
 from .gpt import (GPTConfig, GPTForCausalLM, GPTModel,  # noqa: F401
                   load_reference_state)

@@ -1,4 +1,3 @@
-from . import functional, quant  # noqa: F401
+from . import functional, initializer, quant  # noqa: F401
 from .clip import ClipGradByGlobalNorm  # noqa: F401
-from .layer import (GELU, CrossEntropyLoss, Dropout, Embedding,  # noqa: F401
-                    LayerNorm, Linear)
+from .layer import *  # noqa: F401,F403

@@ -25,7 +25,7 @@ from paddle_tpu.framework.monitor import stat_get as jstat_get
 from paddle_tpu.hapi.callbacks import Callback as JCallback
 from paddle_tpu.models import GPTConfig as JConfig
 from paddle_tpu.models import GPTForCausalLM as JGPT
-from paddle_tpu_torch import hapi, io, nn, optimizer
+from paddle_tpu_torch import hapi, io, metric, nn, optimizer
 from paddle_tpu_torch.framework import flags as tflags
 from paddle_tpu_torch.framework import monitor
 from paddle_tpu_torch.framework import random as trandom
@@ -202,20 +202,25 @@ def test_save_load_round_trip(tmp_path):
 
 
 def test_unported_options_raise():
-    """Metrics and DataLoader workers are not ported and raise. AMP is
-    ported: `prepare(amp_configs="O1")` returns the model and
-    `train_batch` runs, its logits bfloat16 inside the step and its loss
-    a finite float32 (tests/test_torch_amp.py holds it to the JAX
+    """DataLoader workers are not ported and raise. Metrics are ported
+    (tests/test_torch_metric.py holds them to the JAX package): with one
+    prepared, `train_batch` returns the bare loss and one result a
+    metric. AMP is ported: `prepare(amp_configs="O1")` returns the model
+    and `train_batch` runs, its logits bfloat16 inside the step and its
+    loss a finite float32 (tests/test_torch_amp.py holds it to the JAX
     package)."""
     net = GPTForCausalLM(GPTConfig.tiny(dropout=0.0), device="cpu")
     model = hapi.Model(net)
-    with pytest.raises(NotImplementedError):
-        model.prepare(optimizer.SGD(0.1), metrics=[object()])
+    ids = torch.from_numpy(_motif_tokens(2, 512, seed=4)[:, :17])
+    assert model.prepare(optimizer.SGD(0.0), nn.CrossEntropyLoss(),
+                         metric.Accuracy()) is model
+    lv, accs = model.train_batch([ids[:, :-1]], [ids[:, 1:]])
+    assert torch.is_tensor(lv) and len(accs) == 1
+    assert isinstance(accs[0], float)
     assert model.prepare(optimizer.SGD(0.1), nn.CrossEntropyLoss(),
                          amp_configs="O1") is model
     seen = []
     net.register_forward_hook(lambda m, i, out: seen.append(out.dtype))
-    ids = torch.from_numpy(_motif_tokens(2, 512, seed=4)[:, :17])
     (lv,), _ = model.train_batch([ids[:, :-1]], [ids[:, 1:]])
     assert seen == [torch.bfloat16]
     assert lv.dtype == torch.float32 and torch.isfinite(lv)

@@ -493,3 +493,94 @@ def test_wide_head_dims_fall_back_counted(cuda, D):
     assert monitor.stat_get("STAT_attention_wide_head_fallback") == n0 + 1
     with pytest.raises(InvalidArgumentError):
         flash_ops.flash_attention_fwd(q, q, q, None, True, 0.1)
+
+
+def _ernie_bias(B, S, seed, device):
+    """ERNIE's key-padding bias: (1 - m) * -1e4 over seeded row lengths
+    S/4..S (the first row unpadded), float32 [B, S]."""
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(S // 4, S + 1, (B,), generator=g)
+    lens[0] = S
+    m = (torch.arange(S)[None] < lens[:, None]).float()
+    return ((1.0 - m) * -1e4).to(device)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,D", [(4, 32), (12, 64)])
+def test_flash_kernels_on_ernie_key_bias(cuda, H, D, dtype, p):
+    """K2, K3 and K4 non-causal on ERNIE's key-padding bias at S 512 (the
+    flash minimum), head dims of ERNIE-tiny (D 32) and ERNIE-base (D 64),
+    against their plain versions on the same inputs and seed: fp32 atol
+    1e-4, bf16 1e-2 x max(1, max |ref|)."""
+    B, S = 2, 512
+    g = torch.Generator(device=cuda).manual_seed(D + int(p * 10))
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g, device=cuda)
+                   .to(dtype) for _ in range(4))
+    bias = _ernie_bias(B, S, D, cuda)
+    sc = D ** -0.5
+    n = [w.launches for w in (flash_ops.flash_attention_fwd,
+                              flash_ops.flash_attention_dq,
+                              flash_ops.flash_attention_dkv)]
+    out, lse = flash_ops.flash_attention_fwd(q, k, v, bias, False, sc, p, 5)
+    ref, ref_lse = flash_ops._flash_fwd_reference(q, k, v, bias, False, sc,
+                                                  p, 5)
+    delta = flash_ops._delta(ref, do)
+    args = (q, k, v, bias, do, ref_lse, delta, False, sc, p, 5)
+    got = [out, flash_ops.flash_attention_dq(*args),
+           *flash_ops.flash_attention_dkv(*args)]
+    want = [ref, flash_ops._dq_reference(*args),
+            *flash_ops._dkv_reference(*args)]
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.isfinite(a.float()).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+        else:
+            _assert_within(a, b, TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    assert [w.launches for w in (flash_ops.flash_attention_fwd,
+                                 flash_ops.flash_attention_dq,
+                                 flash_ops.flash_attention_dkv)] == \
+        [c + 1 for c in n]
+
+
+def test_ernie_tiny_step_through_the_kernels(cuda):
+    """An ERNIE-tiny (D 32) classifier at [2, 512] with a padding mask,
+    dropout 0: loss and every gradient through K2-K4 (one launch each a
+    layer) against FLAGS_use_flash_attention=False; loss rtol 1e-5, each
+    gradient within 1e-3 x its max + 1e-6 x the model's max."""
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification)
+    cfg = ErnieConfig.tiny(max_position_embeddings=512,
+                           hidden_dropout_prob=0.0,
+                           attention_probs_dropout_prob=0.0)
+    net = ErnieForSequenceClassification(cfg, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ids = torch.randint(1, cfg.vocab_size, (2, 512), generator=g,
+                        device=cuda)
+    mask = (_ernie_bias(2, 512, 3, cuda) == 0).float()
+    labels = torch.tensor([0, 1], device=cuda)
+
+    def step():
+        net.zero_grad()
+        n0 = flash_ops.flash_attention_dkv.launches
+        loss = torch.nn.functional.cross_entropy(
+            net(ids, None, None, mask), labels)
+        loss.backward()
+        return (loss.item(), {n: p.grad.clone()
+                              for n, p in net.named_parameters()},
+                flash_ops.flash_attention_dkv.launches - n0)
+
+    lf, gf, nf = step()
+    set_flags({"FLAGS_use_flash_attention": False})
+    try:
+        lp, gp, np_ = step()
+    finally:
+        set_flags({"FLAGS_use_flash_attention": True})
+    assert (nf, np_) == (cfg.num_hidden_layers, 0)
+    assert abs(lf - lp) <= 1e-5 * abs(lp)
+    floor = 1e-6 * max(x.abs().max().item() for x in gp.values())
+    for n in gp:
+        err = (gf[n] - gp[n]).abs().max().item()
+        assert err <= 1e-3 * gp[n].abs().max().item() + floor, (n, err)

@@ -377,10 +377,13 @@ def test_metrics_names_match_jax_exporter(pair):
     ref, port = pair
     prompts = _prompts(n=3, seed=5)
     moved = []
+    # an engine name of its own: the JAX package's monitor histograms are
+    # process-wide, and tests/test_observability.py counts the requests
+    # of its "obs_metrics" engine when both files share a test process
     for make in (lambda: jserving.GenerationEngine(
-            ref, name="obs_metrics", metrics_port=0, **_KW),
+            ref, name="obs_metrics_gen", metrics_port=0, **_KW),
                  lambda: GenerationEngine(port, device="cpu",
-                                          name="obs_metrics",
+                                          name="obs_metrics_gen",
                                           metrics_port=0, **_KW)):
         eng = make()
         with eng:
