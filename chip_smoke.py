@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # every phase, exit 0 only if all pass
     python3 chip_smoke.py --kernels  # phases 1-3 only (build + kernel checks)
-    python3 chip_smoke.py --profile  # also profile serving and train steps
+    python3 chip_smoke.py --profile  # also profile serving, train, vision
 
 Phases:
  1. card      name and power limit from nvidia-smi, torch/CUDA versions,
@@ -175,6 +175,30 @@ Phases:
               FLAGS_flash_attention_min_seq 512 and 128: wall a step,
               K2-K4 launches a step (0 and 12), and each step profiled
               (device ms, kernel table, GEMM share)
+ 9. vision    convolution, pooling and BatchNorm: vision.models ResNet-50
+              through hapi.Model. (a) bench.py's second configuration
+              (bench.py:236-291): resnet50(num_classes=1000), seed 0, not
+              cut, Momentum(0.1), CrossEntropyLoss, Accuracy(topk=(1, 5)),
+              amp_configs="O1" (bf16), NCHW, batch 32 x 3 x 224 x 224, 40
+              fit steps on one seeded batch fed every step: the loss finite
+              and falling, fit's acc_top1/top5 equal to Accuracy over its
+              steps' logits, evaluate's equal to Accuracy over predict's
+              logits (eval mode, the running buffers), every Conv2D's
+              output bf16 and every BatchNorm2D's fp32 (forward hooks),
+              K1-K7 launched 0 times; images/s printed under the JAX bench's
+              metric name (the images of steps 3-40 over their window on the
+              device timeline), with the step p50 and the peak allocated
+              bytes. (b) one step at batch 2 x 224^2 from one set of
+              weights: fp32 on the card against the port's CPU step and
+              against a float64 card step, O1 bf16 against the fp32 step:
+              loss, every gradient, the running buffers (limits from a CPU
+              rehearsal, VISION_FP32 / VISION_AMP). (c) one O1 step each of
+              mobilenet_v2, resnet18, vgg16(batch_norm=True) and
+              ImperativeQuantAware().quantize(resnet50) (its 53
+              QuantizedConv2D run): the loss finite. With --profile, (a)'s
+              step profiled: device and wall ms, busy share, kernels, the
+              conv, BatchNorm, elementwise and layout-transpose shares (the
+              transposes named), the share of the bf16 dense peak
 Phase 3 also holds the splash kernels to their plain versions: K5 splash
 forward, K6 splash dQ and K7 splash dK/dV at GPT-2 small's attention
 width (B 8, H 12, S 1024, D 64) and at the packing phase's shape, with
@@ -299,6 +323,36 @@ ERNIE_KERNEL_CASES = (
 )
 # the informational arm of (a): the same step at these flash minimums
 ERNIE_MIN_SEQS = (512, 128)
+# phase 9: ResNet-50 in bench.py's second configuration (bench.py:236-291:
+# resnet50(num_classes=1000), Momentum(0.1), CrossEntropyLoss, O1 bf16,
+# batch 32 x 3 x 224 x 224, one batch every step), printed under its metric
+# name (bench.py:3093-3094), through hapi.Model with Accuracy(topk=(1, 5));
+# (b) the step parities at batch 2
+RESNET_METRIC = "resnet50_train_images_per_sec_bs32_bf16"
+RESNET_A = dict(B=32, SIDE=224, STEPS=40, LR=0.1)
+RESNET_PARITY = dict(B=2, SIDE=224)
+RESNET_FLOP_PER_IMAGE = 3 * 4.09e9   # bench.py:288-289: 3 x the forward
+# (b)'s limits, set from a CPU rehearsal of the same step (PERF.md §2):
+# fp32 against float64 there read a loss 1.4e-6 apart, gradients 1.8e-2
+# (relative L2, worst tensor; 1.55e-2 the model), buffers 9.5e-6 of their
+# max; two fp32 paths may sit twice that apart. O1 against fp32: loss
+# 1.8e-2, the fc's gradient cosine 0.9959, every gradient's norm ratio
+# 0.73-1.23, buffers 6.9e-2 of their max (the early layers' gradients are
+# uncorrelated, cosine 0.16 median: no per-element limit holds there)
+VISION_FP32 = dict(loss_rtol=1e-5, grad_rel_l2=0.1, model_rel_l2=0.05,
+                   buffer_share=1e-4)
+VISION_AMP = dict(loss_rtol=5e-2, fc_cos=0.98, norm_ratio=(0.5, 2.0),
+                  buffer_share=0.2)
+# --profile's kernel classes for (a)'s step, first match wins
+_VISION_KERNELS = {
+    "layout": r"[Nn]chwToNhwc|[Nn]hwcToNchw|[Tt]ranspose|permute",
+    "batch_norm": r"batch_norm|[Bb]atch[Nn]orm|bn_fw|bn_bw",
+    "conv": r"[Cc]onv|xmma|implicit|fprop|dgrad|wgrad|cudnn|sm90|cutlass|"
+            r"gemm|nvjet|winograd",
+    "pool": r"pool",
+    "elementwise": r"elementwise|vectorized|unrolled|[Rr]educe|copy|fill|"
+                   r"foreach|softmax|cross_entropy|nll",
+}
 
 
 def _bench_lengths(np):
@@ -4538,6 +4592,368 @@ class Smoke:
         del model
         torch.cuda.empty_cache()
 
+    # -- 9. vision ------------------------------------------------------------
+
+    def vision(self):
+        """ResNet-50 in bench.py's configuration through hapi.Model (a),
+        the step parities at batch 2 x 224^2 (b), one O1 step of each other
+        family member (c); with --profile, (a)'s step profiled (see the
+        module docstring)."""
+        self.gpt = None
+        self.torch.cuda.empty_cache()
+        net, model, x, y = self.resnet_headline()
+        if self.args.profile:
+            self.profile_vision_step(model, x, y)
+        del net, model
+        self.torch.cuda.empty_cache()
+        self.vision_step_parity()
+        self.vision_family(x, y)
+
+    def resnet_headline(self):
+        """(a) resnet50(num_classes=1000), seed 0, not cut, through
+        hapi.Model: Momentum(0.1), CrossEntropyLoss, Accuracy(topk=(1, 5)),
+        amp_configs="O1" (bf16), NCHW, 40 fit steps on one seeded batch of
+        32 x 3 x 224 x 224 standard-normal images and labels in 0..999,
+        placed on the card once and fed at every step, as bench.py:276-286
+        feeds one batch. Gates: the loss is finite and the mean of its last
+        3 steps below the mean of its first 3; the fit's acc_top1 and
+        acc_top5 equal Accuracy over the logits its steps produced (a
+        forward hook on the network); after the fit, evaluate's acc_top1
+        and acc_top5 equal Accuracy over predict's logits (eval mode, the
+        running buffers); every Conv2D's output is bfloat16 and every
+        BatchNorm2D's float32 in the fit (forward hooks on each, a set add
+        a call); K1-K7 launch 0 times (no TPU kernel lies on this path).
+        Printed: images/s as bench.py's metric (the images of steps 3-40
+        over their window on the device timeline), the step p50 and the
+        peak allocated bytes of the fit. Returns (net, model, x, y)."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import hapi, metric, nn, optimizer
+        from paddle_tpu_torch.framework import random as frandom
+        from paddle_tpu_torch.vision.models import resnet50
+        B, side, steps = (RESNET_A[k] for k in ("B", "SIDE", "STEPS"))
+        frandom.seed(0)
+        net = resnet50(num_classes=1000, device="cuda", seed=0)
+        nparams = sum(p.numel() for p in net.parameters())
+        count = {c.__name__: sum(1 for m in net.modules() if isinstance(m, c))
+                 for c in (nn.Conv2D, nn.BatchNorm2D)}
+        print(f"ResNet-50: {nparams} parameters fp32, {count}")
+        rng = np.random.RandomState(0)
+        x = torch.from_numpy(rng.standard_normal(
+            (B, 3, side, side)).astype(np.float32)).cuda()
+        y = torch.from_numpy(rng.randint(0, 1000, size=(B,)).astype(
+            np.int64)).cuda()
+        model = hapi.Model(net).prepare(
+            optimizer.Momentum(RESNET_A["LR"]), nn.CrossEntropyLoss(),
+            metric.Accuracy(topk=(1, 5)), amp_configs="O1")
+        seen, types = [], set()
+        hooks = [net.register_forward_hook(
+            lambda m, i, o: seen.append(o.detach()) if m.training else None)]
+        for m in net.modules():
+            kind = ("conv" if isinstance(m, nn.Conv2D) else "batch_norm"
+                    if isinstance(m, nn.BatchNorm2D) else None)
+            if kind:
+                hooks.append(m.register_forward_hook(
+                    lambda mod, i, o, k=kind: types.add((k, o.dtype))))
+        rec = self._step_recorder()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path starts here: every launch count from 0
+        self.zero_launches()
+        t0 = time.perf_counter()
+        model.fit([[x, y]] * steps, epochs=1, log_freq=10, verbose=0,
+                  callbacks=[rec])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = self.record_path("vision_resnet50")
+        peak = torch.cuda.max_memory_allocated()
+        for h in hooks:
+            h.remove()
+        losses = [float(v) for v in rec.losses]
+        n, window, p50, gaps = self._step_times(rec)
+        fit_acc = [float(rec.epoch_logs[k]) for k in ("acc_top1", "acc_top5")]
+        check = metric.Accuracy(topk=(1, 5))
+        for out in seen:
+            check.update(check.compute(out, y))
+        recomputed = [float(v) for v in check.accumulate()]
+        ev = {k: float(v) for k, v in
+              model.evaluate([[x, y]], verbose=0).items()}
+        logits = model.predict([[x]], stack_outputs=True)
+        pacc = metric.Accuracy(topk=(1, 5))
+        pacc.update(pacc.compute(logits, y))
+        predict_acc = [float(v) for v in pacc.accumulate()]
+        # bench.py:282-287's statistic: every image of the measured steps
+        # over the window's time
+        ips = B * n / window * 1e3
+        flops = RESNET_FLOP_PER_IMAGE * B
+        print(f"{RESNET_METRIC}: {ips:.2f} images/s on {self.smi} "
+              f"(hapi.Model.fit with Accuracy(topk=(1, 5)), AMP O1 bf16, "
+              f"NCHW; {B} x {n} images of steps 3-{steps} over their "
+              f"{window:.2f} ms on the device timeline; step p50 {p50:.2f} "
+              f"ms; {steps} steps in {wall:.2f} s wall, first step "
+              f"included; peak allocated {peak / 2**30:.2f} GiB; "
+              f"{flops / (p50 * 1e-3) / PEAK_FLOPS['bfloat16'] * 100:.1f}% "
+              f"of the bf16 dense peak at bench.py's 3 x 4.09 GFLOP an image "
+              f"by the p50)")
+        print("per-step loss: " + " ".join(f"{v:.4f}" for v in losses))
+        print(f"fit acc_top1/top5 {fit_acc}, recomputed from the steps' "
+              f"logits {recomputed}; evaluate loss {ev['loss']:.4f} "
+              f"acc_top1/top5 {[ev['acc_top1'], ev['acc_top5']]}, Accuracy "
+              f"over predict's logits {predict_acc}; output types "
+              f"{sorted((k, str(t)) for k, t in types)}; launches "
+              f"{launches}")
+        self.details["vision_resnet50"] = dict(
+            metric=RESNET_METRIC, images_per_s=ips, window_ms=window,
+            measured_steps=n, step_ms_p50=p50, step_ms=gaps, wall_s=wall,
+            peak_allocated_bytes=peak, losses=losses, fit_acc=fit_acc,
+            recomputed_acc=recomputed, evaluate=ev,
+            predict_acc=predict_acc, launches=launches,
+            output_types=sorted((k, str(t)) for k, t in types))
+        assert all(np.isfinite(losses)), "non-finite ResNet-50 loss"
+        assert np.mean(losses[-3:]) < np.mean(losses[:3]), \
+            "the ResNet-50 loss did not fall"
+        assert len(seen) == steps and fit_acc == recomputed, \
+            "fit's acc is not Accuracy over its steps' logits"
+        assert [ev["acc_top1"], ev["acc_top5"]] == predict_acc, \
+            "evaluate's acc is not Accuracy over predict's logits"
+        assert types == {("conv", torch.bfloat16),
+                         ("batch_norm", torch.float32)}, types
+        assert all(v == 0 for v in launches.values()), launches
+        return net, model, x, y
+
+    def profile_vision_step(self, model, x, y):
+        """--profile: torch.profiler over 3 of (a)'s train steps: wall and
+        device ms a step, the busy share, kernels a step, the shares of the
+        convolutions, of BatchNorm + elementwise kernels and of layout
+        transposes (each transpose kernel named), and the share of the bf16
+        dense peak at bench.py's 3 x 4.09 GFLOP an image, by device and by
+        wall time."""
+        torch = self.torch
+        import re
+        from torch.profiler import ProfilerActivity, profile
+        model.train_batch([x], [y])
+        torch.cuda.synchronize()
+        steps = 3
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            model.train_batch([x], [y])
+        torch.cuda.synchronize()
+        bare_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                model.train_batch([x], [y])
+            torch.cuda.synchronize()
+        dev, rows = _device_table(torch, prof, steps, bare_ms)
+        parts = {k: 0.0 for k in _VISION_KERNELS}
+        parts["other"] = 0.0
+        layout = []
+        for key, ms, calls in rows:
+            kind = next((k for k, pat in _VISION_KERNELS.items()
+                         if re.search(pat, key)), "other")
+            parts[kind] += ms
+            if kind == "layout":
+                layout.append((key[:90], ms, calls))
+        wall = bare_ms / steps
+        kernels = sum(c for _, _, c in rows)
+        flops = RESNET_FLOP_PER_IMAGE * x.shape[0]
+        print(f"ResNet-50 (a) step profiled on {self.smi}: wall {wall:.2f} "
+              f"ms/step unprofiled, device {dev:.2f} ms/step = "
+              f"{dev / wall * 100:.1f}% busy, {kernels:.0f} kernels/step; "
+              + ", ".join(f"{k} {v:.2f} ms ({v / dev * 100:.1f}%)"
+                          for k, v in parts.items())
+              + f"; {flops / (dev * 1e-3) / 1e12:.1f} TFLOP/s on the device "
+              f"= {flops / (dev * 1e-3) / PEAK_FLOPS['bfloat16'] * 100:.1f}%"
+              f" of the bf16 dense peak "
+              f"({flops / (wall * 1e-3) / PEAK_FLOPS['bfloat16'] * 100:.1f}%"
+              f" by the wall)")
+        for key, ms, calls in layout:
+            print(f"  layout transpose: {ms:.4f} ms/step {calls:.1f} "
+                  f"calls/step  {key}")
+        self.details["profile_vision"] = dict(
+            steps=steps, wall_ms_per_step=wall, device_ms_per_step=dev,
+            kernels_per_step=kernels, parts_ms=parts, layout=layout,
+            top=rows[:20])
+
+    def vision_step_parity(self):
+        """(b) One ResNet-50 train_batch (update=False) at batch 2 x 3 x 224
+        x 224, every path from the same weights (seed 0; copies of one
+        model): fp32 on the card against the port's same step on the CPU
+        (the path the CPU tests tie to the JAX package) and against a
+        float64 step on the card (the error cuDNN's algorithms bring), at
+        VISION_FP32_* limits; O1 bf16 against the fp32 step at VISION_AMP_*
+        limits. Each compares the loss, every gradient and the running
+        buffers after the step. The limits come from a CPU rehearsal
+        (PERF.md §2): a random ResNet-50's training-mode gradient is
+        piecewise smooth (ReLU and max-pool gates), and fp32 rounding flips
+        a few gates in layer4's 98 positions a channel, so fp32 against
+        float64 already differs by 1.5 % (relative L2) a tensor, and a
+        bf16 forward leaves the early layers' gradients uncorrelated with
+        fp32's (cosine 0.16-0.24 in the port and in the JAX package alike);
+        phase 6's max-abs limits read 130x (fp32) and 55x (AMP) there, and
+        are printed for the record only. cuDNN's weight-gradient
+        algorithms are not deterministic (torch.backends.cudnn.deterministic
+        stays off), so no gate asks two runs for bit equality."""
+        torch = self.torch
+        import copy
+        import numpy as np
+        from paddle_tpu_torch import hapi, nn, optimizer
+        from paddle_tpu_torch.vision.models import resnet50
+        B, side = RESNET_PARITY["B"], RESNET_PARITY["SIDE"]
+        net0 = resnet50(num_classes=1000, device="cuda", seed=0)
+        rng = np.random.RandomState(1)
+        x = rng.standard_normal((B, 3, side, side)).astype(np.float32)
+        y = rng.randint(0, 1000, size=(B,)).astype(np.int64)
+
+        def step(device, dtype=torch.float32, level=None):
+            net = copy.deepcopy(net0).to(device=device, dtype=dtype)
+            model = hapi.Model(net).prepare(
+                optimizer.Momentum(0.1), nn.CrossEntropyLoss(),
+                amp_configs=level)
+            t0 = time.perf_counter()
+            lv, _ = model.train_batch([torch.from_numpy(x).to(dtype)], [y],
+                                      update=False)
+            out = (float(lv[0]),
+                   {n: p.grad.detach().double().cpu()
+                    for n, p in net.named_parameters()},
+                   {n: b.detach().double().cpu()
+                    for n, b in net.named_buffers()},
+                   time.perf_counter() - t0)
+            del model, net
+            return out
+
+        f32 = step("cuda")
+        cpu = step("cpu")
+        f64 = step("cuda", torch.float64)
+        bf = step("cuda", level="O1")
+        del net0
+        torch.cuda.empty_cache()
+
+        def reading(a, b, amp):
+            """The gated and recorded numbers of path a against path b."""
+            ga, gb = a[1], b[1]
+            top = max(g.norm().item() for g in gb.values())
+            rel = {n: (ga[n] - gb[n]).norm().item()
+                   / (gb[n].norm().item() + 1e-6 * top) for n in gb}
+            cos = {n: ((ga[n] * gb[n]).sum()
+                       / (ga[n].norm() * gb[n].norm() + 1e-300)).item()
+                   for n in gb}
+            ratio = {n: ga[n].norm().item() / max(gb[n].norm().item(),
+                                                  1e-300) for n in gb}
+            model_rel = (sum((ga[n] - gb[n]).norm() ** 2 for n in gb)
+                         / sum(gb[n].norm() ** 2 for n in gb)).sqrt().item()
+            buf = {n: (a[2][n] - b[2][n]).abs().max().item()
+                   / max(b[2][n].abs().max().item(), 1e-30) for n in b[2]}
+            share, floor = ((AMP_GRAD_SHARE["bfloat16"], AMP_GRAD_FLOOR)
+                            if amp else (1e-3, 1e-6))
+            return dict(
+                loss_rel=abs(a[0] - b[0]) / abs(b[0]),
+                worst_rel_l2=max((v, n) for n, v in rel.items()),
+                median_rel_l2=sorted(rel.values())[len(rel) // 2],
+                model_rel_l2=model_rel,
+                worst_cos=min((v, n) for n, v in cos.items()),
+                median_cos=sorted(cos.values())[len(cos) // 2],
+                fc_cos=min(cos["fc.weight"], cos["fc.bias"]),
+                norm_ratio=(min(ratio.values()), max(ratio.values())),
+                worst_buffer_share=max((v, n) for n, v in buf.items()),
+                phase6_max_abs=_grad_worst(ga, gb, share, floor))
+
+        pairs = {"fp32 card vs fp32 CPU": reading(f32, cpu, False),
+                 "fp32 card vs float64 card": reading(f32, f64, False),
+                 "O1 bf16 card vs fp32 card": reading(bf, f32, True)}
+        print(f"ResNet-50 step parity [{B}, 3, {side}, {side}] on "
+              f"{self.smi}: loss fp32 {f32[0]:.6f} CPU {cpu[0]:.6f} float64 "
+              f"{f64[0]:.6f} O1 {bf[0]:.6f}; step wall fp32 {f32[3]:.2f} s, "
+              f"CPU {cpu[3]:.2f} s, float64 {f64[3]:.2f} s, O1 {bf[3]:.2f} s "
+              f"(first steps: cuDNN's heuristics included)")
+        for what, r in pairs.items():
+            print(f"  {what}: loss {r['loss_rel']:.3e} rel; gradient rel L2 "
+                  f"worst {r['worst_rel_l2'][0]:.3e} "
+                  f"({r['worst_rel_l2'][1]}), median {r['median_rel_l2']:.3e},"
+                  f" model {r['model_rel_l2']:.3e}; cosine worst "
+                  f"{r['worst_cos'][0]:.4f} ({r['worst_cos'][1]}), median "
+                  f"{r['median_cos']:.4f}, fc {r['fc_cos']:.6f}; norm ratio "
+                  f"{r['norm_ratio'][0]:.3f}-{r['norm_ratio'][1]:.3f}; "
+                  f"buffers worst {r['worst_buffer_share'][0]:.3e} of their "
+                  f"max ({r['worst_buffer_share'][1]}); record, phase 6's "
+                  f"max-abs limits {r['phase6_max_abs'][0]:.3e}x "
+                  f"({r['phase6_max_abs'][1]})")
+        self.details["vision_parity"] = dict(
+            losses=dict(fp32=f32[0], cpu=cpu[0], float64=f64[0], o1=bf[0]),
+            pairs=pairs)
+        for what in ("fp32 card vs fp32 CPU", "fp32 card vs float64 card"):
+            r = pairs[what]
+            assert r["loss_rel"] <= VISION_FP32["loss_rtol"], (what, r)
+            assert r["worst_rel_l2"][0] <= VISION_FP32["grad_rel_l2"], \
+                (what, r["worst_rel_l2"])
+            assert r["model_rel_l2"] <= VISION_FP32["model_rel_l2"], \
+                (what, r["model_rel_l2"])
+            assert r["worst_buffer_share"][0] <= VISION_FP32["buffer_share"], \
+                (what, r["worst_buffer_share"])
+        r = pairs["O1 bf16 card vs fp32 card"]
+        lo, hi = VISION_AMP["norm_ratio"]
+        assert r["loss_rel"] <= VISION_AMP["loss_rtol"], r["loss_rel"]
+        assert r["fc_cos"] >= VISION_AMP["fc_cos"], r["fc_cos"]
+        assert lo <= r["norm_ratio"][0] and r["norm_ratio"][1] <= hi, \
+            r["norm_ratio"]
+        assert r["worst_buffer_share"][0] <= VISION_AMP["buffer_share"], \
+            r["worst_buffer_share"]
+
+    def vision_family(self, x, y):
+        """(c) One O1 train_batch each, on (a)'s batch, of mobilenet_v2
+        (depthwise convs, ReLU6), resnet18, vgg16(batch_norm=True) and
+        ImperativeQuantAware().quantize(resnet50) (every Conv2D a
+        QuantizedConv2D and the fc a QuantizedLinear): the loss finite;
+        every QuantizedConv2D of the last one ran in the step (a forward
+        hook each). Printed: each step's wall (the first, cuDNN's
+        heuristics included) and peak allocated bytes."""
+        torch = self.torch
+        import math
+        from paddle_tpu_torch import hapi, nn, optimizer, quantization
+        from paddle_tpu_torch.vision import models as vm
+        builds = {
+            "mobilenet_v2": lambda: vm.mobilenet_v2(device="cuda"),
+            "resnet18": lambda: vm.resnet18(device="cuda"),
+            "vgg16_bn": lambda: vm.vgg16(batch_norm=True, device="cuda"),
+            "resnet50_quant_aware": lambda: quantization.ImperativeQuantAware(
+            ).quantize(vm.resnet50(device="cuda"))}
+        out = {}
+        for name, build in builds.items():
+            net = build()
+            quantized = [m for m in net.modules()
+                         if isinstance(m, quantization.QuantizedConv2D)]
+            ran = []
+            hooks = [m.register_forward_hook(lambda mod, i, o: ran.append(1))
+                     for m in quantized]
+            model = hapi.Model(net).prepare(
+                optimizer.Momentum(RESNET_A["LR"]), nn.CrossEntropyLoss(),
+                amp_configs="O1")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            lv, _ = model.train_batch([x], [y])
+            loss = float(lv[0])
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            for h in hooks:
+                h.remove()
+            out[name] = dict(loss=loss, wall_s=wall, peak_bytes=peak,
+                             params=sum(p.numel() for p in net.parameters()),
+                             quantized_convs=len(quantized),
+                             quantized_calls=len(ran))
+            print(f"{name} O1 step [{x.shape[0]}, 3, {x.shape[2]}, "
+                  f"{x.shape[3]}] on {self.smi}: loss {loss:.4f}, "
+                  f"{out[name]['params']} parameters, first step "
+                  f"{wall:.2f} s wall, peak allocated {peak / 2**30:.2f} GiB"
+                  + (f", {len(ran)} QuantizedConv2D calls of "
+                     f"{len(quantized)}" if quantized else ""))
+            del model, net
+            torch.cuda.empty_cache()
+            assert math.isfinite(loss), (name, loss)
+        q = out["resnet50_quant_aware"]
+        assert q["quantized_convs"] == 53 == q["quantized_calls"], q
+        self.details["vision_family"] = out
+
     def kernels_line(self):
         srcs = {"paged_attention": (
                     "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -4655,7 +5071,7 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="after serving, profile prefill and decode steps; "
                     "after training, one train step; after packing, one "
-                    "packed train step")
+                    "packed train step; in vision, one ResNet-50 step")
     ap.add_argument("--details", default="",
                     help="also write every measurement as JSON to this path")
     args = ap.parse_args(argv)
@@ -4690,6 +5106,7 @@ def main(argv=None):
             sm.phase("train", sm.train)
             sm.phase("packing", sm.packing)
             sm.phase("ernie", sm.ernie)
+            sm.phase("vision", sm.vision)
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)),
                     exist_ok=True)

@@ -41,11 +41,17 @@ Ported so far:
   (its `MultiHeadAttention` reaches the flash kernels on a key-padding
   mask), the rest of `nn`'s activations, its containers, transformer
   layers and `nn.initializer`, and `metric` through `hapi.Model`
-  (`prepare(metrics=)`, fit / evaluate logs).
+  (`prepare(metrics=)`, fit / evaluate logs);
+- convolutional vision: `nn`'s convolutions (1-3-D and transposed),
+  pooling, BatchNorm / SyncBatchNorm / GroupNorm / InstanceNorm /
+  LocalResponseNorm / SpectralNorm with their functionals,
+  `vision.models` (ResNet, VGG, LeNet, MobileNetV1/V2) and
+  `quantization.QuantizedConv2D`, on PyTorch's library convolutions
+  (cuDNN), trained through `hapi.Model`.
 """
 from . import amp, framework, hapi, io, metric, models, nn, ops  # noqa: F401
 from . import optimizer, profiler, quantization  # noqa: F401
-from . import serving, static  # noqa: F401
+from . import serving, static, vision  # noqa: F401
 from .framework import get_flags, set_flags  # noqa: F401
 
 __version__ = "0.1.0"

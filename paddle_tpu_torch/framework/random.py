@@ -57,4 +57,7 @@ def next_seed(device) -> int:
     """A fresh int32 in [0, 2^31 - 1) from `device`'s seed stream."""
     g = generator(device)
     with _lock:
-        return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=g).item())
+        # on the host explicitly: a caller may be building under a
+        # `torch.device("cuda")` context (the vision models are)
+        return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=g,
+                                 device="cpu").item())

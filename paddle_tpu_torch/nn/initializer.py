@@ -58,9 +58,12 @@ def _generator(tensor, generator):
 
 
 class Initializer:
-    """Fills `tensor` in place (no autograd) and returns it."""
+    """Fills `tensor` in place (no autograd) and returns it. A tensor on
+    the "meta" device holds no values: nothing is drawn."""
 
     def __call__(self, tensor, generator=None):
+        if tensor.is_meta:
+            return tensor
         with torch.no_grad():
             self._fill(tensor, generator)
         return tensor

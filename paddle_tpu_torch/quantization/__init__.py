@@ -4,9 +4,9 @@
 `paddle.nn.quant`).
 
 - Fake quantization for QAT/PTQ: `fake_quantize_dequantize` (per-tensor
-  abs-max with a straight-through gradient), the `QuantizedLinear`
-  wrapper, and `ImperativeQuantAware.quantize` / `PTQ.quantize`, which
-  rewrite Linear sublayers in place.
+  abs-max with a straight-through gradient), the `QuantizedLinear` and
+  `QuantizedConv2D` wrappers, and `ImperativeQuantAware.quantize` /
+  `PTQ.quantize`, which rewrite Linear and Conv2D sublayers in place.
 - Weight-only int8/int4 serving: `WeightOnlyLinear` keeps the integer
   weight and its per-output-channel scale as buffers (no float weight
   stays resident) and dequantizes inside its product;
@@ -15,9 +15,8 @@
   `GPTForCausalLM.decode_weights` hands the decode math of `generate()`
   and `serving.GenerationEngine`.
 
-Not yet ported, each raising when asked for: `QuantizedConv2D` (waits
-for `nn.Conv2D`), `save_quantized_model` and the Program passes of
-`quant_pass.py` (wait for export).
+Not yet ported, each raising when asked for: `save_quantized_model` and
+the Program passes of `quant_pass.py` (wait for export).
 """
 from __future__ import annotations
 
@@ -71,10 +70,21 @@ class QuantizedLinear(nn.Module):
 
 
 class QuantizedConv2D(nn.Module):
-    """Fake-quant Conv2D: waits for `nn.Conv2D` (ROADMAP A item 3)."""
+    """A Conv2D whose input and weight pass through fake quantization;
+    the inner layer's stride, padding, dilation, groups and layout."""
 
-    def __init__(self, inner=None, weight_bits=8, activation_bits=8):
-        raise _not_ported("quantization.QuantizedConv2D")
+    def __init__(self, inner, weight_bits=8, activation_bits=8):
+        super().__init__()
+        self.inner = inner
+        self.weight_bits = weight_bits
+        self.activation_bits = activation_bits
+
+    def forward(self, x):
+        xq = fake_quantize_dequantize(x, self.activation_bits)
+        wq = fake_quantize_dequantize(self.inner.weight, self.weight_bits)
+        return F.conv2d(xq, wq, self.inner.bias, self.inner._stride,
+                        self.inner._padding, self.inner._dilation,
+                        self.inner._groups, self.inner._data_format)
 
 
 class ImperativeQuantAware:

@@ -584,3 +584,37 @@ def test_ernie_tiny_step_through_the_kernels(cuda):
     for n in gp:
         err = (gf[n] - gp[n]).abs().max().item()
         assert err <= 1e-3 * gp[n].abs().max().item() + floor, (n, err)
+
+
+def test_resnet50_builds_on_the_card_by_default(cuda):
+    """No `device=`: every parameter and buffer of resnet50 on the card."""
+    from paddle_tpu_torch.vision.models import resnet50
+    net = resnet50()
+    assert all(t.is_cuda for t in net.state_dict().values())
+    assert sum(p.numel() for p in net.parameters()) == 25_557_032
+
+
+def test_resnet18_o1_step_runs_convs_in_bf16(cuda):
+    """One hapi train_batch of resnet18 under amp_configs="O1" on the
+    card: every Conv2D emits bfloat16 and every BatchNorm float32 (forward
+    hooks); the loss is finite and the BatchNorm buffers moved."""
+    from paddle_tpu_torch import hapi, nn, optimizer
+    from paddle_tpu_torch.vision.models import resnet18
+    net = resnet18(num_classes=10, device=cuda)
+    seen = {"conv": set(), "bn": set()}
+    for m in net.modules():
+        kind = ("conv" if isinstance(m, nn.Conv2D) else
+                "bn" if isinstance(m, nn.BatchNorm2D) else None)
+        if kind:
+            m.register_forward_hook(
+                lambda mod, i, o, k=kind: seen[k].add(o.dtype))
+    model = hapi.Model(net).prepare(optimizer.Momentum(0.1),
+                                    nn.CrossEntropyLoss(), amp_configs="O1")
+    before = net.bn1._mean.clone()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(4, 3, 64, 64, generator=g, device=cuda)
+    y = torch.randint(0, 10, (4,), generator=g, device=cuda)
+    loss, _ = model.train_batch([x], [y])
+    assert torch.isfinite(loss[0]).item()
+    assert seen == {"conv": {torch.bfloat16}, "bn": {torch.float32}}
+    assert not torch.equal(before, net.bn1._mean)

@@ -16,6 +16,11 @@ the port's.
   the JAX op does, its storage untouched.
 - `quantize_weights`: nested Linears swapped, tied Linears stay one
   module, fake-quant wrappers keep their inner Linear.
+- `QuantizedConv2D` and the Conv2D branch of
+  `ImperativeQuantAware.quantize`: a small conv net's outputs and input
+  gradient (the straight-through estimator) within rtol 1e-5, atol 1e-5
+  x max(1, max |ref|) of the JAX package's, strided, padded and grouped
+  convolutions, NHWC; `save_quantized_model` still raises.
 - `load_reference_state` carries a quantized JAX GPT's integers and
   scales across as they are; `decode_weights` hands int8 leaves (int4
   unpacked once).
@@ -187,11 +192,86 @@ def test_fake_quant_wrappers_left_intact_and_match_jax():
 
 
 def test_unported_parts_raise():
-    with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        tquant.QuantizedConv2D(None)
     for cls in (tquant.ImperativeQuantAware, tquant.PTQ):
         with pytest.raises(InvalidArgumentError, match="not yet ported"):
             cls().save_quantized_model(torch.nn.Linear(2, 2), "/tmp/x")
+
+
+def _conv_pair(seed):
+    """A JAX net of Conv2Ds (strided, grouped, NHWC) and a Linear, and the
+    port's, its weights carried by load_reference_state."""
+    paddle.seed(seed)
+
+    class J(jnn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.a = jnn.Conv2D(3, 8, 3, stride=2, padding=1)
+            self.b = jnn.Conv2D(8, 8, 3, padding="SAME", groups=4,
+                                bias_attr=False)
+            self.c = jnn.Conv2D(8, 4, 1, data_format="NHWC")
+            self.fc = jnn.Linear(4, 5)
+
+        def forward(self, x):
+            x = jnn.functional.relu(self.b(self.a(x)))
+            x = self.c(x.transpose([0, 2, 3, 1]))
+            return self.fc(x.mean(axis=[1, 2]))
+
+    class T(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.a = tnn.Conv2D(3, 8, 3, stride=2, padding=1)
+            self.b = tnn.Conv2D(8, 8, 3, padding="SAME", groups=4,
+                                bias_attr=False)
+            self.c = tnn.Conv2D(8, 4, 1, data_format="NHWC")
+            self.fc = tnn.Linear(4, 5)
+
+        def forward(self, x):
+            x = tnn.functional.relu(self.b(self.a(x)))
+            x = self.c(x.permute(0, 2, 3, 1))
+            return self.fc(x.mean((1, 2)))
+
+    ref, port = J(), T()
+    load_reference_state(port, {k: np.asarray(v.numpy())
+                                for k, v in ref.state_dict().items()})
+    return ref, port
+
+
+def test_quantized_conv2d_matches_jax():
+    """ImperativeQuantAware wraps every Conv2D and the Linear in both
+    packages (state names `a.inner.weight`, ...); outputs and the input's
+    straight-through gradient agree."""
+    ref, port = _conv_pair(13)
+    jquant.ImperativeQuantAware(weight_bits=8, activation_bits=8) \
+        .quantize(ref)
+    tquant.ImperativeQuantAware(weight_bits=8, activation_bits=8) \
+        .quantize(port)
+    for name in ("a", "b", "c"):
+        assert isinstance(getattr(port, name), tquant.QuantizedConv2D)
+        assert isinstance(getattr(port, name).inner, tnn.Conv2D)
+    assert isinstance(port.fc, tquant.QuantizedLinear)
+    assert sorted(port.state_dict()) == sorted(ref.state_dict())
+    x = np.random.RandomState(14).standard_normal((2, 3, 9, 9)).astype(
+        "float32")
+    jx = paddle.to_tensor(x, stop_gradient=False)
+    tx = torch.tensor(x, requires_grad=True)
+    jo, to = ref(jx), port(tx)
+    want = np.asarray(jo.numpy())
+    np.testing.assert_allclose(to.detach().numpy(), want, rtol=1e-5,
+                               atol=1e-5 * max(1.0, np.abs(want).max()))
+    jo.sum().backward()
+    to.sum().backward()
+    g = np.asarray(jx.grad.numpy())
+    np.testing.assert_allclose(tx.grad.numpy(), g, rtol=1e-5,
+                               atol=1e-5 * max(1.0, np.abs(g).max()))
+    # one wrapper directly, 4-bit, against the JAX one
+    jwrap = jquant.QuantizedConv2D(ref.a.inner, weight_bits=4,
+                                   activation_bits=4)
+    twrap = tquant.QuantizedConv2D(port.a.inner, weight_bits=4,
+                                   activation_bits=4)
+    want = np.asarray(jwrap(paddle.to_tensor(x)).numpy())
+    np.testing.assert_allclose(twrap(torch.from_numpy(x)).detach().numpy(),
+                               want, rtol=1e-5,
+                               atol=1e-5 * max(1.0, np.abs(want).max()))
 
 
 def test_auto_cast_covers_weight_only_linear():
