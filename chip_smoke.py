@@ -199,6 +199,44 @@ Phases:
               step profiled: device and wall ms, busy share, kernels, the
               conv, BatchNorm, elementwise and layout-transpose shares (the
               transposes named), the share of the bf16 dense peak
+10. export    models saved on the CPU through jit.save (a torch.export
+              program, symbolic batch) and served on the card through
+              inference.Predictor and serving.InferenceEngine (one lane,
+              its own CUDA stream). (a) bench.py --mode serving's model
+              and traffic (bench.py:428-593): the MLP 256 -> 1024 -> tanh
+              -> 1024 -> tanh -> 256, seed 0; a serial Predictor.run loop
+              of 200 rows; an engine over devices="all", buckets 1/4/16/64,
+              batch delay 2 ms, queue depth 512, 64 submitters x 40
+              requests with 4 outstanding (three phases, the best qps as
+              bench.py), then the same with FLAGS_serving_spans off:
+              every result bit-identical to its row served alone through
+              a bucket and within 1e-5 of eager on the card,
+              STAT_predictor_compiles (first runs of an input shape: an
+              exported program compiles nothing, so this checks the
+              warmup's coverage, not compilation) = lanes x buckets at
+              warmup and 0 under load, the queue-depth gauge back to 0,
+              the latency
+              count = the requests; qps, p50/p99, serial qps, speedup,
+              occupancy, spans-off qps. (b) ERNIE-base classifier (seed
+              0, eval) with InputSpec([None, 512], "int64") for the ids
+              and the attention_mask, in fp32 and in bf16 after O2
+              amp.decorate: 64 one-row requests of lengths 128-512 from 16
+              submitters through an engine over a Predictor (they
+              coalesce into one bucket-64 batch), a load window of 10 x
+              64 requests of the same rows with 8 outstanding a
+              submitter, then two rows through the Predictor: logits
+              against eager on the card (EXPORT_TOL), 12 flash_fwd nodes
+              and no softmax in the program, K2 = 12 x the batches
+              dispatched all in the path's type, the plain version never
+              run, one warm per bucket; the load window's samples/s and
+              p50/p99. (c) ResNet-50 (eval, running buffers
+              from a seeded draw) through a Predictor at batch 32 x 224^2
+              against eager; the int8 MLP (quantize_weights) served,
+              against its eager model, STAT_quant_weight_hbm_bytes = its
+              integer and scale bytes, STAT_quant_exports +1; a lane
+              restart (FLAGS_serving_lane_restarts=1, a runner that dies
+              once): only the dying batch's request fails, restarts 1,
+              no new warm
 Phase 3 also holds the splash kernels to their plain versions: K5 splash
 forward, K6 splash dQ and K7 splash dK/dV at GPT-2 small's attention
 width (B 8, H 12, S 1024, D 64) and at the packing phase's shape, with
@@ -218,7 +256,9 @@ lengths) in fp32 and bf16; (a)'s step at flash minimum 128, [32, 12,
 128, 64] bf16 with no bias (the whole sequence one key tile); and (d)'s
 BERT-large, [8, 16, 512, 64] bf16 on the bias. The library's SDPA on the
 same [B,1,1,S] float mask and p is the yardstick (K3 + K4 against its
-whole backward).
+whole backward). And K2 at phase 10 (b)'s inference shapes, [16, 12,
+512, 64] and [64, 12, 512, 64], non-causal, p 0, on ERNIE's bias, fp32
+and bf16, with SDPA on the same mask (K2_INFERENCE_BATCHES).
 --profile's profiler sessions come after serving, so that run's train
 and packing walls carry them; each train path (fp32, AMP) is profiled
 over 3 steps with its GEMM share (phase 8 profiles its ERNIE-base step in
@@ -343,6 +383,27 @@ VISION_FP32 = dict(loss_rtol=1e-5, grad_rel_l2=0.1, model_rel_l2=0.05,
                    buffer_share=1e-4)
 VISION_AMP = dict(loss_rtol=5e-2, fc_cos=0.98, norm_ratio=(0.5, 2.0),
                   buffer_share=0.2)
+# phase 10: bench.py --mode serving's model and traffic (bench.py:445-451:
+# 256 -> 1024 -> 1024 -> 256, 64 submitters x 40 requests, 4 outstanding,
+# a serial loop of 200, buckets 1/4/16/64; batch delay 2 ms; queue depth
+# 2 x 64 x 4)
+SERVE_MLP = dict(DIM=256, HID=1024, SUBMITTERS=64, PER=40, PIPELINE=4,
+                 SERIAL=200, BUCKETS=(1, 4, 16, 64), DELAY_MS=2.0,
+                 QUEUE=512)
+# (b): ERNIE-base served at seq 512, 64 requests from 16 submitters of
+# lengths ERNIE_LONG["MIN_LEN"]..512; its logits against eager on the card
+# within EXPORT_TOL x max(1, max |logit|) (fp32: the flash kernels' fp32
+# limit, FLASH_TOL; bf16: test_torch_amp.py's limit on an op's output)
+# the 64 requests coalesce into one bucket-64 batch, so samples/s and
+# p50/p99 come from a load window after them: LOAD_ROUNDS x 64 requests of
+# the same rows from the same submitters, each with LOAD_OUTSTANDING
+# outstanding (128 in all: two bucket-64 batches can be in flight)
+ERNIE_SERVE = dict(S=512, REQUESTS=64, SUBMITTERS=16, BUCKETS=(1, 4, 16, 64),
+                   LOAD_ROUNDS=10, LOAD_OUTSTANDING=8)
+EXPORT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# phase 3's inference rows of K2: (b)'s batches at the largest buckets,
+# non-causal, p 0, on ERNIE's key bias
+K2_INFERENCE_BATCHES = (16, 64)
 # --profile's kernel classes for (a)'s step, first match wins
 _VISION_KERNELS = {
     "layout": r"[Nn]chwToNhwc|[Nn]hwcToNchw|[Tt]ranspose|permute",
@@ -793,6 +854,56 @@ class Smoke:
                         f"K2 {name} causal={causal} padded={padded} " \
                         f"disagrees with its plain version"
         self.details["k2"] = rows
+
+    def check_k2_inference(self):
+        """K2 at phase 10 (b)'s shapes: ERNIE-base served at seq 512,
+        [B, 12, 512, 64] for B in K2_INFERENCE_BATCHES, non-causal, p 0, on
+        ERNIE's key-padding bias, fp32 and bf16, against its plain version
+        (FLASH_TOL x max(1, max |ref|)). ms and library ms (SDPA on the same
+        [B,1,1,S] float mask in the operands' type): device time per call,
+        the event time beside each."""
+        torch = self.torch
+        import torch.nn.functional as TF
+        from paddle_tpu_torch.ops import flash_ops as fo
+        H, S, D = 12, ERNIE_SERVE["S"], 64
+        scale = 1.0 / D ** 0.5
+        rows = []
+        for B in K2_INFERENCE_BATCHES:
+            for name in ("float32", "bfloat16"):
+                dtype = getattr(torch, name)
+                q, k, v, _, bias = self.train_inputs(dtype, False, "ernie",
+                                                     seed=11, H=H, D=D,
+                                                     Sq=S, B=B)
+                out, lse = fo.flash_attention_fwd(q, k, v, bias, False,
+                                                  scale)
+                ref, ref_lse = fo._flash_fwd_reference(q, k, v, bias, False,
+                                                       scale)
+                torch.cuda.synchronize()
+                err = max((out.float() - ref.float()).abs().max().item(),
+                          (lse - ref_lse).abs().max().item())
+                ms, event_ms = self.time_ms(
+                    lambda: fo.flash_attention_fwd(q, k, v, bias, False,
+                                                   scale), 10)
+                plain_ms = _time_ms(torch, lambda: fo._flash_fwd_reference(
+                    q, k, v, bias, False, scale), 3)
+                mask = bias[:, None, None, :].to(dtype)
+                lib_ms, lib_event_ms = self.time_ms(
+                    lambda: TF.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask), 10)
+                item = q.element_size()
+                nbytes = 4 * B * H * S * D * item + B * H * S * 4 + B * S * 4
+                rows.append(self._row(
+                    "K2 flash_fwd inference", name, err,
+                    ref.float().abs().max().item(), FLASH_TOL[name], ms,
+                    plain_ms, 4 * B * H * S * S * D, nbytes, lib_ms,
+                    shape=f"{B}x{H}x{S}x{D}", event_ms=round(event_ms, 4),
+                    library_event_ms=round(lib_event_ms, 4)))
+                print(f"K2 inference {name} [{B},{H},{S},{D}]: device "
+                      f"{ms:.4f} ms = {ms / lib_ms:.3f} x SDPA (device "
+                      f"{lib_ms:.4f} ms)")
+                del q, k, v, bias, out, lse, ref, ref_lse, mask
+                torch.cuda.empty_cache()
+        self.details["k2_inference"] = rows
 
     def ernie_bias(self, B, S, seed=0):
         """ERNIE's key-padding bias as the flash kernels take it: float32
@@ -1281,6 +1392,7 @@ class Smoke:
     def kernels(self):
         self.check_k1()
         self.check_k2()
+        self.check_k2_inference()
         self.check_train_kernels()
         self.check_autograd()
         self.check_splash_kernels()
@@ -3190,11 +3302,17 @@ class Smoke:
                    readyz=sorted({s for s in statuses}, key=str),
                    readyz_polls=len(statuses),
                    recovery_ms=[rep.sup.supervisor_stats()[
-                       "last_recovery_ms"] for rep in r._replicas])
+                       "last_recovery_ms"] for rep in r._replicas],
+                   # which replica died, and so how many requests replay
+                   # (each with its prefill, K2 where a prompt reaches
+                   # the flash minimum), depends on timing
+                   replayed=[rep.sup.supervisor_stats()[
+                       "replayed_requests"] for rep in r._replicas])
         out[arm] = row
         print(f"fleet arm {arm} on {self.smi}: {len(prompts5)} requests in "
               f"{wall:.3f} s; {restarts} restart(s), recovery ms "
-              f"{row['recovery_ms']}; router audit {row['route']}; "
+              f"{row['recovery_ms']}, replayed requests by replica "
+              f"{row['replayed']}; router audit {row['route']}; "
               f"/readyz (status, router ready) seen {row['readyz']} over "
               f"{len(statuses)} polls; {steps} decode steps, launches "
               f"{launches}")
@@ -4954,6 +5072,634 @@ class Smoke:
         assert q["quantized_convs"] == 53 == q["quantized_calls"], q
         self.details["vision_family"] = out
 
+    # -- 10. export and inference ------------------------------------------------
+
+    def export(self):
+        """Models saved on the CPU through jit.save, served on the card
+        through inference.Predictor and serving.InferenceEngine: (a)
+        bench.py --mode serving's MLP and traffic, (b) ERNIE-base at seq
+        512 in fp32 and O2 bf16 through K2, (c) ResNet-50 through a
+        Predictor, the int8 MLP, a lane restart (see the module
+        docstring)."""
+        import shutil
+        import tempfile
+        self.gpt = None
+        self.torch.cuda.empty_cache()
+        self.export_dir = tempfile.mkdtemp(prefix="chip_smoke_export_")
+        try:
+            self.export_mlp()
+            self.export_ernie("float32")
+            self.export_ernie("bfloat16")
+            self.export_resnet()
+            self.export_quant()
+            self.export_lane_restart()
+        finally:
+            shutil.rmtree(self.export_dir, ignore_errors=True)
+
+    def _serve_mlp_net(self):
+        """bench.py's serving model (bench.py:453-462) on the CPU, seed 0:
+        Linear(256, 1024) -> tanh -> Linear(1024, 1024) -> tanh ->
+        Linear(1024, 256)."""
+        torch = self.torch
+        import paddle_tpu_torch as ptt
+        from paddle_tpu_torch import nn
+        from paddle_tpu_torch.framework import random as frandom
+        DIM, HID = SERVE_MLP["DIM"], SERVE_MLP["HID"]
+        frandom.seed(0)
+        torch.manual_seed(0)
+
+        class Net(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.fc1 = nn.Linear(DIM, HID, device="cpu")
+                self.fc2 = nn.Linear(HID, HID, device="cpu")
+                self.fc3 = nn.Linear(HID, DIM, device="cpu")
+
+            def forward(self, x):
+                h = ptt.tanh(self.fc1(x))
+                return self.fc3(ptt.tanh(self.fc2(h)))
+        return Net().eval()
+
+    def _concurrent(self, eng, xs):
+        """bench.py's concurrent phase: SERVE_MLP["SUBMITTERS"] threads,
+        each submitting its own row PER times with PIPELINE outstanding.
+        Returns (qps, {submitter: [results]})."""
+        from collections import deque
+        n, per, pipe = (SERVE_MLP[k] for k in ("SUBMITTERS", "PER",
+                                                "PIPELINE"))
+        start = threading.Barrier(n + 1)
+        errors, results = [], {}
+
+        def client(i):
+            try:
+                start.wait()
+                out, got = deque(), []
+                for _ in range(per):
+                    out.append(eng.submit(xs[i], timeout_ms=0))
+                    if len(out) >= pipe:
+                        got.append(out.popleft().result()[0])
+                got.extend(f.result()[0] for f in out)
+                results[i] = got
+            except Exception as e:  # noqa: BLE001 — counted, then raised
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        start.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        if errors:
+            raise RuntimeError(f"{len(errors)}/{n} serving clients failed: "
+                               f"{errors[0]!r}")
+        return n * per / wall, results
+
+    def export_mlp(self):
+        """(a) bench.py --mode serving (bench.py:428-593) on the card: the
+        MLP saved on the CPU with InputSpec([None, 256]); a serial
+        Predictor.run loop of SERIAL single rows (median of two windows
+        before the engine and one after); an InferenceEngine over
+        devices="all" (one lane on one card), buckets (1, 4, 16, 64),
+        batch delay 2 ms, queue depth 512, driven by 64 submitters x 40
+        requests with 4 outstanding, three phases (qps: the best, as
+        bench.py); then the same engine with FLAGS_serving_spans off.
+        Gates: every result is bit-identical to its row served alone
+        through one of the buckets and within 1e-5 x max(1, max |ref|) of
+        eager net(x) on the card; STAT_predictor_compiles moved by lanes x
+        buckets at warmup and 0 under load; STAT_serving_queue_depth is
+        back to 0; the latency count equals the requests."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import inference, jit, serving
+        from paddle_tpu_torch.framework import monitor
+        from paddle_tpu_torch.framework.flags import set_flags
+        from paddle_tpu_torch.static import InputSpec
+        DIM, buckets = SERVE_MLP["DIM"], SERVE_MLP["BUCKETS"]
+        net = self._serve_mlp_net()
+        prefix = os.path.join(self.export_dir, "serving_mlp")
+        t0 = time.perf_counter()
+        jit.save(net, prefix, input_spec=[InputSpec([None, DIM], "float32")])
+        save_s = time.perf_counter() - t0
+        gpu = net.to("cuda")
+        n = SERVE_MLP["SUBMITTERS"]
+        xs = [np.random.RandomState(i).standard_normal((1, DIM)).astype(
+            np.float32) for i in range(n)]
+        pred = inference.create_predictor(inference.Config(prefix))
+        assert pred.device.type == "cuda", pred.device
+        x1 = xs[0]
+        for _ in range(3):
+            pred.run([x1])
+        windows = []
+
+        def serial_window():
+            t = time.perf_counter()
+            for _ in range(SERVE_MLP["SERIAL"]):
+                pred.run([x1])
+            windows.append(SERVE_MLP["SERIAL"] / (time.perf_counter() - t))
+        serial_window()
+        serial_window()
+        # oracles: each submitter's row alone through every bucket, and
+        # eager on the card
+        alone = {i: [pred.run([np.concatenate(
+            [xs[i], np.zeros((b - 1, DIM), np.float32)])])[0][:1]
+            for b in buckets] for i in range(n)}
+        with torch.no_grad():
+            eager = {i: gpu(torch.from_numpy(xs[i]).cuda()).cpu().numpy()
+                     for i in range(n)}
+
+        def measure(name, phases):
+            monitor.histogram(f"{name}_request_ms").reset()
+            c0 = monitor.stat_get("STAT_predictor_compiles")
+            eng = serving.InferenceEngine(
+                inference.Config(prefix), devices="all",
+                batch_buckets=buckets, max_batch_size=buckets[-1],
+                max_batch_delay_ms=SERVE_MLP["DELAY_MS"],
+                max_queue_depth=SERVE_MLP["QUEUE"], name=name)
+            try:
+                warm = monitor.stat_get("STAT_predictor_compiles") - c0
+                runs = [self._concurrent(eng, xs) for _ in range(phases)]
+                live = monitor.stat_get("STAT_predictor_compiles") - c0 - warm
+                return warm, live, runs, eng.stats()
+            finally:
+                eng.shutdown()
+
+        warm, live, runs, s = measure("chip_serving", 3)
+        serial_window()
+        serial = sorted(windows)[len(windows) // 2]
+        qps = max(q for q, _ in runs)
+        lanes = len(s["lanes"])
+        requests = 3 * n * SERVE_MLP["PER"]
+        worst = 0.0
+        for _, results in runs:
+            for i, outs in results.items():
+                for o in outs:
+                    assert any(np.array_equal(o, a) for a in alone[i]), \
+                        f"submitter {i}: a result is not its row served " \
+                        f"alone through any bucket"
+                    ref = eager[i]
+                    worst = max(worst, float(np.abs(o - ref).max())
+                                / max(1.0, float(np.abs(ref).max())))
+        set_flags({"FLAGS_serving_spans": False})
+        try:
+            _, _, off_runs, _ = measure("chip_serving_nospans", 3)
+        finally:
+            set_flags({"FLAGS_serving_spans": True})
+        qps_off = max(q for q, _ in off_runs)
+        lat = s["latency_ms"]
+        print(f"export (a) on {self.smi}: bench.py serving MLP "
+              f"({DIM}->{SERVE_MLP['HID']}->{SERVE_MLP['HID']}->{DIM}, "
+              f"saved on the CPU in {save_s:.2f} s), {lanes} lane(s), "
+              f"buckets {buckets}: {qps:.1f} qps (phases "
+              f"{[round(q, 1) for q, _ in runs]}), p50 {lat['p50']:.3f} ms "
+              f"p99 {lat['p99']:.3f} ms over {lat['count']} requests; "
+              f"serial Predictor.run {serial:.1f} qps (windows "
+              f"{[round(w, 1) for w in windows]}), speedup "
+              f"{qps / serial:.2f}x; mean occupancy {s['mean_occupancy']}; "
+              f"spans off {qps_off:.1f} qps (phases "
+              f"{[round(q, 1) for q, _ in off_runs]}), span overhead "
+              f"{100.0 * (1.0 - qps / qps_off):.2f} %; warm compiles {warm}, "
+              f"live {live}; worst |served - eager| / max(1, |eager|) "
+              f"{worst:.3e}; bucket batches "
+              f"{ {b: v['batches'] for b, v in s['buckets'].items()} }; "
+              f"phases (ms p50) "
+              f"{ {k: round(v['p50'], 4) for k, v in s['phases'].items()} }")
+        self.details["export_mlp"] = dict(
+            qps=qps, qps_phases=[q for q, _ in runs], serial_qps=serial,
+            serial_windows=windows, speedup=qps / serial,
+            p50_ms=lat["p50"], p99_ms=lat["p99"], requests=lat["count"],
+            mean_occupancy=s["mean_occupancy"], spans_off_qps=qps_off,
+            spans_off_phases=[q for q, _ in off_runs], lanes=lanes,
+            warm=warm, live=live, worst_rel_err=worst, save_s=save_s,
+            buckets={str(b): v for b, v in s["buckets"].items()},
+            phases=s["phases"], inflight=s["inflight_depth"])
+        assert worst <= 1e-5, f"served rows differ from eager: {worst}"
+        assert warm == lanes * len(buckets) and live == 0, (warm, live)
+        assert s["queue_depth"] == 0 and \
+            monitor.stat_get("STAT_serving_queue_depth") == 0
+        assert lat["count"] == requests, (lat["count"], requests)
+        assert all(c == 1 for lane in s["lanes"]
+                   for c in lane["bucket_compiles"].values())
+        del pred, gpu
+        torch.cuda.empty_cache()
+
+    def export_ernie(self, dtype):
+        """(b) ErnieForSequenceClassification(ErnieConfig.base(), 2), seed
+        0, eval, saved on the CPU with InputSpec([None, 512], "int64") for
+        the ids and the attention_mask, in fp32 or (dtype "bfloat16") after
+        O2 amp.decorate; served on the card through create_predictor and an
+        InferenceEngine over it, buckets (1, 4, 16, 64): 64 requests of one
+        row from 16 submitters, lengths seeded in 128-512 padded to 512;
+        a load window of LOAD_ROUNDS x 64 requests of the same rows, each
+        submitter keeping LOAD_OUTSTANDING outstanding (samples/s and
+        p50/p99 are this window's); then two rows through the predictor
+        alone. The path ("export_ernie" / "export_ernie_bf16"):
+        every launch count from 0 before the predictor is built, read
+        after the traffic. Gates: the exported graph holds 12 flash_fwd
+        nodes and no softmax; the logits equal eager on the card (the
+        same weights, each row alone) within EXPORT_TOL[dtype] x max(1,
+        max |logit|), the load window's too; K2 launches = 12 x the
+        batches dispatched (warmup, the engine's batches of both
+        windows, the predictor's runs), all in the path's
+        type, and STAT_flash_attention_fwd moved as much; the plain
+        version ran 0 times and STAT_attention_wide_head_fallback did not
+        move; one warm per bucket and no live one."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import amp, inference, jit, serving
+        from paddle_tpu_torch.framework import monitor
+        from paddle_tpu_torch.models import (ErnieConfig,
+                                             ErnieForSequenceClassification)
+        from paddle_tpu_torch.ops import flash_ops as fo
+        from paddle_tpu_torch.static import InputSpec
+        S, R, subs, buckets, rounds, pipe = (
+            ERNIE_SERVE[k] for k in ("S", "REQUESTS", "SUBMITTERS",
+                                     "BUCKETS", "LOAD_ROUNDS",
+                                     "LOAD_OUTSTANDING"))
+        from collections import deque
+        path = "export_ernie" if dtype == "float32" else "export_ernie_bf16"
+        cfg = ErnieConfig.base()
+
+        class Cls(torch.nn.Module):
+            def __init__(self, net):
+                super().__init__()
+                self.net = net
+
+            def forward(self, ids, mask):
+                return self.net(ids, attention_mask=mask)
+        net = Cls(ErnieForSequenceClassification(cfg, device="cpu",
+                                                 seed=0)).eval()
+        if dtype == "bfloat16":
+            amp.decorate(net, level="O2")
+        prefix = os.path.join(self.export_dir, path)
+        t0 = time.perf_counter()
+        jit.save(net, prefix, input_spec=[InputSpec([None, S], "int64"),
+                                          InputSpec([None, S], "int64")])
+        save_s = time.perf_counter() - t0
+        lens = _ernie_lengths(np, R, S, seed=5)
+        rng = np.random.RandomState(5)
+        ids = rng.randint(5, cfg.vocab_size, size=(R, S)).astype(np.int64)
+        mask = (np.arange(S)[None] < lens[:, None]).astype(np.int64)
+        ids[mask == 0] = 0
+        L = cfg.num_hidden_layers
+        torch.cuda.synchronize()
+        plain = [0]
+        ref_fn = fo._flash_fwd_reference
+
+        def counted(*a, **k):
+            plain[0] += 1
+            return ref_fn(*a, **k)
+        # the main path starts here: every launch count from 0
+        self.zero_launches()
+        fb0 = monitor.stat_get("STAT_attention_wide_head_fallback")
+        st0 = monitor.stat_get("STAT_flash_attention_fwd")
+        c0 = monitor.stat_get("STAT_predictor_compiles")
+        fo._flash_fwd_reference = counted
+        try:
+            t0 = time.perf_counter()
+            pred = inference.create_predictor(inference.Config(prefix))
+            load_s = time.perf_counter() - t0
+            eng = serving.InferenceEngine(
+                pred, batch_buckets=buckets, max_batch_size=buckets[-1],
+                max_batch_delay_ms=SERVE_MLP["DELAY_MS"],
+                max_queue_depth=SERVE_MLP["QUEUE"], name=f"chip_{path}")
+            try:
+                warm = monitor.stat_get("STAT_predictor_compiles") - c0
+                futs = [None] * R
+                start = threading.Barrier(subs + 1)
+
+                def client(k):
+                    start.wait()
+                    for i in range(k, R, subs):
+                        futs[i] = eng.submit([ids[i:i + 1], mask[i:i + 1]],
+                                             timeout_ms=0)
+                threads = [threading.Thread(target=client, args=(k,))
+                           for k in range(subs)]
+                for t in threads:
+                    t.start()
+                start.wait()
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.join()
+                served = [f.result()[0] for f in futs]
+                wall = time.perf_counter() - t0
+                s = eng.stats()
+                # the load window: its own latency histogram
+                monitor.histogram(f"chip_{path}_request_ms").reset()
+                monitor.histogram(f"chip_{path}_inflight_depth").reset()
+                loaded = [None] * (R * rounds)
+                start = threading.Barrier(subs + 1)
+                errors = []
+
+                def loader(k):
+                    try:
+                        start.wait()
+                        out = deque()
+                        for j in range(k, R * rounds, subs):
+                            i = j % R
+                            out.append((j, eng.submit(
+                                [ids[i:i + 1], mask[i:i + 1]],
+                                timeout_ms=0)))
+                            if len(out) >= pipe:
+                                j0, f = out.popleft()
+                                loaded[j0] = f.result()[0]
+                        for j0, f in out:
+                            loaded[j0] = f.result()[0]
+                    except Exception as e:  # noqa: BLE001 — raised below
+                        errors.append(e)
+                threads = [threading.Thread(target=loader, args=(k,))
+                           for k in range(subs)]
+                for t in threads:
+                    t.start()
+                start.wait()
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.join()
+                load_wall = time.perf_counter() - t0
+                if errors:
+                    raise RuntimeError(f"{len(errors)}/{subs} load "
+                                       f"submitters failed: {errors[0]!r}")
+                sl = eng.stats()
+            finally:
+                eng.shutdown()
+            # two rows through the predictor alone (bucket 1's shape)
+            single = [pred.run([ids[i:i + 1], mask[i:i + 1]])[0]
+                      for i in range(2)]
+        finally:
+            fo._flash_fwd_reference = ref_fn
+        torch.cuda.synchronize()
+        launches = self.record_path(path)
+        by_dtype = self.path_dtype_launches[path]
+        stat = monitor.stat_get("STAT_flash_attention_fwd") - st0
+        live = monitor.stat_get("STAT_predictor_compiles") - c0 - warm
+        batches = sum(lane["batches"] for lane in s["lanes"])
+        load_batches = sum(lane["batches"] for lane in sl["lanes"]) - batches
+        dispatched = len(buckets) + batches + load_batches + len(single)
+        graph = [str(nd.target) for nd in
+                 pred._translated._exported.graph.nodes
+                 if nd.op == "call_function"]
+        nodes = sum(t == "paddle_tpu_torch.flash_fwd.default" for t in graph)
+        softmax = sum("softmax" in t for t in graph)
+        # eager on the card, each row alone
+        gnet = net.to("cuda")
+        with torch.no_grad():
+            eager = np.concatenate([gnet(
+                torch.from_numpy(ids[i:i + 1]).cuda(),
+                torch.from_numpy(mask[i:i + 1]).cuda()).float().cpu().numpy()
+                for i in range(R)])
+        got = np.concatenate(served)
+        scale = max(1.0, float(np.abs(eager).max()))
+        err = float(np.abs(got - eager).max())
+        err_single = float(np.abs(np.concatenate(single) - eager[:2]).max())
+        err_load = float(np.abs(np.concatenate(loaded)
+                                - np.tile(eager, (rounds, 1))).max())
+        lat, llat = s["latency_ms"], sl["latency_ms"]
+        n_load = R * rounds
+        load_buckets = {b: v["batches"] - s["buckets"][b]["batches"]
+                        for b, v in sl["buckets"].items()}
+        print(f"export (b) {path} on {self.smi}: ERNIE-base {dtype} saved "
+              f"on the CPU in {save_s:.2f} s, loaded onto the card in "
+              f"{load_s:.2f} s; {R} requests (lengths "
+              f"{ERNIE_LONG['MIN_LEN']}-{S}) from {subs} submitters in "
+              f"{wall * 1e3:.1f} ms, bucket batches "
+              f"{ {b: v['batches'] for b, v in s['buckets'].items()} } "
+              f"(latency p50 {lat['p50']:.3f} ms p99 {lat['p99']:.3f} ms); "
+              f"load window {n_load} requests ({pipe} outstanding a "
+              f"submitter) in {load_wall * 1e3:.1f} ms: "
+              f"{n_load / load_wall:.1f} samples/s, p50 {llat['p50']:.3f} ms "
+              f"p99 {llat['p99']:.3f} ms, bucket batches {load_buckets}, "
+              f"in-flight depth {sl['inflight_depth']}; "
+              f"max |served - eager| {err:.3e}, load {err_load:.3e}, "
+              f"predictor rows "
+              f"{err_single:.3e} (max |logit| {scale:.3f}, tol "
+              f"{EXPORT_TOL[dtype]} x max(1, it)); K2 launches "
+              f"{launches['flash_fwd']} = {L} x {dispatched} dispatched "
+              f"({len(buckets)} warm + {batches} + {load_batches} engine + "
+              f"{len(single)} predictor)? by type {by_dtype['flash_fwd']}; "
+              f"graph flash_fwd nodes {nodes}, softmax {softmax}; plain "
+              f"calls {plain[0]}; warm {warm} live {live}")
+        self.details[path] = dict(
+            samples_per_s=n_load / load_wall, load_wall_ms=load_wall * 1e3,
+            load_requests=n_load, p50_ms=llat["p50"], p99_ms=llat["p99"],
+            load_buckets={str(b): v for b, v in load_buckets.items()},
+            inflight=sl["inflight_depth"], first_wall_ms=wall * 1e3,
+            first_p50_ms=lat["p50"], first_p99_ms=lat["p99"],
+            max_abs_err=err, load_err=err_load, predictor_err=err_single,
+            max_logit=scale, launches=launches, launches_by_dtype=by_dtype,
+            dispatched=dispatched, engine_batches=batches,
+            load_batches=load_batches, warm=warm,
+            live=live, save_s=save_s, load_s=load_s,
+            buckets={str(b): v for b, v in s["buckets"].items()},
+            phases=sl["phases"])
+        tol = EXPORT_TOL[dtype] * scale
+        assert nodes == L and softmax == 0, (nodes, softmax)
+        assert max(err, err_single, err_load) <= tol, \
+            (err, err_single, err_load, tol)
+        assert launches["flash_fwd"] == L * dispatched, \
+            (launches["flash_fwd"], dispatched)
+        assert by_dtype["flash_fwd"] == {dtype: L * dispatched}, \
+            by_dtype["flash_fwd"]
+        assert stat == L * dispatched, (stat, dispatched)
+        assert plain[0] == 0, f"the plain forward ran {plain[0]} times"
+        assert monitor.stat_get("STAT_attention_wide_head_fallback") == fb0
+        assert warm == len(buckets) and live == 0, (warm, live)
+        assert lat["count"] == R and llat["count"] == n_load, \
+            (lat["count"], llat["count"])
+        assert all(c == 1 for lane in sl["lanes"]
+                   for c in lane["bucket_compiles"].values())
+        assert all(k == 0 for n_, k in launches.items() if n_ != "flash_fwd")
+        del pred, gnet, net
+        torch.cuda.empty_cache()
+
+    def export_resnet(self):
+        """(c) resnet50(num_classes=1000), seed 0, eval, its BatchNorm
+        running buffers set from a seeded draw (so carrying them shows),
+        saved on the CPU with InputSpec([None, 3, 224, 224]) and run
+        through a Predictor on the card at bench.py's batch 32 x 224^2.
+        Gates: the program's buffers equal the model's exactly; the
+        logits within 1e-4 x max(1, max |ref|) of eager on the card (the
+        same cuDNN convolutions, TF32 off); no K1-K7 launch."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import inference, jit, nn
+        from paddle_tpu_torch.static import InputSpec
+        from paddle_tpu_torch.vision.models import resnet50
+        B, side = RESNET_A["B"], RESNET_A["SIDE"]
+        net = resnet50(num_classes=1000, device="cpu", seed=0).eval()
+        g = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            for m in net.modules():
+                if isinstance(m, nn.BatchNorm2D):
+                    m._mean.copy_(torch.randn(m._mean.shape, generator=g)
+                                  * 0.1)
+                    m._variance.copy_(torch.rand(m._variance.shape,
+                                                 generator=g) + 0.5)
+        prefix = os.path.join(self.export_dir, "resnet50")
+        t0 = time.perf_counter()
+        jit.save(net, prefix, input_spec=[InputSpec([None, 3, side, side],
+                                                    "float32")])
+        save_s = time.perf_counter() - t0
+        self.zero_launches()
+        pred = inference.create_predictor(inference.Config(prefix))
+        held = pred._translated._exported.state_dict
+        bufs = {n: b for n, b in net.named_buffers()
+                if n.endswith(("_mean", "_variance"))}
+        assert all(torch.equal(held[n], b) for n, b in bufs.items()), \
+            "the program's running buffers differ from the model's"
+        x = np.random.RandomState(0).standard_normal(
+            (B, 3, side, side)).astype(np.float32)
+        pred.run([x])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pred.run([x])[0]
+        run_ms = (time.perf_counter() - t0) * 1e3
+        gnet = net.to("cuda")
+        with torch.no_grad():
+            want = gnet(torch.from_numpy(x).cuda()).cpu().numpy()
+        err = float(np.abs(got - want).max())
+        scale = max(1.0, float(np.abs(want).max()))
+        launches = self.read_launches()
+        print(f"export (c) ResNet-50 on {self.smi}: saved on the CPU in "
+              f"{save_s:.2f} s, {len(bufs)} running buffers carried; "
+              f"Predictor batch {B} x {side}^2: {run_ms:.2f} ms a run "
+              f"(host clock, to the host), max |served - eager| {err:.3e} "
+              f"(max |logit| {scale:.3f}); launches {launches}")
+        self.details["export_resnet"] = dict(max_abs_err=err, scale=scale,
+                                             run_ms=run_ms, save_s=save_s,
+                                             buffers=len(bufs))
+        assert err <= 1e-4 * scale, err
+        assert not any(launches.values()), launches
+        del pred, gnet, net
+        torch.cuda.empty_cache()
+
+    def export_quant(self):
+        """(c) The serving MLP with quantization.quantize_weights (int8),
+        saved on the CPU and served on the card through a Predictor and an
+        InferenceEngine over it. Gates: STAT_quant_exports moved by 1;
+        STAT_quant_weight_hbm_bytes moved by the integer and scale bytes
+        while the predictor lives; the predictor's output at batch 16
+        equals the eager quantized model's on the card exactly; every
+        served row within 1e-5 x max(1, max |ref|) of it."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import inference, jit, quantization, serving
+        from paddle_tpu_torch.framework import monitor
+        from paddle_tpu_torch.static import InputSpec
+        DIM, buckets = SERVE_MLP["DIM"], SERVE_MLP["BUCKETS"]
+        net = quantization.quantize_weights(self._serve_mlp_net(), bits=8)
+        q0 = monitor.stat_get("STAT_quant_exports")
+        prefix = os.path.join(self.export_dir, "serving_mlp_int8")
+        jit.save(net, prefix, input_spec=[InputSpec([None, DIM], "float32")])
+        exports = monitor.stat_get("STAT_quant_exports") - q0
+        meta = jit.load_meta(prefix)["quant"]
+        state = net.state_dict()
+        qbytes = sum(state[n].numel() * state[n].element_size()
+                     for n in meta["args"])
+        g0 = monitor.stat_get("STAT_quant_weight_hbm_bytes")
+        pred = inference.create_predictor(inference.Config(prefix))
+        gauge = monitor.stat_get("STAT_quant_weight_hbm_bytes") - g0
+        gnet = net.to("cuda")
+        x = np.random.RandomState(1).standard_normal((16, DIM)).astype(
+            np.float32)
+        got = pred.run([x])[0]
+        with torch.no_grad():
+            want = gnet(torch.from_numpy(x).cuda()).cpu().numpy()
+        eng = serving.InferenceEngine(pred, batch_buckets=buckets,
+                                      max_batch_size=buckets[-1],
+                                      max_batch_delay_ms=1.0,
+                                      name="chip_quant")
+        try:
+            futs = [eng.submit(x[i:i + 1]) for i in range(16)]
+            served = np.concatenate([f.result()[0] for f in futs])
+            qinfo = eng.stats()["quantized_weights"]
+        finally:
+            eng.shutdown()
+        err = float(np.abs(served - want).max())
+        print(f"export (c) int8 MLP on {self.smi}: STAT_quant_exports +"
+              f"{exports}, STAT_quant_weight_hbm_bytes +{gauge} (integer "
+              f"and scale bytes {qbytes}); predictor vs eager exact: "
+              f"{np.array_equal(got, want)}; served max err {err:.3e}; "
+              f"stats()['quantized_weights'] {qinfo}")
+        self.details["export_quant"] = dict(exports=exports, gauge=gauge,
+                                            qbytes=qbytes, served_err=err,
+                                            quantized_weights=qinfo)
+        assert exports == 1 and gauge == qbytes, (exports, gauge, qbytes)
+        assert np.array_equal(got, want), "int8 program differs from eager"
+        assert err <= 1e-5 * max(1.0, float(np.abs(want).max())), err
+        del pred, gnet
+        torch.cuda.empty_cache()
+
+    def export_lane_restart(self):
+        """(c) A lane restart on the card (tests/test_engine_resurrection.py
+        :459-487): an engine over a Predictor of the serving MLP whose
+        run_device raises a BaseException on its third dispatch after the
+        warmup, FLAGS_serving_lane_restarts=1, 8 requests run one after
+        another. Gates: only the dying batch's request fails
+        (UnavailableError); the lane is alive again with restarts 1 and
+        serves the rest, each equal to the predictor's own run; no new
+        warm (STAT_predictor_compiles does not move after the warmup)."""
+        import numpy as np
+        from paddle_tpu_torch import inference, jit, serving
+        from paddle_tpu_torch.framework import monitor
+        from paddle_tpu_torch.framework.errors import UnavailableError
+        from paddle_tpu_torch.framework.flags import set_flags
+        from paddle_tpu_torch.static import InputSpec
+        DIM, buckets = SERVE_MLP["DIM"], SERVE_MLP["BUCKETS"]
+        prefix = os.path.join(self.export_dir, "serving_mlp")
+        pred = inference.create_predictor(inference.Config(prefix))
+        ref = inference.create_predictor(inference.Config(prefix))
+        run = pred.run_device
+        calls = [0]
+
+        class LaneKiller(BaseException):
+            pass
+
+        def flaky(arrays):
+            calls[0] += 1
+            if calls[0] == len(buckets) + 3:
+                raise LaneKiller("lane fault")
+            return run(arrays)
+        pred.run_device = flaky
+        xs = [np.random.RandomState(10 + i).standard_normal(
+            (1, DIM)).astype(np.float32) for i in range(8)]
+        want = [ref.run([x])[0] for x in xs]
+        set_flags({"FLAGS_serving_lane_restarts": 1,
+                   "FLAGS_gen_restart_backoff_ms": 5.0})
+        c0 = monitor.stat_get("STAT_predictor_compiles")
+        eng = serving.InferenceEngine(pred, batch_buckets=buckets,
+                                      max_batch_size=buckets[-1],
+                                      max_batch_delay_ms=0.5,
+                                      request_timeout_ms=0,
+                                      name="chip_lane_restart")
+        try:
+            warm = monitor.stat_get("STAT_predictor_compiles") - c0
+            failed, ok = [], []
+            for i, x in enumerate(xs):
+                try:
+                    out = eng.run([x], timeout_ms=10000)[0]
+                    ok.append(np.array_equal(out, want[i]))
+                except UnavailableError:
+                    failed.append(i)
+            lane = eng.stats()["lanes"][0]
+            live = monitor.stat_get("STAT_predictor_compiles") - c0 - warm
+        finally:
+            eng.shutdown()
+            set_flags({"FLAGS_serving_lane_restarts": 0,
+                       "FLAGS_gen_restart_backoff_ms": 100.0})
+        print(f"export (c) lane restart on {self.smi}: failed requests "
+              f"{failed}, served {len(ok)} (all equal to the predictor: "
+              f"{all(ok)}), lane alive {lane['alive']} restarts "
+              f"{lane['restarts']}, warm {warm} live {live}")
+        self.details["export_lane_restart"] = dict(
+            failed=failed, served=len(ok), restarts=lane["restarts"],
+            warm=warm, live=live)
+        assert failed == [2], failed
+        assert len(ok) == 7 and all(ok)
+        assert lane["alive"] and lane["restarts"] == 1
+        assert warm == len(buckets) and live == 0, (warm, live)
+
     def kernels_line(self):
         srcs = {"paged_attention": (
                     "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -5107,6 +5853,7 @@ def main(argv=None):
             sm.phase("packing", sm.packing)
             sm.phase("ernie", sm.ernie)
             sm.phase("vision", sm.vision)
+            sm.phase("export", sm.export)
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)),
                     exist_ok=True)

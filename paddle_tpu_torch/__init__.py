@@ -47,11 +47,21 @@ Ported so far:
   LocalResponseNorm / SpectralNorm with their functionals,
   `vision.models` (ResNet, VGG, LeNet, MobileNetV1/V2) and
   `quantization.QuantizedConv2D`, on PyTorch's library convolutions
-  (cuDNN), trained through `hapi.Model`.
+  (cuDNN), trained through `hapi.Model`;
+- export and inference: `jit.save` / `jit.load` (a `torch.export`
+  program with a symbolic batch dim, weight-only-quantized weights as
+  runtime arguments), `inference.Config` / `create_predictor` /
+  `Predictor`, the micro-batching `serving.InferenceEngine` over
+  per-card dispatch lanes on CUDA streams, and `ops.math` (re-exported
+  here: `paddle_tpu_torch.tanh`, ...). The flash forward kernel is the
+  registered op `paddle_tpu_torch::flash_fwd`, so a saved program
+  carries it and launches it on the card.
 """
 from . import amp, framework, hapi, io, metric, models, nn, ops  # noqa: F401
 from . import optimizer, profiler, quantization  # noqa: F401
 from . import serving, static, vision  # noqa: F401
+from . import inference, jit  # noqa: F401,E402
 from .framework import get_flags, set_flags  # noqa: F401
+from .ops.math import *  # noqa: F401,F403
 
 __version__ = "0.1.0"

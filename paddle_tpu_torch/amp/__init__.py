@@ -22,8 +22,9 @@ of the lists calls the two hooks itself, where `apply_op` would:
   package does: there is no cast cache.
 
 This is not `torch.autocast`: the lists, the op names and the points of
-the casts are the JAX package's. Level O2 casts whole models through
-`decorate`; under `auto_cast` the level changes nothing else. The state
+the casts are the JAX package's. Level O2 casts whole models' parameters
+(not their buffers) through `decorate`; under `auto_cast` the level
+changes nothing else. The state
 is thread-local.
 
 `GradScaler` is an identity unless the thread's autocast type is
@@ -149,16 +150,23 @@ amp_guard = auto_cast
 
 def decorate(models=None, optimizers=None, level="O2", dtype="bfloat16",
              master_weight=None, save_dtype=None):
-    """O2: cast the models' parameters and buffers to `dtype`. The port's
-    Adam-family optimizers keep float32 moments and compute the update in
-    float32 whatever the parameter's type, as the JAX package's do, so no
-    master copy is made. Returns the models (and the optimizers, when
-    given) as passed."""
+    """O2: cast the models' floating parameters to `dtype`, in place (each
+    stays the same Parameter object). Buffers keep their type, as the JAX
+    package's `Layer.to(dtype=)` touches only `parameters()`: BatchNorm's
+    running mean and variance stay float32. The port's Adam-family
+    optimizers keep float32 moments and compute the update in float32
+    whatever the parameter's type, as the JAX package's do, so no master
+    copy is made. Returns the models (and the optimizers, when given) as
+    passed."""
     if level == "O2" and models is not None:
         single = not isinstance(models, (list, tuple))
         ms = [models] if single else list(models)
-        for m in ms:
-            m.to(dtype=_torch_dtype(dtype))
+        dt = _torch_dtype(dtype)
+        with torch.no_grad():
+            for m in ms:
+                for p in m.parameters():
+                    if p.is_floating_point():
+                        p.data = p.data.to(dt)
         models = ms[0] if single else ms
     if optimizers is None:
         return models

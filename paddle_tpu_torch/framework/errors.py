@@ -8,7 +8,8 @@ catch the typed family (all are EnforceNotMet)."""
 from __future__ import annotations
 
 __all__ = ["EnforceNotMet", "InvalidArgumentError", "ResourceExhaustedError",
-           "ExecutionTimeoutError", "UnavailableError", "FatalError"]
+           "ExecutionTimeoutError", "UnavailableError", "UnimplementedError",
+           "FatalError"]
 
 
 class EnforceNotMet(Exception):
@@ -32,6 +33,10 @@ class ExecutionTimeoutError(EnforceNotMet, TimeoutError):
 
 class UnavailableError(EnforceNotMet, RuntimeError):
     code = "UNAVAILABLE"
+
+
+class UnimplementedError(EnforceNotMet, NotImplementedError):
+    code = "UNIMPLEMENTED"
 
 
 class FatalError(EnforceNotMet):

@@ -276,11 +276,59 @@ register_flag("FLAGS_flight_recorder_max_dumps", 16,
               "most dump files kept per process; the oldest is pruned "
               "so a crash-looping failure path cannot fill the disk")
 register_flag("FLAGS_serving_spans", True,
-              "per-request latency attribution: submit() opens a span "
-              "that stamps every phase (queued/admitted/prefilled/"
-              "first_token/last_token/resolved), feeding the ttft_ms / "
-              "tpot_ms histograms and the `reqspan:` trace instants; off "
-              "removes the per-request accounting (profiler/spans.py)")
+              "per-request latency attribution (profiler/spans.py): "
+              "GenerationEngine.submit() opens a span stamping queued/"
+              "admitted/prefilled/first_token/last_token/resolved (the "
+              "ttft_ms / tpot_ms histograms), InferenceEngine.submit() "
+              "one stamping queued/claimed/padded/dispatched/device_done/"
+              "sliced/resolved (the serving_queue_ms/pad_ms/device_ms/"
+              "resolve_ms histograms and the engine.stats() phase "
+              "breakdown); both drop `reqspan:` trace instants; off "
+              "removes the per-request accounting from the hot path")
+register_flag("FLAGS_serving_max_batch_size", 64,
+              "serving.InferenceEngine: most request rows coalesced into "
+              "one device batch (also the largest default shape bucket)")
+register_flag("FLAGS_serving_max_batch_delay_ms", 2.0,
+              "serving.InferenceEngine: how long the micro-batcher holds "
+              "the first request of a batch open for co-riders before "
+              "dispatching a partial batch. The JAX package's default; "
+              "not measured on a GPU")
+register_flag("FLAGS_serving_batch_buckets", "1,4,16,64",
+              "serving.InferenceEngine: comma-separated batch-size buckets "
+              "a device batch is padded up to, so each lane runs one "
+              "program shape per bucket instead of one per observed "
+              "batch size")
+register_flag("FLAGS_serving_max_queue_depth", 256,
+              "serving.InferenceEngine: pending-request bound; submits "
+              "beyond it fail fast with EngineOverloaded (backpressure) "
+              "instead of growing an unbounded queue")
+register_flag("FLAGS_serving_max_inflight", 2,
+              "serving.InferenceEngine: device batches a dispatch lane may "
+              "have in flight (dispatched on its CUDA stream but not yet "
+              "completed). 2 keeps the card fed while batch N computes; "
+              "1 disables pipelining. The JAX package's default; not "
+              "measured on a GPU")
+register_flag("FLAGS_serving_devices", "",
+              "serving.InferenceEngine default device set: '' = every "
+              "CUDA device for artifact-path/Config models (one dispatch "
+              "lane + Predictor replica per card), 'all', or a "
+              "comma-separated list of CUDA device INDICES ('0,2'); an "
+              "integer lane COUNT is only meaningful as the devices= "
+              "argument, not through this string flag")
+register_flag("FLAGS_serving_request_timeout_ms", 30000.0,
+              "serving.InferenceEngine: default per-request deadline, "
+              "enforced while queued AND again at completion: a request "
+              "that expired while its batch was on the card fails with "
+              "ExecutionTimeoutError, never a late result (0 disables)")
+register_flag("FLAGS_serving_lane_restarts", 0,
+              "serving.InferenceEngine: how many CONSECUTIVE times a "
+              "dead dispatch lane is rebuilt in place (fresh threads, "
+              "same replica/device) with exponential backoff "
+              "(FLAGS_gen_restart_backoff_ms base) before it stays "
+              "permanently out of rotation; deaths separated by more "
+              "than FLAGS_gen_breaker_window_s reset the budget and "
+              "the backoff. 0 keeps the legacy behavior: lane death "
+              "permanently shrinks capacity")
 register_flag("FLAGS_device_telemetry_interval_s", 5.0,
               "period of the lazy device-telemetry sampler "
               "(profiler/device_telemetry.py): per-device live and "

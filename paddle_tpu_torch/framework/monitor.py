@@ -40,7 +40,26 @@ The subset of `paddle_tpu.framework.monitor` the ported slices write:
   `STAT_router_pressure_refreshes`;
 - residency gauges: `STAT_kv_cache_hbm_bytes`, the pool (and scale-pool)
   bytes of every live `serving.PagedKVCache`, added at construction and
-  subtracted when the cache is collected (`stat_gauge_add`).
+  subtracted when the cache is collected (`stat_gauge_add`);
+  `STAT_quant_weight_hbm_bytes`, the integer weight and scale bytes of
+  every live quantized artifact (`jit.TranslatedLayer`) and of each
+  `inference.Predictor` replica that made its own copy on another device;
+- export and inference: `STAT_quant_exports` (`jit.save` of a
+  weight-only-quantized layer), `STAT_quant_weights_loaded` (quantized
+  weight tensors a Predictor replica placed), `STAT_predictor_compiles`
+  (the first run of each distinct input signature on a Predictor
+  replica, the port's counterpart of the JAX package's per-shape trace);
+- the micro-batching `serving.InferenceEngine`: the up-down gauge
+  `STAT_serving_queue_depth`, `STAT_serving_requests`, `_batches`,
+  `_batch_rows`, `_batch_slots` (bucket rows dispatched),
+  `STAT_serving_lane<i>_batches` / `_rows` / `_deaths`, `_rejected`,
+  `_timeouts`, `_request_errors`, `_batch_retries`,
+  `_unsliceable_batches`, `_lane_deaths`, `_lane_restarts`,
+  `STAT_serving_bucket_compiles` (first runs of a (lane, bucket)), the
+  per-engine latency histograms `<name>_request_ms` and
+  `<name>_inflight_depth`, and the four phase histograms
+  `serving_queue_ms` / `_pad_ms` / `_device_ms` / `_resolve_ms`
+  (`profiler.spans`).
 
 Gauges come in two kinds, as in the JAX package: "level" (an absolute
 level; `stat_set` and `stat_gauge_add` mark their names so) and
@@ -57,7 +76,7 @@ from typing import Dict
 __all__ = ["stat_add", "stat_sub", "stat_get", "stat_set", "stat_gauge_add",
            "stat_gauge_add_later", "register_gauge", "gauge_kind",
            "is_gauge_name", "histogram", "all_stats", "all_histograms",
-           "registered_histograms"]
+           "registered_histograms", "reset_all_stats"]
 
 _lock = threading.Lock()
 _stats: Dict[str, int] = {}
@@ -246,3 +265,16 @@ def registered_histograms() -> Dict[str, StatHistogram]:
     """The live histogram objects (the exporter renders `buckets()`)."""
     with _lock:
         return dict(_hists)
+
+
+def reset_all_stats() -> None:
+    """Zero every counter and gauge and reset every histogram: a bench or
+    test that reads deltas in a warm process starts from zero (the JAX
+    package's `reset_all_stats`)."""
+    with _lock:
+        _apply_later()
+        for name in _stats:
+            _stats[name] = 0
+        hists = list(_hists.values())
+    for h in hists:
+        h.reset()

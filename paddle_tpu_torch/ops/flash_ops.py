@@ -15,6 +15,12 @@ Counterpart of `paddle_tpu/ops/pallas_ops.py` (`flash_attention`,
   `flash_attention_dkv` (K4, `csrc/flash_bwd_dkv.cu`): a CUDA `q`
   launches the hand-written kernel or raises; a CPU `q` runs the plain
   version (`_flash_fwd_reference`, `_dq_reference`, `_dkv_reference`).
+  K2 is the registered op `paddle_tpu_torch::flash_fwd`
+  (`torch.library.custom_op`: CPU implementation the plain version, CUDA
+  implementation the kernel, a fake implementation for tracing), so the
+  choice is the op's dispatch at run time: `torch.export` (`jit.save`)
+  records the op, and a program saved on the CPU launches K2 on the
+  card. Training reaches it through `FlashAttention.forward` too.
   Each wrapper's `.launches` counts its kernel launches (and
   `.launches_by_dtype` by operand type), and
   `STAT_flash_attention_fwd` / `_bwd` count them process-wide.
@@ -44,6 +50,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -368,13 +375,35 @@ def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None,
     probabilities with the keep mask of `seed`. Returns (out [B,H,Sq,D] in
     q's type, lse [B*H, Sq] float32).
 
-    A CUDA `q` launches kernel K2 (or raises); a CPU `q` runs the plain
-    version. `flash_attention_fwd.launches` counts kernel launches."""
+    Calls the registered op `paddle_tpu_torch::flash_fwd`, whose dispatch
+    picks the implementation from q's device when the call runs: a CUDA
+    `q` launches kernel K2 (or raises), a CPU `q` runs the plain version.
+    A program exported on the CPU (`jit.save`) therefore holds the op,
+    not the plain math, and launches K2 once it runs on the card.
+    `flash_attention_fwd.launches` counts kernel launches."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    if not q.is_cuda:
-        return _flash_fwd_reference(q, k, v, bias, causal, scale, dropout_p,
-                                    seed)
+    return torch.ops.paddle_tpu_torch.flash_fwd(
+        q, k, v, bias, bool(causal), float(scale), float(dropout_p),
+        int(seed))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: Optional[torch.Tensor], causal: bool, scale: float,
+                  dropout_p: float, seed: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op's CPU implementation: the plain version."""
+    return _flash_fwd_reference(q, k, v, bias, causal, scale, dropout_p,
+                                seed)
+
+
+@_flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, bias, causal, scale, dropout_p, seed):
+    """The op's CUDA implementation: kernel K2 on q's current stream, or
+    InvalidArgumentError for operands it does not take (never the plain
+    version)."""
     _check(q, k, v, bias)
     B, H, Sq, _ = q.shape
     out = torch.empty_like(q)
@@ -384,6 +413,15 @@ def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None,
     _count(flash_attention_fwd, q.dtype)
     monitor.stat_add("STAT_flash_attention_fwd")
     return out, lse
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, bias, causal, scale, dropout_p, seed):
+    """Shapes and types for tracing (`torch.export`): out like q,
+    contiguous; lse [B*H, Sq] float32."""
+    B, H, Sq, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((B * H, Sq), dtype=torch.float32))
 
 
 def flash_attention_dq(q, k, v, bias, dout, lse, delta, causal, scale,

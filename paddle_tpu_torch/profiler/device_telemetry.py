@@ -1,9 +1,9 @@
-"""Device telemetry: live device memory and MFU gauges.
+"""Device telemetry: live device memory, the first-run ledger, MFU gauges.
 
 A lazy periodic sampler (same lifecycle as the flight recorder's counter
-sampler: `touch()`d by long-running subsystems, the generation engine
-and the `MetricsServer`, so a process that never serves never pays for
-the thread) sets, for every CUDA device of the process:
+sampler: `touch()`d by long-running subsystems, the serving engines and
+the `MetricsServer`, so a process that never serves never pays for the
+thread) sets, for every CUDA device of the process:
 
 - **live device memory**: torch's caching-allocator bytes in use
   (`torch.cuda.memory_stats(i)["allocated_bytes.all.current"]`, the
@@ -18,6 +18,13 @@ the thread) sets, for every CUDA device of the process:
   divides by the card's peak (table below, or `FLAGS_device_peak_flops`)
   times the participating devices -> `STAT_train_mfu_bp` (basis points).
   Cards the table does not name export no MFU unless the flag is set.
+- **first-run ledger**: the serving lanes' exact per-replica counters
+  (`Predictor.compile_count`) detect the first run of a (device, bucket)
+  pair; `note_compile()` adds that call's dispatch wall to a cumulative
+  per-(device, bucket) ledger, exported as `STAT_compile_ms_<key>`
+  counters and in `snapshot()` -> `/stats`. The port runs programs
+  eagerly, so there is no compile in it: the wall is the first run's
+  (the JAX package's is its XLA compile).
 
 All values live in the ordinary monitor registry, so they render as
 Prometheus gauges in `/metrics` and as "C" counter tracks in the chrome
@@ -33,8 +40,8 @@ import torch
 from ..framework import monitor
 from ..framework.flags import flag
 
-__all__ = ["touch", "active", "sample", "note_train_step_flops",
-           "snapshot", "peak_flops"]
+__all__ = ["touch", "active", "sample", "note_compile",
+           "note_train_step_flops", "snapshot", "peak_flops"]
 
 # peak FLOP/s per card by device-name substring, first hit wins: NVIDIA's
 # published dense bf16 rate of the H100 (SXM part, 700 W)
@@ -47,6 +54,7 @@ _sampler = [None]             # lazy daemon thread, one per process
 _flops_per_step = [0.0]       # from the last note_train_step_flops
 _train_devices = [1]          # devices participating in that step
 _mfu_prev = [None]            # (t, STAT_train_steps) at the last window
+_compile_ledger = {}          # (device_key, bucket) -> cumulative seconds
 # shortest steps/sec window: every sample() caller (the periodic thread
 # and each /metrics scrape) shares one anchor, advanced only after a
 # window this long, so a scrape right after a tick cannot measure one
@@ -152,10 +160,25 @@ def note_train_step_flops(flops: float, n_devices: int = 1) -> None:
         monitor.stat_set("STAT_train_step_flops", int(flops))
 
 
+def note_compile(device_key, bucket, seconds: float) -> None:
+    """Add one first run's wall seconds to the cumulative (device,
+    bucket) ledger. Called by serving lanes when their exact per-replica
+    counters detect the first run of a bucket."""
+    key = (str(device_key), bucket)
+    with _lock:
+        _compile_ledger[key] = _compile_ledger.get(key, 0.0) + seconds
+    monitor.stat_add(f"STAT_compile_ms_{device_key}",
+                     int(round(seconds * 1000)))
+
+
 def snapshot() -> dict:
-    """The `/stats` section: FLOPs and device count of the last reported
-    step, sampler state."""
-    return {"flops_per_step": int(_flops_per_step[0]),
+    """The `/stats` section: the first-run ledger per (device, bucket),
+    FLOPs and device count of the last reported step, sampler state."""
+    with _lock:
+        ledger = {f"{dev}/b{bkt}": round(s, 6)
+                  for (dev, bkt), s in sorted(_compile_ledger.items())}
+    return {"compile_seconds": ledger,
+            "flops_per_step": int(_flops_per_step[0]),
             "train_devices": int(_train_devices[0]),
             "sampler_active": active(),
             "interval_s": float(flag("FLAGS_device_telemetry_interval_s"))}

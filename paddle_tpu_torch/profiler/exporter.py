@@ -13,8 +13,11 @@ Endpoints (`MetricsServer`, 127.0.0.1, daemon threads, zero deps):
   runs coalesced), plus `_sum`/`_count`. A scrape refreshes the device
   telemetry gauges so HBM/MFU are never interval-stale.
 - `/stats` — JSON: counters, histogram snapshots, every registered
-  `GenerationEngine.stats()` (slots, pages, prefix and tier numbers,
-  the ledger), device-telemetry snapshot, trace-ring state, and the
+  engine's `stats()` (`GenerationEngine`: slots, pages, prefix and tier
+  numbers, the ledger; `InferenceEngine`: lanes, buckets, occupancy and
+  the `phases` breakdown of the four `serving_*_ms` histograms),
+  device-telemetry snapshot (with the first-run ledger), trace-ring
+  state, and the
   flight recorder's last-dump summaries (reason, timestamp, path) so
   operators see recent postmortems without filesystem access.
 - `/steps` — JSON of every generation engine's scheduler step ring
@@ -32,14 +35,15 @@ Endpoints (`MetricsServer`, 127.0.0.1, daemon threads, zero deps):
   cannot give, and the input of `tools/router_report.py --history`.
 - `/healthz` — liveness: 200 whenever the process can answer.
 - `/readyz` — readiness: 200 iff ≥1 registered engine is warmed up,
-  has a live step loop, is not draining, and its queue is below the
-  rejection threshold; 503 otherwise, always with per-engine JSON
-  detail.
+  has a live step loop (or, for an `InferenceEngine`, a live lane), is
+  not draining, and its queue is below the rejection threshold; 503
+  otherwise, always with per-engine (and per-lane) JSON detail.
 
 Metric names keep the JAX package's `paddle_tpu_` prefix, so one
 dashboard reads both packages. Wire-up: `GenerationEngine(metrics_port=)`
-/ `FLAGS_metrics_port`, or `start_metrics_server(port)` directly (port 0
-binds an ephemeral port — read it back from `.port`).
+or `InferenceEngine(metrics_port=)` / `FLAGS_metrics_port`, or
+`start_metrics_server(port)` directly (port 0 binds an ephemeral port —
+read it back from `.port`).
 """
 from __future__ import annotations
 

@@ -1,23 +1,37 @@
-"""Per-request latency attribution for the generation engine.
+"""Per-request latency attribution for the serving engines.
 
-A `GenSpan` is assigned at `GenerationEngine.submit()` and rides the
-request through slot admission, prefill and every decode step; each
-stage stamps one monotonic phase timestamp (`GEN_PHASES`). On resolve
-the stamps feed the process-global `ttft_ms` / `tpot_ms` histograms and
-the rolling-window SLO samples (`slo.py`), and drop one self-contained
-`reqspan:` instant into the trace ring, which `tools/latency_report.py`
-reads offline from an exported trace. Chrome flow events (`gen_request`,
-and `fleet_request` keyed by the trace id) link a request's scopes
-across threads in the timeline.
+`InferenceEngine` (micro-batching, one-shot requests): a `Span` is
+assigned at `submit()` and rides the request through collector -> lane
+dispatch -> device completion -> slice/resolve; each stage stamps one
+monotonic phase timestamp (`PHASES`): queued, claimed (the collector
+popped it into a batch), padded (concat + pad to the bucket), dispatched
+(the program was enqueued on the lane's CUDA stream), device_done (the
+completer's wait on the lane's event returned), sliced, resolved. On
+resolve the consecutive stamp deltas feed four process-global histograms
+- `serving_queue_ms` (queued->claimed), `serving_pad_ms`
+(claimed->dispatched), `serving_device_ms` (dispatched->device_done),
+`serving_resolve_ms` (device_done->resolved) - whose sum telescopes
+exactly to resolved-queued, and drop one `reqspan:` instant into the
+trace ring; chrome flow events (`serving_request`) link the submit,
+dispatch and complete scopes.
+
+`GenerationEngine` (continuous batching): a `GenSpan` is assigned at
+`submit()` and rides the request through slot admission, prefill and
+every decode step; each stage stamps one phase (`GEN_PHASES`). On
+resolve the stamps feed the process-global `ttft_ms` / `tpot_ms`
+histograms and the rolling-window SLO samples (`slo.py`), and drop one
+`reqspan:` instant, which `tools/latency_report.py` reads offline from an
+exported trace. Chrome flow events (`gen_request`, and `fleet_request`
+keyed by the trace id) link a request's scopes across threads.
 
 Spans on timed-out or failed requests are abandoned (no histogram
 samples: the phase latencies describe delivered work) but still appear
-in flight-recorder dumps as the dying engine's in-flight spans.
+in flight-recorder dumps as the dying engine's or lane's in-flight
+spans.
 
 Everything is gated by `FLAGS_serving_spans` (default on); the cost per
 request is a handful of `perf_counter()` calls, dict stores and bounded
-ring appends. The one-shot `InferenceEngine`'s pipeline spans come with
-that engine (a later slice).
+ring appends.
 """
 from __future__ import annotations
 
@@ -30,7 +44,8 @@ from ..framework import monitor
 from ..framework.flags import flag
 from . import tracer
 
-__all__ = ["enabled", "GenSpan", "start_gen", "GEN_PHASES"]
+__all__ = ["Span", "enabled", "start", "phase_snapshot", "PHASES",
+           "GenSpan", "start_gen", "GEN_PHASES"]
 
 _next_id = itertools.count(1)
 _hists_lock = threading.Lock()
@@ -38,6 +53,115 @@ _hists_lock = threading.Lock()
 
 def enabled() -> bool:
     return bool(flag("FLAGS_serving_spans"))
+
+
+# -- serving-pipeline spans (InferenceEngine) --------------------------------
+
+PHASES = ("queued", "claimed", "padded", "dispatched", "device_done",
+          "sliced", "resolved")
+
+# (histogram, from_stamp, to_stamp): consecutive, so the sums telescope
+_PHASE_HISTS = (("serving_queue_ms", "queued", "claimed"),
+                ("serving_pad_ms", "claimed", "dispatched"),
+                ("serving_device_ms", "dispatched", "device_done"),
+                ("serving_resolve_ms", "device_done", "resolved"))
+
+_hists = None
+
+
+def _phase_hists():
+    global _hists
+    if _hists is None:
+        with _hists_lock:
+            if _hists is None:
+                # literal names: the check_stats lint reads these
+                _hists = (monitor.histogram("serving_queue_ms"),
+                          monitor.histogram("serving_pad_ms"),
+                          monitor.histogram("serving_device_ms"),
+                          monitor.histogram("serving_resolve_ms"))
+    return _hists
+
+
+def phase_snapshot() -> dict:
+    """{phase_histogram_name: snapshot}: the engine.stats() breakdown.
+    Process-global like every STAT counter: engines share the four
+    histograms (the per-engine split lives in `<name>_request_ms`)."""
+    return {spec[0]: h.snapshot()
+            for spec, h in zip(_PHASE_HISTS, _phase_hists())}
+
+
+class Span:
+    """One request's phase clock. Single-writer per stage (the request
+    moves collector -> dispatcher -> completer hand to hand), so plain
+    dict stores under the GIL are enough."""
+
+    __slots__ = ("rid", "engine", "lane", "bucket", "stamps")
+
+    def __init__(self, engine: str):
+        self.rid = next(_next_id)
+        self.engine = engine
+        self.lane: Optional[int] = None
+        self.bucket: Optional[int] = None
+        self.stamps = {}
+
+    def stamp(self, phase: str, t: Optional[float] = None) -> None:
+        # latest wins: a poisoned-batch retry re-runs the dispatch-side
+        # phases; overwriting keeps the stamps monotone, so the deltas
+        # stay non-negative and telescope to end to end
+        self.stamps[phase] = time.perf_counter() if t is None else t
+
+    def flow(self, ph: str) -> None:
+        """Emit the chrome flow event for this request on the CALLING
+        thread, inside the scope the arrow should attach to."""
+        tracer.flow("serving_request", ph, self.rid)
+
+    def phase_ms(self) -> Optional[dict]:
+        """{hist_name: ms} for the four consecutive phases; None until
+        every boundary stamp exists."""
+        s = self.stamps
+        out = {}
+        for name, a, b in _PHASE_HISTS:
+            if a not in s or b not in s:
+                return None
+            out[name] = (s[b] - s[a]) * 1000.0
+        return out
+
+    def finish(self) -> None:
+        """Called once per DELIVERED request, after `resolved` is
+        stamped: feed the phase histograms and drop one self-contained
+        `reqspan:` instant into the trace ring."""
+        phases = self.phase_ms()
+        if phases is None:
+            return
+        for (name, _, _), h in zip(_PHASE_HISTS, _phase_hists()):
+            h.observe(max(0.0, phases[name]))
+        e2e = (self.stamps["resolved"] - self.stamps["queued"]) * 1000.0
+        q, p, d, r = (phases[n] for n, _, _ in _PHASE_HISTS)
+        tracer.instant(
+            f"reqspan:{self.rid}:{self.engine}:lane{self.lane}:"
+            f"b{self.bucket}:q={q:.3f},p={p:.3f},d={d:.3f},r={r:.3f},"
+            f"e={e2e:.3f}", t=self.stamps["resolved"])
+
+    def to_dict(self) -> dict:
+        """Postmortem shape for flight-recorder dumps (the in-flight
+        spans of a dying lane)."""
+        now = time.perf_counter()
+        return {"rid": self.rid, "engine": self.engine, "lane": self.lane,
+                "bucket": self.bucket,
+                "phases": dict(self.stamps),
+                "age_ms": round((now - self.stamps["queued"]) * 1000.0, 3)
+                if "queued" in self.stamps else None}
+
+
+def start(engine: str) -> Optional[Span]:
+    """Span for one accepted request (None when spans are off). Stamps
+    `queued` and emits the flow start: call inside the submit scope."""
+    if not enabled():
+        return None
+    span = Span(engine)
+    span.stamp("queued")
+    span.flow("s")
+    return span
 
 
 # -- generation spans (continuous-batching token latency) -------------------

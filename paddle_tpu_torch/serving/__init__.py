@@ -4,9 +4,11 @@ other), with a host demotion tier under the prefix cache, flag-armed fault
 injection (`failpoints`), supervised restart with request replay
 (`EngineSupervisor`: crash manifests, exactly-once streams, the
 crash-storm breaker, degraded modes) and the prefix-affinity `Router` over
-supervised replicas. The JAX package's `InferenceEngine` and
-`ProgramStore` are not ported yet."""
+supervised replicas; and the micro-batching `InferenceEngine` over
+`jit.save` artifacts (per-card dispatch lanes on their own CUDA streams).
+The JAX package's `ProgramStore` is not ported yet."""
 from . import failpoints  # noqa: F401
+from .engine import EngineConfig, InferenceEngine  # noqa: F401
 from .generation import (CrashManifest, EngineOverloaded,  # noqa: F401
                          GenerationConfig, GenerationEngine, ReplayEntry,
                          TokenStream)
@@ -18,7 +20,8 @@ from .router import Router  # noqa: F401
 from .spec_decode import NGramProposer  # noqa: F401
 from .supervisor import EngineSupervisor  # noqa: F401
 
-__all__ = ["CrashBreaker", "CrashManifest", "EngineOverloaded",
+__all__ = ["InferenceEngine", "EngineConfig",
+           "CrashBreaker", "CrashManifest", "EngineOverloaded",
            "EngineSupervisor", "GenerationConfig", "GenerationEngine",
            "HostEntry", "HostSlab", "HostTier", "NGramProposer",
            "PagedKVCache", "PrefixCache", "ReplayEntry", "RestartBackoff",

@@ -70,7 +70,8 @@ def test_importing_every_module_builds_nothing():
                 "nn.functional.activation", "nn.layer.common",
                 "nn.layer.norm", "nn.layer.activation",
                 "serving.prefix_cache", "serving.spec_decode",
-                "nn.quant", "quantization"):
+                "nn.quant", "quantization", "jit", "inference",
+                "serving.engine", "ops.math"):
         assert f"paddle_tpu_torch.{sub}" in names
     for name in names:
         importlib.import_module(name)

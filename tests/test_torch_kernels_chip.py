@@ -618,3 +618,97 @@ def test_resnet18_o1_step_runs_convs_in_bf16(cuda):
     assert torch.isfinite(loss[0]).item()
     assert seen == {"conv": {torch.bfloat16}, "bn": {torch.float32}}
     assert not torch.equal(before, net.bn1._mean)
+
+
+def test_flash_op_on_cuda_launches_k2(cuda):
+    """The registered op `paddle_tpu_torch::flash_fwd` on CUDA tensors
+    launches K2 once a call (not the plain version) and matches the plain
+    version at ERNIE-base's inference shape [2, 12, 512, 64] on a key
+    bias: fp32 within 1e-4, bf16 within 1e-2 (phase 3's limits)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    bias = _ernie_bias(2, 512, 7, cuda)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        q, k, v = (torch.randn(2, 12, 512, 64, generator=g, device=cuda)
+                   .to(dtype) for _ in range(3))
+        n0 = flash_ops.flash_attention_fwd.launches
+        out, lse = torch.ops.paddle_tpu_torch.flash_fwd(
+            q, k, v, bias, False, 0.125, 0.0, 0)
+        assert flash_ops.flash_attention_fwd.launches == n0 + 1
+        ref, ref_lse = flash_ops._flash_fwd_reference(q, k, v, bias, False,
+                                                      0.125)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=0)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+def test_cpu_saved_artifact_launches_k2_on_the_card(cuda, tmp_path):
+    """An ERNIE-tiny classifier saved on the CPU (FLAGS_flash_attention_
+    min_seq 128, seq 128, symbolic batch) and loaded through
+    `inference.Config()` (the card by default) runs on the card, launches
+    K2 once a layer a run at batch 1 and 3, and gives the eager model's
+    logits on the card within 1e-4 x max(1, max |ref|); `jit.load` with
+    no device does the same on host (numpy) inputs."""
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.framework.flags import get_flags, set_flags
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification)
+    from paddle_tpu_torch.static import InputSpec
+
+    class Cls(torch.nn.Module):
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+
+        def forward(self, ids, mask):
+            return self.net(ids, attention_mask=mask)
+
+    old = get_flags(["FLAGS_flash_attention_min_seq"])
+    set_flags({"FLAGS_flash_attention_min_seq": 128})
+    try:
+        cfg = ErnieConfig.tiny()
+        cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+        net = Cls(ErnieForSequenceClassification(cfg, device="cpu")).eval()
+        spec = [InputSpec([None, 128], "int64")] * 2
+        jit.save(net, str(tmp_path / "ernie"), input_spec=spec)
+        pred = inference.create_predictor(
+            inference.Config(str(tmp_path / "ernie")))
+        assert pred.device.type == "cuda"
+        layer = jit.load(str(tmp_path / "ernie"))
+        assert layer.device.type == "cuda"
+        net = net.to(cuda)
+        g = torch.Generator().manual_seed(0)
+        for rows in (1, 3):
+            ids = torch.randint(1, cfg.vocab_size, (rows, 128), generator=g)
+            mask = torch.ones(rows, 128, dtype=torch.int64)
+            mask[0, 64:] = 0
+            n0 = flash_ops.flash_attention_fwd.launches
+            got = pred.run([ids.numpy(), mask.numpy()])[0]
+            assert flash_ops.flash_attention_fwd.launches - n0 == \
+                cfg.num_hidden_layers
+            with torch.no_grad():
+                want = net(ids.to(cuda), mask.to(cuda)).cpu().numpy()
+            assert abs(got - want).max() <= 1e-4 * max(1.0,
+                                                      abs(want).max())
+            n0 = flash_ops.flash_attention_fwd.launches
+            out = layer(ids.numpy(), mask.numpy())
+            assert out.device.type == "cuda"
+            assert flash_ops.flash_attention_fwd.launches - n0 == \
+                cfg.num_hidden_layers
+            got = out.float().cpu().numpy()
+            assert abs(got - want).max() <= 1e-4 * max(1.0,
+                                                      abs(want).max())
+    finally:
+        set_flags(old)
+
+
+def test_flash_op_refusal_raises_on_cuda(cuda):
+    """A CUDA call K2 does not take (sequence 100, not a multiple of 64)
+    raises InvalidArgumentError through the op; it never falls back to the
+    plain version and launches nothing."""
+    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+    q = torch.randn(1, 2, 100, 64, device=cuda)
+    n0 = flash_ops.flash_attention_fwd.launches
+    with pytest.raises(InvalidArgumentError, match="multiples of 64"):
+        torch.ops.paddle_tpu_torch.flash_fwd(q, q, q, None, False, 0.125,
+                                             0.0, 0)
+    assert flash_ops.flash_attention_fwd.launches == n0
