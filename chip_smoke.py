@@ -237,6 +237,32 @@ Phases:
               restart (FLAGS_serving_lane_restarts=1, a runner that dies
               once): only the dying batch's request fails, restarts 1,
               no new warm
+11. api       the top-level API (`import paddle_tpu_torch as paddle`).
+              (a) every name of ops.{creation, manipulation, logic,
+              reduction, search, linalg} run on CUDA tensors (the
+              default device) against the same call on CPU tensors, inputs
+              from one numpy seed: exact (tensordot and the float formulae
+              linspace / logspace / vander within API_TOL), reductions
+              within 1e-5, linalg within 1e-4 on what is unique
+              (reconstructions, singular / eigen values, residuals); the
+              random ops on shape, type, range and replay (seed twice,
+              set_rng_state(get_rng_state()), a flash dropout seed too);
+              one line a family. (b) the 8-expert MoE GPT at GPT-2 small
+              width (paddle.seed(0), GPTConfig(hidden 768, 12 layers, 12
+              heads, intermediate 3072, use_moe=True, num_experts=8)),
+              paddle.Model with AdamW and cross-entropy, batches of
+              paddle.to_tensor token ids at 8 x 1024: MOE["STEPS"] fit
+              steps in fp32, then from the same weights under
+              amp_configs="O1": the loss finite and falling, K2-K4
+              launched 12 times a step (all in the path's type), the plain
+              attention 0 times; step wall and p50, device ms a step
+              (torch.profiler), peak allocated; then one train_batch
+              through K2-K4 against FLAGS_use_flash_attention=False at
+              [2, 1024], dropout 0, phase 6's limits, on a batch that
+              routes every token alike (every routing flip a near-tie).
+              (c) paddle.save(net.state_dict()), a fresh model,
+              set_state_dict(paddle.load(...)): the eval loss equal bit
+              for bit
 Phase 3 also holds the splash kernels to their plain versions: K5 splash
 forward, K6 splash dQ and K7 splash dK/dV at GPT-2 small's attention
 width (B 8, H 12, S 1024, D 64) and at the packing phase's shape, with
@@ -404,6 +430,19 @@ EXPORT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # phase 3's inference rows of K2: (b)'s batches at the largest buckets,
 # non-causal, p 0, on ERNIE's key bias
 K2_INFERENCE_BATCHES = (16, 64)
+# phase 11: the 8-expert MoE GPT at GPT-2 small width (the train phase's
+# batch and sequence, so K2-K4 run at [8, 12, 1024, 64]); fit steps an
+# arm, AdamW's rate, dropout, the fall its loss must show (the mean of the
+# last 2 steps under the first by FALL); the step-parity batch seeds
+MOE = dict(E=8, B=8, S=1024, STEPS=8, LR=1e-3, DROPOUT=0.1, FALL=0.25,
+           PARITY_SEEDS=(1, 2, 3))
+# phase 11 (a): the limits of a card call against the same call on the
+# CPU, as a share of max(1, max |CPU result|); creation, manipulation,
+# logic and search are exact, but for the float formulae the two
+# libraries evaluate their own way (linspace, logspace, vander) and
+# tensordot, a product
+API_TOL = {"reduction": 1e-5, "linalg": 1e-4, "formula": 1e-6,
+           "product": 1e-5}
 # --profile's kernel classes for (a)'s step, first match wins
 _VISION_KERNELS = {
     "layout": r"[Nn]chwToNhwc|[Nn]hwcToNchw|[Tt]ranspose|permute",
@@ -5700,6 +5739,349 @@ class Smoke:
         assert lane["alive"] and lane["restarts"] == 1
         assert warm == len(buckets) and live == 0, (warm, live)
 
+    # -- 11. the top-level API, the dense ops and the MoE GPT --------------------
+
+    def api(self):
+        """(a) every dense op family of the top-level API on the card
+        against the same call on the CPU; (b) the 8-expert MoE GPT at
+        GPT-2 small width trained through paddle_tpu_torch.Model in fp32
+        and O1, with its flash-vs-plain step parity; (c) paddle.save /
+        load of its state on the card (see the module docstring)."""
+        self.gpt = None
+        self.torch.cuda.empty_cache()
+        self.api_ops()
+        self.api_moe()
+
+    def api_ops(self):
+        """(a) Each family's every name: exact for creation, manipulation
+        (tensordot, a product, within API_TOL["product"]), logic and
+        search; reductions within API_TOL["reduction"] x max(1, |ref|);
+        linalg within API_TOL["linalg"] on invariants (reconstructions,
+        singular and eigen values, residuals: cuSOLVER and LAPACK may
+        pick other signs); random ops on shape, type, range and replay
+        (seed twice, set_rng_state(get_rng_state())). A family with a
+        name of its module's __all__ and no case fails."""
+        torch = self.torch
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        cases = _api_cases()
+        tols = _api_tols()
+        results = {}
+        for fam, table in cases.items():
+            mod = getattr(paddle.ops, fam)
+            names = {n.split("#")[0] for n in table}
+            missing = sorted(set(mod.__all__) - names)
+            misses, worst = [], 0.0
+            for name, fn in table.items():
+                try:
+                    err = _api_compare(torch, np, paddle, fam, name, fn,
+                                       tols)
+                    worst = max(worst, err)
+                except Exception as e:  # noqa: BLE001 — listed, then fail
+                    misses.append(f"{name}: {type(e).__name__}: {e}")
+            held = len(table) - len(misses)
+            results[fam] = dict(names=len(names), cases=len(table),
+                                held=held, misses=misses + missing,
+                                worst=worst)
+            print(f"api (a) {fam} on {self.smi}: {len(names)} names of "
+                  f"{len(set(mod.__all__))} (without a case: {missing}), "
+                  f"{len(table)} cases, held {held}, worst err/limit "
+                  f"{worst:.3e}, misses {misses}")
+        self.details["api_ops"] = results
+        bad = {f: r["misses"] for f, r in results.items() if r["misses"]}
+        assert not bad, bad
+        self.api_random()
+
+    def api_random(self):
+        """(a) The random ops on the card: shape, type and range of each,
+        and its replay after seed(s) twice and after
+        set_rng_state(get_rng_state()); a flash dropout seed replays
+        too."""
+        torch = self.torch
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch.framework import random as frandom
+        paddle.set_device("gpu")
+        d = _api_inputs(np, paddle, "cuda")
+        held, misses = 0, []
+        for name, (fn, lo, hi, dtype) in _api_random_cases(d).items():
+            try:
+                out = fn(paddle)
+                assert out.device.type == "cuda", out.device
+                assert str(out.dtype) == f"torch.{dtype}", out.dtype
+                v = out.float()
+                assert float(v.min()) >= lo and float(v.max()) <= hi, (
+                    float(v.min()), float(v.max()))
+                paddle.seed(11)
+                a = fn(paddle)
+                paddle.seed(11)
+                b = fn(paddle)
+                assert torch.equal(a, b), "seed replay"
+                st = paddle.get_rng_state()
+                a = fn(paddle)
+                paddle.set_rng_state(st)
+                assert torch.equal(a, fn(paddle)), "state replay"
+                held += 1
+            except Exception as e:  # noqa: BLE001 — listed, then fail
+                misses.append(f"{name}: {type(e).__name__}: {e}")
+        st = paddle.get_rng_state()
+        s1 = frandom.next_seed("cuda")
+        paddle.set_rng_state(st)
+        if frandom.next_seed("cuda") != s1:
+            misses.append("flash dropout seed does not replay")
+        names = {n.split("#")[0] for n in _api_random_cases(d)}
+        missing = sorted(set(paddle.ops.random_ops.__all__) - names)
+        print(f"api (a) random_ops on {self.smi}: "
+              f"{len(names)} names of "
+              f"{len(paddle.ops.random_ops.__all__)}, held {held}, misses "
+              f"{misses + missing}")
+        self.details["api_random"] = dict(held=held,
+                                          misses=misses + missing)
+        assert not misses and not missing, misses + missing
+
+    def _moe_model(self, dropout):
+        """The 8-expert MoE GPT at GPT-2 small width, written as a user
+        writes it (seed 0, the default device: the card)."""
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch.models import GPTForCausalLM
+        paddle.set_device("gpu")
+        paddle.seed(0)
+        return GPTForCausalLM(_moe_config(dropout))
+
+    def api_moe(self):
+        """(b) The MoE GPT through paddle_tpu_torch.Model: MOE["STEPS"]
+        fit steps in fp32, then the same from the same weights under
+        prepare(amp_configs="O1") (bf16): the loss finite and falling, K2,
+        K3 and K4 launched 12 times a step, the plain attention 0 times;
+        wall and device ms a step (torch.profiler), peak allocated bytes.
+        Then the flash-vs-plain step parity and (c) save / load."""
+        torch = self.torch
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch.nn.functional import attention
+        B, S, steps = MOE["B"], MOE["S"], MOE["STEPS"]
+        rng = np.random.RandomState(0)
+        motifs = [rng.randint(0, 4096, size=rng.randint(3, 9))
+                  for _ in range(64)]
+        ids = np.stack([np.resize(motifs[rng.randint(64)], S + 1)
+                        for _ in range(B * steps)]).astype(np.int64)
+        paddle.set_device("gpu")
+        batches = [[paddle.to_tensor(ids[i:i + B, :-1]),
+                    paddle.to_tensor(ids[i:i + B, 1:])]
+                   for i in range(0, B * steps, B)]
+        assert batches[0][0].dtype == torch.int32 and \
+            batches[0][0].device.type == "cuda"
+        plain = [0]
+        ref = attention._sdpa_ref
+
+        def counted(*a, **k):
+            plain[0] += 1
+            return ref(*a, **k)
+        for level in (None, "O1"):
+            path = "api_moe" if level is None else "api_moe_amp"
+            net = self._moe_model(MOE["DROPOUT"])
+            n_params = sum(p.numel() for p in net.parameters())
+            n_expert = sum(p.numel() for n, p in net.named_parameters()
+                           if n.endswith(("w_up", "w_down")))
+            opt = paddle.optimizer.AdamW(learning_rate=MOE["LR"],
+                                         weight_decay=0.01)
+            model = paddle.Model(net).prepare(opt, paddle.nn.CrossEntropyLoss(),
+                                              amp_configs=level)
+
+            class Steps(paddle.hapi.callbacks.Callback):
+                def __init__(self):
+                    super().__init__()
+                    self.losses, self.events = [], []
+
+                def on_train_batch_end(self, step, logs=None):
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record()
+                    self.events.append(ev)
+                    self.losses.append(logs["loss"])
+            rec = Steps()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # the main path starts here: every launch count from 0
+            self.zero_launches()
+            plain[0] = 0
+            attention._sdpa_ref = counted
+            try:
+                t0 = time.perf_counter()
+                model.fit(batches, epochs=1, log_freq=steps, verbose=0,
+                          callbacks=[rec])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                attention._sdpa_ref = ref
+            launches = self.record_path(path)
+            by_dtype = self.path_dtype_launches[path]
+            peak = torch.cuda.max_memory_allocated()
+            losses = [float(x) for x in rec.losses]
+            step_ms = [a.elapsed_time(b) for a, b in zip(rec.events,
+                                                         rec.events[1:])]
+            p50 = sorted(step_ms)[len(step_ms) // 2]
+            label = "fp32" if level is None else "O1 bf16"
+            cfg = net.gpt.config
+            print(f"{path} on {self.smi}: MoE GPT ({cfg.num_experts} "
+                  f"experts, hidden {cfg.hidden_size}, {cfg.num_layers} "
+                  f"layers, {n_params / 1e6:.1f} M "
+                  f"parameters, {n_expert / 1e6:.1f} M in experts) {label}"
+                  f", batch {B} x {S}, {steps} steps in {wall:.2f} s wall "
+                  f"(first step included); step p50 {p50:.1f} ms (device "
+                  f"timeline, steps 2-{steps}); peak allocated "
+                  f"{peak / 2**30:.2f} GiB; plain attention calls "
+                  f"{plain[0]}; launches fwd {launches['flash_fwd']} dq "
+                  f"{launches['flash_bwd_dq']} dkv "
+                  f"{launches['flash_bwd_dkv']}, by type "
+                  f"{by_dtype['flash_fwd']}")
+            print(f"{path} per-step loss: " + " ".join(f"{x:.4f}"
+                                                       for x in losses))
+            self.details[path] = dict(
+                losses=losses, step_ms=step_ms, step_ms_p50=p50,
+                wall_s=wall, peak_bytes=peak, params=n_params,
+                expert_params=n_expert, launches=launches,
+                launches_by_dtype=by_dtype, plain_calls=plain[0])
+            assert all(np.isfinite(losses)), "non-finite MoE loss"
+            assert np.mean(losses[-2:]) < losses[0] - MOE["FALL"], \
+                "the MoE loss did not fall"
+            dtype = "float32" if level is None else "bfloat16"
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                assert launches[name] == 12 * steps, \
+                    f"{name} launched {launches[name]} times, expected " \
+                    f"12 x {steps}"
+                assert by_dtype[name] == {dtype: 12 * steps}, by_dtype[name]
+            assert plain[0] == 0, f"plain attention ran {plain[0]} times"
+            self.profile_train_step(model, batches[0][:1], batches[0][1:],
+                                    path)
+            del model, net, opt
+            torch.cuda.empty_cache()
+        self.api_moe_parity()
+
+    def api_moe_parity(self):
+        """(b) One train_batch (update=False) of the MoE GPT (dropout 0)
+        through the flash kernels against one through
+        FLAGS_use_flash_attention=False, fp32, [2, 1024], phase 6's
+        limits. A hard top-1 gate may route a token differently where the
+        two paths round differently: every such flip must be a near-tie
+        (top-2 gate probability gap < NEAR_TIE), and the gradients are
+        held on the first of MOE["PARITY_SEEDS"]' batches that routes
+        every token alike (the flips of the others printed). Then (c):
+        paddle.save(net.state_dict()), a fresh model (another seed) and
+        set_state_dict(paddle.load(...)): the eval loss on one batch
+        equals the first model's bit for bit."""
+        torch = self.torch
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch.framework.flags import set_flags
+        net = self._moe_model(0.0)
+        opt = paddle.optimizer.AdamW(1e-4)
+        model = paddle.Model(net).prepare(opt, paddle.nn.CrossEntropyLoss())
+        routes = []
+        hooks = [blk.mlp.register_forward_hook(
+            lambda m, i, o: routes.append(torch.softmax(
+                torch.nn.functional.linear(i[0], m.gate.weight,
+                                           m.gate.bias), -1).detach()))
+                 for blk in net.gpt.blocks]
+
+        def one(ids):
+            routes.clear()
+            self.zero_launches()
+            (lv,), _ = model.train_batch([ids[:, :-1]], [ids[:, 1:]],
+                                         update=False)
+            grads = {n: p.grad.clone() for n, p in net.named_parameters()}
+            opt.clear_grad()
+            return float(lv), grads, self.read_launches(), list(routes)
+
+        held, flips_seen = None, []
+        try:
+            for seed in MOE["PARITY_SEEDS"]:
+                ids = paddle.to_tensor(np.random.RandomState(seed).randint(
+                    0, net.gpt.config.vocab_size, size=(2, 1025)))
+                lf, gf, nf, rf = one(ids)
+                set_flags({"FLAGS_use_flash_attention": False})
+                try:
+                    lp, gp, np_, rp = one(ids)
+                finally:
+                    set_flags({"FLAGS_use_flash_attention": True})
+                flips, gaps = 0, []
+                for a, b in zip(rf, rp):
+                    ea, eb = a.argmax(-1), b.argmax(-1)
+                    top2 = b.topk(2, -1).values
+                    gap = (top2[..., 0] - top2[..., 1])[ea != eb]
+                    flips += int((ea != eb).sum())
+                    gaps += gap.tolist()
+                flips_seen.append((seed, flips, max(gaps, default=0.0)))
+                assert all(g < NEAR_TIE for g in gaps), (seed, gaps)
+                L = 12
+                assert (nf["flash_fwd"], nf["flash_bwd_dq"],
+                        nf["flash_bwd_dkv"]) == (L, L, L), nf
+                assert (np_["flash_fwd"], np_["flash_bwd_dq"],
+                        np_["flash_bwd_dkv"]) == (0, 0, 0), np_
+                if flips == 0:
+                    held = (seed, lf, lp, gf, gp)
+                    break
+        finally:
+            for h in hooks:
+                h.remove()
+        print(f"api (b) MoE step parity [2,1024] dropout 0: routing flips "
+              f"(seed, flips, largest gap) {flips_seen}")
+        assert held is not None, f"every parity batch flipped: {flips_seen}"
+        seed, lf, lp, gf, gp = held
+        floor = 1e-6 * max(g.abs().max().item() for g in gp.values())
+        worst = max(((gf[n] - gp[n]).abs().max().item()
+                     / (1e-3 * gp[n].abs().max().item() + floor), n)
+                    for n in gp)
+        print(f"api (b) MoE step parity, batch seed {seed}: loss flash "
+              f"{lf:.6f} plain {lp:.6f}; worst gradient max_abs_err / its "
+              f"tolerance {worst[0]:.3e} ({worst[1]})")
+        self.details["api_moe_parity"] = dict(
+            loss_flash=lf, loss_plain=lp, worst_grad_over_tol=worst[0],
+            worst_param=worst[1], flips=flips_seen)
+        assert abs(lf - lp) <= 1e-5 * abs(lp), "MoE step-parity loss"
+        assert worst[0] <= 1.0, f"MoE step-parity gradient {worst[1]}"
+        self.api_save_load(model, net)
+
+    def api_save_load(self, model, net):
+        """(c) paddle.save / paddle.load on the card (see api_moe_parity)."""
+        torch = self.torch
+        import shutil
+        import tempfile
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch.framework import io_state
+        from paddle_tpu_torch.models import GPTForCausalLM
+        ids = paddle.to_tensor(np.random.RandomState(9).randint(
+            0, net.gpt.config.vocab_size, size=(2, 1025)))
+        with torch.no_grad():
+            want, _ = model.eval_batch([ids[:, :-1]], [ids[:, 1:]])
+        d = tempfile.mkdtemp(prefix="chip_smoke_api_")
+        try:
+            path = os.path.join(d, "moe.pdparams")
+            t0 = time.perf_counter()
+            paddle.save(net.state_dict(), path)
+            save_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            fresh = GPTForCausalLM(_moe_config(0.0), seed=5)
+            t0 = time.perf_counter()
+            io_state.set_state_dict(fresh, paddle.load(path))
+            load_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        m2 = paddle.Model(fresh).prepare(loss=paddle.nn.CrossEntropyLoss())
+        with torch.no_grad():
+            got, _ = m2.eval_batch([ids[:, :-1]], [ids[:, 1:]])
+        want, got = float(want), float(got)
+        print(f"api (c) paddle.save / load on {self.smi}: "
+              f"{size / 2**30:.2f} GiB in {save_s:.2f} s, loaded onto a "
+              f"fresh model in {load_s:.2f} s; eval loss {want!r} before, "
+              f"{got!r} after")
+        self.details["api_save_load"] = dict(bytes=size, save_s=save_s,
+                                             load_s=load_s, loss=want,
+                                             loss_loaded=got)
+        assert got == want, (got, want)
+        del fresh, m2, model, net
+        torch.cuda.empty_cache()
+
     def kernels_line(self):
         srcs = {"paged_attention": (
                     "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -5741,6 +6123,357 @@ class Smoke:
                             "bound_by": r.get("bound_by"),
                             "library_ms": r.get("library_ms")})
         return {"kernels": out}
+
+
+def _moe_config(dropout):
+    """Phase 11's MoE GPT: GPT-2 small's widths (hidden 768, 12 layers
+    of 12 heads, intermediate 3072, 1024 positions) with MOE["E"]
+    experts in every block."""
+    from paddle_tpu_torch.models import GPTConfig
+    return GPTConfig(hidden_size=768, num_layers=12, num_heads=12,
+                     intermediate_size=3072, max_position_embeddings=1024,
+                     use_moe=True, num_experts=MOE["E"], dropout=dropout)
+
+
+def _api_tols():
+    """{(family, case): limit} of the phase 11 (a) cases that are not
+    exact."""
+    fam = {"reduction": API_TOL["reduction"], "linalg": API_TOL["linalg"]}
+    one = {("creation", n): API_TOL["formula"]
+           for n in ("linspace", "logspace", "vander", "arange#float")}
+    one.update({("manipulation", n): API_TOL["product"]
+                for n in ("tensordot", "tensordot#pairs")})
+    return fam, one
+
+
+def _api_inputs(np, paddle, device):
+    """Phase 11 (a)'s inputs, made from one numpy seed, on `device`."""
+    rng = np.random.RandomState(0)
+
+    def f(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    a = dict(X=f(3, 4), Y=f(3, 4) + 0.1, COL=f(3, 1, 4), X3=f(2, 3, 4),
+             V=f(4), V2=f(3), SQ=f(4, 4) + 4 * np.eye(4, dtype=np.float32),
+             V3=f(5, 3), W3=f(5, 3), B42=f(4, 2), TALL=f(6, 3),
+             TALLB=f(6, 2), HIST=f(50), U=f(3, 4) * 0.5)
+    a["POS"] = np.abs(a["X"]) + 0.2
+    a["AWAY"] = np.sign(a["Y"] + 1e-3) * (np.abs(a["Y"]) + 0.5)
+    a["SPD"] = a["SQ"] @ a["SQ"].T
+    a["TRI"] = np.triu(a["SQ"])
+    a["I"] = rng.randint(-6, 7, (3, 4)).astype(np.int32)
+    a["I2"] = rng.randint(1, 7, (3, 4)).astype(np.int32)
+    a["B"], a["B2"] = a["X"] > 0, a["Y"] > 0.3
+    a["NANS"] = a["X3"].copy()
+    a["NANS"][0, 1, 2] = np.nan
+    a["IDX"] = np.array([2, 0], np.int32)
+    a["IDX2"] = np.array([[1], [0], [3]], np.int32)
+    a["ND"] = np.array([[0, 1], [1, 2]], np.int32)
+    a["MODES"] = np.array([[1, 2, 2, 3, 3], [4, 4, 1, 1, 0]], np.int32)
+    a["SEQ"] = np.array([-1.0, 0.0, 0.5, 2.0, 3.0], np.float32)
+    a["BINS"] = rng.randint(0, 6, 20).astype(np.int32)
+    a["PROB"] = rng.uniform(0.05, 0.95, (4, 6)).astype(np.float32)
+    d = {k: paddle.to_tensor(v, place=device) for k, v in a.items()}
+    d["np"] = a
+    return d
+
+
+def _api_cases():
+    """Phase 11 (a): {family: {case: fn(P, d)}} over every name of each
+    family's `__all__` (the random ops: _api_random_cases). A case "op"
+    or "op#variant" calls op; linalg cases return what is unique of a
+    factorization (reconstructions, values, residuals)."""
+    creation = {
+        "to_tensor": lambda P, d: P.to_tensor(d["np"]["X"]),
+        "to_tensor#ints": lambda P, d: P.to_tensor([1, 2, 3]),
+        "ones": lambda P, d: P.ones([2, 3]),
+        "zeros": lambda P, d: P.zeros([4], dtype="int32"),
+        "full": lambda P, d: P.full([2, 2], 1.5),
+        "ones_like": lambda P, d: P.ones_like(d["X"]),
+        "zeros_like": lambda P, d: P.zeros_like(d["I"]),
+        "full_like": lambda P, d: P.full_like(d["X"], 0.25),
+        "arange": lambda P, d: P.arange(2, 11, 3),
+        "arange#float": lambda P, d: P.arange(0.0, 1.0, 0.25),
+        "linspace": lambda P, d: P.linspace(0.0, 1.0, 7),
+        "logspace": lambda P, d: P.logspace(0.0, 2.0, 5),
+        "eye": lambda P, d: P.eye(2, 4),
+        "empty": lambda P, d: P.empty([2, 3]),
+        "empty_like": lambda P, d: P.empty_like(d["X"]),
+        "meshgrid": lambda P, d: P.meshgrid(d["V"], d["V2"]),
+        "diag": lambda P, d: P.diag(d["V"], 1, 7.0),
+        "diag#matrix": lambda P, d: P.diag(d["SQ"], -1),
+        "diagflat": lambda P, d: P.diagflat(d["V"], 1),
+        "tril": lambda P, d: P.tril(d["SQ"]),
+        "triu": lambda P, d: P.triu(d["SQ"], 1),
+        "assign": lambda P, d: P.assign(d["X"]),
+        "clone": lambda P, d: P.clone(d["X"]),
+        "numel": lambda P, d: P.numel(d["X"]),
+        "tril_indices": lambda P, d: P.tril_indices(4, 3, 0),
+        "triu_indices": lambda P, d: P.triu_indices(3, 4, 1),
+        "vander": lambda P, d: P.vander(d["V"], 3, True),
+    }
+    manipulation = {
+        "reshape": lambda P, d: P.reshape(d["X3"], [6, -1]),
+        "flatten": lambda P, d: P.flatten(d["X3"], 1),
+        "transpose": lambda P, d: P.transpose(d["X3"], [2, 0, 1]),
+        "squeeze": lambda P, d: P.squeeze(d["COL"], [0, 1]),
+        "unsqueeze": lambda P, d: P.unsqueeze(d["X"], [0, 2]),
+        "concat": lambda P, d: P.concat([d["X"], d["Y"]], 1),
+        "stack": lambda P, d: P.stack([d["X"], d["Y"]]),
+        "split": lambda P, d: P.split(d["X3"], [1, -1], 2),
+        "chunk": lambda P, d: P.chunk(d["X3"], 3, 1),
+        "tile": lambda P, d: P.tile(d["X"], [2, 1]),
+        "expand": lambda P, d: P.expand(d["COL"], [2, 3, 5, -1]),
+        "expand_as": lambda P, d: P.expand_as(d["COL"], P.zeros([3, 6, 4])),
+        "broadcast_to": lambda P, d: P.broadcast_to(d["COL"], [3, 2, 4]),
+        "gather": lambda P, d: P.gather(d["X"], d["IDX"], 1),
+        "gather_nd": lambda P, d: P.gather_nd(d["X3"], d["ND"]),
+        "scatter": lambda P, d: P.scatter(d["X"], d["IDX"], d["U"][:2]),
+        "scatter#add": lambda P, d: P.scatter(d["X"], d["IDX"], d["U"][:2],
+                                              overwrite=False),
+        "scatter_nd_add": lambda P, d: P.scatter_nd_add(
+            d["X"], d["IDX"].reshape(1, 2), d["V2"][:1]),
+        "index_select": lambda P, d: P.index_select(d["X"], d["IDX"], 1),
+        "masked_select": lambda P, d: P.masked_select(d["X"], d["B"]),
+        "where": lambda P, d: P.where(d["B"], d["X"], d["Y"]),
+        "where#nonzero": lambda P, d: P.where(d["B"]),
+        "roll": lambda P, d: P.roll(d["X"], 1, 1),
+        "flip": lambda P, d: P.flip(d["X3"], [0, 2]),
+        "cast": lambda P, d: P.cast(d["X"], "int64"),
+        "t": lambda P, d: P.t(d["X3"]),
+        "moveaxis": lambda P, d: P.moveaxis(d["X3"], 0, 2),
+        "unbind": lambda P, d: P.unbind(d["X"], 1),
+        "repeat_interleave": lambda P, d: P.repeat_interleave(d["X"], 2, 0),
+        "take_along_axis": lambda P, d: P.take_along_axis(d["X"],
+                                                          d["IDX2"], 1),
+        "put_along_axis": lambda P, d: P.put_along_axis(d["X"], d["IDX2"],
+                                                        9.0, 1),
+        "put_along_axis#add": lambda P, d: P.put_along_axis(
+            d["X"], d["IDX2"], d["U"][:, :1], 1, "add"),
+        "slice": lambda P, d: P.slice(d["X3"], [1, 2], [1, 0], [3, -1]),
+        "strided_slice": lambda P, d: P.strided_slice(
+            d["X3"], [1, 2], [2, 3], [-4, 0], [-1, -2]),
+        "unique": lambda P, d: P.unique(d["I"], return_index=True,
+                                        return_inverse=True,
+                                        return_counts=True),
+        "nonzero": lambda P, d: P.nonzero(d["B"], as_tuple=True),
+        "pad": lambda P, d: P.pad(d["X3"], [1, 2], value=0.5),
+        "pad#reflect": lambda P, d: P.pad(d["X3"], [2, 1], mode="reflect"),
+        "pad#replicate": lambda P, d: P.pad(d["X3"], [1, 2, 2, 1],
+                                            mode="replicate"),
+        "pad#circular": lambda P, d: P.pad(d["X3"], [3, 1],
+                                           mode="circular"),
+        "rot90": lambda P, d: P.rot90(d["X3"], 3, (1, 2)),
+        "unstack": lambda P, d: P.unstack(d["X"]),
+        "crop": lambda P, d: P.crop(d["X3"], [1, 2, 2], [1, 1, 1]),
+        "shard_index": lambda P, d: P.shard_index(d["I2"] * 3, 20, 4, 1),
+        "broadcast_tensors": lambda P, d: P.broadcast_tensors(
+            [d["COL"], d["X"][None]]),
+        "atleast_1d": lambda P, d: P.atleast_1d(d["X"][0, 0]),
+        "as_real": lambda P, d: P.as_real(P.as_complex(d["X3"][..., :2])),
+        "as_complex": lambda P, d: P.as_complex(d["X3"][..., :2]),
+        "tensordot": lambda P, d: P.tensordot(d["X3"], d["X"].T, 1),
+        "tensordot#pairs": lambda P, d: P.tensordot(
+            d["X3"], d["X3"], [[0, 1], [0, 1]]),
+        "masked_fill": lambda P, d: P.masked_fill(d["X"], d["B"], -1.0),
+        "index_put": lambda P, d: P.index_put(
+            d["X"], [d["IDX"], d["IDX"]], d["V"][:2]),
+        "index_add": lambda P, d: P.index_add(d["X"], d["IDX"], 1,
+                                              d["U"][:, :2]),
+        "diagonal": lambda P, d: P.diagonal(d["X3"], 1, 1, 2),
+        "one_hot": lambda P, d: P.one_hot(d["I"], 5),
+        "index_fill": lambda P, d: P.index_fill(d["X"], d["IDX"], 1, 0.5),
+        "diagonal_scatter": lambda P, d: P.diagonal_scatter(
+            d["X"], d["V2"]),
+    }
+    logic = {n: (lambda op: lambda P, d: getattr(P, op)(d["X"], d["Y"]))(n)
+             for n in ("equal", "not_equal", "less_than", "less_equal",
+                       "greater_than", "greater_equal", "isclose")}
+    logic.update({n: (lambda op: lambda P, d: getattr(P, op)(
+        d["B"], d["B2"]))(n) for n in ("logical_and", "logical_or",
+                                       "logical_xor")})
+    logic.update({n: (lambda op: lambda P, d: getattr(P, op)(
+        d["I"], d["I2"]))(n) for n in ("bitwise_and", "bitwise_or",
+                                       "bitwise_xor")})
+    logic.update({
+        "equal#scalar": lambda P, d: P.equal(d["I"], 2),
+        "logical_not": lambda P, d: P.logical_not(d["B"]),
+        "bitwise_not": lambda P, d: P.bitwise_not(d["I"]),
+        "equal_all": lambda P, d: P.equal_all(d["X"], d["X"] + 0),
+        "allclose": lambda P, d: P.allclose(d["X"], d["X"] + 1e-7),
+        "is_empty": lambda P, d: P.is_empty(d["X"][:0]),
+        "is_tensor": lambda P, d: P.to_tensor(P.is_tensor(d["X"])),
+    })
+    reduction = {}
+    for n in ("sum", "mean", "max", "min", "prod", "logsumexp", "std",
+              "var", "amax", "amin", "nansum", "nanmean", "median",
+              "nanmedian"):
+        src = "NANS" if n.startswith("nan") else "X3"
+        reduction[n] = (lambda op, s: lambda P, d: getattr(P, op)(d[s]))(
+            n, src)
+        reduction[n + "#axes"] = (lambda op, s: lambda P, d: getattr(P, op)(
+            d[s], axis=[0, 2], keepdim=True))(n, src)
+    reduction.update({
+        "sum#int": lambda P, d: P.sum(d["I"], axis=0),
+        "all": lambda P, d: P.all(d["B"], axis=1),
+        "any": lambda P, d: P.any(d["B"]),
+        "count_nonzero": lambda P, d: P.count_nonzero(d["I"], axis=1),
+        "quantile": lambda P, d: P.quantile(d["X3"], 0.3, axis=2),
+    })
+    search = {
+        "argmax": lambda P, d: P.argmax(d["X3"], axis=1, keepdim=True),
+        "argmin": lambda P, d: P.argmin(d["X3"]),
+        "argsort": lambda P, d: P.argsort(d["X"], descending=True),
+        "sort": lambda P, d: P.sort(d["X3"], axis=0),
+        "topk": lambda P, d: P.topk(d["X"], 2),
+        "searchsorted": lambda P, d: P.searchsorted(d["SEQ"], d["X"]),
+        "kthvalue": lambda P, d: P.kthvalue(d["X"], 2),
+        "mode": lambda P, d: P.mode(d["MODES"]),
+        "index_sample": lambda P, d: P.index_sample(d["X"], d["IDX2"]),
+        "bucketize": lambda P, d: P.bucketize(d["X"], d["SEQ"], right=True),
+    }
+
+    def recon_svd(P, d):
+        u, s, vh = P.linalg.svd(d["X"])
+        return s, (u * s) @ vh
+
+    def recon_qr(P, d):
+        q, r = P.linalg.qr(d["X"])
+        return q @ r, r.diagonal().abs()
+
+    def recon_eigh(P, d):
+        w, v = P.linalg.eigh(d["SPD"])
+        return w, (v * w) @ v.T
+
+    def eig_sorted(P, d):
+        # by real part, then imaginary (a conjugate pair shares its real
+        # part, and the two libraries may list it in either order)
+        w, v = P.linalg.eig(d["SQ"])
+        a = d["SQ"].to(w.dtype)
+        order = w.imag.argsort(stable=True)
+        order = order[w.real[order].argsort(stable=True)]
+        return w[order], (a @ v - v * w).abs()
+
+    def recon_lu(P, d):
+        lu, piv = P.linalg.lu(d["SQ"])
+        p, lo, up = P.linalg.lu_unpack(lu, piv)
+        return p @ lo @ up, lo @ up
+
+    linalg = {
+        "matmul": lambda P, d: P.matmul(d["X"], d["Y"], transpose_y=True),
+        "mm": lambda P, d: P.mm(d["X"], d["X"].T),
+        "bmm": lambda P, d: P.bmm(d["X3"], d["X3"].transpose(1, 2)),
+        "dot": lambda P, d: P.dot(d["X"], d["Y"]),
+        "mv": lambda P, d: P.mv(d["X"], d["V"]),
+        "norm": lambda P, d: P.linalg.norm(d["X"]),
+        "norm#axis": lambda P, d: P.linalg.norm(d["X"], 3, axis=1),
+        "norm#nuc": lambda P, d: P.linalg.norm(d["SQ"], "nuc", [0, 1]),
+        "dist": lambda P, d: P.dist(d["X"], d["Y"], 3),
+        "cross": lambda P, d: P.cross(d["V3"], d["W3"]),
+        "cholesky": lambda P, d: P.cholesky(d["SPD"]),
+        "inverse": lambda P, d: P.inverse(d["SQ"]),
+        "det": lambda P, d: P.det(d["SQ"]),
+        "slogdet": lambda P, d: P.slogdet(d["SQ"]),
+        "matrix_power": lambda P, d: P.matrix_power(d["SQ"], -2),
+        "svd": recon_svd,
+        "qr": recon_qr,
+        "eigh": recon_eigh,
+        "eigvalsh": lambda P, d: P.eigvalsh(d["SPD"]),
+        "solve": lambda P, d: P.solve(d["SQ"], d["B42"]),
+        "triangular_solve": lambda P, d: P.triangular_solve(
+            d["TRI"], d["B42"], transpose=True),
+        "pinv": lambda P, d: P.pinv(d["X"]),
+        "lstsq": lambda P, d: P.lstsq(d["TALL"], d["TALLB"]),
+        "einsum": lambda P, d: P.einsum("ij,kj->ik", d["X"], d["Y"]),
+        "multi_dot": lambda P, d: P.multi_dot([d["X"], d["Y"].T, d["SQ"]
+                                                [:3, :3]]),
+        "matrix_rank": lambda P, d: P.matrix_rank(d["X"]),
+        "histogram": lambda P, d: P.histogram(d["HIST"], bins=7),
+        "bincount": lambda P, d: P.bincount(d["BINS"], minlength=8),
+        "cov": lambda P, d: P.cov(d["X"]),
+        "corrcoef": lambda P, d: P.corrcoef(d["X"], rowvar=False),
+        "cdist": lambda P, d: P.cdist(d["X"], d["Y"]),
+        "lu": recon_lu,
+        "lu_unpack": recon_lu,
+        "eig": eig_sorted,
+        "eigvals": lambda P, d: P.eigvals(d["SQ"]).abs().sort().values,
+    }
+    return {"creation": creation, "manipulation": manipulation,
+            "logic": logic, "reduction": reduction, "search": search,
+            "linalg": linalg}
+
+
+def _api_random_cases(d):
+    """Phase 11 (a)'s random ops: {case: (fn(P), min, max, dtype)}."""
+    return {
+        "rand": (lambda P: P.rand([64, 8]), 0.0, 1.0, "float32"),
+        "randn": (lambda P: P.randn([64, 8]), -10.0, 10.0, "float32"),
+        "standard_normal": (lambda P: P.standard_normal([16]), -10.0, 10.0,
+                            "float32"),
+        "randint": (lambda P: P.randint(2, 9, [50]), 2, 8, "int32"),
+        "randint_like": (lambda P: P.randint_like(d["I"], 3, 7), 3, 6,
+                         "int32"),
+        "uniform": (lambda P: P.uniform([40], min=-2.0, max=3.0), -2.0, 3.0,
+                    "float32"),
+        "uniform#seeded": (lambda P: P.uniform([40], seed=11), -1.0, 1.0,
+                           "float32"),
+        "normal": (lambda P: P.normal(1.0, 0.1, [200]), 0.0, 2.0,
+                   "float32"),
+        "normal#tensor": (lambda P: P.normal(d["X"], d["POS"]), -20.0, 20.0,
+                          "float32"),
+        "bernoulli": (lambda P: P.bernoulli(d["PROB"]), 0.0, 1.0,
+                      "float32"),
+        "poisson": (lambda P: P.poisson(d["POS"]), 0.0, 60.0, "float32"),
+        "multinomial": (lambda P: P.multinomial(d["PROB"], 3), 0, 5,
+                        "int32"),
+        "randperm": (lambda P: P.randperm(10), 0, 9, "int32"),
+        "shuffle": (lambda P: P.shuffle(d["X"]), -10.0, 10.0, "float32"),
+        "uniform_": (lambda P: P.uniform_(d["X"].clone(), 0.5, 0.75), 0.5,
+                     0.75, "float32"),
+        "normal_": (lambda P: P.normal_(d["X"].clone(), 5.0, 0.5), 2.0, 8.0,
+                    "float32"),
+    }
+
+
+def _api_compare(torch, np, paddle, fam, name, fn, tols):
+    """Case `name` of family `fam` on the card against the CPU: the same
+    types and shapes, every card result on the card, the values exact or
+    within the case's limit x max(1, max |CPU result|); returns the
+    worst error over its limit (0 when exact)."""
+    fam_tol, one_tol = tols
+    tol = one_tol.get((fam, name), fam_tol.get(fam))
+    paddle.set_device("gpu")
+    got = fn(paddle, _api_inputs(np, paddle, "cuda"))
+    paddle.set_device("cpu")
+    try:
+        want = fn(paddle, _api_inputs(np, paddle, "cpu"))
+    finally:
+        paddle.set_device("gpu")
+
+    def flat(o):
+        if isinstance(o, (tuple, list)):
+            return [y for x in o for y in flat(x)]
+        return [o]
+    g, w = flat(got), flat(want)
+    assert len(g) == len(w), (len(g), len(w))
+    worst = 0.0
+    for a, b in zip(g, w):
+        assert torch.is_tensor(a) and a.device.type == "cuda", type(a)
+        assert a.dtype == b.dtype and a.shape == b.shape, (
+            a.dtype, b.dtype, tuple(a.shape), tuple(b.shape))
+        a = a.detach().cpu()
+        if tol is None or not (a.is_floating_point() or a.is_complex()):
+            assert torch.equal(a, b) or (
+                a.is_floating_point() and torch.equal(a.isnan(), b.isnan())
+                and torch.equal(a.nan_to_num(), b.nan_to_num())), \
+                "not exact"
+            continue
+        fin = torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), fin)
+        scale = max(1.0, float(b[fin].abs().max()) if fin.any() else 0.0)
+        err = float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
+        worst = max(worst, err / (tol * scale))
+        assert err <= tol * scale, (err, tol * scale)
+    return worst
 
 
 def _ptxas_kernels(log):
@@ -5854,6 +6587,7 @@ def main(argv=None):
             sm.phase("ernie", sm.ernie)
             sm.phase("vision", sm.vision)
             sm.phase("export", sm.export)
+            sm.phase("api", sm.api)
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)),
                     exist_ok=True)

@@ -56,12 +56,67 @@ Ported so far:
   here: `paddle_tpu_torch.tanh`, ...). The flash forward kernel is the
   registered op `paddle_tpu_torch::flash_fwd`, so a saved program
   carries it and launches it on the card.
+- the top-level API and the dense ops: `to_tensor`, the op families of
+  `ops.{creation,manipulation,logic,reduction,search,random_ops,linalg}`
+  re-exported here (`paddle_tpu_torch.concat`, `.zeros`, `.argmax`,
+  ...; `random` is `random_ops`), `ops.tensor_methods` (the reference's
+  Tensor methods mapped onto torch's), `autograd` (`grad`, `PyLayer`,
+  `vjp`, `jvp`, `jacobian`, `hessian`), `Model` (hapi), `seed` and the
+  generator states, `save` / `load` (the reference's pickled numpy
+  format), `ParamAttr`, the dtypes and `set_default_dtype`, the places
+  with `set_device` / `get_device` (the default device is the CUDA
+  card; `set_device("cpu")` asks for the CPU) and `device`;
+- GPT's mixture-of-experts feed-forward (`GPTConfig(use_moe=True)`,
+  `models.gpt.MoEFeedForward`), trained through `Model`.
 """
 from . import amp, framework, hapi, io, metric, models, nn, ops  # noqa: F401
 from . import optimizer, profiler, quantization  # noqa: F401
 from . import serving, static, vision  # noqa: F401
 from . import inference, jit  # noqa: F401,E402
+from . import autograd, device  # noqa: F401,E402
 from .framework import get_flags, set_flags  # noqa: F401
-from .ops.math import *  # noqa: F401,F403
+from .ops import *  # noqa: F401,F403
+from .ops import (creation, linalg, logic, manipulation, math,  # noqa: F401
+                  reduction, search, tensor_methods)
+from .ops import random_ops as random  # noqa: F401
+from .framework.dtype import (DType, bfloat16, bool_, complex64,  # noqa: F401
+                              complex128, float16, float32, float64,
+                              get_default_dtype, int8, int16, int32, int64,
+                              set_default_dtype, uint8)
+from .framework.place import (CPUPlace, CUDAPinnedPlace,  # noqa: F401
+                              CUDAPlace, NPUPlace, Place, TPUPlace, XPUPlace,
+                              device_count, get_cudnn_version, get_device,
+                              is_compiled_with_cuda, is_compiled_with_npu,
+                              is_compiled_with_tpu, is_compiled_with_xpu,
+                              set_device)
+from .framework.random import (get_cuda_rng_state,  # noqa: F401
+                               get_rng_state, rng_scope, seed,
+                               set_cuda_rng_state, set_rng_state)
+from .framework.io_state import load, save  # noqa: F401
+from .framework.param_attr import ParamAttr  # noqa: F401
+from .autograd import enable_grad, grad, is_grad_enabled, no_grad  # noqa
+from .hapi.model import Model  # noqa: F401
+
+
+
+def _inplace_fn(name):
+    """The reference's top-level in-place alias `name` (`paddle.reshape_(
+    x, shape)`, ...): the Tensor method's entry of `tensor_methods`."""
+    def fn(x, *args, **kwargs):
+        return tensor_methods.call(x, name, *args, **kwargs)
+    fn.__name__ = fn.__qualname__ = name
+    return fn
+
+
+reshape_ = _inplace_fn("reshape_")
+scatter_ = _inplace_fn("scatter_")
+squeeze_ = _inplace_fn("squeeze_")
+unsqueeze_ = _inplace_fn("unsqueeze_")
+tanh_ = _inplace_fn("tanh_")
+clip_ = _inplace_fn("clip_")
+scale_ = _inplace_fn("scale_")
+flatten_ = _inplace_fn("flatten_")
+exp_ = _inplace_fn("exp_")
+sqrt_ = _inplace_fn("sqrt_")
 
 __version__ = "0.1.0"

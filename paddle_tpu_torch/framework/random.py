@@ -11,16 +11,27 @@ keys. Here torch's own generators are the state:
   int32 seed of a flash kernel's dropout mask, as the JAX package draws
   one from `get_rng_key()` (`pallas_ops.py:516-520`). The generator lives
   on the host, so drawing a seed never waits for the card.
+- `get_rng_state()` snapshots all of it (torch's CPU generator, every
+  card's generator, the seed and the registry) and `set_rng_state`
+  restores it, so a random op and a flash kernel's dropout seed drawn
+  after `set_rng_state(get_rng_state())` replay the same values.
+  `get_cuda_rng_state` / `set_cuda_rng_state` cover the cards'
+  generators alone (one state a card), as the reference's do.
+- `rng_scope(s)` runs a block as if `seed(s)` had been called, and puts
+  the state back after it (the JAX package pushes a key scope).
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import zlib
 from typing import Dict
 
 import torch
 
-__all__ = ["seed", "default_seed", "generator", "next_seed"]
+__all__ = ["seed", "default_seed", "generator", "next_seed",
+           "get_rng_state", "set_rng_state", "get_cuda_rng_state",
+           "set_cuda_rng_state", "rng_scope"]
 
 default_seed = 0
 
@@ -61,3 +72,52 @@ def next_seed(device) -> int:
         # `torch.device("cuda")` context (the vision models are)
         return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=g,
                                  device="cpu").item())
+
+
+def get_cuda_rng_state():
+    """One state a CUDA card (its default generator); [] without one."""
+    if not torch.cuda.is_available():
+        return []
+    return [torch.cuda.get_rng_state(i)
+            for i in range(torch.cuda.device_count())]
+
+
+def set_cuda_rng_state(states):
+    for i, st in enumerate(states):
+        torch.cuda.set_rng_state(st, i)
+
+
+def get_rng_state():
+    """[state]: torch's CPU generator, the cards' generators, the seed and
+    the registry's generators, for `set_rng_state`."""
+    with _lock:
+        reg = {k: g.get_state() for k, g in _generators.items()}
+        s = _seed
+    return [{"cpu": torch.get_rng_state(), "cuda": get_cuda_rng_state(),
+             "seed": s, "registry": reg}]
+
+
+def set_rng_state(states):
+    """Restore a `get_rng_state()` snapshot (the list, or its entry)."""
+    global _seed
+    st = states[0] if isinstance(states, (list, tuple)) else states
+    torch.set_rng_state(st["cpu"])
+    set_cuda_rng_state(st["cuda"])
+    with _lock:
+        _seed = st["seed"]
+        _generators.clear()
+        for k, g_state in st["registry"].items():
+            g = _generators[k] = torch.Generator()
+            g.set_state(g_state)
+
+
+@contextlib.contextmanager
+def rng_scope(s: int):
+    """Run a block as after `seed(s)`; the state before it comes back
+    after it."""
+    saved = get_rng_state()
+    seed(s)
+    try:
+        yield s
+    finally:
+        set_rng_state(saved)

@@ -58,8 +58,8 @@ beside the loss.
 
 Not ported yet (ROADMAP): tail bucketing
 (row-padding the last partial batch: it saves the JAX package an XLA
-compile, and eager PyTorch has none to save), the fleet path,
-`DeviceFeeder`, and `save(training=False)` (export).
+compile, and eager PyTorch has none to save), the fleet path and
+`DeviceFeeder`.
 """
 from __future__ import annotations
 
@@ -71,7 +71,7 @@ import numpy as np
 import torch
 
 from .. import amp
-from ..framework import monitor
+from ..framework import io_state, monitor
 from ..io import DataLoader, Dataset
 from ..metric import Metric
 from . import callbacks as cbks_mod
@@ -488,24 +488,37 @@ class Model:
 
     # -- persistence --------------------------------------------------------
     def save(self, path, training=True):
-        """`path.pdparams` (the network's state dict) and, with an
-        optimizer, `path.pdopt` (its state dict), both `torch.save`."""
+        """Training: `path.pdparams` (the network's state dict) and, with
+        an optimizer, `path.pdopt` (its state dict), both through
+        `framework.io_state.save`, the JAX package's format (pickled
+        numpy). Not training: the network exported through `jit.save`
+        with the model's `inputs` specs, as the JAX package does; where
+        `torch.export` cannot keep a symbolic dim, its error propagates
+        (ROADMAP C17)."""
         if not training:
-            raise NotImplementedError("Model.save(training=False): export is "
-                                      "not ported yet")
-        torch.save(self.network.state_dict(), path + ".pdparams")
+            from .. import jit
+            jit.save(self.network, path, input_spec=self._inputs)
+            return
+        io_state.save(self.network.state_dict(), path + ".pdparams")
         if self._optimizer is not None:
-            torch.save(self._optimizer.state_dict(), path + ".pdopt")
+            io_state.save(self._optimizer.state_dict(), path + ".pdopt")
 
     def load(self, path, skip_mismatch=False, reset_optimizer=False):
-        state = torch.load(path + ".pdparams", map_location=self.device)
-        self.network.load_state_dict(state, strict=not skip_mismatch)
+        """The network's state from `path.pdparams` (the port's own names
+        and layouts; weights of the JAX package cross through
+        `models.load_reference_state`) onto the model's device, and the
+        optimizer's from `path.pdopt` unless `reset_optimizer` or absent
+        (then its state starts afresh)."""
+        io_state.set_state_dict(self.network,
+                                io_state.load(path + ".pdparams"),
+                                strict=not skip_mismatch)
         opt = self._optimizer
         if opt is None:
             return self
         opt_path = path + ".pdopt"
         if not reset_optimizer and os.path.exists(opt_path):
-            opt.set_state_dict(torch.load(opt_path, map_location=self.device))
+            opt.set_state_dict(io_state.to_tensor_state(
+                io_state.load(opt_path), self.device))
         else:
             opt._accumulators.clear()
             opt._global_step = 0

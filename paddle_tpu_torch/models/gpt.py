@@ -2,8 +2,10 @@
 
 The layer classes keep the JAX package's attribute names (`gpt.wte`,
 `gpt.wpe`, `gpt.blocks.{i}.ln1`, `.attn.{q,k,v,out}_proj`, `.ln2`,
-`.mlp.{0,2}`, `gpt.ln_f`), so `load_reference_state` can copy a
-`paddle_tpu` state dict across by name.
+`.mlp.{0,2}`, or `.mlp.{gate,w_up,w_down}` in a mixture-of-experts
+block, `gpt.ln_f`), so `load_reference_state` can copy a `paddle_tpu`
+state dict across by name. `generate()` and the serving engine refuse a
+mixture-of-experts GPT, as the JAX package's do.
 
 Shared decode math (used by `generate()` and
 `serving.GenerationEngine`): `gpt_prefill` runs the batched causal pass
@@ -35,14 +37,17 @@ import torch
 import torch.nn.functional as TF
 from torch import nn
 
+from .. import amp
 from ..framework.errors import InvalidArgumentError
 from ..framework.place import resolve_device
+from ..nn import initializer as I
 from ..nn.functional import scaled_dot_product_attention
 from ..nn.layer import GELU, Dropout, Embedding, LayerNorm, Linear
-from ..ops.linalg import matmul
+from ..ops.linalg import matmul, promoted
 from ..ops.paged_ops import cached_attention
 
-__all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_prefill",
+__all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "MoEFeedForward",
+           "gpt_prefill",
            "gpt_prefill_extend", "gpt_decode_step", "gpt_spec_verify",
            "gpt_logits", "dense_cache_write", "dense_cache_attend",
            "load_reference_state"]
@@ -261,20 +266,85 @@ class CausalSelfAttention(nn.Module):
         return self.out_proj(out.transpose(1, 2).reshape(b, s, e))
 
 
+class MoEFeedForward(nn.Module):
+    """The mixture-of-experts feed-forward of `GPTConfig(use_moe=True)`
+    (port of `paddle_tpu/models/gpt.py:366-405`): a top-1 switch gate and
+    a dense one-hot dispatch, computed as the JAX package computes it:
+
+        probs = softmax(gate(h));  e = argmax(probs)  (`top_k` is stored
+        and ignored, as there);  onehot = one_hot(e) in h's type;
+        g = sum(probs * onehot, -1)
+        up = einsum("bse,bsd,edf->bsef", onehot, h, w_up)
+        out = einsum("bsef,efd->bsd", gelu_tanh(up), w_down) * g
+
+    Every token is multiplied by every expert (the one-hot zeroes the
+    others), so the layer costs E times the routed products. GELU is the
+    tanh approximation, `jax.nn.gelu`'s default (the `nn.GELU` layer's is
+    exact). The layer is one op of AMP's, "moe_ffn", in neither list, so
+    its arguments pass uncast; a bfloat16 `h` under O1 meets the float32
+    experts and the products run in float32, as jnp promotes them
+    (`ops.linalg.promoted`; ROADMAP C19). The products are plain einsums,
+    outside any kernel, in both packages.
+
+    Parameters: `gate` a `Linear(d, E)` with a bias, `w_up` [E, d, f] and
+    `w_down` [E, f, d] (the JAX package's names and layouts; only the
+    gate is transposed by `load_reference_state`), the experts drawn by
+    `nn.initializer.XavierUniform` under the JAX package's fan rule. The
+    JAX package shards the experts over an "ep" mesh axis
+    (`mark_sharding`, `:386-387`); that waits for multi-GPU (ROADMAP A6).
+    """
+
+    def __init__(self, hidden_size, intermediate_size, num_experts,
+                 top_k=1, device=None, dtype=None):
+        super().__init__()
+        self.num_experts = num_experts
+        self.top_k = top_k
+        kw = dict(device=device, dtype=dtype)
+        self.gate = Linear(hidden_size, num_experts, **kw)
+        self.w_up = nn.Parameter(torch.empty(
+            num_experts, hidden_size, intermediate_size, **kw))
+        self.w_down = nn.Parameter(torch.empty(
+            num_experts, intermediate_size, hidden_size, **kw))
+        self.reset_experts()
+
+    def reset_experts(self, generator=None):
+        init = I.XavierUniform()
+        init(self.w_up, generator=generator)
+        init(self.w_down, generator=generator)
+
+    def forward(self, x):
+        h, wu, wd, gw, gb = amp.cast_args(
+            "moe_ffn", x, self.w_up, self.w_down, self.gate.weight,
+            self.gate.bias)
+        onehot_dtype = h.dtype
+        h, wu, wd, gw, gb = promoted(h, wu, wd, gw, gb)
+        probs = torch.softmax(TF.linear(h, gw, gb), dim=-1)
+        onehot = TF.one_hot(torch.argmax(probs, dim=-1),
+                            self.num_experts).to(onehot_dtype)
+        gatev = torch.sum(probs * onehot, dim=-1, keepdim=True)
+        onehot, h = promoted(onehot, h)
+        up = torch.einsum("bse,bsd,edf->bsef", onehot, h, wu)
+        down = torch.einsum("bsef,efd->bsd",
+                            TF.gelu(up, approximate="tanh"), wd)
+        return down * gatev
+
+
 class GPTBlock(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, dtype=None):
         super().__init__()
-        if cfg.use_moe:
-            raise InvalidArgumentError(
-                "MoE blocks (MoEFeedForward) are not yet ported")
         kw = dict(device=device, dtype=dtype)
         self.ln1 = LayerNorm(cfg.hidden_size, **kw)
         self.attn = CausalSelfAttention(cfg, **kw)
         self.ln2 = LayerNorm(cfg.hidden_size, **kw)
-        self.mlp = nn.Sequential(
-            Linear(cfg.hidden_size, cfg.intermediate_size, **kw),
-            GELU(),
-            Linear(cfg.intermediate_size, cfg.hidden_size, **kw))
+        if cfg.use_moe:
+            self.mlp = MoEFeedForward(cfg.hidden_size,
+                                      cfg.intermediate_size,
+                                      cfg.num_experts, cfg.moe_top_k, **kw)
+        else:
+            self.mlp = nn.Sequential(
+                Linear(cfg.hidden_size, cfg.intermediate_size, **kw),
+                GELU(),
+                Linear(cfg.intermediate_size, cfg.hidden_size, **kw))
         self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x):
@@ -329,7 +399,9 @@ class GPTForCausalLM(nn.Module):
         g = torch.Generator(device=self.device).manual_seed(int(seed))
         std = self.gpt.config.initializer_range
         for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Embedding)):
+            if isinstance(mod, MoEFeedForward):
+                mod.reset_experts(generator=g)
+            elif isinstance(mod, (nn.Linear, nn.Embedding)):
                 mod.weight.normal_(0.0, std, generator=g)
                 if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()

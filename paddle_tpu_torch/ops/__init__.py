@@ -1,6 +1,19 @@
 """Ops. The kernel-backed ones (`flash_ops`, `paged_ops`, `splash_ops`)
 build nothing at import: each CUDA kernel is compiled from
-`paddle_tpu_torch/csrc` at its first launch. `math` holds the plain
-elementwise and cumulative math ops, re-exported at the package's top
-level (`paddle_tpu_torch.tanh`, ...)."""
-from . import flash_ops, math, paged_ops, splash_ops  # noqa: F401
+`paddle_tpu_torch/csrc` at its first launch. The dense op families
+(`creation`, `manipulation`, `logic`, `reduction`, `search`,
+`random_ops`, `linalg`, `math`) are plain PyTorch, re-exported here and
+at the package's top level (`paddle_tpu_torch.concat`, ...);
+`tensor_methods` maps the reference's Tensor methods onto torch's."""
+from . import flash_ops, paged_ops, splash_ops  # noqa: F401
+from . import (creation, linalg, logic, manipulation, math,  # noqa: F401
+               random_ops, reduction, search)
+from .creation import *  # noqa: F401,F403
+from .linalg import *  # noqa: F401,F403
+from .logic import *  # noqa: F401,F403
+from .manipulation import *  # noqa: F401,F403
+from .math import *  # noqa: F401,F403
+from .random_ops import *  # noqa: F401,F403
+from .reduction import *  # noqa: F401,F403
+from .search import *  # noqa: F401,F403
+from . import tensor_methods  # noqa: F401,E402

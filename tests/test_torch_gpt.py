@@ -134,8 +134,18 @@ def test_bridge_transposes_linear_weights(pair):
 
 
 def test_moe_is_not_ported():
-    with pytest.raises(InvalidArgumentError):
-        GPTForCausalLM(GPTConfig.tiny(use_moe=True), device="cpu")
+    """MoE blocks build and run (tests/test_torch_moe.py holds them to
+    the JAX package); generation with them is not ported, in the JAX
+    package either: generate() and the decode weights raise."""
+    a = GPTForCausalLM(GPTConfig.tiny(use_moe=True), device="cpu", seed=2)
+    b = GPTForCausalLM(GPTConfig.tiny(use_moe=True), device="cpu", seed=2)
+    for (n, p), (_, q) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(p, q), n
+    assert a(torch.zeros(1, 4, dtype=torch.long)).shape == (1, 4, 512)
+    with pytest.raises(NotImplementedError):
+        a.generate(np.zeros((1, 4), np.int64), max_new_tokens=1)
+    with pytest.raises(NotImplementedError):
+        a.decode_weights()
 
 
 def test_seeded_init_is_deterministic():

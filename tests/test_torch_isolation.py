@@ -71,7 +71,12 @@ def test_importing_every_module_builds_nothing():
                 "nn.layer.norm", "nn.layer.activation",
                 "serving.prefix_cache", "serving.spec_decode",
                 "nn.quant", "quantization", "jit", "inference",
-                "serving.engine", "ops.math"):
+                "serving.engine", "ops.math", "ops.creation",
+                "ops.manipulation", "ops.logic", "ops.reduction",
+                "ops.search", "ops.random_ops", "ops.tensor_methods",
+                "framework.dtype", "framework.io_state",
+                "framework.param_attr", "autograd", "autograd.functional",
+                "device"):
         assert f"paddle_tpu_torch.{sub}" in names
     for name in names:
         importlib.import_module(name)
@@ -98,6 +103,24 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(UnavailableError):
         GenerationEngine(model, max_slots=1, page_size=4, num_pages=8,
                          prefill_buckets=(8,))
+    with pytest.raises(UnavailableError):
+        GPTForCausalLM(GPTConfig.tiny(use_moe=True, num_experts=2))
+    # the top-level API: every op that makes a tensor from nothing
+    for fn in (lambda: paddle_tpu_torch.to_tensor([1.0]),
+               lambda: paddle_tpu_torch.zeros([2]),
+               lambda: paddle_tpu_torch.full([2], 1.0),
+               lambda: paddle_tpu_torch.arange(3),
+               lambda: paddle_tpu_torch.eye(2),
+               lambda: paddle_tpu_torch.linspace(0, 1, 3),
+               lambda: paddle_tpu_torch.tril_indices(3, 3),
+               lambda: paddle_tpu_torch.rand([2]),
+               lambda: paddle_tpu_torch.randint(0, 3, [2]),
+               lambda: paddle_tpu_torch.randperm(3),
+               lambda: paddle_tpu_torch.uniform([2]),
+               lambda: paddle_tpu_torch.normal(0.0, 1.0, [2]),
+               lambda: paddle_tpu_torch.device.cuda.synchronize()):
+        with pytest.raises(UnavailableError):
+            fn()
 
 
 def test_cpu_tensors_take_the_plain_path_and_build_nothing():

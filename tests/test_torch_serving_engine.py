@@ -698,15 +698,20 @@ def test_shutdown_during_submit_race():
 
 
 def test_reset_all_stats():
+    """The registries are process-wide, and tests/test_serving_multilane.py
+    probes the JAX one under the same name: start from whatever an
+    earlier test in this process left, and leave the probe at 0."""
     for P in (JAX, PORT):
+        base = P.monitor.stat_get("STAT_reset_probe")
         P.monitor.stat_add("STAT_reset_probe", 7)
         P.monitor.histogram("reset_probe_ms").observe(3.0)
-        assert P.monitor.stat_get("STAT_reset_probe") == 7
+        assert P.monitor.stat_get("STAT_reset_probe") == base + 7
         P.monitor.reset_all_stats()
         assert P.monitor.stat_get("STAT_reset_probe") == 0
         assert P.monitor.histogram("reset_probe_ms").count == 0
         P.monitor.stat_add("STAT_reset_probe")
         assert P.monitor.stat_get("STAT_reset_probe") == 1
+        P.monitor.stat_sub("STAT_reset_probe")
 
 
 # -- per-lane restart (tests/test_engine_resurrection.py) ----------------------
