@@ -263,6 +263,36 @@ Phases:
               (c) paddle.save(net.state_dict()), a fresh model,
               set_state_dict(paddle.load(...)): the eval loss equal bit
               for bit
+12. seq2seq   the rest of nn. (a) every name this slice adds to nn,
+              nn.functional, nn.utils and optimizer (groups functional,
+              loss, layers, rnn, clip_utils, optimizer; a name of a
+              group's modules with no case fails) on CUDA tensors
+              against the same call on the CPU, inputs from one numpy
+              seed, modules built on the CPU from one seed and moved:
+              exact (one_hot, sequence_mask, gather_tree, the pads,
+              shuffles, unpool, beam ids), 1e-5 x max(1, |CPU|) (losses,
+              interpolate, grid_sample, fold, the clips, nn.utils, three
+              steps of each new optimizer with its states), 1e-4 for the
+              recurrent layers in every mode with their gradients; the
+              dropouts on statistics on the card. (b) the attention LSTM
+              seq2seq of PaddleNLP's examples/machine_translation/seq2seq
+              at IWSLT'15 width (models.seq2seq, SEQ2SEQ) built by the
+              port alone, paddle.Model with Adam under
+              ClipGradByGlobalNorm(5.0): SEQ2SEQ["STEPS"] fit steps at
+              batch 128 on the reversal task (lengths 5-50): the loss
+              finite and the mean of the last 3 steps under the first
+              3's; step p50 on the device timeline, target tokens/s, peak
+              allocated, the step profiled (device ms, kernels a step);
+              then beam search (10) of 16 held-out sources to twice the
+              longest: every beam's scores sorted, every sequence ends
+              in EOS or at the step limit, the ids equal the port's CPU
+              decode of the same weights up to near-ties (each first
+              difference a pick between totals within NEAR_TIE); decode
+              steps, ms a step, sentences/s. K1-K7 and the plain
+              attention 0 times on the path. (c) one train_batch at
+              batch 4 (dropout 0) on the card against the port's CPU step
+              on the same weights: the loss to rtol 1e-5, every gradient
+              within phase 6's fp32 limits
 Phase 3 also holds the splash kernels to their plain versions: K5 splash
 forward, K6 splash dQ and K7 splash dK/dV at GPT-2 small's attention
 width (B 8, H 12, S 1024, D 64) and at the packing phase's shape, with
@@ -443,6 +473,18 @@ MOE = dict(E=8, B=8, S=1024, STEPS=8, LR=1e-3, DROPOUT=0.1, FALL=0.25,
 # tensordot, a product
 API_TOL = {"reduction": 1e-5, "linalg": 1e-4, "formula": 1e-6,
            "product": 1e-5}
+# phase 12: the attention LSTM seq2seq of PaddleNLP's
+# examples/machine_translation/seq2seq at its IWSLT'15 width (vocabularies
+# 17191 / 7709, 2 layers of 512, batch 128, dropout 0.2, Uniform(-0.1,
+# 0.1), Adam 1e-3 under ClipGradByGlobalNorm(5.0), beam 10); source
+# lengths uniform in 5-50; fit steps; held-out sources decoded; the
+# step-parity batch
+SEQ2SEQ = dict(SRC=17191, TRG=7709, HIDDEN=512, LAYERS=2, B=128,
+               DROPOUT=0.2, INIT=0.1, LR=1e-3, CLIP=5.0, BEAM=10,
+               MIN_LEN=5, MAX_LEN=50, STEPS=20, DECODE_ROWS=16, PARITY_B=4)
+# phase 12 (a): card against CPU, as a share of max(1, max |CPU result|);
+# None is exact, "stat" a statistics check on the card
+S2S_TOL = {"float": 1e-5, "rnn": 1e-4}
 # --profile's kernel classes for (a)'s step, first match wins
 _VISION_KERNELS = {
     "layout": r"[Nn]chwToNhwc|[Nn]hwcToNchw|[Tt]ranspose|permute",
@@ -3965,7 +4007,8 @@ class Smoke:
         self.details[f"profile_{path}"] = dict(
             steps=steps, wall_ms_per_step=bare_ms / steps,
             device_ms_per_step=dev, flash_ms_per_step=flash,
-            gemm_ms_per_step=gemm, top=top[:12])
+            gemm_ms_per_step=gemm, top=top[:12],
+            kernels_per_step=sum(calls for _, _, calls in top))
 
     # -- 7. packing ---------------------------------------------------------------
 
@@ -6082,6 +6125,271 @@ class Smoke:
         del fresh, m2, model, net
         torch.cuda.empty_cache()
 
+    # -- 12. seq2seq ------------------------------------------------------------
+
+    def seq2seq(self):
+        """(a) every name this slice adds on the card against the CPU; (b)
+        the attention LSTM seq2seq at IWSLT'15 width trained through
+        paddle_tpu_torch.Model and beam-decoded; (c) its step parity (see
+        the module docstring)."""
+        self.torch.cuda.empty_cache()
+        self.seq2seq_ops()
+        net = self.seq2seq_fit()
+        self.seq2seq_decode(net)
+        del net
+        self.torch.cuda.empty_cache()
+        self.seq2seq_parity()
+
+    def seq2seq_ops(self):
+        """(a) Each group's cases (`_s2s_cases`) on the card against the
+        CPU (`_card_vs_cpu`), the "stat" ones on the card alone; a name
+        of a group's modules with no case fails, as in phase 11 (a)."""
+        torch = self.torch
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        groups = _s2s_groups(paddle)
+        results = {}
+        for group, table in _s2s_cases().items():
+            names = {n.split("#")[0] for n in table}
+            missing = sorted(set(groups[group]) - names)
+            misses, worst = [], 0.0
+            for name, (fn, tol) in table.items():
+                try:
+                    if tol == "stat":
+                        paddle.set_device("gpu")
+                        fn(paddle, _s2s_inputs(np, paddle, "cuda"))
+                        continue
+                    worst = max(worst, _card_vs_cpu(
+                        torch, np, paddle, fn, S2S_TOL.get(tol),
+                        _s2s_inputs))
+                except Exception as e:  # noqa: BLE001 — listed, then fail
+                    misses.append(f"{name}: {type(e).__name__}: {e}")
+            paddle.set_device("gpu")
+            held = len(table) - len(misses)
+            results[group] = dict(names=len(names), cases=len(table),
+                                  held=held, misses=misses + missing,
+                                  worst=worst)
+            print(f"seq2seq (a) {group} on {self.smi}: {len(names)} names "
+                  f"of {len(groups[group])} (without a case: {missing}), "
+                  f"{len(table)} cases, held {held}, worst err/limit "
+                  f"{worst:.3e}, misses {misses}")
+        self.details["seq2seq_ops"] = results
+        bad = {g: r["misses"] for g, r in results.items() if r["misses"]}
+        assert not bad, bad
+
+    def _seq2seq_model(self, dropout):
+        """The seq2seq at SEQ2SEQ's width, written as a user writes it
+        (seed 0, the default device: the card)."""
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch.models.seq2seq import seq2seq_attn
+        c = SEQ2SEQ
+        paddle.set_device("gpu")
+        paddle.seed(0)
+        return seq2seq_attn(src_vocab=c["SRC"], trg_vocab=c["TRG"],
+                            hidden=c["HIDDEN"], num_layers=c["LAYERS"],
+                            dropout=dropout, init_scale=c["INIT"])
+
+    def _seq2seq_prepared(self, net):
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch.models.seq2seq import seq2seq_criterion
+        spec = paddle.static.InputSpec
+        model = paddle.Model(net, inputs=[spec([None, None], "int32")] * 3,
+                             labels=[spec([None, None], "int32")] * 2)
+        opt = paddle.optimizer.Adam(
+            SEQ2SEQ["LR"],
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(SEQ2SEQ["CLIP"]))
+        return model.prepare(opt, seq2seq_criterion())
+
+    def seq2seq_fit(self):
+        """(b) SEQ2SEQ["STEPS"] fit steps at batch 128 of seeded reversal
+        batches (lengths 5-50): the loss finite and falling, K1-K7 and
+        the plain attention never run; step p50 on the device timeline,
+        target tokens/s, peak allocated bytes, one step profiled."""
+        torch = self.torch
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch.models.seq2seq import reversal_batch
+        from paddle_tpu_torch.nn.functional import attention
+        c = SEQ2SEQ
+        net = self._seq2seq_model(c["DROPOUT"])
+        n_params = sum(p.numel() for p in net.parameters())
+        rng = np.random.RandomState(0)
+        batches, tokens = [], []
+        for _ in range(c["STEPS"]):
+            arrays = reversal_batch(rng, c["B"], c["SRC"], c["TRG"],
+                                    c["MIN_LEN"], c["MAX_LEN"])
+            batches.append([paddle.to_tensor(a) for a in arrays])
+            tokens.append(int(arrays[4].sum()))
+        assert batches[0][0].device.type == "cuda"
+        model = self._seq2seq_prepared(net)
+        rec = self._step_recorder()
+        plain = [0]
+        ref = attention._sdpa_ref
+
+        def counted(*a, **k):
+            plain[0] += 1
+            return ref(*a, **k)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path starts here: every launch count from 0
+        self.zero_launches()
+        attention._sdpa_ref = counted
+        try:
+            t0 = time.perf_counter()
+            model.fit(batches, epochs=1, log_freq=c["STEPS"], verbose=0,
+                      callbacks=[rec])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            attention._sdpa_ref = ref
+        launches = self.record_path("seq2seq")
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(x) for x in rec.losses]
+        n, window, p50, gaps = self._step_times(rec)
+        tok_s = sum(tokens[2:]) / (window / 1e3)
+        print(f"seq2seq (b) on {self.smi}: attention LSTM seq2seq "
+              f"(vocab {c['SRC']}/{c['TRG']}, {c['LAYERS']} x "
+              f"{c['HIDDEN']}, {n_params / 1e6:.2f} M parameters), batch "
+              f"{c['B']}, {c['STEPS']} steps in {wall:.2f} s wall (first "
+              f"step included); step p50 {p50:.2f} ms (device timeline, "
+              f"steps 3-{c['STEPS']}); {tok_s:.1f} target tokens/s over "
+              f"the window ({sum(tokens[2:])} tokens in {window:.1f} ms); "
+              f"peak allocated {peak / 2**30:.3f} GiB; plain attention "
+              f"calls {plain[0]}; launches {launches}")
+        print("seq2seq per-step loss: " + " ".join(f"{x:.4f}"
+                                                   for x in losses))
+        self.details["seq2seq_fit"] = dict(
+            losses=losses, step_ms=gaps, step_ms_p50=p50, wall_s=wall,
+            window_ms=window, target_tokens=tokens,
+            target_tokens_per_s=tok_s, peak_bytes=peak, params=n_params,
+            launches=launches, plain_calls=plain[0])
+        assert all(np.isfinite(losses)), "non-finite seq2seq loss"
+        assert np.mean(losses[-3:]) < np.mean(losses[:3]), \
+            "the seq2seq loss did not fall"
+        assert not any(launches.values()), launches
+        assert plain[0] == 0, f"plain attention ran {plain[0]} times"
+        self.profile_train_step(model, batches[0][:3], batches[0][3:],
+                                "seq2seq")
+        return net
+
+    def seq2seq_decode(self, net):
+        """(b) Beam search of DECODE_ROWS held-out sources on the card and
+        on the CPU (the same weights): scores sorted, every sequence ends
+        in EOS or at the step limit, ids equal up to near-ties (each row's
+        first differing pick between totals within NEAR_TIE)."""
+        torch = self.torch
+        import copy
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch.models.seq2seq import EOS, reversal_batch
+        from paddle_tpu_torch.nn import decode
+        c = SEQ2SEQ
+        src, sl = reversal_batch(np.random.RandomState(1), c["DECODE_ROWS"],
+                                 c["SRC"], c["TRG"], c["MIN_LEN"],
+                                 c["MAX_LEN"])[:2]
+        limit = 2 * src.shape[1]
+        seen = []
+        finalize = decode.BeamSearchDecoder.finalize
+
+        def recording(dec, outputs, states, lengths):
+            seen.append([tuple(t.cpu() for t in o) for o in outputs])
+            return finalize(dec, outputs, states, lengths)
+
+        def run(model, device):
+            paddle.set_device(device)
+            args = [paddle.to_tensor(a) for a in (src, sl)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids, scores = model.beam_search(*args, beam_size=c["BEAM"],
+                                            max_step_num=limit)
+            torch.cuda.synchronize()
+            return ids.cpu(), scores.cpu(), time.perf_counter() - t0
+        net.eval()
+        cpu = copy.deepcopy(net).to("cpu")
+        decode.BeamSearchDecoder.finalize = recording
+        try:
+            ids, scores, wall = run(net, "gpu")
+            cids, cscores, cwall = run(cpu, "cpu")
+        finally:
+            decode.BeamSearchDecoder.finalize = finalize
+            paddle.set_device("gpu")
+        steps = ids.shape[0]
+        assert ids.shape[1:] == (c["DECODE_ROWS"], c["BEAM"]), ids.shape
+        assert bool((scores[:, :-1] >= scores[:, 1:]).all()), "unsorted"
+        ended = (ids == EOS).any(0)
+        assert steps == limit or bool(ended.all()), "a beam never ended"
+        flips, same_rows = [], 0
+        gsteps, csteps = seen
+        for b in range(c["DECODE_ROWS"]):
+            first = None
+            for t in range(min(len(gsteps), len(csteps))):
+                gt, gp, gv = (x[b] for x in gsteps[t])
+                ct, cp, cv = (x[b] for x in csteps[t])
+                diff = ((gt != ct) | (gp != cp)).nonzero()
+                if len(diff):
+                    k = int(diff[0])
+                    first = (t, k, abs(float(gv[k]) - float(cv[k])))
+                    break
+            if first is None:
+                same_rows += 1
+                assert torch.equal(ids[:, b], cids[:, b]), b
+                continue
+            flips.append((b,) + first)
+        ms_step = wall * 1e3 / steps
+        print(f"seq2seq (b) beam search on {self.smi}: {c['DECODE_ROWS']} "
+              f"sources (lengths {int(sl.min())}-{int(sl.max())}), beam "
+              f"{c['BEAM']}, limit {limit}: {steps} steps in "
+              f"{wall * 1e3:.1f} ms ({ms_step:.2f} ms a step, "
+              f"{c['DECODE_ROWS'] / wall:.1f} sentences/s; the CPU decode "
+              f"{cwall * 1e3:.1f} ms); beams ended in EOS "
+              f"{int(ended.sum())} of {ended.numel()}; rows identical to "
+              f"the CPU decode {same_rows}, first flips (row, step, rank, "
+              f"score gap) {flips}")
+        self.details["seq2seq_decode"] = dict(
+            steps=steps, limit=limit, wall_ms=wall * 1e3, ms_per_step=ms_step,
+            sentences_per_s=c["DECODE_ROWS"] / wall, cpu_wall_ms=cwall * 1e3,
+            ended=int(ended.sum()), same_rows=same_rows, flips=flips)
+        assert all(gap < NEAR_TIE for _, _, _, gap in flips), flips
+
+    def seq2seq_parity(self):
+        """(c) One train_batch (update=False) at batch PARITY_B, dropout 0,
+        on the card against the port's CPU step on the same weights: the
+        loss to rtol 1e-5, every gradient within phase 6's fp32 limits
+        (1e-3 x its largest + 1e-6 x the model's largest)."""
+        torch = self.torch
+        import copy
+        import numpy as np
+        from paddle_tpu_torch.models.seq2seq import reversal_batch
+        c = SEQ2SEQ
+        net = self._seq2seq_model(0.0)
+        cpu = copy.deepcopy(net).to("cpu")
+        arrays = reversal_batch(np.random.RandomState(2), c["PARITY_B"],
+                                c["SRC"], c["TRG"], c["MIN_LEN"],
+                                c["MAX_LEN"])
+        out = []
+        for m in (net, cpu):
+            model = self._seq2seq_prepared(m)
+            (lv,), _ = model.train_batch(
+                [torch.from_numpy(a) for a in arrays[:3]],
+                [torch.from_numpy(a) for a in arrays[3:]], update=False)
+            out.append((float(lv), {n: p.grad.detach().cpu()
+                                    for n, p in m.named_parameters()}))
+        (lg, gg), (lc, gc) = out
+        floor = 1e-6 * max(g.abs().max().item() for g in gc.values())
+        worst = max(((gg[n] - gc[n]).abs().max().item()
+                     / (1e-3 * gc[n].abs().max().item() + floor), n)
+                    for n in gc)
+        print(f"seq2seq (c) step parity on {self.smi}, batch "
+              f"{c['PARITY_B']}: loss card {lg!r} CPU {lc!r}; worst "
+              f"gradient max_abs_err / its tolerance {worst[0]:.3e} "
+              f"({worst[1]})")
+        self.details["seq2seq_parity"] = dict(
+            loss_card=lg, loss_cpu=lc, worst_grad_over_tol=worst[0],
+            worst_param=worst[1])
+        assert abs(lg - lc) <= 1e-5 * abs(lc), "seq2seq step-parity loss"
+        assert worst[0] <= 1.0, f"seq2seq step-parity gradient {worst[1]}"
+        del net, cpu
+
     def kernels_line(self):
         srcs = {"paged_attention": (
                     "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -6435,17 +6743,23 @@ def _api_random_cases(d):
 
 
 def _api_compare(torch, np, paddle, fam, name, fn, tols):
-    """Case `name` of family `fam` on the card against the CPU: the same
-    types and shapes, every card result on the card, the values exact or
-    within the case's limit x max(1, max |CPU result|); returns the
-    worst error over its limit (0 when exact)."""
+    """Case `name` of family `fam` (phase 11 (a)) on the card against the
+    CPU (`_card_vs_cpu`)."""
     fam_tol, one_tol = tols
     tol = one_tol.get((fam, name), fam_tol.get(fam))
+    return _card_vs_cpu(torch, np, paddle, fn, tol, _api_inputs)
+
+
+def _card_vs_cpu(torch, np, paddle, fn, tol, inputs):
+    """fn(paddle, inputs(np, paddle, device)) on the card against the
+    CPU: the same types and shapes, every card result on the card, the
+    values exact (tol None) or within tol x max(1, max |CPU result|);
+    returns the worst error over its limit (0 when exact)."""
     paddle.set_device("gpu")
-    got = fn(paddle, _api_inputs(np, paddle, "cuda"))
+    got = fn(paddle, inputs(np, paddle, "cuda"))
     paddle.set_device("cpu")
     try:
-        want = fn(paddle, _api_inputs(np, paddle, "cpu"))
+        want = fn(paddle, inputs(np, paddle, "cpu"))
     finally:
         paddle.set_device("gpu")
 
@@ -6460,7 +6774,7 @@ def _api_compare(torch, np, paddle, fam, name, fn, tols):
         assert torch.is_tensor(a) and a.device.type == "cuda", type(a)
         assert a.dtype == b.dtype and a.shape == b.shape, (
             a.dtype, b.dtype, tuple(a.shape), tuple(b.shape))
-        a = a.detach().cpu()
+        a, b = a.detach().cpu(), b.detach()
         if tol is None or not (a.is_floating_point() or a.is_complex()):
             assert torch.equal(a, b) or (
                 a.is_floating_point() and torch.equal(a.isnan(), b.isnan())
@@ -6474,6 +6788,469 @@ def _api_compare(torch, np, paddle, fam, name, fn, tols):
         worst = max(worst, err / (tol * scale))
         assert err <= tol * scale, (err, tol * scale)
     return worst
+
+
+def _s2s_inputs(np, paddle, device):
+    """Phase 12 (a)'s inputs, made from one numpy seed, on `device`."""
+    rng = np.random.RandomState(0)
+
+    def f(*shape, lo=None, hi=None):
+        if lo is None:
+            return rng.standard_normal(shape).astype(np.float32)
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+    a = dict(X4=f(2, 4, 6, 8), GRID=f(2, 5, 7, 2, lo=-1.2, hi=1.2),
+             THETA=f(2, 2, 3, lo=-1.0, hi=1.0), COLS=f(2, 36, 24),
+             A=f(6, 5), B=f(6, 5), PROB=f(6, 5, lo=0.05, hi=0.95),
+             U=f(6, 4), V=f(6, 4), W=f(6, 4), B1=f(6, 3), B2=f(6, 4),
+             SEQ=f(3, 9, 5), XS=f(3, 5), H=f(3, 6), C=f(3, 6),
+             P0=f(4, 3), P1=f(5), G=f(3, 4, 3) * 1.5, G1=f(3, 5) * 1.5,
+             TABLE=np.full(8, -5.0, np.float32), SP=f(3, 4),
+             VOL=f(1, 2, 4, 6, 5), SIG=f(3, 2, 8), BW=f(5, 3, 4),
+             BB=f(5))
+    a["TABLE"][[1, 3]] = (1.0, 2.0)
+    a["Y01"] = (f(6, 5, lo=0, hi=1) > 0.5).astype(np.float32)
+    a["PM1"] = np.where(f(6) > 0, 1.0, -1.0).astype(np.float32)
+    a["LOGP"] = (a["A"] - np.log(np.exp(a["A"]).sum(1, keepdims=True))
+                 ).astype(np.float32)
+    a["LAB"] = rng.randint(0, 5, 6).astype(np.int32)
+    a["LAB1"] = rng.randint(0, 5, (6, 1)).astype(np.int32)
+    a["IDS"] = rng.randint(-1, 6, (3, 4)).astype(np.int32)
+    a["LENS"] = np.array([2, 0, 5], np.int32)
+    a["TREE_IDS"] = rng.randint(0, 9, (5, 2, 3)).astype(np.int32)
+    a["TREE_PAR"] = rng.randint(0, 3, (5, 2, 3)).astype(np.int32)
+    a["CTC"] = np.log(rng.dirichlet(np.ones(5), (7, 3))).astype(np.float32)
+    a["CTC_LAB"] = np.array([[1, 2, 2], [3, 1, 0], [4, 4, 4]], np.int32)
+    a["CTC_IL"] = np.array([7, 5, 6], np.int32)
+    a["CTC_LL"] = np.array([3, 2, 1], np.int32)
+    x = f(2, 3, 8, 8)
+    win = x.reshape(2, 3, 4, 2, 4, 2).transpose(0, 1, 2, 4, 3, 5)
+    arg = win.reshape(2, 3, 4, 4, 4).argmax(-1)
+    a["UNPOOL_IDX"] = ((np.arange(4)[:, None] * 2 + arg // 2) * 8
+                       + np.arange(4)[None, :] * 2 + arg % 2
+                       ).astype(np.int32)
+    a["UNPOOL"] = np.take_along_axis(win.reshape(2, 3, 4, 4, 4),
+                                     arg[..., None], -1)[..., 0]
+    d = {k: paddle.to_tensor(v, place=device) for k, v in a.items()}
+    d["np"], d["device"] = a, device
+    return d
+
+
+def _s2s_built(P, d, make):
+    """`make()` built on the CPU after P.seed(0), moved to d's device (so
+    the card and the CPU runs hold the same weights)."""
+    prev = P.get_device()
+    P.set_device("cpu")
+    try:
+        P.seed(0)
+        module = make()
+    finally:
+        P.set_device(prev)
+    return module.to(d["device"])
+
+
+def _s2s_grads(P, d, out, leaves):
+    """The gradients of sum(out * w) (w from a fixed seed) for `leaves`,
+    zeros where a leaf has no path to `out`."""
+    import numpy as np
+    import torch
+    w = np.random.RandomState(7).standard_normal(tuple(out.shape))
+    (out * P.to_tensor(w.astype(np.float32), place=d["device"])).sum(
+        ).backward()
+    return [x.grad if x.grad is not None else torch.zeros_like(x)
+            for x in leaves]
+
+
+def _s2s_groups(P):
+    """{group: the names this slice adds, from the modules' __all__}."""
+    old = {"linear", "dropout", "embedding", "cross_entropy", "Linear",
+           "Dropout", "Embedding", "CrossEntropyLoss", "SGD", "Momentum",
+           "Adam", "AdamW"}
+    nn, F = P.nn, P.nn.functional
+
+    def new(*mods):
+        return [n for m in mods for n in m.__all__ if n not in old]
+    return {"functional": new(F.common, P.ops.extra_ops),
+            "loss": new(F.loss),
+            "layers": ["Layer"] + new(nn.layer.common, nn.layer.loss),
+            "rnn": new(nn.layer.rnn, nn.decode),
+            "clip_utils": new(nn.clip, nn.utils),
+            "optimizer": new(P.optimizer.optimizers)}
+
+
+def _s2s_cases():
+    """Phase 12 (a): {group: {case: (fn(P, d), tol)}}; tol None is exact,
+    "float" / "rnn" index S2S_TOL, "stat" runs on the card only and
+    asserts statistics."""
+    import numpy as np
+    import torch
+
+    def F(P):
+        return P.nn.functional
+
+    def fn_case(name, *keys, **kw):
+        def fn(P, d):
+            return getattr(F(P), name)(*[d[k] if isinstance(k, str) else k
+                                         for k in keys], **kw)
+        return fn
+
+    def layer_case(name, cargs, keys, **kw):
+        def fn(P, d):
+            layer = _s2s_built(P, d, lambda: getattr(P.nn, name)(*cargs,
+                                                                 **kw))
+            assert isinstance(layer, P.nn.Layer)
+            return layer(*[d[k] for k in keys])
+        return fn
+
+    def dropout_stats(P, d):
+        dev = d["device"]
+        P.seed(3)
+        x = torch.ones(64, 32, 4, 4, device=dev)
+        for y in (F(P).dropout2d(x, 0.25), P.nn.Dropout2D(0.25)(x)):
+            per = y.reshape(64, 32, -1)
+            assert bool(((per == 0).all(-1) | (per == 1 / 0.75).all(-1))
+                        .all()), "dropout2d: a channel half dropped"
+            share = float((per[..., 0] == 0).float().mean())
+            assert abs(share - 0.25) < 0.04, share
+        z = torch.ones(64, 64, 2, 3, 3, device=dev)
+        for y in (F(P).dropout3d(z, 0.5), P.nn.Dropout3D(0.5)(z)):
+            y = y.reshape(64, 64, -1)
+            assert bool(((y == 0).all(-1) | (y == 2).all(-1)).all()), \
+                "dropout3d: a channel half dropped"
+            share = float((y[..., 0] == 0).float().mean())
+            assert abs(share - 0.5) < 0.04, share
+        n = torch.randn(400_000, device=dev)
+        for y in (F(P).alpha_dropout(n, 0.2), P.nn.AlphaDropout(0.2)(n)):
+            assert abs(float(y.mean())) < 0.01, float(y.mean())
+            assert abs(float(y.std()) - 1) < 0.01, float(y.std())
+        for layer in (P.nn.Dropout2D(0.5), P.nn.Dropout3D(0.5),
+                      P.nn.AlphaDropout(0.5)):
+            layer.eval()
+            assert layer(x) is x
+        assert F(P).dropout2d(x, 0.0) is x
+        return []
+
+    def interp(size, mode, key="X4", df="NCHW"):
+        return fn_case("interpolate", key, size=size, mode=mode,
+                       data_format=df)
+
+    functional = {
+        "dropout2d": (dropout_stats, "stat"),
+        "dropout3d": (dropout_stats, "stat"),
+        "alpha_dropout": (dropout_stats, "stat"),
+        "one_hot": (fn_case("one_hot", "IDS", 5), None),
+        "label_smooth": (fn_case("label_smooth", "PROB", epsilon=0.2),
+                         "float"),
+        "pad": (fn_case("pad", "X4", [1, 2, 0, 3], mode="reflect"), None),
+        "interpolate": (interp([9, 13], "bilinear"), "float"),
+        "interpolate#bicubic_down": (interp([3, 5], "bicubic"), "float"),
+        "interpolate#nearest": (interp([13, 5], "nearest"), None),
+        "interpolate#area": (interp([2, 5], "area"), "float"),
+        "interpolate#linear": (interp([17], "linear", "SIG", "NCL"),
+                               "float"),
+        "interpolate#trilinear": (interp([5, 3, 9], "trilinear", "VOL",
+                                         "NCDHW"), "float"),
+        "upsample": (fn_case("upsample", "X4", scale_factor=2), None),
+        "cosine_similarity": (fn_case("cosine_similarity", "U", "V"),
+                              "float"),
+        "pairwise_distance": (fn_case("pairwise_distance", "U", "V",
+                                      p=3.0), "float"),
+        "normalize": (fn_case("normalize", "U", axis=-1), "float"),
+        "pixel_shuffle": (fn_case("pixel_shuffle", "X4", 2), None),
+        "unfold": (fn_case("unfold", "X4", [3, 2], strides=[1, 2],
+                           paddings=[1, 0, 2, 1], dilations=[2, 1]), None),
+        "fold": (fn_case("fold", "COLS", [6, 7], 3, strides=[1, 2],
+                         paddings=[1, 1]), "float"),
+        "bilinear": (fn_case("bilinear", "B1", "B2", "BW", "BB"), "float"),
+        "sequence_mask": (fn_case("sequence_mask", "LENS", maxlen=6,
+                                  dtype="float32"), None),
+        "sequence_mask#none": (fn_case("sequence_mask", "LENS"), None),
+        "grid_sample": (fn_case("grid_sample", "X4", "GRID",
+                                align_corners=False), "float"),
+        "grid_sample#nearest": (fn_case("grid_sample", "X4", "GRID",
+                                        mode="nearest"), "float"),
+        "grid_sample#reflection": (fn_case("grid_sample", "X4", "GRID",
+                                           padding_mode="reflection"),
+                                   "float"),
+        "affine_grid": (fn_case("affine_grid", "THETA", [2, 3, 5, 4]),
+                        "float"),
+        "channel_shuffle": (fn_case("channel_shuffle", "X4", 2), None),
+        "pixel_unshuffle": (fn_case("pixel_unshuffle", "X4", 2), None),
+        "max_unpool2d": (fn_case("max_unpool2d", "UNPOOL", "UNPOOL_IDX", 2),
+                         None),
+        "gather_tree": (fn_case("gather_tree", "TREE_IDS", "TREE_PAR"),
+                        None),
+    }
+    ctc = ("CTC", "CTC_LAB", "CTC_IL", "CTC_LL")
+    loss = {
+        "softmax_with_cross_entropy": (fn_case(
+            "softmax_with_cross_entropy", "A", "LAB1", return_softmax=True),
+            "float"),
+        "mse_loss": (fn_case("mse_loss", "A", "B"), "float"),
+        "l1_loss": (fn_case("l1_loss", "A", "B", reduction="none"),
+                    "float"),
+        "nll_loss": (fn_case("nll_loss", "LOGP", "LAB"), "float"),
+        "kl_div": (fn_case("kl_div", "LOGP", "PROB"), "float"),
+        "smooth_l1_loss": (fn_case("smooth_l1_loss", "A", "B", delta=0.7),
+                           "float"),
+        "binary_cross_entropy": (fn_case("binary_cross_entropy", "PROB",
+                                         "Y01"), "float"),
+        "binary_cross_entropy_with_logits": (fn_case(
+            "binary_cross_entropy_with_logits", "A", "Y01"), "float"),
+        "margin_ranking_loss": (lambda P, d: F(P).margin_ranking_loss(
+            d["A"][:, 0], d["B"][:, 0], d["PM1"], 0.3), "float"),
+        "hinge_embedding_loss": (lambda P, d: F(P).hinge_embedding_loss(
+            d["A"][:, 0], d["PM1"]), "float"),
+        "cosine_embedding_loss": (fn_case("cosine_embedding_loss", "U", "V",
+                                          "PM1", margin=0.1), "float"),
+        "triplet_margin_loss": (fn_case("triplet_margin_loss", "U", "V",
+                                        "W", swap=True), "float"),
+        "log_loss": (fn_case("log_loss", "PROB", "Y01"), "float"),
+        "square_error_cost": (fn_case("square_error_cost", "A", "B"),
+                              "float"),
+        "sigmoid_focal_loss": (fn_case("sigmoid_focal_loss", "A", "Y01"),
+                               "float"),
+        "dice_loss": (fn_case("dice_loss", "PROB", "LAB1"), "float"),
+        "npair_loss": (lambda P, d: F(P).npair_loss(
+            d["U"], d["V"], d["LAB"] % 3), "float"),
+        "ctc_loss": (fn_case("ctc_loss", *ctc), "float"),
+    }
+
+    def custom_layer(P, d):
+        class Net(P.nn.Layer):
+            def __init__(self):
+                super().__init__()
+                self.w = self.create_parameter([5, 4])
+                self.b = self.create_parameter([4], is_bias=True)
+
+            def forward(self, x):
+                return x @ self.w + self.b
+        net = _s2s_built(P, d, Net)
+        out = net(d["XS"])
+        return [out] + _s2s_grads(P, d, out, list(net.parameters()))
+
+    layers = {
+        "Layer": (custom_layer, "float"),
+        "Dropout2D": (dropout_stats, "stat"),
+        "Dropout3D": (dropout_stats, "stat"),
+        "AlphaDropout": (dropout_stats, "stat"),
+        "Flatten": (layer_case("Flatten", (), ["X4"]), None),
+        "Identity": (layer_case("Identity", (), ["X4"]), None),
+        "Upsample": (layer_case("Upsample", (), ["X4"], scale_factor=2,
+                                mode="bicubic"), "float"),
+        "UpsamplingNearest2D": (layer_case("UpsamplingNearest2D", (),
+                                           ["X4"], size=[5, 11]), None),
+        "UpsamplingBilinear2D": (layer_case("UpsamplingBilinear2D", (),
+                                            ["X4"], size=[3, 12]), "float"),
+        "Pad1D": (layer_case("Pad1D", ([1, 2],), ["SIG"],
+                             mode="replicate"), None),
+        "Pad2D": (layer_case("Pad2D", ([1, 0, 2, 1],), ["X4"], value=0.5),
+                  None),
+        "Pad3D": (layer_case("Pad3D", ([1, 0, 2, 1, 0, 1],), ["VOL"],
+                             mode="circular"), None),
+        "Bilinear": (layer_case("Bilinear", (3, 4, 5), ["B1", "B2"]),
+                     "float"),
+        "CosineSimilarity": (layer_case("CosineSimilarity", (), ["U", "V"]),
+                             "float"),
+        "PairwiseDistance": (layer_case("PairwiseDistance", (), ["U", "V"]),
+                             "float"),
+        "PixelShuffle": (layer_case("PixelShuffle", (2,), ["X4"]), None),
+        "Unfold": (layer_case("Unfold", ([2, 3],), ["X4"], strides=2),
+                   None),
+        "MSELoss": (layer_case("MSELoss", (), ["A", "B"]), "float"),
+        "L1Loss": (layer_case("L1Loss", (), ["A", "B"]), "float"),
+        "NLLLoss": (layer_case("NLLLoss", (), ["LOGP", "LAB"]), "float"),
+        "KLDivLoss": (layer_case("KLDivLoss", (), ["LOGP", "PROB"],
+                                 reduction="batchmean"), "float"),
+        "SmoothL1Loss": (layer_case("SmoothL1Loss", (), ["A", "B"]),
+                         "float"),
+        "BCELoss": (layer_case("BCELoss", (), ["PROB", "Y01"]), "float"),
+        "BCEWithLogitsLoss": (layer_case("BCEWithLogitsLoss", (),
+                                         ["A", "Y01"]), "float"),
+        "MarginRankingLoss": (layer_case("MarginRankingLoss", (),
+                                         ["U", "V", "W"]), "float"),
+        "HingeEmbeddingLoss": (layer_case("HingeEmbeddingLoss", (),
+                                          ["U", "W"]), "float"),
+        "CosineEmbeddingLoss": (layer_case("CosineEmbeddingLoss", (),
+                                           ["U", "V", "PM1"]), "float"),
+        "TripletMarginLoss": (layer_case("TripletMarginLoss", (),
+                                         ["U", "V", "W"]), "float"),
+        "CTCLoss": (layer_case("CTCLoss", (), list(ctc)), "float"),
+    }
+
+    def rnn_case(cls, *cargs, time_major=False, **kw):
+        def fn(P, d):
+            layer = _s2s_built(P, d, lambda: getattr(P.nn, cls)(
+                *cargs, time_major=time_major, **kw))
+            x = d["SEQ"].transpose(0, 1) if time_major else d["SEQ"]
+            x = x.contiguous().requires_grad_()
+            out, st = layer(x)
+            return [out, st] + _s2s_grads(P, d, out,
+                                          [x] + list(layer.parameters()))
+        return fn
+
+    def cell_case(cls, **kw):
+        def fn(P, d):
+            cell = _s2s_built(P, d, lambda: getattr(P.nn, cls)(5, 6, **kw))
+            x = d["XS"].clone().requires_grad_()
+            st = (d["H"], d["C"]) if cls == "LSTMCell" else d["H"]
+            out, new = cell(x, st)
+            return [out, new] + _s2s_grads(P, d, out,
+                                           [x] + list(cell.parameters()))
+        return fn
+
+    def loop_case(bidirectional):
+        def fn(P, d):
+            def make():
+                if bidirectional:
+                    return P.nn.BiRNN(P.nn.LSTMCell(5, 6),
+                                      P.nn.LSTMCell(5, 6))
+                return P.nn.RNN(P.nn.GRUCell(5, 6), is_reverse=True)
+            rnn = _s2s_built(P, d, make)
+            x = d["SEQ"].clone().requires_grad_()
+            out, st = rnn(x)
+            return [out, st] + _s2s_grads(P, d, out,
+                                          [x] + list(rnn.parameters()))
+        return fn
+
+    class _FixedCell:
+        def __init__(self, table):
+            self.table = table
+
+        def __call__(self, inputs, states):
+            return self.table.expand(inputs.shape[0], -1), states
+
+    def beam(P, d):
+        dec = P.nn.BeamSearchDecoder(_FixedCell(d["TABLE"]), 0, 1, 3)
+        (seqs, scores), _ = P.nn.dynamic_decode(dec, inits=d["H"],
+                                                max_step_num=4)
+        return [seqs, scores]
+
+    def beam_real(P, d):
+        def make():
+            return P.nn.LayerList([P.nn.Embedding(8, 6),
+                                   P.nn.LSTMCell(6, 6), P.nn.Linear(6, 8)])
+        emb, cell, proj = _s2s_built(P, d, make)
+        dec = P.nn.BeamSearchDecoder(cell, 0, 1, 3, embedding_fn=emb,
+                                     output_fn=proj)
+        with torch.no_grad():
+            (seqs, scores), _ = P.nn.dynamic_decode(
+                dec, inits=(d["H"], d["C"]), max_step_num=5)
+        return [seqs, scores]
+
+    def decoder(P, d):
+        class Count(P.nn.Decoder):
+            def initialize(self, inits):
+                return inits, inits, inits > 100
+
+            def step(self, time, inputs, states, **kwargs):
+                new = states + 1
+                return new, new, new, new > 3
+        outs, final = P.nn.dynamic_decode(Count(), inits=d["LENS"],
+                                          max_step_num=10)
+        return list(outs) + [final]
+
+    rnn = {
+        "SimpleRNNCell": (cell_case("SimpleRNNCell", activation="relu"),
+                          "rnn"),
+        "LSTMCell": (cell_case("LSTMCell"), "rnn"),
+        "GRUCell": (cell_case("GRUCell"), "rnn"),
+        "RNN": (loop_case(False), "rnn"),
+        "BiRNN": (loop_case(True), "rnn"),
+        "SimpleRNN": (rnn_case("SimpleRNN", 5, 6), "rnn"),
+        "SimpleRNN#relu": (rnn_case("SimpleRNN", 5, 6, activation="relu"),
+                           "rnn"),
+        "LSTM": (rnn_case("LSTM", 5, 6), "rnn"),
+        "LSTM#bidirect_2layers": (rnn_case("LSTM", 5, 6, num_layers=2,
+                                           direction="bidirect"), "rnn"),
+        "GRU": (rnn_case("GRU", 5, 6), "rnn"),
+        "GRU#2layers_time_major": (rnn_case("GRU", 5, 6, num_layers=2,
+                                            time_major=True), "rnn"),
+        "Decoder": (decoder, None),
+        "BeamSearchDecoder": (beam, "float"),
+        "BeamSearchDecoder#real_cell": (beam_real, "float"),
+        "dynamic_decode": (beam, "float"),
+    }
+
+    def two_linear(P, d):
+        def make():
+            return P.nn.Sequential(
+                P.nn.Linear(4, 5, weight_attr=P.ParamAttr(need_clip=False)),
+                P.nn.Linear(5, 3))
+        net = _s2s_built(P, d, make)
+        return [(p, p.detach() * 7.0) for p in net.parameters()]
+
+    def clip_case(cls, arg):
+        def fn(P, d):
+            pairs = two_linear(P, d)
+            return [g for _, g in getattr(P.nn, cls)(arg)(pairs)]
+        return fn
+
+    def wn_case(P, d):
+        lin = _s2s_built(P, d, lambda: P.nn.utils.weight_norm(
+            P.nn.Linear(5, 4), dim=1))
+        out = lin(d["XS"])
+        grads = _s2s_grads(P, d, out, [lin.weight_g, lin.weight_v])
+        P.nn.utils.remove_weight_norm(lin)
+        return [out] + grads + [lin(d["XS"])]
+
+    def sn_case(P, d):
+        lin = _s2s_built(P, d, lambda: P.nn.utils.spectral_norm(
+            P.nn.Linear(5, 4), n_power_iterations=2))
+        return lin(d["XS"])
+
+    def vec_case(P, d):
+        cell = _s2s_built(P, d, lambda: P.nn.GRUCell(3, 4))
+        v = P.nn.utils.parameters_to_vector(cell.parameters()).detach()
+        P.nn.utils.vector_to_parameters(v * 2, cell.parameters())
+        return [v] + [p.detach() for p in cell.parameters()]
+
+    def pytree_case(P, d):
+        out = P.nn.clip.clip_by_global_norm_pytree(
+            {"b": [d["A"], d["U"]], "a": (d["XS"],)}, 0.5)
+        return list(out["a"]) + out["b"]
+
+    clip_utils = {
+        "ClipGradByValue": (clip_case("ClipGradByValue", 0.5), "float"),
+        "ClipGradByNorm": (clip_case("ClipGradByNorm", 0.1), "float"),
+        "ClipGradByGlobalNorm": (clip_case("ClipGradByGlobalNorm", 0.1),
+                                 "float"),
+        "clip_by_global_norm_pytree": (pytree_case, "float"),
+        "weight_norm": (wn_case, "float"),
+        "remove_weight_norm": (wn_case, "float"),
+        "spectral_norm": (sn_case, "float"),
+        "parameters_to_vector": (vec_case, None),
+        "vector_to_parameters": (vec_case, None),
+    }
+
+    def opt_case(cls, **kw):
+        def fn(P, d):
+            ps = [torch.nn.Parameter(d["P0"].clone()),
+                  torch.nn.Parameter(d["P1"].clone())]
+            opt = getattr(P.optimizer, cls)(
+                parameters=ps, grad_clip=P.nn.ClipGradByGlobalNorm(1.0),
+                **kw)
+            for i in range(3):
+                ps[0].grad, ps[1].grad = d["G"][i], d["G1"][i]
+                opt.step()
+                opt.clear_grad()
+            return ps + [v for p in ps for _, v in
+                         sorted(opt._accumulators[id(p)].items())]
+        return fn
+
+    optimizer = {
+        "Adamax": (opt_case("Adamax", learning_rate=0.02,
+                            weight_decay=0.01), "float"),
+        "Adagrad": (opt_case("Adagrad", learning_rate=0.05,
+                             initial_accumulator_value=0.1), "float"),
+        "Adadelta": (opt_case("Adadelta", learning_rate=0.5), "float"),
+        "RMSProp": (opt_case("RMSProp", learning_rate=0.01, momentum=0.9,
+                             centered=True), "float"),
+        "Lamb": (opt_case("Lamb", learning_rate=0.01), "float"),
+        "LarsMomentum": (opt_case("LarsMomentum", learning_rate=0.1),
+                         "float"),
+    }
+    return {"functional": functional, "loss": loss, "layers": layers,
+            "rnn": rnn, "clip_utils": clip_utils, "optimizer": optimizer}
 
 
 def _ptxas_kernels(log):
@@ -6588,6 +7365,7 @@ def main(argv=None):
             sm.phase("vision", sm.vision)
             sm.phase("export", sm.export)
             sm.phase("api", sm.api)
+            sm.phase("seq2seq", sm.seq2seq)
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)),
                     exist_ok=True)

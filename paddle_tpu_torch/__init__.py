@@ -67,7 +67,16 @@ Ported so far:
   with `set_device` / `get_device` (the default device is the CUDA
   card; `set_device("cpu")` asks for the CPU) and `device`;
 - GPT's mixture-of-experts feed-forward (`GPTConfig(use_moe=True)`,
-  `models.gpt.MoEFeedForward`), trained through `Model`.
+  `models.gpt.MoEFeedForward`), trained through `Model`;
+- the rest of `nn`: `nn.Layer` (a torch module with the reference's
+  methods), the recurrent layers (`LSTM`, `GRU`, `SimpleRNN`, the
+  cells, `RNN`, `BiRNN`), `BeamSearchDecoder` / `dynamic_decode`, the
+  remaining losses and common layers with their functionals, gradient
+  clipping by value and by norm, `nn.utils`, `ParamAttr`'s `need_clip`,
+  the optimizers Adamax, Adagrad, Adadelta, RMSProp, Lamb and
+  LarsMomentum, and `affine_grid` / `gather_tree` here; with them
+  `models.seq2seq`, an attention LSTM encoder-decoder built from either
+  package's public API.
 """
 from . import amp, framework, hapi, io, metric, models, nn, ops  # noqa: F401
 from . import optimizer, profiler, quantization  # noqa: F401
@@ -96,6 +105,7 @@ from .framework.io_state import load, save  # noqa: F401
 from .framework.param_attr import ParamAttr  # noqa: F401
 from .autograd import enable_grad, grad, is_grad_enabled, no_grad  # noqa
 from .hapi.model import Model  # noqa: F401
+from .ops.extra_ops import affine_grid, gather_tree  # noqa: F401
 
 
 

@@ -4,8 +4,10 @@ learning-rate scale, regularizer and trainability, as one argument.
 
 The port's layers that take `weight_attr` / `bias_attr` call the attr on
 the new parameter, so a `ParamAttr` is callable: it fills the tensor
-with its initializer (when it has one) and, with `trainable=False`,
-turns the parameter's gradient off. A bare `nn.initializer` instance
+with its initializer (when it has one), turns the parameter's gradient
+off with `trainable=False`, and sets the parameter's `need_clip`, which
+the `nn.ClipGrad*` classes read, as the JAX package stores it on its
+`Parameter`. A bare `nn.initializer` instance
 works there too, and `False` drops a bias where the layer allows it."""
 from __future__ import annotations
 
@@ -27,11 +29,12 @@ class ParamAttr:
     def __call__(self, tensor):
         if self.initializer is not None:
             self.initializer(tensor)
+        # a layer may hand over a view of its parameter (Linear's
+        # [in, out] transpose)
+        base = tensor if tensor._base is None else tensor._base
         if not self.trainable:
-            # a layer may hand over a view of its parameter (Linear's
-            # [in, out] transpose)
-            base = tensor if tensor._base is None else tensor._base
             base.requires_grad_(False)
+        base.need_clip = bool(self.need_clip)
         return tensor
 
     @staticmethod

@@ -502,7 +502,9 @@ def load_reference_state(model: nn.Module, arrays) -> None:
     `model` (any `nn.Module` whose names match the `paddle_tpu` layer's,
     such as GPTForCausalLM) by parameter and buffer name. `paddle_tpu`
     stores Linear weights [in, out] and PyTorch [out, in], so every
-    `nn.Linear` weight is transposed, and so is the integer weight of a
+    `nn.Linear` weight is transposed (with the `weight_g`, `weight_v`
+    and `weight_orig` that `nn.utils` puts in its place), and so is the
+    integer weight of a
     `quantization.WeightOnlyLinear` (int8 [in, out], or int4 packed
     [in, ceil(out / 2)] along the output axis): the JAX package's integers
     and scales are carried across as they are, never re-quantized;
@@ -510,8 +512,11 @@ def load_reference_state(model: nn.Module, arrays) -> None:
     InvalidArgumentError on a missing, extra or mis-shaped key."""
     def pre(n):
         return f"{n}." if n else ""
-    linear = {f"{pre(n)}weight" for n, m in model.named_modules()
-              if isinstance(m, nn.Linear)}
+    # a Linear's weight, and the weight-norm / spectral-norm parameters
+    # that stand for it (`nn.utils`), are the reference's transposed
+    linear = {f"{pre(n)}{w}" for n, m in model.named_modules()
+              if isinstance(m, nn.Linear)
+              for w in ("weight", "weight_g", "weight_v", "weight_orig")}
     linear |= {f"{pre(n)}{qname}" for n, m in model.named_modules()
                if hasattr(m, "quant_weight_spec")
                for qname, _, _ in m.quant_weight_spec()}

@@ -1,36 +1,96 @@
-"""Gradient clipping by global norm (port of
-`paddle_tpu.nn.clip.ClipGradByGlobalNorm`, `clip.py:66-94` there;
-reference `python/paddle/fluid/clip.py`)."""
+"""Gradient clipping (port of `paddle_tpu.nn.clip`; reference
+`python/paddle/fluid/clip.py`): by value, by each gradient's norm and by
+the global norm.
+
+Each class has two entries, as in the JAX package:
+- `__call__(params_grads)` takes (parameter, gradient) pairs and passes a
+  pair through unclipped when its gradient is None or its parameter has
+  `need_clip` False (set by `ParamAttr(need_clip=False)`); such a pair
+  takes no part in the global norm either (`paddle_tpu/nn/clip.py:32, 50,
+  74, 83`).
+- `_clip_grads(grads)` takes a list of gradients and clips every one: it
+  is the optimizers' seam (`optimizer.Optimizer.step`), which ignores
+  `need_clip` as the JAX package's `_tree_clip` does.
+Everything stays on the device: no host sync."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ClipGradByGlobalNorm"]
+from ..ops._util import nest_leaves, nest_map
+
+__all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
+           "clip_by_global_norm_pytree"]
 
 
-class ClipGradByGlobalNorm:
+def _clipped(p):
+    return getattr(p, "need_clip", True)
+
+
+class _ClipGradBase:
+    def _clip_grads(self, grads):
+        raise NotImplementedError
+
+    def __call__(self, params_grads):
+        """(param, grad) pairs -> pairs with clipped grads."""
+        live = [i for i, (p, g) in enumerate(params_grads)
+                if g is not None and _clipped(p)]
+        if not live:
+            return params_grads
+        clipped = self._clip_grads([params_grads[i][1] for i in live])
+        out = list(params_grads)
+        for i, g in zip(live, clipped):
+            out[i] = (out[i][0], g)
+        return out
+
+
+class ClipGradByValue(_ClipGradBase):
+    """Clamp every gradient element into [min, max] (min defaults to
+    -max)."""
+
+    def __init__(self, max, min=None):
+        self.max = float(max)
+        self.min = float(min) if min is not None else -self.max
+
+    def _clip_grads(self, grads):
+        return [torch.clamp(g, self.min, self.max) for g in grads]
+
+
+class ClipGradByNorm(_ClipGradBase):
+    """Scale each gradient by clip_norm / its L2 norm where that norm
+    exceeds clip_norm."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = float(clip_norm)
+
+    def _clip_grads(self, grads):
+        out = []
+        for g in grads:
+            n = torch.sqrt(torch.sum(g * g))
+            out.append(g * torch.where(n > self.clip_norm,
+                                       self.clip_norm / n, 1.0))
+        return out
+
+
+class ClipGradByGlobalNorm(_ClipGradBase):
     """Scale every gradient by clip_norm / max(global_norm, clip_norm),
     the global norm summed in float32 over all gradients in order — the
-    JAX package's exact scale. Stays on the device: no host sync."""
+    JAX package's exact scale."""
 
     def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = float(clip_norm)
         self.group_name = group_name
 
     def _clip_grads(self, grads):
-        """Clipped copies of a list of gradient tensors."""
         if not grads:
             return grads
         gn = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
         scale = self.clip_norm / torch.clamp(gn, min=self.clip_norm)
         return [g * scale.to(g.dtype) for g in grads]
 
-    def __call__(self, params_grads):
-        """(param, grad) pairs -> pairs with clipped grads; a None grad
-        passes through and takes no part in the norm."""
-        live = [i for i, (_, g) in enumerate(params_grads) if g is not None]
-        clipped = self._clip_grads([params_grads[i][1] for i in live])
-        out = list(params_grads)
-        for i, g in zip(live, clipped):
-            out[i] = (out[i][0], g)
-        return out
+
+def clip_by_global_norm_pytree(grads, clip_norm):
+    """`ClipGradByGlobalNorm(clip_norm)` over a nest of tensors (lists,
+    tuples and dicts), returned in the same structure."""
+    it = iter(ClipGradByGlobalNorm(clip_norm)._clip_grads(
+        nest_leaves(grads)))
+    return nest_map(lambda _: next(it), grads)

@@ -1,6 +1,6 @@
 """Helpers shared by the port's dense ops (creation, manipulation, logic,
-reduction, search, random_ops, linalg): argument normalisation and the
-JAX package's output types."""
+reduction, search, random_ops, linalg): argument normalisation, the
+JAX package's output types, and a walker over nests of tensors."""
 from __future__ import annotations
 
 import numpy as np
@@ -76,3 +76,20 @@ def idx(i):
     """An index tensor as torch's gather / scatter want it (int64). The
     cast is internal: outputs keep the JAX package's types."""
     return i.long() if torch.is_tensor(i) else torch.as_tensor(i).long()
+
+
+def nest_map(fn, tree):
+    """`fn` on every leaf of a nest of tuples, lists and dicts, in
+    jax.tree_util's order (a dict's keys sorted), in the same nest."""
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(nest_map(fn, t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: nest_map(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def nest_leaves(tree):
+    """The leaves of a nest, in `nest_map`'s order."""
+    out = []
+    nest_map(out.append, tree)
+    return out

@@ -21,6 +21,7 @@ from paddle_tpu_torch.framework.errors import UnavailableError
 from paddle_tpu_torch.framework.place import resolve_device
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.models.gpt import GPTModel
+from paddle_tpu_torch.models.seq2seq import seq2seq_attn
 from paddle_tpu_torch.ops import _build, flash_ops, paged_ops, splash_ops
 from paddle_tpu_torch.serving import GenerationEngine
 from paddle_tpu_torch.serving.kv_cache import PagedKVCache
@@ -76,7 +77,8 @@ def test_importing_every_module_builds_nothing():
                 "ops.search", "ops.random_ops", "ops.tensor_methods",
                 "framework.dtype", "framework.io_state",
                 "framework.param_attr", "autograd", "autograd.functional",
-                "device"):
+                "device", "nn.layer.layers", "nn.layer.rnn", "nn.decode",
+                "nn.utils", "ops.extra_ops", "models.seq2seq"):
         assert f"paddle_tpu_torch.{sub}" in names
     for name in names:
         importlib.import_module(name)
@@ -105,6 +107,11 @@ def test_default_device_raises_without_cuda():
                          prefill_buckets=(8,))
     with pytest.raises(UnavailableError):
         GPTForCausalLM(GPTConfig.tiny(use_moe=True, num_experts=2))
+    # nn.Layer.create_parameter (the recurrent layers) and the seq2seq
+    with pytest.raises(UnavailableError):
+        paddle_tpu_torch.nn.LSTM(2, 2)
+    with pytest.raises(UnavailableError):
+        seq2seq_attn(src_vocab=8, trg_vocab=8, hidden=4, num_layers=1)
     # the top-level API: every op that makes a tensor from nothing
     for fn in (lambda: paddle_tpu_torch.to_tensor([1.0]),
                lambda: paddle_tpu_torch.zeros([2]),

@@ -110,3 +110,77 @@ def names_of(jmod):
     """The reference module's `__all__` as a sorted set (it may list a
     name twice)."""
     return sorted(set(jmod.__all__))
+
+
+# XLA's CPU backend without its costly LLVM passes: the reference
+# captures here run once each, so their compile dominates
+QUICK = {"xla_backend_optimization_level": 0,
+         "xla_llvm_disable_expensive_passes": True}
+
+
+class _Bare(paddle.nn.Layer):
+    """A JAX-package layer with no parameters, to capture a function."""
+
+
+def jax_jit_grads(fn, args, grad_pos, layer=None, seed=5):
+    """The JAX side of a value-and-gradient parity under one `jax.jit`
+    (one compile instead of one per eager op): out = fn(*args) through
+    the JAX package's functional capture of `layer` (a bare one when
+    None), and the gradients of sum(first output * w), w standard normal
+    from `seed` in that output's shape, for args[grad_pos] and for the
+    layer's parameters. Returns (out, [arg gradients], {name: param
+    gradient}) as arrays."""
+    return jax_jit_grads_many({0: (fn, args, grad_pos, layer, seed)})[0]
+
+
+def jax_jit_grads_many(cases):
+    """`jax_jit_grads` for several cases under one `jax.jit`, so that a
+    file's cases share one compile: `cases` maps a key to (fn, args,
+    grad_pos, layer, seed); the gradients are those of the sum of the
+    cases' projections, which is each case's own since no two cases
+    share an input or a parameter. Returns {key: (out, [arg
+    gradients], {name: param gradient})}."""
+    import jax
+    import jax.numpy as jnp
+    from paddle_tpu.framework.functional import functionalize
+    keys = list(cases)
+    holder = _Bare()
+    for i, k in enumerate(keys):
+        if cases[k][3] is not None:
+            holder.add_sublayer(f"c{i}", cases[k][3])
+    consts = {k: [jnp.asarray(a) if isinstance(a, np.ndarray) else a
+                  for a in cases[k][1]] for k in keys}
+
+    def forward(gargs, cargs):
+        outs = {}
+        for k in keys:
+            fn, _, grad_pos, _, _ = cases[k]
+            full = list(cargs[k])
+            for p, v in zip(grad_pos, gargs[k]):
+                full[p] = v
+            outs[k] = fn(*full)
+        return outs
+    apply_fn, pv, bv = functionalize(holder, forward=forward)
+
+    def loss(pv, gargs):
+        outs, _ = apply_fn(pv, bv, jax.random.PRNGKey(0), True, gargs,
+                           consts)
+        total = 0.0
+        for k in keys:
+            first = flat(outs[k])[0]
+            w = np.random.RandomState(cases[k][4]).standard_normal(
+                tuple(first.shape)).astype(np.float32)
+            total = total + (first * w).sum()
+        return total, outs
+
+    gargs = {k: [consts[k][p] for p in cases[k][2]] for k in keys}
+    (_, outs), (gp, ga) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True), compiler_options=QUICK)(
+            pv, gargs)
+    res = {}
+    for i, k in enumerate(keys):
+        pre = f"c{i}."
+        res[k] = (outs[k], list(ga[k]),
+                  {n[len(pre):]: g for n, g in gp.items()
+                   if n.startswith(pre)})
+    return res
