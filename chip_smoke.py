@@ -293,6 +293,45 @@ Phases:
               batch 4 (dropout 0) on the card against the port's CPU step
               on the same weights: the loss to rtol 1e-5, every gradient
               within phase 6's fp32 limits
+13. input     the input pipeline, with W = min(8, os.cpu_count() - 2)
+              loader workers. (a) ResNet-50 in phase 9 (a)'s configuration
+              (seed 0, O1, Momentum(0.1), CrossEntropyLoss,
+              Accuracy(topk=(1, 5)), batch 32) trained one fit epoch from
+              1,000 seeded uint8 HWC images of 256 x 256 x 3 (an
+              io.Dataset, shared copy-on-write with the workers) through
+              the ImageNet training transform (RandomResizedCrop(224),
+              RandomHorizontalFlip, ToTensor, Normalize), shuffled,
+              drop_last False (31 full batches and a tail of 8):
+              DataLoader(num_workers=W) + DeviceFeeder with EarlyStopping
+              and VisualDL, then num_workers=0 without a feeder. Gates:
+              the loss finite; STAT_tail_pad_batches 1 each; every
+              forward sees 32 rows; Accuracy counts 1,000 samples;
+              STAT_dataloader_batches 32; the ring's segments at most its
+              2W slots and STAT_shm_slots_reused 32 minus them; a counter
+              the dataset bumps in the workers reads 1,000 in the parent;
+              every leaf the feeder hands out on the card; VisualDL's
+              train/loss records equal the logged losses, one a step, and
+              add no STAT_train_host_syncs; no ring name left in /dev/shm;
+              K1-K7 0 times. A byte check: with Resize(256) +
+              CenterCrop(224) + ToTensor + Normalize, unshuffled, every
+              worker + feeder batch equals the in-process loader's on the
+              card. Printed: images/s of both fits (the real images of
+              steps 3-32 over their window on the device timeline), step
+              p50, the share of the fit's wall spent waiting on the feed,
+              the feeder's overlap count, peak allocated, and phase 9
+              (a)'s images/s of the same run; summary and flops of
+              ResNet-50 at [1, 3, 224, 224]; utils.run_check(). (b)
+              ERNIE-base in phase 8 (b)'s configuration (8 x 512, lengths
+              from 128, dropout 0.1) on 99 rows, the last batch a tail of
+              3, from DataLoader(num_workers=2) + DeviceFeeder, fp32 and
+              O1: K2, K3 and K4 12 times a step each, the padded tail's
+              step included, all in the path's type; the plain attention
+              0 times; the loss finite and the mean of the last 3 steps
+              under the first 3's; STAT_tail_pad_batches 1; each fit then
+              again in process without a feeder, the same gates, for the
+              step p50 beside it. (a) also runs W // 3 workers, printed
+              and held to the common gates, and prints the feeder
+              thread's fetch and stage spans
 Phase 3 also holds the splash kernels to their plain versions: K5 splash
 forward, K6 splash dQ and K7 splash dK/dV at GPT-2 small's attention
 width (B 8, H 12, S 1024, D 64) and at the packing phase's shape, with
@@ -464,6 +503,9 @@ K2_INFERENCE_BATCHES = (16, 64)
 # batch and sequence, so K2-K4 run at [8, 12, 1024, 64]); fit steps an
 # arm, AdamW's rate, dropout, the fall its loss must show (the mean of the
 # last 2 steps under the first by FALL); the step-parity batch seeds
+# phase 13: bench.py's ResNet-50 batch over N host images of SIDE^2 (a);
+# ERNIE_LONG's batches over ERNIE_ROWS rows, the last batch a tail (b)
+INPUT = dict(N=1000, B=32, SIDE=256, ERNIE_ROWS=8 * 12 + 3)
 MOE = dict(E=8, B=8, S=1024, STEPS=8, LR=1e-3, DROPOUT=0.1, FALL=0.25,
            PARITY_SEEDS=(1, 2, 3))
 # phase 11 (a): the limits of a card call against the same call on the
@@ -6390,6 +6432,388 @@ class Smoke:
         assert worst[0] <= 1.0, f"seq2seq step-parity gradient {worst[1]}"
         del net, cpu
 
+    # -- 13. input ------------------------------------------------------------
+
+    def input(self):
+        """ResNet-50 trained from host-prepared images through worker
+        processes and the DeviceFeeder (a), ERNIE-base on padded seq-512
+        batches from worker processes (b); see the module docstring."""
+        self.gpt = None
+        self.torch.cuda.empty_cache()
+        ncpu = os.cpu_count()
+        workers = max(1, min(8, ncpu - 2))
+        print(f"input: os.cpu_count() {ncpu}, {workers} loader workers")
+        self.details["input"] = dict(cpu_count=ncpu, workers=workers)
+        self.input_resnet(workers)
+        self.input_ernie()
+
+    @staticmethod
+    def _ring_names():
+        """The /dev/shm names of the loaders' shared-memory rings."""
+        return {n for n in os.listdir("/dev/shm") if n.startswith("ptt")}
+
+    def _input_fit(self, arm, ds, workers, buffered, callbacks=()):
+        """One `fit` epoch of a fresh ResNet-50 (seed 0, INPUT["B"], O1,
+        Momentum, CrossEntropyLoss, Accuracy(topk=(1, 5))) over `ds`,
+        shuffled, drop_last False, through DataLoader(num_workers=
+        `workers`, use_buffer_reader=`buffered`), recording what the
+        gates of `input_resnet` read. Returns the record."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import hapi, io, metric, nn, optimizer
+        from paddle_tpu_torch.framework import monitor
+        from paddle_tpu_torch.framework import random as frandom
+        from paddle_tpu_torch.profiler import tracer
+        from paddle_tpu_torch.vision.models import resnet50
+        B = INPUT["B"]
+        frandom.seed(0)
+        net = resnet50(num_classes=1000, device="cuda", seed=0)
+        model = hapi.Model(net).prepare(
+            optimizer.Momentum(RESNET_A["LR"]), nn.CrossEntropyLoss(),
+            metric.Accuracy(topk=(1, 5)), amp_configs="O1")
+        loader = io.DataLoader(ds, batch_size=B, shuffle=True,
+                               drop_last=False, num_workers=workers,
+                               use_buffer_reader=buffered)
+        rows, feed = [], dict(wait=0.0, off_card=0, leaves=0)
+        hook = net.register_forward_pre_hook(
+            lambda m, i: rows.append(int(i[0].shape[0])))
+        orig = model._buffered
+
+        def watched(ld):
+            src = orig(ld)
+
+            class Watched:
+                def __len__(self):
+                    return len(src)
+
+                def __iter__(self):
+                    it = iter(src)
+                    while True:
+                        t0 = time.perf_counter()
+                        try:
+                            batch = next(it)
+                        except StopIteration:
+                            return
+                        feed["wait"] += time.perf_counter() - t0
+                        for x in batch:
+                            feed["leaves"] += 1
+                            feed["off_card"] += int(x.device.type != "cuda")
+                        yield batch
+            return Watched()
+        model._buffered = watched
+        rec = self._step_recorder()
+        sizes = []
+
+        class Sizes(hapi.callbacks.Callback):
+            def on_train_batch_end(self, step, logs=None):
+                sizes.append(int(logs["batch_size"]))
+        names = ("STAT_tail_pad_batches", "STAT_dataloader_batches",
+                 "STAT_shm_slot_segments", "STAT_shm_slots_reused",
+                 "STAT_smoke_input_samples", "STAT_device_feeder_batches",
+                 "STAT_device_feeder_overlap", "STAT_train_host_syncs")
+        before = {n: monitor.stat_get(n) for n in names}
+        hist = monitor.histogram("smoke_input_sample_ms")
+        h0 = (hist.count, hist.sum)
+        rings = self._ring_names()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path starts here: every launch count from 0
+        self.zero_launches()
+        t0 = time.perf_counter()
+        model.fit(loader, epochs=1, log_freq=10, verbose=0,
+                  callbacks=[rec, Sizes(), *callbacks])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = self.record_path(arm)
+        hook.remove()
+        d = {n: monitor.stat_get(n) - before[n] for n in names}
+        # where the host time went: the spans of the fit loop and the
+        # feeder's thread, and the samples' transform time in whichever
+        # process ran them (relayed from the workers)
+        durs = {}
+        for name, a, b in tracer.events(since=t0):
+            if name in ("fit::train_step", "feeder::fetch",
+                        "feeder::stage"):
+                durs.setdefault(name, []).append((b - a) * 1e3)
+        spans = {k: (len(v), sum(v), sorted(v)[len(v) // 2])
+                 for k, v in durs.items()}
+        n_samples = hist.count - h0[0]
+        sample_ms = (hist.sum - h0[1]) / max(n_samples, 1)
+        n, window, p50, gaps = self._step_times(rec)
+        out = dict(
+            losses=[float(v) for v in rec.losses], sizes=sizes, rows=rows,
+            stats=d, launches=launches, wall_s=wall, window_ms=window,
+            step_ms_p50=p50, step_ms=gaps, spans=spans,
+            sample_ms=sample_ms, samples_timed=n_samples,
+            images_per_s=sum(sizes[-n:]) / window * 1e3,
+            feed_wait_share=feed["wait"] / wall, feed=feed,
+            peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+            acc_count=list(model._metrics[0].count),
+            rings_left=sorted(self._ring_names() - rings),
+            epoch_logs={k: (float(v) if np.ndim(v) == 0 else
+                            [float(x) for x in v])
+                        for k, v in rec.epoch_logs.items()})
+        del model, net
+        torch.cuda.empty_cache()
+        return out
+
+    def input_resnet(self, workers):
+        """(a) ResNet-50 from host-prepared images (see the module
+        docstring): the worker fit with EarlyStopping and VisualDL, the
+        in-process fit, the byte check on a deterministic transform, and
+        ResNet-50's summary and flops and utils.run_check()."""
+        torch = self.torch
+        import contextlib
+        import io as pyio
+        import json
+        import shutil
+        import tempfile
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch import hapi, io
+        from paddle_tpu_torch.framework import monitor
+        from paddle_tpu_torch.vision import transforms as T
+        from paddle_tpu_torch.vision.models import resnet50
+        N, B, side = INPUT["N"], INPUT["B"], INPUT["SIDE"]
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(0)
+        images = rng.randint(0, 256, (N, side, side, 3), dtype=np.uint8)
+        labels = rng.randint(0, 1000, N).astype(np.int64)
+        print(f"input (a): {N} seeded uint8 images {side} x {side} x 3 "
+              f"({images.nbytes / 1e6:.1f} MB) made in "
+              f"{time.perf_counter() - t0:.2f} s")
+        norm = T.Normalize(mean=[0.485, 0.456, 0.406],
+                           std=[0.229, 0.224, 0.225])
+        train_t = T.Compose([T.RandomResizedCrop(224),
+                             T.RandomHorizontalFlip(), T.ToTensor(), norm])
+        fixed_t = T.Compose([T.Resize(256), T.CenterCrop(224), T.ToTensor(),
+                             norm])
+
+        class Images(io.Dataset):
+            """The images through a transform; each fetch bumps a counter
+            in the process that runs it (the relay brings a worker's to
+            the parent)."""
+
+            def __init__(self, transform):
+                self.transform = transform
+
+            def __getitem__(self, i):
+                t = time.perf_counter()
+                monitor.stat_add("STAT_smoke_input_samples")
+                out = self.transform(images[i]), labels[i]
+                monitor.histogram("smoke_input_sample_ms").observe(
+                    (time.perf_counter() - t) * 1e3)
+                return out
+
+            def __len__(self):
+                return N
+
+        log_dir = tempfile.mkdtemp(prefix="smoke_visualdl_")
+        try:
+            vdl = hapi.callbacks.VisualDL(log_dir=log_dir)
+            stop = hapi.callbacks.EarlyStopping(monitor="loss", patience=1)
+            w = self._input_fit("input_resnet50_workers", Images(train_t),
+                                workers, True, callbacks=(stop, vdl))
+            with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+        finally:
+            shutil.rmtree(log_dir, ignore_errors=True)
+        vdl_loss = [(r["step"], r["value"]) for r in recs
+                    if r["tag"] == "train/loss"]
+        s = self._input_fit("input_resnet50_inprocess", Images(train_t), 0,
+                            False)
+        few = max(1, workers // 3)
+        f = self._input_fit("input_resnet50_few_workers", Images(train_t),
+                            few, True)
+        steps = -(-N // B)
+        ring = workers * 2
+        phase9 = self.details.get("vision_resnet50", {}).get("images_per_s")
+        for label, r in (("workers + DeviceFeeder", w),
+                         ("in process, no feeder", s),
+                         (f"{few} workers + DeviceFeeder", f)):
+            st = r["stats"]
+            print(f"input (a) {label} on {self.smi}: ResNet-50 O1, batch "
+                  f"{B}, {N} images ({steps} steps, tail "
+                  f"{r['sizes'][-1]}): {r['images_per_s']:.2f} images/s "
+                  f"(the real images of steps 3-{steps} over their "
+                  f"{r['window_ms']:.2f} ms on the device timeline); step "
+                  f"p50 {r['step_ms_p50']:.2f} ms; fit wall "
+                  f"{r['wall_s']:.2f} s, {r['feed_wait_share'] * 100:.1f}% "
+                  f"of it waiting on the feed; feeder overlap "
+                  f"{st['STAT_device_feeder_overlap']} / "
+                  f"{st['STAT_device_feeder_batches']}; peak allocated "
+                  f"{r['peak_allocated_bytes'] / 2**30:.2f} GiB; a "
+                  f"sample's transform {r['sample_ms']:.3f} ms mean over "
+                  f"{r['samples_timed']}; host spans (count, total ms, "
+                  f"p50 ms) { {k: (c, round(v, 1), round(m, 2)) for k, (c, v, m) in r['spans'].items()} }"
+                  f"; counters {st}; launches {r['launches']}")
+            print(f"input (a) {label} per-step loss: " + " ".join(
+                f"{v:.4f}" for v in r["losses"]))
+        print(f"input (a): phase 9 (a) in this run (one batch on the card "
+              f"every step): "
+              + (f"{phase9:.2f} images/s" if phase9 else "not run"))
+        self.details["input_resnet50"] = dict(workers=w, inprocess=s,
+                                              few_workers=f,
+                                              phase9_images_per_s=phase9,
+                                              visualdl_loss=vdl_loss)
+        for label, r in (("workers", w), ("in-process", s),
+                         ("few workers", f)):
+            st = r["stats"]
+            assert all(np.isfinite(r["losses"])), f"{label}: non-finite loss"
+            assert st["STAT_tail_pad_batches"] == 1, (label, st)
+            assert r["rows"] == [B] * steps, (label, r["rows"])
+            assert r["sizes"][-1] == N - (steps - 1) * B, r["sizes"]
+            assert r["acc_count"] == [N, N], (label, r["acc_count"])
+            assert st["STAT_dataloader_batches"] == steps, (label, st)
+            assert st["STAT_smoke_input_samples"] == N, (label, st)
+            assert all(v == 0 for v in r["launches"].values()), r["launches"]
+        st = w["stats"]
+        assert st["STAT_shm_slot_segments"] <= ring, st
+        assert st["STAT_shm_slots_reused"] == \
+            steps - st["STAT_shm_slot_segments"], st
+        assert st["STAT_device_feeder_batches"] == steps, st
+        assert w["feed"]["off_card"] == 0 and w["feed"]["leaves"] == \
+            2 * steps, w["feed"]
+        assert w["rings_left"] == [], w["rings_left"]
+        assert [v for _, v in vdl_loss] == w["losses"], \
+            "VisualDL's train/loss records are not the logged losses"
+        assert [k for k, _ in vdl_loss] == list(range(1, steps + 1))
+        assert st["STAT_train_host_syncs"] == \
+            s["stats"]["STAT_train_host_syncs"], \
+            "VisualDL added host syncs"
+        assert s["stats"]["STAT_device_feeder_batches"] == 0, s["stats"]
+        # the byte check: a deterministic transform, worker loader +
+        # feeder against the in-process loader, on the card
+        rings = self._ring_names()
+        t0 = time.perf_counter()
+        fed = io.DeviceFeeder(io.DataLoader(Images(fixed_t), batch_size=B,
+                                            num_workers=workers))
+        ref = iter(io.DataLoader(Images(fixed_t), batch_size=B))
+        n_equal = 0
+        for x, y in fed:
+            rx, ry = next(ref)
+            assert x.device.type == "cuda" and y.device.type == "cuda"
+            n_equal += int(torch.equal(x, rx.cuda()) and
+                           torch.equal(y, ry.cuda()))
+        print(f"input (a) byte check: {n_equal} of {steps} worker + feeder "
+              f"batches equal the in-process loader's on the card "
+              f"({time.perf_counter() - t0:.2f} s)")
+        assert n_equal == steps, f"{steps - n_equal} batches differ"
+        assert self._ring_names() == rings
+        net = resnet50(num_classes=1000, device="cuda", seed=0)
+        buf = pyio.StringIO()
+        with contextlib.redirect_stdout(buf):
+            summ = paddle.summary(net)
+        fl = paddle.flops(net, [1, 3, 224, 224])
+        print(f"input (a) summary: {summ} ({len(buf.getvalue().splitlines())}"
+              f" table lines); flops at [1, 3, 224, 224]: {fl:,} "
+              f"({fl / 1e9:.3f} G)")
+        self.details["input_resnet50"].update(summary=summ, flops=fl)
+        name = paddle.utils.run_check()
+        assert name == torch.cuda.get_device_name(0), name
+        del net
+        torch.cuda.empty_cache()
+
+    def input_ernie(self):
+        """(b) ERNIE-base (dropout 0.1, seed 0) in phase 8 (b)'s
+        configuration on INPUT["ERNIE_ROWS"] padded seq-512 rows, the last
+        batch a tail, through DataLoader(num_workers=2) + DeviceFeeder, in
+        fp32 and under O1, each followed by the same fit in process
+        without a feeder (for the step time beside it; the same gates).
+        Gates: K2, K3 and K4 launch 12 times a step,
+        the padded tail's step included, all in the path's type; the
+        plain attention 0 times; the loss finite and the mean of its last
+        3 steps below the first 3's; STAT_tail_pad_batches 1."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import hapi, io, nn, optimizer
+        from paddle_tpu_torch.framework import monitor
+        from paddle_tpu_torch.framework import random as frandom
+        from paddle_tpu_torch.models import (ErnieConfig,
+                                             ErnieForSequenceClassification)
+        from paddle_tpu_torch.nn.functional import attention
+        from paddle_tpu_torch.static import InputSpec
+        B, S = ERNIE_LONG["B"], ERNIE_LONG["S"]
+        n = INPUT["ERNIE_ROWS"]
+        steps = -(-n // B)
+        cfg = ErnieConfig.base()
+        full = steps * B
+        lens = _ernie_lengths(np, full, S, seed=1)
+        ids, labels, mask = _ernie_cls_set(np, full, S, cfg.vocab_size, B,
+                                           seed=1, lengths=lens)
+        rows = [a[:n] for a in (ids, np.zeros_like(ids),
+                                np.tile(np.arange(S), (full, 1)), mask,
+                                labels)]
+        specs = [InputSpec([None, S], "int64", k) for k in
+                 ("input_ids", "token_type_ids", "position_ids")] + [
+            InputSpec([None, S], "float32", "attention_mask")]
+        plain = [0]
+        ref = attention._sdpa_ref
+
+        def counted(*a, **k):
+            plain[0] += 1
+            return ref(*a, **k)
+        for level, fed in ((None, True), (None, False), ("O1", True),
+                           ("O1", False)):
+            path = "input_ernie" + ("_amp" if level else "") + \
+                ("" if fed else "_inprocess")
+            dtype = "float32" if level is None else "bfloat16"
+            frandom.seed(1)
+            net = ErnieForSequenceClassification(cfg, device="cuda", seed=0)
+            model = hapi.Model(net, inputs=specs).prepare(
+                optimizer.AdamW(ERNIE_LONG["LR"]), nn.CrossEntropyLoss(),
+                amp_configs=level)
+            loader = io.DataLoader(io.TensorDataset(rows), batch_size=B,
+                                   shuffle=False, num_workers=2 if fed else 0,
+                                   use_buffer_reader=fed)
+            rec = self._step_recorder()
+            pads = monitor.stat_get("STAT_tail_pad_batches")
+            torch.cuda.synchronize()
+            # the main path starts here: every launch count from 0
+            self.zero_launches()
+            plain[0] = 0
+            attention._sdpa_ref = counted
+            try:
+                t0 = time.perf_counter()
+                model.fit(loader, epochs=1, log_freq=10, verbose=0,
+                          callbacks=[rec])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                attention._sdpa_ref = ref
+            launches = self.record_path(path)
+            by_dtype = self.path_dtype_launches[path]
+            pads = monitor.stat_get("STAT_tail_pad_batches") - pads
+            losses = [float(v) for v in rec.losses]
+            m, window, p50, gaps = self._step_times(rec)
+            source = ("from 2 worker processes through the DeviceFeeder"
+                      if fed else "in process, no feeder")
+            print(f"{path} on {self.smi}: ERNIE-base "
+                  f"{'fp32' if level is None else 'AMP O1 bf16'}, {n} rows "
+                  f"of batch {B} x {S} ({steps} steps, the last a tail of "
+                  f"{n - (steps - 1) * B}) {source}: {steps} steps in "
+                  f"{wall:.2f} s wall; step p50 {p50:.2f} ms; tail pads "
+                  f"{pads}; plain attention calls {plain[0]}; launches "
+                  f"{launches}; by type {by_dtype['flash_fwd']}")
+            print(f"{path} per-step loss: " + " ".join(f"{v:.4f}"
+                                                       for v in losses))
+            self.details[path] = dict(
+                losses=losses, step_ms_p50=p50, step_ms=gaps, wall_s=wall,
+                launches=launches, launches_by_dtype=by_dtype,
+                plain_calls=plain[0], tail_pads=pads)
+            assert all(np.isfinite(losses)), f"non-finite {path} loss"
+            assert np.mean(losses[-3:]) < np.mean(losses[:3]), \
+                f"the {path} loss did not fall"
+            assert pads == 1, pads
+            assert plain[0] == 0, f"plain attention ran {plain[0]} times"
+            L = cfg.num_hidden_layers
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                assert launches[name] == L * steps, (name, launches[name])
+                assert by_dtype[name] == {dtype: L * steps}, \
+                    f"{name} launched {by_dtype[name]}, all {dtype} expected"
+            del model, net
+            torch.cuda.empty_cache()
+
     def kernels_line(self):
         srcs = {"paged_attention": (
                     "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -7366,6 +7790,7 @@ def main(argv=None):
             sm.phase("export", sm.export)
             sm.phase("api", sm.api)
             sm.phase("seq2seq", sm.seq2seq)
+            sm.phase("input", sm.input)
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)),
                     exist_ok=True)

@@ -76,13 +76,22 @@ Ported so far:
   the optimizers Adamax, Adagrad, Adadelta, RMSProp, Lamb and
   LarsMomentum, and `affine_grid` / `gather_tree` here; with them
   `models.seq2seq`, an attention LSTM encoder-decoder built from either
-  package's public API.
+  package's public API;
+- the input pipeline and the rest of hapi: `io`'s worker processes over
+  a shared-memory ring, its thread workers and iterable datasets, the
+  dataset combinators and samplers, `io.DeviceFeeder` (pinned copies on
+  a side CUDA stream), tail bucketing in `Model`, the callbacks
+  `EarlyStopping` and `VisualDL` (here as `callbacks`), `summary` and
+  `flops`, `utils`, `vision.transforms`, `vision.datasets` and `text`.
 """
 from . import amp, framework, hapi, io, metric, models, nn, ops  # noqa: F401
 from . import optimizer, profiler, quantization  # noqa: F401
 from . import serving, static, vision  # noqa: F401
 from . import inference, jit  # noqa: F401,E402
 from . import autograd, device  # noqa: F401,E402
+from . import text, utils  # noqa: F401,E402
+from .hapi import callbacks  # noqa: F401,E402
+from .hapi.model_summary import flops, summary  # noqa: F401,E402
 from .framework import get_flags, set_flags  # noqa: F401
 from .ops import *  # noqa: F401,F403
 from .ops import (creation, linalg, logic, manipulation, math,  # noqa: F401

@@ -253,6 +253,15 @@ register_flag("FLAGS_router_pressure_ttl_ms", 50.0,
               "health snapshot before a placement refreshes it; 0 "
               "refreshes every placement (serving/router.py). The JAX "
               "package's default; not measured on a GPU")
+register_flag("FLAGS_train_tail_bucketing", True,
+              "hapi.Model fit/evaluate/predict with drop_last=False: pad "
+              "the partial last batch to the loader's batch size by "
+              "repeating its last real row and fold a row mask into the "
+              "loss mean (hapi/model.py), as the JAX package does. The "
+              "padded rows enter cross-row statistics (BatchNorm) and "
+              "losses with a data-dependent denominator; a loss that "
+              "gives no per-row values falls back to the unpadded batch "
+              "once, with a warning")
 register_flag("FLAGS_trace_ring_size", 16384,
               "profiler.tracer: per-thread trace event ring capacity; the "
               "ring overwrites its oldest events instead of growing")

@@ -24,9 +24,14 @@ The subset of `paddle_tpu.framework.monitor` the ported slices write:
   `STAT_packing_slots` (rows * max_tokens), `STAT_packing_fill_ratio_pct`
   (cumulative per-pack percentage: divide by `STAT_packing_packs` for
   the mean fill), `STAT_packing_dropped_seqs`,
-  `STAT_packing_truncated_seqs`; and `STAT_tail_pad_batches`, which the
-  JAX package bumps for each row-padded tail batch. The port pads no
-  rows, so it stays 0 (tests read it as the JAX tests do);
+  `STAT_packing_truncated_seqs`;
+- the input pipeline: `STAT_tail_pad_batches` (a partial last batch
+  `hapi.Model` row-padded to the loader's batch size),
+  `STAT_dataloader_batches` (batches a `DataLoader` handed out),
+  `STAT_shm_slot_segments` / `STAT_shm_slots_reused` (worker batches the
+  parent read from a newly mapped ring segment / an already mapped one),
+  `STAT_device_feeder_batches` / `_overlap` (`io.DeviceFeeder`
+  hand-outs, and those whose staging hid behind the consumer's work);
 - training (`hapi.Model`): `STAT_train_steps`, `STAT_train_step_ns` (host
   wall time of `train_batch`, which returns before the device finishes)
   and `STAT_train_host_syncs` (losses fit forced to a host float);
@@ -69,6 +74,7 @@ from __future__ import annotations
 
 import bisect
 import math
+import os
 import threading
 from collections import deque
 from typing import Dict
@@ -76,7 +82,8 @@ from typing import Dict
 __all__ = ["stat_add", "stat_sub", "stat_get", "stat_set", "stat_gauge_add",
            "stat_gauge_add_later", "register_gauge", "gauge_kind",
            "is_gauge_name", "histogram", "all_stats", "all_histograms",
-           "registered_histograms", "reset_all_stats"]
+           "registered_histograms", "reset_all_stats", "stat_reset",
+           "drain_deltas", "merge_deltas"]
 
 _lock = threading.Lock()
 _stats: Dict[str, int] = {}
@@ -131,6 +138,13 @@ def stat_add(name: str, n: int = 1) -> int:
 
 def stat_sub(name: str, n: int = 1) -> int:
     return stat_add(name, -int(n))
+
+
+def stat_reset(name: str) -> int:
+    with _lock:
+        _apply_later()
+        _stats[name] = 0
+        return 0
 
 
 def stat_set(name: str, v: int) -> int:
@@ -191,6 +205,32 @@ class StatHistogram:
             self._min = math.inf
             self._max = -math.inf
 
+    def drain_raw(self):
+        """Read and zero the raw state as a picklable blob
+        `(sparse_counts, count, sum, min, max)`, or None when empty: the
+        worker side of the cross-process relay."""
+        with self._lock:
+            if not self._n:
+                return None
+            blob = ({i: c for i, c in enumerate(self._counts) if c},
+                    self._n, self._sum, self._min, self._max)
+            self._counts = [0] * (len(self._EDGES) + 1)
+            self._n, self._sum = 0, 0.0
+            self._min, self._max = math.inf, -math.inf
+            return blob
+
+    def merge_raw(self, sparse_counts, count, total, mn, mx) -> None:
+        """Fold another process's `drain_raw` blob into this histogram.
+        The buckets are the same in every process, so the merge is
+        exact."""
+        with self._lock:
+            for i, c in sparse_counts.items():
+                self._counts[int(i)] += int(c)
+            self._n += int(count)
+            self._sum += float(total)
+            self._min = min(self._min, float(mn))
+            self._max = max(self._max, float(mx))
+
     def observe(self, value: float) -> None:
         v = float(value)
         with self._lock:
@@ -246,6 +286,19 @@ class StatHistogram:
                 "p99": self.percentile(99)}
 
 
+def _reinit_after_fork() -> None:
+    """A forked child (a `DataLoader` worker) gets fresh locks: another
+    thread of the parent may have held one at the fork, and the child
+    would wait for it forever."""
+    global _lock
+    _lock = threading.Lock()
+    for h in _hists.values():
+        h._lock = threading.Lock()
+
+
+os.register_at_fork(after_in_child=_reinit_after_fork)
+
+
 def histogram(name: str) -> StatHistogram:
     with _lock:
         h = _hists.get(name)
@@ -278,3 +331,39 @@ def reset_all_stats() -> None:
         hists = list(_hists.values())
     for h in hists:
         h.reset()
+
+
+def drain_deltas():
+    """Read and zero every counter and histogram of this process into one
+    picklable blob (None when nothing moved). A `DataLoader` worker
+    process ships one with every batch, so a stat its dataset or
+    collate_fn bumps reaches the parent's registry exactly once. Gauges
+    (level and updown) stay in their process: summing a worker's level
+    into the parent's would corrupt both."""
+    with _lock:
+        _apply_later()
+        out_s = {}
+        for name, v in _stats.items():
+            if v and name not in _gauges:
+                out_s[name] = v
+                _stats[name] = 0
+        hists = list(_hists.items())
+    out_h = {}
+    for n, h in hists:
+        blob = h.drain_raw()
+        if blob is not None:
+            out_h[n] = blob
+    if not out_s and not out_h:
+        return None
+    return {"stats": out_s, "hists": out_h}
+
+
+def merge_deltas(delta) -> None:
+    """Fold a `drain_deltas()` blob from another process into this
+    registry: counters add, histograms merge bucket by bucket."""
+    if not delta:
+        return
+    for n, v in delta.get("stats", {}).items():
+        stat_add(n, v)
+    for n, blob in delta.get("hists", {}).items():
+        histogram(n).merge_raw(*blob)

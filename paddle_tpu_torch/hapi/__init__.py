@@ -1,2 +1,3 @@
-from . import callbacks  # noqa: F401
+from . import callbacks, model_summary  # noqa: F401
 from .model import Model  # noqa: F401
+from .model_summary import summary  # noqa: F401

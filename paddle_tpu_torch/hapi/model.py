@@ -56,24 +56,47 @@ them at each epoch's start and logs their `accumulate()` at its end;
 `evaluate` resets them, runs the pass and returns their `accumulate()`
 beside the loss.
 
-Not ported yet (ROADMAP): tail bucketing
-(row-padding the last partial batch: it saves the JAX package an XLA
-compile, and eager PyTorch has none to save), the fleet path and
-`DeviceFeeder`.
+Input feed, as in the JAX package: a `DataLoader` with
+`use_buffer_reader` (the default) is wrapped in an `io.DeviceFeeder` on
+the model's device, whose thread copies the next batch to the card on a
+side stream while the current step runs; `_place` passes tensors that
+are already on the device through untouched.
+
+Tail bucketing, as in the JAX package (`FLAGS_train_tail_bucketing`,
+default on): when a loader with `drop_last=False` can end an epoch on a
+partial batch (its dataset's length is not a multiple of the batch size,
+or it has none), `fit`, `evaluate` and `predict` pad that batch to the
+batch size by repeating its last real row, and every batch of the epoch
+carries a row mask folded into the loss (all ones on full batches). This
+changes results, not only shapes: the padded rows enter every cross-row
+statistic (a training-mode BatchNorm's batch mean and variance, and so
+its running buffers), and the loss becomes the mean of per-row means,
+which weights rows alike where a loss's own mean has a data-dependent
+denominator (`CrossEntropyLoss(ignore_index=)`). The port pads as the
+JAX package does so that both train to the same weights. A loss that
+gives no per-row values raises `_TailMaskError`: the model warns once,
+runs that batch and every later one unpadded (a failed training attempt
+first restores the buffers its forward moved). `logs["batch_size"]` is
+the real row count, metrics see only the real rows, `predict_batch(
+nreal=)` slices the padded rows off, and `STAT_tail_pad_batches` counts
+the padded batches. The fleet path is not ported (ROADMAP A6).
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from .. import amp
 from ..framework import io_state, monitor
-from ..io import DataLoader, Dataset
+from ..framework.flags import flag
+from ..io import DataLoader, Dataset, DeviceFeeder
 from ..metric import Metric
+from ..profiler import RecordEvent
 from . import callbacks as cbks_mod
 
 __all__ = ["Model"]
@@ -101,16 +124,6 @@ def _host_float(v):
     return float(v)
 
 
-def _host_floats(values):
-    """Host floats of `values` (numbers, or one-element tensors) with one
-    wait for the card: the device tensors ride one stacked copy."""
-    def on_dev(v):
-        return torch.is_tensor(v) and v.device.type != "cpu"
-    dev = [v.float().reshape(()) for v in values if on_dev(v)]
-    got = iter(torch.stack(dev).tolist() if dev else ())
-    return [next(got) if on_dev(v) else float(v) for v in values]
-
-
 def _real_rows(mask):
     """(rows, the indices of the real rows) of a loss mask: a row mask
     [rows] counts a row when its entry is > 0, a token mask [rows, T]
@@ -124,15 +137,43 @@ def _real_rows(mask):
 
 
 def _select_rows(leaves, rows, idx):
-    """The real rows `idx` of every leaf whose first dimension is `rows`;
-    other leaves as they are."""
+    """The real rows `idx` of every leaf whose first dimension is `rows`
+    (a slice when they are a prefix, as a padded tail's are); other
+    leaves as they are."""
+    n = len(idx)
+    prefix = bool(np.array_equal(idx, np.arange(n)))
     out = []
     for x in leaves:
         if getattr(x, "ndim", 0) >= 1 and x.shape[0] == rows:
-            x = x[torch.as_tensor(idx, device=x.device)] \
-                if torch.is_tensor(x) else x[idx]
+            if prefix:
+                x = x[:n]
+            elif torch.is_tensor(x):
+                x = x[torch.as_tensor(idx, device=x.device)]
+            else:
+                x = x[idx]
         out.append(x)
     return out
+
+
+def _batch_rows(leaves):
+    """The first dimension of the first leaf that has one."""
+    for x in leaves:
+        if hasattr(x, "shape") and getattr(x, "ndim", 0) >= 1:
+            return int(x.shape[0])
+    return None
+
+
+def _pad_leaf(x, rows, target):
+    """A batch-major leaf grown to `target` rows by repeating its last
+    real row (a real sample: in distribution and finite, where zeros can
+    be invalid labels); other leaves as they are."""
+    if not (hasattr(x, "shape") and getattr(x, "ndim", 0) >= 1
+            and x.shape[0] == rows):
+        return x
+    if torch.is_tensor(x):
+        return torch.cat([x, x[-1:].expand(target - rows, *x.shape[1:])])
+    v = np.asarray(x)
+    return np.concatenate([v, np.repeat(v[-1:], target - rows, axis=0)])
 
 
 def _metric_names(m):
@@ -153,6 +194,14 @@ class _TailMaskError(TypeError):
     mask) values, so the mask cannot be folded into it."""
 
 
+def _restore(module, saved):
+    """Copy saved buffer values back into `module`'s buffers."""
+    with torch.no_grad():
+        for name, b in module.named_buffers():
+            if name in saved:
+                b.copy_(saved[name])
+
+
 class Model:
     def __init__(self, network, inputs=None, labels=None):
         self.network = network
@@ -162,6 +211,9 @@ class Model:
         self._loss = None
         self._metrics = []
         self._amp_level = None
+        self._tail_maskable = True   # cleared once the loss refuses a mask
+        self._row_mask_ok = False    # a row-masked step has succeeded
+        self._mask_cache = {}        # (mask bytes, device) -> placed mask
         self.stop_training = False
 
     # -- preparation --------------------------------------------------------
@@ -179,6 +231,7 @@ class Model:
                                else amp_configs.get("level", "O1"))
         self._optimizer = optimizer
         self._loss = loss
+        self._row_mask_ok = False
         if optimizer is not None and optimizer._parameter_list is None:
             optimizer._set_parameters(self.network.named_parameters())
         return self
@@ -284,7 +337,73 @@ class Model:
         if loss_mask is None:
             return self._loss_value(outputs, labels).float().mean()
         return self._masked_loss(outputs, labels,
-                                 self._place([loss_mask])[0])
+                                 self._placed_mask(loss_mask))
+
+    def _placed_mask(self, mask):
+        """The mask on the model's device; a host row mask (the tail
+        bucketing's) is placed once per distinct value."""
+        if not (isinstance(mask, np.ndarray) and mask.ndim == 1):
+            return self._place([mask])[0]
+        key = (mask.tobytes(), str(self.device))
+        hit = self._mask_cache.get(key)
+        if hit is None:
+            hit = self._mask_cache[key] = self._place([mask])[0]
+        return hit
+
+    def _mask_fallback(self, inputs, labels, loss_mask):
+        """A loss that cannot fold the row mask: warn once, pin the model
+        to unpadded batches, and give this batch's real rows. A TOKEN
+        mask (packing) has no unpadded shape to fall back to, so its
+        _TailMaskError propagates instead."""
+        if self._tail_maskable:
+            self._tail_maskable = False
+            warnings.warn(
+                "FLAGS_train_tail_bucketing: the prepared loss does not "
+                "expose per-row values; falling back to unpadded tail "
+                "batches", stacklevel=3)
+        rows, idx = _real_rows(loss_mask)
+        return (_select_rows(inputs, rows, idx),
+                _select_rows(labels, rows, idx))
+
+    def _tail_target(self, loader, need_mask=True):
+        """The loader's batch size when its epochs can end on a partial
+        batch (a loader without a sized dataset counts as "can"), else
+        None (`paddle_tpu/hapi/model.py:848-871`). `need_mask=False`
+        (predict: no loss) pads even after the loss refused the mask."""
+        if not flag("FLAGS_train_tail_bucketing"):
+            return None
+        if need_mask and not self._tail_maskable:
+            return None
+        bs = getattr(loader, "batch_size", None)
+        if not bs:
+            return None
+        sampler = getattr(loader, "batch_sampler", None)
+        if getattr(sampler, "drop_last", False):
+            return None   # the sampler already drops the tail
+        ds = getattr(loader, "dataset", None)
+        if ds is not None and sampler is not None:
+            try:
+                if len(ds) % bs == 0:
+                    return None   # every batch is full
+            except TypeError:
+                pass   # unsized dataset: a tail is possible
+        return bs
+
+    @staticmethod
+    def _pad_tail(ins, lbs, target):
+        """Grow a partial batch to `target` rows: (ins, lbs, row mask,
+        real rows). A full batch passes through with an all-ones mask."""
+        rows = _batch_rows(ins + lbs)
+        if rows is None:
+            return ins, lbs, None, None
+        if rows >= target:
+            return ins, lbs, np.ones((rows,), "float32"), rows
+        mask = np.zeros((target,), "float32")
+        mask[:rows] = 1.0
+        ins = [_pad_leaf(x, rows, target) for x in ins]
+        lbs = [_pad_leaf(x, rows, target) for x in lbs]
+        monitor.stat_add("STAT_tail_pad_batches")
+        return ins, lbs, mask, rows
 
     def _split_batch(self, batch):
         data = _flatten_batch(batch)
@@ -298,6 +417,15 @@ class Model:
             return DataLoader(data, batch_size=batch_size, shuffle=shuffle,
                               num_workers=num_workers, drop_last=drop_last)
         return data
+
+    def _buffered(self, loader):
+        """A `DataLoader` that opted into buffering (`use_buffer_reader`)
+        wrapped in a `DeviceFeeder` on the model's device; anything else
+        as it is."""
+        if isinstance(loader, DataLoader) and \
+                getattr(loader, "use_buffer_reader", False):
+            return DeviceFeeder(loader, device=self.device)
+        return loader
 
     def _update_metrics(self, outputs, labels, loss_mask):
         """Every prepared metric's `update(compute(first output, *labels))`
@@ -331,10 +459,27 @@ class Model:
         ins = self._place(_flatten_batch(inputs))
         lbs = self._place(_flatten_batch(labels or []))
         self.network.train()
-        with (amp.auto_cast(level=self._amp_level) if self._amp_level
-              else contextlib.nullcontext()):
-            out = self.network(*ins)
-            lv = self._step_loss(out, lbs, loss_mask)
+        row_mask = loss_mask is not None and \
+            not self._is_token_mask(loss_mask)
+        saved = None
+        if row_mask and not self._row_mask_ok:
+            # until a row-masked step has worked, keep the buffers the
+            # forward moves (BatchNorm's), for the fallback below
+            saved = {n: b.detach().clone()
+                     for n, b in self.network.named_buffers()}
+        try:
+            with (amp.auto_cast(level=self._amp_level) if self._amp_level
+                  else contextlib.nullcontext()):
+                out = self.network(*ins)
+                lv = self._step_loss(out, lbs, loss_mask)
+        except _TailMaskError:
+            if not row_mask:
+                raise   # packing: no unpadded shape to fall back to
+            _restore(self.network, saved)
+            ins, lbs = self._mask_fallback(ins, lbs, loss_mask)
+            return self.train_batch(ins, lbs, update=update)
+        if row_mask:
+            self._row_mask_ok = True
         lv.backward()
         if update:
             self._optimizer.step()
@@ -358,25 +503,43 @@ class Model:
         if self._loss is None or not lbs:
             lv = torch.zeros((), device=self.device)
         else:
-            lv = self._step_loss(out, lbs, loss_mask)
+            try:
+                lv = self._step_loss(out, lbs, loss_mask)
+            except _TailMaskError:
+                if self._is_token_mask(loss_mask):
+                    raise   # packing: no unpadded shape to fall back to
+                ins, lbs = self._mask_fallback(ins, lbs, loss_mask)
+                return self.eval_batch(ins, lbs)
         return lv, self._update_metrics(out, lbs, loss_mask)
 
     @torch.no_grad()
-    def predict_batch(self, inputs):
+    def predict_batch(self, inputs, nreal=None):
         """Forward in eval mode; the outputs on the host as numpy arrays
-        (a list when the network returns several)."""
+        (a list when the network returns several). `nreal` (tail
+        bucketing): the batch was padded, and only the first `nreal`
+        rows of each batch-major output are returned."""
         ins = self._place(_flatten_batch(inputs))
+        rows = _batch_rows(ins)
         self.network.eval()
         out = self.network(*ins)
+
+        def host(o):
+            o = o.detach()
+            if nreal is not None and rows is not None and nreal < rows \
+                    and o.dim() >= 1 and o.shape[0] == rows:
+                o = o[:nreal]
+            return o.cpu().numpy()
         if isinstance(out, (list, tuple)):
-            return [o.detach().cpu().numpy() for o in out]
-        return out.detach().cpu().numpy()
+            return [host(o) for o in out]
+        return host(out)
 
     # -- loops --------------------------------------------------------------
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
             eval_freq=1, log_freq=10, save_dir=None, save_freq=1, verbose=2,
             drop_last=False, shuffle=True, num_workers=0, callbacks=None,
-            num_iters=None):
+            accumulate_grad_batches=1, num_iters=None):
+        """`accumulate_grad_batches` is accepted and not read, as in the
+        JAX package (`paddle_tpu/hapi/model.py:905`)."""
         if self._optimizer is None:
             raise RuntimeError("Model.fit: call prepare() first")
         loader = self._as_loader(train_data, batch_size, shuffle, num_workers,
@@ -393,6 +556,7 @@ class Model:
         step_count = 0
         logs = {}  # stays bound for on_end even with epochs=0
         token_masked = self._token_masked(loader)
+        feed = self._buffered(loader)
         for epoch in range(epochs):
             sampler = getattr(loader, "batch_sampler", None)
             if hasattr(sampler, "set_epoch"):
@@ -401,20 +565,30 @@ class Model:
             for m in self._metrics:
                 m.reset()
             logs = {}
-            for step, batch in enumerate(loader):
+            # tail bucketing (module docstring); a packing collator's
+            # packs are fixed-shape already and carry their own mask
+            pad_to = None if token_masked else self._tail_target(loader)
+            for step, batch in enumerate(feed):
                 cbks.on_batch_begin("train", step, logs)
                 ins, lbs = self._split_batch(batch)
-                mask = None
+                mask, nreal = None, None
                 if token_masked:
                     lbs, mask = self._pop_token_mask(lbs)
-                loss, metrics = self.train_batch(ins, lbs, loss_mask=mask)
+                elif pad_to and self._tail_maskable:
+                    # re-checked each batch: a fallback stops the padding
+                    ins, lbs, mask, nreal = self._pad_tail(ins, lbs, pad_to)
+                with RecordEvent("fit::train_step"):
+                    loss, metrics = self.train_batch(ins, lbs,
+                                                     loss_mask=mask)
                 lv = loss[0] if isinstance(loss, list) else loss
                 # deferred host sync: the loss stays on the device except
                 # on the log cadence
                 if log_freq and step % log_freq == 0:
                     lv = _host_float(lv)
-                logs = {"loss": lv, "step": step,
-                        "batch_size": int(torch.as_tensor(ins[0]).shape[0])}
+                logs = {"loss": lv, "step": step, "batch_size": nreal
+                        if nreal is not None else
+                        (int(ins[0].shape[0]) if hasattr(ins[0], "shape")
+                         else batch_size)}
                 _log_metrics(logs, self._metrics, metrics)
                 cbks.on_batch_end("train", step, logs)
                 step_count += 1
@@ -434,31 +608,37 @@ class Model:
         return self
 
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
-                 num_workers=0, callbacks=None):
+                 num_workers=0, callbacks=None, num_samples=None):
         """Mean loss over `eval_data`, with one wait for the card at the
         end of the pass (and one a batch for prepared metrics, whose
         `accumulate()` the result carries under their names). Under a
         packing collator each pack's loss is already real-token-
         normalised, and the pass weights packs by their real-token
         counts, so the result is the true per-token mean (a near-empty
-        last pack does not count like a full one)."""
+        last pack does not count like a full one). A partial last batch
+        is padded (tail bucketing) and its mean covers its real rows.
+        `num_samples` is accepted and not read, as in the JAX package
+        (`paddle_tpu/hapi/model.py:1044`)."""
         loader = self._as_loader(eval_data, batch_size, False, num_workers,
                                  False)
         for m in self._metrics:
             m.reset()
         token_masked = self._token_masked(loader)
+        pad_to = None if token_masked else self._tail_target(loader)
         losses, weights = [], []
-        for batch in loader:
+        for batch in self._buffered(loader):
             ins, lbs = self._split_batch(batch)
             mask = None
             if token_masked:
                 lbs, mask = self._pop_token_mask(lbs)
                 weights.append(torch.as_tensor(mask).float().sum())
+            elif pad_to and self._tail_maskable:
+                ins, lbs, mask, _ = self._pad_tail(ins, lbs, pad_to)
             losses.append(self.eval_batch(ins, lbs, loss_mask=mask)[0])
         if not losses:
             logs = {"loss": 0.0}
         else:
-            vals = _host_floats(losses + weights)
+            vals = cbks_mod._host_scalars(losses + weights)
             monitor.stat_add("STAT_train_host_syncs")
             vals, weights = vals[:len(losses)], vals[len(losses):]
             if token_masked and sum(weights) > 0:
@@ -473,12 +653,24 @@ class Model:
                 stack_outputs=False, verbose=1, callbacks=None):
         """`predict_batch` over `test_data`: a list with one output per
         batch, or, with `stack_outputs`, the outputs concatenated over
-        batches. Packs go through as they are: the port never row-pads a
-        batch (the JAX package must not pad packs either)."""
+        batches. A partial last batch is padded (tail bucketing) and its
+        padded rows sliced off the outputs; packs go through as they are
+        (their rows are not sequences)."""
         loader = self._as_loader(test_data, batch_size, False, num_workers,
                                  False)
-        outputs = [self.predict_batch(self._split_batch(batch)[0])
-                   for batch in loader]
+        pad_to = None if self._token_masked(loader) else \
+            self._tail_target(loader, need_mask=False)
+        outputs = []
+        for batch in self._buffered(loader):
+            ins = self._split_batch(batch)[0]
+            nreal = None
+            if pad_to:
+                rows = _batch_rows(ins)
+                if rows is not None and rows < pad_to:
+                    ins = [_pad_leaf(x, rows, pad_to) for x in ins]
+                    nreal = rows
+                    monitor.stat_add("STAT_tail_pad_batches")
+            outputs.append(self.predict_batch(ins, nreal=nreal))
         if stack_outputs and outputs:
             if isinstance(outputs[0], list):
                 return [np.concatenate([o[i] for o in outputs])
@@ -526,3 +718,7 @@ class Model:
 
     def parameters(self, *args, **kwargs):
         return self.network.parameters()
+
+    def summary(self, input_size=None, dtype=None):
+        from .model_summary import summary
+        return summary(self.network, input_size, dtype)

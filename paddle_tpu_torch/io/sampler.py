@@ -4,14 +4,22 @@
 `RandomSampler` draws its base seed from `framework.random` when it is
 built, so `framework.random.seed(s)` fixes every epoch's order; epoch e
 permutes with base + e (`set_epoch`, which `hapi.Model.fit` calls
-through `BatchSampler.set_epoch` at each epoch's start)."""
+through `BatchSampler.set_epoch` at each epoch's start). With
+`num_samples`, an epoch is the first `num_samples` of that permutation;
+with `replacement`, it is `num_samples` draws from numpy's global
+generator, as the JAX package draws them, and so is every
+`WeightedRandomSampler` epoch: one `np.random.seed` gives both packages
+the same indices there. `generator` is accepted and not read, as in the
+JAX package."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..framework import random as frandom
 
-__all__ = ["Sampler", "SequenceSampler", "RandomSampler", "BatchSampler"]
+__all__ = ["Sampler", "SequenceSampler", "RandomSampler",
+           "WeightedRandomSampler", "BatchSampler"]
 
 
 class Sampler:
@@ -33,18 +41,50 @@ class SequenceSampler(Sampler):
 class RandomSampler(Sampler):
     """A permutation of the whole data source, one per epoch."""
 
-    def __init__(self, data_source):
+    def __init__(self, data_source, replacement=False, num_samples=None,
+                 generator=None):
         super().__init__(data_source)
+        self.replacement = replacement
+        self._num_samples = num_samples
         self._base_seed = frandom.next_seed("cpu")
         self.epoch = 0
+
+    @property
+    def num_samples(self):
+        return self._num_samples or len(self.data_source)
 
     def set_epoch(self, epoch):
         self.epoch = int(epoch)
 
     def __iter__(self):
+        n = len(self.data_source)
+        if self.replacement:
+            return iter(np.random.randint(0, n, self.num_samples).tolist())
         g = torch.Generator().manual_seed(self._base_seed + self.epoch)
-        return iter(torch.randperm(len(self.data_source),
-                                   generator=g).tolist())
+        return iter(torch.randperm(n, generator=g)[:self.num_samples]
+                    .tolist())
+
+    def __len__(self):
+        return self.num_samples
+
+
+class WeightedRandomSampler(Sampler):
+    """`num_samples` indices drawn with probabilities proportional to
+    `weights` (numpy's global generator, as the JAX package)."""
+
+    def __init__(self, weights, num_samples, replacement=True):
+        self.weights = np.asarray(weights, dtype=np.float64)
+        self.num_samples = num_samples
+        self.replacement = replacement
+
+    def __iter__(self):
+        p = self.weights / self.weights.sum()
+        idx = np.random.choice(len(self.weights), self.num_samples,
+                               replace=self.replacement, p=p)
+        return iter(idx.tolist())
+
+    def __len__(self):
+        return self.num_samples
 
 
 class BatchSampler(Sampler):

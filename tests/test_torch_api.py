@@ -34,19 +34,19 @@ from torch_ops_parity import (compare, jx, on_the_cpu,  # noqa: F401
 # ops/legacy.py and the rest of ops/extra_ops.py (ROADMAP A8; its
 # affine_grid and gather_tree are ported), static mode and the
 # dygraph mode names (A5/A8), DataParallel and distributed / parallel
-# (A6), summary / flops / callbacks (A4), onnx / incubate / text / utils (A5/A8),
+# (A6), onnx / incubate (A5/A8),
 # the JAX package's own Tensor / Parameter classes (the port's tensors
 # are torch.Tensor; A3 for Parameter)
 STILL_MISSING = sorted("""
 DataParallel LoDTensor LoDTensorArray Parameter Print Tensor VarBase add_n
 affine_channel annotations array_length array_read array_write
-batch_fc bilateral_slice bpr_loss broadcast_shape callbacks center_loss
+batch_fc bilateral_slice bpr_loss broadcast_shape center_loss
 conv_shift
 correlation create_array create_global_var create_parameter crop_tensor
 cross_entropy2 cvm data data_norm deformable_conv disable_dygraph
 disable_static distributed elementwise_floordiv elementwise_max
 elementwise_min elementwise_mod elementwise_pow enable_dygraph enable_static
-fill_constant filter_by_instag flops fsp
+fill_constant filter_by_instag fsp
 get_tensor_from_selected_rows has_inf has_nan hinge_loss im2sequence
 in_dygraph_mode in_dynamic_mode incubate l1_norm legacy linear_chain_crf
 lod_reset merge_selected_rows monkey_patch_math_varbase
@@ -57,8 +57,8 @@ reduce_prod reduce_sum reverse row_conv sample_logits scatter_nd
 search_pyramid_hash sequence_concat sequence_expand sequence_pad
 sequence_pool sequence_reshape sequence_reverse sequence_scatter
 sequence_slice sequence_softmax sequence_unpad set_printoptions shape
-shuffle_batch space_to_depth squared_l2_norm summary temporal_shift
-tensor_array_to_tensor text tree_conv utils var_conv_2d
+shuffle_batch space_to_depth squared_l2_norm temporal_shift
+tensor_array_to_tensor tree_conv var_conv_2d
 """.split())
 
 

@@ -202,7 +202,9 @@ def test_save_load_round_trip(tmp_path):
 
 
 def test_unported_options_raise():
-    """DataLoader workers are not ported and raise. Metrics are ported
+    """DataLoader workers are ported (tests/test_torch_io_rest.py holds
+    them to the JAX package): `num_workers=2` gives the in-process
+    loader's batches. Metrics are ported
     (tests/test_torch_metric.py holds them to the JAX package): with one
     prepared, `train_batch` returns the bare loss and one result a
     metric. AMP is ported: `prepare(amp_configs="O1")` returns the model
@@ -224,5 +226,8 @@ def test_unported_options_raise():
     (lv,), _ = model.train_batch([ids[:, :-1]], [ids[:, 1:]])
     assert seen == [torch.bfloat16]
     assert lv.dtype == torch.float32 and torch.isfinite(lv)
-    with pytest.raises(NotImplementedError):
-        io.DataLoader(io.TensorDataset([np.zeros((2, 3))]), num_workers=2)
+    data = io.TensorDataset([np.arange(12.0).reshape(4, 3)])
+    got = [b[0] for b in io.DataLoader(data, batch_size=3, num_workers=2)]
+    want = [b[0] for b in io.DataLoader(data, batch_size=3)]
+    assert len(got) == len(want) == 2
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -281,7 +281,8 @@ def test_token_mask_scalar_loss_raises():
 
 def test_row_mask_path():
     """A 1-D row mask: the loss of the real rows only, as the JAX
-    package's."""
+    package's; a loss without per-row values falls back to the real rows
+    with one warning, as there."""
     x = np.random.RandomState(0).randn(8, 4).astype("float32")
     y = np.random.RandomState(1).randint(0, 3, (8,)).astype("int64")
     paddle.seed(12)
@@ -306,9 +307,17 @@ def test_row_mask_path():
         optimizer.Adam(0.01), nn.CrossEntropyLoss(reduction="sum")
     ).eval_batch([x], [y], loss_mask=mask)[0]
     np.testing.assert_allclose(float(lv_sum), 6 * float(lv_ref), rtol=1e-5)
+    # a loss with no per-row values cannot take the mask: as in the JAX
+    # package, the model warns once and runs the real rows unmasked
+    # (tests/test_torch_tail_bucketing.py holds the fallback in fit to
+    # the JAX package's)
     tm._loss = lambda out, lb: out.sum()
-    with pytest.raises(TypeError, match="per-row"):
-        tm.eval_batch([x], [y], loss_mask=mask)
+    with pytest.warns(UserWarning, match="per-row"):
+        lv_fb, _ = tm.eval_batch([x], [y], loss_mask=mask)
+    with torch.no_grad():
+        want = float(tnet(torch.from_numpy(x[:6])).sum())
+    np.testing.assert_allclose(float(lv_fb), want, rtol=1e-5)
+    assert tm._tail_maskable is False
 
 
 def test_splash_wrappers_on_cpu_build_nothing():
