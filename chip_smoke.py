@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase, exit 0 only if all pass
     python3 chip_smoke.py --kernels  # phases 1-3 only (build + kernel checks)
     python3 chip_smoke.py --profile  # also profile serving, train, vision
+    python3 chip_smoke.py --phases ernie,static  # these after 1-2, no result
 
 Phases:
  1. card      name and power limit from nvidia-smi, torch/CUDA versions,
@@ -332,6 +333,33 @@ Phases:
               step p50 beside it. (a) also runs W // 3 workers, printed
               and held to the common gates, and prints the feeder
               thread's fetch and stage spans
+14. static    ERNIE-base as a static Program (`static.program_guard`,
+              the recorder's named ops: 12 `sdpa` ops on the flash
+              kernels). (a) phase 8 (b)'s configuration (8 x 512,
+              lengths 128-512, dropout 0.1, AdamW(1e-4).minimize, feeds
+              input_ids / attention_mask / labels), STATIC["STEPS"]
+              Executor.run steps in fp32, then after static.amp.decorate
+              in bf16: the loss finite and falling (last 3 under the
+              first 3), K2, K3 and K4 12 times a step each, all in the
+              arm's type, the plain attention 0 times; printed real
+              tokens/s over steps 3 on, the step p50 and the device busy
+              share of 3 more profiled steps. (b) at ERNIE_PARITY (dropout
+              0, fp32) one Executor.run step against one dygraph
+              Model.train_batch of the same weights: the loss to rtol
+              1e-5, every update within phase 6's fp32 limits. (c) each
+              arm's pruned eval Program through save_inference_model /
+              load_inference_model: the loaded Program's logits and
+              inference.Predictor's on the .pdmodel equal (a)'s within
+              EXPORT_TOL, 12 flash_fwd nodes in the .pdmodel; (b)'s
+              Program loaded from its .ptprog trains one step with (b)'s
+              update, K3/K4 through the flash_fwd op's autograd. (d)
+              dy2static: jit.save of a to_static layer with a tensor
+              `if` and a tensor `while`, loaded on the card, equal to
+              eager in both branches. (e) the quantization passes on a
+              static MLP (frozen Program card vs CPU),
+              save_quantized_model -> Predictor, and the committed legacy
+              ProgramDesc encoder (tests/data) through Predictor, card vs
+              CPU
 Phase 3 also holds the splash kernels to their plain versions: K5 splash
 forward, K6 splash dQ and K7 splash dK/dV at GPT-2 small's attention
 width (B 8, H 12, S 1024, D 64) and at the packing phase's shape, with
@@ -370,11 +398,14 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
+import types
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -506,6 +537,8 @@ K2_INFERENCE_BATCHES = (16, 64)
 # phase 13: bench.py's ResNet-50 batch over N host images of SIDE^2 (a);
 # ERNIE_LONG's batches over ERNIE_ROWS rows, the last batch a tail (b)
 INPUT = dict(N=1000, B=32, SIDE=256, ERNIE_ROWS=8 * 12 + 3)
+# phase 14: Executor.run steps of each arm of (a), on ERNIE_LONG's shape
+STATIC = dict(STEPS=12)
 MOE = dict(E=8, B=8, S=1024, STEPS=8, LR=1e-3, DROPOUT=0.1, FALL=0.25,
            PARITY_SEEDS=(1, 2, 3))
 # phase 11 (a): the limits of a card call against the same call on the
@@ -6814,6 +6847,505 @@ class Smoke:
             del model, net
             torch.cuda.empty_cache()
 
+    # -- 14. static -----------------------------------------------------------
+
+    def static(self):
+        """ERNIE-base as a static Program: trained through Executor.run in
+        fp32 and after static.amp.decorate in bf16 (a), its step against
+        the dygraph step (b), exported and reloaded (c), dy2static (d)
+        and the Program passes (e); see the module docstring."""
+        self.gpt = None
+        self.torch.cuda.empty_cache()
+        # the phase's artifacts (≈ 3 GB of .pdmodel / .ptprog files)
+        self.static_dir = tempfile.mkdtemp(prefix="chip_smoke_static_")
+        try:
+            evals = {dtype: self.static_train(dtype)
+                     for dtype in ("float32", "bfloat16")}
+            ptprog = self.static_parity()
+            self.static_export(evals, ptprog)
+            del evals
+            self.torch.cuda.empty_cache()
+            self.static_dy2static()
+            self.static_passes()
+        finally:
+            shutil.rmtree(self.static_dir, ignore_errors=True)
+
+    def _static_tmp(self, prefix):
+        return tempfile.mkdtemp(prefix=prefix,
+                                dir=getattr(self, "static_dir", None))
+
+    def _static_feed(self, ids, mask, labels, sl):
+        feed = {"input_ids": ids[sl], "attention_mask": mask[sl]}
+        if labels is not None:
+            feed["labels"] = labels[sl]
+        return feed
+
+    def static_train(self, dtype):
+        """(a) ERNIE-base (seed 0, dropout 0.1) recorded under
+        static.program_guard at batch 8 x seq 512 (feeds input_ids,
+        attention_mask and labels), CrossEntropyLoss and
+        AdamW(1e-4).minimize, on phase 8 (b)'s seeded lengths 128-512;
+        STATIC["STEPS"] Executor.run steps in fp32 ("static") or after
+        static.amp.decorate in bf16 ("static_amp"). Gates: the loss is
+        finite and falls (the mean of the last 3 steps below the mean of
+        the first 3); K2, K3 and K4 launch 12 times a step, all in the
+        arm's type; the plain attention 0 times. Printed: real tokens/s
+        over steps 3 on, the step p50 on the device timeline, the device
+        busy share of 3 more profiled steps. Returns the eval Program
+        (dropout off, rewritten to bf16 in the bf16 arm), its scope, feed
+        and fetch Variables, a batch and the Program's logits on it, for
+        (c)."""
+        torch = self.torch
+        import numpy as np
+        import paddle_tpu_torch as ptt
+        from paddle_tpu_torch import nn, optimizer, static
+        from paddle_tpu_torch.framework import random as frandom
+        from paddle_tpu_torch.models import (ErnieConfig,
+                                             ErnieForSequenceClassification)
+        from paddle_tpu_torch.nn.functional import attention
+        B, S = ERNIE_LONG["B"], ERNIE_LONG["S"]
+        steps = STATIC["STEPS"]
+        path = "static" if dtype == "float32" else "static_amp"
+        cfg = ErnieConfig.base()
+        frandom.seed(1)
+        net = ErnieForSequenceClassification(cfg, device="cuda", seed=0)
+        lens = _ernie_lengths(np, B * steps, S, seed=1)
+        ids, labels, mask = _ernie_cls_set(np, B * steps, S, cfg.vocab_size,
+                                           B, seed=1, lengths=lens)
+        scope = {}
+        plain = [0]
+        ref_attn = attention._sdpa_ref
+
+        def counted(*a, **k):
+            plain[0] += 1
+            return ref_attn(*a, **k)
+        ptt.enable_static()
+        try:
+            with static.scope_guard(scope):
+                main = static.Program()
+                t0 = time.perf_counter()
+                with static.program_guard(main, static.Program()):
+                    x = static.data("input_ids", [B, S], "int64")
+                    m = static.data("attention_mask", [B, S], "float32")
+                    y = static.data("labels", [B], "int64")
+                    loss = nn.CrossEntropyLoss()(net(x, attention_mask=m), y)
+                    opt = optimizer.AdamW(ERNIE_LONG["LR"])
+                    if dtype == "bfloat16":
+                        opt = static.amp.decorate(opt)
+                    opt.minimize(loss)
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t0
+                names = [op.name for op in main.ops]
+                exe = static.Executor()
+                events, handles = [], []
+                torch.cuda.synchronize()
+                # the main path starts here: every launch count from 0
+                self.zero_launches()
+                attention._sdpa_ref = counted
+                try:
+                    t0 = time.perf_counter()
+                    for i in range(steps):
+                        lv, = exe.run(main, feed=self._static_feed(
+                            ids, mask, labels, slice(i * B, (i + 1) * B)),
+                            fetch_list=[loss], return_numpy=False)
+                        ev = torch.cuda.Event(enable_timing=True)
+                        ev.record()
+                        events.append(ev)
+                        handles.append(lv)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                finally:
+                    attention._sdpa_ref = ref_attn
+                launches = self.record_path(path)
+                by_dtype = self.path_dtype_launches[path]
+                losses = [float(v) for v in handles]
+                busy = self._static_busy(exe, main, loss, self._static_feed(
+                    ids, mask, labels, slice(0, B)))
+                del main, loss, opt, handles
+                # the eval Program: dropout off, the same parameters
+                net.eval()
+                ev_prog = static.Program()
+                with static.program_guard(ev_prog, static.Program()):
+                    ex = static.data("input_ids", [B, S], "int64")
+                    em = static.data("attention_mask", [B, S], "float32")
+                    elog = net(ex, attention_mask=em)
+                if dtype == "bfloat16":
+                    static.amp.rewrite_program(ev_prog)
+                efeed = self._static_feed(ids, mask, None, slice(0, B))
+                ref = exe.run(ev_prog, feed=efeed, fetch_list=[elog])[0]
+        finally:
+            ptt.disable_static()
+
+        n, window, p50, gaps = self._step_times(
+            types.SimpleNamespace(events=events))
+        real = float(mask.sum()) / steps
+        tps = float(mask[-n * B:].sum()) / window * 1e3
+        label = "fp32" if dtype == "float32" else "static.amp bf16"
+        counts = {k: names.count(k) for k in ("linear", "sdpa", "layer_norm",
+                                              "embedding", "dropout",
+                                              "cross_entropy")}
+        print(f"{path} on {self.smi}: ERNIE-base {label} Program of "
+              f"{len(names)} ops (named {counts}) built in {build_s:.2f} s; "
+              f"batch {B} x {S}, lengths {ERNIE_LONG['MIN_LEN']}-{S} (fill "
+              f"{real / (B * S):.3f}), {steps} Executor.run steps in "
+              f"{wall:.2f} s wall; {tps:.0f} real tokens/s (steps "
+              f"3-{steps} over their {window:.2f} ms on the device "
+              f"timeline); step p50 {p50:.2f} ms; device busy "
+              f"{busy['busy_share'] * 100:.1f}% of 3 profiled steps; "
+              f"launches {launches}; by type {by_dtype['flash_fwd']}; "
+              f"plain attention calls {plain[0]}")
+        print("per-step loss: " + " ".join(f"{v:.4f}" for v in losses))
+        self.details[path] = dict(
+            losses=losses, step_ms_p50=p50, step_ms=gaps, wall_s=wall,
+            window_ms=window, measured_steps=n, build_s=build_s,
+            real_tokens_per_step=real, real_tokens_per_s=tps,
+            fill=real / (B * S), launches=launches,
+            launches_by_dtype=by_dtype, ops=len(names), named_ops=counts,
+            plain_attention=plain[0], **busy)
+        assert all(np.isfinite(losses)), f"non-finite {path} loss"
+        assert np.mean(losses[-3:]) < np.mean(losses[:3]), \
+            f"the {path} loss did not fall"
+        L = cfg.num_hidden_layers
+        assert counts["sdpa"] == L, counts
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert launches[name] == L * steps, (name, launches[name])
+            assert by_dtype[name] == {dtype: L * steps}, \
+                f"{name} launched {by_dtype[name]}, all {dtype} expected"
+        assert plain[0] == 0, f"plain attention ran {plain[0]} times"
+        del net
+        torch.cuda.empty_cache()
+        return dict(scope=scope, prog=ev_prog, feeds=[ex, em], fetch=elog,
+                    feed=efeed, ref=ref)
+
+    def _static_busy(self, exe, main, loss, feed):
+        """Device busy share of 3 profiled Executor.run steps: the
+        kernels' device ms over the wall ms of the same steps."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        steps = 3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                exe.run(main, feed=feed, fetch_list=[loss],
+                        return_numpy=False)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev, _ = _device_table(torch, prof, steps, wall_ms)
+        return dict(busy_device_ms=dev, busy_wall_ms=wall_ms / steps,
+                    busy_share=dev / (wall_ms / steps))
+
+    def static_parity(self):
+        """(b) At ERNIE_PARITY ([2, 512], row 1 padded from 300, dropout 0,
+        fp32), one Executor.run training step (AdamW 1e-4) of the static
+        Program against one dygraph hapi Model.train_batch of the same
+        weights: the loss to rtol 1e-5 and every parameter's update
+        within phase 6's fp32 limits (1e-3 x its max + 1e-6 x the
+        model's max). Returns the Program saved as a `.ptprog` document
+        before its step, with the step's feed and scope after, for
+        (c)."""
+        torch = self.torch
+        import numpy as np
+        import paddle_tpu_torch as ptt
+        from paddle_tpu_torch import hapi, nn, optimizer, static
+        from paddle_tpu_torch.models import (ErnieConfig,
+                                             ErnieForSequenceClassification)
+        B, S = ERNIE_PARITY["B"], ERNIE_PARITY["S"]
+        cfg = ErnieConfig(hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+        net = ErnieForSequenceClassification(cfg, device="cuda", seed=0)
+        rng = np.random.RandomState(2)
+        ids = rng.randint(5, cfg.vocab_size, size=(B, S)).astype(np.int64)
+        mask = np.ones((B, S), np.float32)
+        mask[1, 300:] = 0
+        ids[mask == 0] = 0
+        labels = np.array([0, 1], np.int64)
+        feed = {"input_ids": ids, "attention_mask": mask, "labels": labels}
+        scope = {}
+        ptt.enable_static()
+        try:
+            with static.scope_guard(scope):
+                main = static.Program()
+                with static.program_guard(main, static.Program()):
+                    x = static.data("input_ids", [B, S], "int64")
+                    m = static.data("attention_mask", [B, S], "float32")
+                    y = static.data("labels", [B], "int64")
+                    loss = nn.CrossEntropyLoss()(net(x, attention_mask=m), y)
+                    optimizer.AdamW(1e-4).minimize(loss)
+                before = {n: scope[n].clone() for n in main.param_vars}
+                path = os.path.join(self._static_tmp("static_"),
+                                    "ernie_train.ptprog")
+                t0 = time.perf_counter()
+                main.save(path)
+                save_s = time.perf_counter() - t0
+                self.zero_launches()
+                ls = static.Executor().run(main, feed=feed,
+                                           fetch_list=[loss])[0]
+                launches = self.read_launches()
+        finally:
+            ptt.disable_static()
+        # the dygraph step from the same weights
+        model = hapi.Model(net, inputs=[None] * 4).prepare(
+            optimizer.AdamW(1e-4), nn.CrossEntropyLoss())
+        x4 = [ids, np.zeros_like(ids), np.tile(np.arange(S), (B, 1)), mask]
+        lvs, _ = model.train_batch(x4, [labels])
+        ld = float(lvs[0])
+        by_name = {getattr(p, "_pt_name", None): p
+                   for p in net.parameters()}
+        upd_s = {n: scope[n] - before[n] for n in before}
+        upd_d = {n: by_name[n].detach() - before[n] for n in before}
+        worst = _grad_worst(upd_s, upd_d, 1e-3, 1e-6)
+        print(f"static step parity [{B},{S}] padded, dropout 0, fp32: loss "
+              f"static {float(ls):.6f} dygraph {ld:.6f} (rtol 1e-5); worst "
+              f"update max_abs_err / its limit {worst[0]:.3e} ({worst[1]}); "
+              f"launches {launches}; the Program's .ptprog "
+              f"({os.path.getsize(path) / 2**20:.1f} MiB) written in "
+              f"{save_s:.1f} s")
+        self.details["static_parity"] = dict(
+            loss_static=float(ls), loss_dygraph=ld,
+            worst_update_over_limit=worst[0], worst_param=worst[1],
+            launches=launches, ptprog_bytes=os.path.getsize(path),
+            ptprog_save_s=save_s)
+        assert abs(float(ls) - ld) <= 1e-5 * abs(ld), (float(ls), ld)
+        assert worst[0] <= 1.0, f"static step update {worst[1]} differs"
+        L = cfg.num_hidden_layers
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert launches[k] == L, (k, launches[k])
+        del model, net, main
+        torch.cuda.empty_cache()
+        return dict(path=path, feed=feed, before=before, after=upd_s,
+                    loss=float(ls))
+
+    def static_export(self, evals, ptprog):
+        """(c) For each arm of (a): save_inference_model of its pruned
+        eval Program, then load_inference_model in the same process; the
+        loaded Program's Executor logits and inference.Predictor's on the
+        `.pdmodel` both equal (a)'s eval logits within EXPORT_TOL x
+        max(1, max |logit|) (fp32 1e-4, bf16 2e-2, phase 10 (b)); the
+        `.pdmodel` holds 12 flash_fwd nodes. Then (b)'s Program loaded
+        from its `.ptprog` trains one Executor.run step from the same
+        weights: the loss to rtol 1e-5 and every update within phase 6's
+        fp32 limits of the built Program's; K2, K3 and K4 launch 12 times
+        each in that step, K3 and K4 through the flash_fwd op's autograd
+        registration."""
+        torch = self.torch
+        import numpy as np
+        import paddle_tpu_torch as ptt
+        from paddle_tpu_torch import inference, optimizer, static
+        tmp = self._static_tmp("static_export_")
+        for dtype, ev in evals.items():
+            prefix = os.path.join(tmp, f"ernie_{dtype}")
+            ptt.enable_static()
+            try:
+                with static.scope_guard(ev["scope"]):
+                    exe = static.Executor()
+                    t0 = time.perf_counter()
+                    static.save_inference_model(prefix, ev["feeds"],
+                                                [ev["fetch"]], exe,
+                                                program=ev["prog"])
+                    save_s = time.perf_counter() - t0
+                    with static.scope_guard({}):
+                        prog, feeds, fetches = static.load_inference_model(
+                            prefix, exe)
+                        out = exe.run(prog, feed=ev["feed"], fetch_list=[
+                            prog.vars[prog._fetch_slots[0]]])[0]
+            finally:
+                ptt.disable_static()
+            pred = inference.create_predictor(inference.Config(prefix))
+            # the Predictor's inputs follow the sorted feed names
+            pout = pred.run([ev["feed"][n] for n in sorted(ev["feed"])])[0]
+            graph = [str(nd.target) for nd in
+                     pred._translated._exported.graph.nodes
+                     if nd.op == "call_function"]
+            nodes = sum(t == "paddle_tpu_torch.flash_fwd.default"
+                        for t in graph)
+            ref = ev["ref"].astype(np.float32)
+            scale = max(1.0, float(np.abs(ref).max()))
+            tol = EXPORT_TOL[dtype] * scale
+            e_prog = float(np.abs(out.astype(np.float32) - ref).max())
+            e_pred = float(np.abs(pout.astype(np.float32) - ref).max())
+            print(f"static export {dtype} on {self.smi}: save_inference_model "
+                  f"{save_s:.1f} s (.pdmodel "
+                  f"{os.path.getsize(prefix + '.pdmodel') / 2**20:.1f} MiB, "
+                  f".ptprog {os.path.getsize(prefix + '.ptprog') / 2**20:.1f}"
+                  f" MiB, {len(prog.ops)} ops); loaded Program logits "
+                  f"max_abs_err {e_prog:.3e}, Predictor {e_pred:.3e} (tol "
+                  f"{tol:.3e}); .pdmodel flash_fwd nodes {nodes}; feeds "
+                  f"{feeds}")
+            self.details[f"static_export_{dtype}"] = dict(
+                save_s=save_s, err_program=e_prog, err_predictor=e_pred,
+                tol=tol, flash_fwd_nodes=nodes, ops=len(prog.ops))
+            assert e_prog <= tol and e_pred <= tol, (e_prog, e_pred, tol)
+            assert nodes == 12, nodes
+            del prog, pred
+        # the loaded training Program's step against the built one's
+        t0 = time.perf_counter()
+        prog, params = static.load_program(ptprog["path"], "cuda")
+        load_s = time.perf_counter() - t0
+        prog._opt_hooks.append(optimizer.AdamW(1e-4))
+        scope = {n: params[n].clone() for n in params}
+        before = {n: scope[n].clone() for n in scope}
+        exe = static.Executor()
+        self.zero_launches()
+        with static.scope_guard(scope):
+            ll = exe.run(prog, feed=ptprog["feed"],
+                         fetch_list=[prog.vars[prog._loss_slot]])[0]
+        torch.cuda.synchronize()
+        launches = self.read_launches()
+        upd = {n: scope[n] - before[n] for n in before}
+        worst = _grad_worst(upd, ptprog["after"], 1e-3, 1e-6)
+        kinds = sorted({op.name for op in prog.ops})
+        print(f"static loaded .ptprog ({len(prog.ops)} ops, loaded in "
+              f"{load_s:.1f} s) one training step on {self.smi}: loss "
+              f"{float(ll):.6f} built {ptprog['loss']:.6f}; worst update "
+              f"max_abs_err / its limit {worst[0]:.3e} ({worst[1]}); "
+              f"launches {launches}; op kinds {kinds}")
+        self.details["static_loaded_step"] = dict(
+            loss=float(ll), loss_built=ptprog["loss"], load_s=load_s,
+            worst_update_over_limit=worst[0], worst_param=worst[1],
+            launches=launches)
+        assert abs(float(ll) - ptprog["loss"]) <= 1e-5 * abs(ptprog["loss"])
+        assert worst[0] <= 1.0, f"loaded step update {worst[1]} differs"
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert launches[k] == 12, (k, launches[k])
+        del prog, params, scope
+        torch.cuda.empty_cache()
+
+    def static_dy2static(self):
+        """(d) jit.save of a to_static layer whose forward branches on a
+        tensor value (`if h.mean() > 0`) and loops while a tensor
+        condition holds (`while h.abs().sum() < ...`), exported on the
+        card (torch.cond and while_loop in the program); jit.load on the
+        card equals eager on inputs that take each branch (fp32, 1e-5 x
+        max(1, max |out|))."""
+        torch = self.torch
+        from paddle_tpu_torch import jit, nn
+        from paddle_tpu_torch.static import InputSpec
+
+        class Gate(nn.Layer):
+            def __init__(self):
+                super().__init__()
+                self.fc = nn.Linear(64, 64)
+
+            def forward(self, x):
+                h = self.fc(x)
+                if h.mean() > 0:
+                    h = h * 2.0
+                else:
+                    h = h - 1.0
+                while h.abs().sum() < 1e5:
+                    h = h * 1.5
+                return h
+
+        torch.manual_seed(0)
+        layer = Gate().to("cuda")
+        xs = [torch.full((4, 64), s, device="cuda") for s in (-3.0, 3.0)]
+        with torch.no_grad():
+            eager = [layer(x) for x in xs]
+            taken = [bool(layer.fc(x).mean() > 0) for x in xs]
+        assert sorted(taken) == [False, True], taken
+        layer = jit.to_static(layer)
+        prefix = os.path.join(self._static_tmp("dy2static_"), "gate")
+        jit.save(layer, prefix, input_spec=[InputSpec([4, 64], "float32")])
+        loaded = jit.load(prefix)
+        hops = sorted({getattr(nd.target, "__name__", str(nd.target))
+                       for nd in loaded._exported.graph.nodes
+                       if nd.op == "call_function"
+                       and "higher_order" in repr(nd.target)})
+        errs = []
+        for x, e in zip(xs, eager):
+            got = loaded(x)
+            errs.append(float((got - e).abs().max())
+                        / max(1.0, float(e.abs().max())))
+        print(f"dy2static on {self.smi}: branches taken {taken}; program "
+              f"control flow {hops}; loaded vs eager relative errors "
+              f"{errs}")
+        self.details["static_dy2static"] = dict(taken=taken, hops=hops,
+                                                errs=errs)
+        assert any("cond" in h for h in hops) and \
+            any("while_loop" in h for h in hops), hops
+        assert max(errs) <= 1e-5, errs
+
+    def static_passes(self):
+        """(e) QuantizationTransformPass + QuantizationFreezePass on a
+        static MLP (784-512-512-10 at batch 64): the frozen Program's
+        outputs on the card equal its CPU outputs (1e-5 x max(1, max
+        |out|)); ImperativeQuantAware.save_quantized_model of a dygraph
+        MLP, then inference.Predictor on the card equals the quantized
+        layer eagerly (1e-5 x max(1, ...)); the committed legacy
+        ProgramDesc transformer encoder (tests/data/pd_encoder.pdmodel)
+        through inference.Predictor on the card equals the port's CPU run
+        of it (1e-5 x max(1, ...))."""
+        torch = self.torch
+        import numpy as np
+        import paddle_tpu_torch as ptt
+        from paddle_tpu_torch import inference, nn, quantization, static
+        from paddle_tpu_torch.inference.pd_import import \
+            load_legacy_inference_model
+        from paddle_tpu_torch.static import InputSpec
+        rng = np.random.RandomState(4)
+        xv = rng.rand(64, 784).astype(np.float32)
+        scope = {}
+        ptt.enable_static()
+        try:
+            with static.scope_guard(scope):
+                main = static.Program()
+                with static.program_guard(main, static.Program()):
+                    x = static.data("x", [64, 784], "float32")
+                    h = static.nn.fc(x, 512, activation="relu")
+                    h = static.nn.fc(h, 512, activation="relu")
+                    out = static.nn.fc(h, 10)
+                quantization.QuantizationTransformPass().apply(main)
+                quantization.QuantizationFreezePass().apply(main)
+                frozen = [op.name for op in main.ops
+                          if op.attrs.get("frozen")]
+                card = static.Executor().run(main, feed={"x": xv},
+                                             fetch_list=[out])[0]
+                cpu = static.Executor(ptt.CPUPlace()).run(
+                    main, feed={"x": xv}, fetch_list=[out])[0]
+        finally:
+            ptt.disable_static()
+        e_q = float(np.abs(card - cpu).max()) / max(1.0, float(
+            np.abs(cpu).max()))
+        # save_quantized_model -> Predictor
+        torch.manual_seed(0)
+        mlp = nn.Sequential(nn.Linear(784, 512), nn.ReLU(),
+                            nn.Linear(512, 10)).to("cuda")
+        quantization.ImperativeQuantAware().quantize(mlp)
+        prefix = os.path.join(self._static_tmp("quant_"), "mlp")
+        quantization.ImperativeQuantAware().save_quantized_model(
+            mlp, prefix, input_spec=[InputSpec([None, 784], "float32")])
+        pred = inference.create_predictor(inference.Config(prefix))
+        got = pred.run([xv])[0]
+        with torch.no_grad():
+            want = mlp.eval()(torch.from_numpy(xv).cuda()).cpu().numpy()
+        e_s = float(np.abs(got - want).max()) / max(1.0, float(
+            np.abs(want).max()))
+        # the legacy ProgramDesc fixture
+        fx = REPO / "tests" / "data" / "pd_encoder"
+        ids = np.random.RandomState(5).randint(0, 50, (3, 8)).astype(
+            np.int64)
+        pos = np.tile(np.arange(8, dtype=np.int64), (3, 1))
+        lp = inference.create_predictor(inference.Config(
+            str(fx) + ".pdmodel", str(fx) + ".pdiparams"))
+        lcard = lp.run([ids, pos])[0]
+        lcpu = load_legacy_inference_model(
+            str(fx) + ".pdmodel", str(fx) + ".pdiparams",
+            device="cpu").run({"ids": ids, "pos": pos})[0]
+        e_l = float(np.abs(lcard - lcpu).max()) / max(1.0, float(
+            np.abs(lcpu).max()))
+        print(f"static passes on {self.smi}: frozen ops {frozen}, card vs "
+              f"CPU {e_q:.3e}; save_quantized_model -> Predictor vs eager "
+              f"{e_s:.3e}; legacy encoder ({len(lp._legacy._steps)} ops, "
+              f"feeds {lp.get_input_names()}) card vs CPU {e_l:.3e} "
+              f"(limit 1e-5 x max(1, max |out|) each)")
+        self.details["static_passes"] = dict(
+            frozen=frozen, quant_card_vs_cpu=e_q, saved_quant_vs_eager=e_s,
+            legacy_card_vs_cpu=e_l)
+        assert len(frozen) == 3, frozen
+        assert e_q <= 1e-5 and e_s <= 1e-5 and e_l <= 1e-5, (e_q, e_s, e_l)
+
     def kernels_line(self):
         srcs = {"paged_attention": (
                     "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -7744,6 +8276,12 @@ def _device_table(torch, prof, steps, wall_ms):
                  for e in sorted(ev, key=dev_us, reverse=True)]
 
 
+# the phases after card and build, in the order they run
+PHASES = ("kernels", "model", "serving", "features", "quant", "tier", "fleet",
+          "profile", "train", "packing", "ernie", "vision", "export", "api",
+          "seq2seq", "input", "static")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -7754,7 +8292,16 @@ def main(argv=None):
                     "packed train step; in vision, one ResNet-50 step")
     ap.add_argument("--details", default="",
                     help="also write every measurement as JSON to this path")
+    ap.add_argument("--phases", default="",
+                    help="comma-separated names of the phases to run after "
+                    "card and build (e.g. ernie,static), in their usual "
+                    "order, for an A/B of one path; prints no result line")
     args = ap.parse_args(argv)
+    only = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(only) - set(PHASES))
+    if unknown:
+        print(f"chip_smoke: unknown phases {unknown}", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -7773,33 +8320,23 @@ def main(argv=None):
     sm.phase("card", sm.card)
     built = sm.phase("build", sm.build)
     if built:
-        sm.phase("kernels", sm.kernels)
-        if not args.kernels:
-            sm.phase("model", sm.model)
-            sm.phase("serving", sm.serving)
-            sm.phase("features", sm.features)
-            sm.phase("quant", sm.quant)
-            sm.phase("tier", sm.tier)
-            sm.phase("fleet", sm.fleet)
-            if args.profile:
-                sm.phase("profile", sm.profile)
-            sm.phase("train", sm.train)
-            sm.phase("packing", sm.packing)
-            sm.phase("ernie", sm.ernie)
-            sm.phase("vision", sm.vision)
-            sm.phase("export", sm.export)
-            sm.phase("api", sm.api)
-            sm.phase("seq2seq", sm.seq2seq)
-            sm.phase("input", sm.input)
+        for name in PHASES:
+            if only:
+                if name not in only:
+                    continue
+            elif args.kernels and name != "kernels" or \
+                    name == "profile" and not args.profile:
+                continue
+            sm.phase(name, getattr(sm, name))
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)),
                     exist_ok=True)
         with open(args.details, "w") as f:
             json.dump({"card": sm.smi, "details": sm.details,
                        "path_launches": sm.path_launches}, f, indent=1)
-    if sm.failures or args.kernels:
+    if sm.failures or args.kernels or only:
         print(f"chip_smoke: failed phases {sm.failures}" if sm.failures
-              else "chip_smoke: kernel phases only, no result")
+              else "chip_smoke: some phases only, no result")
         return 1 if sm.failures else 0
     print(json.dumps(sm.kernels_line()))
     print(sm.smi)

@@ -82,7 +82,13 @@ Ported so far:
   dataset combinators and samplers, `io.DeviceFeeder` (pinned copies on
   a side CUDA stream), tail bucketing in `Model`, the callbacks
   `EarlyStopping` and `VisualDL` (here as `callbacks`), `summary` and
-  `flops`, `utils`, `vision.transforms`, `vision.datasets` and `text`.
+  `flops`, `utils`, `vision.transforms`, `vision.datasets` and `text`;
+- static graph mode: `enable_static` / `disable_static` and the mode
+  names, `data`, `static.{Program, Executor, program_guard, nn, amp,
+  save_inference_model, load_inference_model}`, the op-level document
+  and passes, `Optimizer.minimize`, dy2static in `jit.to_static`, the
+  quantization passes, and the reference's ProgramDesc `.pdmodel`
+  through `inference.Predictor`.
 """
 from . import amp, framework, hapi, io, metric, models, nn, ops  # noqa: F401
 from . import optimizer, profiler, quantization  # noqa: F401
@@ -137,5 +143,25 @@ scale_ = _inplace_fn("scale_")
 flatten_ = _inplace_fn("flatten_")
 exp_ = _inplace_fn("exp_")
 sqrt_ = _inplace_fn("sqrt_")
+
+from .static.program import data, disable_static, enable_static  # noqa
+from .static.program import in_static_mode as _in_static  # noqa: E402
+
+
+def in_dynamic_mode():
+    return not _in_static()
+
+
+def in_dygraph_mode():
+    return not _in_static()
+
+
+def enable_dygraph(place=None):
+    disable_static(place)
+
+
+def disable_dygraph():
+    enable_static()
+
 
 __version__ = "0.1.0"

@@ -40,6 +40,8 @@ import threading
 
 import torch
 
+from ..framework import static_hook
+
 __all__ = ["auto_cast", "amp_guard", "decorate", "GradScaler",
            "white_list", "black_list", "amp_active", "cast_args",
            "cast_out"]
@@ -99,7 +101,11 @@ def cast_args(op_name, *args):
     """The JAX package's `maybe_cast_inputs` for op `op_name`: returns
     `args` as a tuple, with float32 tensors cast to the autocast type for
     a white op and autocast-type tensors cast to float32 for a black op;
-    `args` unchanged when AMP is off or the op is in neither list."""
+    `args` unchanged when AMP is off or the op is in neither list. It
+    also names the op to the static-graph recorder
+    (`framework.static_hook.announce`)."""
+    if static_hook._installed:
+        static_hook.announce(op_name)
     if not _state.enabled:
         return args
     in_white = (op_name in WHITE_LIST or op_name in _state.custom_white) \

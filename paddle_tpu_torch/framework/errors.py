@@ -9,7 +9,7 @@ from __future__ import annotations
 
 __all__ = ["EnforceNotMet", "InvalidArgumentError", "ResourceExhaustedError",
            "ExecutionTimeoutError", "UnavailableError", "UnimplementedError",
-           "FatalError"]
+           "FatalError", "NotFoundError"]
 
 
 class EnforceNotMet(Exception):
@@ -37,6 +37,10 @@ class UnavailableError(EnforceNotMet, RuntimeError):
 
 class UnimplementedError(EnforceNotMet, NotImplementedError):
     code = "UNIMPLEMENTED"
+
+
+class NotFoundError(EnforceNotMet, KeyError):
+    code = "NOT_FOUND"
 
 
 class FatalError(EnforceNotMet):

@@ -17,9 +17,12 @@ get_input_handle / run / get_output_handle.
 - `run_device` returns device tensors without waiting for the card (the
   serving engine's lanes run it on their own CUDA streams); `run` copies
   the outputs to the host.
-- The legacy ProgramDesc `.pdmodel` import (`pd_import`, `pd_format`,
-  `analysis`) is not ported: a file that is not a `torch.export`
-  artifact raises UnimplementedError.
+- A `.pdmodel` that is not a `torch.export` artifact is read as a
+  reference ProgramDesc (`pd_format`, a protobuf wire parser of its own)
+  with its combined `.pdiparams`, and run op by op on the predictor's
+  device (`pd_import.LegacyInferenceModel`); a file that is neither
+  raises UnimplementedError. `analysis` holds the Analyzer and its
+  engine ops over static Programs.
 """
 from __future__ import annotations
 
@@ -40,7 +43,9 @@ from ..framework.place import resolve_device
 
 __all__ = ["Config", "create_predictor", "Predictor", "PredictorTensor",
            "AnalysisConfig", "format_input_sig", "check_fed_input",
-           "as_device", "resolve_devices"]
+           "as_device", "resolve_devices", "Analyzer", "Argument",
+           "compile_subgraph_engine", "pd_format", "pd_import",
+           "analysis"]
 
 
 def _note_quant_bytes(delta: int) -> None:
@@ -261,17 +266,21 @@ class Predictor:
         self._device = (as_device(device) if device is not None
                         else config.device())
         path = config.model_path
+        self._legacy = None
         try:
             self._translated = jit.load(path, device=self._device)
         except FileNotFoundError:
             raise
         except Exception as e:  # noqa: BLE001 — not a torch.export artifact
-            if os.path.exists(path + ".pdmodel"):
-                raise UnimplementedError(
-                    f"{path}.pdmodel is not a torch.export artifact of "
-                    f"jit.save ({e!r}); the reference ProgramDesc import "
-                    f"is not ported") from e
-            raise
+            if not os.path.exists(path + ".pdmodel"):
+                raise
+            self._legacy = self._load_legacy(path, config.params_file, e)
+        if self._legacy is not None:
+            self._translated = None
+            self._quant, self._qargs = None, []
+            self._input_names = list(self._legacy.feed_names)
+            self._init_replica()
+            return
         self._quant = self._translated._quant
         self._qargs = self._translated._qargs
         if self._quant:
@@ -280,6 +289,23 @@ class Predictor:
         nin = len(self._translated.user_inputs())
         self._input_names = [f"input_{i}" for i in range(nin)]
         self._init_replica()
+
+    def _load_legacy(self, path, params_file, export_err):
+        """The reference ProgramDesc `{path}.pdmodel` (+ combined params)
+        on this predictor's device, or UnimplementedError for a file that
+        is neither format."""
+        from .pd_import import load_legacy_inference_model
+        if params_file is None and os.path.exists(path + ".pdiparams"):
+            params_file = path + ".pdiparams"
+        try:
+            return load_legacy_inference_model(path + ".pdmodel",
+                                               params_file,
+                                               device=self._device)
+        except Exception as e:  # noqa: BLE001
+            raise UnimplementedError(
+                f"{path}.pdmodel is not a torch.export artifact of "
+                f"jit.save ({export_err!r}) nor a parseable reference "
+                f"ProgramDesc ({e!r})") from e
 
     def _init_replica(self):
         self._inputs: Dict[str, PredictorTensor] = {
@@ -322,6 +348,8 @@ class Predictor:
         p = copy.copy(self)
         p._device = as_device(device)
         p._init_replica()
+        if self._legacy is not None:
+            p._legacy = self._legacy.to(p._device)
         if self._quant:
             p._qargs = [q.to(p._device) for q in self._translated._qargs]
             monitor.stat_add("STAT_quant_weights_loaded",
@@ -343,8 +371,11 @@ class Predictor:
         symbolic dims are None, dtypes numpy's."""
         if self._sig is not None:
             return self._sig
-        sig = [(n, dims, _np_dtype(dt)) for n, (dims, dt) in
-               zip(self._input_names, self._translated.user_inputs())]
+        if self._legacy is not None:
+            sig = self._legacy.input_signature()
+        else:
+            sig = [(n, dims, _np_dtype(dt)) for n, (dims, dt) in
+                   zip(self._input_names, self._translated.user_inputs())]
         self._sig = sig
         self._sig_str = ", ".join(format_input_sig(*s) for s in sig)
         return sig
@@ -391,6 +422,8 @@ class Predictor:
         xs = [a if torch.is_tensor(a) and a.device == self._device
               else torch.as_tensor(a).to(self._device) for a in arrays]
         self._note_run(xs)
+        if self._legacy is not None:
+            return self._legacy.run_device(xs)
         with torch.no_grad():
             out = self._translated.program(self._device)(*self._qargs, *xs)
         if isinstance(out, (tuple, list)):
@@ -431,3 +464,7 @@ def create_predictor(config: Config, device=None) -> Predictor:
     else on the device the config names; `serving.InferenceEngine`
     passes a different device per dispatch lane."""
     return Predictor(config, device=device)
+
+
+from . import analysis, pd_format, pd_import  # noqa: E402,F401
+from .analysis import Analyzer, Argument, compile_subgraph_engine  # noqa

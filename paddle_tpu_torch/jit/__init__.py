@@ -2,9 +2,13 @@
 reference `fluid/dygraph/jit.py:160,507,787`).
 
 - `to_static(fn_or_layer, input_spec=)` keeps the input spec that `save`
-  reads and runs the function eagerly: PyTorch has no tape to trace
-  away. The JAX package's dy2static AST conversion (data-dependent
-  Python control flow to `lax.cond` / `while_loop`) is not ported.
+  reads and rewrites the function's (the layer's `forward`'s) Python
+  control flow through `dy2static` (`ast_transform`), as the JAX
+  package's `to_static` does (`paddle_tpu/jit/__init__.py:60-61`): run
+  eagerly, a branch on a concrete tensor is plain Python; traced by
+  `torch.export` (`save`), a tensor-valued `if` becomes `torch.cond` and
+  a tensor-valued `while` `torch._higher_order_ops.while_loop`; under a
+  static `program_guard` they record `cond` / `while` ops.
 - `save(layer, path, input_spec=)` writes `{path}.pdmodel`, a
   `torch.export` program of the layer in eval mode (`torch.export.save`),
   `{path}.pdiparams`, the layer's state (`torch.save` of CPU tensors),
@@ -46,17 +50,20 @@ from ..framework import monitor
 from ..framework.place import resolve_device
 from ..ops import flash_ops  # noqa: F401 — registers paddle_tpu_torch::flash_fwd
 from ..static.input_spec import export_inputs
+from . import dy2static  # noqa: F401
+from .dy2static import ProgramTranslator, ast_transform, enable_to_static
 
 __all__ = ["to_static", "declarative", "not_to_static", "save", "load",
-           "load_meta", "TranslatedLayer", "StaticFunction"]
+           "load_meta", "TranslatedLayer", "StaticFunction",
+           "ProgramTranslator", "enable_to_static", "dy2static"]
 
 
 class StaticFunction:
-    """A function decorated by `to_static`: runs eagerly and keeps its
-    input spec."""
+    """A function decorated by `to_static`: its control flow rewritten by
+    `dy2static`, run eagerly; keeps its input spec."""
 
     def __init__(self, function: Callable, input_spec=None):
-        self._function = function
+        self._function = ast_transform(function)
         self._input_spec = input_spec
 
     def __get__(self, instance, owner):
@@ -71,10 +78,14 @@ class StaticFunction:
 
 def to_static(function=None, input_spec=None, build_strategy=None):
     """Mark a function or layer for export. A layer keeps `input_spec`
-    (read by `save` when it is given none) and runs as it was."""
+    (read by `save` when it is given none) and its `forward` is replaced
+    by the `dy2static` rewrite of it."""
     def decorate(fn):
         if isinstance(fn, nn.Module):
             fn._to_static_spec = input_spec
+            fwd = ast_transform(fn.forward)
+            if fwd is not fn.forward:
+                fn.forward = fwd
             return fn
         return StaticFunction(fn, input_spec)
     if function is not None:
@@ -166,6 +177,8 @@ def save(layer, path, input_spec=None, **configs):
         raise ValueError("jit.save requires input_spec")
     os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
     p0 = next(iter(layer.parameters()), None)
+    if p0 is None:   # a module of buffers only (a static Program's)
+        p0 = next(iter(layer.buffers()), None)
     device = p0.device if p0 is not None else torch.device("cpu")
     quant = _collect_quant(layer)
     state = layer.state_dict()

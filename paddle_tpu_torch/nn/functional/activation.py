@@ -18,6 +18,7 @@ import torch.nn.functional as TF
 
 from ... import amp
 from ...framework import random as frandom
+from ...framework.static_hook import named_op
 
 __all__ = ["relu", "relu6", "relu_", "leaky_relu", "prelu", "elu", "selu",
            "celu", "gelu", "silu", "swish", "sigmoid", "hardsigmoid",
@@ -31,6 +32,7 @@ def _zero(v):
     return torch.zeros((), dtype=v.dtype, device=v.device)
 
 
+@named_op
 def relu(x, name=None):
     (x,) = amp.cast_args("relu", x)
     return torch.relu(x)
@@ -39,16 +41,19 @@ def relu(x, name=None):
 relu_ = relu
 
 
+@named_op
 def relu6(x, name=None):
     (x,) = amp.cast_args("relu6", x)
     return torch.clamp(x, 0.0, 6.0)
 
 
+@named_op
 def leaky_relu(x, negative_slope=0.01, name=None):
     (x,) = amp.cast_args("leaky_relu", x)
     return torch.where(x >= 0, x, negative_slope * x)
 
 
+@named_op
 def prelu(x, weight, data_format="NCHW", name=None):
     x, weight = amp.cast_args("prelu", x, weight)
     if weight.numel() == 1:
@@ -59,21 +64,25 @@ def prelu(x, weight, data_format="NCHW", name=None):
     return torch.where(x >= 0, x, weight.reshape(shape) * x)
 
 
+@named_op
 def elu(x, alpha=1.0, name=None):
     (x,) = amp.cast_args("elu", x)
     return torch.where(x > 0, x, alpha * torch.expm1(x))
 
 
+@named_op
 def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772, name=None):
     (x,) = amp.cast_args("selu", x)
     return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
 
 
+@named_op
 def celu(x, alpha=1.0, name=None):
     (x,) = amp.cast_args("celu", x)
     return TF.celu(x, alpha)
 
 
+@named_op
 def gelu(x, approximate=False, name=None):
     """x * Phi(x), exact (erf) unless `approximate` (the tanh form), as
     `jax.nn.gelu`."""
@@ -81,6 +90,7 @@ def gelu(x, approximate=False, name=None):
     return TF.gelu(x, approximate="tanh" if approximate else "none")
 
 
+@named_op
 def silu(x, name=None):
     (x,) = amp.cast_args("silu", x)
     return TF.silu(x)
@@ -90,69 +100,82 @@ def swish(x, name=None):
     return silu(x)
 
 
+@named_op
 def sigmoid(x, name=None):
     (x,) = amp.cast_args("sigmoid", x)
     return torch.sigmoid(x)
 
 
+@named_op
 def log_sigmoid(x, name=None):
     (x,) = amp.cast_args("log_sigmoid", x)
     return TF.logsigmoid(x)
 
 
+@named_op
 def hardsigmoid(x, slope=0.1666667, offset=0.5, name=None):
     (x,) = amp.cast_args("hardsigmoid", x)
     return torch.clamp(slope * x + offset, 0.0, 1.0)
 
 
+@named_op
 def hardswish(x, name=None):
     (x,) = amp.cast_args("hardswish", x)
     return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
 
 
+@named_op
 def hardtanh(x, min=-1.0, max=1.0, name=None):
     (x,) = amp.cast_args("hardtanh", x)
     return torch.clamp(x, min, max)
 
 
+@named_op
 def hardshrink(x, threshold=0.5, name=None):
     (x,) = amp.cast_args("hardshrink", x)
     return torch.where(torch.abs(x) > threshold, x, _zero(x))
 
 
+@named_op
 def softshrink(x, threshold=0.5, name=None):
     (x,) = amp.cast_args("softshrink", x)
     return torch.where(x > threshold, x - threshold,
                        torch.where(x < -threshold, x + threshold, _zero(x)))
 
 
+@named_op
 def tanhshrink(x, name=None):
     (x,) = amp.cast_args("tanhshrink", x)
     return x - torch.tanh(x)
 
 
+@named_op
 def softplus(x, beta=1.0, threshold=20.0, name=None):
     (x,) = amp.cast_args("softplus", x)
     return torch.where(beta * x > threshold, x,
                        torch.log1p(torch.exp(beta * x)) / beta)
 
 
+@named_op
 def softsign(x, name=None):
     (x,) = amp.cast_args("softsign", x)
     return x / (1 + torch.abs(x))
 
 
+@named_op
 def tanh(x, name=None):
     (x,) = amp.cast_args("tanh", x)
     return torch.tanh(x)
 
 
+@named_op
 def mish(x, name=None):
     """x * tanh(softplus(x)) with `jax.nn.softplus`'s logaddexp(x, 0)."""
     (x,) = amp.cast_args("mish", x)
     return x * torch.tanh(torch.logaddexp(x, _zero(x)))
 
 
+@named_op
 def maxout(x, groups, axis=1, name=None):
     (x,) = amp.cast_args("maxout", x)
     ax = axis % x.dim()
@@ -161,6 +184,7 @@ def maxout(x, groups, axis=1, name=None):
     return torch.amax(x.reshape(shape), dim=ax + 1)
 
 
+@named_op
 def thresholded_relu(x, threshold=1.0, name=None):
     (x,) = amp.cast_args("thresholded_relu", x)
     return torch.where(x > threshold, x, _zero(x))
@@ -170,22 +194,26 @@ def _typed(x, dtype):
     return x if dtype is None else x.to(amp._torch_dtype(dtype))
 
 
+@named_op
 def softmax(x, axis=-1, dtype=None, name=None):
     (x,) = amp.cast_args("softmax", x)
     return amp.cast_out("softmax", torch.softmax(_typed(x, dtype), axis))
 
 
+@named_op
 def log_softmax(x, axis=-1, dtype=None, name=None):
     (x,) = amp.cast_args("log_softmax", x)
     return torch.log_softmax(_typed(x, dtype), axis)
 
 
+@named_op
 def glu(x, axis=-1, name=None):
     (x,) = amp.cast_args("glu", x)
     a, b = torch.chunk(x, 2, dim=axis)
     return a * torch.sigmoid(b)
 
 
+@named_op
 def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None, *,
                    generator=None):
     """softmax((x + g) / temperature) with g standard Gumbel noise,

@@ -42,6 +42,8 @@ from ...framework import monitor
 from ...framework.flags import flag
 from ...ops.flash_ops import flash_attention, flash_supported
 from ...ops.splash_ops import _ids, splash_attention, splash_supported
+from ...framework import static_hook
+from ...framework.static_hook import named_op
 
 __all__ = ["scaled_dot_product_attention"]
 
@@ -98,6 +100,7 @@ def _norm_segment_ids(segment_ids):
     return segment_ids, segment_ids
 
 
+@named_op
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None,
@@ -115,6 +118,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     is_causal). Mutually exclusive with attn_mask. `generator` drives
     dropout (on the kernel paths it draws the keep mask's seed); `scale`
     defaults to 1/sqrt(head_dim)."""
+    # a static Program records this call as one op under the JAX
+    # package's name, whichever path it takes
+    static_hook.announce("sdpa" if segment_ids is None else "sdpa_segment")
     if scale is None:
         scale = 1.0 / (query.shape[-1] ** 0.5)
     eff_dropout = dropout_p if training else 0.0

@@ -25,6 +25,7 @@ from ...framework.dtype import canonical_dtype
 from ...ops._util import named
 from ...ops.linalg import promoted
 from ...ops.manipulation import pad  # noqa: F401  (re-exported)
+from ...framework.static_hook import named_op
 
 __all__ = ["linear", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
            "embedding", "one_hot", "label_smooth", "pad", "interpolate",
@@ -33,6 +34,7 @@ __all__ = ["linear", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
            "fold", "grid_sample"]
 
 
+@named_op
 def linear(x, weight, bias=None, name=None):
     """x @ weight + bias with the JAX package's weight layout
     [in_features, out_features] (`nn.Linear` keeps PyTorch's [out, in]
@@ -46,6 +48,7 @@ def linear(x, weight, bias=None, name=None):
     return TF.linear(x, w.t(), b[0] if b else None)
 
 
+@named_op
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             name=None):
     """Zero each element with probability p (one draw per position of
@@ -68,6 +71,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     return torch.where(keep, kept, 0.0).to(x.dtype)
 
 
+@named_op
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of `weight` [num_embeddings, dim] at the integer ids `x`; a
     position whose id is `padding_idx` gives zeros (and no gradient), as
@@ -94,6 +98,7 @@ _SELU_ALPHA = 1.6732632423543772
 _SELU_SCALE = 1.0507009873554805
 
 
+@named_op
 def alpha_dropout(x, p=0.5, training=True, name=None):
     """SELU-preserving dropout: a dropped element takes the negative
     saturation value, then an affine map keeps the mean and variance."""
@@ -108,6 +113,7 @@ def alpha_dropout(x, p=0.5, training=True, name=None):
     return (a * torch.where(mask, x, alpha_p) + b).to(x.dtype)
 
 
+@named_op
 def one_hot(x, num_classes, name=None):
     """float32 [..., num_classes]; an id outside [0, num_classes) gives a
     row of zeros (the JAX package's `jax.nn.one_hot`, where
@@ -117,6 +123,7 @@ def one_hot(x, num_classes, name=None):
     return (x[..., None] == classes).to(torch.float32)
 
 
+@named_op
 def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
     """(1 - epsilon) * label + epsilon * prior (uniform over the last
     axis when no `prior_dist`)."""
@@ -167,6 +174,7 @@ def _nearest_index(m, n):
     return np.floor(off).astype(np.int64)
 
 
+@named_op
 def interpolate(x, size=None, scale_factor=None, mode="nearest",
                 align_corners=False, align_mode=0, data_format="NCHW",
                 name=None):
@@ -215,6 +223,7 @@ def upsample(x, size=None, scale_factor=None, mode="nearest",
                        align_mode, data_format)
 
 
+@named_op
 def cosine_similarity(x1, x2, axis=1, eps=1e-8):
     a, b = named("cosine_similarity", x1, x2)
     num = torch.sum(a * b, dim=axis)
@@ -223,18 +232,21 @@ def cosine_similarity(x1, x2, axis=1, eps=1e-8):
     return num / torch.clamp(d1 * d2, min=eps)
 
 
+@named_op
 def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False, name=None):
     a, b = named("pairwise_distance", x, y)
     d = a - b + epsilon
     return torch.sum(torch.abs(d) ** p, dim=-1, keepdim=keepdim) ** (1.0 / p)
 
 
+@named_op
 def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
     (v,) = named("normalize", x)
     nrm = torch.sum(torch.abs(v) ** p, dim=axis, keepdim=True) ** (1.0 / p)
     return v / torch.clamp(nrm, min=epsilon)
 
 
+@named_op
 def pixel_shuffle(x, upscale_factor, data_format="NCHW", name=None):
     r = int(upscale_factor)
     (v,) = named("pixel_shuffle", x)
@@ -261,6 +273,7 @@ def _pads4(paddings):
     return (paddings[0], paddings[2], paddings[1], paddings[3])
 
 
+@named_op
 def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
     """im2col: [N, C, H, W] -> [N, C * kh * kw, L], channels major."""
     (v,) = named("unfold", x)
@@ -270,6 +283,7 @@ def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
                      stride=_to2(strides))
 
 
+@named_op
 def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1,
          name=None):
     """col2im, the inverse of `unfold`: [N, C * kh * kw, L] ->
@@ -282,6 +296,7 @@ def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1,
     return out[:, :, pt:pt + H, pl:pl + W]
 
 
+@named_op
 def bilinear(x1, x2, weight, bias=None, name=None):
     """out[b, o] = x1[b] W[o] x2[b] (+ bias), weight [out, in1, in2]."""
     args = (x1, x2, weight) + ((bias,) if bias is not None else ())
@@ -290,6 +305,7 @@ def bilinear(x1, x2, weight, bias=None, name=None):
     return out + rest[0] if rest else out
 
 
+@named_op
 def sequence_mask(lengths, maxlen=None, dtype="int64", name=None):
     """[..., maxlen] mask of positions below each length, in `dtype`
     narrowed as jnp narrows it (int64 -> int32). With `maxlen` None the
@@ -316,6 +332,7 @@ def _reflect(c, lo, hi):
     return lo + torch.where(c2 > rng, 2.0 * rng - c2, c2)
 
 
+@named_op
 def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
                 align_corners=True, name=None):
     """Sample x [N, C, H, W] at grid [N, Hg, Wg, 2] of (x, y) in [-1, 1]:

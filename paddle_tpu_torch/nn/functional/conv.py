@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch.nn.functional as TF
 
 from ... import amp
+from ...framework.static_hook import named_op
 
 __all__ = ["conv1d", "conv2d", "conv3d", "conv1d_transpose",
            "conv2d_transpose", "conv3d_transpose"]
@@ -99,18 +100,21 @@ def _conv(nd, x, weight, bias, stride, padding, dilation, groups,
     return out.movedim(1, -1) if channel_last else out
 
 
+@named_op
 def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCL", name=None):
     return _conv(1, x, weight, bias, stride, padding, dilation, groups,
                  "NWC" if data_format in ("NLC", "NWC") else "NCW")
 
 
+@named_op
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW", name=None):
     return _conv(2, x, weight, bias, stride, padding, dilation, groups,
                  data_format)
 
 
+@named_op
 def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCDHW", name=None):
     return _conv(3, x, weight, bias, stride, padding, dilation, groups,
@@ -143,6 +147,7 @@ def _conv_transpose(nd, x, weight, bias, stride, padding, output_padding,
     return out.movedim(1, -1) if channel_last else out
 
 
+@named_op
 def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
                      output_padding=0, groups=1, dilation=1,
                      output_size=None, data_format="NCL", name=None):
@@ -152,6 +157,7 @@ def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
         groups, "NWC" if data_format in ("NLC", "NWC") else "NCW")
 
 
+@named_op
 def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
                      output_padding=0, groups=1, dilation=1,
                      output_size=None, data_format="NCHW", name=None):
@@ -160,6 +166,7 @@ def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
                            output_padding, dilation, groups, data_format)
 
 
+@named_op
 def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
                      output_padding=0, groups=1, dilation=1,
                      output_size=None, data_format="NCDHW", name=None):

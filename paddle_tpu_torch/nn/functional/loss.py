@@ -15,6 +15,7 @@ import torch.nn.functional as TF
 
 from ... import amp
 from ...ops._util import named
+from ...framework.static_hook import named_op
 
 __all__ = ["cross_entropy", "softmax_with_cross_entropy", "mse_loss",
            "l1_loss", "nll_loss", "kl_div", "smooth_l1_loss",
@@ -33,6 +34,7 @@ def _reduce(v, reduction):
     return v
 
 
+@named_op
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, name=None):
@@ -89,21 +91,25 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     return loss
 
 
+@named_op
 def mse_loss(input, label, reduction="mean", name=None):
     a, b = named("mse_loss", input, label)
     return _reduce((a - b) ** 2, reduction)
 
 
+@named_op
 def square_error_cost(input, label):
     a, b = named("square_error_cost", input, label)
     return (a - b) ** 2
 
 
+@named_op
 def l1_loss(input, label, reduction="mean", name=None):
     a, b = named("l1_loss", input, label)
     return _reduce(torch.abs(a - b), reduction)
 
 
+@named_op
 def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
              name=None):
     """-logp[label] of log-probabilities [N, C]; `ignore_index` positions
@@ -125,6 +131,7 @@ def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
     return _reduce(loss, reduction)
 
 
+@named_op
 def kl_div(input, label, reduction="mean", name=None):
     """target * (log(target) - input) with log(target) clipped at 1e-12;
     "batchmean" divides the sum by the batch size."""
@@ -135,6 +142,7 @@ def kl_div(input, label, reduction="mean", name=None):
     return _reduce(loss, reduction)
 
 
+@named_op
 def smooth_l1_loss(input, label, reduction="mean", delta=1.0, name=None):
     a, b = named("smooth_l1_loss", input, label)
     d = torch.abs(a - b)
@@ -142,6 +150,7 @@ def smooth_l1_loss(input, label, reduction="mean", delta=1.0, name=None):
     return _reduce(loss, reduction)
 
 
+@named_op
 def binary_cross_entropy(input, label, weight=None, reduction="mean",
                          name=None):
     """BCE of probabilities clipped into [1e-12, 1 - 1e-12]."""
@@ -154,6 +163,7 @@ def binary_cross_entropy(input, label, weight=None, reduction="mean",
     return _reduce(loss, reduction)
 
 
+@named_op
 def binary_cross_entropy_with_logits(logit, label, weight=None,
                                      reduction="mean", pos_weight=None,
                                      name=None):
@@ -169,12 +179,14 @@ def binary_cross_entropy_with_logits(logit, label, weight=None,
     return _reduce(loss, reduction)
 
 
+@named_op
 def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean",
                         name=None):
     a, b, y = named("margin_ranking_loss", input, other, label)
     return _reduce(torch.clamp(-y * (a - b) + margin, min=0.0), reduction)
 
 
+@named_op
 def hinge_embedding_loss(input, label, margin=1.0, reduction="mean",
                          name=None):
     a, y = named("hinge_embedding_loss", input, label)
@@ -182,6 +194,7 @@ def hinge_embedding_loss(input, label, margin=1.0, reduction="mean",
     return _reduce(loss, reduction)
 
 
+@named_op
 def cosine_embedding_loss(input1, input2, label, margin=0.0,
                           reduction="mean", name=None):
     a, b, y = named("cosine_embedding_loss", input1, input2, label)
@@ -192,6 +205,7 @@ def cosine_embedding_loss(input1, input2, label, margin=0.0,
     return _reduce(loss, reduction)
 
 
+@named_op
 def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
                         epsilon=1e-6, swap=False, reduction="mean",
                         name=None):
@@ -205,11 +219,13 @@ def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
     return _reduce(torch.clamp(dp - dn + margin, min=0.0), reduction)
 
 
+@named_op
 def log_loss(input, label, epsilon=1e-4, name=None):
     p, y = named("log_loss", input, label)
     return -y * torch.log(p + epsilon) - (1 - y) * torch.log(1 - p + epsilon)
 
 
+@named_op
 def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
                        reduction="sum", name=None):
     args = (logit, label) + ((normalizer,) if normalizer is not None else ())
@@ -224,6 +240,7 @@ def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
     return _reduce(loss, reduction)
 
 
+@named_op
 def dice_loss(input, label, epsilon=1e-5, name=None):
     """1 - the Dice overlap of probabilities [N, ..., C] with the one-hot
     of labels [N, ..., 1], averaged over the batch."""
@@ -236,6 +253,7 @@ def dice_loss(input, label, epsilon=1e-5, name=None):
     return torch.mean(1 - (2 * inter + epsilon) / (union + epsilon))
 
 
+@named_op
 def npair_loss(anchor, positive, labels, l2_reg=0.002):
     a, pos, lab = named("npair_loss", anchor, positive, labels)
     sim = a @ pos.T
@@ -251,6 +269,7 @@ def npair_loss(anchor, positive, labels, l2_reg=0.002):
 _NEG_INF = -1e30
 
 
+@named_op
 def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
              reduction="mean", name=None):
     """CTC by the log-alpha recursion over all T frames of log_probs

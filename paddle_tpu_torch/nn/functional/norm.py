@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as TF
 
 from ... import amp
+from ...framework.static_hook import named_op
 
 __all__ = ["batch_norm", "layer_norm", "instance_norm", "group_norm",
            "local_response_norm"]
@@ -21,6 +22,7 @@ __all__ = ["batch_norm", "layer_norm", "instance_norm", "group_norm",
 _CHANNEL_LAST = ("NHWC", "NLC", "NDHWC")
 
 
+@named_op
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
                data_format="NCHW", use_global_stats=None, name=None):
@@ -69,6 +71,7 @@ def _update_running(running_mean, running_var, mean, invstd, n, dtype,
     running_var.mul_(momentum).add_(var * (1 - momentum))
 
 
+@named_op
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
                name=None):
     """(x - mean) / sqrt(var + epsilon) over the trailing
@@ -91,6 +94,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
     return amp.cast_out("layer_norm", out)
 
 
+@named_op
 def instance_norm(x, running_mean=None, running_var=None, weight=None,
                   bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
                   data_format="NCHW", name=None):
@@ -106,6 +110,7 @@ def instance_norm(x, running_mean=None, running_var=None, weight=None,
     return out.movedim(1, -1) if channel_last else out
 
 
+@named_op
 def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
                data_format="NCHW", name=None):
     """Each sample's channels split into `num_groups` groups, each
@@ -119,6 +124,7 @@ def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
     return out.movedim(1, -1) if channel_last else out
 
 
+@named_op
 def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
                         data_format="NCHW", name=None):
     """x / (k + alpha * s)^beta, s the sum of squares over the `size`

@@ -28,6 +28,7 @@ import torch.nn.functional as TF
 
 from ... import amp
 from .conv import explicit_pads, flat_pads, ntuple
+from ...framework.static_hook import named_op
 
 __all__ = ["avg_pool1d", "avg_pool2d", "avg_pool3d", "max_pool1d",
            "max_pool2d", "max_pool3d", "adaptive_avg_pool1d",
@@ -74,30 +75,35 @@ def _pool(nd, x, kernel, stride, padding, kind, exclusive, channel_last):
     return out.movedim(1, -1) if channel_last else out
 
 
+@named_op
 def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCL", name=None):
     return _pool(1, x, kernel_size, stride, padding, "max", True,
                  data_format == "NLC")
 
 
+@named_op
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCHW", name=None):
     return _pool(2, x, kernel_size, stride, padding, "max", True,
                  data_format == "NHWC")
 
 
+@named_op
 def max_pool3d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCDHW", name=None):
     return _pool(3, x, kernel_size, stride, padding, "max", True,
                  data_format == "NDHWC")
 
 
+@named_op
 def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
                ceil_mode=False, data_format="NCL", name=None):
     return _pool(1, x, kernel_size, stride, padding, "avg", exclusive,
                  data_format == "NLC")
 
 
+@named_op
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, divisor_override=None, data_format="NCHW",
                name=None):
@@ -106,6 +112,7 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                  data_format == "NHWC")
 
 
+@named_op
 def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, divisor_override=None, data_format="NCDHW",
                name=None):
@@ -122,25 +129,31 @@ def _adaptive(nd, x, output_size, kind, channel_last):
     return out.movedim(1, -1) if channel_last else out
 
 
+@named_op
 def adaptive_avg_pool1d(x, output_size, name=None):
     return _adaptive(1, x, output_size, "avg", False)
 
 
+@named_op
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
     return _adaptive(2, x, output_size, "avg", data_format == "NHWC")
 
 
+@named_op
 def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
     return _adaptive(3, x, output_size, "avg", data_format == "NDHWC")
 
 
+@named_op
 def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
     return _adaptive(1, x, output_size, "max", False)
 
 
+@named_op
 def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
     return _adaptive(2, x, output_size, "max", False)
 
 
+@named_op
 def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
     return _adaptive(3, x, output_size, "max", False)

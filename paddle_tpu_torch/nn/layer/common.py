@@ -15,6 +15,8 @@ from __future__ import annotations
 
 from torch import nn
 
+from ...framework import static_hook
+from ...framework.static_hook import named_op
 from ...ops.manipulation import flatten
 from ..functional import common as F
 from .layers import Layer
@@ -33,6 +35,15 @@ def _apply_attr(attr, tensor):
         attr(tensor)
 
 
+@named_op
+def _linear_out_in(x, weight, bias=None, weight_layout="out_in"):
+    """`F.linear` over a [out, in] weight: one op "linear" of a static
+    Program whose inputs are the layer's own parameters (the transposed
+    view is taken inside it); `weight_layout` tells the Program's passes
+    the weight's layout."""
+    return F.linear(x, weight.t(), bias)
+
+
 class Linear(nn.Linear):
     """y = x W^T + b, W [out_features, in_features] as in PyTorch; the
     forward hands `F.linear` the JAX package's [in, out] view of it.
@@ -44,12 +55,14 @@ class Linear(nn.Linear):
         super().__init__(in_features, out_features,
                          bias=bias and bias_attr is not False,
                          device=device, dtype=dtype)
-        _apply_attr(weight_attr, self.weight.t())
-        if self.bias is not None:
-            _apply_attr(bias_attr, self.bias)
+        with static_hook.suppressed():   # never ops of a static Program
+            _apply_attr(weight_attr, self.weight.t())
+            if self.bias is not None:
+                _apply_attr(bias_attr, self.bias)
 
     def forward(self, x):
-        return F.linear(x, self.weight.t(), self.bias)
+        return _linear_out_in(x, self.weight, self.bias,
+                              weight_layout="out_in")
 
 
 class Embedding(nn.Embedding):

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from .. import amp
+from ..framework.static_hook import named_op
 
 __all__ = ["weight_quantize", "weight_dequantize", "weight_only_linear",
            "quant_bits", "pack_int4", "unpack_int4"]
@@ -102,6 +103,7 @@ def weight_dequantize(q, scale, algo: str = "weight_only_int8",
     return q.to(out_dtype) * scale.to(out_dtype)[:, None]
 
 
+@named_op
 def weight_only_linear(x, weight, weight_scale, bias=None,
                        weight_dtype: str = "int8"):
     """y = x @ dequant(weight)^T (+ bias): the weight stays integer on

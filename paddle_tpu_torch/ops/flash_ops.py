@@ -60,6 +60,7 @@ from ..framework import random as frandom
 from ..framework.errors import InvalidArgumentError
 from ..framework.flags import flag
 from . import _build
+from ..framework.static_hook import named_op
 
 __all__ = ["flash_attention", "FlashAttention", "flash_attention_fwd",
            "flash_attention_dq", "flash_attention_dkv", "flash_supported",
@@ -424,6 +425,31 @@ def _flash_fwd_fake(q, k, v, bias, causal, scale, dropout_p, seed):
             q.new_empty((B * H, Sq), dtype=torch.float32))
 
 
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, bias, causal, scale, dropout_p, seed = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, bias, out, lse)
+    ctx.args = (causal, scale, dropout_p, seed)
+
+
+def _flash_fwd_backward(ctx, dout, dlse):
+    """The op's gradient (a program holding the op, e.g. a Program loaded
+    from its `.ptprog` document, differentiates through it): dQ by K3 and
+    (dK, dV) by K4 through the same entries as `FlashAttention.backward`,
+    their plain versions on CPU tensors. lse's cotangent is unused, as
+    the JAX rule's."""
+    q, k, v, bias, out, lse = ctx.saved_tensors
+    dout = dout.contiguous()
+    delta = _delta(out, dout)
+    dq = flash_attention_dq(q, k, v, bias, dout, lse, delta, *ctx.args)
+    dk, dv = flash_attention_dkv(q, k, v, bias, dout, lse, delta, *ctx.args)
+    return dq, dk, dv, None, None, None, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_fwd_backward,
+                                setup_context=_flash_fwd_setup)
+
+
 def flash_attention_dq(q, k, v, bias, dout, lse, delta, causal, scale,
                        dropout_p=0.0, seed=0):
     """dQ of flash attention from the forward's `lse` and `delta =
@@ -510,6 +536,7 @@ def _mask_to_bias(mask, B, Sk):
     return m.float().contiguous()
 
 
+@named_op
 def flash_attention(query, key, value, causal=False, scale=None,
                     attn_mask=None, dropout_p=0.0, generator=None):
     """Framework-level entry, differentiable in query, key and value.

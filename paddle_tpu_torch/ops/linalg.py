@@ -27,6 +27,7 @@ import torch
 
 from .. import amp
 from ._util import named
+from ..framework.static_hook import named_op
 
 __all__ = ["matmul", "mm", "bmm", "dot", "mv", "norm", "dist", "cross",
            "cholesky", "inverse", "det", "slogdet", "matrix_power", "svd",
@@ -49,6 +50,7 @@ def promoted(*tensors):
                  else t for t in tensors)
 
 
+@named_op
 def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
     """x @ y, each transposed over its last two axes first when asked
     (a 1-D operand is never transposed)."""
@@ -60,19 +62,23 @@ def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
     return torch.matmul(a, b)
 
 
+@named_op
 def mm(input, mat2, name=None):
     return torch.matmul(*promoted(*amp.cast_args("mm", input, mat2)))
 
 
+@named_op
 def bmm(x, y, name=None):
     return torch.matmul(*promoted(*amp.cast_args("bmm", x, y)))
 
 
+@named_op
 def einsum(equation, *operands):
     return torch.einsum(equation,
                         *promoted(*amp.cast_args("einsum", *operands)))
 
 
+@named_op
 def dot(x, y, name=None):
     """Inner product of 1-D vectors, or of each row of 2-D ones."""
     a, b = named("dot", x, y)
@@ -81,6 +87,7 @@ def dot(x, y, name=None):
     return torch.sum(a * b, dim=-1)
 
 
+@named_op
 def mv(x, vec, name=None):
     a, b = named("mv", x, vec)
     return torch.matmul(a, b)
@@ -90,6 +97,7 @@ def _inf(p):
     return p == float("inf")
 
 
+@named_op
 def norm(x, p="fro", axis=None, keepdim=False, name=None):
     """The Frobenius norm of every entry ("fro", axis None; keepdim
     ignored, as in the JAX package); the p-norm of the flattened tensor
@@ -117,6 +125,7 @@ def norm(x, p="fro", axis=None, keepdim=False, name=None):
     return torch.sum(v.abs() ** p, axis, keepdim=keepdim) ** (1.0 / p)
 
 
+@named_op
 def dist(x, y, p=2, name=None):
     """The p-norm of x - y over every entry."""
     a, b = named("dist", x, y)
@@ -130,6 +139,7 @@ def dist(x, y, p=2, name=None):
     return torch.sum(d.abs() ** p) ** (1.0 / p)
 
 
+@named_op
 def cross(x, y, axis=9, name=None):
     """The cross product along `axis`; 9 (the default) picks the first
     axis of size 3."""
@@ -139,21 +149,25 @@ def cross(x, y, axis=9, name=None):
     return torch.linalg.cross(a, b, dim=axis)
 
 
+@named_op
 def cholesky(x, upper=False, name=None):
     (v,) = named("cholesky", x)
     return torch.linalg.cholesky(v, upper=upper)
 
 
+@named_op
 def inverse(x, name=None):
     (v,) = named("inverse", x)
     return torch.linalg.inv(v)
 
 
+@named_op
 def det(x, name=None):
     (v,) = named("det", x)
     return torch.linalg.det(v)
 
 
+@named_op
 def slogdet(x, name=None):
     """[sign, log|det|] stacked on a new leading axis."""
     (v,) = named("slogdet", x)
@@ -161,17 +175,20 @@ def slogdet(x, name=None):
     return torch.stack([sign, logdet])
 
 
+@named_op
 def matrix_power(x, n, name=None):
     (v,) = named("matrix_power", x)
     return torch.linalg.matrix_power(v, n)
 
 
+@named_op
 def svd(x, full_matrices=False, name=None):
     """(u, s, vh) with x = u diag(s) vh."""
     (v,) = named("svd", x)
     return tuple(torch.linalg.svd(v, full_matrices=full_matrices))
 
 
+@named_op
 def qr(x, mode="reduced", name=None):
     """(q, r); `mode="r"` gives r alone."""
     (v,) = named("qr", x)
@@ -179,21 +196,25 @@ def qr(x, mode="reduced", name=None):
     return r if mode == "r" else (q, r)
 
 
+@named_op
 def eigh(x, UPLO="L", name=None):
     (v,) = named("eigh", x)
     return tuple(torch.linalg.eigh(v, UPLO=UPLO))
 
 
+@named_op
 def eigvalsh(x, UPLO="L", name=None):
     (v,) = named("eigvalsh", x)
     return torch.linalg.eigvalsh(v, UPLO=UPLO)
 
 
+@named_op
 def solve(x, y, name=None):
     a, b = named("solve", x, y)
     return torch.linalg.solve(a, b)
 
 
+@named_op
 def triangular_solve(x, y, upper=True, transpose=False, unitriangular=False,
                      name=None):
     """X with op(x) X = y, op(x) = x or (`transpose`) its transpose."""
@@ -204,11 +225,13 @@ def triangular_solve(x, y, upper=True, transpose=False, unitriangular=False,
                                          unitriangular=unitriangular)
 
 
+@named_op
 def pinv(x, rcond=1e-15, hermitian=False, name=None):
     (v,) = named("pinv", x)
     return torch.linalg.pinv(v, rtol=rcond, hermitian=hermitian)
 
 
+@named_op
 def lstsq(x, y, rcond=None, driver=None, name=None):
     """The least-squares solution of x X = y through x's SVD, as
     `jnp.linalg.lstsq` computes it: singular values below rcond x the
@@ -231,16 +254,19 @@ def lstsq(x, y, rcond=None, driver=None, name=None):
     return (sol.squeeze(-1) if vec else sol), resid, rank, s
 
 
+@named_op
 def multi_dot(x, name=None):
     return torch.linalg.multi_dot(list(named("multi_dot", *x)))
 
 
+@named_op
 def matrix_rank(x, tol=None, hermitian=False, name=None):
     (v,) = named("matrix_rank", x)
     return torch.linalg.matrix_rank(v, rtol=tol, hermitian=hermitian) \
         .to(torch.int32)
 
 
+@named_op
 def histogram(input, bins=100, min=0, max=0, name=None):
     """Counts (int32) of `input`'s entries in `bins` equal bins over
     [min, max] (over [input.min(), input.max()] when both are 0); the
@@ -261,6 +287,7 @@ def histogram(input, bins=100, min=0, max=0, name=None):
     return torch.bincount(b, minlength=bins + 1)[:bins].to(torch.int32)
 
 
+@named_op
 def bincount(x, weights=None, minlength=0, name=None):
     """Counts of each non-negative int (int32), or the sums of `weights`
     at them (in the weights' type)."""
@@ -271,6 +298,7 @@ def bincount(x, weights=None, minlength=0, name=None):
     return torch.bincount(v.long(), w, minlength=minlength).to(w.dtype)
 
 
+@named_op
 def cov(x, rowvar=True, ddof=True, fweights=None, aweights=None, name=None):
     """Covariance of the variables (rows, or columns when not `rowvar`);
     `ddof` True divides by n - 1. The weights are taken and unused, as
@@ -280,11 +308,13 @@ def cov(x, rowvar=True, ddof=True, fweights=None, aweights=None, name=None):
                      correction=int(bool(ddof)))
 
 
+@named_op
 def corrcoef(x, rowvar=True, name=None):
     (v,) = named("corrcoef", x)
     return torch.corrcoef(v if rowvar or v.dim() < 2 else v.T)
 
 
+@named_op
 def cdist(x, y, p=2.0, compute_mode="use_mm_for_euclid_dist_if_necessary",
           name=None):
     """Pairwise p-norm distances, x [..., P, M], y [..., R, M] ->
@@ -305,6 +335,7 @@ def cdist(x, y, p=2.0, compute_mode="use_mm_for_euclid_dist_if_necessary",
     return torch.sum(d.abs() ** p, dim=-1) ** (1.0 / p)
 
 
+@named_op
 def lu(x, pivot=True, get_infos=False, name=None):
     """(LU, pivots[, infos]): the packed factors and 1-based int32
     pivots (LAPACK's getrf, as `jax.scipy.linalg.lu_factor` + 1)."""
@@ -318,12 +349,14 @@ def lu(x, pivot=True, get_infos=False, name=None):
     return lu_mat, piv
 
 
+@named_op
 def lu_unpack(x, y, unpack_ludata=True, unpack_pivots=True, name=None):
     """(P, L, U) of `lu`'s results, x = P L U."""
     lu_mat, piv = named("lu_unpack", x, y)
     return tuple(torch.lu_unpack(lu_mat, piv.to(torch.int32)))
 
 
+@named_op
 def eig(x, name=None):
     """(eigenvalues, eigenvectors) of a general square matrix, complex."""
     (v,) = named("eig", x)

@@ -51,6 +51,7 @@ from ..framework.flags import flag
 from .flash_ops import (_BLOCK_MIN, _KERNEL_TILE, _NEG_INF, _check, _count,
                         _delta, _dropout_seed, _gate_head_dim, _keep_mask,
                         _launch, _padded_width)
+from ..framework.static_hook import named_op
 
 __all__ = ["splash_attention", "SplashAttention", "splash_attention_fwd",
            "splash_attention_dq", "splash_attention_dkv", "splash_supported",
@@ -490,6 +491,7 @@ def _ids(seg, device):
     return seg.to(device=device, dtype=torch.int32).contiguous()
 
 
+@named_op
 def splash_attention(query, key, value, q_seg, kv_seg, causal=False,
                      scale=None, dropout_p=0.0, generator=None):
     """Framework-level entry, differentiable in query, key and value.

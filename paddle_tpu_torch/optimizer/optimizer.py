@@ -79,12 +79,6 @@ class Optimizer:
         """Per-parameter update: returns (new_p, new_state)."""
         raise NotImplementedError
 
-    def _state_for(self, p) -> dict:
-        st = self._accumulators.get(id(p))
-        if st is None:
-            st = self._accumulators[id(p)] = self._init_state(p)
-        return st
-
     def _apply_weight_decay(self, g, p):
         if self._weight_decay:
             return g + self._weight_decay * p
@@ -92,22 +86,55 @@ class Optimizer:
 
     # -- step ---------------------------------------------------------------
     @torch.no_grad()
+    def _apply(self, grads, params, states, step_no):
+        """One update of `params` by `grads`, after the gradient clip;
+        `states[i]` holds the i-th parameter's accumulators (None before
+        its first update). Returns the new values and the new states.
+        `step` applies it to the parameters' `.grad`, a static Program's
+        `Executor.run` to the Program's replayed gradients."""
+        if self._grad_clip is not None:
+            grads = self._grad_clip._clip_grads(grads)
+        lr = self.get_lr()
+        new_ps, new_states = [], []
+        for p, g, st in zip(params, grads, states):
+            new_p, new_st = self._update(
+                g, p, self._init_state(p) if st is None else st, lr,
+                step_no)
+            new_ps.append(new_p)
+            new_states.append(new_st)
+        return new_ps, new_states
+
+    @torch.no_grad()
     def step(self):
         params = [p for p in (self._parameter_list or [])
                   if p.requires_grad and p.grad is not None]
         if not params:
             return
-        grads = [p.grad for p in params]
-        if self._grad_clip is not None:
-            grads = self._grad_clip._clip_grads(grads)
-        lr = self.get_lr()
         step_no = self._global_step + 1
-        for p, g in zip(params, grads):
-            new_p, new_state = self._update(g, p, self._state_for(p), lr,
-                                            step_no)
+        new_ps, new_states = self._apply(
+            [p.grad for p in params], params,
+            [self._accumulators.get(id(p)) for p in params], step_no)
+        for p, new_p, st in zip(params, new_ps, new_states):
             p.copy_(new_p)
-            self._accumulators[id(p)] = new_state
+            self._accumulators[id(p)] = st
         self._global_step = step_no
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """reference `optimizer.py` minimize (the JAX package's
+        `optimizer.py:163-173`): in static mode, mark the default main
+        program for the backward and register this optimizer on it
+        (`Executor.run` then trains); in dygraph, `loss.backward()` then
+        `step()`."""
+        from ..static import program as _static
+        if _static.in_static_mode():
+            prog = _static.default_main_program()
+            pg = _static.append_backward(loss, parameters)
+            prog._opt_hooks.append(self)
+            return [], pg
+        loss.backward()
+        self.step()
+        return [], []
 
     def clear_grad(self):
         for p in (self._parameter_list or []):

@@ -15,26 +15,23 @@
   `GPTForCausalLM.decode_weights` hands the decode math of `generate()`
   and `serving.GenerationEngine`.
 
-Not yet ported, each raising when asked for: `save_quantized_model` and
-the Program passes of `quant_pass.py` (wait for export).
+- `save_quantized_model` of both writes the quantized model through
+  `jit.save`, as the JAX package does; the static-Program passes
+  `QuantizationTransformPass` / `QuantizationFreezePass` live in
+  `quant_pass`.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..framework.errors import InvalidArgumentError
 from ..nn import functional as F
 from ..nn import quant as nn_quant
 
 __all__ = ["fake_quantize_dequantize", "QuantizedLinear", "QuantizedConv2D",
            "ImperativeQuantAware", "PTQ", "WeightOnlyLinear",
-           "quantize_weights"]
-
-
-def _not_ported(what: str):
-    return InvalidArgumentError(
-        f"{what} is not yet ported to paddle_tpu_torch")
+           "quantize_weights", "quant_pass", "QuantizationTransformPass",
+           "QuantizationFreezePass"]
 
 
 def fake_quant_array(v, bits):
@@ -111,7 +108,8 @@ class ImperativeQuantAware:
         return model
 
     def save_quantized_model(self, model, path, input_spec=None):
-        raise _not_ported("ImperativeQuantAware.save_quantized_model")
+        from .. import jit
+        jit.save(model, path, input_spec=input_spec)
 
 
 class PTQ:
@@ -126,7 +124,8 @@ class PTQ:
             self.weight_bits, self.activation_bits).quantize(model)
 
     def save_quantized_model(self, model, path, input_spec=None):
-        raise _not_ported("PTQ.save_quantized_model")
+        from .. import jit
+        jit.save(model, path, input_spec=input_spec)
 
 
 class WeightOnlyLinear(nn.Module):
@@ -201,3 +200,8 @@ def quantize_weights(model: nn.Module, bits: int = 8,
         elif sub is not None:
             quantize_weights(sub, bits, seen)
     return model
+
+
+from . import quant_pass  # noqa: E402,F401
+from .quant_pass import (QuantizationFreezePass,  # noqa: E402,F401
+                         QuantizationTransformPass)

@@ -38,27 +38,25 @@ from torch_ops_parity import (compare, jx, on_the_cpu,  # noqa: F401
 # the JAX package's own Tensor / Parameter classes (the port's tensors
 # are torch.Tensor; A3 for Parameter)
 STILL_MISSING = sorted("""
-DataParallel LoDTensor LoDTensorArray Parameter Print Tensor VarBase add_n
-affine_channel annotations array_length array_read array_write
-batch_fc bilateral_slice bpr_loss broadcast_shape center_loss
-conv_shift
+DataParallel LoDTensor LoDTensorArray Parameter Print Tensor VarBase
+add_n affine_channel annotations array_length array_read array_write
+batch_fc bilateral_slice bpr_loss broadcast_shape center_loss conv_shift
 correlation create_array create_global_var create_parameter crop_tensor
-cross_entropy2 cvm data data_norm deformable_conv disable_dygraph
-disable_static distributed elementwise_floordiv elementwise_max
-elementwise_min elementwise_mod elementwise_pow enable_dygraph enable_static
-fill_constant filter_by_instag fsp
+cross_entropy2 cvm data_norm deformable_conv distributed
+elementwise_floordiv elementwise_max elementwise_min elementwise_mod
+elementwise_pow fill_constant filter_by_instag fsp
 get_tensor_from_selected_rows has_inf has_nan hinge_loss im2sequence
-in_dygraph_mode in_dynamic_mode incubate l1_norm legacy linear_chain_crf
-lod_reset merge_selected_rows monkey_patch_math_varbase
-monkey_patch_variable nce onnx pad_constant_like parallel partial_concat
-partial_sum prroi_pool psroi_pool pyramid_hash rank rank_attention
-rank_loss reduce_all reduce_any reduce_max reduce_mean reduce_min
-reduce_prod reduce_sum reverse row_conv sample_logits scatter_nd
-search_pyramid_hash sequence_concat sequence_expand sequence_pad
-sequence_pool sequence_reshape sequence_reverse sequence_scatter
-sequence_slice sequence_softmax sequence_unpad set_printoptions shape
-shuffle_batch space_to_depth squared_l2_norm temporal_shift
-tensor_array_to_tensor tree_conv var_conv_2d
+incubate l1_norm legacy linear_chain_crf lod_reset merge_selected_rows
+monkey_patch_math_varbase monkey_patch_variable nce onnx
+pad_constant_like parallel partial_concat partial_sum prroi_pool
+psroi_pool pyramid_hash rank rank_attention rank_loss reduce_all
+reduce_any reduce_max reduce_mean reduce_min reduce_prod reduce_sum
+reverse row_conv sample_logits scatter_nd search_pyramid_hash
+sequence_concat sequence_expand sequence_pad sequence_pool
+sequence_reshape sequence_reverse sequence_scatter sequence_slice
+sequence_softmax sequence_unpad set_printoptions shape shuffle_batch
+space_to_depth squared_l2_norm temporal_shift tensor_array_to_tensor
+tree_conv var_conv_2d
 """.split())
 
 

@@ -20,7 +20,8 @@ the port's.
   `ImperativeQuantAware.quantize`: a small conv net's outputs and input
   gradient (the straight-through estimator) within rtol 1e-5, atol 1e-5
   x max(1, max |ref|) of the JAX package's, strided, padded and grouped
-  convolutions, NHWC; `save_quantized_model` still raises.
+  convolutions, NHWC; `save_quantized_model` writes a `jit.save`
+  artifact (tests/test_torch_quant_pass.py runs it).
 - `load_reference_state` carries a quantized JAX GPT's integers and
   scales across as they are; `decode_weights` hands int8 leaves (int4
   unpacked once).
@@ -28,6 +29,8 @@ the port's.
   package's quantized `generate()` at `GPTConfig.tiny()`, bits 8 and 4,
   and the port's engine on the quantized model to its own generate().
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -42,7 +45,6 @@ from paddle_tpu.nn import quant as jq
 from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import quantization as tquant
-from paddle_tpu_torch.framework.errors import InvalidArgumentError
 from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                      load_reference_state)
 from paddle_tpu_torch.nn import quant as tq
@@ -191,10 +193,18 @@ def test_fake_quant_wrappers_left_intact_and_match_jax():
         rtol=1e-6, atol=1e-6)
 
 
-def test_unported_parts_raise():
+def test_unported_parts_raise(tmp_path):
+    """`save_quantized_model` is ported now (through `jit.save`, as the
+    JAX package's): it no longer raises, and without an input spec it
+    refuses as `jit.save` does."""
+    from paddle_tpu_torch.static import InputSpec
     for cls in (tquant.ImperativeQuantAware, tquant.PTQ):
-        with pytest.raises(InvalidArgumentError, match="not yet ported"):
-            cls().save_quantized_model(torch.nn.Linear(2, 2), "/tmp/x")
+        prefix = str(tmp_path / cls.__name__)
+        cls().save_quantized_model(torch.nn.Linear(2, 2), prefix,
+                                   input_spec=[InputSpec([None, 2])])
+        assert os.path.exists(prefix + ".pdmodel")
+        with pytest.raises(ValueError, match="input_spec"):
+            cls().save_quantized_model(torch.nn.Linear(2, 2), prefix)
 
 
 def _conv_pair(seed):
