@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels  # phases 1-3 only (build + kernel checks)
     python3 chip_smoke.py --profile  # also profile serving, train, vision
     python3 chip_smoke.py --phases ernie,static  # these after 1-2, no result
+    python3 chip_smoke.py --phases dist          # phase 15 alone
 
 Phases:
  1. card      name and power limit from nvidia-smi, torch/CUDA versions,
@@ -360,6 +361,33 @@ Phases:
               save_quantized_model -> Predictor, and the committed legacy
               ProgramDesc encoder (tests/data) through Predictor, card vs
               CPU
+15. dist    multi-GPU, one process a rank. (a) World size 1 over NCCL in
+              this process (distributed.init_parallel_env()): a packed
+              GPT-2-small LM (12 layers of 12 heads at hidden 768,
+              vocabulary 50304; phase 7's packed sequences, 8 x 1024)
+              trained 3 steps through parallel.make_sharded_train_step
+              (dp 1, ZeRO-1) with K5-K7 through
+              parallel.sharded_splash_attention, against the same steps
+              of one process through the optimizer's own step (loss rtol
+              1e-5, each update within phase 7's gradient rule); one AMP
+              bf16 GPT-2 small step through DataParallel (its bucketed
+              all-reduce over the 1-rank NCCL world) against the step
+              without it, phase 6's AMP limits, K2-K4 12 times in bf16;
+              phase 5's 16 greedy requests through a tp = 1 engine with
+              the group live, identical to generate(). (b) Two ranks on
+              this one card over gloo with CUDA tensors, spawned by
+              distributed.spawn (a correctness arm: no time it prints is a
+              multi-card number): which collectives gloo carries on CUDA
+              tensors (the arms need all_reduce and all_gather); tp = 2
+              serving of phase 5's requests in fp32 and int8 pools (rank 0
+              schedules; K1 on 6 local heads in each rank), identical to
+              (a)'s tp = 1 up to near-ties (first tokens exact, a first
+              flip only at a top-2 gap < NEAR_TIE); dp = 2 packed training
+              of (a)'s model on the same global batch, ZeRO-1, 3 steps
+              with dropout off (losses within rtol 2e-4 / atol 2e-5 of
+              (a)'s) and on (the two ranks' keep shares on identical rows
+              differ), each rank's optimizer bytes half of (a)'s. Printed:
+              each arm's wall, peak allocated bytes and K1/K5-K7 launches
 Phase 3 also holds the splash kernels to their plain versions: K5 splash
 forward, K6 splash dQ and K7 splash dK/dV at GPT-2 small's attention
 width (B 8, H 12, S 1024, D 64) and at the packing phase's shape, with
@@ -372,6 +400,11 @@ path, the share of the 16x8 sub-tiles of K6's and K7's tiles that can
 hold an allowed pair and, where the library call runs, K5 against the
 library's forward and K6 + K7 against its whole backward;
 SplashAttention's gradients against autograd through the plain forward.
+Phase 3 also holds phase 15's dispatches (check_dist_kernels): K1 through
+sharded_paged_attention at a tp rank's 6 and 3 local heads (D 64, page
+16, fp32 and fp16) and its int8 pool path, and K5-K7 on dp rank 1's 4
+rows of GPT-2 small's packed attention at the rank-folded dropout seed
+(fp32, bf16), each against its plain version.
 Phase 3 also holds K2, K3 and K4 at every shape and type at which a
 phase 8 path launches them, non-causal, p 0.1: (b)'s and (c)'s [8, 12,
 512, 64] on ERNIE's key-padding bias ((1 - m) * -1e4 over seeded
@@ -813,13 +846,15 @@ class Smoke:
 
     # -- 3. kernels against their plain versions --------------------------------
 
-    def k1_inputs(self, dtype, B, lens=None, seed=0, D=None):
-        """q, pools, page table and pos for B slots of K1_SHAPE's heads,
-        pages and table width (head dim D, K1_SHAPE's by default): random
+    def k1_inputs(self, dtype, B, lens=None, seed=0, D=None, H=None):
+        """q, pools, page table and pos for B slots of K1_SHAPE's heads
+        (H, K1_SHAPE's by default), pages and table width (head dim D,
+        K1_SHAPE's by default): random
         lengths 1..PP*P (seeded) unless `lens` gives them. Page 0 is the
         scratch page, full of junk."""
         torch = self.torch
-        H, P, PP = (K1_SHAPE[k] for k in ("H", "P", "PP"))
+        H = H or K1_SHAPE["H"]
+        P, PP = K1_SHAPE["P"], K1_SHAPE["PP"]
         D = D or K1_SHAPE["D"]
         g = torch.Generator(device="cuda").manual_seed(seed)
         N = B * PP + 1
@@ -1552,6 +1587,7 @@ class Smoke:
         self.check_train_kernels()
         self.check_autograd()
         self.check_splash_kernels()
+        self.check_dist_kernels()
 
     # -- 4. model --------------------------------------------------------------
 
@@ -7346,6 +7382,504 @@ class Smoke:
         assert len(frozen) == 3, frozen
         assert e_q <= 1e-5 and e_s <= 1e-5 and e_l <= 1e-5, (e_q, e_s, e_l)
 
+    # -- 3. the sharded dispatches' kernels (phase 15's shapes) -----------------
+
+    def check_dist_kernels(self):
+        """Phase 15's dispatches of K1 and K5-K7 against their plain
+        versions; rows in details["dist_kernels"] (the kernels line keeps
+        phase 3's rows). K1 through ops.paged_ops.sharded_paged_attention
+        at a tp rank's local heads (GPT-2 small's 12 over tp 2 and 4: H 6
+        and 3, D 64, page 16, phase 3's 8 slots of random lengths), fp32
+        and fp16, and its int8 pool path as phase 5c runs it (the
+        dequantizing gather, no K1 launch) against the plain version on
+        the dequantized pools. K5-K7 on a dp rank's rows of GPT-2 small's
+        packed attention (rank 1's 4 of 8 packed rows, H 12, S 1024, D 64,
+        causal, p 0.1, fp32 and bf16) with the dropout seed folded by the
+        rank as parallel.spmd.sharded_splash_attention folds it, against
+        their plain versions at the folded seed."""
+        torch = self.torch
+        from paddle_tpu_torch.ops import flash_ops as fo
+        from paddle_tpu_torch.ops import paged_ops as po, splash_ops as so
+        rows = []
+        B, D, P = K1_SHAPE["B"], K1_SHAPE["D"], K1_SHAPE["P"]
+        scale = 1.0 / D ** 0.5
+        for Hl in (6, 3):
+            for dtype, tol in ((torch.float32, 2e-5),
+                               (torch.float16, K1_FP16_TOL)):
+                q, kp, vp, pt, pos, lens = self.k1_inputs(dtype, B, H=Hl)
+                f = po.sharded_paged_attention(None, scale)
+                out = f(q, kp, vp, pt, pos)
+                ref = po.paged_attention_plain(q.float(), kp.float(),
+                                               vp.float(), pt, pos,
+                                               scale).to(dtype)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                ms, event_ms = self.time_ms(lambda: f(q, kp, vp, pt, pos),
+                                            50, self.flush)
+                plain_ms = _time_ms(torch, lambda: po.paged_attention_plain(
+                    q, kp, vp, pt, pos, scale), 10, self.flush)
+                item = q.element_size()
+                toks = int(lens.sum())
+                name = str(dtype).replace("torch.", "")
+                row = self._row(
+                    f"K1 sharded_paged_attention H={Hl}", name, err, 1.0,
+                    tol, ms, plain_ms, 4 * toks * Hl * D,
+                    2 * toks * Hl * D * item + 2 * q.numel() * item
+                    + pt.numel() * 4 + pos.numel() * 4, None,
+                    kernel="paged_attention", heads=Hl, event_ms=event_ms)
+                rows.append(row)
+        # the int8 pool path: the dequantizing gather + dense attention
+        g = torch.Generator(device="cuda").manual_seed(5)
+        q, kp, vp, pt, pos, lens = self.k1_inputs(torch.float32, B, H=6)
+        kq = torch.randint(-127, 128, kp.shape, generator=g, device="cuda",
+                           dtype=torch.int32).to(torch.int8)
+        vq = torch.randint(-127, 128, vp.shape, generator=g, device="cuda",
+                           dtype=torch.int32).to(torch.int8)
+        ks, vs = (torch.rand(kp.shape[:2], generator=g, device="cuda") * 0.02
+                  for _ in range(2))
+        fq = po.sharded_paged_attention(None, scale, quantized=True)
+        n0 = po.paged_attention.launches
+        out = fq(q, kq, vq, ks, vs, pt, pos)
+        assert po.paged_attention.launches == n0, "int8 pools launched K1"
+        ref = po.paged_attention_plain(q, kq.float() * ks[..., None, None],
+                                       vq.float() * vs[..., None, None], pt,
+                                       pos, scale)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        ms = _time_ms(torch, lambda: fq(q, kq, vq, ks, vs, pt, pos), 10,
+                      self.flush)
+        toks = int(lens.sum())
+        rows.append(self._row(
+            "K1 path, int8 pools H=6 (dequantizing gather, no K1)",
+            "float32", err, ref.abs().max().item(), 1e-5, ms, ms,
+            4 * toks * 6 * D, 2 * toks * 6 * (D + 4) + 2 * q.numel() * 4,
+            None, kernel="paged_attention_int8_path", heads=6))
+        # K5-K7 on dp rank 1's rows at the folded seed
+        ids = self.splash_ids(SPLASH_SHAPE["B"])
+        qs = ids[4:].contiguous()
+        H, S, D = (SPLASH_SHAPE[k] for k in ("H", "S", "D"))
+        sc = 1.0 / D ** 0.5
+        seed = 4321 + 1               # the drawn seed + dp rank 1
+        allowed = so._allowed(qs, qs, True)
+        pairs = int(allowed.sum()) * H
+        Bl, nt = qs.shape[0], S // 64
+        # the tile bounds once, as SplashAttention computes them a call
+        kv_lo, kv_hi, q_lo, q_hi = so._block_bounds(qs, qs, 64, 64, True)
+        fb, bb = dict(bounds=(kv_lo, kv_hi)), dict(bounds=(q_lo, q_hi))
+        for name in ("float32", "bfloat16"):
+            dtype, tol = getattr(torch, name), FLASH_TOL[name]
+            gg = torch.Generator(device="cuda").manual_seed(17)
+            q, k, v, do = (torch.randn(Bl, H, S, D, generator=gg,
+                                       device="cuda").to(dtype)
+                           for _ in range(4))
+            bh_sd = Bl * H * S * D * q.element_size()
+            row_b, ids_b = Bl * H * S * 4, 2 * Bl * S * 4 + 2 * Bl * nt * 4
+            fargs = (q, k, v, qs, qs, True, sc, DROPOUT, seed)
+            out, lse = so.splash_attention_fwd(*fargs, **fb)
+            ref, ref_lse = so._splash_fwd_reference(*fargs)
+            torch.cuda.synchronize()
+            rows.append(self._row(
+                "K5 splash_fwd dp-local rank 1", name,
+                max((out.float() - ref.float()).abs().max().item(),
+                    (lse - ref_lse).abs().max().item()),
+                ref.float().abs().max().item(), tol,
+                _time_ms(torch, lambda: so.splash_attention_fwd(*fargs, **fb),
+                         10),
+                _time_ms(torch, lambda: so._splash_fwd_reference(*fargs), 3),
+                4 * pairs * D, 4 * bh_sd + row_b + ids_b, None,
+                kernel="splash_fwd", shape=f"{Bl}x{H}x{S}x{D}", seed=seed))
+            delta = fo._delta(ref, do)
+            bargs = (q, k, v, qs, qs, do, ref_lse, delta, True, sc, DROPOUT,
+                     seed)
+            dq = so.splash_attention_dq(*bargs, **fb)
+            dq_ref = so._splash_dq_reference(*bargs)
+            torch.cuda.synchronize()
+            rows.append(self._row(
+                "K6 splash_dq dp-local rank 1", name,
+                (dq.float() - dq_ref.float()).abs().max().item(),
+                dq_ref.float().abs().max().item(), tol,
+                _time_ms(torch, lambda: so.splash_attention_dq(*bargs, **fb),
+                         10),
+                _time_ms(torch, lambda: so._splash_dq_reference(*bargs), 3),
+                6 * pairs * D, 5 * bh_sd + 2 * row_b + ids_b, None,
+                kernel="splash_bwd_dq", shape=f"{Bl}x{H}x{S}x{D}", seed=seed))
+            dk, dv = so.splash_attention_dkv(*bargs, **bb)
+            dk_ref, dv_ref = so._splash_dkv_reference(*bargs)
+            torch.cuda.synchronize()
+            rows.append(self._row(
+                "K7 splash_dkv dp-local rank 1", name, max(
+                    (dk.float() - dk_ref.float()).abs().max().item(),
+                    (dv.float() - dv_ref.float()).abs().max().item()),
+                max(dk_ref.float().abs().max().item(),
+                    dv_ref.float().abs().max().item()), tol,
+                _time_ms(torch, lambda: so.splash_attention_dkv(*bargs, **bb),
+                         10),
+                _time_ms(torch, lambda: so._splash_dkv_reference(*bargs), 3),
+                8 * pairs * D, 6 * bh_sd + 2 * row_b + ids_b, None,
+                kernel="splash_bwd_dkv", shape=f"{Bl}x{H}x{S}x{D}",
+                seed=seed))
+            del q, k, v, do, out, lse, ref, ref_lse, dq, dq_ref, dk, dv
+            del dk_ref, dv_ref, delta
+        # the folded seed changes the mask: rank 0's seed gives another
+        # output on the same rows
+        q, k, v = (torch.randn(Bl, H, S, D, device="cuda") for _ in range(3))
+        o0, _ = so.splash_attention_fwd(q, k, v, qs, qs, True, sc, DROPOUT,
+                                        seed - 1)
+        o1, _ = so.splash_attention_fwd(q, k, v, qs, qs, True, sc, DROPOUT,
+                                        seed)
+        assert not torch.equal(o0, o1), "rank-folded seeds gave one mask"
+        del q, k, v, o0, o1, allowed, kv_lo, kv_hi, q_lo, q_hi
+        torch.cuda.empty_cache()
+        self.details["dist_kernels"] = rows
+
+    # -- 15. dist ---------------------------------------------------------------
+
+    def dist(self):
+        """Phase 15 (see the module docstring): (a) world 1 over NCCL in
+        this process, at GPT-2 small width; (b) two ranks on this one card
+        over gloo with CUDA tensors, spawned by distributed.spawn, a
+        correctness arm only (two processes share one card: no time it
+        prints is a multi-card number)."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import distributed as D
+        from paddle_tpu_torch.distributed import env as denv
+        wd = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+        try:
+            t0 = time.perf_counter()
+            penv = D.init_parallel_env()
+            print(f"dist (a): init_parallel_env -> backend "
+                  f"{denv.backend()}, world {penv.world_size}, rank "
+                  f"{penv.rank}, device {denv.local_device()}, "
+                  f"{time.perf_counter() - t0:.2f} s")
+            assert denv.backend() == "nccl" and penv.world_size == 1
+            batch = self.dist_batch()
+            state = self.dist_packed_a(batch, wd)
+            self.dist_data_parallel_a()
+            refs = self.dist_serving_a(wd)
+            D.destroy_process_group()
+            self.dist_b(wd, batch, state, refs)
+        finally:
+            from paddle_tpu_torch.distributed.env import destroy_process_group
+            destroy_process_group()
+            shutil.rmtree(wd, ignore_errors=True)
+
+    def dist_batch(self):
+        """Phase 15's global packed batch: DIST["ROWS"] rows of 1024 packed
+        first-fit from the bench's sequences (phase 7's motif tokens)."""
+        import numpy as np
+        from paddle_tpu_torch import io
+        lengths = _bench_lengths(np)
+        n = int(np.searchsorted(np.cumsum(lengths),
+                                0.93 * DIST["ROWS"] * PACK["T"]))
+        return io.PackingCollator(PACK["T"], DIST["ROWS"])(
+            _motif_seqs(np, lengths[:n]))
+
+    def dist_packed_a(self, batch, wd):
+        """(a) the packed GPT-2-small step (`_packed_gpt`, attention through
+        sharded_splash_attention) through make_sharded_train_step at dp 1,
+        ZeRO-1, DIST["STEPS"] steps, dropout 0, against the same model
+        trained the same steps in one process by the optimizer's own step
+        (phase 7's single-process path): losses to rtol 1e-5, each
+        parameter's update within 1e-3 x its largest + 1e-6 x the model's
+        largest (phase 7's gradient rule). Saves the weights and (a)'s
+        losses for (b). Returns (a)'s record."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import optimizer
+        from paddle_tpu_torch.parallel import make_sharded_train_step
+        model = _packed_gpt(torch, sharded=True, dropout=0.0).cuda()
+        torch.save(model.state_dict(), os.path.join(wd, "packed.pt"))
+        init = {n: p.detach().clone() for n, p in model.named_parameters()}
+        ref = _packed_gpt(torch, sharded=False, dropout=0.0).cuda()
+        ref.load_state_dict(model.state_dict())
+        ins = [torch.as_tensor(x).cuda() for x in batch[:3]]
+        lbs = [torch.as_tensor(x).cuda() for x in batch[3:5]]
+        # the single-process step
+        opt = optimizer.Adam(DIST["LR"], parameters=ref.parameters())
+        ref.train()
+        ref_losses = []
+        for _ in range(DIST["STEPS"]):
+            lv = _packed_loss(torch, ref(*ins), lbs)
+            lv.backward()
+            opt.step()
+            opt.clear_grad()
+            ref_losses.append(float(lv))
+        del opt
+        # the sharded step
+        opt = optimizer.Adam(DIST["LR"], parameters=model.parameters())
+        step, st = make_sharded_train_step(
+            model, opt, lambda o, lb: _packed_loss(torch, o, lb),
+            zero_stage=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path starts here: every launch count from 0
+        self.zero_launches()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(DIST["STEPS"]):
+            st, lv = step(st, ins, lbs)
+            losses.append(float(lv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = self.record_path("dist_packed_dp1")
+        peak = torch.cuda.max_memory_allocated()
+        opt_bytes = sum(t.numel() * t.element_size()
+                        for v in st["opt_state"].values()
+                        for t in v.values())
+        deltas_ref = {n: p.detach() - init[n]
+                      for n, p in ref.named_parameters()}
+        deltas = {n: p.detach() - init[n] for n, p in model.named_parameters()}
+        worst = _grad_worst(deltas, deltas_ref, 1e-3, 1e-6)
+        print(f"dist (a) packed GPT-2 small [{DIST['ROWS']}, {PACK['T']}] "
+              f"x {DIST['STEPS']} steps, dp 1 over nccl, ZeRO-1: losses "
+              f"{[round(x, 6) for x in losses]} vs the single-process step "
+              f"{[round(x, 6) for x in ref_losses]}; worst update max_abs_err "
+              f"/ its tolerance {worst[0]:.3e} ({worst[1]}); wall "
+              f"{wall:.3f} s, peak allocated {peak / 2**30:.2f} GiB, "
+              f"optimizer state {opt_bytes / 2**20:.1f} MiB; launches K5 "
+              f"{launches['splash_fwd']} K6 {launches['splash_bwd_dq']} K7 "
+              f"{launches['splash_bwd_dkv']}")
+        for a, b in zip(losses, ref_losses):
+            assert abs(a - b) <= 1e-5 * abs(b), "dist (a) loss differs"
+        assert worst[0] <= 1.0, f"dist (a) update of {worst[1]} differs"
+        L = DIST["LAYERS"]
+        for k in ("splash_fwd", "splash_bwd_dq", "splash_bwd_dkv"):
+            assert launches[k] == L * DIST["STEPS"], (k, launches[k])
+        rec = dict(losses=losses, ref_losses=ref_losses, wall_s=wall,
+                   peak_bytes=peak, opt_bytes=opt_bytes, launches=launches,
+                   worst_update_over_tol=worst[0])
+        self.details["dist_packed_a"] = rec
+        del model, ref, st, step, opt, init, deltas, deltas_ref
+        torch.cuda.empty_cache()
+        return rec
+
+    def dist_data_parallel_a(self):
+        """(a) one AMP bf16 step of GPT-2 small at [2, 1024], dropout 0,
+        through DataParallel (world 1 over NCCL: the bucketed reducer's
+        all-reduce runs) against the same step without it, from the same
+        weights: phase 6's AMP limits (loss AMP_LOSS_RTOL, gradients
+        AMP_GRAD_SHARE x their max + AMP_GRAD_FLOOR x the model's), K2-K4
+        12 launches each in bf16."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import amp, nn
+        from paddle_tpu_torch.distributed import DataParallel
+        from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+        net = GPTForCausalLM(GPTConfig(dropout=0.0), device="cuda", seed=0)
+        loss_fn = nn.CrossEntropyLoss()
+        ids = torch.from_numpy(np.random.RandomState(1).randint(
+            0, net.gpt.config.vocab_size, size=(2, 1025)))
+        x, y = ids[:, :-1].cuda(), ids[:, 1:].cuda()
+
+        def one(module):
+            net.train()
+            self.zero_launches()
+            t0 = time.perf_counter()
+            with amp.auto_cast(dtype="bfloat16"):
+                lv = loss_fn(module(x), y).float().mean()
+            lv.backward()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            grads = {n: p.grad.clone() for n, p in net.named_parameters()}
+            for p in net.parameters():
+                p.grad = None
+            return float(lv.detach()), grads, wall
+
+        lp, gp, _ = one(net)
+        dp = DataParallel(net)
+        torch.cuda.reset_peak_memory_stats()
+        ld, gd, wall = one(dp)
+        launches = self.record_path("dist_data_parallel")
+        by = self.path_dtype_launches["dist_data_parallel"]
+        peak = torch.cuda.max_memory_allocated()
+        worst = _grad_worst(gd, gp, AMP_GRAD_SHARE["bfloat16"],
+                            AMP_GRAD_FLOOR)
+        print(f"dist (a) DataParallel AMP bf16 GPT-2 small step [2, 1024] "
+              f"over nccl (world 1, {len(dp._buckets)} buckets): loss "
+              f"{ld:.6f} vs {lp:.6f} without it; worst gradient max_abs_err "
+              f"/ its tolerance {worst[0]:.3e} ({worst[1]}); wall "
+              f"{wall:.3f} s, peak allocated {peak / 2**30:.2f} GiB; "
+              f"launches by type K2 {by['flash_fwd']} K3 "
+              f"{by['flash_bwd_dq']} K4 {by['flash_bwd_dkv']}")
+        assert abs(ld - lp) <= AMP_LOSS_RTOL["bfloat16"] * abs(lp)
+        assert worst[0] <= 1.0, f"DataParallel gradient {worst[1]} differs"
+        L = net.gpt.config.num_layers
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert by[k] == {"bfloat16": L}, (k, by[k])
+        self.details["dist_data_parallel"] = dict(
+            loss=ld, loss_plain=lp, worst_grad_over_tol=worst[0],
+            wall_s=wall, peak_bytes=peak, launches=launches)
+        del net, dp, gp, gd
+        torch.cuda.empty_cache()
+
+    def dist_serve(self, kv, prompts, new, num_pages, record):
+        """Phase 5's requests through a GenerationEngine at tp 1 (with the
+        process group live) on pools of `kv`: outputs, launches."""
+        torch = self.torch
+        from paddle_tpu_torch.serving import GenerationEngine
+        eng = GenerationEngine(
+            self.gpt, device="cuda", name=f"dist_tp1_{kv}", tp=1,
+            kv_cache_dtype=kv, **_dist_engine_kw(num_pages))
+        self.zero_launches()
+        t0 = time.perf_counter()
+        futs = [eng.submit(p, max_new_tokens=n) for p, n in zip(prompts, new)]
+        outs = [f.result(600) for f in futs]
+        wall = time.perf_counter() - t0
+        steps = eng.stats()["steps"]
+        eng.shutdown()
+        launches = (self.record_path(record) if record
+                    else self.read_launches())
+        return outs, steps, wall, launches
+
+    def dist_serving_a(self, wd):
+        """(a) phase 5's 16 greedy requests through a tp = 1 engine built
+        with the process group live: token-identical to generate(); the
+        int8-page engine's outputs kept as (b)'s int8 reference."""
+        torch = self.torch
+        if getattr(self, "gpt", None) is None:
+            # phase 5's model (seed 0), released by a later phase
+            from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+            self.gpt = GPTForCausalLM(GPTConfig(), device="cuda",
+                                      seed=0).eval()
+        torch.save(self.gpt.state_dict(), os.path.join(wd, "gpt.pt"))
+        with open(os.path.join(wd, "gpt.json"), "w") as f:
+            json.dump(vars(self.gpt.gpt.config), f)
+        prompts, new = self.serving_requests(self.gpt.gpt.config.vocab_size)
+        num_pages = 1 + sum(-(-(len(p) + m) // 16)
+                            for p, m in zip(prompts, new))
+        outs, steps, wall, launches = self.dist_serve(
+            "auto", prompts, new, num_pages, "dist_serving_tp1")
+        refs = getattr(self, "serving_refs", None)
+        refs = self.assert_identical("dist (a) tp 1", prompts, new, outs,
+                                     refs)
+        L = self.gpt.gpt.config.num_layers
+        assert launches["paged_attention"] == steps * L, launches
+        q8, _, _, _ = self.dist_serve("int8", prompts, new, num_pages, None)
+        print(f"dist (a) tp 1 engine over the live process group: 16 "
+              f"requests token-identical to generate() in {wall:.3f} s, "
+              f"{steps} steps, K1 {launches['paged_attention']} K2 "
+              f"{launches['flash_fwd']}; the int8-page engine's outputs "
+              f"kept for (b)")
+        self.details["dist_serving_a"] = dict(wall_s=wall, steps=steps,
+                                              launches=launches)
+        return dict(prompts=prompts, new=new, num_pages=num_pages,
+                    fp32=refs, int8=q8)
+
+    def dist_b(self, wd, batch, state_a, refs):
+        """(b) two ranks on this card over gloo with CUDA tensors (see
+        `_dist_rank`), spawned by distributed.spawn; their records are
+        checked here: tp 2 serving identical to tp 1 up to near-ties (C2:
+        first tokens exact, a first flip only at a top-2 gap < NEAR_TIE),
+        K1 on 6 local heads in each rank; dp 2 losses with dropout off
+        within rtol 2e-4 / atol 2e-5 of (a)'s; with dropout on the ranks'
+        keep shares on identical rows differ; ZeRO-1 optimizer bytes a
+        rank about half of (a)'s."""
+        import numpy as np
+        from paddle_tpu_torch import distributed as D
+        np.savez(os.path.join(wd, "batch.npz"), *batch)
+        with open(os.path.join(wd, "requests.json"), "w") as f:
+            json.dump({"prompts": [p.tolist() for p in refs["prompts"]],
+                       "new": refs["new"], "num_pages": refs["num_pages"]},
+                      f)
+        print("dist (b): a correctness arm — two ranks share this one "
+              "card over gloo; no time below is a multi-card number")
+        try:
+            D.spawn(_dist_probe, args=(wd,), nprocs=2, timeout=120)
+        except RuntimeError as e:
+            # a collective that ends the process is recorded as missing;
+            # the arms below must not need it (DIST["NEEDS"])
+            print(f"dist (b) probe: {e}")
+        collectives = _probe_outcomes(wd)
+        t0 = time.perf_counter()
+        D.spawn(_dist_rank, args=(wd,), nprocs=2, timeout=DIST["TIMEOUT"])
+        spawn_s = time.perf_counter() - t0
+        recs = []
+        for r in range(2):
+            with open(os.path.join(wd, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        r0, r1 = recs
+        print(f"dist (b): 2 ranks spawned and joined in {spawn_s:.1f} s; "
+              f"backend {[x['backend'] for x in recs]}, devices "
+              f"{[x['device'] for x in recs]}")
+        missing = sorted(k for k, v in collectives.items() if v != "ok")
+        print(f"dist (b): gloo on CUDA tensors: "
+              + ", ".join(f"{k} {v}" for k, v in collectives.items()))
+        print(f"dist (b): collectives gloo refused on CUDA tensors: "
+              f"{missing if missing else 'none'}; the arms need "
+              f"{sorted(DIST['NEEDS'])}")
+        assert not set(missing) & set(DIST["NEEDS"]), missing
+        # serving
+        L = self.gpt.gpt.config.num_layers
+        prompts, new = refs["prompts"], refs["new"]
+        for kv in ("fp32", "int8"):
+            s0, s1 = r0["serve"][kv], r1["serve"][kv]
+            outs = [np.asarray(o) for o in s0["outs"]]
+            ref = refs[kv]
+            first = [(o[len(p)], rf[len(p)]) for o, rf, p in
+                     zip(outs, ref, prompts)]
+            flips = self.first_flips(prompts, new, outs,
+                                     [np.asarray(x) for x in ref])
+            for i, step, gap in flips:
+                print(f"dist (b) tp 2 {kv}: request {i} first differs at "
+                      f"step {step}, top-2 logit gap {gap:.3e}")
+            print(f"dist (b) tp 2 GPT-2 small {kv} pools: 16 requests in "
+                  f"{s0['wall_s']:.3f} s, {s0['steps']} steps, "
+                  f"{len(flips)} outputs differ from tp 1 (all at gaps < "
+                  f"{NEAR_TIE}); local heads {s0['local_heads']} / "
+                  f"{s1['local_heads']}; K1 launches rank 0 "
+                  f"{s0['launches']['paged_attention']} rank 1 "
+                  f"{s1['launches']['paged_attention']}, K2 "
+                  f"{s0['launches']['flash_fwd']} / "
+                  f"{s1['launches']['flash_fwd']}; peak allocated "
+                  f"{s0['peak_bytes'] / 2**30:.2f} / "
+                  f"{s1['peak_bytes'] / 2**30:.2f} GiB")
+            assert all(a == b for a, b in first), f"{kv}: first tokens"
+            assert all(gap < NEAR_TIE for _, _, gap in flips), flips
+            assert s0["local_heads"] == s1["local_heads"] == 6
+            if kv == "fp32":
+                # rank 0's warmup decode and every step, 12 layers each
+                want = (s0["steps"] + 1) * L
+                assert s0["launches"]["paged_attention"] == want, s0
+                assert s1["launches"]["paged_attention"] == want, s1
+            else:
+                assert s0["launches"]["paged_attention"] == 0
+            for r, rec in enumerate(recs):
+                self.path_launches[f"dist_serve_tp2_{kv}_r{r}"] = \
+                    rec["serve"][kv]["launches"]
+                self.path_dtype_launches[f"dist_serve_tp2_{kv}_r{r}"] = \
+                    rec["serve"][kv]["launches_by_dtype"]
+        # training
+        a = state_a["losses"]
+        for r, rec in enumerate(recs):
+            t = rec["train"]
+            print(f"dist (b) dp 2 rank {r} packed GPT-2 small, ZeRO-1: "
+                  f"dropout off losses {[round(x, 6) for x in t['losses']]} "
+                  f"vs (a) {[round(x, 6) for x in a]}; dropout {DROPOUT} "
+                  f"losses {[round(x, 6) for x in t['losses_dropout']]}; "
+                  f"keep share on identical rows {t['keep_share']:.6f}; "
+                  f"optimizer state {t['opt_bytes'] / 2**20:.1f} MiB = "
+                  f"{t['opt_bytes'] / state_a['opt_bytes']:.4f} of (a)'s; "
+                  f"wall {t['wall_s']:.3f} s (dropout off) "
+                  f"{t['wall_dropout_s']:.3f} s (on), peak allocated "
+                  f"{t['peak_bytes'] / 2**30:.2f} GiB; launches K5 "
+                  f"{t['launches']['splash_fwd']} K6 "
+                  f"{t['launches']['splash_bwd_dq']} K7 "
+                  f"{t['launches']['splash_bwd_dkv']}")
+            np.testing.assert_allclose(t["losses"], a, rtol=2e-4, atol=2e-5)
+            assert all(np.isfinite(t["losses_dropout"]))
+            assert abs(t["opt_bytes"] / state_a["opt_bytes"] - 0.5) < 0.01
+            n = DIST["LAYERS"] * (2 * DIST["STEPS"])
+            assert t["launches"]["splash_fwd"] == n + 1, t["launches"]
+            assert t["launches"]["splash_bwd_dq"] == n
+            self.path_launches[f"dist_packed_dp2_r{r}"] = t["launches"]
+            self.path_dtype_launches[f"dist_packed_dp2_r{r}"] = \
+                t["launches_by_dtype"]
+        assert r0["train"]["keep_share"] != r1["train"]["keep_share"], \
+            "the two dp ranks drew one keep mask"
+        self.details["dist_b"] = dict(spawn_s=spawn_s, ranks=recs,
+                                      collectives=collectives)
+
     def kernels_line(self):
         srcs = {"paged_attention": (
                     "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -7387,6 +7921,282 @@ class Smoke:
                             "bound_by": r.get("bound_by"),
                             "library_ms": r.get("library_ms")})
         return {"kernels": out}
+
+
+# phase 15: the packed GPT-2-small LM (12 layers of 12 heads at hidden 768,
+# vocabulary 50304, 1024 positions), its global batch and step count, the
+# spawned ranks' time limit, and the collectives the (b) arms run on CUDA
+# tensors (ZeRO-1: all_reduce and all_gather; the tp lane: all_reduce)
+DIST = dict(LAYERS=12, HIDDEN=768, HEADS=12, VOCAB=50304, ROWS=8, STEPS=3,
+            LR=1e-4, TIMEOUT=600, NEEDS=("all_reduce", "all_gather"))
+
+
+def _packed_gpt(torch, sharded, dropout):
+    """Phase 15's packed LM at GPT-2 small's widths: token + position
+    embeddings, DIST["LAYERS"] pre-LN blocks (fused QKV, causal attention
+    within segments, GELU MLP), the tied LM head; the port's nn layers,
+    seed 0. With `sharded` the attention is parallel.spmd.
+    sharded_splash_attention (K5-K7 on the rank's rows, the dp rank in
+    the dropout seed), else F.scaled_dot_product_attention(segment_ids=)
+    as phase 7's LM runs it."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.parallel import sharded_splash_attention
+    E, H, V, L = (DIST[k] for k in ("HIDDEN", "HEADS", "VOCAB", "LAYERS"))
+    T = PACK["T"]
+
+    class Block(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.ln1, self.ln2 = nn.LayerNorm(E), nn.LayerNorm(E)
+            self.qkv, self.proj = nn.Linear(E, 3 * E), nn.Linear(E, E)
+            self.fc1, self.fc2 = nn.Linear(E, 4 * E), nn.Linear(4 * E, E)
+
+        def forward(self, x, seg):
+            B, S, _ = x.shape
+            qkv = self.qkv(self.ln1(x)).reshape(B, S, 3, H, E // H) \
+                .permute(2, 0, 3, 1, 4)
+            if sharded:
+                o = sharded_splash_attention(
+                    causal=True, dropout_p=dropout if self.training
+                    else 0.0)(qkv[0], qkv[1], qkv[2], seg, seg)
+            else:
+                o = F.scaled_dot_product_attention(
+                    qkv[0], qkv[1], qkv[2], is_causal=True, segment_ids=seg,
+                    dropout_p=dropout, training=self.training)
+            x = x + self.proj(o.transpose(1, 2).reshape(B, S, E))
+            return x + self.fc2(F.gelu(self.fc1(self.ln2(x))))
+
+    class PackedGPT(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.wte, self.wpe = nn.Embedding(V, E), nn.Embedding(T, E)
+            self.blocks = torch.nn.ModuleList(Block() for _ in range(L))
+            self.ln_f = nn.LayerNorm(E)
+            for emb in (self.wte, self.wpe):
+                torch.nn.init.normal_(emb.weight, std=0.02)
+
+        def forward(self, toks, seg, pos):
+            x = self.wte(toks) + self.wpe(pos)
+            for blk in self.blocks:
+                x = blk(x, seg)
+            return F.linear(self.ln_f(x), self.wte.weight.t())
+
+    torch.manual_seed(0)
+    return PackedGPT()
+
+
+def _packed_loss(torch, logits, labels):
+    """Token cross-entropy summed over the pack's real tokens and divided
+    by its slots (rows x T), so the dp ranks' losses average to the global
+    batch's."""
+    y, mask = labels
+    ce = torch.nn.functional.cross_entropy(
+        logits.float().reshape(-1, logits.shape[-1]), y.reshape(-1),
+        reduction="none")
+    return (ce * mask.reshape(-1).float()).sum() / mask.numel()
+
+
+def _dist_engine_kw(num_pages):
+    return dict(max_slots=8, page_size=16, num_pages=num_pages,
+                prefill_buckets=(16, 64, 256, 1024), max_new_tokens=64,
+                request_timeout_ms=0)
+
+
+def _dist_launches(po, fo, so):
+    ws = {"paged_attention": po.paged_attention,
+          "flash_fwd": fo.flash_attention_fwd,
+          "flash_bwd_dq": fo.flash_attention_dq,
+          "flash_bwd_dkv": fo.flash_attention_dkv,
+          "splash_fwd": so.splash_attention_fwd,
+          "splash_bwd_dq": so.splash_attention_dq,
+          "splash_bwd_dkv": so.splash_attention_dkv}
+    return ({n: w.launches for n, w in ws.items()},
+            {n: dict(getattr(w, "launches_by_dtype", {}))
+             for n, w in ws.items()}, ws)
+
+
+def _zero(ws):
+    for w in ws.values():
+        w.launches = 0
+        if hasattr(w, "launches_by_dtype"):
+            w.launches_by_dtype.clear()
+
+
+_PROBES = ("all_reduce", "all_gather", "broadcast", "reduce_scatter",
+           "all_to_all_single", "send_recv")
+
+
+def _dist_probe(wd):
+    """A rank of phase 15 (b)'s probe, started by distributed.spawn: each
+    collective of `_PROBES` once on CUDA tensors over gloo, the ranks in
+    step (a barrier before each), `start` and the outcome appended to
+    probe{r}.txt as they happen. A collective gloo refuses raises and is
+    recorded; one that gloo hands the device pointer as host memory ends
+    the process (gloo's IoException aborts), so the file's last `start`
+    names it."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(REPO))
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import env as denv
+    penv = D.init_parallel_env(backend="gloo")
+    r, dev = penv.rank, denv.local_device()
+    calls = {
+        "all_reduce": lambda t: dist.all_reduce(t),
+        "all_gather": lambda t: dist.all_gather(
+            [torch.empty_like(t) for _ in range(2)], t),
+        "broadcast": lambda t: dist.broadcast(t, 0),
+        "reduce_scatter": lambda t: dist.reduce_scatter(
+            torch.empty_like(t[:4]), list(t.chunk(2))),
+        "all_to_all_single": lambda t: dist.all_to_all_single(
+            torch.empty_like(t), t),
+        "send_recv": lambda t: (dist.send(t, 1) if r == 0
+                                else dist.recv(t, 0)),
+    }
+    with open(os.path.join(wd, f"probe{r}.txt"), "w", buffering=1) as f:
+        for name in _PROBES:
+            dist.barrier()
+            f.write(f"start {name}\n")
+            try:
+                calls[name](torch.arange(8, dtype=torch.float32,
+                                         device=dev))
+                torch.cuda.synchronize()
+                f.write(f"ok {name}\n")
+            except Exception as e:  # noqa: BLE001 — recorded for the parent
+                f.write(f"refused {name} {type(e).__name__}\n")
+    D.destroy_process_group()
+
+
+def _probe_outcomes(wd):
+    """{collective: outcome} read from the probe ranks' files: "ok" where
+    both ranks completed it, else each rank's: refused (it raised),
+    aborts the process (its `start` is that rank's last line), or not
+    probed (after an abort)."""
+    per = []
+    for r in range(2):
+        path = os.path.join(wd, f"probe{r}.txt")
+        got = {}
+        for line in (open(path).read().split("\n")
+                     if os.path.exists(path) else []):
+            if line:
+                kind, name = line.split()[:2]
+                got[name] = ("aborts the process" if kind == "start" else
+                             "ok" if kind == "ok" else
+                             "refused: " + line.split()[2])
+        per.append(got)
+    out = {}
+    for n in _PROBES:
+        each = [g.get(n, "not probed") for g in per]
+        out[n] = "ok" if each == ["ok", "ok"] else \
+            "; ".join(f"rank {r} {o}" for r, o in enumerate(each))
+    return out
+
+
+def _dist_rank(wd):
+    """A rank of phase 15 (b), started by distributed.spawn: joins the
+    world over gloo on the card (both ranks on cuda:0), then serves phase 5's
+    requests at tp 2 (fp32 pools, then int8; rank 0 schedules) and trains
+    the packed GPT-2 small at dp 2 with ZeRO-1 (dropout 0, then
+    DROPOUT), writing its record to rank{r}.json. Launch counts start
+    at 0 in this fresh process and are read after each arm."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import optimizer, serving
+    from paddle_tpu_torch.distributed import env as denv
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import flash_ops as fo, paged_ops as po
+    from paddle_tpu_torch.ops import splash_ops as so
+    from paddle_tpu_torch.parallel import make_sharded_train_step
+    import torch.distributed as dist
+    penv = D.init_parallel_env(backend="gloo")
+    r = penv.rank
+    dev = denv.local_device()
+    rec = {"rank": r, "backend": denv.backend(), "device": str(dev)}
+    _, _, ws = _dist_launches(po, fo, so)
+    # tp 2 serving of phase 5's requests
+    with open(os.path.join(wd, "requests.json")) as f:
+        req = json.load(f)
+    with open(os.path.join(wd, "gpt.json")) as f:
+        gpt = GPTForCausalLM(GPTConfig(**json.load(f)), device=dev).eval()
+    gpt.load_state_dict(torch.load(os.path.join(wd, "gpt.pt"),
+                                   map_location=dev))
+    rec["serve"] = {}
+    for kv, dtype in (("fp32", "auto"), ("int8", "int8")):
+        _zero(ws)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = serving.GenerationEngine(
+            gpt, device=dev, name=f"dist_tp2_{kv}", tp=2,
+            kv_cache_dtype=dtype, **_dist_engine_kw(req["num_pages"]))
+        out = {"local_heads": eng._cache.local_heads}
+        if r == 0:
+            futs = [eng.submit(np.asarray(p), max_new_tokens=n)
+                    for p, n in zip(req["prompts"], req["new"])]
+            out["outs"] = [fut.result(600).tolist() for fut in futs]
+            out["steps"] = eng.stats()["steps"]
+        eng.shutdown()
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["launches"], out["launches_by_dtype"], _ = _dist_launches(
+            po, fo, so)
+        rec["serve"][kv] = out
+        del eng
+        dist.barrier()
+    del gpt
+    torch.cuda.empty_cache()
+    # dp 2 packed training, ZeRO-1, on the global batch
+    z = np.load(os.path.join(wd, "batch.npz"))
+    batch = [z[f"arr_{i}"] for i in range(5)]
+    ins = [torch.as_tensor(x) for x in batch[:3]]
+    lbs = [torch.as_tensor(x) for x in batch[3:5]]
+    _zero(ws)
+    t = {}
+    for tag, p in (("", 0.0), ("_dropout", DROPOUT)):
+        model = _packed_gpt(torch, sharded=True, dropout=p).to(dev)
+        model.load_state_dict(torch.load(os.path.join(wd, "packed.pt"),
+                                         map_location=dev))
+        opt = optimizer.Adam(DIST["LR"], parameters=model.parameters())
+        step, st = make_sharded_train_step(
+            model, opt, lambda o, lb: _packed_loss(torch, o, lb),
+            zero_stage=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(DIST["STEPS"]):
+            st, lv = step(st, ins, lbs, rng=11)
+            losses.append(float(lv))
+        torch.cuda.synchronize()
+        t[f"wall{tag}_s"] = time.perf_counter() - t0
+        t[f"losses{tag}"] = losses
+        if not tag:
+            t["peak_bytes"] = torch.cuda.max_memory_allocated()
+            t["opt_bytes"] = sum(x.numel() * x.element_size()
+                                 for v in st["opt_state"].values()
+                                 for x in v.values())
+        del model, opt, step, st
+        torch.cuda.empty_cache()
+    # the keep mask on identical rows: q = k = 0 and v = 1 make each
+    # output the kept share of a row's allowed keys / (1 - p)
+    seg = torch.as_tensor(batch[1][:DIST["ROWS"] // 2]).to(dev)
+    q = torch.zeros(seg.shape[0], DIST["HEADS"], PACK["T"],
+                    DIST["HIDDEN"] // DIST["HEADS"], device=dev)
+    o = F.scaled_dot_product_attention(q, q, torch.ones_like(q),
+                                       is_causal=True, segment_ids=seg,
+                                       dropout_p=DROPOUT, training=True)
+    t["keep_share"] = float(o[..., 0].double().mean()) * (1 - DROPOUT)
+    t["launches"], t["launches_by_dtype"], _ = _dist_launches(po, fo, so)
+    rec["train"] = t
+    with open(os.path.join(wd, f"rank{r}.json"), "w") as f:
+        json.dump(rec, f)
+    D.destroy_process_group()
 
 
 def _moe_config(dropout):
@@ -8279,7 +9089,7 @@ def _device_table(torch, prof, steps, wall_ms):
 # the phases after card and build, in the order they run
 PHASES = ("kernels", "model", "serving", "features", "quant", "tier", "fleet",
           "profile", "train", "packing", "ernie", "vision", "export", "api",
-          "seq2seq", "input", "static")
+          "seq2seq", "input", "static", "dist")
 
 
 def main(argv=None):

@@ -88,7 +88,17 @@ Ported so far:
   save_inference_model, load_inference_model}`, the op-level document
   and passes, `Optimizer.minimize`, dy2static in `jit.to_static`, the
   quantization passes, and the reference's ProgramDesc `.pdmodel`
-  through `inference.Predictor`.
+  through `inference.Predictor`;
+- multi-GPU, one process a card over `torch.distributed` (NCCL on the
+  card, gloo on the CPU): `parallel.{mesh, spmd}` (meshes over ranks,
+  `make_sharded_train_step` with ZeRO 0-3 and tensor-parallel layers,
+  `sharded_splash_attention`), `distributed` (`init_parallel_env`, the
+  collectives, `spawn` and `python -m paddle_tpu_torch.distributed.
+  launch`, `DataParallel`, the tensor-parallel layers, `sharding`),
+  `io.DistributedBatchSampler`, `framework.sharded_checkpoint`, and
+  tensor-parallel serving lanes in `serving.GenerationEngine`
+  (`GenerationConfig(tp=)`, `ops.paged_ops.sharded_paged_attention`,
+  `models.gpt.shard_decode_weights`).
 """
 from . import amp, framework, hapi, io, metric, models, nn, ops  # noqa: F401
 from . import optimizer, profiler, quantization  # noqa: F401
@@ -96,6 +106,8 @@ from . import serving, static, vision  # noqa: F401
 from . import inference, jit  # noqa: F401,E402
 from . import autograd, device  # noqa: F401,E402
 from . import text, utils  # noqa: F401,E402
+from . import distributed, parallel  # noqa: F401,E402
+from .distributed import DataParallel  # noqa: F401,E402
 from .hapi import callbacks  # noqa: F401,E402
 from .hapi.model_summary import flops, summary  # noqa: F401,E402
 from .framework import get_flags, set_flags  # noqa: F401

@@ -90,6 +90,14 @@ register_flag("FLAGS_gen_request_timeout_ms", 30000.0,
               "serving.GenerationEngine: default per-request deadline, "
               "enforced while queued and before every decode step "
               "(0 disables)")
+register_flag("FLAGS_gen_tp", 1,
+              "serving.GenerationEngine: tensor-parallel degree of the "
+              "lane: that many ranks of the process group (one a card) "
+              "each hold the heads/tp slice of every attention and MLP "
+              "projection and of the paged K/V pools (+ int8 scale "
+              "grids), the row-parallel partial sums all-reduced once "
+              "a projection; rank 0 owns the scheduler and broadcasts "
+              "each program call to the others. 1 = one card")
 register_flag("FLAGS_gen_prefix_cache", False,
               "serving.GenerationEngine: content-hash prefix cache over "
               "the paged KV pools (serving/prefix_cache.py) — a request "

@@ -5,5 +5,6 @@ from .dataset import (ChainDataset, ComposeDataset,  # noqa: F401
                       TensorDataset, random_split)
 from .device_loader import DeviceFeeder  # noqa: F401
 from .packing import PackingCollator, suggest_rows  # noqa: F401
-from .sampler import (BatchSampler, RandomSampler, Sampler,  # noqa: F401
-                      SequenceSampler, WeightedRandomSampler)
+from .sampler import (BatchSampler, DistributedBatchSampler,  # noqa: F401
+                      RandomSampler, Sampler, SequenceSampler,
+                      WeightedRandomSampler)

@@ -10,8 +10,15 @@ with `replacement`, it is `num_samples` draws from numpy's global
 generator, as the JAX package draws them, and so is every
 `WeightedRandomSampler` epoch: one `np.random.seed` gives both packages
 the same indices there. `generator` is accepted and not read, as in the
-JAX package."""
+JAX package.
+
+`DistributedBatchSampler` shards the index stream over the data-parallel
+ranks as the JAX package's does: the epoch's indices (a permutation
+seeded by the epoch when shuffled) padded to a multiple of the ranks by
+repeating the first ones, rank r taking every n-th from r."""
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -19,7 +26,8 @@ import torch
 from ..framework import random as frandom
 
 __all__ = ["Sampler", "SequenceSampler", "RandomSampler",
-           "WeightedRandomSampler", "BatchSampler"]
+           "WeightedRandomSampler", "BatchSampler",
+           "DistributedBatchSampler"]
 
 
 class Sampler:
@@ -119,3 +127,49 @@ class BatchSampler(Sampler):
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
+
+
+class DistributedBatchSampler(BatchSampler):
+    """Batches of this rank's share of the indices (reference
+    `fluid/dataloader/batch_sampler.py:DistributedBatchSampler`); rank
+    and rank count default to the process group's."""
+
+    def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
+                 shuffle=False, drop_last=False):
+        from ..distributed.env import get_rank, get_world_size
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.nranks = (num_replicas if num_replicas is not None
+                       else get_world_size())
+        self.local_rank = rank if rank is not None else get_rank()
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.epoch = 0
+        self.num_samples = int(math.ceil(len(dataset) / self.nranks))
+        self.total_size = self.num_samples * self.nranks
+
+    def __iter__(self):
+        n = len(self.dataset)
+        if self.shuffle:
+            indices = np.random.RandomState(self.epoch).permutation(
+                n).tolist()
+        else:
+            indices = list(range(n))
+        indices += indices[:(self.total_size - n)]
+        indices = indices[self.local_rank:self.total_size:self.nranks]
+        batch = []
+        for idx in indices:
+            batch.append(idx)
+            if len(batch) == self.batch_size:
+                yield batch
+                batch = []
+        if batch and not self.drop_last:
+            yield batch
+
+    def __len__(self):
+        if self.drop_last:
+            return self.num_samples // self.batch_size
+        return (self.num_samples + self.batch_size - 1) // self.batch_size
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch

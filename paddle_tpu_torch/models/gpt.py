@@ -50,7 +50,8 @@ __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "MoEFeedForward",
            "gpt_prefill",
            "gpt_prefill_extend", "gpt_decode_step", "gpt_spec_verify",
            "gpt_logits", "dense_cache_write", "dense_cache_attend",
-           "load_reference_state"]
+           "load_reference_state", "decode_weight_specs",
+           "shard_decode_weights"]
 
 
 # -- shared decode math (generate() AND serving.GenerationEngine) -----------
@@ -84,11 +85,22 @@ def gpt_logits(W, h):
     return TF.linear(_gen_ln(h, lnfw, lnfb), W["wte"])
 
 
-def _gen_block_pass(W, h, attend, *, num_heads):
+def _row_out(x, w, b, reduce):
+    """A row-parallel projection: without `reduce` the plain `_lin`; with
+    it (a tensor-parallel rank's input slice) the partial product reduced
+    over the ranks, then the bias added once."""
+    if reduce is None:
+        return _lin(x, w, b)
+    return reduce(_lin(x, w, None)) + b
+
+
+def _gen_block_pass(W, h, attend, *, num_heads, reduce=None):
     """The batched transformer-block loop of a prefill: LN -> QKV heads
     -> `attend(layer, q, k, v)` -> output projection + MLP residuals,
     collecting per-layer K/V. Returns `(h, ks, vs)`, ks/vs
-    [L, B, H, S, D]."""
+    [L, B, H, S, D]. On a tensor-parallel rank `W` holds its slice
+    (`shard_decode_weights`), `num_heads` its local heads and `reduce`
+    sums a row-parallel partial product over the ranks."""
     B, S = h.shape[:2]
     H = num_heads
     ks, vs = [], []
@@ -105,13 +117,13 @@ def _gen_block_pass(W, h, attend, *, num_heads):
         vs.append(v)
         o = attend(i, q, k, v)
         o = o.transpose(1, 2).reshape(B, S, -1)
-        h = h + _lin(o, wo, bo)
+        h = h + _row_out(o, wo, bo, reduce)
         x2 = _gen_ln(h, l2w, l2b)
-        h = h + _lin(TF.gelu(_lin(x2, w1, b1)), w2, b2)
+        h = h + _row_out(TF.gelu(_lin(x2, w1, b1)), w2, b2, reduce)
     return h, torch.stack(ks), torch.stack(vs)
 
 
-def gpt_prefill(W, ids, *, num_heads, scale):
+def gpt_prefill(W, ids, *, num_heads, scale, reduce=None):
     """One batched causal pass over the whole prompt. Returns `(h, ks,
     vs)`: `h` [B,S,E] post-block pre-ln_f hidden states, `ks`/`vs`
     [L,B,H,S,D] per-layer K/V for the caller's cache. Attention goes
@@ -126,11 +138,12 @@ def gpt_prefill(W, ids, *, num_heads, scale):
         return scaled_dot_product_attention(q, k, v, is_causal=True,
                                             training=False, scale=scale)
 
-    return _gen_block_pass(W, h, attend, num_heads=num_heads)
+    return _gen_block_pass(W, h, attend, num_heads=num_heads,
+                           reduce=reduce)
 
 
 def gpt_prefill_extend(W, ids, positions, ctx_attend, *, num_heads,
-                       scale):
+                       scale, reduce=None):
     """Batched causal pass over a prompt TAIL whose prefix K/V already
     lives in an external cache (the prefix-cache hit path, and every
     prefill chunk).
@@ -148,10 +161,12 @@ def gpt_prefill_extend(W, ids, positions, ctx_attend, *, num_heads,
     diverge from the full prefill."""
     del scale  # the ctx_attend hook owns the scale
     h = W["wte"][ids] + W["wpe"][positions][None]
-    return _gen_block_pass(W, h, ctx_attend, num_heads=num_heads)
+    return _gen_block_pass(W, h, ctx_attend, num_heads=num_heads,
+                           reduce=reduce)
 
 
-def gpt_spec_verify(W, toks, positions, ctx_attend, *, num_heads):
+def gpt_spec_verify(W, toks, positions, ctx_attend, *, num_heads,
+                    reduce=None):
     """Batched multi-position decode block for speculative verification:
     score a [B, K+1] block of tokens (each row's current token followed
     by K draft tokens) at PER-ROW absolute positions [B, K+1] in one
@@ -161,11 +176,12 @@ def gpt_spec_verify(W, toks, positions, ctx_attend, *, num_heads):
     Returns `(h, ks, vs)` ([B, K+1, E] hidden states, [L, B, H, K+1, D]
     per-layer block K/V for the caller's acceptance-masked writes)."""
     h = W["wte"][toks] + W["wpe"][positions]
-    return _gen_block_pass(W, h, ctx_attend, num_heads=num_heads)
+    return _gen_block_pass(W, h, ctx_attend, num_heads=num_heads,
+                           reduce=reduce)
 
 
 def gpt_decode_step(W, tok, pos, cache, write_kv, attend, *, num_heads,
-                    scale):
+                    scale, reduce=None):
     """Single-position forward against an abstract KV cache.
 
     tok [B] int; pos an int or [B] int tensor (THIS token's position —
@@ -187,10 +203,60 @@ def gpt_decode_step(W, tok, pos, cache, write_kv, attend, *, num_heads,
         v = _lin(x, wv, bv).reshape(B, H, -1)
         cache = write_kv(cache, i, k, v, pos)
         o = attend(cache, i, q, pos).reshape(B, -1)
-        h = h + _lin(o, wo, bo)
+        h = h + _row_out(o, wo, bo, reduce)
         x2 = _gen_ln(h, l2w, l2b)
-        h = h + _lin(TF.gelu(_lin(x2, w1, b1)), w2, b2)
+        h = h + _row_out(TF.gelu(_lin(x2, w1, b1)), w2, b2, reduce)
     return gpt_logits(W, h), cache
+
+
+def decode_weight_specs(W, axis="tp"):
+    """Partition specs matching a `decode_weights()` tree for head-sharded
+    tensor parallelism over mesh axis `axis` (the JAX package's
+    `decode_weight_specs`, Megatron's layout), in PyTorch's [out, in]
+    layout: q/k/v/w1 column-parallel (output dim, the heads axis since
+    E = H*D, split, with their biases), wo/w2 row-parallel (input dim
+    split, biases replicated: added once after the all-reduce),
+    embeddings and LNs replicated. A weight-only-quantized `(q [out, in],
+    scale [out])` leaf splits its scale with the output dim it scales."""
+    from ..parallel.mesh import P
+    rep = P()
+
+    def col(w):
+        return ((P(axis, None), P(axis)) if isinstance(w, tuple)
+                else P(axis, None))
+
+    def row(w):
+        return ((P(None, axis), rep) if isinstance(w, tuple)
+                else P(None, axis))
+
+    blocks = [
+        (rep, rep, col(wq), P(axis), col(wk), P(axis), col(wv), P(axis),
+         row(wo), rep, rep, rep, col(w1), P(axis), row(w2), rep)
+        for (l1w, l1b, wq, bq, wk, bk, wv, bv, wo, bo, l2w, l2b,
+             w1, b1, w2, b2) in W["blocks"]]
+    return {"wte": rep, "wpe": rep, "lnf": (rep, rep), "blocks": blocks}
+
+
+def shard_decode_weights(W, mesh, axis="tp"):
+    """This rank's slice of a `decode_weights()` tree under
+    `decode_weight_specs` on `mesh` (contiguous copies: the full tree can
+    be dropped). A quantized `(q, scale)` leaf is a tuple, as `lnf` is,
+    so the recursion walks the spec tree beside it."""
+    from ..distributed.tensor_parallel import shard_tensor
+    specs = decode_weight_specs(W, axis=axis)
+
+    def put(w, s):
+        if isinstance(w, tuple):
+            return tuple(put(x, ss) for x, ss in zip(w, s))
+        return shard_tensor(w, s, mesh).contiguous()
+
+    return {
+        "wte": put(W["wte"], specs["wte"]),
+        "wpe": put(W["wpe"], specs["wpe"]),
+        "lnf": tuple(put(w, s) for w, s in zip(W["lnf"], specs["lnf"])),
+        "blocks": [tuple(put(w, s) for w, s in zip(blk, sblk))
+                   for blk, sblk in zip(W["blocks"], specs["blocks"])],
+    }
 
 
 def dense_cache_write(cache, layer, k, v, pos):

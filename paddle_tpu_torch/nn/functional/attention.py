@@ -16,7 +16,9 @@ interpret mode off the TPU).
 With `segment_ids` (packed rows): splash attention
 (`ops.splash_ops.splash_attention`, kernels K5-K7 or their plain
 versions) when FLAGS_use_splash_attention is on and `splash_supported`
-passes, counted in STAT_splash_dispatches; else the dense fallback with
+passes, counted in STAT_splash_dispatches; under a live mesh whose 'dp'
+axis is > 1 through `parallel.spmd.sharded_splash_attention`, the
+rank's rows with its dp coordinate added to the dropout seed; else the dense fallback with
 the same segment-within-causal mask, so packed batches are always
 correct and only the work differs.
 
@@ -40,10 +42,12 @@ import torch
 from ... import amp
 from ...framework import monitor
 from ...framework.flags import flag
-from ...ops.flash_ops import flash_attention, flash_supported
+from ...ops.flash_ops import _dropout_seed, flash_attention, flash_supported
 from ...ops.splash_ops import _ids, splash_attention, splash_supported
 from ...framework import static_hook
 from ...framework.static_hook import named_op
+from ...parallel.mesh import axis_size
+from ...parallel.spmd import sharded_splash_attention
 
 __all__ = ["scaled_dot_product_attention"]
 
@@ -135,6 +139,13 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                 tuple(query.shape), tuple(key.shape), tuple(value.shape),
                 is_causal=is_causal):
             monitor.stat_add("STAT_splash_dispatches")
+            if axis_size("dp") > 1:
+                # a dp rank's rows: the rank folded into the dropout seed
+                return sharded_splash_attention(
+                    causal=is_causal, scale=scale, dropout_p=eff_dropout)(
+                        query, key, value, q_seg, kv_seg,
+                        seed=_dropout_seed(query.device, eff_dropout,
+                                           generator))
             return splash_attention(query, key, value, q_seg, kv_seg,
                                     causal=is_causal, scale=scale,
                                     dropout_p=eff_dropout,

@@ -64,7 +64,7 @@ from . import _build
 __all__ = ["cached_attention", "paged_attention", "paged_attention_plain",
            "paged_gather", "paged_gather_layers", "paged_gather_quantized",
            "paged_prefix_attention", "paged_write", "paged_write_quantized",
-           "page_rows_for_positions"]
+           "page_rows_for_positions", "sharded_paged_attention"]
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -415,3 +415,22 @@ def paged_attention(q, k_pages, v_pages, page_table, pos, scale,
 
 paged_attention.launches = 0
 paged_attention.launches_by_dtype = collections.Counter()
+
+
+def sharded_paged_attention(mesh, scale, tp_axis="tp", quantized=False):
+    """KV-head-sharded `paged_attention` of a tensor-parallel rank (the JAX
+    package's `sharded_paged_attention`, which wraps the kernel in
+    `shard_map` over `tp`). A rank holds its heads already: q [B, H/tp,
+    D], one layer's pools [H/tp, N, P, D] (and, with `quantized`, the
+    scale grids [H/tp, N]), the page table and positions whole. Returns
+    `f(q, k_pages, v_pages, page_table, pos)`, or with `quantized`
+    `f(q, k_pages, v_pages, k_scales, v_scales, page_table, pos)`,
+    giving [B, H/tp, D]: kernel K1 on the rank's heads on the card (the
+    int8 pools take the dequantizing gather, as unsharded)."""
+    if quantized:
+        def f(q, kp, vp, ks, vs, pt, pos):
+            return paged_attention(q, kp, vp, pt, pos, scale, ks, vs)
+    else:
+        def f(q, kp, vp, pt, pos):
+            return paged_attention(q, kp, vp, pt, pos, scale)
+    return f

@@ -493,14 +493,16 @@ def _ids(seg, device):
 
 @named_op
 def splash_attention(query, key, value, q_seg, kv_seg, causal=False,
-                     scale=None, dropout_p=0.0, generator=None):
+                     scale=None, dropout_p=0.0, generator=None, seed=None):
     """Framework-level entry, differentiable in query, key and value.
 
     q_seg/kv_seg: [B, S] int segment ids (tensor or array), non-decreasing
     per row; a pack's padding carries its own trailing segment id, so pad
     tokens only ever attend to each other. With dropout, the int32 seed
     of the keep mask comes from `generator` when given, else from
-    `framework.random.next_seed` for the query's device. The AMP op
+    `framework.random.next_seed` for the query's device, unless `seed`
+    gives it (`parallel.spmd.sharded_splash_attention` passes the drawn
+    seed plus the rank's dp coordinate). The AMP op
     "splash_attention" is in no list: q/k/v keep their type unless a
     custom list of `auto_cast` names it."""
     query, key, value = amp.cast_args("splash_attention", query, key, value)
@@ -508,7 +510,8 @@ def splash_attention(query, key, value, q_seg, kv_seg, causal=False,
         scale = 1.0 / (query.shape[-1] ** 0.5)
     _check_monotonic(q_seg)
     _check_monotonic(kv_seg)
-    seed = _dropout_seed(query.device, dropout_p, generator)
+    if seed is None:
+        seed = _dropout_seed(query.device, dropout_p, generator)
     return SplashAttention.apply(
         query.contiguous(), key.contiguous(), value.contiguous(),
         _ids(q_seg, query.device), _ids(kv_seg, query.device), seed,

@@ -137,6 +137,7 @@ from ..profiler import (RecordEvent, audit, device_telemetry, exporter,
 from . import failpoints
 from .kv_tier import HostEntry, HostSlab, HostTier
 from ..models.gpt import (GPTForCausalLM, gpt_decode_step, gpt_logits,
+                          shard_decode_weights,
                           gpt_prefill, gpt_prefill_extend, gpt_spec_verify,
                           sample_logits)
 from ..ops.paged_ops import (page_rows_for_positions, paged_attention,
@@ -196,10 +197,13 @@ class GenerationConfig:
                  program_store: Optional[str] = None,
                  tp: Optional[int] = None,
                  top_k: int = 0, seed: int = 0, warmup: bool = True):
-        for knob, value, off in (("program_store", program_store, ""),
-                                 ("tp", tp, 1)):
-            if value is not None and value != off:
-                raise _not_ported(knob)
+        if program_store is not None and program_store != "":
+            raise _not_ported("program_store")
+        # tensor-parallel lane: tp ranks of the process group, one card
+        # each, rank 0 the scheduler (serving/tp_lane.py)
+        self.tp = int(flag("FLAGS_gen_tp") if tp is None else tp)
+        if self.tp < 1:
+            raise InvalidArgumentError("tp must be >= 1")
         self.max_slots = int(flag("FLAGS_gen_max_slots")
                              if max_slots is None else max_slots)
         if self.max_slots < 1:
@@ -511,6 +515,19 @@ class GenerationEngine:
         self._H = mcfg.num_heads
         self._D = mcfg.hidden_size // mcfg.num_heads
         self._scale = 1.0 / self._D ** 0.5
+        self._tp = self._cfg.tp
+        if self._H % self._tp != 0:
+            raise InvalidArgumentError(
+                f"num_heads={self._H} not divisible by tp={self._tp} — "
+                f"head-sharded lanes need equal slices")
+        # a tp lane: this rank's heads of every projection and pool, the
+        # row-parallel sums all-reduced over the lane; rank 0 schedules
+        self._lane = self._reduce = None
+        if self._tp > 1:
+            self._lane = self._tp_lane(dev)
+            self._reduce = self._lane.reduce
+            self._W = shard_decode_weights(self._W, self._lane_mesh, "tp")
+        self._Hl = self._H // self._tp
         self._max_position = mcfg.max_position_embeddings
         if self._cfg.pages_per_seq <= 0:
             self._cfg.pages_per_seq = -(-self._max_position
@@ -528,7 +545,7 @@ class GenerationEngine:
         self._cache = PagedKVCache(
             mcfg.num_layers, self._H, self._D, self._cfg.page_size,
             self._cfg.num_pages, self._cfg.pages_per_seq, dtype=kv_dtype,
-            device=dev)
+            device=dev, tp=self._tp)
         # int8 page mode: the programs write and read the scale pools
         # beside the pages; everything above the pools (admission, page
         # tables, zero-on-free, the ledger) is type-blind
@@ -645,6 +662,16 @@ class GenerationEngine:
         flight_recorder.touch()
         device_telemetry.touch()
         timeseries.touch()
+        if self._lane is not None and not self._lane.leader:
+            # a follower rank runs rank 0's programs on its heads; it
+            # takes no request and serves no metrics
+            self._warmed = True
+            self._owns_metrics_server = False
+            self.metrics_server = None
+            self._lane.follow(self)
+            return
+        if self._lane is not None:
+            self._lane.wrap(self)
         if self._on_death is None:
             # a supervised engine never registers: the supervisor is the
             # stable /readyz and /stats entity across incarnations
@@ -665,7 +692,44 @@ class GenerationEngine:
             exporter.unregister_engine(self)   # no-op when supervised
             if self._step_log is not None:
                 step_log.unregister(self._step_log)
+            if self._lane is not None:
+                self._lane.stop()
             raise
+
+    def _tp_lane(self, dev):
+        """The lane of a tp > 1 engine: the 'tp' mesh over the world's
+        ranks (one lane a job, rank r on its card) and its control group.
+        Raises where no process group of tp ranks is live, or for the
+        engine modes the lane does not carry yet."""
+        from ..distributed.env import get_world_size, is_initialized
+        from ..parallel.spmd import tp_mesh
+        from .tp_lane import TPLane
+        tp = self._tp
+        if not is_initialized() or get_world_size() != tp:
+            raise InvalidArgumentError(
+                f"{self.name}: GenerationConfig(tp={tp}) serves over {tp} "
+                f"ranks of one process group (one a card), and "
+                f"{'none is live' if not is_initialized() else 'the world has %d' % get_world_size()}: "
+                f"start {tp} ranks with python -m "
+                f"paddle_tpu_torch.distributed.launch --nproc_per_node "
+                f"{tp} (or distributed.spawn) and call "
+                f"distributed.init_parallel_env() in each before building "
+                f"the engine")
+        for knob, on in (("kv_tier", self._cfg.kv_tier),
+                         ("on_death (a supervised tp lane)",
+                          self._on_death is not None)):
+            if on:
+                raise InvalidArgumentError(
+                    f"{self.name}: {knob} under tp > 1 is not yet ported "
+                    f"to paddle_tpu_torch")
+        self._lane_mesh = tp_mesh(tp)
+        return TPLane(self._lane_mesh)
+
+    def _refuse_on_follower(self):
+        if self._lane is not None and not self._lane.leader:
+            raise InvalidArgumentError(
+                f"{self.name}: rank {self._lane.rank} of a tp lane runs "
+                f"rank 0's programs; requests go to rank 0's engine")
 
     @staticmethod
     def _fresh_it() -> dict:
@@ -731,7 +795,8 @@ class GenerationEngine:
         S_b = ids.shape[1]
         self._note(f"prefill[b={S_b}]")
         h, ks, vs = gpt_prefill(self._W, self._t(ids, torch.long),
-                                num_heads=self._H, scale=self._scale)
+                                num_heads=self._Hl, scale=self._scale,
+                                reduce=self._reduce)
         pos = torch.arange(S_b, device=self._device)
         page_ids, offs = page_rows_for_positions(
             self._t(pt_row), pos, self._cfg.page_size)
@@ -776,7 +841,8 @@ class GenerationEngine:
 
         h, ks, vs = gpt_prefill_extend(self._W, self._t(ids, torch.long),
                                        positions, ctx_attend,
-                                       num_heads=self._H, scale=scale)
+                                       num_heads=self._Hl, scale=scale,
+                                       reduce=self._reduce)
         page_ids, offs = page_rows_for_positions(pt_t, positions, P)
         page_ids = torch.where(valid, page_ids, TRASH_PAGE)
         offs = torch.where(valid, offs, 0)
@@ -839,7 +905,7 @@ class GenerationEngine:
 
         logits, _ = gpt_decode_step(
             self._W, self._t(toks, torch.long), pos_t, None, write_kv,
-            attend, num_heads=self._H, scale=scale)
+            attend, num_heads=self._Hl, scale=scale, reduce=self._reduce)
         nxt = self._sample(logits, temps, smask)
         active_t = self._t(active)
         nxt = torch.where(active_t, nxt, 0)
@@ -878,7 +944,7 @@ class GenerationEngine:
             return paged_prefix_attention(q, kb, vb, k, v, pos0_t, scale)
 
         h, ks, vs = gpt_spec_verify(self._W, toks_t, positions, ctx_attend,
-                                    num_heads=self._H)
+                                    num_heads=self._Hl, reduce=self._reduce)
         logits = gpt_logits(self._W, h)                     # [M, K1, V]
         greedy = torch.argmax(logits, -1)
         # draft j+1 is accepted iff it equals greedy[j], the model's token
@@ -1162,6 +1228,7 @@ class GenerationEngine:
     def _submit(self, prompt_ids, max_new_tokens, eos_token_id, timeout_ms,
                 do_sample, temperature, stream, ttft_timeout_ms,
                 trace_id=None):
+        self._refuse_on_follower()
         if torch.is_tensor(prompt_ids):
             prompt_ids = prompt_ids.cpu().numpy()
         prompt = np.asarray(prompt_ids)
@@ -1316,6 +1383,9 @@ class GenerationEngine:
             if self._die(e):
                 return   # supervised: handed over and handled
             raise
+        finally:
+            if self._lane is not None:
+                self._lane.stop()
 
     def _run(self):
         # goodput attribution marks: `t_mark` is the previous
@@ -2296,6 +2366,7 @@ class GenerationEngine:
             "pages": self._cache.stats(),
             "kv": kv,
             "compiles": dict(self._ledger),
+            "tp": self._tp,
             "steps": self._steps_total,
             "prefills": self._prefills_total,
             "tokens": self._tokens_total,
@@ -2353,8 +2424,8 @@ class GenerationEngine:
             "pages_in_use": self._cache.pages_in_use,
             "slots_free": sum(1 for r in self._slots if r is None),
             "live": self._num_active(),
-            "tp": 1,
-            "kv_shard_bytes": self._cache.hbm_bytes(),
+            "tp": self._tp,
+            "kv_shard_bytes": self._cache.shard_hbm_bytes(),
         }
         if self._tier is not None:
             snap["tier"] = {
@@ -2435,6 +2506,10 @@ class GenerationEngine:
             self._audit.audit("EVICT_SHUTDOWN_QUEUED", rid=req.rid,
                               queued_ms=round(_now_ms()
                                               - req.t_enqueue_ms, 3))
+        if self._lane is not None and not self._lane.leader:
+            # a follower ends when rank 0's step loop does
+            self._lane.thread.join(timeout_s)
+            return
         t = getattr(self, "_thread", None)
         if t is not None:
             t.join(timeout_s)

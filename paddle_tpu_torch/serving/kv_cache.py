@@ -2,8 +2,8 @@
 
 Port of `paddle_tpu.serving.kv_cache.PagedKVCache` with its refcount
 layer (the prefix cache's substrate), its int8 page mode and the host
-tier's page sizing (`page_host_bytes`); the tp mesh comes with a later
-slice.
+tier's page sizing (`page_host_bytes`) and the head-sharded pools of a
+tensor-parallel rank (`tp`: this process holds heads/tp of each page).
 
 - Pools `[L, H, num_pages, page_size, D]` live on the device; the
   engine updates them in place.
@@ -73,7 +73,7 @@ class PagedKVCache:
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  page_size: int, num_pages: int, pages_per_seq: int,
-                 dtype="float32", device=None):
+                 dtype="float32", device=None, tp: int = 1):
         if page_size < 1 or num_pages < 2 or pages_per_seq < 1:
             raise InvalidArgumentError(
                 f"PagedKVCache needs page_size>=1, num_pages>=2 (page 0 "
@@ -91,7 +91,17 @@ class PagedKVCache:
         self.pages_per_seq = int(pages_per_seq)
         self.dtype = str(dtype)
         self.quantized = self.dtype == "int8"
-        shape = (self.num_layers, self.num_heads, self.num_pages,
+        # head-sharded pools of a tensor-parallel rank: this process
+        # holds heads/tp of every page (the JAX package lays the pools
+        # out P(None, tp) on its mesh); page ids, tables and the
+        # allocator are tp-invariant, `num_heads` stays the model's
+        self.tp = int(tp)
+        if self.tp < 1 or self.num_heads % self.tp != 0:
+            raise InvalidArgumentError(
+                f"num_heads={self.num_heads} not divisible by "
+                f"tp={self.tp} — head-sharded pools need equal slices")
+        self.local_heads = self.num_heads // self.tp
+        shape = (self.num_layers, self.local_heads, self.num_pages,
                  self.page_size, self.head_dim)
         tdt = _TORCH_DTYPES[self.dtype]
         device = resolve_device(device)
@@ -100,7 +110,7 @@ class PagedKVCache:
         # int8 page mode: per-(layer, head, page) symmetric abs-max scales
         # in parallel pools (dequant = q * scale; scale 0 = page empty)
         if self.quantized:
-            sshape = (self.num_layers, self.num_heads, self.num_pages)
+            sshape = (self.num_layers, self.local_heads, self.num_pages)
             self.k_scales = torch.zeros(sshape, dtype=torch.float32,
                                         device=device)
             self.v_scales = torch.zeros(sshape, dtype=torch.float32,
@@ -122,20 +132,35 @@ class PagedKVCache:
         self._gauge_finalizer = weakref.finalize(
             self, monitor.stat_gauge_add_later, "STAT_kv_cache_hbm_bytes",
             -b)
+        # per-shard companion gauge: what ONE card of the slice pays
+        # (tp > 1 caches only, as the JAX package's)
+        self._shard_finalizer = None
+        if self.tp > 1:
+            sb = self.shard_hbm_bytes()
+            monitor.stat_gauge_add("STAT_tp_kv_shard_bytes", sb)
+            self._shard_finalizer = weakref.finalize(
+                self, monitor.stat_gauge_add_later,
+                "STAT_tp_kv_shard_bytes", -sb)
 
     # -- capacity arithmetic ----------------------------------------------
 
     @staticmethod
     def page_hbm_bytes(num_layers: int, num_heads: int, head_dim: int,
-                       page_size: int, dtype="float32") -> int:
+                       page_size: int, dtype="float32", tp: int = 1) -> int:
         """Device bytes ONE page costs across both pools (K and V, every
         layer), its slice of the int8 scale pools included: the unit of
-        the capacity arithmetic."""
+        the capacity arithmetic. With `tp > 1` the cost on ONE card of the
+        slice (each holds heads/tp of the page)."""
+        tp = int(tp)
+        if tp < 1 or num_heads % tp != 0:
+            raise InvalidArgumentError(
+                f"num_heads={num_heads} not divisible by tp={tp}")
+        hl = num_heads // tp
         item = torch.empty((), dtype=_TORCH_DTYPES[str(dtype)]) \
             .element_size()
-        b = 2 * num_layers * num_heads * page_size * head_dim * item
+        b = 2 * num_layers * hl * page_size * head_dim * item
         if str(dtype) == "int8":
-            b += 2 * num_layers * num_heads * 4  # fp32 scale per (L, H)
+            b += 2 * num_layers * hl * 4  # fp32 scale per (L, H/tp)
         return b
 
     def page_host_bytes(self) -> int:
@@ -151,16 +176,23 @@ class PagedKVCache:
     @classmethod
     def pages_for_budget(cls, budget_bytes: int, *, num_layers: int,
                          num_heads: int, head_dim: int, page_size: int,
-                         dtype="float32") -> int:
+                         dtype="float32", tp: int = 1) -> int:
         """Most pages (the reserved scratch page included) a device
         budget admits: int8 pages are about 4x denser than float32, the
-        serving-capacity multiplier the quantized KV mode exists for."""
+        serving-capacity multiplier the quantized KV mode exists for. The
+        budget is one card's: with `tp > 1` it admits tp times the pages."""
         per = cls.page_hbm_bytes(num_layers, num_heads, head_dim,
-                                 page_size, dtype)
+                                 page_size, dtype, tp=tp)
         return max(2, int(budget_bytes) // per)
 
     def hbm_bytes(self) -> int:
-        """Live device bytes of the K/V pools and the scale pools."""
+        """Live device bytes of the K/V pools and the scale pools, summed
+        over the tp ranks' shards (this rank's times tp)."""
+        return self.shard_hbm_bytes() * self.tp
+
+    def shard_hbm_bytes(self) -> int:
+        """This rank's pool bytes: the heads split evenly over tp, so one
+        card holds `hbm_bytes() / tp`."""
         b = (self.k_pages.numel() * self.k_pages.element_size()
              + self.v_pages.numel() * self.v_pages.element_size())
         if self.quantized:
@@ -419,6 +451,10 @@ class PagedKVCache:
             return
         b = self.hbm_bytes()
         self._gauge_finalizer.detach()
+        if self._shard_finalizer is not None:
+            monitor.stat_gauge_add("STAT_tp_kv_shard_bytes",
+                                   -self.shard_hbm_bytes())
+            self._shard_finalizer.detach()
         empty = self.k_pages.new_empty((0,))
         self.k_pages = self.v_pages = empty
         if self.quantized:
@@ -440,6 +476,9 @@ class PagedKVCache:
             "dtype": self.dtype,
             "quantized": self.quantized,
             "hbm_bytes": self.hbm_bytes(),
+            # what ONE card of a tp slice pays (= hbm_bytes at tp 1)
+            "tp": self.tp,
+            "shard_hbm_bytes": self.shard_hbm_bytes(),
             "page_size": self.page_size,
             "usable_pages": self.usable_pages,
             "pages_in_use": self.pages_in_use,

@@ -38,17 +38,17 @@ from torch_ops_parity import (compare, jx, on_the_cpu,  # noqa: F401
 # the JAX package's own Tensor / Parameter classes (the port's tensors
 # are torch.Tensor; A3 for Parameter)
 STILL_MISSING = sorted("""
-DataParallel LoDTensor LoDTensorArray Parameter Print Tensor VarBase
+LoDTensor LoDTensorArray Parameter Print Tensor VarBase
 add_n affine_channel annotations array_length array_read array_write
 batch_fc bilateral_slice bpr_loss broadcast_shape center_loss conv_shift
 correlation create_array create_global_var create_parameter crop_tensor
-cross_entropy2 cvm data_norm deformable_conv distributed
+cross_entropy2 cvm data_norm deformable_conv
 elementwise_floordiv elementwise_max elementwise_min elementwise_mod
 elementwise_pow fill_constant filter_by_instag fsp
 get_tensor_from_selected_rows has_inf has_nan hinge_loss im2sequence
 incubate l1_norm legacy linear_chain_crf lod_reset merge_selected_rows
 monkey_patch_math_varbase monkey_patch_variable nce onnx
-pad_constant_like parallel partial_concat partial_sum prroi_pool
+pad_constant_like partial_concat partial_sum prroi_pool
 psroi_pool pyramid_hash rank rank_attention rank_loss reduce_all
 reduce_any reduce_max reduce_mean reduce_min reduce_prod reduce_sum
 reverse row_conv sample_logits scatter_nd search_pyramid_hash

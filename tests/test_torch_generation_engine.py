@@ -162,10 +162,19 @@ def test_request_that_can_never_fit_fails_fast(pair):
 @pytest.mark.parametrize("knob", [
     dict(kv_tier=True), dict(program_store="/nonexistent"), dict(tp=2),
     dict(tp=4)])
-def test_unported_knob_raises(knob):
+def test_unported_knob_raises(knob, pair):
     """The knobs not ported yet raise; the host tier is ported and
     raises only where the JAX engine's config does: without the prefix
-    cache it has nothing to demote."""
+    cache it has nothing to demote. tp is ported: the config takes it,
+    and an engine built outside a process group of tp ranks raises,
+    naming init_parallel_env and the launcher (never serving at tp 1)."""
+    if "tp" in knob:
+        cfg = GenerationConfig(**knob)
+        assert cfg.tp == knob["tp"]
+        with pytest.raises(InvalidArgumentError,
+                           match="init_parallel_env"):
+            GenerationEngine(pair[1], cfg, device="cpu")
+        return
     match = ("requires prefix_cache" if "kv_tier" in knob
              else "not yet ported")
     with pytest.raises(InvalidArgumentError, match=match):

@@ -244,9 +244,10 @@ def test_generation_config_takes_int8_and_refuses_the_unported():
     # the host tier is ported: int8 pools take it with the prefix cache
     assert GenerationConfig(kv_cache_dtype="int8", prefix_cache=True,
                             kv_tier=True).kv_tier
-    for kw in (dict(program_store="/x"), dict(tp=2)):
-        with pytest.raises(InvalidArgumentError, match="not yet ported"):
-            GenerationConfig(**kw)
+    # tp lanes are ported: int8 pools shard their scale grids with them
+    assert GenerationConfig(kv_cache_dtype="int8", tp=2).tp == 2
+    with pytest.raises(InvalidArgumentError, match="not yet ported"):
+        GenerationConfig(program_store="/x")
     with pytest.raises(InvalidArgumentError, match="kv_cache_dtype"):
         GenerationConfig(kv_cache_dtype="int4")
 
