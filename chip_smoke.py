@@ -387,7 +387,36 @@ Phases:
               with dropout off (losses within rtol 2e-4 / atol 2e-5 of
               (a)'s) and on (the two ranks' keep shares on identical rows
               differ), each rank's optimizer bytes half of (a)'s. Printed:
-              each arm's wall, peak allocated bytes and K1/K5-K7 launches
+              each arm's wall, peak allocated bytes and K1/K5-K7 launches.
+              The strategies (the train steps fleet picks) on GPT-2 small
+              (GPTConfig(), dropout 0, fp32, TF32 off, 8 x 1024, SGD 0.1):
+              (a) fleet.init + hapi Model.fit, 3 steps, bit-equal to
+              make_sharded_train_step on the same batches, K2-K4 12 a
+              step; the same fit under O1, K2-K4 all bf16. (b) two gloo
+              ranks on the card (distributed.spawn; correctness only):
+              the port's send / recv of a CUDA tensor and a ppermute hop
+              bit for bit (ROADMAP C35; the probe's send_recv now goes
+              through them); pp 2 (6 blocks a stage, 4 microbatches)
+              GPipe with and without recompute and 1F1B, 2 steps each;
+              sp 2 ring and Ulysses attention at S 1024 (512 a rank),
+              causal, fp32 1e-5 and bf16 2e-2 x max(1, |ref|) against
+              whole-sequence attention, and one sp step of the GPT with
+              use_ring=True (K2-K4 never launched there); LocalSGD
+              k_steps 1 (2 steps) and 4 (4 steps: the replicas equal
+              right after the sync only); DGC at sparsity 0.999, 3 steps
+              (k entries a tensor, more only at ties; emitted, u and v
+              equal to dgc_compress on the CPU); hapi Model.fit under
+              fleet.init + distributed_optimizer, routed through the
+              strategy's step: a pipeline strategy (pp 2, 4
+              microbatches) 2 epochs of the batch, and the default
+              strategy (dp 2) over 12 rows at batch 8, whose padded tail
+              folds its row mask over the global count, held to a
+              world-1 fit of the same rows. Losses within rtol 2e-4
+              / atol 2e-5 of the world-1 steps, updates within phase 7's
+              rule widened by the weights' fp32 resolution; K2-K4
+              launches as each arm implies, all fp32. Then launch
+              --elastic of two ranks of the card, rank 1 hung before its
+              first beat: the launcher names it and kills the job
 Phase 3 also holds the splash kernels to their plain versions: K5 splash
 forward, K6 splash dQ and K7 splash dK/dV at GPT-2 small's attention
 width (B 8, H 12, S 1024, D 64) and at the packing phase's shape, with
@@ -7557,8 +7586,11 @@ class Smoke:
             state = self.dist_packed_a(batch, wd)
             self.dist_data_parallel_a()
             refs = self.dist_serving_a(wd)
+            w1, w1_fit = self.dist_fleet_a(wd)
             D.destroy_process_group()
             self.dist_b(wd, batch, state, refs)
+            self.dist_strategies_b(wd, w1, w1_fit)
+            self.dist_elastic_b(wd)
         finally:
             from paddle_tpu_torch.distributed.env import destroy_process_group
             destroy_process_group()
@@ -7880,6 +7912,361 @@ class Smoke:
         self.details["dist_b"] = dict(spawn_s=spawn_s, ranks=recs,
                                       collectives=collectives)
 
+    def dist_fleet_a(self, wd):
+        """(a) fleet.init + hapi Model.fit under a default strategy (world
+        1 over NCCL, so fit takes the single-process step) on 3 batches of
+        STRAT["ROWS"] x STRAT["S"] of GPT-2 small, fp32, SGD: per-step
+        losses and the final parameters bit-equal to the same 3 steps of
+        make_sharded_train_step (dp 1, ZeRO-1); K2-K4 12 launches a step
+        each in fp32; the same fit under O1, K2-K4 all bf16. Then the
+        world-1 reference of (b)'s strategy arms: 2 steps of
+        make_sharded_train_step on the first batch, its losses and its
+        updates after 1 and 2 steps saved for the ranks; and of (b)'s
+        fleet fit over a padded tail: Model.fit of R + R/2 rows at batch
+        R, its update saved. Returns both references' losses."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import Model, callbacks, io, nn, optimizer
+        from paddle_tpu_torch.distributed import fleet
+        from paddle_tpu_torch.models import GPTForCausalLM
+        from paddle_tpu_torch.parallel import make_sharded_train_step
+        cfg = _strat_config()
+        R, S, lr = STRAT["ROWS"], STRAT["S"], STRAT["LR"]
+        ids = np.random.RandomState(3).randint(
+            0, cfg.vocab_size, size=(3 * R, S + 1))
+        X, Y = ids[:, :-1], ids[:, 1:]
+        ce = nn.CrossEntropyLoss()
+        fleet.init(is_collective=True)
+        try:
+            # make_sharded_train_step on the fit's batches
+            net = GPTForCausalLM(cfg, device="cuda", seed=0)
+            step, st = make_sharded_train_step(
+                net, optimizer.SGD(lr, parameters=net.parameters()),
+                lambda o, lb: ce(o, lb[0]), zero_stage=1)
+            ref = []
+            for i in range(3):
+                st, lv = step(st, (X[i * R:(i + 1) * R],),
+                              (Y[i * R:(i + 1) * R],))
+                ref.append(float(lv))
+            ref_p = {n: p.detach().clone()
+                     for n, p in net.named_parameters()}
+            del net, step, st
+
+            class Rows(io.Dataset):
+                def __init__(self, n=len(X)):
+                    self.n = n
+
+                def __len__(self):
+                    return self.n
+
+                def __getitem__(self, i):
+                    return X[i], Y[i]
+
+            for level in (None, "O1"):
+                net = GPTForCausalLM(cfg, device="cuda", seed=0)
+                model = Model(net)
+                model.prepare(optimizer.SGD(lr, parameters=net.parameters()),
+                              ce, amp_configs=level)
+                got, walls = [], []
+
+                class Rec(callbacks.Callback):
+                    def on_train_batch_begin(self, step, logs=None):
+                        torch.cuda.synchronize()
+                        walls.append(time.perf_counter())
+
+                    def on_train_batch_end(self, step, logs=None):
+                        got.append(float(logs["loss"]))
+                        walls[-1] = time.perf_counter() - walls[-1]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                tag = "dist_fleet_fit_" + ("o1" if level else "fp32")
+                self.zero_launches()
+                model.fit(Rows(), batch_size=R, epochs=1, shuffle=False,
+                          verbose=0, log_freq=1, callbacks=[Rec()])
+                torch.cuda.synchronize()
+                self.record_path(tag)
+                by = self.path_dtype_launches[tag]
+                peak = torch.cuda.max_memory_allocated()
+                dt = "bfloat16" if level else "float32"
+                routed = model._dist_ctx is not None
+                line = (f"dist (a) fleet.init + Model.fit{' O1' if level else ''}"
+                        f" GPT-2 small [{R}, {S}] x 3 steps (world 1: "
+                        f"routed through fleet: {routed}): losses "
+                        f"{[round(x, 6) for x in got]}; step wall "
+                        f"{[round(w, 4) for w in walls]} s, peak allocated "
+                        f"{peak / 2**30:.2f} GiB; launches by type K2 "
+                        f"{by['flash_fwd']} K3 {by['flash_bwd_dq']} K4 "
+                        f"{by['flash_bwd_dkv']}; {self.smi}")
+                if level is None:
+                    same = all(torch.equal(p.detach(), ref_p[n])
+                               for n, p in net.named_parameters())
+                    line += (f"; vs make_sharded_train_step "
+                             f"{[round(x, 6) for x in ref]}: losses "
+                             f"bit-equal {got == ref}, parameters bit-equal "
+                             f"{same}")
+                print(line)
+                assert len(got) == 3 and all(np.isfinite(got)), got
+                if level is None:
+                    assert got == ref and same, "fleet fit != sharded step"
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                    assert by[k] == {dt: 3 * cfg.num_layers}, (k, by[k])
+                self.details[tag] = dict(losses=got, step_wall_s=walls,
+                                         peak_bytes=peak, launches=by)
+                del net, model
+                torch.cuda.empty_cache()
+            # (b)'s world-1 reference
+            net = GPTForCausalLM(cfg, device="cuda", seed=0)
+            init = {n: p.detach().clone() for n, p in net.state_dict().items()}
+            torch.save(init, os.path.join(wd, "s_init.pt"))
+            step, st = make_sharded_train_step(
+                net, optimizer.SGD(lr, parameters=net.parameters()),
+                lambda o, lb: ce(o, lb[0]), zero_stage=1)
+            losses, deltas = [], {}
+            for i in range(2):
+                st, lv = step(st, (X[:R],), (Y[:R],))
+                losses.append(float(lv))
+                deltas[f"d{i + 1}"] = {n: p.detach() - init[n]
+                                       for n, p in net.named_parameters()}
+            torch.save(deltas, os.path.join(wd, "s_ref.pt"))
+            np.savez(os.path.join(wd, "s_batch.npz"), x=X[:R], y=Y[:R])
+            with open(os.path.join(wd, "s_cfg.json"), "w") as f:
+                json.dump(vars(cfg), f)
+            print(f"dist (a) world-1 reference of (b)'s strategy arms: "
+                  f"GPT-2 small [{R}, {S}], SGD {lr}, losses "
+                  f"{[round(x, 6) for x in losses]}")
+            del net, step, st, deltas
+            torch.cuda.empty_cache()
+            # (b)'s fleet fit over a padded tail: the world-1 Model.fit of
+            # R + R/2 rows at batch R (a full batch, then R/2 real rows
+            # padded to R under a row mask)
+            n_fit = R + R // 2
+            net = GPTForCausalLM(cfg, device="cuda", seed=0)
+            model = Model(net)
+            model.prepare(optimizer.SGD(lr, parameters=net.parameters()), ce)
+            fit_losses = []
+
+            class Loss(callbacks.Callback):
+                def on_train_batch_end(self, step, logs=None):
+                    fit_losses.append(float(logs["loss"]))
+            model.fit(Rows(n_fit), batch_size=R, epochs=1, shuffle=False,
+                      verbose=0, log_freq=1, callbacks=[Loss()])
+            torch.save({n: p.detach() - init[n]
+                        for n, p in net.named_parameters()},
+                       os.path.join(wd, "s_fit_ref.pt"))
+            np.savez(os.path.join(wd, "s_fit_batch.npz"), x=X[:n_fit],
+                     y=Y[:n_fit])
+            print(f"dist (a) world-1 reference of (b)'s fleet fit: Model.fit "
+                  f"GPT-2 small {n_fit} rows at batch {R} (the tail padded "
+                  f"under a row mask), losses "
+                  f"{[round(x, 6) for x in fit_losses]}")
+            assert len(fit_losses) == 2 and np.all(np.isfinite(fit_losses))
+            del net, model, init
+            torch.cuda.empty_cache()
+            return losses, fit_losses
+        finally:
+            from paddle_tpu_torch.parallel import set_mesh
+            fleet.fleet._inited = False
+            set_mesh(None)
+
+    def dist_strategies_b(self, wd, w1, w1_fit):
+        """(b) the strategies on two gloo ranks of this card (see
+        `_dist_rank_strategies`), spawned by distributed.spawn; a
+        correctness cell: no time it prints is a multi-card number. Each
+        arm's losses within rtol 2e-4 / atol 2e-5 of (a)'s world-1 steps
+        (the fleet fits: of (a)'s world-1 fit, `w1_fit`, for the padded
+        tail) and each update within phase 7's gradient rule (1e-3 x its
+        max + 1e-6 x the largest) widened by the fp32 weights' own
+        resolution (`_update_worst`); launches each arm implies, all
+        fp32."""
+        import numpy as np
+        from paddle_tpu_torch import distributed as D
+        t0 = time.perf_counter()
+        D.spawn(_dist_rank_strategies, args=(wd, "cuda"), nprocs=2,
+                timeout=STRAT["TIMEOUT"])
+        spawn_s = time.perf_counter() - t0
+        recs = []
+        for r in range(2):
+            with open(os.path.join(wd, f"strat{r}.json")) as f:
+                recs.append(json.load(f))
+        print(f"dist (b) strategies: 2 ranks spawned and joined in "
+              f"{spawn_s:.1f} s (one card, gloo; {self.smi})")
+        self.details["dist_strategies_b"] = dict(spawn_s=spawn_s, ranks=recs)
+        L, M = _strat_config().num_layers, STRAT["N_MICRO"]
+        k = L // 2
+        fails = []
+
+        def check(ok, what):
+            if not ok:
+                fails.append(what)
+
+        def keep(arm, r, rec):
+            self.path_launches[f"dist_{arm}_r{r}"] = rec["launches"]
+            self.path_dtype_launches[f"dist_{arm}_r{r}"] = \
+                rec["launches_by_dtype"]
+
+        def kernels(rec, k2, k34):
+            by = rec["launches_by_dtype"]
+            return (by["flash_fwd"] == ({"float32": k2} if k2 else {})
+                    and by["flash_bwd_dq"] == ({"float32": k34} if k34
+                                               else {})
+                    and by["flash_bwd_dkv"] == ({"float32": k34} if k34
+                                                else {}))
+
+        def close(a, b):
+            return bool(np.allclose(a, b, rtol=2e-4, atol=2e-5))
+        for r, rec in enumerate(recs):
+            c = rec["c35"]
+            print(f"dist (b) C35 rank {r}: send/recv of a CUDA tensor over "
+                  f"gloo bit-exact {c['send_recv']}, ppermute hop "
+                  f"{c['hop']}, its gradient {c['grad']}")
+            check(c["send_recv"] and c["hop"] and c["grad"], f"c35 r{r}")
+        for arm, k2 in (("pp_gpipe", k * M), ("pp_gpipe_recompute",
+                                              2 * k * M),
+                        ("pp_1f1b", 2 * k * M)):
+            for r, rec in enumerate(recs):
+                a = rec[arm]
+                print(f"dist (b) {arm} rank {r} (pp 2, stage {a['stage']}, "
+                      f"{a['held']} parameters held, n_micro {M}): losses "
+                      f"{[round(x, 6) for x in a['losses']]} vs world 1 "
+                      f"{[round(x, 6) for x in w1]}; worst update / its "
+                      f"tolerance {a['worst'][0]:.3e} ({a['worst'][1]}); "
+                      f"step wall {[round(x, 3) for x in a['step_s']]} s, "
+                      f"peak allocated {a['peak_bytes'] / 2**30:.2f} GiB; "
+                      f"launches by type K2 "
+                      f"{a['launches_by_dtype']['flash_fwd']} K3 "
+                      f"{a['launches_by_dtype']['flash_bwd_dq']} K4 "
+                      f"{a['launches_by_dtype']['flash_bwd_dkv']}; {self.smi}")
+                check(close(a["losses"], w1[:len(a["losses"])]),
+                      f"{arm} r{r} losses")
+                check(a["worst"][0] <= 1.0, f"{arm} r{r} update")
+                n = len(a["losses"])
+                check(kernels(a, k2 * n, k * M * n), f"{arm} r{r} launches")
+                keep(arm, r, a)
+        for r, rec in enumerate(recs):
+            a = rec["sp"]
+            for name, e in sorted(a["attn"].items()):
+                print(f"dist (b) sp 2 {name} causal at S {STRAT['S']} "
+                      f"({STRAT['S'] // 2} a rank) rank {r}: output and "
+                      f"q/k/v gradients vs whole-sequence attention, max err "
+                      f"/ max(1, |ref|) {e:.3e}")
+                lim = 1e-5 if name.endswith("float32") else 2e-2
+                check(e <= lim, f"sp {name} r{r}")
+            print(f"dist (b) sp 2 make_sharded_train_step(sp_axis='sp') of "
+                  f"the GPT with use_ring=True rank {r}: loss "
+                  f"{a['loss']:.6f} vs world 1 {w1[0]:.6f}; worst update / "
+                  f"its tolerance {a['worst'][0]:.3e} ({a['worst'][1]}); "
+                  f"step wall {a['step_s']:.3f} s, peak allocated "
+                  f"{a['peak_bytes'] / 2**30:.2f} GiB; launches K2 "
+                  f"{a['launches']['flash_fwd']} K3 "
+                  f"{a['launches']['flash_bwd_dq']} K4 "
+                  f"{a['launches']['flash_bwd_dkv']}; {self.smi}")
+            check(close([a["loss"]], [w1[0]]), f"sp r{r} loss")
+            check(a["worst"][0] <= 1.0, f"sp r{r} update")
+            check(kernels(a, 0, 0), f"sp r{r} launched K2-K4")
+            keep("sp", r, a)
+        for r, rec in enumerate(recs):
+            a = rec["local1"]
+            print(f"dist (b) LocalSGD k_steps=1 dp 2 rank {r}: losses "
+                  f"{[round(x, 6) for x in a['losses']]} vs synchronous dp "
+                  f"(world 1) {[round(x, 6) for x in w1]}; worst update / "
+                  f"its tolerance {a['worst'][0]:.3e} ({a['worst'][1]}); "
+                  f"step wall {[round(x, 3) for x in a['step_s']]} s, peak "
+                  f"allocated {a['peak_bytes'] / 2**30:.2f} GiB; launches "
+                  f"by type K2 {a['launches_by_dtype']['flash_fwd']}; "
+                  f"{self.smi}")
+            check(close(a["losses"], w1), f"local1 r{r} losses")
+            check(a["worst"][0] <= 1.0, f"local1 r{r} update")
+            check(kernels(a, L * 2, L * 2), f"local1 r{r} launches")
+            keep("localsgd_k1", r, a)
+        f0, f1 = (rec["local4"]["prints"] for rec in recs)
+        kk = STRAT["LOCAL_K4"]
+        same = [a == b for a, b in zip(f0, f1)]
+        print(f"dist (b) LocalSGD k_steps={kk} over {len(same)} steps: the "
+              f"ranks' parameters equal after each step {same} (a sync "
+              f"after step {kk}); step wall "
+              f"{[round(x, 3) for x in recs[0]['local4']['step_s']]} s, "
+              f"peak allocated "
+              f"{recs[0]['local4']['peak_bytes'] / 2**30:.2f} GiB; "
+              f"{self.smi}")
+        check(same == [(i + 1) % kk == 0 for i in range(len(same))],
+              "local4 sync pattern")
+        for r, rec in enumerate(recs):
+            keep("localsgd_k4", r, rec["local4"])
+        for r, rec in enumerate(recs):
+            a = rec["dgc"]
+            print(f"dist (b) DGC sparsity {STRAT['DGC_SPARSITY']} dp 2 rank "
+                  f"{r}: losses {[round(x, 6) for x in a['losses']]}; kept "
+                  f"{a['kept']} of {a['size']} entries a step ({a['ties']} "
+                  f"tensor-steps over k, all at ties: {a['ties_ok']}); "
+                  f"emitted, u, v vs dgc_compress on the CPU, max abs diff "
+                  f"{a['cpu_diff']}; step wall "
+                  f"{[round(x, 3) for x in a['step_s']]} s, peak allocated "
+                  f"{a['peak_bytes'] / 2**30:.2f} GiB; {self.smi}")
+            check(all(np.isfinite(a["losses"])), f"dgc r{r} loss")
+            check(a["k_ok"] and a["ties_ok"], f"dgc r{r} kept")
+            check(max(a["cpu_diff"]) == 0.0, f"dgc r{r} vs cpu")
+            check(kernels(a, L * STRAT["DGC_STEPS"], L * STRAT["DGC_STEPS"]),
+                  f"dgc r{r} launches")
+            keep("dgc", r, a)
+        for arm, ref, k2 in (("fit_pp", w1, k * M), ("fit_dp_tail", w1_fit,
+                                                     L)):
+            for r, rec in enumerate(recs):
+                a = rec[arm]
+                print(f"dist (b) fleet.init + distributed_optimizer + "
+                      f"Model.fit, {arm} rank {r} (mesh {a['mesh']}, routed "
+                      f"through the strategy's step {a['routed']}): losses "
+                      f"{[round(x, 6) for x in a['losses']]} vs world 1 "
+                      f"{[round(x, 6) for x in ref]}; worst update / its "
+                      f"tolerance {a['worst'][0]:.3e} ({a['worst'][1]}); "
+                      f"step wall {[round(x, 3) for x in a['step_s']]} s, "
+                      f"peak allocated {a['peak_bytes'] / 2**30:.2f} GiB; "
+                      f"launches by type K2 "
+                      f"{a['launches_by_dtype']['flash_fwd']} K3 "
+                      f"{a['launches_by_dtype']['flash_bwd_dq']} K4 "
+                      f"{a['launches_by_dtype']['flash_bwd_dkv']}; {self.smi}")
+                check(a["routed"] and a["mesh_ok"], f"{arm} r{r} routing")
+                check(len(a["losses"]) == len(ref)
+                      and close(a["losses"], ref), f"{arm} r{r} losses")
+                check(a["worst"][0] <= 1.0, f"{arm} r{r} update")
+                n = len(a["losses"])
+                check(kernels(a, k2 * n, k2 * n), f"{arm} r{r} launches")
+                keep(arm, r, a)
+        assert not fails, fails
+
+    def dist_elastic_b(self, wd):
+        """(b) `launch --elastic` of two ranks on this card: rank 1 hangs
+        before it ever beats (`_elastic_hang_rank`), rank 0 joins over
+        gloo and waits for it; the launcher must name rank 1 ("stopped
+        heartbeating"), terminate the job and exit non-zero."""
+        import socket
+        e = STRAT["ELASTIC"]
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        for key in list(env):
+            if key.startswith("PADDLE_"):
+                env.pop(key)
+        cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+               "--nproc_per_node", "2", "--started_port", str(port),
+               "--log_dir", os.path.join(wd, "elastic_log"), "--elastic",
+               "--elastic_timeout", str(e["TIMEOUT"]), "--elastic_grace",
+               str(e["GRACE"]), str(REPO / "chip_smoke.py"),
+               "--elastic-hang"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, env=env, cwd=str(REPO), capture_output=True,
+                           text=True, timeout=e["LIMIT"])
+        wall = time.perf_counter() - t0
+        said = [ln for ln in r.stderr.splitlines() if "heartbeat" in ln]
+        print(f"dist (b) launch --elastic, 2 ranks on the card, rank 1 hung "
+              f"before its first beat: launcher exit {r.returncode} after "
+              f"{wall:.1f} s (grace {e['GRACE']} s); {said}; {self.smi}")
+        self.details["dist_elastic"] = dict(rc=r.returncode, wall_s=wall,
+                                            said=said)
+        assert r.returncode != 0 and any(
+            "rank(s) [1] stopped heartbeating" in ln for ln in said), \
+            r.stderr[-2000:]
+
     def kernels_line(self):
         srcs = {"paged_attention": (
                     "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -7928,7 +8315,23 @@ class Smoke:
 # spawned ranks' time limit, and the collectives the (b) arms run on CUDA
 # tensors (ZeRO-1: all_reduce and all_gather; the tp lane: all_reduce)
 DIST = dict(LAYERS=12, HIDDEN=768, HEADS=12, VOCAB=50304, ROWS=8, STEPS=3,
-            LR=1e-4, TIMEOUT=600, NEEDS=("all_reduce", "all_gather"))
+            LR=1e-4, TIMEOUT=600, NEEDS=("all_reduce", "all_gather",
+                                          "send_recv"))
+
+# phase 15's strategy arms: GPT-2 small (GPTConfig(): 12 layers of 12
+# heads at hidden 768, vocabulary 50304, 1024 positions) at dropout 0,
+# fp32, TF32 off, on a global batch of ROWS x S, SGD at LR (a rate whose
+# two-step updates stand well above fp32 rounding of the weights); the
+# pipeline's microbatches, each arm's steps, the DGC sparsity, the
+# elastic launcher's limits
+STRAT = dict(ROWS=8, S=1024, LR=0.1, N_MICRO=4, PP_STEPS=2, LOCAL_K4=4,
+             DGC_STEPS=3, DGC_SPARSITY=0.999, TIMEOUT=900,
+             ELASTIC=dict(TIMEOUT=5, GRACE=15, LIMIT=120))
+
+
+def _strat_config():
+    from paddle_tpu_torch.models import GPTConfig
+    return GPTConfig(dropout=0.0)
 
 
 def _packed_gpt(torch, sharded, dropout):
@@ -8051,8 +8454,10 @@ def _dist_probe(wd):
             torch.empty_like(t[:4]), list(t.chunk(2))),
         "all_to_all_single": lambda t: dist.all_to_all_single(
             torch.empty_like(t), t),
-        "send_recv": lambda t: (dist.send(t, 1) if r == 0
-                                else dist.recv(t, 0)),
+        # the port's send / recv, which stage a CUDA tensor through the
+        # host on a gloo group (C35); gloo's own abort on it
+        "send_recv": lambda t: (D.send(t, 1) if r == 0
+                                else D.recv(t, 0)),
     }
     with open(os.path.join(wd, f"probe{r}.txt"), "w", buffering=1) as f:
         for name in _PROBES:
@@ -8197,6 +8602,377 @@ def _dist_rank(wd):
     with open(os.path.join(wd, f"rank{r}.json"), "w") as f:
         json.dump(rec, f)
     D.destroy_process_group()
+
+
+def _update_worst(got, ref, init):
+    """(the worst over parameters of max |got - ref| / (1e-3 x max |ref|
+    + 1e-6 x the model's largest |ref| + 3 fp32 eps x max |init|), that
+    parameter), updates by name, in float64: phase 7's gradient rule on
+    updates, plus the resolution of the fp32 weights themselves (a weight
+    near 1, a LayerNorm's, moves by less than its own ulps in a step at
+    this rate, and LocalSGD rounds each replica and then their mean)."""
+    import torch
+    eps = torch.finfo(torch.float32).eps
+    floor = 1e-6 * max(d.abs().max().item() for d in ref.values())
+    return max(((got[n].double() - ref[n].double()).abs().max().item()
+                / (1e-3 * ref[n].abs().max().item() + floor
+                   + 3 * eps * init[n].abs().max().item()), n)
+               for n in ref)
+
+
+def _fingerprint(t):
+    """A digest of a tensor's bytes (exact equality across ranks)."""
+    import hashlib
+    return hashlib.sha1(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def _dist_rank_strategies(wd, device):
+    """A rank of phase 15 (b)'s strategy arms, started by
+    distributed.spawn: joins the world over gloo on `device` (both ranks
+    on cuda:0), runs the arms below on GPT-2 small from (a)'s saved
+    weights and batch, and writes its record to strat{r}.json. Each arm
+    starts with the launch counts at 0 and reads them at its end:
+    - c35: the port's send / recv of a CUDA tensor, a ppermute hop and
+      its gradient, bit for bit;
+    - pp 2 (6 blocks a stage, STRAT["N_MICRO"] microbatches): GPipe,
+      GPipe with recompute, 1F1B, 2 steps each;
+    - sp 2: ring and Ulysses attention of [8, 12, 1024, 64] causal (512
+      rows a rank), fp32 and bf16, output and q/k/v gradients against
+      whole-sequence attention on the card; one sp step of the GPT with
+      use_ring=True;
+    - LocalSGD: k_steps=1, 2 steps; k_steps=4, 4 steps with a digest of
+      the replica after each;
+    - DGC: 3 steps at STRAT["DGC_SPARSITY"], each tensor's kept entries,
+      and at the last step the emitted gradient and (u, v) against
+      dgc_compress on the CPU on the same gradients and state;
+    - hapi Model.fit under fleet.init and fleet.distributed_optimizer,
+      routed through the strategy's step: a pipeline strategy (pp 2,
+      accumulate_steps STRAT["N_MICRO"]) over the batch for
+      STRAT["PP_STEPS"] epochs (the stages written back at each epoch's
+      end), and the default strategy (dp 2) over (a)'s R + R/2 rows, whose
+      padded tail folds its row mask over the global count."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.distributed import env as denv
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.ops import flash_ops as fo, paged_ops as po
+    from paddle_tpu_torch.ops import splash_ops as so
+    from paddle_tpu_torch.parallel import (compression, create_mesh,
+                                           local_write_back,
+                                           make_local_train_step,
+                                           make_pipeline_train_step,
+                                           make_sharded_train_step,
+                                           shard_map_ring_attention)
+    penv = D.init_parallel_env(backend="gloo", device=device)
+    r = penv.rank
+    dev = denv.local_device()
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    _, _, ws = _dist_launches(po, fo, so)
+    with open(os.path.join(wd, "s_cfg.json")) as f:
+        cfg = GPTConfig(**json.load(f))
+    z = np.load(os.path.join(wd, "s_batch.npz"))
+    X, Y = z["x"], z["y"]
+    init = torch.load(os.path.join(wd, "s_init.pt"), map_location=dev)
+    ref = torch.load(os.path.join(wd, "s_ref.pt"), map_location=dev)
+    ce = nn.CrossEntropyLoss()
+
+    def lossf(o, lb):
+        return ce(o, lb[0])
+    lr = STRAT["LR"]
+
+    def fresh():
+        m = GPTForCausalLM(cfg, device=dev, seed=0)
+        m.load_state_dict(init)
+        return m
+
+    def worst(m, d, names=None):
+        got = {n: p.detach() - init[n] for n, p in m.named_parameters()
+               if names is None or n in names}
+        return list(_update_worst(got, {n: d[n] for n in got}, init))
+    rec = {"rank": r}
+
+    def arm(name, fn):
+        _zero(ws)
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        sync()
+        out["peak_bytes"] = (torch.cuda.max_memory_allocated() if cuda
+                             else 0)
+        out["launches"], out["launches_by_dtype"], _ = _dist_launches(
+            po, fo, so)
+        rec[name] = out
+        dist.barrier()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def timed(step, st, *a, **k):
+        sync()
+        t0 = time.perf_counter()
+        st, lv = step(st, *a, **k)
+        lv = float(lv)
+        return st, lv, time.perf_counter() - t0
+
+    # C35: point-to-point of CUDA tensors over gloo
+    x = torch.arange(1024, dtype=torch.float32, device=dev) * (r + 1.5)
+    t = x.clone()
+    if r == 0:
+        D.send(t, dst=1)
+    else:
+        D.recv(t, src=0)
+    want = torch.arange(1024, dtype=torch.float32, device=dev) * 1.5
+    y = D.ppermute(x.clone().requires_grad_(), [(0, 1), (1, 0)])
+    xg = x.clone().requires_grad_()
+    D.ppermute(xg, [(0, 1), (1, 0)]).mul(r + 1).sum().backward()
+    rec["c35"] = dict(
+        send_recv=bool(torch.equal(t, want)),
+        hop=bool(torch.equal(y.detach(), torch.arange(
+            1024, dtype=torch.float32, device=dev) * (2 - r + 0.5))),
+        grad=bool(torch.equal(xg.grad, torch.full_like(x, 2 - r))))
+    # pp = 2
+    create_mesh({"dp": 1, "pp": 2})
+    for tag, sched, rc in (("pp_gpipe", "gpipe", False),
+                           ("pp_gpipe_recompute", "gpipe", True),
+                           ("pp_1f1b", "1f1b", False)):
+        def run():
+            m = fresh()
+            step, st = make_pipeline_train_step(
+                m, optimizer.SGD(lr, parameters=m.parameters()), lossf,
+                n_micro=STRAT["N_MICRO"], schedule=sched, recompute=rc)
+            losses, walls = [], []
+            for _ in range(STRAT["PP_STEPS"]):
+                st, lv, w = timed(step, st, (X,), (Y,))
+                losses.append(lv)
+                walls.append(w)
+            held = set(st["params"])
+            return dict(losses=losses, step_s=walls, stage=step.stage,
+                        held=len(held), worst=worst(m, ref[
+                            f"d{STRAT['PP_STEPS']}"], held))
+        arm(tag, run)
+    # sp = 2
+    mesh = create_mesh({"sp": 2})
+
+    def sp():
+        errs = {}
+        B, H, S = 8, cfg.num_heads, STRAT["S"]
+        Dh = cfg.hidden_size // H
+        g = torch.Generator(device=dev).manual_seed(9)
+        base = [torch.randn(B, H, S, Dh, generator=g, device=dev)
+                for _ in range(4)]
+        mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+        for impl in ("ring", "ulysses"):
+            for dt in ("float32", "bfloat16"):
+                qkv = [b.to(getattr(torch, dt)).requires_grad_()
+                       for b in base[:3]]
+                o = shard_map_ring_attention(*qkv, mesh, causal=True,
+                                             impl=impl)
+                gs = torch.autograd.grad((o.float() * base[3]).sum(), qkv)
+                rq = [b.detach().to(getattr(torch, dt)).float()
+                      .requires_grad_() for b in base[:3]]
+                sc = torch.matmul(rq[0], rq[1].transpose(-1, -2)) \
+                    / Dh ** 0.5
+                sc = torch.where(mask, sc, torch.full((), -1e30,
+                                                      device=dev))
+                ro = torch.matmul(torch.softmax(sc, -1), rq[2])
+                rg = torch.autograd.grad((ro * base[3]).sum(), rq)
+                errs[f"{impl} {dt}"] = max(
+                    (a.float() - b).abs().max().item()
+                    / max(1.0, b.abs().max().item())
+                    for a, b in [(o, ro)] + list(zip(gs, rg)))
+                del qkv, o, gs, rq, sc, ro, rg
+        m = fresh()
+
+        class Ring(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.m = m
+
+            def forward(self, ids):
+                return self.m(ids, use_ring=True)
+        step, st = make_sharded_train_step(
+            Ring(), optimizer.SGD(lr, parameters=m.parameters()), lossf,
+            sp_axis="sp", zero_stage=0)
+        st, lv, w = timed(step, st, (X,), (Y,))
+        return dict(attn=errs, loss=lv, step_s=w, worst=worst(m, ref["d1"]))
+    arm("sp", sp)
+    # LocalSGD
+    create_mesh({"dp": 2})
+
+    def local1():
+        m = fresh()
+        step, st = make_local_train_step(
+            m, optimizer.SGD(lr, parameters=m.parameters()), lossf,
+            k_steps=1, begin_step=0)
+        losses, walls = [], []
+        for _ in range(2):
+            st, lv, w = timed(step, st, (X,), (Y,))
+            losses.append(lv)
+            walls.append(w)
+        local_write_back(m, st)
+        return dict(losses=losses, step_s=walls, worst=worst(m, ref["d2"]))
+    arm("local1", local1)
+
+    def local4():
+        m = fresh()
+        step, st = make_local_train_step(
+            m, optimizer.SGD(lr, parameters=m.parameters()), lossf,
+            k_steps=STRAT["LOCAL_K4"])
+        prints, walls = [], []
+        for _ in range(STRAT["LOCAL_K4"]):
+            st, lv, w = timed(step, st, (X,), (Y,))
+            walls.append(w)
+            prints.append(_fingerprint(torch.cat(
+                [p.reshape(-1) for p in st["params"].values()])))
+        return dict(prints=prints, step_s=walls)
+    arm("local4", local4)
+
+    # DGC
+    def dgc():
+        m = fresh()
+        sparsity = STRAT["DGC_SPARSITY"]
+        seen = {"kept": [], "k_ok": True, "ties": 0, "ties_ok": True}
+        real = compression.dgc_compress
+        last = STRAT["DGC_STEPS"]
+
+        def spy(grads, state, momentum, sp_):
+            seen["n"] = seen.get("n", 0) + 1
+            if seen["n"] == last:
+                seen["cpu_in"] = ({k: v.detach().cpu() for k, v in
+                                   grads.items()},
+                                  {k: {a: b.detach().cpu() for a, b in
+                                       v.items()} for k, v in state.items()})
+            out, new = real(grads, state, momentum, sp_)
+            kept = 0
+            for k, v in out.items():
+                # |v| before the split (emitted + left behind), the k-th
+                # largest of it, and the entries at or above it
+                a = (new[k]["v"] + v).abs().reshape(-1)
+                kk = max(1, int(round(a.numel() * (1.0 - sp_))))
+                top = torch.topk(a, kk).values
+                n_kept = int((a >= top[-1]).sum())
+                kept += n_kept
+                outside = int(((v.reshape(-1) != 0) & (a < top[-1])).sum())
+                seen["k_ok"] &= n_kept >= kk and outside == 0
+                if n_kept > kk:
+                    # more than k only where |v| ties the k-th largest
+                    seen["ties"] += 1
+                    seen["ties_ok"] &= bool(
+                        torch.topk(a, n_kept).values[-1] == top[-1])
+            seen["kept"].append(kept)
+            if seen["n"] == last:
+                seen["card_out"] = (
+                    {k: v.detach().cpu() for k, v in out.items()},
+                    {k: {a: b.detach().cpu() for a, b in v.items()}
+                     for k, v in new.items()})
+            return out, new
+        compression.dgc_compress = spy
+        try:
+            step, st = make_sharded_train_step(
+                m, optimizer.SGD(lr, parameters=m.parameters()), lossf,
+                zero_stage=0, dgc=True, dgc_sparsity=sparsity)
+            losses, walls = [], []
+            for _ in range(last):
+                st, lv, w = timed(step, st, (X,), (Y,))
+                losses.append(lv)
+                walls.append(w)
+        finally:
+            compression.dgc_compress = real
+        g_in, s_in = seen["cpu_in"]
+        c_out, c_new = real(g_in, s_in, 0.9, sparsity)
+        d_out, d_new = seen["card_out"]
+        diff = [max((c_out[k] - d_out[k]).abs().max().item()
+                    for k in c_out)]
+        for leaf in ("u", "v"):
+            diff.append(max((c_new[k][leaf] - d_new[k][leaf]).abs().max()
+                            .item() for k in c_new))
+        return dict(losses=losses, step_s=walls, kept=seen["kept"],
+                    size=sum(p.numel() for p in m.parameters()),
+                    k_ok=seen["k_ok"], ties=seen["ties"],
+                    ties_ok=seen["ties_ok"], cpu_diff=diff)
+    arm("dgc", dgc)
+
+    # hapi Model.fit under fleet.init, routed through the strategy's step
+    from paddle_tpu_torch import Model, callbacks, io
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.parallel import get_mesh, set_mesh
+
+    class Rows(io.Dataset):
+        def __init__(self, x, y):
+            self.x, self.y = x, y
+
+        def __len__(self):
+            return len(self.x)
+
+        def __getitem__(self, i):
+            return self.x[i], self.y[i]
+
+    def fit(strategy, x, y, epochs, d, want_mesh):
+        fleet.init(is_collective=True, strategy=strategy)
+        try:
+            m = fresh()
+            model = Model(m)
+            model.prepare(fleet.distributed_optimizer(
+                optimizer.SGD(lr, parameters=m.parameters())), ce)
+            losses, walls = [], []
+
+            class Rec(callbacks.Callback):
+                def on_train_batch_begin(self, step, logs=None):
+                    sync()
+                    walls.append(time.perf_counter())
+
+                def on_train_batch_end(self, step, logs=None):
+                    losses.append(float(logs["loss"]))
+                    walls[-1] = time.perf_counter() - walls[-1]
+            model.fit(Rows(x, y), batch_size=len(X), epochs=epochs,
+                      shuffle=False, verbose=0, log_freq=1,
+                      callbacks=[Rec()])
+            mesh = dict(get_mesh().shape)
+            return dict(losses=losses, step_s=walls,
+                        routed=model._dist_ctx is not None
+                        and model._sharded_step is not None,
+                        mesh=mesh, mesh_ok=mesh == want_mesh,
+                        worst=worst(m, d))
+        finally:
+            fleet.fleet._inited = False
+            set_mesh(None)
+    s_pp = fleet.DistributedStrategy()
+    s_pp.pipeline = True
+    s_pp.pipeline_configs["accumulate_steps"] = STRAT["N_MICRO"]
+    arm("fit_pp", lambda: fit(s_pp, X, Y, STRAT["PP_STEPS"],
+                              ref[f"d{STRAT['PP_STEPS']}"],
+                              {"dp": 1, "pp": 2}))
+    zf = np.load(os.path.join(wd, "s_fit_batch.npz"))
+    fit_ref = torch.load(os.path.join(wd, "s_fit_ref.pt"), map_location=dev)
+    arm("fit_dp_tail", lambda: fit(fleet.DistributedStrategy(), zf["x"],
+                                   zf["y"], 1, fit_ref, {"dp": 2}))
+    with open(os.path.join(wd, f"strat{r}.json"), "w") as f:
+        json.dump(rec, f)
+    D.destroy_process_group()
+
+
+def _elastic_hang_rank():
+    """`chip_smoke.py --elastic-hang`, the script of phase 15 (b)'s
+    elastic arm under `launch --elastic`: rank 1 sleeps before it joins
+    (it never beats); rank 0 joins over gloo on the card, beating, and
+    waits for it."""
+    if os.environ.get("PADDLE_TRAINER_ID") == "1":
+        time.sleep(300)
+        return 0
+    sys.path.insert(0, str(REPO))
+    from paddle_tpu_torch import distributed as D
+    D.init_parallel_env(backend="gloo")
+    return 0
 
 
 def _moe_config(dropout):
@@ -9106,7 +9882,11 @@ def main(argv=None):
                     help="comma-separated names of the phases to run after "
                     "card and build (e.g. ernie,static), in their usual "
                     "order, for an A/B of one path; prints no result line")
+    ap.add_argument("--elastic-hang", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.elastic_hang:
+        return _elastic_hang_rank()
     only = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(only) - set(PHASES))
     if unknown:

@@ -98,7 +98,14 @@ Ported so far:
   `io.DistributedBatchSampler`, `framework.sharded_checkpoint`, and
   tensor-parallel serving lanes in `serving.GenerationEngine`
   (`GenerationConfig(tp=)`, `ops.paged_ops.sharded_paged_attention`,
-  `models.gpt.shard_decode_weights`).
+  `models.gpt.shard_decode_weights`);
+- fleet's strategies: the differentiable `distributed.ppermute` /
+  `all_to_all`, `parallel.{ring_attention, pipeline, localsgd,
+  compression}` (ring and Ulysses attention, GPipe and 1F1B, LocalSGD,
+  DGC), `make_sharded_train_step(sp_axis=, dgc=)`, GPT's `use_ring` and
+  `pipeline_sections()`, `distributed.fleet` (strategy, role makers,
+  utils, metrics, `fleet`, the elastic heartbeat), `launch --elastic`
+  and `Model.fit` through fleet.
 """
 from . import amp, framework, hapi, io, metric, models, nn, ops  # noqa: F401
 from . import optimizer, profiler, quantization  # noqa: F401

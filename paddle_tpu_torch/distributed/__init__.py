@@ -1,15 +1,17 @@
 """paddle.distributed (port of `paddle_tpu.distributed`; reference
 `python/paddle/distributed/`): one process a card over
 `torch.distributed` (NCCL on the card, gloo on the CPU), the mesh of
-`parallel.mesh`, the collectives, `DataParallel`, the tensor-parallel
-layers, ZeRO through `sharding`, and the launcher (`launch`, `spawn`).
-The transpiler, the parameter server and fleet's collective API are not
-ported yet (ROADMAP A6)."""
+`parallel.mesh`, the collectives (with the differentiable `ppermute` and
+`all_to_all`), `DataParallel`, the tensor-parallel layers, ZeRO through
+`sharding`, fleet's collective side (`fleet`) and the launcher
+(`launch`, `spawn`, `--elastic`). The transpiler and the parameter
+server are not ported yet (ROADMAP A1e)."""
 from . import collective, fleet, sharding  # noqa: F401
 from .collective import (ReduceOp, all_gather, all_reduce,  # noqa: F401
-                         alltoall, barrier, broadcast, get_group, new_group,
-                         recv, reduce, reduce_scatter, scatter, send,
-                         shard_ctx, split, wait)
+                         all_to_all, alltoall, barrier, broadcast,
+                         get_group, new_group, ppermute, recv, reduce,
+                         reduce_scatter, scatter, send, shard_ctx, split,
+                         wait)
 from .env import (ParallelEnv, destroy_process_group,  # noqa: F401
                   get_rank, get_world_size, init_parallel_env,
                   is_initialized)

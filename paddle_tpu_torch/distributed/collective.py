@@ -24,6 +24,18 @@ Results are the JAX calls' inside `shard_map`:
   i-th block of the reduced whole;
 - `alltoall` stacks the list and returns [n, ...] whose row j is member
   j's row i, appending each row to `out_tensor_list`.
+
+Gloo hands a tensor's data pointer to its socket, so a CUDA tensor on a
+gloo group (ranks that share one card) would give it device memory as
+host memory: `send` and `recv` stage such a tensor through a host copy,
+as do `ppermute` and `all_to_all`.
+
+`ppermute` and `all_to_all` are the differentiable ring hop and
+re-shard of `lax.ppermute` / `lax.all_to_all(tiled=True)`, the two
+collectives the sequence-parallel attention and the pipeline schedules
+ride on: `torch.autograd.Function`s whose backward is the inverse hop
+(the permutation reversed) or the inverse re-shard. Every member of the
+group must call them in the same order, forward and backward alike.
 """
 from __future__ import annotations
 
@@ -39,7 +51,8 @@ from .env import get_rank, get_world_size, is_initialized
 __all__ = ["ReduceOp", "Group", "all_reduce", "all_gather", "broadcast",
            "reduce", "scatter", "barrier", "split", "send", "recv",
            "alltoall", "reduce_scatter", "new_group", "wait", "shard_ctx",
-           "current_axis", "get_group", "process_group"]
+           "current_axis", "get_group", "process_group", "ppermute",
+           "all_to_all"]
 
 
 class ReduceOp:
@@ -139,6 +152,12 @@ def process_group(group=None):
         return None, [get_rank()]
     if isinstance(group, Group) and group.process_group is not None:
         return group.process_group, group.ranks
+    if isinstance(group, str):
+        from ..parallel.mesh import get_mesh
+        mesh = get_mesh()
+        if mesh is None or mesh.group(group) is None:
+            return None, [get_rank()]
+        return mesh.group(group), mesh.group_ranks(group)
     axis = current_axis(group)
     if axis is not None:
         from ..parallel.mesh import get_mesh
@@ -222,18 +241,133 @@ def alltoall(in_tensor_list, out_tensor_list=None, group=None, sync_op=True):
     return out
 
 
+def _staged(t, pg):
+    """True where `t` lies on the card and `pg` is a gloo group: gloo
+    reads and writes host memory only."""
+    return t.is_cuda and dist.get_backend(pg) == "gloo"
+
+
 def send(tensor, dst=0, group=None, sync_op=True):
     pg, ranks = process_group(group)
     if pg is not None:
-        dist.send(tensor.contiguous(), dst=ranks[dst], group=pg)
+        t = tensor.detach().contiguous()
+        dist.send(t.cpu() if _staged(t, pg) else t, dst=ranks[dst],
+                  group=pg)
     return tensor
 
 
 def recv(tensor, src=0, group=None, sync_op=True):
     pg, ranks = process_group(group)
     if pg is not None:
-        dist.recv(tensor, src=ranks[src], group=pg)
+        if _staged(tensor, pg) or not tensor.is_contiguous():
+            buf = torch.empty(tensor.shape, dtype=tensor.dtype,
+                              device="cpu" if _staged(tensor, pg)
+                              else tensor.device)
+            dist.recv(buf, src=ranks[src], group=pg)
+            tensor.copy_(buf)
+        else:
+            dist.recv(tensor, src=ranks[src], group=pg)
     return tensor
+
+
+# ---------------------------------------------------------------------------
+# differentiable ring hop and re-shard (`lax.ppermute`, `lax.all_to_all`)
+# ---------------------------------------------------------------------------
+
+def _hop(x, perm, pg, ranks):
+    """One hop of `perm` [(src, dst), ...] (group coordinates): this
+    member's `x` goes to its dst, the result is what its src sent (zeros
+    where no member sends to it, as in `lax.ppermute`). Sends and
+    receives are posted together (`batch_isend_irecv`), so a ring does
+    not deadlock."""
+    me = ranks.index(get_rank())
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if pg is None or len(ranks) == 1:
+        return x.clone() if dst == [me] else torch.zeros_like(x)
+    stage = _staged(x, pg)
+    send_t = x.detach().contiguous()
+    if stage:
+        send_t = send_t.cpu()
+    recv_t = torch.empty_like(send_t) if src else None
+    ops = []
+    if dst and dst[0] != me:
+        ops.append(dist.P2POp(dist.isend, send_t, ranks[dst[0]], pg))
+    if src and src[0] != me:
+        ops.append(dist.P2POp(dist.irecv, recv_t, ranks[src[0]], pg))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    if not src:
+        return torch.zeros_like(x)
+    if src[0] == me:
+        return x.detach().clone()
+    return recv_t.to(x.device) if stage else recv_t
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, pg, ranks):
+        ctx.perm, ctx.pg, ctx.ranks = perm, pg, ranks
+        return _hop(x, perm, pg, ranks)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv = [(d, s) for s, d in ctx.perm]
+        return _hop(g.contiguous(), inv, ctx.pg, ctx.ranks), None, None, None
+
+
+def ppermute(x, perm, group=None):
+    """`lax.ppermute` over `group` (a `Group`, a torch group, a mesh axis
+    name, or the current `shard_ctx` axis): `perm` lists (src, dst) pairs
+    of group coordinates; member dst gets member src's `x`, a member no
+    pair sends to gets zeros. Differentiable: the gradient takes the
+    reverse hop. On a group of one member it is the identity (or zeros),
+    with no communication."""
+    pg, ranks = process_group(group)
+    perm = [(int(s), int(d)) for s, d in perm]
+    return _PPermute.apply(x, perm, pg, ranks)
+
+
+def _a2a(x, split_axis, concat_axis, pg, ranks):
+    n = len(ranks)
+    if pg is None or n == 1:
+        return x
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: axis {split_axis} of size "
+                         f"{x.shape[split_axis]} does not split over {n}")
+    stage = _staged(x, pg)
+    inp = torch.stack(x.detach().chunk(n, split_axis)).contiguous()
+    if stage:
+        inp = inp.cpu()
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(out, inp, group=pg)
+    if stage:
+        out = out.to(x.device)
+    return torch.cat(out.unbind(0), concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_axis, concat_axis, pg, ranks):
+        ctx.args = (split_axis, concat_axis, pg, ranks)
+        return _a2a(x, split_axis, concat_axis, pg, ranks)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis, pg, ranks = ctx.args
+        return (_a2a(g.contiguous(), concat_axis, split_axis, pg, ranks),
+                None, None, None, None)
+
+
+def all_to_all(x, split_axis, concat_axis, group=None):
+    """`lax.all_to_all(..., tiled=True)` over `group` (as `ppermute`):
+    `x` is cut into n blocks along `split_axis`, block j goes to member
+    j, and the n blocks a member receives are concatenated along
+    `concat_axis` in member order. Differentiable: the gradient takes
+    the inverse re-shard. The identity on a group of one member."""
+    pg, ranks = process_group(group)
+    return _AllToAll.apply(x, int(split_axis), int(concat_axis), pg, ranks)
 
 
 def barrier(group=None):

@@ -13,7 +13,8 @@ PADDLE_DISTRI_BACKEND) overrides the choice: gloo carries CUDA tensors
 too. `init_method=` (e.g. a `file://` store) replaces PADDLE_MASTER. A
 1-rank world with no master gets a fresh localhost port. It then builds
 the default `dp` mesh over the world, as the JAX package's does over
-its devices. The elastic heartbeat waits for fleet's elastic side.
+its devices. Under the launcher's `--elastic` (PADDLE_ELASTIC_KV set)
+it starts the rank's heartbeat first (`fleet.elastic.HeartbeatClient`).
 """
 from __future__ import annotations
 
@@ -115,6 +116,13 @@ def init_parallel_env(strategy=None, backend: Optional[str] = None,
                 "init_parallel_env: PADDLE_TRAINERS_NUM > 1 but no "
                 "PADDLE_MASTER; start the ranks with python -m "
                 "paddle_tpu_torch.distributed.launch")
+    # elastic mode: this rank's heartbeat against the launcher's KV
+    # server, started before the rendezvous so that a rank waiting there
+    # for a hung peer still beats (fleet/elastic.py)
+    kv_ep = os.environ.get("PADDLE_ELASTIC_KV")
+    if kv_ep:
+        from .fleet.elastic import HeartbeatClient
+        HeartbeatClient(kv_ep, rank=rank).start()
     import datetime
     kw = {}
     if backend == "nccl":

@@ -15,7 +15,14 @@ and the launcher exits with that code. Usage:
     python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2 \\
         train.py [args]
 
-`--elastic` (the JAX package's heartbeat monitor) is not ported yet.
+`--elastic` (reference `fleet/launch.py:31-37, 114-139`) also starts a
+KV server (`http_server.KVServer`) and hands its endpoint to the ranks as
+PADDLE_ELASTIC_KV, where `distributed.init_parallel_env` starts each
+rank's heartbeat; an `elastic.ElasticManager` watches the ranks, and a
+rank that never beats within `--elastic_grace` seconds or stops beating
+for `--elastic_timeout` faults the job: the launcher prints "rank(s) [..]
+stopped heartbeating", terminates the ranks and exits non-zero. A beat
+proves the process alive, not its loop (see `elastic.HeartbeatClient`).
 """
 from __future__ import annotations
 
@@ -43,7 +50,12 @@ def _parse(argv=None):
     p.add_argument("--started_port", type=int, default=6170)
     p.add_argument("--log_dir", type=str, default="log")
     p.add_argument("--run_mode", type=str, default="collective")
-    p.add_argument("--elastic", action="store_true")
+    p.add_argument("--elastic", action="store_true",
+                   help="start a KV heartbeat monitor: ranks that die, "
+                        "fail init, or stop beating fault the job")
+    p.add_argument("--elastic_timeout", type=float, default=30.0)
+    p.add_argument("--elastic_grace", type=float, default=120.0,
+                   help="seconds a rank may take to its FIRST beat")
     p.add_argument("training_script", type=str)
     p.add_argument("training_script_args", nargs=argparse.REMAINDER)
     return p.parse_args(argv)
@@ -61,7 +73,7 @@ def _nproc(args):
         return 1
 
 
-def start_local_trainers(args):
+def start_local_trainers(args, extra_env=None):
     """Start this node's ranks; returns [(Popen, log file, rank)]."""
     ips = args.ips.split(",")
     nproc = _nproc(args)
@@ -83,6 +95,7 @@ def start_local_trainers(args):
             "PADDLE_TRAINER_ENDPOINTS": ",".join(endpoints),
             "TRAINING_ROLE": "TRAINER",
         })
+        env.update(extra_env or {})
         logf = open(os.path.join(args.log_dir, f"workerlog.{rank}"), "w")
         cmd = [sys.executable, "-u", args.training_script] + \
             list(args.training_script_args)
@@ -105,12 +118,17 @@ def _stop(procs):
             p.wait()
 
 
-def watch_local_trainers(procs, poll_s=0.2) -> int:
+def watch_local_trainers(procs, poll_s=0.2, fault=None) -> int:
     """Wait for the ranks; the first non-zero exit terminates the rest
-    and is returned (0 when every rank succeeds)."""
+    and is returned (0 when every rank succeeds). `fault` (a
+    threading.Event, set by the elastic monitor) terminates them too and
+    returns 1."""
     try:
         alive = list(procs)
         while alive:
+            if fault is not None and fault.is_set():
+                _stop(procs)
+                return 1
             still = []
             for p, logf, rank in alive:
                 ret = p.poll()
@@ -135,11 +153,31 @@ def watch_local_trainers(procs, poll_s=0.2) -> int:
 
 def launch(argv=None):
     args = _parse(argv)
-    if args.elastic:
-        raise SystemExit("launch --elastic is not yet ported to "
-                         "paddle_tpu_torch (fleet/elastic.py)")
-    procs = start_local_trainers(args)
-    rc = watch_local_trainers(procs)
+    if not args.elastic:
+        procs = start_local_trainers(args)
+        rc = watch_local_trainers(procs)
+    else:
+        import threading
+        from .elastic import ElasticManager
+        from .http_server import KVServer
+        kv = KVServer().start()
+        kv_ep = f"127.0.0.1:{kv.port}"
+        procs = start_local_trainers(args, {"PADDLE_ELASTIC_KV": kv_ep})
+        fault = threading.Event()
+
+        def on_fault(dead):
+            print(f"[launch] rank(s) {dead} stopped heartbeating; "
+                  f"terminating the job", file=sys.stderr, flush=True)
+            fault.set()
+        mgr = ElasticManager(kv_ep, ranks=[r for _, _, r in procs],
+                             timeout=args.elastic_timeout,
+                             grace=args.elastic_grace).watch(
+                                 interval=0.5, on_fault=on_fault)
+        try:
+            rc = watch_local_trainers(procs, fault=fault)
+        finally:
+            mgr.stop()
+            kv.stop()
     if rc:
         sys.exit(rc)
 

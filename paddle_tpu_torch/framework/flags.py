@@ -59,8 +59,12 @@ register_flag("FLAGS_use_paged_attention", True,
               "plain masked attention. Not a measured default")
 register_flag("FLAGS_kv_cache_dtype", "auto",
               "page dtype of serving.PagedKVCache pools: 'auto' stores "
-              "pages in the served model's dtype, 'float32'/'bfloat16' "
-              "force one. 'int8' is not ported yet. Not a measured default")
+              "pages in the served model's dtype; 'int8' enables the "
+              "quantized page mode — int8 pools + per-(layer,head,page) "
+              "fp32 scale pools, quantize-on-append / dequantize-on-"
+              "read (ops/paged_ops.py), ~4x pages per device byte so the "
+              "same pool budget admits ~4x the concurrent sequences; "
+              "'float32'/'bfloat16' force an unquantized page dtype")
 register_flag("FLAGS_paged_page_size", 16,
               "tokens per KV-cache page. The JAX package chose 16 for the "
               "TPU kernel's multiple-of-8 rule; not measured on a GPU")

@@ -111,6 +111,15 @@ def set_rng_state(states):
             g.set_state(g_state)
 
 
+def fold_seed(seed: int, *xs) -> int:
+    """A 31-bit seed from `seed` and the integers `xs`, one per
+    distinct tuple (`jax.random.fold_in`'s role: the pipeline folds
+    (pp rank, microbatch, block) into a step's seed, LocalSGD a dp
+    rank)."""
+    return zlib.crc32(":".join(str(int(x)) for x in (seed,) + xs)
+                      .encode()) & 0x7FFFFFFF
+
+
 @contextlib.contextmanager
 def rng_scope(s: int):
     """Run a block as after `seed(s)`; the state before it comes back

@@ -79,7 +79,23 @@ runs that batch and every later one unpadded (a failed training attempt
 first restores the buffers its forward moved). `logs["batch_size"]` is
 the real row count, metrics see only the real rows, `predict_batch(
 nreal=)` slices the padded rows off, and `STAT_tail_pad_batches` counts
-the padded batches. The fleet path is not ported (ROADMAP A6).
+the padded batches.
+
+The fleet path, as in the JAX package (`paddle_tpu/hapi/model.py:220-228,
+639-702`): when `distributed.fleet.init` ran and its mesh spans more than
+one rank, `prepare` routes training through the strategy's step
+(`fleet.build_sharded_train_step`: the sharded, pipeline or LocalSGD step
+the strategy picks), built at the first `train_batch`. Each call hands
+the global batch to the step, which gives every rank its block; the loss
+returned is the global batch's. A row or token mask rides as the last
+label leaf and is folded over the global batch: each rank's masked sum is
+divided by the GLOBAL count of real rows or tokens (times the ranks the
+step averages over), so the padded tail's loss is the unpadded batch's,
+as under GSPMD. Metrics are not updated on this path (as there). The
+step trains the network's own parameters in place; a step that keeps its
+own replicas or stages (LocalSGD, the pipeline) writes them back
+(`step.write_back`: the replicas' mean, the gathered stages) at each
+epoch's end in `fit` and after each standalone `train_batch`.
 """
 from __future__ import annotations
 
@@ -215,6 +231,11 @@ class Model:
         self._row_mask_ok = False    # a row-masked step has succeeded
         self._mask_cache = {}        # (mask bytes, device) -> placed mask
         self.stop_training = False
+        self._dist_ctx = None        # fleet, when prepare routes through it
+        self._sharded_step = None
+        self._sharded_state = None
+        self._sharded_norm = None    # (global mask count, ranks averaged)
+        self._in_fit = False
 
     # -- preparation --------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
@@ -234,6 +255,13 @@ class Model:
         self._row_mask_ok = False
         if optimizer is not None and optimizer._parameter_list is None:
             optimizer._set_parameters(self.network.named_parameters())
+        # fleet: train through the strategy's step over the mesh
+        from ..distributed.fleet import fleet as _fleet
+        from ..parallel.mesh import get_mesh
+        mesh = get_mesh()
+        self._dist_ctx = _fleet if (_fleet._inited and mesh is not None
+                                    and mesh.devices.size > 1) else None
+        self._sharded_step = self._sharded_state = None
         return self
 
     @property
@@ -263,7 +291,7 @@ class Model:
             return outs[0]  # the network returns its loss
         return self._loss(*outs, *labels)
 
-    def _masked_loss(self, outputs, labels, mask):
+    def _masked_loss(self, outputs, labels, mask, norm=None):
         """The prepared loss folded with a validity mask
         (`paddle_tpu/hapi/model.py:244-316`).
 
@@ -273,7 +301,9 @@ class Model:
         count. A 1-D mask [rows] is a ROW mask: padded rows get zero
         weight and the mean divides by the real-row count. A loss with a
         `reduction` attribute is called with reduction "none"; one that
-        gives no such values raises _TailMaskError (a TypeError)."""
+        gives no such values raises _TailMaskError (a TypeError).
+        `norm` (the fleet path): (the whole batch's mask count, the ranks
+        the step averages over) replaces this batch's own count."""
         red = getattr(self._loss, "reduction", None)
         if red in ("mean", "sum"):
             self._loss.reduction = "none"
@@ -306,6 +336,11 @@ class Model:
         # where, not multiply: a non-finite value at a pad position must
         # not poison the sum through NaN * 0
         per = torch.where(mask.reshape(per.shape) > 0, per, 0.0)
+        if norm is not None:
+            count, parts = norm
+            if red == "sum":
+                return per.sum() * parts
+            return per.sum() * parts / max(float(count), 1.0)
         if red == "sum":
             return per.sum()
         return per.sum() / torch.clamp(mask.float().sum(), min=1.0)
@@ -455,6 +490,8 @@ class Model:
         folded into the loss (`_masked_loss`). Returns ([loss], []) with
         the loss a device tensor, or, with metrics prepared, (loss,
         [each metric's update result])."""
+        if self._dist_ctx is not None:
+            return self._train_batch_sharded(inputs, labels, loss_mask)
         t0 = time.perf_counter_ns()
         ins = self._place(_flatten_batch(inputs))
         lbs = self._place(_flatten_batch(labels or []))
@@ -489,6 +526,60 @@ class Model:
         metrics = self._update_metrics(out, lbs, loss_mask)
         loss = lv.detach()
         return (loss, metrics) if self._metrics else ([loss], metrics)
+
+    def _train_batch_sharded(self, inputs, labels, loss_mask=None):
+        """The fleet path (see the module docstring): one step of the
+        strategy's train step on the global batch."""
+        t0 = time.perf_counter_ns()
+        if self._sharded_step is None:
+            def loss_fn(out, lbs):
+                if self._sharded_norm is not None:
+                    return self._masked_loss(out, list(lbs[:-1]), lbs[-1],
+                                             norm=self._sharded_norm)
+                return self._loss_value(out, lbs)
+            self._sharded_step, self._sharded_state = \
+                self._dist_ctx.build_sharded_train_step(
+                    self.network, self._optimizer, loss_fn)
+        ins = _flatten_batch(inputs)
+        lbs = _flatten_batch(labels or [])
+        self._sharded_norm = None
+        if loss_mask is not None:
+            m = loss_mask
+            count = float(m.float().sum()) if torch.is_tensor(m) \
+                else float(np.asarray(m, "float64").sum())
+            self._sharded_norm = (count, self._dist_parts())
+            lbs = lbs + [m]
+        try:
+            with (amp.auto_cast(level=self._amp_level) if self._amp_level
+                  else contextlib.nullcontext()):
+                self._sharded_state, lv = self._sharded_step(
+                    self._sharded_state, tuple(ins), tuple(lbs))
+        finally:
+            self._sharded_norm = None
+        monitor.stat_add("STAT_train_steps")
+        monitor.stat_add("STAT_train_step_ns", time.perf_counter_ns() - t0)
+        if not self._in_fit:
+            self._sync_sharded()
+        loss = lv.detach()
+        return (loss, []) if self._metrics else ([loss], [])
+
+    def _dist_parts(self):
+        """The ranks the strategy's step averages a loss over (dp, x sp
+        under sequence parallelism)."""
+        from ..parallel.mesh import get_mesh
+        mesh = get_mesh()
+        st = self._dist_ctx._strategy
+        parts = mesh.axis_size("dp")
+        if st is not None and st.sequence_parallel:
+            parts *= mesh.axis_size("sp")
+        return parts
+
+    def _sync_sharded(self):
+        """Write a step's own replicas or stages back into the network
+        (LocalSGD's mean, the pipeline's gathered stages)."""
+        wb = getattr(self._sharded_step, "write_back", None)
+        if wb is not None and self._sharded_state is not None:
+            wb(self._sharded_state)
 
     @torch.no_grad()
     def eval_batch(self, inputs, labels=None, loss_mask=None):
@@ -553,10 +644,22 @@ class Model:
                 n for m in self._metrics for n in _metric_names(m)])
         cbks.on_begin("train")
         self.stop_training = False
-        step_count = 0
-        logs = {}  # stays bound for on_end even with epochs=0
         token_masked = self._token_masked(loader)
         feed = self._buffered(loader)
+        self._in_fit = True
+        try:
+            self._fit_epochs(loader, feed, eval_loader, cbks, epochs,
+                             eval_freq, log_freq, batch_size, num_iters,
+                             token_masked)
+        finally:
+            self._in_fit = False
+        return self
+
+    def _fit_epochs(self, loader, feed, eval_loader, cbks, epochs,
+                    eval_freq, log_freq, batch_size, num_iters,
+                    token_masked):
+        step_count = 0
+        logs = {}  # stays bound for on_end even with epochs=0
         for epoch in range(epochs):
             sampler = getattr(loader, "batch_sampler", None)
             if hasattr(sampler, "set_epoch"):
@@ -595,6 +698,8 @@ class Model:
                 if num_iters is not None and step_count >= num_iters:
                     self.stop_training = True
                     break
+            if self._dist_ctx is not None:
+                self._sync_sharded()
             if torch.is_tensor(logs.get("loss")):
                 logs["loss"] = _host_float(logs["loss"])
             _log_metrics(logs, self._metrics,
@@ -605,7 +710,6 @@ class Model:
             if self.stop_training:
                 break
         cbks.on_end("train", logs)
-        return self
 
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
                  num_workers=0, callbacks=None, num_samples=None):

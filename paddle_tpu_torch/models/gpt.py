@@ -319,16 +319,27 @@ class CausalSelfAttention(nn.Module):
         self.out_proj = Linear(E, E, **kw)
         self.dropout = cfg.dropout
 
-    def forward(self, x):
+    def forward(self, x, use_ring=False):
+        """`use_ring`: causal ring attention over the live mesh's 'sp'
+        axis (`parallel.ring_attention`, no dropout, no kernel), `x` being
+        the rank's sequence shard; on a mesh without 'sp' the ring is one
+        block, the whole sequence. AMP casts its inputs as the op
+        "ring_attention" (in neither list)."""
         b, s, e = x.shape
 
         def shape(t):
             return t.reshape(b, s, self.num_heads, self.head_dim) \
                 .transpose(1, 2)
-        out = scaled_dot_product_attention(
-            shape(self.q_proj(x)), shape(self.k_proj(x)),
-            shape(self.v_proj(x)), is_causal=True, dropout_p=self.dropout,
-            training=self.training)
+        q, k, v = (shape(self.q_proj(x)), shape(self.k_proj(x)),
+                   shape(self.v_proj(x)))
+        if use_ring:
+            from ..parallel.ring_attention import ring_attention
+            q, k, v = amp.cast_args("ring_attention", q, k, v)
+            out = ring_attention(q, k, v, causal=True)
+        else:
+            out = scaled_dot_product_attention(
+                q, k, v, is_causal=True, dropout_p=self.dropout,
+                training=self.training)
         return self.out_proj(out.transpose(1, 2).reshape(b, s, e))
 
 
@@ -413,10 +424,56 @@ class GPTBlock(nn.Module):
                 Linear(cfg.intermediate_size, cfg.hidden_size, **kw))
         self.dropout = Dropout(cfg.dropout)
 
-    def forward(self, x):
-        x = x + self.dropout(self.attn(self.ln1(x)))
+    def forward(self, x, use_ring=False):
+        x = x + self.dropout(self.attn(self.ln1(x), use_ring=use_ring))
         x = x + self.dropout(self.mlp(self.ln2(x)))
         return x
+
+
+def _positions(input_ids, use_ring):
+    """[1, S] positions of `input_ids`' tokens: from 0, or, for a
+    sequence shard under ring attention (`use_ring` on a mesh whose 'sp'
+    axis is > 1), from sp_rank * S."""
+    s = input_ids.shape[1]
+    start = 0
+    if use_ring:
+        from ..parallel.mesh import axis_rank, axis_size
+        if axis_size("sp") > 1:
+            start = axis_rank("sp") * s
+    return torch.arange(start, start + s, device=input_ids.device)[None]
+
+
+class _GPTEmbeddingStage(nn.Module):
+    """Pipeline pre-section: token + position embedding and the embedding
+    dropout (the GPT's own modules; see `parallel.pipeline`)."""
+
+    def __init__(self, gpt):
+        super().__init__()
+        self.wte = gpt.wte
+        self.wpe = gpt.wpe
+        self.drop = gpt.drop
+
+    def forward(self, input_ids):
+        return self.drop(self.wte(input_ids)
+                         + self.wpe(_positions(input_ids, False)))
+
+
+class _GPTHeadStage(nn.Module):
+    """Pipeline post-section: the final LayerNorm, and with `lm` the tied
+    LM head."""
+
+    def __init__(self, gpt, lm):
+        super().__init__()
+        self.ln_f = gpt.ln_f
+        self._lm = lm
+        if lm:
+            self.wte = gpt.wte
+
+    def forward(self, h):
+        h = self.ln_f(h)
+        if not self._lm:
+            return h
+        return matmul(h, self.wte.weight, transpose_y=True)
 
 
 class GPTModel(nn.Module):
@@ -434,13 +491,21 @@ class GPTModel(nn.Module):
                                      for _ in range(cfg.num_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, **kw)
 
-    def forward(self, input_ids):
-        s = input_ids.shape[1]
-        pos = torch.arange(s, device=input_ids.device)[None]
-        h = self.drop(self.wte(input_ids) + self.wpe(pos))
+    def forward(self, input_ids, use_ring=False):
+        """`use_ring` (sequence parallel): every block attends through
+        ring attention, and `input_ids` is the rank's sequence shard when
+        the mesh's 'sp' axis is > 1 (positions start at sp_rank * S)."""
+        h = self.drop(self.wte(input_ids)
+                      + self.wpe(_positions(input_ids, use_ring)))
         for blk in self.blocks:
-            h = blk(h)
+            h = blk(h, use_ring=use_ring)
         return self.ln_f(h)
+
+    def pipeline_sections(self):
+        """(pre, blocks, post) of `parallel.pipeline`: the embedding, the
+        block list, the final LayerNorm."""
+        return (_GPTEmbeddingStage(self), self.blocks,
+                _GPTHeadStage(self, lm=False))
 
 
 class GPTForCausalLM(nn.Module):
@@ -475,9 +540,15 @@ class GPTForCausalLM(nn.Module):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
 
-    def forward(self, input_ids):
-        return matmul(self.gpt(input_ids), self.gpt.wte.weight,
-                      transpose_y=True)
+    def forward(self, input_ids, use_ring=False):
+        return matmul(self.gpt(input_ids, use_ring=use_ring),
+                      self.gpt.wte.weight, transpose_y=True)
+
+    def pipeline_sections(self):
+        """(pre, blocks, post) of `parallel.pipeline`: the embedding, the
+        block list, the final LayerNorm with the tied LM head."""
+        return (_GPTEmbeddingStage(self.gpt), self.gpt.blocks,
+                _GPTHeadStage(self.gpt, lm=True))
 
     def decode_weights(self):
         """The decode-math weight dict shared by `generate()` and
@@ -576,6 +647,9 @@ def load_reference_state(model: nn.Module, arrays) -> None:
     and scales are carried across as they are, never re-quantized;
     embeddings and everything else copy as they are. Raises
     InvalidArgumentError on a missing, extra or mis-shaped key."""
+    if any(str(k).startswith("pp::") for k in arrays):
+        arrays = _unstack_pipeline(model, arrays)
+
     def pre(n):
         return f"{n}." if n else ""
     # a Linear's weight, and the weight-norm / spectral-norm parameters
@@ -605,3 +679,36 @@ def load_reference_state(model: nn.Module, arrays) -> None:
     with torch.no_grad():
         for p, a in pairs:
             p.copy_(torch.from_numpy(np.array(a)).to(p.dtype))
+
+
+def _unstack_pipeline(model, arrays):
+    """A `paddle_tpu.parallel.make_pipeline_train_step` state's params
+    ({"pp::<block param>": [pp, k, ...], "pre.<name>" / "post.<name>":
+    the embedding and head sections' params, as the JAX package names
+    them, `parallel/pipeline.py:128-151`) as the model's own names: block
+    s * k + j of `pipeline_sections()`'s list takes [s, j] of its
+    stack."""
+    pre, blocks, post = model.pipeline_sections()
+    own = {id(p): n for n, p in model.named_parameters()}
+    own_mod = {id(m): n for n, m in model.named_modules()}
+    base = own_mod[id(blocks)]
+    out = {}
+    sections = {"pre": pre, "post": post}
+    for key, a in arrays.items():
+        key = str(key)
+        if key.startswith("pp::"):
+            a = np.asarray(a)
+            pp, k = a.shape[:2]
+            for s_ in range(pp):
+                for j in range(k):
+                    out[f"{base}.{s_ * k + j}.{key[4:]}"] = a[s_, j]
+            continue
+        head, _, rest = key.partition(".")
+        if head in sections:
+            p = dict(sections[head].named_parameters()).get(rest)
+            if p is not None:
+                out[own[id(p)]] = a
+                continue
+        out[key] = a
+    return out
+

@@ -29,6 +29,10 @@ branch as the white op "sdpa" (a float mask too); the splash
 branches are in no list, so their q/k/v run in the type the projections
 gave them.
 
+Under a sequence-parallel train step (`parallel.ring_attention.
+sequence_sharded`) it raises InvalidArgumentError naming the calling
+layer: its query would be the rank's sequence shard.
+
 Everything else runs `_sdpa_ref`, the JAX package's fallback math
 exactly: bottom-right causal alignment when S < K (the KV-cache decode
 shape), -1e30 masking, dropout on the probabilities (upscale-in-train),
@@ -47,6 +51,7 @@ from ...ops.splash_ops import _ids, splash_attention, splash_supported
 from ...framework import static_hook
 from ...framework.static_hook import named_op
 from ...parallel.mesh import axis_size
+from ...parallel.ring_attention import check_not_sequence_sharded
 from ...parallel.spmd import sharded_splash_attention
 
 __all__ = ["scaled_dot_product_attention"]
@@ -125,6 +130,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     # a static Program records this call as one op under the JAX
     # package's name, whichever path it takes
     static_hook.announce("sdpa" if segment_ids is None else "sdpa_segment")
+    # on a sequence shard (the sp train step) this would attend the shard
+    check_not_sequence_sharded()
     if scale is None:
         scale = 1.0 / (query.shape[-1] ** 0.5)
     eff_dropout = dropout_p if training else 0.0

@@ -17,7 +17,19 @@ step. The port runs one process a rank and writes the collectives:
   the parameter. A parameter with no divisible axis is updated whole on
   every rank. The update rule runs on blocks, so it must be elementwise
   (every optimizer but `Lamb` and `LarsMomentum`);
-- `recompute` checkpoints the forward (`torch.utils.checkpoint`).
+- `recompute` checkpoints the forward (`torch.utils.checkpoint`);
+- `sp_axis` (sequence parallel): each rank also takes its block of the
+  sequence axis (dim 1) of every input and of every label of two or more
+  dims, as `batch_sharding` lays inputs out on 'sp'; the forward runs
+  under `ring_attention.sequence_sharded`, so a layer that attends the
+  whole sequence on its shard raises (the model must attend with ring or
+  Ulysses attention, GPT's `use_ring=True`); losses and gradients are
+  averaged over dp x sp. Where the JAX package computes the global
+  function under GSPMD whatever the model does, the port computes it
+  only for a model whose attention is sequence-parallel;
+- `dgc` (deep gradient compression, `compression.dgc_compress`) on the
+  dp-averaged gradient, its (u, v) state under `state["dgc"]`, as the
+  JAX package applies it to the GSPMD-reduced gradient.
 
 `sharded_splash_attention` is the packed-batch attention of a dp rank:
 splash attention (K5 forward, K6/K7 backward on the card) on the rank's
@@ -43,7 +55,7 @@ from .mesh import Mesh, P, get_mesh
 __all__ = ["param_sharding", "zero_sharding", "batch_sharding",
            "make_sharded_train_step", "shard_params",
            "sharded_splash_attention", "write_back", "tp_mesh",
-           "local_rows"]
+           "local_rows", "local_seq", "batch_placement"]
 
 # rules that update each element from its own gradient and state only
 _NOT_ELEMENTWISE = ("Lamb", "LarsMomentum")
@@ -127,6 +139,25 @@ def batch_sharding(ndim, mesh=None, dp_axis="dp", sp_axis=None,
     return P(*spec)
 
 
+def batch_placement(mesh=None, dp_axis="dp", sp_axis=None, seq_dim=1):
+    """Per-leaf placement of a training batch on `mesh` (the JAX package's
+    `batch_placement`): leaf -> its spec (dim 0 over `dp_axis`, dim
+    `seq_dim` over `sp_axis`), a dim that does not divide its axis left
+    whole, None for a leaf with no split dim. A rank takes its blocks by
+    the spec (`local_rows`, `local_seq`)."""
+    mesh = mesh or get_mesh()
+
+    def place(x):
+        spec = list(batch_sharding(np.ndim(x), mesh, dp_axis, sp_axis,
+                                   seq_dim))
+        shape = np.shape(x)
+        spec = [a if a is not None and shape[d] % mesh.axis_size(a) == 0
+                else None for d, a in enumerate(spec)]
+        return P(*spec) if any(a is not None for a in spec) else None
+
+    return place
+
+
 def shard_params(layer, mesh=None):
     """The parameters' specs on the mesh: each rank holds its slice
     already (the tensor-parallel layers keep theirs)."""
@@ -159,6 +190,56 @@ def _gather_dim(shard, dim, group, n):
     return torch.cat(parts, dim)
 
 
+class _ShardSlice(torch.autograd.Function):
+    """A whole tensor (the same on the group's n ranks) -> this rank's
+    block r of n along `dim`; the backward gathers the ranks' block
+    gradients into the whole (`shard_map`'s transpose of an input split
+    over an axis)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, r, n, group):
+        ctx.args = (dim, n, group)
+        size = x.shape[dim] // n
+        return x.narrow(dim, r * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, n, group = ctx.args
+        return _gather_dim(g, dim, group, n), None, None, None, None
+
+
+class _ShardGather(torch.autograd.Function):
+    """The group's n blocks -> the whole along `dim` on every rank; the
+    backward (a cotangent the same on every rank) takes this rank's
+    block."""
+
+    @staticmethod
+    def forward(ctx, x, dim, r, n, group):
+        ctx.args = (dim, r, n)
+        return _gather_dim(x, dim, group, n) if n > 1 else x
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, r, n = ctx.args
+        size = g.shape[dim] // n
+        return g.narrow(dim, r * size, size).contiguous(), None, None, \
+            None, None
+
+
+def _mean_over(tensors, group, n):
+    """All-reduce mean of a {name: tensor} dict over `group`, in place,
+    one flat bucket a type (nothing without a group)."""
+    if group is None or n == 1:
+        return
+    for ns in _by_type(tensors).values():
+        ts = [tensors[k] for k in ns]
+        flat = _flatten_dense_tensors(ts)
+        dist.all_reduce(flat, group=group)
+        flat.div_(n)
+        for t, v in zip(ts, _unflatten_dense_tensors(flat, ts)):
+            t.copy_(v)
+
+
 def make_sharded_train_step(layer, optimizer, loss_fn: Callable,
                             mesh=None, zero_stage=None, dp_axis="dp",
                             sp_axis=None, recompute=False,
@@ -176,21 +257,22 @@ def make_sharded_train_step(layer, optimizer, loss_fn: Callable,
     (the attention kernels fold the rank in). `zero_stage` defaults to
     the optimizer's (set by `distributed.sharding.
     group_sharded_parallel`), else 1."""
-    if dgc:
-        raise InvalidArgumentError(
-            "make_sharded_train_step(dgc=True) is not yet ported to "
-            "paddle_tpu_torch (parallel/compression.py)")
-    if sp_axis:
-        raise InvalidArgumentError(
-            "make_sharded_train_step(sp_axis=...) is not yet ported to "
-            "paddle_tpu_torch (sequence-parallel attention, "
-            "parallel/ring_attention.py)")
     mesh = mesh or get_mesh()
     if zero_stage is None:
         zero_stage = int(getattr(optimizer, "_zero_stage", 1))
+    if grad_dtype is not None:
+        from ..framework.dtype import to_torch_dtype
+        grad_dtype = to_torch_dtype(grad_dtype)
     dp = mesh.axis_size(dp_axis) if mesh is not None else 1
     group = mesh.group(dp_axis) if mesh is not None else None
     r = mesh.axis_rank(dp_axis) if mesh is not None else 0
+    sp = mesh.axis_size(sp_axis) if mesh is not None and sp_axis else 1
+    sp_group = mesh.group(sp_axis) if sp > 1 else None
+    if dgc and dp > 1 and zero_stage >= 2:
+        raise InvalidArgumentError(
+            "make_sharded_train_step(dgc=True) picks the top-k of each "
+            "whole gradient; ZeRO-2/3 leaves a rank a block of it (use "
+            "zero_stage <= 1)")
     if dp > 1 and zero_stage >= 1 and \
             type(optimizer).__name__ in _NOT_ELEMENTWISE:
         raise InvalidArgumentError(
@@ -226,9 +308,14 @@ def make_sharded_train_step(layer, optimizer, loss_fn: Callable,
     state = {"params": params,
              "buffers": OrderedDict(layer.named_buffers()),
              "opt_state": opt_state, "step_no": 0}
+    if dgc:
+        from .compression import dgc_init
+        state["dgc"] = dgc_init({n: p.detach() for n, p in params.items()})
 
     def reduce_grads(grads):
-        """Mean gradients over dp: (full or block gradient a name)."""
+        """Mean gradients over sp and dp: (full or block gradient a
+        name)."""
+        _mean_over(grads, sp_group, sp)
         if group is None and dp == 1:
             return grads
         out = dict(grads)
@@ -244,10 +331,7 @@ def make_sharded_train_step(layer, optimizer, loss_fn: Callable,
                 out[n] = shard.to(g.dtype).div_(dp)
         flat_names = [n for n in grads
                       if zero_stage < 2 or zaxis[n] is None]
-        by_type: Dict[torch.dtype, list] = {}
-        for n in flat_names:
-            by_type.setdefault(grads[n].dtype, []).append(n)
-        for dtype, ns in by_type.items():
+        for dtype, ns in _by_type(grads, flat_names).items():
             gs = [grads[n] for n in ns]
             flat = _flatten_dense_tensors(gs)
             if grad_dtype is not None:
@@ -261,9 +345,16 @@ def make_sharded_train_step(layer, optimizer, loss_fn: Callable,
     def forward_loss(inputs, labels):
         if recompute:
             from torch.utils.checkpoint import checkpoint
-            out = checkpoint(layer, *inputs, use_reentrant=False)
+            run = lambda: checkpoint(layer, *inputs,  # noqa: E731
+                                     use_reentrant=False)
         else:
-            out = layer(*inputs)
+            run = lambda: layer(*inputs)  # noqa: E731
+        if sp > 1:
+            from .ring_attention import sequence_sharded
+            with sequence_sharded(layer):
+                out = run()
+        else:
+            out = run()
         lv = loss_fn(out, list(labels))
         return lv.float().mean()
 
@@ -272,6 +363,9 @@ def make_sharded_train_step(layer, optimizer, loss_fn: Callable,
         if not local_batch:
             inputs = tuple(local_rows(x, mesh, dp_axis) for x in inputs)
             labels = tuple(local_rows(x, mesh, dp_axis) for x in labels)
+            if sp > 1:
+                inputs = tuple(local_seq(x, mesh, sp_axis) for x in inputs)
+                labels = tuple(local_seq(x, mesh, sp_axis) for x in labels)
         inputs = tuple(_as_tensor(x, device) for x in inputs)
         labels = tuple(_as_tensor(x, device) for x in labels)
         lr = float(optimizer.get_lr() if lr is None else lr)
@@ -288,6 +382,10 @@ def make_sharded_train_step(layer, optimizer, loss_fn: Callable,
                              else torch.zeros_like(p))
                             for n, p in params.items())
         grads = reduce_grads(grads)
+        if dgc:
+            from . import compression
+            grads, state["dgc"] = compression.dgc_compress(
+                grads, state["dgc"], dgc_momentum, dgc_sparsity)
         if optimizer._grad_clip is not None:
             clipped = optimizer._grad_clip._clip_grads(
                 [grads[n] for n in names])
@@ -309,9 +407,10 @@ def make_sharded_train_step(layer, optimizer, loss_fn: Callable,
                 p.grad = None
         state["step_no"] = step_no
         loss = lv.detach()
-        if group is not None:
-            dist.all_reduce(loss, group=group)
-            loss = loss / dp
+        for g, n in ((sp_group, sp), (group, dp)):
+            if g is not None:
+                dist.all_reduce(loss, group=g)
+                loss = loss / n
         return state, loss
 
     def leaf_spec(n, v):
@@ -326,8 +425,36 @@ def make_sharded_train_step(layer, optimizer, loss_fn: Callable,
         "opt_state": {n: {k: leaf_spec(n, v) for k, v in st.items()}
                       for n, st in opt_state.items()},
         "step_no": P()}
+    if dgc:
+        step.state_sharding["dgc"] = {n: {"u": specs[n], "v": specs[n]}
+                                      for n in params}
     step.zero_axes = zaxis
     return step, state
+
+
+def _by_type(grads, names=None):
+    """{dtype: [names]} of `grads` (all of them, or `names`), in order."""
+    out: Dict[torch.dtype, list] = {}
+    for n in (grads if names is None else names):
+        out.setdefault(grads[n].dtype, []).append(n)
+    return out
+
+
+def local_seq(x, mesh=None, sp_axis="sp", seq_dim=1):
+    """This rank's sp block of the sequence axis of a batch leaf with more
+    than `seq_dim` dims (others as they are)."""
+    mesh = mesh or get_mesh()
+    n = mesh.axis_size(sp_axis) if mesh is not None else 1
+    if n == 1 or x is None or np.ndim(x) <= seq_dim:
+        return x
+    S = x.shape[seq_dim]
+    if S % n:
+        raise InvalidArgumentError(
+            f"sequence of {S} does not split over {sp_axis}={n}")
+    r = mesh.axis_rank(sp_axis)
+    idx = [slice(None)] * np.ndim(x)
+    idx[seq_dim] = slice(r * S // n, (r + 1) * S // n)
+    return x[tuple(idx)]
 
 
 def sharded_splash_attention(mesh=None, causal=False, scale=None,

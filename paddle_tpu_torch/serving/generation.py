@@ -170,9 +170,10 @@ def _not_ported(knob: str):
 
 class GenerationConfig:
     """Continuous-batching knobs; defaults ride the FLAGS_gen_* /
-    FLAGS_paged_* / FLAGS_kv_tier* registry. The JAX engine's knobs that
-    are not ported yet (program_store, tp) are accepted only in their
-    off state and raise otherwise. `warmup=False` skips the
+    FLAGS_paged_* / FLAGS_kv_tier* registry. `tp` > 1 shards the engine
+    over a tensor-parallel lane of ranks (`serving.tp_lane`). The JAX
+    engine's `program_store` (ROADMAP A4) is accepted only in its off
+    state and raises otherwise. `warmup=False` skips the
     construction-time run of every program: the ledger then fills at
     each program's first call (and on the card the kernels build
     then)."""

@@ -2,8 +2,8 @@
 
 Port of `paddle_tpu.serving.restart`, as it is. Two small, thread-safe
 building blocks, which `serving.supervisor.EngineSupervisor` uses for
-whole-engine restarts (the JAX package's per-lane restarts of its
-InferenceEngine share them; that engine is not ported yet):
+whole-engine restarts and `serving.engine.InferenceEngine` for its
+per-lane restarts, as in the JAX package:
 
 - `RestartBackoff`: exponential delay between consecutive failures
   (base * 2^(n-1), capped at 32x the base), reset explicitly once the

@@ -313,6 +313,7 @@ def test_o2_decorate_adamw_step_matches_jax():
     topt = optimizer.AdamW(lr, weight_decay=0.01)
     jm = paddle.Model(jnet)
     jm.prepare(jopt, paddle.nn.CrossEntropyLoss(), amp_configs="O2")
+    jm._dist_ctx = None  # another file's fleet.init may be live
     tm = hapi.Model(tnet).prepare(topt, nn.CrossEntropyLoss(),
                                   amp_configs={"level": "O2"})
     jl = float(np.asarray(jm.train_batch([x], [y])[0][0]))
@@ -394,6 +395,7 @@ def _jax_grads(ref, ids, amp_level):
     jm = paddle.Model(ref)
     jm.prepare(paddle.optimizer.SGD(1.0, parameters=ref.parameters()),
                paddle.nn.CrossEntropyLoss(), amp_configs=amp_level)
+    jm._dist_ctx = None  # another file's fleet.init may be live
     loss = float(np.asarray(jm.train_batch([ids[:, :-1]],
                                            [ids[:, 1:]])[0][0]))
     jm._sync_carry()

@@ -84,6 +84,9 @@ def test_o2_train_step_buffers_match_jax():
     jm = paddle.Model(jnet)
     jm.prepare(paddle.optimizer.SGD(0.1, parameters=jnet.parameters()),
                paddle.nn.CrossEntropyLoss(), amp_configs="O2")
+    # the single-device JAX step, whatever fleet state another test file
+    # in this process left (as tests/test_torch_packed_fit.py does)
+    jm._dist_ctx = None
     tm = hapi.Model(tnet).prepare(optimizer.SGD(0.1),
                                   tnn.CrossEntropyLoss(),
                                   amp_configs={"level": "O2"})

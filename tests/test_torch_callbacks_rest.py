@@ -79,6 +79,7 @@ def _fit_pair(jcbs, tcbs, epochs, lr=0.5, metrics=False):
     jm = paddle.Model(j)
     jm.prepare(paddle.optimizer.SGD(lr, parameters=j.parameters()),
                jnn.CrossEntropyLoss(), JAccuracy() if metrics else None)
+    jm._dist_ctx = None  # another file's fleet.init may be live
     tm = hapi.Model(t)
     tm.prepare(optimizer.SGD(lr), nn.CrossEntropyLoss(),
                metric.Accuracy() if metrics else None)

@@ -220,6 +220,7 @@ def _fit_both(amp_level):
     jm = paddle.Model(ref, inputs=specs)
     jm.prepare(jopt, paddle.nn.CrossEntropyLoss(), JAccuracy(),
                amp_configs=amp_level)
+    jm._dist_ctx = None  # another file's fleet.init may be live
     jrec = _JRec()
     jm.fit(paddle.io.TensorDataset(rows), batch_size=B, epochs=3,
            shuffle=False, log_freq=1, verbose=0, callbacks=[jrec])

@@ -110,6 +110,7 @@ def test_fit_losses_and_parameters_match_jax(flash_at_128, monkeypatch):
         weight_decay=0.01, grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
     jmodel = paddle.Model(ref)
     jmodel.prepare(jopt, paddle.nn.CrossEntropyLoss())
+    jmodel._dist_ctx = None  # another file's fleet.init may be live
     jrec = _JRecorder()
     jflash0 = jstat_get("STAT_flash_attention_bwd")
     jmodel.fit(paddle.io.TensorDataset([ids[:, :-1], ids[:, 1:]]),

@@ -125,6 +125,7 @@ def test_fit_with_accuracy_matches_jax():
     jm = paddle.Model(ref)
     jm.prepare(paddle.optimizer.Adam(0.01, parameters=ref.parameters()),
                paddle.nn.CrossEntropyLoss(), jmetric.Accuracy())
+    jm._dist_ctx = None  # another file's fleet.init may be live
     jrec = _JEpochs()
     jm.fit(paddle.io.TensorDataset([x, y]), batch_size=32, epochs=3,
            shuffle=False, verbose=0, callbacks=[jrec])

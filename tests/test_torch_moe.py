@@ -206,6 +206,7 @@ def test_fit_losses_match_jax(amp_level, rtol):
                                   weight_decay=0.01)
     jm = paddle.Model(ref)
     jm.prepare(jopt, paddle.nn.CrossEntropyLoss(), amp_configs=amp_level)
+    jm._dist_ctx = None  # another file's fleet.init may be live
     jrec = _JRec()
     jm.fit(paddle.io.TensorDataset([ids[:, :-1], ids[:, 1:]]), batch_size=2,
            epochs=1, shuffle=False, log_freq=1, verbose=0, callbacks=[jrec])
@@ -237,6 +238,7 @@ def _jax_grads_o1(ref, ids):
     jm = paddle.Model(ref)
     jm.prepare(paddle.optimizer.SGD(1.0, parameters=ref.parameters()),
                paddle.nn.CrossEntropyLoss(), amp_configs="O1")
+    jm._dist_ctx = None  # another file's fleet.init may be live
     loss = float(np.asarray(jm.train_batch([ids[:, :-1]],
                                            [ids[:, 1:]])[0][0]))
     jm._sync_carry()

@@ -120,6 +120,7 @@ def _fit_both(j, t, x, y, jloss, tloss, metrics=False, epochs=1):
     jm = paddle.Model(j)
     jm.prepare(paddle.optimizer.SGD(0.1, parameters=j.parameters()), jloss,
                JAccuracy() if metrics else None)
+    jm._dist_ctx = None  # another file's fleet.init may be live
     tm = hapi.Model(t)
     tm.prepare(optimizer.SGD(0.1), tloss,
                metric.Accuracy() if metrics else None)
@@ -251,6 +252,7 @@ def test_scalar_loss_falls_back_once_as_jax(flag_state):
         jm = paddle.Model(j)
         jm.prepare(paddle.optimizer.SGD(0.1, parameters=j.parameters()),
                    jloss)
+        jm._dist_ctx = None  # another file's fleet.init may be live
         jm.fit(paddle.io.TensorDataset([x, y]), batch_size=4, epochs=2,
                shuffle=False, verbose=0)
     with warnings.catch_warnings(record=True) as tw:

@@ -330,6 +330,7 @@ def test_fit_evaluate_predict_match_jax(amp_level, tmp_path):
     jm.prepare(paddle.optimizer.Momentum(lr, parameters=ref.parameters()),
                jnn.CrossEntropyLoss(), JAccuracy(topk=(1, 5)),
                amp_configs=amp_level)
+    jm._dist_ctx = None  # another file's fleet.init may be live
     tm = hapi.Model(port)
     tm.prepare(optimizer.Momentum(lr), nn.CrossEntropyLoss(),
                metric.Accuracy(topk=(1, 5)), amp_configs=amp_level)

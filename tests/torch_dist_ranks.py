@@ -29,20 +29,52 @@ REPO = os.path.dirname(HERE)
 def launch_ranks(job, world, workdir, timeout=150):
     """Run `job` in `world` rank processes; raises (with the ranks' logs)
     if one fails or the timeout expires, after killing them all."""
-    env = dict(os.environ, PYTHONPATH=REPO, TORCH_DIST_STORE=os.path.join(
-        workdir, f"store.{job}"), OMP_NUM_THREADS="1")
-    for k in list(env):
-        if k.startswith("PADDLE_"):
-            env.pop(k)
-    procs = []
-    for r in range(world):
-        log = open(os.path.join(workdir, f"{job}.log{r}"), "w")
-        e = dict(env, PADDLE_TRAINER_ID=str(r),
-                 PADDLE_TRAINERS_NUM=str(world), PADDLE_LOCAL_RANK=str(r))
-        procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), job, workdir],
-            env=e, stdout=log, stderr=subprocess.STDOUT, cwd=REPO), log))
-    deadline = time.monotonic() + timeout
+    return start_ranks(job, world, workdir, timeout).wait()
+
+
+class start_ranks:
+    """`launch_ranks` in two halves: the ranks start here, `wait()` joins
+    them and returns their outputs (the test computes its reference
+    meanwhile)."""
+
+    def __init__(self, job, world, workdir, timeout=150):
+        env = dict(os.environ, PYTHONPATH=REPO,
+                   TORCH_DIST_STORE=os.path.join(workdir, f"store.{job}"),
+                   OMP_NUM_THREADS="1")
+        for k in list(env):
+            if k.startswith("PADDLE_"):
+                env.pop(k)
+        self.job, self.world, self.workdir = job, world, workdir
+        self.procs = []
+        for r in range(world):
+            log = open(os.path.join(workdir, f"{job}.log{r}"), "w")
+            e = dict(env, PADDLE_TRAINER_ID=str(r),
+                     PADDLE_TRAINERS_NUM=str(world),
+                     PADDLE_LOCAL_RANK=str(r))
+            self.procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), job, workdir],
+                env=e, stdout=log, stderr=subprocess.STDOUT, cwd=REPO),
+                log))
+        self.deadline = time.monotonic() + timeout
+        self.timeout = timeout
+        self.result = None
+
+    def wait(self):
+        if self.result is None:
+            self.result = _join(self.job, self.world, self.workdir,
+                                self.procs, self.deadline, self.timeout)
+        return self.result
+
+    def close(self):
+        """Kill the ranks a failed test left running (`wait` did not)."""
+        for p, log in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+
+
+def _join(job, world, workdir, procs, deadline, timeout):
     failed = None
     try:
         for p, _ in procs:
@@ -413,7 +445,350 @@ def job_serve(wd, r, n, inp):
     return {"json": np.asarray(json.dumps(res))}
 
 
-JOBS = {"collective": job_collective, "collective4": job_collective,
+# -- the strategies' slice (sequence parallel, pipeline, fleet) ---------------
+
+def tiny_lm(inp, prefix="gpt."):
+    """The tests' tiny GPT (`tests/test_pipeline_hetero.py:33`'s config) with
+    the JAX model's weights."""
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         load_reference_state)
+    cfg = GPTConfig.tiny(vocab_size=128, num_layers=4, hidden_size=32,
+                         num_heads=2, intermediate_size=64,
+                         max_position_embeddings=32, dropout=0.0)
+    m = GPTForCausalLM(cfg, device="cpu")
+    load_reference_state(m, {k[len(prefix):]: v for k, v in inp.items()
+                             if k.startswith(prefix)})
+    return m
+
+
+def lm_loss(out, labels):
+    from paddle_tpu_torch import nn
+    b, s, v = out.shape
+    return nn.functional.cross_entropy(out.reshape(b * s, v),
+                                       labels[0].reshape(b * s))
+
+
+def _ring_gpt(m):
+    import torch
+
+    class Ring(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.m = m
+
+        def forward(self, ids):
+            return self.m(ids, use_ring=True)
+    return Ring()
+
+
+def job_sp(wd, r, n, inp):
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+    from paddle_tpu_torch.parallel import (create_mesh,
+                                           make_sharded_train_step,
+                                           shard_map_ring_attention)
+    mesh = create_mesh({"sp": 2})
+    out = {}
+    for impl in ("ring", "ulysses"):
+        for causal in (False, True):
+            for dt in ("float32", "bfloat16"):
+                qkv = [torch.tensor(inp[x]).to(getattr(torch, dt))
+                       .requires_grad_() for x in ("q", "k", "v")]
+                o = shard_map_ring_attention(*qkv, mesh, causal=causal,
+                                             impl=impl)
+                (o.float() * torch.tensor(inp["dout"])).sum().backward()
+                tag = f"{impl}.{causal}.{dt}"
+                out[f"{tag}.dtype"] = np.asarray(str(o.dtype))
+                out[f"{tag}.out"] = o.detach().float().numpy()
+                for x, t in zip("qkv", qkv):
+                    out[f"{tag}.d{x}"] = t.grad.float().numpy()
+    # the sp train step of the GPT with use_ring=True
+    m = tiny_lm(inp)
+    opt = paddle.optimizer.SGD(0.1, parameters=m.parameters())
+    step, st = make_sharded_train_step(_ring_gpt(m), opt, lm_loss,
+                                       sp_axis="sp", zero_stage=0)
+    losses = []
+    for _ in range(2):
+        st, lv = step(st, (inp["ids"],), (inp["tgt"],))
+        losses.append(float(lv))
+    out["sp.losses"] = np.asarray(losses)
+    for k, v in _params(m).items():
+        out[f"sp.p.{k}"] = v
+    # a model whose attention is not sequence-parallel is refused
+    m2 = tiny_lm(inp)
+    step, st = make_sharded_train_step(
+        m2, paddle.optimizer.SGD(0.1, parameters=m2.parameters()), lm_loss,
+        sp_axis="sp", zero_stage=0)
+    try:
+        step(st, (inp["ids"],), (inp["tgt"],))
+        out["refused"] = np.asarray("")
+    except InvalidArgumentError as e:
+        out["refused"] = np.asarray(str(e))
+    return out
+
+
+def _pipeline_cases():
+    return (("gpipe_recompute", "gpipe", True), ("gpipe", "gpipe", False),
+            ("1f1b", "1f1b", False))
+
+
+def job_pipeline(wd, r, n, inp):
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.parallel import (create_mesh, gpipe_spmd,
+                                           make_pipeline_train_step,
+                                           pipeline_write_back)
+    mesh = create_mesh({"dp": n // 2, "pp": 2})
+    out = {"coords": np.asarray(mesh.coords)}
+    for tag, sched, rc in _pipeline_cases():
+        m = tiny_lm(inp)
+        opt = paddle.optimizer.SGD(0.1, parameters=m.parameters())
+        step, st = make_pipeline_train_step(m, opt, lm_loss, n_micro=4,
+                                            schedule=sched, recompute=rc)
+        losses = []
+        for _ in range(3):
+            st, lv = step(st, (inp["ids"],), (inp["tgt"],))
+            losses.append(float(lv))
+        out[f"{tag}.losses"] = np.asarray(losses)
+        out[f"{tag}.held"] = np.asarray(sorted(st["params"]))
+        pipeline_write_back(m)
+        for k, v in _params(m).items():
+            out[f"{tag}.p.{k}"] = v
+    if n == 2:
+        # the homogeneous GPipe helper and its gradient
+        W = torch.tensor(inp["W"], requires_grad=True)
+        fwd = gpipe_spmd(lambda w, mx: torch.tanh(mx @ w), mesh, n_micro=4)
+        y = fwd(W, torch.tensor(inp["x"]))[-1]
+        (y * torch.tensor(inp["dy"])).sum().backward()
+        out["gpipe_spmd.y"] = y.detach().numpy()
+        out["gpipe_spmd.dW"] = W.grad.numpy()
+    return out
+
+
+def _mlp_tok(inp, prefix):
+    """The fleet tests' MLP (8 -> 16 -> tanh -> out features, token-wise
+    on [B, S, 8]) with the JAX model's weights under `prefix`."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models import load_reference_state
+    out_f = inp[f"{prefix}2.weight"].shape[1]
+    net = nn.Sequential(nn.Linear(8, 16), nn.Tanh(), nn.Linear(16, out_f))
+    load_reference_state(net, {k[len(prefix):]: v for k, v in inp.items()
+                               if k.startswith(prefix)})
+    return net
+
+
+def mse(out, labels):
+    d = out - labels[0]
+    return (d * d).mean()
+
+
+# batch leaves whose placement `Fleet.batch_placement` gives: even, a
+# sequence that does not split, a 1-D leaf, an odd batch
+PLACED_SHAPES = ((8, 6, 8), (8, 5), (8,), (7, 6))
+
+FLEET_BRANCHES = ("sharded", "zero1", "recompute", "fp16_allreduce", "dgc",
+                  "sequence_parallel", "localsgd", "adaptive_localsgd",
+                  "pipeline")
+
+
+def fleet_strategy(D, branch):
+    """The strategy of one branch of `Fleet.build_sharded_train_step`, at
+    the degrees of a world of 2 (`D`: either package's fleet)."""
+    s = D.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 1 if branch == "pipeline" else 2}
+    if branch == "zero1":
+        s.sharding = True
+        s.sharding_configs = {"stage": 1}
+    elif branch == "recompute":
+        s.recompute = True
+    elif branch == "fp16_allreduce":
+        s.fp16_allreduce = True
+    elif branch == "dgc":
+        s.dgc = True
+        s.dgc_configs = {"momentum": 0.9, "sparsity": 0.75}
+    elif branch == "sequence_parallel":
+        s.sequence_parallel = True
+        s.sequence_parallel_configs = {"degree": 2}
+        s.hybrid_configs = {"dp_degree": 1, "sp_degree": 2}
+    elif branch == "localsgd":
+        s.localsgd = True
+        s.localsgd_configs = {"k_steps": 2, "begin_step": 1}
+    elif branch == "adaptive_localsgd":
+        s.adaptive_localsgd = True
+        s.adaptive_localsgd_configs = {"init_k_steps": 2, "begin_step": 1}
+    elif branch == "pipeline":
+        s.pipeline = True
+        s.pipeline_configs = {"accumulate_steps": 4}
+    return s
+
+
+def _which_step(step, state):
+    if hasattr(step, "stage"):
+        return "pipeline"
+    if "since_sync" in state:
+        return "local"
+    return "sharded" + ("+dgc" if "dgc" in state else "")
+
+
+def job_fleet(wd, r, n, inp):
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import io, nn
+    from paddle_tpu_torch.distributed import fleet as F
+    from paddle_tpu_torch.parallel import set_mesh
+    out = {}
+    # each branch of the strategy dispatch, 2 steps
+    for br in FLEET_BRANCHES:
+        F.init(is_collective=True, strategy=fleet_strategy(F, br))
+        if br == "pipeline":
+            net = tiny_lm(inp)
+            data, lf = (inp["ids"],), (lm_loss, (inp["tgt"],))
+        else:
+            net = _mlp_tok(inp, "tok.")
+            data, lf = (inp["tx"],), (mse, (inp["ty"],))
+        opt = F.distributed_optimizer(
+            paddle.optimizer.SGD(0.1, parameters=net.parameters()))
+        step, st = F.fleet.build_sharded_train_step(net, opt, lf[0])
+        out[f"{br}.which"] = np.asarray(_which_step(step, st))
+        losses = []
+        for _ in range(2):
+            st, lv = step(st, data, lf[1])
+            losses.append(float(lv))
+        out[f"{br}.losses"] = np.asarray(losses)
+        out[f"{br}.mesh"] = np.asarray(json.dumps(
+            paddle.parallel.get_mesh().shape))
+        place = F.fleet.batch_placement()
+        out[f"{br}.placement"] = np.asarray(json.dumps(
+            [None if place(np.zeros(sh)) is None else
+             list(place(np.zeros(sh))) for sh in PLACED_SHAPES]))
+    # the eight fleet metrics over the two ranks
+    mv = {k[len(f"m{r}."):]: v for k, v in inp.items()
+          if k.startswith(f"m{r}.")}
+    met = F.metrics
+    out["metrics"] = np.asarray(json.dumps({
+        "sum": met.sum(mv["a"]).tolist(), "max": met.max(mv["a"]).tolist(),
+        "min": met.min(mv["a"]).tolist(), "mean": met.mean(mv["a"]).tolist(),
+        "acc": met.acc(mv["c"], mv["t"]), "mae": met.mae(mv["e"], mv["t"]),
+        "rmse": met.rmse(mv["e"], mv["t"]),
+        "auc": met.auc(mv["pos"], mv["neg"]),
+        "util_sum": F.UtilBase().all_reduce(mv["a"]).tolist(),
+        "util_max": F.UtilBase().all_reduce(mv["a"], "max").tolist(),
+        "util_gather": [x.tolist() for x in F.UtilBase().all_gather(
+            mv["a"])]}))
+    # hapi Model.fit through fleet (a default strategy), a padded tail
+    set_mesh(None)
+    F.init(is_collective=True)
+
+    class DS(io.Dataset):
+        def __len__(self):
+            return len(inp["fx"])
+
+        def __getitem__(self, i):
+            return inp["fx"][i], inp["fy"][i]
+
+    net = _mlp_tok(inp, "fit.")
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.SGD(0.1, parameters=net.parameters()),
+                  nn.CrossEntropyLoss())
+    got = []
+
+    class Rec(paddle.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            got.append(float(logs["loss"]))
+
+    model.fit(DS(), batch_size=8, epochs=2, shuffle=False, verbose=0,
+              log_freq=1, callbacks=[Rec()])
+    out["fit.routed"] = np.asarray(model._sharded_step is not None)
+    out["fit.losses"] = np.asarray(got)
+    for k, v in _params(net).items():
+        out[f"fit.p.{k}"] = v
+    return out
+
+
+def job_localsgd(wd, r, n, inp):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.parallel import (create_mesh, local_write_back,
+                                           make_local_train_step,
+                                           make_sharded_train_step)
+    out = {}
+    create_mesh({"dp": 2})
+    X, Y = inp["x"], inp["y"]
+    # LocalSGD k = 1 against synchronous dp (SGD: averaging commutes)
+    for tag, mk in (("sync", lambda net, opt: make_sharded_train_step(
+            net, opt, mse, zero_stage=0)),
+                    ("local1", lambda net, opt: make_local_train_step(
+                        net, opt, mse, k_steps=1, begin_step=0))):
+        net = _mlp_tok(inp, "mlp.")
+        step, st = mk(net, paddle.optimizer.SGD(0.1,
+                                                parameters=net.parameters()))
+        losses = []
+        for _ in range(4):
+            st, lv = step(st, (X,), (Y,))
+            losses.append(float(lv))
+        out[f"{tag}.losses"] = np.asarray(losses)
+    # k = 4: the replicas differ between syncs and agree right after one
+    net = _mlp_tok(inp, "mlp.")
+    step, st = make_local_train_step(
+        net, paddle.optimizer.SGD(0.1, parameters=net.parameters()),
+        mse, k_steps=4)
+    w = []
+    for _ in range(8):
+        st, _ = step(st, (X,), (Y,))
+        w.append(st["params"]["0.weight"].detach().numpy().copy())
+    out["k4.w"] = np.stack(w)
+    out["k4.since"] = np.asarray(st["since_sync"])
+    local_write_back(net, st)
+    out["k4.written"] = net[0].weight.detach().numpy()
+    # adaptive k
+    net = _mlp_tok(inp, "mlp.")
+    step, st = make_local_train_step(
+        net, paddle.optimizer.SGD(0.1, parameters=net.parameters()),
+        mse, k_steps=2, adaptive=True)
+    ks, losses = [], []
+    for _ in range(12):
+        st, lv = step(st, (X,), (Y,))
+        ks.append(st["k"])
+        losses.append(float(lv))
+    out["adaptive.k"] = np.asarray(ks)
+    out["adaptive.loss0"] = np.asarray(st["loss0"])
+    out["adaptive.losses"] = np.asarray(losses)
+    # dgc = True steps
+    net = _mlp_tok(inp, "mlp.")
+    step, st = make_sharded_train_step(
+        net, paddle.optimizer.SGD(0.1, parameters=net.parameters()), mse,
+        zero_stage=0, dgc=True, dgc_sparsity=0.75)
+    losses = []
+    for _ in range(3):
+        st, lv = step(st, (X,), (Y,))
+        losses.append(float(lv))
+    out["dgc.losses"] = np.asarray(losses)
+    for k, v in st["dgc"].items():
+        out[f"dgc.v.{k}"] = v["v"].numpy()
+    return out
+
+
+def job_dist_chip(wd, r, n, inp):
+    """C35 on the card (the chip test): gloo ranks send and receive CUDA
+    tensors and take a ppermute hop of one."""
+    import torch
+    from paddle_tpu_torch import distributed as D
+    x = torch.arange(12, dtype=torch.float32, device="cuda") * (r + 1.5)
+    t = x.clone()
+    if r == 0:
+        D.send(t, dst=1)
+    else:
+        D.recv(t, src=0)
+    y = D.ppermute(x.requires_grad_(), [(0, 1), (1, 0)])
+    y.sum().backward()
+    return {"p2p": t.cpu().numpy(), "hop": y.detach().cpu().numpy(),
+            "grad": x.grad.cpu().numpy()}
+
+
+JOBS = {"sp": job_sp, "pipeline": job_pipeline, "pipeline4": job_pipeline,
+        "fleet": job_fleet, "localsgd": job_localsgd,
+        "dist_chip": job_dist_chip,
+        "collective": job_collective, "collective4": job_collective,
         "train": job_train, "tp_train": job_tp_train,
         "attention": job_attention, "serve2": job_serve,
         "serve4": job_serve}
@@ -466,17 +841,36 @@ def spawn_probe(path, fail_rank=-1):
     D.destroy_process_group()
 
 
+def elastic_hang():
+    """The elastic launcher test's script: rank 1 hangs before it joins
+    (it never beats); rank 0 joins, beating, and waits for it."""
+    if os.environ["PADDLE_TRAINER_ID"] == "1":
+        time.sleep(300)
+        return
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+    paddle.set_device("cpu")
+    D.init_parallel_env()
+
+
 def main():
     job, wd = sys.argv[1], sys.argv[2]
     if job == "launch_train":
         return launch_train()
+    if job == "elastic_hang":
+        return elastic_hang()
     import torch
     torch.set_num_threads(1)
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch import distributed as D
-    paddle.set_device("cpu")
-    env = D.init_parallel_env(
-        init_method="file://" + os.environ["TORCH_DIST_STORE"])
+    if job.endswith("_chip"):
+        env = D.init_parallel_env(
+            backend="gloo",
+            init_method="file://" + os.environ["TORCH_DIST_STORE"])
+    else:
+        paddle.set_device("cpu")
+        env = D.init_parallel_env(
+            init_method="file://" + os.environ["TORCH_DIST_STORE"])
     inp = dict(np.load(os.path.join(wd, "in.npz")))
     out = JOBS[job](wd, env.rank, env.world_size, inp)
     np.savez(os.path.join(wd, f"{job}.r{env.rank}.npz"), **out)
