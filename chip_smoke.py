@@ -6,6 +6,7 @@
     python3 chip_smoke.py --profile  # also profile serving, train, vision
     python3 chip_smoke.py --phases ernie,static  # these after 1-2, no result
     python3 chip_smoke.py --phases dist          # phase 15 alone
+    python3 chip_smoke.py --phases ps            # phase 16 alone
 
 Phases:
  1. card      name and power limit from nvidia-smi, torch/CUDA versions,
@@ -417,6 +418,42 @@ Phases:
               launches as each arm implies, all fp32. Then launch
               --elastic of two ranks of the card, rank 1 hung before its
               first beat: the launcher names it and kills the job
+16. ps      the parameter server at PaddleRec's CTR-DNN widths (26 sparse
+              slots, one Zipf-skewed id each hashed into 1,000,001, dim
+              9; 13 dense features; 512-256-128-32 ReLU, 2 classes;
+              batch 512), on seeded Criteo-shaped data with a planted
+              logistic label. Eight server processes (two an arm) and two
+              trainer processes are spawned at the start and killed with
+              the phase. (a) DownpourWorker with synchronous push over two
+              PsServer processes, SGD 0.05 on the table and the head, TF32
+              off, 20 steps: losses within rtol 2e-4 / atol 2e-5 of a dense
+              baseline on the card (nn.Embedding over the table's initial
+              rows + the same head and batches), the touched rows within
+              1e-5 x max |row| of the baseline's. (b) fleet.init with a PS
+              role, init_server / run_server in the two server processes,
+              fleet.init + init_worker here, DownpourWorker.
+              train_from_dataset over an InMemoryDataset of 64 x 512
+              records written by MultiSlotDataGenerator, Adam 1e-3 on both
+              sides, async push: loss finite, the last 3 steps under the
+              first 3, stop_worker leaves no server process; printed:
+              samples/s, AUC on 4 held-out batches, the step's pull / H2D /
+              device / D2H / push ms and the device busy share of 3
+              profiled steps, the dataset's write / load / batching s. (c)
+              the two trainer processes on the card against two servers
+              each, async then geo (the head synced every 4 steps through
+              a dense 'sum' table): losses finite and falling, each
+              server's table rows summing to the distinct ids pulled,
+              save -> load into fresh tables bit-exact. (d) the CTR-DNN's
+              dense tower as a static Program, SGD 0.05, transpiled over
+              two pservers for one trainer on the card, 4 steps, within
+              rtol 2e-4 / atol 2e-5 of the local Executor.run on the card.
+              (e) bench.py's bench_host_embedding configuration (dim 64,
+              8192 ids, vocabulary 100,000): host_embedding_train_ids_per_
+              sec_dim64, recorded. (f) apply_selected_rows on a CUDA
+              parameter of 1,000,001 x 9 for SGD, Momentum, Adam and
+              Adagrad: touched rows within 1e-6 x max(1, |ref|) of the CPU's
+              update, untouched rows and accumulators bit-unchanged. No
+              K1-K7 launch on the path
 Phase 3 also holds the splash kernels to their plain versions: K5 splash
 forward, K6 splash dQ and K7 splash dK/dV at GPT-2 small's attention
 width (B 8, H 12, S 1024, D 64) and at the packing phase's shape, with
@@ -8267,6 +8304,501 @@ class Smoke:
             "rank(s) [1] stopped heartbeating" in ln for ln in said), \
             r.stderr[-2000:]
 
+    # -- 16. the parameter server ----------------------------------------------
+
+    def ps(self):
+        """Phase 16 (see the module docstring): PaddleRec's CTR-DNN over the
+        port's parameter server, its dense step on the card; server and
+        trainer processes spawned and killed with the phase."""
+        wd = tempfile.mkdtemp(prefix="chip_smoke_ps_")
+        kids = _Children()
+        try:
+            self.zero_launches()
+            # every server process of the phase starts now, together:
+            # (a) sync sgd, (b) fleet's PS role, (c) async and geo
+            cfg_sgd = [dict(table_id=0, kind="sparse", dim=PS["DIM"],
+                            rule="sgd", lr=PS["SYNC_LR"])]
+            cfg_adam = [dict(table_id=0, kind="sparse", dim=PS["DIM"],
+                             rule="adam", lr=PS["LR"])]
+            cfg_geo = cfg_adam + [dict(table_id=1, kind="dense",
+                                       size=_ctr_dense_size(),
+                                       rule="sum")]
+            fleet_env = {"TRAINING_ROLE": "PSERVER",
+                         "PADDLE_PSERVERS_IP_PORT_LIST":
+                         "127.0.0.1:0,127.0.0.1:0",
+                         "PADDLE_TRAINERS_NUM": "1"}
+            for arm, cfg, n, env in (("a", cfg_sgd, 1, None),
+                                     ("b", cfg_adam, 1, fleet_env),
+                                     ("c_async", cfg_adam, 2, None),
+                                     ("c_geo", cfg_geo, 2, None)):
+                for i in range(2):
+                    kids.server(arm, i, cfg, n,
+                                None if env is None else
+                                dict(env, PADDLE_PSERVER_ID=str(i)))
+            eps = kids.endpoints(("a", "b", "c_async", "c_geo"))
+            kids.trainers(wd, eps["c_async"], eps["c_geo"])
+            self.ps_sync_a(eps["a"])
+            self.ps_fleet_b(wd, eps["b"], kids)
+            self.ps_trainers_c(wd, eps["c_async"], eps["c_geo"], kids)
+            self.ps_transpiler_d()
+            self.ps_bench_e()
+            self.ps_selected_rows_f()
+            got = self.record_path("ps")
+            print(f"ps: K1-K7 launches on the path {got} (the CTR-DNN runs "
+                  f"no attention)")
+            assert not any(got.values()), got
+        finally:
+            kids.stop()
+            shutil.rmtree(wd, ignore_errors=True)
+
+    def ps_model(self, seed):
+        """The port's CTR-DNN on the card from `seed`."""
+        from paddle_tpu_torch.framework import random as prandom
+        prandom.seed(seed)
+        return _ctr_dnn()().to(PS_DEV)
+
+    def ps_sync_a(self, eps):
+        """(a) Two PsServer processes and this trainer: DownpourWorker with
+        synchronous push, SGD 0.05 on the table and on the head, 20 steps
+        of 512, against nn.Embedding over the table's initial rows + the
+        same head and batches on the card."""
+        import copy
+        import numpy as np
+        torch = self.torch
+        from paddle_tpu_torch import optimizer as popt
+        from paddle_tpu_torch.distributed.fleet import (DownpourWorker,
+                                                        FleetWrapper)
+        P = PS
+        batches = _ctr_batches(np, 100, P["SYNC_STEPS"], P["B"])
+        fw = FleetWrapper()
+        fw.init_worker(eps, sparse_dims={0: P["DIM"]})
+        try:
+            model = self.ps_model(0)
+            base = copy.deepcopy(model)
+            uniq = np.unique(np.concatenate([b[0].reshape(-1)
+                                             for b in batches]))
+            init = fw.pull_sparse_vars_sync(0, uniq)
+            worker = DownpourWorker(
+                fw, 0, P["DIM"], model,
+                popt.SGD(P["SYNC_LR"], parameters=model.parameters()),
+                _ctr_loss, async_push=False, device=PS_DEV)
+            t0 = time.perf_counter()
+            got = [worker.train_one_batch(*b) for b in batches]
+            wall = time.perf_counter() - t0
+            emb = torch.nn.Embedding(uniq.size, P["DIM"]).to(PS_DEV)
+            with torch.no_grad():
+                emb.weight.copy_(torch.from_numpy(init))
+            bopt = popt.SGD(P["SYNC_LR"], parameters=[emb.weight]
+                            + list(base.parameters()))
+            want = []
+            for ids, dense, label in batches:
+                idx = torch.from_numpy(np.searchsorted(uniq, ids)).to(PS_DEV)
+                d = [torch.from_numpy(dense).to(PS_DEV),
+                     torch.from_numpy(label).to(PS_DEV)]
+                out = base(emb(idx).reshape(-1, P["DIM"]), *d)
+                lv = _ctr_loss(out, d).float().mean()
+                bopt.clear_grad()
+                lv.backward()
+                bopt.step()
+                want.append(float(lv.detach()))
+            rows = fw.pull_sparse_vars_sync(0, uniq)
+        finally:
+            fw.stop_server()
+        ref = emb.weight.detach().cpu().numpy()
+        row_err = float(np.abs(rows - ref).max() / np.abs(ref).max())
+        loss_err = float(np.max(np.abs(np.array(got) - np.array(want))
+                                / np.maximum(np.abs(want), 1e-30)))
+        t = list(worker.timings)
+        print(f"ps (a) sync push, 2 servers, SGD {P['SYNC_LR']}, "
+              f"{len(batches)} steps of {P['B']}: losses {got[0]:.6f} -> "
+              f"{got[-1]:.6f}, dense baseline {want[0]:.6f} -> "
+              f"{want[-1]:.6f}, worst relative {loss_err:.3e}; touched "
+              f"rows {uniq.size}, worst |row - baseline| / max|row| "
+              f"{row_err:.3e}; {wall / len(batches) * 1e3:.2f} ms a step "
+              f"(device {np.mean([r['device'] for r in t[3:]]):.2f} ms)")
+        self.details["ps_a"] = dict(losses=got, baseline=want,
+                                    loss_rel=loss_err, row_rel=row_err,
+                                    rows=int(uniq.size),
+                                    step_ms=wall / len(batches) * 1e3)
+        assert worker._step.device.type == PS_DEV
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+        assert row_err <= 1e-5, row_err
+
+    def ps_fleet_b(self, wd, eps, kids):
+        """(b) PaddleRec's configuration: fleet.init with a PS role in the
+        two server processes (init_server / run_server), fleet.init +
+        init_worker here, DownpourWorker.train_from_dataset over an
+        InMemoryDataset of seeded slot files written through
+        MultiSlotDataGenerator, Adam 1e-3 both sides, async push."""
+        import numpy as np
+        torch = self.torch
+        from paddle_tpu_torch import optimizer as popt
+        from paddle_tpu_torch.distributed import fleet
+        from paddle_tpu_torch.distributed.fleet import (DownpourWorker,
+                                                        FleetWrapper)
+        from paddle_tpu_torch.distributed.ps import runtime as prt
+        P = PS
+        t0 = time.perf_counter()
+        files = _ctr_slot_files(np, wd, P["BATCHES"], P["B"])
+        t_gen = time.perf_counter() - t0
+        ds = fleet.InMemoryDataset()
+        ds.init(batch_size=P["B"], use_var=_ctr_slots())
+        ds.set_filelist(files)
+        t0 = time.perf_counter()
+        ds.load_into_memory()
+        t_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        feed = [_ctr_from_slots(np, b) for b in ds]
+        t_iter = time.perf_counter() - t0
+        assert len(feed) == P["BATCHES"] and \
+            ds.get_memory_data_size() == P["BATCHES"] * P["B"]
+        env = {"TRAINING_ROLE": "TRAINER", "PADDLE_TRAINER_ID": "0",
+               "PADDLE_TRAINERS_NUM": "1",
+               "PADDLE_PSERVERS_IP_PORT_LIST": ",".join(eps)}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        prt._runtime = None
+        fw = FleetWrapper()
+        try:
+            fleet.init(is_collective=False)
+            assert not fleet.is_server()
+            fleet.init_worker()
+            fw.init_worker(eps, sparse_dims={0: P["DIM"]})
+            model = self.ps_model(1)
+            opt = popt.Adam(P["LR"], parameters=model.parameters())
+            worker = DownpourWorker(fw, 0, P["DIM"], model, opt, _ctr_loss,
+                                    async_push=True, device=PS_DEV)
+            t0 = time.perf_counter()
+            losses = worker.train_from_dataset(feed)
+            wall = time.perf_counter() - t0
+            steps = list(worker.timings)
+            auc = self.ps_auc(model, fw, _ctr_batches(np, 900, 4, P["B"]))
+            # the wire alone: the last batch's rows again (all exist now)
+            uniq = np.unique(feed[-1][0])
+            net = []
+            for _ in range(5):
+                tn = time.perf_counter()
+                fw.pull_sparse_vars_sync(0, uniq)
+                net.append((time.perf_counter() - tn) * 1e3)
+            # the device's busy share over 3 more (profiled) steps
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                tp = time.perf_counter()
+                for b in feed[:3]:
+                    worker.train_one_batch(*b)
+                torch.cuda.synchronize()
+                wall_p = (time.perf_counter() - tp) * 1e3
+            dev_ms, _ = _device_table(torch, prof, 3, wall_p)
+            fw.client_flush()
+            fleet.stop_worker()
+        finally:
+            fw.stop_server()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            prt._runtime = None
+        left = kids.wait_arm("b", 30)
+        split = {k: float(np.mean([r[k] for r in steps[3:]]))
+                 for k in ("pull", "h2d", "device", "d2h", "push", "wall")}
+        rate = P["B"] * (len(steps) - 3) / (sum(r["wall"]
+                                               for r in steps[3:]) / 1e3)
+        busy = dev_ms / (wall_p / 3)
+        print(f"ps (b) fleet PS role, 2 server processes, InMemoryDataset "
+              f"{P['BATCHES']} x {P['B']} (write {t_gen:.2f} s, "
+              f"load_into_memory {t_load:.2f} s, batching {t_iter:.2f} s), "
+              f"Adam {P['LR']}, async push: loss {np.mean(losses[:3]):.4f} "
+              f"(first 3) -> {np.mean(losses[-3:]):.4f} (last 3); AUC "
+              f"{auc:.4f}; {rate:.1f} samples/s over steps 3-"
+              f"{len(steps) - 1} ({wall:.2f} s in all); ms a step: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+              + f"; device busy {busy * 100:.1f}% of 3 profiled steps "
+              f"({dev_ms:.3f} of {wall_p / 3:.3f} ms); a pull of "
+              f"{uniq.size} existing rows over the wire {np.median(net):.3f}"
+              f" ms (median of 5); server processes left {left}; "
+              f"{self.smi}")
+        self.details["ps_b"] = dict(losses=losses, auc=auc,
+                                    samples_per_s=rate, split_ms=split,
+                                    busy_share=busy, gen_s=t_gen,
+                                    load_s=t_load, iter_s=t_iter,
+                                    wall_s=wall, wire_pull_ms=net)
+        assert all(np.isfinite(losses)), losses
+        assert np.mean(losses[-3:]) < np.mean(losses[:3]), losses
+        if PS_DEV == "cuda":   # staged to the card through one copy
+            assert min(r["h2d"] for r in steps) > 0
+        assert left == 0, left
+
+    def ps_auc(self, model, fw, batches):
+        """AUC of the trained CTR-DNN on held-out batches (the rows pulled
+        from the servers, the head's forward on the card)."""
+        import numpy as np
+        torch = self.torch
+        scores, labels = [], []
+        with torch.no_grad():
+            for ids, dense, label in batches:
+                rows = fw.pull_sparse_vars_sync(0, ids.reshape(-1))
+                out = model(torch.from_numpy(rows).to(PS_DEV),
+                            torch.from_numpy(dense).to(PS_DEV), None)
+                scores.append(torch.softmax(out.float(), -1)[:, 1]
+                              .cpu().numpy())
+                labels.append(label)
+        return _auc(np, np.concatenate(scores), np.concatenate(labels))
+
+    def ps_trainers_c(self, wd, eps_async, eps_geo, kids):
+        """(c) Two trainer processes on the one card (started with the
+        servers) against two servers each, async then geo with k 4:
+        losses finite and falling, each server table's size = the
+        distinct ids pulled, save -> load into fresh tables bit-exact."""
+        import numpy as np
+        from paddle_tpu_torch.distributed.ps import PsClient, SparseTable
+        P = PS
+        open(os.path.join(wd, "go"), "w").close()
+        kids.wait_trainers(P["TIMEOUT"])
+        recs = [json.load(open(os.path.join(wd, f"trainer{r}.json")))
+                for r in range(2)]
+        out = {}
+        for mode, eps in (("async", eps_async), ("geo", eps_geo)):
+            ids = np.unique(np.concatenate([np.load(os.path.join(
+                wd, f"trainer{r}_{mode}_ids.npy")) for r in range(2)]))
+            client = PsClient(eps)
+            try:
+                ckpt = os.path.join(wd, f"ckpt_{mode}")
+                client.save(ckpt)
+                exact = True
+                for i in range(2):
+                    mine = ids[np.abs(ids) % 2 == i]
+                    fresh = SparseTable(P["DIM"], rule="adam", lr=P["LR"])
+                    n = fresh.load(f"{ckpt}.server{i}.table0")
+                    exact &= n == mine.size and np.array_equal(
+                        fresh.pull(mine), client.pull_sparse(0, mine,
+                                                             P["DIM"]))
+                client.stop_server()
+            finally:
+                client.close()
+            sizes = kids.wait_arm("c_" + mode, 30, sizes=True)
+            out[mode] = dict(ids=int(ids.size), table=sizes, exact=exact)
+        for r, rec in enumerate(recs):
+            for mode in ("async", "geo"):
+                ls = rec[mode]["losses"]
+                print(f"ps (c) trainer {r} {mode}: {len(ls)} steps, loss "
+                      f"{np.mean(ls[:3]):.4f} -> {np.mean(ls[-3:]):.4f}, "
+                      f"{rec[mode]['step_ms']:.2f} ms a step")
+        for mode, o in out.items():
+            print(f"ps (c) {mode}: distinct ids pulled {o['ids']}, rows in "
+                  f"the two servers' tables {o['table']} (sum "
+                  f"{sum(o['table'])}), save -> load bit-exact {o['exact']}")
+        self.details["ps_c"] = dict(trainers=recs, tables=out)
+        for rec in recs:
+            for mode in ("async", "geo"):
+                ls = rec[mode]["losses"]
+                assert all(np.isfinite(ls)), (mode, ls)
+                assert np.mean(ls[-3:]) < np.mean(ls[:3]), (mode, ls)
+            assert rec["device"] == PS_DEV, rec["device"]
+        for mode, o in out.items():
+            assert sum(o["table"]) == o["ids"], (mode, o)
+            assert o["exact"], mode
+
+    def ps_transpiler_d(self):
+        """(d) The CTR-DNN's dense tower (13 dense features -> 512-256-
+        128-32 -> 2, cross-entropy) as a static Program, SGD 0.05,
+        transpiled over two in-process pservers for one trainer on the
+        card, 4 steps, against the local Executor.run on the card."""
+        import numpy as np
+        torch = self.torch
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch import static
+        from paddle_tpu_torch.distributed import DistributeTranspiler
+        from paddle_tpu_torch.distributed.ps import PsServer
+        P = PS
+        _, dense, label = _ctr_batches(np, 300, 1, P["B"])[0]
+        feed = {"dense": dense, "label": label.reshape(-1, 1)}
+        paddle.enable_static()
+        servers = []
+        try:
+            scope = {}
+            with static.scope_guard(scope):
+                paddle.seed(3)
+                main, startup = static.Program(), static.Program()
+                with static.program_guard(main, startup):
+                    x = static.data("dense", [P["B"], P["DENSE"]],
+                                    "float32")
+                    y = static.data("label", [P["B"], 1], "int64")
+                    h = x
+                    for w in P["HIDDEN"]:
+                        h = static.nn.fc(h, w, activation="relu")
+                    logits = static.nn.fc(h, 2)
+                    loss = paddle.mean(paddle.nn.functional.cross_entropy(
+                        logits, y))
+                    paddle.optimizer.SGD(P["SYNC_LR"]).minimize(loss)
+            init = {k: v.clone() for k, v in scope.items()}
+            local_scope = {k: v.clone() for k, v in init.items()}
+            with static.scope_guard(local_scope):
+                exe = static.Executor(paddle.CUDAPlace(0) if PS_DEV == "cuda"
+                                      else paddle.CPUPlace())
+                local = [float(exe.run(main, feed=feed,
+                                       fetch_list=[loss])[0])
+                         for _ in range(4)]
+            with static.scope_guard(init):
+                servers = [PsServer("127.0.0.1:0", []).start()
+                           for _ in range(2)]
+                eps = [s.endpoint for s in servers]
+                t = DistributeTranspiler().transpile(
+                    0, program=main, pservers=",".join(eps), trainers=1)
+                for s, ep in zip(servers, eps):
+                    s.add_tables(t.get_pserver_program(ep))
+                trainer = t.get_trainer_program(device=PS_DEV)
+                for i, ep in enumerate(eps):
+                    for tid, v in t.get_startup_program(ep).items():
+                        trainer.client.set_dense(tid, v, server=i)
+                t0 = time.perf_counter()
+                dist = [float(trainer.run(feed)) for _ in range(4)]
+                wall = (time.perf_counter() - t0) / 4
+                trainer.close()
+        finally:
+            paddle.disable_static()
+            for s in servers:
+                s.stop()
+        print(f"ps (d) transpiler, CTR-DNN dense tower, 2 pservers, 1 "
+              f"trainer on the card: losses {[f'{v:.6f}' for v in dist]}, "
+              f"local Executor.run {[f'{v:.6f}' for v in local]}; "
+              f"{wall * 1e3:.2f} ms a transpiled step; tables "
+              f"{len(t._placement)} over {len(eps)} servers")
+        self.details["ps_d"] = dict(losses=dist, local=local,
+                                    step_ms=wall * 1e3)
+        assert trainer.device.type == PS_DEV
+        np.testing.assert_allclose(dist, local, rtol=2e-4, atol=2e-5)
+
+    def ps_bench_e(self):
+        """(e) bench.py's bench_host_embedding configuration on the card:
+        dim 64, 8192 ids a batch, vocabulary 100,000, Adam 1e-3 on the
+        table, AdamW 1e-3 on a Linear(64, 1) head, MSE; 3 warm steps, 15
+        timed. Recorded, not gated."""
+        import numpy as np
+        torch = self.torch
+        from paddle_tpu_torch import optimizer as popt
+        from paddle_tpu_torch.distributed.ps import (HostEmbedding,
+                                                     make_host_embedding_step)
+        E = PS["BENCH"]
+        from paddle_tpu_torch.framework import random as prandom
+        prandom.seed(0)
+        head = _bench_head(E["DIM"])
+        host = HostEmbedding(E["DIM"], rule="adam", lr=1e-3)
+        step = make_host_embedding_step(
+            head, popt.AdamW(1e-3, parameters=head.parameters()),
+            lambda out, data: ((out.squeeze(-1) - data[0]) ** 2).mean(),
+            host, device=PS_DEV)
+        rng = np.random.RandomState(0)
+
+        def batch():
+            return (rng.randint(0, E["VOCAB"], size=(E["IDS"],))
+                    .astype("int64"),
+                    rng.standard_normal((E["IDS"],)).astype("float32"))
+        for _ in range(E["WARM"]):
+            step(*batch())
+        bs = [batch() for _ in range(E["ITERS"])]
+        t0 = time.perf_counter()
+        for b in bs:
+            step(*b)
+        dt = time.perf_counter() - t0
+        rate = E["IDS"] * E["ITERS"] / dt
+        rows = len(host)
+        # the table alone: rows made on a miss against rows that exist
+        fresh = np.arange(E["VOCAB"], E["VOCAB"] + E["IDS"])
+        tt = time.perf_counter()
+        host.table.pull(fresh)
+        t_miss = (time.perf_counter() - tt) * 1e3
+        tt = time.perf_counter()
+        host.table.pull(fresh)
+        t_hit = (time.perf_counter() - tt) * 1e3
+        t = list(step.timings)[E["WARM"]:]
+        split = {k: float(np.mean([r[k] for r in t]))
+                 for k in ("pull", "h2d", "device", "d2h", "push", "wall")}
+        print(f"ps (e) bench_host_embedding on the card (dim {E['DIM']}, "
+              f"{E['IDS']} ids a batch, vocabulary {E['VOCAB']}): "
+              f"host_embedding_train_ids_per_sec_dim64 {rate:.1f}; ms a "
+              f"step: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                    split.items())
+              + f"; table rows {rows}; a table pull of {E['IDS']} "
+              f"new ids {t_miss:.3f} ms, the same ids again {t_hit:.3f} "
+              f"ms; {self.smi}")
+        self.details["ps_e"] = dict(
+            host_embedding_train_ids_per_sec_dim64=rate, split_ms=split,
+            pull_miss_ms=t_miss, pull_hit_ms=t_hit)
+
+    def ps_selected_rows_f(self):
+        """(f) apply_selected_rows on a CUDA parameter of 1,000,001 x 9 for
+        SGD, Momentum, Adam and Adagrad (two sparse updates from CTR
+        batches' ids): the touched rows within 1e-6 x max(1, |ref|) of the
+        same updates on the CPU, the untouched rows and accumulator rows
+        bit-unchanged."""
+        import numpy as np
+        torch = self.torch
+        from paddle_tpu_torch import optimizer as popt
+        from paddle_tpu_torch.framework.selected_rows import SelectedRows
+        P = PS
+        g = torch.Generator().manual_seed(5)
+        w0 = torch.randn(P["VOCAB"], P["DIM"], generator=g)
+        rs = np.random.RandomState(6)
+        ups = []
+        for ids, _, _ in _ctr_batches(np, 500, 2, P["B"]):
+            ids = ids.reshape(-1)
+            ups.append((ids, rs.standard_normal(
+                (ids.size, P["DIM"])).astype(np.float32)))
+        touched = np.zeros(P["VOCAB"], bool)
+        for ids, _ in ups:
+            touched[ids] = True
+        mask = torch.from_numpy(touched)
+        res = {}
+        for name in ("SGD", "Momentum", "Adam", "Adagrad"):
+            out = {}
+            for dev in (PS_DEV, "cpu"):
+                p = torch.nn.Parameter(w0.to(dev).clone())
+                opt = getattr(popt, name)(0.1, parameters=[p])
+                init = {k: v.clone() for k, v in opt._init_state(p).items()}
+                ms = []
+                for ids, vals in ups:
+                    sr = SelectedRows(torch.from_numpy(ids).to(dev),
+                                      torch.from_numpy(vals).to(dev),
+                                      P["VOCAB"])
+                    if dev != "cpu" or PS_DEV == "cpu":
+                        e0 = torch.cuda.Event(enable_timing=True)
+                        e1 = torch.cuda.Event(enable_timing=True)
+                        e0.record()
+                        opt.apply_selected_rows(p, sr)
+                        e1.record()
+                        e1.synchronize()
+                        ms.append(e0.elapsed_time(e1))
+                    else:
+                        opt.apply_selected_rows(p, sr)
+                st = opt._accumulators[id(p)]
+                out[dev] = (p.detach().cpu(), {k: v.cpu()
+                                               for k, v in st.items()},
+                            {k: v.cpu() for k, v in init.items()}, ms)
+            (cw, cst, cinit, ms), (rw, rst, _, _) = out[PS_DEV], out["cpu"]
+            scale = max(1.0, float(rw[mask].abs().max()))
+            err = float((cw[mask] - rw[mask]).abs().max()) / scale
+            same = bool(torch.equal(cw[~mask], w0[~mask]))
+            st_err, st_same = 0.0, True
+            for k in cst:
+                sc = max(1.0, float(rst[k][mask].abs().max()))
+                st_err = max(st_err, float((cst[k][mask] - rst[k][mask])
+                                           .abs().max()) / sc)
+                st_same &= bool(torch.equal(cst[k][~mask], cinit[k][~mask]))
+            res[name] = dict(err=err, state_err=st_err, untouched=same,
+                             state_untouched=st_same, ms=ms)
+            print(f"ps (f) apply_selected_rows {name} on the card, "
+                  f"{P['VOCAB']} x {P['DIM']}, {int(touched.sum())} rows "
+                  f"touched in 2 updates: worst touched-row error "
+                  f"{err:.2e}, accumulators {st_err:.2e} (x max(1, |ref|)); "
+                  f"untouched rows unchanged {same}, accumulators {st_same}; "
+                  f"{ms[0]:.3f} / {ms[1]:.3f} ms an update")
+        self.details["ps_f"] = res
+        for name, r in res.items():
+            assert r["err"] <= 1e-6 and r["state_err"] <= 1e-6, (name, r)
+            assert r["untouched"] and r["state_untouched"], (name, r)
+
     def kernels_line(self):
         srcs = {"paged_attention": (
                     "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -8973,6 +9505,339 @@ def _elastic_hang_rank():
     from paddle_tpu_torch import distributed as D
     D.init_parallel_env(backend="gloo")
     return 0
+
+
+
+# phase 16: PaddleRec's CTR-DNN (`models/rank/dnn/config.yaml`: 26 sparse
+# slots hashed into 1,000,001 ids, embedding dim 9 sum-pooled a slot, 13
+# dense features, fully connected 512-256-128-32 with ReLU, 2 classes,
+# Adam 1e-3 asynchronous, batch 512) on Criteo-shaped seeded data; (a)'s
+# sync steps at SGD 0.05; (c)'s trainers cycle a pool of batches; (e) is
+# bench.py's bench_host_embedding configuration
+PS = dict(SLOTS=26, DENSE=13, VOCAB=1_000_001, DIM=9,
+          HIDDEN=(512, 256, 128, 32), B=512, LR=1e-3, SYNC_LR=0.05,
+          SYNC_STEPS=20, BATCHES=64, POOL=6, TRAINER_STEPS=18, GEO_K=4,
+          TIMEOUT=240,
+          BENCH=dict(DIM=64, IDS=8192, VOCAB=100_000, WARM=3, ITERS=15))
+PS_DEV = "cuda"   # phase 16's device (a CPU rehearsal sets "cpu")
+_CTR = {}
+
+
+def _ctr_dnn():
+    """The port's CTR-DNN class: forward(emb_flat [B x 26, 9], dense [B,
+    13], label) -> logits [B, 2]. Each slot holds one id (Criteo), so a
+    slot's sum pool is its row."""
+    if "cls" not in _CTR:
+        import torch
+        from paddle_tpu_torch import nn
+
+        class CtrDnn(nn.Layer):
+            def __init__(self):
+                super().__init__()
+                widths = (PS["SLOTS"] * PS["DIM"] + PS["DENSE"],) \
+                    + PS["HIDDEN"]
+                self.fcs = nn.LayerList([nn.Linear(a, b) for a, b in
+                                         zip(widths[:-1], widths[1:])])
+                self.out = nn.Linear(PS["HIDDEN"][-1], 2)
+
+            def forward(self, emb_flat, dense, label):
+                e = emb_flat.reshape(dense.shape[0], PS["SLOTS"], -1,
+                                     PS["DIM"]).sum(2)
+                x = torch.cat([e.reshape(e.shape[0], -1), dense], 1)
+                for fc in self.fcs:
+                    x = torch.relu(fc(x))
+                return self.out(x)
+        _CTR["cls"] = CtrDnn
+    return _CTR["cls"]
+
+
+def _ctr_dense_size():
+    widths = (PS["SLOTS"] * PS["DIM"] + PS["DENSE"],) + PS["HIDDEN"] + (2,)
+    return sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
+
+
+def _ctr_loss(out, data):
+    import torch.nn.functional as F
+    return F.cross_entropy(out.float(), data[1])
+
+
+def _ctr_batches(np, seed, n, B):
+    """n Criteo-shaped batches: ids [B, 26] (a Zipf rank within each slot's
+    cardinality, hashed with the slot into 1,000,001), dense [B, 13]
+    float32 in [0, 1) (PaddleRec min-max scales them), label [B] int64
+    drawn from a planted logistic function of slots 0-3 and the dense
+    features, so the loss can fall."""
+    rs = np.random.RandomState(seed)
+    card = np.random.RandomState(1234).randint(10, 50_000, PS["SLOTS"])
+    v = np.random.RandomState(4321).standard_normal(PS["DENSE"]) * 0.8
+    out = []
+    for _ in range(n):
+        rank = (rs.zipf(1.3, size=(B, PS["SLOTS"])) - 1) % card
+        slot = np.arange(PS["SLOTS"])
+        ids = ((rank * 2654435761 + slot * 1_000_003 + 17)
+               % PS["VOCAB"]).astype(np.int64)
+        dense = rs.rand(B, PS["DENSE"]).astype(np.float32)
+        w = ((rank[:, :4] * 40503 + slot[:4]) % 997) / 997.0 - 0.5
+        z = 3.0 * w.sum(1) + (dense - 0.5) @ v
+        label = (rs.rand(B) < 1.0 / (1.0 + np.exp(-z))).astype(np.int64)
+        out.append((ids, dense, label))
+    return out
+
+
+def _ctr_slots():
+    """InMemoryDataset's use_var: label, the dense slot, C1..C26."""
+    return ([("label", "int64"), ("dense", "float32")]
+            + [(f"C{i + 1}", "int64") for i in range(PS["SLOTS"])])
+
+
+def _ctr_slot_files(np, wd, n_batches, B):
+    """n_batches x B seeded records in the slot text format, written
+    through the port's MultiSlotDataGenerator into two files."""
+    from paddle_tpu_torch.distributed.fleet import MultiSlotDataGenerator
+    files = []
+    for part in range(2):
+        batches = _ctr_batches(np, 40 + part, n_batches // 2, B)
+        recs = [(ids[i], dense[i], label[i]) for ids, dense, label
+                in batches for i in range(B)]
+
+        class Gen(MultiSlotDataGenerator):
+            def generate_sample(self, line):
+                ids, dense, label = recs[int(line)]
+
+                def it():
+                    yield ([("label", [int(label)]),
+                            ("dense", [float(x) for x in dense])]
+                           + [(f"C{s + 1}", [int(ids[s])])
+                              for s in range(PS["SLOTS"])])
+                return it
+        idx = os.path.join(wd, f"part{part}.idx")
+        with open(idx, "w") as f:
+            f.write("".join(f"{i}\n" for i in range(len(recs))))
+        out = os.path.join(wd, f"part{part}.txt")
+        Gen().run_from_files([idx], out)
+        files.append(out)
+    return files
+
+
+def _ctr_from_slots(np, batch):
+    """InMemoryDataset's padded per-slot batch -> (ids [B, 26], dense,
+    label [B])."""
+    return (np.concatenate(batch[2:], 1), batch[1], batch[0].reshape(-1))
+
+
+def _auc(np, scores, labels):
+    """Area under the ROC curve by ranks (ties averaged)."""
+    order = np.argsort(scores, kind="mergesort")
+    ranks = np.empty(len(scores))
+    s = scores[order]
+    i = 0
+    while i < len(s):
+        j = i
+        while j + 1 < len(s) and s[j + 1] == s[i]:
+            j += 1
+        ranks[order[i:j + 1]] = (i + j) / 2 + 1
+        i = j + 1
+    pos = labels == 1
+    n1, n0 = int(pos.sum()), int((~pos).sum())
+    return float((ranks[pos].sum() - n1 * (n1 + 1) / 2) / (n1 * n0))
+
+
+def _bench_head(dim):
+    """bench_host_embedding's head: Linear(dim, 1) over each row."""
+    from paddle_tpu_torch import nn
+
+    class Head(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc = nn.Linear(dim, 1)
+
+        def forward(self, emb_flat, labels):
+            return self.fc(emb_flat)
+    return Head()
+
+
+def _ps_server_proc(q, arm, idx, cfgs, n_workers, env):
+    """A server of phase 16, started by _Children: PsServer on
+    127.0.0.1:0 (or, with `env`, fleet.init with a PS role then
+    init_server / run_server); reports its port, serves until a client
+    stops it, then reports its sparse tables' sizes."""
+    if env:
+        os.environ.update(env)
+        from paddle_tpu_torch.distributed import fleet
+        from paddle_tpu_torch.distributed.ps import the_one_ps
+        fleet.init(is_collective=False)
+        assert fleet.is_server()
+        rt = the_one_ps()
+        for c in cfgs:
+            rt.register_sparse_table(c["dim"], rule=c["rule"], lr=c["lr"])
+        fleet.init_server()
+        server = rt.server
+        q.put((arm, idx, "port", server.port))
+        fleet.run_server()
+    else:
+        from paddle_tpu_torch.distributed.ps import PsServer, TableConfig
+        server = PsServer("127.0.0.1:0", [TableConfig(**c) for c in cfgs],
+                          n_workers).start()
+        q.put((arm, idx, "port", server.port))
+        server._thread.join()
+    from paddle_tpu_torch.distributed.ps import SparseTable
+    q.put((arm, idx, "sizes", {tid: len(t) for tid, t in
+                               server._tables.items()
+                               if isinstance(t, SparseTable)}))
+
+
+def _ps_trainer_proc(wd, rank, eps_async, eps_geo, device):
+    """A trainer of phase 16 (c), started by _Children: builds the CTR-DNN
+    on `device`, waits for the parent's go, then trains
+    PS["TRAINER_STEPS"] steps (a pool of its own seeded batches, cycled)
+    through DownpourWorker with async push against `eps_async`, then the
+    same against `eps_geo` with the head synced by GeoCommunicator every
+    k steps; writes its losses, step ms and the distinct ids it pulled."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.distributed.fleet import (DownpourWorker,
+                                                    FleetWrapper)
+    from paddle_tpu_torch.distributed.ps import GeoCommunicator, PsClient
+    from paddle_tpu_torch.framework import random as prandom
+    from torch.nn.utils import parameters_to_vector, vector_to_parameters
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pool = _ctr_batches(np, 200 + rank, PS["POOL"], PS["B"])
+    data = [pool[i % len(pool)] for i in range(PS["TRAINER_STEPS"])]
+
+    def build():
+        prandom.seed(7)
+        model = _ctr_dnn()().to(device)
+        return model, popt.Adam(PS["LR"], parameters=model.parameters())
+    build()
+    go = os.path.join(wd, "go")
+    deadline = time.monotonic() + PS["TIMEOUT"]
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            raise TimeoutError("no go from the parent")
+        time.sleep(0.05)
+    rec = {"device": device}
+    for mode, eps in (("async", eps_async), ("geo", eps_geo)):
+        fw = FleetWrapper()
+        fw.init_worker(eps, sparse_dims={0: PS["DIM"]})
+        model, opt = build()
+        worker = DownpourWorker(fw, 0, PS["DIM"], model, opt, _ctr_loss,
+                                async_push=True, device=device)
+        params = list(model.parameters())
+        if mode == "geo":
+            client = PsClient(eps)
+            geo = GeoCommunicator(client, k_steps=PS["GEO_K"])
+            geo.register_dense(1, parameters_to_vector(params).detach()
+                               .cpu().numpy())
+            fw.barrier()   # both trainers' initial values are in
+        losses, syncs = [], 0
+        t0 = time.perf_counter()
+        for b in data:
+            losses.append(worker.train_one_batch(*b))
+            if mode == "geo":
+                local = parameters_to_vector(params).detach().cpu().numpy()
+                fresh = geo.maybe_sync_dense(1, local)
+                if fresh is not local:
+                    syncs += 1
+                    with torch.no_grad():
+                        vector_to_parameters(torch.from_numpy(fresh).to(
+                            device), params)
+        fw.client_flush()
+        wall = time.perf_counter() - t0
+        fw.barrier()   # both trainers' pushes are in
+        ids = np.unique(np.concatenate([b[0].reshape(-1) for b in data]))
+        np.save(os.path.join(wd, f"trainer{rank}_{mode}_ids.npy"), ids)
+        rec[mode] = dict(losses=losses, step_ms=wall / len(data) * 1e3,
+                         syncs=syncs)
+        fw._q.put(None)
+        fw._client.close()
+        if mode == "geo":
+            client.close()
+    with open(os.path.join(wd, f"trainer{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+class _Children:
+    """Phase 16's server and trainer processes (spawned, never forked):
+    ports and table sizes come back on one queue; every wait has a time
+    limit, and `stop()` kills whatever is still alive."""
+
+    def __init__(self):
+        import multiprocessing as mp
+        self.ctx = mp.get_context("spawn")
+        self.q = self.ctx.Queue()
+        self.servers = {}
+        self.ports = {}
+        self.sizes = {}
+        self.trainer_procs = []
+
+    def server(self, arm, idx, cfgs, n_workers, env):
+        p = self.ctx.Process(target=_ps_server_proc, daemon=True,
+                             args=(self.q, arm, idx, cfgs, n_workers, env))
+        p.start()
+        self.servers[(arm, idx)] = p
+
+    def _read(self, timeout):
+        import queue
+        try:
+            arm, idx, kind, val = self.q.get(timeout=timeout)
+        except queue.Empty:
+            return
+        (self.ports if kind == "port" else self.sizes)[(arm, idx)] = val
+
+    def endpoints(self, arms, timeout=120):
+        deadline = time.monotonic() + timeout
+        keys = [(a, i) for a in arms for i in range(2)]
+        while any(k not in self.ports for k in keys):
+            dead = [k for k in keys if k not in self.ports
+                    and self.servers[k].exitcode is not None]
+            if dead or time.monotonic() > deadline:
+                raise RuntimeError(f"servers {dead or 'late'}: no port")
+            self._read(0.2)
+        return {a: [f"127.0.0.1:{self.ports[(a, i)]}" for i in range(2)]
+                for a in arms}
+
+    def trainers(self, wd, eps_async, eps_geo):
+        for r in range(2):
+            p = self.ctx.Process(target=_ps_trainer_proc, daemon=True,
+                                 args=(wd, r, eps_async, eps_geo, PS_DEV))
+            p.start()
+            self.trainer_procs.append(p)
+
+    def wait_trainers(self, timeout):
+        deadline = time.monotonic() + timeout
+        for p in self.trainer_procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+            if p.exitcode is None:
+                raise TimeoutError(f"trainer {p.pid} still running after "
+                                   f"{timeout} s")
+            if p.exitcode != 0:
+                raise RuntimeError(f"trainer {p.pid} exited {p.exitcode}")
+
+    def wait_arm(self, arm, timeout, sizes=False):
+        """Join the arm's two servers; the count still alive, or (sizes)
+        their sparse table 0's rows."""
+        deadline = time.monotonic() + timeout
+        procs = [self.servers[(arm, i)] for i in range(2)]
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        while any((arm, i) not in self.sizes for i in range(2)) and \
+                time.monotonic() < deadline:
+            self._read(0.2)
+        if sizes:
+            return [self.sizes[(arm, i)][0] for i in range(2)]
+        return sum(p.exitcode is None for p in procs)
+
+    def stop(self):
+        procs = list(self.servers.values()) + self.trainer_procs
+        for p in procs:
+            if p.exitcode is None:
+                p.terminate()
+        for p in procs:
+            p.join(5)
+            if p.exitcode is None:
+                p.kill()
+                p.join()
 
 
 def _moe_config(dropout):
@@ -9865,7 +10730,7 @@ def _device_table(torch, prof, steps, wall_ms):
 # the phases after card and build, in the order they run
 PHASES = ("kernels", "model", "serving", "features", "quant", "tier", "fleet",
           "profile", "train", "packing", "ernie", "vision", "export", "api",
-          "seq2seq", "input", "static", "dist")
+          "seq2seq", "input", "static", "dist", "ps")
 
 
 def main(argv=None):

@@ -3,10 +3,10 @@
 `torch.distributed` (NCCL on the card, gloo on the CPU), the mesh of
 `parallel.mesh`, the collectives (with the differentiable `ppermute` and
 `all_to_all`), `DataParallel`, the tensor-parallel layers, ZeRO through
-`sharding`, fleet's collective side (`fleet`) and the launcher
-(`launch`, `spawn`, `--elastic`). The transpiler and the parameter
-server are not ported yet (ROADMAP A1e)."""
-from . import collective, fleet, sharding  # noqa: F401
+`sharding`, fleet (`fleet`), the launcher (`launch`, `spawn`,
+`--elastic`), the parameter server (`ps`) and the legacy
+`DistributeTranspiler` over it."""
+from . import collective, fleet, ps, sharding  # noqa: F401
 from .collective import (ReduceOp, all_gather, all_reduce,  # noqa: F401
                          all_to_all, alltoall, barrier, broadcast,
                          get_group, new_group, ppermute, recv, reduce,
@@ -20,6 +20,8 @@ from .sharding import (group_sharded_parallel,  # noqa: F401
                        save_group_sharded_model)
 from .tensor_parallel import (ColumnParallelLinear,  # noqa: F401
                               RowParallelLinear, VocabParallelEmbedding)
+from .transpiler import (DistributeTranspiler,  # noqa: F401
+                         DistributeTranspilerConfig)
 
 
 def _spawn_target(func, args, env):

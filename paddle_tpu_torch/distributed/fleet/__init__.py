@@ -2,12 +2,16 @@
 collective side — `DistributedStrategy`, the role makers, `UtilBase` and
 the file systems, the fleet metrics, `Fleet` / `fleet` (whose
 `build_sharded_train_step` picks the strategy's step), the elastic
-heartbeat and manager over the KV server, and the launcher. The
-parameter server (`dataset`, `device_worker`, `fleet_wrapper`) is not
-ported yet (ROADMAP A1e)."""
-from . import elastic, launch, metrics  # noqa: F401
+heartbeat and manager over the KV server, the launcher, and the
+parameter server's side: `FleetWrapper`, `DownpourWorker` and the slot
+datasets (`InMemoryDataset`, `QueueDataset`, `MultiSlotDataGenerator`)."""
+from . import dataset, elastic, launch, metrics  # noqa: F401
+from .dataset import (InMemoryDataset, MultiSlotDataGenerator,  # noqa: F401
+                      QueueDataset)
+from .device_worker import DownpourWorker  # noqa: F401
 from .elastic import ElasticManager, ElasticStatus, HeartbeatClient  # noqa: F401
 from .fleet_base import Fleet, fleet  # noqa: F401
+from .fleet_wrapper import FleetWrapper  # noqa: F401
 from .http_server import KVClient, KVServer  # noqa: F401
 from .role_maker import (PaddleCloudRoleMaker, Role,  # noqa: F401
                          RoleMakerBase, UserDefinedRoleMaker)

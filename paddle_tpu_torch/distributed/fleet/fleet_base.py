@@ -17,13 +17,17 @@ package's does (`fleet_base.py:145-175`):
   `sequence_parallel`, `recompute`, fp16 gradients for the all-reduce
   when `fp16_allreduce`, DGC with `dgc_configs`' momentum and sparsity.
 The parameter-server side (`init_worker`, `init_server`, `run_server`,
-`stop_worker`) is not ported yet and raises.
+`stop_worker`) drives `distributed.ps.the_one_ps()`, as the JAX
+package's does (`fleet_base.py:178-203`). `init(is_collective=False)`
+(a parameter-server job) joins no collective world: its servers and
+trainers meet over the servers' TCP endpoints, and a card stays free for
+the trainers (the JAX package's `init_parallel_env` joins no world on
+one host either).
 """
 from __future__ import annotations
 
 from typing import Optional
 
-from ...framework.errors import UnimplementedError
 from ...parallel.mesh import create_mesh, get_mesh
 from ..env import get_rank, get_world_size, init_parallel_env
 from .role_maker import PaddleCloudRoleMaker, RoleMakerBase
@@ -74,12 +78,6 @@ class _DistributedModel:
         return self._layers.state_dict(*a, **k)
 
 
-def _ps_not_ported(name):
-    raise UnimplementedError(
-        f"fleet.{name}: the parameter server is not yet ported to "
-        f"paddle_tpu_torch (ROADMAP A1e)")
-
-
 class Fleet:
     def __init__(self):
         self._role_maker: Optional[RoleMakerBase] = None
@@ -93,8 +91,9 @@ class Fleet:
             is_collective=is_collective)
         self._is_collective = is_collective
         self._strategy = strategy or DistributedStrategy()
-        init_parallel_env()
-        create_mesh(self._strategy.mesh_axes(get_world_size()))
+        if is_collective:
+            init_parallel_env()
+            create_mesh(self._strategy.mesh_axes(get_world_size()))
         self._inited = True
         return self
 
@@ -184,22 +183,34 @@ class Fleet:
         loss.backward()
         return [], []
 
-    # -- the parameter server (ROADMAP A1e) --------------------------------
+    # -- the parameter server (distributed/ps) -----------------------------
     def init_worker(self):
-        _ps_not_ported("init_worker")
+        from ..ps.runtime import the_one_ps
+        the_one_ps().init_worker()
 
     def init_server(self, *args, **kwargs):
-        _ps_not_ported("init_server")
+        from ..ps.runtime import the_one_ps
+        the_one_ps().init_server(*args, **kwargs)
 
     def run_server(self):
-        _ps_not_ported("run_server")
+        from ..ps.runtime import the_one_ps
+        the_one_ps().run_server()
 
     def stop_worker(self):
-        _ps_not_ported("stop_worker")
+        from ..ps.runtime import the_one_ps
+        the_one_ps().stop_worker()
 
     def save_persistables(self, executor=None, dirname=None,
                           main_program=None, mode=0):
-        _ps_not_ported("save_persistables")
+        """Writes an empty state to `dirname`/fleet_persistables.pdparams
+        and not the tables, as the JAX package's does (its
+        `fleet_base.py:195-201`; ROADMAP C39): save a table through
+        `FleetWrapper.save_model` or `PsClient.save`."""
+        from ...framework.io_state import save
+        if dirname:
+            import os
+            os.makedirs(dirname, exist_ok=True)
+            save({}, os.path.join(dirname, "fleet_persistables.pdparams"))
 
     @property
     def util(self):

@@ -119,6 +119,62 @@ class Optimizer:
             self._accumulators[id(p)] = st
         self._global_step = step_no
 
+    # rules whose _update takes whole-tensor norms (trust ratios) cannot
+    # be applied row-wise; they set this to False
+    _rowwise_safe = True
+
+    @torch.no_grad()
+    def apply_selected_rows(self, param, srows, advance_step=True):
+        """Sparse-row update over a SelectedRows gradient (reference
+        sparse kernels in `operators/optimizers/*_op.cc` consuming
+        `framework/selected_rows.h` gradients; the JAX package's
+        `optimizer.py:115-150`): only the touched rows of the parameter
+        and of its accumulators are read or written, in place on the
+        parameter's device, and no vocabulary-sized dense gradient is
+        made.
+
+        When several sparse tables are updated in one optimization step,
+        pass advance_step=False for all but the last call, so that the
+        Adam family's bias correction sees one step an iteration, as
+        `step()` does."""
+        if not self._rowwise_safe:
+            raise NotImplementedError(
+                f"{type(self).__name__} computes whole-tensor trust-ratio "
+                f"norms; a row-subset update would change its scale — use "
+                f"a dense gradient")
+        m = srows.merge()
+        if m.height != param.shape[0]:
+            raise ValueError(
+                f"SelectedRows height {m.height} != param rows "
+                f"{param.shape[0]}")
+        rows = torch.as_tensor(m.rows, dtype=torch.int64,
+                               device=param.device)
+        st = self._accumulators.get(id(param))
+        if st is None:
+            st = self._accumulators[id(param)] = self._init_state(param)
+        prow = param.index_select(0, rows)
+        sliced, passthrough = {}, {}
+        for k, v in st.items():
+            if v.dim() >= 1 and v.shape[0] == param.shape[0]:
+                sliced[k] = v.index_select(0, rows)
+            else:
+                passthrough[k] = v
+        g = torch.as_tensor(m.value, device=param.device).reshape(
+            prow.shape)
+        if self._grad_clip is not None:
+            g = self._grad_clip._clip_grads([g])[0]
+        new_prow, new_state = self._update(
+            g, prow, {**sliced, **passthrough}, self.get_lr(),
+            self._global_step + 1)
+        param.index_copy_(0, rows, new_prow.to(param.dtype))
+        for k in st:
+            if k in sliced:
+                st[k].index_copy_(0, rows, new_state[k].to(st[k].dtype))
+            else:
+                st[k] = new_state[k]
+        if advance_step:
+            self._global_step += 1
+
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
         """reference `optimizer.py` minimize (the JAX package's

@@ -210,6 +210,8 @@ class Lamb(Optimizer):
     either norm is 0). `exclude_from_weight_decay_fn` is stored and not
     called (C22)."""
 
+    _rowwise_safe = False  # the trust ratio needs whole-tensor norms
+
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
                  grad_clip=None, exclude_from_weight_decay_fn=None,
@@ -241,6 +243,8 @@ class LarsMomentum(Optimizer):
     """reference `operators/optimizers/lars_momentum_op.*`: momentum with
     the layer-wise rate lars_coeff * ||p|| / (||g|| + wd * ||p|| + eps),
     1 where either norm is 0."""
+
+    _rowwise_safe = False  # the local rate needs whole-tensor norms
 
     def __init__(self, learning_rate=0.001, momentum=0.9,
                  lars_coeff=0.001, lars_weight_decay=0.0005, parameters=None,

@@ -222,20 +222,35 @@ def test_model_fit_routes_through_fleet_like_jax(ranks):
                                        err_msg=k)
 
 
-def test_fleet_surface():
-    """The fleet names the port exports, and the parameter server's
-    methods raising typed until it is ported."""
+def test_fleet_surface(monkeypatch):
+    """The fleet names the port exports (the parameter server's too), and
+    an init_server -> init_worker -> stop_worker round trip of the port's
+    fleet on localhost (the server on port 0)."""
     from paddle_tpu_torch.distributed import fleet as tfleet
-    from paddle_tpu_torch.framework.errors import UnimplementedError
+    from paddle_tpu_torch.distributed.ps import runtime as truntime
     for name in ("init", "distributed_optimizer", "distributed_model",
                  "build_sharded_train_step", "worker_num", "is_first_worker",
                  "DistributedStrategy", "PaddleCloudRoleMaker",
                  "UserDefinedRoleMaker", "UtilBase", "LocalFS", "HDFSClient",
                  "ElasticManager", "HeartbeatClient", "ElasticStatus",
-                 "KVServer", "KVClient", "metrics", "worker_index"):
+                 "KVServer", "KVClient", "metrics", "worker_index",
+                 "FleetWrapper", "DownpourWorker", "InMemoryDataset",
+                 "QueueDataset", "MultiSlotDataGenerator"):
         assert hasattr(tfleet, name) and hasattr(jfleet, name), name
-    with pytest.raises(UnimplementedError, match="parameter server"):
-        tfleet.init_worker()
+    monkeypatch.setattr(truntime, "_runtime", None)
+    monkeypatch.setenv("PADDLE_PSERVERS_IP_PORT_LIST", "127.0.0.1:0")
+    monkeypatch.setenv("PADDLE_PSERVER_ID", "0")
+    rt = truntime.the_one_ps()
+    tid = rt.register_dense_table(3, rule="sum")
+    tfleet.init_server()
+    monkeypatch.setenv("PADDLE_PSERVERS_IP_PORT_LIST",
+                       f"127.0.0.1:{rt.server.port}")
+    tfleet.init_worker()
+    rt.client.push_dense(tid, np.ones(3, np.float32))
+    np.testing.assert_array_equal(rt.client.pull_dense(tid), np.ones(3))
+    tfleet.stop_worker()
+    rt.server._thread.join(5)
+    assert not rt.server._thread.is_alive()
     s = tfleet.DistributedStrategy()
     assert s.mesh_axes(8) == jfleet.DistributedStrategy().mesh_axes(8)
     s.pipeline, s.sequence_parallel = True, True
