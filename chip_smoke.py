@@ -364,8 +364,9 @@ Phases:
               CPU
 15. dist    multi-GPU, one process a rank. (a) World size 1 over NCCL in
               this process (distributed.init_parallel_env()): a packed
-              GPT-2-small LM (12 layers of 12 heads at hidden 768,
-              vocabulary 50304; phase 7's packed sequences, 8 x 1024)
+              LM at GPT-2 small's widths (12 heads at hidden 768,
+              vocabulary 50304) and 4 layers (phase 7's packed
+              sequences, 8 x 1024)
               trained 3 steps through parallel.make_sharded_train_step
               (dp 1, ZeRO-1) with K5-K7 through
               parallel.sharded_splash_attention, against the same steps
@@ -380,7 +381,7 @@ Phases:
               distributed.spawn (a correctness arm: no time it prints is a
               multi-card number): which collectives gloo carries on CUDA
               tensors (the arms need all_reduce and all_gather); tp = 2
-              serving of phase 5's requests in fp32 and int8 pools (rank 0
+              serving of phase 5's 16 requests in fp32 and int8 pools (rank 0
               schedules; K1 on 6 local heads in each rank), identical to
               (a)'s tp = 1 up to near-ties (first tokens exact, a first
               flip only at a top-2 gap < NEAR_TIE); dp = 2 packed training
@@ -389,15 +390,16 @@ Phases:
               (a)'s) and on (the two ranks' keep shares on identical rows
               differ), each rank's optimizer bytes half of (a)'s. Printed:
               each arm's wall, peak allocated bytes and K1/K5-K7 launches.
-              The strategies (the train steps fleet picks) on GPT-2 small
-              (GPTConfig(), dropout 0, fp32, TF32 off, 8 x 1024, SGD 0.1):
+              The strategies (the train steps fleet picks) on GPT-2
+              small's widths at 4 layers (dropout 0, fp32, TF32 off, 8 x
+              1024, SGD 0.1):
               (a) fleet.init + hapi Model.fit, 3 steps, bit-equal to
-              make_sharded_train_step on the same batches, K2-K4 12 a
+              make_sharded_train_step on the same batches, K2-K4 4 a
               step; the same fit under O1, K2-K4 all bf16. (b) two gloo
               ranks on the card (distributed.spawn; correctness only):
               the port's send / recv of a CUDA tensor and a ppermute hop
               bit for bit (ROADMAP C35; the probe's send_recv now goes
-              through them); pp 2 (6 blocks a stage, 4 microbatches)
+              through them); pp 2 (2 blocks a stage, 4 microbatches)
               GPipe with and without recompute and 1F1B, 2 steps each;
               sp 2 ring and Ulysses attention at S 1024 (512 a rank),
               causal, fp32 1e-5 and bf16 2e-2 x max(1, |ref|) against
@@ -415,7 +417,25 @@ Phases:
               world-1 fit of the same rows. Losses within rtol 2e-4
               / atol 2e-5 of the world-1 steps, updates within phase 7's
               rule widened by the weights' fp32 resolution; K2-K4
-              launches as each arm implies, all fp32. Then launch
+              launches as each arm implies, all fp32. The hybrid arms, on
+              two gloo ranks of the card against world-1 references of
+              (a) (3 steps each; losses within rtol 2e-4 / atol 2e-5,
+              updates within phase 7's rule, each rank's blocks against
+              the same blocks of world 1's): (c) ERNIE-base through
+              models.tp_annotate at mp 2 on phase 8 (b)'s padded 8 x 512
+              batch, AdamW 1e-4, dropout 0 and 0.1 (the attention's keep
+              masks keyed on the global head; each parameter within PARAM
+              but for the few elements AdamW moves on gradient noise,
+              `_adam_worst`), and one O1 SGD step (its update within
+              phase 6's AMP limits), K2-K4 12 a step on 6 heads a rank;
+              (d) the
+              8-expert MoE GPT at GPT-2 small's widths and 4 layers, ep 2
+              (4 experts a rank, half the expert bytes); (e) (a)'s packed
+              LM at dp 2 under ClipGradByGlobalNorm(1.0) at ZeRO-2
+              and ZeRO-3 (half the parameter bytes a rank between steps),
+              Lamb at ZeRO-1 against ZeRO-0, DGC at ZeRO-2 against ZeRO-0
+              (the same entries kept each step); (f) GPipe at pp 2 of the
+              strategies' GPT under the clip, fp32 and O1. Then launch
               --elastic of two ranks of the card, rank 1 hung before its
               first beat: the launcher names it and kills the job
 16. ps      the parameter server at PaddleRec's CTR-DNN widths (26 sparse
@@ -1654,6 +1674,7 @@ class Smoke:
         self.check_autograd()
         self.check_splash_kernels()
         self.check_dist_kernels()
+        self.check_head_offset_kernels()
 
     # -- 4. model --------------------------------------------------------------
 
@@ -7450,6 +7471,84 @@ class Smoke:
 
     # -- 3. the sharded dispatches' kernels (phase 15's shapes) -----------------
 
+    def check_head_offset_kernels(self):
+        """K2-K4 on a tensor-parallel rank's heads: ERNIE-base at mp 2
+        (rank 1's heads 6-11 of 12: [8, 6, 512, 64], its key-padding bias,
+        non-causal, p 0.1, fp32 and bf16), the dropout keyed on the global
+        head (`flash_ops.head_keyed_seed(seed, 6, 12)`), against their
+        plain versions at the same keyed seed (FLASH_TOL); and the plain
+        keep mask of that seed equal to heads 6-11 of the 12-head mask.
+        Rows in details["head_offset_kernels"]."""
+        torch = self.torch
+        from paddle_tpu_torch.ops import flash_ops as fo
+        B, H, S, D, p = 8, 6, 512, 64, DROPOUT
+        seed = fo.head_keyed_seed(1234, H, 2 * H)
+        scale = 1.0 / D ** 0.5
+        whole = fo._keep_mask(1234, B, 2 * H, S, S, p, "cuda")
+        mine = fo._keep_mask(seed, B, H, S, S, p, "cuda")
+        same = bool(torch.equal(mine, whole[:, H:]))
+        print(f"head offset: the keep mask of heads 6-11 keyed on the "
+              f"global head equals those heads of the 12-head mask: {same}")
+        assert same, "the head-keyed mask is not the whole model's"
+        del whole, mine
+        rows = []
+        for name in ("float32", "bfloat16"):
+            dtype = getattr(torch, name)
+            tol = FLASH_TOL[name]
+            q, k, v, do, bias = self.train_inputs(dtype, False, "ernie", H=H,
+                                                  D=D, Sq=S, B=B)
+            tag = dict(shape=f"{B}x{H}x{S}x{S}x{D}", p=p, head_offset=H,
+                       heads=2 * H)
+            pairs = S * S
+            q_b = B * H * S * D * q.element_size()
+            row_b, bias_b = B * H * S * 4, B * S * 4
+            out, lse = fo.flash_attention_fwd(q, k, v, bias, False, scale, p,
+                                              seed)
+            ref, ref_lse = fo._flash_fwd_reference(q, k, v, bias, False,
+                                                   scale, p, seed)
+            torch.cuda.synchronize()
+            rows.append(self._row(
+                "K2 flash_fwd head offset", name,
+                max((out.float() - ref.float()).abs().max().item(),
+                    (lse - ref_lse).abs().max().item()),
+                ref.float().abs().max().item(), tol,
+                _time_ms(torch, lambda: fo.flash_attention_fwd(
+                    q, k, v, bias, False, scale, p, seed), 10),
+                _time_ms(torch, lambda: fo._flash_fwd_reference(
+                    q, k, v, bias, False, scale, p, seed), 3),
+                4 * B * H * pairs * D, 4 * q_b + row_b + bias_b, None,
+                kernel="flash_fwd", **tag))
+            delta = fo._delta(ref, do)
+            bw = (q, k, v, bias, do, ref_lse, delta, False, scale, p, seed)
+            dq = fo.flash_attention_dq(*bw)
+            dq_ref = fo._dq_reference(*bw)
+            torch.cuda.synchronize()
+            rows.append(self._row(
+                "K3 flash_dq head offset", name,
+                (dq.float() - dq_ref.float()).abs().max().item(),
+                dq_ref.float().abs().max().item(), tol,
+                _time_ms(torch, lambda: fo.flash_attention_dq(*bw), 10),
+                _time_ms(torch, lambda: fo._dq_reference(*bw), 3),
+                6 * B * H * pairs * D, 5 * q_b + 2 * row_b + bias_b, None,
+                kernel="flash_bwd_dq", **tag))
+            dk, dv = fo.flash_attention_dkv(*bw)
+            dk_ref, dv_ref = fo._dkv_reference(*bw)
+            torch.cuda.synchronize()
+            rows.append(self._row(
+                "K4 flash_dkv head offset", name, max(
+                    (dk.float() - dk_ref.float()).abs().max().item(),
+                    (dv.float() - dv_ref.float()).abs().max().item()),
+                max(dk_ref.float().abs().max().item(),
+                    dv_ref.float().abs().max().item()), tol,
+                _time_ms(torch, lambda: fo.flash_attention_dkv(*bw), 10),
+                _time_ms(torch, lambda: fo._dkv_reference(*bw), 3),
+                8 * B * H * pairs * D, 6 * q_b + 2 * row_b + bias_b, None,
+                kernel="flash_bwd_dkv", **tag))
+            del q, k, v, do, bias, out, lse, ref, ref_lse, delta, bw, dq
+            del dq_ref, dk, dv, dk_ref, dv_ref
+            torch.cuda.empty_cache()
+        self.details["head_offset_kernels"] = rows
+
     def check_dist_kernels(self):
         """Phase 15's dispatches of K1 and K5-K7 against their plain
         versions; rows in details["dist_kernels"] (the kernels line keeps
@@ -7624,9 +7723,11 @@ class Smoke:
             self.dist_data_parallel_a()
             refs = self.dist_serving_a(wd)
             w1, w1_fit = self.dist_fleet_a(wd)
+            hybrid = self.dist_hybrid_a(wd, batch)
             D.destroy_process_group()
             self.dist_b(wd, batch, state, refs)
             self.dist_strategies_b(wd, w1, w1_fit)
+            self.dist_hybrid_b(wd, hybrid)
             self.dist_elastic_b(wd)
         finally:
             from paddle_tpu_torch.distributed.env import destroy_process_group
@@ -7645,7 +7746,7 @@ class Smoke:
             _motif_seqs(np, lengths[:n]))
 
     def dist_packed_a(self, batch, wd):
-        """(a) the packed GPT-2-small step (`_packed_gpt`, attention through
+        """(a) the packed LM's step (`_packed_gpt`, attention through
         sharded_splash_attention) through make_sharded_train_step at dp 1,
         ZeRO-1, DIST["STEPS"] steps, dropout 0, against the same model
         trained the same steps in one process by the optimizer's own step
@@ -7700,7 +7801,8 @@ class Smoke:
                       for n, p in ref.named_parameters()}
         deltas = {n: p.detach() - init[n] for n, p in model.named_parameters()}
         worst = _grad_worst(deltas, deltas_ref, 1e-3, 1e-6)
-        print(f"dist (a) packed GPT-2 small [{DIST['ROWS']}, {PACK['T']}] "
+        print(f"dist (a) packed LM ({DIST['LAYERS']} layers at GPT-2 small's "
+              f"widths) [{DIST['ROWS']}, {PACK['T']}] "
               f"x {DIST['STEPS']} steps, dp 1 over nccl, ZeRO-1: losses "
               f"{[round(x, 6) for x in losses]} vs the single-process step "
               f"{[round(x, 6) for x in ref_losses]}; worst update max_abs_err "
@@ -7922,7 +8024,7 @@ class Smoke:
         a = state_a["losses"]
         for r, rec in enumerate(recs):
             t = rec["train"]
-            print(f"dist (b) dp 2 rank {r} packed GPT-2 small, ZeRO-1: "
+            print(f"dist (b) dp 2 rank {r} packed LM, ZeRO-1: "
                   f"dropout off losses {[round(x, 6) for x in t['losses']]} "
                   f"vs (a) {[round(x, 6) for x in a]}; dropout {DROPOUT} "
                   f"losses {[round(x, 6) for x in t['losses_dropout']]}; "
@@ -8268,6 +8370,270 @@ class Smoke:
                 n = len(a["losses"])
                 check(kernels(a, k2 * n, k2 * n), f"{arm} r{r} launches")
                 keep(arm, r, a)
+        assert not fails, fails
+
+    def dist_hybrid_a(self, wd, batch):
+        """(a) the world-1 references of (b)'s hybrid arms (see
+        `_hybrid_arms`), each saved as its updates (on the host) for
+        the ranks, through make_sharded_train_step at world 1 over NCCL,
+        ZeRO-1, HYBRID["STEPS"] steps: ERNIE-base at dropout 0 and
+        DROPOUT, and one SGD step under O1 and in fp32; the MoE GPT; the
+        packed LM at dp 1 under the clip; the strategies' GPT under the clip
+        in fp32 and O1. Returns their losses and the MoE's expert
+        bytes."""
+        torch = self.torch
+        import contextlib
+        import numpy as np
+        from paddle_tpu_torch import amp, nn, optimizer
+        from paddle_tpu_torch.models import (ErnieForSequenceClassification,
+                                             GPTConfig, GPTForCausalLM)
+        from paddle_tpu_torch.parallel import (create_mesh,
+                                               make_sharded_train_step,
+                                               set_mesh)
+        ce = nn.CrossEntropyLoss()
+        refs = {}
+        n = HYBRID["STEPS"]
+
+        def run(tag, m, opt_fn, ins, lbs, steps=n, level=None,
+                loss=lambda o, lb: ce(o, lb[0]), batches=None, **kw):
+            init = {k: q.detach().clone() for k, q in m.named_parameters()}
+            step, st = make_sharded_train_step(m, opt_fn(m), loss,
+                                               zero_stage=1)
+            losses = []
+            for i in range(steps):
+                if batches is not None:
+                    ins, lbs = batches[i]
+                with (amp.auto_cast(level=level) if level
+                      else contextlib.nullcontext()):
+                    st, lv = step(st, ins, lbs, **kw)
+                losses.append(float(lv))
+            torch.save({k: (q.detach() - init[k]).cpu()
+                        for k, q in m.named_parameters()},
+                       os.path.join(wd, f"h_{tag}.pt"))
+            refs[tag] = losses
+            print(f"dist (a) world-1 reference {tag}: losses "
+                  f"{[round(x, 6) for x in losses]}")
+            del init, step, st
+            torch.cuda.empty_cache()
+        for tag, p in (("p0", 0.0), ("p1", DROPOUT), ("o1", 0.0),
+                       ("o1_fp32", 0.0)):
+            cfg, batches = _hybrid_ernie(np, p)
+            m = ErnieForSequenceClassification(cfg, device="cuda", seed=0)
+            run(f"ernie_{tag}", m,
+                lambda m, tag=tag: _hybrid_ernie_opt(optimizer, tag, m),
+                None, None, n if tag in ("p0", "p1") else 1,
+                "O1" if tag == "o1" else None, batches=batches, rng=7)
+            del m
+        x, y = _hybrid_moe_batch(np)
+        m = GPTForCausalLM(_hybrid_moe_config(), device="cuda", seed=0)
+        refs["moe_expert_bytes"] = sum(
+            q.numel() * q.element_size() for k, q in m.named_parameters()
+            if k.endswith(("w_up", "w_down")))
+        run("moe", m, lambda m: optimizer.SGD(
+            STRAT["LR"], parameters=m.parameters()), (x,), (y,))
+        del m
+        create_mesh({"dp": 1})
+        try:
+            m = _packed_gpt(torch, sharded=True, dropout=0.0).cuda()
+            m.load_state_dict(torch.load(os.path.join(wd, "packed.pt"),
+                                         map_location="cuda"))
+            run("packed_clip", m, lambda m: optimizer.SGD(
+                STRAT["LR"], parameters=m.parameters(),
+                grad_clip=nn.ClipGradByGlobalNorm(HYBRID["CLIP"])),
+                [torch.as_tensor(v).cuda() for v in batch[:3]],
+                [torch.as_tensor(v).cuda() for v in batch[3:5]],
+                loss=lambda o, lb: _packed_loss(torch, o, lb))
+            del m
+        finally:
+            set_mesh(None)
+        with open(os.path.join(wd, "s_cfg.json")) as f:
+            scfg = GPTConfig(**json.load(f))
+        zs = np.load(os.path.join(wd, "s_batch.npz"))
+        init_s = torch.load(os.path.join(wd, "s_init.pt"), map_location="cuda")
+        for tag, level in (("fp32", None), ("o1", "O1")):
+            m = GPTForCausalLM(scfg, device="cuda", seed=0)
+            m.load_state_dict(init_s)
+            run(f"pp_{tag}", m, lambda m: optimizer.SGD(
+                STRAT["LR"], parameters=m.parameters(),
+                grad_clip=nn.ClipGradByGlobalNorm(HYBRID["CLIP"])),
+                (zs["x"],), (zs["y"],), level=level)
+            del m
+        del init_s
+        torch.cuda.empty_cache()
+        return refs
+
+    def dist_hybrid_b(self, wd, refs):
+        """(b) the hybrid arms on two gloo ranks of this card (see
+        `_hybrid_arms`), run by the strategy arms' ranks; a correctness
+        cell: no time it prints is a multi-card number. Gates: losses
+        within rtol 2e-4 / atol 2e-5 of their reference (the pipeline's
+        O1: AMP_LOSS_RTOL; ERNIE's O1 step: phase 8 (c)'s
+        ERNIE_AMP_LOSS_TOL),
+        each update within phase 7's rule (the pipeline's O1: phase 6's
+        AMP rule; ERNIE's O1 SGD step: `_bf16_worst`, phase 6's AMP
+        allowance plus twice the distance bf16 puts world 1's update from
+        its fp32 update; ERNIE's AdamW steps: `_adam_worst`,
+        every element within PARAM plus the most two AdamW runs can part,
+        at most ADAM_SHARE of each parameter's elements outside PARAM,
+        and the fault it reads above ADAM_SHARE), the keys' bias
+        left out of Adam-family updates (`_without_key_bias`); the
+        ERNIE rank attends 6 heads, K2-K4 12 launches a step in the path's
+        type; the MoE rank holds 4 experts, half of world 1's expert
+        bytes; ZeRO-3 holds half the parameter bytes a rank between steps,
+        its allocated bytes at least 0.9 x that half below ZeRO-2's (the
+        same step; ZeRO-1's recorded by the Lamb arm); DGC at ZeRO-2 keeps
+        the entries ZeRO-0 keeps; K5-K7 and the pipeline's K2-K4 the
+        launches each arm implies."""
+        import numpy as np
+        recs = []
+        for r in range(2):
+            with open(os.path.join(wd, f"hybrid{r}.json")) as f:
+                recs.append(json.load(f))
+        print(f"dist (b) hybrid: run by the strategy arms' 2 ranks (one "
+              f"card, gloo; {self.smi})")
+        self.details["dist_hybrid_b"] = dict(ranks=recs, refs=refs)
+        n, fails = HYBRID["STEPS"], []
+
+        def check(ok, what):
+            if not ok:
+                fails.append(what)
+
+        def close(a, b, amp_level=False):
+            if amp_level == "ernie":
+                # phase 8 (c)'s bf16 limit on a classifier's loss: the
+                # row-parallel sums add a bf16 rounding a layer
+                return all(abs(x - y)
+                           <= ERNIE_AMP_LOSS_TOL * max(1.0, abs(y))
+                           for x, y in zip(a, b))
+            if amp_level:
+                return bool(np.allclose(a, b, rtol=AMP_LOSS_RTOL["bfloat16"],
+                                        atol=0))
+            return bool(np.allclose(a, b, rtol=2e-4, atol=2e-5))
+
+        def by(a, k):
+            return a["launches_by_dtype"][k]
+
+        def line(arm, r, a, ref, extra=""):
+            print(f"dist (b) {arm} rank {r}: losses "
+                  f"{[round(x, 6) for x in a['losses']]} vs "
+                  f"{[round(x, 6) for x in ref]}; worst {a['worst'][1]} "
+                  f"/ its tolerance {a['worst'][0]:.3e}; step "
+                  f"wall {[round(x, 3) for x in a['step_s']]} s, peak "
+                  f"allocated {a['peak_bytes'] / 2**30:.2f} GiB; launches "
+                  f"by type K2 {by(a, 'flash_fwd')} K3 {by(a, 'flash_bwd_dq')}"
+                  f" K4 {by(a, 'flash_bwd_dkv')} K5 {by(a, 'splash_fwd')} K6 "
+                  f"{by(a, 'splash_bwd_dq')} K7 {by(a, 'splash_bwd_dkv')}"
+                  f"{extra}; {self.smi}")
+            self.path_launches[f"dist_hybrid_{arm}_r{r}"] = a["launches"]
+            self.path_dtype_launches[f"dist_hybrid_{arm}_r{r}"] = \
+                a["launches_by_dtype"]
+
+        def flash(a, dt, k):
+            return all(by(a, key) == {dt: k} for key in (
+                "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+
+        def splash(a, k):
+            return all(by(a, key) == {"float32": k} for key in (
+                "splash_fwd", "splash_bwd_dq", "splash_bwd_dkv"))
+        ecfg = _hybrid_ernie(np, 0.0)[0]
+        L, heads = ecfg.num_hidden_layers, ecfg.num_attention_heads // 2
+        for r, rec in enumerate(recs):
+            for tag in ("p0", "p1", "o1"):
+                a, o1 = rec[f"ernie_{tag}"], tag == "o1"
+                w = a["worst"]
+                line(f"ernie_{tag} (ERNIE-base mp 2, tp_annotate)", r, a,
+                     refs[f"ernie_{tag}"], f"; local heads {a['heads']}" + (
+                         f"; phase 6's AMP rule against the fp32 update: "
+                         f"world 1's bf16 {w[2]:.3e}, this rank's "
+                         f"{w[3]:.3e}" if o1 else
+                         f"; largest share outside PARAM {w[2]:.3e} "
+                         f"({w[3]}), limit {ADAM_SHARE}; the rule's "
+                         f"reading of a wrong-rank linear1.bias slice "
+                         f"{w[4]:.3e}"))
+                check(close(a["losses"], refs[f"ernie_{tag}"],
+                            o1 and "ernie"), f"ernie_{tag} r{r} losses")
+                check(w[0] <= 1.0, f"ernie_{tag} r{r} update")
+                if not o1:
+                    check(w[2] <= ADAM_SHARE < w[4],
+                          f"ernie_{tag} r{r} share outside PARAM")
+                check(a["heads"] == heads, f"ernie_{tag} r{r} heads")
+                check(flash(a, "bfloat16" if o1 else "float32",
+                            L * (1 if o1 else n)),
+                      f"ernie_{tag} r{r} launches")
+            a = rec["moe"]
+            line("moe (MoE GPT ep 2)", r, a, refs["moe"],
+                 f"; {a['experts']} experts, expert bytes "
+                 f"{a['expert_bytes'] / 2**20:.1f} MiB = "
+                 f"{a['expert_bytes'] / refs['moe_expert_bytes']:.4f} of "
+                 f"world 1's")
+            check(close(a["losses"], refs["moe"]), f"moe r{r} losses")
+            check(a["worst"][0] <= 1.0, f"moe r{r} update")
+            check(a["experts"] == MOE["E"] // 2
+                  and 2 * a["expert_bytes"] == refs["moe_expert_bytes"],
+                  f"moe r{r} experts")
+            check(flash(a, "float32", HYBRID["MOE_LAYERS"] * n),
+                  f"moe r{r} launches")
+            for stage in (2, 3):
+                a = rec[f"zero{stage}_clip"]
+                share = a["param_bytes"] / a["full_param_bytes"]
+                line(f"zero{stage}_clip (packed LM dp 2, "
+                     f"ClipGradByGlobalNorm({HYBRID['CLIP']}))", r, a,
+                     refs["packed_clip"],
+                     f"; between steps parameter bytes held "
+                     f"{a['param_bytes'] / 2**20:.1f} MiB = {share:.4f} of "
+                     f"the model's, allocated {a['allocated'] / 2**30:.3f} "
+                     f"GiB")
+                check(close(a["losses"], refs["packed_clip"]),
+                      f"zero{stage}_clip r{r} losses")
+                check(a["worst"][0] <= 1.0, f"zero{stage}_clip r{r} update")
+                check(splash(a, DIST["LAYERS"] * n),
+                      f"zero{stage}_clip r{r} launches")
+                if stage == 3:
+                    # the same step at ZeRO-2 holds the whole parameters
+                    freed = rec["zero2_clip"]["allocated"] - a["allocated"]
+                    print(f"dist (b) zero3 rank {r}: allocated between "
+                          f"steps {freed / 2**20:.1f} MiB below ZeRO-2's "
+                          f"(half the parameters: "
+                          f"{a['full_param_bytes'] / 2**21:.1f} MiB)")
+                    check(abs(share - 0.5) < 0.01,
+                          f"zero3 r{r} parameter bytes")
+                    check(freed >= 0.9 * a["full_param_bytes"] / 2,
+                          f"zero3 r{r} allocated vs ZeRO-2")
+            a, b = rec["lamb1"], rec["lamb0"]
+            line("lamb1 (Lamb ZeRO-1 vs ZeRO-0, dp 2)", r, a, b["losses"],
+                 f"; allocated between steps ZeRO-1 "
+                 f"{a['allocated'] / 2**30:.3f} GiB, ZeRO-0 "
+                 f"{b['allocated'] / 2**30:.3f} GiB (with ZeRO-0's update "
+                 f"kept)")
+            self.path_launches[f"dist_hybrid_lamb0_r{r}"] = b["launches"]
+            self.path_dtype_launches[f"dist_hybrid_lamb0_r{r}"] = \
+                b["launches_by_dtype"]
+            check(close(a["losses"], b["losses"]), f"lamb1 r{r} losses")
+            check(a["worst"][0] <= 1.0, f"lamb1 r{r} update")
+            check(splash(a, DIST["LAYERS"] * n) and splash(
+                b, DIST["LAYERS"] * n), f"lamb r{r} launches")
+            a, b = rec["dgc2"], rec["dgc0"]
+            line("dgc2 (DGC ZeRO-2 vs ZeRO-0, dp 2)", r, a, b["losses"],
+                 f"; kept a step {a['kept']} vs ZeRO-0 {b['kept']}")
+            self.path_launches[f"dist_hybrid_dgc0_r{r}"] = b["launches"]
+            self.path_dtype_launches[f"dist_hybrid_dgc0_r{r}"] = \
+                b["launches_by_dtype"]
+            check(a["kept"] == b["kept"], f"dgc2 r{r} kept")
+            check(close(a["losses"], b["losses"]), f"dgc2 r{r} losses")
+            check(a["worst"][0] <= 1.0, f"dgc2 r{r} update")
+            check(splash(a, DIST["LAYERS"] * n) and splash(
+                b, DIST["LAYERS"] * n), f"dgc r{r} launches")
+            k = _strat_config().num_layers // 2 * STRAT["N_MICRO"] * n
+            for tag in ("fp32", "o1"):
+                a, o1 = rec[f"pp_{tag}"], tag == "o1"
+                line(f"pp_{tag} (GPipe pp 2, stage {a['stage']}, "
+                     f"ClipGradByGlobalNorm({HYBRID['CLIP']}))", r, a,
+                     refs[f"pp_{tag}"], f"; {a['held']} parameters held")
+                check(close(a["losses"], refs[f"pp_{tag}"], o1),
+                      f"pp_{tag} r{r} losses")
+                check(a["worst"][0] <= 1.0, f"pp_{tag} r{r} update")
+                check(flash(a, "bfloat16" if o1 else "float32", k),
+                      f"pp_{tag} r{r} launches")
         assert not fails, fails
 
     def dist_elastic_b(self, wd):
@@ -8842,28 +9208,29 @@ class Smoke:
         return {"kernels": out}
 
 
-# phase 15: the packed GPT-2-small LM (12 layers of 12 heads at hidden 768,
-# vocabulary 50304, 1024 positions), its global batch and step count, the
-# spawned ranks' time limit, and the collectives the (b) arms run on CUDA
-# tensors (ZeRO-1: all_reduce and all_gather; the tp lane: all_reduce)
-DIST = dict(LAYERS=12, HIDDEN=768, HEADS=12, VOCAB=50304, ROWS=8, STEPS=3,
+# phase 15: the packed LM at GPT-2 small's widths (12 heads at hidden 768,
+# vocabulary 50304, 1024 positions) cut to LAYERS layers, its global batch
+# and step count, the spawned ranks' time limit, and the collectives the
+# (b) arms run on CUDA tensors (ZeRO-1: all_reduce and all_gather; the tp
+# lane: all_reduce)
+DIST = dict(LAYERS=4, HIDDEN=768, HEADS=12, VOCAB=50304, ROWS=8, STEPS=3,
             LR=1e-4, TIMEOUT=600, NEEDS=("all_reduce", "all_gather",
                                           "send_recv"))
 
-# phase 15's strategy arms: GPT-2 small (GPTConfig(): 12 layers of 12
-# heads at hidden 768, vocabulary 50304, 1024 positions) at dropout 0,
+# phase 15's strategy arms: GPT-2 small's widths (12 heads at hidden 768,
+# vocabulary 50304, 1024 positions) cut to LAYERS layers, at dropout 0,
 # fp32, TF32 off, on a global batch of ROWS x S, SGD at LR (a rate whose
 # two-step updates stand well above fp32 rounding of the weights); the
 # pipeline's microbatches, each arm's steps, the DGC sparsity, the
 # elastic launcher's limits
-STRAT = dict(ROWS=8, S=1024, LR=0.1, N_MICRO=4, PP_STEPS=2, LOCAL_K4=4,
-             DGC_STEPS=3, DGC_SPARSITY=0.999, TIMEOUT=900,
+STRAT = dict(LAYERS=4, ROWS=8, S=1024, LR=0.1, N_MICRO=4, PP_STEPS=2,
+             LOCAL_K4=4, DGC_STEPS=3, DGC_SPARSITY=0.999, TIMEOUT=900,
              ELASTIC=dict(TIMEOUT=5, GRACE=15, LIMIT=120))
 
 
 def _strat_config():
     from paddle_tpu_torch.models import GPTConfig
-    return GPTConfig(dropout=0.0)
+    return GPTConfig(num_layers=STRAT["LAYERS"], dropout=0.0)
 
 
 def _packed_gpt(torch, sharded, dropout):
@@ -9034,7 +9401,7 @@ def _dist_rank(wd):
     """A rank of phase 15 (b), started by distributed.spawn: joins the
     world over gloo on the card (both ranks on cuda:0), then serves phase 5's
     requests at tp 2 (fp32 pools, then int8; rank 0 schedules) and trains
-    the packed GPT-2 small at dp 2 with ZeRO-1 (dropout 0, then
+    the packed LM at dp 2 with ZeRO-1 (dropout 0, then
     DROPOUT), writing its record to rank{r}.json. Launch counts start
     at 0 in this fresh process and are read after each arm."""
     import numpy as np
@@ -9161,12 +9528,14 @@ def _fingerprint(t):
 def _dist_rank_strategies(wd, device):
     """A rank of phase 15 (b)'s strategy arms, started by
     distributed.spawn: joins the world over gloo on `device` (both ranks
-    on cuda:0), runs the arms below on GPT-2 small from (a)'s saved
-    weights and batch, and writes its record to strat{r}.json. Each arm
-    starts with the launch counts at 0 and reads them at its end:
+    on cuda:0), runs the arms below on the strategies' GPT (`_strat_config`)
+    from (a)'s saved weights and batch, and writes its record to
+    strat{r}.json. Each arm starts with the launch counts at 0 and reads
+    them at its end:
     - c35: the port's send / recv of a CUDA tensor, a ppermute hop and
       its gradient, bit for bit;
-    - pp 2 (6 blocks a stage, STRAT["N_MICRO"] microbatches): GPipe,
+    - pp 2 (STRAT["LAYERS"] / 2 blocks a stage, STRAT["N_MICRO"]
+      microbatches): GPipe,
       GPipe with recompute, 1F1B, 2 steps each;
     - sp 2: ring and Ulysses attention of [8, 12, 1024, 64] causal (512
       rows a rank), fp32 and bf16, output and q/k/v gradients against
@@ -9182,7 +9551,8 @@ def _dist_rank_strategies(wd, device):
       accumulate_steps STRAT["N_MICRO"]) over the batch for
       STRAT["PP_STEPS"] epochs (the stages written back at each epoch's
       end), and the default strategy (dp 2) over (a)'s R + R/2 rows, whose
-      padded tail folds its row mask over the global count."""
+      padded tail folds its row mask over the global count.
+    Then the hybrid arms in the same world (`_hybrid_arms`)."""
     import numpy as np
     import torch
     sys.path.insert(0, str(REPO))
@@ -9377,14 +9747,14 @@ def _dist_rank_strategies(wd, device):
         real = compression.dgc_compress
         last = STRAT["DGC_STEPS"]
 
-        def spy(grads, state, momentum, sp_):
+        def spy(grads, state, momentum, sp_, **kw):
             seen["n"] = seen.get("n", 0) + 1
             if seen["n"] == last:
                 seen["cpu_in"] = ({k: v.detach().cpu() for k, v in
                                    grads.items()},
                                   {k: {a: b.detach().cpu() for a, b in
                                        v.items()} for k, v in state.items()})
-            out, new = real(grads, state, momentum, sp_)
+            out, new = real(grads, state, momentum, sp_, **kw)
             kept = 0
             for k, v in out.items():
                 # |v| before the split (emitted + left behind), the k-th
@@ -9490,7 +9860,439 @@ def _dist_rank_strategies(wd, device):
                                    zf["y"], 1, fit_ref, {"dp": 2}))
     with open(os.path.join(wd, f"strat{r}.json"), "w") as f:
         json.dump(rec, f)
+    del ref, init, fit_ref
+    _hybrid_arms(wd)
     D.destroy_process_group()
+
+
+# phase 15 (c)-(f): the hybrid arms on two gloo ranks of the card. ERNIE-base
+# (12 layers of 12 heads at hidden 768) at mp 2 on phase 8 (b)'s first
+# padded 8 x 512 batches, AdamW LR (the O1 step: SGD at O1_LR); the
+# 8-expert MoE GPT at GPT-2-small
+# widths and MOE_LAYERS layers at ep 2 on phase 11's 8 x 1024 batch; the
+# packed LM at dp 2 under ClipGradByGlobalNorm(CLIP), Lamb at
+# LAMB_LR, DGC at DGC_SPARSITY; GPipe at pp 2 of the strategies' GPT under
+# the clip (SGD at STRAT LR but where named); STEPS steps an arm
+HYBRID = dict(STEPS=3, LR=1e-4, MOE_LAYERS=4, CLIP=1.0, LAMB_LR=1e-3,
+              DGC_SPARSITY=0.999, O1_LR=1.0)
+# ERNIE's AdamW arms (`_adam_worst`): the share of a parameter's elements
+# that may lie outside rtol 1e-4 / atol 1e-5 of the reference (an element
+# whose gradient is summation-order noise moves by up to lr either way),
+# and the most an AdamW step moves an element, over lr: |m^| / (sqrt(v^) +
+# eps) <= sqrt(sum_i w_i^2 / u_i) (Cauchy-Schwarz over the steps' moment
+# weights w_i, u_i), 1.0035 for 3 steps at betas (0.9, 0.999)
+ADAM_SHARE = 2e-2
+ADAM_STEP_MAX = 1.01
+
+
+def _hybrid_ernie(np, dropout):
+    """(c)'s ERNIE-base config at `dropout` (hidden and attention) and
+    phase 8 (b)'s first HYBRID["STEPS"] batches: [(inputs, labels)] as
+    numpy."""
+    from paddle_tpu_torch.models import ErnieConfig
+    cfg = ErnieConfig.base()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = dropout
+    B, S, n = ERNIE_LONG["B"], ERNIE_LONG["S"], HYBRID["STEPS"]
+    lens = _ernie_lengths(np, B * n, S, seed=1)
+    ids, labels, mask = _ernie_cls_set(np, B * n, S, cfg.vocab_size, B,
+                                       seed=1, lengths=lens)
+    out = []
+    for i in range(n):
+        rows = slice(i * B, (i + 1) * B)
+        out.append(((ids[rows], np.zeros_like(ids[rows]),
+                     np.tile(np.arange(S), (B, 1)), mask[rows]),
+                    (labels[rows],)))
+    return cfg, out
+
+
+def _hybrid_ernie_opt(optimizer, tag, m):
+    """(c)'s optimizer: AdamW at HYBRID["LR"]; for the O1 step (and its
+    fp32 reference, "o1_fp32") SGD at HYBRID["O1_LR"], so its update is
+    the gradient (`_bf16_worst`)."""
+    if tag.startswith("o1"):
+        return optimizer.SGD(HYBRID["O1_LR"], parameters=m.parameters())
+    return optimizer.AdamW(HYBRID["LR"], parameters=m.parameters())
+
+
+def _hybrid_moe_batch(np):
+    """(d)'s batch: phase 11's motif rows, MOE["B"] x MOE["S"] (+1)."""
+    rng = np.random.RandomState(0)
+    motifs = [rng.randint(0, 4096, size=rng.randint(3, 9))
+              for _ in range(64)]
+    ids = np.stack([np.resize(motifs[rng.randint(64)], MOE["S"] + 1)
+                    for _ in range(MOE["B"])]).astype(np.int64)
+    return ids[:, :-1], ids[:, 1:]
+
+
+def _hybrid_moe_config():
+    cfg = _moe_config(0.0)
+    cfg.num_layers = HYBRID["MOE_LAYERS"]
+    return cfg
+
+
+def _without_key_bias(deltas):
+    """Updates without the attention keys' bias: its true gradient is
+    exactly zero (a row's softmax ignores a constant added to all its
+    scores), so an Adam-family update of it is rounding noise that two
+    summation orders draw differently. A fused qkv bias keeps its q and v
+    thirds."""
+    out = {}
+    for n, d in deltas.items():
+        if n.endswith("k_proj.bias"):
+            continue
+        if n.endswith("qkv.bias"):
+            e = d.shape[0] // 3
+            d = d.clone()
+            d[e:2 * e] = 0
+        out[n] = d
+    return out
+
+
+def _sliced_worst(m, ref, init, rule="update", base=None):
+    """The worst parameter of a model whose parameters may be a rank's
+    blocks (their `partition_spec` on the live mesh) against the whole
+    model's updates `ref` (on the host), each cut to the rank's block,
+    the keys' bias left out (`_without_key_bias`): as (its error over its
+    tolerance, its name) by `rule`: "update", `_update_worst` (phase 7's
+    rule on updates); "amp", `_grad_worst` at phase 6's AMP limits on
+    updates; "adam", `_adam_worst` (for HYBRID["STEPS"] AdamW steps at
+    HYBRID["LR"]); "bf16", `_bf16_worst` (an O1 update against world 1's
+    O1 update `ref` and its fp32 update `base`)."""
+    from paddle_tpu_torch.distributed.tensor_parallel import shard_tensor
+    got, want, fp32 = {}, {}, {}
+    for n, p in m.named_parameters():
+        spec = getattr(p, "partition_spec", None)
+        for whole, into in ((ref, want), (base, fp32)):
+            if whole is None:
+                continue
+            d = whole[n]
+            if spec is not None and tuple(d.shape) != tuple(p.shape):
+                d = shard_tensor(d, spec)
+            into[n] = d.to(p.device)
+        got[n] = p.detach() - init[n]
+    got, want = _without_key_bias(got), _without_key_bias(want)
+    if rule == "bf16":
+        return _bf16_worst(got, want, _without_key_bias(fp32))
+    if rule == "amp":
+        return list(_grad_worst(got, want, AMP_GRAD_SHARE["bfloat16"],
+                                AMP_GRAD_FLOOR))
+    if rule == "adam":
+        return _adam_worst(got, want, init, ref)
+    return list(_update_worst(got, want, init))
+
+
+def _bf16_worst(got, want, fp32):
+    """An O1 update `got` against world 1's O1 update `want`, both bf16
+    gradients (SGD), each carrying its own bf16 rounding: [the worst over
+    parameters of max |got - want| / (phase 6's AMP allowance + 2 x max
+    |want - fp32|, the distance bf16 puts world 1's from its fp32 update
+    `fp32`), that parameter, and phase 6's AMP rule read on world 1's
+    bf16 update against fp32 and on this one's, for the record]."""
+    share, fl = AMP_GRAD_SHARE["bfloat16"], AMP_GRAD_FLOOR
+    floor = fl * max(g.abs().max().item() for g in fp32.values())
+    worst = max((((got[n] - want[n]).double().abs().max().item()
+                  / (share * want[n].abs().max().item() + floor
+                     + 2 * (want[n] - fp32[n]).double().abs().max().item())),
+                 n) for n in want)
+    return [worst[0], worst[1], _grad_worst(want, fp32, share, fl)[0],
+            _grad_worst(got, fp32, share, fl)[0]]
+
+
+def _adam_worst(got, want, init, ref):
+    """ERNIE's AdamW arms: [the worst error over (PARAM's tolerance + the
+    most two AdamW runs can part, 2 x ADAM_STEP_MAX x lr a step), its
+    parameter, the largest share of a parameter's elements outside PARAM
+    (rtol 1e-4 / atol 1e-5 on the parameter), that parameter, and the
+    share the same rule reads for a fault: the first column-parallel bias
+    given another mp rank's slice of its reference update]. An AdamW step
+    moves an element whose gradient is summation-order noise by up to lr
+    either way, so an element may leave PARAM; only a few of a
+    parameter's may."""
+    from paddle_tpu_torch.distributed.tensor_parallel import _axis
+    bound = 2 * ADAM_STEP_MAX * HYBRID["LR"] * HYBRID["STEPS"]
+
+    def outside(n, g):
+        tol = 1e-5 + 1e-4 * (init[n] + want[n]).double().abs()
+        return (g - want[n]).double().abs(), tol
+    worst, share = (0.0, ""), (0.0, "")
+    for n in want:
+        err, tol = outside(n, got[n])
+        worst = max(worst, ((err / (tol + bound)).max().item(), n))
+        share = max(share, ((err > tol).double().mean().item(), n))
+    _, size, r = _axis()
+    n = next(k for k in want if k.endswith("linear1.bias"))
+    rows = want[n].shape[0]
+    other = (r + 1) % size
+    wrong = ref[n][other * rows:(other + 1) * rows].to(want[n].device)
+    err, tol = outside(n, wrong)
+    return [worst[0], worst[1], share[0], share[1],
+            (err > tol).double().mean().item()]
+
+
+def _hybrid_arms(wd):
+    """Phase 15's hybrid arms (c)-(f) in a rank of the strategy arms'
+    world (`_dist_rank_strategies`: gloo, both ranks on cuda:0): runs
+    the arms below and writes its record to hybrid{r}.json. Each arm
+    starts with the launch counts at 0 and reads
+    them at its end; updates are compared by `_update_worst` (phase 7's
+    rule) against (a)'s world-1 references, cut to the rank's blocks.
+    - ernie_p0 / ernie_p1: ERNIE-base through models.tp_annotate at mp 2
+      (6 of 12 heads a rank), ZeRO-1, HYBRID["STEPS"] steps at dropout 0
+      and at DROPOUT (the keep masks keyed on the global head);
+      ernie_o1: one SGD step under amp.auto_cast(level="O1");
+    - moe: the MoE GPT at ep 2 (4 of 8 experts a rank), and the rank's
+      expert bytes;
+    - zero2_clip / zero3_clip: the packed LM at dp 2 under
+      ClipGradByGlobalNorm at ZeRO-2 and ZeRO-3, and at ZeRO-3 the
+      parameter bytes a rank holds and its allocated bytes between steps;
+      lamb0 / lamb1: Lamb at ZeRO-0 and ZeRO-1 (and ZeRO-1's allocated
+      bytes), lamb1 held to lamb0; dgc0 / dgc2: DGC at ZeRO-0 and ZeRO-2,
+      the entries kept each step (ZeRO-2's summed over the ranks), dgc2
+      held to dgc0 (both pairs at dp 2: the same reduced gradients, so
+      Lamb's normalised update and DGC's top-k see the same bits);
+    - pp_fp32 / pp_o1: GPipe at pp 2 of the strategies' GPT under the
+      clip, in fp32 and under O1."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch import amp, nn, optimizer
+    from paddle_tpu_torch.distributed import env as denv
+    from paddle_tpu_torch.models import (ErnieForSequenceClassification,
+                                         GPTConfig, GPTForCausalLM,
+                                         tp_annotate)
+    from paddle_tpu_torch.ops import flash_ops as fo, paged_ops as po
+    from paddle_tpu_torch.ops import splash_ops as so
+    from paddle_tpu_torch.parallel import (compression, create_mesh,
+                                           make_pipeline_train_step,
+                                           make_sharded_train_step,
+                                           pipeline_write_back, set_mesh,
+                                           write_back)
+    r = dist.get_rank()
+    dev = denv.local_device()
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def allocated():
+        return torch.cuda.memory_allocated() if cuda else 0
+    _, _, ws = _dist_launches(po, fo, so)
+    ce = nn.CrossEntropyLoss()
+
+    def lossf(o, lb):
+        return ce(o, lb[0])
+    steps = HYBRID["STEPS"]
+    rec = {"rank": r}
+
+    def arm(name, fn):
+        set_mesh(None)
+        _zero(ws)
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        sync()
+        out["peak_bytes"] = (torch.cuda.max_memory_allocated() if cuda
+                             else 0)
+        out["launches"], out["launches_by_dtype"], _ = _dist_launches(
+            po, fo, so)
+        rec[name] = out
+        dist.barrier()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def train(step, st, ins, lbs, n, amp_level=None, after=None,
+              batches=None, **kw):
+        losses, walls = [], []
+        for i in range(n):
+            if batches is not None:
+                ins, lbs = batches[i]
+            sync()
+            t0 = time.perf_counter()
+            if amp_level:
+                with amp.auto_cast(level=amp_level):
+                    st, lv = step(st, ins, lbs, **kw)
+            else:
+                st, lv = step(st, ins, lbs, **kw)
+            losses.append(float(lv))
+            walls.append(time.perf_counter() - t0)
+            if after is not None:
+                after(st)
+        return st, losses, walls
+
+    def ref(name):
+        return torch.load(os.path.join(wd, name), map_location="cpu",
+                          mmap=True)
+
+    # (c) ERNIE-base at mp 2
+    for tag, p in (("p0", 0.0), ("p1", DROPOUT), ("o1", 0.0)):
+        def ernie(tag=tag, p=p):
+            create_mesh({"mp": 2})
+            cfg, batches = _hybrid_ernie(np, p)
+            m = ErnieForSequenceClassification(cfg, device=dev, seed=0)
+            tp_annotate(m)
+            init = {n: q.detach().clone() for n, q in m.named_parameters()}
+            step, st = make_sharded_train_step(
+                m, _hybrid_ernie_opt(optimizer, tag, m), lossf, zero_stage=1)
+            n = 1 if tag == "o1" else steps
+            st, losses, walls = train(step, st, None, None, n,
+                                      "O1" if tag == "o1" else None,
+                                      batches=batches, rng=7)
+            out = dict(losses=losses, step_s=walls,
+                       heads=m.ernie.encoder.layers[0].self_attn.local_heads,
+                       worst=_sliced_worst(
+                           m, ref(f"h_ernie_{tag}.pt"), init,
+                           "adam" if tag != "o1" else "bf16",
+                           ref("h_ernie_o1_fp32.pt") if tag == "o1"
+                           else None))
+            del m, init, step, st
+            return out
+        arm(f"ernie_{tag}", ernie)
+
+    # (d) the MoE GPT at ep 2
+    def moe():
+        create_mesh({"ep": 2})
+        x, y = _hybrid_moe_batch(np)
+        m = GPTForCausalLM(_hybrid_moe_config(), device=dev, seed=0)
+        init = {n: q.detach().clone() for n, q in m.named_parameters()}
+        experts = sum(q.numel() * q.element_size()
+                      for n, q in m.named_parameters()
+                      if n.endswith(("w_up", "w_down")))
+        step, st = make_sharded_train_step(
+            m, optimizer.SGD(STRAT["LR"], parameters=m.parameters()), lossf)
+        st, losses, walls = train(step, st, (x,), (y,), steps)
+        out = dict(losses=losses, step_s=walls, expert_bytes=experts,
+                   experts=m.gpt.blocks[0].mlp.w_up.shape[0],
+                   worst=_sliced_worst(m, ref("h_moe.pt"), init))
+        del m, init, step, st
+        return out
+    arm("moe", moe)
+
+    # (e) the packed LM at dp 2
+    z = np.load(os.path.join(wd, "batch.npz"))
+    batch = [z[f"arr_{i}"] for i in range(5)]
+    pins = [torch.as_tensor(x) for x in batch[:3]]
+    plbs = [torch.as_tensor(x) for x in batch[3:5]]
+    packed = torch.load(os.path.join(wd, "packed.pt"), map_location=dev)
+
+    def packed_model():
+        m = _packed_gpt(torch, sharded=True, dropout=0.0).to(dev)
+        m.load_state_dict(packed)
+        return m, {n: q.detach().clone() for n, q in m.named_parameters()}
+
+    def ploss(o, lb):
+        return _packed_loss(torch, o, lb)
+
+    def packed_arm(opt_fn, stage, compare=None, keep=None, **kw):
+        create_mesh({"dp": 2})
+        m, init = packed_model()
+        step, st = make_sharded_train_step(m, opt_fn(m), ploss,
+                                           zero_stage=stage, **kw)
+        held = []
+
+        def after(st):
+            sync()
+            held.append((allocated(), sum(
+                q.untyped_storage().nbytes() for q in m.parameters())
+                + sum(v.numel() * v.element_size()
+                      for v in st["params"].values()
+                      if getattr(v, "_zero_gather", None) is not None)))
+        st, losses, walls = train(step, st, pins, plbs, steps, after=after)
+        write_back(m, st)
+        deltas = {n: q.detach() - init[n] for n, q in m.named_parameters()}
+        out = dict(losses=losses, step_s=walls, allocated=held[-1][0],
+                   param_bytes=held[-1][1],
+                   full_param_bytes=sum(q.numel() * q.element_size()
+                                        for q in init.values()))
+        if compare is not None:
+            out["worst"] = list(_update_worst(
+                _without_key_bias(deltas), _without_key_bias(compare),
+                init))
+        if keep is not None:
+            keep.update(deltas)
+        del m, init, step, st
+        return out
+    clip_ref = ref("h_packed_clip.pt")
+    for stage in (2, 3):
+        arm(f"zero{stage}_clip", lambda stage=stage: packed_arm(
+            lambda m: optimizer.SGD(STRAT["LR"], parameters=m.parameters(),
+                                    grad_clip=nn.ClipGradByGlobalNorm(
+                                        HYBRID["CLIP"])),
+            stage, {n: d.to(dev) for n, d in clip_ref.items()}))
+    lamb0 = {}
+    arm("lamb0", lambda: packed_arm(
+        lambda m: optimizer.Lamb(HYBRID["LAMB_LR"], parameters=m.parameters()),
+        0, keep=lamb0))
+    arm("lamb1", lambda: packed_arm(
+        lambda m: optimizer.Lamb(HYBRID["LAMB_LR"], parameters=m.parameters()),
+        1, compare=lamb0))
+    del lamb0
+    real = compression.dgc_compress
+    dgc0 = {}
+    for stage in (0, 2):
+        kept = []
+
+        def spy(grads, state, *a, kept=kept, **k):
+            out, new = real(grads, state, *a, **k)
+            kept.append(sum(int((v != 0).sum()) for v in out.values()))
+            return out, new
+
+        def dgc(stage=stage, kept=kept, spy=spy):
+            compression.dgc_compress = spy
+            try:
+                out = packed_arm(
+                    lambda m: optimizer.SGD(STRAT["LR"],
+                                            parameters=m.parameters()),
+                    stage, compare=dgc0 if stage else None,
+                    keep=None if stage else dgc0, dgc=True,
+                    dgc_sparsity=HYBRID["DGC_SPARSITY"])
+            finally:
+                compression.dgc_compress = real
+            if stage >= 2:   # a rank's blocks: the whole gradient's count
+                t = torch.tensor(kept, dtype=torch.int64)
+                dist.all_reduce(t)
+                kept = t.tolist()
+            out["kept"] = kept
+            return out
+        arm(f"dgc{stage}", dgc)
+    del dgc0, packed
+
+    # (f) GPipe at pp 2 under the clip, fp32 and O1
+    with open(os.path.join(wd, "s_cfg.json")) as f:
+        scfg = GPTConfig(**json.load(f))
+    zs = np.load(os.path.join(wd, "s_batch.npz"))
+    init_s = torch.load(os.path.join(wd, "s_init.pt"), map_location=dev)
+    for tag, level in (("fp32", None), ("o1", "O1")):
+        def pp(tag=tag, level=level):
+            create_mesh({"dp": 1, "pp": 2})
+            m = GPTForCausalLM(scfg, device=dev, seed=0)
+            m.load_state_dict(init_s)
+            step, st = make_pipeline_train_step(
+                m, optimizer.SGD(STRAT["LR"], parameters=m.parameters(),
+                                 grad_clip=nn.ClipGradByGlobalNorm(
+                                     HYBRID["CLIP"])), lossf,
+                n_micro=STRAT["N_MICRO"], recompute=False)
+            st, losses, walls = train(step, st, (zs["x"],), (zs["y"],),
+                                      steps, level)
+            held = set(st["params"])
+            d = ref(f"h_pp_{tag}.pt")
+            got = {n: q.detach() - init_s[n] for n, q in m.named_parameters()
+                   if n in held}
+            want = {n: d[n].to(dev) for n in got}
+            if level is None:
+                worst = list(_update_worst(got, want, init_s))
+            else:
+                worst = list(_grad_worst(got, want,
+                                         AMP_GRAD_SHARE["bfloat16"],
+                                         AMP_GRAD_FLOOR))
+            out = dict(losses=losses, step_s=walls, stage=step.stage,
+                       held=len(held), worst=worst)
+            del m, step, st, got, want
+            return out
+        arm(f"pp_{tag}", pp)
+    with open(os.path.join(wd, f"hybrid{r}.json"), "w") as f:
+        json.dump(rec, f)
 
 
 def _elastic_hang_rank():

@@ -101,7 +101,7 @@ flash_bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
                    const float* __restrict__ delta, T* __restrict__ dk,
                    T* __restrict__ dv, int H, int Sq, int Sk, int d, int causal,
                    float scale, uint32_t thresh, float keep_scale,
-                   uint32_t seed) {
+                   uint32_t seed, int hg, int hoff) {
   constexpr int BQ = kQueryTile<T, DP, kPad>;
   constexpr int NT = BQ / 8;   // score n-tiles (queries) a warp
   constexpr int DC = DP / kParts<DP>;   // output columns a block
@@ -120,6 +120,8 @@ flash_bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x;
   const int kt = blockIdx.y;
   const int b = bh / H;
+  // the dropout key: the global head b*hg + hoff + h (see drop_row)
+  const uint32_t dbh = bh + b * (hg - H) + hoff;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -141,7 +143,7 @@ flash_bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
     fmma::load_vec_async<kThreads>(dl_s + buf * BQ, db + qt * BQ, BQ, tid);
     if (thresh)   // the dropout hash of each query row, once a tile
       for (int i = tid; i < BQ; i += kThreads)
-        rh_s[buf * BQ + i] = flash::drop_row(seed, bh, qt * BQ + i);
+        rh_s[buf * BQ + i] = flash::drop_row(seed, dbh, qt * BQ + i);
   };
   fmma::load_tile_async<T, DP, kBK, kThreads, kPad>(Ks, k + koff, tid, D);
   fmma::load_tile_async<T, DP, kBK, kThreads, kPad>(Vs, v + koff, tid, D);
@@ -238,10 +240,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int H, int Sq, int Sk, int d,
                      int causal, float scale, uint32_t thresh, float keep_scale,
-                     uint32_t seed) {
+                     uint32_t seed, int hg, int hoff) {
   flash_bwd_dkv_body<T, DP, false>(
       q, k, v, bias, dout, lse, delta, dk, dv, H, Sq, Sk, d, causal, scale,
-      thresh, keep_scale, seed);
+      thresh, keep_scale, seed, hg, hoff);
 }
 
 template <typename T, int DP>
@@ -254,10 +256,10 @@ flash_bwd_dkv_kernel_pad(const T* __restrict__ q, const T* __restrict__ k,
                          const float* __restrict__ delta, T* __restrict__ dk,
                          T* __restrict__ dv, int H, int Sq, int Sk, int d,
                          int causal, float scale, uint32_t thresh,
-                         float keep_scale, uint32_t seed) {
+                         float keep_scale, uint32_t seed, int hg, int hoff) {
   flash_bwd_dkv_body<T, DP, true>(
       q, k, v, bias, dout, lse, delta, dk, dv, H, Sq, Sk, d, causal, scale,
-      thresh, keep_scale, seed);
+      thresh, keep_scale, seed, hg, hoff);
 }
 
 // the entry of width DP: the exact one, or the padded one
@@ -272,7 +274,8 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* bias, const void* dout, const void* lse,
                      const void* delta, void* dk, void* dv, int B, int H,
                      int Sq, int Sk, int D, int causal, float scale,
-                     uint32_t thresh, float keep_scale, uint32_t seed,
+                     uint32_t thresh, float keep_scale,
+                     uint32_t seed, int hg, int hoff,
                      cudaStream_t stream) {
   const int bytes = smem_bytes<T, DP, kPad>();
   auto* kernel = kernel_for<T, DP, kPad>();
@@ -283,7 +286,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   kernel<<<grid, block, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
       (const T*)dout, (const float*)lse, (const float*)delta, (T*)dk, (T*)dv,
-      H, Sq, Sk, D, causal, scale, thresh, keep_scale, seed);
+      H, Sq, Sk, D, causal, scale, thresh, keep_scale, seed, hg, hoff);
   return cudaGetLastError();
 }
 
@@ -292,12 +295,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, const void* dout, const void* lse,
                    const void* delta, void* dk, void* dv, int B, int H,
                    int Sq, int Sk, int D, int causal, float scale,
-                   uint32_t thresh, float keep_scale, uint32_t seed,
+                   uint32_t thresh, float keep_scale,
+                   uint32_t seed, int hg, int hoff,
                    cudaStream_t stream) {
   return fmma::dispatch_width<T>(D, [&](auto dp, auto pad) {
     return launch_d<T, decltype(dp)::value, decltype(pad)::value>(
         q, k, v, bias, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, causal,
-        scale, thresh, keep_scale, seed, stream);
+        scale, thresh, keep_scale, seed, hg, hoff, stream);
   });
 }
 
@@ -307,13 +311,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // float32, 1 = bfloat16, 2 = float16); bias [B,Sk] float32 or null; lse
 // and delta [B*H,Sq] float32; dk/dv like k.
 // Sq and Sk multiples of 64; D % 8 == 0, D <= 256.
+// Dropout rows are keyed on the global head: this call holds H of hg
+// heads, from head hoff (hg = H, hoff = 0 for all of them).
 extern "C" int flash_attention_bwd_dkv(void* q, void* k, void* v, void* bias,
                                        void* dout, void* lse, void* delta,
                                        void* dk, void* dv, int B, int H,
                                        int Sq, int Sk, int D, int dtype,
                                        int causal, float scale,
                                        unsigned int thresh, float keep_scale,
-                                       unsigned int seed, void* stream) {
+
+                                       unsigned int seed, int hg, int hoff,
+                                       void* stream) {
   if (Sq % 64 != 0 || Sk % 64 != 0) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || Sk <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -321,15 +329,15 @@ extern "C" int flash_attention_bwd_dkv(void* q, void* k, void* v, void* bias,
     case 0:
       return (int)launch<float>(q, k, v, bias, dout, lse, delta, dk, dv, B, H,
                                 Sq, Sk, D, causal, scale, thresh, keep_scale,
-                                seed, s);
+                                seed, hg, hoff, s);
     case 1:
       return (int)launch<__nv_bfloat16>(q, k, v, bias, dout, lse, delta, dk,
                                         dv, B, H, Sq, Sk, D, causal, scale,
-                                        thresh, keep_scale, seed, s);
+                                        thresh, keep_scale, seed, hg, hoff, s);
     case 2:
       return (int)launch<__half>(q, k, v, bias, dout, lse, delta, dk, dv, B,
                                  H, Sq, Sk, D, causal, scale, thresh,
-                                 keep_scale, seed, s);
+                                 keep_scale, seed, hg, hoff, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -90,7 +90,8 @@ flash_bwd_dq_body(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ dout, const float* __restrict__ lse,
                   const float* __restrict__ delta, T* __restrict__ dq, int H,
                   int Sq, int Sk, int d, int causal, float scale,
-                  uint32_t thresh, float keep_scale, uint32_t seed) {
+                  uint32_t thresh, float keep_scale,
+                  uint32_t seed, int hg, int hoff) {
   constexpr int BK = kKeyTile<T, DP>;
   constexpr int NT = BK / 8;   // score n-tiles a warp
   constexpr int DC = DP / kParts<T, DP>;   // output columns a block
@@ -107,6 +108,8 @@ flash_bwd_dq_body(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x;
   const int qi = gridDim.y - 1 - blockIdx.y;   // heaviest tile first
   const int b = bh / H;
+  // the dropout key: the global head b*hg + hoff + h (see drop_row)
+  const uint32_t dbh = bh + b * (hg - H) + hoff;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -147,7 +150,7 @@ flash_bwd_dq_body(const T* __restrict__ q, const T* __restrict__ k,
     qpos[h] = q0 + r0 + 8 * h;
     lse_r[h] = lse[(size_t)bh * Sq + qpos[h]];
     dl_r[h] = delta[(size_t)bh * Sq + qpos[h]];
-    rh[h] = thresh ? flash::drop_row(seed, bh, qpos[h]) : 0u;
+    rh[h] = thresh ? flash::drop_row(seed, dbh, qpos[h]) : 0u;
   }
   float acc[DC / 8][4];
 #pragma unroll
@@ -214,10 +217,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int H,
                     int Sq, int Sk, int d, int causal, float scale,
-                    uint32_t thresh, float keep_scale, uint32_t seed) {
+                    uint32_t thresh, float keep_scale,
+                    uint32_t seed, int hg, int hoff) {
   flash_bwd_dq_body<T, DP, false>(
       q, k, v, bias, dout, lse, delta, dq, H, Sq, Sk, d, causal, scale, thresh,
-      keep_scale, seed);
+      keep_scale, seed, hg, hoff);
 }
 
 template <typename T, int DP>
@@ -228,10 +232,11 @@ flash_bwd_dq_kernel_pad(const T* __restrict__ q, const T* __restrict__ k,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
                         int H, int Sq, int Sk, int d, int causal, float scale,
-                        uint32_t thresh, float keep_scale, uint32_t seed) {
+                        uint32_t thresh, float keep_scale,
+                        uint32_t seed, int hg, int hoff) {
   flash_bwd_dq_body<T, DP, true>(
       q, k, v, bias, dout, lse, delta, dq, H, Sq, Sk, d, causal, scale, thresh,
-      keep_scale, seed);
+      keep_scale, seed, hg, hoff);
 }
 
 // the entry of width DP: the exact one, or the padded one
@@ -246,7 +251,8 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* bias, const void* dout, const void* lse,
                      const void* delta, void* dq, int B, int H, int Sq,
                      int Sk, int D, int causal, float scale, uint32_t thresh,
-                     float keep_scale, uint32_t seed, cudaStream_t stream) {
+                     float keep_scale,
+                     uint32_t seed, int hg, int hoff, cudaStream_t stream) {
   const int bytes = smem_bytes<T, DP>();
   auto* kernel = kernel_for<T, DP, kPad>();
   cudaError_t e = cudaFuncSetAttribute(
@@ -256,7 +262,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   kernel<<<grid, block, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
       (const T*)dout, (const float*)lse, (const float*)delta, (T*)dq, H, Sq,
-      Sk, D, causal, scale, thresh, keep_scale, seed);
+      Sk, D, causal, scale, thresh, keep_scale, seed, hg, hoff);
   return cudaGetLastError();
 }
 
@@ -265,11 +271,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, const void* dout, const void* lse,
                    const void* delta, void* dq, int B, int H, int Sq, int Sk,
                    int D, int causal, float scale, uint32_t thresh,
-                   float keep_scale, uint32_t seed, cudaStream_t stream) {
+                   float keep_scale,
+                   uint32_t seed, int hg, int hoff, cudaStream_t stream) {
   return fmma::dispatch_width<T>(D, [&](auto dp, auto pad) {
     return launch_d<T, decltype(dp)::value, decltype(pad)::value>(
         q, k, v, bias, dout, lse, delta, dq, B, H, Sq, Sk, D, causal, scale,
-        thresh, keep_scale, seed, stream);
+        thresh, keep_scale, seed, hg, hoff, stream);
   });
 }
 
@@ -279,12 +286,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // float32, 1 = bfloat16, 2 = float16); bias [B,Sk] float32 or null; lse
 // and delta [B*H,Sq] float32; dq like q.
 // Sq and Sk multiples of 64; D % 8 == 0, D <= 256.
+// Dropout rows are keyed on the global head: this call holds H of hg
+// heads, from head hoff (hg = H, hoff = 0 for all of them).
 extern "C" int flash_attention_bwd_dq(void* q, void* k, void* v, void* bias,
                                       void* dout, void* lse, void* delta,
                                       void* dq, int B, int H, int Sq, int Sk,
                                       int D, int dtype, int causal,
                                       float scale, unsigned int thresh,
-                                      float keep_scale, unsigned int seed,
+                                      float keep_scale,
+                                      unsigned int seed, int hg, int hoff,
                                       void* stream) {
   if (Sq % 64 != 0 || Sk % 64 != 0) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
@@ -293,15 +303,15 @@ extern "C" int flash_attention_bwd_dq(void* q, void* k, void* v, void* bias,
     case 0:
       return (int)launch<float>(q, k, v, bias, dout, lse, delta, dq, B, H, Sq,
                                 Sk, D, causal, scale, thresh, keep_scale,
-                                seed, s);
+                                seed, hg, hoff, s);
     case 1:
       return (int)launch<__nv_bfloat16>(q, k, v, bias, dout, lse, delta, dq,
                                         B, H, Sq, Sk, D, causal, scale,
-                                        thresh, keep_scale, seed, s);
+                                        thresh, keep_scale, seed, hg, hoff, s);
     case 2:
       return (int)launch<__half>(q, k, v, bias, dout, lse, delta, dq, B, H,
                                  Sq, Sk, D, causal, scale, thresh,
-                                 keep_scale, seed, s);
+                                 keep_scale, seed, hg, hoff, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -15,6 +15,12 @@
 // reproduces it bit for bit with int64 tensor ops. (The TPU kernel seeds
 // its PRNG per (bh, q-tile, k-tile), pallas_ops.py:124-136; those bits
 // depend on the TPU and on the tile size and are not reproduced.)
+//
+// K2-K4 key a row on the GLOBAL head: a tensor-parallel rank holds H of
+// the model's hg heads, from head hoff, and hashes b*hg + hoff + h, so
+// the ranks of tp n draw, together, the mask of tp 1 (hg == H, hoff 0 on
+// one rank). The splash kernels keep b*H + h (a dp rank folds its rank
+// into the seed instead).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -94,7 +94,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
                  T* __restrict__ out, float* __restrict__ lse, int H, int Sq,
                  int Sk, int d, int causal, float scale, uint32_t thresh,
-                 float keep_scale, uint32_t seed) {
+                 float keep_scale, uint32_t seed, int hg, int hoff) {
   constexpr int BK = kKeyTile<T, DP>;
   constexpr int NT = BK / 8;    // score n-tiles a warp
   constexpr int KS = DP / 16;   // k16 steps of Q K^T
@@ -109,6 +109,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x;
   const int qi = gridDim.y - 1 - blockIdx.y;   // heaviest tile first
   const int b = bh / H;
+  // the dropout key: the global head b*hg + hoff + h (see drop_row)
+  const uint32_t dbh = bh + b * (hg - H) + hoff;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -158,7 +160,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     qpos[h] = q0 + r0 + 8 * h;
     m_r[h] = flash::kNegInf;
     l_r[h] = 0.f;
-    rh[h] = thresh ? flash::drop_row(seed, bh, qpos[h]) : 0u;
+    rh[h] = thresh ? flash::drop_row(seed, dbh, qpos[h]) : 0u;
   }
   float acc[DP / 8][4];
 #pragma unroll
@@ -269,7 +271,8 @@ template <typename T, int DP, bool kPad>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* bias, void* out, float* lse, int B, int H,
                      int Sq, int Sk, int D, int causal, float scale,
-                     uint32_t thresh, float keep_scale, uint32_t seed,
+                     uint32_t thresh, float keep_scale,
+                     uint32_t seed, int hg, int hoff,
                      cudaStream_t stream) {
   const int bytes = smem_bytes<T, DP>();
   cudaError_t e = cudaFuncSetAttribute(
@@ -279,7 +282,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   dim3 grid(B * H, Sq / kBQ), block(kThreads);
   flash_fwd_kernel<T, DP, kPad><<<grid, block, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out,
-      lse, H, Sq, Sk, D, causal, scale, thresh, keep_scale, seed);
+      lse, H, Sq, Sk, D, causal, scale, thresh, keep_scale, seed, hg, hoff);
   return cudaGetLastError();
 }
 
@@ -287,12 +290,13 @@ template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, void* out, float* lse, int B, int H,
                    int Sq, int Sk, int D, int causal, float scale,
-                   uint32_t thresh, float keep_scale, uint32_t seed,
+                   uint32_t thresh, float keep_scale,
+                   uint32_t seed, int hg, int hoff,
                    cudaStream_t stream) {
   return fmma::dispatch_width<T>(D, [&](auto dp, auto pad) {
     return launch_d<T, decltype(dp)::value, decltype(pad)::value>(
         q, k, v, bias, out, lse, B, H, Sq, Sk, D, causal, scale, thresh,
-        keep_scale, seed, stream);
+        keep_scale, seed, hg, hoff, stream);
   });
 }
 
@@ -303,12 +307,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // lse [B*H,Sq] f32.
 // Sq and Sk must be multiples of 64; D % 8 == 0, D <= 256. Dropout: keep
 // where hash >= thresh (thresh 0 = no dropout), kept P scaled by keep_scale.
+// Dropout rows are keyed on the global head: this call holds H of hg
+// heads, from head hoff (hg = H, hoff = 0 for all of them).
 extern "C" int flash_attention_forward(void* q, void* k, void* v, void* bias,
                                        void* out, void* lse, int B, int H,
                                        int Sq, int Sk, int D, int dtype,
                                        int causal, float scale,
                                        unsigned int thresh, float keep_scale,
-                                       unsigned int seed, void* stream) {
+                                       unsigned int seed, int hg, int hoff,
+                                       void* stream) {
   if (Sq % kBQ != 0 || Sk % 64 != 0) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -316,15 +323,15 @@ extern "C" int flash_attention_forward(void* q, void* k, void* v, void* bias,
     case 0:
       return (int)launch<float>(q, k, v, bias, out, (float*)lse, B, H, Sq,
                                 Sk, D, causal, scale, thresh, keep_scale,
-                                seed, s);
+                                seed, hg, hoff, s);
     case 1:
       return (int)launch<__nv_bfloat16>(q, k, v, bias, out, (float*)lse, B,
                                         H, Sq, Sk, D, causal, scale, thresh,
-                                        keep_scale, seed, s);
+                                        keep_scale, seed, hg, hoff, s);
     case 2:
       return (int)launch<__half>(q, k, v, bias, out, (float*)lse, B, H, Sq,
                                  Sk, D, causal, scale, thresh, keep_scale,
-                                 seed, s);
+                                 seed, hg, hoff, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -129,6 +129,12 @@ class Fleet:
         return _DistributedOptimizer(optimizer, self._strategy, self)
 
     def distributed_model(self, model):
+        """The model for the strategy's step; a model marked by
+        `models.tp_annotate` is cut to this rank's 'mp' slices here (the
+        JAX package lays its parameters out by their specs here)."""
+        if get_mesh() is not None:
+            from ..tensor_parallel import shard_megatron
+            shard_megatron(getattr(model, "_layers", model))
         return _DistributedModel(model, self)
 
     def batch_placement(self):

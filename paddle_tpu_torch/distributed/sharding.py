@@ -8,7 +8,9 @@ group_sharded_parallel: dygraph ZeRO stages 1-3).
 gradients too (reduce-scatter, ZeRO-2), 'p_g_os' also marks each
 parameter without a partition spec 'dp' on its largest dp-divisible
 axis, as the JAX package's `:25-38` does (ZeRO-3: the update and the
-state run on that block, the layer keeps the gathered parameter).
+state run on that block, and a rank keeps only that block of the
+parameter between steps; the layer's `state_dict()` and
+`parallel.spmd.write_back` gather it).
 """
 from __future__ import annotations
 

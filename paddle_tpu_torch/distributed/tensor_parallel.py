@@ -19,19 +19,34 @@ weight. Each parameter carries its `partition_spec` (one axis name or
 None a dim of its local tensor) for `parallel.spmd` and the sharded
 checkpoint. Without an 'mp' axis of size > 1 the layers are the plain
 ones.
+
+`mark_megatron` / `shard_megatron` do the same to the port's own layers
+(`nn.Linear` [out, in], `nn.Embedding`, `nn.MultiHeadAttention`) in
+place, for `models.ernie.tp_annotate`: a marked module keeps its class's
+names and becomes, on a mesh whose 'mp' axis is > 1, the rank's slice of
+itself (column-parallel: rows of the weight and the bias, the input
+entering by `_CopyToParallel`; row-parallel: columns of the weight, the
+partial products reduced by `_ReduceFromParallel` and the replicated
+bias added after; vocab-parallel: rows of the table), each parameter
+keeping its object (an optimizer built before still holds it) and
+carrying its `partition_spec` in the port's layout.
 """
 from __future__ import annotations
 
 import torch
 
+from ..framework.errors import InvalidArgumentError
 from ..nn import functional as F
 from ..nn import initializer as I
+from ..nn.layer.common import Embedding as _Embedding
+from ..nn.layer.common import Linear as _Linear
+from ..nn.layer.common import _linear_out_in
 from ..nn.layer.layers import Layer
 from ..parallel.mesh import P, get_mesh
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "mark_sharding", "constraint",
-           "shard_tensor"]
+           "shard_tensor", "mark_megatron", "shard_megatron"]
 
 
 def mark_sharding(param, *spec):
@@ -210,10 +225,149 @@ class VocabParallelEmbedding(Layer):
         group, n, r = _axis()
         if n == 1:
             return F.embedding(x, self.weight)
-        rows = self.weight.shape[0]
-        lo = r * rows
-        inside = (x >= lo) & (x < lo + rows)
-        local = torch.where(inside, x - lo, torch.zeros_like(x))
-        out = F.embedding(local, self.weight)
-        out = out * inside.unsqueeze(-1).to(out.dtype)
-        return _ReduceFromParallel.apply(out, group)
+        return _vocab_lookup(x, self.weight, group, r)
+
+
+def _vocab_lookup(x, weight, group, r, padding_idx=None):
+    """The rows of ids `x` in a table split on its vocabulary, of which
+    `weight` is block r: ids outside the block (and `padding_idx`) look up
+    zeros, and the rows are all-reduced over the group."""
+    rows = weight.shape[0]
+    lo = r * rows
+    inside = (x >= lo) & (x < lo + rows)
+    if padding_idx is not None:
+        inside = inside & (x != padding_idx)
+    local = torch.where(inside, x - lo, torch.zeros_like(x))
+    out = F.embedding(local, weight)
+    out = out * inside.unsqueeze(-1).to(out.dtype)
+    return _ReduceFromParallel.apply(out, group)
+
+
+# -- the port's own layers, split in place (`models.ernie.tp_annotate`) -------
+
+_SPECS = {"column": {"weight": ("mp", None), "bias": ("mp",)},
+          "row": {"weight": (None, "mp")},
+          "vocab": {"weight": ("mp", None)}}
+
+
+def mark_megatron(module, role):
+    """Mark a port `Linear` ("column" or "row") or `Embedding` ("vocab")
+    for `shard_megatron`, its parameters with their specs."""
+    module._mp_role = role
+    for name, spec in _SPECS[role].items():
+        p = getattr(module, name, None)
+        if p is not None:
+            mark_sharding(p, *spec)
+    return module
+
+
+def shard_megatron(layer, axis="mp"):
+    """Cut every module of `layer` marked by `mark_megatron` to this
+    rank's slice on the current mesh's `axis`, and let each
+    `MultiHeadAttention` whose q/k/v are marked column-parallel and whose
+    out_proj is marked row-parallel attend over its rank's heads (an
+    unmarked one stays whole, replicated); nothing where the axis is
+    absent or of size 1, or where a module was cut already. Raises
+    `InvalidArgumentError`, before cutting anything, where a marked dim
+    or an attention's heads do not split over the axis, where an
+    attention is marked in part, or where a Transformer layer's
+    activation dropout would run on a column slice of its `linear1` (each
+    rank would draw the same mask for its slice, which tp 1 never does).
+    Returns `layer`."""
+    from ..nn.layer.transformer import (MultiHeadAttention,
+                                        TransformerDecoderLayer,
+                                        TransformerEncoderLayer)
+    mesh = get_mesh()
+    if mesh is None or mesh.axis_size(axis) <= 1:
+        return layer
+    n, r = mesh.axis_size(axis), mesh.axis_rank(axis)
+
+    def refuse(msg):
+        raise InvalidArgumentError(f"{msg} ({axis}={n})")
+    cut, attn = [], []
+    for name, mod in layer.named_modules():
+        role = getattr(mod, "_mp_role", None)
+        if role is not None and not getattr(mod, "_mp_split", False):
+            for pname, spec in _SPECS[role].items():
+                p = getattr(mod, pname, None)
+                if p is not None and p.shape[spec.index("mp")] % n:
+                    refuse(f"{name}.{pname} of shape {list(p.shape)} does "
+                           f"not split on dim {spec.index('mp')}")
+            cut.append(mod)
+        if isinstance(mod, MultiHeadAttention) and mod.tp is None:
+            roles = tuple(getattr(getattr(mod, k), "_mp_role", None)
+                          for k in ("q_proj", "k_proj", "v_proj",
+                                    "out_proj"))
+            if roles == ("column",) * 3 + ("row",):
+                if mod.num_heads % n:
+                    refuse(f"{name}: {mod.num_heads} heads do not split")
+                attn.append(mod)
+            elif any(roles):
+                refuse(f"{name}: q/k/v are column-parallel and out_proj "
+                       f"row-parallel together or not at all, not {roles}")
+        if (isinstance(mod, (TransformerEncoderLayer,
+                             TransformerDecoderLayer))
+                and getattr(mod.linear1, "_mp_role", None) == "column"
+                and not getattr(mod.linear1, "_mp_split", False)
+                and mod.dropout.p > 0):
+            refuse(f"{name}: act_dropout {mod.dropout.p} would drop a "
+                   f"column slice of linear1; tensor parallelism needs "
+                   f"act_dropout=0")
+    for mod in cut:
+        role = mod._mp_role
+        with torch.no_grad():
+            for pname, spec in _SPECS[role].items():
+                p = getattr(mod, pname, None)
+                if p is not None:
+                    p.data = shard_tensor(p.data, spec,
+                                          mesh).contiguous().clone()
+        mod.__class__ = {"column": _ColumnSlice, "row": _RowSlice,
+                         "vocab": _VocabSlice}[role]
+        if role == "column":
+            mod.out_features //= n
+        elif role == "row":
+            mod.in_features //= n
+        else:
+            mod.num_embeddings //= n
+        mod._mp_split = True
+    for mod in attn:
+        mod.tp = (axis, n, r)
+    return layer
+
+
+class _ColumnSlice(_Linear):
+    """A port Linear holding rows [r*out/n, (r+1)*out/n) of its weight and
+    bias: the input enters through `_CopyToParallel`, the output stays
+    split on its last dim."""
+
+    def forward(self, x):
+        group, n, _ = _axis()
+        if n > 1:
+            x = _CopyToParallel.apply(x, group)
+        return super().forward(x)
+
+
+class _RowSlice(_Linear):
+    """A port Linear holding columns [r*in/n, (r+1)*in/n) of its weight:
+    the input is this rank's split, the partial products are all-reduced
+    and the replicated bias added once after."""
+
+    def forward(self, x):
+        group, n, _ = _axis()
+        if n == 1:
+            return super().forward(x)
+        out = _ReduceFromParallel.apply(
+            _linear_out_in(x, self.weight, None, weight_layout="out_in"),
+            group)
+        return out if self.bias is None else out + self.bias.to(out.dtype)
+
+
+class _VocabSlice(_Embedding):
+    """A port Embedding holding rows [r*V/n, (r+1)*V/n) of the table: ids
+    outside them look up zeros and the rows are all-reduced."""
+
+    def forward(self, x):
+        group, n, r = _axis()
+        if n == 1:
+            return super().forward(x)
+        return _vocab_lookup(x, self.weight, group, r, self.padding_idx)

@@ -22,7 +22,6 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..framework.errors import InvalidArgumentError
 from ..framework.place import resolve_device
 from ..nn import initializer as I
 from ..nn.layer import (GELU, Dropout, Embedding, LayerNorm, Linear, Tanh,
@@ -205,13 +204,49 @@ class ErnieForPretraining(nn.Module):
         seq, pooled = self.ernie(input_ids, token_type_ids, position_ids,
                                  attention_mask)
         h = self.mlm_norm(self.act(self.mlm_transform(seq)))
-        logits = matmul(h, self.ernie.embeddings.word_embeddings.weight,
-                        transpose_y=True) + self.mlm_bias
+        emb = self.ernie.embeddings.word_embeddings
+        if getattr(emb, "_mp_split", False):
+            # a vocab-parallel table: this rank's logits, gathered over
+            # 'mp' (the reference's result is global)
+            from ..distributed.tensor_parallel import (
+                _axis, _CopyToParallel, _GatherFromParallel)
+            group, n, r = _axis()
+            if n > 1:
+                part = matmul(_CopyToParallel.apply(h, group), emb.weight,
+                              transpose_y=True)
+                logits = _GatherFromParallel.apply(part, group, n, r)
+                return logits + self.mlm_bias, self.nsp(pooled)
+        logits = matmul(h, emb.weight, transpose_y=True) + self.mlm_bias
         return logits, self.nsp(pooled)
 
 
+_COLUMN = ("q_proj", "k_proj", "v_proj", "linear1")
+_ROW = ("out_proj", "linear2")
+_VOCAB = ("word_embeddings", "embed_tokens")
+
+
 def tp_annotate(layer):
-    """Megatron-style tensor-parallel specs on the encoder's weights: not
-    yet ported (ROADMAP item 19, multi-GPU)."""
-    raise InvalidArgumentError(
-        "tp_annotate (tensor-parallel specs) is not yet ported")
+    """Megatron-style tensor parallelism on a Transformer(-Encoder/Decoder)
+    stack, by module name as the JAX package marks its specs
+    (`paddle_tpu/models/ernie.py:160-182`): `q_proj`, `k_proj`, `v_proj`
+    and `linear1` column-parallel (weight and bias), `out_proj` and
+    `linear2` row-parallel, `word_embeddings` / `embed_tokens`
+    vocab-parallel. The JAX package keeps the full weights and lets GSPMD
+    partition the forward; the port cuts each marked module, in place, to
+    this rank's slice of the current mesh's 'mp' axis (`distributed.
+    tensor_parallel.shard_megatron`: the full weights are cut as
+    `shard_tensor` cuts them, so a seeded run starts from one full
+    weight) and each `MultiHeadAttention` attends over its rank's heads.
+    With no 'mp' axis, or 'mp' 1, it only sets `partition_spec`;
+    `fleet.distributed_model` cuts the model later on a mesh with 'mp'.
+    Returns `layer`."""
+    from ..distributed.tensor_parallel import mark_megatron, shard_megatron
+    for name, mod in layer.named_modules():
+        leaf = name.rsplit(".", 1)[-1]
+        if isinstance(mod, nn.Linear) and leaf in _COLUMN:
+            mark_megatron(mod, "column")
+        elif isinstance(mod, nn.Linear) and leaf in _ROW:
+            mark_megatron(mod, "row")
+        elif isinstance(mod, nn.Embedding) and leaf in _VOCAB:
+            mark_megatron(mod, "vocab")
+    return shard_megatron(layer)

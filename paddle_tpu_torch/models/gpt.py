@@ -45,6 +45,7 @@ from ..nn.functional import scaled_dot_product_attention
 from ..nn.layer import GELU, Dropout, Embedding, LayerNorm, Linear
 from ..ops.linalg import matmul, promoted
 from ..ops.paged_ops import cached_attention
+from ..parallel.mesh import P
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "MoEFeedForward",
            "gpt_prefill",
@@ -366,28 +367,53 @@ class MoEFeedForward(nn.Module):
     Parameters: `gate` a `Linear(d, E)` with a bias, `w_up` [E, d, f] and
     `w_down` [E, f, d] (the JAX package's names and layouts; only the
     gate is transposed by `load_reference_state`), the experts drawn by
-    `nn.initializer.XavierUniform` under the JAX package's fan rule. The
-    JAX package shards the experts over an "ep" mesh axis
-    (`mark_sharding`, `:386-387`); that waits for multi-GPU (ROADMAP A6).
+    `nn.initializer.XavierUniform` under the JAX package's fan rule.
+
+    Expert parallel: built on a mesh whose "ep" axis has n > 1 ranks, a
+    rank holds experts [r*E/n, (r+1)*E/n): `w_up` [E/n, d, f] and
+    `w_down` [E/n, f, d], each marked ("ep", None, None) as the JAX
+    package marks them (`:386-387`), cut from the full draw so a seeded
+    run starts from one set of experts. The gate stays whole and routes
+    over all E on every rank; the dispatch runs over the rank's experts
+    (its one-hot columns), the hidden state entering them through
+    `_CopyToParallel`, and their partial outputs are summed over "ep" by
+    `_ReduceFromParallel`: the JAX package's einsums partitioned over e.
     """
 
     def __init__(self, hidden_size, intermediate_size, num_experts,
                  top_k=1, device=None, dtype=None):
         super().__init__()
+        from ..parallel.mesh import get_mesh
+        mesh = get_mesh()
+        self.ep = mesh.axis_size("ep") if mesh is not None else 1
+        self.ep_rank = mesh.axis_rank("ep") if self.ep > 1 else 0
+        if num_experts % self.ep:
+            raise InvalidArgumentError(
+                f"{num_experts} experts do not split over ep={self.ep}")
         self.num_experts = num_experts
         self.top_k = top_k
         kw = dict(device=device, dtype=dtype)
         self.gate = Linear(hidden_size, num_experts, **kw)
+        local = num_experts // self.ep
         self.w_up = nn.Parameter(torch.empty(
-            num_experts, hidden_size, intermediate_size, **kw))
+            local, hidden_size, intermediate_size, **kw))
         self.w_down = nn.Parameter(torch.empty(
-            num_experts, intermediate_size, hidden_size, **kw))
+            local, intermediate_size, hidden_size, **kw))
+        if self.ep > 1:
+            for p in (self.w_up, self.w_down):
+                p.partition_spec = P("ep", None, None)
         self.reset_experts()
 
+    @torch.no_grad()
     def reset_experts(self, generator=None):
+        """Draw the full [E, ...] experts and keep this rank's block."""
         init = I.XavierUniform()
-        init(self.w_up, generator=generator)
-        init(self.w_down, generator=generator)
+        for p in (self.w_up, self.w_down):
+            full = torch.empty((self.num_experts,) + tuple(p.shape[1:]),
+                               dtype=p.dtype, device=p.device)
+            init(full, generator=generator)
+            n = p.shape[0]
+            p.copy_(full[self.ep_rank * n:(self.ep_rank + 1) * n])
 
     def forward(self, x):
         h, wu, wd, gw, gb = amp.cast_args(
@@ -400,9 +426,20 @@ class MoEFeedForward(nn.Module):
                             self.num_experts).to(onehot_dtype)
         gatev = torch.sum(probs * onehot, dim=-1, keepdim=True)
         onehot, h = promoted(onehot, h)
+        group = None
+        if self.ep > 1:
+            from ..distributed.tensor_parallel import (_axis,
+                                                       _CopyToParallel)
+            group = _axis("ep")[0]
+            n = wu.shape[0]
+            onehot = onehot[..., self.ep_rank * n:(self.ep_rank + 1) * n]
+            h = _CopyToParallel.apply(h, group)
         up = torch.einsum("bse,bsd,edf->bsef", onehot, h, wu)
         down = torch.einsum("bsef,efd->bsd",
                             TF.gelu(up, approximate="tanh"), wd)
+        if group is not None:
+            from ..distributed.tensor_parallel import _ReduceFromParallel
+            down = _ReduceFromParallel.apply(down, group)
         return down * gatev
 
 
@@ -645,7 +682,9 @@ def load_reference_state(model: nn.Module, arrays) -> None:
     `quantization.WeightOnlyLinear` (int8 [in, out], or int4 packed
     [in, ceil(out / 2)] along the output axis): the JAX package's integers
     and scales are carried across as they are, never re-quantized;
-    embeddings and everything else copy as they are. Raises
+    embeddings and everything else copy as they are. A parameter a rank
+    holds a block of (its `partition_spec`: tensor-parallel slices,
+    `ep` experts) takes that block of the full array. Raises
     InvalidArgumentError on a missing, extra or mis-shaped key."""
     if any(str(k).startswith("pp::") for k in arrays):
         arrays = _unstack_pipeline(model, arrays)
@@ -667,15 +706,24 @@ def load_reference_state(model: nn.Module, arrays) -> None:
         raise InvalidArgumentError(
             f"load_reference_state: missing keys {missing}, extra keys "
             f"{extra}")
+    specs = {n: q.partition_spec for n, q in model.named_parameters()
+             if getattr(q, "partition_spec", None)}
     pairs = []
     for name, p in own.items():
         a = np.asarray(arrays[name])
-        want = tuple(p.shape)[::-1] if name in linear else tuple(p.shape)
-        if tuple(a.shape) != want:
+        a = a.T if name in linear else a
+        if tuple(a.shape) != tuple(p.shape) and name in specs:
+            # a rank's block of a sharded parameter: cut the full array
+            from ..distributed.tensor_parallel import shard_tensor
+            a = shard_tensor(torch.from_numpy(np.array(a)),
+                             specs[name]).numpy()
+        if tuple(a.shape) != tuple(p.shape):
+            want = tuple(p.shape)[::-1] if name in linear \
+                else tuple(p.shape)
             raise InvalidArgumentError(
-                f"load_reference_state: {name} has shape {tuple(a.shape)}, "
-                f"expected {want}")
-        pairs.append((p, a.T if name in linear else a))
+                f"load_reference_state: {name} has shape "
+                f"{tuple(np.asarray(arrays[name]).shape)}, expected {want}")
+        pairs.append((p, a))
     with torch.no_grad():
         for p, a in pairs:
             p.copy_(torch.from_numpy(np.array(a)).to(p.dtype))

@@ -8,9 +8,12 @@ Each class has two entries, as in the JAX package:
   `need_clip` False (set by `ParamAttr(need_clip=False)`); such a pair
   takes no part in the global norm either (`paddle_tpu/nn/clip.py:32, 50,
   74, 83`).
-- `_clip_grads(grads)` takes a list of gradients and clips every one: it
-  is the optimizers' seam (`optimizer.Optimizer.step`), which ignores
-  `need_clip` as the JAX package's `_tree_clip` does.
+- `_clip_grads(grads, whole_sq=None)` takes a list of gradients and
+  clips every one: it is the optimizers' seam (`optimizer.Optimizer.
+  step`), which ignores `need_clip` as the JAX package's `_tree_clip`
+  does. `whole_sq` maps the gradients' sums of squares to those of the
+  whole gradients where each is a rank's block of one
+  (`parallel.spmd.clip_sharded`).
 Everything stays on the device: no host sync."""
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ def _clipped(p):
 
 
 class _ClipGradBase:
-    def _clip_grads(self, grads):
+    def _clip_grads(self, grads, whole_sq=None):
         raise NotImplementedError
 
     def __call__(self, params_grads):
@@ -51,7 +54,7 @@ class ClipGradByValue(_ClipGradBase):
         self.max = float(max)
         self.min = float(min) if min is not None else -self.max
 
-    def _clip_grads(self, grads):
+    def _clip_grads(self, grads, whole_sq=None):
         return [torch.clamp(g, self.min, self.max) for g in grads]
 
 
@@ -62,10 +65,13 @@ class ClipGradByNorm(_ClipGradBase):
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
 
-    def _clip_grads(self, grads):
+    def _clip_grads(self, grads, whole_sq=None):
+        sq = [torch.sum(g * g) for g in grads]
+        if whole_sq is not None:
+            sq = whole_sq(sq)
         out = []
-        for g in grads:
-            n = torch.sqrt(torch.sum(g * g))
+        for g, s in zip(grads, sq):
+            n = torch.sqrt(s)
             out.append(g * torch.where(n > self.clip_norm,
                                        self.clip_norm / n, 1.0))
         return out
@@ -80,10 +86,13 @@ class ClipGradByGlobalNorm(_ClipGradBase):
         self.clip_norm = float(clip_norm)
         self.group_name = group_name
 
-    def _clip_grads(self, grads):
+    def _clip_grads(self, grads, whole_sq=None):
         if not grads:
             return grads
-        gn = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+        sq = [torch.sum(g.float() ** 2) for g in grads]
+        if whole_sq is not None:
+            sq = whole_sq(sq)
+        gn = torch.sqrt(sum(sq))
         scale = self.clip_norm / torch.clamp(gn, min=self.clip_norm)
         return [g * scale.to(g.dtype) for g in grads]
 

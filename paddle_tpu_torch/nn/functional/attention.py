@@ -46,6 +46,7 @@ import torch
 from ... import amp
 from ...framework import monitor
 from ...framework.flags import flag
+from ...ops import flash_ops
 from ...ops.flash_ops import _dropout_seed, flash_attention, flash_supported
 from ...ops.splash_ops import _ids, splash_attention, splash_supported
 from ...framework import static_hook
@@ -88,8 +89,18 @@ def _sdpa_ref(q, k, v, mask, scale, is_causal, dropout_p=0.0,
             s = s + mask
     p = torch.softmax(s, dim=-1)
     if dropout_p > 0.0:
-        keep = torch.rand(p.shape, generator=generator, device=p.device,
-                          dtype=p.dtype) >= dropout_p
+        span = flash_ops._head_shard.span
+        if span is None:
+            u = torch.rand(p.shape, generator=generator, device=p.device,
+                           dtype=p.dtype)
+        else:
+            # a tensor-parallel rank's heads: the whole model's draw,
+            # this rank's heads of it
+            B, H = p.shape[:2]
+            u = torch.rand((B, span[1]) + tuple(p.shape[2:]),
+                           generator=generator, device=p.device,
+                           dtype=p.dtype)[:, span[0]:span[0] + H]
+        keep = u >= dropout_p
         p = torch.where(keep, p / (1.0 - dropout_p), torch.zeros_like(p))
     out = torch.einsum("bhqk,bhkd->bhqd", p, v)
     if seg is not None:

@@ -15,12 +15,14 @@ each `Linear` as keywords."""
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 
 import torch
 from torch import nn
 
 from ...framework.place import resolve_device
+from ...ops import flash_ops
 from .. import functional as F
 from .common import Dropout, Linear
 from .container import LayerList
@@ -35,7 +37,13 @@ class MultiHeadAttention(nn.Module):
     """reference `nn/layer/transformer.py:87`. `Cache` (k, v) grows by
     the new step's keys and values at each call (incremental decoding);
     `StaticCache` holds the projected keys and values of a fixed memory
-    (cross-attention)."""
+    (cross-attention).
+
+    Tensor parallel (`distributed.tensor_parallel.shard_megatron`, set by
+    `models.ernie.tp_annotate`): `tp` = (axis, n, r) and the projections
+    hold rank r's heads [r*H/n, (r+1)*H/n) (q/k/v column-parallel,
+    out_proj row-parallel); the layer attends over those heads, their
+    dropout drawn as the whole model's (`ops.flash_ops.head_shard`)."""
 
     Cache = collections.namedtuple("Cache", ["k", "v"])
     StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
@@ -60,11 +68,17 @@ class MultiHeadAttention(nn.Module):
         self.k_proj = Linear(self.kdim, embed_dim, **kw)
         self.v_proj = Linear(self.vdim, embed_dim, **kw)
         self.out_proj = Linear(embed_dim, embed_dim, **kw)
+        self.tp = None
+
+    @property
+    def local_heads(self):
+        return self.num_heads // (self.tp[1] if self.tp else 1)
 
     def _shape(self, x):
-        # [B, S, E] -> [B, H, S, D]
+        # [B, S, E] -> [B, H, S, D] (this rank's heads under tp)
         b, s = x.shape[0], x.shape[1]
-        return x.reshape(b, s, self.num_heads, self.head_dim).transpose(1, 2)
+        return x.reshape(b, s, self.local_heads, self.head_dim) \
+            .transpose(1, 2)
 
     def gen_cache(self, key, value=None, type=None):
         """A `StaticCache` of `key`'s (and `value`'s) projections when
@@ -74,8 +88,9 @@ class MultiHeadAttention(nn.Module):
             k = self._shape(self.k_proj(key))
             v = self._shape(self.v_proj(value if value is not None else key))
             return self.StaticCache(k, v)
-        empty = torch.zeros(key.shape[0], self.num_heads, 0, self.head_dim,
-                            dtype=key.dtype, device=key.device)
+        empty = torch.zeros(key.shape[0], self.local_heads, 0,
+                            self.head_dim, dtype=key.dtype,
+                            device=key.device)
         return self.Cache(empty, empty)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
@@ -94,9 +109,14 @@ class MultiHeadAttention(nn.Module):
             b = (None if self.q_proj.bias is None else
                  torch.cat([self.q_proj.bias, self.k_proj.bias,
                             self.v_proj.bias], dim=0))
+            if self.tp is not None:
+                # the column slices' input, entering once for the three
+                from ...distributed.tensor_parallel import (_CopyToParallel,
+                                                            _axis)
+                query = _CopyToParallel.apply(query, _axis(self.tp[0])[0])
             qkv = F.linear(query, w.t(), b)
             q, k, v = (self._shape(t)
-                       for t in torch.split(qkv, self.embed_dim, dim=-1))
+                       for t in torch.split(qkv, w.shape[0] // 3, dim=-1))
         else:
             q = self._shape(self.q_proj(query))
             if isinstance(cache, self.StaticCache):
@@ -108,12 +128,15 @@ class MultiHeadAttention(nn.Module):
                     k = torch.cat([cache.k, k], dim=2)
                     v = torch.cat([cache.v, v], dim=2)
                     cache = self.Cache(k, v)
-        out = F.scaled_dot_product_attention(
-            q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
-            training=self.training)
+        with (flash_ops.head_shard(self.tp[2] * self.local_heads,
+                                   self.num_heads)
+              if self.tp is not None else contextlib.nullcontext()):
+            out = F.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
+                training=self.training)
         b, s = query.shape[0], query.shape[1]
-        out = self.out_proj(out.transpose(1, 2).reshape(b, s,
-                                                        self.embed_dim))
+        out = self.out_proj(out.transpose(1, 2).reshape(
+            b, s, self.local_heads * self.head_dim))
         if isinstance(cache, self.Cache):
             return out, cache
         return out

@@ -27,11 +27,17 @@ Counterpart of `paddle_tpu/ops/pallas_ops.py` (`flash_attention`,
 - Types: float32 (3xTF32), bfloat16 and float16 (mma.sync with fp32
   sums); `flash_supported(dtype=...)` and `_check` take the same three,
   as the JAX package's kernels take q's type (`pallas_ops.py:342`).
-- Dropout: keep(i, j) <=> fmix32-chain hash of (seed, b*H + h, i, j) >=
-  `_drop_thresh(p)`. The mask is keyed on absolute coordinates, so the
-  forward and both backward kernels regenerate the same mask whatever
-  their tiles, and `_keep_mask` reproduces it bit for bit. It is not the
-  TPU kernel's mask (that one comes from the TPU PRNG, per tile).
+- Dropout: keep(i, j) <=> fmix32-chain hash of (seed, b*Hg + h0 + h, i,
+  j) >= `_drop_thresh(p)`, over the GLOBAL head: a tensor-parallel rank
+  that holds H of the model's Hg heads from head h0 (`head_shard`) keys
+  its rows as tp 1 would, so the ranks of tp n draw tp 1's mask between
+  them (Hg = H, h0 = 0 outside a shard). The seed word carries (h0, Hg)
+  above its low 32 bits (`head_keyed_seed`), so autograd, the op's
+  schema and the saved programs pass it as one int. The mask is keyed on
+  absolute coordinates, so the forward and both backward kernels
+  regenerate the same mask whatever their tiles, and `_keep_mask`
+  reproduces it bit for bit. It is not the TPU kernel's mask (that one
+  comes from the TPU PRNG, per tile).
 - `flash_supported`: the static shape gate of the JAX package (head dims
   D % 8 == 0 up to 512), cut at the head dims the kernels are built for,
   every D % 8 == 0 up to 256 (`_head_dim_ok`, `csrc/flash_mma.cuh`
@@ -49,7 +55,9 @@ Counterpart of `paddle_tpu/ops/pallas_ops.py` (`flash_attention`,
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -65,7 +73,7 @@ from ..framework.static_hook import named_op
 __all__ = ["flash_attention", "FlashAttention", "flash_attention_fwd",
            "flash_attention_dq", "flash_attention_dkv", "flash_supported",
            "_flash_fwd_reference", "_flash_bwd_reference",
-           "_keep_mask", "_pick_blocks"]
+           "_keep_mask", "_pick_blocks", "head_shard", "head_keyed_seed"]
 
 _BLOCK_MIN = 128        # alignment the gate requires of S_q / S_kv
 _NEG_INF = -1e30
@@ -118,11 +126,51 @@ def _drop_thresh(dropout_p):
     return min(int(dropout_p * 4294967296.0), _M32)
 
 
+class _HeadShard(threading.local):
+    span = None     # (first head, the model's heads) of this rank's heads
+
+
+_head_shard = _HeadShard()
+
+
+@contextlib.contextmanager
+def head_shard(first, heads):
+    """Within: the attention of this thread holds the model's heads
+    [first, first + H) of `heads`, and its dropout draws those heads' rows
+    of the whole model's mask (a tensor-parallel rank's attention)."""
+    prev = _head_shard.span
+    _head_shard.span = (int(first), int(heads))
+    try:
+        yield
+    finally:
+        _head_shard.span = prev
+
+
+def head_keyed_seed(seed, first=None, heads=None):
+    """The keep-mask seed of a call over heads [first, first + H) of
+    `heads` (default: the thread's `head_shard`, else the call's own
+    heads): the 32-bit seed with `first` in bits 32-47 and `heads` in bits
+    48-62."""
+    if first is None:
+        if _head_shard.span is None:
+            return int(seed) & _M32
+        first, heads = _head_shard.span
+    return (int(seed) & _M32) | (int(first) << 32) | (int(heads) << 48)
+
+
+def _seed_heads(seed, H):
+    """(32-bit seed, the model's heads, the first head) of a keyed seed."""
+    s = int(seed)
+    return s & _M32, ((s >> 48) & 0x7FFF) or H, (s >> 32) & 0xFFFF
+
+
 def _keep_mask(seed, B, H, Sq, Sk, dropout_p, device):
     """bool [B, H, Sq, Sk]: the kernels' keep mask, bit for bit."""
     def ar(n):
         return torch.arange(n, dtype=torch.int64, device=device)
-    row = _fmix32((int(seed) & _M32) ^ _mul32(ar(B * H), 0x9E3779B1))
+    seed, hg, h0 = _seed_heads(seed, H)
+    bh = (ar(B)[:, None] * hg + h0 + ar(H)[None, :]).reshape(-1)
+    row = _fmix32(seed ^ _mul32(bh, 0x9E3779B1))
     row = _fmix32(row[:, None] ^ _mul32(ar(Sq), 0x85EBCA77)[None, :])
     bits = _fmix32(row[:, :, None] ^ _mul32(ar(Sk), 0xC2B2AE3D)[None, None])
     return (bits >= _drop_thresh(dropout_p)).reshape(B, H, Sq, Sk)
@@ -288,14 +336,16 @@ def flash_supported(q_shape, k_shape=None, v_shape=None, mask=None,
 
 # -- the kernels ---------------------------------------------------------------------
 
-# source -> (C entry, its error-string function, number of pointer arguments)
+# source -> (C entry, its error-string function, number of pointer
+# arguments, whether it keys dropout on the global head: (Hg, h0) after
+# the seed)
 _ENTRIES = {
     "flash_fwd.cu": ("flash_attention_forward",
-                     "flash_attention_error_string", 6),
+                     "flash_attention_error_string", 6, True),
     "flash_bwd_dq.cu": ("flash_attention_bwd_dq",
-                        "flash_bwd_dq_error_string", 8),
+                        "flash_bwd_dq_error_string", 8, True),
     "flash_bwd_dkv.cu": ("flash_attention_bwd_dkv",
-                         "flash_bwd_dkv_error_string", 9),
+                         "flash_bwd_dkv_error_string", 9, True),
 }
 
 
@@ -305,19 +355,22 @@ def _launch(src, tensors, q, k, causal, scale, dropout_p, seed,
     kernels share this calling convention through) on `tensors`
     (pointers, None for no bias) on q's current stream; raise on a
     refused launch."""
-    entry, err_name, n_ptr = entries[src]
+    entry, err_name, n_ptr, keyed = entries[src]
     fn = _build.function(
         src, entry, [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_uint32, ctypes.c_float,
-            ctypes.c_uint32, ctypes.c_void_p])
+            ctypes.c_uint32] + [ctypes.c_int] * (2 * keyed)
+        + [ctypes.c_void_p])
     B, H, Sq, D = q.shape
     thresh = _drop_thresh(dropout_p) if dropout_p > 0.0 else 0
     keep_scale = 1.0 / (1.0 - dropout_p) if dropout_p > 0.0 else 1.0
+    seed, hg, h0 = _seed_heads(seed, H)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*[t.data_ptr() if t is not None else None for t in tensors],
                  B, H, Sq, k.shape[2], D, _DTYPES[q.dtype], int(bool(causal)),
-                 float(scale), thresh, keep_scale, int(seed) & _M32, stream)
+                 float(scale), thresh, keep_scale, seed,
+                 *((hg, h0) if keyed else ()), stream)
     if err:
         es = _build.function(src, err_name, [ctypes.c_int], ctypes.c_char_p)
         raise RuntimeError(f"{entry} launch failed: {es(err).decode()}")
@@ -544,7 +597,8 @@ def flash_attention(query, key, value, causal=False, scale=None,
     attn_mask: None, or a [B, 1, 1, S_kv] additive (float) / boolean
     key-padding mask. With dropout, the int32 seed of the keep mask comes
     from `generator` when given, else from `framework.random.next_seed`
-    for the query's device (as `pallas_ops.py:516-520` draws it). AMP's
+    for the query's device (as `pallas_ops.py:516-520` draws it), keyed
+    on the thread's `head_shard` (`head_keyed_seed`). AMP's
     white op "flash_attention": under AMP float32 q/k/v are cast to the
     autocast type; the bias is not an argument of the op (it is closed
     over in the JAX package) and stays float32, as the kernels need."""
@@ -554,6 +608,8 @@ def flash_attention(query, key, value, causal=False, scale=None,
     bias = None if attn_mask is None else _mask_to_bias(
         attn_mask, key.shape[0], key.shape[2])
     seed = _dropout_seed(query.device, dropout_p, generator)
+    if dropout_p > 0.0:
+        seed = head_keyed_seed(seed)
     return FlashAttention.apply(query.contiguous(), key.contiguous(),
                                 value.contiguous(), bias, seed, bool(causal),
                                 float(scale), float(dropout_p))

@@ -330,11 +330,11 @@ def _check_monotonic(seg):
 # source -> (C entry, its error-string function, number of pointer arguments)
 _ENTRIES = {
     "splash_fwd.cu": ("splash_attention_forward",
-                      "splash_fwd_error_string", 9),
+                      "splash_fwd_error_string", 9, False),
     "splash_bwd_dq.cu": ("splash_attention_bwd_dq",
-                         "splash_bwd_dq_error_string", 11),
+                         "splash_bwd_dq_error_string", 11, False),
     "splash_bwd_dkv.cu": ("splash_attention_bwd_dkv",
-                          "splash_bwd_dkv_error_string", 12),
+                          "splash_bwd_dkv_error_string", 12, False),
 }
 
 

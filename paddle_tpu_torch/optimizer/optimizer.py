@@ -79,6 +79,17 @@ class Optimizer:
         """Per-parameter update: returns (new_p, new_state)."""
         raise NotImplementedError
 
+    # set by `parallel.spmd` while `_update` runs on a block of a
+    # parameter: sums a block's partial sum over the ranks holding the
+    # other blocks
+    _block_sum = None
+
+    def _sum_sq(self, x):
+        """sum(x * x) over the whole parameter `x` is a block of (a rule
+        reading a whole-parameter norm, Lamb's and LarsMomentum's)."""
+        s = torch.sum(x * x)
+        return s if self._block_sum is None else self._block_sum(s)
+
     def _apply_weight_decay(self, g, p):
         if self._weight_decay:
             return g + self._weight_decay * p

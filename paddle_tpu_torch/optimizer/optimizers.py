@@ -231,8 +231,8 @@ class Lamb(Optimizer):
         mhat = m / _bias_correction(self._beta1, step)
         vhat = v / _bias_correction(self._beta2, step)
         r = mhat / (torch.sqrt(vhat) + self._eps) + self._lamb_wd * p32
-        w_norm = torch.sqrt(torch.sum(p32 * p32))
-        r_norm = torch.sqrt(torch.sum(r * r))
+        w_norm = torch.sqrt(self._sum_sq(p32))
+        r_norm = torch.sqrt(self._sum_sq(r))
         trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
                             1.0)
         new_p = (p32 - lr * trust * r).to(p.dtype)
@@ -260,8 +260,8 @@ class LarsMomentum(Optimizer):
 
     def _update(self, g, p, state, lr, step):
         g32, p32 = g.float(), p.float()
-        p_norm = torch.sqrt(torch.sum(p32 * p32))
-        g_norm = torch.sqrt(torch.sum(g32 * g32))
+        p_norm = torch.sqrt(self._sum_sq(p32))
+        g_norm = torch.sqrt(self._sum_sq(g32))
         local_lr = torch.where(
             (p_norm > 0) & (g_norm > 0),
             self._lars_coeff * p_norm

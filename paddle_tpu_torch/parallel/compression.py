@@ -19,12 +19,14 @@ only where |v| ties the k-th largest (the mask is |v| >= kth). With
 The state is a dict {name: {"u", "v"}} beside the parameters; the
 transform is pure (new tensors out), as the JAX package's pytree
 transform is. `parallel.spmd.make_sharded_train_step(dgc=True)` applies
-it to the dp-averaged gradient, `parallel.localsgd.
+it to the dp-averaged gradient (on a rank's blocks from ZeRO-2 on, with
+the whole gradient's threshold), `parallel.localsgd.
 make_local_train_step(dgc=True)` to each rank's own before the average.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["dgc_init", "dgc_compress"]
 
@@ -36,12 +38,21 @@ def dgc_init(params):
             for n, p in params.items()}
 
 
-def _topk_mask(x, k):
+def _topk_mask(x, k, groups=()):
     """|x| >= its k-th largest |value| (ties kept, as `lax.top_k`'s k-th
-    value compared with >=)."""
+    value compared with >=). With `groups` ([(group, size)]), x is a block
+    of a whole tensor split over them: each rank's top-k candidates are
+    all-gathered and the k-th largest of the union is the whole tensor's
+    k-th largest."""
     a = x.abs()
-    kth = torch.topk(a.reshape(-1), k).values[-1]
-    return a >= kth
+    top = torch.topk(a.reshape(-1), min(k, a.numel())).values
+    for g, n in groups:
+        if top.numel() < k:   # a short block: pad with values below any
+            top = torch.cat([top, top.new_full((k - top.numel(),), -1.0)])
+        parts = [torch.empty_like(top) for _ in range(n)]
+        dist.all_gather(parts, top.contiguous(), group=g)
+        top = torch.topk(torch.cat(parts), k).values
+    return a >= top[k - 1]
 
 
 def _quantile(a, q):
@@ -59,9 +70,13 @@ def _quantile(a, q):
 
 
 def dgc_compress(grads, state, momentum=0.9, sparsity=0.999,
-                 rampup_step=None, step_no=None):
+                 rampup_step=None, step_no=None, groups=None):
     """One DGC step over {name: gradient}; returns (sparse gradients,
-    new state), both dicts (see the module docstring)."""
+    new state), both dicts (see the module docstring). `groups` ({name:
+    [(group, size)]}, from `parallel.spmd`) names the gradients that are
+    blocks of a whole one split over those groups (ZeRO-2/3, 'mp' / 'ep'
+    slices): their k counts the whole gradient and their threshold is the
+    whole gradient's (`_topk_mask`)."""
     eff = None
     if rampup_step is not None and step_no is not None:
         frac = torch.clamp(torch.tensor(float(step_no) / float(rampup_step),
@@ -72,9 +87,13 @@ def dgc_compress(grads, state, momentum=0.9, sparsity=0.999,
         st = state[n]
         u = momentum * st["u"] + g
         v = st["v"] + u
+        gs = (groups or {}).get(n) or ()
         if rampup_step is None:
-            k = max(1, int(round(v.numel() * (1.0 - sparsity))))
-            mask = _topk_mask(v, k)
+            size = v.numel()
+            for _, m in gs:
+                size *= m
+            k = max(1, int(round(size * (1.0 - sparsity))))
+            mask = _topk_mask(v, k, gs)
         else:
             q = _quantile(v.abs().float(), eff)
             mask = v.abs() >= q.to(v.dtype)

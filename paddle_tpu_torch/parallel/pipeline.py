@@ -44,7 +44,14 @@ embedding, block list and head) over pp x dp:
   GPipe, counted once), the stage blocks' are the rank's own; all are
   averaged over dp, then each rank updates what it holds;
 - dropout: a stage block's draws are seeded by (step seed, pp rank,
-  microbatch, block) folded as `:161, 199, 455` fold theirs.
+  microbatch, block) folded as `:161, 199, 455` fold theirs;
+- the optimizer's gradient clip reads the global norm over every stage's
+  gradients (`spmd.clip_sharded`: summed over pp, the replicated
+  embedding and head counted once), as the JAX package clips the
+  stacked state through `optimizer.apply`;
+- AMP: a step called under `amp.auto_cast` runs every stage's forward
+  and backward (and the head's) under it; the activations cross the
+  stages in the type the stage gives them.
 
 `pipeline_write_back(model, state)` broadcasts each stage's blocks from
 its pp rank, so every rank's model holds the trained whole.
@@ -60,9 +67,8 @@ from torch import nn
 
 from ..distributed.collective import ppermute
 from ..framework import random as frandom
-from ..framework.errors import InvalidArgumentError
 from .mesh import get_mesh
-from .spmd import _as_tensor, _mean_over, _ShardGather
+from .spmd import _as_tensor, _mean_over, _ShardGather, clip_sharded
 
 __all__ = ["gpipe_spmd", "pipeline_forward", "partition_blocks",
            "make_pipeline_train_step", "pipeline_write_back"]
@@ -182,11 +188,6 @@ def make_pipeline_train_step(model, optimizer, loss_fn, *, n_micro,
             f"(found buffers: {sorted(n for n, _ in outer.named_buffers())})"
             "; use schedule='gpipe' or move running-stat layers out of the "
             "pipelined model")
-    if pp > 1 and optimizer._grad_clip is not None:
-        raise InvalidArgumentError(
-            "make_pipeline_train_step: a gradient clip needs the global "
-            "norm over every stage's gradients, which the port does not "
-            "reduce yet; clip outside the step or use pp = 1")
     stages, k = partition_blocks(blocks, pp)
     mine = stages[d]
     names = {id(p): n for n, p in model.named_parameters()}
@@ -406,6 +407,13 @@ def make_pipeline_train_step(model, optimizer, loss_fn, *, n_micro,
         if dp_group is not None:
             lv = lv.clone()
             _mean_over({**grads, "\0loss": lv}, dp_group, dp)
+        if optimizer._grad_clip is not None:
+            # the global norm over every stage's gradients: a stage's
+            # blocks split over pp, the embedding and head counted once
+            grads = OrderedDict(zip(grads, clip_sharded(
+                optimizer._grad_clip, list(grads.values()),
+                [set() if n in outer_ps else {pp_axis} for n in grads],
+                mesh)))
         step_no = state["step_no"] + 1
         with torch.no_grad():
             for n, p in params.items():

@@ -6,8 +6,8 @@ step. The port runs one process a rank and writes the collectives:
 - the batch: a rank trains on its `dp` block of rows (the step takes the
   global batch, as the JAX step does, unless `local_batch=True`);
 - parameters follow their `partition_spec` (the tensor-parallel layers
-  of `distributed.tensor_parallel` hold their 'mp' slice; ZeRO-3 marks
-  a 'dp' axis), else replicated;
+  of `distributed.tensor_parallel` hold their 'mp' slice, the MoE
+  experts their 'ep' block; ZeRO-3 marks a 'dp' axis), else replicated;
 - gradients: ZeRO-0 and ZeRO-1 all-reduce them over `dp` in flattened
   buckets a type and average; ZeRO-2 and ZeRO-3 reduce-scatter each
   gradient over `dp` on its largest dp-divisible axis, as `zero_sharding`
@@ -15,8 +15,20 @@ step. The port runs one process a rank and writes the collectives:
 - optimizer state (ZeRO-1 and up): each rank keeps and updates the block
   of its parameter on that axis, then the blocks are all-gathered into
   the parameter. A parameter with no divisible axis is updated whole on
-  every rank. The update rule runs on blocks, so it must be elementwise
-  (every optimizer but `Lamb` and `LarsMomentum`);
+  every rank. A rule that reads a whole-parameter norm (`Lamb`,
+  `LarsMomentum`) sums a block's squares over the ranks holding the
+  other blocks (`Optimizer._sum_sq`), so it reads the whole norm;
+- ZeRO-3 also keeps only the rank's block of each such parameter between
+  steps: the layer's tensor gives up its storage, the step all-gathers
+  the blocks before the forward and frees them after the update. The
+  layer's `state_dict()` gathers them into what it returns (a collective:
+  every rank of the dp group calls it, as every rank calls a full state
+  dict of torch's FSDP), and `step.write_back(state)` (which hapi's
+  `Model` calls at each epoch's end) gathers them into the layer;
+- gradient clipping (`clip_sharded`) reads the norms of the whole
+  gradients: the clip's own formula (`nn.clip`) with each gradient's
+  sum of squares summed over the mesh axes its block or slice is split
+  on (ZeRO-2/3's dp, 'mp', 'ep'), so a replicated gradient counts once;
 - `recompute` checkpoints the forward (`torch.utils.checkpoint`);
 - `sp_axis` (sequence parallel): each rank also takes its block of the
   sequence axis (dim 1) of every input and of every label of two or more
@@ -29,7 +41,9 @@ step. The port runs one process a rank and writes the collectives:
   only for a model whose attention is sequence-parallel;
 - `dgc` (deep gradient compression, `compression.dgc_compress`) on the
   dp-averaged gradient, its (u, v) state under `state["dgc"]`, as the
-  JAX package applies it to the GSPMD-reduced gradient.
+  JAX package applies it to the GSPMD-reduced gradient; from ZeRO-2 on,
+  the state and the top-k run on a rank's blocks, the k-th largest |v|
+  taken over every rank's block (the whole gradient's).
 
 `sharded_splash_attention` is the packed-batch attention of a dp rank:
 splash attention (K5 forward, K6/K7 backward on the card) on the rank's
@@ -55,11 +69,7 @@ from .mesh import Mesh, P, get_mesh
 __all__ = ["param_sharding", "zero_sharding", "batch_sharding",
            "make_sharded_train_step", "shard_params",
            "sharded_splash_attention", "write_back", "tp_mesh",
-           "local_rows", "local_seq", "batch_placement"]
-
-# rules that update each element from its own gradient and state only
-_NOT_ELEMENTWISE = ("Lamb", "LarsMomentum")
-
+           "local_rows", "local_seq", "batch_placement", "clip_sharded"]
 
 def tp_mesh(tp, axis="tp"):
     """A 1-D mesh over the first `tp` ranks for tensor-parallel serving;
@@ -250,13 +260,16 @@ def make_sharded_train_step(layer, optimizer, loss_fn: Callable,
       state = {params, buffers, opt_state, step_no}
       step(state, inputs, labels, lr=None, rng=None) -> (state, loss)
     `loss` is the mean over the global batch (the ranks' means averaged).
-    `params` are the layer's own (local) parameters, updated in place;
-    `opt_state[name]` holds the rank's ZeRO block of each state leaf.
-    `rng` (an int) seeds the step's dropout draws as `framework.random.
-    seed` would; the draws of a dp rank differ from the other ranks'
-    (the attention kernels fold the rank in). `zero_stage` defaults to
-    the optimizer's (set by `distributed.sharding.
-    group_sharded_parallel`), else 1."""
+    `params` are the layer's own (local) parameters, updated in place,
+    except at ZeRO-3, where a parameter with a ZeRO axis is this rank's
+    block of it (the layer's tensor holds no storage between steps; the
+    layer's `state_dict()` returns it gathered, and `write_back` /
+    `step.write_back(state)` gather it into the layer). `opt_state[name]` holds the
+    rank's ZeRO block of each state leaf. `rng` (an int) seeds the step's
+    dropout draws as `framework.random.seed` would; the draws of a dp
+    rank differ from the other ranks' (the attention kernels fold the
+    rank in). `zero_stage` defaults to the optimizer's (set by
+    `distributed.sharding.group_sharded_parallel`), else 1."""
     mesh = mesh or get_mesh()
     if zero_stage is None:
         zero_stage = int(getattr(optimizer, "_zero_stage", 1))
@@ -268,27 +281,11 @@ def make_sharded_train_step(layer, optimizer, loss_fn: Callable,
     r = mesh.axis_rank(dp_axis) if mesh is not None else 0
     sp = mesh.axis_size(sp_axis) if mesh is not None and sp_axis else 1
     sp_group = mesh.group(sp_axis) if sp > 1 else None
-    if dgc and dp > 1 and zero_stage >= 2:
-        raise InvalidArgumentError(
-            "make_sharded_train_step(dgc=True) picks the top-k of each "
-            "whole gradient; ZeRO-2/3 leaves a rank a block of it (use "
-            "zero_stage <= 1)")
-    if dp > 1 and zero_stage >= 1 and \
-            type(optimizer).__name__ in _NOT_ELEMENTWISE:
-        raise InvalidArgumentError(
-            f"ZeRO stage {zero_stage} updates blocks of a parameter; "
-            f"{type(optimizer).__name__}'s rule reads whole-parameter "
-            f"norms (use zero_stage=0)")
-    if dp > 1 and zero_stage >= 2 and optimizer._grad_clip is not None:
-        raise InvalidArgumentError(
-            "gradient clipping under ZeRO-2/3 is not yet ported to "
-            "paddle_tpu_torch (the clip needs the global norm of the "
-            "scattered blocks); use zero_stage <= 1")
     names = [n for n, p in layer.named_parameters() if p.requires_grad]
     params = OrderedDict((n, p) for n, p in layer.named_parameters()
                          if p.requires_grad)
     # a ZeRO-3 'dp' mark (`group_sharded_parallel`) names the axis the
-    # update is split on; the layer keeps the gathered parameter
+    # update is split on
     specs = {n: P(*[None if ax == dp_axis else ax for ax in spec])
              for n, spec in param_sharding(layer, mesh).items()}
     # each parameter's ZeRO axis: its largest dp-divisible free axis
@@ -303,14 +300,36 @@ def make_sharded_train_step(layer, optimizer, loss_fn: Callable,
         size = t.shape[ax] // dp
         return t.narrow(ax, r * size, size)
 
+    # the mesh axes a parameter's tensor is split over ('mp', 'ep'), and
+    # those of its block in the update and of its gradient (+ 'dp' where
+    # a rank holds a ZeRO block: the update from ZeRO-1, the gradient
+    # from ZeRO-2 on)
+    split = {n: {ax for ax in specs[n] if ax is not None} for n in params}
+    usplit = {n: split[n] | ({dp_axis} if zaxis[n] is not None else set())
+              for n in params}
+    gsplit = {n: usplit[n] if zero_stage >= 2 else split[n]
+              for n in params}
     opt_state = {n: optimizer._init_state(block(p.detach(), n))
                  for n, p in params.items()}
-    state = {"params": params,
+    # ZeRO-3: a rank keeps only its block of each parameter with a ZeRO
+    # axis between steps
+    z3 = [n for n in params if zero_stage >= 3 and zaxis[n] is not None]
+    owned = OrderedDict()
+    for n in z3:
+        owned[n] = block(params[n].detach(), n).clone()
+        owned[n]._zero_gather = (zaxis[n], group, dp)
+        params[n].data = params[n].data.new_empty(0)
+    _hook_gathered_state_dict(layer, owned)
+    state = {"params": OrderedDict((n, owned.get(n, p))
+                                   for n, p in params.items()),
              "buffers": OrderedDict(layer.named_buffers()),
              "opt_state": opt_state, "step_no": 0}
     if dgc:
         from .compression import dgc_init
-        state["dgc"] = dgc_init({n: p.detach() for n, p in params.items()})
+        state["dgc"] = dgc_init({
+            n: (owned[n] if n in owned else
+                block(p.detach(), n) if dp_axis in gsplit[n]
+                else p.detach()) for n, p in params.items()})
 
     def reduce_grads(grads):
         """Mean gradients over sp and dp: (full or block gradient a
@@ -359,7 +378,7 @@ def make_sharded_train_step(layer, optimizer, loss_fn: Callable,
         return lv.float().mean()
 
     def step(state, inputs, labels, lr=None, rng=None):
-        device = next(iter(params.values())).device
+        device = next(iter(state["params"].values())).device
         if not local_batch:
             inputs = tuple(local_rows(x, mesh, dp_axis) for x in inputs)
             labels = tuple(local_rows(x, mesh, dp_axis) for x in labels)
@@ -370,6 +389,8 @@ def make_sharded_train_step(layer, optimizer, loss_fn: Callable,
         labels = tuple(_as_tensor(x, device) for x in labels)
         lr = float(optimizer.get_lr() if lr is None else lr)
         layer.train()
+        for n in z3:    # the whole parameters, for this step only
+            params[n].data = _gather_dim(owned[n], zaxis[n], group, dp)
         for p in params.values():
             p.grad = None
         if rng is not None:
@@ -385,21 +406,29 @@ def make_sharded_train_step(layer, optimizer, loss_fn: Callable,
         if dgc:
             from . import compression
             grads, state["dgc"] = compression.dgc_compress(
-                grads, state["dgc"], dgc_momentum, dgc_sparsity)
+                grads, state["dgc"], dgc_momentum, dgc_sparsity,
+                groups={n: _split_groups(mesh, gsplit[n]) for n in grads})
         if optimizer._grad_clip is not None:
-            clipped = optimizer._grad_clip._clip_grads(
-                [grads[n] for n in names])
-            grads = OrderedDict(zip(names, clipped))
+            grads = OrderedDict(zip(names, clip_sharded(
+                optimizer._grad_clip, [grads[n] for n in names],
+                [gsplit[n] for n in names], mesh)))
         step_no = state["step_no"] + 1
         with torch.no_grad():
             for n, p in params.items():
                 g = grads[n]
-                full_g = g.shape == p.shape
-                pb = block(p.detach(), n)
-                gb = block(g, n) if full_g else g
-                new_pb, state["opt_state"][n] = optimizer._update(
-                    gb, pb, state["opt_state"][n], lr, step_no)
-                if zaxis[n] is None:
+                pb = owned[n] if n in owned else block(p.detach(), n)
+                gb = g if dp_axis in gsplit[n] else block(g, n)
+                groups = _split_groups(mesh, usplit[n])
+                optimizer._block_sum = _summer(groups) if groups else None
+                try:
+                    new_pb, state["opt_state"][n] = optimizer._update(
+                        gb, pb, state["opt_state"][n], lr, step_no)
+                finally:
+                    optimizer._block_sum = None
+                if n in owned:
+                    owned[n].copy_(new_pb)
+                    p.data = p.data.new_empty(0)
+                elif zaxis[n] is None:
                     p.copy_(new_pb)
                 else:
                     p.copy_(_gather_dim(new_pb.to(p.dtype), zaxis[n],
@@ -421,15 +450,86 @@ def make_sharded_train_step(layer, optimizer, loss_fn: Callable,
                    for d, ax in enumerate(base)])
 
     step.state_sharding = {
-        "params": specs, "buffers": {n: P() for n in state["buffers"]},
+        "params": {n: leaf_spec(n, owned[n]) if n in owned else specs[n]
+                   for n in params},
+        "buffers": {n: P() for n in state["buffers"]},
         "opt_state": {n: {k: leaf_spec(n, v) for k, v in st.items()}
                       for n, st in opt_state.items()},
         "step_no": P()}
     if dgc:
-        step.state_sharding["dgc"] = {n: {"u": specs[n], "v": specs[n]}
-                                      for n in params}
+        step.state_sharding["dgc"] = {
+            n: {k: (leaf_spec(n, v) if dp_axis in gsplit[n]
+                    else specs[n]) for k, v in st.items()}
+            for n, st in state["dgc"].items()}
     step.zero_axes = zaxis
+    step.write_back = lambda st: write_back(layer, st)
     return step, state
+
+
+def _hook_gathered_state_dict(layer, owned):
+    """Make `layer.state_dict()` return each ZeRO-3 parameter of `owned`
+    (name -> this rank's block, tagged `_zero_gather`) whole while the
+    layer's tensor is empty; the hook of an earlier step on the layer is
+    replaced."""
+    old = getattr(layer, "_zero3_state_dict_hook", None)
+    if old is not None:
+        old.remove()
+        layer._zero3_state_dict_hook = None
+    if not owned:
+        return
+    own = dict(layer.named_parameters())
+
+    def hook(module, sd, prefix, local_metadata):
+        for n, blk in owned.items():
+            if own[n].numel() == 0:
+                ax, group, dp = blk._zero_gather
+                sd[prefix + n] = _gather_dim(blk, ax, group, dp)
+    layer._zero3_state_dict_hook = layer.register_state_dict_post_hook(hook)
+
+
+def _split_groups(mesh, axes):
+    """[(group, size)] of the mesh axes in `axes` that have size > 1, in
+    the mesh's order."""
+    if mesh is None:
+        return []
+    return [(mesh.group(ax), mesh.axis_size(ax)) for ax in mesh.axis_names
+            if ax in axes and mesh.axis_size(ax) > 1]
+
+
+def _summer(groups):
+    """x -> its sum over every group of `groups` (a block's partial sum
+    summed into the whole parameter's)."""
+    def f(x):
+        x = x.clone()
+        for g, _ in groups:
+            dist.all_reduce(x, group=g)
+        return x
+    return f
+
+
+def clip_sharded(clip, grads, splits, mesh=None):
+    """`clip._clip_grads(grads)` where gradient i may be a block or slice
+    of the whole one, split over the mesh axes in `splits[i]`: each
+    gradient's sum of squares is summed over those axes, so every norm
+    the clip reads is the whole gradients' (a replicated gradient counts
+    once). The sums of the gradients split alike go in one all-reduce;
+    the ranks of a group hold their gradients in one order."""
+    mesh = mesh or get_mesh()
+
+    def whole_sq(sq):
+        by = OrderedDict()
+        for i, sp in enumerate(splits):
+            groups = _split_groups(mesh, sp)
+            if groups:
+                by.setdefault(tuple(ax for ax in mesh.axis_names
+                                    if ax in sp), (groups, []))[1].append(i)
+        out = list(sq)
+        for groups, idx in by.values():
+            v = _summer(groups)(torch.stack([sq[i].float() for i in idx]))
+            for j, i in enumerate(idx):
+                out[i] = v[j].to(sq[i].dtype)
+        return out
+    return clip._clip_grads(grads, whole_sq)
 
 
 def _by_type(grads, names=None):
@@ -486,11 +586,19 @@ def sharded_splash_attention(mesh=None, causal=False, scale=None,
 
 def write_back(layer, state):
     """Copy a state's parameters and buffers into `layer` (the step keeps
-    the layer's own tensors, so this copies only foreign values)."""
+    the layer's own tensors, so this copies only foreign values, and
+    gathers ZeRO-3 blocks: every rank calls it then)."""
     with torch.no_grad():
         own = dict(layer.named_parameters())
         for n, v in state["params"].items():
-            if own[n] is not v:
+            gather = getattr(v, "_zero_gather", None)
+            if gather is not None:
+                # a ZeRO-3 block: the whole parameter, gathered (every
+                # rank of the dp group calls this)
+                ax, group, dp = gather
+                own[n].data = (_gather_dim(v, ax, group, dp) if dp > 1
+                               else v.clone())
+            elif own[n] is not v:
                 own[n].copy_(v)
         bufs = dict(layer.named_buffers())
         for n, v in state["buffers"].items():

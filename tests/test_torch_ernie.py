@@ -41,7 +41,6 @@ from paddle_tpu.hapi.callbacks import Callback as JCallback
 from paddle_tpu.metric import Accuracy as JAccuracy
 from paddle_tpu_torch import hapi, io, metric, models, nn, optimizer
 from paddle_tpu_torch.framework import flags as tflags
-from paddle_tpu_torch.framework.errors import InvalidArgumentError
 from paddle_tpu_torch.models import load_reference_state
 from paddle_tpu_torch.nn.functional import attention as tattention
 from paddle_tpu_torch.ops import flash_ops
@@ -286,7 +285,8 @@ def test_seeded_init_and_tp_annotate():
     """The same seed gives the same weights, another seed others; the
     initializers' laws hold (embeddings normal(0, 0.02), Linear weights
     within the Xavier limit, zero biases, unit LayerNorms);
-    `tp_annotate` raises."""
+    `tp_annotate` with no mesh marks the JAX package's parameters (by
+    name) and leaves the weights and the forward as they were."""
     cfg = models.ErnieConfig.tiny()
     a = models.ErnieForPretraining(cfg, device="cpu", seed=4).state_dict()
     b = models.ErnieForPretraining(cfg, device="cpu", seed=4).state_dict()
@@ -302,8 +302,19 @@ def test_seeded_init_and_tp_annotate():
     assert float(a["ernie.encoder.layers.1.linear1.bias"].abs().max()) == 0
     assert float(a["mlm_bias"].abs().max()) == 0
     assert torch.equal(a["mlm_norm.weight"], torch.ones(128))
-    with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        models.tp_annotate(models.ErnieModel(cfg, device="cpu"))
+    net = models.ErnieForPretraining(cfg, device="cpu", seed=4).eval()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 1024,
+                                                            (2, 16)))
+    before = [t.detach().clone() for t in net(ids)]
+    assert models.tp_annotate(net) is net
+    marked = {n for n, p in net.named_parameters()
+              if getattr(p, "partition_spec", None)}
+    jnet = jmodels.tp_annotate(jmodels.ErnieForPretraining(cfg))
+    want = {n for n, p in jnet.named_parameters()
+            if getattr(p, "partition_spec", None)}
+    assert marked == want and len(marked) == 10 * cfg.num_hidden_layers + 1
+    assert all(torch.equal(net.state_dict()[k], a[k]) for k in a)
+    assert all(torch.equal(x, y) for x, y in zip(net(ids), before))
 
 
 @pytest.fixture

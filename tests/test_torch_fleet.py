@@ -15,7 +15,8 @@ and batches:
   JAX metrics of the ranks' values combined;
 - `Model.fit` routed through fleet (a 20-sample set at batch 8: the tail
   padded and masked), its per-step losses and final parameters against
-  the JAX `Model.fit` under fleet, rtol 1e-5.
+  the JAX `Model.fit` under fleet, rtol 1e-5; the same at ZeRO-3, with
+  `Model.save`'s weights and `evaluate`'s loss.
 """
 import json
 import os
@@ -220,6 +221,48 @@ def test_model_fit_routes_through_fleet_like_jax(ranks):
         for k, w in port.items():
             np.testing.assert_allclose(got[f"fit.p.{k}"], w, **FIT,
                                        err_msg=k)
+
+
+def test_model_fit_at_zero3_saves_and_evaluates_whole_weights(ranks):
+    """`Model.fit` through fleet with `sharding_configs["stage"] = 3`: the
+    step keeps a rank's blocks, gathered into the network at each epoch's
+    end (`step.write_back`), so `Model.save` writes and `evaluate` runs
+    the whole weights: the saved weights, the losses and the evaluated
+    loss are the JAX `Model.fit` / `evaluate` under fleet's (the same
+    global function; the JAX side at its default stage, C34)."""
+    inp, job = ranks
+    jfleet.init(is_collective=True)
+    net = _mlp(4, 3)
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.SGD(0.1, parameters=net.parameters()),
+                  jnn.CrossEntropyLoss())
+
+    class DS(paddle.io.Dataset):
+        def __len__(self):
+            return 20
+
+        def __getitem__(self, i):
+            return inp["fx"][i], inp["fy"][i].astype("int32")
+    got_j = []
+
+    class Rec(paddle.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            got_j.append(float(logs["loss"]))
+    model.fit(DS(), batch_size=8, epochs=2, shuffle=False, verbose=0,
+              log_freq=1, callbacks=[Rec()])
+    ev = float(np.ravel(model.evaluate(DS(), batch_size=8,
+                                       verbose=0)["loss"])[0])
+    want = {k: v.numpy() for k, v in net.state_dict().items()}
+    jfleet.fleet._inited = False
+    set_mesh(None)
+    port = _params(_mlp_tok({f"w.{k}": v for k, v in want.items()}, "w."))
+    for got in job.wait():
+        assert int(got["fit3.blocks"]) == 4
+        np.testing.assert_allclose(got["fit3.losses"], got_j, **FIT)
+        for k, w in port.items():
+            np.testing.assert_allclose(got[f"fit3.saved.{k}"], w, **FIT,
+                                       err_msg=k)
+        np.testing.assert_allclose(float(got["fit3.eval"]), ev, **FIT)
 
 
 def test_fleet_surface(monkeypatch):

@@ -201,8 +201,9 @@ def job_train(wd, r, n, inp):
             st, lv = step(st, (X,), (Y,))
             losses.append(float(lv))
         out[f"{tag}.losses"] = np.asarray(losses)
-        for k, v in _params(net).items():
-            out[f"{tag}.{k}"] = v
+        # the state dict: ZeRO-3's blocks gathered
+        for k, v in net.state_dict().items():
+            out[f"{tag}.{k}"] = v.numpy()
         return step, st
     for z in (0, 1, 2):
         run(f"zero{z}", paddle.optimizer.Momentum, 0.1, zero_stage=z)
@@ -703,6 +704,37 @@ def job_fleet(wd, r, n, inp):
     out["fit.losses"] = np.asarray(got)
     for k, v in _params(net).items():
         out[f"fit.p.{k}"] = v
+    # the same fit at ZeRO-3 (sharding stage 3): Model.save and evaluate
+    # after it read the whole weights
+    from paddle_tpu_torch.framework import io_state
+    set_mesh(None)
+    s3 = F.DistributedStrategy()
+    s3.sharding = True
+    s3.sharding_configs = {"stage": 3}
+    F.init(is_collective=True, strategy=s3)
+    net = _mlp_tok(inp, "fit.")
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.SGD(0.1, parameters=net.parameters()),
+                  nn.CrossEntropyLoss())
+    got3 = []
+
+    class Rec3(paddle.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            got3.append(float(logs["loss"]))
+
+    model.fit(DS(), batch_size=8, epochs=2, shuffle=False, verbose=0,
+              log_freq=1, callbacks=[Rec3()])
+    out["fit3.blocks"] = np.asarray(sum(
+        getattr(v, "_zero_gather", None) is not None
+        for v in model._sharded_state["params"].values()))
+    out["fit3.losses"] = np.asarray(got3)
+    path = os.path.join(wd, f"fit3_r{r}")
+    model.save(path)
+    for k, v in io_state.load(path + ".pdparams").items():
+        out[f"fit3.saved.{k}"] = np.asarray(v)
+    out["fit3.eval"] = np.asarray(
+        model.evaluate(DS(), batch_size=8, verbose=0)["loss"])
+    set_mesh(None)
     return out
 
 
@@ -785,13 +817,310 @@ def job_dist_chip(wd, r, n, inp):
             "grad": x.grad.cpu().numpy()}
 
 
+# -- the hybrid slice (tp_annotate, MoE over ep, ZeRO-3, the global views) ---
+
+def ernie_cls(inp, cfg_kw):
+    """The tests' tiny ERNIE classifier with the JAX model's weights (full,
+    before `tp_annotate` cuts them)."""
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification,
+                                         load_reference_state)
+    cfg = ErnieConfig.tiny()
+    for k, v in cfg_kw.items():
+        setattr(cfg, k, v)
+    m = ErnieForSequenceClassification(cfg, num_classes=4, device="cpu")
+    load_reference_state(m, {k[6:]: v for k, v in inp.items()
+                             if k.startswith("ernie.")})
+    return m
+
+
+def moe_gpt(inp, prefix="moe."):
+    """The tests' tiny MoE GPT (`__graft_entry__.py` phase 3's, 4
+    experts), built on the live mesh, with the JAX model's weights (the
+    experts cut to the rank's block)."""
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         load_reference_state)
+    m = GPTForCausalLM(GPTConfig.tiny(use_moe=True, num_experts=4,
+                                      max_position_embeddings=32,
+                                      dropout=0.0), device="cpu")
+    load_reference_state(m, {k[len(prefix):]: v for k, v in inp.items()
+                             if k.startswith(prefix)})
+    return m
+
+
+def _specs(net):
+    return json.dumps({n: list(p.partition_spec)
+                       for n, p in net.named_parameters()
+                       if getattr(p, "partition_spec", None)})
+
+
+def job_hybrid(wd, r, n, inp):
+    """4 ranks: ERNIE dp 2 x mp 2 through tp_annotate with ZeRO-1 and
+    recompute (phase 1 of `__graft_entry__.py`), then the MoE GPT at
+    dp 2 x ep 2 (its phase 3), 3 steps each; and a tp 2 dropout arm."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models import tp_annotate
+    from paddle_tpu_torch.parallel import (create_mesh,
+                                           make_sharded_train_step, set_mesh)
+    out = {}
+    ce = nn.CrossEntropyLoss()
+    mesh = create_mesh({"dp": 2, "mp": 2})
+    out["coords"] = np.asarray(mesh.coords)
+    net = ernie_cls(inp, dict(hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0))
+    tp_annotate(net)
+    opt = paddle.optimizer.AdamW(1e-4, parameters=net.parameters())
+    step, st = make_sharded_train_step(
+        net, opt, lambda o, lb: ce(o, lb[0]), zero_stage=1, recompute=True)
+    losses = []
+    for _ in range(3):
+        st, lv = step(st, (inp["e_ids"],), (inp["e_labels"],))
+        losses.append(float(lv))
+    out["ernie.losses"] = np.asarray(losses)
+    out["ernie.specs"] = np.asarray(_specs(net))
+    out["ernie.local_heads"] = np.asarray(
+        net.ernie.encoder.layers[0].self_attn.local_heads)
+    for k, v in _params(net).items():
+        out[f"ernie.p.{k}"] = v
+    set_mesh(None)
+    mesh = create_mesh({"dp": 2, "ep": 2})
+    m = moe_gpt(inp)
+    opt = paddle.optimizer.Adam(1e-4, parameters=m.parameters())
+    step, st = make_sharded_train_step(m, opt, lm_loss)
+    losses = []
+    for _ in range(3):
+        st, lv = step(st, (inp["m_ids"],), (inp["m_tgt"],))
+        losses.append(float(lv))
+    out["moe.coords"] = np.asarray(mesh.coords)
+    out["moe.losses"] = np.asarray(losses)
+    out["moe.specs"] = np.asarray(_specs(m))
+    out["moe.zero_axes"] = np.asarray(json.dumps(step.zero_axes))
+    for k, v in _params(m).items():
+        out[f"moe.p.{k}"] = v
+    set_mesh(None)
+    return out
+
+
+def job_tp_dropout(wd, r, n, inp):
+    """2 ranks at mp 2 (or world 1 here at mp 1 where n == 1 is asked by
+    the test): the tiny ERNIE with attention and hidden dropout at S 128
+    through the flash path's plain versions, 2 SGD steps from one rng;
+    and the keep masks each rank's attention draws."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.models import tp_annotate
+    from paddle_tpu_torch.ops import flash_ops
+    from paddle_tpu_torch.parallel import create_mesh, make_sharded_train_step
+    set_flags({"FLAGS_flash_attention_min_seq": 128})
+    out = {}
+    create_mesh({"mp": 2})
+    ce = nn.CrossEntropyLoss()
+    for tag, p in (("p0", 0.0), ("p1", 0.1)):
+        net = ernie_cls(inp, dict(hidden_dropout_prob=p,
+                                  attention_probs_dropout_prob=p))
+        tp_annotate(net)
+        step, st = make_sharded_train_step(
+            net, paddle.optimizer.SGD(0.1, parameters=net.parameters()),
+            lambda o, lb: ce(o, lb[0]), zero_stage=0)
+        losses = []
+        for i in range(2):
+            st, lv = step(st, (inp["d_ids"],), (inp["d_labels"],),
+                          rng=5 + i)
+            losses.append(float(lv))
+        out[f"{tag}.losses"] = np.asarray(losses)
+        for k, v in _params(net).items():
+            out[f"{tag}.p.{k}"] = v
+    # the keep mask rank r's heads draw: heads [2r, 2r + 2) of 4
+    with flash_ops.head_shard(2 * r, 4):
+        seed = flash_ops.head_keyed_seed(1234)
+    out["mask"] = flash_ops._keep_mask(seed, 2, 2, 128, 128, 0.3,
+                                       "cpu").numpy()
+    out.update(_megatron_cases(r))
+    return out
+
+
+def _megatron_cases(r):
+    """`shard_megatron` at mp 2: what it refuses (the message, "" where
+    it cut), whether a refused layer kept its whole weights, and an
+    unmarked attention beside a marked Linear (left whole: its output
+    before and after)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.tensor_parallel import (mark_megatron,
+                                                              shard_megatron)
+    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+    from paddle_tpu_torch.models import tp_annotate
+    out = {}
+
+    def attempt(tag, m, cut=shard_megatron):
+        before = {k: tuple(v.shape) for k, v in m.state_dict().items()}
+        try:
+            cut(m)
+            out[f"mt.{tag}"] = np.asarray("")
+        except InvalidArgumentError as e:
+            out[f"mt.{tag}"] = np.asarray(str(e))
+        out[f"mt.{tag}.whole"] = np.asarray(before == {
+            k: tuple(v.shape) for k, v in m.state_dict().items()})
+    attempt("vocab", mark_megatron(nn.Embedding(11, 4), "vocab"))
+    attempt("column", mark_megatron(nn.Linear(4, 5), "column"))
+    attempt("row", mark_megatron(nn.Linear(5, 4), "row"))
+    partial = nn.MultiHeadAttention(8, 2)
+    mark_megatron(partial.q_proj, "column")
+    attempt("partial", partial)
+    attempt("act_dropout",
+            nn.TransformerEncoderLayer(8, 2, 16, dropout=0.1), tp_annotate)
+    attempt("act_dropout0",
+            nn.TransformerEncoderLayer(8, 2, 16, dropout=0.1,
+                                       act_dropout=0.0), tp_annotate)
+    paddle.seed(11)
+    attn = nn.MultiHeadAttention(8, 2)
+    mixed = torch.nn.ModuleDict({"attn": attn, "fc": mark_megatron(
+        nn.Linear(8, 4), "column")})
+    x = torch.as_tensor(np.random.RandomState(2).randn(2, 5, 8)
+                        .astype("float32"))
+    y0 = attn(x).detach()
+    shard_megatron(mixed)
+    out["mt.plain_attn.tp"] = np.asarray(repr(attn.tp))
+    out["mt.plain_attn.err"] = np.asarray(
+        float((attn(x).detach() - y0).abs().max()))
+    out["mt.plain_attn.fc_out"] = np.asarray(mixed["fc"].weight.shape[0])
+    return out
+
+
+def job_zero_global(wd, r, n, inp):
+    """2 ranks at dp 2: the MLP under ClipGradByGlobalNorm at ZeRO-2 and
+    real ZeRO-3, Lamb and LarsMomentum at ZeRO-1 and ZeRO-2, DGC at
+    ZeRO-2, 3 steps each; ZeRO-3's storage between steps; the MoE GPT's
+    ep shards and ZeRO-3's blocks through the sharded checkpoint."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D, nn
+    from paddle_tpu_torch.framework.sharded_checkpoint import (
+        load_sharded, save_sharded)
+    from paddle_tpu_torch.parallel import (create_mesh,
+                                           make_sharded_train_step, set_mesh,
+                                           write_back)
+    out = {}
+    create_mesh({"dp": 2})
+    X, Y = inp["x"], inp["y"]
+    ce = nn.CrossEntropyLoss()
+
+    def run(tag, opt_cls, lr, clip=None, level=None, **kw):
+        net = _mlp(inp, "w.")
+        opt = opt_cls(lr, parameters=net.parameters(),
+                      grad_clip=None if clip is None
+                      else nn.ClipGradByGlobalNorm(clip), **kw.pop("okw",
+                                                                  {}))
+        if level:
+            net, opt = D.group_sharded_parallel(net, opt, level)
+        step, st = make_sharded_train_step(
+            net, opt, lambda o, lb: ce(o, lb[0]), **kw)
+        losses = []
+        for _ in range(3):
+            st, lv = step(st, (X,), (Y,))
+            losses.append(float(lv))
+        out[f"{tag}.losses"] = np.asarray(losses)
+        if level == "p_g_os":
+            # between steps: the layer's tensors hold nothing, the state
+            # this rank's blocks
+            out[f"{tag}.layer_bytes"] = np.asarray(sum(
+                p.untyped_storage().nbytes() for p in net.parameters()))
+            out[f"{tag}.state_bytes"] = np.asarray(sum(
+                v.numel() * v.element_size()
+                for v in st["params"].values()))
+            save_sharded(st, os.path.join(wd, "z3ck2"),
+                         shardings=step.state_sharding)
+            back = load_sharded(os.path.join(wd, "z3ck1"),
+                                shardings=step.state_sharding)
+            for k, v in back["params"].items():
+                out[f"z3ck1.{k}"] = v.numpy()
+            # the state dict gathers the blocks and leaves the layer empty
+            for k, v in net.state_dict().items():
+                out[f"{tag}.sd.{k}"] = v.numpy()
+            out[f"{tag}.layer_bytes_after_sd"] = np.asarray(sum(
+                p.untyped_storage().nbytes() for p in net.parameters()))
+        write_back(net, st)     # ZeRO-3's blocks gathered into the layer
+        for k, v in _params(net).items():
+            out[f"{tag}.{k}"] = v
+        return step, st
+    for z in (2, 3):
+        run(f"clip{z}", paddle.optimizer.Momentum, 0.1, clip=0.1,
+            zero_stage=z)
+    run("z3", paddle.optimizer.Adam, 0.01, level="p_g_os")
+    for name in ("Lamb", "LarsMomentum"):
+        for z in (1, 2):
+            run(f"{name}{z}", getattr(paddle.optimizer, name), 0.1,
+                zero_stage=z)
+    step, st = run("dgc2", paddle.optimizer.SGD, 0.1, zero_stage=2,
+                   dgc=True, dgc_sparsity=0.75)
+    for k, v in st["dgc"].items():
+        out[f"dgc2.v.{k}"] = v["v"].numpy()
+    out["zero_axes"] = np.asarray(json.dumps(step.zero_axes))
+    # the MoE GPT's ep shards through the sharded checkpoint
+    set_mesh(None)
+    create_mesh({"ep": 2})
+    m = moe_gpt(inp)
+    step, st = make_sharded_train_step(
+        m, paddle.optimizer.Adam(1e-3, parameters=m.parameters()), lm_loss)
+    st, _ = step(st, (inp["m_ids"][:4],), (inp["m_tgt"][:4],))
+    save_sharded(st, os.path.join(wd, "epck2"),
+                 shardings=step.state_sharding)
+    for k, v in _params(m).items():
+        out[f"epck2.{k}"] = v
+    back = load_sharded(os.path.join(wd, "epck1"),
+                        shardings=step.state_sharding)
+    for k, v in back["params"].items():
+        out[f"epck1.{k}"] = v.numpy()
+    return out
+
+
+def job_pipeline_clip(wd, r, n, inp):
+    """2 ranks at pp 2: GPipe of the pipeline tests' GPT with
+    ClipGradByGlobalNorm, 3 SGD steps in fp32 and under O1."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.ops import flash_ops as fo
+    from paddle_tpu_torch.parallel import (create_mesh,
+                                           make_pipeline_train_step,
+                                           pipeline_write_back)
+    create_mesh({"pp": 2})
+    out = {}
+    for tag, level in (("fp32", None), ("o1", "O1")):
+        m = tiny_lm(inp)
+        opt = paddle.optimizer.SGD(
+            0.1, parameters=m.parameters(),
+            grad_clip=nn.ClipGradByGlobalNorm(float(inp["clip"])))
+        step, st = make_pipeline_train_step(m, opt, lm_loss, n_micro=4,
+                                            recompute=False)
+        losses = []
+        for _ in range(3):
+            if level:
+                with amp.auto_cast(level=level):
+                    st, lv = step(st, (inp["ids"],), (inp["tgt"],))
+            else:
+                st, lv = step(st, (inp["ids"],), (inp["tgt"],))
+            losses.append(float(lv))
+        out[f"{tag}.losses"] = np.asarray(losses)
+        pipeline_write_back(m)
+        for k, v in _params(m).items():
+            out[f"{tag}.p.{k}"] = v
+    return out
+
+
 JOBS = {"sp": job_sp, "pipeline": job_pipeline, "pipeline4": job_pipeline,
         "fleet": job_fleet, "localsgd": job_localsgd,
         "dist_chip": job_dist_chip,
         "collective": job_collective, "collective4": job_collective,
         "train": job_train, "tp_train": job_tp_train,
         "attention": job_attention, "serve2": job_serve,
-        "serve4": job_serve}
+        "serve4": job_serve, "hybrid": job_hybrid,
+        "tp_dropout": job_tp_dropout, "zero_global": job_zero_global,
+        "pipeline_clip": job_pipeline_clip}
 
 
 def launch_train():
