@@ -437,7 +437,33 @@ Phases:
               (the same entries kept each step); (f) GPipe at pp 2 of the
               strategies' GPT under the clip, fp32 and O1. Then launch
               --elastic of two ranks of the card, rank 1 hung before its
-              first beat: the launcher names it and kills the job
+              first beat: the launcher names it and kills the job.
+              (g) Serving lanes beyond one lane a world, four gloo ranks
+              of the card (distributed.spawn; correctness only): (g1)
+              phase 5d's traffic and tier settings at tp 2 (8 new
+              tokens a request), fp32 pools on ranks 0-1 and int8 on a
+              tp_mesh(2, devices=[2, 3]) lane at once, each beside a
+              lane on the same ranks that never evicts: identical to
+              it; against a tp 1 tier engine here, first tokens exact
+              and first flips at gaps < NEAR_TIE, 4 KV_PROMOTE and its
+              KV_DEMOTE / KV_TIER_EVICT and host bytes, a rank's slab
+              half of its; K1 = both lanes' steps x 12 a rank (int8 0),
+              K2 = 12 x their cold prefills a rank, nothing leaked.
+              (g2) a supervised tp 2 lane under decode_step_raise@12 and
+              prefill_raise@1, phase 5's 16 streamed requests (16 new
+              tokens each): identical to (b)'s tp 2 lane, streams
+              exactly once, one ENGINE_RESTART, REPLAY_ADMIT = the
+              manifest's entries, incarnation 1 on both ranks, no group
+              made by the rebuild, K1 = 12 x (both incarnations' steps +
+              the rebuild's warmup) a rank. (g3)
+              GenerationEngine(mesh=create_mesh({"dp": 2, "tp": 2})), a
+              tp_mesh(2, devices=[2, 3]) lane beside an idle pair, the
+              Router over two tp 2 replicas on ranks 0-1 (placements
+              printed): each leader's outputs equal to (b)'s tp 2 lane's
+              on 4 of its requests (16 new tokens at most); a follower
+              raising inside a program ends its lane on both ranks
+              within the 5 s bound with a LaneFault naming rank 1.
+              Printed: each arm's wall
 16. ps      the parameter server at PaddleRec's CTR-DNN widths (26 sparse
               slots, one Zipf-skewed id each hashed into 1,000,001, dim
               9; 13 dense features; 512-256-128-32 ReLU, 2 classes;
@@ -2666,8 +2692,9 @@ class Smoke:
                         parts[name] = parts.get(name, 0.0) + (
                             time.perf_counter() - t0) * 1e3
                 return wrapper
-            eng._tier_upload = timed_part("upload", eng._tier_upload)
-            eng._tier_write = timed_part("write", eng._tier_write)
+            eng._tier_upload_call = timed_part(
+                "upload", eng._tier_upload_call)
+            eng._tier_write_call = timed_part("write", eng._tier_write_call)
             eng._zero_pages = timed_part("zero", eng._zero_pages)
             eng._prefix.consume_promoted = timed_part(
                 "consume", eng._prefix.consume_promoted)
@@ -7722,6 +7749,7 @@ class Smoke:
             state = self.dist_packed_a(batch, wd)
             self.dist_data_parallel_a()
             refs = self.dist_serving_a(wd)
+            lanes_a = self.dist_lanes_a(wd)
             w1, w1_fit = self.dist_fleet_a(wd)
             hybrid = self.dist_hybrid_a(wd, batch)
             D.destroy_process_group()
@@ -7729,6 +7757,7 @@ class Smoke:
             self.dist_strategies_b(wd, w1, w1_fit)
             self.dist_hybrid_b(wd, hybrid)
             self.dist_elastic_b(wd)
+            self.dist_lanes_g(wd, refs, lanes_a)
         finally:
             from paddle_tpu_torch.distributed.env import destroy_process_group
             destroy_process_group()
@@ -8007,6 +8036,8 @@ class Smoke:
                   f"{s1['peak_bytes'] / 2**30:.2f} GiB")
             assert all(a == b for a, b in first), f"{kv}: first tokens"
             assert all(gap < NEAR_TIE for _, _, gap in flips), flips
+            # the tp 2 lane's outputs: (g)'s lanes are held to them
+            refs[f"tp2_{kv}"] = outs
             assert s0["local_heads"] == s1["local_heads"] == 6
             if kv == "fp32":
                 # rank 0's warmup decode and every step, 12 layers each
@@ -8635,6 +8666,225 @@ class Smoke:
                 check(flash(a, "bfloat16" if o1 else "float32", k),
                       f"pp_{tag} r{r} launches")
         assert not fails, fails
+
+    def dist_lanes_a(self, wd):
+        """(g1)'s tp 1 side, in this process: phase 5d's traffic (four
+        592-token system prompts served one at a time, then again with
+        new tails; LANES["TIER_NEW"] tokens each) through a GPT-2-small
+        engine at phase 5d's tier settings (`_lanes_tier_kw`), fp32 and
+        int8 pools; the traffic and page
+        counts go to lanes.json for the ranks. Returns the traffic and
+        each pool type's outputs, audit counts, steps, slab and
+        launches."""
+        torch = self.torch
+        from paddle_tpu_torch.serving import GenerationEngine
+        prompts, _ = self.tier_traffic(self.gpt.gpt.config.vocab_size)
+        new = [LANES["TIER_NEW"]] * len(prompts)
+        P = FEAT["page"]
+        need = max(-(-(len(p) + n) // P) for p, n in zip(prompts, new))
+        req = dict(prompts=[p.tolist() for p in prompts], new=new,
+                   tier_pages=1 + LANES["DEVICE_PAGES"] + need + 2,
+                   ref_pages=1 + sum(-(-(len(p) + n) // P)
+                                     for p, n in zip(prompts, new)))
+        with open(os.path.join(wd, "lanes.json"), "w") as f:
+            json.dump(req, f)
+        out = dict(prompts=prompts, new=new)
+        for dtype in ("float32", "int8"):
+            eng = GenerationEngine(
+                self.gpt, device="cuda", name=f"g1_tp1_{dtype}", tp=1,
+                **_lanes_tier_kw(dtype, req["tier_pages"]))
+            self.zero_launches()
+            row = _lanes_serve_one_by_one(eng, prompts, new)
+            row["launches"] = self.record_path(f"dist_lanes_tier_tp1_"
+                                               f"{dtype}")
+            row["slab"] = dict(slots=eng._slab.slots,
+                               slot_bytes=eng._slab.slot_bytes,
+                               reserved=eng._slab.reserved_bytes)
+            row["host_bytes"] = eng._tier.host_bytes
+            eng.shutdown(drain=True, timeout_s=60)
+            del eng
+            torch.cuda.empty_cache()
+            print(f"dist (g1) tp 1 tier {dtype} on {self.smi}: 8 requests "
+                  f"one at a time in {row['wall_s']:.3f} s, {row['steps']} "
+                  f"steps, audit {row['counts']}, slab {row['slab']}, "
+                  f"leak-free {row['leak_free']}")
+            out[dtype] = row
+        return out
+
+    def dist_lanes_g(self, wd, refs, lanes_a):
+        """(g) four ranks on this card over gloo (`_lanes_rank`), a
+        correctness arm: no time it prints is a multi-card number.
+        (g1) the host tier at tp 2, fp32 pools on ranks 0-1 and int8 on
+        a tp_mesh(2, devices=[2, 3]) lane at once, each beside a lane that
+        never evicts on the same ranks: token-identical to it; against tp 1 (`dist_lanes_a`)
+        first tokens exact and each first flip at a top-2 gap under
+        NEAR_TIE (C2); KV_PROMOTE (4, a chain a revisit), KV_DEMOTE and
+        KV_TIER_EVICT as tp 1's, the host bytes (whole pages) as tp 1's;
+        a rank's slab half of tp 1's; K1 = both lanes' steps x 12 a rank
+        (fp32; int8 0), K2 = 12 x their cold prefills a rank; no page or
+        slot leaked, no staged chunk left.
+        (g2) a supervised tp 2 lane under phase 5e (a)'s decode and
+        prefill failpoints: phase 5's 16 streamed requests
+        token-identical to (b)'s unsupervised tp 2 lane, each stream
+        exactly once, one ENGINE_RESTART, REPLAY_ADMIT = the manifest's
+        entries, incarnation 1 on both ranks, the rebuilt engines on the
+        lane and groups of incarnation 0 and no group made (the ranks
+        count torch's registered groups around the rebuild), K1 = 12 x
+        (both incarnations' steps + the rebuild's warmup step) a rank.
+        (g3) a dp 2 x tp 2 mesh, a tp_mesh(2, devices=[2, 3]) lane and
+        the router over two tp 2 replicas on ranks 0-1: every leader's
+        outputs equal to (b)'s tp 2 lane's on the same requests; a
+        follower's fault inside a program ends its lane on both ranks
+        within FAULT_TIMEOUT_S with a LaneFault naming rank 1."""
+        import numpy as np
+        from paddle_tpu_torch import distributed as D
+        L = self.gpt.gpt.config.num_layers
+        print("dist (g): four ranks share this one card over gloo; a "
+              "correctness arm, no time below is a multi-card number")
+        t0 = time.perf_counter()
+        D.spawn(_lanes_rank, args=(wd,), nprocs=4,
+                timeout=LANES["TIMEOUT"])
+        spawn_s = time.perf_counter() - t0
+        recs = []
+        for r in range(4):
+            with open(os.path.join(wd, f"lanes{r}.json")) as f:
+                recs.append(json.load(f))
+        print(f"dist (g) on {self.smi}: 4 ranks spawned and joined in "
+              f"{spawn_s:.1f} s; (g1) {recs[0]['tier_s']:.1f} s, (g2) "
+              f"{recs[0]['sup_s']:.1f} s, (g3) {recs[0]['four_s']:.1f} s "
+              f"(rank 0)")
+        # (g1): fp32 on ranks 0-1, int8 on ranks 2-3
+        prompts, new = lanes_a["prompts"], lanes_a["new"]
+        for pair in ((0, 1), (2, 3)):
+            lead, follow = (recs[r]["tier"] for r in pair)
+            dtype = lead["dtype"]
+            one, ref, t = lanes_a[dtype], lead["ref"], lead["tier"]
+            assert "error" not in ref and "error" not in t, (ref, t)
+            outs = [np.asarray(o) for o in t["outs"]]
+            flips = self.first_flips(prompts, new, outs,
+                                     [np.asarray(o) for o in one["outs"]])
+            first = [(o[len(p)], rf[len(p)]) for o, rf, p in
+                     zip(t["outs"], one["outs"], prompts)]
+            slab = [x["tier"]["slab"] for x in (lead, follow)]
+            launches = [x["launches"] for x in (lead, follow)]
+            print(f"dist (g1) tp 2 tier {dtype} on ranks {list(pair)} on "
+                  f"{self.smi}: 8 requests one at a time in "
+                  f"{t['wall_s']:.3f} s, beside the never-evicting lane on "
+                  f"the same ranks ({ref['wall_s']:.3f} s; lanes "
+                  f"{lead['lanes']}), {t['steps']} steps; identical to it "
+                  f"{t['outs'] == ref['outs']}; {len(flips)} outputs "
+                  f"differ from tp 1 (gaps "
+                  f"{[round(g, 6) for _i, _s, g in flips]}); audit "
+                  f"{t['counts']} (tp 1 {one['counts']}); host bytes "
+                  f"{t['host_bytes']} (tp 1 {one['host_bytes']}); slab a "
+                  f"rank {[x['slots'] * x['slot_bytes'] for x in slab]} "
+                  f"(reserved {[x['reserved'] for x in slab]}), tp 1 "
+                  f"{one['slab']['slots'] * one['slab']['slot_bytes']} "
+                  f"(reserved {one['slab']['reserved']}); K1 "
+                  f"{[x['paged_attention'] for x in launches]} K2 "
+                  f"{[x['flash_fwd'] for x in launches]} a rank, both "
+                  f"lanes; leak-free {t['leak_free']} / {ref['leak_free']}")
+            assert t["outs"] == ref["outs"], \
+                f"(g1) {dtype}: the tier lane differs from the never-" \
+                f"evicting lane"
+            assert all(a == b for a, b in first), f"(g1) {dtype}: first"
+            assert all(g < NEAR_TIE for _i, _s, g in flips), flips
+            for c in ("KV_PROMOTE", "KV_DEMOTE", "KV_TIER_EVICT",
+                      "ADMIT", "ADMIT_PREFIX_HIT"):
+                assert t["counts"][c] == one["counts"][c], (c, t, one)
+            assert t["counts"]["KV_PROMOTE"] == 4, t["counts"]
+            assert t["host_bytes"] == one["host_bytes"]
+            for x in slab:
+                assert x["slots"] == one["slab"]["slots"] and \
+                    2 * x["slot_bytes"] == one["slab"]["slot_bytes"], x
+            assert t["leak_free"], f"(g1) {dtype}: a page or slot leaked"
+            steps = t["steps"] + ref["steps"]
+            cold = t["counts"]["ADMIT"] + ref["counts"]["ADMIT"]
+            for r, x in zip(pair, (lead, follow)):
+                k1 = x["launches"]["paged_attention"]
+                assert k1 == (steps * L if dtype == "float32" else 0), \
+                    (r, k1, steps)
+                assert x["launches"]["flash_fwd"] == L * cold, (r, x)
+                assert x["ref"]["staged_left"] == 0 == \
+                    x["tier"]["staged_left"], (r, x)
+                self.path_launches[f"dist_lanes_tier_{dtype}_r{r}"] = \
+                    x["launches"]
+        # (g2)
+        rprompts = [np.asarray(p) for p in refs["prompts"]]
+        # (b)'s tp 2 outputs cut to the same new tokens (greedy decode
+        # of a row is independent of the rest of the batch)
+        rnew = [min(m, LANES["NEW"]) for m in refs["new"]]
+        tp2 = [o[:len(p) + m] for o, p, m in
+               zip(refs["tp2_fp32"], rprompts, rnew)]
+        for arm, fp in LANES["FAULTS"]:
+            r0, r1 = (rec["sup"][arm] for rec in recs[:2])
+            bad = [o for o in r0["outs"] if not isinstance(o, list)]
+            assert not bad, f"(g2) {arm}: requests failed: {bad}"
+            outs = [np.asarray(o) for o in r0["outs"]]
+            print(f"dist (g2) supervised tp 2 lane under {fp} on "
+                  f"{self.smi}: 16 streamed requests in "
+                  f"{r0['wall_s']:.3f} s, {r0['steps']} steps over both "
+                  f"incarnations, restarts {r0['restarts']} / "
+                  f"{r1['restarts']}, incarnation {r0['incarnation']} / "
+                  f"{r1['incarnation']}, ENGINE_RESTART "
+                  f"{r0['restarts_audit']}, REPLAY_ADMIT "
+                  f"{r0['replay_admit']} of {r0['entries']} entries; the "
+                  f"same lane {r0['same_lane']} / {r1['same_lane']}, groups "
+                  f"made by the lane {r0['lane_groups']}, by the rebuild "
+                  f"{r0['rebuild_groups']} / {r1['rebuild_groups']}; K1 "
+                  f"{r0['launches']['paged_attention']} / "
+                  f"{r1['launches']['paged_attention']}")
+            self.assert_identical(f"(g2) {arm}", rprompts, rnew, outs,
+                                  refs=tp2)
+            once = [i for i, (p, o) in enumerate(zip(rprompts, outs))
+                    if r0["collected"][i] != o[len(p):].tolist()]
+            assert not once, f"(g2) {arm}: streams {once} not exactly once"
+            assert r0["restarts_audit"] == 1 == r0["restarts"] \
+                == r1["restarts"], (r0, r1)
+            assert r0["replay_admit"] == r0["entries"] >= 1, r0
+            assert r0["incarnation"] == r1["incarnation"] == 1
+            assert r0["pages_in_use"] == 0
+            for r, x in enumerate((r0, r1)):
+                assert x["same_lane"] and x["rebuild_groups"] == 0, (r, x)
+                assert x["launches"]["paged_attention"] == \
+                    (r0["steps"] + 1) * L, (r, x["launches"], r0["steps"])
+                self.path_launches[f"dist_lanes_sup_{arm}_r{r}"] = \
+                    x["launches"]
+        # (g3)
+        n = LANES["G3_REQUESTS"]
+        want = [o.tolist() for o in tp2[:n]]
+        four = [rec["four"] for rec in recs]
+        faults = [(f["fault"]["error"], f["fault"]["rank"],
+                   round(f["fault"]["ended_s"], 3)) for f in four[:2]]
+        arms = [round(four[0][k]["arm_s"], 2)
+                for k in ("mesh", "sub", "router")]
+        print(f"dist (g3) on {self.smi}: mesh dp 2 x tp 2 lanes "
+              f"{[f['mesh']['lane'] for f in four]}, leaders' walls "
+              f"{four[0]['mesh']['wall_s']:.3f} / "
+              f"{four[2]['mesh']['wall_s']:.3f} s for {n} requests each; "
+              f"tp_mesh(2, devices=[2, 3]) lane {four[2]['sub']['lane']} "
+              f"{four[2]['sub']['wall_s']:.3f} s, ranks 0-1 refused: "
+              f"{four[0]['sub']['refused']!r}; router over two tp 2 "
+              f"replicas on ranks 0-1 {four[0]['router']['wall_s']:.3f} s, "
+              f"placements {four[0]['router']['placements']}; the fault "
+              f"arm {faults} (bound {LANES['FAULT_TIMEOUT_S']} s); arms "
+              f"{arms} s")
+        assert [f["mesh"]["lane"] for f in four] == [[0, 1], [0, 1],
+                                                     [2, 3], [2, 3]]
+        assert four[0]["mesh"]["outs"] == four[2]["mesh"]["outs"] == want
+        assert four[2]["sub"]["lane"] == four[3]["sub"]["lane"] == [2, 3]
+        assert four[2]["sub"]["outs"] == want
+        for f in four[:2]:
+            assert "is in no lane of" in f["sub"]["refused"], f["sub"]
+        assert four[0]["router"]["outs"] == want
+        assert sum(four[0]["router"]["placements"].values()) == n
+        for r, f in enumerate(four[:2]):
+            fl = f["fault"]
+            assert fl["error"] == "LaneFault" and fl["rank"] == 1, (r, fl)
+            assert fl["ended_s"] < LANES["FAULT_TIMEOUT_S"] + 10, (r, fl)
+        self.details["dist_lanes"] = dict(
+            spawn_s=spawn_s, ranks=recs,
+            tp1={k: lanes_a[k] for k in ("float32", "int8")})
 
     def dist_elastic_b(self, wd):
         """(b) `launch --elastic` of two ranks on this card: rank 1 hangs
@@ -9499,6 +9749,320 @@ def _dist_rank(wd):
     t["launches"], t["launches_by_dtype"], _ = _dist_launches(po, fo, so)
     rec["train"] = t
     with open(os.path.join(wd, f"rank{r}.json"), "w") as f:
+        json.dump(rec, f)
+    D.destroy_process_group()
+
+
+# phase 15 (g): the lanes beyond "the whole world is one lane", on four
+# gloo ranks of the card. (g1) phase 5d's traffic and tier settings at
+# tp 2 (the prefix cache holds DEVICE_PAGES pages, the host HOST_BYTES,
+# chunks of CHUNK pages: whole chains demote and promote, so a promoted
+# chain's bytes are the never-evicted chain's), TIER_NEW new tokens a
+# request (phase 5d's 32 cut); (g2) phase 5e (a)'s failpoints under a
+# supervised tp 2 lane and (g3) on each lane the first G3_REQUESTS of
+# phase 5's requests, each cut to at most NEW new tokens (phase 5's
+# 32-64). The cuts are for time: a gloo lane on one card decodes ~8x
+# slower than tp 1 (50 ms a step), and the slice may add 120 s; a follower fault under a bound of
+# FAULT_TIMEOUT_S; the ranks' time limit
+LANES = dict(DEVICE_PAGES=80, HOST_BYTES=256 << 20, CHUNK=4, TIER_NEW=8,
+             NEW=16, G3_REQUESTS=4, FAULT_TIMEOUT_S=5.0, TIMEOUT=600,
+             FAULTS=(("decode", "decode_step_raise@12"),
+                     ("prefill", "prefill_raise@1")))
+
+
+def _lanes_tier_kw(dtype, num_pages):
+    """(g1)'s tier engine settings at phase 5's engine settings."""
+    return dict(_dist_engine_kw(num_pages), kv_cache_dtype=dtype,
+                prefix_cache=True,
+                prefix_cache_max_pages=LANES["DEVICE_PAGES"],
+                kv_tier=True, kv_tier_host_bytes=LANES["HOST_BYTES"],
+                kv_tier_chunk_pages=LANES["CHUNK"])
+
+
+def _lanes_serve_one_by_one(eng, prompts, new):
+    """Each request drained before the next (phase 5d's order): outputs,
+    decode steps, the tier's audit counts, whether a page or slot
+    leaked, wall s."""
+    import numpy as np
+    t0 = time.perf_counter()
+    outs = [np.asarray(eng.submit(np.asarray(p), max_new_tokens=n)
+                       .result(600)).tolist()
+            for p, n in zip(prompts, new)]
+    wall = time.perf_counter() - t0
+    reasons = [e["reason"] for e in eng._audit.tail(4096)]
+    counts = {c: reasons.count(c) for c in (
+        "KV_PROMOTE", "KV_DEMOTE", "KV_TIER_EVICT", "KV_PROMOTE_ABANDON",
+        "ADMIT", "ADMIT_PREFIX_HIT")}
+    return dict(outs=outs, steps=eng.stats()["steps"], counts=counts,
+                leak_free=Smoke.tier_leak_free(eng), wall_s=wall)
+
+
+def _lanes_sync(sync, fn=None):
+    """Two barriers on the pair's own group around `fn`: the leader's
+    warmup has reached every rank before, and every rank has run `fn`
+    (zeroing its launch counts) after."""
+    import torch.distributed as dist
+    dist.barrier(group=sync)
+    if fn is not None:
+        fn()
+    dist.barrier(group=sync)
+
+
+def _lanes_tier(gpt, dev, r, wd, ws, sync, po, fo, so):
+    """(g1), on all four ranks at once: ranks 0-1 take the fp32 pools,
+    ranks 2-3 (a tp_mesh(2, devices=[2, 3]) lane) the int8 pools. Each
+    pair serves phase 5d's traffic through two lanes on its ranks at once
+    (the requests one at a time in each): one with an unbounded prefix
+    cache, which never evicts, and one through the host tier. Launches
+    count from the end of the warmups; a rank's are both lanes'."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.parallel import tp_mesh
+    with open(os.path.join(wd, "lanes.json")) as f:
+        req = json.load(f)
+    pair = [0, 1] if r < 2 else [2, 3]
+    dtype = "float32" if r < 2 else "int8"
+    mesh = tp_mesh(2, devices=pair)
+    kws = {"ref": dict(_dist_engine_kw(req["ref_pages"]),
+                       kv_cache_dtype=dtype, prefix_cache=True),
+           "tier": _lanes_tier_kw(dtype, req["tier_pages"])}
+    engs = {arm: serving.GenerationEngine(gpt, device=dev, mesh=mesh,
+                                          name=f"g1_{arm}_{dtype}", **kw)
+            for arm, kw in kws.items()}
+    _lanes_sync(sync, lambda: _zero(ws))
+    rows = {arm: {} for arm in engs}
+
+    def run(arm):
+        try:
+            rows[arm] = _lanes_serve_one_by_one(engs[arm], req["prompts"],
+                                                req["new"])
+        except Exception as e:  # noqa: BLE001 — the parent's gates fail
+            rows[arm] = {"error": repr(e)}
+    if mesh.axis_rank("tp") == 0:
+        threads = [threading.Thread(target=run, args=(arm,))
+                   for arm in engs]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    for eng in engs.values():
+        eng.shutdown()
+    tier = engs["tier"]
+    for arm, eng in engs.items():
+        rows[arm]["staged_left"] = len(eng._staged)
+    rows["tier"].update(
+        slab=dict(slots=tier._slab.slots, slot_bytes=tier._slab.slot_bytes,
+                  reserved=tier._slab.reserved_bytes),
+        host_bytes=tier._tier.host_bytes)
+    return dict(dtype=dtype, pair=pair, lanes=[e._lane.name
+                                               for e in engs.values()],
+                launches=_dist_launches(po, fo, so)[0], **rows)
+
+
+def _lanes_supervised(gpt, dev, r, wd, ws, sync, po, fo, so):
+    """(g2) on ranks 0-1: phase 5's 16 streamed requests through a
+    supervised tp 2 lane under each of LANES["FAULTS"]."""
+    import numpy as np
+    import torch.distributed as dist
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.serving import failpoints
+    with open(os.path.join(wd, "requests.json")) as f:
+        req = json.load(f)
+    out = {}
+    for arm, fp in LANES["FAULTS"]:
+        set_flags({"FLAGS_gen_restart_backoff_ms": 5.0})
+        groups0 = len(dist.distributed_c10d._world.pg_names)
+        sup = serving.EngineSupervisor(
+            gpt, device=dev, name=f"g2_{arm}", tp=2,
+            **_dist_engine_kw(req["num_pages"]))
+        lane = sup.engine._lane
+        groups1 = len(dist.distributed_c10d._world.pg_names)
+        _lanes_sync(sync, lambda: _zero(ws))
+        row = {}
+        if sup.leads:
+            eng0 = sup.engine
+            steps0 = eng0.stats()["steps"]
+            failpoints.reset()
+            set_flags({"FLAGS_failpoints": fp})
+            try:
+                res, collected, _a, _s, wall = Smoke.fleet_streams(
+                    sup, [np.asarray(p) for p in req["prompts"]],
+                    [min(m, LANES["NEW"]) for m in req["new"]],
+                    lock=lambda: sup.engine._cv)
+            finally:
+                set_flags({"FLAGS_failpoints": ""})
+            eng1 = sup.engine
+            events = eng1._audit.tail(4096)
+            reasons = [e["reason"] for e in events]
+            row.update(
+                outs=[x.tolist() if isinstance(x, np.ndarray) else repr(x)
+                      for x in res],
+                collected=[[int(t) for t in c] for c in collected],
+                wall_s=wall,
+                steps=eng0.stats()["steps"] - steps0
+                + eng1.stats()["steps"],
+                restarts_audit=reasons.count("ENGINE_RESTART"),
+                entries=sum(e["entries"] for e in events
+                            if e["reason"] == "ENGINE_RESTART"),
+                replay_admit=reasons.count("REPLAY_ADMIT"),
+                pages_in_use=eng1.stats()["pages"]["pages_in_use"])
+        sup.shutdown()
+        row.update(launches=_dist_launches(po, fo, so)[0],
+                   incarnation=sup.incarnation, restarts=sup.restarts,
+                   same_lane=sup.engine._lane is lane,
+                   lane_groups=groups1 - groups0,
+                   rebuild_groups=len(dist.distributed_c10d._world.pg_names)
+                   - groups1)
+        out[arm] = row
+    return out
+
+
+def _lanes_four(gpt, dev, r, wd):
+    """(g3) on all four ranks: a dp 2 x tp 2 mesh (ranks 0 and 2 lead);
+    a tp_mesh(2, devices=[2, 3]) lane while ranks 0-1 stay idle (and
+    refuse to join it); the router over two tp 2 replicas on ranks 0-1
+    while ranks 2-3 stay idle; a lane on ranks 0-1 whose follower raises
+    inside its first decode program after warmup."""
+    import numpy as np
+    import torch.distributed as dist
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.parallel import create_mesh, set_mesh, tp_mesh
+    from paddle_tpu_torch.serving.tp_lane import LaneFault
+    with open(os.path.join(wd, "requests.json")) as f:
+        req = json.load(f)
+    n = LANES["G3_REQUESTS"]
+    prompts = [np.asarray(p) for p in req["prompts"][:n]]
+    new = [min(m, LANES["NEW"]) for m in req["new"][:n]]
+    kw = _dist_engine_kw(req["num_pages"])
+
+    def serve(front):
+        t0 = time.perf_counter()
+        futs = [front.submit(p, max_new_tokens=m)
+                for p, m in zip(prompts, new)]
+        outs = [np.asarray(f.result(600)).tolist() for f in futs]
+        return outs, time.perf_counter() - t0
+
+    out = {}
+    t0 = time.perf_counter()
+    mesh = create_mesh({"dp": 2, "tp": 2})
+    eng = serving.GenerationEngine(gpt, device=dev, mesh=mesh,
+                                   name="g3_mesh", **kw)
+    out["mesh"] = dict(lane=eng._lane.ranks, leader=eng._lane.leader)
+    if eng._lane.leader:
+        out["mesh"]["outs"], out["mesh"]["wall_s"] = serve(eng)
+    eng.shutdown()
+    set_mesh(None)
+    dist.barrier()
+    out["mesh"]["arm_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sub = tp_mesh(2, devices=[2, 3])
+    if r >= 2:
+        eng = serving.GenerationEngine(gpt, device=dev, mesh=sub,
+                                       name="g3_sub", **kw)
+        out["sub"] = dict(lane=eng._lane.ranks)
+        if eng._lane.leader:
+            out["sub"]["outs"], out["sub"]["wall_s"] = serve(eng)
+        eng.shutdown()
+    else:
+        try:
+            serving.GenerationEngine(gpt, device=dev, mesh=sub,
+                                     name="g3_sub", **kw)
+            out["sub"] = dict(refused=None)
+        except InvalidArgumentError as e:
+            out["sub"] = dict(refused=str(e))
+    dist.barrier()
+    out["sub"]["arm_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if r < 2:
+        router = serving.Router(gpt, tp=2, num_replicas=2, device=dev,
+                                name="g3_router", pressure_ttl_ms=0.0,
+                                **kw)
+        out["router"] = {}
+        if r == 0:
+            out["router"]["outs"], out["router"]["wall_s"] = serve(router)
+            out["router"]["placements"] = {
+                k: v["placements"] for k, v in
+                router.stats()["router"]["replicas"].items()}
+        router.shutdown()
+    dist.barrier()
+    out.setdefault("router", {})["arm_s"] = time.perf_counter() - t0
+    if r < 2:
+        set_flags({"FLAGS_gen_tp_timeout_s": LANES["FAULT_TIMEOUT_S"]})
+        cls = serving.GenerationEngine
+        orig, calls, t_fault = cls._decode_call, [0], []
+
+        def faulty(self, *a, **k):
+            calls[0] += 1
+            if calls[0] == 2:     # the first decode after the warmup's
+                t_fault.append(time.perf_counter())
+                raise RuntimeError("injected fault inside the decode "
+                                   "program")
+            return orig(self, *a, **k)
+        if r == 1:
+            cls._decode_call = faulty
+        f = dict(error=None)
+        try:
+            eng = cls(gpt, device=dev, tp=2, name="g3_fault", **kw)
+            t0 = time.perf_counter()
+            if r == 0:
+                eng.generate(prompts[0], max_new_tokens=new[0])
+            else:
+                eng.shutdown()
+        except LaneFault as e:
+            f.update(error=type(e).__name__, rank=e.rank, msg=str(e))
+        finally:
+            cls._decode_call = orig
+            set_flags({"FLAGS_gen_tp_timeout_s": 300.0})
+        f["ended_s"] = time.perf_counter() - (t_fault[0] if t_fault
+                                              else t0)
+        if r == 0:
+            eng.shutdown()
+        out["fault"] = f
+    dist.barrier()
+    return out
+
+
+def _lanes_rank(wd):
+    """A rank of phase 15 (g), started by distributed.spawn: four ranks
+    over gloo on the card, (g1) on all four, (g2) on ranks 0-1 (ranks 2-3
+    wait), then (g3) on all four. Writes its record to lanes{r}.json."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import env as denv
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.ops import flash_ops as fo, paged_ops as po
+    from paddle_tpu_torch.ops import splash_ops as so
+    from paddle_tpu_torch.parallel.mesh import local_group
+    penv = D.init_parallel_env(backend="gloo")
+    r = penv.rank
+    dev = denv.local_device()
+    _, _, ws = _dist_launches(po, fo, so)
+    with open(os.path.join(wd, "gpt.json")) as f:
+        gpt = GPTForCausalLM(GPTConfig(**json.load(f)), device=dev).eval()
+    gpt.load_state_dict(torch.load(os.path.join(wd, "gpt.pt"),
+                                   map_location=dev))
+    rec = {"rank": r, "device": str(dev)}
+    sync = local_group([0, 1] if r < 2 else [2, 3])
+    t0 = time.perf_counter()
+    rec["tier"] = _lanes_tier(gpt, dev, r, wd, ws, sync, po, fo, so)
+    rec["tier_s"] = time.perf_counter() - t0
+    dist.barrier()
+    if r < 2:
+        t0 = time.perf_counter()
+        rec["sup"] = _lanes_supervised(gpt, dev, r, wd, ws, sync, po, fo,
+                                       so)
+        rec["sup_s"] = time.perf_counter() - t0
+    dist.barrier()
+    t0 = time.perf_counter()
+    rec["four"] = _lanes_four(gpt, dev, r, wd)
+    rec["four_s"] = time.perf_counter() - t0
+    with open(os.path.join(wd, f"lanes{r}.json"), "w") as f:
         json.dump(rec, f)
     D.destroy_process_group()
 

@@ -102,6 +102,14 @@ register_flag("FLAGS_gen_tp", 1,
               "grids), the row-parallel partial sums all-reduced once "
               "a projection; rank 0 owns the scheduler and broadcasts "
               "each program call to the others. 1 = one card")
+register_flag("FLAGS_gen_tp_timeout_s", 300.0,
+              "serving tp lane: the bound, in seconds, on each collective "
+              "of a lane's tp group. A rank that faults inside a program "
+              "leaves the others waiting in an all-reduce; past this "
+              "bound they end the lane with a typed LaneFault naming "
+              "that rank. It must cover the slowest program's skew "
+              "between ranks (a first call that builds the kernels). "
+              "Read when the lane is built")
 register_flag("FLAGS_gen_prefix_cache", False,
               "serving.GenerationEngine: content-hash prefix cache over "
               "the paged KV pools (serving/prefix_cache.py) — a request "

@@ -11,10 +11,28 @@ same order, as `new_group` requires; a rank keeps the groups of its own
 slices. A 1-rank world (or no process group at all) gives the trivial
 mesh: every axis of size 1 and no group, so the collectives are the
 identity.
+
+Two ways to make the groups, because `new_group` is collective over the
+whole default group unless told otherwise:
+- `create_mesh` (the default, `local=False`) makes every group of every
+  slice on EVERY rank of the world, in one order. A mesh over the whole
+  world is built by every rank anyway, so this costs nothing, and it is
+  what each torch release supports.
+- `Mesh(..., local=True)` (what `spmd.tp_mesh` builds a serving lane
+  on) makes each group with `use_local_synchronization=True`: only the
+  members of a slice call `new_group` for it, and a rank outside the
+  mesh makes nothing. A lane over ranks [2, 3] of a world of 4 is then
+  built by ranks 2 and 3 alone, while ranks 0 and 1 are inside
+  collectives of their own; the world-collective form would deadlock
+  there, or pair the two lanes' groups under one name. Members name a
+  local group from its ranks and their count of groups, so the members
+  of one slice must have built the same number of groups before, as
+  ranks that run one program in step have (`local_group`).
 """
 from __future__ import annotations
 
 import contextlib
+import datetime
 import math
 import threading
 from typing import Dict, Optional
@@ -23,7 +41,7 @@ import numpy as np
 import torch.distributed as dist
 
 __all__ = ["Mesh", "create_mesh", "get_mesh", "set_mesh", "mesh_scope",
-           "axis_size", "axis_rank", "named_sharding",
+           "axis_size", "axis_rank", "named_sharding", "local_group",
            "replicated", "DEFAULT_AXES", "P"]
 
 DEFAULT_AXES = ("dp", "mp", "pp", "sp", "ep")
@@ -46,13 +64,26 @@ def _world():
     return 0, 1
 
 
+def local_group(ranks, backend=None, timeout_s: Optional[float] = None):
+    """A process group over `ranks` that only its members create
+    (`use_local_synchronization=True`): the caller must be one of them.
+    `timeout_s` bounds each of its collectives (gloo raises past it)."""
+    kw = {}
+    if timeout_s is not None:
+        kw["timeout"] = datetime.timedelta(seconds=float(timeout_s))
+    return dist.new_group(list(ranks), backend=backend,
+                          use_local_synchronization=True, **kw)
+
+
 class Mesh:
     """Named axes over ranks. `shape[axis]` is the axis' size,
     `devices` the rank grid, `axis_rank(axis)` this rank's coordinate and
     `group(axis)` the subgroup of this rank's slice (None where the axis
-    has size 1 or no process group is live)."""
+    has size 1 or no process group is live). `local=True` makes only the
+    groups of this rank's own slices, with only their members (see the
+    module docstring); a rank outside the mesh makes none."""
 
-    def __init__(self, axes: Dict[str, int], ranks=None):
+    def __init__(self, axes: Dict[str, int], ranks=None, local=False):
         rank, world = _world()
         self.axis_names = tuple(axes)
         self.shape = {k: int(v) for k, v in axes.items()}
@@ -73,6 +104,11 @@ class Mesh:
         if world > 1:
             for ax_i, ax in enumerate(self.axis_names):
                 if self.shape[ax] == 1:
+                    continue
+                if local:
+                    if self.coords is not None:
+                        members = self.group_ranks(ax)
+                        self._groups[ax] = (local_group(members), members)
                     continue
                 # every slice of this axis, in one order on every rank
                 moved = np.moveaxis(self.devices, ax_i, -1)
@@ -96,9 +132,12 @@ class Mesh:
 
     def group_ranks(self, axis: str):
         """The global ranks of this rank's slice along `axis`, in axis
-        order."""
-        entry = self._groups.get(axis)
-        return entry[1] if entry else [self.rank]
+        order (read off the rank grid: no group needed)."""
+        if axis not in self.shape or self.coords is None:
+            return [self.rank]
+        at = list(self.coords)
+        at[self.axis_names.index(axis)] = slice(None)
+        return [int(r) for r in np.atleast_1d(self.devices[tuple(at)])]
 
     def __repr__(self):
         return f"Mesh({self.shape})"

@@ -71,18 +71,34 @@ __all__ = ["param_sharding", "zero_sharding", "batch_sharding",
            "sharded_splash_attention", "write_back", "tp_mesh",
            "local_rows", "local_seq", "batch_placement", "clip_sharded"]
 
-def tp_mesh(tp, axis="tp"):
-    """A 1-D mesh over the first `tp` ranks for tensor-parallel serving;
-    raises where the world has fewer."""
+def tp_mesh(tp, axis="tp", devices=None):
+    """A 1-D mesh of `tp` ranks for a tensor-parallel serving lane, as the
+    JAX package's `tp_mesh` lays one over `tp` devices: `devices` names
+    the lane's ranks (the first `tp` of them are taken), by default the
+    first `tp` ranks of the world; raises where fewer are named.
+
+    The mesh's group is made with only its members
+    (`Mesh(local=True)`: `new_group(..., use_local_synchronization=True)`),
+    so building a lane never needs a rank outside it: a lane over ranks
+    [2, 3] of a world of 4 comes up while ranks 0 and 1 serve a lane of
+    their own, and a rank outside the lane that calls this gets a mesh it
+    is not in (`mesh.coords is None`) and makes no group."""
     from ..distributed.env import get_world_size
     world = get_world_size()
-    if world < tp:
+    ranks = list(range(world)) if devices is None else \
+        [int(r) for r in devices]
+    if len(ranks) < tp:
         raise RuntimeError(
-            f"tp={tp} needs {tp} ranks, the world has {world}: call "
-            f"distributed.init_parallel_env() in each rank started by "
-            f"python -m paddle_tpu_torch.distributed.launch "
+            f"tp={tp} needs {tp} ranks, {len(ranks)} are named (the world "
+            f"has {world}): call distributed.init_parallel_env() in each "
+            f"rank started by python -m paddle_tpu_torch.distributed.launch "
             f"--nproc_per_node {tp}")
-    return Mesh({axis: tp}, list(range(tp)))
+    if any(not 0 <= r < world for r in ranks[:tp]) \
+            or len(set(ranks[:tp])) != tp:
+        raise RuntimeError(
+            f"tp_mesh devices {ranks[:tp]} are not {tp} distinct ranks of "
+            f"a world of {world}")
+    return Mesh({axis: tp}, ranks[:tp], local=True)
 
 
 def _spec_of(param) -> P:

@@ -107,8 +107,15 @@ and `FLAGS_gen_exhaust_clamp_k` page-blocked admission iterations clamp
 admission (submits the pool cannot cover now fail fast) until the next
 admission.
 
-Not ported yet, each raising `InvalidArgumentError` when asked for: the
-program store and tensor-parallel lanes.
+**Tensor-parallel lanes** (`tp` > 1, or `mesh=` with a 'tp' axis):
+this rank's slice of the mesh along 'tp' holds the heads/tp slice of
+every projection and pool, its first rank schedules, and every device
+program runs on each rank of the lane (`serving/tp_lane.py`), the host
+tier's included; a lane outlives a supervised restart. Lanes may share
+ranks and may cover part of the world.
+
+Not ported yet, raising `InvalidArgumentError` when asked for: the
+program store.
 """
 from __future__ import annotations
 
@@ -171,9 +178,12 @@ def _not_ported(knob: str):
 class GenerationConfig:
     """Continuous-batching knobs; defaults ride the FLAGS_gen_* /
     FLAGS_paged_* / FLAGS_kv_tier* registry. `tp` > 1 shards the engine
-    over a tensor-parallel lane of ranks (`serving.tp_lane`). The JAX
-    engine's `program_store` (ROADMAP A4) is accepted only in its off
-    state and raises otherwise. `warmup=False` skips the
+    over a tensor-parallel lane of the world's first tp ranks
+    (`serving.tp_lane`; an engine's `mesh=` wins over it), with every
+    mode of the engine: the prefix cache, speculation, int8 pages, the
+    host tier, and supervision by an `EngineSupervisor` on each rank.
+    The JAX engine's `program_store` (ROADMAP A4) is accepted only in
+    its off state and raises otherwise. `warmup=False` skips the
     construction-time run of every program: the ledger then fills at
     each program's first call (and on the card the kernels build
     then)."""
@@ -201,7 +211,7 @@ class GenerationConfig:
         if program_store is not None and program_store != "":
             raise _not_ported("program_store")
         # tensor-parallel lane: tp ranks of the process group, one card
-        # each, rank 0 the scheduler (serving/tp_lane.py)
+        # each, the lane's first rank the scheduler (serving/tp_lane.py)
         self.tp = int(flag("FLAGS_gen_tp") if tp is None else tp)
         if self.tp < 1:
             raise InvalidArgumentError("tp must be >= 1")
@@ -470,10 +480,13 @@ class GenerationEngine:
     step. Deadlines are whole-request and checked before every step.
 
     The engine runs on `device` (default the CUDA card; raises where
-    there is none); the model must live there already. `metrics_port`
-    starts (or shares) the exporter's HTTP server on 127.0.0.1: 0 binds
-    an ephemeral port owned by this engine (read it back from
-    `engine.metrics_server.port`), None follows FLAGS_metrics_port.
+    there is none); the model must live there already. `mesh`, a mesh
+    with a 'tp' axis, makes the engine this rank's slice of it along
+    'tp' (a tp lane, `serving.tp_lane`); it wins over `config.tp`.
+    `metrics_port` starts (or shares) the exporter's HTTP server on
+    127.0.0.1: 0 binds an ephemeral port owned by this engine (read it
+    back from `engine.metrics_server.port`), None follows
+    FLAGS_metrics_port.
 
     The supervisor seam: `incarnation` is this engine generation's
     ordinal (on every StepRecord and span); with `on_death` set, a death
@@ -483,7 +496,7 @@ class GenerationEngine:
     and audit rings and degraded verdict forward."""
 
     def __init__(self, model, config: Optional[GenerationConfig] = None,
-                 name: str = "generation", device=None,
+                 name: str = "generation", device=None, mesh=None,
                  metrics_port: Optional[int] = None,
                  incarnation: int = 0, on_death=None, _carryover=None,
                  **overrides):
@@ -498,6 +511,9 @@ class GenerationEngine:
         self.incarnation = int(incarnation)
         self._on_death = on_death
         carry = _carryover or {}
+        # a supervised follower's next incarnation comes from its
+        # supervisor, when the leader's rebuild descriptor arrives
+        self._rebuild = carry.get("rebuild")
         if not isinstance(model, GPTForCausalLM):
             raise InvalidArgumentError(
                 f"GenerationEngine serves a models.GPTForCausalLM "
@@ -512,22 +528,38 @@ class GenerationEngine:
         self._device = dev
         self._model = model
         mcfg = model.gpt.config
-        self._W = model.decode_weights()    # raises for MoE
+        # a resurrection reuses the dead incarnation's weight tree (a tp
+        # rank's is its sharded copy), as the JAX engine reuses its pack's
+        carried_W = carry.get("W")
+        self._W = (model.decode_weights() if carried_W is None
+                   else carried_W)    # raises for MoE
         self._H = mcfg.num_heads
         self._D = mcfg.hidden_size // mcfg.num_heads
         self._scale = 1.0 / self._D ** 0.5
-        self._tp = self._cfg.tp
+        # an explicit mesh wins over config.tp and must carry a 'tp' axis
+        if mesh is not None:
+            if "tp" not in mesh.shape:
+                raise InvalidArgumentError(
+                    f"GenerationEngine mesh needs a 'tp' axis (got "
+                    f"{tuple(mesh.axis_names)})")
+            self._tp = int(mesh.shape["tp"])
+        else:
+            self._tp = self._cfg.tp
+        self._cfg.tp = self._tp
         if self._H % self._tp != 0:
             raise InvalidArgumentError(
                 f"num_heads={self._H} not divisible by tp={self._tp} — "
                 f"head-sharded lanes need equal slices")
         # a tp lane: this rank's heads of every projection and pool, the
-        # row-parallel sums all-reduced over the lane; rank 0 schedules
+        # row-parallel sums all-reduced over the lane; its first rank
+        # schedules. A resurrection follows the dead incarnation's lane
         self._lane = self._reduce = None
         if self._tp > 1:
-            self._lane = self._tp_lane(dev)
+            self._lane = carry.get("lane") or self._tp_lane(mesh)
             self._reduce = self._lane.reduce
-            self._W = shard_decode_weights(self._W, self._lane_mesh, "tp")
+            if carried_W is None:
+                self._W = shard_decode_weights(self._W, self._lane.mesh,
+                                               "tp")
         self._Hl = self._H // self._tp
         self._max_position = mcfg.max_position_embeddings
         if self._cfg.pages_per_seq <= 0:
@@ -566,11 +598,15 @@ class GenerationEngine:
         self._slab = self._tier = None
         if self._cfg.kv_tier and self._prefix is not None:
             c = self._cache
-            parts = [((c.num_layers, c.num_heads, c.page_size, c.head_dim),
-                      c.k_pages.dtype)] * 2
+            # a rank's slots hold its heads; the budget counts whole
+            # pages (the lane's bytes), so a lane holds as many entries
+            # and evicts as tp = 1 does, and every rank has as many slots
+            parts = [((c.num_layers, c.local_heads, c.page_size,
+                       c.head_dim), c.k_pages.dtype)] * 2
             if self._quant_kv:
-                parts += [((c.num_layers, c.num_heads), torch.float32)] * 2
-            per = c.page_host_bytes()
+                parts += [((c.num_layers, c.local_heads),
+                           torch.float32)] * 2
+            per = self._page_bytes = c.page_host_bytes()
             self._slab = HostSlab(
                 parts, max(self._cfg.kv_tier_host_bytes // per,
                            self._cfg.pages_per_seq + 1) + 1,
@@ -578,8 +614,12 @@ class GenerationEngine:
             self._tier = HostTier(self._cfg.kv_tier_host_bytes, name,
                                   slab=self._slab)
         # promotion uploads run on their own stream (created at first
-        # use on the card); pool writes stay on the current stream
+        # use on the card); pool writes stay on the current stream. A
+        # staged chunk waits for its scatter under the key the upload's
+        # descriptor names
         self._upload_stream = None
+        self._staged = {}
+        self._stage_seq = 0
         # demoted pages whose copy waits for the end of the eviction
         # pass: (page, slab slot), step thread only
         self._gather_q: List[tuple] = []
@@ -664,14 +704,19 @@ class GenerationEngine:
         device_telemetry.touch()
         timeseries.touch()
         if self._lane is not None and not self._lane.leader:
-            # a follower rank runs rank 0's programs on its heads; it
-            # takes no request and serves no metrics
+            # a follower rank runs the leader's programs on its heads; it
+            # takes no request and serves no metrics. A resurrection is
+            # swapped into the loop that follows the lane already
             self._warmed = True
             self._owns_metrics_server = False
             self.metrics_server = None
-            self._lane.follow(self)
+            if self._lane.thread is None:
+                self._lane.follow(self)
             return
         if self._lane is not None:
+            if "lane" in carry:
+                self._lane.announce_rebuild(self.incarnation,
+                                            self._degraded_spec_off)
             self._lane.wrap(self)
         if self._on_death is None:
             # a supervised engine never registers: the supervisor is the
@@ -693,20 +738,23 @@ class GenerationEngine:
             exporter.unregister_engine(self)   # no-op when supervised
             if self._step_log is not None:
                 step_log.unregister(self._step_log)
-            if self._lane is not None:
+            if self._lane is not None and "lane" not in carry:
+                # no supervisor will send this lane a rebuild
                 self._lane.stop()
             raise
 
-    def _tp_lane(self, dev):
-        """The lane of a tp > 1 engine: the 'tp' mesh over the world's
-        ranks (one lane a job, rank r on its card) and its control group.
-        Raises where no process group of tp ranks is live, or for the
-        engine modes the lane does not carry yet."""
-        from ..distributed.env import get_world_size, is_initialized
+    def _tp_lane(self, mesh):
+        """The lane of a tp > 1 engine: this rank's slice along 'tp' of
+        `mesh` (by default `tp_mesh(tp)`, the world's first tp ranks),
+        with its own tp and control groups (`serving.tp_lane`); the
+        slice's first rank schedules. Raises where no process group of at
+        least tp ranks is live, and on a rank outside the mesh."""
+        from ..distributed.env import get_rank, get_world_size, \
+            is_initialized
         from ..parallel.spmd import tp_mesh
         from .tp_lane import TPLane
         tp = self._tp
-        if not is_initialized() or get_world_size() != tp:
+        if not is_initialized() or get_world_size() < tp:
             raise InvalidArgumentError(
                 f"{self.name}: GenerationConfig(tp={tp}) serves over {tp} "
                 f"ranks of one process group (one a card), and "
@@ -716,21 +764,38 @@ class GenerationEngine:
                 f"{tp} (or distributed.spawn) and call "
                 f"distributed.init_parallel_env() in each before building "
                 f"the engine")
-        for knob, on in (("kv_tier", self._cfg.kv_tier),
-                         ("on_death (a supervised tp lane)",
-                          self._on_death is not None)):
-            if on:
-                raise InvalidArgumentError(
-                    f"{self.name}: {knob} under tp > 1 is not yet ported "
-                    f"to paddle_tpu_torch")
-        self._lane_mesh = tp_mesh(tp)
-        return TPLane(self._lane_mesh)
+        if mesh is None:
+            mesh = tp_mesh(tp)
+        if mesh.coords is None:
+            raise InvalidArgumentError(
+                f"{self.name}: rank {get_rank()} is in no lane of "
+                f"{mesh!r} over ranks {mesh.devices.ravel().tolist()}: "
+                f"build the engine on the mesh's ranks only")
+        return TPLane(mesh)
 
     def _refuse_on_follower(self):
         if self._lane is not None and not self._lane.leader:
             raise InvalidArgumentError(
-                f"{self.name}: rank {self._lane.rank} of a tp lane runs "
-                f"rank 0's programs; requests go to rank 0's engine")
+                f"{self.name}: rank {self._lane.global_rank} of a tp lane "
+                f"runs the programs of its first rank, "
+                f"{self._lane.ranks[0]}; requests go to that rank's "
+                f"engine")
+
+    def _follow_rebuild(self, incarnation: int, degraded_spec_off: bool):
+        """A follower's next incarnation, on the leader's rebuild
+        descriptor: this engine's pools go first (as the leader's went
+        before its rebuild), then the supervisor builds the next engine
+        on the same lane from the same sharded weights, ledger and
+        rings."""
+        if self._rebuild is None:
+            raise InvalidArgumentError(
+                f"{self.name}: the lane's leader rebuilt its engine, but "
+                f"this follower is not supervised")
+        self._cache.release_pools()
+        return self._rebuild(incarnation, {
+            "ledger": self._ledger, "step_log": self._step_log,
+            "audit": self._audit, "W": self._W, "lane": self._lane,
+            "degraded_spec_off": bool(degraded_spec_off)})
 
     @staticmethod
     def _fresh_it() -> dict:
@@ -999,24 +1064,30 @@ class GenerationEngine:
         the card) is taken for it and the page queued. The copy is the
         `tier_gather` program at `_tier_gather_flush`, which the prefix
         cache runs when its eviction pass is over, before the engine can
-        zero or reuse a freed page."""
+        zero or reuse a freed page. The entry counts the lane's bytes of
+        a page: a tp rank's slot holds its heads."""
         slot, views = self._slab.take()
         self._gather_q.append((page, slot))
-        return HostEntry(*views, slot=slot)
+        return HostEntry(*views, slot=slot, nbytes=self._page_bytes)
 
     def _tier_gather_flush(self):
-        """The `tier_gather` program: the queued pages' raw blocks (and
-        int8 scale rows) in one batch, one gather a pool into a device
-        buffer of slot-shaped rows, then one copy a page into its slot.
-        On the card the copies are queued on the engine's stream and not
-        waited for: every later write of a page (its zeroing when freed,
-        a new owner's prefill) queues behind them on that stream, and a
-        promotion's uploads wait for it (`_tier_upload`). It first waits
-        for the upload stream: a slot freed by a promotion may still be
-        read by that promotion's uploads."""
+        """Run the `tier_gather` program over the pages queued in this
+        eviction pass (the leader chose their slots)."""
         queued, self._gather_q = self._gather_q, []
-        if not queued:
-            return
+        if queued:
+            self._tier_gather_call(queued)
+
+    def _tier_gather_call(self, queued):
+        """The `tier_gather` program: the (page, slot) pairs' raw blocks
+        (and int8 scale rows) in one batch, one gather a pool into a
+        device buffer of slot-shaped rows, then one copy a page into its
+        slot of this rank's slab. On the card the copies are queued on
+        the engine's stream and not waited for: every later write of a
+        page (its zeroing when freed, a new owner's prefill) queues
+        behind them on that stream, and a promotion's uploads wait for
+        it (`_tier_upload_call`). It first waits for the upload stream:
+        a slot freed by a promotion may still be read by that
+        promotion's uploads."""
         self._note("tier_gather")
         # a slot released and taken again within one pass holds the
         # later page
@@ -1044,38 +1115,45 @@ class GenerationEngine:
             return None
         return self._tier_gather(page)
 
-    def _tier_upload(self, entries):
-        """Stage host entries on the device, one copy of a slot's bytes
-        a page: on the card the copies run on the upload stream into a
-        fresh staging buffer (the slab is pinned, so they are
-        asynchronous DMA), after the engine's stream has queued the
-        entries' gathers, and the event recorded after them is returned
-        for the scatter to wait on; on the CPU the slots are stacked in
-        place. Returns (blocks, event), blocks [c, L, H, P, D] (scale
-        blocks [c, L, H]), views of the staging buffer."""
+    def _tier_upload_call(self, key, slots):
+        """The upload half of a promotion chunk: stage `slots` of this
+        rank's slab on the device, one copy of a slot's bytes a page,
+        under `key` for the `_tier_write_call` that scatters it. On the
+        card the copies run on the upload stream into a fresh staging
+        buffer (the slab is pinned, so they are asynchronous DMA), after
+        the engine's stream has queued the slots' gathers, and the event
+        recorded after them is kept for the scatter to wait on; on the
+        CPU the slots are stacked in place. Staged: blocks [c, L, H, P,
+        D] (scale blocks [c, L, H]), views of the staging buffer."""
         if self._device.type != "cuda":
-            rows = torch.stack([self._slab.raw(e.slot) for e in entries])
-            return self._slab.part_views(rows), None
+            rows = torch.stack([self._slab.raw(s) for s in slots])
+            self._staged[key] = (self._slab.part_views(rows), None)
+            return
         if self._upload_stream is None:
             self._upload_stream = torch.cuda.Stream(self._device)
         self._upload_stream.wait_stream(
             torch.cuda.current_stream(self._device))
         with torch.cuda.stream(self._upload_stream):
-            rows = torch.empty(len(entries), self._slab.slot_bytes,
+            rows = torch.empty(len(slots), self._slab.slot_bytes,
                                dtype=torch.uint8, device=self._device)
-            for row, e in zip(rows, entries):
-                row.copy_(self._slab.raw(e.slot), non_blocking=True)
+            for row, s in zip(rows, slots):
+                row.copy_(self._slab.raw(s), non_blocking=True)
             ev = torch.cuda.Event()
             ev.record(self._upload_stream)
-        return self._slab.part_views(rows), ev
+        self._staged[key] = (self._slab.part_views(rows), ev)
 
-    def _tier_write(self, targets, blocks, ev):
-        """The `tier_write[w=C]` program: scatter one staged chunk into
-        its target pages on the current stream, after the chunk's upload
-        event. The staging buffer is marked in use by this stream, so
-        the allocator cannot hand it back to the upload stream before
-        the scatter has read it."""
+    def _tier_write_call(self, key, targets):
+        """The `tier_write[w=C]` program: scatter the chunk staged under
+        `key` into its target pages on the current stream, after the
+        chunk's upload event. The staging buffer is marked in use by
+        this stream, so the allocator cannot hand it back to the upload
+        stream before the scatter has read it. A chunk staged under an
+        older key was left by an abandoned promotion: it goes now, on
+        every rank alike."""
         self._note(f"tier_write[w={self._cfg.kv_tier_chunk_pages}]")
+        blocks, ev = self._staged.pop(key)
+        for old in [k for k in self._staged if k < key]:
+            del self._staged[old]
         idx = self._t_async(np.asarray(targets, np.int64))
         if ev is not None:
             cur = torch.cuda.current_stream(self._device)
@@ -1083,6 +1161,13 @@ class GenerationEngine:
             blocks[0].record_stream(cur)
         for pool, b in zip(self._pools(), blocks):
             pool[:, :, idx] = b.movedim(0, 2)
+
+    def _tier_stage(self, entries) -> int:
+        """Stage host entries through `_tier_upload_call`; returns the
+        key its scatter names."""
+        self._stage_seq += 1
+        self._tier_upload_call(self._stage_seq, [e.slot for e in entries])
+        return self._stage_seq
 
     def _promote_upload(self, req: _GenRequest, host_digests,
                         matched_hbm: int) -> bool:
@@ -1118,7 +1203,7 @@ class GenerationEngine:
             return False
         t0 = _now_ms()
         written = 0
-        staged = self._tier_upload(entries[:C])
+        staged = self._tier_stage(entries[:C])
         while written < n:
             if failpoints.fire("kv_tier.promote_upload") is not None:
                 self._zero_pages(targets[:written])
@@ -1128,10 +1213,10 @@ class GenerationEngine:
                 self._it["promote_ms"] += _now_ms() - t0
                 return False
             hi = min(written + C, n)
-            nxt = (self._tier_upload(entries[hi:hi + C]) if hi < n
+            nxt = (self._tier_stage(entries[hi:hi + C]) if hi < n
                    else None)
             with RecordEvent(f"generation::tier_write[w={C}]"):
-                self._tier_write(targets[written:hi], *staged)
+                self._tier_write_call(staged, targets[written:hi])
             written, staged = hi, nxt
         self._tier.note_promotion(n)
         self._audit.audit("KV_PROMOTE", rid=req.rid, pages=n,
@@ -1170,9 +1255,9 @@ class GenerationEngine:
             C = self._cfg.kv_tier_chunk_pages
             e = self._tier_gather(TRASH_PAGE)
             self._tier_gather_flush()
-            staged = [self._tier_upload([e] * C) for _ in range(2)]
-            for st in staged:
-                self._tier_write([TRASH_PAGE] * C, *st)
+            staged = [self._tier_stage([e] * C) for _ in range(2)]
+            for key in staged:
+                self._tier_write_call(key, [TRASH_PAGE] * C)
             self._slab.release(e.slot)
         if self._spec_k:
             self._verify_call(*self._spec_arrays()[0])
@@ -1375,17 +1460,21 @@ class GenerationEngine:
     def _loop(self):
         if self._device.type == "cuda":
             torch.cuda.set_device(self._device)
+        handed_over = False
         try:
             with torch.inference_mode():
                 self._run()
         except BaseException as e:  # noqa: BLE001 — never hang submitters
             # _die runs outside the inference mode: a supervisor rebuilds
             # the next engine from here
-            if self._die(e):
+            handed_over = self._die(e)
+            if handed_over:
                 return   # supervised: handed over and handled
             raise
         finally:
-            if self._lane is not None:
+            # a supervised death hands the lane to the next incarnation
+            # (or to the supervisor, which ends it at its shutdown)
+            if self._lane is not None and not handed_over:
                 self._lane.stop()
 
     def _run(self):
@@ -1585,6 +1674,7 @@ class GenerationEngine:
             self._cv.notify_all()
         active = [r for r in self._slots
                   if r is not None and r.rid not in settled]
+        lane_fault = self._lane is not None and self._lane.error is not None
         if self._on_death is not None:
             manifest = CrashManifest(
                 engine=self.name, incarnation=self.incarnation, error=e,
@@ -1615,8 +1705,9 @@ class GenerationEngine:
                 e = RuntimeError(
                     f"supervisor failed during restart: {sup_e!r} "
                     f"(original death: {e!r})")
-        err = UnavailableError(f"{self.name}: generation engine died: "
-                               f"{e!r}")
+        # a lane fault is already typed and names the rank at fault
+        err = (self._lane.error if lane_fault else UnavailableError(
+            f"{self.name}: generation engine died: {e!r}"))
         for req in active + stranded:
             if req.stream is not None:
                 # direct put: the step loop is dead, no flush follows
@@ -2508,8 +2599,12 @@ class GenerationEngine:
                               queued_ms=round(_now_ms()
                                               - req.t_enqueue_ms, 3))
         if self._lane is not None and not self._lane.leader:
-            # a follower ends when rank 0's step loop does
+            # a follower ends when its leader ends the lane (across
+            # incarnations: the thread is the lane's); a lane that ended
+            # on a fault ends here with its typed error
             self._lane.thread.join(timeout_s)
+            if self._lane.error is not None:
+                raise self._lane.error
             return
         t = getattr(self, "_thread", None)
         if t is not None:

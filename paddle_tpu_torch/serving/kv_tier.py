@@ -26,6 +26,14 @@ scale rows side by side, so a promotion re-uploads identical bytes with
 no requantization, and a promoted chain decodes exactly like a
 never-evicted one.
 
+Under a tp lane each rank's slab holds its heads of every page, with as
+many slots as the leader's: the leader's tier is the only allocator (it
+takes the slots and names them in the programs' descriptors,
+`serving.tp_lane`), and a follower's slab keeps no free list of its own.
+An entry counts the lane's bytes of its page (`HostEntry.nbytes`), so
+the budget holds as many pages at any tp, and the evictions match tp =
+1's and the JAX lane's, whose host pages are whole.
+
 Budget: the tier owns its own byte budget (`FLAGS_kv_tier_host_bytes`)
 with LRU eviction; demote-of-demoted is the final eviction (audit code
 KV_TIER_EVICT). `put` returns the evicted digests so the `PrefixCache`
@@ -61,16 +69,20 @@ class HostEntry:
     scale rows `[L, H]`, as CPU tensors (pinned on a CUDA engine): raw
     bytes in, raw bytes out, so the round trip is exact. `slot` is the
     `HostSlab` slot the tensors live in (None when they are not a
-    slab's), returned by the tier when it drops the entry."""
+    slab's), returned by the tier when it drops the entry. `nbytes`, what
+    the budget counts, defaults to the tensors' bytes; a tp rank's entry
+    holds its heads and counts the whole page's."""
 
     __slots__ = ("k", "v", "ks", "vs", "nbytes", "slot")
 
     def __init__(self, k: torch.Tensor, v: torch.Tensor,
                  ks: Optional[torch.Tensor] = None,
                  vs: Optional[torch.Tensor] = None,
-                 slot: Optional[int] = None):
+                 slot: Optional[int] = None,
+                 nbytes: Optional[int] = None):
         self.k, self.v, self.ks, self.vs = k, v, ks, vs
-        self.nbytes = _nbytes(k) + _nbytes(v) + _nbytes(ks) + _nbytes(vs)
+        self.nbytes = (_nbytes(k) + _nbytes(v) + _nbytes(ks) + _nbytes(vs)
+                       if nbytes is None else int(nbytes))
         self.slot = slot
 
 
@@ -130,8 +142,12 @@ class HostSlab:
 
     def raw(self, slot: int) -> torch.Tensor:
         """Slot `slot`'s bytes, uint8 [slot_bytes]: its parts at
-        `part_views(...)`' offsets, back to back."""
+        `part_views(...)`' offsets, back to back. A tp follower reads
+        the slots its leader took, so the segments grow to hold any
+        slot named."""
         seg, i = divmod(slot, self._per_seg)
+        while seg >= len(self._segs):
+            self._grow()
         base = i * self.slot_bytes
         return self._segs[seg][base:base + self.slot_bytes]
 
@@ -285,6 +301,12 @@ class HostTier:
     @property
     def host_bytes(self) -> int:
         return self._bytes
+
+    @property
+    def slab_bytes(self) -> int:
+        """This rank's reserved slab bytes (its heads of each slot under
+        tp; `host_bytes` counts the lane's)."""
+        return 0 if self._slab is None else self._slab.reserved_bytes
 
     def __len__(self) -> int:
         return len(self._entries)

@@ -461,6 +461,7 @@ class PrefixCache:
             # report tooling reads one shape either way
             "tier_enabled": self._tier is not None,
             "host_bytes": 0,
+            "rank_slab_bytes": 0,
             "host_entries": 0,
             "host_nodes": 0,
             "demotions": 0,
@@ -473,6 +474,7 @@ class PrefixCache:
         if self._tier is not None:
             t = self._tier.stats()
             out["host_bytes"] = t["host_bytes"]
+            out["rank_slab_bytes"] = self._tier.slab_bytes
             out["host_entries"] = t["entries"]
             out["host_nodes"] = sum(
                 1 for n in list(self._nodes.values()) if n.page is None)

@@ -43,6 +43,14 @@ exporter like any engine: `/readyz` is ready while >= 1 replica is
 placeable, `/stats` carries placements, sketches, and a bounded
 per-replica pressure timeline (`tools/router_report.py` renders both).
 
+Tensor-parallel replicas (`tp` > 1): every rank of the lanes builds the
+router, as it builds each lane's engine. The lanes' first ranks route:
+a replica whose lane another rank leads is never a candidate here, and
+on a rank that leads no replica `submit` / `generate` refuse as a
+follower engine's do, while `shutdown` waits for that rank's followers
+to end. Lanes may share ranks (each has its own groups,
+`serving.tp_lane`), as the JAX router's replicas share one process.
+
 Locking: one plain lock around the sketch/snapshot/pick state, held
 only for host bookkeeping — never across a replica call. Replica
 `pressure()` reads are lock-free on the engine side by design
@@ -246,7 +254,8 @@ class Router:
     def _pick_locked(self, digests: List[bytes], total_tokens: int,
                      exclude: set, trace: dict) -> Optional[_Replica]:
         cands = [r for r in self._replicas
-                 if r.name not in exclude and not r.drained]
+                 if r.name not in exclude and not r.drained
+                 and r.sup.leads]
         if not cands:
             return None
         if self._affinity and digests:
@@ -305,6 +314,9 @@ class Router:
         replay + retry-budget semantics."""
         if self._closed:
             raise UnavailableError(f"{self.name}: router shut down")
+        if not any(rep.sup.leads for rep in self._replicas):
+            # a follower rank of every replica's lane
+            self._replicas[0].sup.engine._refuse_on_follower()
         monitor.stat_add("STAT_router_requests")
         # fleet trace context: the router is the request's
         # FIRST hop, so it mints the trace id and opens the fleet flow
@@ -433,12 +445,19 @@ class Router:
             if self._closed:
                 return
             self._closed = True
+        err = None
         for rep in self._replicas:
-            rep.sup.shutdown(drain=drain, timeout_s=timeout_s)
+            try:
+                rep.sup.shutdown(drain=drain, timeout_s=timeout_s)
+            except Exception as e:  # noqa: BLE001 — a follower's lane
+                #                     fault; the other replicas still end
+                err = err or e
         exporter.unregister_engine(self)
         self._audit.close()
         if self._owns_metrics_server and self.metrics_server is not None:
             self.metrics_server.close()
+        if err is not None:
+            raise err
 
     def __enter__(self):
         return self

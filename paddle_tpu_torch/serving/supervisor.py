@@ -53,6 +53,17 @@ gate. Nothing falls back to the CPU.
 Recovery runs on the dying engine's step thread, after its inference
 mode has ended; the rebuilt engine starts its own step thread, which
 sets the device as every step thread does.
+
+**A supervised tp lane** (`tp` > 1: one supervisor on every rank of the
+lane, as one engine is). The leader's supervisor restarts as above; its
+rebuilt engine reuses the lane and the sharded weights and sends the
+rebuild descriptor before its warmup, and each follower's supervisor
+builds its next engine on that descriptor (`_follow_rebuild`: same lane,
+same groups, the incarnation the leader chose), so no group is made by
+a rebuild. The lane ends at the supervisor's shutdown. A lane that ends
+on a fault inside a program (`tp_lane.LaneFault`) is not rebuilt: its
+entries fail with that error, which names the rank at fault, and the
+supervisor stays down as with an open breaker.
 """
 from __future__ import annotations
 
@@ -149,7 +160,27 @@ class EngineSupervisor:
         return GenerationEngine(
             self._model, copy.copy(self._cfg), name=self.name,
             device=self._device, incarnation=incarnation,
-            on_death=self._on_engine_death, _carryover=carry)
+            on_death=self._on_engine_death,
+            _carryover=dict(carry or {}, rebuild=self._follow_rebuild))
+
+    def _follow_rebuild(self, incarnation: int,
+                        carry: dict) -> GenerationEngine:
+        """A follower rank's restart, on its leader's rebuild descriptor
+        (the lane's follow thread): the next engine on the same lane, at
+        the leader's incarnation. The leader's supervisor kept the
+        breaker and the backoff; a follower has no request to replay."""
+        with self._gate:
+            self.incarnation = int(incarnation)
+            self._engine = self._build_engine(self.incarnation, carry)
+            self.restarts += 1
+            return self._engine
+
+    @property
+    def leads(self) -> bool:
+        """False on a follower rank of a tp lane, which takes no
+        request."""
+        lane = self._engine._lane
+        return lane is None or lane.leader
 
     def _on_engine_death(self, manifest: CrashManifest) -> None:
         """The dead engine's `_die` hands over here (still on the dying
@@ -183,6 +214,14 @@ class EngineSupervisor:
                 # this manifest
                 entries = self._pending_replays + list(manifest.entries)
                 self._pending_replays = []
+                lane = dead._lane
+                if lane is not None and lane.error is not None:
+                    # a fault inside a program ended the lane: nothing to
+                    # rebuild on; fail typed, naming the rank at fault
+                    self._breaker_reason = f"tp lane ended: {lane.error}"
+                    self._fail_entries(entries, lane.error)
+                    lane.stop()
+                    return
                 if self._closed:
                     self._fail_entries(
                         entries,
@@ -209,8 +248,10 @@ class EngineSupervisor:
                     return
                 carry = {"ledger": dead._ledger,
                          "step_log": dead._step_log,
-                         "audit": dead._audit,
+                         "audit": dead._audit, "W": dead._W,
                          "degraded_spec_off": manifest.degraded_spec_off}
+                if lane is not None:
+                    carry["lane"] = lane
                 eng = None
                 build_failures = 0
                 while eng is None:
@@ -321,12 +362,15 @@ class EngineSupervisor:
             #                     never strand the caller
             self._fail_entry(entry, f"{self.name}: replay failed: {e!r}")
 
-    def _fail_entries(self, entries, msg: str) -> None:
+    def _fail_entries(self, entries, msg) -> None:
         for entry in entries:
             self._fail_entry(entry, msg)
 
-    def _fail_entry(self, entry: ReplayEntry, msg: str) -> None:
-        err = UnavailableError(msg)
+    def _fail_entry(self, entry: ReplayEntry, msg) -> None:
+        """Fail one entry with UnavailableError(msg), or with `msg`
+        itself where it is an error already (a LaneFault)."""
+        err = msg if isinstance(msg, BaseException) else \
+            UnavailableError(msg)
         if entry.stream is not None:
             entry.stream._put(err)
         try:
@@ -460,10 +504,19 @@ class EngineSupervisor:
         # died mid-replay and we shut down before another death) must
         # not strand their callers
         self._fail_entries(pend, f"{self.name}: supervisor shut down")
-        eng.shutdown(drain=drain, timeout_s=timeout_s)
-        exporter.unregister_engine(self)
-        if self._owns_metrics_server and self.metrics_server is not None:
-            self.metrics_server.close()
+        try:
+            # a follower's shutdown waits for its leader to end the lane
+            # and raises the lane's fault where it ended on one
+            eng.shutdown(drain=drain, timeout_s=timeout_s)
+        finally:
+            if eng._lane is not None:
+                # the lane outlived each incarnation: it ends here (an
+                # engine whose loop ended already sent this; once)
+                eng._lane.stop()
+            exporter.unregister_engine(self)
+            if self._owns_metrics_server \
+                    and self.metrics_server is not None:
+                self.metrics_server.close()
 
     def __enter__(self):
         return self

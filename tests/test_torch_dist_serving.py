@@ -13,7 +13,11 @@ identical to the port's tp = 1 (no bits cross the two packages'
 generators, ROADMAP C2). The exactly-once ledger,
 `STAT_tp_kv_shard_bytes`, `pressure()`, the page arithmetic and the
 validation errors as `test_tp_identity.py:176-215`. The host tier under
-tp is not carried yet and refuses.
+tp (`test_tp_identity.py:144-173`), fp32 and int8 pools: its gathers,
+uploads and scatters run as lane programs on every rank, and a lane
+demotes, promotes and evicts what tp = 1 does. Supervised lanes, lanes
+over part of the world, the router over tp replicas and lanes on shared
+ranks are in `test_torch_dist_serving_lanes.py`.
 """
 import json
 
@@ -40,7 +44,7 @@ def weights():
 def _jax_outs(net, tp, kw, reqs):
     with jserving.GenerationEngine(net, tp=tp, name=f"jtp{tp}",
                                    **{**SERVE_KW, **kw}) as eng:
-        return [eng.generate(p, max_new_tokens=6, **g).tolist()
+        return [eng.generate(p, **{"max_new_tokens": 6, **g}).tolist()
                 for p, g in reqs]
 
 
@@ -55,9 +59,7 @@ def ranks(weights, tmp_path_factory):
         # the other ranks ran rank 0's programs and answered nothing
         for g in got[1:]:
             other = json.loads(str(g["json"]))
-            assert all(v is None for k, v in other.items()
-                       if k != "tier_refused")
-            assert other["tier_refused"]
+            assert all(v is None for v in other.values())
     return out
 
 
@@ -98,8 +100,25 @@ def test_tp_shard_bytes_gauge_and_pressure(ranks, tp):
     assert got["pressure_shard"] == got["shard"]
 
 
-def test_tp_tier_is_refused_not_served_at_tp1(ranks):
-    assert ranks[2]["tier_refused"] and ranks[4]["tier_refused"]
+@pytest.mark.parametrize("kv", ["fp32", "int8"])
+def test_tp_tier_demote_promote_token_identity(weights, ranks, kv):
+    """As `test_tp_identity.py::test_tp_tier_demote_promote_token_identity`
+    (there fp32 only): the lane's host pages are whole in the budget, so
+    it demotes, promotes and evicts exactly what tp = 1 does, and the raw
+    bytes round-trip, so its tokens are tp = 1's and the JAX lane's."""
+    net, w = weights
+    name, kw, reqs = next(c for c in serve_cases(2) if c[0] == f"tier_{kv}")
+    got = ranks[2][name]
+    one = serve_one(tiny_gpt(w), 1, name, kw, reqs)
+    assert got["outs"] == one["outs"] == _jax_outs(net, 2, kw, reqs)
+    assert got["tier"]["demotions"] >= 2 and got["tier"]["promotions"] >= 2
+    for k in ("demotions", "promotions", "tier_evictions", "host_bytes"):
+        assert got["tier"][k] == one["tier"][k], k
+    # a rank's slots hold its heads: its slab is about half of tp 1's
+    assert got["tier"]["rank_slab_bytes"] < one["tier"]["rank_slab_bytes"]
+    assert got["compiles"] == one["compiles"]
+    assert got["compiles"]["tier_gather"] == 1
+    assert got["quantized"] == (kv == "int8")
 
 
 def test_tp_page_arithmetic_per_shard():

@@ -385,7 +385,23 @@ def serve_cases(tp):
             # the integers and of the scales of its output columns
             ("wint8", {"_quantize": 8}, [(p, {}) for p in prompts(7)]),
         ]
+        # the host tier under tp (`test_tp_identity.py:144-173`): a flood
+        # of shared-prefix prompts through 12 pages demotes, the revisit
+        # of the first promotes
+        rng = np.random.RandomState(31)
+        flood = [np.concatenate([rng.randint(0, 512, size=(8,)),
+                                 rng.randint(0, 512, size=(3,))])
+                 .astype("int64") for _ in range(8)]
+        for kv in ("fp32", "int8"):
+            cases.append((f"tier_{kv}", dict(TIER_KW, kv_cache_dtype=(
+                "int8" if kv == "int8" else "auto")),
+                [(p, {"max_new_tokens": 4}) for p in flood + flood[:1]]))
     return cases
+
+
+TIER_KW = dict(num_pages=12, prefill_buckets=(16,), max_new_tokens=4,
+               prefix_cache=True, kv_tier=True, kv_tier_host_bytes=64 << 20,
+               kv_tier_chunk_pages=2)
 
 
 def tiny_gpt(inp):
@@ -414,7 +430,8 @@ def serve_one(model, tp, name, kw, reqs):
                                   **{**SERVE_KW, **kw}) as eng:
         if tp > 1 and eng._lane is not None and not eng._lane.leader:
             return None
-        outs = [eng.generate(p, max_new_tokens=6, **g) for p, g in reqs]
+        outs = [eng.generate(p, **{"max_new_tokens": 6, **g})
+                for p, g in reqs]
         st = eng.stats()
         pr = eng.pressure()
         gauge = (monitor.stat_get("STAT_tp_kv_shard_bytes") or 0) - base
@@ -424,25 +441,222 @@ def serve_one(model, tp, name, kw, reqs):
             "hbm": st["pages"]["hbm_bytes"],
             "shard": st["pages"]["shard_hbm_bytes"], "gauge": gauge,
             "pressure_tp": pr["tp"], "pressure_shard": pr["kv_shard_bytes"],
-            "hits": st["kv"]["prefix"].get("hits", 0)}
+            "hits": st["kv"]["prefix"].get("hits", 0),
+            "tier": {k: st["kv"]["prefix"].get(k, 0) for k in (
+                "demotions", "promotions", "tier_evictions", "host_bytes",
+                "rank_slab_bytes")},
+            "pages_in_use": st["pages"]["pages_in_use"],
+            "cached": st["kv"]["prefix"].get("cached_pages", 0)}
 
 
 def job_serve(wd, r, n, inp):
-    from paddle_tpu_torch import serving
-    from paddle_tpu_torch.framework.errors import InvalidArgumentError
     model = tiny_gpt(inp)
     res = {}
     for name, kw, reqs in serve_cases(n):
         res[name] = serve_one(model, n, name, kw, reqs)
-    # modes the lane does not carry yet refuse on every rank, before any
-    # collective
+    return {"json": np.asarray(json.dumps(res))}
+
+
+# -- tp lanes: supervised, over part of the world, routed, on shared ranks ----
+
+LANE_KW = dict(max_slots=2, page_size=4, num_pages=64, prefill_buckets=(8,),
+               max_new_tokens=5, request_timeout_ms=0)
+LANE_FAULTS = (("decode", "decode_step_raise@3"),
+               ("prefill", "prefill_raise@1"))
+LANE_COUNTS = ("incarnation", "restarts", "replayed_requests",
+               "retry_exhausted", "replay_impossible")
+# the lane-fault arm's bound on its tp group's collectives, seconds
+LANE_TIMEOUT_S = 3.0
+
+
+def lane_prompts(n=4, seed=0):
+    return list(np.random.RandomState(seed).randint(
+        0, 512, size=(n, 7)).astype("int64"))
+
+
+def supervised_scenario(sup):
+    """Two futures and two streams submitted under the engine's lock (one
+    admission pass), as `test_torch_resurrection.py` does; works on either
+    package's `EngineSupervisor`. Returns what the parity compares."""
+    import collections
+    prompts = lane_prompts()
+    with sup.engine._cv:
+        futs = [sup.submit(p, max_new_tokens=5) for p in prompts[:2]]
+        streams = [sup.submit_stream(p, max_new_tokens=5)
+                   for p in prompts[2:]]
+    outs = [np.asarray(f.result(timeout=120)).tolist() for f in futs]
+    streamed = [[int(t) for t in st] for st in streams]
+    outs += [np.asarray(st.result(timeout=120)).tolist() for st in streams]
+    st = sup.supervisor_stats()
+    return {"outs": outs, "streamed": streamed,
+            "counts": {k: st[k] for k in LANE_COUNTS},
+            "reasons": dict(collections.Counter(
+                e["reason"] for e in sup.engine._audit.tail(4096))),
+            "ledger": sorted(sup.engine._ledger)}
+
+
+def _groups():
+    """Process groups this rank belongs to (the default one included)."""
+    import torch.distributed as dist
+    return len(dist.distributed_c10d._world.pg_names)
+
+
+def _serve(front, prompts, new=5):
+    """Greedy outputs of `prompts` through an engine, supervisor or
+    router, submitted together."""
+    futs = [front.submit(p, max_new_tokens=new) for p in prompts]
+    return [np.asarray(f.result(timeout=120)).tolist() for f in futs]
+
+
+def job_lanes2(wd, r, n, inp):
+    """World 2: supervised lanes under the JAX contract's deaths, two
+    lanes on shared ranks, the router over tp replicas, and a follower
+    that raises inside a program (last: its lane's tp group is done)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+    from paddle_tpu_torch.serving import failpoints
+    model = tiny_gpt(inp)
+    res = {}
+    for arm, fp in LANE_FAULTS:
+        failpoints.reset()
+        paddle.set_flags({"FLAGS_failpoints": fp,
+                          "FLAGS_gen_restart_backoff_ms": 5.0})
+        g0 = _groups()
+        sup = serving.EngineSupervisor(model, device="cpu", tp=2,
+                                       name=f"lane_{arm}", **LANE_KW)
+        lane, g1 = sup.engine._lane, _groups()
+        out = supervised_scenario(sup) if sup.leads else {}
+        sup.shutdown()
+        out.update(incarnation=sup.incarnation, restarts=sup.restarts,
+                   same_lane=sup.engine._lane is lane,
+                   lane_groups=g1 - g0, rebuild_groups=_groups() - g1)
+        res[arm] = out
+    paddle.set_flags({"FLAGS_failpoints": ""})
+    failpoints.reset()
+    prompts = lane_prompts(seed=5)
+    # one lane, then two lanes on the same two ranks with their requests
+    # interleaved
+    one = serving.GenerationEngine(model, device="cpu", tp=2, name="one",
+                                   **LANE_KW)
+    res["one"] = _serve(one, prompts) if one._lane.leader else None
+    one.shutdown()
+    a = serving.GenerationEngine(model, device="cpu", tp=2, name="laneA",
+                                 **LANE_KW)
+    b = serving.GenerationEngine(model, device="cpu", tp=2, name="laneB",
+                                 **LANE_KW)
+    if a._lane.leader:
+        futs = [(a if i % 2 else b).submit(p, max_new_tokens=5)
+                for i, p in enumerate(prompts + prompts)]
+        res["shared"] = [np.asarray(f.result(timeout=120)).tolist()
+                         for f in futs]
+        res["shared_lanes"] = [a._lane.name, b._lane.name]
+    a.shutdown()
+    b.shutdown()
+    # the router over two tp 2 replicas on ranks 0-1
+    router = serving.Router(model, tp=2, num_replicas=2, name="lrouter",
+                            device="cpu", pressure_ttl_ms=0.0, **LANE_KW)
+    if r == 0:
+        res["router"] = _serve(router, prompts)
+        res["placements"] = {k: v["placements"] for k, v in
+                             router.stats()["router"]["replicas"].items()}
+    else:
+        try:
+            router.submit(prompts[0])
+            res["router_refused"] = None
+        except InvalidArgumentError as e:
+            res["router_refused"] = str(e)
+    router.shutdown()
+    res["fault"] = lane_fault_arm(model, r, supervised=False)
+    res["fault_sup"] = lane_fault_arm(model, r, supervised=True)
+    return {"json": np.asarray(json.dumps(res))}
+
+
+def lane_fault_arm(model, r, supervised):
+    """Rank 1's decode program raises at its first decode step after the
+    warmup's: rank 0 waits in that step's all-reduce until the group's
+    bound, and both ranks end the lane with a LaneFault naming rank 1 (a
+    supervised lane too: it is not rebuilt)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.serving.tp_lane import LaneFault
+    paddle.set_flags({"FLAGS_gen_tp_timeout_s": LANE_TIMEOUT_S})
+    cls = serving.GenerationEngine
+    orig, calls, t_fault = cls._decode_call, [0], []
+
+    def faulty(self, *a, **k):
+        calls[0] += 1
+        if calls[0] == 2:
+            t_fault.append(time.monotonic())
+            raise RuntimeError("injected fault inside the decode program")
+        return orig(self, *a, **k)
+    if r == 1:
+        cls._decode_call = faulty
+    out = {}
+    t0 = time.monotonic()
     try:
-        serving.GenerationEngine(model, device="cpu", tp=n, name="tier",
-                                 prefix_cache=True, kv_tier=True,
-                                 **{**SERVE_KW})
-        res["tier_refused"] = False
-    except InvalidArgumentError as e:
-        res["tier_refused"] = "not yet ported" in str(e)
+        eng = (serving.EngineSupervisor if supervised else cls)(
+            model, device="cpu", tp=2, name=f"lanefault{int(supervised)}",
+            **LANE_KW)
+        t0 = time.monotonic()
+        if r == 0:
+            eng.generate(lane_prompts()[0], max_new_tokens=5)
+        else:
+            eng.shutdown()
+        out["error"] = None
+    except LaneFault as e:
+        out.update(error=type(e).__name__, rank=e.rank, msg=str(e))
+    finally:
+        cls._decode_call = orig
+    out["ended_s"] = time.monotonic() - (t_fault[0] if t_fault else t0)
+    if r == 0:
+        if supervised:
+            out["health"] = eng.health()["reason"]
+        eng.shutdown()
+    return out
+
+
+def job_lanes4(wd, r, n, inp):
+    """World 4: a dp 2 x tp 2 mesh (ranks 0 and 2 lead), then a lane over
+    ranks [2, 3] built while ranks 0 and 1 refuse it and build a lane of
+    their own, then the router over tp replicas on ranks 0-1 while ranks
+    2 and 3 stay idle."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+    from paddle_tpu_torch.parallel import create_mesh, set_mesh, tp_mesh
+    model = tiny_gpt(inp)
+    prompts = lane_prompts(seed=5)
+    res = {"rank": r}
+    mesh = create_mesh({"dp": 2, "tp": 2})
+    eng = serving.GenerationEngine(model, device="cpu", mesh=mesh,
+                                   name="lmesh", **LANE_KW)
+    res["mesh_lane"] = eng._lane.ranks
+    res["mesh"] = _serve(eng, prompts) if eng._lane.leader else None
+    eng.shutdown()
+    set_mesh(None)
+    sub = tp_mesh(2, devices=[2, 3])
+    if r >= 2:
+        eng = serving.GenerationEngine(model, device="cpu", mesh=sub,
+                                       name="lsub", **LANE_KW)
+    else:
+        try:
+            serving.GenerationEngine(model, device="cpu", mesh=sub,
+                                     name="lsub", **LANE_KW)
+            res["outside"] = None
+        except InvalidArgumentError as e:
+            res["outside"] = str(e)
+        # a lane of their own beside it
+        eng = serving.GenerationEngine(model, device="cpu", tp=2,
+                                       name="lown", **LANE_KW)
+    res["sub_lane"] = eng._lane.ranks
+    res["sub"] = _serve(eng, prompts) if eng._lane.leader else None
+    eng.shutdown()
+    if r < 2:
+        router = serving.Router(model, tp=2, num_replicas=2,
+                                name="lrouter4", device="cpu",
+                                pressure_ttl_ms=0.0, **LANE_KW)
+        res["router"] = _serve(router, prompts) if r == 0 else None
+        router.shutdown()
     return {"json": np.asarray(json.dumps(res))}
 
 
@@ -1119,6 +1333,7 @@ JOBS = {"sp": job_sp, "pipeline": job_pipeline, "pipeline4": job_pipeline,
         "train": job_train, "tp_train": job_tp_train,
         "attention": job_attention, "serve2": job_serve,
         "serve4": job_serve, "hybrid": job_hybrid,
+        "lanes2": job_lanes2, "lanes4": job_lanes4,
         "tp_dropout": job_tp_dropout, "zero_global": job_zero_global,
         "pipeline_clip": job_pipeline_clip}
 
