@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases ernie,static  # these after 1-2, no result
     python3 chip_smoke.py --phases dist          # phase 15 alone
     python3 chip_smoke.py --phases ps            # phase 16 alone
+    python3 chip_smoke.py --phases onnx          # phase 10b alone
 
 Phases:
  1. card      name and power limit from nvidia-smi, torch/CUDA versions,
@@ -240,9 +241,40 @@ Phases:
               restart (FLAGS_serving_lane_restarts=1, a runner that dies
               once): only the dying batch's request fails, restarts 1,
               no new warm
+10b. onnx     ONNX export from the port's own trace and the port's C
+              inference API. (a) ErnieForSequenceClassification(
+              ErnieConfig.base(), 2), seed 0, eval, fp32, on the card, in
+              export_ernie's wrapper, exported by onnx.export at [4, 512]
+              (int64 ids and attention_mask, export_ernie's seeded 128-512
+              lengths): the trace holds 12 flash_fwd nodes, the ONNX graph
+              none and no op tests/torch_onnx_eval.py does not know;
+              every state_dict tensor is the initializer of its name bit
+              for bit; the numpy evaluation of the graph equals the
+              card's eager logits within EXPORT_TOL["float32"] x max(1,
+              max |logit|), and that eager forward launches K2 12 times
+              and the plain version 0 times. (b) resnet50(num_classes=
+              1000), eval, export_resnet's seeded running buffers, at 1 x
+              224^2: 53 Conv and 53 BatchNormalization nodes, initializers
+              bit-equal, the evaluation within the same limit of eager.
+              (c) the C API: an nn.TransformerEncoder at ERNIE-base width
+              (12 x TransformerEncoderLayer(768, 12, 3072), seed 0, eval)
+              saved by jit.save with InputSpec([None, 512, 768]) (its
+              program holds K2), before (a); libpd_infer_capi built by
+              g++ from paddle_tpu_torch/csrc (inference.capi.build()), and
+              a C program built by gcc started, which makes its predictor
+              through PD_NewPredictor (card 0) while (a) and (b) run;
+              after them, the in-process create_predictor run of 4 rows
+              launches K2 12 times and the plain version 0 times, and the
+              C program runs the same rows through PD_PredictorRun (1 + 5
+              runs, timed alone): its output within the same
+              limit of the in-process run (bit-equality printed), and
+              PD_NewPredictorWithDevice(prefix, 7) fails with a message
+              while the program goes on. Printed: trace + write ms, file
+              bytes, numpy eval s; the C process's predictor creation,
+              first-run and steady ms a batch
 11. api       the top-level API (`import paddle_tpu_torch as paddle`).
               (a) every name of ops.{creation, manipulation, logic,
-              reduction, search, linalg} run on CUDA tensors (the
+              reduction, search, linalg, legacy} run on CUDA tensors (the
               default device) against the same call on CPU tensors, inputs
               from one numpy seed: exact (tensordot and the float formulae
               linspace / logspace / vander within API_TOL), reductions
@@ -335,15 +367,16 @@ Phases:
               step p50 beside it. (a) also runs W // 3 workers, printed
               and held to the common gates, and prints the feeder
               thread's fetch and stage spans
-14. static    ERNIE-base as a static Program (`static.program_guard`,
-              the recorder's named ops: 12 `sdpa` ops on the flash
-              kernels). (a) phase 8 (b)'s configuration (8 x 512,
+14. static    ERNIE-base cut to STATIC["LAYERS"] (4) encoder layers as a
+              static Program (`static.program_guard`, the recorder's
+              named ops: an `sdpa` op a layer on the flash kernels). (a)
+              phase 8 (b)'s configuration (8 x 512,
               lengths 128-512, dropout 0.1, AdamW(1e-4).minimize, feeds
               input_ids / attention_mask / labels), STATIC["STEPS"]
               Executor.run steps in fp32, then after static.amp.decorate
               in bf16: the loss finite and falling (last 3 under the
-              first 3), K2, K3 and K4 12 times a step each, all in the
-              arm's type, the plain attention 0 times; printed real
+              first 3), K2, K3 and K4 once a layer a step each, all in
+              the arm's type, the plain attention 0 times; printed real
               tokens/s over steps 3 on, the step p50 and the device busy
               share of 3 more profiled steps. (b) at ERNIE_PARITY (dropout
               0, fp32) one Executor.run step against one dygraph
@@ -352,7 +385,7 @@ Phases:
               arm's pruned eval Program through save_inference_model /
               load_inference_model: the loaded Program's logits and
               inference.Predictor's on the .pdmodel equal (a)'s within
-              EXPORT_TOL, 12 flash_fwd nodes in the .pdmodel; (b)'s
+              EXPORT_TOL, a flash_fwd node a layer in the .pdmodel; (b)'s
               Program loaded from its .ptprog trains one step with (b)'s
               update, K3/K4 through the flash_fwd op's autograd. (d)
               dy2static: jit.save of a to_static layer with a tensor
@@ -361,7 +394,10 @@ Phases:
               static MLP (frozen Program card vs CPU),
               save_quantized_model -> Predictor, and the committed legacy
               ProgramDesc encoder (tests/data) through Predictor, card vs
-              CPU
+              CPU. (f) ops.legacy's static pieces: a Program holding a
+              create_parameter and a Print trains 3 SGD steps on the card
+              equal to the same Program on the CPU, Print silent while the
+              Program is built and printing at run time up to first_n
 15. dist    multi-GPU, one process a rank. (a) World size 1 over NCCL in
               this process (distributed.init_parallel_env()): a packed
               LM at GPT-2 small's widths (12 heads at hidden 768,
@@ -672,6 +708,95 @@ SERVE_MLP = dict(DIM=256, HID=1024, SUBMITTERS=64, PER=40, PIPELINE=4,
 ERNIE_SERVE = dict(S=512, REQUESTS=64, SUBMITTERS=16, BUCKETS=(1, 4, 16, 64),
                    LOAD_ROUNDS=10, LOAD_OUTSTANDING=8)
 EXPORT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# phase onnx: ERNIE-base exported at export_ernie's seq 512 with a batch of
+# B, ResNet-50 at RESNET_B x 224^2, the C API's encoder (ERNIE-base width)
+# on CAPI_ROWS rows, CAPI_RUNS steady runs after the first
+ONNX = dict(B=4, RESNET_B=1, CAPI_ROWS=4, CAPI_RUNS=5)
+# phase onnx (c): a C program over the port's C inference API. argv:
+# model_prefix in_file out_file runs go_file ndim dims...; makes its
+# predictors, prints "DEVICE7 ...", waits for go_file, then times 1 +
+# runs runs, prints "CAPI new_ms=... first_ms=... steady_ms=..." and
+# writes the last output (ndim, dims, float32 values) to out_file
+CAPI_DRIVER = r"""
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <time.h>
+#include "pd_c_api.h"
+
+static double now_ms(void) {
+  struct timespec t;
+  clock_gettime(CLOCK_MONOTONIC, &t);
+  return t.tv_sec * 1e3 + t.tv_nsec / 1e6;
+}
+
+int main(int argc, char** argv) {
+  const char* prefix = argv[1];
+  int runs = atoi(argv[4]);
+  int ndim = atoi(argv[6]);
+  int64_t shape[8];
+  int64_t n = 1;
+  for (int i = 0; i < ndim; ++i) {
+    shape[i] = atoll(argv[7 + i]);
+    n *= shape[i];
+  }
+  float* in = (float*)malloc(n * sizeof(float));
+  FILE* f = fopen(argv[2], "rb");
+  if (!f || fread(in, sizeof(float), n, f) != (size_t)n) return 10;
+  fclose(f);
+  double t0 = now_ms();
+  PD_Predictor* p = PD_NewPredictor(prefix);  /* card 0, the default */
+  double new_ms = now_ms() - t0;
+  if (!p) {
+    fprintf(stderr, "PD_NewPredictor: %s\n", PD_GetLastError());
+    return 11;
+  }
+  PD_Predictor* bad = PD_NewPredictorWithDevice(prefix, 7);
+  printf("DEVICE7 %s %s\n", bad ? "ok" : "failed",
+         bad ? "" : PD_GetLastError());
+  fflush(stdout);
+  if (bad) PD_DeletePredictor(bad);
+  /* the timed runs wait until go_file exists (the parent's other work is
+     done), at most 20 minutes */
+  for (int i = 0; i < 60000; ++i) {
+    FILE* g = fopen(argv[5], "r");
+    if (g) {
+      fclose(g);
+      break;
+    }
+    struct timespec nap = {0, 20000000};
+    nanosleep(&nap, NULL);
+  }
+  float* out = NULL;
+  int64_t oshape[8];
+  int ondim = 0;
+  double first_ms = 0, steady_ms = 0;
+  for (int r = 0; r <= runs; ++r) {
+    if (out) PD_FreeBuffer(out);
+    out = NULL;
+    double a = now_ms();
+    if (PD_PredictorRun(p, in, shape, ndim, &out, oshape, &ondim) != 0) {
+      fprintf(stderr, "PD_PredictorRun: %s\n", PD_GetLastError());
+      return 12;
+    }
+    double ms = now_ms() - a;
+    if (r == 0) first_ms = ms; else steady_ms += ms / runs;
+  }
+  printf("CAPI new_ms=%.3f first_ms=%.3f steady_ms=%.3f\n", new_ms,
+         first_ms, steady_ms);
+  int64_t total = 1;
+  for (int i = 0; i < ondim; ++i) total *= oshape[i];
+  f = fopen(argv[3], "wb");
+  fwrite(&ondim, sizeof(int), 1, f);
+  fwrite(oshape, sizeof(int64_t), ondim, f);
+  fwrite(out, sizeof(float), total, f);
+  fclose(f);
+  PD_FreeBuffer(out);
+  PD_DeletePredictor(p);
+  free(in);
+  return 0;
+}
+"""
 # phase 3's inference rows of K2: (b)'s batches at the largest buckets,
 # non-causal, p 0, on ERNIE's key bias
 K2_INFERENCE_BATCHES = (16, 64)
@@ -682,17 +807,20 @@ K2_INFERENCE_BATCHES = (16, 64)
 # phase 13: bench.py's ResNet-50 batch over N host images of SIDE^2 (a);
 # ERNIE_LONG's batches over ERNIE_ROWS rows, the last batch a tail (b)
 INPUT = dict(N=1000, B=32, SIDE=256, ERNIE_ROWS=8 * 12 + 3)
-# phase 14: Executor.run steps of each arm of (a), on ERNIE_LONG's shape
-STATIC = dict(STEPS=12)
+# phase 14: Executor.run steps of each arm of (a), on ERNIE_LONG's shape,
+# and the encoder layers of its ERNIE-base (cut from 12 for the default
+# run's time: the exports of (c) take time in proportion)
+STATIC = dict(STEPS=12, LAYERS=4)
 MOE = dict(E=8, B=8, S=1024, STEPS=8, LR=1e-3, DROPOUT=0.1, FALL=0.25,
            PARITY_SEEDS=(1, 2, 3))
 # phase 11 (a): the limits of a card call against the same call on the
 # CPU, as a share of max(1, max |CPU result|); creation, manipulation,
 # logic and search are exact, but for the float formulae the two
 # libraries evaluate their own way (linspace, logspace, vander) and
-# tensordot, a product
+# tensordot, a product; ops.legacy's floats (pow, the sequence softmax
+# and pools) the same way
 API_TOL = {"reduction": 1e-5, "linalg": 1e-4, "formula": 1e-6,
-           "product": 1e-5}
+           "product": 1e-5, "legacy": 1e-6}
 # phase 12: the attention LSTM seq2seq of PaddleNLP's
 # examples/machine_translation/seq2seq at its IWSLT'15 width (vocabularies
 # 17191 / 7709, 2 layers of 512, batch 128, dropout 0.2, Uniform(-0.1,
@@ -910,8 +1038,9 @@ class Smoke:
         t0 = time.perf_counter()
         try:
             fn()
-            print(f"== phase {name} ok ({time.perf_counter() - t0:.1f} s)",
-                  flush=True)
+            secs = time.perf_counter() - t0
+            self.details.setdefault("phase_s", {})[name] = secs
+            print(f"== phase {name} ok ({secs:.1f} s)", flush=True)
             return True
         except Exception:  # noqa: BLE001 — recorded, the run exits 1
             traceback.print_exc()
@@ -6009,6 +6138,336 @@ class Smoke:
 
     # -- 11. the top-level API, the dense ops and the MoE GPT --------------------
 
+    # -- 10b. onnx: ONNX export and the C inference API ---------------------
+
+    def onnx(self):
+        """ERNIE-base and ResNet-50 exported to ONNX from traces on the
+        card and evaluated in numpy (tests/torch_onnx_eval.py), and the
+        port's C inference API serving a saved encoder on the card (see
+        the module docstring)."""
+        self.gpt = None
+        self.torch.cuda.empty_cache()
+        wd = tempfile.mkdtemp(prefix="chip_smoke_onnx_")
+        proc = None
+        try:
+            # (c)'s C process makes its predictor while (a) and (b) run,
+            # and times its runs after them
+            proc = self.onnx_capi_start(wd)
+            self.onnx_ernie(wd)
+            self.onnx_resnet(wd)
+            self.onnx_capi(wd, proc)
+        finally:
+            if proc is not None and proc["proc"].poll() is None:
+                proc["proc"].kill()
+                proc["proc"].wait()
+            shutil.rmtree(wd, ignore_errors=True)
+
+    def _onnx_export(self, net, specs, path):
+        """(decomposed program, written path, ms): the exporter's trace of
+        `net` on its device, then its ONNX file (`onnx.export` in two
+        steps, so that the trace can be read)."""
+        import importlib
+        oexp = importlib.import_module("paddle_tpu_torch.onnx.export")
+        t0 = time.perf_counter()
+        ep, names = oexp.trace(net, specs)
+        path = oexp.write(ep, names, path)
+        return ep, path, (time.perf_counter() - t0) * 1e3
+
+    def _onnx_model(self, path, state):
+        """The ONNX file loaded by the numpy evaluator, with the gates of
+        its graph: every op one the evaluator knows (no custom op), and
+        every `state` tensor the initializer of its name, bit for bit."""
+        import numpy as np
+        sys.path.insert(0, str(REPO / "tests"))
+        import torch_onnx_eval as ev
+        model = ev.load(path)
+        ops = model.op_types()
+        unknown = sorted({o for o in ops if o not in ev._OPS})
+        assert not unknown, f"ops the evaluator does not know: {unknown}"
+        torch = self.torch
+        differ = []
+        for n, t in state.items():
+            want = t.detach().cpu()
+            want = (want.float() if want.dtype == torch.bfloat16
+                    else want).numpy()
+            got = model.initializers.get(n)
+            if got is None or got.dtype != want.dtype or \
+                    got.shape != want.shape or \
+                    got.tobytes() != want.tobytes():
+                differ.append(n)
+        assert not differ, f"initializers not bit-equal to the card's " \
+            f"state_dict: {differ[:5]} ({len(differ)})"
+        return model, ops
+
+    def _onnx_gate(self, name, got, want):
+        import numpy as np
+        err = float(np.abs(got - want).max())
+        lim = EXPORT_TOL["float32"] * max(1.0, float(np.abs(want).max()))
+        assert got.shape == want.shape and np.isfinite(got).all(), \
+            (name, got.shape, want.shape)
+        assert err <= lim, (name, err, lim)
+        return err, lim
+
+    def onnx_ernie(self, wd):
+        """(a) ErnieForSequenceClassification(ErnieConfig.base(), 2), seed
+        0, eval, fp32, on the card, wrapped as export_ernie wraps it,
+        exported at [ONNX["B"], 512] (int64 ids and attention_mask, the
+        seeded 128-512 lengths of export_ernie). Gates: the trace holds
+        12 flash_fwd nodes, the graph none and no op the evaluator does
+        not know; every state_dict tensor is its initializer bit for bit;
+        the numpy evaluation equals the card's eager logits within
+        EXPORT_TOL["float32"] x max(1, max |logit|); the eager forward (the
+        path "onnx_ernie", counts from 0) launches K2 12 times and the
+        plain version 0 times."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.models import (ErnieConfig,
+                                             ErnieForSequenceClassification)
+        from paddle_tpu_torch.ops import flash_ops as fo
+        from paddle_tpu_torch.static import InputSpec
+        B, S = ONNX["B"], ERNIE_SERVE["S"]
+        cfg = ErnieConfig.base()
+        L = cfg.num_hidden_layers
+
+        class Cls(torch.nn.Module):
+            def __init__(self, net):
+                super().__init__()
+                self.net = net
+
+            def forward(self, ids, mask):
+                return self.net(ids, attention_mask=mask)
+        net = Cls(ErnieForSequenceClassification(cfg, device="cuda",
+                                                 seed=0)).eval()
+        lens = _ernie_lengths(np, B, S, seed=5)
+        rng = np.random.RandomState(5)
+        ids = rng.randint(5, cfg.vocab_size, size=(B, S)).astype(np.int64)
+        mask = (np.arange(S)[None] < lens[:, None]).astype(np.int64)
+        ids[mask == 0] = 0
+        ep, path, export_ms = self._onnx_export(
+            net, [InputSpec([B, S], "int64", "ids"),
+                  InputSpec([B, S], "int64", "mask")],
+            os.path.join(wd, "ernie_base"))
+        flash = sum(1 for n in ep.graph.nodes if n.op == "call_function"
+                    and "flash_fwd" in str(n.target))
+        del ep
+        size = os.path.getsize(path)
+        model, ops = self._onnx_model(path, net.state_dict())
+        t0 = time.perf_counter()
+        got = model.run({"ids": ids, "mask": mask})[0]
+        eval_s = time.perf_counter() - t0
+        plain = [0]
+        ref_fn = fo._flash_fwd_reference
+
+        def counted(*a, **k):
+            plain[0] += 1
+            return ref_fn(*a, **k)
+        # the main path: the eager forward, every launch count from 0
+        self.zero_launches()
+        fo._flash_fwd_reference = counted
+        try:
+            with torch.no_grad():
+                want = net(torch.from_numpy(ids).cuda(),
+                           torch.from_numpy(mask).cuda())
+            torch.cuda.synchronize()
+        finally:
+            fo._flash_fwd_reference = ref_fn
+        launches = self.record_path("onnx_ernie")
+        want = want.float().cpu().numpy()
+        err, lim = self._onnx_gate("onnx_ernie", got, want)
+        print(f"onnx (a) ERNIE-base [{B}, {S}] on {self.smi}: trace + write "
+              f"{export_ms:.1f} ms, {size} bytes, {len(ops)} nodes "
+              f"({ops.count('Softmax')} Softmax, {ops.count('Gemm')} Gemm, "
+              f"{ops.count('MatMul')} MatMul), {flash} flash_fwd in the "
+              f"trace; numpy eval {eval_s:.2f} s; logits max err {err:.3e} "
+              f"(limit {lim:.3e}); eager K2 launches "
+              f"{launches['flash_fwd']}, plain {plain[0]}")
+        self.details["onnx_ernie"] = dict(
+            export_ms=export_ms, bytes=size, nodes=len(ops),
+            flash_nodes=flash, eval_s=eval_s, err=err, limit=lim,
+            k2=launches["flash_fwd"], plain=plain[0])
+        assert flash == L, (flash, L)
+        assert not [o for o in ops if "flash" in o.lower()], ops
+        assert launches["flash_fwd"] == L and plain[0] == 0, (
+            launches, plain[0])
+        del net, model
+        torch.cuda.empty_cache()
+
+    def onnx_resnet(self, wd):
+        """(b) resnet50(num_classes=1000), seed 0, eval, its BatchNorm
+        running buffers from export_resnet's seeded draw, on the card,
+        exported at [ONNX["RESNET_B"], 3, 224, 224]. Gates: 53 Conv and
+        53 BatchNormalization nodes, every state_dict tensor its
+        initializer bit for bit, the numpy evaluation within
+        EXPORT_TOL["float32"] x max(1, max |logit|) of eager on the card
+        (the path "onnx_resnet": no kernel launched)."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import nn
+        from paddle_tpu_torch.static import InputSpec
+        from paddle_tpu_torch.vision.models import resnet50
+        B, side = ONNX["RESNET_B"], RESNET_A["SIDE"]
+        net = resnet50(num_classes=1000, device="cuda", seed=0).eval()
+        g = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            for m in net.modules():
+                if isinstance(m, nn.BatchNorm2D):
+                    m._mean.copy_(torch.randn(m._mean.shape, generator=g)
+                                  * 0.1)
+                    m._variance.copy_(torch.rand(m._variance.shape,
+                                                 generator=g) + 0.5)
+        _, path, export_ms = self._onnx_export(
+            net, [InputSpec([B, 3, side, side], "float32", "img")],
+            os.path.join(wd, "resnet50"))
+        size = os.path.getsize(path)
+        model, ops = self._onnx_model(path, net.state_dict())
+        x = np.random.RandomState(0).standard_normal(
+            (B, 3, side, side)).astype(np.float32)
+        t0 = time.perf_counter()
+        got = model.run({"img": x})[0]
+        eval_s = time.perf_counter() - t0
+        self.zero_launches()
+        with torch.no_grad():
+            want = net(torch.from_numpy(x).cuda())
+        torch.cuda.synchronize()
+        launches = self.record_path("onnx_resnet")
+        want = want.cpu().numpy()
+        err, lim = self._onnx_gate("onnx_resnet", got, want)
+        print(f"onnx (b) ResNet-50 [{B}, 3, {side}, {side}] on {self.smi}: "
+              f"trace + write {export_ms:.1f} ms, {size} bytes, "
+              f"{len(ops)} nodes ({ops.count('Conv')} Conv, "
+              f"{ops.count('BatchNormalization')} BatchNormalization); "
+              f"numpy eval {eval_s:.2f} s; logits max err {err:.3e} "
+              f"(limit {lim:.3e}); launches {launches}")
+        self.details["onnx_resnet"] = dict(
+            export_ms=export_ms, bytes=size, nodes=len(ops), eval_s=eval_s,
+            err=err, limit=lim)
+        assert ops.count("Conv") == 53 and \
+            ops.count("BatchNormalization") == 53, ops
+        assert not any(launches.values()), launches
+        del net, model
+        torch.cuda.empty_cache()
+
+    def onnx_capi_start(self, wd):
+        """(c), its first half: nn.TransformerEncoder at ERNIE-base width
+        (12 layers of TransformerEncoderLayer(768, 12, 3072, dropout 0)),
+        seed 0, eval, on the card, saved by jit.save with
+        InputSpec([None, 512, 768]) (the program holds K2); the port's C
+        library built by g++ (inference.capi.build()), a C program built
+        by gcc and started: it makes its predictor through
+        PD_NewPredictor (card 0) and tries PD_NewPredictorWithDevice(
+        prefix, 7), then waits for the go file. Returns its state."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import jit, nn
+        from paddle_tpu_torch.framework import random as frandom
+        from paddle_tpu_torch.inference import capi
+        from paddle_tpu_torch.static import InputSpec
+        S, H, rows, runs = ERNIE_SERVE["S"], 768, ONNX["CAPI_ROWS"], \
+            ONNX["CAPI_RUNS"]
+        frandom.seed(0)
+        torch.manual_seed(0)
+        layer = nn.TransformerEncoderLayer(H, 12, 3072, dropout=0.0,
+                                           device="cuda")
+        net = nn.TransformerEncoder(layer, 12).eval()
+        st = dict(prefix=os.path.join(wd, "encoder"),
+                  go=os.path.join(wd, "go"),
+                  out_file=os.path.join(wd, "out.bin"))
+        t0 = time.perf_counter()
+        jit.save(net, st["prefix"], input_spec=[InputSpec([None, S, H],
+                                                          "float32")])
+        st["save_s"] = time.perf_counter() - t0
+        del net, layer
+        torch.cuda.empty_cache()
+        st["x"] = np.random.RandomState(1).standard_normal(
+            (rows, S, H)).astype(np.float32)
+        t0 = time.perf_counter()
+        lib = capi.build()
+        st["build_s"] = time.perf_counter() - t0
+        src = os.path.join(wd, "capi_driver.c")
+        with open(src, "w") as f:
+            f.write(CAPI_DRIVER)
+        exe = os.path.join(wd, "capi_driver")
+        t0 = time.perf_counter()
+        subprocess.run(["gcc", "-O2", src, "-o", exe, f"-I{capi.CSRC}",
+                        f"-L{lib.parent}", "-lpd_infer_capi",
+                        f"-Wl,-rpath,{lib.parent}"], check=True)
+        st["link_s"] = time.perf_counter() - t0
+        in_file = os.path.join(wd, "in.bin")
+        st["x"].tofile(in_file)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        st["t0"] = time.perf_counter()
+        st["proc"] = subprocess.Popen(
+            [exe, st["prefix"], in_file, st["out_file"], str(runs),
+             st["go"], "3", *map(str, st["x"].shape)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        return st
+
+    def onnx_capi(self, wd, st):
+        """(c), its second half: the in-process create_predictor run of
+        the same rows is the path "onnx_capi" (K2 12 times, the plain
+        version 0 times); then the go file, and the C program's ONNX[
+        "CAPI_RUNS"] + 1 runs: its output equals the in-process run
+        within EXPORT_TOL["float32"] x max(1, max |ref|) (bit-equality
+        printed), and its PD_NewPredictorWithDevice(prefix, 7) failed
+        with a message while it went on. Printed: save, build and link
+        s, the C process's predictor creation (made while (a) and (b)
+        ran), first-run and steady ms a batch."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import inference
+        from paddle_tpu_torch.ops import flash_ops as fo
+        rows, S = st["x"].shape[:2]
+        plain = [0]
+        ref_fn = fo._flash_fwd_reference
+
+        def counted(*a, **k):
+            plain[0] += 1
+            return ref_fn(*a, **k)
+        self.zero_launches()
+        fo._flash_fwd_reference = counted
+        try:
+            pred = inference.create_predictor(inference.Config(st["prefix"]))
+            ref = pred.run([st["x"]])[0]
+        finally:
+            fo._flash_fwd_reference = ref_fn
+        launches = self.record_path("onnx_capi")
+        del pred
+        torch.cuda.empty_cache()
+        open(st["go"], "w").close()
+        out, err_text = st["proc"].communicate(timeout=600)
+        proc_s = time.perf_counter() - st["t0"]
+        print(out, end="")
+        assert st["proc"].returncode == 0, (st["proc"].returncode,
+                                            err_text[-3000:])
+        timing = dict(kv.split("=") for line in out.splitlines()
+                      if line.startswith("CAPI ") for kv in line.split()[1:])
+        with open(st["out_file"], "rb") as f:
+            ondim = int(np.fromfile(f, dtype=np.int32, count=1)[0])
+            oshape = np.fromfile(f, dtype=np.int64, count=ondim)
+            got = np.fromfile(f, dtype=np.float32).reshape(oshape)
+        err, lim = self._onnx_gate("onnx_capi", got, ref)
+        bit_equal = bool(np.array_equal(got, ref))
+        device7 = [ln for ln in out.splitlines() if ln.startswith("DEVICE7 ")]
+        print(f"onnx (c) C API, TransformerEncoder 12 x 768 at [{rows}, "
+              f"{S}, 768] on {self.smi}: jit.save {st['save_s']:.1f} s, "
+              f"library build {st['build_s']:.1f} s, driver link "
+              f"{st['link_s']:.2f} s, the C process {proc_s:.1f} s "
+              f"(PD_NewPredictor {timing.get('new_ms')} ms, first run "
+              f"{timing.get('first_ms')} ms, steady "
+              f"{timing.get('steady_ms')} ms a batch of {rows}); output "
+              f"max err {err:.3e} (limit {lim:.3e}), bit-equal "
+              f"{bit_equal}; in-process K2 launches "
+              f"{launches['flash_fwd']}, plain {plain[0]}; {device7}")
+        self.details["onnx_capi"] = dict(
+            save_s=st["save_s"], build_s=st["build_s"], link_s=st["link_s"],
+            proc_s=proc_s, err=err, limit=lim, bit_equal=bit_equal,
+            k2=launches["flash_fwd"], plain=plain[0],
+            **{k: float(v) for k, v in timing.items()})
+        assert launches["flash_fwd"] == 12 and plain[0] == 0, (
+            launches, plain[0])
+        assert len(device7) == 1 and device7[0].startswith(
+            "DEVICE7 failed UnavailableError:"), device7
+
     def api(self):
         """(a) every dense op family of the top-level API on the card
         against the same call on the CPU; (b) the 8-expert MoE GPT at
@@ -6038,7 +6497,8 @@ class Smoke:
         for fam, table in cases.items():
             mod = getattr(paddle.ops, fam)
             names = {n.split("#")[0] for n in table}
-            missing = sorted(set(mod.__all__) - names)
+            own = set(mod.__all__) - _API_NOT_OWN.get(fam, set())
+            missing = sorted(own - names)
             misses, worst = [], 0.0
             for name, fn in table.items():
                 try:
@@ -6052,7 +6512,7 @@ class Smoke:
                                 held=held, misses=misses + missing,
                                 worst=worst)
             print(f"api (a) {fam} on {self.smi}: {len(names)} names of "
-                  f"{len(set(mod.__all__))} (without a case: {missing}), "
+                  f"{len(own)} (without a case: {missing}), "
                   f"{len(table)} cases, held {held}, worst err/limit "
                   f"{worst:.3e}, misses {misses}")
         self.details["api_ops"] = results
@@ -7002,8 +7462,9 @@ class Smoke:
     def static(self):
         """ERNIE-base as a static Program: trained through Executor.run in
         fp32 and after static.amp.decorate in bf16 (a), its step against
-        the dygraph step (b), exported and reloaded (c), dy2static (d)
-        and the Program passes (e); see the module docstring."""
+        the dygraph step (b), exported and reloaded (c), dy2static (d),
+        the Program passes (e) and ops.legacy's static pieces (f); see the
+        module docstring."""
         self.gpt = None
         self.torch.cuda.empty_cache()
         # the phase's artifacts (≈ 3 GB of .pdmodel / .ptprog files)
@@ -7017,8 +7478,82 @@ class Smoke:
             self.torch.cuda.empty_cache()
             self.static_dy2static()
             self.static_passes()
+            self.static_legacy()
         finally:
             shutil.rmtree(self.static_dir, ignore_errors=True)
+
+    def static_legacy(self):
+        """(f) ops.legacy's static-mode pieces: a Program with a
+        create_parameter (Assign initializer, [32, 8]) through Print and
+        a squared error, SGD(0.1).minimize, trained 3 Executor.run steps
+        on the card and, the same Program, on the CPU. Gates: Print is
+        silent while the Program is built and is one recorded op that
+        prints at run time up to first_n (2 of 3 runs); the parameter
+        lives on the card; the losses equal the CPU's to rtol 1e-5 and
+        fall, the trained weight within 1e-5 x max(1, max |w|)."""
+        import contextlib
+        import io
+
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch import static
+        rng = np.random.RandomState(0)
+        xs = rng.standard_normal((64, 32)).astype(np.float32)
+        ts = rng.standard_normal((64, 8)).astype(np.float32)
+        w0 = (rng.standard_normal((32, 8)) * 0.1).astype(np.float32)
+        out = {}
+        for dev in ("gpu", "cpu"):
+            paddle.set_device(dev)
+            paddle.enable_static()
+            try:
+                main, startup = static.Program(), static.Program()
+                build = io.StringIO()
+                with static.program_guard(main, startup), \
+                        contextlib.redirect_stdout(build):
+                    x = static.data("x", [64, 32], "float32")
+                    t = static.data("t", [64, 8], "float32")
+                    w = paddle.create_parameter(
+                        [32, 8], "float32",
+                        default_initializer=paddle.nn.initializer.Assign(w0))
+                    y = paddle.Print(paddle.matmul(x, w), message="y",
+                                     first_n=2, summarize=4)
+                    loss = paddle.mean((y - t) ** 2)
+                    paddle.optimizer.SGD(learning_rate=0.1).minimize(loss)
+                exe = static.Executor(None if dev == "gpu"
+                                      else paddle.CPUPlace())
+                exe.run(startup)
+                ran = io.StringIO()
+                with contextlib.redirect_stdout(ran):
+                    losses = [float(exe.run(main, feed={"x": xs, "t": ts},
+                                            fetch_list=[loss])[0])
+                              for _ in range(3)]
+                (name,) = main.param_vars
+                wv = static.global_scope()[name]
+                out[dev] = dict(build=build.getvalue(),
+                                run=ran.getvalue().splitlines(),
+                                losses=losses, device=wv.device.type,
+                                w=wv.detach().cpu().numpy(),
+                                ops=[op.name for op in main.ops])
+            finally:
+                paddle.disable_static()
+                paddle.set_device("gpu")
+        g, c = out["gpu"], out["cpu"]
+        werr = float(np.abs(g["w"] - c["w"]).max())
+        wlim = 1e-5 * max(1.0, float(np.abs(c["w"]).max()))
+        print(f"static (f) legacy on {self.smi}: ops {g['ops']}, printed "
+              f"while built {g['build']!r}, at run {len(g['run'])} lines "
+              f"({g['run'][:1]}), losses card {g['losses']} cpu "
+              f"{c['losses']}, weight max err {werr:.3e} (limit "
+              f"{wlim:.3e}), parameter on {g['device']}")
+        self.details["static_legacy"] = dict(
+            losses=g["losses"], cpu_losses=c["losses"], w_err=werr)
+        assert g["build"] == "" and c["build"] == "", (g["build"],
+                                                       c["build"])
+        assert g["ops"].count("print") == 1 and len(g["run"]) == 2, g
+        assert g["device"] == "cuda", g["device"]
+        np.testing.assert_allclose(g["losses"], c["losses"], rtol=1e-5)
+        assert werr <= wlim, (werr, wlim)
+        assert g["losses"][2] < g["losses"][0], g["losses"]
 
     def _static_tmp(self, prefix):
         return tempfile.mkdtemp(prefix=prefix,
@@ -7038,7 +7573,8 @@ class Smoke:
         STATIC["STEPS"] Executor.run steps in fp32 ("static") or after
         static.amp.decorate in bf16 ("static_amp"). Gates: the loss is
         finite and falls (the mean of the last 3 steps below the mean of
-        the first 3); K2, K3 and K4 launch 12 times a step, all in the
+        the first 3); K2, K3 and K4 launch once a layer a step
+        (STATIC["LAYERS"]: ERNIE-base cut to 4 layers), all in the
         arm's type; the plain attention 0 times. Printed: real tokens/s
         over steps 3 on, the step p50 on the device timeline, the device
         busy share of 3 more profiled steps. Returns the eval Program
@@ -7057,6 +7593,7 @@ class Smoke:
         steps = STATIC["STEPS"]
         path = "static" if dtype == "float32" else "static_amp"
         cfg = ErnieConfig.base()
+        cfg.num_hidden_layers = STATIC["LAYERS"]
         frandom.seed(1)
         net = ErnieForSequenceClassification(cfg, device="cuda", seed=0)
         lens = _ernie_lengths(np, B * steps, S, seed=1)
@@ -7203,7 +7740,8 @@ class Smoke:
                                              ErnieForSequenceClassification)
         B, S = ERNIE_PARITY["B"], ERNIE_PARITY["S"]
         cfg = ErnieConfig(hidden_dropout_prob=0.0,
-                          attention_probs_dropout_prob=0.0)
+                          attention_probs_dropout_prob=0.0,
+                          num_hidden_layers=STATIC["LAYERS"])
         net = ErnieForSequenceClassification(cfg, device="cuda", seed=0)
         rng = np.random.RandomState(2)
         ids = rng.randint(5, cfg.vocab_size, size=(B, S)).astype(np.int64)
@@ -7273,10 +7811,10 @@ class Smoke:
         loaded Program's Executor logits and inference.Predictor's on the
         `.pdmodel` both equal (a)'s eval logits within EXPORT_TOL x
         max(1, max |logit|) (fp32 1e-4, bf16 2e-2, phase 10 (b)); the
-        `.pdmodel` holds 12 flash_fwd nodes. Then (b)'s Program loaded
+        `.pdmodel` holds a flash_fwd node a layer. Then (b)'s Program loaded
         from its `.ptprog` trains one Executor.run step from the same
         weights: the loss to rtol 1e-5 and every update within phase 6's
-        fp32 limits of the built Program's; K2, K3 and K4 launch 12 times
+        fp32 limits of the built Program's; K2, K3 and K4 launch once a layer
         each in that step, K3 and K4 through the flash_fwd op's autograd
         registration."""
         torch = self.torch
@@ -7327,7 +7865,7 @@ class Smoke:
                 save_s=save_s, err_program=e_prog, err_predictor=e_pred,
                 tol=tol, flash_fwd_nodes=nodes, ops=len(prog.ops))
             assert e_prog <= tol and e_pred <= tol, (e_prog, e_pred, tol)
-            assert nodes == 12, nodes
+            assert nodes == STATIC["LAYERS"], nodes
             del prog, pred
         # the loaded training Program's step against the built one's
         t0 = time.perf_counter()
@@ -7358,7 +7896,7 @@ class Smoke:
         assert abs(float(ll) - ptprog["loss"]) <= 1e-5 * abs(ptprog["loss"])
         assert worst[0] <= 1.0, f"loaded step update {worst[1]} differs"
         for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-            assert launches[k] == 12, (k, launches[k])
+            assert launches[k] == STATIC["LAYERS"], (k, launches[k])
         del prog, params, scope
         torch.cuda.empty_cache()
 
@@ -11219,7 +11757,8 @@ def _moe_config(dropout):
 def _api_tols():
     """{(family, case): limit} of the phase 11 (a) cases that are not
     exact."""
-    fam = {"reduction": API_TOL["reduction"], "linalg": API_TOL["linalg"]}
+    fam = {"reduction": API_TOL["reduction"], "linalg": API_TOL["linalg"],
+           "legacy": API_TOL["legacy"]}
     one = {("creation", n): API_TOL["formula"]
            for n in ("linspace", "logspace", "vander", "arange#float")}
     one.update({("manipulation", n): API_TOL["product"]
@@ -11480,7 +12019,172 @@ def _api_cases():
     }
     return {"creation": creation, "manipulation": manipulation,
             "logic": logic, "reduction": reduction, "search": search,
-            "linalg": linalg}
+            "linalg": linalg, "legacy": _api_legacy_cases()}
+
+
+def _api_legacy_cases():
+    """Phase 11 (a)'s ops.legacy family: {case: fn(P, d)} over every name
+    of `legacy.__all__` but the ones it re-exports from elsewhere
+    (_API_NOT_OWN). A LoD result also returns its offsets as a tensor;
+    a Python value comes back through P.to_tensor; Print's printed line
+    comes back as its bytes."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    def seq(P, d, key="TALL", offs=(0, 2, 2, 6)):
+        return P.legacy.LoDTensor(d[key], [list(offs)])
+
+    def with_lod(P, t):
+        return [t, P.to_tensor(np.asarray(t.lod()[0], np.int32))]
+
+    def arr(P, d):
+        return P.legacy.array_write(
+            d["Y"], 2, P.legacy.create_array("float32", [d["X"]]))
+
+    def rows(P, d):
+        return P.framework.selected_rows.SelectedRows(
+            np.array([3, 1, 3]), d["X"], 6)
+
+    def printed(P, d):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = P.legacy.Print(d["X"], message="x", summarize=-1)
+        return [out, P.to_tensor(np.frombuffer(buf.getvalue().encode(),
+                                               np.uint8).copy())]
+
+    def precision(P, d):
+        before = torch._tensor_str.PRINT_OPTS.precision
+        P.legacy.set_printoptions(precision=3)
+        now = torch._tensor_str.PRINT_OPTS.precision
+        torch.set_printoptions(precision=before)
+        return P.to_tensor(np.asarray(now, np.int32))
+
+    def hashed(name):
+        def fn(P, d):
+            ids = P.legacy.LoDTensor(d["I2"].reshape(-1, 1), [[0, 5, 12]])
+            return with_lod(P, getattr(P.legacy, name)(
+                ids, num_emb=16, space_len=40, pyramid_layer=3, rand_len=8,
+                weights=d["HIST"]))
+        return fn
+
+    cases = {
+        "elementwise_add": lambda P, d: P.legacy.elementwise_add(
+            d["X"], d["Y"]),
+        "elementwise_add#axis": lambda P, d: P.legacy.elementwise_add(
+            d["X3"], d["X"], axis=1),
+        "elementwise_sub": lambda P, d: P.legacy.elementwise_sub(
+            d["X"], d["Y"]),
+        "elementwise_mul#act": lambda P, d: P.legacy.elementwise_mul(
+            d["X"], d["Y"], act="relu"),
+        "elementwise_div": lambda P, d: P.legacy.elementwise_div(
+            d["X"], d["AWAY"]),
+        "elementwise_floordiv": lambda P, d: P.legacy.elementwise_floordiv(
+            d["X"], d["AWAY"]),
+        "elementwise_floordiv#int": lambda P, d:
+            P.legacy.elementwise_floordiv(d["I"], d["I2"]),
+        "elementwise_mod": lambda P, d: P.legacy.elementwise_mod(
+            d["X"], d["AWAY"]),
+        "elementwise_pow": lambda P, d: P.legacy.elementwise_pow(
+            d["POS"], d["Y"]),
+        "elementwise_max": lambda P, d: P.legacy.elementwise_max(
+            d["X"], d["Y"]),
+        "elementwise_min": lambda P, d: P.legacy.elementwise_min(
+            d["X"], d["Y"], axis=0),
+        "add_n": lambda P, d: P.legacy.add_n([d["X"], d["Y"], d["U"]]),
+        "broadcast_shape": lambda P, d: P.to_tensor(
+            P.legacy.broadcast_shape([2, 1, 3], [4, 3])),
+        "crop_tensor": lambda P, d: P.legacy.crop_tensor(
+            d["X3"], [1, 2, -1], [1, 0, 0]),
+        "fill_constant": lambda P, d: P.legacy.fill_constant(
+            [2, 3], "float32", 1.5),
+        "has_inf": lambda P, d: [P.legacy.has_inf(d["X"]),
+                                 P.legacy.has_inf(d["X"] / 0.0)],
+        "has_nan": lambda P, d: P.legacy.has_nan(d["NANS"]),
+        "rank": lambda P, d: P.legacy.rank(d["X3"]),
+        "shape": lambda P, d: P.legacy.shape(d["X3"]),
+        "reverse": lambda P, d: P.legacy.reverse(d["X3"], [0, 2]),
+        "scatter_nd": lambda P, d: P.legacy.scatter_nd(d["IDX2"], d["X"],
+                                                       [5, 4]),
+        "get_tensor_from_selected_rows": lambda P, d:
+            P.legacy.get_tensor_from_selected_rows(rows(P, d)),
+        "merge_selected_rows": lambda P, d: [
+            (lambda m: [m.rows, m.value])(P.legacy.merge_selected_rows(
+                rows(P, d)))],
+        "create_array": lambda P, d: P.legacy.create_array(
+            "float32", [d["X"]])[0],
+        "array_write": lambda P, d: [arr(P, d)[0], arr(P, d)[2]],
+        "array_read": lambda P, d: P.legacy.array_read(arr(P, d), 2),
+        "array_length": lambda P, d: P.legacy.array_length(arr(P, d)),
+        "tensor_array_to_tensor": lambda P, d:
+            P.legacy.tensor_array_to_tensor([d["X3"], d["X3"]], axis=1),
+        "LoDTensorArray": lambda P, d: P.to_tensor(np.asarray(isinstance(
+            P.legacy.create_array(), P.legacy.LoDTensorArray))),
+        "LoDTensor": lambda P, d: with_lod(P, seq(P, d)),
+        "sequence_pad": lambda P, d: P.legacy.sequence_pad(
+            seq(P, d), pad_value=-1.0),
+        "sequence_unpad": lambda P, d: with_lod(P, P.legacy.sequence_unpad(
+            d["X3"], P.to_tensor(np.array([2, 3], np.int32)))),
+        "sequence_softmax": lambda P, d: with_lod(
+            P, P.legacy.sequence_softmax(P.legacy.LoDTensor(
+                d["TALL"][:, :1], [[0, 2, 2, 6]]))),
+        "sequence_reverse": lambda P, d: with_lod(
+            P, P.legacy.sequence_reverse(seq(P, d))),
+        "sequence_concat": lambda P, d: with_lod(
+            P, P.legacy.sequence_concat([seq(P, d),
+                                         seq(P, d, offs=(0, 1, 3, 6))])),
+        "sequence_expand": lambda P, d: with_lod(
+            P, P.legacy.sequence_expand(seq(P, d, "V3", (0, 1, 3, 5)),
+                                        seq(P, d))),
+        "sequence_reshape": lambda P, d: with_lod(
+            P, P.legacy.sequence_reshape(seq(P, d, offs=(0, 2, 6)), 2)),
+        "sequence_slice": lambda P, d: with_lod(
+            P, P.legacy.sequence_slice(
+                seq(P, d), P.to_tensor(np.array([0, 0, 1], np.int32)),
+                P.to_tensor(np.array([2, 0, 3], np.int32)))),
+        "sequence_scatter": lambda P, d: P.legacy.sequence_scatter(
+            d["X"], P.legacy.LoDTensor(
+                P.to_tensor(np.array([[0], [2], [2], [3], [1]], np.int32)),
+                [[0, 3, 3, 5]]),
+            P.legacy.LoDTensor(d["V3"][:, :1], [[0, 3, 3, 5]])),
+        "lod_reset": lambda P, d: with_lod(P, P.legacy.lod_reset(
+            d["TALL"], target_lod=[0, 3, 6])),
+        "lod_reset#y": lambda P, d: with_lod(P, P.legacy.lod_reset(
+            d["TALL"], seq(P, d))),
+        "create_parameter": lambda P, d: P.legacy.create_parameter(
+            [3, 4], "float32",
+            default_initializer=P.nn.initializer.Assign(d["np"]["X"]))
+        * 1.0,
+        "create_parameter#bias": lambda P, d: P.legacy.create_parameter(
+            [4], "float32", is_bias=True) * 1.0,
+        "create_global_var": lambda P, d: P.legacy.create_global_var(
+            [2, 3], 0.5, "float32", persistable=True),
+        "set_printoptions": precision,
+        "Print": printed,
+        "search_pyramid_hash": hashed("search_pyramid_hash"),
+        "pyramid_hash": hashed("pyramid_hash"),
+    }
+    for p in ("sum", "average", "sqrt", "max", "min", "last", "first"):
+        cases[f"sequence_pool#{p}"] = (
+            lambda P, d, p=p: P.legacy.sequence_pool(seq(P, d),
+                                                     pool_type=p))
+    for r in ("sum", "mean", "max", "min", "prod"):
+        cases[f"reduce_{r}"] = (
+            lambda P, d, r=r: getattr(P.legacy, f"reduce_{r}")(
+                d["X"], dim=1, keep_dim=True))
+    for r in ("all", "any"):
+        cases[f"reduce_{r}"] = (
+            lambda P, d, r=r: getattr(P.legacy, f"reduce_{r}")(d["B"],
+                                                               dim=0))
+    return cases
+
+
+# the names of legacy.__all__ that other families or phases hold: the
+# dtype defaults (phase 11's top level) and extra_ops' (phase 12)
+_API_NOT_OWN = {"legacy": {"get_default_dtype", "set_default_dtype",
+                           "affine_grid", "gather_tree"}}
 
 
 def _api_random_cases(d):
@@ -12095,8 +12799,8 @@ def _device_table(torch, prof, steps, wall_ms):
 
 # the phases after card and build, in the order they run
 PHASES = ("kernels", "model", "serving", "features", "quant", "tier", "fleet",
-          "profile", "train", "packing", "ernie", "vision", "export", "api",
-          "seq2seq", "input", "static", "dist", "ps")
+          "profile", "train", "packing", "ernie", "vision", "export", "onnx",
+          "api", "seq2seq", "input", "static", "dist", "ps")
 
 
 def main(argv=None):

@@ -105,7 +105,14 @@ Ported so far:
   DGC), `make_sharded_train_step(sp_axis=, dgc=)`, GPT's `use_ring` and
   `pipeline_sections()`, `distributed.fleet` (strategy, role makers,
   utils, metrics, `fleet`, the elastic heartbeat), `launch --elastic`
-  and `Model.fit` through fleet.
+  and `Model.fit` through fleet;
+- export and inference, the rest: `onnx.export` (ONNX-13 from the
+  layer's decomposed `torch.export` program, K2's op lowered to what its
+  plain version computes), the C inference API (`csrc/pd_c_api.h`,
+  `inference.capi.build()`), and the fluid-era names of `ops.legacy`
+  (`legacy` here: `elementwise_*`, `reduce_*`, tensor arrays, LoD
+  `sequence_*` ops, `Print`, `create_parameter` / `create_global_var`
+  as Program parameters and globals, `search_pyramid_hash`).
 """
 from . import amp, framework, hapi, io, metric, models, nn, ops  # noqa: F401
 from . import optimizer, profiler, quantization  # noqa: F401
@@ -114,6 +121,7 @@ from . import inference, jit  # noqa: F401,E402
 from . import autograd, device  # noqa: F401,E402
 from . import text, utils  # noqa: F401,E402
 from . import distributed, parallel  # noqa: F401,E402
+from . import onnx  # noqa: F401,E402
 from .distributed import DataParallel  # noqa: F401,E402
 from .hapi import callbacks  # noqa: F401,E402
 from .hapi.model_summary import flops, summary  # noqa: F401,E402

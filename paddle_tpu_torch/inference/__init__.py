@@ -38,14 +38,14 @@ import torch
 
 from .. import jit
 from ..framework import monitor
-from ..framework.errors import UnimplementedError
+from ..framework.errors import UnavailableError, UnimplementedError
 from ..framework.place import resolve_device
 
 __all__ = ["Config", "create_predictor", "Predictor", "PredictorTensor",
            "AnalysisConfig", "format_input_sig", "check_fed_input",
            "as_device", "resolve_devices", "Analyzer", "Argument",
            "compile_subgraph_engine", "pd_format", "pd_import",
-           "analysis"]
+           "analysis", "capi"]
 
 
 def _note_quant_bytes(delta: int) -> None:
@@ -107,9 +107,17 @@ class Config:
 
     def device(self) -> torch.device:
         """The device the options name: CUDA card `device_id`, or the CPU
-        after `disable_gpu()`. Raises where there is no card."""
-        return resolve_device(f"cuda:{self._device_id}" if self._use_accel
-                              else "cpu")
+        after `disable_gpu()`. Raises UnavailableError where there is no
+        card, or no card of that id."""
+        if not self._use_accel:
+            return resolve_device("cpu")
+        dev = resolve_device(f"cuda:{self._device_id}")
+        n = torch.cuda.device_count()
+        if not 0 <= self._device_id < n:
+            raise UnavailableError(
+                f"Config.enable_use_gpu(device_id={self._device_id}): this "
+                f"machine has {n} CUDA device(s)")
+        return dev
 
     def set_cpu_math_library_num_threads(self, n):
         self._threads = n
@@ -466,5 +474,5 @@ def create_predictor(config: Config, device=None) -> Predictor:
     return Predictor(config, device=device)
 
 
-from . import analysis, pd_format, pd_import  # noqa: E402,F401
+from . import analysis, capi, pd_format, pd_import  # noqa: E402,F401
 from .analysis import Analyzer, Argument, compile_subgraph_engine  # noqa

@@ -4,7 +4,9 @@ build nothing at import: each CUDA kernel is compiled from
 (`creation`, `manipulation`, `logic`, `reduction`, `search`,
 `random_ops`, `linalg`, `math`) are plain PyTorch, re-exported here and
 at the package's top level (`paddle_tpu_torch.concat`, ...);
-`tensor_methods` maps the reference's Tensor methods onto torch's."""
+`tensor_methods` maps the reference's Tensor methods onto torch's;
+`legacy` holds the fluid-era names (re-exported last, so its axis-aware
+`elementwise_*` are the top-level ones, as in the JAX package)."""
 from . import flash_ops, paged_ops, splash_ops  # noqa: F401
 from . import (creation, linalg, logic, manipulation, math,  # noqa: F401
                random_ops, reduction, search)
@@ -16,4 +18,6 @@ from .math import *  # noqa: F401,F403
 from .random_ops import *  # noqa: F401,F403
 from .reduction import *  # noqa: F401,F403
 from .search import *  # noqa: F401,F403
+from . import legacy  # noqa: F401,E402
+from .legacy import *  # noqa: F401,F403,E402  (last: axis-aware elementwise_*)
 from . import tensor_methods  # noqa: F401,E402

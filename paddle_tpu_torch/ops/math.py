@@ -133,20 +133,42 @@ def pow(x, y, name=None):
 __all__.append("pow")
 
 
-def elementwise_add(x, y, axis=-1, name=None):
-    return add(x, y)  # noqa: F821 — generated above
+def _fluid_axis(x, y, axis):
+    """fluid's elementwise broadcast: a `y` of lower rank lines up with
+    `x`'s dims from `axis` (-1: numpy's trailing alignment)."""
+    if axis != -1 and torch.is_tensor(x) and torch.is_tensor(y) \
+            and y.dim() < x.dim():
+        shape = [1] * x.dim()
+        shape[axis:axis + y.dim()] = y.shape
+        y = y.reshape(shape)
+    return x, y
 
 
-def elementwise_mul(x, y, axis=-1, name=None):
-    return multiply(x, y)  # noqa: F821
+def _fluid_act(out, act):
+    if act is None:
+        return out
+    from ..nn import functional as F
+    return getattr(F, act)(out)
 
 
-def elementwise_sub(x, y, axis=-1, name=None):
-    return subtract(x, y)  # noqa: F821
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    """fluid's elementwise_add (`ops.legacy` and the top level re-export
+    it): `axis` and `act` as the JAX package's `legacy` takes them."""
+    return _fluid_act(add(*_fluid_axis(x, y, axis)), act)  # noqa: F821
 
 
-def elementwise_div(x, y, axis=-1, name=None):
-    return divide(x, y)  # noqa: F821
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _fluid_act(multiply(*_fluid_axis(x, y, axis)),  # noqa: F821
+                      act)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _fluid_act(subtract(*_fluid_axis(x, y, axis)),  # noqa: F821
+                      act)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _fluid_act(divide(*_fluid_axis(x, y, axis)), act)  # noqa: F821
 
 
 __all__ += ["elementwise_add", "elementwise_mul", "elementwise_sub",

@@ -30,33 +30,20 @@ from paddle_tpu_torch.ops import tensor_methods as tmeth
 from torch_ops_parity import (compare, jx, on_the_cpu,  # noqa: F401
                               r, ri, tx)
 
-# the reference's public top-level names with no counterpart yet:
-# ops/legacy.py and the rest of ops/extra_ops.py (ROADMAP A8; its
-# affine_grid and gather_tree are ported), static mode and the
-# dygraph mode names (A5/A8), DataParallel and distributed / parallel
-# (A6), onnx / incubate (A5/A8),
-# the JAX package's own Tensor / Parameter classes (the port's tensors
-# are torch.Tensor; A3 for Parameter)
+# the reference's public top-level names with no counterpart yet: the
+# rest of ops/extra_ops.py (ROADMAP A3: the detection slice; its
+# affine_grid and gather_tree are ported), incubate (A3), the mode
+# patches, and the JAX package's own Tensor / Parameter / VarBase classes
+# (the port's tensors are torch.Tensor)
 STILL_MISSING = sorted("""
-LoDTensor LoDTensorArray Parameter Print Tensor VarBase
-add_n affine_channel annotations array_length array_read array_write
-batch_fc bilateral_slice bpr_loss broadcast_shape center_loss conv_shift
-correlation create_array create_global_var create_parameter crop_tensor
-cross_entropy2 cvm data_norm deformable_conv
-elementwise_floordiv elementwise_max elementwise_min elementwise_mod
-elementwise_pow fill_constant filter_by_instag fsp
-get_tensor_from_selected_rows has_inf has_nan hinge_loss im2sequence
-incubate l1_norm legacy linear_chain_crf lod_reset merge_selected_rows
-monkey_patch_math_varbase monkey_patch_variable nce onnx
-pad_constant_like partial_concat partial_sum prroi_pool
-psroi_pool pyramid_hash rank rank_attention rank_loss reduce_all
-reduce_any reduce_max reduce_mean reduce_min reduce_prod reduce_sum
-reverse row_conv sample_logits scatter_nd search_pyramid_hash
-sequence_concat sequence_expand sequence_pad sequence_pool
-sequence_reshape sequence_reverse sequence_scatter sequence_slice
-sequence_softmax sequence_unpad set_printoptions shape shuffle_batch
-space_to_depth squared_l2_norm temporal_shift tensor_array_to_tensor
-tree_conv var_conv_2d
+Parameter Tensor VarBase
+affine_channel annotations batch_fc bilateral_slice bpr_loss center_loss
+conv_shift correlation cross_entropy2 cvm data_norm deformable_conv
+filter_by_instag fsp hinge_loss im2sequence incubate l1_norm
+linear_chain_crf monkey_patch_math_varbase monkey_patch_variable nce
+pad_constant_like partial_concat partial_sum prroi_pool psroi_pool
+rank_attention rank_loss row_conv sample_logits shuffle_batch
+space_to_depth squared_l2_norm temporal_shift tree_conv var_conv_2d
 """.split())
 
 
@@ -74,8 +61,8 @@ NN_STILL_MISSING = {
     # the port does not wrap torch.Tensor: a parameter is a
     # torch.nn.Parameter, made by nn.Layer.create_parameter (ROADMAP A)
     "nn": ["Parameter"],
-    # the reference's shifts run in the wrong directions (ADVICE.md);
-    # ROADMAP A8 ports it from its fixed form
+    # the reference's temporal_shift is already the fixed form (ROADMAP
+    # A3); it comes with the rest of ops/extra_ops.py, the next slice
     "nn.functional": ["temporal_shift"],
     "nn.utils": [],
     "optimizer": [],
