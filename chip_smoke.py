@@ -203,6 +203,27 @@ Phases:
               step profiled: device and wall ms, busy share, kernels, the
               conv, BatchNorm, elementwise and layout-transpose shares (the
               transposes named), the share of the bf16 dense peak
+ 9b. detect   YOLOv3 at DarkNet width in PaddleDetection's
+              yolov3_darknet53_270e_coco settings (DETECT): (a)
+              yolov3(num_classes=80, width=64), seed 0, 10 Momentum steps
+              (0.9, lr 0.001, L2 5e-4) on one seeded batch of 8 x 3 x 608
+              x 608 with 1-20 gt boxes an image in 50 slots, ignore_thresh
+              0.7: every loss finite, the mean of the last 3 under the
+              first 3, K1-K7 launched 0 times; ms a step (CUDA events),
+              images/s, peak allocated; --profile adds a device table.
+              (b) predict (yolo_box, three scales) and multiclass_nms
+              (score 0.01, nms_top_k 1000, keep_top_k 100, nms 0.45,
+              background -1) in eval mode on 2 of those images, with the
+              weights as built (every box a candidate): the card's
+              kept rows equal the port's CPU NMS of the same card-made
+              boxes and scores (labels, scores and order exactly, boxes
+              within 1e-5); predict and NMS ms. (c) a narrow YOLOv3 (width
+              8, 3 classes, 2 x 3 x 128^2): one step on the card against
+              the CPU, loss rtol 1e-5, every gradient within phase 6's
+              rule. (d) incubate on (c)'s net, 4 steps card against CPU
+              at lr 1e-5, the updates within phase 7's rule:
+              LookAhead(Momentum, k 2), ModelAverage (apply / restore),
+              GradientMergeOptimizer(Momentum, k_steps 2)
 10. export    models saved on the CPU through jit.save (a torch.export
               program, symbolic batch) and served on the card through
               inference.Predictor and serving.InferenceEngine (one lane,
@@ -274,10 +295,12 @@ Phases:
               first-run and steady ms a batch
 11. api       the top-level API (`import paddle_tpu_torch as paddle`).
               (a) every name of ops.{creation, manipulation, logic,
-              reduction, search, linalg, legacy} run on CUDA tensors (the
-              default device) against the same call on CPU tensors, inputs
-              from one numpy seed: exact (tensordot and the float formulae
-              linspace / logspace / vander within API_TOL), reductions
+              reduction, search, linalg, legacy}, the 38 of extra_ops
+              phase 12 does not hold, and the 12 of vision.ops, run on
+              CUDA tensors (the default device) against the same call on
+              CPU tensors, inputs from one numpy seed: exact (tensordot and
+              the float formulae linspace / logspace / vander within
+              API_TOL; extra_ops and vision.ops within 1e-5), reductions
               within 1e-5, linalg within 1e-4 on what is unique
               (reconstructions, singular / eigen values, residuals); the
               random ops on shape, type, range and replay (seed twice,
@@ -690,6 +713,26 @@ VISION_FP32 = dict(loss_rtol=1e-5, grad_rel_l2=0.1, model_rel_l2=0.05,
                    buffer_share=1e-4)
 VISION_AMP = dict(loss_rtol=5e-2, fc_cos=0.98, norm_ratio=(0.5, 2.0),
                   buffer_share=0.2)
+# phase 9b: PaddleDetection's configs/yolov3/yolov3_darknet53_270e_coco on
+# one card: 608 x 608 inputs, batch 8, 50 gt slots an image, ignore_thresh
+# 0.7, Momentum 0.9 at lr 0.001 with L2 5e-4; predict with yolo_box on
+# the three scales and multiclass_nms (score 0.01, nms_top_k 1000,
+# keep_top_k 100, nms 0.45, background_label -1). Width 64 is DarkNet's
+# (the reference model's docstring). Cut: STEPS steps on one seeded batch
+# (1-MAX_GT gt boxes an image), no warmup, random weights (no COCO and no
+# pretrained backbone in the repository); (b) on PREDICT of its images
+DETECT = dict(B=8, SIDE=608, CLASSES=80, WIDTH=64, SLOTS=50, MAX_GT=20,
+              STEPS=10, LR=1e-3, MOMENTUM=0.9, L2=5e-4, IGNORE=0.7,
+              PREDICT=2, SCORE=0.01, NMS_TOP_K=1000, KEEP_TOP_K=100,
+              NMS=0.45)
+# (c), (d): a narrow YOLOv3 card against CPU; the gradients held by phase
+# 6's rule (a CPU rehearsal of fp32 against float64 read 0.0034 of it,
+# the worst tensor 3.0e-6 in relative L2); (d)'s updates by phase 7's
+# rule (_update_worst) at a rate that keeps 4 steps near-linear: at lr
+# 1e-3 the first step takes the loss from 916 to 165, and the card's and
+# the CPU's parameters parted by 3e-3 of their size in 4 steps (an H100
+# 80GB HBM3 at 700 W)
+DETECT_PARITY = dict(B=2, SIDE=128, WIDTH=8, CLASSES=3, STEPS=4, LR=1e-5)
 # phase 10: bench.py --mode serving's model and traffic (bench.py:445-451:
 # 256 -> 1024 -> 1024 -> 256, 64 submitters x 40 requests, 4 outstanding,
 # a serial loop of 200, buckets 1/4/16/64; batch delay 2 ms; queue depth
@@ -820,7 +863,8 @@ MOE = dict(E=8, B=8, S=1024, STEPS=8, LR=1e-3, DROPOUT=0.1, FALL=0.25,
 # tensordot, a product; ops.legacy's floats (pow, the sequence softmax
 # and pools) the same way
 API_TOL = {"reduction": 1e-5, "linalg": 1e-4, "formula": 1e-6,
-           "product": 1e-5, "legacy": 1e-6}
+           "product": 1e-5, "legacy": 1e-6, "extra_ops": 1e-5,
+           "vision_ops": 1e-5}
 # phase 12: the attention LSTM seq2seq of PaddleNLP's
 # examples/machine_translation/seq2seq at its IWSLT'15 width (vocabularies
 # 17191 / 7709, 2 layers of 512, batch 128, dropout 0.2, Uniform(-0.1,
@@ -5508,6 +5552,315 @@ class Smoke:
         assert q["quantized_convs"] == 53 == q["quantized_calls"], q
         self.details["vision_family"] = out
 
+    # -- 9b. detect ---------------------------------------------------------------
+
+    def detect(self):
+        """YOLOv3 at DarkNet width: (a) training, (b) predict + NMS, (c)
+        the narrow step parity, (d) incubate's optimizers (see the module
+        docstring)."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.vision.models import yolov3
+        self.gpt = None
+        torch.cuda.empty_cache()
+        D = DETECT
+        net = yolov3(num_classes=D["CLASSES"], width=D["WIDTH"],
+                     device="cuda", seed=0)
+        built = {k: v.clone() for k, v in net.state_dict().items()}
+        batch = [torch.from_numpy(a).cuda() for a in _detect_batch(
+            np, D["B"], D["SIDE"], D["CLASSES"], D["SLOTS"], D["MAX_GT"],
+            seed=0)]
+        self.detect_train(net, *batch)
+        net.load_state_dict(built)
+        self.detect_predict(net, batch[0])
+        del net, built, batch
+        torch.cuda.empty_cache()
+        self.detect_step_parity()
+        self.detect_incubate()
+
+    def detect_train(self, net, x, gt, lab):
+        """(a) `net`, yolov3(num_classes=80, width=64) built with seed 0,
+        as a user trains it: its forward and `loss` (yolov3_loss on each
+        scale, the images' mean), backward, Momentum(0.001, momentum 0.9,
+        weight_decay 5e-4), DETECT["STEPS"] steps on one seeded batch
+        (_detect_batch) put on the card once. Gates: every loss finite,
+        the mean of the last 3 under the mean of the first 3, K1-K7
+        launched 0 times (no TPU kernel lies on this path). Printed: each
+        step's ms (CUDA events), the p50 of steps 3 on and images/s by
+        it, the peak allocated bytes; with --profile, 3 more steps'
+        device table."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch import optimizer
+        D = DETECT
+        nparams = sum(p.numel() for p in net.parameters())
+        opt = optimizer.Momentum(D["LR"], momentum=D["MOMENTUM"],
+                                 parameters=net.parameters(),
+                                 weight_decay=D["L2"])
+        net.train()
+
+        def step():
+            loss = net.loss(net(x), gt, lab, ignore_thresh=D["IGNORE"]
+                            ).mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path starts here: every launch count from 0
+        self.zero_launches()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(D["STEPS"])]
+        t0 = time.perf_counter()
+        losses = []
+        for e0, e1 in ev:
+            e0.record()
+            losses.append(step())
+            e1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = self.record_path("detect_yolov3")
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v) for v in losses]
+        ms = [e0.elapsed_time(e1) for e0, e1 in ev]
+        p50 = float(np.median(ms[2:]))
+        ips = D["B"] / p50 * 1e3
+        print(f"detect (a) YOLOv3 width {D['WIDTH']}, {D['CLASSES']} "
+              f"classes, {nparams} parameters fp32, [{D['B']}, 3, "
+              f"{D['SIDE']}, {D['SIDE']}] on {self.smi}: step p50 "
+              f"{p50:.2f} ms (steps 3-{D['STEPS']}, CUDA events), "
+              f"{ips:.2f} images/s; first step {ms[0]:.2f} ms (cuDNN's "
+              f"heuristics); {D['STEPS']} steps in {wall:.2f} s wall; peak "
+              f"allocated {peak / 2**30:.2f} GiB; gt boxes an image "
+              f"{(gt[:, :, 2] > 0).sum(1).tolist()}; launches {launches}")
+        print("per-step loss: " + " ".join(f"{v:.4f}" for v in losses))
+        print("per-step ms: " + " ".join(f"{v:.2f}" for v in ms))
+        self.details["detect_train"] = dict(
+            params=nparams, step_ms=ms, step_ms_p50=p50, images_per_s=ips,
+            wall_s=wall, peak_allocated_bytes=peak, losses=losses,
+            launches=launches)
+        if self.args.profile:
+            from torch.profiler import ProfilerActivity, profile
+            steps = 3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                for _ in range(steps):
+                    step()
+                torch.cuda.synchronize()
+                pwall = (time.perf_counter() - t1) * 1e3
+            dev, rows = _device_table(torch, prof, steps, pwall)
+            self.details["profile_detect"] = dict(
+                steps=steps, device_ms_per_step=dev,
+                wall_ms_per_step=pwall / steps, top=rows[:20])
+        assert all(np.isfinite(losses)), losses
+        assert np.mean(losses[-3:]) < np.mean(losses[:3]), \
+            "the YOLOv3 loss did not fall"
+        assert all(v == 0 for v in launches.values()), launches
+
+    def detect_predict(self, net, x):
+        """(b) In eval mode, predict (yolo_box on the three scales) and
+        multiclass_nms on DETECT["PREDICT"] of (a)'s images, at DETECT's
+        thresholds, the NMS on the card; then the port's NMS on the CPU
+        over copies of the same card-made boxes and scores. `net` holds
+        the weights as built: with random weights nearly every box passes
+        the score threshold in every class, the NMS's heaviest case,
+        where the candidates of (a)'s trained weights swing with the
+        objectness its steps leave (0 to 698,421 in four runs on an
+        H100). Gates: the boxes and scores finite; candidates above the
+        threshold; the kept rows a image equal; each row's label and
+        score exactly, its box within 1e-5 x max(1, |CPU|). Printed:
+        predict ms and NMS ms (CUDA events; the NMS also by the host
+        clock, its scan running there), the candidates, the CPU NMS
+        ms."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.vision.ops import multiclass_nms
+        D = DETECT
+        n = D["PREDICT"]
+        kw = dict(score_threshold=D["SCORE"], nms_top_k=D["NMS_TOP_K"],
+                  keep_top_k=D["KEEP_TOP_K"], nms_threshold=D["NMS"],
+                  background_label=-1)
+        net.eval()
+        img = torch.full((n, 2), D["SIDE"], dtype=torch.int32,
+                         device="cuda")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            ev[0].record()
+            boxes, scores = net.predict(net(x[:n]), img,
+                                        conf_thresh=D["SCORE"])
+            scores = scores.transpose(1, 2).contiguous()
+            ev[1].record()
+            t0 = time.perf_counter()
+            out, num = multiclass_nms(boxes, scores, **kw)
+            ev[2].record()
+            torch.cuda.synchronize()
+            nms_host = (time.perf_counter() - t0) * 1e3
+            cand = int((scores > D["SCORE"]).sum())
+            t1 = time.perf_counter()
+            ref, ref_num = multiclass_nms(boxes.cpu(), scores.cpu(), **kw)
+            cpu_ms = (time.perf_counter() - t1) * 1e3
+        pred_ms, nms_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(
+            ev[2])
+        got = out.cpu()
+        scale = max(1.0, float(ref[:, 2:].abs().max())) if ref.numel() \
+            else 1.0
+        err = float("inf") if got.shape != ref.shape else float(
+            (got[:, 2:] - ref[:, 2:]).abs().max()) if ref.numel() else 0.0
+        print(f"detect (b) predict + multiclass_nms on {n} images of "
+              f"{D['SIDE']}^2 on {self.smi}: predict {pred_ms:.2f} ms, NMS "
+              f"{nms_ms:.2f} ms (host clock {nms_host:.2f} ms) over {cand} "
+              f"(box, class) candidates above {D['SCORE']} of "
+              f"{scores.numel()}; kept {num.tolist()} (CPU "
+              f"{ref_num.tolist()}, {cpu_ms:.2f} ms); box err {err:.2e}")
+        self.details["detect_predict"] = dict(
+            predict_ms=pred_ms, nms_ms=nms_ms, nms_host_ms=nms_host,
+            cpu_nms_ms=cpu_ms, candidates=cand, kept=num.tolist(),
+            box_err=err)
+        net.train()
+        assert bool(torch.isfinite(boxes).all()) and \
+            bool(torch.isfinite(scores).all())
+        assert cand > 0, "no candidate above the score threshold"
+        assert out.device.type == "cuda" and num.device.type == "cuda"
+        assert torch.equal(num.cpu(), ref_num), (num, ref_num)
+        assert torch.equal(got[:, :2], ref[:, :2]), "labels / scores differ"
+        assert err <= 1e-5 * scale, err
+
+    def _detect_parity_setup(self):
+        """(c)'s narrow net on the card and its seeded batch (numpy)."""
+        import numpy as np
+        from paddle_tpu_torch.vision.models import yolov3
+        P = DETECT_PARITY
+        net = yolov3(num_classes=P["CLASSES"], width=P["WIDTH"],
+                     device="cuda", seed=1)
+        return net, _detect_batch(np, P["B"], P["SIDE"], P["CLASSES"],
+                                  DETECT["SLOTS"], DETECT["MAX_GT"], seed=4)
+
+    def detect_step_parity(self):
+        """(c) One training step (forward, the images' mean loss,
+        backward) of a narrow YOLOv3 (DETECT_PARITY) from one set of
+        weights, fp32 on the card against the port's CPU step: the loss
+        within rtol 1e-5, every gradient within phase 6's rule (1e-3 x
+        its max + 1e-6 x the model's max), the running buffers within
+        1e-4 x their max."""
+        torch = self.torch
+        import copy
+        net0, batch = self._detect_parity_setup()
+
+        def step(device):
+            net = copy.deepcopy(net0).to(device)
+            net.train()
+            x, gt, lab = (torch.from_numpy(a).to(device) for a in batch)
+            loss = net.loss(net(x), gt, lab).mean()
+            loss.backward()
+            return (float(loss.detach()),
+                    {n: p.grad.detach().double().cpu()
+                     for n, p in net.named_parameters()},
+                    {n: b.detach().double().cpu()
+                     for n, b in net.named_buffers()})
+        card, cpu = step("cuda"), step("cpu")
+        loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+        worst = _grad_worst(card[1], cpu[1], 1e-3, 1e-6)
+        rel = max(((card[1][n] - cpu[1][n]).norm().item()
+                   / max(cpu[1][n].norm().item(), 1e-30), n)
+                  for n in cpu[1])
+        buf = max((card[2][n] - cpu[2][n]).abs().max().item()
+                  / max(cpu[2][n].abs().max().item(), 1e-30)
+                  for n in cpu[2])
+        P = DETECT_PARITY
+        print(f"detect (c) YOLOv3 width {P['WIDTH']} step parity [{P['B']},"
+              f" 3, {P['SIDE']}, {P['SIDE']}] on {self.smi}: loss card "
+              f"{card[0]:.6f} CPU {cpu[0]:.6f} ({loss_rel:.2e} rel); "
+              f"gradients {worst[0]:.3e}x phase 6's rule ({worst[1]}), "
+              f"worst relative L2 {rel[0]:.2e} ({rel[1]}); buffers "
+              f"{buf:.2e} of their max")
+        self.details["detect_parity"] = dict(
+            loss_card=card[0], loss_cpu=cpu[0], loss_rel=loss_rel,
+            grad_rule=worst, worst_rel_l2=rel, buffer_share=buf)
+        assert loss_rel <= 1e-5, loss_rel
+        assert worst[0] <= 1.0, worst
+        assert buf <= 1e-4, buf
+
+    def detect_incubate(self):
+        """(d) incubate's optimizers on (c)'s net and batch, DETECT_PARITY
+        ["STEPS"] steps each, card against the port's CPU run from the
+        same weights: LookAhead(Momentum, alpha 0.5, k 2), GradientMerge
+        Optimizer(Momentum, k_steps 2), and ModelAverage beside SGD, held
+        inside apply() (the average) and after it (restored). Each
+        parameter's update from the shared start within phase 7's rule
+        (_update_worst) of the CPU's, the average's floor STEPS times the
+        weights' resolution."""
+        torch = self.torch
+        import copy
+        from paddle_tpu_torch import incubate, optimizer
+        P = DETECT_PARITY
+        net0, batch = self._detect_parity_setup()
+        arms = {
+            "LookAhead": lambda ps: incubate.LookAhead(
+                optimizer.Momentum(P["LR"], parameters=ps), alpha=0.5, k=2),
+            "GradientMerge": lambda ps: incubate.GradientMergeOptimizer(
+                optimizer.Momentum(P["LR"], parameters=ps), k_steps=2),
+            "ModelAverage": lambda ps: optimizer.SGD(P["LR"], parameters=ps),
+        }
+
+        def run(arm, device):
+            net = copy.deepcopy(net0).to(device)
+            net.train()
+            x, gt, lab = (torch.from_numpy(a).to(device) for a in batch)
+            opt = arms[arm](list(net.parameters()))
+            avg = incubate.ModelAverage(parameters=list(net.parameters())) \
+                if arm == "ModelAverage" else None
+            losses = []
+            for _ in range(P["STEPS"]):
+                loss = net.loss(net(x), gt, lab).mean()
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                if avg is not None:
+                    avg.step()
+                losses.append(float(loss))
+            states = {"trained": {n: p.detach().cpu().clone()
+                                  for n, p in net.named_parameters()}}
+            if avg is not None:
+                with avg.apply():
+                    states["averaged"] = {n: p.detach().cpu().clone()
+                                          for n, p in net.named_parameters()}
+                states["restored"] = {n: p.detach().cpu().clone()
+                                      for n, p in net.named_parameters()}
+            return losses, states
+        init = {n: p.detach().cpu() for n, p in net0.named_parameters()}
+        # the average sums STEPS weights near their start, so it carries
+        # STEPS times their fp32 resolution (the rule's floor); an H100
+        # read 0.567 of the plain floor on a BatchNorm weight near 1
+        resolution = {"trained": init, "restored": init,
+                      "averaged": {n: v * P["STEPS"]
+                                   for n, v in init.items()}}
+        res = {}
+        for arm in arms:
+            (lc, sc), (lr, sr) = run(arm, "cuda"), run(arm, "cpu")
+            worst = max(_update_worst(
+                {n: v - init[n] for n, v in sc[k].items()},
+                {n: v - init[n] for n, v in sr[k].items()},
+                resolution[k]) + (k,) for k in sr)
+            res[arm] = dict(losses_card=lc, losses_cpu=lr, worst=worst)
+            print(f"detect (d) incubate {arm} {P['STEPS']} steps on "
+                  f"{self.smi}: losses card {[round(v, 4) for v in lc]} CPU "
+                  f"{[round(v, 4) for v in lr]}; worst update "
+                  f"{worst[0]:.3e}x phase 7's rule ({worst[2]}, "
+                  f"{worst[1]})")
+            if "restored" in sc:
+                assert all(torch.equal(sc["restored"][n], sc["trained"][n])
+                           for n in sc["trained"]), "restore"
+                assert any(not torch.equal(sc["averaged"][n],
+                                           sc["trained"][n])
+                           for n in sc["trained"]), "apply"
+        self.details["detect_incubate"] = res
+        for arm, r in res.items():
+            assert r["worst"][0] <= 1.0, (arm, r["worst"])
+
     # -- 10. export and inference ------------------------------------------------
 
     def export(self):
@@ -6485,9 +6838,11 @@ class Smoke:
         search; reductions within API_TOL["reduction"] x max(1, |ref|);
         linalg within API_TOL["linalg"] on invariants (reconstructions,
         singular and eigen values, residuals: cuSOLVER and LAPACK may
-        pick other signs); random ops on shape, type, range and replay
-        (seed twice, set_rng_state(get_rng_state())). A family with a
-        name of its module's __all__ and no case fails."""
+        pick other signs); ops.legacy within API_TOL["legacy"];
+        extra_ops and vision.ops within 1e-5 (the NMS family's indices,
+        labels and counts exactly); random ops on shape, type, range and
+        replay (seed twice, set_rng_state(get_rng_state())). A family
+        with a name of its module's __all__ and no case fails."""
         torch = self.torch
         import numpy as np
         import paddle_tpu_torch as paddle
@@ -6495,9 +6850,10 @@ class Smoke:
         tols = _api_tols()
         results = {}
         for fam, table in cases.items():
-            mod = getattr(paddle.ops, fam)
+            mod = paddle.vision.ops if fam == "vision_ops" else \
+                getattr(paddle.ops, fam)
             names = {n.split("#")[0] for n in table}
-            own = set(mod.__all__) - _API_NOT_OWN.get(fam, set())
+            own = set(mod.__all__) - _api_not_own(paddle, fam)
             missing = sorted(own - names)
             misses, worst = [], 0.0
             for name, fn in table.items():
@@ -11754,11 +12110,269 @@ def _moe_config(dropout):
                      use_moe=True, num_experts=MOE["E"], dropout=dropout)
 
 
+def _detect_batch(np, B, side, classes, slots, max_gt, seed):
+    """Phase 9b's batch from one numpy seed: standard-normal images
+    [B, 3, side, side], and 1-max_gt gt boxes an image (cx, cy, w, h
+    normalised, w and h in [0.02, 0.6), inside the image) with labels in
+    0..classes-1, in `slots` rows padded with zeros (float32 / int32)."""
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((B, 3, side, side)).astype(np.float32)
+    gt = np.zeros((B, slots, 4), np.float32)
+    lab = np.zeros((B, slots), np.int32)
+    for b in range(B):
+        n = rng.randint(1, max_gt + 1)
+        wh = rng.uniform(0.02, 0.6, (n, 2))
+        gt[b, :n, :2] = rng.uniform(0, 1, (n, 2)) * (1 - wh) + wh / 2
+        gt[b, :n, 2:] = wh
+        lab[b, :n] = rng.randint(0, classes, n)
+    return x, gt, lab
+
+
+# the extra_ops names phase 12 (a) holds (nn.functional's re-exports of
+# the slice before the detection slice)
+_S2S_EXTRA = ("pixel_unshuffle", "channel_shuffle", "max_unpool2d",
+              "affine_grid", "gather_tree")
+
+
+def _det_inputs(np, paddle, device):
+    """Phase 11 (a)'s inputs of the extra_ops and vision_ops families,
+    made from one numpy seed, on `device` (the same values as the CPU
+    parity tests' shapes)."""
+    rng = np.random.RandomState(0)
+
+    def f(*shape, lo=None, hi=None):
+        if lo is None:
+            return rng.standard_normal(shape).astype(np.float32)
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def boxes(n, side=64.0):
+        wh = rng.uniform(4.0, 24.0, (n, 2))
+        xy = rng.uniform(0, side - 24.0, (n, 2))
+        return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+    def clustered(n):
+        c = rng.uniform(10, 54, (4, 2))[rng.randint(0, 4, n)] + \
+            rng.normal(0, 3, (n, 2))
+        wh = rng.uniform(6, 14, (n, 2))
+        return np.concatenate([c - wh / 2, c + wh / 2], 1).astype(
+            np.float32)
+
+    def unique(*shape):
+        k = int(np.prod(shape))
+        return ((rng.permutation(k) + 0.5) / k).reshape(shape).astype(
+            np.float32)
+    a = dict(X4=f(4, 8, 3, 3), X63=f(6, 3), X23=f(2, 3, 4, 4),
+             X24=f(2, 4, 3, 3), C4=f(4), B4=f(4), X253=f(2, 5, 3),
+             W33=f(3, 3), X37=f(3, 7), Y33=f(3, 3), POS45=f(4, 5, lo=0, hi=3),
+             X42=f(4, 2), X43=f(4, 3), N3=np.full(3, 10.0, np.float32),
+             S3=f(3), SQ3=f(3, lo=20, hi=30), X45=f(4, 5), X23s=f(2, 3),
+             P1=f(3, 5), P2=f(3, 5), P3=f(3, 5), L41=f(4, 1), R41=f(4, 1),
+             Y41=(f(4, 1, lo=0, hi=1) > 0.5).astype(np.float32),
+             C33=f(3, 3), X2255=f(2, 2, 5, 5), EM=f(2, 5, 3), TR=f(5, 3),
+             FEAT=f(2, 3, 8, 8), F8=f(2, 8, 8, 8), A1=f(1, 3, 5, 5),
+             B1=f(1, 3, 5, 5), DX=f(1, 2, 5, 5), DOFF=f(1, 18, 5, 5),
+             DW=f(3, 2, 3, 3), DM=f(1, 9, 5, 5, lo=0, hi=1),
+             BX=f(2, 3, 4), BW=f(2, 4, 5), BB=f(2, 5),
+             LG=f(4, 7), NW=f(7, 3), NB=f(7), TX=f(2, 5, 3),
+             TF=f(3, 4, 3), BS=f(1, 2, 4, 4), G=f(1, 4, 4, lo=0, hi=1),
+             GRID=f(1, 9, 2, 3, 3), RX=f(4, 3), RP=f(27, 2),
+             VFLAT=f(28), VW=f(2, 1, 3, 3), INS=np.arange(
+                 8, dtype=np.float32).reshape(4, 2),
+             YOLO=f(2, 27, 4, 4), HEAD8=f(2, 24, 8, 8), HEAD4=f(2, 24, 4, 4),
+             GS=f(2, 4, lo=0.5, hi=1.0), PRIOR=boxes(6),
+             PVAR=f(6, 4, lo=0.1, hi=0.3), DELTA=f(3, 6, 4), TGT=boxes(6),
+             BX1=boxes(5), BX2=boxes(3), NMSB=clustered(40),
+             NMSS=unique(40), MB=np.stack([clustered(40), clustered(40)]),
+             MS=unique(2, 4, 40), RPNS=unique(2, 3, 4, 4),
+             RPND=f(2, 12, 4, 4) * np.float32(0.5),
+             FPN=np.concatenate([boxes(30, 600.0), boxes(30, 600.0)
+                                 * np.float32(0.3)]))
+    a["PROB"] = rng.dirichlet(np.ones(5), 4).astype(np.float32)
+    a["SEG"] = np.array([0, 0, 1, 3, 3, 3], np.int32)
+    a["SEGI"] = rng.randint(0, 10, (6, 3)).astype(np.int32)
+    a["ROIS"] = np.array([[1.0, 2.0, 9.0, 13.0], [0.0, 0.0, 15.0, 15.0],
+                          [4.5, 3.0, 7.5, 11.0], [2.0, 6.0, 14.0, 9.0]],
+                         np.float32)
+    a["ROIS_NUM"] = np.array([3, 1], np.int32)
+    a["LAB41"] = rng.randint(0, 5, (4, 1)).astype(np.int32)
+    a["LAB3"] = np.array([[0], [2], [0], [1]], np.int32)
+    a["CEL"] = np.array([[1], [4], [-100], [0]], np.int32)
+    a["CRFY"] = rng.randint(0, 3, (2, 5)).astype(np.int32)
+    a["CRFL"] = np.array([5, 3], np.int32)
+    a["EDGES"] = np.array([[[0, 1], [0, 2], [1, 3], [1, 4], [0, 0]],
+                           [[2, 0], [2, 1], [0, 3], [0, 0], [0, 0]]],
+                          np.int32)
+    a["ROFF"] = np.array([[1, 1, 0, 2, 1, 0, 0], [2, 1, 0, 3, 2, 0, 0],
+                          [0, 1, 1, 0, 0, 0, 0], [3, 3, 3, 2, 1, 1, 2]],
+                         np.int32)
+    a["LAB47"] = rng.randint(0, 7, (4, 1)).astype(np.int32)
+    a["TAGS"] = np.array([1, 2, 3, 2, 9, 4], np.int32)
+    a["WANT"] = np.array([2], np.int32)
+    a["IMG"] = np.array([[64, 48], [32, 64]], np.int32)
+    a["IMG64"] = np.array([[64, 64], [60, 50]], np.int32)
+    a["GT"] = np.array([[[0.05, 0.05, 10 / 64, 13 / 64],
+                         [0.6, 0.4, 0.3, 0.45], [0.0, 0.0, 0.0, 0.0],
+                         [0.3, 0.8, 0.2, 0.1]],
+                        [[0.5, 0.5, 0.9, 0.95], [0.2, 0.7, 0.25, 0.4],
+                         [0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0]]],
+                       np.float32)
+    a["GTL"] = np.array([[1, 2, 0, 0], [0, 2, 0, 0]], np.int32)
+    a["CAT"] = rng.randint(0, 3, 40).astype(np.int32)
+    a["ROWS"] = np.array([4, 6], np.int32)
+    a["COLS"] = np.array([4, 2], np.int32)
+    d = {k: paddle.to_tensor(v, place=device) for k, v in a.items()}
+    d["np"] = a
+    return d
+
+
+def _api_extra_cases():
+    """Phase 11 (a)'s extra_ops family: every name of extra_ops.__all__
+    but phase 12's (_S2S_EXTRA), on _det_inputs. The ops that draw take a
+    seed, so that the card and the CPU draw alike (the draw is made on
+    the host)."""
+    def lod(P, d, key, offs):
+        return P.legacy.LoDTensor(d[key], [list(offs)])
+
+    def with_lod(P, t):
+        import numpy as np
+        return [t, P.to_tensor(np.asarray(t.lod()[0], np.int32))]
+    return {
+        "temporal_shift": lambda P, d: P.temporal_shift(d["X4"], 2),
+        "segment_sum": lambda P, d: P.incubate.segment_sum(d["X63"],
+                                                           d["SEG"]),
+        "segment_mean": lambda P, d: P.incubate.segment_mean(d["X63"],
+                                                             d["SEG"]),
+        "segment_max": lambda P, d: P.incubate.segment_max(d["X63"],
+                                                           d["SEG"]),
+        "segment_min": lambda P, d: P.incubate.segment_min(
+            d["X63"], d["SEG"], num_segments=5),
+        "segment_sum#int": lambda P, d: P.incubate.segment_sum(
+            d["SEGI"], d["SEG"], num_segments=5),
+        "affine_channel": lambda P, d: P.affine_channel(d["X24"], d["C4"],
+                                                        d["B4"]),
+        "row_conv": lambda P, d: P.row_conv(d["X253"], d["W33"]),
+        "conv_shift": lambda P, d: P.conv_shift(d["X37"], d["Y33"]),
+        "cvm": lambda P, d: P.cvm(d["POS45"], d["X42"]),
+        "cvm#strip": lambda P, d: P.cvm(d["POS45"], d["X42"],
+                                        use_cvm=False),
+        "data_norm": lambda P, d: P.data_norm(d["X43"], d["N3"], d["S3"],
+                                              d["SQ3"]),
+        "space_to_depth": lambda P, d: P.space_to_depth(d["X23"], 2),
+        "pad_constant_like": lambda P, d: P.pad_constant_like(
+            d["X45"], d["X23s"], pad_value=1.5),
+        "partial_concat": lambda P, d: P.partial_concat(
+            [d["P1"], d["P2"]], start_index=1, length=2),
+        "partial_sum": lambda P, d: P.partial_sum(
+            [d["P1"], d["P2"], d["P3"]], start_index=2),
+        "l1_norm": lambda P, d: P.l1_norm(d["X43"]),
+        "squared_l2_norm": lambda P, d: P.squared_l2_norm(d["X43"]),
+        "rank_loss": lambda P, d: P.rank_loss(d["Y41"], d["L41"],
+                                              d["R41"]),
+        "bpr_loss": lambda P, d: P.bpr_loss(d["X45"], d["LAB41"]),
+        "center_loss": lambda P, d: P.center_loss(d["X43"], d["LAB3"],
+                                                  d["C33"], alpha=0.2),
+        "hinge_loss": lambda P, d: P.hinge_loss(d["L41"], d["Y41"]),
+        "im2sequence": lambda P, d: P.im2sequence(
+            d["X2255"], filter_size=3, stride=2, padding=1),
+        "linear_chain_crf": lambda P, d: P.linear_chain_crf(
+            d["EM"], d["TR"], d["CRFY"], d["CRFL"]),
+        "roi_pool": lambda P, d: P.ops.extra_ops.roi_pool(
+            d["FEAT"], d["ROIS"], d["ROIS_NUM"], 2, spatial_scale=0.5),
+        "fsp": lambda P, d: P.fsp(d["X23"], d["X23"][:, :2]),
+        "cross_entropy2": lambda P, d: P.cross_entropy2(d["PROB"],
+                                                        d["CEL"]),
+        "psroi_pool": lambda P, d: P.psroi_pool(
+            d["F8"], d["ROIS"], d["ROIS_NUM"], 2, 0.5, 2, 2),
+        "prroi_pool": lambda P, d: P.prroi_pool(
+            d["FEAT"], d["ROIS"], d["ROIS_NUM"], 2, spatial_scale=0.5),
+        "correlation": lambda P, d: P.correlation(d["A1"], d["B1"], 1, 1,
+                                                  1),
+        "nce": lambda P, d: P.nce(d["RX"], d["LAB47"], 7,
+                                  nid_weight=d["NW"], bias=d["NB"],
+                                  num_neg_samples=4, seed=1),
+        "deformable_conv": lambda P, d: P.deformable_conv(
+            d["DX"], d["DOFF"], d["DW"], mask=d["DM"], padding=1),
+        "batch_fc": lambda P, d: P.batch_fc(d["BX"], d["BW"], d["BB"]),
+        "sample_logits": lambda P, d: P.sample_logits(d["LG"], d["LAB47"],
+                                                      5, seed=2),
+        "shuffle_batch": lambda P, d: P.shuffle_batch(d["X63"], seed=3),
+        "filter_by_instag": lambda P, d: P.filter_by_instag(
+            d["INS"], lod(P, d, "TAGS", (0, 2, 3, 5, 6)), d["WANT"]),
+        "var_conv_2d": lambda P, d: with_lod(P, P.var_conv_2d(
+            lod(P, d, "VFLAT", (0, 16, 28)), d["ROWS"], d["COLS"], 1, 2, 3,
+            w=d["VW"])),
+        "tree_conv": lambda P, d: P.tree_conv(d["TX"], d["EDGES"], d["TF"]),
+        "bilateral_slice": lambda P, d: P.bilateral_slice(d["BS"], d["G"],
+                                                          d["GRID"]),
+        "rank_attention": lambda P, d: P.rank_attention(d["RX"], d["ROFF"],
+                                                        d["RP"]),
+    }
+
+
+def _api_vision_cases():
+    """Phase 11 (a)'s vision_ops family: the 12 functions of vision.ops
+    on _det_inputs; the NMS family index-exact (its IoU is float32 op for
+    op on both devices, and its scores have no ties)."""
+    def V(P):
+        return P.vision.ops
+
+    def anchors(P, d):
+        return V(P).anchor_generator(d["RPNS"], [16.0], [0.5, 1.0, 2.0],
+                                     stride=[16.0, 16.0])
+    return {
+        "box_iou": lambda P, d: V(P).box_iou(d["BX1"], d["BX2"]),
+        "nms": lambda P, d: V(P).nms(d["NMSB"], 0.5, scores=d["NMSS"],
+                                     category_idxs=d["CAT"], top_k=12),
+        "nms#eta": lambda P, d: V(P).nms(d["NMSB"], 0.7, scores=d["NMSS"],
+                                         offset=1.0, eta=0.9),
+        "roi_align": lambda P, d: V(P).roi_align(
+            d["FEAT"], d["ROIS"], d["ROIS_NUM"], 2, spatial_scale=0.5),
+        "roi_pool": lambda P, d: V(P).roi_pool(
+            d["FEAT"], d["ROIS"], d["ROIS_NUM"], (3, 2), spatial_scale=0.5),
+        "yolo_box": lambda P, d: V(P).yolo_box(
+            d["YOLO"], d["IMG"], [10, 13, 16, 30, 33, 23], 4,
+            conf_thresh=0.3, downsample_ratio=16),
+        "box_coder": lambda P, d: V(P).box_coder(
+            d["PRIOR"], d["PVAR"], d["DELTA"],
+            code_type="decode_center_size"),
+        "box_coder#encode": lambda P, d: V(P).box_coder(
+            d["PRIOR"], d["PVAR"], d["TGT"]),
+        "distribute_fpn_proposals": lambda P, d:
+            V(P).distribute_fpn_proposals(d["FPN"], 2, 5, 4, 224),
+        "yolov3_loss": lambda P, d: V(P).yolov3_loss(
+            d["HEAD8"], d["GT"], d["GTL"], YOLO_ANCHORS, [0, 1, 2], 3, 0.7,
+            8),
+        "yolov3_loss#score": lambda P, d: V(P).yolov3_loss(
+            d["HEAD4"], d["GT"], d["GTL"], YOLO_ANCHORS, [3, 4, 5], 3, 0.7,
+            16, gt_score=d["GS"], use_label_smooth=False),
+        "anchor_generator": anchors,
+        "prior_box": lambda P, d: V(P).prior_box(
+            d["FEAT"], d["X2255"], [8.0, 16.0], max_sizes=[16.0, 24.0],
+            aspect_ratios=[2.0, 3.0], clip=True),
+        "generate_proposals": lambda P, d: V(P).generate_proposals(
+            d["RPNS"], d["RPND"], d["IMG64"], *anchors(P, d),
+            pre_nms_top_n=30, post_nms_top_n=10, nms_thresh=0.6,
+            min_size=2.0),
+        "multiclass_nms": lambda P, d: V(P).multiclass_nms(
+            d["MB"], d["MS"], score_threshold=0.3, nms_top_k=15,
+            keep_top_k=20, nms_threshold=0.4),
+        "multiclass_nms#eta": lambda P, d: V(P).multiclass_nms(
+            d["MB"], d["MS"], score_threshold=0.1, nms_top_k=-1,
+            keep_top_k=-1, nms_threshold=0.6, normalized=False,
+            nms_eta=0.8, background_label=-1),
+    }
+
+
+# COCO's anchors, as vision.models.yolov3 uses them
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119,
+                116, 90, 156, 198, 373, 326]
+
+
 def _api_tols():
     """{(family, case): limit} of the phase 11 (a) cases that are not
     exact."""
-    fam = {"reduction": API_TOL["reduction"], "linalg": API_TOL["linalg"],
-           "legacy": API_TOL["legacy"]}
+    fam = {k: API_TOL[k] for k in ("reduction", "linalg", "legacy",
+                                   "extra_ops", "vision_ops")}
     one = {("creation", n): API_TOL["formula"]
            for n in ("linspace", "logspace", "vander", "arange#float")}
     one.update({("manipulation", n): API_TOL["product"]
@@ -12019,13 +12633,15 @@ def _api_cases():
     }
     return {"creation": creation, "manipulation": manipulation,
             "logic": logic, "reduction": reduction, "search": search,
-            "linalg": linalg, "legacy": _api_legacy_cases()}
+            "linalg": linalg, "legacy": _api_legacy_cases(),
+            "extra_ops": _api_extra_cases(),
+            "vision_ops": _api_vision_cases()}
 
 
 def _api_legacy_cases():
     """Phase 11 (a)'s ops.legacy family: {case: fn(P, d)} over every name
     of `legacy.__all__` but the ones it re-exports from elsewhere
-    (_API_NOT_OWN). A LoD result also returns its offsets as a tensor;
+    (_api_not_own). A LoD result also returns its offsets as a tensor;
     a Python value comes back through P.to_tensor; Print's printed line
     comes back as its bytes."""
     import contextlib
@@ -12181,10 +12797,15 @@ def _api_legacy_cases():
     return cases
 
 
-# the names of legacy.__all__ that other families or phases hold: the
-# dtype defaults (phase 11's top level) and extra_ops' (phase 12)
-_API_NOT_OWN = {"legacy": {"get_default_dtype", "set_default_dtype",
-                           "affine_grid", "gather_tree"}}
+def _api_not_own(P, fam):
+    """The names of a family's module that other families or phases
+    hold: legacy's dtype defaults (phase 11's top level) and its
+    re-exports of extra_ops (the extra_ops family); extra_ops' names of
+    phase 12 (_S2S_EXTRA)."""
+    if fam == "legacy":
+        return {"get_default_dtype", "set_default_dtype"} | set(
+            P.ops.extra_ops.__all__)
+    return set(_S2S_EXTRA) if fam == "extra_ops" else set()
 
 
 def _api_random_cases(d):
@@ -12224,7 +12845,9 @@ def _api_compare(torch, np, paddle, fam, name, fn, tols):
     CPU (`_card_vs_cpu`)."""
     fam_tol, one_tol = tols
     tol = one_tol.get((fam, name), fam_tol.get(fam))
-    return _card_vs_cpu(torch, np, paddle, fn, tol, _api_inputs)
+    inputs = _det_inputs if fam in ("extra_ops", "vision_ops") else \
+        _api_inputs
+    return _card_vs_cpu(torch, np, paddle, fn, tol, inputs)
 
 
 def _card_vs_cpu(torch, np, paddle, fn, tol, inputs):
@@ -12346,7 +12969,7 @@ def _s2s_groups(P):
 
     def new(*mods):
         return [n for m in mods for n in m.__all__ if n not in old]
-    return {"functional": new(F.common, P.ops.extra_ops),
+    return {"functional": new(F.common) + list(_S2S_EXTRA),
             "loss": new(F.loss),
             "layers": ["Layer"] + new(nn.layer.common, nn.layer.loss),
             "rnn": new(nn.layer.rnn, nn.decode),
@@ -12799,8 +13422,9 @@ def _device_table(torch, prof, steps, wall_ms):
 
 # the phases after card and build, in the order they run
 PHASES = ("kernels", "model", "serving", "features", "quant", "tier", "fleet",
-          "profile", "train", "packing", "ernie", "vision", "export", "onnx",
-          "api", "seq2seq", "input", "static", "dist", "ps")
+          "profile", "train", "packing", "ernie", "vision", "detect",
+          "export", "onnx", "api", "seq2seq", "input", "static", "dist",
+          "ps")
 
 
 def main(argv=None):

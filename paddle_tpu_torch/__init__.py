@@ -112,7 +112,14 @@ Ported so far:
   `inference.capi.build()`), and the fluid-era names of `ops.legacy`
   (`legacy` here: `elementwise_*`, `reduce_*`, tensor arrays, LoD
   `sequence_*` ops, `Print`, `create_parameter` / `create_global_var`
-  as Program parameters and globals, `search_pyramid_hash`).
+  as Program parameters and globals, `search_pyramid_hash`);
+- the detection slice: `vision.ops` (box IoU, RoI align and pooling,
+  yolo_box, box_coder, yolov3_loss, the anchor and prior generators, and
+  the NMS family, whose sort and IoU matrices run on the card and whose
+  greedy scan runs on the host), `vision.models.YOLOv3`, the rest of
+  `ops.extra_ops` (re-exported in `nn.functional`, `ops.legacy` and
+  here), and `incubate` (LookAhead, ModelAverage, GradientMerge,
+  Recompute, the auto-checkpoint epoch range).
 """
 from . import amp, framework, hapi, io, metric, models, nn, ops  # noqa: F401
 from . import optimizer, profiler, quantization  # noqa: F401
@@ -121,6 +128,7 @@ from . import inference, jit  # noqa: F401,E402
 from . import autograd, device  # noqa: F401,E402
 from . import text, utils  # noqa: F401,E402
 from . import distributed, parallel  # noqa: F401,E402
+from . import incubate  # noqa: F401,E402
 from . import onnx  # noqa: F401,E402
 from .distributed import DataParallel  # noqa: F401,E402
 from .hapi import callbacks  # noqa: F401,E402
@@ -173,6 +181,16 @@ sqrt_ = _inplace_fn("sqrt_")
 
 from .static.program import data, disable_static, enable_static  # noqa
 from .static.program import in_static_mode as _in_static  # noqa: E402
+
+
+def monkey_patch_math_varbase():
+    """No-op, as in the JAX package: a torch tensor carries its operators
+    and the reference's Tensor methods (`ops.tensor_methods`) already."""
+
+
+def monkey_patch_variable():
+    """No-op: a static Program's Variables are torch tensors with the same
+    methods."""
 
 
 def in_dynamic_mode():

@@ -4,7 +4,7 @@ torch.cuda.
 
 The JAX package's compilation-cache and program-store names
 (`enable_compilation_cache`, `program_store_dir`, ...) have no
-counterpart yet (ROADMAP A7): eager PyTorch has no per-shape compile to
+counterpart yet (ROADMAP A1): eager PyTorch has no per-shape compile to
 cache, and `ops/_build.py` caches the kernels' nvcc builds."""
 from __future__ import annotations
 

@@ -29,6 +29,7 @@ __all__ = [
     "default_float_dtype", "set_default_dtype", "get_default_dtype",
     "bool_", "uint8", "int8", "int16", "int32", "int64", "float16",
     "bfloat16", "float32", "float64", "complex64", "complex128",
+    "to_paddle_dtype_name", "is_floating_point_dtype", "is_integer_dtype",
 ]
 
 
@@ -104,6 +105,19 @@ def convert_dtype(dtype) -> DType:
 
 def to_torch_dtype(dtype) -> torch.dtype:
     return convert_dtype(dtype).torch_dtype
+
+
+def to_paddle_dtype_name(dtype) -> str:
+    return convert_dtype(dtype).name
+
+
+def is_floating_point_dtype(dtype) -> bool:
+    return to_torch_dtype(dtype).is_floating_point
+
+
+def is_integer_dtype(dtype) -> bool:
+    t = to_torch_dtype(dtype)
+    return not (t.is_floating_point or t.is_complex or t == torch.bool)
 
 
 def canonical_dtype(dtype) -> torch.dtype:

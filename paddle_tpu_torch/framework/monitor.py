@@ -73,9 +73,11 @@ exporter renders both as Prometheus gauges (`gauge_kind`)."""
 from __future__ import annotations
 
 import bisect
+import contextlib
 import math
 import os
 import threading
+import time
 from collections import deque
 from typing import Dict
 
@@ -83,7 +85,8 @@ __all__ = ["stat_add", "stat_sub", "stat_get", "stat_set", "stat_gauge_add",
            "stat_gauge_add_later", "register_gauge", "gauge_kind",
            "is_gauge_name", "histogram", "all_stats", "all_histograms",
            "registered_histograms", "reset_all_stats", "stat_reset",
-           "drain_deltas", "merge_deltas"]
+           "drain_deltas", "merge_deltas", "StatValue", "stat_time",
+           "STAT_ADD", "STAT_SUB", "STAT_RESET"]
 
 _lock = threading.Lock()
 _stats: Dict[str, int] = {}
@@ -183,6 +186,63 @@ def stat_get(name: str) -> int:
     with _lock:
         _apply_later()
         return _stats.get(name, 0)
+
+
+class StatValue:
+    """One named counter (reference monitor.h:44): a handle on `name` in
+    this registry, so its reads and writes are the `stat_*` functions'."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def increase(self, n: int = 1) -> int:
+        return stat_add(self.name, n)
+
+    def decrease(self, n: int = 1) -> int:
+        return stat_sub(self.name, n)
+
+    def reset(self) -> int:
+        return stat_reset(self.name)
+
+    def set(self, v: int) -> int:
+        return stat_set(self.name, v)
+
+    def gauge_add(self, n: int) -> int:
+        return stat_gauge_add(self.name, n)
+
+    def drain(self) -> int:
+        """Read and zero the counter in one locked step."""
+        with _lock:
+            _apply_later()
+            v = _stats.get(self.name, 0)
+            _stats[self.name] = 0
+            return v
+
+    def get(self) -> int:
+        return stat_get(self.name)
+
+    @property
+    def gauge(self) -> bool:
+        return gauge_kind(self.name) is not None
+
+
+@contextlib.contextmanager
+def stat_time(name: str):
+    """Add the wall time (ns) of the enclosed block to `name` (host time:
+    the card's work the block queued may still be running)."""
+    t0 = time.perf_counter_ns()
+    try:
+        yield
+    finally:
+        stat_add(name, time.perf_counter_ns() - t0)
+
+
+# the reference's macro spellings
+STAT_ADD = stat_add
+STAT_SUB = stat_sub
+STAT_RESET = stat_reset
 
 
 class StatHistogram:

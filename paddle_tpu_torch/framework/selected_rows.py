@@ -6,8 +6,11 @@ optimizer kernels and the parameter server's push consume).
 
 `rows` and `value` are numpy arrays or torch tensors. numpy stays numpy
 (the host boundary, as in the JAX package); a torch `value` stays on its
-device, and `merge` there is `torch.unique` + `index_add_`, so a
-sparse gradient made on the card never visits the host.
+device, so a sparse gradient made on the card never visits the host.
+`merge` adds a row's duplicates in their order of occurrence on every
+device, as the JAX package's `np.add.at` does: a stable sort of the ids,
+then one running sum a row, one occurrence a pass (no atomics, so the
+card's sums are the CPU's bit for bit).
 """
 from __future__ import annotations
 
@@ -38,12 +41,8 @@ class SelectedRows:
         """Sum duplicate row ids, rows ascending (reference
         `operators/math/selected_rows_functor.cc` MergeAdd)."""
         if torch.is_tensor(self.value):
-            uniq, inv = torch.unique(self.rows, sorted=True,
-                                     return_inverse=True)
-            out = self.value.new_zeros((uniq.numel(),)
-                                       + tuple(self.value.shape[1:]))
-            out.index_add_(0, inv, self.value)
-            return SelectedRows(uniq, out, self.height)
+            return SelectedRows(*_merge_in_order(self.rows, self.value),
+                                self.height)
         uniq, inv = np.unique(self.rows, return_inverse=True)
         out = np.zeros((uniq.size,) + self.value.shape[1:],
                        self.value.dtype)
@@ -66,6 +65,25 @@ class SelectedRows:
     def __repr__(self):
         return (f"SelectedRows(n={self.rows.shape[0]}, height={self.height}, "
                 f"dim={tuple(self.value.shape[1:])})")
+
+
+def _merge_in_order(rows, value):
+    """(unique rows ascending, their sums): each sum starts at 0 and adds
+    the row's values in their order of occurrence. Pass j adds the j-th
+    occurrence of every row that has one; the rows are visited in order
+    of falling count, so pass j's rows are a prefix of that order and no
+    pass reads back to the host."""
+    order = torch.sort(rows, stable=True).indices
+    srows, svals = rows[order], value[order]
+    uniq, counts = torch.unique_consecutive(srows, return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    by_count = torch.sort(counts, descending=True, stable=True).indices
+    counts_host = np.sort(counts.cpu().numpy())[::-1]
+    out = value.new_zeros((uniq.numel(),) + tuple(value.shape[1:]))
+    for j in range(int(counts_host[0]) if counts_host.size else 0):
+        live = by_count[:int(np.count_nonzero(counts_host > j))]
+        out[live] = out[live] + svals[starts[live] + j]
+    return uniq, out
 
 
 def rows_of_embedding_grad(ids, dout, height: int) -> SelectedRows:

@@ -3,4 +3,4 @@ from .bert import (BertConfig, BertForPretraining,  # noqa: F401
 from .ernie import (ErnieConfig, ErnieForPretraining,  # noqa: F401
                     ErnieForSequenceClassification, ErnieModel, tp_annotate)
 from .gpt import (GPTConfig, GPTForCausalLM, GPTModel,  # noqa: F401
-                  load_reference_state)
+                  MoEFeedForward, load_reference_state)

@@ -12,10 +12,11 @@ from .norm import __all__ as _norm
 from .pooling import *  # noqa: F401,F403
 from .pooling import __all__ as _pooling
 from ...ops.extra_ops import (affine_grid, channel_shuffle,  # noqa: F401
-                              gather_tree, max_unpool2d, pixel_unshuffle)
+                              gather_tree, max_unpool2d, pixel_unshuffle,
+                              temporal_shift)
 
 __all__ = (list(_activations) + ["scaled_dot_product_attention"]
            + list(_common) + list(_conv) + list(_loss) + list(_norm)
            + list(_pooling) + ["affine_grid", "channel_shuffle",
                                "gather_tree", "max_unpool2d",
-                               "pixel_unshuffle"])
+                               "pixel_unshuffle", "temporal_shift"])

@@ -40,7 +40,16 @@ from ..framework.place import resolve_device
 from ..framework.selected_rows import SelectedRows
 from . import creation, manipulation, reduction
 from ._util import ints, tensor
-from .extra_ops import affine_grid, gather_tree  # noqa: F401
+from .extra_ops import (affine_channel, affine_grid, batch_fc,  # noqa: F401
+                        bilateral_slice, bpr_loss, center_loss, conv_shift,
+                        correlation, cross_entropy2, cvm, data_norm,
+                        deformable_conv, filter_by_instag, fsp, gather_tree,
+                        hinge_loss, im2sequence, l1_norm, linear_chain_crf,
+                        nce, pad_constant_like, partial_concat, partial_sum,
+                        prroi_pool, psroi_pool, rank_attention, rank_loss,
+                        row_conv, sample_logits, shuffle_batch,
+                        space_to_depth, squared_l2_norm, temporal_shift,
+                        tree_conv, var_conv_2d)
 from .math import (_fluid_act, _fluid_axis, elementwise_add,  # noqa: F401
                    elementwise_div, elementwise_mul, elementwise_sub)
 
@@ -60,8 +69,15 @@ __all__ = [
     "sequence_reverse", "sequence_concat", "sequence_expand",
     "sequence_reshape", "sequence_slice", "sequence_scatter", "Print",
     "search_pyramid_hash", "pyramid_hash",
-    # the reference's extra_ops re-exports that the port has
-    "affine_grid", "gather_tree",
+    # the fluid-era ops of extra_ops, re-exported as the reference does
+    "affine_channel", "row_conv", "conv_shift", "cvm", "data_norm",
+    "space_to_depth", "pad_constant_like", "partial_concat", "partial_sum",
+    "l1_norm", "squared_l2_norm", "rank_loss", "bpr_loss", "center_loss",
+    "hinge_loss", "im2sequence", "linear_chain_crf", "shuffle_batch",
+    "gather_tree", "affine_grid", "temporal_shift", "fsp",
+    "cross_entropy2", "psroi_pool", "prroi_pool", "correlation", "nce",
+    "deformable_conv", "batch_fc", "sample_logits", "filter_by_instag",
+    "var_conv_2d", "tree_conv", "bilateral_slice", "rank_attention",
 ]
 
 

@@ -182,7 +182,7 @@ class GenerationConfig:
     (`serving.tp_lane`; an engine's `mesh=` wins over it), with every
     mode of the engine: the prefix cache, speculation, int8 pages, the
     host tier, and supervision by an `EngineSupervisor` on each rank.
-    The JAX engine's `program_store` (ROADMAP A4) is accepted only in
+    The JAX engine's `program_store` (ROADMAP A1) is accepted only in
     its off state and raises otherwise. `warmup=False` skips the
     construction-time run of every program: the ledger then fills at
     each program's first call (and on the card the kernels build

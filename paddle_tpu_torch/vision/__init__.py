@@ -1,5 +1,5 @@
 """Vision (port of `paddle_tpu.vision`; reference `python/paddle/vision`):
-the models, `transforms` and `datasets`. `ops` and `models.yolov3` wait
-for ROADMAP A8."""
-from . import datasets, models, transforms  # noqa: F401
+the models (YOLOv3 among them), the detection `ops`, `transforms` and
+`datasets`."""
+from . import datasets, models, ops, transforms  # noqa: F401
 from .models import *  # noqa: F401,F403

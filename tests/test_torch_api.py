@@ -14,7 +14,8 @@
   within 1e-5 x max(1, max |ref|) and the types equal; in-place ones
   compare the tensor they changed too.
 - `test_top_level_names_still_missing`: the reference's public top-level
-  names the port lacks equal a frozen list, which later slices shrink.
+  names the port lacks are the four it lacks by design
+  (`test_torch_public_names.py` holds every other module).
 """
 import threading
 
@@ -30,21 +31,11 @@ from paddle_tpu_torch.ops import tensor_methods as tmeth
 from torch_ops_parity import (compare, jx, on_the_cpu,  # noqa: F401
                               r, ri, tx)
 
-# the reference's public top-level names with no counterpart yet: the
-# rest of ops/extra_ops.py (ROADMAP A3: the detection slice; its
-# affine_grid and gather_tree are ported), incubate (A3), the mode
-# patches, and the JAX package's own Tensor / Parameter / VarBase classes
-# (the port's tensors are torch.Tensor)
-STILL_MISSING = sorted("""
-Parameter Tensor VarBase
-affine_channel annotations batch_fc bilateral_slice bpr_loss center_loss
-conv_shift correlation cross_entropy2 cvm data_norm deformable_conv
-filter_by_instag fsp hinge_loss im2sequence incubate l1_norm
-linear_chain_crf monkey_patch_math_varbase monkey_patch_variable nce
-pad_constant_like partial_concat partial_sum prroi_pool psroi_pool
-rank_attention rank_loss row_conv sample_logits shuffle_batch
-space_to_depth squared_l2_norm temporal_shift tree_conv var_conv_2d
-""".split())
+# the reference's public top-level names the port has no counterpart for,
+# by design: the JAX package's own Tensor / Parameter / VarBase classes
+# (the port's tensors are torch.Tensor) and `annotations`, the
+# reference's `from __future__ import annotations`
+STILL_MISSING = sorted("Parameter Tensor VarBase annotations".split())
 
 
 def _public(mod):
@@ -61,9 +52,7 @@ NN_STILL_MISSING = {
     # the port does not wrap torch.Tensor: a parameter is a
     # torch.nn.Parameter, made by nn.Layer.create_parameter (ROADMAP A)
     "nn": ["Parameter"],
-    # the reference's temporal_shift is already the fixed form (ROADMAP
-    # A3); it comes with the rest of ops/extra_ops.py, the next slice
-    "nn.functional": ["temporal_shift"],
+    "nn.functional": [],
     "nn.utils": [],
     "optimizer": [],
 }
