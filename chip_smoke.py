@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases dist          # phase 15 alone
     python3 chip_smoke.py --phases ps            # phase 16 alone
     python3 chip_smoke.py --phases onnx          # phase 10b alone
+    python3 chip_smoke.py --phases store         # phase 10c alone
 
 Phases:
  1. card      name and power limit from nvidia-smi, torch/CUDA versions,
@@ -293,6 +294,35 @@ Phases:
               while the program goes on. Printed: trace + write ms, file
               bytes, numpy eval s; the C process's predictor creation,
               first-run and steady ms a batch
+10c. store    the serving program store, the kernel build cache and
+              utils.cpp_extension, on GPT-2 small's widths (hidden 768,
+              12 heads, vocabulary 50257, seed 0) cut to 4 layers,
+              buckets 64 and 1024, 8 slots, page 16 (STORE). (a) phase
+              2's libraries copied to a fresh directory; process A of (b)
+              (`--store-worker a`) runs with FLAGS_xla_compilation_cache_dir
+              there and nvcc made to raise: 0 nvcc runs, every library it
+              loads from that directory. (b) 8 greedy
+              requests filling both buckets through an in-process
+              store-off engine, then through fresh processes A (empty
+              store: it exports and writes every covered program, its
+              ledger = the manifest's entries) and B (the same key:
+              compiles {}, loaded = A's compiles): tokens identical to
+              store off; in B K1 = 4 x steps and K2 = 4 x the 1024-bucket
+              prefills, the store-off counts; over one idle decode step of
+              B and of the store-off engine the pools keep their storage,
+              the step's write lands in place, and B's peak allocation
+              rise stays under store off's + half a pool set; no artifact
+              as large as one weight matrix. (c) the decode entry's
+              recorded in-place spec edited in the manifest: an engine in
+              this process counts one STAT_pack_selfcheck_failures, dumps
+              one flight record, exports decode again and stays
+              token-identical. (d) the reference test's double_op built
+              with g++ by cpp_extension.load and a load_op_from_callable
+              square on 1M floats on the card: outputs on the card,
+              exactly 2x and x^2, gradients 2 and 2x. Printed: warmup ms
+              of store off, a miss and a hit, each artifact's bytes, B's
+              pack_load_ms, the decode steps' allocation rise, the g++
+              build s and ms a call
 11. api       the top-level API (`import paddle_tpu_torch as paddle`).
               (a) every name of ops.{creation, manipulation, logic,
               reduction, search, linalg, legacy}, the 38 of extra_ops
@@ -6821,6 +6851,206 @@ class Smoke:
         assert len(device7) == 1 and device7[0].startswith(
             "DEVICE7 failed UnavailableError:"), device7
 
+    # -- phase store: the program store, the build cache, cpp_extension -------
+
+    def store(self):
+        """The serving program store across processes, the kernel build
+        cache and `utils.cpp_extension` on the card (see the module
+        docstring): (b) processes A (empty store; also (a): a seeded
+        build cache, no nvcc) and B (warm) against an in-process
+        store-off engine; (c) a tampered manifest; (d) host ops."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.ops import _build, flash_ops, paged_ops
+        from paddle_tpu_torch.serving import GenerationEngine
+        self.gpt = None
+        torch.cuda.empty_cache()
+        wd = tempfile.mkdtemp(prefix="chip_smoke_store_")
+        try:
+            # (b) the store-off reference in this process
+            gpt = _store_gpt(torch)
+            prompts, new = _store_requests(np, gpt.gpt.config.vocab_size)
+            t0 = time.perf_counter()
+            eng = GenerationEngine(gpt, device="cuda", name="store_off",
+                                   **_store_engine_kw(prompts, new))
+            torch.cuda.synchronize()
+            off_warm = (time.perf_counter() - t0) * 1e3
+            self.zero_launches()
+            off = [f.result(600).tolist() for f in
+                   [eng.submit(p, max_new_tokens=n)
+                    for p, n in zip(prompts, new)]]
+            off_k1 = paged_ops.paged_attention.launches
+            off_k2 = flash_ops.flash_attention_fwd.launches
+            off_st = eng.stats()
+            off_step = _store_decode_step(torch, eng)
+            eng.shutdown()
+
+            # (a) the build cache: phase 2's libraries copied into a fresh
+            # directory, which process A takes through the flag
+            cc = os.path.join(wd, "cc")
+            os.makedirs(cc)
+            libs = sorted(_build.build_dir().glob("*.so"))
+            for p in libs:
+                shutil.copy2(p, cc)
+            ka = self.store_worker(wd, "a", FLAGS_xla_compilation_cache_dir=cc)
+            print(f"store (a) build cache on {self.smi}: {len(libs)} "
+                  f"libraries copied to a fresh directory; process A served "
+                  f"{len(prompts)} requests with {ka['nvcc']} nvcc runs, "
+                  f"loading {ka['libs']}; cache dir {ka['cache_dir']}")
+            assert ka["nvcc"] == 0 and ka["cache_dir"] == cc, ka
+            assert ka["libs"] and all(p.startswith(cc + os.sep)
+                                      for p in ka["libs"]), ka["libs"]
+            assert ka["weights"] == _store_checksum(gpt), "weights differ"
+            kb = self.store_worker(wd, "b")
+            # the main path of this phase is B's serving, in its process
+            self.path_launches["store"] = dict(
+                {n: 0 for n in self._wrappers()}, paged_attention=kb["k1"],
+                flash_fwd=kb["k2"])
+            self.path_dtype_launches["store"] = {
+                "paged_attention": {"float32": kb["k1"]},
+                "flash_fwd": {"float32": kb["k2"]}}
+            long_prefills = sum(1 for p in prompts if len(p) > 64)
+            entries = ka["entries"]
+            weight_bytes = min(t.numel() * t.element_size()
+                               for t in gpt.parameters() if t.dim() == 2)
+            print(f"store (b) on {self.smi}: warmup ms store off "
+                  f"{off_warm:.1f} (this process), miss {ka['warm_ms']:.1f} "
+                  f"(A, a fresh process), hit {kb['warm_ms']:.1f} (B, a "
+                  f"fresh process); processes A {ka['proc_s']:.1f} s, B "
+                  f"{kb['proc_s']:.1f} s; A compiles {ka['compiles']}, B "
+                  f"compiles {kb['compiles']} loaded {kb['loaded']}; "
+                  f"artifact bytes "
+                  f"{ {n: e['bytes'] for n, e in entries.items()} }; B "
+                  f"pack_load_ms {kb['pack_load_ms']}; K1 launches off "
+                  f"{off_k1} / B {kb['k1']} ({kb['steps']} steps x 4), K2 "
+                  f"off {off_k2} / B {kb['k2']} ({long_prefills} prefills "
+                  f"in the 1024 bucket x 4); decode step off "
+                  f"{off_step}, hit {kb['step']}")
+            self.details["store"] = dict(
+                off_warm_ms=off_warm, miss_warm_ms=ka["warm_ms"],
+                hit_warm_ms=kb["warm_ms"], a_proc_s=ka["proc_s"],
+                b_proc_s=kb["proc_s"],
+                artifact_bytes={n: e["bytes"] for n, e in entries.items()},
+                pack_load_ms=kb["pack_load_ms"], off_step=off_step,
+                hit_step=kb["step"], k1=kb["k1"], k2=kb["k2"])
+            assert ka["outputs"] == off and kb["outputs"] == off, \
+                "store on and off disagree"
+            assert set(ka["compiles"]) == set(off_st["compiles"]) \
+                == set(entries), (ka["compiles"], entries)
+            assert ka["loaded"] == {} and kb["compiles"] == {}
+            assert set(kb["loaded"]) == set(ka["compiles"])
+            assert all(v == "loaded" for v in kb["programs"].values())
+            assert kb["key"] == ka["key"]
+            assert kb["k1"] == 4 * kb["steps"] == off_k1, (kb, off_k1)
+            assert kb["k2"] == 4 * long_prefills == off_k2, (kb, off_k2)
+            assert all(e["bytes"] < weight_bytes for e in entries.values())
+            for step in (off_step, kb["step"]):
+                assert step["same_ptrs"] and step["wrote_in_place"], step
+            assert kb["step"]["rise"] < off_step["rise"] + \
+                off_step["pool_bytes"] / 2, (kb["step"], off_step)
+            self.store_tamper(gpt, prompts, new, off, ka["key_dir"])
+            self.store_cpp_extension(wd)
+        finally:
+            shutil.rmtree(wd, ignore_errors=True)
+
+    def store_worker(self, wd, mode, **env):
+        """One fresh process of phase store (`--store-worker`): its JSON
+        report."""
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--store-worker",
+             mode, "--store-wd", wd],
+            env=dict(os.environ, **env), capture_output=True, text=True,
+            timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"store worker {mode} failed:\n"
+                               f"{proc.stdout[-3000:]}{proc.stderr[-6000:]}")
+        with open(os.path.join(wd, "report.json")) as f:
+            rep = json.load(f)
+        rep["proc_s"] = time.perf_counter() - t0
+        return rep
+
+    def store_tamper(self, gpt, prompts, new, off, key_dir):
+        """(c) the decode entry's recorded in-place spec edited in the
+        warm store's manifest: an engine in this process fails the
+        self-check once, dumps one flight record, exports decode again
+        and stays token-identical."""
+        from paddle_tpu_torch.framework import monitor
+        from paddle_tpu_torch.profiler import flight_recorder
+        from paddle_tpu_torch.serving import GenerationEngine
+        from paddle_tpu_torch.serving.program_store import read_manifest
+        mf = read_manifest(key_dir)
+        name = f"decode[m={STORE['SLOTS']}]"
+        mf["programs"][name]["alias"] = "99:args_9"
+        with open(os.path.join(key_dir, "manifest.json"), "w") as f:
+            json.dump(mf, f)
+        fails = monitor.stat_get("STAT_pack_selfcheck_failures")
+        dumps = len(flight_recorder.dump_records())
+        t0 = time.perf_counter()
+        eng = GenerationEngine(gpt, device="cuda", name="store_tamper",
+                               program_store=os.path.dirname(key_dir),
+                               **_store_engine_kw(prompts, new))
+        warm = (time.perf_counter() - t0) * 1e3
+        outs = [f.result(600).tolist() for f in
+                [eng.submit(p, max_new_tokens=n)
+                 for p, n in zip(prompts, new)]]
+        st = eng.stats()
+        eng.shutdown()
+        recs = [r["reason"] for r in flight_recorder.dump_records()[dumps:]]
+        fails = monitor.stat_get("STAT_pack_selfcheck_failures") - fails
+        print(f"store (c) tampered {name}: self-check failures {fails}, "
+              f"flight records {recs}, compiles {st['compiles']}, loaded "
+              f"{st['loaded']}, warmup {warm:.1f} ms on {self.smi}")
+        assert fails == 1 and recs.count("program_store_selfcheck") == 1
+        assert st["compiles"] == {name: 1}, st["compiles"]
+        assert outs == off, "the fallback changed the tokens"
+
+    def store_cpp_extension(self, wd):
+        """(d) `utils.cpp_extension` on CUDA tensors: the reference test's
+        double_op built with g++ (its gradient symbol too) and a
+        load_op_from_callable square, 1M floats, outputs on the card."""
+        torch = self.torch
+        from paddle_tpu_torch.utils import cpp_extension
+        src = os.path.join(wd, "double_op.cc")
+        with open(src, "w") as f:
+            f.write(CPP_DOUBLE_OP)
+        t0 = time.perf_counter()
+        op = cpp_extension.load("double_op", [src],
+                                grad_symbol="double_op_grad",
+                                build_directory=os.path.join(wd, "ext"))
+        build_s = time.perf_counter() - t0
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(1 << 20, device="cuda", generator=g,
+                        requires_grad=True)
+        y = op(x)
+        y.sum().backward()
+        sq = cpp_extension.load_op_from_callable(
+            "sq", lambda a: a ** 2, lambda s: s,
+            bwd=lambda gr, a: (2 * a * gr,))
+        x2 = x.detach().clone().requires_grad_(True)
+        y2 = sq(x2)
+        y2.sum().backward()
+        with torch.no_grad():
+            op(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                op(x)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 10
+        print(f"store (d) cpp_extension on {self.smi}: g++ build "
+              f"{build_s:.2f} s; double_op on 1M floats {ms:.2f} ms a call "
+              f"(host round trip included); output on {y.device}, exact "
+              f"2x {bool(torch.equal(y, x.detach() * 2))}, grad 2 "
+              f"{bool((x.grad == 2).all())}; square's grad 2x "
+              f"{bool(torch.equal(x2.grad, 2 * x2.detach()))}")
+        self.details["store_cpp_extension"] = dict(build_s=build_s, ms=ms)
+        assert y.is_cuda and y2.is_cuda and x.grad.is_cuda
+        assert torch.equal(y, x.detach() * 2)
+        assert bool((x.grad == 2).all())
+        assert torch.equal(x2.grad, 2 * x2.detach())
+        assert torch.equal(y2, x2.detach() ** 2)
+
     def api(self):
         """(a) every dense op family of the top-level API on the card
         against the same call on the CPU; (b) the 8-expert MoE GPT at
@@ -11767,6 +11997,132 @@ def _elastic_hang_rank():
     return 0
 
 
+# phase store: GPT-2 small's widths (hidden 768, 12 heads, head dim 64,
+# GPT-2's vocabulary) cut to LAYERS layers, seed-0 weights; 8 greedy
+# requests whose prompts fill both prefill buckets, NEW new tokens each,
+# on phase 5's slots and page size
+STORE = dict(LAYERS=4, VOCAB=50257, BUCKETS=(64, 1024), SLOTS=8, PAGE=16,
+             LENS=(20, 900, 40, 700, 60, 1000, 33, 530), NEW=16)
+# phase store (d): the reference test's op (tests/test_static_and_
+# extensions.py:80-97), its gradient symbol given [g, x] yields 2 g
+CPP_DOUBLE_OP = r"""
+extern "C" void double_op(const float** ins, const long long** shapes,
+                          const int* ndims, int n_in, float* out,
+                          const long long* out_shape, int out_ndim) {
+  long long total = 1;
+  for (int i = 0; i < out_ndim; ++i) total *= out_shape[i];
+  for (long long i = 0; i < total; ++i) out[i] = ins[0][i] * 2.0f;
+}
+extern "C" void double_op_grad(const float** ins, const long long** shapes,
+                               const int* ndims, int n_in, float* out,
+                               const long long* out_shape, int out_ndim) {
+  long long total = 1;
+  for (int i = 0; i < out_ndim; ++i) total *= out_shape[i];
+  for (long long i = 0; i < total; ++i) out[i] = ins[0][i] * 2.0f;
+}
+"""
+
+
+def _store_gpt(torch):
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(vocab_size=STORE["VOCAB"], num_layers=STORE["LAYERS"])
+    return GPTForCausalLM(cfg, device="cuda", seed=0).eval()
+
+
+def _store_checksum(gpt):
+    return float(sum(p.double().sum().item() for p in gpt.parameters()))
+
+
+def _store_requests(np, vocab):
+    rng = np.random.RandomState(7)
+    return ([rng.randint(0, vocab, size=(n,)) for n in STORE["LENS"]],
+            [STORE["NEW"]] * len(STORE["LENS"]))
+
+
+def _store_engine_kw(prompts, new):
+    page = STORE["PAGE"]
+    return dict(max_slots=STORE["SLOTS"], page_size=page,
+                num_pages=1 + sum(-(-(len(p) + n) // page)
+                                  for p, n in zip(prompts, new)),
+                prefill_buckets=STORE["BUCKETS"], max_new_tokens=STORE["NEW"],
+                request_timeout_ms=0)
+
+
+def _store_decode_step(torch, eng):
+    """One decode step of an idle engine (every slot parked on the
+    scratch page), called from this thread: whether the pools kept their
+    storage, whether the step's K write landed in place (the scratch
+    page, zeroed first, holds it after), and the peak allocated bytes it
+    added above what was allocated before it."""
+    from paddle_tpu_torch.serving.kv_cache import TRASH_PAGE
+    with torch.inference_mode():
+        pools = eng._pools()
+        ptrs = [p.data_ptr() for p in pools]
+        pools[0][:, :, TRASH_PAGE].zero_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        eng._decode_call(*eng._step_arrays())
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - base
+        return dict(
+            same_ptrs=[p.data_ptr() for p in eng._pools()] == ptrs,
+            wrote_in_place=bool(pools[0][:, :, TRASH_PAGE].abs().sum() > 0),
+            rise=int(rise), pool_bytes=int(eng._cache.hbm_bytes()))
+
+
+def _store_worker(mode, wd):
+    """`chip_smoke.py --store-worker MODE --store-wd WD`, one fresh
+    process of phase store: it serves the 8 requests with the program
+    store under WD/store. Mode "a" (process A) also makes nvcc raise: its
+    build cache comes from FLAGS_xla_compilation_cache_dir, which the
+    parent set to a seeded directory. Writes WD/report.json."""
+    sys.path.insert(0, str(REPO))
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import device as pdevice
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.ops import _build, flash_ops, paged_ops
+    from paddle_tpu_torch.serving import GenerationEngine
+    nvcc = []
+
+    def no_nvcc():
+        nvcc.append(1)
+        raise RuntimeError("phase store (a): nvcc must not run")
+    if mode == "a":
+        _build._nvcc = no_nvcc
+    gpt = _store_gpt(torch)
+    prompts, new = _store_requests(np, gpt.gpt.config.vocab_size)
+    t0 = time.perf_counter()
+    eng = GenerationEngine(gpt, device="cuda", name=f"store_{mode}",
+                           program_store=os.path.join(wd, "store"),
+                           **_store_engine_kw(prompts, new))
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    paged_ops.paged_attention.launches = 0
+    flash_ops.flash_attention_fwd.launches = 0
+    outs = [f.result(600).tolist() for f in
+            [eng.submit(p, max_new_tokens=n) for p, n in zip(prompts, new)]]
+    k1 = paged_ops.paged_attention.launches
+    k2 = flash_ops.flash_attention_fwd.launches
+    st = eng.stats()
+    step = _store_decode_step(torch, eng)
+    eng.shutdown()
+    ps = st["program_store"]
+    rep = dict(outputs=outs, warm_ms=warm_ms, k1=k1, k2=k2,
+               steps=st["steps"], compiles=st["compiles"],
+               loaded=st["loaded"], programs=st["programs"],
+               key=ps["key"], key_dir=ps["dir"], step=step,
+               weights=_store_checksum(gpt), nvcc=len(nvcc),
+               libs=sorted(lib._name for lib in _build._libs.values()),
+               cache_dir=pdevice.compilation_cache_dir(),
+               pack_load_ms=monitor.histogram("pack_load_ms").snapshot(),
+               entries=eng._store.entries())
+    with open(os.path.join(wd, "report.json"), "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
 
 # phase 16: PaddleRec's CTR-DNN (`models/rank/dnn/config.yaml`: 26 sparse
 # slots hashed into 1,000,001 ids, embedding dim 9 sum-pooled a slot, 13
@@ -13423,7 +13779,8 @@ def _device_table(torch, prof, steps, wall_ms):
 # the phases after card and build, in the order they run
 PHASES = ("kernels", "model", "serving", "features", "quant", "tier", "fleet",
           "profile", "train", "packing", "ernie", "vision", "detect",
-          "export", "onnx", "api", "seq2seq", "input", "static", "dist",
+          "export", "onnx", "store", "api", "seq2seq", "input", "static",
+          "dist",
           "ps")
 
 
@@ -13443,9 +13800,13 @@ def main(argv=None):
                     "order, for an A/B of one path; prints no result line")
     ap.add_argument("--elastic-hang", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--store-worker", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--store-wd", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.elastic_hang:
         return _elastic_hang_rank()
+    if args.store_worker:
+        return _store_worker(args.store_worker, args.store_wd)
     only = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(only) - set(PHASES))
     if unknown:

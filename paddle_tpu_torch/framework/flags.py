@@ -110,6 +110,31 @@ register_flag("FLAGS_gen_tp_timeout_s", 300.0,
               "that rank. It must cover the slowest program's skew "
               "between ranks (a first call that builds the kernels). "
               "Read when the lane is built")
+register_flag("FLAGS_gen_program_store_dir", "",
+              "serving.GenerationEngine: root directory of the on-disk "
+              "program store (serving/program_store.py). At warmup each "
+              "covered program (prefill/tail/decode/verify/cow_copy) is "
+              "loaded as a torch.export program saved under a content "
+              "key; a miss exports it and writes it back, so a fresh "
+              "process serves without tracing. Every load runs an "
+              "in-place self-check and a numeric probe first. Empty = "
+              "off")
+register_flag("FLAGS_gen_program_store_force", False,
+              "serving.GenerationEngine: use the program store even where "
+              "device.serialization_unsafe_backend() is True, with a "
+              "one-time warning; every load still runs the in-place "
+              "self-check and the numeric probe and falls back to an "
+              "export on any mismatch")
+register_flag("FLAGS_xla_compilation_cache", True,
+              "keep the kernel build cache (the nvcc libraries of "
+              "csrc/*.cu) in FLAGS_xla_compilation_cache_dir when that "
+              "flag names a directory; read at the first kernel build "
+              "(device.maybe_enable_compilation_cache). The name is the "
+              "JAX package's")
+register_flag("FLAGS_xla_compilation_cache_dir", "",
+              "directory of the kernel build cache: where ops/_build.py "
+              "writes and looks up its nvcc libraries. Empty = "
+              "build/paddle_tpu_torch in the checkout")
 register_flag("FLAGS_gen_prefix_cache", False,
               "serving.GenerationEngine: content-hash prefix cache over "
               "the paged KV pools (serving/prefix_cache.py) — a request "

@@ -33,8 +33,12 @@ reference `fluid/dygraph/jit.py:160,507,787`).
   records literal devices (ERNIE's `torch.arange(device=...)`, the flash
   entry's mask-to-bias constants) that the pass rewrites.
 
-The program-store helpers (`serialize_compiled` and after, the JAX
-package's `:437-501`) are not ported.
+The serving program store's helpers (`serialize_compiled` and after,
+the JAX package's `:437-501`): its artifact is a `torch.export`
+`ExportedProgram` saved to bytes with `torch.export.save`. The program is
+never put through `run_decompositions()`, which functionalizes its pool
+writes into whole-pool copies, so `compiled_alias_spec` reads what it
+writes in place off the graph's in-place ops, not off its signature.
 """
 from __future__ import annotations
 
@@ -55,7 +59,9 @@ from .dy2static import ProgramTranslator, ast_transform, enable_to_static
 
 __all__ = ["to_static", "declarative", "not_to_static", "save", "load",
            "load_meta", "TranslatedLayer", "StaticFunction",
-           "ProgramTranslator", "enable_to_static", "dy2static"]
+           "ProgramTranslator", "enable_to_static", "dy2static",
+           "serialize_compiled", "deserialize_compiled",
+           "compiled_alias_spec", "pytree_spec", "key_material_digest"]
 
 
 class StaticFunction:
@@ -315,3 +321,111 @@ def load(path, device=None, **configs) -> TranslatedLayer:
     return TranslatedLayer(exported, state,
                            quant=load_meta(path).get("quant"),
                            device=device)
+
+
+# -- the serving program store's artifact -----------------------------------
+#
+# `serving/program_store.py` keeps the engine's programs across processes
+# as `torch.export` programs. A program writes the KV pools it is handed
+# in place; a loaded program is trusted only while it still does, so what
+# it writes is read off its graph here and checked on every load.
+
+def serialize_compiled(program) -> bytes:
+    """`torch.export.save` of an `ExportedProgram`, to bytes. The example
+    inputs are dropped first (a serving program's inputs are its weights
+    and pools), so the bytes hold the graph alone."""
+    import io
+    program.example_inputs = None
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    return buf.getvalue()
+
+
+def deserialize_compiled(blob: bytes):
+    """Inverse of `serialize_compiled`: the `ExportedProgram` (call it
+    through `.module()`). Raises on bytes that are not one."""
+    import io
+    return torch.export.load(io.BytesIO(blob))
+
+
+def _written_input(node):
+    """The placeholder a mutated argument `node` is a view chain of
+    (select, slice, view, ... back to an input), or None."""
+    while isinstance(node, torch.fx.Node):
+        if node.op == "placeholder":
+            return node
+        schema = getattr(node.target, "_schema", None)
+        if (node.op != "call_function" or schema is None
+                or not schema.arguments
+                or schema.arguments[0].alias_info is None):
+            return None
+        node = node.args[0]
+    return None
+
+
+def compiled_alias_spec(program) -> str:
+    """The user inputs `program` writes in place, as a canonical string:
+    "<position>:<name>" of each, by input position, comma-separated; ""
+    for a program that writes none. Read off the graph: each op whose
+    schema marks an argument as written, traced through its views back
+    to a placeholder. The signature's `user_inputs_to_mutate` is empty
+    for such a program, so it cannot say this; a program put through
+    `run_decompositions()` writes whole copies instead and reads "" here
+    (the corruption class the store's self-check refuses)."""
+    users = list(program.graph_signature.user_inputs)
+    position = {n: i for i, n in enumerate(users)}
+    written = set()
+    for node in program.graph.nodes:
+        schema = getattr(node.target, "_schema", None)
+        if node.op != "call_function" or schema is None:
+            continue
+        for i, arg in enumerate(schema.arguments):
+            if arg.alias_info is None or not arg.alias_info.is_write:
+                continue
+            src = (node.args[i] if i < len(node.args)
+                   else node.kwargs.get(arg.name))
+            base = _written_input(src)
+            if base is not None and base.name in position:
+                written.add((position[base.name], base.name))
+    return ", ".join(f"{i}:{n}" for i, n in sorted(written))
+
+
+def _tree_leaves(tree, path=""):
+    """(keystr path, leaf) pairs in the JAX package's flattening order:
+    dict keys sorted, list and tuple items by index, None no leaf."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _tree_leaves(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, t in enumerate(tree)
+                for kv in _tree_leaves(t, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def pytree_spec(tree) -> list:
+    """Structural fingerprint of a nested dict / list / tuple of arrays
+    (torch tensors or numpy): sorted [path, shape, dtype] triples, dtypes
+    spelled as numpy spells them ("float32"). For a quantized
+    decode-weight tree the (int8, scale) leaf pairs land here with their
+    own types and shapes, so the program store's key tells quantized
+    weights apart."""
+    import numpy as np
+    out = []
+    for path, leaf in _tree_leaves(tree):
+        arr = leaf if hasattr(leaf, "dtype") else np.asarray(leaf)
+        out.append([path, [int(d) for d in getattr(arr, "shape", [])],
+                    str(arr.dtype).replace("torch.", "")])
+    return sorted(out)
+
+
+def key_material_digest(material) -> str:
+    """Stable content key over JSON-able key material (the program
+    store's directory name): canonical JSON, blake2b-128 hex. A non-JSON
+    leaf falls back to str()."""
+    import hashlib
+    import json
+    blob = json.dumps(material, sort_keys=True, separators=(",", ":"),
+                      default=str).encode()
+    return hashlib.blake2b(blob, digest_size=16).hexdigest()

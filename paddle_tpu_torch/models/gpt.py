@@ -51,6 +51,7 @@ __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "MoEFeedForward",
            "gpt_prefill",
            "gpt_prefill_extend", "gpt_decode_step", "gpt_spec_verify",
            "gpt_logits", "dense_cache_write", "dense_cache_attend",
+           "sample_logits", "sample_logits_with_noise", "sampling_noise",
            "load_reference_state", "decode_weight_specs",
            "shard_decode_weights"]
 
@@ -669,6 +670,29 @@ def sample_logits(logits, do_sample, temperature, top_k, generator):
                          lg)
     p = torch.softmax(lg, dim=-1)
     return torch.multinomial(p, 1, generator=generator)[:, 0]
+
+
+def sampling_noise(shape, device, generator):
+    """The Exp(1) draw that `torch.multinomial` makes for one sample a
+    row of [B, V] probabilities, from `generator`: `sample_logits`' draw,
+    taken apart so that a program can take it as an input."""
+    return torch.empty(shape, dtype=torch.float32,
+                       device=device).exponential_(1, generator=generator)
+
+
+def sample_logits_with_noise(logits, temperature, top_k, noise):
+    """`sample_logits(logits, True, temperature, top_k, g)` with its draw
+    given as `noise = sampling_noise(logits.shape, device, g)`.
+    `torch.multinomial`'s one-sample path is argmax(p / q) over q ~ Exp(1)
+    filled by `exponential_`, so both give the same token from the same
+    generator state."""
+    lg = logits.float() / max(float(temperature), 1e-6)
+    if top_k:
+        kth = torch.topk(lg, int(top_k), dim=-1).values[..., -1:]
+        lg = torch.where(lg < kth, torch.full((), -1e30, device=lg.device),
+                         lg)
+    p = torch.softmax(lg, dim=-1)
+    return torch.argmax(p / noise, -1)
 
 
 def load_reference_state(model: nn.Module, arrays) -> None:

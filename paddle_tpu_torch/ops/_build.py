@@ -6,6 +6,11 @@ plain C interface and loaded with `ctypes`:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/paddle_tpu_torch/<name>-<hash>.so <name>.cu
 
+- The libraries go to the kernel build cache, `build_dir()`:
+  `build/paddle_tpu_torch` unless `device.enable_compilation_cache` (or
+  FLAGS_xla_compilation_cache_dir) names another directory; a library
+  found there is loaded without a build.
+
 - The build runs at the first CUDA launch, never at import, so the CPU
   test suite needs no `nvcc`.
 - The library file name carries a hash of its source and the flags, so an
@@ -30,6 +35,7 @@ from pathlib import Path
 from typing import Any, Dict, Iterable, Sequence, Tuple
 
 __all__ = ["SOURCES", "build", "load", "function", "check", "build_dir",
+           "default_build_dir", "set_build_dir", "source_hash",
            "ptxas_log"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -45,8 +51,28 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _funcs: Dict[Tuple[str, str], Any] = {}
 
 
-def build_dir() -> Path:
+_dir = None   # the kernel build cache (device.enable_compilation_cache)
+
+
+def default_build_dir() -> Path:
     return _PKG.parent / "build" / "paddle_tpu_torch"
+
+
+def set_build_dir(path) -> None:
+    """Build and look up the libraries under `path` from now on (the
+    libraries loaded so far stay loaded)."""
+    global _dir
+    _dir = Path(path)
+
+
+def build_dir() -> Path:
+    """The kernel build cache: `build/paddle_tpu_torch` in the checkout
+    unless `device.enable_compilation_cache` (or its flag, resolved at
+    the first build) chose another directory."""
+    if _dir is None:
+        from ..device import maybe_enable_compilation_cache
+        maybe_enable_compilation_cache()
+    return _dir if _dir is not None else default_build_dir()
 
 
 def _nvcc() -> str:
@@ -59,12 +85,17 @@ def _nvcc() -> str:
                        "of paddle_tpu_torch are built from source at first use")
 
 
-def _lib_path(src: str) -> Path:
+def source_hash(src: str) -> str:
+    """The hash a library of `src` is named by: its source, the shared
+    headers and the nvcc flags."""
     text = (CSRC / src).read_bytes()
     for inc in sorted(CSRC.glob("*.cuh")):
         text += inc.read_bytes()
-    key = hashlib.sha256(text + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"{Path(src).stem}-{key}.so"
+    return hashlib.sha256(text + " ".join(_FLAGS).encode()).hexdigest()[:16]
+
+
+def _lib_path(src: str) -> Path:
+    return build_dir() / f"{Path(src).stem}-{source_hash(src)}.so"
 
 
 def ptxas_log(src: str) -> str:

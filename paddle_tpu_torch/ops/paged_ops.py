@@ -23,7 +23,10 @@ maps logical positions to physical pages (`serving/kv_cache.py`).
   softmax `GPTForCausalLM.generate`'s dense cache uses (positions beyond
   `pos` mask to -1e30, so page-tail junk contributes exactly 0).
 
-`STAT_paged_attn_kernel` / `STAT_paged_attn_reference` count calls.
+`STAT_paged_attn_kernel` / `STAT_paged_attn_reference` count calls. K1
+is the registered op `paddle_tpu_torch::paged_attention` (a fake
+implementation gives its shape to `torch.export`), so a program exported
+on either device holds the op and launches K1 once it runs on the card.
 
 The prefix-cache tail prefill and the speculative verify step attend
 multi-position queries over cached pages plus their own in-flight K/V:
@@ -395,9 +398,12 @@ def paged_attention(q, k_pages, v_pages, page_table, pos, scale,
     int8 pools pass k_scales/v_scales ([H, N] per-page scales): they take
     the dequantizing gather + `cached_attention` on every device, and K1
     is not launched (the JAX package hands int8 pools to no kernel).
-    Otherwise a CUDA `q` launches kernel K1 (or raises: K1 serves head
-    dims up to 512); a CPU `q` — or FLAGS_use_paged_attention off — runs
-    `paged_attention_plain`. `paged_attention.launches` counts kernel
+    Otherwise the call goes through the registered op
+    `paddle_tpu_torch::paged_attention`, whose dispatch picks the
+    implementation from q's device when the call runs: a CUDA `q`
+    launches kernel K1 (or raises: K1 serves head dims up to 512), a CPU
+    `q` runs `paged_attention_plain`; FLAGS_use_paged_attention off runs
+    `paged_attention_plain` without the op. `paged_attention.launches` counts kernel
     launches, and `.launches_by_dtype` counts them by q's type
     ("float16")."""
     if k_scales is not None:
@@ -405,16 +411,42 @@ def paged_attention(q, k_pages, v_pages, page_table, pos, scale,
         kb = paged_gather_quantized(k_pages, k_scales, page_table, q.dtype)
         vb = paged_gather_quantized(v_pages, v_scales, page_table, q.dtype)
         return cached_attention(q, kb, vb, pos, scale)
-    if q.is_cuda and flag("FLAGS_use_paged_attention"):
-        monitor.stat_add("STAT_paged_attn_kernel")
-        return _launch_paged_kernel(q, k_pages, v_pages, page_table, pos,
-                                    scale)
+    if flag("FLAGS_use_paged_attention"):
+        return torch.ops.paddle_tpu_torch.paged_attention(
+            q, k_pages, v_pages, page_table, pos, float(scale))
     monitor.stat_add("STAT_paged_attn_reference")
     return paged_attention_plain(q, k_pages, v_pages, page_table, pos, scale)
 
 
 paged_attention.launches = 0
 paged_attention.launches_by_dtype = collections.Counter()
+
+
+@torch.library.custom_op("paddle_tpu_torch::paged_attention",
+                         mutates_args=(), device_types="cpu")
+def _paged_attention_op(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, page_table: torch.Tensor,
+                        pos: torch.Tensor, scale: float) -> torch.Tensor:
+    """K1 as a registered op, so a `torch.export` program (the serving
+    program store's decode programs) holds it and picks the
+    implementation from q's device when it runs. The CPU implementation
+    is the plain version, looked up at call time."""
+    monitor.stat_add("STAT_paged_attn_reference")
+    return paged_attention_plain(q, k_pages, v_pages, page_table, pos, scale)
+
+
+@_paged_attention_op.register_kernel("cuda")
+def _paged_attention_cuda(q, k_pages, v_pages, page_table, pos, scale):
+    """The op's CUDA implementation: kernel K1, or InvalidArgumentError
+    for operands it does not take (never the plain version)."""
+    monitor.stat_add("STAT_paged_attn_kernel")
+    return _launch_paged_kernel(q, k_pages, v_pages, page_table, pos, scale)
+
+
+@_paged_attention_op.register_fake
+def _paged_attention_fake(q, k_pages, v_pages, page_table, pos, scale):
+    """Shape and type for tracing: the output is like q."""
+    return q.new_empty(q.shape)
 
 
 def sharded_paged_attention(mesh, scale, tp_axis="tp", quantized=False):

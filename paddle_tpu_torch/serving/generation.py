@@ -114,8 +114,18 @@ program runs on each rank of the lane (`serving/tp_lane.py`), the host
 tier's included; a lane outlives a supervised restart. Lanes may share
 ranks and may cover part of the world.
 
-Not ported yet, raising `InvalidArgumentError` when asked for: the
-program store.
+**Program store** (`program_store=<dir>` / FLAGS_gen_program_store_dir,
+`serving/program_store.py`): each covered program (`prefill[b=S]`,
+`prefill_tail[b=S]`, `decode[m=M]`, `verify[k=K]`, `cow_copy`) is a
+function of tensors (`_*_prog`: weights and pools in, pools written in
+place, no host sync), run eagerly with the store off. With the store on,
+warmup exports each with `torch.export` on a miss and saves it under a
+content key; a fresh process with the same key loads every program
+instead, and a loaded program serves only after an in-place self-check
+and a numeric smoke probe (`_warm_one`). Sampling draws its noise from
+the engine's generator outside the programs, in the order the eager path
+draws it, so a sampled request gets the same tokens with the store on as
+off. Not at tp > 1 (ROADMAP C46).
 """
 from __future__ import annotations
 
@@ -146,7 +156,8 @@ from .kv_tier import HostEntry, HostSlab, HostTier
 from ..models.gpt import (GPTForCausalLM, gpt_decode_step, gpt_logits,
                           shard_decode_weights,
                           gpt_prefill, gpt_prefill_extend, gpt_spec_verify,
-                          sample_logits)
+                          sample_logits, sample_logits_with_noise,
+                          sampling_noise)
 from ..ops.paged_ops import (page_rows_for_positions, paged_attention,
                              paged_gather, paged_gather_layers,
                              paged_gather_quantized, paged_prefix_attention,
@@ -170,9 +181,24 @@ def _now_ms() -> float:
     return time.perf_counter() * 1000.0
 
 
-def _not_ported(knob: str):
-    return InvalidArgumentError(
-        f"GenerationConfig.{knob} is not yet ported to paddle_tpu_torch")
+def _last_real(h, length):
+    """h[length - 1] of hidden states [S, E], with `length` a 0-d device
+    tensor (clamped into [0, S)): the last real position of a
+    bucket-padded prompt, gathered on the device."""
+    idx = (length - 1).clamp(0, h.shape[0] - 1).reshape(1)
+    return h.index_select(0, idx)[0]
+
+
+class _Program(torch.nn.Module):
+    """A program function of the engine as a module, for `torch.export`
+    (its weights and pools are inputs, so it holds no parameter)."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self._fn = fn
+
+    def forward(self, *args):
+        return self._fn(*args)
 
 
 class GenerationConfig:
@@ -182,8 +208,11 @@ class GenerationConfig:
     (`serving.tp_lane`; an engine's `mesh=` wins over it), with every
     mode of the engine: the prefix cache, speculation, int8 pages, the
     host tier, and supervision by an `EngineSupervisor` on each rank.
-    The JAX engine's `program_store` (ROADMAP A1) is accepted only in
-    its off state and raises otherwise. `warmup=False` skips the
+    `program_store` is the root directory of the on-disk program store
+    (None follows FLAGS_gen_program_store_dir, "" is off;
+    `program_store_force` overrides the serialization gate, with a
+    warning); a tp > 1 lane refuses it (ROADMAP C46). `warmup=False`
+    skips the
     construction-time run of every program: the ledger then fills at
     each program's first call (and on the card the kernels build
     then)."""
@@ -206,10 +235,19 @@ class GenerationConfig:
                  kv_tier_host_bytes: Optional[int] = None,
                  kv_tier_chunk_pages: Optional[int] = None,
                  program_store: Optional[str] = None,
+                 program_store_force: Optional[bool] = None,
                  tp: Optional[int] = None,
                  top_k: int = 0, seed: int = 0, warmup: bool = True):
-        if program_store is not None and program_store != "":
-            raise _not_ported("program_store")
+        # the on-disk program store (serving/program_store.py): root dir
+        # or None = off (device.program_store_dir resolves the flag)
+        if program_store is None:
+            from .. import device as _device
+            self.program_store = _device.program_store_dir()
+        else:
+            self.program_store = str(program_store) or None
+        self.program_store_force = bool(
+            flag("FLAGS_gen_program_store_force")
+            if program_store_force is None else program_store_force)
         # tensor-parallel lane: tp ranks of the process group, one card
         # each, the lane's first rank the scheduler (serving/tp_lane.py)
         self.tp = int(flag("FLAGS_gen_tp") if tp is None else tp)
@@ -550,6 +588,12 @@ class GenerationEngine:
             raise InvalidArgumentError(
                 f"num_heads={self._H} not divisible by tp={self._tp} — "
                 f"head-sharded lanes need equal slices")
+        if self._tp > 1 and self._cfg.program_store:
+            raise InvalidArgumentError(
+                f"{name}: the program store does not serve a tp > 1 lane "
+                f"yet (ROADMAP C46): its programs all-reduce over the "
+                f"lane's process group, which torch.export does not "
+                f"trace; serve the lane with program_store off")
         # a tp lane: this rank's heads of every projection and pool, the
         # row-parallel sums all-reduced over the lane; its first rank
         # schedules. A resurrection follows the dead incarnation's lane
@@ -638,6 +682,21 @@ class GenerationEngine:
         self._spec_drafted_total = 0
         self._spec_accepted_total = 0
         self._chunks_total = 0
+        # the program store: programs resolved by name (loaded from the
+        # store, or exported and written back) and the loads counted; a
+        # resurrection reuses the dead incarnation's, as the JAX engine
+        # reuses its pack
+        self._execs = carry.get("execs", {})
+        self._loaded = carry.get("loaded", {})
+        self._ones = None
+        self._store = None
+        if self._cfg.program_store:
+            from .program_store import ProgramStore
+            self._store = ProgramStore(
+                self._cfg.program_store, self._store_key_material(),
+                force=self._cfg.program_store_force)
+            if self._store.refused:
+                self._store = None
 
         self._cv = threading.Condition()
         self._queue: deque = deque()
@@ -828,158 +887,157 @@ class GenerationEngine:
             return t
         return t.pin_memory().to(self._device, non_blocking=True)
 
-    def _write_pages(self, layer, page_ids, offs, k, v, requant=False):
-        """Write K/V into the pools in place: quantized on append in the
-        int8 mode (`requant=True` where the target pages may hold content:
-        the tail, chunk and verify writes), else cast to the pools' type."""
-        c = self._cache
+    def _write_pages(self, pools, layer, page_ids, offs, k, v,
+                     requant=False):
+        """Write K/V into `pools` in place: quantized on append in the int8
+        mode (`requant=True` where the target pages may hold content: the
+        tail, chunk and verify writes), else cast to the pools' type."""
         if self._quant_kv:
-            paged_write_quantized(c.k_pages, c.k_scales, layer, page_ids,
-                                  offs, k, requant=requant)
-            paged_write_quantized(c.v_pages, c.v_scales, layer, page_ids,
-                                  offs, v, requant=requant)
+            kp, vp, ks, vs = pools
+            paged_write_quantized(kp, ks, layer, page_ids, offs, k,
+                                  requant=requant)
+            paged_write_quantized(vp, vs, layer, page_ids, offs, v,
+                                  requant=requant)
         else:
-            paged_write(c.k_pages, layer, page_ids, offs, k)
-            paged_write(c.v_pages, layer, page_ids, offs, v)
+            kp, vp = pools
+            paged_write(kp, layer, page_ids, offs, k)
+            paged_write(vp, layer, page_ids, offs, v)
 
-    def _gather_layer(self, layer, pt, dtype):
+    def _gather_layer(self, pools, layer, pt, dtype):
         """One layer's K and V of the page-table rows `pt` [B, PP] as dense
         `dtype` views [B, H, PP*P, D] (dequantized in the int8 mode)."""
-        c = self._cache
         if self._quant_kv:
-            return (paged_gather_quantized(c.k_pages[layer],
-                                           c.k_scales[layer], pt, dtype),
-                    paged_gather_quantized(c.v_pages[layer],
-                                           c.v_scales[layer], pt, dtype))
-        return (paged_gather(c.k_pages[layer], pt).to(dtype),
-                paged_gather(c.v_pages[layer], pt).to(dtype))
+            kp, vp, ks, vs = pools
+            return (paged_gather_quantized(kp[layer], ks[layer], pt, dtype),
+                    paged_gather_quantized(vp[layer], vs[layer], pt, dtype))
+        kp, vp = pools
+        return (paged_gather(kp[layer], pt).to(dtype),
+                paged_gather(vp[layer], pt).to(dtype))
 
-    def _prefill_call(self, pt_row, ids, length):
+    # The five program families. Each is a function of tensors, the
+    # weights and the pools first: it writes the pools in place, returns
+    # tensors, and holds no host sync and no Python branch on a device
+    # value, so `torch.export` can keep it whole for the program store.
+    # `_note` inside runs where the program is traced (or, store off, at
+    # each call): a program loaded from the store notes no ledger key.
+    # The host-facing `_*_call` methods below (the tp lane's PROGRAMS)
+    # turn host arrays into tensors and run them through `_run_program`.
+
+    def _prefill_prog(self, W, pools, pt_row, ids, length):
         """Bucketed prefill of one prompt: writes its K/V pages (pad
         positions go to the scratch page) and returns the last real
         position's logits [V]."""
         S_b = ids.shape[1]
         self._note(f"prefill[b={S_b}]")
-        h, ks, vs = gpt_prefill(self._W, self._t(ids, torch.long),
-                                num_heads=self._Hl, scale=self._scale,
-                                reduce=self._reduce)
-        pos = torch.arange(S_b, device=self._device)
-        page_ids, offs = page_rows_for_positions(
-            self._t(pt_row), pos, self._cfg.page_size)
+        h, ks, vs = gpt_prefill(W, ids, num_heads=self._Hl,
+                                scale=self._scale, reduce=self._reduce)
+        pos = torch.arange(S_b, device=ids.device)
+        page_ids, offs = page_rows_for_positions(pt_row, pos,
+                                                 self._cfg.page_size)
         # bucket-pad positions write to the scratch page, never the
         # sequence's own pages: in the int8 mode the scatter-max scales
         # must not take pad tokens' magnitudes into a real page's grid
         valid = pos < length
         page_ids = torch.where(valid, page_ids, TRASH_PAGE)
         offs = torch.where(valid, offs, 0)
-        self._write_pages(None, page_ids, offs, ks[:, 0], vs[:, 0])
-        idx = min(max(int(length) - 1, 0), S_b - 1)
-        return gpt_logits(self._W, h[0, idx])
+        self._write_pages(pools, None, page_ids, offs, ks[:, 0], vs[:, 0])
+        return gpt_logits(W, _last_real(h[0], length))
 
-    def _tail_prefill_call(self, pt_row, ids, length, offset):
+    def _tail_prog(self, W, pools, pt_row, ids, length, offset):
         """Prefill of a prompt TAIL (a prefix-cache hit, or one chunk):
         only positions [offset, offset + length) run the model; their
         queries attend the sequence's cached pages READ-ONLY (positions
         < offset) plus their own in-flight K/V, and their writes land in
         the tail's pages (pad positions go to the scratch page, so a
-        shared page never receives a pad write). Returns the last real
-        position's logits [V]."""
+        shared page never receives a pad write). `offset` is a [1]
+        tensor. Returns the last real position's logits [V]."""
         S_b = ids.shape[1]
         self._note(f"prefill_tail[b={S_b}]")
         P, scale = self._cfg.page_size, self._scale
-        ar = torch.arange(S_b, device=self._device)
+        ar = torch.arange(S_b, device=ids.device)
         valid = ar < length
         # pad positions clamp to 0: neither the wpe gather nor the page
         # arithmetic reads out of range; their writes go to the scratch
         # page below
         positions = torch.where(valid, offset + ar, 0)
-        pt_t = self._t(pt_row)
         # this row's pages, gathered once across all layers (dequantized
         # in the int8 mode)
-        c = self._cache
-        kb_all = paged_gather_layers(c.k_pages, pt_t, c.k_scales)
-        vb_all = paged_gather_layers(c.v_pages, pt_t, c.v_scales)
+        kp, vp = pools[:2]
+        ksc, vsc = pools[2:] if self._quant_kv else (None, None)
+        kb_all = paged_gather_layers(kp, pt_row, ksc)
+        vb_all = paged_gather_layers(vp, pt_row, vsc)
 
         def ctx_attend(layer, q, k, v):
             return paged_prefix_attention(
                 q, kb_all[layer][None].to(q.dtype),
                 vb_all[layer][None].to(q.dtype), k, v, offset, scale)
 
-        h, ks, vs = gpt_prefill_extend(self._W, self._t(ids, torch.long),
-                                       positions, ctx_attend,
+        h, ks, vs = gpt_prefill_extend(W, ids, positions, ctx_attend,
                                        num_heads=self._Hl, scale=scale,
                                        reduce=self._reduce)
-        page_ids, offs = page_rows_for_positions(pt_t, positions, P)
+        page_ids, offs = page_rows_for_positions(pt_row, positions, P)
         page_ids = torch.where(valid, page_ids, TRASH_PAGE)
         offs = torch.where(valid, offs, 0)
         # requant: a CoW split page (or a chunk's partial page) arrives
         # with content and, in the int8 mode, a non-zero scale
-        self._write_pages(None, page_ids, offs, ks[:, 0], vs[:, 0],
+        self._write_pages(pools, None, page_ids, offs, ks[:, 0], vs[:, 0],
                           requant=True)
-        idx = min(max(int(length) - 1, 0), S_b - 1)
-        return gpt_logits(self._W, h[0, idx])
+        return gpt_logits(W, _last_real(h[0], length))
 
-    def _pools(self):
-        """The device pools: K and V pages, and the scale pools in the
-        int8 mode."""
-        c = self._cache
-        return ((c.k_pages, c.v_pages, c.k_scales, c.v_scales)
-                if self._quant_kv else (c.k_pages, c.v_pages))
-
-    def _cow_copy(self, src: int, dst: int):
-        """Copy-on-write split on the device: clone one page's content
-        across every layer and head from `src` to `dst`, in place, with
-        its scale rows in the int8 mode, so the private copy dequantizes
-        as the shared original does."""
+    def _cow_prog(self, W, pools, src, dst):
+        """Copy-on-write split on the device: clone page `src`'s content
+        ([1] tensors) across every layer and head to page `dst`, in place,
+        with its scale rows in the int8 mode, so the private copy
+        dequantizes as the shared original does."""
         self._note("cow_copy")
-        for pool in self._pools():
+        for pool in pools:
             pool[:, :, dst] = pool[:, :, src]
 
-    def _sample(self, logits, temps, smask):
+    def _sample(self, logits, temps, smask, noise):
         """The decode programs' next token: greedy argmax, or for the
-        slots in `smask` a temperature / top-k draw through the engine's
-        generator (drawn only when some slot samples)."""
+        slots in `smask` a temperature / top-k draw whose Exp(1) noise
+        (`sampling_noise`, from the engine's generator) is an input. Store
+        off, `noise` is None when no slot samples and the draw is
+        skipped."""
         nxt = torch.argmax(logits, -1)
-        if smask.any():
-            lg = logits / self._t(np.maximum(temps, 1e-6))[:, None]
-            sampled = sample_logits(lg, True, 1.0, self._cfg.top_k,
-                                    self._gen)
-            nxt = torch.where(self._t(smask), sampled, nxt)
-        return nxt
+        if noise is None:
+            return nxt
+        sampled = sample_logits_with_noise(logits / temps[:, None], 1.0,
+                                           self._cfg.top_k, noise)
+        return torch.where(smask, sampled, nxt)
 
-    def _decode_call(self, pt, toks, pos, active, temps, smask):
-        """ONE fixed-slot decode step. Returns host arrays (next token
-        [M] int, non-finite-logit flag [M] bool) — the step's only
-        device-to-host copy."""
+    def _decode_prog(self, W, pools, pt, toks, pos, active, temps, smask,
+                     noise):
+        """ONE fixed-slot decode step: each layer writes the slots' K/V
+        into their pages and attends them through
+        `ops.paged_ops.paged_attention` (K1 on the card), in place, in one
+        program. Returns (next token [M], non-finite-logit flag [M])."""
         M = toks.shape[0]
         self._note(f"decode[m={M}]")
-        c = self._cache
         P, scale = self._cfg.page_size, self._scale
-        pt_t = self._t(pt)
-        pos_t = self._t(pos)
+        kp, vp = pools[:2]
 
         def write_kv(cache, layer, k, v, p):
-            page_ids, offs = page_rows_for_positions(pt_t, p, P)
-            self._write_pages(layer, page_ids, offs, k, v)
+            page_ids, offs = page_rows_for_positions(pt, p, P)
+            self._write_pages(pools, layer, page_ids, offs, k, v)
             return cache
 
         def attend(cache, layer, q, p):
-            scales = ((c.k_scales[layer], c.v_scales[layer])
+            scales = ((pools[2][layer], pools[3][layer])
                       if self._quant_kv else ())
-            return paged_attention(q, c.k_pages[layer], c.v_pages[layer],
-                                   pt_t, p, scale, *scales)
+            return paged_attention(q, kp[layer], vp[layer], pt, p, scale,
+                                   *scales)
 
         logits, _ = gpt_decode_step(
-            self._W, self._t(toks, torch.long), pos_t, None, write_kv,
-            attend, num_heads=self._Hl, scale=scale, reduce=self._reduce)
-        nxt = self._sample(logits, temps, smask)
-        active_t = self._t(active)
-        nxt = torch.where(active_t, nxt, 0)
-        bad = active_t & ~torch.isfinite(logits).all(-1)
-        out = torch.stack([nxt, bad.long()]).cpu().numpy()
-        return out[0], out[1].astype(bool)
+            W, toks, pos, None, write_kv, attend, num_heads=self._Hl,
+            scale=scale, reduce=self._reduce)
+        nxt = self._sample(logits, temps, smask, noise)
+        nxt = torch.where(active, nxt, 0)
+        bad = active & ~torch.isfinite(logits).all(-1)
+        return nxt, bad
 
-    def _verify_call(self, pt, toks_blk, dmask, pos0, active, temps, smask):
+    def _verify_prog(self, W, pools, pt, toks_blk, dmask, pos0, active,
+                     temps, smask, noise):
         """ONE speculative verify step: score every live slot's [current
         token + K drafts] block (K+1 positions) in one pass over the
         paged cache (`gpt_spec_verify`), accept the longest greedily
@@ -990,56 +1048,136 @@ class GenerationEngine:
         rollback). Block queries attend the cached pages READ-ONLY
         (per-slot prefix length = the slot's cache position) plus the
         block's own K/V. Sampled slots take no drafts and sample their
-        first position as the decode step does. Returns host arrays
-        (accepted drafts [M], next token [M], non-finite flag [M])."""
+        first position as the decode step does. Returns (accepted drafts
+        [M], next token [M], non-finite flag [M])."""
         M, K1 = toks_blk.shape
         self._note(f"verify[k={K1 - 1}]")
         P, scale = self._cfg.page_size, self._scale
-        pt_t = self._t(pt)
-        pos0_t = self._t(pos0)
-        toks_t = self._t(toks_blk, torch.long)
+        dev = toks_blk.device
         # pad / overflow positions clamp into the wpe range; their writes
         # go to the scratch page (drafts are truncated to each request's
         # token budget, so every consumed position is in range)
-        positions = (pos0_t.long()[:, None]
-                     + torch.arange(K1, device=self._device)[None, :]
+        positions = (pos0.long()[:, None]
+                     + torch.arange(K1, device=dev)[None, :]
                      ).clamp(0, self._max_position - 1)
 
         def ctx_attend(layer, q, k, v):
-            kb, vb = self._gather_layer(layer, pt_t, q.dtype)
-            return paged_prefix_attention(q, kb, vb, k, v, pos0_t, scale)
+            kb, vb = self._gather_layer(pools, layer, pt, q.dtype)
+            return paged_prefix_attention(q, kb, vb, k, v, pos0, scale)
 
-        h, ks, vs = gpt_spec_verify(self._W, toks_t, positions, ctx_attend,
+        h, ks, vs = gpt_spec_verify(W, toks_blk, positions, ctx_attend,
                                     num_heads=self._Hl, reduce=self._reduce)
-        logits = gpt_logits(self._W, h)                     # [M, K1, V]
+        logits = gpt_logits(W, h)                           # [M, K1, V]
         greedy = torch.argmax(logits, -1)
         # draft j+1 is accepted iff it equals greedy[j], the model's token
         # after position j; n_acc = the longest agreeing prefix
-        agree = (greedy[:, :-1] == toks_t[:, 1:]) & self._t(dmask)
+        agree = (greedy[:, :-1] == toks_blk[:, 1:]) & dmask
         n_acc = torch.cumprod(agree.long(), dim=1).sum(1)
-        smask_t = self._t(smask)
-        n_acc = torch.where(smask_t, 0, n_acc)
+        n_acc = torch.where(smask, 0, n_acc)
         bonus = torch.gather(greedy, 1, n_acc[:, None])[:, 0]
-        nxt = torch.where(smask_t, self._sample(logits[:, 0], temps, smask),
-                          bonus)
-        active_t = self._t(active)
-        nxt = torch.where(active_t, nxt, 0)
-        consumed = (torch.arange(K1, device=self._device)[None, :]
+        nxt = torch.where(smask, self._sample(logits[:, 0], temps, smask,
+                                              noise), bonus)
+        nxt = torch.where(active, nxt, 0)
+        consumed = (torch.arange(K1, device=dev)[None, :]
                     <= n_acc[:, None])
         finite = torch.isfinite(logits).all(-1)             # [M, K1]
-        bad = active_t & (consumed & ~finite).any(1)
-        commit = consumed & active_t[:, None]
-        page_ids, offs = page_rows_for_positions(pt_t, positions, P)
+        bad = active & (consumed & ~finite).any(1)
+        commit = consumed & active[:, None]
+        page_ids, offs = page_rows_for_positions(pt, positions, P)
         page_ids = torch.where(commit, page_ids, TRASH_PAGE).reshape(-1)
         offs = torch.where(commit, offs, 0).reshape(-1)
         L, _, H, _, D = ks.shape
         # [L, M, H, K1, D] -> [L, H, M*K1, D]: the prefill-shaped
         # all-layers write (index m*K1 + j, as page_ids); requant: commits
         # land on each slot's current partial page, which holds content
-        self._write_pages(None, page_ids, offs,
+        self._write_pages(pools, None, page_ids, offs,
                           ks.transpose(1, 2).reshape(L, H, M * K1, D),
                           vs.transpose(1, 2).reshape(L, H, M * K1, D),
                           requant=True)
+        return n_acc, nxt, bad
+
+    def _run_program(self, name, prog, *args):
+        """Run program `name`: the program warmup resolved (loaded from
+        the store, or exported and written back) when there is one; else,
+        store on, resolve it now (`_warm_one`); store off, run `prog`
+        eagerly, today's path. Returns its outputs."""
+        ex = self._execs.get(name)
+        if ex is not None:
+            return ex(self._W, self._pools(), *args)
+        if self._store is None:
+            return prog(self._W, self._pools(), *args)
+        return self._warm_one(name, prog, args)
+
+    def _prefill_call(self, pt_row, ids, length):
+        """The `prefill[b=S]` program on host arrays: the page-table row,
+        the bucket-padded ids [1, S] and the prompt length. Returns the
+        last real position's logits [V] (on the device)."""
+        return self._run_program(
+            f"prefill[b={ids.shape[1]}]", self._prefill_prog,
+            self._t(pt_row), self._t(ids, torch.long),
+            self._t(np.int64(length)))
+
+    def _tail_prefill_call(self, pt_row, ids, length, offset):
+        """The `prefill_tail[b=S]` program on host arrays (`_tail_prog`).
+        Returns the last real position's logits [V]."""
+        return self._run_program(
+            f"prefill_tail[b={ids.shape[1]}]", self._tail_prog,
+            self._t(pt_row), self._t(ids, torch.long),
+            self._t(np.int64(length)),
+            self._t(np.asarray([offset], np.int64)))
+
+    def _pools(self):
+        """The device pools: K and V pages, and the scale pools in the
+        int8 mode."""
+        c = self._cache
+        return ((c.k_pages, c.v_pages, c.k_scales, c.v_scales)
+                if self._quant_kv else (c.k_pages, c.v_pages))
+
+    def _cow_copy(self, src: int, dst: int):
+        """The `cow_copy` program: page `src` cloned into page `dst`."""
+        self._run_program("cow_copy", self._cow_prog,
+                          self._t(np.asarray([src], np.int64)),
+                          self._t(np.asarray([dst], np.int64)))
+
+    def _noise(self, M, smask):
+        """The sampling draw of a decode or verify step, taken from the
+        engine's generator before the program runs (the draw the eager
+        path made inside it, in the same order): None when no slot
+        samples and no program is stored, else [M, V] Exp(1) noise, or
+        ones when no slot samples (the stored programs always take an
+        input, and ones draw nothing)."""
+        V = self._W["wte"].shape[0]
+        if smask.any():
+            return sampling_noise((M, V), self._device, self._gen)
+        if self._store is None:
+            return None
+        if self._ones is None or self._ones.shape[0] != M:
+            self._ones = torch.ones(M, V, device=self._device)
+        return self._ones
+
+    def _decode_call(self, pt, toks, pos, active, temps, smask):
+        """ONE fixed-slot decode step (`_decode_prog`) on host arrays.
+        Returns host arrays (next token [M] int, non-finite-logit flag [M]
+        bool): the step's only device-to-host copy."""
+        M = toks.shape[0]
+        nxt, bad = self._run_program(
+            f"decode[m={M}]", self._decode_prog, self._t(pt),
+            self._t(toks, torch.long), self._t(pos), self._t(active),
+            self._t(np.maximum(temps, 1e-6)), self._t(smask),
+            self._noise(M, smask))
+        out = torch.stack([nxt, bad.long()]).cpu().numpy()
+        return out[0], out[1].astype(bool)
+
+    def _verify_call(self, pt, toks_blk, dmask, pos0, active, temps, smask):
+        """ONE speculative verify step (`_verify_prog`) on host arrays.
+        Returns host arrays (accepted drafts [M], next token [M],
+        non-finite flag [M])."""
+        M, K1 = toks_blk.shape
+        n_acc, nxt, bad = self._run_program(
+            f"verify[k={K1 - 1}]", self._verify_prog, self._t(pt),
+            self._t(toks_blk, torch.long), self._t(dmask), self._t(pos0),
+            self._t(active), self._t(np.maximum(temps, 1e-6)),
+            self._t(smask), self._noise(M, smask))
         out = torch.stack([n_acc, nxt, bad.long()]).cpu().numpy()
         return out[0], out[1], out[2].astype(bool)
 
@@ -1225,6 +1363,134 @@ class GenerationEngine:
         self._it["promote_ms"] += _now_ms() - t0
         return True
 
+    # -- the program store's seam --------------------------------------------
+
+    def _store_key_material(self) -> dict:
+        """Everything that shapes the traced programs, JSON-able: the
+        content key the store's directories hang off. The decode-weight
+        pytree spec tells quantized weights apart (int8 leaves and scale
+        rows have their own types and shapes); the FLAGS listed are the
+        kernel selections a traced program bakes in, and `kernels` the
+        hash of each kernel source a program can launch, so an edited
+        kernel misses."""
+        from ..jit import pytree_spec
+        from ..ops import _build
+        mcfg = self._model.gpt.config
+        cuda = self._device.type == "cuda"
+        return {
+            "model": {k: v for k, v in sorted(vars(mcfg).items())},
+            "weights_spec": pytree_spec(self._W),
+            "engine": {
+                "max_slots": self._cfg.max_slots,
+                "page_size": self._cfg.page_size,
+                "num_pages": self._cfg.num_pages,
+                "pages_per_seq": self._cfg.pages_per_seq,
+                "prefill_buckets": list(self._cfg.prefill_buckets),
+                "kv_dtype": self._cache.dtype,
+                "quant_kv": bool(self._quant_kv),
+                "use_tail": bool(self._use_tail),
+                "prefix_cache": self._prefix is not None,
+                "kv_tier": self._tier is not None,
+                "kv_tier_chunk_pages": self._cfg.kv_tier_chunk_pages,
+                "spec_k": self._spec_k,
+                "top_k": self._cfg.top_k,
+                "tp": self._tp,
+            },
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "backend": self._device.type,
+            "device_kind": (torch.cuda.get_device_name(self._device)
+                            if cuda else "cpu"),
+            "device": str(self._device),
+            "flags": {n: flag(n) for n in (
+                "FLAGS_use_paged_attention", "FLAGS_use_flash_attention",
+                "FLAGS_flash_attention_min_seq")},
+            "kernels": {src: _build.source_hash(src) for src in (
+                "paged_attention.cu", "flash_fwd.cu")},
+        }
+
+    def _reset_pools(self):
+        """Zero the pools after a loaded program failed its probe at
+        warmup: they then hold nothing but its scratch-page writes, so
+        zeros are the right state (after warmup a failed program's
+        writes are rewritten by the export that replaces it)."""
+        for pool in self._pools():
+            pool.zero_()
+
+    def _selfcheck_alias(self, program, recorded: str):
+        """The structural gate on a LOADED program: the inputs it writes
+        in place (`jit.compiled_alias_spec`) must be the ones recorded
+        when it was exported, and must not be none: every covered program
+        writes the pools, so a program that writes nothing in place
+        writes copies (a functionalized program, the aliasing-drop
+        corruption class: the engine would read stale pools). Returns an
+        error string, or None when the check passes."""
+        from ..jit import compiled_alias_spec
+        live = compiled_alias_spec(program)
+        if live != recorded:
+            return (f"alias spec mismatch: loaded={live!r} vs "
+                    f"recorded={recorded!r}")
+        if not live.strip():
+            return ("empty alias spec on a pool-writing program (the "
+                    "aliasing-drop corruption class)")
+        return None
+
+    @staticmethod
+    def _probe_ok(name: str, out) -> bool:
+        """Numeric smoke verdict on one run of a loaded program: the
+        prefill programs must return finite logits, decode / verify must
+        not raise their non-finite flag; cow_copy completing is its
+        probe."""
+        if name.startswith("prefill"):
+            return bool(torch.isfinite(out).all())
+        if name.startswith(("decode", "verify")):
+            return not bool(out[-1].any())
+        return True
+
+    def _warm_one(self, name: str, prog, args):
+        """Resolve program `name` through the store, and run it once.
+
+        Hit: load, run the in-place self-check, then the numeric smoke
+        probe (ONE run: this call itself); only then does the program
+        serve and `loaded[name]` count it. Any failure bumps
+        STAT_pack_selfcheck_failures, dumps a flight record, zeroes the
+        pools at warmup and falls through to an export, so a corrupt or
+        stale entry costs a trace, never a wrong answer. Miss: export
+        `prog` with `torch.export` (its `_note` runs at trace time, so
+        the ledger counts it as store off does), write it back, run it.
+        An export that fails raises: nothing quietly runs the eager
+        path instead."""
+        W, pools = self._W, self._pools()
+        hit = self._store.load(name)
+        if hit is not None:
+            program, recorded = hit
+            err = self._selfcheck_alias(program, recorded)
+            if err is None:
+                try:
+                    module = program.module()
+                    out = module(W, pools, *args)
+                    if not self._probe_ok(name, out):
+                        err = "numeric smoke probe failed"
+                except Exception as e:  # noqa: BLE001 — falls back below
+                    err = f"smoke probe raised: {e!r}"
+            if err is None:
+                self._execs[name] = module
+                self._loaded[name] = self._loaded.get(name, 0) + 1
+                return out
+            monitor.stat_add("STAT_pack_selfcheck_failures")
+            flight_recorder.dump(
+                "program_store_selfcheck",
+                {"engine": self.name, "program": name,
+                 "key": self._store.key, "error": err})
+            if not self._warmed:
+                self._reset_pools()
+        exported = torch.export.export(_Program(prog), (W, pools, *args),
+                                       strict=False)
+        module = exported.module()
+        self._execs[name] = module
+        self._store.store(name, exported)
+        return module(W, pools, *args)
+
     @torch.inference_mode()
     def _warmup(self):
         """Run every prefill bucket (and, with the prefix cache or
@@ -1233,7 +1499,11 @@ class GenerationEngine:
         decode step (or, with speculation on, the ONE verify[k] program
         that replaces it) once, so the kernels are built and the ledger
         is complete before the first request, as the JAX engine's
-        warmup compiles them. Writes land only on the scratch page."""
+        warmup compiles them. Writes land only on the scratch page. With
+        a program store each program resolves through `_warm_one`: a
+        key-matched entry loads (self-check and smoke probe first) and
+        the ledger does not move, `loaded` counts it; a miss exports it
+        and writes it back, so the NEXT process loads it."""
         PP = self._cfg.pages_per_seq
         trash = np.zeros((PP,), np.int32)
         with RecordEvent("generation::warmup"):
@@ -2452,12 +2722,27 @@ class GenerationEngine:
         kv["prefix"] = (self._prefix.stats() if self._prefix is not None
                         else {"enabled": False})
         kv["admit_headroom"] = self._headroom()
+        ledger, loaded = dict(self._ledger), dict(self._loaded)
         return {
             "slots": slots,
             "queue_depth": depth,
             "pages": self._cache.stats(),
             "kv": kv,
-            "compiles": dict(self._ledger),
+            "compiles": ledger,
+            # the program store: programs loaded from it, and how each
+            # program came to serve
+            "loaded": loaded,
+            "programs": {n: ("loaded" if loaded.get(n) and not ledger.get(n)
+                             else "compiled")
+                         for n in set(ledger) | set(loaded)},
+            "program_store": {
+                "configured": bool(self._cfg.program_store),
+                "active": self._store is not None,
+                "key": self._store.key if self._store is not None
+                else None,
+                "dir": self._store.key_dir if self._store is not None
+                else None,
+            },
             "tp": self._tp,
             "steps": self._steps_total,
             "prefills": self._prefills_total,

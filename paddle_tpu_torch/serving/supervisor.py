@@ -247,6 +247,7 @@ class EngineSupervisor:
                                        f"{self._breaker_reason}")
                     return
                 carry = {"ledger": dead._ledger,
+                         "execs": dead._execs, "loaded": dead._loaded,
                          "step_log": dead._step_log,
                          "audit": dead._audit, "W": dead._W,
                          "degraded_spec_off": manifest.degraded_spec_off}
@@ -450,6 +451,9 @@ class EngineSupervisor:
                                  else None),
             "replay_ms_total": round(self._replay_ms_total, 3),
             "breaker": self._breaker.state(),
+            # where a rebuild finds its programs when the dead engine's
+            # are not handed over: the on-disk store (None = off)
+            "program_store": self._cfg.program_store,
         }
 
     def stats(self) -> dict:

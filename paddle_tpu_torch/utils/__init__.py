@@ -1,5 +1,6 @@
 """paddle.utils (port of `paddle_tpu.utils`; reference
-`python/paddle/utils/`). `cpp_extension` waits for ROADMAP A1."""
+`python/paddle/utils/`). `utils.cpp_extension` (host C++ ops built with
+g++) is imported by its path, as the JAX package's is."""
 from . import download, unique_name  # noqa: F401
 from .download import get_weights_path_from_url  # noqa: F401
 from .lazy_import import try_import  # noqa: F401

@@ -167,7 +167,14 @@ def test_unported_knob_raises(knob, pair):
     raises only where the JAX engine's config does: without the prefix
     cache it has nothing to demote. tp is ported: the config takes it,
     and an engine built outside a process group of tp ranks raises,
-    naming init_parallel_env and the launcher (never serving at tp 1)."""
+    naming init_parallel_env and the launcher (never serving at tp 1).
+    The program store is ported: the config takes its root as the JAX
+    engine's does (tests/test_torch_program_store.py drives it)."""
+    if "program_store" in knob:
+        cfg = GenerationConfig(**knob)
+        assert cfg.program_store == knob["program_store"]
+        assert cfg.program_store_force is False
+        return
     if "tp" in knob:
         cfg = GenerationConfig(**knob)
         assert cfg.tp == knob["tp"]

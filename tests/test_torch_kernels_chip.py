@@ -552,9 +552,10 @@ def test_ernie_tiny_step_through_the_kernels(cuda):
     from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.models import (ErnieConfig,
                                          ErnieForSequenceClassification)
-    cfg = ErnieConfig.tiny(max_position_embeddings=512,
-                           hidden_dropout_prob=0.0,
-                           attention_probs_dropout_prob=0.0)
+    # tiny() takes no overrides (as the JAX package's): set them
+    cfg = ErnieConfig.tiny()
+    cfg.max_position_embeddings = 512
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
     net = ErnieForSequenceClassification(cfg, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(0)
     ids = torch.randint(1, cfg.vocab_size, (2, 512), generator=g,

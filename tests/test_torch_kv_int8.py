@@ -246,8 +246,9 @@ def test_generation_config_takes_int8_and_refuses_the_unported():
                             kv_tier=True).kv_tier
     # tp lanes are ported: int8 pools shard their scale grids with them
     assert GenerationConfig(kv_cache_dtype="int8", tp=2).tp == 2
-    with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        GenerationConfig(program_store="/x")
+    # the program store is ported: int8 pools key their programs there
+    assert GenerationConfig(kv_cache_dtype="int8",
+                            program_store="/x").program_store == "/x"
     with pytest.raises(InvalidArgumentError, match="kv_cache_dtype"):
         GenerationConfig(kv_cache_dtype="int4")
 

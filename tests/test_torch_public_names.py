@@ -26,8 +26,6 @@ PORT = os.path.dirname(paddle_tpu_torch.__file__)
 _JAX_ONLY = ("the JAX package's own machinery, which the port does not "
              "have by design (ROADMAP C44): torch tensors, autograd and "
              "generators stand in its place")
-_PROGRAM_STORE = ("the program store and its jit / device helpers, still "
-                  "queued in ROADMAP A1")
 
 # {module: {name: reason}}: public names of the reference the port lacks
 ALLOWED = {
@@ -69,14 +67,6 @@ ALLOWED = {
         "n": "a loop variable of the reference module, not an API name",
         "names": "a loop variable of the reference module, not an API "
                  "name"},
-    "device": {n: _PROGRAM_STORE for n in (
-        "serialization_unsafe_backend", "warn_forced_serialization",
-        "enable_compilation_cache", "compilation_cache_dir",
-        "program_store_dir", "maybe_enable_compilation_cache")},
-    "jit": {n: _PROGRAM_STORE for n in (
-        "serialize_compiled", "deserialize_compiled", "compiled_alias_spec",
-        "pytree_spec", "key_material_digest")},
-    "serving": {"ProgramStore": _PROGRAM_STORE},
 }
 
 # reference modules with no port module at the same path
@@ -91,9 +81,6 @@ NO_PORT_FILE = {
     "framework/deferred.py": "the JAX package's deferred dispatch "
                              "(ROADMAP A, by design)",
     "ops/pallas_ops.py": "ported as ops/flash_ops.py (K2-K4)",
-    "serving/program_store.py": _PROGRAM_STORE,
-    "utils/cpp_extension.py": "the custom-op build tool, queued in "
-                              "ROADMAP A1 with the program store",
 }
 
 
